@@ -26,10 +26,33 @@ Phases, each of which raises on failure:
    Every answer is held against a ``Predictor`` forward of the same rows
    with both kernel knobs at 0, and the launch counts are held to 33 (K3)
    and 1 (K2) per forward.  Then a bucket-32 forward is timed with the
-   kernels and with both knobs at 0, and profiled by kind of kernel.
+   kernels and with both knobs at 0, and profiled by kind of kernel;
+5. training (the second main path): ``Module.fit`` on full-width ResNet-50
+   v1 fp32 at batch 32 with ``kvstore="tpu"`` (the executor's fused step),
+   SGD momentum 0.9, wd 1e-4, Xavier weights from a seed, on one fixed
+   synthetic batch held on the card: 3 warmup steps and 20 timed ones.
+   The launch counts are held to buckets x steps (K1b) and one per step
+   (K2), and the cross-entropy on the batch must fall from the first step
+   to the last;
+6. parity: from one saved state, one step with the sweep kernels and one
+   with ``MXNET_PALLAS_FUSED_OPT=0`` (the per-array path), cuDNN
+   deterministic: weights, momentum and moving stats bitwise equal, or
+   within 1e-6 relative;
+7. the other optimizer paths: Adam (K4) and SGD without momentum (K1a)
+   on the same model, 3 warmup and 10 timed steps each, each launching
+   its kernel; Adam's bias correction rewrites the hyperparameter table
+   every step, so its step time is printed beside the constant-lr SGD
+   step; after phase 8's profiler timings two more steps of each path run
+   with torch's sync debug mode at "error", which raises if a step makes
+   the host wait for the card;
+8. the sweep kernels (K1a, K1b, K4) bitwise against their plain versions
+   at the bucket sizes of the training path, at 1, 3 and 4097 elements,
+   on a view whose offset breaks 16-byte alignment, clip on and off, and
+   timed per bucket beside their plain versions and bounds; then every
+   kernel's device time by the profiler, and one profiled training step.
 
-Prints one JSON line ``{"kernels": [...]}``, the serving numbers beside the
-card's name and power limit, and as its last line
+Prints one JSON line ``{"kernels": [...]}``, the serving and training
+numbers beside the card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
 prints no result.
 """
@@ -50,6 +73,12 @@ REQUESTS = 64
 CLIENTS = 8
 SEED = 0
 KNOBS = ("MXNET_PALLAS_BN_RELU", "MXNET_PALLAS_SOFTMAX")
+FUSED_OPT = ("MXNET_PALLAS_FUSED_OPT",)
+CLASSES = 1000
+TRAIN_WARMUP = 3            # untimed steps before the timed ones
+TRAIN_STEPS = 20            # timed steps
+OTHER_STEPS = 10            # timed steps of each other optimizer path
+SGD_PARAMS = {"learning_rate": 0.02, "momentum": 0.9, "wd": 1e-4}
 
 # (name fragment, HBM bytes/s, fp32 FLOP/s outside the tensor cores), from
 # NVIDIA's data sheets; the first fragment found in the card's name wins.
@@ -58,15 +87,17 @@ CARDS = (("H200", 4.8e12, 67e12), ("H100 NVL", 3.9e12, 60e12),
 
 
 class knobs:
-    """Set both kernel knobs (None: unset, i.e. ``auto``) for a block."""
+    """Set kernel knobs (default: both serving knobs; None: unset, i.e.
+    ``auto``) for a block."""
 
-    def __init__(self, value):
+    def __init__(self, value, names=KNOBS):
         self.value = value
+        self.names = names
         self.saved = {}
 
     def __enter__(self):
-        self.saved = {k: os.environ.get(k) for k in KNOBS}
-        for k in KNOBS:
+        self.saved = {k: os.environ.get(k) for k in self.names}
+        for k in self.names:
             if self.value is None:
                 os.environ.pop(k, None)
             else:
@@ -354,8 +385,8 @@ def serve(mx, ck, ctx, sym, image, n_sites, max_batch=BATCH,
         raise errors[0]
     st = srv.stats()
     forwards = st["batches"]["count"]
-    want = {"scale_bias_relu": n_sites * forwards,
-            "softmax_lastaxis": forwards}
+    want = dict.fromkeys(calls, 0)
+    want.update(scale_bias_relu=n_sites * forwards, softmax_lastaxis=forwards)
     if calls != want:
         raise AssertionError("kernel launches %s over %d forwards; expected "
                              "%s" % (calls, forwards, want))
@@ -424,6 +455,29 @@ def serve(mx, ck, ctx, sym, image, n_sites, max_batch=BATCH,
     }
 
 
+# kinds of kernel in a profile, by fragments of the kernel's name; the
+# first kind that matches wins
+KINDS = (("K3", ("scale_bias_relu",)), ("K2", ("softmax_rows",)),
+         ("K1a/K1b/K4 sweep", ("sweep_kernel",)),
+         ("convolution", ("xmma", "conv", "implicit", "gemm", "cudnn",
+                          "wgrad", "dgrad")),
+         ("copy to device", ("Memcpy HtoD",)),
+         ("copy to host", ("Memcpy DtoH",)),
+         ("reduction", ("reduce_kernel",)),
+         ("elementwise", ("elementwise", "vectorized")),
+         ("pooling", ("pool",)))
+
+
+def by_kind(by_name):
+    """``{kind: device us}`` of a ``device_times`` result."""
+    us = dict.fromkeys([k for k, _ in KINDS] + ["other"], 0.0)
+    for name, v in by_name.items():
+        kind = next((k for k, frags in KINDS
+                     if any(f in name for f in frags)), "other")
+        us[kind] += v
+    return us
+
+
 def profile_forward(pred, x, wall_ms):
     """Device time by kind of kernel over one forward (torch.profiler),
     beside the forward's wall time ``wall_ms`` measured without the
@@ -435,21 +489,302 @@ def profile_forward(pred, x, wall_ms):
     wall, busy = wall_ms * 1e3, sum(by_name.values())
     if busy <= 0:
         return "profile: not measured (the trace holds no device time)"
-    kinds = (("K3", ("scale_bias_relu",)), ("K2", ("softmax_rows",)),
-             ("convolution", ("xmma", "conv", "implicit", "gemm", "cudnn")),
-             ("copy to device", ("Memcpy HtoD",)),
-             ("copy to host", ("Memcpy DtoH",)),
-             ("elementwise", ("elementwise", "vectorized", "reduce")),
-             ("pooling", ("pool",)))
-    us = dict.fromkeys([k for k, _ in kinds] + ["other"], 0.0)
-    for name, v in by_name.items():
-        kind = next((k for k, frags in kinds
-                     if any(f in name for f in frags)), "other")
-        us[kind] += v
     return ("profile of one bucket-%d forward: wall %.0f us, device busy "
             "%.0f us (idle share %.3f); by kind: %s"
             % (x.shape[0], wall, busy, max(0.0, 1 - busy / wall),
-               ", ".join("%s %.0f us" % kv for kv in us.items())))
+               ", ".join("%s %.0f us" % kv
+                         for kv in by_kind(by_name).items())))
+
+
+# ---------------------------------------------------------------------------
+# phases 5-7: the training path
+# ---------------------------------------------------------------------------
+def synthetic_iter(mx, ctx, batch, image, steps, seed=SEED, classes=CLASSES):
+    """One fixed random batch held on ``ctx``, handed out ``steps`` times
+    per epoch (example/image-classification/common/data.py
+    SyntheticDataIter, with the batch made from ``seed``)."""
+    rng = np.random.RandomState(seed)
+    data = mx.nd.array(rng.uniform(-1, 1, (batch,) + tuple(image))
+                       .astype(np.float32), ctx=ctx)
+    label = mx.nd.array(rng.randint(0, classes, (batch,))
+                        .astype(np.float32), ctx=ctx)
+
+    class SyntheticDataIter(mx.io.DataIter):
+        def __init__(self):
+            super().__init__(batch_size=batch)
+            self.cur = 0
+            self.provide_data = [mx.io.DataDesc("data", data.shape)]
+            self.provide_label = [mx.io.DataDesc("softmax_label",
+                                                 label.shape)]
+
+        def next(self):
+            self.cur += 1
+            if self.cur > steps:
+                raise StopIteration
+            return mx.io.DataBatch(data=[data], label=[label], pad=0)
+
+        def reset(self):
+            self.cur = 0
+
+    return SyntheticDataIter()
+
+
+def cross_entropy(prob, label):
+    """Mean cross-entropy of softmax output ``prob`` against ``label``."""
+    p = prob.gather(1, label.long().view(-1, 1)).clamp_min(1e-12)
+    return float(-p.log().mean())
+
+
+def _marker(device):
+    """A point on ``device``'s timeline: a recorded CUDA event, or the
+    host clock on the CPU."""
+    if device.type == "cuda":
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+    return time.perf_counter()
+
+
+def _elapsed_ms(a, b):
+    if isinstance(a, float):
+        return (b - a) * 1e3
+    b.synchronize()
+    return a.elapsed_time(b)
+
+
+def train(mx, ck, ctx, sym, image, batch, steps, warmup=0, optimizer="sgd",
+          optimizer_params=SGD_PARAMS, arg_params=None, aux_params=None,
+          seed=SEED, classes=CLASSES):
+    """``Module.fit`` of ``sym`` on ``ctx`` with ``kvstore="tpu"``, one
+    epoch of ``warmup + steps`` batches of one fixed synthetic batch,
+    Xavier initialisation (``fit.py``'s: gaussian, fan in, magnitude 2)
+    unless parameters are given.  The launch counts are reset just before
+    ``fit`` and read just after.  Returns the module and what it
+    measured."""
+    total = warmup + steps
+    it = synthetic_iter(mx, ctx, batch, image, total, seed, classes)
+    mod = mx.mod.Module(sym, context=ctx)
+    device = torch.device("cuda", ctx.device_id) \
+        if ctx.device_type == "gpu" else torch.device("cpu")
+    marks, probs = [], {}
+
+    def on_batch(param):
+        if param.nbatch in (0, total - 1):
+            probs[param.nbatch] = mod.get_outputs()[0]._data.clone()
+        marks.append(_marker(device))
+
+    mx.random.seed(seed)
+    ck.reset_kernel_calls()
+    mod.fit(it, num_epoch=1, kvstore="tpu", optimizer=optimizer,
+            optimizer_params=optimizer_params,
+            initializer=mx.init.Xavier(rnd_type="gaussian",
+                                       factor_type="in", magnitude=2),
+            arg_params=arg_params, aux_params=aux_params,
+            eval_metric="acc",
+            batch_end_callback=[on_batch,
+                                mx.callback.Speedometer(batch, 10)])
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    calls = ck.kernel_calls()
+    exe = mod._exec_group.execs[0]
+    label = it.next().label[0]._data
+    step_ms = _elapsed_ms(marks[warmup - 1], marks[-1]) / steps \
+        if warmup else None
+    return mod, {
+        "steps": total, "calls": calls,
+        "fused": mod._fused_exec_update,
+        "buckets": [b.n for b, _ in exe._sweep["plan"]]
+        if exe._sweep is not None else [],
+        "kernel": exe._sweep["kernel"] if exe._sweep is not None else None,
+        "step_ms": step_ms,
+        "images_per_s": batch / step_ms * 1e3 if step_ms else None,
+        "ce_first": cross_entropy(probs[0], label),
+        "ce_last": cross_entropy(probs[total - 1], label),
+    }
+
+
+def steps_without_sync(mod, batch, n=2):
+    """``n`` more training steps of ``mod`` with torch's sync debug mode
+    at "error": anything in a step that makes the host wait for the card
+    (a blocking copy from pageable memory, an ``.item()``) raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(n):
+            mod.forward_backward(batch)
+            mod.update()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def momentum_by_name(exe):
+    """``{weight name: first optimizer slot}`` of a fused-step executor,
+    whether its slots are bucket-major (the sweep) or per weight."""
+    from mxnet_tpu_torch.parallel.collectives import unflatten_bucket
+    names = [exe.arg_names[i] for i in exe._diff_idx]
+    if exe._sweep is None:
+        return {n: st[0] for n, st in zip(names, exe._fused_state)}
+    out = {}
+    for bi, (b, _idxs) in enumerate(exe._sweep["plan"]):
+        out.update(unflatten_bucket(exe._fused_state[bi][0], b))
+    return out
+
+
+def parity(mx, ck, ctx, sym, image, batch, arg_params, aux_params,
+           classes=CLASSES, on=None):
+    """Two steps from the same saved state (the second one uses the
+    momentum of the first), once with the sweep kernels
+    (``MXNET_PALLAS_FUSED_OPT`` = ``on``; None leaves it at ``auto``) and
+    once with it at 0, cuDNN deterministic.  Returns the largest
+    difference of any weight, momentum or moving-stat tensor relative to
+    that tensor's largest magnitude, and whether every tensor is bitwise
+    equal."""
+    state = {}
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for mode in (on, "0"):
+            with knobs(mode, FUSED_OPT):
+                mod, res = train(mx, ck, ctx, sym, image, batch, 2,
+                                 arg_params=arg_params,
+                                 aux_params=aux_params, classes=classes)
+            exe = mod._exec_group.execs[0]
+            if (res["kernel"] is not None) != (mode != "0"):
+                raise AssertionError("MXNET_PALLAS_FUSED_OPT=%s took the "
+                                     "wrong path" % mode)
+            state[mode] = (
+                {n: exe.arg_dict[n]._data.clone() for n in exe.arg_dict
+                 if n in arg_params},
+                {n: m.clone() for n, m in momentum_by_name(exe).items()},
+                {n: a._data.clone() for n, a in exe.aux_dict.items()})
+            del mod, exe
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    worst, bitwise, count = 0.0, True, 0
+    for ka, kb in zip(state[on], state["0"]):
+        if set(ka) != set(kb):
+            raise AssertionError("parity: the two paths hold different "
+                                 "tensors")
+        for n in ka:
+            a, b = ka[n], kb[n]
+            bitwise &= torch.equal(a.view(torch.int32), b.view(torch.int32))
+            rel = ((a - b).abs().max()
+                   / b.abs().max().clamp_min(1e-30)).item()
+            worst = max(worst, rel)
+            count += 1
+    return {"tensors": count, "bitwise": bitwise, "max_rel": worst}
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the sweep kernels against their plain versions
+# ---------------------------------------------------------------------------
+SWEEPS = (  # name, K number, slots, TPU kernel line, float ops per element
+    ("sgd_sweep", "K1a", 0, 538, 5),
+    ("sgd_mom_sweep", "K1b", 1, 543, 7),
+    ("adam_sweep", "K4", 2, 551, 15),
+)
+
+
+def sweep_hyper(name, use_clip):
+    h = {"sgd_sweep": [0.02, 1e-4, 1.0 / BATCH],
+         "sgd_mom_sweep": [0.02, 0.9, 1e-4, 1.0 / BATCH],
+         "adam_sweep": [1e-3, 0.9, 0.999, 1.0 - 0.9, 1.0 - 0.999, 1e-8,
+                        1e-4, 1.0 / BATCH]}[name]
+    return h + ([0.5] if use_clip else [])
+
+
+def check_sweeps(ck, dev, bw, flops, buckets):
+    """Each sweep bitwise equal to its plain version (on clones: both
+    write in place) at the training path's bucket sizes and at the edges,
+    aligned and misaligned, clip on and off.  Returns one record per
+    kernel and its timing jobs, one per bucket."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    recs, jobs = {}, {}
+    for name, knum, n_slots, line, ops in SWEEPS:
+        worst = 0.0
+        for n in list(buckets) + [1, 3, 4097]:
+            for offset in (0, 1):
+                for use_clip in (False, True):
+                    bufs = [torch.randn(n + offset, generator=gen,
+                                        device=dev)[offset:]
+                            for _ in range(2 + n_slots)]
+                    bufs[1] *= 3.0
+                    if n_slots == 2:
+                        bufs[3] = bufs[3].abs() * 0.01
+                    h = torch.tensor(sweep_hyper(name, use_clip),
+                                     dtype=torch.float32, device=dev)
+                    kb = [b.clone() for b in bufs]
+                    pb = [b.clone() for b in bufs]
+                    getattr(ck, name)(kb[0], kb[1], *kb[2:], h, use_clip)
+                    getattr(ck, name + "_ref")(pb[0], pb[1], *pb[2:], h,
+                                               use_clip)
+                    torch.cuda.synchronize()
+                    for k, p in zip(kb, pb):
+                        if not torch.equal(k.view(torch.int32),
+                                           p.view(torch.int32)):
+                            raise AssertionError(
+                                "%s %s differs from its plain version at "
+                                "n=%d offset=%d clip=%s: max |d| %g"
+                                % (knum, name, n, offset, use_clip,
+                                   (k - p).abs().max().item()))
+                        worst = max(worst, (k - p).abs().max().item())
+        nbytes = ops_total = 0
+        jobs[name] = []
+        for n in buckets:
+            bufs = [torch.randn(n, generator=gen, device=dev)
+                    for _ in range(2 + n_slots)]
+            if n_slots == 2:
+                bufs[3] = bufs[3].abs() * 0.01
+            h = torch.tensor(sweep_hyper(name, False), dtype=torch.float32,
+                             device=dev)
+            moved = 4 * n * (2 + 2 * n_slots + 1)    # reads w g slots; writes
+            nbytes += moved
+            ops_total += ops * n
+            fns = {"": lambda b=bufs, h=h, f=getattr(ck, name):
+                   f(b[0], b[1], *b[2:], h),
+                   "plain_": lambda b=bufs, h=h,
+                   f=getattr(ck, name + "_ref"): f(b[0], b[1], *b[2:], h)}
+            jobs[name].append({"count": 1, "n": n, "fns": fns,
+                               "bound_ms": bound_ms(moved, ops * n, bw,
+                                                    flops)[0]})
+        bms, by = bound_ms(nbytes, ops_total, bw, flops)
+        recs[name] = {
+            "name": "%s (%s)" % (name, knum), "route": "cuda",
+            "source": "mxnet_tpu_torch/ops/csrc/optimizer_sweep.cu",
+            "replaces": "mxnet_tpu/ops/pallas_kernels.py:%d" % line,
+            "shape": "flat fp32 buckets of %s elements (one fused step of "
+                     "ResNet-50 v1); times summed over the buckets" % (
+                         list(buckets),),
+            "max_abs_err": worst, "bound_ms": bms, "bound_by": by,
+            "library_ms": None, "library_call_ms": None,
+            "library_note": "none computes this function: torch's fused "
+                            "SGD keeps buf = mu*buf + g, its Adam puts eps "
+                            "elsewhere",
+        }
+    return recs, jobs
+
+
+def profile_step(mod, batch_input, step_ms):
+    """Device time of one training step (forward, backward, sweep) by
+    kind of kernel and its top kernels, beside the step's time without
+    the profiler; a printable line."""
+    def step():
+        mod.forward_backward(batch_input)
+        mod.update()
+
+    by_name = device_times(step, n=1)
+    busy = sum(by_name.values())
+    if busy <= 0:
+        return "training step profile: not measured (no device time)"
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return ("profile of one training step: step %.0f us (CUDA events, no "
+            "profiler), device busy %.0f us (idle share %.3f); by kind: %s; "
+            "top kernels: %s"
+            % (step_ms * 1e3, busy, max(0.0, 1 - busy / (step_ms * 1e3)),
+               ", ".join("%s %.0f us" % kv
+                         for kv in by_kind(by_name).items()),
+               "; ".join("%s %.0f us" % (k[:60], v) for k, v in top)))
 
 
 def main():
@@ -508,27 +843,132 @@ def main():
         rec["launches"] = res["launches"][name]
         rec["launches_per_forward"] = rec["launches"] / res["forwards"]
 
-    # 5. device time of each kernel (the profiler last: its hooks slow the
+    # 5. the training path: Module.fit through the fused step
+    mod, tr = train(mx, ck, mx.gpu(0), sym, IMAGE, BATCH, TRAIN_STEPS,
+                    TRAIN_WARMUP)
+    nb, steps = len(tr["buckets"]), tr["steps"]
+    want = dict.fromkeys(tr["calls"], 0)
+    want.update(sgd_mom_sweep=nb * steps, softmax_lastaxis=steps)
+    if not tr["fused"] or tr["kernel"] != "sgd_mom_sweep" \
+            or tr["calls"] != want:
+        raise AssertionError("training: fused step %s (%s), launches %s; "
+                             "expected %s" % (tr["fused"], tr["kernel"],
+                                              tr["calls"], want))
+    if not tr["ce_last"] < tr["ce_first"]:
+        raise AssertionError("training: the cross-entropy on the fixed batch "
+                             "went from %.4f to %.4f" % (tr["ce_first"],
+                                                         tr["ce_last"]))
+    print("training on %s: ResNet-50 v1 fp32, Module.fit kvstore=tpu, batch "
+          "%d, SGD lr %g momentum %g wd %g; %d warmup + %d timed steps: "
+          "%.2f ms/step, %.1f images/s (CUDA events); buckets %s; launches "
+          "%s; cross-entropy on the batch %.4f -> %.4f"
+          % (smi, BATCH, SGD_PARAMS["learning_rate"], SGD_PARAMS["momentum"],
+             SGD_PARAMS["wd"], TRAIN_WARMUP, TRAIN_STEPS, tr["step_ms"],
+             tr["images_per_s"], tr["buckets"], tr["calls"], tr["ce_first"],
+             tr["ce_last"]), flush=True)
+    train_batch = synthetic_iter(mx, mx.gpu(0), BATCH, IMAGE, 1).next()
+    arg_params, aux_params = mod.get_params()
+    arg_params = {k: v.copy() for k, v in arg_params.items()}
+    aux_params = {k: v.copy() for k, v in aux_params.items()}
+    # the same step with MXNET_PALLAS_FUSED_OPT=0 (per-array updates, no
+    # sweep kernel), in turns with the kernels: 0, kernels, 0
+    ab = {None: [tr["step_ms"]], "0": []}
+    for mode in ("0", None, "0"):
+        with knobs(mode, FUSED_OPT):
+            ab[mode].append(train(
+                mx, ck, mx.gpu(0), sym, IMAGE, BATCH, TRAIN_STEPS,
+                TRAIN_WARMUP, arg_params=arg_params,
+                aux_params=aux_params)[1]["step_ms"])
+    print("training step ms, sweep kernels %s vs MXNET_PALLAS_FUSED_OPT=0 "
+          "%s (runs in the order kernels, 0, kernels, 0)"
+          % (["%.2f" % t for t in ab[None]], ["%.2f" % t for t in ab["0"]]),
+          flush=True)
+
+    # 6. parity: the kernel step against the per-array step
+    par = parity(mx, ck, mx.gpu(0), sym, IMAGE, BATCH, arg_params,
+                 aux_params)
+    if not (par["bitwise"] or par["max_rel"] <= 1e-6):
+        raise AssertionError("parity: sweep vs per-array step differ by "
+                             "%g relative" % par["max_rel"])
+    print("parity (2 steps from one state, cudnn.deterministic): %d tensors "
+          "(weights, momentum, moving stats), bitwise equal: %s, max "
+          "relative difference %g" % (par["tensors"], par["bitwise"],
+                                      par["max_rel"]), flush=True)
+
+    # 7. the other optimizer paths
+    other, other_mods = {}, {}
+    for kname, opt_name, params in (
+            ("adam_sweep", "adam", {"learning_rate": 1e-3, "wd": 1e-4}),
+            ("sgd_sweep", "sgd", {"learning_rate": 0.02, "wd": 1e-4})):
+        mod_o, res_o = train(mx, ck, mx.gpu(0), sym, IMAGE, BATCH,
+                             OTHER_STEPS, TRAIN_WARMUP, optimizer=opt_name,
+                             optimizer_params=params, arg_params=arg_params,
+                             aux_params=aux_params)
+        n_o = len(res_o["buckets"]) * res_o["steps"]
+        if res_o["kernel"] != kname or res_o["calls"][kname] != n_o \
+                or n_o <= 0:
+            raise AssertionError("%s path: kernel %s, launches %s" % (
+                opt_name, res_o["kernel"], res_o["calls"]))
+        other[kname] = res_o
+        other_mods[opt_name] = mod_o
+        print("%s path on %s: %d warmup + %d timed steps: %.2f ms/step, "
+              "%.1f images/s (CUDA events; SGD momentum %.2f ms/step); "
+              "launches %s; cross-entropy %.4f -> %.4f"
+              % (opt_name, smi, TRAIN_WARMUP, OTHER_STEPS, res_o["step_ms"],
+                 res_o["images_per_s"], tr["step_ms"], res_o["calls"],
+                 res_o["ce_first"], res_o["ce_last"]), flush=True)
+
+    # 8. the sweep kernels against their plain versions
+    sweeps, sweep_jobs = check_sweeps(ck, dev, bw, flops, tr["buckets"])
+    for name, rec in sweeps.items():
+        time_jobs(rec, sweep_jobs[name], "call_ms", time_ms)
+        src = tr if name == "sgd_mom_sweep" else other[name]
+        rec["launches"] = src["calls"][name]
+        rec["launches_per_forward"] = rec["launches"] / src["steps"]
+    print("kernels checked: K1a, K1b, K4 bitwise equal at buckets %s and n "
+          "1, 3, 4097, aligned and misaligned, clip on and off"
+          % tr["buckets"], flush=True)
+    k2["launches_training"] = tr["calls"]["softmax_lastaxis"]
+
+    # device time of each kernel (the profiler last: its hooks slow the
     # host for the rest of the process)
+    recs = [(k3, k3_jobs), (k2, k2_jobs)] + [
+        (sweeps[name], sweep_jobs[name]) for name, *_ in SWEEPS]
     try:
-        for rec, jobs in ((k3, k3_jobs), (k2, k2_jobs)):
+        for rec, jobs in recs:
             time_jobs(rec, jobs, "ms", device_ms)
     except RuntimeError as exc:
         print("device times by CUDA events instead (%s)" % exc)
-        for rec, jobs in ((k3, k3_jobs), (k2, k2_jobs)):
+        for rec, jobs in recs:
             time_jobs(rec, jobs, "ms", time_ms)
+    # after the profiler: with these steps before it, its kernel sessions
+    # traced no device time (a bare set and reset of the mode does not do
+    # that; the cause is not known)
+    for opt_name, mod_o in other_mods.items():
+        steps_without_sync(mod_o, train_batch)
+        print("%s path: 2 more steps with sync debug mode 'error' did not "
+              "wait on the card" % opt_name, flush=True)
+    del other_mods
     for job in k3_jobs:
         print("K3 %-20s x%-2d device: kernel %.4f ms, plain %.4f ms, bound "
               "%.4f ms; per call: kernel %.4f ms, plain %.4f ms"
               % ((job["shape"], job["count"]) + tuple(
                   job[k] for k in ("ms", "plain_ms", "bound_ms", "call_ms",
                                    "plain_call_ms"))))
+    for name, knum, *_ in SWEEPS:
+        for job in sweep_jobs[name]:
+            print("%s %s bucket of %d: device kernel %.4f ms, plain %.4f ms, "
+                  "bound %.4f ms; per call: kernel %.4f ms, plain %.4f ms"
+                  % (knum, name, job["n"], job["ms"], job["plain_ms"],
+                     job["bound_ms"], job["call_ms"], job["plain_call_ms"]))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
             "launches_per_forward", "call_ms", "plain_call_ms",
             "library_call_ms")
-    print(json.dumps({"kernels": [{k: rec[k] for k in keys}
-                                  for rec in (k3, k2)]}))
+    print(json.dumps({"kernels": [
+        {k: rec[k] for k in keys + tuple(
+            x for x in ("launches_training", "library_note") if x in rec)}
+        for rec, _ in recs]}))
     print("serving on %s: ResNet-50 v1 fp32, buckets %s, warmup %.1f s; "
           "%d requests (%d rows) from %d clients in %.3f s: %.2f req/s, "
           "%.1f rows/s, p50 %.2f ms, p99 %.2f ms; bucket-%d forward %.2f ms "
@@ -542,11 +982,9 @@ def main():
              res["launches"], res["argmax_equal"], res["requests"],
              res["max_abs_dp"], res["top_p_mean"], res["top_p_min"],
              json.dumps(res["occupancy"])), flush=True)
-    try:
-        print(profile_forward(res["predictor"], res["batch_input"],
-                              res["fwd_ms"]))
-    except Exception as exc:    # noqa: BLE001 — a measurement, not a check
-        print("profile: not measured (%s: %s)" % (type(exc).__name__, exc))
+    print(profile_forward(res["predictor"], res["batch_input"],
+                          res["fwd_ms"]))
+    print(profile_step(mod, train_batch, tr["step_ms"]))
     print("nvidia-smi: %s" % smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

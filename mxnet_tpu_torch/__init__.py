@@ -14,9 +14,12 @@ TF32 (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32`` are set to False at import),
 because the reference forward is float32.
 
-This slice carries the inference path: symbols and their JSON, the ops
-of a ResNet forward, ``simple_bind``/``forward``, ``Predictor`` and the
-micro-batching ``ModelServer``.
+The port carries two paths so far: inference (symbols and their JSON,
+the ops of a ResNet, ``simple_bind``/``forward``, ``Predictor`` and the
+micro-batching ``ModelServer``) and training through ``Module.fit``
+(autograd backward, BatchNorm's batch statistics, SGD/Adam, the
+executor's fused optimizer step, ``NDArrayIter``, metrics,
+initializers and the ``local``/``device``/``tpu`` kvstores).
 """
 import torch
 
@@ -34,6 +37,19 @@ from . import io  # noqa: F401
 from . import engine  # noqa: F401
 from . import convert  # noqa: F401
 from . import serving  # noqa: F401
+from . import random  # noqa: F401
+from . import lr_scheduler  # noqa: F401
+from . import initializer  # noqa: F401
+from . import initializer as init  # noqa: F401
+from . import optimizer  # noqa: F401
+from . import metric  # noqa: F401
+from . import kvstore  # noqa: F401
+from . import kvstore as kv  # noqa: F401
+from . import callback  # noqa: F401
+from . import model  # noqa: F401
+from . import module  # noqa: F401
+from . import module as mod  # noqa: F401
+from . import parallel  # noqa: F401
 
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False

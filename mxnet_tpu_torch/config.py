@@ -59,6 +59,12 @@ register_env("MXNET_PALLAS_SOFTMAX", str, "auto",
              "SoftmaxOutput forward through the softmax_lastaxis CUDA "
              "kernel: auto = on for tensors on the GPU, 1 = force (the "
              "plain version on CPU tensors), 0 = off (torch.softmax)")
+register_env("MXNET_PALLAS_FUSED_OPT", str, "auto",
+             "executor fused step (Module with kvstore='tpu'): the "
+             "one-sweep optimizer CUDA kernels over flat fp32 buckets: "
+             "auto = on for weights on the GPU, 1 = force (the plain "
+             "versions on CPU tensors), 0 = off (the per-array path, "
+             "which launches no kernel)")
 register_env("MXNET_SERVING_MAX_BATCH", int, 8,
              "largest serving shape bucket; the micro-batcher coalesces "
              "concurrent requests up to this many rows per dispatch")

@@ -1,0 +1,197 @@
+"""KVStore — key-value store for parameter synchronisation.
+
+Counterpart of ``mxnet_tpu/kvstore.py:119-425`` (reference:
+python/mxnet/kvstore.py, src/kvstore/) for one process on one device:
+
+- ``local`` / ``device``: ``push`` reduces the pushed values and applies
+  the updater (``set_optimizer``) to the stored weight, or adds to it;
+  ``pull`` hands the stored tensor out (an alias, as the JAX package).
+- ``tpu`` (``KVStoreTPU``): ``push`` only buffers the gradient and the
+  next ``pull`` applies every buffered key at once through the
+  optimizer's per-array update (``optimizer.fused_update_kernel``), with
+  the same arithmetic as the per-key path.  Under ``Module`` on one
+  device this store is what asks for the executor's fused step, where
+  the update runs inside ``forward(is_train=True)`` and the store is
+  bypassed.
+
+The multi-process stores (``dist_*``) come with the multi-GPU slice.
+"""
+from __future__ import annotations
+
+import torch
+
+from .base import MXNetError
+from .ndarray import NDArray
+from . import optimizer as opt
+
+__all__ = ["KVStore", "KVStoreTPU", "create"]
+
+
+def _key_values(keys, vals):
+    """(keys, values) -> parallel lists of keys and of value lists
+    (reference: kvstore.py:45)."""
+    if isinstance(keys, (tuple, list)):
+        if len(keys) != len(vals):
+            raise MXNetError("%d keys for %d values" % (len(keys), len(vals)))
+        out_keys, out_vals = [], []
+        for k, v in zip(keys, vals):
+            ks, vs = _key_values(k, v)
+            out_keys.extend(ks)
+            out_vals.extend(vs)
+        return out_keys, out_vals
+    if isinstance(vals, NDArray):
+        return [keys], [[vals]]
+    if not all(isinstance(v, NDArray) for v in vals):
+        raise MXNetError("kvstore values must be NDArrays")
+    return [keys], [list(vals)]
+
+
+class KVStore:
+    """In-process key-value store (reference: include/mxnet/kvstore.h:47)."""
+
+    def __init__(self, kv_type="local"):
+        self.type = kv_type
+        self._store = {}
+        self._updater = None
+        self._optimizer = None
+
+    def init(self, key, value):
+        """Store a copy of each key's first value, once (reference:
+        kvstore.py:114)."""
+        keys, vals = _key_values(key, value)
+        for k, vlist in zip(keys, vals):
+            if k in self._store:
+                raise MXNetError("key %r already initialized" % (k,))
+            self._store[k] = NDArray(vlist[0]._data.clone())
+
+    def _reduce(self, vlist):
+        """The sum of one key's pushed values (one per device)."""
+        merged = vlist[0]._data
+        for v in vlist[1:]:
+            merged = merged + v._data.to(merged.device)
+        return NDArray(merged)
+
+    def push(self, key, value, priority=0):
+        """Aggregate values into the store, applying the updater if set
+        (reference: kvstore.py:158)."""
+        keys, vals = _key_values(key, value)
+        for k, vlist in zip(keys, vals):
+            if k not in self._store:
+                raise MXNetError("key %r has not been initialized" % (k,))
+            merged = self._reduce(vlist)
+            if self._updater is not None:
+                self._updater(self._key_int(k), merged, self._store[k])
+            else:
+                self._store[k]._data = self._store[k]._data + merged._data
+
+    def pull(self, key, out=None, priority=0, ignore_sparse=True):
+        """Point each out array at the stored value (reference:
+        kvstore.py:238)."""
+        if out is None:
+            raise MXNetError("pull needs out arrays")
+        keys, outs = _key_values(key, out)
+        for k, olist in zip(keys, outs):
+            if k not in self._store:
+                raise MXNetError("key %r has not been initialized" % (k,))
+            src = self._store[k]._data
+            for o in olist:
+                o._data = src if (src.dtype == o._data.dtype
+                                  and src.device == o._data.device) \
+                    else src.to(device=o._data.device, dtype=o._data.dtype)
+
+    def set_optimizer(self, optimizer):
+        """Run the optimizer on the store (update on kvstore; reference
+        kvstore.py:443)."""
+        self._optimizer = optimizer
+        self._updater = opt.get_updater(optimizer)
+
+    @staticmethod
+    def _key_int(k):
+        """Integer-like keys as ints; names pass through (the optimizer
+        looks its multipliers up by name)."""
+        if isinstance(k, int):
+            return k
+        try:
+            return int(k)
+        except (TypeError, ValueError):
+            return k
+
+    @property
+    def rank(self):
+        return 0
+
+    @property
+    def num_workers(self):
+        return 1
+
+
+class KVStoreTPU(KVStore):
+    """The fused-update store (``kvstore="tpu"``): pushes are buffered and
+    the first pull applies every buffered update at once, through the
+    optimizer's per-array form, with lr and wd for all keys in one small
+    fp32 tensor (reference for the semantics: the server-side update,
+    kvstore_dist_server.h:282)."""
+
+    fused_update = True
+
+    def __init__(self, kv_type="tpu"):
+        super().__init__(kv_type)
+        self._pending = {}    # key -> merged gradient tensor
+        self._fstate = {}     # key -> tuple of slot tensors
+
+    def set_optimizer(self, optimizer):
+        super().set_optimizer(optimizer)
+        self._fstate.clear()
+
+    def _fused(self):
+        o = self._optimizer
+        return None if o is None else opt.fused_update_kernel(o)
+
+    def push(self, key, value, priority=0):
+        if self._updater is None or self._fused() is None:
+            return super().push(key, value, priority)
+        keys, vals = _key_values(key, value)
+        for k, vlist in zip(keys, vals):
+            if k not in self._store:
+                raise MXNetError("key %r has not been initialized" % (k,))
+            if k in self._pending:
+                # one update per push: apply the buffered one first
+                self._flush()
+            self._pending[k] = self._reduce(vlist)._data
+
+    def pull(self, key, out=None, priority=0, ignore_sparse=True):
+        if self._pending:
+            self._flush()
+        return super().pull(key, out=out, priority=priority,
+                            ignore_sparse=ignore_sparse)
+
+    def _flush(self):
+        o = self._optimizer
+        init_state, one = self._fused()
+        keys = list(self._pending)
+        hyper = [opt.fused_lr_wd(o, self._key_int(k)) for k in keys]
+        device = self._store[keys[0]]._data.device
+        hyper = torch.tensor(hyper, dtype=torch.float32, device=device)
+        for j, k in enumerate(keys):
+            w = self._store[k]._data
+            if k not in self._fstate:
+                self._fstate[k] = init_state(w)
+            nw, nst = one(w, self._pending[k], self._fstate[k],
+                          hyper[j, 0], hyper[j, 1])
+            self._store[k]._data = nw
+            self._fstate[k] = tuple(nst)
+        self._pending.clear()
+
+
+def create(name="local"):
+    """A kvstore by type name (reference: kvstore.py create):
+    ``local``/``device`` or ``tpu`` (``nccl`` is an alias of ``tpu``)."""
+    if not isinstance(name, str):
+        raise TypeError("name must be a string")
+    if name in ("local", "device", "local_allreduce_cpu",
+                "local_allreduce_device"):
+        return KVStore(name)
+    if name in ("tpu", "nccl"):
+        return KVStoreTPU("tpu")
+    raise MXNetError("kvstore type %r is not ported yet (this package has "
+                     "local, device and tpu)" % name)

@@ -1,0 +1,173 @@
+"""BaseModule — the canonical training loop.
+
+Counterpart of ``mxnet_tpu/module/base_module.py`` (reference:
+python/mxnet/module/base_module.py:81): ``forward_backward``, ``score``
+and ``fit`` (bind, init_params, init_optimizer, then per batch
+forward_backward / update / update_metric / batch-end callbacks, and per
+epoch the parameter sync and epoch-end callbacks).  The JAX package's
+checkpoint manager, fault supervisor, telemetry and tracing hooks are
+not part of the port; checkpoint callbacks wait for the V2
+``save``/``load`` container.
+"""
+from __future__ import annotations
+
+import logging
+import time
+import warnings
+
+from .. import metric
+from ..initializer import Uniform
+from ..model import BatchEndParam
+
+__all__ = ["BaseModule"]
+
+_PARAM_SUFFIXES = ("_weight", "_bias", "_gamma", "_beta")
+
+
+def _check_input_names(symbol, names, typename, throw):
+    """Declared data/label names must be arguments of the graph
+    (reference: base_module.py:34)."""
+    args = set(symbol.list_arguments())
+    missing = [n for n in names if n not in args]
+    if not missing:
+        return
+    inputs = [a for a in symbol.list_arguments()
+              if not a.endswith(_PARAM_SUFFIXES)]
+    msg = ("%s_names=%r includes %r, which is not an argument of the "
+           "symbol. Graph inputs are: %s"
+           % (typename, list(names), missing[0], ", ".join(inputs)))
+    if throw:
+        raise ValueError(msg)
+    warnings.warn(msg)
+
+
+def _as_list(obj):
+    return obj if isinstance(obj, (list, tuple)) else [obj]
+
+
+class BaseModule:
+    """Base class for modules (reference: base_module.py:81)."""
+
+    def __init__(self, logger=logging):
+        self.logger = logger
+        self.binded = False
+        self.for_training = False
+        self.inputs_need_grad = False
+        self.params_initialized = False
+        self.optimizer_initialized = False
+        self._symbol = None
+
+    @property
+    def symbol(self):
+        return self._symbol
+
+    def forward_backward(self, data_batch):
+        """Reference: base_module.py:191."""
+        self.forward(data_batch, is_train=True)
+        self.backward()
+
+    def score(self, eval_data, eval_metric, num_batch=None,
+              batch_end_callback=None, reset=True, epoch=0):
+        """Evaluate on ``eval_data`` (reference: base_module.py:208)."""
+        if not (self.binded and self.params_initialized):
+            raise RuntimeError("bind and initialise the module first")
+        eval_metric = eval_metric if isinstance(eval_metric,
+                                                metric.EvalMetric) \
+            else metric.create(eval_metric)
+        eval_metric.reset()
+        if reset:
+            eval_data.reset()
+        for nbatch, eval_batch in enumerate(eval_data):
+            if nbatch == num_batch:
+                break
+            self.forward(eval_batch, is_train=False)
+            self.update_metric(eval_metric, eval_batch.label)
+            if batch_end_callback is not None:
+                params = BatchEndParam(epoch=epoch, nbatch=nbatch,
+                                       eval_metric=eval_metric,
+                                       locals=locals())
+                for callback in _as_list(batch_end_callback):
+                    callback(params)
+        return eval_metric.get_name_value()
+
+    def fit(self, train_data, eval_data=None, eval_metric="acc",
+            epoch_end_callback=None, batch_end_callback=None,
+            kvstore="local", optimizer="sgd",
+            optimizer_params=(("learning_rate", 0.01),),
+            eval_end_callback=None, eval_batch_end_callback=None,
+            initializer=Uniform(0.01), arg_params=None, aux_params=None,
+            allow_missing=False, force_rebind=False, force_init=False,
+            begin_epoch=0, num_epoch=None, validation_metric=None):
+        """The canonical train loop (reference: base_module.py:395)."""
+        if num_epoch is None:
+            raise ValueError("please specify number of epochs")
+        self.bind(data_shapes=train_data.provide_data,
+                  label_shapes=train_data.provide_label,
+                  for_training=True, force_rebind=force_rebind)
+        self.init_params(initializer=initializer, arg_params=arg_params,
+                         aux_params=aux_params, allow_missing=allow_missing,
+                         force_init=force_init)
+        self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
+                            optimizer_params=optimizer_params)
+        if validation_metric is None:
+            validation_metric = eval_metric
+        if not isinstance(eval_metric, metric.EvalMetric):
+            eval_metric = metric.create(eval_metric)
+        batch_end_cbs = list(_as_list(batch_end_callback)) \
+            if batch_end_callback is not None else []
+
+        for epoch in range(begin_epoch, num_epoch):
+            tic = time.time()
+            eval_metric.reset()
+            epoch_metrics = []
+            batches = iter(train_data)
+            data_batch = next(batches, None)
+            nbatch = 0
+            while data_batch is not None:
+                self.forward_backward(data_batch)
+                self.update()
+                self.update_metric(eval_metric, data_batch.label)
+                # fetch the next batch only after this step is queued: an
+                # iterator may reuse the current batch's buffers
+                upcoming = next(batches, None)
+                if upcoming is None:
+                    # the epoch totals, before a callback can reset them
+                    epoch_metrics = eval_metric.get_name_value()
+                for callback in batch_end_cbs:
+                    callback(BatchEndParam(epoch=epoch, nbatch=nbatch,
+                                           eval_metric=eval_metric,
+                                           locals=locals()))
+                nbatch += 1
+                data_batch = upcoming
+            for name, val in epoch_metrics:
+                self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
+            self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
+                             time.time() - tic)
+
+            # sync aux params across devices
+            arg_params_, aux_params_ = self.get_params()
+            self.set_params(arg_params_, aux_params_)
+            if epoch_end_callback is not None:
+                for callback in _as_list(epoch_end_callback):
+                    callback(epoch, self.symbol, arg_params_, aux_params_)
+            if eval_data is not None:
+                res = self.score(eval_data, validation_metric,
+                                 batch_end_callback=eval_batch_end_callback,
+                                 epoch=epoch)
+                for name, val in res:
+                    self.logger.info("Epoch[%d] Validation-%s=%f", epoch,
+                                     name, val)
+                if eval_end_callback is not None:
+                    params = BatchEndParam(epoch=epoch, nbatch=0,
+                                           eval_metric=validation_metric,
+                                           locals=locals())
+                    for callback in _as_list(eval_end_callback):
+                        callback(params)
+            train_data.reset()
+
+    def set_params(self, arg_params, aux_params, allow_missing=False,
+                   force_init=True, allow_extra=False):
+        """Reference: base_module.py set_params."""
+        self.init_params(initializer=None, arg_params=arg_params,
+                         aux_params=aux_params, allow_missing=allow_missing,
+                         force_init=force_init, allow_extra=allow_extra)

@@ -1,0 +1,137 @@
+"""DataParallelExecutorGroup for one device.
+
+Counterpart of ``mxnet_tpu/module/executor_group.py`` (reference:
+python/mxnet/module/executor_group.py:129) for a single context: it
+derives each argument's ``grad_req`` (parameters write, fixed
+parameters and labels null, data only with ``inputs_need_grad``), binds
+one executor, feeds batches to it, and exposes the parameter, gradient
+and aux arrays.  Splitting a batch over several devices comes with the
+multi-GPU slice.
+"""
+from __future__ import annotations
+
+import logging
+
+import numpy as np
+
+from ..base import MXNetError
+from ..context import Context
+from ..io import DataDesc
+
+__all__ = ["DataParallelExecutorGroup"]
+
+
+def _feed(src, dst):
+    """Point the bound input ``dst`` at batch array ``src``, on dst's
+    device and in its dtype (no copy when src is already there)."""
+    if src.shape != dst.shape:
+        raise MXNetError("batch array of shape %s for an input bound as %s"
+                         % (src.shape, dst.shape))
+    dst._data = src._data.to(device=dst._data.device, dtype=dst._data.dtype)
+
+
+class DataParallelExecutorGroup:
+    """The executor of a Module on one context (reference:
+    executor_group.py:129)."""
+
+    def __init__(self, symbol, contexts, data_shapes, label_shapes,
+                 param_names, for_training, inputs_need_grad,
+                 logger=logging, fixed_param_names=None, grad_req="write"):
+        if len(contexts) != 1:
+            raise MXNetError("this package binds a Module on one device; "
+                             "got %d contexts" % len(contexts))
+        self.param_names = param_names
+        self.arg_names = symbol.list_arguments()
+        self.aux_names = symbol.list_auxiliary_states()
+        self.symbol = symbol
+        self.contexts = [Context(c) for c in contexts]
+        self.for_training = for_training
+        self.inputs_need_grad = inputs_need_grad
+        self.fixed_param_names = fixed_param_names or []
+        self.logger = logger
+        data_names = [x[0] for x in data_shapes]
+        if isinstance(grad_req, str):
+            self.grad_req = {}
+            for k in self.arg_names:
+                if k in self.param_names:
+                    self.grad_req[k] = ("null" if k in self.fixed_param_names
+                                        else grad_req)
+                elif k in data_names:
+                    self.grad_req[k] = grad_req if inputs_need_grad \
+                        else "null"
+                else:
+                    self.grad_req[k] = "null"
+        elif isinstance(grad_req, (list, tuple)):
+            self.grad_req = dict(zip(self.arg_names, grad_req))
+        elif isinstance(grad_req, dict):
+            self.grad_req = {k: "null" for k in self.arg_names}
+            self.grad_req.update(grad_req)
+        else:
+            raise ValueError("invalid grad_req")
+        if not for_training:
+            self.grad_req = {k: "null" for k in self.arg_names}
+        self.output_names = symbol.list_outputs()
+        self.bind_exec(data_shapes, label_shapes)
+
+    def bind_exec(self, data_shapes, label_shapes):
+        """Bind the executor for these input shapes (reference: :330)."""
+        descs = list(data_shapes) + list(label_shapes or [])
+        self.batch_size = descs[0].shape[DataDesc.get_batch_axis(
+            getattr(descs[0], "layout", "NCHW"))]
+        shapes = {d.name: tuple(d.shape) for d in descs}
+        # float64 host data trains in float32, MXNet's default dtype
+        type_dict = {d.name: np.float32 if np.dtype(d.dtype) == np.float64
+                     else d.dtype for d in descs}
+        exe = self.symbol.simple_bind(ctx=self.contexts[0],
+                                      grad_req=self.grad_req,
+                                      type_dict=type_dict, **shapes)
+        self.execs = [exe]
+        self.data_shapes = data_shapes
+        self.label_shapes = label_shapes
+        self.data_names = [d.name for d in data_shapes]
+        self.label_names = [d.name for d in label_shapes or []]
+        self.param_arrays = [[exe.arg_dict[n]] for n in self.param_names]
+        self.grad_arrays = [[exe.grad_dict.get(n)] for n in self.param_names] \
+            if self.for_training else None
+        self.aux_arrays = [[exe.aux_dict[n]] for n in self.aux_names]
+
+    def set_params(self, arg_params, aux_params, allow_extra=False):
+        """Copy parameters into the executor (reference: :441)."""
+        self.execs[0].copy_params_from(arg_params, aux_params,
+                                       allow_extra_params=allow_extra)
+
+    def get_params(self, arg_params, aux_params):
+        """Copy the executor's parameters out (reference: :453)."""
+        for name, block in zip(self.param_names, self.param_arrays):
+            arg_params[name] = block[0].astype(arg_params[name].dtype) \
+                if name in arg_params else block[0].copy()
+        for name, block in zip(self.aux_names, self.aux_arrays):
+            aux_params[name] = block[0].copy()
+
+    def forward(self, data_batch, is_train=None):
+        """Feed the batch and run forward (reference: :422)."""
+        exe = self.execs[0]
+        for name, arr in zip(self.data_names, data_batch.data):
+            _feed(arr, exe.arg_dict[name])
+        if self.label_names and data_batch.label:
+            for name, arr in zip(self.label_names, data_batch.label):
+                _feed(arr, exe.arg_dict[name])
+        exe.forward(is_train=self.for_training if is_train is None
+                    else is_train)
+
+    def backward(self, out_grads=None):
+        """Reference: :554."""
+        if not self.for_training:
+            raise MXNetError("re-bind with for_training=True to run "
+                             "backward")
+        self.execs[0].backward(out_grads=out_grads)
+
+    def get_outputs(self, merge_multi_context=True):
+        outs = self.execs[0].outputs
+        return outs if merge_multi_context else [[o] for o in outs]
+
+    def update_metric(self, eval_metric, labels, pre_sliced=False):
+        """Reference: :583."""
+        labels_ = dict(zip(self.label_names, labels or []))
+        preds = dict(zip(self.output_names, self.execs[0].outputs))
+        eval_metric.update_dict(labels_, preds)

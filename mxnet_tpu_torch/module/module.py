@@ -1,0 +1,272 @@
+"""Module — symbolic training on one device.
+
+Counterpart of ``mxnet_tpu/module/module.py`` (reference:
+python/mxnet/module/module.py:40): ``bind``, ``init_params``,
+``init_optimizer``, ``forward``/``backward``/``update``,
+``update_metric``, ``get_outputs``, ``get_params``/``set_params``.
+
+``init_optimizer`` picks the update path as the JAX package does:
+``kvstore="tpu"`` (update on the kvstore, one executor) installs the
+executor's fused step, so each ``forward(is_train=True)`` runs forward,
+backward and the optimizer sweep and ``update()`` has nothing left to
+do; ``"local"`` updates each array with the module's own ``Updater``,
+and ``"device"`` through the kvstore's.  The default context is
+``gpu(0)``; without a GPU the module raises unless given ``cpu()``.
+"""
+from __future__ import annotations
+
+import logging
+import warnings
+
+from .. import optimizer as opt
+from ..context import Context, gpu
+from ..initializer import InitDesc, Uniform
+from ..io import DataDesc
+from ..model import (_create_kvstore, _initialize_kvstore, _update_params,
+                     _update_params_on_kvstore)
+from .base_module import BaseModule, _check_input_names
+from .executor_group import DataParallelExecutorGroup
+
+__all__ = ["Module"]
+
+
+def _parse_data_desc(data_names, label_names, data_shapes, label_shapes):
+    """Normalise shapes to DataDesc lists (reference: module base)."""
+    def _desc(x):
+        if isinstance(x, DataDesc):
+            return x
+        return DataDesc(x[0], tuple(x[1]), *(x[2:] if len(x) > 2 else ()))
+
+    data_shapes = [_desc(x) for x in data_shapes]
+    label_shapes = [_desc(x) for x in label_shapes] \
+        if label_shapes is not None and len(label_shapes) else None
+    return data_shapes, label_shapes
+
+
+class Module(BaseModule):
+    """Module over a Symbol (reference: module.py:40)."""
+
+    def __init__(self, symbol, data_names=("data",),
+                 label_names=("softmax_label",), logger=logging,
+                 context=None, fixed_param_names=None):
+        super().__init__(logger=logger)
+        if context is None:
+            context = gpu(0)
+        if isinstance(context, Context):
+            context = [context]
+        self._context = list(context)
+        for c in self._context:
+            Context(c).torch_device     # raises for a GPU without CUDA
+        self._symbol = symbol
+        groups = {}
+        for typename, names in (("data", data_names), ("label", label_names),
+                                ("fixed_param", fixed_param_names)):
+            names = list(names) if names is not None else []
+            _check_input_names(symbol, names, typename,
+                               throw=typename != "label")
+            groups[typename] = names
+        self._data_names = groups["data"]
+        self._label_names = groups["label"]
+        self._fixed_param_names = groups["fixed_param"]
+        non_params = set(self._data_names + self._label_names)
+        self._param_names = [a for a in symbol.list_arguments()
+                             if a not in non_params]
+        self._aux_names = symbol.list_auxiliary_states()
+        self._output_names = symbol.list_outputs()
+        self._arg_params = None
+        self._aux_params = None
+        self._params_dirty = False
+        self._optimizer = self._kvstore = self._updater = None
+        self._update_on_kvstore = None
+        self._exec_group = None
+        self._data_shapes = self._label_shapes = None
+        self._fused_exec_update = False
+
+    @property
+    def data_names(self):
+        return self._data_names
+
+    @property
+    def label_names(self):
+        return self._label_names
+
+    @property
+    def output_names(self):
+        return self._output_names
+
+    @property
+    def data_shapes(self):
+        return self._data_shapes
+
+    @property
+    def label_shapes(self):
+        return self._label_shapes
+
+    def get_params(self):
+        """``(arg_params, aux_params)``: copies of the bound values
+        (reference: module.py get_params)."""
+        if not (self.binded and self.params_initialized):
+            raise RuntimeError("bind and initialise the module first")
+        if self._params_dirty:
+            self._exec_group.get_params(self._arg_params, self._aux_params)
+            self._params_dirty = False
+        return (self._arg_params, self._aux_params)
+
+    def init_params(self, initializer=Uniform(0.01), arg_params=None,
+                    aux_params=None, allow_missing=False, force_init=False,
+                    allow_extra=False):
+        """Reference: module.py:259.  Given arrays are copied in; the rest
+        are filled by ``initializer`` under MXNet's name rules."""
+        if self.params_initialized and not force_init:
+            warnings.warn("Parameters already initialized and "
+                          "force_init=False. init_params call ignored.",
+                          stacklevel=2)
+            return
+        if not self.binded:
+            raise RuntimeError("call bind before initializing the "
+                               "parameters")
+        attrs = self._symbol.attr_dict()
+        for own, given in ((self._arg_params, arg_params),
+                           (self._aux_params, aux_params)):
+            for name, arr in sorted(own.items()):
+                desc = InitDesc(name, attrs.get(name, None))
+                src = None if given is None else given.get(name)
+                if src is not None:
+                    if src is not arr:
+                        src.copyto(arr)
+                    continue
+                if given is not None and not allow_missing:
+                    raise RuntimeError("%s is not presented" % name)
+                if initializer is None:
+                    if given is not None:
+                        continue
+                    raise RuntimeError("no initializer given and %s has no "
+                                       "source value" % name)
+                initializer(desc, arr)
+        self.params_initialized = True
+        self._params_dirty = False
+        self._exec_group.set_params(self._arg_params, self._aux_params,
+                                    allow_extra=allow_extra)
+
+    def bind(self, data_shapes, label_shapes=None, for_training=True,
+             inputs_need_grad=False, force_rebind=False, grad_req="write"):
+        """Bind the executor (reference: module.py:364)."""
+        if force_rebind:
+            self.binded = False
+            self._exec_group = None
+        if self.binded:
+            self.logger.warning("Already binded, ignoring bind()")
+            return
+        self.for_training = for_training
+        self.inputs_need_grad = inputs_need_grad
+        self._data_shapes, self._label_shapes = _parse_data_desc(
+            self._data_names, self._label_names, data_shapes, label_shapes)
+        self._exec_group = DataParallelExecutorGroup(
+            self._symbol, self._context, self._data_shapes,
+            self._label_shapes, self._param_names, for_training,
+            inputs_need_grad, logger=self.logger,
+            fixed_param_names=self._fixed_param_names, grad_req=grad_req)
+        self.binded = True
+        if self._arg_params is None:
+            # master copies, apart from the executor's arrays
+            self._arg_params = {n: a[0].copy() for n, a in zip(
+                self._param_names, self._exec_group.param_arrays)}
+            self._aux_params = {n: a[0].copy() for n, a in zip(
+                self._aux_names, self._exec_group.aux_arrays)}
+        if self.params_initialized:
+            self._exec_group.set_params(self._arg_params, self._aux_params)
+
+    def init_optimizer(self, kvstore="local", optimizer="sgd",
+                       optimizer_params=(("learning_rate", 0.01),),
+                       force_init=False):
+        """Reference: module.py:473."""
+        if not (self.binded and self.params_initialized):
+            raise RuntimeError("bind and initialise the module first")
+        if self.optimizer_initialized and not force_init:
+            self.logger.warning("optimizer already initialized, "
+                                "ignoring...")
+            return
+        if self._params_dirty:
+            self.get_params()
+        kvstore, update_on_kvstore = _create_kvstore(
+            kvstore, len(self._context), self._arg_params)
+        rescale_grad = 1.0 / self._exec_group.batch_size
+        names = self._exec_group.param_names
+        idx2name = dict(enumerate(names))
+        if isinstance(optimizer, str):
+            optimizer_params = dict(optimizer_params)
+            optimizer_params.setdefault("rescale_grad", rescale_grad)
+            optimizer = opt.create(optimizer, sym=self.symbol,
+                                   param_idx2name=idx2name,
+                                   **optimizer_params)
+        else:
+            if not isinstance(optimizer, opt.Optimizer):
+                raise TypeError("optimizer must be a name or an Optimizer")
+            if optimizer.rescale_grad != rescale_grad:
+                warnings.warn(
+                    "Optimizer created manually outside Module but "
+                    "rescale_grad is not normalized to 1.0/batch_size (%s "
+                    "vs. %s). Is this intended?"
+                    % (optimizer.rescale_grad, rescale_grad), stacklevel=2)
+            if not optimizer.idx2name:
+                optimizer.idx2name = idx2name.copy()
+        self._optimizer, self._kvstore = optimizer, kvstore
+        self._update_on_kvstore, self._updater = update_on_kvstore, None
+        if kvstore:
+            _initialize_kvstore(kvstore=kvstore,
+                                param_arrays=self._exec_group.param_arrays,
+                                arg_params=self._arg_params,
+                                param_names=self._param_names,
+                                update_on_kvstore=update_on_kvstore)
+        if update_on_kvstore:
+            kvstore.set_optimizer(self._optimizer)
+        else:
+            self._updater = opt.get_updater(optimizer)
+        # kvstore=tpu on one device: the optimizer runs inside the
+        # executor's training forward (the fused step)
+        self._fused_exec_update = False
+        if kvstore is not None and kvstore.type == "tpu" \
+                and update_on_kvstore:
+            self._fused_exec_update = \
+                self._exec_group.execs[0].install_fused_update(
+                    self._optimizer, param_names=self._exec_group.param_names)
+        self.optimizer_initialized = True
+
+    def forward(self, data_batch, is_train=None):
+        """Reference: module.py forward."""
+        if not (self.binded and self.params_initialized):
+            raise RuntimeError("bind and initialise the module first")
+        self._exec_group.forward(data_batch, is_train)
+
+    def backward(self, out_grads=None):
+        """Reference: module.py backward."""
+        self._exec_group.backward(out_grads=out_grads)
+
+    def update(self):
+        """Apply the optimizer to the gradients (reference: module.py:631);
+        nothing to do after a fused step."""
+        if not self.optimizer_initialized:
+            raise RuntimeError("call init_optimizer first")
+        self._params_dirty = True
+        if self._fused_exec_update and \
+                self._exec_group.execs[0].updates_applied:
+            return
+        if self._update_on_kvstore:
+            _update_params_on_kvstore(self._exec_group.param_arrays,
+                                      self._exec_group.grad_arrays,
+                                      self._kvstore,
+                                      self._exec_group.param_names)
+        else:
+            _update_params(self._exec_group.param_arrays,
+                           self._exec_group.grad_arrays,
+                           updater=self._updater,
+                           num_device=len(self._context),
+                           kvstore=self._kvstore,
+                           param_names=self._exec_group.param_names)
+
+    def get_outputs(self, merge_multi_context=True):
+        return self._exec_group.get_outputs(
+            merge_multi_context=merge_multi_context)
+
+    def update_metric(self, eval_metric, labels, pre_sliced=False):
+        self._exec_group.update_metric(eval_metric, labels, pre_sliced)

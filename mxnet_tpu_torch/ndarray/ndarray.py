@@ -2,12 +2,17 @@
 
 Counterpart of ``mxnet_tpu/ndarray/ndarray.py``: the handle keeps its
 tensor in ``_data`` (executors and predictors alias parameters by
-assigning ``_data``, never by copying).  This slice carries the
-inference surface — construction, ``asnumpy``, ``shape``, ``dtype``,
-``context`` and ``copyto``; the V2 ``save``/``load`` container comes
-with the training slice.
+assigning ``_data``, never by copying).  This package carries the
+surface the serving and training paths touch — construction (``array``,
+``zeros``, ``ones``, ``empty``), ``asnumpy``, ``shape``, ``dtype``,
+``context``, ``copyto`` (into another NDArray, which may be a view of a
+larger buffer, or onto a context), ``astype``, ``wait_to_read``, basic
+indexing and ``arr[:] = value``.  The V2 ``save``/``load`` container is
+still to come.
 """
 from __future__ import annotations
+
+import numbers
 
 import numpy as np
 import torch
@@ -15,7 +20,10 @@ import torch
 from ..base import MXNetError, dtype_name, dtype_torch
 from ..context import Context, resolve
 
-__all__ = ["NDArray", "array", "zeros"]
+__all__ = ["NDArray", "array", "zeros", "ones", "empty"]
+
+# the 64-bit numpy types nd.array narrows, as the JAX package does
+_NARROW = {torch.float64: torch.float32, torch.int64: torch.int32}
 
 
 class NDArray:
@@ -32,6 +40,10 @@ class NDArray:
     @property
     def shape(self):
         return tuple(self._data.shape)
+
+    @property
+    def size(self):
+        return self._data.numel()
 
     @property
     def dtype(self):
@@ -51,9 +63,17 @@ class NDArray:
             t = t.float()
         return t.cpu().numpy()
 
+    def wait_to_read(self):
+        """Block until every queued write to this array has finished
+        (the device's queue is drained; on the CPU there is nothing to
+        wait for)."""
+        if self._data.device.type == "cuda":
+            torch.cuda.synchronize(self._data.device)
+
     def copyto(self, other):
-        """Copy into ``other`` (an NDArray, written in place) or onto a
-        Context (a new NDArray there)."""
+        """Copy into ``other`` (an NDArray, written in place, so a view of
+        a larger buffer stays one) or onto a Context (a new NDArray
+        there)."""
         if isinstance(other, NDArray):
             if other.shape != self.shape:
                 raise MXNetError("copyto: shape mismatch %s vs %s"
@@ -62,6 +82,40 @@ class NDArray:
             return other
         return NDArray(self._data.to(resolve(other), copy=True))
 
+    def copy(self):
+        return NDArray(self._data.clone())
+
+    def astype(self, dtype, copy=True):
+        """A copy in ``dtype`` (``copy=False`` returns self when the dtype
+        already matches)."""
+        dt = dtype_torch(dtype)
+        if not copy and dt == self._data.dtype:
+            return self
+        return NDArray(self._data.to(dtype=dt, copy=True))
+
+    def __getitem__(self, key):
+        """Basic indexing (ints and slices): a view, as in MXNet."""
+        if isinstance(key, (numbers.Integral, slice)) or (
+                isinstance(key, tuple) and all(
+                    isinstance(k, (numbers.Integral, slice)) for k in key)):
+            return NDArray(self._data[key])
+        raise MXNetError("NDArray indexing takes ints and slices, got %r"
+                         % (key,))
+
+    def __setitem__(self, key, value):
+        """``arr[:] = value`` (a scalar, an NDArray, a tensor or a host
+        array) writes in place; other keys write that region."""
+        dst = self._data if (isinstance(key, slice) and key == slice(None)) \
+            else self._data[key]
+        if isinstance(value, numbers.Number):
+            dst.fill_(value)
+            return
+        if isinstance(value, NDArray):
+            value = value._data
+        elif not isinstance(value, torch.Tensor):
+            value = torch.from_numpy(np.ascontiguousarray(value))
+        dst.copy_(value)
+
     def __repr__(self):
         return "<NDArray %s @%s>" % ("x".join(map(str, self.shape)),
                                      self.context)
@@ -69,20 +123,39 @@ class NDArray:
 
 def array(source_array, ctx=None, dtype=None):
     """A new NDArray holding a copy of ``source_array`` on ``ctx``
-    (default ``gpu(0)``)."""
+    (default ``gpu(0)``), with the JAX package's dtype rule: an explicit
+    ``dtype`` wins; an NDArray keeps its dtype; a numpy array keeps its
+    dtype, except that float64 becomes float32 (MXNet's default) and
+    int64 int32 (the JAX package runs with 32-bit types); anything else
+    (a list, a scalar, a torch tensor) becomes float32."""
     device = resolve(ctx)
     if isinstance(source_array, NDArray):
         src = source_array._data
+        dt = src.dtype
+    elif isinstance(source_array, np.ndarray):
+        src = torch.from_numpy(np.ascontiguousarray(source_array))
+        dt = _NARROW.get(src.dtype, src.dtype)
     elif isinstance(source_array, torch.Tensor):
-        src = source_array
+        src, dt = source_array, torch.float32
     else:
-        src = torch.from_numpy(np.array(source_array, dtype=np.float32
-                                        if dtype is None else None))
-    dt = dtype_torch(dtype) if dtype is not None else (
-        src.dtype if src.is_floating_point() else torch.float32)
+        src = torch.from_numpy(np.asarray(source_array, dtype=np.float32))
+        dt = torch.float32
+    if dtype is not None:
+        dt = dtype_torch(dtype)
     return NDArray(src.to(device=device, dtype=dt, copy=True))
 
 
 def zeros(shape, ctx=None, dtype=None):
     return NDArray(torch.zeros(tuple(shape), dtype=dtype_torch(dtype),
+                               device=resolve(ctx)))
+
+
+def ones(shape, ctx=None, dtype=None):
+    return NDArray(torch.ones(tuple(shape), dtype=dtype_torch(dtype),
+                              device=resolve(ctx)))
+
+
+def empty(shape, ctx=None, dtype=None):
+    """An uninitialised array (``torch.empty``)."""
+    return NDArray(torch.empty(tuple(shape), dtype=dtype_torch(dtype),
                                device=resolve(ctx)))

@@ -6,3 +6,4 @@ from . import matrix  # noqa: F401
 from . import elemwise  # noqa: F401
 from . import loss  # noqa: F401
 from . import cuda_kernels  # noqa: F401
+from . import optimizer_ops  # noqa: F401

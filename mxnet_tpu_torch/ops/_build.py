@@ -25,7 +25,7 @@ __all__ = ["SOURCES", "library", "build_all", "nvcc_path"]
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
-SOURCES = ("scale_bias_relu", "softmax")
+SOURCES = ("scale_bias_relu", "softmax", "optimizer_sweep")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
          "-shared", "-Xcompiler", "-fPIC"]
 

@@ -1,9 +1,14 @@
 """Output operators (counterpart of ``mxnet_tpu/ops/loss.py``).
 
-This slice carries the ``SoftmaxOutput`` forward: the prediction, which
-is a softmax of the data.  Its label input is accepted and ignored, as
-in the JAX package's forward.  The loss-layer backward (softmax minus
-one-hot, ``ops/loss.py:53-80`` there) comes with the training slice.
+MXNet loss-layer semantics: the forward output of ``SoftmaxOutput`` is a
+prediction (the softmax of the data) and its label input is ignored
+there; the backward ignores the incoming head gradient and returns the
+loss gradient itself, ``grad_scale * (softmax - one_hot(label))``
+(reference: src/operator/softmax_output-inl.h).  The JAX package writes
+that as a ``jax.custom_vjp``; here it is a ``torch.autograd.Function``,
+so the executor seeds the head with ones and autograd reproduces
+``Executor.backward()``.  The forward's last-axis softmax runs the K2
+CUDA kernel (``softmax_lastaxis``) in training as in inference.
 """
 from __future__ import annotations
 
@@ -23,6 +28,63 @@ def _softmax_fwd(data, multi_output):
     return torch.softmax(data, dim=1 if multi_output else -1)
 
 
+def softmax_output_grad(out, label, grad_scale, ignore_label, use_ignore,
+                        normalization, multi_output):
+    """The SoftmaxOutput gradient with respect to its data, from the
+    forward probabilities ``out`` — expression by expression as
+    ``mxnet_tpu/ops/loss.py:53-80``: ``out - one_hot(label)``, masked
+    where ``use_ignore`` and the label is ``ignore_label``, scaled by
+    ``grad_scale`` divided by the batch (``"batch"``), the count of
+    unmasked labels (``"valid"`` with ``use_ignore``) or the label count
+    (``"valid"`` without), or not divided (``"null"``)."""
+    lbl = label.to(torch.int32)
+    out_l = torch.movedim(out, 1, -1) if multi_output else out
+    classes = out_l.shape[-1]
+    onehot = (lbl.unsqueeze(-1) == torch.arange(
+        classes, device=out.device, dtype=torch.int32)).to(out.dtype)
+    grad = out_l - onehot
+    valid = None
+    if use_ignore:
+        mask = (lbl != int(ignore_label)).to(out.dtype)
+        grad = grad * mask.unsqueeze(-1)
+        valid = mask
+    scale = grad_scale
+    if normalization == "batch":
+        scale = scale / label.shape[0]
+        grad = grad * scale
+    elif normalization == "valid" and valid is not None:
+        grad = grad * (scale / torch.clamp(valid.sum(), min=1.0))
+    elif normalization == "valid":
+        grad = grad * (scale / float(label.numel()))
+    else:
+        grad = grad * scale
+    if multi_output:
+        grad = torch.movedim(grad, -1, 1)
+    return grad.to(out.dtype)
+
+
+class _SoftmaxOutputFn(torch.autograd.Function):
+    """Forward: the softmax (K2 where it applies).  Backward: the loss
+    gradient of :func:`softmax_output_grad`; the head gradient is
+    ignored, and the label's gradient is zero."""
+
+    @staticmethod
+    def forward(ctx, data, label, grad_scale, ignore_label, use_ignore,
+                normalization, multi_output):
+        out = _softmax_fwd(data, multi_output)
+        ctx.save_for_backward(out, label)
+        ctx.attrs = (grad_scale, ignore_label, use_ignore, normalization,
+                     multi_output)
+        return out
+
+    @staticmethod
+    def backward(ctx, _head_grad):
+        out, label = ctx.saved_tensors
+        grad = softmax_output_grad(out, label, *ctx.attrs)
+        dlabel = torch.zeros_like(label) if ctx.needs_input_grad[1] else None
+        return grad, dlabel, None, None, None, None, None
+
+
 @register("SoftmaxOutput", aliases=("Softmax",), params=[
     P("grad_scale", float, default=1.0),
     P("ignore_label", float, default=-1.0),
@@ -37,4 +99,9 @@ def _softmax_output(data, label, grad_scale=1.0, ignore_label=-1.0,
                     preserve_shape=False, normalization="null",
                     out_grad=False, smooth_alpha=0.0, **attrs):
     # softmax in fp32 whatever the data dtype, as in the JAX package
-    return _softmax_fwd(data.float(), bool(multi_output))
+    data = data.float()
+    if not (torch.is_grad_enabled() and data.requires_grad):
+        return _softmax_fwd(data, bool(multi_output))
+    return _SoftmaxOutputFn.apply(data, label, float(grad_scale),
+                                  float(ignore_label), bool(use_ignore),
+                                  normalization, bool(multi_output))

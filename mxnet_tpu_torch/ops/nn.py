@@ -1,11 +1,12 @@
-"""Neural-network operators of the inference path (NCHW).
+"""Neural-network operators of a ResNet (NCHW).
 
-Counterpart of ``mxnet_tpu/ops/nn.py`` for the ops a ResNet forward
-runs: Convolution (``F.conv2d``, OIHW weights as in MXNet),
-FullyConnected (``F.linear``), Activation, Pooling and eval-mode
-BatchNorm, plus ``fused_bn_relu_eval``, the BatchNorm -> ReLU epilogue
-that the executor's peephole routes through the K3 CUDA kernel.
-Training-mode BatchNorm comes with the training slice.
+Counterpart of ``mxnet_tpu/ops/nn.py`` for the ops a ResNet forward and
+backward run: Convolution (``F.conv2d``, OIHW weights as in MXNet),
+FullyConnected (``F.linear``), Activation, Pooling and BatchNorm (eval
+and training mode), plus ``fused_bn_relu_eval``, the inference
+BatchNorm -> ReLU epilogue that the executor's peephole routes through
+the K3 CUDA kernel.  Backward passes are PyTorch's autograd of these
+expressions.
 """
 from __future__ import annotations
 
@@ -121,21 +122,37 @@ def _batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
                 momentum=0.9, fix_gamma=True, use_global_stats=False,
                 output_mean_var=False, axis=1, cudnn_off=False,
                 __is_train__=False, **attrs):
-    """Reference: src/operator/nn/batch_norm-inl.h, inference form, with
-    the JAX package's exact expression: ``(x - mean) * (rsqrt(var + eps)
-    * g) + beta``.  Outputs (out, moving_mean, moving_var) like the JAX
-    op; the moving stats are returned unchanged."""
-    if __is_train__ and not use_global_stats:
-        raise MXNetError("BatchNorm: training mode (batch statistics) "
-                         "is not ported yet; bind with is_train=False")
+    """Reference: src/operator/nn/batch_norm-inl.h, with the JAX package's
+    exact expression: ``(x - mean) * (rsqrt(var + eps) * g) + beta``.
+    Outputs (out, moving_mean, moving_var) like the JAX op.
+
+    In training (``__is_train__`` without ``use_global_stats``) mean and
+    var are the batch's, over every axis but ``axis``, in fp32 (the
+    *biased* variance, as ``jnp.var``), and the moving stats come back
+    updated, ``momentum * moving + (1 - momentum) * stat``, for the
+    executor to write back (``mutate_aux``); autograd differentiates
+    through the batch stats, and the new moving stats are detached from
+    the graph.  ``F.batch_norm`` would not do: its momentum is MXNet's
+    ``1 - momentum`` and it keeps the unbiased variance.  Otherwise the
+    moving stats normalise and come back unchanged."""
     ax = axis % data.dim()
     shape = [1] * data.dim()
     shape[ax] = data.shape[ax]
     g = torch.ones_like(gamma) if fix_gamma else gamma
-    inv = torch.rsqrt(moving_var + eps)
-    out = (data - moving_mean.reshape(shape)) * (inv * g).reshape(shape) \
+    if __is_train__ and not use_global_stats:
+        red = tuple(i for i in range(data.dim()) if i != ax)
+        var, mean = torch.var_mean(data.float(), dim=red, correction=0)
+        new_mean = momentum * moving_mean \
+            + (1 - momentum) * mean.detach().to(moving_mean.dtype)
+        new_var = momentum * moving_var \
+            + (1 - momentum) * var.detach().to(moving_var.dtype)
+    else:
+        mean, var = moving_mean, moving_var
+        new_mean, new_var = moving_mean, moving_var
+    inv = torch.rsqrt(var + eps)
+    out = (data - mean.reshape(shape)) * (inv * g).reshape(shape) \
         + beta.reshape(shape)
-    return out.to(data.dtype), moving_mean, moving_var
+    return out.to(data.dtype), new_mean, new_var
 
 
 def fused_bn_relu_eval(data, gamma, beta, moving_mean, moving_var,

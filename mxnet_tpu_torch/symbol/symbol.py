@@ -111,6 +111,17 @@ class Symbol:
                             else "%s_output%d" % (node.name, idx))
         return outs
 
+    def attr_dict(self):
+        """``{node name: {attr: str value}}`` of every node that has
+        attrs (the optimizer reads ``__lr_mult__``/``__wd_mult__`` here,
+        the initializer ``__init__``)."""
+        out = {}
+        for node in self._topo():
+            d = {k: str(v) for k, v in node.attrs.items()}
+            if d:
+                out[node.name] = d
+        return out
+
     def _aux_nodes(self):
         """ids of variable nodes feeding mutate_aux positions."""
         aux = set()
@@ -194,9 +205,10 @@ class Symbol:
 
     def simple_bind(self, ctx=None, grad_req="null", type_dict=None,
                     **kwargs):
-        """Allocate every argument and aux state from the inferred shapes
-        and bind for inference (reference: symbol.py:1284).  ``ctx``
-        defaults to ``gpu(0)``."""
+        """Allocate every argument, aux state and (for a ``grad_req`` of
+        write or add: a string, a list in argument order or a dict) the
+        gradient buffers from the inferred shapes, and bind (reference:
+        symbol.py:1284).  ``ctx`` defaults to ``gpu(0)``."""
         from ..executor import Executor
         return Executor._simple_bind(self, ctx, grad_req, type_dict, kwargs)
 
@@ -267,18 +279,39 @@ def _bn_relu_peephole(symbol, nodes, is_train, device):
     return frozenset(skip), fuse
 
 
-def build_graph_fn(symbol, arg_names, aux_names, device):
-    """Lower the symbol DAG, in eval mode, to one function
-    ``fn(arg_list, aux_list) -> outputs`` over tensors on ``device``
-    (which decides the ``auto`` kernel knobs)."""
+def build_graph_fn(symbol, arg_names, aux_names, device, is_train=False):
+    """Lower the symbol DAG to one function over tensors on ``device``
+    (which decides the ``auto`` kernel knobs).
+
+    In eval mode ``fn(arg_list, aux_list) -> outputs``, with the
+    BatchNorm->ReLU peephole.  With ``is_train`` the ops see
+    ``__is_train__=True`` (BatchNorm normalises by the batch's stats),
+    the peephole is off, and ``fn(arg_list, aux_list) -> (outputs,
+    new_aux)``: the aux list with each ``mutate_aux`` input replaced by
+    its op's updated value (BatchNorm's new moving stats), for the
+    executor to write back."""
     nodes = symbol._topo()
     aux_index = {name: i for i, name in enumerate(aux_names)}
     arg_index = {name: i for i, name in enumerate(arg_names)}
-    bn_skip, bn_fuse = _bn_relu_peephole(symbol, nodes, False, device)
+    bn_skip, bn_fuse = _bn_relu_peephole(symbol, nodes, is_train, device)
     plans = {id(n): _visible_attrs(n) for n in nodes if not n.is_variable}
+    # (node id) -> [(aux list index, trailing output index)]
+    writeback = {}
+    for n in nodes:
+        if n.is_variable or not n.op.mutate_aux:
+            continue
+        names = _op_input_names(n.op, n.attrs)
+        n_aux = len(n.op.mutate_aux)
+        for k, pname in enumerate(n.op.mutate_aux):
+            for nm, (src, _) in zip(names, n.inputs):
+                if nm == pname and src.is_variable \
+                        and src.name in aux_index:
+                    writeback.setdefault(id(n), []).append(
+                        (aux_index[src.name], k - n_aux))
 
     def fn(args, aux):
         env = {}
+        new_aux = list(aux)
         for node in nodes:
             if node.is_variable:
                 if node.name in aux_index:
@@ -309,13 +342,16 @@ def build_graph_fn(symbol, arg_names, aux_names, device):
             op = node.op
             kw = dict(plans[id(node)])
             if op.needs_is_train:
-                kw["__is_train__"] = False
+                kw["__is_train__"] = is_train
             outs = op.fn(*[env[(id(s), i)] for (s, i) in node.inputs], **kw)
             if not isinstance(outs, tuple):
                 outs = (outs,)
+            for ai, oi in writeback.get(id(node), ()):
+                new_aux[ai] = outs[oi]
             for i, o in enumerate(outs[:len(outs) - len(op.mutate_aux)]):
                 env[(id(node), i)] = o
-        return [env[(id(n), i)] for (n, i) in symbol._flat_outputs()]
+        outputs = [env[(id(n), i)] for (n, i) in symbol._flat_outputs()]
+        return (outputs, new_aux) if is_train else outputs
 
     return fn
 

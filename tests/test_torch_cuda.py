@@ -86,3 +86,98 @@ def test_kernels_raise_on_what_they_do_not_take(cuda):
         ck.scale_bias_relu(x.transpose(2, 3), s, b)
     with pytest.raises(MXNetError, match="float32 or bfloat16"):
         ck.softmax_lastaxis(x.double())
+
+
+# ---------------------------------------------------------------------------
+# K1a / K1b / K4: the optimizer sweeps, in place, bitwise
+# ---------------------------------------------------------------------------
+def _sweep_case(name, n, use_clip, device, offset=0, seed=42):
+    """Operands of sweep ``name`` over ``n`` elements, each a view at
+    ``offset`` elements into its own buffer (offset 1 breaks the 16-byte
+    alignment), and its hyperparameter vector."""
+    rng = np.random.RandomState(seed)
+    n_slots = {"sgd_sweep": 0, "sgd_mom_sweep": 1, "adam_sweep": 2}[name]
+
+    def buf(scale, positive=False):
+        a = rng.randn(n + offset).astype(np.float32) * scale
+        if positive:
+            a = np.abs(a)
+        return torch.from_numpy(a).to(device)[offset:]
+
+    w, g = buf(1.0), buf(3.0)
+    if n > 7:
+        g[::7] = float("nan")       # the clip lets a NaN through
+    slots = [buf(0.1)] + ([buf(0.01, positive=True)] if n_slots == 2 else [])
+    slots = slots[:n_slots]
+    h = {"sgd_sweep": [0.1, 1e-4, 1.0 / 32],
+         "sgd_mom_sweep": [0.1, 0.9, 1e-4, 1.0 / 32],
+         "adam_sweep": [1e-3, 0.9, 0.999, 1.0 - 0.9, 1.0 - 0.999, 1e-8,
+                        1e-4, 1.0 / 32]}[name]
+    hyper = torch.tensor(h + ([0.05] if use_clip else []),
+                         dtype=torch.float32, device=device)
+    return w, g, slots, hyper
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("use_clip", [False, True])
+@pytest.mark.parametrize("n", [1, 3, 4097, 131073])
+@pytest.mark.parametrize("name", ["sgd_sweep", "sgd_mom_sweep", "adam_sweep"])
+def test_sweep_kernel_bitwise_equals_plain(cuda, name, n, use_clip, offset):
+    w, g, slots, hyper = _sweep_case(name, n, use_clip, cuda, offset)
+    kw, ks = w.clone(), [s.clone() for s in slots]
+    pw, ps = w.clone(), [s.clone() for s in slots]
+    before = ck.kernel_calls()[name]
+    getattr(ck, name)(kw, g, *ks, hyper, use_clip=use_clip)
+    getattr(ck, name + "_ref")(pw, g, *ps, hyper, use_clip=use_clip)
+    torch.cuda.synchronize()
+    assert ck.kernel_calls()[name] == before + 1
+    for got, ref in zip([kw] + ks, [pw] + ps):
+        assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    assert not torch.equal(kw, w)
+
+
+def test_sweep_kernels_raise_on_what_they_do_not_take(cuda):
+    w = torch.zeros(10, device=cuda)
+    h = torch.zeros(4, device=cuda)
+    with pytest.raises(MXNetError, match="float32"):
+        ck.sgd_mom_sweep(w, w.double(), w.clone(), h)
+    with pytest.raises(MXNetError, match="hyper"):
+        ck.sgd_mom_sweep(w, w.clone(), w.clone(), torch.zeros(3, device=cuda))
+    with pytest.raises(MXNetError, match="contiguous"):
+        ck.sgd_sweep(torch.zeros(10, 2, device=cuda)[:, 0],
+                     torch.zeros(10, device=cuda), torch.zeros(3, device=cuda))
+
+
+def test_fused_adam_step_does_not_wait_on_the_card(cuda):
+    """Adam's bias correction rewrites the executor's hyperparameter table
+    every step; the copy goes through pinned memory without blocking, so
+    two fused steps run under sync debug mode "error"."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.symbols import resnet
+    sym = resnet.get_symbol(10, 8, "3,32,32")
+    req = {n: "null" if n in ("data", "softmax_label") else "write"
+           for n in sym.list_arguments()}
+    exe = sym.simple_bind(ctx=mx.gpu(0), grad_req=req, data=(4, 3, 32, 32))
+    rng = np.random.RandomState(45)
+    for n, a in exe.arg_dict.items():
+        if n != "softmax_label":
+            a[:] = (rng.randn(*a.shape) * 0.1).astype(np.float32)
+    for n, a in exe.aux_dict.items():
+        a[:] = 1.0 if n.endswith("_var") else 0.0
+    opt = mx.optimizer.create("adam", learning_rate=1e-3)
+    assert exe.install_fused_update(
+        opt, [n for n, r in req.items() if r != "null"])
+    exe.forward(is_train=True)
+    first = exe._hyper[1].clone()
+    ck.reset_kernel_calls()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            exe.forward(is_train=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert ck.kernel_calls()["adam_sweep"] == 2 * len(exe._sweep["plan"])
+    host, dev = exe._hyper
+    assert torch.equal(dev.cpu(), torch.from_numpy(host))
+    assert not torch.equal(dev, first)

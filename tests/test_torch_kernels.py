@@ -169,7 +169,16 @@ def test_cpu_tensor_routes_to_plain_version_and_counts_nothing():
     assert torch.equal(ck.scale_bias_relu(x, s, b),
                        ck.scale_bias_relu_ref(x, s, b))
     assert torch.equal(ck.softmax_lastaxis(x), ck.softmax_lastaxis_ref(x))
-    assert ck.kernel_calls() == {"scale_bias_relu": 0, "softmax_lastaxis": 0}
+    for name in ("sgd_sweep", "sgd_mom_sweep", "adam_sweep"):
+        w, g = torch.ones(5), torch.ones(5)
+        slots = [torch.zeros(5)] * {"sgd_sweep": 0, "sgd_mom_sweep": 1,
+                                    "adam_sweep": 2}[name]
+        hyper = torch.full((ck.sweep_hyper_len(name, False),), 0.5)
+        getattr(ck, name)(w, g, *slots, hyper)
+        assert not torch.equal(w, torch.ones(5))
+    assert ck.kernel_calls() == {"scale_bias_relu": 0, "softmax_lastaxis": 0,
+                                 "sgd_sweep": 0, "sgd_mom_sweep": 0,
+                                 "adam_sweep": 0}
 
 
 @pytest.mark.parametrize("value,device,expected", [
@@ -186,7 +195,8 @@ def test_family_knob_resolution(monkeypatch, value, device, expected):
 def test_kernel_build_is_lazy_and_keyed_by_source_hash():
     """Importing the port builds nothing; each source has its own
     library path and a hash over its text and the nvcc flags."""
-    assert set(_build.SOURCES) == {"scale_bias_relu", "softmax"}
+    assert set(_build.SOURCES) == {"scale_bias_relu", "softmax",
+                                   "optimizer_sweep"}
     for name in _build.SOURCES:
         src, so, digest = _build._paths(name)
         assert os.path.exists(src) and src.endswith(".cu")
@@ -205,11 +215,16 @@ def test_kernel_build_without_nvcc_raises(monkeypatch):
 
 def test_cuda_sources_carry_their_design_note():
     for name, tpu_kernel in (("scale_bias_relu", "_scale_bias_relu_kernel"),
-                             ("softmax", "_softmax_fwd_kernel")):
+                             ("softmax", "_softmax_fwd_kernel"),
+                             ("optimizer_sweep", "_sgd_kernel"),
+                             ("optimizer_sweep", "_sgd_mom_kernel"),
+                             ("optimizer_sweep", "_adam_kernel")):
         with open(_build._paths(name)[0]) as f:
             text = f.read()
-        assert "Replaces: mxnet_tpu/ops/pallas_kernels.py " + tpu_kernel \
-            in text
+        header = text.split("#include")[0]
+        assert "Replaces: mxnet_tpu/ops/pallas_kernels.py " in header
+        assert " %s (:" % tpu_kernel in header or \
+            "pallas_kernels.py %s" % tpu_kernel in header
         assert "Bound on Hopper" in text
         assert 'extern "C" int mxtt_' in text
 
@@ -218,3 +233,143 @@ def test_tf32_is_off_for_the_fp32_reference_forward():
     assert tmx is not None
     assert torch.backends.cudnn.allow_tf32 is False
     assert torch.backends.cuda.matmul.allow_tf32 is False
+
+
+# ---------------------------------------------------------------------------
+# K1a / K1b / K4: the optimizer sweeps
+# ---------------------------------------------------------------------------
+_LR, _MU, _WD, _RESCALE = 0.1, 0.9, 1e-4, 1.0 / 32
+_B1, _B2, _EPS = 0.9, 0.999, 1e-8
+
+
+def _sweep_inputs(n, seed=15):
+    rng = np.random.RandomState(seed)
+    w = rng.randn(n).astype(np.float32)
+    g = (rng.randn(n) * 40).astype(np.float32)
+    m = (rng.randn(n) * 0.1).astype(np.float32)
+    v = (rng.rand(n) * 0.01).astype(np.float32)
+    return w, g, m, v
+
+
+def _hyper(name, clip):
+    """The executor's hyperparameter vector for ``name`` (``1 - beta`` in
+    double, as Executor._sweep_hyper), and the clip the sweep sees: a
+    negative clip is off."""
+    on = clip is not None and clip >= 0
+    h = {"sgd_sweep": [_LR, _WD, _RESCALE],
+         "sgd_mom_sweep": [_LR, _MU, _WD, _RESCALE],
+         "adam_sweep": [_LR, _B1, _B2, 1.0 - _B1, 1.0 - _B2, _EPS, _WD,
+                        _RESCALE]}[name] + ([clip] if on else [])
+    return torch.tensor(h, dtype=torch.float32), on
+
+
+def _run_sweep(name, n, clip):
+    w, g, m, v = _sweep_inputs(n)
+    hyper, on = _hyper(name, clip)
+    tw, tm, tv = (torch.from_numpy(a.copy()) for a in (w, m, v))
+    slots = {"sgd_sweep": (), "sgd_mom_sweep": (tm,),
+             "adam_sweep": (tm, tv)}[name]
+    getattr(ck, name)(tw, torch.from_numpy(g), *slots, hyper, use_clip=on)
+    return (w, g, m, v), [tw.numpy()] + [s.numpy() for s in slots]
+
+
+def _assert_ulp_close(got, ref, mag, ulps=2):
+    """|got - ref| <= ``ulps`` fp32 ulps of the operands' magnitude
+    ``mag``: XLA's CPU backend may contract a product and a sum into one
+    FMA (one rounding), where the port rounds each, as its CUDA kernel
+    does to stay bitwise equal to the plain version."""
+    bound = ulps * np.float32(2.0 ** -23) * mag
+    assert np.all(np.abs(got - ref) <= bound), \
+        float(np.max(np.abs(got - ref) - bound))
+
+
+@pytest.mark.parametrize("clip", [None, 0.5, -1.0])
+@pytest.mark.parametrize("n", [1000, 131073])
+@pytest.mark.parametrize("name", ["sgd_sweep", "sgd_mom_sweep"])
+def test_sgd_sweep_plain_matches_jax_fused_sgd_momentum(name, n, clip):
+    (w, g, m, _), got = _run_sweep(name, n, clip)
+    mom = jnp.asarray(m) if name == "sgd_mom_sweep" else None
+    jw, jm = pk.fused_sgd_momentum(
+        jnp.asarray(w), jnp.asarray(g), mom, lr=_LR,
+        momentum=_MU if mom is not None else 0.0, wd=_WD, rescale=_RESCALE,
+        clip=clip if clip is not None and clip >= 0 else None)
+    gp = np.abs(g * _RESCALE)
+    if clip is not None and clip >= 0:
+        gp = np.minimum(gp, clip)
+    step = _LR * (gp + _WD * np.abs(w))
+    if mom is None:
+        _assert_ulp_close(got[0], np.asarray(jw), np.abs(w) + step)
+    else:
+        mmag = _MU * np.abs(m) + step
+        _assert_ulp_close(got[1], np.asarray(jm), mmag)
+        _assert_ulp_close(got[0], np.asarray(jw), np.abs(w) + mmag)
+
+
+@pytest.mark.parametrize("clip", [None, 0.5, -1.0])
+@pytest.mark.parametrize("n", [1000, 131073])
+def test_adam_sweep_plain_matches_jax_fused_adam(n, clip):
+    (w, g, m, v), got = _run_sweep("adam_sweep", n, clip)
+    jw, jm, jv = pk.fused_adam(
+        jnp.asarray(w), jnp.asarray(g), jnp.asarray(m), jnp.asarray(v),
+        lr_eff=_LR, beta1=_B1, beta2=_B2, epsilon=_EPS, wd=_WD,
+        rescale=_RESCALE, clip=clip if clip is not None and clip >= 0
+        else None)
+    gp = g * _RESCALE
+    if clip is not None and clip >= 0:
+        gp = np.clip(gp, -clip, clip)
+    gp = np.abs(gp) + _WD * np.abs(w)
+    mmag = _B1 * np.abs(m) + (1 - _B1) * gp
+    vmag = _B2 * v + (1 - _B2) * gp * gp
+    _assert_ulp_close(got[1], np.asarray(jm), mmag)
+    _assert_ulp_close(got[2], np.asarray(jv), vmag)
+    # the step lr * m' / (sqrt(v') + eps) carries the moments' own
+    # difference (each may be one rounding apart): to first order
+    # |step| * (|dm'| / |m'| + |dv'| / (2 v')) on top of 2 ulps of
+    # |w| + |step|
+    jm_, jv_ = np.asarray(jm), np.asarray(jv)
+    step = _LR * np.abs(jm_) / (np.sqrt(jv_) + _EPS)
+    carried = step * (np.abs(got[1] - jm_) / np.maximum(np.abs(jm_), 1e-30)
+                      + np.abs(got[2] - jv_) / np.maximum(2 * jv_, 1e-30))
+    bound = 2 * np.float32(2.0 ** -23) * (np.abs(w) + step) + carried
+    assert np.all(np.abs(got[0] - np.asarray(jw)) <= bound)
+
+
+@pytest.mark.parametrize("clip", [None, 0.5, -1.0])
+@pytest.mark.parametrize("name", ["sgd_sweep", "sgd_mom_sweep",
+                                  "adam_sweep"])
+def test_sweep_plain_bitwise_equals_optimizer_ops(name, clip):
+    """The sweep's plain version (0-dim fp32 hyperparameters) against the
+    port's per-array update (Python floats): the same expressions, so
+    the same bits."""
+    from mxnet_tpu_torch.ops import optimizer_ops as oo
+    (w, g, m, v), got = _run_sweep(name, 4099, clip)
+    tw, tg, tm, tv = (torch.from_numpy(a) for a in (w, g, m, v))
+    kw = dict(wd=_WD, rescale_grad=_RESCALE,
+              clip_gradient=-1.0 if clip is None else clip)
+    if name == "sgd_sweep":
+        ref = [oo.sgd_update(tw, tg, lr=_LR, **kw)]
+    elif name == "sgd_mom_sweep":
+        ref = list(oo.sgd_mom_update(tw, tg, tm, lr=_LR, momentum=_MU, **kw))
+    else:
+        ref = list(oo.adam_update(tw, tg, tm, tv, lr=_LR, beta1=_B1,
+                                  beta2=_B2, epsilon=_EPS, **kw))
+    for a, b in zip(got, ref):
+        assert np.array_equal(a.view(np.int32), b.numpy().view(np.int32))
+
+
+def test_sweep_clip_lets_nan_through():
+    w = torch.zeros(4)
+    g = torch.tensor([float("nan"), 100.0, -100.0, 0.5])
+    hyper = torch.tensor([1.0, 0.0, 1.0, 1.0])   # lr, wd, rescale, clip
+    ck.sgd_sweep(w, g, hyper, use_clip=True)
+    assert torch.isnan(w[0]) and w[1:].tolist() == [-1.0, 1.0, -0.5]
+
+
+def test_sweep_wrapper_rejects_bad_operands():
+    w = torch.zeros(6)
+    with pytest.raises(MXNetError, match="hyper"):
+        ck.sgd_mom_sweep(w, w.clone(), w.clone(), torch.zeros(5))
+    with pytest.raises(MXNetError, match="float32"):
+        ck.adam_sweep(w, w.clone(), w.clone(), w[:5].clone(), torch.zeros(8))
+    with pytest.raises(MXNetError, match="slots"):
+        ck._sweep("sgd_mom_sweep", w, w.clone(), (), torch.zeros(4), False)

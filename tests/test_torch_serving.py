@@ -280,7 +280,7 @@ def test_cpu_serving_launches_no_kernel(model, monkeypatch):
     ck.reset_kernel_calls()
     x = np.random.RandomState(33).randn(2, *SHAPE).astype(np.float32)
     forced = _predict(model, x)
-    assert ck.kernel_calls() == {"scale_bias_relu": 0, "softmax_lastaxis": 0}
+    assert set(ck.kernel_calls().values()) == {0}
     monkeypatch.setenv("MXNET_PALLAS_BN_RELU", "0")
     monkeypatch.setenv("MXNET_PALLAS_SOFTMAX", "0")
     np.testing.assert_allclose(forced, _predict(model, x), rtol=0,

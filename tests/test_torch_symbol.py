@@ -127,11 +127,26 @@ def test_softmax_output_forward_matches_jax(monkeypatch, knob):
 
 
 def test_batchnorm_training_mode_is_not_ported():
+    """The name is kept from the serving slice, which refused training
+    mode.  Training mode is ported now: through both registries, the
+    batch's statistics normalise and the moving stats come back updated,
+    and with use_global_stats the moving stats normalise and come back
+    unchanged (the gradients are held in test_torch_train.py)."""
     rng = np.random.RandomState(26)
-    arrays = [torch.from_numpy(_randn(rng, 2, 4, 3, 3))] + \
-        [torch.ones(4)] * 4
-    with pytest.raises(MXNetError, match="training"):
-        torch_op("BatchNorm").fn(*arrays, __is_train__=True)
+    arrays = [_randn(rng, 2, 4, 3, 3) * 2 + 0.5,
+              rng.rand(4).astype(np.float32) + 0.5, _randn(rng, 4),
+              _randn(rng, 4) * 0.1, rng.rand(4).astype(np.float32) + 0.5]
+    for use_global_stats in (False, True):
+        kw = dict(eps=2e-5, momentum=0.9, fix_gamma=False,
+                  use_global_stats=use_global_stats, __is_train__=True)
+        j = jax_op("BatchNorm").fn(*[jnp.asarray(a) for a in arrays], **kw)
+        t = torch_op("BatchNorm").fn(*[torch.from_numpy(a) for a in arrays],
+                                     **kw)
+        for jo, to in zip(j, t):
+            np.testing.assert_allclose(to.numpy(), np.asarray(jo),
+                                       rtol=RTOL, atol=ATOL)
+        moved = not np.array_equal(t[1].numpy(), arrays[3])
+        assert moved != use_global_stats
 
 
 # ---------------------------------------------------------------------------
@@ -290,11 +305,24 @@ def test_params_from_numpy_names_what_is_missing():
 
 
 def test_simple_bind_is_inference_only():
+    """By default (grad_req null) simple_bind binds for inference only: no
+    gradient buffers, a training forward runs BatchNorm on the batch's
+    stats without a backward, and backward() does nothing; write
+    allocates a gradient per argument; other values raise."""
     ps = port_resnet.get_symbol(10, 8, "3,32,32")
     with pytest.raises(MXNetError, match="grad_req"):
-        ps.simple_bind(ctx=tmx.cpu(), grad_req="write", data=(1, 3, 32, 32))
-    exe = ps.simple_bind(ctx=tmx.cpu(), data=(1, 3, 32, 32))
-    with pytest.raises(MXNetError, match="training slice"):
-        exe.forward(is_train=True)
+        ps.simple_bind(ctx=tmx.cpu(), grad_req="sum", data=(1, 3, 32, 32))
+    wexe = ps.simple_bind(ctx=tmx.cpu(), grad_req="write",
+                          data=(1, 3, 32, 32))
+    assert set(wexe.grad_dict) == set(ps.list_arguments())
+    exe = ps.simple_bind(ctx=tmx.cpu(), data=(2, 3, 32, 32))
+    assert exe.grad_dict == {}
+    for n, a in exe.aux_dict.items():
+        a[:] = 1.0 if n.endswith("_var") else 0.0
+    for n, a in exe.arg_dict.items():
+        a[:] = np.random.RandomState(27).randn(*a.shape).astype(np.float32)
+    exe.forward(is_train=True)
+    assert not np.allclose(exe.aux_dict["bn0_moving_mean"].asnumpy(), 0)
+    exe.backward()                  # no gradients to compute: a no-op
     with pytest.raises(MXNetError, match="unknown forward argument"):
         exe.forward(images=np.zeros((1, 3, 32, 32), np.float32))
