@@ -48,11 +48,30 @@ Phases, each of which raises on failure:
 8. the sweep kernels (K1a, K1b, K4) bitwise against their plain versions
    at the bucket sizes of the training path, at 1, 3 and 4097 elements,
    on a view whose offset breaks 16-byte alignment, clip on and off, and
-   timed per bucket beside their plain versions and bounds; then every
-   kernel's device time by the profiler, and one profiled training step.
+   timed per bucket beside their plain versions and bounds;
+9. the transformer kernels against their plain versions, at the shapes a
+   GPT-2-small-width ``TransformerLM`` forward at batch 8 gives them: K6a
+   (LayerNorm) at (8192, 768) and at C = 37 and 1000, K7a (flash
+   attention) at (96, 1024, 64) causal and full and at T 8/64/1024 x D
+   32/64/128, K5a (bias softmax) at (96, 1020, 1020) with the causal bias
+   and without a mask; fp32 and bf16; each timed beside its plain
+   version, its bound and one PyTorch call;
+10. the transformer (the third main path): gluon ``TransformerLM`` at
+   GPT-2 small's widths (vocab 50257, 768 units, 3072 hidden, 12 layers,
+   12 heads, 1024 positions), Xavier weights from a seed, hybridized, run
+   at (8, 1024), where attention takes the flash kernel, and at (8,
+   1020), where it takes the einsum logits and K5a.  Launches are held to
+   25 K6a + 12 K7a and 25 K6a + 12 K5a per forward; the logits to a
+   plain fp32 forward of the same parameters (``causal_attention`` and
+   the plain LayerNorm) within 1e-4 of their largest magnitude, a bound
+   the same plain forward with TF32 matmuls must break.  Then the forward
+   time by CUDA events and tokens/s;
+then every kernel's device time by the profiler, one profiled serving
+forward, training step and transformer forward.
 
-Prints one JSON line ``{"kernels": [...]}``, the serving and training
-numbers beside the card's name and power limit, and as its last line
+Prints one JSON line ``{"kernels": [...]}`` (all eight kernels), the
+serving, training and transformer numbers beside the card's name and
+power limit, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
 prints no result.
 """
@@ -79,6 +98,17 @@ TRAIN_WARMUP = 3            # untimed steps before the timed ones
 TRAIN_STEPS = 20            # timed steps
 OTHER_STEPS = 10            # timed steps of each other optimizer path
 SGD_PARAMS = {"learning_rate": 0.02, "momentum": 0.9, "wd": 1e-4}
+# GPT-2 small's published widths (Radford et al. 2019, the gpt2
+# config.json: n_embd 768, n_head 12, n_layer 12, n_ctx 1024, vocab 50257)
+GPT2_SMALL = {"vocab_size": 50257, "units": 768, "hidden_size": 3072,
+              "num_layers": 12, "num_heads": 12, "max_len": 1024}
+LM_BATCH = 8
+LM_T = (1024, 1020)         # the flash route, then the K5a route
+# The port's fp32 forward and the plain one differ only in the order of
+# fp32 sums (attention, LayerNorm): ~1e-6 of the largest logit.  TF32
+# rounds every matmul input to 10 mantissa bits: ~1e-3.  The bound sits
+# between, so a forward that ran its matmuls in TF32 fails it.
+LOGIT_TOL = 1e-4
 
 # (name fragment, HBM bytes/s, fp32 FLOP/s outside the tensor cores), from
 # NVIDIA's data sheets; the first fragment found in the card's name wins.
@@ -468,11 +498,11 @@ KINDS = (("K3", ("scale_bias_relu",)), ("K2", ("softmax_rows",)),
          ("pooling", ("pool",)))
 
 
-def by_kind(by_name):
+def by_kind(by_name, kinds=KINDS):
     """``{kind: device us}`` of a ``device_times`` result."""
-    us = dict.fromkeys([k for k, _ in KINDS] + ["other"], 0.0)
+    us = dict.fromkeys([k for k, _ in kinds] + ["other"], 0.0)
     for name, v in by_name.items():
-        kind = next((k for k, frags in KINDS
+        kind = next((k for k, frags in kinds
                      if any(f in name for f in frags)), "other")
         us[kind] += v
     return us
@@ -765,6 +795,297 @@ def check_sweeps(ck, dev, bw, flops, buckets):
     return recs, jobs
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the transformer kernels against their plain versions
+# ---------------------------------------------------------------------------
+def _bf16_close(got, ref, atol):
+    """Within one bf16 rounding of the larger magnitude, plus ``atol``:
+    the kernel and its plain version both compute in fp32 and round once
+    to bf16."""
+    got, ref = got.float(), ref.float()
+    mag = torch.maximum(got.abs(), ref.abs())
+    return bool(((got - ref).abs() <= mag * 2.0 ** -7 + atol).all())
+
+
+def check_k6a(ck, dev, bw, flops, rows=LM_BATCH * LM_T[0],
+              cols=GPT2_SMALL["units"]):
+    """K6a against its plain version at the transformer's shape, at
+    ragged widths and at the wider rows of the block-per-row layouts
+    (GPT-2 medium to XL widths 1024-1600, 2048, 4096, and 10000 past the
+    registers), fp32 within 1e-5 (the row sums run in another order;
+    rsqrtf is within 2 ulp) and bf16 within one rounding.  Returns its
+    record and its timing job at ``(rows, cols)`` fp32."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    worst = 0.0
+    for shape in ((rows, cols), (rows // 8, 37), (rows // 8, 1000),
+                  (rows // 8, 1280), (rows // 8, 1600), (rows // 8, 2048),
+                  (rows // 8, 4096), (rows // 32, 10000)):
+        c = shape[1]
+        x32 = torch.randn(shape, generator=gen, device=dev) * 2 + 0.5
+        g = 1 + 0.1 * torch.randn(c, generator=gen, device=dev)
+        b = 0.1 * torch.randn(c, generator=gen, device=dev)
+        for dt in (torch.float32, torch.bfloat16):
+            x = x32.to(dt)
+            o, mu, rstd = ck.layernorm_fwd(x, g, b, 1e-5)
+            ro, rmu, rrstd = ck.layernorm_fwd_ref(x, g, b, 1e-5)
+            torch.cuda.synchronize()
+            err = (o.float() - ro.float()).abs().max().item()
+            ok = (o.dtype == dt and (mu - rmu).abs().max().item() <= 1e-5
+                  and ((rstd - rrstd).abs() / rrstd).max().item() <= 1e-5
+                  and (err <= 1e-5 if dt == torch.float32
+                       else _bf16_close(o, ro, 1e-5)))
+            if not ok:
+                raise AssertionError("K6a at %s %s: max |d| %g" % (shape, dt,
+                                                                    err))
+            if dt == torch.float32:
+                worst = max(worst, err)
+    x = torch.randn((rows, cols), generator=gen, device=dev)
+    g, b = torch.ones(cols, device=dev), torch.zeros(cols, device=dev)
+    bms, by = bound_ms(2 * x.numel() * 4 + 2 * cols * 4 + 2 * rows * 4,
+                       7 * x.numel(), bw, flops)
+    return {
+        "name": "layernorm_fwd (K6a)", "route": "cuda",
+        "source": "mxnet_tpu_torch/ops/csrc/layernorm.cu",
+        "replaces": "mxnet_tpu/ops/pallas_kernels.py:772",
+        "shape": "(%d, %d) fp32, one LayerNorm of the transformer forward"
+                 % (rows, cols),
+        "max_abs_err": worst, "bound_ms": bms, "bound_by": by,
+    }, [{"count": 1, "shape": (rows, cols), "bound_ms": bms, "fns": {
+        "": lambda: ck.layernorm_fwd(x, g, b, 1e-5),
+        "plain_": lambda: ck.layernorm_fwd_ref(x, g, b, 1e-5),
+        "library_": lambda: torch.nn.functional.layer_norm(
+            x, (cols,), g, b, 1e-5)}}]
+
+
+def flash_bound(bh, tq, tk, d, causal, itemsize, bw, flops):
+    """Bytes (q, k, v read and o written once, lse written) and fp32
+    operations (two products of 2 d each per visible (query, key) pair:
+    under a causal mask row r sees min(r + 1, tk) keys) of one K7a call."""
+    pairs = sum(min(r + 1, tk) for r in range(tq)) if causal else tq * tk
+    return bound_ms((2 * bh * tq * d + 2 * bh * tk * d) * itemsize
+                    + bh * tq * 4, 4 * d * bh * pairs, bw, flops)
+
+
+def check_k7a(ck, dev, bw, flops, bh=LM_BATCH * GPT2_SMALL["num_heads"],
+              t=LM_T[0], d=GPT2_SMALL["units"] // GPT2_SMALL["num_heads"]):
+    """K7a against its plain version at the transformer's shape, causal
+    and full, at T 8/64/1024 x D 32/64/128, and at every other head dim
+    the kernel has (16, 48, 80, 96, 112) at T 200: fp32 o and lse within
+    1e-5 (the kernel sums 64-key tiles with online rescaling, the plain
+    version one product over up to 1024 keys), bf16 o within one
+    rounding.  Returns its record and its timing job, causal fp32."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    worst = 0.0
+    cases = [(bh, t, d, c, torch.float32) for c in (True, False)]
+    cases += [(4, tt, dd, c, torch.float32) for tt in (8, 64, 1024)
+              for dd in (32, 64, 128) for c in (True, False)]
+    cases += [(4, 200, dd, c, torch.float32) for dd in (16, 48, 80, 96, 112)
+              for c in (True, False)]
+    cases += [(bh, t, d, True, torch.bfloat16)]
+    for b_, t_, d_, causal, dt in cases:
+        q, k, v = (torch.randn((b_, t_, d_), generator=gen, device=dev)
+                   .to(dt) for _ in range(3))
+        o, lse = ck.flash_attention_fwd(q, k, v, causal)
+        ro, rlse = ck.flash_attention_fwd_ref(q, k, v, causal)
+        torch.cuda.synchronize()
+        err = (o.float() - ro.float()).abs().max().item()
+        lerr = (lse - rlse).abs().max().item()
+        ok = (o.dtype == dt and bool(torch.isfinite(o).all()) and lerr <= 1e-5
+              and (err <= 1e-5 if dt == torch.float32
+                   else _bf16_close(o, ro, 1e-5)))
+        if not ok:
+            raise AssertionError("K7a at %s causal=%s %s: max |d| o %g, lse "
+                                 "%g" % ((b_, t_, d_), causal, dt, err, lerr))
+        if dt == torch.float32:
+            worst = max(worst, err, lerr)
+    q, k, v = (torch.randn((bh, t, d), generator=gen, device=dev)
+               for _ in range(3))
+    heads = GPT2_SMALL["num_heads"]
+    q4, k4, v4 = (a.view(bh // heads, heads, t, d) for a in (q, k, v))
+    bms, by = flash_bound(bh, t, t, d, True, 4, bw, flops)
+    return {
+        "name": "flash_attention_fwd (K7a)", "route": "cuda",
+        "source": "mxnet_tpu_torch/ops/csrc/flash_attention.cu",
+        "replaces": "mxnet_tpu/ops/pallas_kernels.py:153",
+        "shape": "(%d, %d, %d) fp32 causal, one attention of the "
+                 "transformer forward at T=%d" % (bh, t, d, t),
+        "max_abs_err": worst, "bound_ms": bms, "bound_by": by,
+    }, [{"count": 1, "shape": (bh, t, d), "bound_ms": bms, "fns": {
+        "": lambda: ck.flash_attention_fwd(q, k, v, True),
+        "plain_": lambda: ck.flash_attention_fwd_ref(q, k, v, True),
+        "library_": lambda: torch.nn.functional.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True)}}]
+
+
+def causal_bias(t, dev):
+    """The (t, t) causal mask as local_attention hands it to K5a."""
+    keep = torch.ones((t, t), dtype=torch.bool, device=dev).tril()
+    return torch.where(keep, 0.0, -1e30).to(torch.float32)
+
+
+def check_k5a(ck, dev, bw, flops, bh=LM_BATCH * GPT2_SMALL["num_heads"],
+              t=LM_T[1]):
+    """K5a against its plain version at the transformer's shape with the
+    causal bias and with a zero bias (no mask): fp32 within 1e-6 (the sum
+    in another order, as K2); bf16 within one bf16 rounding of the
+    magnitude plus 1e-6, since both compute in fp32 and round once (a
+    flat 1e-2 would be ten times a typical probability of 1/1020); masked
+    columns exactly 0.  Returns its record and its timing job, causal
+    fp32."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    worst = 0.0
+    causal = causal_bias(t, dev)
+    for bias, dt in ((causal, torch.float32),
+                     (torch.zeros_like(causal), torch.float32),
+                     (causal, torch.bfloat16)):
+        x = (torch.randn((bh, t, t), generator=gen, device=dev) * 3).to(dt)
+        y = ck.bias_softmax(x, bias)
+        ref = ck.bias_softmax_ref(x, bias)
+        torch.cuda.synchronize()
+        err = (y.float() - ref.float()).abs().max().item()
+        close = (err <= 1e-6 if dt == torch.float32
+                 else _bf16_close(y, ref, 1e-6))
+        masked = bool((y[:, bias < 0] == 0).all())
+        del ref
+        if y.dtype != dt or not close or not masked:
+            raise AssertionError("K5a at %s %s: max |d| %g, masked columns "
+                                 "zero: %s" % ((bh, t, t), dt, err, masked))
+        if dt == torch.float32:
+            worst = max(worst, err)
+        del x, y
+    x = torch.randn((bh, t, t), generator=gen, device=dev) * 3
+    bms, by = bound_ms(2 * x.numel() * 4 + causal.numel() * 4,
+                       5 * x.numel(), bw, flops)
+    return {
+        "name": "bias_softmax (K5a)", "route": "cuda",
+        "source": "mxnet_tpu_torch/ops/csrc/softmax.cu",
+        "replaces": "mxnet_tpu/ops/pallas_kernels.py:875",
+        "shape": "(%d, %d, %d) fp32 with the causal bias, one attention "
+                 "of the transformer forward at T=%d" % (bh, t, t, t),
+        "max_abs_err": worst, "bound_ms": bms, "bound_by": by,
+    }, [{"count": 1, "shape": (bh, t, t), "bound_ms": bms, "fns": {
+        "": lambda: ck.bias_softmax(x, causal),
+        "plain_": lambda: ck.bias_softmax_ref(x, causal),
+        "library_": lambda: torch.softmax(x + causal, -1)}}]
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the transformer path
+# ---------------------------------------------------------------------------
+def transformer_lm(mx, ctx, config=GPT2_SMALL, seed=SEED):
+    """gluon TransformerLM with ``config``'s widths, Xavier weights from
+    ``seed`` on ``ctx``, hybridized, as a user builds it."""
+    from mxnet_tpu_torch.gluon.contrib.transformer import TransformerLM
+    mx.random.seed(seed)
+    lm = TransformerLM(**config)
+    lm.initialize(mx.init.Xavier(), ctx=ctx)
+    lm.hybridize()
+    return lm
+
+
+def lm_tokens(mx, ctx, vocab, batch, t, seed=SEED):
+    """Random token ids from ``seed``, float32 as the reference feeds
+    them."""
+    ids = np.random.RandomState(seed + t).randint(0, vocab, (batch, t))
+    return mx.nd.array(ids.astype(np.float32), ctx=ctx)
+
+
+def plain_forward(ck, lm, ids):
+    """The forward of ``lm``'s parameters in plain torch: the embeddings,
+    each block's plain LayerNorm (``layernorm_fwd_ref``), projections,
+    ``causal_attention`` and ReLU FFN, then the head.  ``ids`` is a (B,
+    T) tensor of token ids."""
+    from mxnet_tpu_torch.gluon.contrib.transformer import causal_attention
+
+    def w(p):
+        return p.data()._data
+
+    def ln(x, blk):
+        return ck.layernorm_fwd_ref(x, w(blk.gamma), w(blk.beta),
+                                    blk._epsilon)[0]
+
+    b, t = ids.shape
+    x = w(lm.embed.weight)[ids.long()] + w(lm.pos_embed.weight)[:t]
+    for cell in lm.blocks:
+        a = cell.attn
+        h = ln(x, cell.ln1)
+        q, k, v = ((h @ w(p.weight).T).reshape(b, t, -1, a._d)
+                   for p in (a.q_proj, a.k_proj, a.v_proj))
+        x = x + causal_attention(q, k, v).reshape(b, t, -1) \
+            @ w(a.out_proj.weight).T
+        h = ln(x, cell.ln2)
+        f1, f2 = cell.ffn[0], cell.ffn[1]
+        h = torch.relu(h @ w(f1.weight).T + w(f1.bias))
+        x = x + (h @ w(f2.weight).T + w(f2.bias))
+    return ln(x, lm.ln_f) @ w(lm.head.weight).T + w(lm.head.bias)
+
+
+def logits_deviation(ck, lm, tokens, logits, tf32=False):
+    """``max |logits - plain|`` over the plain forward's largest
+    magnitude, and that magnitude; with ``tf32`` the plain forward runs
+    its matmuls in TF32."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        ref = plain_forward(ck, lm, tokens._data)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    mag = ref.abs().max().item()
+    return (logits - ref).abs().max().item() / mag, mag
+
+
+def lm_forward(ck, lm, tokens, reps=3):
+    """The main path: one forward of ``lm`` on ``tokens`` with the launch
+    counts set to 0 just before and read just after, then ``reps`` timed
+    forwards (CUDA events on the card, the host clock on the CPU).
+    Returns the logits tensor and the numbers."""
+    device = tokens._data.device
+    ck.reset_kernel_calls()
+    logits = lm(tokens)._data
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    calls = ck.kernel_calls()
+    times = []
+    for _ in range(reps):
+        a = _marker(device)
+        lm(tokens)
+        times.append(_elapsed_ms(a, _marker(device)))
+    fwd_ms = float(np.median(times))
+    b, t = tokens.shape
+    return logits, {"calls": calls, "fwd_ms": fwd_ms,
+                    "tokens_per_s": b * t / fwd_ms * 1e3,
+                    "shape": tuple(logits.shape),
+                    "finite": bool(torch.isfinite(logits).all())}
+
+
+# kinds of kernel in a transformer forward's profile; the first match wins
+LM_KINDS = (("K6a", ("layernorm_fwd",)), ("K7a", ("flash_fwd",)),
+            ("K5a", ("bias_softmax",)), ("K2", ("softmax_rows",)),
+            ("GEMM", ("gemm", "xmma", "cutlass", "cublas")),
+            ("embedding", ("indexSelect", "index_select", "embedding",
+                           "gather")),
+            ("copy", ("Memcpy", "copy")),
+            ("reduction", ("reduce_kernel",)),
+            ("elementwise", ("elementwise", "vectorized")))
+
+
+def profile_lm(lm, tokens, fwd_ms):
+    """Device time by kind over one transformer forward beside its time
+    without the profiler; a printable line."""
+    by_name = device_times(lambda: lm(tokens), n=1)
+    wall, busy = fwd_ms * 1e3, sum(by_name.values())
+    if busy <= 0:
+        return "transformer profile: not measured (no device time)"
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return ("profile of one transformer forward at %s: %.0f us (CUDA "
+            "events, no profiler), device busy %.0f us (idle share %.3f); "
+            "by kind: %s; top kernels: %s"
+            % (tuple(tokens.shape), wall, busy, max(0.0, 1 - busy / wall),
+               ", ".join("%s %.0f us" % kv
+                         for kv in by_kind(by_name, LM_KINDS).items()),
+               "; ".join("%s %.0f us" % (k[:60], v) for k, v in top)))
+
+
 def profile_step(mod, batch_input, step_ms):
     """Device time of one training step (forward, backward, sweep) by
     kind of kernel and its top kernels, beside the step's time without
@@ -930,10 +1251,67 @@ def main():
           % tr["buckets"], flush=True)
     k2["launches_training"] = tr["calls"]["softmax_lastaxis"]
 
+    # 9. the transformer kernels against their plain versions
+    k6a, k6a_jobs = check_k6a(ck, dev, bw, flops)
+    k7a, k7a_jobs = check_k7a(ck, dev, bw, flops)
+    k5a, k5a_jobs = check_k5a(ck, dev, bw, flops)
+    for rec, jobs in ((k6a, k6a_jobs), (k7a, k7a_jobs), (k5a, k5a_jobs)):
+        time_jobs(rec, jobs, "call_ms", time_ms)
+    print("kernels checked: K6a within 1e-5 (fp32) and one bf16 rounding at "
+          "C 768, 37, 1000; K7a within 1e-5 at (96, 1024, 64) causal and "
+          "full and T 8/64/1024 x D 32/64/128, bf16 within one rounding; "
+          "K5a within 1e-6 (fp32) and 1e-2 (bf16) at (96, 1020, 1020), "
+          "causal bias and none", flush=True)
+
+    # 10. the transformer path: GPT-2-small widths, both attention routes
+    lm = transformer_lm(mx, mx.gpu(0))
+    n_layers, vocab = GPT2_SMALL["num_layers"], GPT2_SMALL["vocab_size"]
+    lm_res = {}
+    for t, attn in ((LM_T[0], "flash_attention_fwd"),
+                    (LM_T[1], "bias_softmax")):
+        tokens = lm_tokens(mx, mx.gpu(0), vocab, LM_BATCH, t)
+        logits, r = lm_forward(ck, lm, tokens)
+        want = dict.fromkeys(r["calls"], 0)
+        want.update({"layernorm_fwd": 2 * n_layers + 1, attn: n_layers})
+        if r["calls"] != want:
+            raise AssertionError("transformer at T=%d: launches %s; expected "
+                                 "%s" % (t, r["calls"], want))
+        if r["shape"] != (LM_BATCH, t, vocab) or not r["finite"]:
+            raise AssertionError("transformer at T=%d: logits %s, finite: %s"
+                                 % (t, r["shape"], r["finite"]))
+        r["dev"], r["mag"] = logits_deviation(ck, lm, tokens, logits)
+        r["dev_tf32"], _ = logits_deviation(ck, lm, tokens, logits,
+                                            tf32=True)
+        del logits
+        if not r["dev"] <= LOGIT_TOL < r["dev_tf32"]:
+            raise AssertionError(
+                "transformer at T=%d: logits vs the plain fp32 forward %.3g "
+                "of the largest (limit %g); the TF32 plain forward %.3g, "
+                "which the limit must reject" % (t, r["dev"], LOGIT_TOL,
+                                                 r["dev_tf32"]))
+        r["tokens"] = tokens
+        lm_res[t] = r
+        print("transformer on %s: TransformerLM %s fp32, hybridized, batch "
+              "%d, T=%d (%s route): forward %.2f ms, %.0f tokens/s (CUDA "
+              "events, median of 3); launches %s; logits vs the plain fp32 "
+              "forward: max |d| %.3g of the largest |logit| %.3f (limit "
+              "%g); the same plain forward with TF32 matmuls: %.3g"
+              % (smi, json.dumps(GPT2_SMALL), LM_BATCH, t,
+                 "flash" if attn == "flash_attention_fwd" else "einsum + K5a",
+                 r["fwd_ms"], r["tokens_per_s"], r["calls"], r["dev"],
+                 r["mag"], LOGIT_TOL, r["dev_tf32"]), flush=True)
+    k6a["launches"] = sum(r["calls"]["layernorm_fwd"] for r in lm_res.values())
+    k6a["launches_per_forward"] = k6a["launches"] / len(lm_res)
+    for rec, t, name in ((k7a, LM_T[0], "flash_attention_fwd"),
+                         (k5a, LM_T[1], "bias_softmax")):
+        rec["launches"] = rec["launches_per_forward"] = \
+            lm_res[t]["calls"][name]
+
     # device time of each kernel (the profiler last: its hooks slow the
     # host for the rest of the process)
     recs = [(k3, k3_jobs), (k2, k2_jobs)] + [
-        (sweeps[name], sweep_jobs[name]) for name, *_ in SWEEPS]
+        (sweeps[name], sweep_jobs[name]) for name, *_ in SWEEPS] + [
+        (k6a, k6a_jobs), (k7a, k7a_jobs), (k5a, k5a_jobs)]
     try:
         for rec, jobs in recs:
             time_jobs(rec, jobs, "ms", device_ms)
@@ -961,6 +1339,14 @@ def main():
                   "bound %.4f ms; per call: kernel %.4f ms, plain %.4f ms"
                   % (knum, name, job["n"], job["ms"], job["plain_ms"],
                      job["bound_ms"], job["call_ms"], job["plain_call_ms"]))
+    for knum, rec in (("K6a", k6a), ("K7a", k7a), ("K5a", k5a)):
+        print("%s %s device: kernel %.4f ms, plain %.4f ms, library %.4f ms, "
+              "bound %.4f ms (%s); per call: kernel %.4f ms, plain %.4f ms, "
+              "library %.4f ms"
+              % (knum, rec["shape"], rec["ms"], rec["plain_ms"],
+                 rec["library_ms"], rec["bound_ms"], rec["bound_by"],
+                 rec["call_ms"], rec["plain_call_ms"],
+                 rec["library_call_ms"]))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
             "launches_per_forward", "call_ms", "plain_call_ms",
@@ -985,6 +1371,8 @@ def main():
     print(profile_forward(res["predictor"], res["batch_input"],
                           res["fwd_ms"]))
     print(profile_step(mod, train_batch, tr["step_ms"]))
+    for r in lm_res.values():
+        print(profile_lm(lm, r["tokens"], r["fwd_ms"]))
     print("nvidia-smi: %s" % smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -14,18 +14,22 @@ TF32 (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32`` are set to False at import),
 because the reference forward is float32.
 
-The port carries two paths so far: inference (symbols and their JSON,
+The port carries three paths so far: inference (symbols and their JSON,
 the ops of a ResNet, ``simple_bind``/``forward``, ``Predictor`` and the
-micro-batching ``ModelServer``) and training through ``Module.fit``
+micro-batching ``ModelServer``), training through ``Module.fit``
 (autograd backward, BatchNorm's batch statistics, SGD/Adam, the
 executor's fused optimizer step, ``NDArrayIter``, metrics,
-initializers and the ``local``/``device``/``tpu`` kvstores).
+initializers and the ``local``/``device``/``tpu`` kvstores), and the
+gluon transformer forward (``gluon.contrib.transformer.TransformerLM``:
+Block/HybridBlock, Parameter, the ``nd`` op namespace, LayerNorm and
+attention).
 """
 import torch
 
 from .base import MXNetError  # noqa: F401
 from . import config  # noqa: F401
 from .context import Context, cpu, gpu, tpu, num_gpus  # noqa: F401
+from . import autograd  # noqa: F401
 from . import ndarray  # noqa: F401
 from . import ndarray as nd  # noqa: F401
 from . import ops  # noqa: F401
@@ -50,6 +54,7 @@ from . import model  # noqa: F401
 from . import module  # noqa: F401
 from . import module as mod  # noqa: F401
 from . import parallel  # noqa: F401
+from . import gluon  # noqa: F401
 
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False

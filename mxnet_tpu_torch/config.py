@@ -57,8 +57,15 @@ register_env("MXNET_PALLAS_BN_RELU", str, "auto",
              "0 = off (per-op path)")
 register_env("MXNET_PALLAS_SOFTMAX", str, "auto",
              "SoftmaxOutput forward through the softmax_lastaxis CUDA "
+             "kernel, and masked attention (local_attention's einsum "
+             "route) through bias_softmax: auto = on for tensors on the "
+             "GPU, 1 = force (the plain versions on CPU tensors), 0 = off "
+             "(torch.softmax)")
+register_env("MXNET_PALLAS_NORM", str, "auto",
+             "LayerNorm over the last axis through the layernorm_fwd CUDA "
              "kernel: auto = on for tensors on the GPU, 1 = force (the "
-             "plain version on CPU tensors), 0 = off (torch.softmax)")
+             "plain version on CPU tensors), 0 = off (the plain reduction "
+             "chain)")
 register_env("MXNET_PALLAS_FUSED_OPT", str, "auto",
              "executor fused step (Module with kvstore='tpu'): the "
              "one-sweep optimizer CUDA kernels over flat fp32 buckets: "

@@ -1,10 +1,12 @@
 """Carry parameters across from the JAX package.
 
 Both packages use the same names and layouts — OIHW convolution
-weights, ``(num_hidden, in)`` FullyConnected weights, per-channel
-BatchNorm vectors — so moving a model is a matter of dtype and device
-placement.  The caller hands numpy arrays (``{k: v.asnumpy()}`` on the
-JAX side); this module never sees a JAX object.
+weights, ``(num_hidden, in)`` FullyConnected and Dense weights,
+per-channel BatchNorm and LayerNorm vectors — so moving a model is a
+matter of dtype and device placement: ``params_from_numpy`` for a
+symbol's arg and aux dicts, ``block_params_from_numpy`` for a gluon
+block.  The caller hands numpy arrays (``{k: v.asnumpy()}`` on the JAX
+side); this module never sees a JAX object.
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ from .base import MXNetError, dtype_torch
 from .context import resolve
 from .ndarray import NDArray
 
-__all__ = ["params_from_numpy"]
+__all__ = ["params_from_numpy", "block_params_from_numpy"]
 
 
 def _to_nd(name, v, device, dtype):
@@ -23,7 +25,7 @@ def _to_nd(name, v, device, dtype):
     if a.dtype.kind != "f":
         raise MXNetError("parameter %r is %s; parameters are floating point"
                          % (name, a.dtype))
-    return NDArray(torch.from_numpy(np.ascontiguousarray(a)).to(
+    return NDArray(torch.from_numpy(np.require(a, requirements=("C", "W"))).to(
         device=device, dtype=dtype))
 
 
@@ -48,3 +50,50 @@ def params_from_numpy(arg_params, aux_params, ctx=None, symbol=None,
             raise MXNetError("parameters missing for the symbol: %s"
                              % missing)
     return args, auxs
+
+
+def _root_prefix(names):
+    """The root block's prefix of gluon parameter names: everything up to
+    and including the first ``_`` (a root block is named
+    ``<alias><count>_``), which every name must share."""
+    names = list(names)
+    if not names:
+        return ""
+    head = names[0].split("_", 1)[0] + "_"
+    if not all(n.startswith(head) for n in names):
+        raise MXNetError("parameter names do not share one root prefix "
+                         "(%r in %r)" % (head, names[:4]))
+    return head
+
+
+def block_params_from_numpy(block, arrays, ctx=None):
+    """Set every parameter of gluon ``block`` from ``arrays``, ``{name:
+    np.ndarray}`` as the JAX block's ``collect_params()`` names them, on
+    ``ctx`` (default ``gpu(0)``) in each parameter's dtype.
+
+    Names match with each side's root prefix stripped (``transformerlm0_``
+    here may be ``transformerlm3_`` there: the count is per process), so
+    the two blocks must have been built alike.  A parameter missing from
+    ``arrays``, a name in ``arrays`` the block lacks, or a shape that
+    disagrees with a known dim raises MXNetError naming them; deferred
+    parameters take their shape from the array."""
+    ours = {n[len(block.prefix):]: p
+            for n, p in block.collect_params().items()}
+    theirs_prefix = _root_prefix(arrays)
+    theirs = {n[len(theirs_prefix):]: a for n, a in arrays.items()}
+    missing = sorted(set(ours) - set(theirs))
+    extra = sorted(set(theirs) - set(ours))
+    if missing or extra:
+        raise MXNetError("block_params_from_numpy: parameters missing from "
+                         "the arrays: %s; arrays the block lacks: %s"
+                         % (missing, extra))
+    device = resolve(ctx)
+    for name, p in ours.items():
+        a = np.asarray(theirs[name])
+        known = p.shape
+        if known is not None and (len(known) != a.ndim or any(
+                k not in (0, s) for k, s in zip(known, a.shape))):
+            raise MXNetError("block_params_from_numpy: %s is %s in the "
+                             "block, %s in the arrays"
+                             % (name, known, a.shape))
+        p._load_init(_to_nd(name, a, device, dtype_torch(p.dtype)))

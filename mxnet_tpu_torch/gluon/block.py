@@ -1,0 +1,202 @@
+"""Gluon Block and HybridBlock.
+
+Counterpart of ``mxnet_tpu/gluon/block.py`` (reference:
+python/mxnet/gluon/block.py Block:123, HybridBlock:428): ``_BlockScope``
+gives every block and parameter the reference's names
+(``transformerlm0_blocks_transformerencodercell0_layernorm0_gamma``), a
+block registers its children and parameters as attributes are set, and
+``HybridBlock.forward`` runs ``hybrid_forward(nd, x, **params)``,
+finishing deferred parameter shapes through the block's
+``_shape_hook`` on the first call.
+
+``hybridize()`` sets the flag and the forward stays the same eager
+``hybrid_forward``: PyTorch queues each op on the stream as it is called,
+so there is no program to trace; a CUDA graph per input shape is the
+counterpart of the JAX package's jit cache, for a later change.
+"""
+from __future__ import annotations
+
+import threading
+
+from .. import ndarray
+from ..name import NameManager
+from .parameter import DeferredInitializationError, Parameter, ParameterDict
+
+__all__ = ["Block", "HybridBlock"]
+
+
+class _BlockScope:
+    """Name manager for Blocks (reference: block.py:33)."""
+
+    _current = threading.local()
+
+    def __init__(self, block):
+        self._block = block
+        self._counter = {}
+        self._old_scope = None
+
+    @staticmethod
+    def create(prefix, params, hint):
+        """The prefix and ParameterDict of a new block (reference:
+        block.py:41): a root block counts per ``hint`` in the thread's
+        NameManager, a child per hint within its parent's scope."""
+        current = getattr(_BlockScope._current, "value", None)
+        if current is None:
+            if prefix is None:
+                prefix = NameManager.current().get(None, hint) + "_"
+            if params is None:
+                params = ParameterDict(prefix)
+            else:
+                params = ParameterDict(params.prefix, params)
+            return prefix, params
+        if prefix is None:
+            count = current._counter.get(hint, 0)
+            prefix = "%s%d_" % (hint, count)
+            current._counter[hint] = count + 1
+        if params is None:
+            parent = current._block.params
+            params = ParameterDict(parent.prefix + prefix, parent._shared)
+        else:
+            params = ParameterDict(params.prefix, params)
+        return current._block.prefix + prefix, params
+
+    def __enter__(self):
+        if self._block._empty_prefix:
+            return self
+        self._old_scope = getattr(_BlockScope._current, "value", None)
+        _BlockScope._current.value = self
+        return self
+
+    def __exit__(self, ptype, value, trace):
+        if self._block._empty_prefix:
+            return
+        _BlockScope._current.value = self._old_scope
+
+
+class Block:
+    """Base building block (reference: block.py:123)."""
+
+    def __init__(self, prefix=None, params=None):
+        self._empty_prefix = prefix == ""
+        self._prefix, self._params = _BlockScope.create(prefix, params,
+                                                        self._alias())
+        self._name = self._prefix[:-1] if self._prefix.endswith("_") \
+            else self._prefix
+        self._scope = _BlockScope(self)
+        self._children = {}
+        self._reg_params = {}
+
+    def __repr__(self):
+        children = "\n".join("  (%s): %s" % (k, v)
+                             for k, v in self._children.items())
+        return "%s(\n%s\n)" % (type(self).__name__, children)
+
+    def __setattr__(self, name, value):
+        """Registers parameters and children."""
+        if hasattr(self, name):
+            existing = getattr(self, name)
+            if isinstance(existing, (Parameter, Block)) and \
+                    not isinstance(value, type(existing)):
+                raise TypeError("Changing attribute type for %s from %s to "
+                                "%s is not allowed." % (name, type(existing),
+                                                        type(value)))
+        if isinstance(value, Block):
+            self.register_child(value, name)
+        elif isinstance(value, Parameter):
+            if name in self._reg_params:
+                raise ValueError(
+                    "Overriding Parameter attribute %s is not allowed. To "
+                    "share parameters between blocks, set 'params' at Block "
+                    "construction instead." % name)
+            self._reg_params[name] = value
+        super().__setattr__(name, value)
+
+    def _alias(self):
+        return type(self).__name__.lower()
+
+    @property
+    def prefix(self):
+        return self._prefix
+
+    @property
+    def name(self):
+        return self._name
+
+    def name_scope(self):
+        """The scope in which child blocks take this block's prefix."""
+        return self._scope
+
+    @property
+    def params(self):
+        """This block's own ParameterDict."""
+        return self._params
+
+    def collect_params(self):
+        """The parameters of this block and its children, in creation
+        order."""
+        ret = ParameterDict(self._params.prefix)
+        ret.update(self.params)
+        for cld in self._children.values():
+            ret.update(cld.collect_params())
+        return ret
+
+    def register_child(self, block, name=None):
+        if name is None:
+            name = str(len(self._children))
+        self._children[name] = block
+
+    def initialize(self, init=None, ctx=None, verbose=False,
+                   force_reinit=False):
+        """Initialize every parameter on ``ctx`` (default ``gpu(0)``,
+        which raises without a GPU) with ``init`` as the default
+        initializer (``Uniform()`` when None)."""
+        self.collect_params().initialize(init, ctx, verbose, force_reinit)
+
+    def hybridize(self, active=True, **kwargs):
+        """Recurses to the children and changes nothing else: every block
+        runs the same eager ``hybrid_forward(nd, ...)`` either way (no
+        graph is traced or cached yet)."""
+        for cld in self._children.values():
+            cld.hybridize(active, **kwargs)
+
+    def __call__(self, *args):
+        return self.forward(*args)
+
+    def forward(self, *args):  # pragma: no cover - abstract
+        raise NotImplementedError
+
+
+class HybridBlock(Block):
+    """A block written against ``F`` (reference: block.py:428); here
+    ``F`` is always the ``nd`` namespace."""
+
+    def register_child(self, block, name=None):
+        if not isinstance(block, HybridBlock):
+            raise ValueError(
+                "Children of HybridBlock must also be HybridBlock, but %s "
+                "has type %s. If you are using Sequential, please try "
+                "HybridSequential instead." % (block, type(block)))
+        super().register_child(block, name)
+
+    def forward(self, x, *args):
+        """``hybrid_forward(nd, x, *args, **params)``, finishing deferred
+        initialization from the input shapes first when needed
+        (reference: block.py:613)."""
+        try:
+            params = {k: v.data() for k, v in self._reg_params.items()}
+        except DeferredInitializationError:
+            self._shape_hook((x,) + tuple(args))
+            for v in self._reg_params.values():
+                v._finish_deferred_init()
+            params = {k: v.data() for k, v in self._reg_params.items()}
+        return self.hybrid_forward(ndarray, x, *args, **params)
+
+    def _shape_hook(self, inputs):
+        """Subclasses set their parameters' unknown dims from the input
+        shapes."""
+        raise DeferredInitializationError(
+            "Block %s cannot infer parameter shapes from inputs; specify "
+            "in_units/in_channels." % self.name)
+
+    def hybrid_forward(self, F, x, *args, **kwargs):  # pragma: no cover
+        raise NotImplementedError

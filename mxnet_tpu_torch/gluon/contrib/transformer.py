@@ -1,0 +1,155 @@
+"""Transformer blocks: a pre-LN causal decoder LM.
+
+Counterpart of ``mxnet_tpu/gluon/contrib/transformer.py`` (no reference
+analogue: MXNet 1.2 predates attention).  ``TransformerLM`` embeds
+tokens and learned positions, runs N pre-LN blocks ``x + MHA(LN(x))``,
+``x + FFN(LN(x))`` (a ReLU FFN, no bias on the q/k/v/out projections)
+and an untied head with a bias.  Its ops reach three CUDA kernels:
+LayerNorm (K6a), and attention through ``F.contrib.flash_attention``,
+which takes the flash kernel (K7a) where ``local_attention`` finds it
+eligible and the masked softmax (K5a) otherwise.
+
+``causal_attention`` is the plain-torch einsum form of the causal
+attention, the reference forward the kernels are held against.  The
+generative-serving seams of the JAX module (``cached_attention_step``,
+``TransformerLM.generative_spec``) come with generative serving.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..block import HybridBlock
+from ..nn import Dense, Dropout, Embedding, HybridSequential, LayerNorm
+
+__all__ = ["MultiHeadAttention", "TransformerEncoderCell", "TransformerLM",
+           "causal_attention"]
+
+
+def causal_attention(q, k, v):
+    """Causal attention over full sequences in plain torch: einsum
+    scores, the lower-triangular mask at -1e30, softmax, einsum.
+
+    ``q``: ``[B, T, H, D]``; ``k``/``v``: ``[B, T, Hkv, D]`` with
+    ``H % Hkv == 0`` (GQA repeats KV head groups).  Returns
+    ``[B, T, H, D]``."""
+    b, t, h, d = q.shape
+    hkv = k.shape[2]
+    g = h // hkv
+    qg = q.reshape(b, t, hkv, g, d) * (d ** -0.5)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k)
+    causal = torch.ones((t, t), dtype=torch.bool, device=q.device).tril()
+    scores = scores.masked_fill(~causal, -1e30)
+    p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    p = p / p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v)
+    return out.reshape(b, t, h, d)
+
+
+class MultiHeadAttention(HybridBlock):
+    """Self-attention with optional GQA (num_kv_heads < num_heads).
+
+    Input (B, T, C); output (B, T, C).
+    """
+
+    def __init__(self, units, num_heads, num_kv_heads=None, causal=False,
+                 dropout=0.0, **kwargs):
+        super().__init__(**kwargs)
+        if units % num_heads:
+            raise ValueError("units (%d) must divide num_heads (%d)"
+                             % (units, num_heads))
+        self._units = units
+        self._h = num_heads
+        self._hkv = num_kv_heads or num_heads
+        if self._h % self._hkv:
+            raise ValueError("num_heads must be a multiple of num_kv_heads")
+        self._d = units // num_heads
+        self._causal = causal
+        with self.name_scope():
+            self.q_proj = Dense(self._h * self._d, use_bias=False,
+                                flatten=False, prefix="q_")
+            self.k_proj = Dense(self._hkv * self._d, use_bias=False,
+                                flatten=False, prefix="k_")
+            self.v_proj = Dense(self._hkv * self._d, use_bias=False,
+                                flatten=False, prefix="v_")
+            self.out_proj = Dense(units, use_bias=False, flatten=False,
+                                  prefix="out_")
+            self.drop = Dropout(dropout) if dropout else None
+
+    def hybrid_forward(self, F, x):
+        q = self.q_proj(x).reshape((0, 0, self._h, self._d))
+        k = self.k_proj(x).reshape((0, 0, self._hkv, self._d))
+        v = self.v_proj(x).reshape((0, 0, self._hkv, self._d))
+        o = F.contrib.flash_attention(q, k, v, causal=self._causal)
+        o = self.out_proj(o.reshape((0, 0, -1)))
+        return self.drop(o) if self.drop is not None else o
+
+
+class TransformerEncoderCell(HybridBlock):
+    """Pre-LN block: x + MHA(LN(x)); x + FFN(LN(x))."""
+
+    def __init__(self, units, hidden_size, num_heads, num_kv_heads=None,
+                 causal=False, dropout=0.0, **kwargs):
+        super().__init__(**kwargs)
+        with self.name_scope():
+            self.ln1 = LayerNorm()
+            self.attn = MultiHeadAttention(units, num_heads,
+                                           num_kv_heads=num_kv_heads,
+                                           causal=causal, dropout=dropout)
+            self.ln2 = LayerNorm()
+            self.ffn = HybridSequential(prefix="ffn_")
+            with self.ffn.name_scope():
+                self.ffn.add(Dense(hidden_size, activation="relu",
+                                   flatten=False))
+                self.ffn.add(Dense(units, flatten=False))
+            self.drop = Dropout(dropout) if dropout else None
+
+    def hybrid_forward(self, F, x):
+        x = x + self.attn(self.ln1(x))
+        h = self.ffn(self.ln2(x))
+        if self.drop is not None:
+            h = self.drop(h)
+        return x + h
+
+
+class TransformerLM(HybridBlock):
+    """Decoder-only causal LM: embed -> N pre-LN blocks -> untied head.
+
+    Learned positional embeddings sized to ``max_len``; inputs are
+    (B, T) token ids (float32, as the reference feeds them), outputs
+    (B, T, vocab) logits.
+    """
+
+    def __init__(self, vocab_size, units=128, hidden_size=512, num_layers=2,
+                 num_heads=4, num_kv_heads=None, max_len=512, dropout=0.0,
+                 **kwargs):
+        super().__init__(**kwargs)
+        self._max_len = max_len
+        self._vocab_size = vocab_size
+        self._units = units
+        self._hidden_size = hidden_size
+        self._num_layers = num_layers
+        self._num_heads = num_heads
+        self._num_kv_heads = num_kv_heads or num_heads
+        with self.name_scope():
+            self.embed = Embedding(vocab_size, units)
+            self.pos_embed = Embedding(max_len, units)
+            self.blocks = HybridSequential(prefix="blocks_")
+            with self.blocks.name_scope():
+                for _ in range(num_layers):
+                    self.blocks.add(TransformerEncoderCell(
+                        units, hidden_size, num_heads,
+                        num_kv_heads=num_kv_heads, causal=True,
+                        dropout=dropout))
+            self.ln_f = LayerNorm()
+            self.head = Dense(vocab_size, flatten=False, prefix="head_")
+
+    def hybrid_forward(self, F, tokens):
+        # the positions' window follows the embedded tokens through
+        # slice_like, so any T <= max_len takes the first T positions
+        x = self.embed(tokens)
+        pos = F.arange(0, self._max_len, ctx=tokens.context)
+        pos_e = self.pos_embed(pos).expand_dims(0)
+        pos_e = F.slice_like(pos_e, x, axes=(1,))
+        x = x + pos_e
+        x = self.blocks(x)
+        return self.head(self.ln_f(x))

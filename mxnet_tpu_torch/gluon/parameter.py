@@ -1,0 +1,263 @@
+"""Gluon Parameter and ParameterDict.
+
+Counterpart of ``mxnet_tpu/gluon/parameter.py`` (reference:
+python/mxnet/gluon/parameter.py): a Parameter owns one NDArray on one
+device; its shape may hold 0 for a dim the first forward fills in
+(deferred initialization, finished by the block's ``_shape_hook``).
+``initialize`` resolves its context at once, so without a GPU the
+default ``gpu(0)`` raises there and not at the first forward.
+
+Gradient buffers come with the training slice: ``grad()`` raises until
+then, and ``grad_req`` is kept as the reference keeps it.
+"""
+from __future__ import annotations
+
+import warnings
+from collections import OrderedDict
+
+import numpy as np
+import torch
+
+from .. import initializer
+from ..base import MXNetError, dtype_torch
+from ..context import gpu, resolve
+from ..initializer import InitDesc
+from ..ndarray import NDArray
+
+__all__ = ["DeferredInitializationError", "Parameter", "ParameterDict"]
+
+
+class DeferredInitializationError(MXNetError):
+    """Error for unfinished deferred initialization (reference:
+    parameter.py:35)."""
+
+
+def _merge_shapes(declared, stored):
+    """Unify a newly declared shape with a stored one, 0 meaning an
+    unknown dim.  Returns the merged tuple, or None on a conflict."""
+    if stored is None:
+        return tuple(declared)
+    if len(declared) != len(stored):
+        return None
+    merged = []
+    for want, have in zip(declared, stored):
+        if 0 not in (want, have) and want != have:
+            return None
+        merged.append(have if want == 0 else want)
+    return tuple(merged)
+
+
+class Parameter:
+    """A parameter of Blocks (reference: parameter.py:42)."""
+
+    def __init__(self, name, grad_req="write", shape=None, dtype="float32",
+                 init=None, allow_deferred_init=False, differentiable=True):
+        if grad_req not in ("write", "add", "null"):
+            raise ValueError("grad_req must be one of 'write', 'add', or "
+                             "'null', but got '%s'" % grad_req)
+        if isinstance(shape, int):
+            shape = (shape,)
+        self.name = name
+        self._shape = tuple(shape) if shape is not None else None
+        self.dtype = dtype
+        self.init = init
+        self.grad_req = grad_req if differentiable else "null"
+        self._allow_deferred_init = allow_deferred_init
+        self._data = None
+        self._deferred_init = ()
+
+    def __repr__(self):
+        return "Parameter %s (shape=%s, dtype=%s)" % (self.name, self.shape,
+                                                      self.dtype)
+
+    @property
+    def shape(self):
+        """The shape, with 0 for a dim not known until the first forward."""
+        return self._shape
+
+    @shape.setter
+    def shape(self, new_shape):
+        merged = _merge_shapes(tuple(new_shape), self._shape)
+        if merged is None:
+            raise MXNetError("Parameter '%s': expected shape %s is "
+                             "incompatible with given shape %s"
+                             % (self.name, self._shape, tuple(new_shape)))
+        self._shape = merged
+
+    def initialize(self, init=None, ctx=None, default_init=None,
+                   force_reinit=False):
+        """Initialize the value on ``ctx`` (a Context, or a list of which
+        the first is used; default ``gpu(0)``) by ``init``, this
+        parameter's own initializer, or ``default_init``, in that order
+        (reference: parameter.py initialize).  A shape with unknown dims
+        defers the work to the first forward."""
+        if default_init is None:
+            default_init = initializer.Uniform()
+        if self._data is not None and not force_reinit:
+            warnings.warn("Parameter '%s' is already initialized, ignoring. "
+                          "Set force_reinit=True to re-initialize."
+                          % self.name, stacklevel=2)
+            return
+        self._data = None
+        if ctx is None:
+            ctx = gpu(0)
+        if isinstance(ctx, (list, tuple)):
+            ctx = ctx[0]
+        resolve(ctx)    # a GPU context without a GPU raises here
+        if init is None:
+            init = default_init if self.init is None else self.init
+        self._deferred_init = (init, ctx, default_init)
+        if self._shape is None or int(np.prod(self._shape)) <= 0:
+            if self._allow_deferred_init:
+                return
+            raise ValueError("Cannot initialize Parameter '%s' because it "
+                             "has invalid shape: %s." % (self.name,
+                                                         self._shape))
+        self._finish_deferred_init()
+
+    def _finish_deferred_init(self):
+        if not self._deferred_init:
+            return
+        init, ctx, default_init = self._deferred_init
+        if self._shape is None or int(np.prod(self._shape)) <= 0:
+            raise MXNetError(
+                "Cannot initialize Parameter '%s' because it has invalid "
+                "shape: %s. Please specify in_units, in_channels, etc for "
+                "`Block`s." % (self.name, self._shape))
+        self._deferred_init = ()
+        data = NDArray(torch.zeros(self._shape, dtype=dtype_torch(self.dtype),
+                                   device=resolve(ctx)))
+        initializer.create(default_init)(
+            InitDesc(self.name, {"__init__": init.dumps()
+                                 if hasattr(init, "dumps") else str(init)}),
+            data)
+        self._data = data
+
+    def _check_and_get(self):
+        if self._data is not None:
+            return self._data
+        if self._deferred_init:
+            raise DeferredInitializationError(
+                "Parameter '%s' has not been initialized yet because "
+                "initialization was deferred. Actual initialization happens "
+                "during the first forward pass. Please pass one batch of "
+                "data through the network before accessing Parameters."
+                % self.name)
+        raise MXNetError(
+            "Parameter '%s' has not been initialized. Note that you should "
+            "initialize parameters with Block.collect_params() instead of "
+            "Block.params because the latter does not include Parameters of "
+            "nested child Blocks" % self.name)
+
+    def data(self, ctx=None):
+        """The value (reference: parameter.py data)."""
+        return self._check_and_get()
+
+    def grad(self, ctx=None):
+        """Not ported yet: raises MXNetError."""
+        from ..autograd import NOT_PORTED
+        raise MXNetError(NOT_PORTED)
+
+    def set_data(self, data):
+        """Assign a new value (an NDArray, tensor or host array) of this
+        parameter's shape, on its device, in its dtype; a deferred
+        parameter takes its shape from ``data``."""
+        t = data._data if isinstance(data, NDArray) else torch.as_tensor(
+            np.asarray(data) if not isinstance(data, torch.Tensor) else data)
+        if self._data is not None:
+            self.shape = tuple(t.shape)
+            self._data._data.copy_(t)
+        elif self._deferred_init:
+            device = resolve(self._deferred_init[1])
+            self._load_init(NDArray(t.to(device=device,
+                                         dtype=dtype_torch(self.dtype))))
+        else:
+            raise MXNetError("Parameter '%s' has not been initialized"
+                             % self.name)
+
+    def _load_init(self, data):
+        """Take the NDArray ``data`` (in this parameter's dtype, on the
+        device it is to live on) as the value, initialized or not; its
+        shape must agree with the known dims."""
+        self.shape = data.shape
+        self._deferred_init = ()
+        self._data = data
+
+
+class ParameterDict:
+    """Parameters by name, sharing a prefix (reference: parameter.py:560).
+    Iteration order is creation order."""
+
+    def __init__(self, prefix="", shared=None):
+        self._prefix = prefix
+        self._params = OrderedDict()
+        self._shared = shared
+
+    def __iter__(self):
+        return iter(self._params)
+
+    def __getitem__(self, key):
+        return self._params[key]
+
+    def keys(self):
+        return self._params.keys()
+
+    def values(self):
+        return self._params.values()
+
+    def items(self):
+        return self._params.items()
+
+    @property
+    def prefix(self):
+        return self._prefix
+
+    def _get_impl(self, name):
+        p = self._params.get(name)
+        if p is None and self._shared is not None:
+            p = self._shared._params.get(name)
+            if p is not None:
+                self._params[name] = p      # adopt the shared parameter
+        return p
+
+    def get(self, name, **kwargs):
+        """The parameter ``prefix + name``, created with ``kwargs`` if it
+        does not exist (reference: parameter.py get).  An existing one
+        must agree with ``kwargs``; a shape with unknown (0) dims merges
+        with the stored one."""
+        name = self._prefix + name
+        param = self._get_impl(name)
+        if param is None:
+            param = Parameter(name, **kwargs)
+            self._params[name] = param
+            return param
+        for k, v in kwargs.items():
+            existing = getattr(param, k, None)
+            if k == "shape" and v is not None:
+                param.shape = v
+            elif v is not None and existing is not None and v != existing:
+                raise MXNetError(
+                    "Cannot retrieve Parameter '%s' because desired attribute "
+                    "does not match with stored for attribute '%s': desired "
+                    "'%s' vs stored '%s'." % (name, k, v, existing))
+            elif existing is None:
+                setattr(param, k, v)
+        return param
+
+    def update(self, other):
+        """Merge another dict (reference: parameter.py update)."""
+        for k, v in other.items():
+            if k in self._params and self._params[k] is not v:
+                raise MXNetError(
+                    "Cannot update self with other because they have "
+                    "different Parameters with the same name '%s'" % k)
+            self._params[k] = v
+
+    def initialize(self, init=None, ctx=None, verbose=False,
+                   force_reinit=False):
+        """Initialize every parameter with ``init`` as the default
+        initializer, on ``ctx`` (default ``gpu(0)``)."""
+        if init is None:
+            init = initializer.Uniform()
+        for v in self.values():
+            v.initialize(None, ctx, init, force_reinit=force_reinit)

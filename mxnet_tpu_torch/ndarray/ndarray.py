@@ -7,8 +7,12 @@ surface the serving and training paths touch — construction (``array``,
 ``zeros``, ``ones``, ``empty``), ``asnumpy``, ``shape``, ``dtype``,
 ``context``, ``copyto`` (into another NDArray, which may be a view of a
 larger buffer, or onto a context), ``astype``, ``wait_to_read``, basic
-indexing and ``arr[:] = value``.  The V2 ``save``/``load`` container is
-still to come.
+indexing and ``arr[:] = value`` — and the surface gluon blocks touch:
+``+ - * / **`` (and the reflected forms) with NDArrays or scalars,
+``reshape`` with MXNet's 0/-1/-2/-3/-4 codes, ``expand_dims``, ``sum``,
+``mean``, each through its registered op, and ``arange``.  The V2
+``save``/``load`` container is still to come; ``attach_grad`` and
+``backward`` raise until autograd records imperative ops.
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ import torch
 from ..base import MXNetError, dtype_name, dtype_torch
 from ..context import Context, resolve
 
-__all__ = ["NDArray", "array", "zeros", "ones", "empty"]
+__all__ = ["NDArray", "array", "zeros", "ones", "empty", "arange"]
 
 # the 64-bit numpy types nd.array narrows, as the JAX package does
 _NARROW = {torch.float64: torch.float32, torch.int64: torch.int32}
@@ -120,6 +124,78 @@ class NDArray:
         return "<NDArray %s @%s>" % ("x".join(map(str, self.shape)),
                                      self.context)
 
+    # -- ops gluon blocks call as methods (each its registered op) ----------
+    def _op(self, name, inputs=(), **attrs):
+        from ..imperative import invoke
+        return invoke(name, [self, *inputs], attrs)
+
+    def reshape(self, *shape, **kwargs):
+        """Reshape with MXNet's codes: 0 copies a dim, -1 infers one, -2
+        copies the rest, -3 merges two, -4 splits one
+        (``reverse=True`` matches from the right)."""
+        if len(shape) == 1 and isinstance(shape[0], (list, tuple)):
+            shape = tuple(shape[0])
+        return self._op("Reshape", shape=kwargs.get("shape", shape),
+                        reverse=kwargs.get("reverse", False))
+
+    def expand_dims(self, axis):
+        return self._op("expand_dims", axis=axis)
+
+    def sum(self, axis=None, keepdims=False):
+        return self._op("sum", axis=axis, keepdims=keepdims)
+
+    def mean(self, axis=None, keepdims=False):
+        return self._op("mean", axis=axis, keepdims=keepdims)
+
+    def attach_grad(self, grad_req="write", stype=None):
+        """Not ported yet: raises MXNetError."""
+        from ..autograd import NOT_PORTED
+        raise MXNetError(NOT_PORTED)
+
+    def backward(self, out_grad=None, retain_graph=False, train_mode=True):
+        """Not ported yet: raises MXNetError."""
+        from ..autograd import backward
+        backward([self], out_grad, retain_graph, train_mode)
+
+    # -- arithmetic (reference: ndarray.py _binop) ---------------------------
+    def _binop(self, other, op, scalar_op, reverse=False):
+        if isinstance(other, NDArray):
+            return self._op(op, [other]) if not reverse \
+                else other._op(op, [self])
+        if isinstance(other, numbers.Number) and scalar_op is not None:
+            return self._op(scalar_op, scalar=float(other))
+        return NotImplemented
+
+    def __add__(self, other):
+        return self._binop(other, "elemwise_add", "_plus_scalar")
+
+    __radd__ = __add__
+
+    def __sub__(self, other):
+        return self._binop(other, "elemwise_sub", "_minus_scalar")
+
+    def __rsub__(self, other):
+        return self._binop(other, "elemwise_sub", "_rminus_scalar",
+                           reverse=True)
+
+    def __mul__(self, other):
+        return self._binop(other, "elemwise_mul", "_mul_scalar")
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, other):
+        return self._binop(other, "elemwise_div", "_div_scalar")
+
+    def __rtruediv__(self, other):
+        return self._binop(other, "elemwise_div", "_rdiv_scalar",
+                           reverse=True)
+
+    def __pow__(self, other):
+        return self._binop(other, "_power", "_power_scalar")
+
+    def __rpow__(self, other):
+        return self._binop(other, "_power", "_rpower_scalar", reverse=True)
+
 
 def array(source_array, ctx=None, dtype=None):
     """A new NDArray holding a copy of ``source_array`` on ``ctx``
@@ -153,6 +229,16 @@ def zeros(shape, ctx=None, dtype=None):
 def ones(shape, ctx=None, dtype=None):
     return NDArray(torch.ones(tuple(shape), dtype=dtype_torch(dtype),
                               device=resolve(ctx)))
+
+
+def arange(start, stop=None, step=1.0, repeat=1, ctx=None, dtype=None):
+    """``[start, stop)`` by ``step``, each value ``repeat`` times, on
+    ``ctx`` (default ``gpu(0)``), float32 unless ``dtype`` says
+    otherwise (reference: ndarray.py arange, the ``_arange`` op)."""
+    from ..imperative import invoke
+    return invoke("_arange", [], {"start": start, "stop": stop,
+                                  "step": step, "repeat": repeat,
+                                  "ctx": ctx, "dtype": dtype})
 
 
 def empty(shape, ctx=None, dtype=None):

@@ -25,7 +25,8 @@ __all__ = ["SOURCES", "library", "build_all", "nvcc_path"]
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
-SOURCES = ("scale_bias_relu", "softmax", "optimizer_sweep")
+SOURCES = ("scale_bias_relu", "softmax", "optimizer_sweep", "layernorm",
+           "flash_attention")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
          "-shared", "-Xcompiler", "-fPIC"]
 

@@ -1,0 +1,277 @@
+// LayerNorm forward over the last axis (K6a):
+//   mu = mean(x), xc = x - mu, var = mean(xc * xc), rstd = rsqrt(var + eps)
+//   o = (xc * rstd) * gamma + beta,  and mu, rstd saved per row.
+//
+// Replaces: mxnet_tpu/ops/pallas_kernels.py _layernorm_fwd_kernel, reached
+// through fused_layernorm -> _layernorm_fwd (the LayerNorm op,
+// ops/nn.py, when MXNET_PALLAS_NORM is on).
+//
+// Bound on Hopper: memory bytes.  Each element is read once and written
+// once with ~8 fp32 operations between, far below the ~20 operations per
+// byte where the fp32 units would become the limit; at the transformer's
+// shape, (8192, 768) fp32, the call moves 50 MB.  Any C >= 1 and any row
+// count, with no padding, in three layouts chosen by C:
+//   - C <= 1024: one warp per row, four rows per 128-thread block: no
+//     shared memory and no block barrier, the two reductions are warp
+//     shuffles; each lane holds VPT = ceil(C / 32) values (a template
+//     argument), element lane + 32 i, so a warp's loads are coalesced and
+//     the row is read from device memory exactly once;
+//   - 1024 < C <= 8192: one 256-thread block per row, each thread holding
+//     VPT = ceil(C / 256) values in registers (element tid + 256 i); the
+//     reductions are warp shuffles and then a sum of the 8 warps' partials
+//     through shared memory; the row is still read once;
+//   - C > 8192: one 256-thread block per row striding over the row in
+//     device memory, which it reads three times (mean, centred squares,
+//     output; the re-reads of one row hit L2).
+// All three make two passes, the mean and then the mean of the centred
+// squares, as the TPU kernel computes them (not E[x^2] - mu^2, which
+// cancels when |mu| >> std), all in fp32.  The TPU kernel needs C % 128
+// == 0 (Mosaic's lane tiling) and broadcasts mu and rstd over 128 lanes;
+// here they are one fp32 per row.
+#include <cmath>
+#include <cstdint>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+constexpr int kWarp = 32;
+constexpr int kRowsPerBlock = 4;
+constexpr int kWarpMaxCols = 1024;   // the warp-per-row layout's limit
+constexpr int kBlock = 256;          // threads of the block-per-row layouts
+constexpr int kBlockWarps = kBlock / kWarp;
+constexpr int kBlockMaxVpt = 32;     // registers per thread, C <= 8192
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = kWarp / 2; off > 0; off /= 2)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+template <typename T, int VPT>
+__global__ void layernorm_fwd_kernel(const T* __restrict__ x,
+                                     const float* __restrict__ gamma,
+                                     const float* __restrict__ beta,
+                                     T* __restrict__ o, float* __restrict__ mu,
+                                     float* __restrict__ rstd, int64_t rows,
+                                     int cols, float eps) {
+  const int lane = threadIdx.x % kWarp;
+  const int64_t row =
+      (int64_t)blockIdx.x * kRowsPerBlock + threadIdx.x / kWarp;
+  if (row >= rows) return;
+  const T* xr = x + row * cols;
+  T* orow = o + row * cols;
+
+  float v[VPT];
+  float s = 0.0f;
+#pragma unroll
+  for (int i = 0; i < VPT; ++i) {
+    const int j = lane + kWarp * i;
+    v[i] = j < cols ? to_float(xr[j]) : 0.0f;
+    s += v[i];
+  }
+  const float mean = warp_sum(s) / (float)cols;
+
+  float q = 0.0f;
+#pragma unroll
+  for (int i = 0; i < VPT; ++i) {
+    const int j = lane + kWarp * i;
+    if (j < cols) {
+      v[i] -= mean;
+      q += v[i] * v[i];
+    }
+  }
+  const float var = warp_sum(q) / (float)cols;
+  const float rs = rsqrtf(var + eps);
+
+#pragma unroll
+  for (int i = 0; i < VPT; ++i) {
+    const int j = lane + kWarp * i;
+    if (j < cols) store(orow + j, (v[i] * rs) * gamma[j] + beta[j]);
+  }
+  if (lane == 0) {
+    mu[row] = mean;
+    rstd[row] = rs;
+  }
+}
+
+// sum over the block of kBlock threads; red holds kBlockWarps floats and
+// is not reused by a later call, so one barrier is enough
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  v = warp_sum(v);
+  if (threadIdx.x % kWarp == 0) red[threadIdx.x / kWarp] = v;
+  __syncthreads();
+  float t = 0.0f;
+#pragma unroll
+  for (int w = 0; w < kBlockWarps; ++w) t += red[w];
+  return t;
+}
+
+// one block per row, VPT values per thread in registers (C <= kBlock * VPT)
+template <typename T, int VPT>
+__global__ void __launch_bounds__(kBlock)
+    layernorm_fwd_row_kernel(const T* __restrict__ x,
+                             const float* __restrict__ gamma,
+                             const float* __restrict__ beta,
+                             T* __restrict__ o, float* __restrict__ mu,
+                             float* __restrict__ rstd, int cols, float eps) {
+  __shared__ float red[2][kBlockWarps];
+  const int tid = threadIdx.x;
+  const int64_t row = blockIdx.x;
+  const T* xr = x + row * cols;
+  T* orow = o + row * cols;
+
+  float v[VPT];
+  float s = 0.0f;
+#pragma unroll
+  for (int i = 0; i < VPT; ++i) {
+    const int j = tid + kBlock * i;
+    v[i] = j < cols ? to_float(xr[j]) : 0.0f;
+    s += v[i];
+  }
+  const float mean = block_sum(s, red[0]) / (float)cols;
+
+  float q = 0.0f;
+#pragma unroll
+  for (int i = 0; i < VPT; ++i) {
+    const int j = tid + kBlock * i;
+    if (j < cols) {
+      v[i] -= mean;
+      q += v[i] * v[i];
+    }
+  }
+  const float rs = rsqrtf(block_sum(q, red[1]) / (float)cols + eps);
+
+#pragma unroll
+  for (int i = 0; i < VPT; ++i) {
+    const int j = tid + kBlock * i;
+    if (j < cols) store(orow + j, (v[i] * rs) * gamma[j] + beta[j]);
+  }
+  if (tid == 0) {
+    mu[row] = mean;
+    rstd[row] = rs;
+  }
+}
+
+// one block per row of any width, striding over it in device memory
+template <typename T>
+__global__ void __launch_bounds__(kBlock)
+    layernorm_fwd_wide_kernel(const T* __restrict__ x,
+                              const float* __restrict__ gamma,
+                              const float* __restrict__ beta,
+                              T* __restrict__ o, float* __restrict__ mu,
+                              float* __restrict__ rstd, int cols, float eps) {
+  __shared__ float red[2][kBlockWarps];
+  const int tid = threadIdx.x;
+  const int64_t row = blockIdx.x;
+  const T* xr = x + row * cols;
+  T* orow = o + row * cols;
+
+  float s = 0.0f;
+  for (int j = tid; j < cols; j += kBlock) s += to_float(xr[j]);
+  const float mean = block_sum(s, red[0]) / (float)cols;
+
+  float q = 0.0f;
+  for (int j = tid; j < cols; j += kBlock) {
+    const float c = to_float(xr[j]) - mean;
+    q += c * c;
+  }
+  const float rs = rsqrtf(block_sum(q, red[1]) / (float)cols + eps);
+
+  for (int j = tid; j < cols; j += kBlock)
+    store(orow + j, ((to_float(xr[j]) - mean) * rs) * gamma[j] + beta[j]);
+  if (tid == 0) {
+    mu[row] = mean;
+    rstd[row] = rs;
+  }
+}
+
+template <typename T, int VPT>
+void launch_rows(const void* x, const float* g, const float* b, void* o,
+                 float* mu, float* rs, int64_t rows, int cols, float eps,
+                 cudaStream_t st) {
+  layernorm_fwd_row_kernel<T, VPT><<<(unsigned)rows, kBlock, 0, st>>>(
+      static_cast<const T*>(x), g, b, static_cast<T*>(o), mu, rs, cols, eps);
+}
+
+template <typename T, int VPT>
+void launch(const void* x, const float* g, const float* b, void* o, float* mu,
+            float* rs, int64_t rows, int cols, float eps, cudaStream_t st) {
+  const int64_t blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
+  layernorm_fwd_kernel<T, VPT><<<(unsigned)blocks, kRowsPerBlock * kWarp, 0,
+                                 st>>>(static_cast<const T*>(x), g, b,
+                                       static_cast<T*>(o), mu, rs, rows, cols,
+                                       eps);
+}
+
+template <typename T>
+int launch_cols(const void* x, const float* g, const float* b, void* o,
+                float* mu, float* rs, int64_t rows, int cols, float eps,
+                cudaStream_t st) {
+  if (cols > kBlock * kBlockMaxVpt) {
+    layernorm_fwd_wide_kernel<T><<<(unsigned)rows, kBlock, 0, st>>>(
+        static_cast<const T*>(x), g, b, static_cast<T*>(o), mu, rs, cols,
+        eps);
+    return 0;
+  }
+  if (cols > kWarpMaxCols) {
+    const int vpt = (cols + kBlock - 1) / kBlock;
+    if (vpt <= 8)
+      launch_rows<T, 8>(x, g, b, o, mu, rs, rows, cols, eps, st);
+    else if (vpt <= 16)
+      launch_rows<T, 16>(x, g, b, o, mu, rs, rows, cols, eps, st);
+    else
+      launch_rows<T, kBlockMaxVpt>(x, g, b, o, mu, rs, rows, cols, eps, st);
+    return 0;
+  }
+  const int vpt = (cols + kWarp - 1) / kWarp;
+  if (vpt <= 1)
+    launch<T, 1>(x, g, b, o, mu, rs, rows, cols, eps, st);
+  else if (vpt <= 2)
+    launch<T, 2>(x, g, b, o, mu, rs, rows, cols, eps, st);
+  else if (vpt <= 4)
+    launch<T, 4>(x, g, b, o, mu, rs, rows, cols, eps, st);
+  else if (vpt <= 8)
+    launch<T, 8>(x, g, b, o, mu, rs, rows, cols, eps, st);
+  else if (vpt <= 16)
+    launch<T, 16>(x, g, b, o, mu, rs, rows, cols, eps, st);
+  else if (vpt <= 24)
+    launch<T, 24>(x, g, b, o, mu, rs, rows, cols, eps, st);
+  else
+    launch<T, 32>(x, g, b, o, mu, rs, rows, cols, eps, st);
+  return 0;
+}
+
+}  // namespace
+
+// x, o: contiguous (rows, cols) in dtype 0 = fp32 or 1 = bf16, cols >= 1,
+// rows < 2^31 when cols > 1024; gamma, beta: fp32 (cols,); mu, rstd: fp32
+// (rows,).  Returns cudaGetLastError() after the launch.
+extern "C" int mxtt_layernorm_fwd(const void* x, const float* gamma,
+                                  const float* beta, void* o, float* mu,
+                                  float* rstd, int64_t rows, int cols,
+                                  float eps, int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (cols < 1 || (cols > kWarpMaxCols && rows >= (int64_t(1) << 31)))
+    return (int)cudaErrorInvalidValue;
+  if (rows > 0) {
+    if (dtype == 0)
+      launch_cols<float>(x, gamma, beta, o, mu, rstd, rows, cols, eps, st);
+    else if (dtype == 1)
+      launch_cols<__nv_bfloat16>(x, gamma, beta, o, mu, rstd, rows, cols, eps,
+                                 st);
+    else
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}

@@ -24,7 +24,14 @@ Ported so far (the K numbers of the kernel table in PERF.md):
   ``_sgd_mom_kernel``, K4 ``adam_sweep`` <- ``_adam_kernel``: the
   executor's fused optimizer step, one launch per flat fp32 bucket,
   updating the weights and slots in place (all three in
-  ``csrc/optimizer_sweep.cu``).
+  ``csrc/optimizer_sweep.cu``);
+- K6a ``layernorm_fwd`` <- ``_layernorm_fwd_kernel``: the LayerNorm op
+  over the last axis, saving mu and rstd per row;
+- K7a ``flash_attention_fwd`` <- ``_flash_fwd_kernel``: online-softmax
+  attention over (batch*heads, T, D), with the row logsumexp;
+- K5a ``bias_softmax`` <- ``_softmax_bias_fwd_kernel``: ``softmax(x +
+  bias)`` with an (R, C) bias shared over x's leading dim, the masked
+  attention of ``local_attention`` (in ``csrc/softmax.cu`` beside K2).
 
 ``family_enabled`` resolves the JAX package's tri-state ``MXNET_PALLAS_*``
 knobs: ``auto`` turns a family on for tensors on the GPU, ``1`` forces it
@@ -33,6 +40,7 @@ knobs: ``auto`` turns a family on for tensors on the GPU, ``1`` forces it
 from __future__ import annotations
 
 import ctypes
+import math
 import threading
 
 import torch
@@ -43,14 +51,21 @@ from ..base import MXNetError
 __all__ = ["scale_bias_relu", "scale_bias_relu_ref", "softmax_lastaxis",
            "softmax_lastaxis_ref", "sgd_sweep", "sgd_sweep_ref",
            "sgd_mom_sweep", "sgd_mom_sweep_ref", "adam_sweep",
-           "adam_sweep_ref", "kernel_calls", "reset_kernel_calls",
-           "family_enabled"]
+           "adam_sweep_ref", "layernorm_fwd", "layernorm_fwd_ref",
+           "flash_attention_fwd",
+           "flash_attention_fwd_ref", "bias_softmax", "bias_softmax_ref",
+           "NEG_INF", "kernel_calls", "reset_kernel_calls", "family_enabled"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _COUNT_LOCK = threading.Lock()
 _CALLS = {"scale_bias_relu": 0, "softmax_lastaxis": 0,  # guarded-by: _COUNT_LOCK
-          "sgd_sweep": 0, "sgd_mom_sweep": 0, "adam_sweep": 0}
+          "sgd_sweep": 0, "sgd_mom_sweep": 0, "adam_sweep": 0,
+          "layernorm_fwd": 0, "flash_attention_fwd": 0, "bias_softmax": 0}
+
+# the masked-logit value of the attention kernels (pallas_kernels.NEG_INF):
+# finite, so a masked column's exp underflows to exactly 0
+NEG_INF = -1e30
 
 
 def kernel_calls():
@@ -316,3 +331,165 @@ def adam_sweep(w, g, m, v, hyper, use_clip=False):
     place.  ``hyper`` = ``[lr_eff, b1, b2, 1-b1, 1-b2, eps, wd, rescale,
     (clip)]``, with ``1-b`` computed on the host in double."""
     _sweep("adam_sweep", w, g, (m, v), hyper, use_clip)
+
+
+# ---------------------------------------------------------------------------
+# K6a: LayerNorm forward over the last axis
+# ---------------------------------------------------------------------------
+def layernorm_fwd_ref(x, gamma, beta, eps):
+    """Plain version of K6a over the last axis, in fp32: ``mu``, ``var``
+    of the centred values, ``rstd = rsqrt(var + eps)``, ``o = (xc * rstd)
+    * gamma + beta`` in x's dtype; ``mu`` and ``rstd`` as fp32 of shape
+    ``x.shape[:-1]``."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    xc = xf - mu
+    var = (xc * xc).mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt(var + eps)
+    o = ((xc * rstd) * gamma + beta).to(x.dtype)
+    return o, mu.squeeze(-1), rstd.squeeze(-1)
+
+
+def layernorm_fwd(x, gamma, beta, eps=1e-5):
+    """K6a: LayerNorm over the last axis of a float32 or bfloat16 tensor
+    with float32 (C,) ``gamma`` and ``beta``.  Returns ``(o, mu, rstd)``:
+    ``o`` in x's dtype and shape, ``mu`` and ``rstd`` fp32 of shape
+    ``x.shape[:-1]`` (what the backward reads)."""
+    if x.dim() < 1:
+        raise MXNetError("layernorm_fwd: x needs at least one dim")
+    c = x.shape[-1]
+    for nm, t in (("gamma", gamma), ("beta", beta)):
+        if t.shape != (c,) or t.dtype != torch.float32 \
+                or t.device != x.device:
+            raise MXNetError(
+                "layernorm_fwd: %s must be float32 of shape (%d,) on %s, got "
+                "%s %s on %s" % (nm, c, x.device, t.dtype, tuple(t.shape),
+                                 t.device))
+    if x.device.type != "cuda":
+        return layernorm_fwd_ref(x, gamma, beta, eps)
+    _check_cuda("layernorm_fwd", x)
+    rows = x.numel() // c if c else 0
+    if c < 1 or (c > 1024 and rows >= 2 ** 31):
+        raise MXNetError("layernorm_fwd: the CUDA kernel takes C >= 1 and, "
+                         "for C > 1024, fewer than 2**31 rows; got %s"
+                         % (tuple(x.shape),))
+    gamma, beta = gamma.contiguous(), beta.contiguous()
+    o = torch.empty_like(x)
+    mu = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
+    rstd = torch.empty_like(mu)
+    fn = _bind("layernorm", "mxtt_layernorm_fwd",
+               [ctypes.c_void_p] * 6 + [ctypes.c_int64, ctypes.c_int,
+                                        ctypes.c_float, ctypes.c_int,
+                                        ctypes.c_void_p])
+    _launch("layernorm_fwd", fn, x.device, x.data_ptr(), gamma.data_ptr(),
+            beta.data_ptr(), o.data_ptr(), mu.data_ptr(), rstd.data_ptr(),
+            rows, c, float(eps), _DTYPE_CODE[x.dtype])
+    return o, mu, rstd
+
+
+# ---------------------------------------------------------------------------
+# K7a: flash-attention forward
+# ---------------------------------------------------------------------------
+FLASH_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)
+
+
+def flash_attention_fwd_ref(q, k, v, causal=False, scale=None):
+    """Plain version of K7a: one-shot masked softmax attention in fp32
+    over (BH, T, D) tensors, with the kernel's mask (``qpos >= kpos`` from
+    a shared origin, masked logits at the finite ``NEG_INF``) and its
+    clamp of the row sum.  Returns ``(o, lse)``: o in q's dtype, lse fp32
+    (BH, Tq)."""
+    d = q.shape[-1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    s = torch.matmul(q.float(), k.float().transpose(1, 2)) * scale
+    if causal:
+        qpos = torch.arange(q.shape[1], device=q.device)
+        kpos = torch.arange(k.shape[1], device=q.device)
+        s = s.masked_fill(~(qpos[:, None] >= kpos[None, :]), NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    lsum = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    o = (torch.matmul(p, v.float()) / lsum).to(q.dtype)
+    return o, (m + torch.log(lsum)).squeeze(-1)
+
+
+def flash_attention_fwd(q, k, v, causal=False, scale=None):
+    """K7a: attention over float32 or bfloat16 ``(BH, T, D)`` tensors,
+    batch and heads folded into the leading dim (q ``(BH, Tq, D)``, k and
+    v ``(BH, Tk, D)``), ``D`` a multiple of 16 up to 128, ``scale`` default
+    ``1/sqrt(D)``.  A causal mask keeps ``qpos >= kpos`` with both
+    counted from 0.  Returns ``(o, lse)``: o ``(BH, Tq, D)`` in q's
+    dtype, lse the fp32 ``(BH, Tq)`` row logsumexp."""
+    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3 \
+            or k.shape != v.shape or q.shape[0] != k.shape[0] \
+            or q.shape[2] != k.shape[2]:
+        raise MXNetError("flash_attention_fwd: q must be (BH, Tq, D) and k, "
+                         "v (BH, Tk, D), got %s, %s, %s"
+                         % (tuple(q.shape), tuple(k.shape), tuple(v.shape)))
+    for t in (k, v):
+        if t.dtype != q.dtype or t.device != q.device:
+            raise MXNetError("flash_attention_fwd: q, k and v must share "
+                             "dtype and device, got %s/%s and %s/%s"
+                             % (q.dtype, q.device, t.dtype, t.device))
+    if q.device.type != "cuda":
+        return flash_attention_fwd_ref(q, k, v, causal, scale)
+    bh, tq, d = q.shape
+    tk = k.shape[1]
+    if d not in FLASH_HEAD_DIMS:
+        raise MXNetError("flash_attention_fwd: the CUDA kernel takes head "
+                         "dims %s, got %d" % (FLASH_HEAD_DIMS, d))
+    if min(bh, tq, tk) < 1 or tq > 65535 * 64 or bh >= 2 ** 31:
+        raise MXNetError("flash_attention_fwd: the CUDA kernel takes 1 <= "
+                         "Tq <= %d, Tk >= 1 and 1 <= BH < 2**31, got %s and "
+                         "Tk %d" % (65535 * 64, tuple(q.shape), tk))
+    for nm, t in (("q", q), ("k", k), ("v", v)):
+        _check_cuda("flash_attention_fwd (%s)" % nm, t)
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    o = torch.empty_like(q)
+    lse = torch.empty((bh, tq), dtype=torch.float32, device=q.device)
+    fn = _bind("flash_attention", "mxtt_flash_attention_fwd",
+               [ctypes.c_void_p] * 5 + [ctypes.c_int64] + [ctypes.c_int] * 3
+               + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                  ctypes.c_void_p])
+    _launch("flash_attention_fwd", fn, q.device, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), o.data_ptr(), lse.data_ptr(), bh, tq, tk, d,
+            float(scale), int(bool(causal)), _DTYPE_CODE[q.dtype])
+    return o, lse
+
+
+# ---------------------------------------------------------------------------
+# K5a: softmax(x + bias) over the last axis, bias shared over x's batch
+# ---------------------------------------------------------------------------
+def bias_softmax_ref(x, bias):
+    """Plain version of K5a: ``s = x.float() + bias``, then K2's plain
+    arithmetic on s, output in x's dtype."""
+    return softmax_lastaxis_ref(x.float() + bias).to(x.dtype)
+
+
+def bias_softmax(x, bias):
+    """K5a: ``softmax(x + bias)`` over the last axis of a float32 or
+    bfloat16 tensor ``x`` of shape ``(..., R, C)``, with a float32 ``(R,
+    C)`` bias shared over x's leading dims (the attention-mask form: 0
+    where a key is visible, ``NEG_INF`` where it is masked); max and sum
+    in fp32, output in x's dtype."""
+    if bias.dim() != 2 or x.dim() < 2 or x.shape[-2] != bias.shape[0] \
+            or x.shape[-1] != bias.shape[1]:
+        raise MXNetError("bias_softmax: bias rows (%s) must equal x's "
+                         "second-to-last dim and its columns x's last (%s)"
+                         % (tuple(bias.shape), tuple(x.shape)))
+    if bias.dtype != torch.float32 or bias.device != x.device:
+        raise MXNetError("bias_softmax: bias must be float32 on %s, got %s "
+                         "on %s" % (x.device, bias.dtype, bias.device))
+    if x.device.type != "cuda":
+        return bias_softmax_ref(x, bias)
+    _check_cuda("bias_softmax", x)
+    bias = bias.contiguous()
+    y = torch.empty_like(x)
+    r, c = bias.shape
+    fn = _bind("softmax", "mxtt_bias_softmax",
+               [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3
+               + [ctypes.c_int, ctypes.c_void_p])
+    _launch("bias_softmax", fn, x.device, x.data_ptr(), bias.data_ptr(),
+            y.data_ptr(), x.numel() // c if c else 0, r, c,
+            _DTYPE_CODE[x.dtype])
+    return y

@@ -1,12 +1,13 @@
-"""Neural-network operators of a ResNet (NCHW).
+"""Neural-network operators of a ResNet (NCHW) and a transformer.
 
 Counterpart of ``mxnet_tpu/ops/nn.py`` for the ops a ResNet forward and
-backward run: Convolution (``F.conv2d``, OIHW weights as in MXNet),
-FullyConnected (``F.linear``), Activation, Pooling and BatchNorm (eval
-and training mode), plus ``fused_bn_relu_eval``, the inference
-BatchNorm -> ReLU epilogue that the executor's peephole routes through
-the K3 CUDA kernel.  Backward passes are PyTorch's autograd of these
-expressions.
+backward and a transformer forward run: Convolution (``F.conv2d``, OIHW
+weights as in MXNet), FullyConnected (``F.linear``), Activation, Pooling
+and BatchNorm (eval and training mode), LayerNorm (through the K6a CUDA
+kernel over the last axis when ``MXNET_PALLAS_NORM`` is on) and Dropout
+(predict mode), plus ``fused_bn_relu_eval``, the inference BatchNorm ->
+ReLU epilogue that the executor's peephole routes through the K3 CUDA
+kernel.  Backward passes are PyTorch's autograd of these expressions.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from ..base import MXNetError
+from . import cuda_kernels as ck
 from .registry import Param as P, normalize_tuple, register
 
 
@@ -153,6 +155,52 @@ def _batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
     out = (data - mean.reshape(shape)) * (inv * g).reshape(shape) \
         + beta.reshape(shape)
     return out.to(data.dtype), new_mean, new_var
+
+
+# -- LayerNorm --------------------------------------------------------------
+@register("LayerNorm", params=[
+    P("axis", int, default=-1),
+    P("eps", float, default=1e-5, low=0.0),
+    P("output_mean_var", bool, default=False)])
+def _layer_norm(data, gamma, beta, axis=-1, eps=1e-5, output_mean_var=False,
+                **attrs):
+    """Reference: src/operator/nn/layer_norm-inl.h.
+
+    Over the last axis, with ``MXNET_PALLAS_NORM`` on (``auto``: for
+    CUDA tensors), the norm is one K6a pass at any width
+    (``cuda_kernels.layernorm_fwd``: mean, variance of the centred
+    values, normalise and affine, stats in fp32); other axes and the
+    knob at 0 keep the plain reduction chain, as in the JAX package."""
+    nd = data.dim()
+    if (axis % nd == nd - 1 and nd >= 2
+            and ck.family_enabled("MXNET_PALLAS_NORM", data.device)):
+        return ck.layernorm_fwd(data.contiguous(), gamma.float(),
+                                beta.float(), float(eps))[0]
+    mean = data.mean(dim=axis, keepdim=True)
+    var = data.var(dim=axis, keepdim=True, correction=0)
+    out = (data - mean) * torch.rsqrt(var + eps)
+    shape = [1] * nd
+    shape[axis % nd] = data.shape[axis % nd]
+    return out * gamma.reshape(shape) + beta.reshape(shape)
+
+
+# -- Dropout ----------------------------------------------------------------
+@register("Dropout", needs_is_train=True, params=[
+    P("p", float, default=0.5, low=0.0, high=1.0,
+      doc="fraction of units dropped in train mode"),
+    P("mode", ("training", "always"), default="training"),
+    P("axes", tuple, default=(), low=0)])
+def _dropout(data, p=0.5, mode="training", axes=(), __is_train__=False,
+             **attrs):
+    """Reference: src/operator/nn/dropout-inl.h (inverted dropout).  The
+    identity in predict mode or at p = 0; dropping units comes with the
+    training slice, so train mode (or ``mode="always"``) with p > 0
+    raises."""
+    if (not __is_train__ and mode != "always") or p == 0:
+        return data
+    raise MXNetError("Dropout with p=%g in training mode is not ported yet "
+                     "(ROADMAP.md queue 1: the transformer training slice)"
+                     % p)
 
 
 def fused_bn_relu_eval(data, gamma, beta, moving_mean, moving_var,

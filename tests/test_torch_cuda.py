@@ -181,3 +181,155 @@ def test_fused_adam_step_does_not_wait_on_the_card(cuda):
     host, dev = exe._hyper
     assert torch.equal(dev.cpu(), torch.from_numpy(host))
     assert not torch.equal(dev, first)
+
+
+# ---------------------------------------------------------------------------
+# K6a / K7a / K5a: the transformer forward's kernels
+# ---------------------------------------------------------------------------
+def _bf16_close(got, ref, atol):
+    """Within one bf16 rounding of the larger magnitude (the kernel and
+    its plain version both compute in fp32 and round once), plus ``atol``
+    for the fp32 difference under it."""
+    got, ref = got.float(), ref.float()
+    mag = torch.maximum(got.abs(), ref.abs())
+    return bool(((got - ref).abs() <= mag * 2.0 ** -7 + atol).all())
+
+
+# fp32: the row's two sums are taken in another order than torch's mean
+# (warp shuffles over lane-strided partial sums) and rsqrtf is within 2
+# ulp, so the outputs, O(1) with these gammas, agree within 1e-5.  C up to
+# 1024 takes the warp-per-row layout, 1025-8192 the block-per-row one with
+# the row in registers, 10000 the one striding over device memory
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(64, 768), (3, 5, 37), (17, 1000),
+                                   (2, 1), (9, 1024), (4, 32), (5, 1025),
+                                   (6, 1280), (3, 1600), (7, 2048),
+                                   (2, 3, 4096), (3, 8192), (4, 10000)])
+def test_k6a_kernel_matches_plain(cuda, shape, dtype):
+    rng = np.random.RandomState(46)
+    c = shape[-1]
+    x = torch.from_numpy((rng.randn(*shape) * 2 + 0.5).astype(np.float32))
+    g = torch.from_numpy((1 + 0.1 * rng.randn(c)).astype(np.float32))
+    b = torch.from_numpy((0.1 * rng.randn(c)).astype(np.float32))
+    x, g, b = x.to(cuda, dtype), g.to(cuda), b.to(cuda)
+    before = ck.kernel_calls()["layernorm_fwd"]
+    o, mu, rstd = ck.layernorm_fwd(x, g, b, 1e-5)
+    ro, rmu, rrstd = ck.layernorm_fwd_ref(x, g, b, 1e-5)
+    torch.cuda.synchronize()
+    assert ck.kernel_calls()["layernorm_fwd"] == before + 1
+    assert o.dtype == dtype and o.shape == x.shape
+    assert mu.shape == rstd.shape == shape[:-1] and mu.dtype == torch.float32
+    assert (mu - rmu).abs().max().item() <= 1e-5
+    assert ((rstd - rrstd).abs() / rrstd).max().item() <= 1e-5
+    if dtype == torch.float32:
+        assert (o - ro).abs().max().item() <= 1e-5
+    else:
+        assert _bf16_close(o, ro, 1e-5)
+
+
+def _qkv(bh, tq, tk, d, dtype, device, seed=47):
+    rng = np.random.RandomState(seed)
+    return [torch.from_numpy(rng.randn(bh, t, d).astype(np.float32))
+            .to(device, dtype) for t in (tq, tk, tk)]
+
+
+# fp32: the kernel sums the scores and the weighted values in another order
+# than cuBLAS (64-key tiles with online rescaling against one-shot
+# products over up to 1024 keys), so o and lse agree within 1e-5
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("bh,tq,tk,d", [(3, 8, 8, 32), (2, 64, 64, 64),
+                                        (2, 200, 200, 128), (4, 100, 72, 16),
+                                        (1, 1024, 1024, 64), (2, 24, 40, 64),
+                                        (2, 72, 72, 48), (2, 130, 130, 80),
+                                        (2, 128, 128, 96), (2, 64, 96, 112)])
+def test_k7a_kernel_matches_plain(cuda, bh, tq, tk, d, causal):
+    q, k, v = _qkv(bh, tq, tk, d, torch.float32, cuda)
+    before = ck.kernel_calls()["flash_attention_fwd"]
+    o, lse = ck.flash_attention_fwd(q, k, v, causal)
+    ro, rlse = ck.flash_attention_fwd_ref(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert ck.kernel_calls()["flash_attention_fwd"] == before + 1
+    assert o.shape == q.shape and lse.shape == (bh, tq)
+    assert torch.isfinite(o).all() and torch.isfinite(lse).all()
+    assert (o - ro).abs().max().item() <= 1e-5
+    assert (lse - rlse).abs().max().item() <= 1e-5
+
+
+def test_k7a_kernel_bf16_and_scale(cuda):
+    q, k, v = _qkv(4, 96, 96, 64, torch.bfloat16, cuda)
+    o, lse = ck.flash_attention_fwd(q, k, v, True, scale=0.3)
+    ro, rlse = ck.flash_attention_fwd_ref(q, k, v, True, scale=0.3)
+    torch.cuda.synchronize()
+    assert o.dtype == torch.bfloat16
+    assert _bf16_close(o, ro, 1e-5)
+    assert (lse - rlse).abs().max().item() <= 1e-5
+
+
+# fp32: the same arithmetic as the plain version with the sum in another
+# order, as K2 (1e-6); bf16: both compute in fp32 and round once, so
+# within one bf16 rounding of the magnitude (plus 1e-6); a masked column
+# comes out exactly 0
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(6, 40, 40), (2, 3, 17, 1020), (5, 1, 7)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_k5a_kernel_matches_plain(cuda, shape, causal, dtype):
+    rng = np.random.RandomState(48)
+    x = torch.from_numpy((rng.randn(*shape) * 3).astype(np.float32))
+    r, c = shape[-2:]
+    bias = torch.from_numpy((rng.randn(r, c) * 0.5).astype(np.float32))
+    if causal:
+        bias = torch.where(torch.ones(r, c, dtype=torch.bool).tril(),
+                           0.0, ck.NEG_INF)
+    x, bias = x.to(cuda, dtype), bias.to(cuda)
+    before = ck.kernel_calls()["bias_softmax"]
+    y = ck.bias_softmax(x, bias)
+    ref = ck.bias_softmax_ref(x, bias)
+    torch.cuda.synchronize()
+    assert ck.kernel_calls()["bias_softmax"] == before + 1
+    assert y.dtype == dtype and y.shape == x.shape
+    if dtype == torch.float32:
+        assert (y - ref).abs().max().item() <= 1e-6
+    else:
+        assert _bf16_close(y, ref, 1e-6)
+    if causal:
+        assert (y[..., ~torch.ones(r, c, dtype=torch.bool,
+                                   device=cuda).tril()] == 0).all()
+
+
+def test_transformer_kernels_raise_on_what_they_do_not_take(cuda):
+    x = torch.zeros(4, 0, device=cuda)
+    g, b = torch.ones(0, device=cuda), torch.zeros(0, device=cuda)
+    with pytest.raises(MXNetError, match="C >= 1"):
+        ck.layernorm_fwd(x, g, b)
+    x, g, b = (torch.zeros(4, 8, device=cuda), torch.ones(8, device=cuda),
+               torch.zeros(8, device=cuda))
+    with pytest.raises(MXNetError, match="float32"):
+        ck.layernorm_fwd(x, g.double(), b)
+    q = torch.zeros(2, 8, 40, device=cuda)
+    with pytest.raises(MXNetError, match="head dims"):
+        ck.flash_attention_fwd(q, q, q)
+    q = torch.zeros(2, 8, 64, device=cuda)
+    with pytest.raises(MXNetError, match="contiguous"):
+        ck.flash_attention_fwd(q.transpose(0, 1).contiguous()
+                               .transpose(0, 1), q, q)
+    with pytest.raises(MXNetError, match="bias rows"):
+        ck.bias_softmax(torch.zeros(2, 4, 5, device=cuda),
+                        torch.zeros(3, 5, device=cuda))
+
+
+@pytest.mark.parametrize("c", [768, 1280, 2048])
+def test_layernorm_op_launches_k6a_at_every_width(cuda, c):
+    """The LayerNorm op on CUDA tensors goes through K6a at any width, as
+    the JAX package's op goes through its kernel at every C it takes."""
+    import mxnet_tpu_torch as mx
+    rng = np.random.RandomState(49)
+    x = mx.nd.array(rng.randn(2, 5, c).astype(np.float32), ctx=mx.gpu(0))
+    g = mx.nd.array((1 + 0.1 * rng.randn(c)).astype(np.float32),
+                    ctx=mx.gpu(0))
+    b = mx.nd.array((0.1 * rng.randn(c)).astype(np.float32), ctx=mx.gpu(0))
+    ck.reset_kernel_calls()
+    y = mx.nd.LayerNorm(x, g, b, axis=-1, eps=1e-5)
+    torch.cuda.synchronize()
+    assert ck.kernel_calls()["layernorm_fwd"] == 1
+    ro = ck.layernorm_fwd_ref(x._data, g._data, b._data, 1e-5)[0]
+    assert (y._data - ro).abs().max().item() <= 1e-5

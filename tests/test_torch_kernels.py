@@ -176,9 +176,19 @@ def test_cpu_tensor_routes_to_plain_version_and_counts_nothing():
         hyper = torch.full((ck.sweep_hyper_len(name, False),), 0.5)
         getattr(ck, name)(w, g, *slots, hyper)
         assert not torch.equal(w, torch.ones(5))
+    g, bt = torch.ones(4), torch.zeros(4)
+    assert all(torch.equal(a, b) for a, b in zip(
+        ck.layernorm_fwd(x, g, bt), ck.layernorm_fwd_ref(x, g, bt, 1e-5)))
+    q = x.reshape(6, 4, 4)
+    assert all(torch.equal(a, b) for a, b in zip(
+        ck.flash_attention_fwd(q, q, q, True),
+        ck.flash_attention_fwd_ref(q, q, q, True)))
+    bias = torch.zeros(4, 4)
+    assert torch.equal(ck.bias_softmax(x, bias), ck.bias_softmax_ref(x, bias))
     assert ck.kernel_calls() == {"scale_bias_relu": 0, "softmax_lastaxis": 0,
                                  "sgd_sweep": 0, "sgd_mom_sweep": 0,
-                                 "adam_sweep": 0}
+                                 "adam_sweep": 0, "layernorm_fwd": 0,
+                                 "flash_attention_fwd": 0, "bias_softmax": 0}
 
 
 @pytest.mark.parametrize("value,device,expected", [
@@ -196,7 +206,8 @@ def test_kernel_build_is_lazy_and_keyed_by_source_hash():
     """Importing the port builds nothing; each source has its own
     library path and a hash over its text and the nvcc flags."""
     assert set(_build.SOURCES) == {"scale_bias_relu", "softmax",
-                                   "optimizer_sweep"}
+                                   "optimizer_sweep", "layernorm",
+                                   "flash_attention"}
     for name in _build.SOURCES:
         src, so, digest = _build._paths(name)
         assert os.path.exists(src) and src.endswith(".cu")
@@ -218,7 +229,10 @@ def test_cuda_sources_carry_their_design_note():
                              ("softmax", "_softmax_fwd_kernel"),
                              ("optimizer_sweep", "_sgd_kernel"),
                              ("optimizer_sweep", "_sgd_mom_kernel"),
-                             ("optimizer_sweep", "_adam_kernel")):
+                             ("optimizer_sweep", "_adam_kernel"),
+                             ("layernorm", "_layernorm_fwd_kernel"),
+                             ("flash_attention", "_flash_fwd_kernel"),
+                             ("softmax", "_softmax_bias_fwd_kernel")):
         with open(_build._paths(name)[0]) as f:
             text = f.read()
         header = text.split("#include")[0]
