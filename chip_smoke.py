@@ -66,10 +66,35 @@ Phases, each of which raises on failure:
    the plain LayerNorm) within 1e-4 of their largest magnitude, a bound
    the same plain forward with TF32 matmuls must break.  Then the forward
    time by CUDA events and tokens/s;
+11. the backward kernels against their plain versions, at the shapes the
+   transformer's training step gives them: K6b (LayerNorm dx) at (8192,
+   768) and at C 37, 1025 and 9000, K7b (flash dq) and K7c (flash dk, dv)
+   at (96, 1024, 64) causal and full, at ragged T (7, 65, 1020), at Tq !=
+   Tk and across head dims (8, 72, 200, 256), K5b (softmax backward) at
+   (96, 1020, 1020) with the causal probabilities; fp32 within 1e-5 of the
+   largest magnitude, bf16 within one rounding; each timed
+   beside its plain version, its bound and one PyTorch call;
+12. transformer training (the fourth main path): the same GPT-2-small-width
+   ``TransformerLM``, fresh from the same seed, trained at (8, 1024) and
+   at (8, 1020): ``autograd.record()`` -> ``SoftmaxCrossEntropyLoss`` ->
+   ``.mean()`` -> ``backward()`` -> ``gluon.Trainer("adam", lr 1e-4)
+   .step(1)`` on one fixed batch held on the card.  The first step's
+   gradients are held within 1e-4 of each parameter's largest magnitude
+   to the same step through plain torch (every knob 0 and
+   ``impl="einsum"``) that takes the kernel forward's ReLU decisions (an
+   fp32 ReLU input within rounding of 0 may fall on the other side in
+   another summation order: the run counts them, and prints both fp32
+   steps against a float64 one); every parameter's gradient must be
+   nonzero; the first main-path step's launches are held to 25 K6a + 25
+   K6b + 12 K7a + 12 K7b + 12 K7c (T 1024) and 25 K6a + 25 K6b + 12 K5a +
+   12 K5b (T 1020); then 1 more warmup and 5 timed steps (CUDA events,
+   tokens/s), and the loss on the batch must fall from the first step to
+   the last;
 then every kernel's device time by the profiler, one profiled serving
-forward, training step and transformer forward.
+forward, training step, transformer forward and transformer training
+step.
 
-Prints one JSON line ``{"kernels": [...]}`` (all eight kernels), the
+Prints one JSON line ``{"kernels": [...]}`` (all twelve kernels), the
 serving, training and transformer numbers beside the card's name and
 power limit, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
@@ -104,6 +129,13 @@ GPT2_SMALL = {"vocab_size": 50257, "units": 768, "hidden_size": 3072,
               "num_layers": 12, "num_heads": 12, "max_len": 1024}
 LM_BATCH = 8
 LM_T = (1024, 1020)         # the flash route, then the K5a route
+LM_TRAIN_WARMUP = 2         # untimed training steps, the first one counted
+LM_TRAIN_STEPS = 5          # timed training steps
+LM_ADAM = {"learning_rate": 1e-4}
+# The kernel step's gradients against the plain torch step's with the same
+# ReLU decisions: the same fp32 arithmetic with sums in another order,
+# ~1e-6 to 1e-5 of each parameter's largest gradient.
+GRAD_TOL = 1e-4
 # The port's fp32 forward and the plain one differ only in the order of
 # fp32 sums (attention, LayerNorm): ~1e-6 of the largest logit.  TF32
 # rounds every matmul input to 10 mantissa bits: ~1e-3.  The bound sits
@@ -869,8 +901,9 @@ def flash_bound(bh, tq, tk, d, causal, itemsize, bw, flops):
 def check_k7a(ck, dev, bw, flops, bh=LM_BATCH * GPT2_SMALL["num_heads"],
               t=LM_T[0], d=GPT2_SMALL["units"] // GPT2_SMALL["num_heads"]):
     """K7a against its plain version at the transformer's shape, causal
-    and full, at T 8/64/1024 x D 32/64/128, and at every other head dim
-    the kernel has (16, 48, 80, 96, 112) at T 200: fp32 o and lse within
+    and full, at T 8/64/1024 x D 32/64/128, and at other head dims at T
+    200: the other multiples of 16 up to 128 and the padded widths 8, 72,
+    200 and 256 (any D up to 256 runs): fp32 o and lse within
     1e-5 (the kernel sums 64-key tiles with online rescaling, the plain
     version one product over up to 1024 keys), bf16 o within one
     rounding.  Returns its record and its timing job, causal fp32."""
@@ -879,7 +912,8 @@ def check_k7a(ck, dev, bw, flops, bh=LM_BATCH * GPT2_SMALL["num_heads"],
     cases = [(bh, t, d, c, torch.float32) for c in (True, False)]
     cases += [(4, tt, dd, c, torch.float32) for tt in (8, 64, 1024)
               for dd in (32, 64, 128) for c in (True, False)]
-    cases += [(4, 200, dd, c, torch.float32) for dd in (16, 48, 80, 96, 112)
+    cases += [(4, 200, dd, c, torch.float32)
+              for dd in (16, 48, 80, 96, 112, 8, 72, 200, 256)
               for c in (True, False)]
     cases += [(bh, t, d, True, torch.bfloat16)]
     for b_, t_, d_, causal, dt in cases:
@@ -970,6 +1004,231 @@ def check_k5a(ck, dev, bw, flops, bh=LM_BATCH * GPT2_SMALL["num_heads"],
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the backward kernels against their plain versions
+# ---------------------------------------------------------------------------
+def rel_err(got, ref):
+    """max |got - ref| over the largest |ref|."""
+    return ((got.float() - ref.float()).abs().max()
+            / ref.float().abs().max().clamp_min(1e-30)).item()
+
+
+def _bf16_bwd_close(got, ref):
+    """bf16 backward: within one bf16 rounding of each element's
+    magnitude, plus one rounding of the largest magnitude for the values
+    (p and ds in K7b/K7c, the row means in K6b) that the kernel and the
+    plain version round to the two sides of one bf16 step."""
+    got, ref = got.float(), ref.float()
+    mag = torch.maximum(got.abs(), ref.abs())
+    return bool(((got - ref).abs() <= (mag + ref.abs().max())
+                 * 2.0 ** -7).all())
+
+
+def check_k6b(ck, dev, bw, flops, rows=LM_BATCH * LM_T[0],
+              cols=GPT2_SMALL["units"]):
+    """K6b against its plain version at the training step's shape and at
+    C 37 (a ragged warp row), 1025 (the block-per-row layout) and 9000
+    (the striding one), from K6a's own mu and rstd: fp32 within 1e-5 of
+    the largest |dx| (the two row means in another order), bf16 within
+    one rounding.  Returns its record and its timing job at ``(rows,
+    cols)`` fp32."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    worst = 0.0
+    for shape in ((rows, cols), (rows // 8, 37), (rows // 8, 1025),
+                  (rows // 32, 9000)):
+        c = shape[1]
+        x32 = torch.randn(shape, generator=gen, device=dev) * 2 + 0.5
+        do32 = torch.randn(shape, generator=gen, device=dev)
+        g = 1 + 0.1 * torch.randn(c, generator=gen, device=dev)
+        for dt in (torch.float32, torch.bfloat16):
+            x, do = x32.to(dt), do32.to(dt)
+            _, mu, rstd = ck.layernorm_fwd(x, g, torch.zeros_like(g), 1e-5)
+            dx = ck.layernorm_bwd(x, do, g, mu, rstd)
+            ref = ck.layernorm_bwd_ref(x, do, g, mu, rstd)
+            torch.cuda.synchronize()
+            err = rel_err(dx, ref)
+            ok = dx.dtype == dt and (err <= 1e-5 if dt == torch.float32
+                                     else _bf16_bwd_close(dx, ref))
+            if not ok:
+                raise AssertionError("K6b at %s %s: max |d| %g of the "
+                                     "largest" % (shape, dt, err))
+            if dt == torch.float32:
+                worst = max(worst, (dx - ref).abs().max().item())
+    x = torch.randn((rows, cols), generator=gen, device=dev)
+    do = torch.randn((rows, cols), generator=gen, device=dev)
+    g, b = torch.ones(cols, device=dev), torch.zeros(cols, device=dev)
+    _, mu, rstd = ck.layernorm_fwd(x, g, b, 1e-5)
+    mean2, rstd2 = mu.unsqueeze(-1), rstd.unsqueeze(-1)
+    bms, by = bound_ms(3 * x.numel() * 4 + cols * 4 + 2 * rows * 4,
+                       10 * x.numel(), bw, flops)
+    return {
+        "name": "layernorm_bwd (K6b)", "route": "cuda",
+        "source": "mxnet_tpu_torch/ops/csrc/layernorm.cu",
+        "replaces": "mxnet_tpu/ops/pallas_kernels.py:784",
+        "shape": "(%d, %d) fp32, the dx of one LayerNorm of the training "
+                 "step" % (rows, cols),
+        "max_abs_err": worst, "bound_ms": bms, "bound_by": by,
+        "library_note": "aten native_layer_norm_backward with only dx "
+                        "requested",
+    }, [{"count": 1, "shape": (rows, cols), "bound_ms": bms, "fns": {
+        "": lambda: ck.layernorm_bwd(x, do, g, mu, rstd),
+        "plain_": lambda: ck.layernorm_bwd_ref(x, do, g, mu, rstd),
+        "library_": lambda: torch.ops.aten.native_layer_norm_backward(
+            do, x, [cols], mean2, rstd2, g, b, [True, False, False])}}]
+
+
+def flash_bwd_operands(ck, gen, bh, tq, tk, d, causal, dtype, dev):
+    """q, k, v, do, lse, delta of one backward call: random q, k, v and
+    do, lse from K7a, delta = sum(do * o)."""
+    q = torch.randn((bh, tq, d), generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn((bh, tk, d), generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    do = torch.randn((bh, tq, d), generator=gen, device=dev).to(dtype)
+    o, lse = ck.flash_attention_fwd(q, k, v, causal)
+    return q, k, v, do, lse, (do.float() * o.float()).sum(-1)
+
+
+def flash_bwd_bound(bh, tq, tk, d, causal, n_out, n_products, bw, flops):
+    """Bytes (q, k, v, do read, lse and delta read, ``n_out`` outputs of
+    (BH, T, D) written) and fp32 operations (``n_products`` products of
+    2 d per visible (query, key) pair) of one K7b or K7c call."""
+    pairs = sum(min(r + 1, tk) for r in range(tq)) if causal else tq * tk
+    return bound_ms((2 * bh * tq * d + 2 * bh * tk * d + n_out * bh * tk * d)
+                    * 4 + 2 * bh * tq * 4, 2 * d * n_products * bh * pairs,
+                    bw, flops)
+
+
+def check_k7bc(ck, dev, bw, flops, bh=LM_BATCH * GPT2_SMALL["num_heads"],
+               t=LM_T[0], d=GPT2_SMALL["units"] // GPT2_SMALL["num_heads"]):
+    """K7b and K7c against their plain versions at the training step's
+    shape, causal and full, at ragged T (7, 65, 1020), at Tq != Tk, and
+    across head dims (8, 72, 200, 256): dq, dk and dv within 1e-5 of
+    their largest magnitude in fp32 (the kernels sum over tiles, the
+    plain version in one product), within one rounding in bf16.  Returns
+    their two records and timing jobs, causal fp32; the library call,
+    the backward of ``scaled_dot_product_attention(is_causal=True)``,
+    computes dq, dk and dv together."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    worst = {"dq": 0.0, "dkv": 0.0}
+    cases = [(bh, t, t, d, c, torch.float32) for c in (True, False)]
+    cases += [(4, tt, tt, 64, c, torch.float32) for tt in (7, 65, 1020)
+              for c in (True, False)]
+    cases += [(4, 40, 72, 64, False, torch.float32),
+              (4, 72, 40, 64, False, torch.float32)]
+    cases += [(4, 200, 200, dd, c, torch.float32) for dd in (8, 72, 200, 256)
+              for c in (True, False)]
+    cases += [(bh, t, t, d, True, torch.bfloat16)]
+    for b_, tq, tk, d_, causal, dt in cases:
+        args = flash_bwd_operands(ck, gen, b_, tq, tk, d_, causal, dt, dev)
+        dq = ck.flash_attention_bwd_dq(*args, causal)
+        dk, dv = ck.flash_attention_bwd_dkv(*args, causal)
+        rdq = ck.flash_attention_bwd_dq_ref(*args, causal)
+        rdk, rdv = ck.flash_attention_bwd_dkv_ref(*args, causal)
+        torch.cuda.synchronize()
+        for name, got, ref in (("dq", dq, rdq), ("dkv", dk, rdk),
+                               ("dkv", dv, rdv)):
+            err = rel_err(got, ref)
+            ok = (got.dtype == dt and bool(torch.isfinite(got).all())
+                  and (err <= 1e-5 if dt == torch.float32
+                       else _bf16_bwd_close(got, ref)))
+            if not ok:
+                raise AssertionError("K7%s at %s causal=%s %s: max |d| %g of "
+                                     "the largest" % (
+                                         "b" if name == "dq" else "c",
+                                         (b_, tq, tk, d_), causal, dt, err))
+            if dt == torch.float32:
+                worst[name] = max(worst[name],
+                                  (got - ref).abs().max().item())
+        del args, dq, dk, dv, rdq, rdk, rdv
+    args = flash_bwd_operands(ck, gen, bh, t, t, d, True, torch.float32, dev)
+    heads = GPT2_SMALL["num_heads"]
+    q4, k4, v4 = (a.view(bh // heads, heads, t, d).clone().requires_grad_()
+                  for a in args[:3])
+    o4 = torch.nn.functional.scaled_dot_product_attention(q4, k4, v4,
+                                                          is_causal=True)
+    do4 = args[3].view(bh // heads, heads, t, d)
+
+    def sdpa_backward():
+        return torch.autograd.grad(o4, (q4, k4, v4), do4, retain_graph=True)
+
+    recs, jobs = [], []
+    for name, knum, line, n_out, n_prod in (
+            ("flash_attention_bwd_dq", "K7b", 199, 1, 3),
+            ("flash_attention_bwd_dkv", "K7c", 234, 2, 4)):
+        bms, by = flash_bwd_bound(bh, t, t, d, True, n_out, n_prod, bw,
+                                  flops)
+        kernel = getattr(ck, name)
+        plain = getattr(ck, name + "_ref")
+        recs.append({
+            "name": "%s (%s)" % (name, knum), "route": "cuda",
+            "source": "mxnet_tpu_torch/ops/csrc/flash_attention.cu",
+            "replaces": "mxnet_tpu/ops/pallas_kernels.py:%d" % line,
+            "shape": "(%d, %d, %d) fp32 causal, one attention of the "
+                     "training step at T=%d" % (bh, t, d, t),
+            "max_abs_err": worst["dq" if knum == "K7b" else "dkv"],
+            "bound_ms": bms, "bound_by": by,
+            "library_note": "the backward of scaled_dot_product_attention"
+                            "(is_causal=True), fp32: one call for dq, dk "
+                            "and dv, beside K7b + K7c",
+        })
+        jobs.append([{"count": 1, "shape": (bh, t, d), "bound_ms": bms,
+                      "fns": {"": lambda f=kernel: f(*args, True),
+                              "plain_": lambda f=plain: f(*args, True),
+                              "library_": sdpa_backward}}])
+    return recs, jobs
+
+
+def check_k5b(ck, dev, bw, flops, bh=LM_BATCH * GPT2_SMALL["num_heads"],
+              t=LM_T[1]):
+    """K5b against its plain version at the training step's shape, with
+    the causal probabilities K5a gives and with unmasked ones: fp32
+    within 1e-5 of the largest |dx| (the row dot in another order), bf16
+    within one rounding; a masked probability (exactly 0) gives a dx of
+    exactly 0.  Returns its record and its timing job, causal fp32."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    worst = 0.0
+    causal = causal_bias(t, dev)
+    for bias, dt in ((causal, torch.float32),
+                     (torch.zeros_like(causal), torch.float32),
+                     (causal, torch.bfloat16)):
+        x = (torch.randn((bh, t, t), generator=gen, device=dev) * 3).to(dt)
+        p = ck.bias_softmax(x, bias)
+        del x
+        do = torch.randn((bh, t, t), generator=gen, device=dev).to(dt)
+        dx = ck.softmax_bwd(p, do)
+        ref = ck.softmax_bwd_ref(p, do)
+        torch.cuda.synchronize()
+        err = rel_err(dx, ref)
+        close = (err <= 1e-5 if dt == torch.float32
+                 else _bf16_bwd_close(dx, ref))
+        masked = bool((dx[:, bias < 0] == 0).all())
+        if dt == torch.float32:
+            worst = max(worst, (dx - ref).abs().max().item())
+        del ref, p, do
+        if dx.dtype != dt or not close or not masked:
+            raise AssertionError("K5b at %s %s: max |d| %g of the largest, "
+                                 "masked columns zero: %s"
+                                 % ((bh, t, t), dt, err, masked))
+        del dx
+    p = ck.bias_softmax(torch.randn((bh, t, t), generator=gen, device=dev)
+                        * 3, causal)
+    do = torch.randn((bh, t, t), generator=gen, device=dev)
+    bms, by = bound_ms(3 * p.numel() * 4, 4 * p.numel(), bw, flops)
+    return {
+        "name": "softmax_bwd (K5b)", "route": "cuda",
+        "source": "mxnet_tpu_torch/ops/csrc/softmax.cu",
+        "replaces": "mxnet_tpu/ops/pallas_kernels.py:882",
+        "shape": "(%d, %d, %d) fp32 causal probabilities, one attention of "
+                 "the training step at T=%d" % (bh, t, t, t),
+        "max_abs_err": worst, "bound_ms": bms, "bound_by": by,
+        "library_note": "torch._softmax_backward_data",
+    }, [{"count": 1, "shape": (bh, t, t), "bound_ms": bms, "fns": {
+        "": lambda: ck.softmax_bwd(p, do),
+        "plain_": lambda: ck.softmax_bwd_ref(p, do),
+        "library_": lambda: torch._softmax_backward_data(do, p, -1,
+                                                         p.dtype)}}]
+
+
+# ---------------------------------------------------------------------------
 # phase 10: the transformer path
 # ---------------------------------------------------------------------------
 def transformer_lm(mx, ctx, config=GPT2_SMALL, seed=SEED):
@@ -990,19 +1249,28 @@ def lm_tokens(mx, ctx, vocab, batch, t, seed=SEED):
     return mx.nd.array(ids.astype(np.float32), ctx=ctx)
 
 
-def plain_forward(ck, lm, ids):
+def plain_forward(ck, lm, ids, weights=None):
     """The forward of ``lm``'s parameters in plain torch: the embeddings,
-    each block's plain LayerNorm (``layernorm_fwd_ref``), projections,
-    ``causal_attention`` and ReLU FFN, then the head.  ``ids`` is a (B,
-    T) tensor of token ids."""
+    each block's plain LayerNorm, projections, ``causal_attention`` and
+    ReLU FFN, then the head.  ``ids`` is a (B, T) tensor of token ids.
+    With ``weights`` (``{parameter name: tensor}``, say float64 copies)
+    the forward runs on those tensors and its LayerNorm in their dtype;
+    without, on the parameters' values (outside any autograd graph) with
+    ``layernorm_fwd_ref``."""
     from mxnet_tpu_torch.gluon.contrib.transformer import causal_attention
 
     def w(p):
-        return p.data()._data
+        return p.data()._data.detach() if weights is None \
+            else weights[p.name]
 
     def ln(x, blk):
-        return ck.layernorm_fwd_ref(x, w(blk.gamma), w(blk.beta),
-                                    blk._epsilon)[0]
+        if weights is None:
+            return ck.layernorm_fwd_ref(x, w(blk.gamma), w(blk.beta),
+                                        blk._epsilon)[0]
+        mu = x.mean(dim=-1, keepdim=True)
+        var = ((x - mu) ** 2).mean(dim=-1, keepdim=True)
+        return (x - mu) * torch.rsqrt(var + blk._epsilon) * w(blk.gamma) \
+            + w(blk.beta)
 
     b, t = ids.shape
     x = w(lm.embed.weight)[ids.long()] + w(lm.pos_embed.weight)[:t]
@@ -1083,6 +1351,201 @@ def profile_lm(lm, tokens, fwd_ms):
             % (tuple(tokens.shape), wall, busy, max(0.0, 1 - busy / wall),
                ", ".join("%s %.0f us" % kv
                          for kv in by_kind(by_name, LM_KINDS).items()),
+               "; ".join("%s %.0f us" % (k[:60], v) for k, v in top)))
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the transformer training path
+# ---------------------------------------------------------------------------
+def lm_batch(mx, ctx, vocab, batch, t, seed=SEED):
+    """One fixed batch from ``seed``: ``(tokens, labels)``, the labels the
+    tokens shifted by one, both float32 (B, T) arrays on ``ctx``."""
+    ids = np.random.RandomState(seed + t).randint(0, vocab, (batch, t + 1))
+    ids = ids.astype(np.float32)
+    return (mx.nd.array(ids[:, :-1], ctx=ctx),
+            mx.nd.array(ids[:, 1:], ctx=ctx))
+
+
+class plain_path:
+    """Every kernel knob at 0 and attention forced to ``impl="einsum"``:
+    the transformer step in plain torch, differentiated by its
+    autograd."""
+
+    def __enter__(self):
+        from mxnet_tpu_torch.parallel import attention
+        self.attention = attention
+        self.real = attention.local_attention
+        self.knobs = knobs("0", ("MXNET_PALLAS_NORM", "MXNET_PALLAS_SOFTMAX"))
+        self.knobs.__enter__()
+        attention.local_attention = lambda *a, **kw: self.real(
+            *a, **dict(kw, impl="einsum"))
+        return self
+
+    def __exit__(self, *exc):
+        self.attention.local_attention = self.real
+        self.knobs.__exit__(*exc)
+
+
+def lm_loss(mx, lm, loss_fn, x, y):
+    """The canonical step's forward and backward: under ``record()`` the
+    logits, the cross-entropy's mean over every token, then
+    ``backward()``.  Returns the loss array."""
+    vocab = lm._vocab_size
+    with mx.autograd.record():
+        loss = loss_fn(lm(x).reshape((-1, vocab)), y.reshape((-1,))).mean()
+    loss.backward()
+    return loss
+
+
+class relu_decisions:
+    """Record each ReLU's decisions (``input > 0``) in one forward, or
+    replay recorded ones (``relu(x)`` as ``where(mask, x, 0)``, with the
+    backward that follows) in another, through the registered
+    ``Activation`` op.  A replay counts the inputs whose own sign
+    disagrees with the recorded decision in ``flips``."""
+
+    def __init__(self, masks=None):
+        self.record = masks is None
+        self.masks = [] if masks is None else masks
+        self.flips = self.total = 0
+
+    def __enter__(self):
+        from mxnet_tpu_torch.ops.registry import get_op
+        self.op = get_op("Activation")
+        self.real, calls = self.op.fn, iter(range(len(self.masks)))
+
+        def fn(data, act_type="relu", **attrs):
+            if self.record:
+                self.masks.append(data.detach() > 0)
+                return self.real(data, act_type=act_type, **attrs)
+            mask = self.masks[next(calls)]
+            self.flips += int(((data.detach() > 0) != mask).sum())
+            self.total += mask.numel()
+            return torch.where(mask, data, 0.0)
+        self.op.fn = fn
+        return self
+
+    def __exit__(self, *exc):
+        self.op.fn = self.real
+
+
+def f64_grads(ck, lm, x, y):
+    """The step's loss and gradients in float64 plain torch, from float64
+    copies of the parameters: the reference both fp32 paths are held
+    against."""
+    params = lm.collect_params()
+    weights = {p.name: p.data()._data.detach().double().requires_grad_()
+               for p in params.values()}
+    logits = plain_forward(ck, lm, x._data, weights)
+    lp = torch.log_softmax(logits.reshape(-1, logits.shape[-1]), dim=-1)
+    loss = -lp.gather(1, y._data.long().reshape(-1, 1)).mean()
+    grads = torch.autograd.grad(loss, list(weights.values()))
+    return dict(zip(params.keys(), grads))
+
+
+def lm_train(mx, ck, lm, x, y, warmup=LM_TRAIN_WARMUP, steps=LM_TRAIN_STEPS):
+    """Train ``lm`` on the batch ``(x, y)``.  First the step's gradients
+    four ways from the same weights: the kernel path (its ReLU decisions
+    recorded), the plain torch path (``plain_path``) with those ReLU
+    decisions, which must agree within ``GRAD_TOL`` of each parameter's
+    largest gradient, the plain path with its own decisions, and float64
+    plain torch; an fp32 ReLU input within rounding of 0 may take the
+    other side in another summation order and move that weight's
+    gradient by far more than ``GRAD_TOL``, in either fp32 path.  Then
+    the main path, ``warmup`` steps (the first one with the launch counts
+    set to 0 just before and read just after) and ``steps`` timed ones,
+    each ``lm_loss`` then ``Trainer.step(1)`` (Adam).  Returns the
+    trainer, the loss block and the numbers."""
+    trainer = mx.gluon.Trainer(lm.collect_params(), "adam", dict(LM_ADAM))
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    params = lm.collect_params()
+    device = x._data.device
+
+    def grads():
+        return {n: p.grad()._data.clone() for n, p in params.items()}
+
+    def dev(a, b):
+        return max(rel_err(a[n], b[n]) for n in a)
+
+    with relu_decisions() as rec:
+        lm_loss(mx, lm, loss_fn, x, y)
+    kernel = grads()
+    with plain_path(), relu_decisions(rec.masks) as rep:
+        lm_loss(mx, lm, loss_fn, x, y)
+    grad_dev = dev(kernel, grads())
+    del rec
+    with plain_path():
+        lm_loss(mx, lm, loss_fn, x, y)
+    plain = grads()
+    ref64 = f64_grads(ck, lm, x, y)
+    zero = [n for n, g in kernel.items() if not bool(g.abs().max() > 0)]
+    checks = {"grad_dev": grad_dev, "relu_flips": rep.flips,
+              "relu_inputs": rep.total,
+              "grad_dev_own_relu": dev(kernel, plain),
+              "kernel_vs_f64": dev(kernel, ref64),
+              "plain_vs_f64": dev(plain, ref64), "zero_grads": zero}
+    del kernel, plain, ref64
+
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    ck.reset_kernel_calls()
+    losses = [lm_loss(mx, lm, loss_fn, x, y)]
+    trainer.step(1)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    calls = ck.kernel_calls()
+    for _ in range(warmup - 1):
+        losses.append(lm_loss(mx, lm, loss_fn, x, y))
+        trainer.step(1)
+    marks = [_marker(device)]
+    for _ in range(steps):
+        losses.append(lm_loss(mx, lm, loss_fn, x, y))
+        trainer.step(1)
+        marks.append(_marker(device))
+    step_ms = _elapsed_ms(marks[0], marks[-1]) / steps
+    b, t = x.shape
+    return trainer, loss_fn, dict(
+        checks, calls=calls, n_params=len(params.keys()),
+        losses=[float(v.asnumpy()) for v in losses], step_ms=step_ms,
+        tokens_per_s=b * t / step_ms * 1e3)
+
+
+# kinds of kernel in a transformer training step's profile; the first
+# match wins (K5b's name holds K2's fragment, so it comes first)
+LM_TRAIN_KINDS = (
+    ("K6a", ("layernorm_fwd",)), ("K6b", ("layernorm_bwd",)),
+    ("K7a", ("flash_fwd",)), ("K7b", ("flash_bwd_dq",)),
+    ("K7c", ("flash_bwd_dkv",)), ("K5b", ("softmax_bwd_rows",)),
+    ("K5a", ("bias_softmax",)), ("K2", ("softmax_rows",)),
+    ("loss", ("SoftMax", "softmax_warp", "log_softmax", "gather",
+              "scatter")),
+    ("GEMM", ("gemm", "xmma", "cutlass", "cublas")),
+    ("embedding", ("indexSelect", "index_select", "embedding", "Radix",
+                   "segment", "grad_weight")),
+    ("copy", ("Memcpy", "copy")),
+    ("reduction", ("reduce_kernel",)),
+    ("elementwise", ("elementwise", "vectorized")))
+
+
+def profile_lm_train(mx, lm, trainer, loss_fn, x, y, step_ms):
+    """Device time of one training step by kind: the forward and backward
+    by kernel name, the optimizer as everything ``Trainer.step``
+    launches; beside the step's time without the profiler.  A printable
+    line."""
+    fb = device_times(lambda: lm_loss(mx, lm, loss_fn, x, y), n=1)
+    opt = device_times(lambda: trainer.step(1), n=1)
+    busy = sum(fb.values()) + sum(opt.values())
+    if busy <= 0:
+        return "transformer training profile: not measured (no device time)"
+    kinds = by_kind(fb, LM_TRAIN_KINDS)
+    kinds["optimizer (Trainer.step, per-array Adam)"] = sum(opt.values())
+    top = sorted(fb.items(), key=lambda kv: -kv[1])[:6]
+    return ("profile of one transformer training step at %s: %.0f us (CUDA "
+            "events, no profiler), device busy %.0f us (idle share %.3f); "
+            "by kind: %s; top kernels of forward and backward: %s"
+            % (tuple(x.shape), step_ms * 1e3, busy,
+               max(0.0, 1 - busy / (step_ms * 1e3)),
+               ", ".join("%s %.0f us" % kv for kv in kinds.items()),
                "; ".join("%s %.0f us" % (k[:60], v) for k, v in top)))
 
 
@@ -1259,7 +1722,8 @@ def main():
         time_jobs(rec, jobs, "call_ms", time_ms)
     print("kernels checked: K6a within 1e-5 (fp32) and one bf16 rounding at "
           "C 768, 37, 1000; K7a within 1e-5 at (96, 1024, 64) causal and "
-          "full and T 8/64/1024 x D 32/64/128, bf16 within one rounding; "
+          "full, T 8/64/1024 x D 32/64/128 and D 8-256 (72 and 200 among "
+          "them) at T 200, bf16 within one rounding; "
           "K5a within 1e-6 (fp32) and 1e-2 (bf16) at (96, 1020, 1020), "
           "causal bias and none", flush=True)
 
@@ -1307,11 +1771,80 @@ def main():
         rec["launches"] = rec["launches_per_forward"] = \
             lm_res[t]["calls"][name]
 
+    # 11. the backward kernels against their plain versions
+    k6b, k6b_jobs = check_k6b(ck, dev, bw, flops)
+    (k7b, k7c), (k7b_jobs, k7c_jobs) = check_k7bc(ck, dev, bw, flops)
+    k5b, k5b_jobs = check_k5b(ck, dev, bw, flops)
+    bwd_recs = ((k6b, k6b_jobs), (k7b, k7b_jobs), (k7c, k7c_jobs),
+                (k5b, k5b_jobs))
+    for rec, jobs in bwd_recs:
+        time_jobs(rec, jobs, "call_ms", time_ms)
+    print("kernels checked: K6b within 1e-5 of the largest |dx| (fp32) and "
+          "one bf16 rounding at C 768, 37, 1025, 9000; K7b and K7c within "
+          "1e-5 of the largest at (96, 1024, 64) causal and full, T 7/65/1020,"
+          " Tq != Tk and D 8/72/200/256, bf16 within one rounding; K5b within "
+          "1e-5 of the largest at (96, 1020, 1020), causal and unmasked, "
+          "bf16 within one rounding, masked columns exactly 0", flush=True)
+
+    # 12. the transformer training path: GPT-2-small widths, both routes
+    attn_fwd = {LM_T[0]: ("flash_attention_fwd", "flash_attention_bwd_dq",
+                          "flash_attention_bwd_dkv"),
+                LM_T[1]: ("bias_softmax", "softmax_bwd")}
+    train_res = {}
+    for t in LM_T:
+        base = torch.cuda.memory_allocated(dev)
+        tlm = transformer_lm(mx, mx.gpu(0))
+        x, y = lm_batch(mx, mx.gpu(0), vocab, LM_BATCH, t)
+        trainer, loss_fn, r = lm_train(mx, ck, tlm, x, y)
+        want = dict.fromkeys(r["calls"], 0)
+        want.update({"layernorm_fwd": 2 * n_layers + 1,
+                     "layernorm_bwd": 2 * n_layers + 1})
+        want.update(dict.fromkeys(attn_fwd[t], n_layers))
+        if r["calls"] != want:
+            raise AssertionError("training at T=%d: launches %s in one step; "
+                                 "expected %s" % (t, r["calls"], want))
+        if r["zero_grads"] or not r["grad_dev"] <= GRAD_TOL:
+            raise AssertionError(
+                "training at T=%d: gradients vs the plain torch step with "
+                "the same ReLU decisions %.3g of each parameter's largest "
+                "(limit %g); zero gradients: %s"
+                % (t, r["grad_dev"], GRAD_TOL, r["zero_grads"]))
+        if not r["losses"][-1] < r["losses"][0]:
+            raise AssertionError("training at T=%d: the loss on the batch "
+                                 "went %s" % (t, r["losses"]))
+        r["mem_gb"] = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+        train_res[t] = r
+        print("transformer training on %s: TransformerLM GPT-2 small widths "
+              "fp32, hybridized, batch %d, T=%d, Adam lr %g: %d warmup + %d "
+              "timed steps: %.2f ms/step, %.0f tokens/s (CUDA events); "
+              "launches in one step %s; %d parameters, all with nonzero "
+              "gradients, within %.3g of each one's largest of the plain "
+              "torch step with the same ReLU decisions (limit %g); %d of %d "
+              "ReLU inputs take the other side in the plain forward, and "
+              "with its own decisions the plain step is %.3g away; against "
+              "float64 plain torch: kernel path %.3g, plain fp32 path %.3g; "
+              "loss %s; peak memory of the training steps %.2f GB"
+              % (smi, LM_BATCH, t, LM_ADAM["learning_rate"], LM_TRAIN_WARMUP,
+                 LM_TRAIN_STEPS, r["step_ms"], r["tokens_per_s"], r["calls"],
+                 r["n_params"], r["grad_dev"], GRAD_TOL, r["relu_flips"],
+                 r["relu_inputs"], r["grad_dev_own_relu"],
+                 r["kernel_vs_f64"], r["plain_vs_f64"],
+                 ["%.4f" % v for v in r["losses"]], r["mem_gb"]), flush=True)
+        r["run"] = (tlm, trainer, loss_fn, x, y)    # profiled at the end
+    k6b["launches"] = sum(r["calls"]["layernorm_bwd"]
+                          for r in train_res.values())
+    k6b["launches_per_forward"] = k6b["launches"] / len(train_res)
+    for rec, t, name in ((k7b, LM_T[0], "flash_attention_bwd_dq"),
+                         (k7c, LM_T[0], "flash_attention_bwd_dkv"),
+                         (k5b, LM_T[1], "softmax_bwd")):
+        rec["launches"] = rec["launches_per_forward"] = \
+            train_res[t]["calls"][name]
+
     # device time of each kernel (the profiler last: its hooks slow the
     # host for the rest of the process)
     recs = [(k3, k3_jobs), (k2, k2_jobs)] + [
         (sweeps[name], sweep_jobs[name]) for name, *_ in SWEEPS] + [
-        (k6a, k6a_jobs), (k7a, k7a_jobs), (k5a, k5a_jobs)]
+        (k6a, k6a_jobs), (k7a, k7a_jobs), (k5a, k5a_jobs)] + list(bwd_recs)
     try:
         for rec, jobs in recs:
             time_jobs(rec, jobs, "ms", device_ms)
@@ -1339,7 +1872,9 @@ def main():
                   "bound %.4f ms; per call: kernel %.4f ms, plain %.4f ms"
                   % (knum, name, job["n"], job["ms"], job["plain_ms"],
                      job["bound_ms"], job["call_ms"], job["plain_call_ms"]))
-    for knum, rec in (("K6a", k6a), ("K7a", k7a), ("K5a", k5a)):
+    for knum, rec in (("K6a", k6a), ("K7a", k7a), ("K5a", k5a),
+                      ("K6b", k6b), ("K7b", k7b), ("K7c", k7c),
+                      ("K5b", k5b)):
         print("%s %s device: kernel %.4f ms, plain %.4f ms, library %.4f ms, "
               "bound %.4f ms (%s); per call: kernel %.4f ms, plain %.4f ms, "
               "library %.4f ms"
@@ -1373,6 +1908,8 @@ def main():
     print(profile_step(mod, train_batch, tr["step_ms"]))
     for r in lm_res.values():
         print(profile_lm(lm, r["tokens"], r["fwd_ms"]))
+    for r in train_res.values():
+        print(profile_lm_train(mx, *r["run"], r["step_ms"]))
     print("nvidia-smi: %s" % smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

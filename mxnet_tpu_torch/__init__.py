@@ -14,15 +14,18 @@ TF32 (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32`` are set to False at import),
 because the reference forward is float32.
 
-The port carries three paths so far: inference (symbols and their JSON,
+The port carries four paths so far: inference (symbols and their JSON,
 the ops of a ResNet, ``simple_bind``/``forward``, ``Predictor`` and the
 micro-batching ``ModelServer``), training through ``Module.fit``
 (autograd backward, BatchNorm's batch statistics, SGD/Adam, the
 executor's fused optimizer step, ``NDArrayIter``, metrics,
-initializers and the ``local``/``device``/``tpu`` kvstores), and the
-gluon transformer forward (``gluon.contrib.transformer.TransformerLM``:
+initializers and the ``local``/``device``/``tpu`` kvstores), the gluon
+transformer forward (``gluon.contrib.transformer.TransformerLM``:
 Block/HybridBlock, Parameter, the ``nd`` op namespace, LayerNorm and
-attention).
+attention), and gluon training of that transformer (``autograd.record``
+/ ``backward`` / ``grad`` over imperative ops, ``gluon.loss``,
+``gluon.Trainer``, and the backward kernels of LayerNorm, flash
+attention and the masked softmax).
 """
 import torch
 

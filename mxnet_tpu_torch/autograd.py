@@ -1,33 +1,48 @@
-"""Autograd recording and training state.
+"""Autograd: recording, training state and backward through imperative ops.
 
 Counterpart of ``mxnet_tpu/autograd.py`` (reference surface:
 python/mxnet/autograd.py record:122, pause:146, train_mode:166,
-predict_mode:181).  This package carries the thread-local state the
-imperative path reads: whether a scope records, and whether ops run in
-training mode (``Dropout``, and BatchNorm's batch statistics) or in
-predict mode, which is the default outside ``record()``.
+predict_mode:181, mark_variables:197, backward:243, grad:270,
+Function:363).  The JAX package keeps its own tape of ``jax.vjp``
+closures; here the tape is PyTorch's autograd graph:
 
-Recording for a backward pass through imperative ops is not ported yet
-(ROADMAP queue 1, the transformer training slice): ``backward`` and
-``grad`` raise, and so does any op invoked while a scope records
-(``imperative.invoke``), so a forward under ``record()`` never pretends
-to have recorded.  ``Module.fit`` trains through the
-executor's own autograd and does not use this module.
+- ``imperative.invoke`` runs every op with torch's grad mode on while a
+  scope records and off otherwise, so an op records exactly when the
+  reference's tape would (an input that is marked, or the output of a
+  recorded op);
+- ``mark_variables`` (and ``NDArray.attach_grad``, ``Parameter``) turn an
+  array into a variable: its tensor requires grad, and the array keeps a
+  grad buffer and a ``grad_req``.  The marked arrays are held weakly in a
+  registry, so ``backward`` finds the variables its heads reach without a
+  list from the caller;
+- ``backward`` runs ``torch.autograd.grad`` over the heads and the marked
+  variables and writes each gradient into its buffer (``write``), adds it
+  (``add``) or leaves it (``null``); ``grad`` returns new arrays and
+  touches no buffer, with ``create_graph`` for higher orders;
+- as in the reference, a backward frees the recorded graph unless
+  ``retain_graph``, and a second backward through it then raises;
+- ``Function`` is a thin layer over ``torch.autograd.Function``.
+
+``Module.fit`` trains through the executor's own autograd and does not
+use this module's backward.
 """
 from __future__ import annotations
 
 import threading
+import weakref
+
+import torch
 
 from .base import MXNetError
 
 __all__ = ["is_recording", "is_training", "set_recording", "set_training",
-           "record", "pause", "train_mode", "predict_mode", "backward",
-           "grad", "NOT_PORTED"]
-
-NOT_PORTED = ("autograd backward through imperative ops is not ported yet "
-              "(ROADMAP.md queue 1: the transformer training slice)")
+           "record", "pause", "train_mode", "predict_mode", "mark_variables",
+           "backward", "grad", "Function"]
 
 _STATE = threading.local()
+
+_MARKED_LOCK = threading.Lock()
+_MARKED = weakref.WeakSet()     # guarded-by: _MARKED_LOCK — marked NDArrays
 
 
 def _st():
@@ -105,12 +120,178 @@ def predict_mode():
     return _RecordingStateScope(None, False)
 
 
+def grad_mode():
+    """Torch's grad mode as the recording flag says: what every op on an
+    array runs under, so it records exactly when a scope records."""
+    return torch.set_grad_enabled(is_recording())
+
+
+def mark_variables(variables, gradients, grad_reqs="write"):
+    """Mark arrays as variables to take gradients for, with ``gradients``
+    as their buffers (reference: python/mxnet/autograd.py:197).  A
+    variable's tensor then requires grad; under ``null`` it keeps its
+    buffer, which no backward writes (MXNet's kNullOp; the JAX package
+    writes the buffer of an ``attach_grad("null")`` all the same)."""
+    from .ndarray.ndarray import NDArray
+    if isinstance(variables, NDArray):
+        variables, gradients = [variables], [gradients]
+    if isinstance(grad_reqs, str):
+        grad_reqs = [grad_reqs] * len(variables)
+    for var, buf, req in zip(variables, gradients, grad_reqs):
+        if req not in ("write", "add", "null"):
+            raise MXNetError("grad_req must be one of 'write', 'add' or "
+                             "'null', got %r" % (req,))
+        if req != "null" and not var._data.is_floating_point():
+            raise MXNetError("cannot take gradients for an array of dtype "
+                             "%s" % var.dtype)
+        var._grad = buf
+        var._grad_req = req
+        if req != "null" and not var._data.requires_grad:
+            var._data.requires_grad_(True)
+        with _MARKED_LOCK:
+            _MARKED.add(var)
+
+
+def _heads(heads, head_grads):
+    """Heads and their gradients as tensors (ones where none is given);
+    raises for a head that no recorded op produced."""
+    from .ndarray.ndarray import NDArray
+    if isinstance(heads, NDArray):
+        heads = [heads]
+        if head_grads is not None and not isinstance(head_grads,
+                                                     (list, tuple)):
+            head_grads = [head_grads]
+    outs, seeds = [], []
+    for i, h in enumerate(heads):
+        if not h._data.requires_grad:
+            raise MXNetError("head array is not connected to the recorded "
+                             "graph")
+        g = head_grads[i] if head_grads is not None else None
+        outs.append(h._data)
+        seeds.append(torch.ones_like(h._data) if g is None
+                     else g._data.to(h._data.dtype))
+    return outs, seeds
+
+
+def _torch_grad(outs, seeds, inputs, retain_graph, create_graph):
+    """``torch.autograd.grad`` with None for an input the heads do not
+    reach; a graph that an earlier backward freed raises MXNetError."""
+    try:
+        return torch.autograd.grad(outs, inputs, seeds,
+                                   retain_graph=retain_graph,
+                                   create_graph=create_graph,
+                                   allow_unused=True)
+    except RuntimeError as exc:
+        if "second time" not in str(exc):
+            raise
+        raise MXNetError("the recorded graph was freed by an earlier "
+                         "backward; pass retain_graph=True to go through it "
+                         "again") from exc
+
+
 def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
-    """Not ported yet: raises MXNetError."""
-    raise MXNetError(NOT_PORTED)
+    """Gradients of ``heads`` (with ``head_grads``, ones by default) into
+    the grad buffers of the marked variables they reach: written for
+    ``write``, added for ``add`` (reference: python/mxnet/autograd.py:243).
+    Variables the heads do not reach keep their buffers."""
+    outs, seeds = _heads(heads, head_grads)
+    with _MARKED_LOCK:
+        marked = [v for v in _MARKED
+                  if v._grad_req != "null" and v._data.requires_grad]
+    grads = _torch_grad(outs, seeds, [v._data for v in marked],
+                        retain_graph, False)
+    for var, g in zip(marked, grads):
+        if g is None:
+            continue
+        buf = var._grad
+        if var._grad_req == "add":
+            buf._data = buf._data + g
+        else:
+            buf._data = g.to(buf._data.dtype)
 
 
 def grad(heads, variables, head_grads=None, retain_graph=None,
          create_graph=False, train_mode=True):
-    """Not ported yet: raises MXNetError."""
-    raise MXNetError(NOT_PORTED)
+    """Gradients of ``heads`` with respect to ``variables`` as new arrays,
+    leaving the variables' grad buffers alone (reference:
+    python/mxnet/autograd.py:270).  With ``create_graph`` the gradients
+    record, so a further ``backward`` or ``grad`` goes through them (and
+    ``retain_graph`` defaults to True)."""
+    from .ndarray.ndarray import NDArray
+    single = isinstance(variables, NDArray)
+    var_list = [variables] if single else list(variables)
+    for v in var_list:
+        if not isinstance(v, NDArray):
+            raise MXNetError("variables must be NDArrays")
+        if v._grad_req == "null" or not v._data.requires_grad:
+            raise MXNetError(
+                "cannot differentiate with respect to a variable that is "
+                "not marked for gradient; call attach_grad() (or "
+                "mark_variables) on it BEFORE the recorded computation")
+    if retain_graph is None:
+        retain_graph = create_graph
+    outs, seeds = _heads(heads, head_grads)
+    grads = _torch_grad(outs, seeds, [v._data for v in var_list],
+                        retain_graph, create_graph)
+    if any(g is None for g in grads):
+        raise MXNetError("a requested variable is not reachable from the "
+                         "heads in the recorded graph")
+    res = [NDArray(g) for g in grads]
+    return res[0] if single else res
+
+
+class Function:
+    """A differentiable function with its own backward (reference:
+    python/mxnet/autograd.py:363): subclass it with ``forward`` and
+    ``backward`` over NDArrays.  Both run paused; under ``record()`` the
+    call is one node of torch's graph whose backward calls ``backward``
+    with the output gradients."""
+
+    def __init__(self):
+        self._saved = ()
+
+    def save_for_backward(self, *args):
+        self._saved = args
+
+    @property
+    def saved_tensors(self):
+        return self._saved
+
+    def forward(self, *inputs):  # pragma: no cover - abstract
+        raise NotImplementedError
+
+    def backward(self, *out_grads):  # pragma: no cover - abstract
+        raise NotImplementedError
+
+    def __call__(self, *inputs):
+        from .ndarray.ndarray import NDArray
+        with grad_mode():
+            outs = _CustomFunction.apply(self, *[x._data for x in inputs])
+        if self._single:
+            return NDArray(outs[0])
+        return [NDArray(o) for o in outs]
+
+
+class _CustomFunction(torch.autograd.Function):
+    """The torch node of a user ``Function``: forward and backward run
+    the user's NDArray code, paused."""
+
+    @staticmethod
+    def forward(ctx, func, *tensors):
+        from .ndarray.ndarray import NDArray
+        ctx.func = func
+        with pause():
+            outputs = func.forward(*[NDArray(t) for t in tensors])
+        func._single = not isinstance(outputs, (list, tuple))
+        outs = [outputs] if func._single else list(outputs)
+        return tuple(o._data for o in outs)
+
+    @staticmethod
+    def backward(ctx, *out_grads):
+        from .ndarray.ndarray import NDArray
+        with pause():
+            in_grads = ctx.func.backward(*[NDArray(g) for g in out_grads])
+        if not isinstance(in_grads, (list, tuple)):
+            in_grads = [in_grads]
+        return (None,) + tuple(g._data if g is not None else None
+                               for g in in_grads)

@@ -7,8 +7,11 @@ device; its shape may hold 0 for a dim the first forward fills in
 ``initialize`` resolves its context at once, so without a GPU the
 default ``gpu(0)`` raises there and not at the first forward.
 
-Gradient buffers come with the training slice: ``grad()`` raises until
-then, and ``grad_req`` is kept as the reference keeps it.
+A parameter whose ``grad_req`` is not ``null`` gets a zero grad buffer
+when its value is set, and its value is marked as an autograd variable
+(``autograd.mark_variables``), also when the deferred initialization
+finishes inside a forward under ``record()``; ``Trainer.step`` marks it
+again after the optimizer rebinds it.
 """
 from __future__ import annotations
 
@@ -18,7 +21,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
-from .. import initializer
+from .. import autograd, initializer
 from ..base import MXNetError, dtype_torch
 from ..context import gpu, resolve
 from ..initializer import InitDesc
@@ -51,24 +54,55 @@ class Parameter:
     """A parameter of Blocks (reference: parameter.py:42)."""
 
     def __init__(self, name, grad_req="write", shape=None, dtype="float32",
-                 init=None, allow_deferred_init=False, differentiable=True):
-        if grad_req not in ("write", "add", "null"):
-            raise ValueError("grad_req must be one of 'write', 'add', or "
-                             "'null', but got '%s'" % grad_req)
+                 lr_mult=1.0, wd_mult=1.0, init=None,
+                 allow_deferred_init=False, differentiable=True):
         if isinstance(shape, int):
             shape = (shape,)
         self.name = name
         self._shape = tuple(shape) if shape is not None else None
         self.dtype = dtype
+        self.lr_mult = lr_mult
+        self.wd_mult = wd_mult
         self.init = init
-        self.grad_req = grad_req if differentiable else "null"
+        self._differentiable = differentiable
         self._allow_deferred_init = allow_deferred_init
         self._data = None
+        self._grad = None
+        self._grad_req = None
         self._deferred_init = ()
+        self.grad_req = grad_req
 
     def __repr__(self):
         return "Parameter %s (shape=%s, dtype=%s)" % (self.name, self.shape,
                                                       self.dtype)
+
+    @property
+    def grad_req(self):
+        return self._grad_req
+
+    @grad_req.setter
+    def grad_req(self, req):
+        """``write``, ``add`` or ``null`` (always ``null`` for a parameter
+        that is not differentiable); an initialized parameter gets or
+        drops its grad buffer at once."""
+        if req not in ("write", "add", "null"):
+            raise ValueError("grad_req must be one of 'write', 'add', or "
+                             "'null', but got '%s'" % req)
+        if not self._differentiable:
+            req = "null"
+        if self._grad_req == req:
+            return
+        self._grad_req = req
+        if self._data is not None:
+            self._init_grad()
+
+    def _init_grad(self):
+        """A zero grad buffer for the value, marked as its variable's
+        (none for ``null``)."""
+        self._grad = None if self._grad_req == "null" else NDArray(
+            torch.zeros_like(self._data._data,
+                             memory_format=torch.contiguous_format))
+        autograd.mark_variables([self._data], [self._grad], self._grad_req)
 
     @property
     def shape(self):
@@ -98,7 +132,7 @@ class Parameter:
                           "Set force_reinit=True to re-initialize."
                           % self.name, stacklevel=2)
             return
-        self._data = None
+        self._data = self._grad = None
         if ctx is None:
             ctx = gpu(0)
         if isinstance(ctx, (list, tuple)):
@@ -127,11 +161,17 @@ class Parameter:
         self._deferred_init = ()
         data = NDArray(torch.zeros(self._shape, dtype=dtype_torch(self.dtype),
                                    device=resolve(ctx)))
-        initializer.create(default_init)(
-            InitDesc(self.name, {"__init__": init.dumps()
-                                 if hasattr(init, "dumps") else str(init)}),
-            data)
+        with torch.no_grad():
+            initializer.create(default_init)(
+                InitDesc(self.name, {"__init__": init.dumps()
+                                     if hasattr(init, "dumps") else str(init)}),
+                data)
+        self._set(data)
+
+    def _set(self, data):
+        """Take the NDArray ``data`` as the value, with its grad buffer."""
         self._data = data
+        self._init_grad()
 
     def _check_and_get(self):
         if self._data is not None:
@@ -154,9 +194,19 @@ class Parameter:
         return self._check_and_get()
 
     def grad(self, ctx=None):
-        """Not ported yet: raises MXNetError."""
-        from ..autograd import NOT_PORTED
-        raise MXNetError(NOT_PORTED)
+        """The grad buffer (reference: parameter.py grad); raises for
+        ``grad_req="null"``."""
+        if self._data is not None and self._grad is None:
+            raise MXNetError("Cannot get gradient array for Parameter '%s' "
+                             "because grad_req='null'" % self.name)
+        self._check_and_get()
+        return self._grad
+
+    def zero_grad(self):
+        """Set the grad buffer to zeros (reference: parameter.py
+        zero_grad)."""
+        if self._grad is not None:
+            self._grad._data = torch.zeros_like(self._grad._data)
 
     def set_data(self, data):
         """Assign a new value (an NDArray, tensor or host array) of this
@@ -166,7 +216,8 @@ class Parameter:
             np.asarray(data) if not isinstance(data, torch.Tensor) else data)
         if self._data is not None:
             self.shape = tuple(t.shape)
-            self._data._data.copy_(t)
+            with torch.no_grad():
+                self._data._data.copy_(t)
         elif self._deferred_init:
             device = resolve(self._deferred_init[1])
             self._load_init(NDArray(t.to(device=device,
@@ -181,7 +232,7 @@ class Parameter:
         shape must agree with the known dims."""
         self.shape = data.shape
         self._deferred_init = ()
-        self._data = data
+        self._set(data)
 
 
 class ParameterDict:
@@ -261,3 +312,8 @@ class ParameterDict:
             init = initializer.Uniform()
         for v in self.values():
             v.initialize(None, ctx, init, force_reinit=force_reinit)
+
+    def zero_grad(self):
+        """Zero every parameter's grad buffer."""
+        for v in self.values():
+            v.zero_grad()

@@ -4,10 +4,14 @@ Counterpart of ``mxnet_tpu/imperative.py`` (reference:
 src/imperative/imperative.cc Imperative::Invoke:86).  PyTorch runs
 eagerly and queues device work asynchronously on the current stream, so
 what remains here is attr coercion and validation, the train-mode flag
-for ops that declare ``needs_is_train``, the write-back of ``mutate_aux``
-outputs, and ``out=``.  Recording for autograd is not ported yet:
-invoking an op while ``autograd.record()`` is on raises rather than run
-a forward that no backward could follow.
+for ops that declare ``needs_is_train``, recording, the write-back of
+``mutate_aux`` outputs, and ``out=``.
+
+Recording is PyTorch's autograd: an op runs with torch's grad mode on
+exactly while ``autograd.record()`` is on, so its output joins the graph
+when an input is a marked variable or a recorded output.  A ``mutate_aux``
+output (a moving statistic) is written back detached, outside the graph;
+``out=`` rebinds the target to the result, which keeps its graph.
 """
 from __future__ import annotations
 
@@ -27,9 +31,6 @@ def invoke(op, nd_inputs, attrs=None, out=None):
 
     if not isinstance(op, OpDef):
         op = get_op(op)
-    if autograd.is_recording():
-        raise MXNetError("%s under autograd.record(): %s"
-                         % (op.name, autograd.NOT_PORTED))
     kw = op.validate_attrs(coerce_attrs(attrs or {}))
     if op.needs_is_train:
         kw["__is_train__"] = autograd.is_training()
@@ -37,20 +38,22 @@ def invoke(op, nd_inputs, attrs=None, out=None):
         if not isinstance(x, NDArray):
             raise MXNetError("%s: inputs must be NDArrays, got %s"
                              % (op.name, type(x).__name__))
-    outputs = op.fn(*[x._data for x in nd_inputs], **kw)
+    with autograd.grad_mode():
+        outputs = op.fn(*[x._data for x in nd_inputs], **kw)
     outs = list(outputs) if isinstance(outputs, tuple) else [outputs]
     n_aux = len(op.mutate_aux)
     if n_aux:
         for tgt, new in zip(nd_inputs[-n_aux:], outs[-n_aux:]):
-            tgt._data = new
+            tgt._data = new.detach()
         outs = outs[:-n_aux]
     if out is not None:
         targets = out if isinstance(out, (list, tuple)) else [out]
         if len(targets) != len(outs):
             raise MXNetError("%s: out= takes %d arrays, got %d"
                              % (op.name, len(outs), len(targets)))
-        for tgt, src in zip(targets, outs):
-            tgt._data = src.to(tgt._data.dtype)
+        with autograd.grad_mode():
+            for tgt, src in zip(targets, outs):
+                tgt._data = src.to(tgt._data.dtype)
         return out
     nd_outs = [NDArray(o) for o in outs]
     return nd_outs[0] if len(nd_outs) == 1 else nd_outs

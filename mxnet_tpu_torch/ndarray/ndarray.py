@@ -8,11 +8,14 @@ surface the serving and training paths touch — construction (``array``,
 ``context``, ``copyto`` (into another NDArray, which may be a view of a
 larger buffer, or onto a context), ``astype``, ``wait_to_read``, basic
 indexing and ``arr[:] = value`` — and the surface gluon blocks touch:
-``+ - * / **`` (and the reflected forms) with NDArrays or scalars,
-``reshape`` with MXNet's 0/-1/-2/-3/-4 codes, ``expand_dims``, ``sum``,
-``mean``, each through its registered op, and ``arange``.  The V2
-``save``/``load`` container is still to come; ``attach_grad`` and
-``backward`` raise until autograd records imperative ops.
+``+ - * / **`` (and the reflected forms and negation) with NDArrays or
+scalars, ``reshape`` with MXNet's 0/-1/-2/-3/-4 codes, ``expand_dims``,
+``sum``, ``mean``, ``abs``, ``square``, ``exp``, ``log``, ``pick``, each
+through its registered op, and ``arange``; and autograd's surface:
+``attach_grad``, ``grad``, ``backward`` and ``detach``.  Every op on an
+array records exactly while ``autograd.record()`` is on (torch's grad
+mode follows the flag).  The V2 ``save``/``load`` container is still to
+come.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import numbers
 import numpy as np
 import torch
 
+from .. import autograd
 from ..base import MXNetError, dtype_name, dtype_torch
 from ..context import Context, resolve
 
@@ -33,13 +37,15 @@ _NARROW = {torch.float64: torch.float32, torch.int64: torch.int32}
 class NDArray:
     """A device tensor handle (reference: python/mxnet/ndarray/ndarray.py)."""
 
-    __slots__ = ("_data",)
+    __slots__ = ("_data", "_grad", "_grad_req", "__weakref__")
 
     def __init__(self, data):
         if not isinstance(data, torch.Tensor):
             raise MXNetError("NDArray wraps a torch.Tensor, got %s"
                              % type(data).__name__)
         self._data = data
+        self._grad = None           # the grad buffer of a marked variable
+        self._grad_req = "null"
 
     @property
     def shape(self):
@@ -82,12 +88,18 @@ class NDArray:
             if other.shape != self.shape:
                 raise MXNetError("copyto: shape mismatch %s vs %s"
                                  % (self.shape, other.shape))
-            other._data.copy_(self._data)
+            other[:] = self
             return other
-        return NDArray(self._data.to(resolve(other), copy=True))
+        with autograd.grad_mode():
+            return NDArray(self._data.to(resolve(other), copy=True))
 
     def copy(self):
-        return NDArray(self._data.clone())
+        with autograd.grad_mode():
+            return NDArray(self._data.clone())
+
+    def detach(self):
+        """The same values outside the recorded graph."""
+        return NDArray(self._data.detach())
 
     def astype(self, dtype, copy=True):
         """A copy in ``dtype`` (``copy=False`` returns self when the dtype
@@ -95,30 +107,51 @@ class NDArray:
         dt = dtype_torch(dtype)
         if not copy and dt == self._data.dtype:
             return self
-        return NDArray(self._data.to(dtype=dt, copy=True))
+        with autograd.grad_mode():
+            return NDArray(self._data.to(dtype=dt, copy=True))
 
     def __getitem__(self, key):
         """Basic indexing (ints and slices): a view, as in MXNet."""
         if isinstance(key, (numbers.Integral, slice)) or (
                 isinstance(key, tuple) and all(
                     isinstance(k, (numbers.Integral, slice)) for k in key)):
-            return NDArray(self._data[key])
+            with autograd.grad_mode():
+                return NDArray(self._data[key])
         raise MXNetError("NDArray indexing takes ints and slices, got %r"
                          % (key,))
 
     def __setitem__(self, key, value):
         """``arr[:] = value`` (a scalar, an NDArray, a tensor or a host
-        array) writes in place; other keys write that region."""
-        dst = self._data if (isinstance(key, slice) and key == slice(None)) \
-            else self._data[key]
-        if isinstance(value, numbers.Number):
-            dst.fill_(value)
-            return
+        array) writes in place; other keys write that region.  Under
+        ``record()`` the write records (a value that records flows into
+        the region); a write into a marked variable raises MXNetError."""
         if isinstance(value, NDArray):
             value = value._data
-        elif not isinstance(value, torch.Tensor):
+        elif not isinstance(value, (torch.Tensor, numbers.Number)):
             value = torch.from_numpy(np.ascontiguousarray(value))
-        dst.copy_(value)
+
+        def write():
+            dst = self._data if (isinstance(key, slice)
+                                 and key == slice(None)) \
+                else self._data[key]
+            if isinstance(value, numbers.Number):
+                dst.fill_(value)
+            else:
+                dst.copy_(value)
+
+        if not autograd.is_recording():
+            with torch.no_grad():
+                write()
+            return
+        try:
+            with torch.enable_grad():
+                write()
+        except RuntimeError as exc:
+            raise MXNetError(
+                "in-place write under autograd.record() refused (%s): an "
+                "array marked for gradient, or a view of one, cannot be "
+                "written while its values are recorded; write outside "
+                "record(), or compute a new array" % exc) from exc
 
     def __repr__(self):
         return "<NDArray %s @%s>" % ("x".join(map(str, self.shape)),
@@ -147,15 +180,42 @@ class NDArray:
     def mean(self, axis=None, keepdims=False):
         return self._op("mean", axis=axis, keepdims=keepdims)
 
+    def abs(self):
+        return self._op("abs")
+
+    def square(self):
+        return self._op("square")
+
+    def exp(self):
+        return self._op("exp")
+
+    def log(self):
+        return self._op("log")
+
+    def pick(self, index, axis=-1, keepdims=False, mode="clip"):
+        """``self[..., index, ...]`` along ``axis``, one element per
+        position of ``index`` (reference: ndarray.py pick)."""
+        return self._op("pick", [index], axis=axis, keepdims=keepdims,
+                        mode=mode)
+
+    # -- autograd (reference: ndarray.py attach_grad, grad, backward) -------
+    @property
+    def grad(self):
+        """The grad buffer ``attach_grad`` attached, or None."""
+        return self._grad
+
     def attach_grad(self, grad_req="write", stype=None):
-        """Not ported yet: raises MXNetError."""
-        from ..autograd import NOT_PORTED
-        raise MXNetError(NOT_PORTED)
+        """Mark this array as a variable to take gradients for, with a
+        zero buffer of its shape (``autograd.mark_variables``)."""
+        buf = NDArray(torch.zeros_like(self._data,
+                                       memory_format=torch.contiguous_format))
+        autograd.mark_variables([self], [buf], grad_req)
 
     def backward(self, out_grad=None, retain_graph=False, train_mode=True):
-        """Not ported yet: raises MXNetError."""
-        from ..autograd import backward
-        backward([self], out_grad, retain_graph, train_mode)
+        """``autograd.backward`` from this array, with ``out_grad`` as its
+        gradient (ones by default)."""
+        autograd.backward([self], [out_grad] if out_grad is not None
+                          else None, retain_graph, train_mode)
 
     # -- arithmetic (reference: ndarray.py _binop) ---------------------------
     def _binop(self, other, op, scalar_op, reverse=False):
@@ -193,6 +253,9 @@ class NDArray:
     def __pow__(self, other):
         return self._binop(other, "_power", "_power_scalar")
 
+    def __neg__(self):
+        return self._op("negative")
+
     def __rpow__(self, other):
         return self._binop(other, "_power", "_rpower_scalar", reverse=True)
 
@@ -218,7 +281,7 @@ def array(source_array, ctx=None, dtype=None):
         dt = torch.float32
     if dtype is not None:
         dt = dtype_torch(dtype)
-    return NDArray(src.to(device=device, dtype=dt, copy=True))
+    return NDArray(src.detach().to(device=device, dtype=dt, copy=True))
 
 
 def zeros(shape, ctx=None, dtype=None):

@@ -1,18 +1,27 @@
-// LayerNorm forward over the last axis (K6a):
-//   mu = mean(x), xc = x - mu, var = mean(xc * xc), rstd = rsqrt(var + eps)
-//   o = (xc * rstd) * gamma + beta,  and mu, rstd saved per row.
+// LayerNorm over the last axis, the forward (K6a) and the backward's dx
+// (K6b):
+//   K6a: mu = mean(x), xc = x - mu, var = mean(xc * xc),
+//        rstd = rsqrt(var + eps), o = (xc * rstd) * gamma + beta, and mu,
+//        rstd saved per row;
+//   K6b: xhat = (x - mu) * rstd, dxh = do * gamma,
+//        dx = rstd * (dxh - mean(dxh) - xhat * mean(dxh * xhat)),
+//        from the mu and rstd K6a saved.  dgamma = sum(do * xhat) and
+//        dbeta = sum(do) over the rows stay plain torch reductions, as in
+//        the JAX package.
 //
-// Replaces: mxnet_tpu/ops/pallas_kernels.py _layernorm_fwd_kernel, reached
-// through fused_layernorm -> _layernorm_fwd (the LayerNorm op,
-// ops/nn.py, when MXNET_PALLAS_NORM is on).
+// Replaces: mxnet_tpu/ops/pallas_kernels.py _layernorm_fwd_kernel (K6a)
+// and mxnet_tpu/ops/pallas_kernels.py _layernorm_bwd_kernel (K6b), reached
+// through fused_layernorm -> _layernorm_fwd and _fused_layernorm_bwd_rule (the LayerNorm op, ops/nn.py, when
+// MXNET_PALLAS_NORM is on).
 //
 // Bound on Hopper: memory bytes.  Each element is read once and written
-// once with ~8 fp32 operations between, far below the ~20 operations per
-// byte where the fp32 units would become the limit; at the transformer's
-// shape, (8192, 768) fp32, the call moves 50 MB.  Any C >= 1 and any row
-// count, with no padding, in three layouts chosen by C:
+// once (K6b: x and do read, dx written) with ~8-10 fp32 operations
+// between, far below the ~20 operations per byte where the fp32 units
+// would become the limit; at the transformer's shape, (8192, 768) fp32,
+// K6a moves 50 MB and K6b 75 MB.  Any C >= 1 and any row count, with no
+// padding, in three layouts chosen by C (the same for both kernels):
 //   - C <= 1024: one warp per row, four rows per 128-thread block: no
-//     shared memory and no block barrier, the two reductions are warp
+//     shared memory and no block barrier, the reductions are warp
 //     shuffles; each lane holds VPT = ceil(C / 32) values (a template
 //     argument), element lane + 32 i, so a warp's loads are coalesced and
 //     the row is read from device memory exactly once;
@@ -21,13 +30,14 @@
 //     reductions are warp shuffles and then a sum of the 8 warps' partials
 //     through shared memory; the row is still read once;
 //   - C > 8192: one 256-thread block per row striding over the row in
-//     device memory, which it reads three times (mean, centred squares,
-//     output; the re-reads of one row hit L2).
-// All three make two passes, the mean and then the mean of the centred
+//     device memory, which K6a reads three times (mean, centred squares,
+//     output) and K6b twice (the two row means, dx); the re-reads of one
+//     row hit L2.
+// K6a makes two passes, the mean and then the mean of the centred
 // squares, as the TPU kernel computes them (not E[x^2] - mu^2, which
-// cancels when |mu| >> std), all in fp32.  The TPU kernel needs C % 128
-// == 0 (Mosaic's lane tiling) and broadcasts mu and rstd over 128 lanes;
-// here they are one fp32 per row.
+// cancels when |mu| >> std); K6b's two row means are one pass.  All in
+// fp32.  The TPU kernels need C % 128 == 0 (Mosaic's lane tiling) and
+// broadcast mu and rstd over 128 lanes; here they are one fp32 per row.
 #include <cmath>
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -196,6 +206,180 @@ __global__ void __launch_bounds__(kBlock)
   }
 }
 
+// K6b, one warp per row (C <= kWarpMaxCols)
+template <typename T, int VPT>
+__global__ void layernorm_bwd_kernel(const T* __restrict__ x,
+                                     const T* __restrict__ dout,
+                                     const float* __restrict__ gamma,
+                                     const float* __restrict__ mu,
+                                     const float* __restrict__ rstd,
+                                     T* __restrict__ dx, int64_t rows,
+                                     int cols) {
+  const int lane = threadIdx.x % kWarp;
+  const int64_t row =
+      (int64_t)blockIdx.x * kRowsPerBlock + threadIdx.x / kWarp;
+  if (row >= rows) return;
+  const T* xr = x + row * cols;
+  const T* dr = dout + row * cols;
+  const float m = mu[row], rs = rstd[row];
+
+  float xh[VPT], g[VPT];
+  float s1 = 0.0f, s2 = 0.0f;
+#pragma unroll
+  for (int i = 0; i < VPT; ++i) {
+    const int j = lane + kWarp * i;
+    xh[i] = g[i] = 0.0f;
+    if (j < cols) {
+      xh[i] = (to_float(xr[j]) - m) * rs;
+      g[i] = to_float(dr[j]) * gamma[j];
+      s1 += g[i];
+      s2 += g[i] * xh[i];
+    }
+  }
+  const float c1 = warp_sum(s1) / (float)cols;
+  const float c2 = warp_sum(s2) / (float)cols;
+
+  T* dxr = dx + row * cols;
+#pragma unroll
+  for (int i = 0; i < VPT; ++i) {
+    const int j = lane + kWarp * i;
+    if (j < cols) store(dxr + j, rs * (g[i] - c1 - xh[i] * c2));
+  }
+}
+
+// K6b, one block per row, VPT values per thread in registers
+template <typename T, int VPT>
+__global__ void __launch_bounds__(kBlock)
+    layernorm_bwd_row_kernel(const T* __restrict__ x,
+                             const T* __restrict__ dout,
+                             const float* __restrict__ gamma,
+                             const float* __restrict__ mu,
+                             const float* __restrict__ rstd,
+                             T* __restrict__ dx, int cols) {
+  __shared__ float red[2][kBlockWarps];
+  const int tid = threadIdx.x;
+  const int64_t row = blockIdx.x;
+  const T* xr = x + row * cols;
+  const T* dr = dout + row * cols;
+  const float m = mu[row], rs = rstd[row];
+
+  float xh[VPT], g[VPT];
+  float s1 = 0.0f, s2 = 0.0f;
+#pragma unroll
+  for (int i = 0; i < VPT; ++i) {
+    const int j = tid + kBlock * i;
+    xh[i] = g[i] = 0.0f;
+    if (j < cols) {
+      xh[i] = (to_float(xr[j]) - m) * rs;
+      g[i] = to_float(dr[j]) * gamma[j];
+      s1 += g[i];
+      s2 += g[i] * xh[i];
+    }
+  }
+  const float c1 = block_sum(s1, red[0]) / (float)cols;
+  const float c2 = block_sum(s2, red[1]) / (float)cols;
+
+  T* dxr = dx + row * cols;
+#pragma unroll
+  for (int i = 0; i < VPT; ++i) {
+    const int j = tid + kBlock * i;
+    if (j < cols) store(dxr + j, rs * (g[i] - c1 - xh[i] * c2));
+  }
+}
+
+// K6b, one block per row of any width, striding over it in device memory
+template <typename T>
+__global__ void __launch_bounds__(kBlock)
+    layernorm_bwd_wide_kernel(const T* __restrict__ x,
+                              const T* __restrict__ dout,
+                              const float* __restrict__ gamma,
+                              const float* __restrict__ mu,
+                              const float* __restrict__ rstd,
+                              T* __restrict__ dx, int cols) {
+  __shared__ float red[2][kBlockWarps];
+  const int tid = threadIdx.x;
+  const int64_t row = blockIdx.x;
+  const T* xr = x + row * cols;
+  const T* dr = dout + row * cols;
+  const float m = mu[row], rs = rstd[row];
+
+  float s1 = 0.0f, s2 = 0.0f;
+  for (int j = tid; j < cols; j += kBlock) {
+    const float xh = (to_float(xr[j]) - m) * rs;
+    const float g = to_float(dr[j]) * gamma[j];
+    s1 += g;
+    s2 += g * xh;
+  }
+  const float c1 = block_sum(s1, red[0]) / (float)cols;
+  const float c2 = block_sum(s2, red[1]) / (float)cols;
+
+  T* dxr = dx + row * cols;
+  for (int j = tid; j < cols; j += kBlock) {
+    const float xh = (to_float(xr[j]) - m) * rs;
+    const float g = to_float(dr[j]) * gamma[j];
+    store(dxr + j, rs * (g - c1 - xh * c2));
+  }
+}
+
+// The backward's launches, by the same three layouts as the forward's.
+template <typename T>
+struct Bwd {
+  const void *x, *dout;
+  const float *gamma, *mu, *rstd;
+  void* dx;
+  int64_t rows;
+  int cols;
+  cudaStream_t st;
+
+  template <int VPT>
+  void warp_rows() const {
+    const int64_t blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
+    layernorm_bwd_kernel<T, VPT><<<(unsigned)blocks, kRowsPerBlock * kWarp,
+                                   0, st>>>(
+        static_cast<const T*>(x), static_cast<const T*>(dout), gamma, mu,
+        rstd, static_cast<T*>(dx), rows, cols);
+  }
+  template <int VPT>
+  void block_rows() const {
+    layernorm_bwd_row_kernel<T, VPT><<<(unsigned)rows, kBlock, 0, st>>>(
+        static_cast<const T*>(x), static_cast<const T*>(dout), gamma, mu,
+        rstd, static_cast<T*>(dx), cols);
+  }
+  void run() const {
+    if (cols > kBlock * kBlockMaxVpt) {
+      layernorm_bwd_wide_kernel<T><<<(unsigned)rows, kBlock, 0, st>>>(
+          static_cast<const T*>(x), static_cast<const T*>(dout), gamma, mu,
+          rstd, static_cast<T*>(dx), cols);
+      return;
+    }
+    if (cols > kWarpMaxCols) {
+      const int vpt = (cols + kBlock - 1) / kBlock;
+      if (vpt <= 8)
+        block_rows<8>();
+      else if (vpt <= 16)
+        block_rows<16>();
+      else
+        block_rows<kBlockMaxVpt>();
+      return;
+    }
+    const int vpt = (cols + kWarp - 1) / kWarp;
+    if (vpt <= 1)
+      warp_rows<1>();
+    else if (vpt <= 2)
+      warp_rows<2>();
+    else if (vpt <= 4)
+      warp_rows<4>();
+    else if (vpt <= 8)
+      warp_rows<8>();
+    else if (vpt <= 16)
+      warp_rows<16>();
+    else if (vpt <= 24)
+      warp_rows<24>();
+    else
+      warp_rows<32>();
+  }
+};
+
 template <typename T, int VPT>
 void launch_rows(const void* x, const float* g, const float* b, void* o,
                  float* mu, float* rs, int64_t rows, int cols, float eps,
@@ -270,6 +454,28 @@ extern "C" int mxtt_layernorm_fwd(const void* x, const float* gamma,
     else if (dtype == 1)
       launch_cols<__nv_bfloat16>(x, gamma, beta, o, mu, rstd, rows, cols, eps,
                                  st);
+    else
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// K6b.  x, do, dx: contiguous (rows, cols) in dtype 0 = fp32 or 1 = bf16,
+// cols >= 1, rows < 2^31 when cols > 1024; gamma: fp32 (cols,); mu, rstd:
+// fp32 (rows,), as K6a wrote them.  Returns cudaGetLastError() after the
+// launch.
+extern "C" int mxtt_layernorm_bwd(const void* x, const void* dout,
+                                  const float* gamma, const float* mu,
+                                  const float* rstd, void* dx, int64_t rows,
+                                  int cols, int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (cols < 1 || (cols > kWarpMaxCols && rows >= (int64_t(1) << 31)))
+    return (int)cudaErrorInvalidValue;
+  if (rows > 0) {
+    if (dtype == 0)
+      Bwd<float>{x, dout, gamma, mu, rstd, dx, rows, cols, st}.run();
+    else if (dtype == 1)
+      Bwd<__nv_bfloat16>{x, dout, gamma, mu, rstd, dx, rows, cols, st}.run();
     else
       return (int)cudaErrorInvalidValue;
   }

@@ -27,11 +27,18 @@ Ported so far (the K numbers of the kernel table in PERF.md):
   ``csrc/optimizer_sweep.cu``);
 - K6a ``layernorm_fwd`` <- ``_layernorm_fwd_kernel``: the LayerNorm op
   over the last axis, saving mu and rstd per row;
+- K6b ``layernorm_bwd`` <- ``_layernorm_bwd_kernel``: its dx, from the
+  mu and rstd K6a saved;
 - K7a ``flash_attention_fwd`` <- ``_flash_fwd_kernel``: online-softmax
   attention over (batch*heads, T, D), with the row logsumexp;
+- K7b ``flash_attention_bwd_dq`` <- ``_flash_bwd_dq_kernel`` and K7c
+  ``flash_attention_bwd_dkv`` <- ``_flash_bwd_dkv_kernel``: its dq, and
+  its dk and dv (all three in ``csrc/flash_attention.cu``);
 - K5a ``bias_softmax`` <- ``_softmax_bias_fwd_kernel``: ``softmax(x +
   bias)`` with an (R, C) bias shared over x's leading dim, the masked
-  attention of ``local_attention`` (in ``csrc/softmax.cu`` beside K2).
+  attention of ``local_attention``, and K5b ``softmax_bwd`` <-
+  ``_softmax_bwd_kernel``: the backward of K2 and K5a (both in
+  ``csrc/softmax.cu`` beside K2).
 
 ``family_enabled`` resolves the JAX package's tri-state ``MXNET_PALLAS_*``
 knobs: ``auto`` turns a family on for tensors on the GPU, ``1`` forces it
@@ -52,16 +59,21 @@ __all__ = ["scale_bias_relu", "scale_bias_relu_ref", "softmax_lastaxis",
            "softmax_lastaxis_ref", "sgd_sweep", "sgd_sweep_ref",
            "sgd_mom_sweep", "sgd_mom_sweep_ref", "adam_sweep",
            "adam_sweep_ref", "layernorm_fwd", "layernorm_fwd_ref",
-           "flash_attention_fwd",
-           "flash_attention_fwd_ref", "bias_softmax", "bias_softmax_ref",
-           "NEG_INF", "kernel_calls", "reset_kernel_calls", "family_enabled"]
+           "layernorm_bwd", "layernorm_bwd_ref", "flash_attention_fwd",
+           "flash_attention_fwd_ref", "flash_attention_bwd_dq",
+           "flash_attention_bwd_dq_ref", "flash_attention_bwd_dkv",
+           "flash_attention_bwd_dkv_ref", "bias_softmax", "bias_softmax_ref",
+           "softmax_bwd", "softmax_bwd_ref", "NEG_INF", "FLASH_MAX_HEAD_DIM",
+           "kernel_calls", "reset_kernel_calls", "family_enabled"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _COUNT_LOCK = threading.Lock()
 _CALLS = {"scale_bias_relu": 0, "softmax_lastaxis": 0,  # guarded-by: _COUNT_LOCK
           "sgd_sweep": 0, "sgd_mom_sweep": 0, "adam_sweep": 0,
-          "layernorm_fwd": 0, "flash_attention_fwd": 0, "bias_softmax": 0}
+          "layernorm_fwd": 0, "layernorm_bwd": 0, "flash_attention_fwd": 0,
+          "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+          "bias_softmax": 0, "softmax_bwd": 0}
 
 # the masked-logit value of the attention kernels (pallas_kernels.NEG_INF):
 # finite, so a masked column's exp underflows to exactly 0
@@ -388,9 +400,112 @@ def layernorm_fwd(x, gamma, beta, eps=1e-5):
 
 
 # ---------------------------------------------------------------------------
-# K7a: flash-attention forward
+# K6b: LayerNorm backward (dx)
 # ---------------------------------------------------------------------------
-FLASH_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)
+def layernorm_bwd_ref(x, do, gamma, mu, rstd):
+    """Plain version of K6b over the last axis, in fp32: ``xhat = (x -
+    mu) * rstd``, ``dxh = do * gamma``, ``dx = rstd * (dxh - mean(dxh) -
+    xhat * mean(dxh * xhat))`` in x's dtype."""
+    rs = rstd.unsqueeze(-1)
+    xhat = (x.float() - mu.unsqueeze(-1)) * rs
+    dxh = do.float() * gamma
+    c1 = dxh.mean(dim=-1, keepdim=True)
+    c2 = (dxh * xhat).mean(dim=-1, keepdim=True)
+    return (rs * (dxh - c1 - xhat * c2)).to(x.dtype)
+
+
+def layernorm_bwd(x, do, gamma, mu, rstd):
+    """K6b: the dx of K6a's LayerNorm over the last axis, from x and do
+    (float32 or bfloat16, one shape and dtype), float32 (C,) ``gamma``
+    and the fp32 ``mu`` and ``rstd`` of shape ``x.shape[:-1]`` that
+    :func:`layernorm_fwd` returned.  Returns dx in x's dtype and shape;
+    dgamma and dbeta are the caller's plain reductions."""
+    if x.dim() < 1 or do.shape != x.shape or do.dtype != x.dtype \
+            or do.device != x.device:
+        raise MXNetError("layernorm_bwd: do must match x in shape, dtype "
+                         "and device, got %s %s and %s %s"
+                         % (tuple(x.shape), x.dtype, tuple(do.shape),
+                            do.dtype))
+    c = x.shape[-1]
+    if gamma.shape != (c,) or gamma.dtype != torch.float32 \
+            or gamma.device != x.device:
+        raise MXNetError("layernorm_bwd: gamma must be float32 of shape "
+                         "(%d,) on %s, got %s %s" % (c, x.device, gamma.dtype,
+                                                     tuple(gamma.shape)))
+    for nm, t in (("mu", mu), ("rstd", rstd)):
+        if t.shape != x.shape[:-1] or t.dtype != torch.float32 \
+                or t.device != x.device:
+            raise MXNetError("layernorm_bwd: %s must be float32 of shape %s "
+                             "on %s (one per row), got %s %s"
+                             % (nm, tuple(x.shape[:-1]), x.device, t.dtype,
+                                tuple(t.shape)))
+    if x.device.type != "cuda":
+        return layernorm_bwd_ref(x, do, gamma, mu, rstd)
+    rows = x.numel() // c if c else 0
+    if c < 1 or (c > 1024 and rows >= 2 ** 31):
+        raise MXNetError("layernorm_bwd: the CUDA kernel takes C >= 1 and, "
+                         "for C > 1024, fewer than 2**31 rows; got %s"
+                         % (tuple(x.shape),))
+    for nm, t in (("x", x), ("do", do), ("mu", mu), ("rstd", rstd)):
+        _check_cuda("layernorm_bwd (%s)" % nm, t)
+    gamma = gamma.contiguous()
+    dx = torch.empty_like(x)
+    fn = _bind("layernorm", "mxtt_layernorm_bwd",
+               [ctypes.c_void_p] * 6 + [ctypes.c_int64, ctypes.c_int,
+                                        ctypes.c_int, ctypes.c_void_p])
+    _launch("layernorm_bwd", fn, x.device, x.data_ptr(), do.data_ptr(),
+            gamma.data_ptr(), mu.data_ptr(), rstd.data_ptr(), dx.data_ptr(),
+            rows, c, _DTYPE_CODE[x.dtype])
+    return dx
+
+
+# ---------------------------------------------------------------------------
+# K7a, K7b, K7c: flash attention, forward and backward
+# ---------------------------------------------------------------------------
+FLASH_MAX_HEAD_DIM = 256    # the widest instance of csrc/flash_attention.cu
+_FLASH_MAX_T = 65535 * 32   # 32-row tiles on the grid's second axis
+
+
+def _flash_check(name, q, k, v, rows=()):
+    """Shapes, dtypes and devices of a flash call: q ``(BH, Tq, D)``, k and
+    v ``(BH, Tk, D)``, and ``rows``, ``(label, tensor, want)`` triples
+    that must equal ``want`` (``"q"`` for q's shape and dtype, ``"lse"``
+    for fp32 ``(BH, Tq)``)."""
+    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3 \
+            or k.shape != v.shape or q.shape[0] != k.shape[0] \
+            or q.shape[2] != k.shape[2]:
+        raise MXNetError("%s: q must be (BH, Tq, D) and k, v (BH, Tk, D), "
+                         "got %s, %s, %s" % (name, tuple(q.shape),
+                                             tuple(k.shape), tuple(v.shape)))
+    for t in (k, v):
+        if t.dtype != q.dtype or t.device != q.device:
+            raise MXNetError("%s: q, k and v must share dtype and device, "
+                             "got %s/%s and %s/%s" % (name, q.dtype, q.device,
+                                                      t.dtype, t.device))
+    for label, t, want in rows:
+        shape, dtype = (q.shape, q.dtype) if want == "q" \
+            else (q.shape[:2], torch.float32)
+        if t.shape != shape or t.dtype != dtype or t.device != q.device:
+            raise MXNetError("%s: %s must be %s of shape %s on %s, got %s %s "
+                             "on %s" % (name, label, dtype, tuple(shape),
+                                        q.device, t.dtype, tuple(t.shape),
+                                        t.device))
+
+
+def _flash_cuda_check(name, q, k, tensors):
+    """What the CUDA kernels take: 1 <= D <= FLASH_MAX_HEAD_DIM, 1 <= T
+    <= 65535 * 32, BH < 2**31, contiguous tensors."""
+    bh, tq, d = q.shape
+    tk = k.shape[1]
+    if not 1 <= d <= FLASH_MAX_HEAD_DIM:
+        raise MXNetError("%s: the CUDA kernel takes head dims 1 to %d, got "
+                         "%d" % (name, FLASH_MAX_HEAD_DIM, d))
+    if min(bh, tq, tk) < 1 or max(tq, tk) > _FLASH_MAX_T or bh >= 2 ** 31:
+        raise MXNetError("%s: the CUDA kernel takes 1 <= Tq, Tk <= %d and 1 "
+                         "<= BH < 2**31, got %s and Tk %d"
+                         % (name, _FLASH_MAX_T, tuple(q.shape), tk))
+    for nm, t in tensors:
+        _check_cuda("%s (%s)" % (name, nm), t)
 
 
 def flash_attention_fwd_ref(q, k, v, causal=False, scale=None):
@@ -416,34 +531,17 @@ def flash_attention_fwd_ref(q, k, v, causal=False, scale=None):
 def flash_attention_fwd(q, k, v, causal=False, scale=None):
     """K7a: attention over float32 or bfloat16 ``(BH, T, D)`` tensors,
     batch and heads folded into the leading dim (q ``(BH, Tq, D)``, k and
-    v ``(BH, Tk, D)``), ``D`` a multiple of 16 up to 128, ``scale`` default
-    ``1/sqrt(D)``.  A causal mask keeps ``qpos >= kpos`` with both
+    v ``(BH, Tk, D)``), any ``D`` up to ``FLASH_MAX_HEAD_DIM``, ``scale``
+    default ``1/sqrt(D)``.  A causal mask keeps ``qpos >= kpos`` with both
     counted from 0.  Returns ``(o, lse)``: o ``(BH, Tq, D)`` in q's
-    dtype, lse the fp32 ``(BH, Tq)`` row logsumexp."""
-    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3 \
-            or k.shape != v.shape or q.shape[0] != k.shape[0] \
-            or q.shape[2] != k.shape[2]:
-        raise MXNetError("flash_attention_fwd: q must be (BH, Tq, D) and k, "
-                         "v (BH, Tk, D), got %s, %s, %s"
-                         % (tuple(q.shape), tuple(k.shape), tuple(v.shape)))
-    for t in (k, v):
-        if t.dtype != q.dtype or t.device != q.device:
-            raise MXNetError("flash_attention_fwd: q, k and v must share "
-                             "dtype and device, got %s/%s and %s/%s"
-                             % (q.dtype, q.device, t.dtype, t.device))
+    dtype, lse the fp32 ``(BH, Tq)`` row logsumexp (what the backward
+    reads)."""
+    _flash_check("flash_attention_fwd", q, k, v)
     if q.device.type != "cuda":
         return flash_attention_fwd_ref(q, k, v, causal, scale)
+    _flash_cuda_check("flash_attention_fwd", q, k,
+                      (("q", q), ("k", k), ("v", v)))
     bh, tq, d = q.shape
-    tk = k.shape[1]
-    if d not in FLASH_HEAD_DIMS:
-        raise MXNetError("flash_attention_fwd: the CUDA kernel takes head "
-                         "dims %s, got %d" % (FLASH_HEAD_DIMS, d))
-    if min(bh, tq, tk) < 1 or tq > 65535 * 64 or bh >= 2 ** 31:
-        raise MXNetError("flash_attention_fwd: the CUDA kernel takes 1 <= "
-                         "Tq <= %d, Tk >= 1 and 1 <= BH < 2**31, got %s and "
-                         "Tk %d" % (65535 * 64, tuple(q.shape), tk))
-    for nm, t in (("q", q), ("k", k), ("v", v)):
-        _check_cuda("flash_attention_fwd (%s)" % nm, t)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     o = torch.empty_like(q)
     lse = torch.empty((bh, tq), dtype=torch.float32, device=q.device)
@@ -452,9 +550,111 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None):
                + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                   ctypes.c_void_p])
     _launch("flash_attention_fwd", fn, q.device, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), o.data_ptr(), lse.data_ptr(), bh, tq, tk, d,
-            float(scale), int(bool(causal)), _DTYPE_CODE[q.dtype])
+            v.data_ptr(), o.data_ptr(), lse.data_ptr(), bh, tq, k.shape[1],
+            d, float(scale), int(bool(causal)), _DTYPE_CODE[q.dtype])
     return o, lse
+
+
+def _flash_bwd_p_ds(q, k, v, do, lse, delta, causal, scale):
+    """The backward's recomputed probabilities and score gradients, fp32
+    ``(BH, Tq, Tk)``, as the TPU kernels form them: ``s = (q k^T) *
+    scale`` masked to ``NEG_INF``, ``p = exp(s - lse)``, ``dp = do v^T``,
+    ``ds = (p * (dp - delta)) * scale``."""
+    d = q.shape[-1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    s = torch.matmul(q.float(), k.float().transpose(1, 2)) * scale
+    if causal:
+        qpos = torch.arange(q.shape[1], device=q.device)
+        kpos = torch.arange(k.shape[1], device=q.device)
+        s = s.masked_fill(~(qpos[:, None] >= kpos[None, :]), NEG_INF)
+    p = torch.exp(s - lse.unsqueeze(-1))
+    dp = torch.matmul(do.float(), v.float().transpose(1, 2))
+    return p, (p * (dp - delta.unsqueeze(-1))) * scale
+
+
+def _rounded(t, dtype):
+    """``t`` rounded to ``dtype`` and back to fp32: the TPU kernels'
+    ``.astype`` of p and ds before a product, a no-op in fp32."""
+    return t if dtype == torch.float32 else t.to(dtype).float()
+
+
+def flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, causal=False,
+                               scale=None):
+    """Plain version of K7b: ``dq = ds k`` in fp32, with ds rounded to k's
+    dtype first; dq in q's dtype."""
+    _, ds = _flash_bwd_p_ds(q, k, v, do, lse, delta, causal, scale)
+    return torch.matmul(_rounded(ds, k.dtype), k.float()).to(q.dtype)
+
+
+def flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta, causal=False,
+                                scale=None):
+    """Plain version of K7c: ``dk = ds^T q`` and ``dv = p^T do`` in fp32,
+    with p and ds rounded to the inputs' dtype first; both in k's
+    dtype."""
+    p, ds = _flash_bwd_p_ds(q, k, v, do, lse, delta, causal, scale)
+    dk = torch.matmul(_rounded(ds, q.dtype).transpose(1, 2), q.float())
+    dv = torch.matmul(_rounded(p, q.dtype).transpose(1, 2), do.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _flash_bwd_on_card(name, q, k, v, do, lse, delta):
+    """Check a backward call's operands; whether they lie on the card
+    (else the caller takes the plain version)."""
+    _flash_check(name, q, k, v, (("do", do, "q"), ("lse", lse, "lse"),
+                                 ("delta", delta, "lse")))
+    if q.device.type != "cuda":
+        return False
+    _flash_cuda_check(name, q, k, (("q", q), ("k", k), ("v", v), ("do", do),
+                                   ("lse", lse), ("delta", delta)))
+    return True
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=False,
+                           scale=None):
+    """K7b: the dq of K7a's attention, from q, k, v, the output's
+    gradient ``do`` (q's shape and dtype), K7a's fp32 ``lse`` and ``delta
+    = sum(do * o)`` per query row (fp32 ``(BH, Tq)``).  Returns dq in q's
+    dtype."""
+    if not _flash_bwd_on_card("flash_attention_bwd_dq", q, k, v, do, lse,
+                              delta):
+        return flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, causal,
+                                          scale)
+    bh, tq, d = q.shape
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    dq = torch.empty_like(q)
+    fn = _bind("flash_attention", "mxtt_flash_attention_bwd_dq",
+               [ctypes.c_void_p] * 7 + [ctypes.c_int64] + [ctypes.c_int] * 3
+               + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                  ctypes.c_void_p])
+    _launch("flash_attention_bwd_dq", fn, q.device, q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), bh, tq, k.shape[1], d,
+            float(scale), int(bool(causal)), _DTYPE_CODE[q.dtype])
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=False,
+                            scale=None):
+    """K7c: the dk and dv of K7a's attention, from the operands of
+    :func:`flash_attention_bwd_dq`.  Returns ``(dk, dv)`` in k's
+    dtype."""
+    if not _flash_bwd_on_card("flash_attention_bwd_dkv", q, k, v, do, lse,
+                              delta):
+        return flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta, causal,
+                                           scale)
+    bh, tq, d = q.shape
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    fn = _bind("flash_attention", "mxtt_flash_attention_bwd_dkv",
+               [ctypes.c_void_p] * 8 + [ctypes.c_int64] + [ctypes.c_int] * 3
+               + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                  ctypes.c_void_p])
+    _launch("flash_attention_bwd_dkv", fn, q.device, q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, tq,
+            k.shape[1], d, float(scale), int(bool(causal)),
+            _DTYPE_CODE[q.dtype])
+    return dk, dv
 
 
 # ---------------------------------------------------------------------------
@@ -493,3 +693,39 @@ def bias_softmax(x, bias):
             y.data_ptr(), x.numel() // c if c else 0, r, c,
             _DTYPE_CODE[x.dtype])
     return y
+
+
+# ---------------------------------------------------------------------------
+# K5b: the backward of the last-axis softmax (K2, K5a)
+# ---------------------------------------------------------------------------
+def softmax_bwd_ref(p, do):
+    """Plain version of K5b: ``dx = p * (do - sum(p * do))`` over the last
+    axis, in fp32, output in p's dtype."""
+    pf, gf = p.float(), do.float()
+    return (pf * (gf - (pf * gf).sum(dim=-1, keepdim=True))).to(p.dtype)
+
+
+def softmax_bwd(p, do):
+    """K5b: the input gradient of a last-axis softmax from its output
+    ``p`` and the output's gradient ``do`` (float32 or bfloat16, one
+    shape and dtype, any shape; rows = the product of the leading dims).
+    The row dot runs in fp32; dx comes back in p's dtype."""
+    if p.dim() < 1 or do.shape != p.shape or do.dtype != p.dtype \
+            or do.device != p.device:
+        raise MXNetError("softmax_bwd: p and do must share shape, dtype and "
+                         "device, got %s %s and %s %s"
+                         % (tuple(p.shape), p.dtype, tuple(do.shape),
+                            do.dtype))
+    if p.device.type != "cuda":
+        return softmax_bwd_ref(p, do)
+    _check_cuda("softmax_bwd (p)", p)
+    _check_cuda("softmax_bwd (do)", do)
+    dx = torch.empty_like(p)
+    cols = p.shape[-1]
+    fn = _bind("softmax", "mxtt_softmax_bwd",
+               [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 2
+               + [ctypes.c_int, ctypes.c_void_p])
+    _launch("softmax_bwd", fn, p.device, p.data_ptr(), do.data_ptr(),
+            dx.data_ptr(), p.numel() // cols if cols else 0, cols,
+            _DTYPE_CODE[p.dtype])
+    return dx

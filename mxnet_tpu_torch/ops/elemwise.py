@@ -1,7 +1,7 @@
 """Element-wise operators (counterpart of ``mxnet_tpu/ops/elemwise.py``;
 this package carries the arithmetic that ``Symbol.__add__`` and NDArray's
 operators emit: the binary ops, which broadcast as in the JAX package,
-and their scalar forms)."""
+their scalar forms, and the unary ops the gluon losses call)."""
 from __future__ import annotations
 
 import torch
@@ -47,3 +47,18 @@ _scalar_op("_rdiv_scalar", lambda x, s: s / x, aliases=("_RDivScalar",))
 _scalar_op("_power_scalar", torch.pow, aliases=("_PowerScalar",))
 _scalar_op("_rpower_scalar", lambda x, s: torch.pow(s, x),
            aliases=("_RPowerScalar",))
+
+
+def _unary(name, f):
+    @register(name)
+    def _op(x, **attrs):
+        return f(x)
+    _op.__name__ = name
+    return _op
+
+
+_unary("negative", torch.neg)
+_unary("abs", torch.abs)
+_unary("square", torch.square)
+_unary("exp", torch.exp)
+_unary("log", torch.log)

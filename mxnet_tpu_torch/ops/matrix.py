@@ -1,6 +1,6 @@
 """Shape and indexing operators (counterpart of ``mxnet_tpu/ops/matrix.py``;
 this package carries Flatten, Reshape with MXNet's codes, expand_dims,
-slice_like and Embedding)."""
+slice_like, Embedding and pick)."""
 from __future__ import annotations
 
 import torch
@@ -93,3 +93,25 @@ def _embedding(data, weight, input_dim=None, output_dim=None,
     arrive as float32, as in the reference, and are cast to integers;
     an out-of-range id raises."""
     return F.embedding(data.to(torch.int64), weight)
+
+
+@register("pick", params=[
+    P("axis", int, default=-1),
+    P("keepdims", bool, default=False),
+    P("mode", ("clip", "wrap"), default="clip")])
+def _pick(data, index, axis=-1, keepdims=False, mode="clip", **attrs):
+    """Reference: broadcast_reduce_op_index.cc pick, as the JAX package
+    computes it: one element of ``data`` along ``axis`` per position of
+    ``index`` (ids may arrive as float32); out-of-range ids clip or wrap,
+    and ``axis=None`` picks from the flattened input."""
+    idx = index.to(torch.int64)
+    if axis is None:
+        flat = data.reshape(-1)
+        n = flat.shape[0]
+        idx = idx % n if mode == "wrap" else idx.clamp(0, n - 1)
+        out = flat[idx]
+        return out.unsqueeze(-1) if keepdims else out
+    dim = data.shape[axis]
+    idx = idx % dim if mode == "wrap" else idx.clamp(0, dim - 1)
+    out = torch.gather(data, axis, idx.unsqueeze(axis))
+    return out if keepdims else out.squeeze(axis)

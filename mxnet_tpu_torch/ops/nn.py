@@ -1,19 +1,22 @@
 """Neural-network operators of a ResNet (NCHW) and a transformer.
 
 Counterpart of ``mxnet_tpu/ops/nn.py`` for the ops a ResNet forward and
-backward and a transformer forward run: Convolution (``F.conv2d``, OIHW
-weights as in MXNet), FullyConnected (``F.linear``), Activation, Pooling
-and BatchNorm (eval and training mode), LayerNorm (through the K6a CUDA
-kernel over the last axis when ``MXNET_PALLAS_NORM`` is on) and Dropout
-(predict mode), plus ``fused_bn_relu_eval``, the inference BatchNorm ->
-ReLU epilogue that the executor's peephole routes through the K3 CUDA
-kernel.  Backward passes are PyTorch's autograd of these expressions.
+backward and a transformer forward and backward run: Convolution
+(``F.conv2d``, OIHW weights as in MXNet), FullyConnected (``F.linear``),
+Activation, Pooling, BatchNorm (eval and training mode), LayerNorm
+(through the K6a and K6b CUDA kernels over the last axis when
+``MXNET_PALLAS_NORM`` is on), ``log_softmax`` and Dropout, plus
+``fused_bn_relu_eval``, the inference BatchNorm -> ReLU epilogue that the
+executor's peephole routes through the K3 CUDA kernel.  Backward passes
+are PyTorch's autograd of these expressions, and K6b for the kernel
+LayerNorm.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from .. import random as _random
 from ..base import MXNetError
 from . import cuda_kernels as ck
 from .registry import Param as P, normalize_tuple, register
@@ -157,7 +160,41 @@ def _batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
     return out.to(data.dtype), new_mean, new_var
 
 
+# -- softmax family ---------------------------------------------------------
+@register("log_softmax", params=[P("axis", int, default=-1)])
+def _log_softmax(data, axis=-1, temperature=None, **attrs):
+    """Reference: src/operator/nn/softmax-inl.h log_softmax."""
+    if temperature:
+        data = data / temperature
+    return torch.log_softmax(data, dim=axis)
+
+
 # -- LayerNorm --------------------------------------------------------------
+class _KernelLayerNorm(torch.autograd.Function):
+    """LayerNorm over the last axis through the kernels: the forward is
+    K6a, the backward's dx K6b from what ``_fused_layernorm_fwd_rule``
+    keeps (x, gamma, mu, rstd), dgamma and dbeta plain reductions."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps):
+        o, mu, rstd = ck.layernorm_fwd(x, gamma, beta, eps)
+        ctx.save_for_backward(x, gamma, mu, rstd)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        x, gamma, mu, rstd = ctx.saved_tensors
+        do = do.contiguous()
+        dx = ck.layernorm_bwd(x, do, gamma, mu, rstd) \
+            if ctx.needs_input_grad[0] else None
+        c = x.shape[-1]
+        xhat = (x.float() - mu.unsqueeze(-1)) * rstd.unsqueeze(-1)
+        do32 = do.float()
+        dgamma = (do32 * xhat).reshape(-1, c).sum(dim=0).to(gamma.dtype)
+        dbeta = do32.reshape(-1, c).sum(dim=0).to(gamma.dtype)
+        return dx, dgamma, dbeta, None
+
+
 @register("LayerNorm", params=[
     P("axis", int, default=-1),
     P("eps", float, default=1e-5, low=0.0),
@@ -169,13 +206,14 @@ def _layer_norm(data, gamma, beta, axis=-1, eps=1e-5, output_mean_var=False,
     Over the last axis, with ``MXNET_PALLAS_NORM`` on (``auto``: for
     CUDA tensors), the norm is one K6a pass at any width
     (``cuda_kernels.layernorm_fwd``: mean, variance of the centred
-    values, normalise and affine, stats in fp32); other axes and the
-    knob at 0 keep the plain reduction chain, as in the JAX package."""
+    values, normalise and affine, stats in fp32) and its backward one K6b
+    pass; other axes and the knob at 0 keep the plain reduction chain,
+    differentiated by autograd, as in the JAX package."""
     nd = data.dim()
     if (axis % nd == nd - 1 and nd >= 2
             and ck.family_enabled("MXNET_PALLAS_NORM", data.device)):
-        return ck.layernorm_fwd(data.contiguous(), gamma.float(),
-                                beta.float(), float(eps))[0]
+        return _KernelLayerNorm.apply(data.contiguous(), gamma.float(),
+                                      beta.float(), float(eps))
     mean = data.mean(dim=axis, keepdim=True)
     var = data.var(dim=axis, keepdim=True, correction=0)
     out = (data - mean) * torch.rsqrt(var + eps)
@@ -192,15 +230,23 @@ def _layer_norm(data, gamma, beta, axis=-1, eps=1e-5, output_mean_var=False,
     P("axes", tuple, default=(), low=0)])
 def _dropout(data, p=0.5, mode="training", axes=(), __is_train__=False,
              **attrs):
-    """Reference: src/operator/nn/dropout-inl.h (inverted dropout).  The
-    identity in predict mode or at p = 0; dropping units comes with the
-    training slice, so train mode (or ``mode="always"``) with p > 0
-    raises."""
-    if (not __is_train__ and mode != "always") or p == 0:
+    """Reference: src/operator/nn/dropout-inl.h (inverted dropout), as
+    the JAX package computes it: in training mode (or ``mode="always"``)
+    each unit is kept with probability ``1 - p`` and scaled by ``1 / (1 -
+    p)``, the mask shared along ``axes``; the identity in predict mode or
+    at p = 0.  The mask comes from the device's ``torch.Generator``
+    (``random.py``), so it differs from the JAX package's threefry
+    stream."""
+    if (not __is_train__ and mode != "always") or p == 0 \
+            or data.device.type == "meta":
         return data
-    raise MXNetError("Dropout with p=%g in training mode is not ported yet "
-                     "(ROADMAP.md queue 1: the transformer training slice)"
-                     % p)
+    shape = list(data.shape)
+    for a in normalize_tuple(axes) if axes else ():
+        shape[a] = 1
+    keep = 1.0 - p
+    mask = torch.rand(shape, device=data.device,
+                      generator=_random.generator(data.device)) < keep
+    return torch.where(mask, data / keep, 0.0).to(data.dtype)
 
 
 def fused_bn_relu_eval(data, gamma, beta, moving_mean, moving_var,

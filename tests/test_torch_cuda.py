@@ -241,7 +241,9 @@ def _qkv(bh, tq, tk, d, dtype, device, seed=47):
                                         (2, 200, 200, 128), (4, 100, 72, 16),
                                         (1, 1024, 1024, 64), (2, 24, 40, 64),
                                         (2, 72, 72, 48), (2, 130, 130, 80),
-                                        (2, 128, 128, 96), (2, 64, 96, 112)])
+                                        (2, 128, 128, 96), (2, 64, 96, 112),
+                                        (2, 64, 64, 8), (2, 72, 72, 72),
+                                        (2, 40, 56, 200), (2, 33, 33, 256)])
 def test_k7a_kernel_matches_plain(cuda, bh, tq, tk, d, causal):
     q, k, v = _qkv(bh, tq, tk, d, torch.float32, cuda)
     before = ck.kernel_calls()["flash_attention_fwd"]
@@ -305,8 +307,8 @@ def test_transformer_kernels_raise_on_what_they_do_not_take(cuda):
                torch.zeros(8, device=cuda))
     with pytest.raises(MXNetError, match="float32"):
         ck.layernorm_fwd(x, g.double(), b)
-    q = torch.zeros(2, 8, 40, device=cuda)
-    with pytest.raises(MXNetError, match="head dims"):
+    q = torch.zeros(2, 8, ck.FLASH_MAX_HEAD_DIM + 1, device=cuda)
+    with pytest.raises(MXNetError, match="head dims 1 to 256"):
         ck.flash_attention_fwd(q, q, q)
     q = torch.zeros(2, 8, 64, device=cuda)
     with pytest.raises(MXNetError, match="contiguous"):
@@ -333,3 +335,222 @@ def test_layernorm_op_launches_k6a_at_every_width(cuda, c):
     assert ck.kernel_calls()["layernorm_fwd"] == 1
     ro = ck.layernorm_fwd_ref(x._data, g._data, b._data, 1e-5)[0]
     assert (y._data - ro).abs().max().item() <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# K6b / K7b / K7c / K5b: the transformer backward's kernels
+# ---------------------------------------------------------------------------
+def _rel_err(got, ref):
+    """max |got - ref| over the largest |ref|."""
+    return ((got.float() - ref.float()).abs().max()
+            / ref.float().abs().max().clamp_min(1e-30)).item()
+
+
+def _bf16_bwd_close(got, ref):
+    """bf16 backward: within one bf16 rounding of each element's
+    magnitude, plus one rounding of the largest magnitude for the p and
+    ds that round to the other side of a bf16 step inside the kernel
+    (both round the same fp32 values, which agree only within 1e-6)."""
+    got, ref = got.float(), ref.float()
+    mag = torch.maximum(got.abs(), ref.abs())
+    top = ref.abs().max().item()
+    return bool(((got - ref).abs() <= mag * 2.0 ** -7
+                 + top * 2.0 ** -7).all())
+
+
+# fp32: the kernel's two row means run in another order than torch's, so
+# dx agrees within 1e-5 of its largest magnitude; (8192, 768) is one
+# LayerNorm of the GPT-2-small training step; C 37, 768, 1000 and
+# 1024 take the warp-per-row layout, 1025-8192 the block-per-row one, 9000
+# and 10000 the striding one
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8192, 768), (3, 5, 37), (17, 1000),
+                                   (2, 1), (9, 1024), (5, 1025),
+                                   (3, 2048), (3, 8192), (2, 9000),
+                                   (4, 10000)])
+def test_k6b_kernel_matches_plain(cuda, shape, dtype):
+    rng = np.random.RandomState(60)
+    c = shape[-1]
+    x = torch.from_numpy((rng.randn(*shape) * 2 + 0.5).astype(np.float32))
+    do = torch.from_numpy(rng.randn(*shape).astype(np.float32))
+    g = torch.from_numpy((1 + 0.1 * rng.randn(c)).astype(np.float32))
+    x, do, g = x.to(cuda, dtype), do.to(cuda, dtype), g.to(cuda)
+    _, mu, rstd = ck.layernorm_fwd(x, g, torch.zeros_like(g), 1e-5)
+    before = ck.kernel_calls()["layernorm_bwd"]
+    dx = ck.layernorm_bwd(x, do, g, mu, rstd)
+    ref = ck.layernorm_bwd_ref(x, do, g, mu, rstd)
+    torch.cuda.synchronize()
+    assert ck.kernel_calls()["layernorm_bwd"] == before + 1
+    assert dx.dtype == dtype and dx.shape == x.shape
+    if dtype == torch.float32:
+        assert _rel_err(dx, ref) <= 1e-5
+    else:
+        assert _bf16_bwd_close(dx, ref)
+
+
+def _flash_bwd_case(bh, tq, tk, d, causal, dtype, device, seed=61):
+    q, k, v = _qkv(bh, tq, tk, d, dtype, device, seed)
+    o, lse = ck.flash_attention_fwd(q, k, v, causal)
+    do = torch.from_numpy(np.random.RandomState(seed + 1).randn(
+        bh, tq, d).astype(np.float32)).to(device, dtype)
+    delta = (do.float() * o.float()).sum(-1)
+    return q, k, v, do, lse, delta
+
+
+# fp32: the kernels sum over tiles of 64 (32 past D 128) keys or queries,
+# the plain version in one product, so dq, dk and dv agree within 1e-5 of
+# their largest magnitude; (96, 1024, 64) is one attention of the
+# GPT-2-small training step; T 7, 65 and 1020 leave ragged tiles, Tq !=
+# Tk runs both ways, D 8, 72, 200 and 256 take the padded widths
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("bh,tq,tk,d", [(3, 8, 8, 32), (2, 64, 64, 64),
+                                        (2, 7, 7, 16),
+                                        (2, 65, 65, 64), (2, 200, 200, 128),
+                                        (96, 1024, 1024, 64),
+                                        (1, 1020, 1020, 64), (2, 24, 40, 64),
+                                        (2, 100, 72, 16), (2, 72, 72, 72),
+                                        (2, 64, 64, 8), (2, 40, 56, 200),
+                                        (2, 65, 65, 256)])
+def test_k7b_k7c_kernels_match_plain(cuda, bh, tq, tk, d, causal):
+    args = _flash_bwd_case(bh, tq, tk, d, causal, torch.float32, cuda)
+    before = ck.kernel_calls()
+    dq = ck.flash_attention_bwd_dq(*args, causal)
+    dk, dv = ck.flash_attention_bwd_dkv(*args, causal)
+    rdq = ck.flash_attention_bwd_dq_ref(*args, causal)
+    rdk, rdv = ck.flash_attention_bwd_dkv_ref(*args, causal)
+    torch.cuda.synchronize()
+    after = ck.kernel_calls()
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        assert after[name] == before[name] + 1
+    for got, ref in ((dq, rdq), (dk, rdk), (dv, rdv)):
+        assert got.shape == ref.shape and torch.isfinite(got).all()
+        assert _rel_err(got, ref) <= 1e-5
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_k7b_k7c_kernels_at_one_key(cuda, causal):
+    """T 1: the one key takes p = 1, so dv is do and ds = p * (do.v -
+    do.o) is 0 up to rounding (the plain version may round it to exactly
+    0, so dq and dk are held to 0 within 1e-6, not relative to it)."""
+    args = _flash_bwd_case(2, 1, 1, 64, causal, torch.float32, cuda)
+    dq = ck.flash_attention_bwd_dq(*args, causal)
+    dk, dv = ck.flash_attention_bwd_dkv(*args, causal)
+    torch.cuda.synchronize()
+    assert _rel_err(dv, args[3]) <= 1e-5
+    assert dq.abs().max().item() <= 1e-6 and dk.abs().max().item() <= 1e-6
+
+
+def test_k7b_k7c_kernels_bf16_and_scale(cuda):
+    args = _flash_bwd_case(4, 96, 96, 64, True, torch.bfloat16, cuda)
+    dq = ck.flash_attention_bwd_dq(*args, True, 0.3)
+    dk, dv = ck.flash_attention_bwd_dkv(*args, True, 0.3)
+    rdq = ck.flash_attention_bwd_dq_ref(*args, True, 0.3)
+    rdk, rdv = ck.flash_attention_bwd_dkv_ref(*args, True, 0.3)
+    torch.cuda.synchronize()
+    for got, ref in ((dq, rdq), (dk, rdk), (dv, rdv)):
+        assert got.dtype == torch.bfloat16
+        assert _bf16_bwd_close(got, ref)
+
+
+# fp32: the row dot runs in another order than torch's sum, so dx agrees
+# within 1e-5 of its largest magnitude; a masked probability (exactly 0)
+# gives a dx of exactly 0
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(6, 40, 40), (2, 3, 17, 1020), (5, 1, 7),
+                                   (4, 1), (3, 4097), (96, 1020, 1020)])
+def test_k5b_kernel_matches_plain(cuda, shape, dtype):
+    rng = np.random.RandomState(62)
+    x = torch.from_numpy((rng.randn(*shape) * 3).astype(np.float32))
+    do = torch.from_numpy(rng.randn(*shape).astype(np.float32))
+    r, c = shape[-2:]
+    bias = torch.where(torch.ones(r, c, dtype=torch.bool).tril(), 0.0,
+                       ck.NEG_INF)
+    p = ck.bias_softmax(x.to(cuda, dtype), bias.to(cuda))
+    do = do.to(cuda, dtype)
+    before = ck.kernel_calls()["softmax_bwd"]
+    dx = ck.softmax_bwd(p, do)
+    ref = ck.softmax_bwd_ref(p, do)
+    torch.cuda.synchronize()
+    assert ck.kernel_calls()["softmax_bwd"] == before + 1
+    assert dx.dtype == dtype and dx.shape == p.shape
+    if dtype == torch.float32:
+        assert _rel_err(dx, ref) <= 1e-5
+    else:
+        assert _bf16_bwd_close(dx, ref)
+    assert (dx[..., ~torch.ones(r, c, dtype=torch.bool,
+                                device=cuda).tril()] == 0).all()
+
+
+def test_backward_kernels_raise_on_what_they_do_not_take(cuda):
+    x = torch.zeros(4, 8, device=cuda)
+    g, mu = torch.ones(8, device=cuda), torch.zeros(4, device=cuda)
+    with pytest.raises(MXNetError, match="one per row"):
+        ck.layernorm_bwd(x, x, g, torch.zeros(4, 128, device=cuda), mu)
+    with pytest.raises(MXNetError, match="do must match x"):
+        ck.layernorm_bwd(x, x.bfloat16(), g, mu, mu)
+    q = torch.zeros(2, 8, 64, device=cuda)
+    lse = torch.zeros(2, 8, device=cuda)
+    with pytest.raises(MXNetError, match="lse must be"):
+        ck.flash_attention_bwd_dq(q, q, q, q, lse.double(), lse)
+    with pytest.raises(MXNetError, match="do must be"):
+        ck.flash_attention_bwd_dkv(q, q, q, q[:, :4], lse, lse)
+    wide = torch.zeros(2, 8, 300, device=cuda)
+    with pytest.raises(MXNetError, match="head dims 1 to 256"):
+        ck.flash_attention_bwd_dq(wide, wide, wide, wide, lse, lse)
+    with pytest.raises(MXNetError, match="share shape"):
+        ck.softmax_bwd(x, x[:, :4])
+    with pytest.raises(MXNetError, match="contiguous"):
+        ck.softmax_bwd(x.t(), x.t())
+
+
+def test_transformer_training_step_launches_the_backward_kernels(cuda,
+                                                                  monkeypatch):
+    """One record/backward of a small TransformerLM on the card under
+    ``auto``: T 16 takes K7a/K7b/K7c, T 12 K5a/K5b, both K6a/K6b per
+    LayerNorm; the gradients agree within 1e-4 of each parameter's largest
+    magnitude with the same step through plain torch (knobs 0,
+    ``impl="einsum"``)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.contrib.transformer import TransformerLM
+    from mxnet_tpu_torch.parallel import attention
+    knobs = ("MXNET_PALLAS_NORM", "MXNET_PALLAS_SOFTMAX")
+    mx.random.seed(0)
+    lm = TransformerLM(32, units=64, hidden_size=128, num_layers=2,
+                       num_heads=4, max_len=32)
+    lm.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    lm.hybridize()
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    params = lm.collect_params()
+
+    def grads(t):
+        ids = np.random.RandomState(t).randint(0, 32, (2, t + 1))
+        x = mx.nd.array(ids[:, :-1].astype(np.float32), ctx=mx.gpu(0))
+        y = mx.nd.array(ids[:, 1:].astype(np.float32), ctx=mx.gpu(0))
+        with mx.autograd.record():
+            loss = loss_fn(lm(x).reshape((-1, 32)), y.reshape((-1,))).mean()
+        loss.backward()
+        return {n: p.grad()._data.clone() for n, p in params.items()}
+
+    real = attention.local_attention
+    for t, attn in ((16, ("flash_attention_fwd", "flash_attention_bwd_dq",
+                          "flash_attention_bwd_dkv")),
+                    (12, ("bias_softmax", "softmax_bwd"))):
+        for knob in knobs:
+            monkeypatch.delenv(knob, raising=False)
+        ck.reset_kernel_calls()
+        got = grads(t)
+        torch.cuda.synchronize()
+        want = dict.fromkeys(ck.kernel_calls(), 0)
+        want.update(layernorm_fwd=5, layernorm_bwd=5)
+        want.update(dict.fromkeys(attn, 2))
+        assert ck.kernel_calls() == want
+        for knob in knobs:
+            monkeypatch.setenv(knob, "0")
+        monkeypatch.setattr(attention, "local_attention",
+                            lambda *a, **kw: real(*a, **dict(kw,
+                                                             impl="einsum")))
+        plain = grads(t)
+        monkeypatch.undo()
+        for n in got:
+            assert got[n].abs().max() > 0, n
+            assert _rel_err(got[n], plain[n]) <= 1e-4, n

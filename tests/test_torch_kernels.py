@@ -185,10 +185,25 @@ def test_cpu_tensor_routes_to_plain_version_and_counts_nothing():
         ck.flash_attention_fwd_ref(q, q, q, True)))
     bias = torch.zeros(4, 4)
     assert torch.equal(ck.bias_softmax(x, bias), ck.bias_softmax_ref(x, bias))
+    _, mu, rstd = ck.layernorm_fwd(x, g, bt)
+    assert torch.equal(ck.layernorm_bwd(x, x, g, mu, rstd),
+                       ck.layernorm_bwd_ref(x, x, g, mu, rstd))
+    o, lse = ck.flash_attention_fwd(q, q, q, True)
+    delta = (o * q).sum(-1)
+    assert torch.equal(ck.flash_attention_bwd_dq(q, q, q, q, lse, delta),
+                       ck.flash_attention_bwd_dq_ref(q, q, q, q, lse, delta))
+    assert all(torch.equal(a, b) for a, b in zip(
+        ck.flash_attention_bwd_dkv(q, q, q, q, lse, delta, True),
+        ck.flash_attention_bwd_dkv_ref(q, q, q, q, lse, delta, True)))
+    p = ck.softmax_lastaxis(x)
+    assert torch.equal(ck.softmax_bwd(p, x), ck.softmax_bwd_ref(p, x))
     assert ck.kernel_calls() == {"scale_bias_relu": 0, "softmax_lastaxis": 0,
                                  "sgd_sweep": 0, "sgd_mom_sweep": 0,
                                  "adam_sweep": 0, "layernorm_fwd": 0,
-                                 "flash_attention_fwd": 0, "bias_softmax": 0}
+                                 "layernorm_bwd": 0, "flash_attention_fwd": 0,
+                                 "flash_attention_bwd_dq": 0,
+                                 "flash_attention_bwd_dkv": 0,
+                                 "bias_softmax": 0, "softmax_bwd": 0}
 
 
 @pytest.mark.parametrize("value,device,expected", [
@@ -232,7 +247,11 @@ def test_cuda_sources_carry_their_design_note():
                              ("optimizer_sweep", "_adam_kernel"),
                              ("layernorm", "_layernorm_fwd_kernel"),
                              ("flash_attention", "_flash_fwd_kernel"),
-                             ("softmax", "_softmax_bias_fwd_kernel")):
+                             ("softmax", "_softmax_bias_fwd_kernel"),
+                             ("layernorm", "_layernorm_bwd_kernel"),
+                             ("flash_attention", "_flash_bwd_dq_kernel"),
+                             ("flash_attention", "_flash_bwd_dkv_kernel"),
+                             ("softmax", "_softmax_bwd_kernel")):
         with open(_build._paths(name)[0]) as f:
             text = f.read()
         header = text.split("#include")[0]

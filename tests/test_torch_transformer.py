@@ -415,7 +415,11 @@ def test_deferred_shapes_finish_at_the_first_forward():
         lm.ln_f.beta.set_data(np.zeros(SMALL["units"] + 1))
 
 
-def test_record_and_training_mode_raise_until_the_training_slice():
+def test_record_backward_and_training_mode_dropout_work():
+    """Under ``record()`` the model records and ``backward`` fills every
+    parameter's gradient; ``attach_grad`` and ``autograd.grad`` work on
+    the inputs of the path; training-mode Dropout drops units, and
+    predict mode is unchanged, the identity."""
     lm = ttr.TransformerLM(VOCAB, dropout=0.1, **SMALL)
     lm.initialize(tmx.init.Xavier(), ctx=CPU)
     x = tmx.nd.array(_tokens(8), ctx=CPU)
@@ -424,18 +428,25 @@ def test_record_and_training_mode_raise_until_the_training_slice():
     assert not tmx.autograd.is_recording() and not tmx.autograd.is_training()
     with tmx.autograd.record():
         assert tmx.autograd.is_recording() and tmx.autograd.is_training()
-        with pytest.raises(MXNetError, match="ROADMAP"):
-            lm(x)
+        trained = lm(x)
+        loss = (trained * trained).mean()
+    loss.backward()
+    assert not np.allclose(trained.asnumpy(), out.asnumpy())
+    for p in lm.collect_params().values():
+        assert p.grad().shape == p.shape and p.grad().asnumpy().any(), p.name
     with tmx.autograd.train_mode():
-        with pytest.raises(MXNetError, match="Dropout.*ROADMAP"):
-            lm(x)
+        assert not np.allclose(lm(x).asnumpy(), out.asnumpy())
     with tmx.autograd.predict_mode():
         np.testing.assert_array_equal(lm(x).asnumpy(), out.asnumpy())
-    for fn in (lambda: out.backward(), lambda: out.attach_grad(),
-               lambda: tmx.autograd.grad([out], [x]),
-               lambda: lm.head.weight.grad()):
-        with pytest.raises(MXNetError, match="ROADMAP"):
-            fn()
+    np.testing.assert_array_equal(lm(x).asnumpy(), out.asnumpy())
+    h = tmx.nd.array(np.random.RandomState(61).randn(2, 8, SMALL["units"])
+                     .astype(np.float32), ctx=CPU)
+    h.attach_grad()
+    with tmx.autograd.record():
+        y = lm.ln_f(h).sum()
+    (dh,) = tmx.autograd.grad(y, [h], retain_graph=True)
+    y.backward()
+    np.testing.assert_allclose(h.grad.asnumpy(), dh.asnumpy(), rtol=1e-6)
     y = tmx.nd.array(np.ones((2, 3), np.float32), ctx=CPU)
     with tmx.autograd.train_mode():
         np.testing.assert_array_equal(tmx.nd.Dropout(y, p=0.0).asnumpy(), 1)
