@@ -15,10 +15,12 @@ Phases, each of which raises on failure:
    the shapes a batch-32 ResNet-50 forward gives it.  K3 (BatchNorm->ReLU
    epilogue) must be bitwise equal at all 33 fused sites, fp32 and bf16,
    relu on and off; K2 (softmax) within 1e-6 in fp32 and 1e-2 in bf16,
-   rows summing to 1.  Each is timed beside its plain version, the one
-   PyTorch call that computes the same function where there is one, and
-   the least time the card could take (bytes over HBM rate, operations
-   over the fp32 rate);
+   rows summing to 1, at the serving buckets of 32, 8 and 1 rows and at
+   the edges of its layouts (C 1, 999, 1024, 1025, 4097).  Each is timed
+   beside its plain version, the one PyTorch call that computes the same
+   function where there is one, and the least time the card could take
+   (bytes over HBM rate, operations over the fp32 rate); K2 also at
+   (96 x 1024, 1024), where bytes and not the launch bound it;
 4. serving (the main path): full-width ResNet-50 v1 with random weights
    from a seed (the classifier scaled so the logits are O(1), see
    ``calibrate_fc``), served by ``ModelServer`` (buckets 1..32): warmup of
@@ -52,10 +54,12 @@ Phases, each of which raises on failure:
 9. the transformer kernels against their plain versions, at the shapes a
    GPT-2-small-width ``TransformerLM`` forward at batch 8 gives them: K6a
    (LayerNorm) at (8192, 768) and at C = 37 and 1000, K7a (flash
-   attention) at (96, 1024, 64) causal and full and at T 8/64/1024 x D
-   32/64/128, K5a (bias softmax) at (96, 1020, 1020) with the causal bias
-   and without a mask; fp32 and bf16; each timed beside its plain
-   version, its bound and one PyTorch call;
+   attention) at (96, 1024, 64) causal and full, at T 8/64/1024 x D
+   32/64/128 and at the edges of its tiles (T 1/127/129/1000 x D 64/128),
+   K5a (bias softmax) at (96, 1020, 1020) with the causal bias and without
+   a mask; fp32 and bf16; each timed beside its plain version, its bound
+   and one PyTorch call, K7a also full, in bf16 and at (48, 1024, 128),
+   with its achieved TFLOP/s;
 10. the transformer (the third main path): gluon ``TransformerLM`` at
    GPT-2 small's widths (vocab 50257, 768 units, 3072 hidden, 12 layers,
    12 heads, 1024 positions), Xavier weights from a seed, hybridized, run
@@ -296,6 +300,15 @@ def calibrate_fc(mx, sym, args, auxs, ctx, x):
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
+def _bf16_close(got, ref, atol):
+    """Within one bf16 rounding of the larger magnitude, plus ``atol``:
+    the kernel and its plain version both compute in fp32 and round once
+    to bf16."""
+    got, ref = got.float(), ref.float()
+    mag = torch.maximum(got.abs(), ref.abs())
+    return bool(((got - ref).abs() <= mag * 2.0 ** -7 + atol).all())
+
+
 def check_k3(ck, sites, dev, bw, flops):
     """K3 bitwise against its plain version at every site, fp32 and bf16,
     relu on and off.  Returns its record and one timing job per distinct
@@ -348,53 +361,81 @@ def check_k3(ck, sites, dev, bw, flops):
 
 def check_k2(ck, dev, bw, flops, rows):
     """K2 against its plain version at the serving shape and at the edges
-    (one row, one column, a ragged width, logits x1e4), fp32 and bf16.
-    Returns its record and its timing job at ``(rows, 1000)`` fp32."""
+    of its layouts, fp32 within 1e-6 and bf16 within one rounding: below
+    1024 rows one row a block of 1, 2, 4 or 8 warps (the buckets of 1 and
+    8 rows, C 1, 100, 256, 500, 999, 1000 and 1024); from 1024 rows one
+    warp a row with 4, 8, 16 or 32 values a lane, each with vector loads
+    (C 100, 256, 500 and 512, 1000, 1024) and scalar ones (C 99, 255, 511,
+    999); past 1024 columns the strided loop (1025, 4097); logits x1e4.
+    Returns its record and its timing jobs: ``(rows, 1000)`` fp32, the one
+    a forward runs, and, counted 0 times, unmasked attention probabilities
+    (96 x 1024, 1024) fp32, a shape bound by bytes rather than by the
+    launch, held to its plain version before it is timed."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     worst = 0.0
-    cases = (((rows, 1000), 1.0), ((1, 1000), 1.0), ((7, 1), 1.0),
-             ((5, 4097), 1.0), ((rows, 1000), 1e4))
+
+    def held(x, what):
+        y = ck.softmax_lastaxis(x)
+        ref = ck.softmax_lastaxis_ref(x)
+        torch.cuda.synchronize()
+        err = (y.float() - ref.float()).abs().max().item()
+        total = (y.float().sum(-1) - 1).abs().max().item()
+        f32 = x.dtype == torch.float32
+        ok = (y.dtype == x.dtype and bool(torch.isfinite(y).all())
+              and (err <= 1e-6 if f32 else _bf16_close(y, ref, 1e-6))
+              and total <= (1e-5 if f32 else 1e-2))
+        if not ok:
+            raise AssertionError("K2 at %s %s: max |d| %g, row sums off by "
+                                 "%g" % (what, x.dtype, err, total))
+        return err if f32 else 0.0
+
+    cases = (((rows, 1000), 1.0), ((1, 1000), 1.0), ((8, 1000), 1.0),
+             ((7, 1), 1.0), ((6, 100), 1.0), ((6, 256), 1.0),
+             ((6, 500), 1.0), ((3, 1024), 1.0), ((3, 1025), 1.0),
+             ((5, 999), 1.0), ((5, 4097), 1.0), ((rows, 1000), 1e4),
+             ((1024, 100), 1.0), ((1024, 99), 1.0), ((1024, 256), 1.0),
+             ((1024, 255), 1.0), ((1500, 500), 1.0), ((1500, 512), 1.0),
+             ((1024, 511), 1.0), ((2048, 1000), 1.0), ((1024, 999), 1.0),
+             ((1024, 1024), 1.0))
     for shape, scale in cases:
         x32 = torch.randn(shape, generator=gen, device=dev) * scale
-        for dt, tol in ((torch.float32, 1e-6), (torch.bfloat16, 1e-2)):
-            x = x32.to(dt)
-            y = ck.softmax_lastaxis(x)
-            ref = ck.softmax_lastaxis_ref(x)
-            torch.cuda.synchronize()
-            err = (y.float() - ref.float()).abs().max().item()
-            total = (y.float().sum(-1) - 1).abs().max().item()
-            ok = (y.dtype == dt and bool(torch.isfinite(y).all())
-                  and err <= tol
-                  and total <= (1e-5 if dt == torch.float32 else 1e-2))
-            if not ok:
-                raise AssertionError(
-                    "K2 at %s x%g %s: max |d| %g, row sums off by %g"
-                    % (shape, scale, dt, err, total))
-            if dt == torch.float32:
-                worst = max(worst, err)
-    x = torch.randn((rows, 1000), generator=gen, device=dev)
-    bms, by = bound_ms(2 * x.numel() * 4, 5 * x.numel(), bw, flops)
+        for dt in (torch.float32, torch.bfloat16):
+            worst = max(worst, held(x32.to(dt), "%s x%g" % (shape, scale)))
+    jobs = []
+    for shape, count in (((rows, 1000), 1), ((96 * 1024, 1024), 0)):
+        x = torch.randn(shape, generator=gen, device=dev)
+        worst = max(worst, held(x, "%s (timed)" % (shape,)))
+        b = bound_ms(2 * x.numel() * 4, 5 * x.numel(), bw, flops)
+        jobs.append({"count": count, "shape": shape, "bound_ms": b[0],
+                     "bound_by": b[1], "fns": {
+                         "": lambda x=x: ck.softmax_lastaxis(x),
+                         "plain_": lambda x=x: ck.softmax_lastaxis_ref(x),
+                         "library_": lambda x=x: torch.softmax(x, -1)}})
     return {
         "name": "softmax_lastaxis (K2)", "route": "cuda",
         "source": "mxnet_tpu_torch/ops/csrc/softmax.cu",
         "replaces": "mxnet_tpu/ops/pallas_kernels.py:868",
         "shape": "(%d, 1000) fp32, the SoftmaxOutput of one forward" % rows,
-        "max_abs_err": worst, "bound_ms": bms, "bound_by": by,
-    }, [{"count": 1, "shape": tuple(x.shape), "bound_ms": bms, "fns": {
-        "": lambda: ck.softmax_lastaxis(x),
-        "plain_": lambda: ck.softmax_lastaxis_ref(x),
-        "library_": lambda: torch.softmax(x, -1)}}]
+        "max_abs_err": worst, "bound_ms": jobs[0]["bound_ms"],
+        "bound_by": jobs[0]["bound_by"],
+    }, jobs
 
 
 def time_jobs(rec, jobs, key, timer):
     """``rec[<prefix> + key]`` = the sum over ``jobs`` of count x
     ``timer(fn)``, for the kernel, its plain version and the library
-    call; each job keeps its own numbers."""
+    call; each job keeps its own numbers.  Jobs counted 0 times (shapes
+    off the main path) are timed too and listed in ``rec["extra"]``."""
     for pre in ("", "plain_", "library_"):
         if pre in jobs[0]["fns"]:
             for job in jobs:
                 job[pre + key] = timer(job["fns"][pre])
             rec[pre + key] = sum(j["count"] * j[pre + key] for j in jobs)
+    extra = [j for j in jobs if j["count"] == 0]
+    if extra:
+        rec["extra"] = [{k: v for k, v in j.items() if k not in ("fns",
+                                                                   "count")}
+                        for j in extra]
 
 
 # ---------------------------------------------------------------------------
@@ -830,15 +871,6 @@ def check_sweeps(ck, dev, bw, flops, buckets):
 # ---------------------------------------------------------------------------
 # phase 9: the transformer kernels against their plain versions
 # ---------------------------------------------------------------------------
-def _bf16_close(got, ref, atol):
-    """Within one bf16 rounding of the larger magnitude, plus ``atol``:
-    the kernel and its plain version both compute in fp32 and round once
-    to bf16."""
-    got, ref = got.float(), ref.float()
-    mag = torch.maximum(got.abs(), ref.abs())
-    return bool(((got - ref).abs() <= mag * 2.0 ** -7 + atol).all())
-
-
 def check_k6a(ck, dev, bw, flops, rows=LM_BATCH * LM_T[0],
               cols=GPT2_SMALL["units"]):
     """K6a against its plain version at the transformer's shape, at
@@ -901,17 +933,23 @@ def flash_bound(bh, tq, tk, d, causal, itemsize, bw, flops):
 def check_k7a(ck, dev, bw, flops, bh=LM_BATCH * GPT2_SMALL["num_heads"],
               t=LM_T[0], d=GPT2_SMALL["units"] // GPT2_SMALL["num_heads"]):
     """K7a against its plain version at the transformer's shape, causal
-    and full, at T 8/64/1024 x D 32/64/128, and at other head dims at T
+    and full, at T 8/64/1024 x D 32/64/128, at the edges of its tiles (T
+    1, 127, 129 and 1000 at D 64 and 128), and at other head dims at T
     200: the other multiples of 16 up to 128 and the padded widths 8, 72,
     200 and 256 (any D up to 256 runs): fp32 o and lse within
-    1e-5 (the kernel sums 64-key tiles with online rescaling, the plain
-    version one product over up to 1024 keys), bf16 o within one
-    rounding.  Returns its record and its timing job, causal fp32."""
+    1e-5 (the kernel sums 32- or 64-key tiles with online rescaling, the
+    plain version one product over up to 1024 keys), bf16 o within one
+    rounding.  Returns its record and its timing jobs: causal fp32 at the
+    transformer's shape, and, counted 0 times, the same shape full and in
+    bf16, and (bh / 2, t, 2 d) causal, the widest instance with 64-row
+    tiles."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     worst = 0.0
     cases = [(bh, t, d, c, torch.float32) for c in (True, False)]
     cases += [(4, tt, dd, c, torch.float32) for tt in (8, 64, 1024)
               for dd in (32, 64, 128) for c in (True, False)]
+    cases += [(4, tt, dd, c, torch.float32) for tt in (1, 127, 129, 1000)
+              for dd in (64, 128) for c in (True, False)]
     cases += [(4, 200, dd, c, torch.float32)
               for dd in (16, 48, 80, 96, 112, 8, 72, 200, 256)
               for c in (True, False)]
@@ -932,23 +970,37 @@ def check_k7a(ck, dev, bw, flops, bh=LM_BATCH * GPT2_SMALL["num_heads"],
                                  "%g" % ((b_, t_, d_), causal, dt, err, lerr))
         if dt == torch.float32:
             worst = max(worst, err, lerr)
-    q, k, v = (torch.randn((bh, t, d), generator=gen, device=dev)
-               for _ in range(3))
     heads = GPT2_SMALL["num_heads"]
-    q4, k4, v4 = (a.view(bh // heads, heads, t, d) for a in (q, k, v))
-    bms, by = flash_bound(bh, t, t, d, True, 4, bw, flops)
+    jobs = []
+    for b_, d_, causal, dt, count in (
+            (bh, d, True, torch.float32, 1), (bh, d, False, torch.float32, 0),
+            (bh, d, True, torch.bfloat16, 0),
+            (bh // 2, 2 * d, True, torch.float32, 0)):
+        q, k, v = (torch.randn((b_, t, d_), generator=gen, device=dev).to(dt)
+                   for _ in range(3))
+        q4, k4, v4 = (a.view(b_ // heads, heads, t, d_) for a in (q, k, v))
+        b = flash_bound(b_, t, t, d_, causal, q.element_size(), bw, flops)
+        pairs = t * (t + 1) // 2 if causal else t * t
+        jobs.append({
+            "count": count, "shape": (b_, t, d_), "causal": causal,
+            "dtype": str(dt).replace("torch.", ""), "bound_ms": b[0],
+            "bound_by": b[1], "ops": 4 * d_ * b_ * pairs, "fns": {
+                "": lambda q=q, k=k, v=v, c=causal: ck.flash_attention_fwd(
+                    q, k, v, c),
+                "plain_": lambda q=q, k=k, v=v, c=causal:
+                    ck.flash_attention_fwd_ref(q, k, v, c),
+                "library_": lambda q=q4, k=k4, v=v4, c=causal:
+                    torch.nn.functional.scaled_dot_product_attention(
+                        q, k, v, is_causal=c)}})
     return {
         "name": "flash_attention_fwd (K7a)", "route": "cuda",
         "source": "mxnet_tpu_torch/ops/csrc/flash_attention.cu",
         "replaces": "mxnet_tpu/ops/pallas_kernels.py:153",
         "shape": "(%d, %d, %d) fp32 causal, one attention of the "
                  "transformer forward at T=%d" % (bh, t, d, t),
-        "max_abs_err": worst, "bound_ms": bms, "bound_by": by,
-    }, [{"count": 1, "shape": (bh, t, d), "bound_ms": bms, "fns": {
-        "": lambda: ck.flash_attention_fwd(q, k, v, True),
-        "plain_": lambda: ck.flash_attention_fwd_ref(q, k, v, True),
-        "library_": lambda: torch.nn.functional.scaled_dot_product_attention(
-            q4, k4, v4, is_causal=True)}}]
+        "max_abs_err": worst, "bound_ms": jobs[0]["bound_ms"],
+        "bound_by": jobs[0]["bound_by"],
+    }, jobs
 
 
 def causal_bias(t, dev):
@@ -1618,8 +1670,11 @@ def main():
     for rec, jobs in ((k3, k3_jobs), (k2, k2_jobs)):
         time_jobs(rec, jobs, "call_ms", time_ms)
     print("kernels checked: K3 bitwise equal at %d sites x fp32/bf16 x "
-          "relu on/off; K2 within 1e-6 (fp32) and 1e-2 (bf16)"
-          % len(sites), flush=True)
+          "relu on/off; K2 within 1e-6 (fp32) and one bf16 rounding at "
+          "(%d, 1000), (1, 1000), (8, 1000), (7, 1), C 100/256/500 at 6 rows, "
+          "(3, 1024), (3, 1025), (5, 999), (5, 4097), logits x1e4, "
+          "C 99/100/255/256/511/512/999/1000/1024 at 1024-2048 rows and "
+          "the timed (98304, 1024)" % (len(sites), BATCH), flush=True)
 
     # 4. the serving path
     res = serve(mx, ck, mx.gpu(0), sym, IMAGE, len(sites))
@@ -1722,9 +1777,10 @@ def main():
         time_jobs(rec, jobs, "call_ms", time_ms)
     print("kernels checked: K6a within 1e-5 (fp32) and one bf16 rounding at "
           "C 768, 37, 1000; K7a within 1e-5 at (96, 1024, 64) causal and "
-          "full, T 8/64/1024 x D 32/64/128 and D 8-256 (72 and 200 among "
-          "them) at T 200, bf16 within one rounding; "
-          "K5a within 1e-6 (fp32) and 1e-2 (bf16) at (96, 1020, 1020), "
+          "full, T 8/64/1024 x D 32/64/128, T 1/127/129/1000 x D 64/128 and "
+          "D 8-256 (72 and 200 among them) at T 200, bf16 within one "
+          "rounding; "
+          "K5a within 1e-6 (fp32) and one bf16 rounding at (96, 1020, 1020), "
           "causal bias and none", flush=True)
 
     # 10. the transformer path: GPT-2-small widths, both attention routes
@@ -1860,6 +1916,21 @@ def main():
         print("%s path: 2 more steps with sync debug mode 'error' did not "
               "wait on the card" % opt_name, flush=True)
     del other_mods
+    for job in k7a_jobs:
+        job["tflops"] = job["ops"] / job["ms"] / 1e9
+    k7a["tflops"] = k7a_jobs[0]["tflops"]
+    k7a["extra"] = [dict(e, tflops=j["tflops"])
+                    for e, j in zip(k7a["extra"], k7a_jobs[1:])]
+    for knum, rec in (("K2", k2), ("K7a", k7a)):
+        for job in [rec] + rec["extra"]:
+            desc = str(job["shape"]) + (" %s causal=%s" % (
+                job["dtype"], job["causal"]) if "dtype" in job else "")
+            print("%s %s device: kernel %.4f ms, library %.4f ms, bound "
+                  "%.4f ms (%s)%s" % (
+                      knum, desc, job["ms"], job["library_ms"],
+                      job["bound_ms"], job["bound_by"],
+                      ", %.1f TFLOP/s" % job["tflops"] if "tflops" in job
+                      else ""))
     for job in k3_jobs:
         print("K3 %-20s x%-2d device: kernel %.4f ms, plain %.4f ms, bound "
               "%.4f ms; per call: kernel %.4f ms, plain %.4f ms"
@@ -1888,7 +1959,8 @@ def main():
             "library_call_ms")
     print(json.dumps({"kernels": [
         {k: rec[k] for k in keys + tuple(
-            x for x in ("launches_training", "library_note") if x in rec)}
+            x for x in ("launches_training", "library_note", "tflops",
+                        "extra") if x in rec)}
         for rec, _ in recs]}))
     print("serving on %s: ResNet-50 v1 fp32, buckets %s, warmup %.1f s; "
           "%d requests (%d rows) from %d clients in %.3f s: %.2f req/s, "

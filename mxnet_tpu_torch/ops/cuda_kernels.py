@@ -206,7 +206,9 @@ def softmax_lastaxis_ref(x):
 def softmax_lastaxis(x):
     """K2: softmax over the last axis of a float32 or bfloat16 tensor of
     any shape (rows = the product of the leading dims), output in x's
-    dtype."""
+    dtype.  Rows of up to 1024 columns are read once into registers (one
+    row a block of up to 8 warps below 1024 rows, one warp a row from
+    there on); wider rows take a strided three-pass loop."""
     if x.dim() < 1:
         raise MXNetError("softmax_lastaxis: x needs at least one dim")
     if x.device.type != "cuda":
@@ -462,7 +464,10 @@ def layernorm_bwd(x, do, gamma, mu, rstd):
 # ---------------------------------------------------------------------------
 # K7a, K7b, K7c: flash attention, forward and backward
 # ---------------------------------------------------------------------------
-FLASH_MAX_HEAD_DIM = 256    # the widest instance of csrc/flash_attention.cu
+# the widest instance of csrc/flash_attention.cu (K7a's instances are D
+# rounded up to 32, K7b's and K7c's D rounded up to 16, to 32 above 128);
+# local_attention's "auto" route sends wider heads to the einsum route
+FLASH_MAX_HEAD_DIM = 256
 _FLASH_MAX_T = 65535 * 32   # 32-row tiles on the grid's second axis
 
 
@@ -531,7 +536,8 @@ def flash_attention_fwd_ref(q, k, v, causal=False, scale=None):
 def flash_attention_fwd(q, k, v, causal=False, scale=None):
     """K7a: attention over float32 or bfloat16 ``(BH, T, D)`` tensors,
     batch and heads folded into the leading dim (q ``(BH, Tq, D)``, k and
-    v ``(BH, Tk, D)``), any ``D`` up to ``FLASH_MAX_HEAD_DIM``, ``scale``
+    v ``(BH, Tk, D)``), any ``D`` up to ``FLASH_MAX_HEAD_DIM`` (the
+    kernel's instance is D rounded up to 32, the padding zero), ``scale``
     default ``1/sqrt(D)``.  A causal mask keeps ``qpos >= kpos`` with both
     counted from 0.  Returns ``(o, lse)``: o ``(BH, Tq, D)`` in q's
     dtype, lse the fp32 ``(BH, Tq)`` row logsumexp (what the backward

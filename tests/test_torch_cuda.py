@@ -59,12 +59,40 @@ def test_k3_kernel_propagates_nan(cuda):
     assert torch.isnan(y[0, 0]) and y[0, 1] == 0 and y[0, 2] == 2
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-6),
-                                       (torch.bfloat16, 1e-2)])
+def _bf16_close(got, ref, atol):
+    """Within one bf16 rounding of the larger magnitude (the kernel and
+    its plain version both compute in fp32 and round once), plus ``atol``
+    for the fp32 difference under it."""
+    got, ref = got.float(), ref.float()
+    mag = torch.maximum(got.abs(), ref.abs())
+    return bool(((got - ref).abs() <= mag * 2.0 ** -7 + atol).all())
+
+
+# Below 1024 rows one row a block of 1, 2, 4 or 8 warps: (1, 1000) and
+# (8, 1000) are serving buckets, 1024 the widest row held in registers,
+# 1025 the first of the strided loop, 999 and 33 take scalar loads.  From
+# 1024 rows one warp a row with 4, 8, 16 or 32 values a lane, each with
+# vector loads (C 100, 256, 500 and 512, 1000, 1024; bf16 C 500 scalar)
+# and with scalar ones (C 99, 255, 511, 999).
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,scale", [((32, 1000), 1.0), ((7, 1), 1.0),
                                          ((5, 4097), 1.0), ((3, 2, 33), 1.0),
-                                         ((4, 1000), 1e4)])
-def test_k2_kernel_matches_plain(cuda, shape, scale, dtype, tol):
+                                         ((4, 1000), 1e4), ((1, 1000), 1.0),
+                                         ((8, 1000), 1.0), ((3, 1024), 1.0),
+                                         ((3, 1025), 1.0), ((5, 999), 1.0),
+                                         ((6, 100), 1.0), ((6, 256), 1.0),
+                                         ((6, 500), 1.0), ((1024, 100), 1.0),
+                                         ((1024, 99), 1.0),
+                                         ((1024, 256), 1.0),
+                                         ((1024, 255), 1.0),
+                                         ((1500, 500), 1.0),
+                                         ((1500, 512), 1.0),
+                                         ((1024, 511), 1.0),
+                                         ((2048, 1000), 1.0),
+                                         ((1024, 999), 1.0),
+                                         ((1024, 1024), 1.0)])
+def test_k2_kernel_matches_plain(cuda, shape, scale, dtype):
+    """fp32 within 1e-6, bf16 within one rounding of the magnitude."""
     x = torch.from_numpy((np.random.RandomState(41).randn(*shape) * scale)
                          .astype(np.float32)).to(cuda, dtype)
     y = ck.softmax_lastaxis(x)
@@ -72,7 +100,10 @@ def test_k2_kernel_matches_plain(cuda, shape, scale, dtype, tol):
     torch.cuda.synchronize()
     assert y.dtype == dtype and y.shape == x.shape
     assert torch.isfinite(y).all()
-    assert (y.float() - ref.float()).abs().max().item() <= tol
+    if dtype == torch.float32:
+        assert (y - ref).abs().max().item() <= 1e-6
+    else:
+        assert _bf16_close(y, ref, 1e-6)
     assert (y.float().sum(-1) - 1).abs().max().item() <= \
         (1e-5 if dtype == torch.float32 else 1e-2)
 
@@ -186,15 +217,6 @@ def test_fused_adam_step_does_not_wait_on_the_card(cuda):
 # ---------------------------------------------------------------------------
 # K6a / K7a / K5a: the transformer forward's kernels
 # ---------------------------------------------------------------------------
-def _bf16_close(got, ref, atol):
-    """Within one bf16 rounding of the larger magnitude (the kernel and
-    its plain version both compute in fp32 and round once), plus ``atol``
-    for the fp32 difference under it."""
-    got, ref = got.float(), ref.float()
-    mag = torch.maximum(got.abs(), ref.abs())
-    return bool(((got - ref).abs() <= mag * 2.0 ** -7 + atol).all())
-
-
 # fp32: the row's two sums are taken in another order than torch's mean
 # (warp shuffles over lane-strided partial sums) and rsqrtf is within 2
 # ulp, so the outputs, O(1) with these gammas, agree within 1e-5.  C up to
@@ -243,7 +265,12 @@ def _qkv(bh, tq, tk, d, dtype, device, seed=47):
                                         (2, 72, 72, 48), (2, 130, 130, 80),
                                         (2, 128, 128, 96), (2, 64, 96, 112),
                                         (2, 64, 64, 8), (2, 72, 72, 72),
-                                        (2, 40, 56, 200), (2, 33, 33, 256)])
+                                        (2, 40, 56, 200), (2, 33, 33, 256),
+                                        (2, 1, 1, 64), (2, 127, 127, 64),
+                                        (2, 129, 129, 64), (2, 1000, 1000, 64),
+                                        (2, 1, 1, 128), (2, 127, 127, 128),
+                                        (2, 129, 129, 128),
+                                        (2, 1000, 1000, 128)])
 def test_k7a_kernel_matches_plain(cuda, bh, tq, tk, d, causal):
     q, k, v = _qkv(bh, tq, tk, d, torch.float32, cuda)
     before = ck.kernel_calls()["flash_attention_fwd"]
@@ -317,6 +344,26 @@ def test_transformer_kernels_raise_on_what_they_do_not_take(cuda):
     with pytest.raises(MXNetError, match="bias rows"):
         ck.bias_softmax(torch.zeros(2, 4, 5, device=cuda),
                         torch.zeros(3, 5, device=cuda))
+
+
+def test_local_attention_wide_heads_take_the_einsum_route(cuda):
+    """Under ``impl="auto"`` a head dim above FLASH_MAX_HEAD_DIM takes the
+    einsum route on the card (no flash launch) and matches it, as the JAX
+    package returns a result at any D; ``impl="flash"`` still raises."""
+    from mxnet_tpu_torch.parallel import attention
+    rng = np.random.RandomState(50)
+    q, k, v = (torch.from_numpy(rng.randn(2, 16, 2, 320).astype(np.float32))
+               .to(cuda) for _ in range(3))
+    ck.reset_kernel_calls()
+    got = attention.local_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    calls = ck.kernel_calls()
+    assert calls["flash_attention_fwd"] == 0
+    want = attention.local_attention(q, k, v, causal=True, impl="einsum")
+    assert got.shape == q.shape
+    assert (got - want).abs().max().item() <= 1e-5
+    with pytest.raises(MXNetError, match="head dims 1 to 256"):
+        attention.local_attention(q, k, v, causal=True, impl="flash")
 
 
 @pytest.mark.parametrize("c", [768, 1280, 2048])

@@ -191,6 +191,18 @@ def test_local_attention_empty_causal_rows_keep_loud_path(monkeypatch):
     np.testing.assert_allclose(outs["1"][m], want[m], rtol=1e-5, atol=1e-5)
 
 
+def test_local_attention_wide_heads_under_auto_match_jax():
+    """D 320 is past FLASH_MAX_HEAD_DIM: ``impl="auto"`` returns the JAX
+    package's result (on the card it takes the einsum route, held by
+    tests/test_torch_cuda.py)."""
+    q, k, v = _qkv(57, t=16, h=2, hkv=2, d=320)
+    assert q.shape[-1] > ck.FLASH_MAX_HEAD_DIM
+    want = np.asarray(jatt.local_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True))
+    got = tatt.local_attention(_t(q), _t(k), _t(v), causal=True)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
 def test_flash_route_needs_cuda_under_auto(monkeypatch):
     """On the CPU ``impl="auto"`` never takes the flash kernel, as the JAX
     package never does off the TPU; ``impl="flash"`` forces it."""
