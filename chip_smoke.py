@@ -55,7 +55,8 @@ Phases, each of which raises on failure:
    GPT-2-small-width ``TransformerLM`` forward at batch 8 gives them: K6a
    (LayerNorm) at (8192, 768) and at C = 37 and 1000, K7a (flash
    attention) at (96, 1024, 64) causal and full, at T 8/64/1024 x D
-   32/64/128 and at the edges of its tiles (T 1/127/129/1000 x D 64/128),
+   32/64/128, at the edges of its tiles (T 1/127/129/1000 x D 64/128) and
+   at D 8-512 (D 320 and 512 in chunks of 64 columns),
    K5a (bias softmax) at (96, 1020, 1020) with the causal bias and without
    a mask; fp32 and bf16; each timed beside its plain version, its bound
    and one PyTorch call, K7a also full, in bf16 and at (48, 1024, 128),
@@ -73,11 +74,14 @@ Phases, each of which raises on failure:
 11. the backward kernels against their plain versions, at the shapes the
    transformer's training step gives them: K6b (LayerNorm dx) at (8192,
    768) and at C 37, 1025 and 9000, K7b (flash dq) and K7c (flash dk, dv)
-   at (96, 1024, 64) causal and full, at ragged T (7, 65, 1020), at Tq !=
-   Tk and across head dims (8, 72, 200, 256), K5b (softmax backward) at
+   at (96, 1024, 64) causal and full, at ragged T (1, 7, 15, 17, 63, 65,
+   1020), at Tq != Tk and across head dims (8, 72, 200, every instance
+   width 32-256, 320 and 512), K5b (softmax backward) at
    (96, 1020, 1020) with the causal probabilities; fp32 within 1e-5 of the
    largest magnitude, bf16 within one rounding; each timed
-   beside its plain version, its bound and one PyTorch call;
+   beside its plain version, its bound and one PyTorch call (K7b and K7c
+   against both their 3xTF32 tensor-core bound and their fp32 CUDA-core
+   one, with their TFLOP/s);
 12. transformer training (the fourth main path): the same GPT-2-small-width
    ``TransformerLM``, fresh from the same seed, trained at (8, 1024) and
    at (8, 1020): ``autograd.record()`` -> ``SoftmaxCrossEntropyLoss`` ->
@@ -146,10 +150,13 @@ GRAD_TOL = 1e-4
 # between, so a forward that ran its matmuls in TF32 fails it.
 LOGIT_TOL = 1e-4
 
-# (name fragment, HBM bytes/s, fp32 FLOP/s outside the tensor cores), from
+# (name fragment, HBM bytes/s, fp32 FLOP/s outside the tensor cores, dense
+# TF32 tensor-core FLOP/s: half the data sheets' rate with sparsity), from
 # NVIDIA's data sheets; the first fragment found in the card's name wins.
-CARDS = (("H200", 4.8e12, 67e12), ("H100 NVL", 3.9e12, 60e12),
-         ("H100 PCIe", 2.0e12, 51e12), ("H100", 3.35e12, 67e12))
+CARDS = (("H200", 4.8e12, 67e12, 494.5e12),
+         ("H100 NVL", 3.9e12, 60e12, 417.5e12),
+         ("H100 PCIe", 2.0e12, 51e12, 378e12),
+         ("H100", 3.35e12, 67e12, 494.5e12))
 
 
 class knobs:
@@ -179,9 +186,10 @@ class knobs:
 
 
 def card_rates(name):
-    for frag, bw, fp32 in CARDS:
+    """(HBM bytes/s, fp32 FLOP/s, dense TF32 FLOP/s) of the card."""
+    for frag, bw, fp32, tf32 in CARDS:
         if frag in name:
-            return bw, fp32
+            return bw, fp32, tf32
     raise RuntimeError("no published peak rates known for the card %r" % name)
 
 
@@ -930,19 +938,50 @@ def flash_bound(bh, tq, tk, d, causal, itemsize, bw, flops):
                     + bh * tq * 4, 4 * d * bh * pairs, bw, flops)
 
 
+def attention_terms(q, k, v, causal, largest, scale=None):
+    """Per element of o: ``w_j |v_j|`` over the keys j of its row, w the
+    fp32 softmax weights (``scale`` default 1/sqrt(D)); the largest term
+    (``largest``) or their sum."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    s = torch.matmul(q.float(), k.float().transpose(1, 2)) * scale
+    if causal:
+        keep = torch.ones(s.shape[1:], dtype=torch.bool,
+                          device=s.device).tril()
+        s = s.masked_fill(~keep, -1e30)
+    w = torch.softmax(s, -1)
+    av = v.float().abs()
+    if largest:
+        return (w[..., None] * av[:, None]).amax(2)
+    return torch.matmul(w, av)
+
+
+def bf16_attention_close(o, ro, terms, atol):
+    """bf16 o against its plain version: one bf16 step of the larger
+    magnitude (the output's own rounding) plus one step of ``terms`` (the
+    p that the two round to the two sides of a step), plus ``atol``."""
+    o, ro = o.float(), ro.float()
+    mag = torch.maximum(o.abs(), ro.abs())
+    return bool(((o - ro).abs() <= (mag + terms) * 2.0 ** -7 + atol).all())
+
+
 def check_k7a(ck, dev, bw, flops, bh=LM_BATCH * GPT2_SMALL["num_heads"],
               t=LM_T[0], d=GPT2_SMALL["units"] // GPT2_SMALL["num_heads"]):
     """K7a against its plain version at the transformer's shape, causal
     and full, at T 8/64/1024 x D 32/64/128, at the edges of its tiles (T
     1, 127, 129 and 1000 at D 64 and 128), and at other head dims at T
-    200: the other multiples of 16 up to 128 and the padded widths 8, 72,
-    200 and 256 (any D up to 256 runs): fp32 o and lse within
-    1e-5 (the kernel sums 32- or 64-key tiles with online rescaling, the
-    plain version one product over up to 1024 keys), bf16 o within one
-    rounding.  Returns its record and its timing jobs: causal fp32 at the
-    transformer's shape, and, counted 0 times, the same shape full and in
-    bf16, and (bh / 2, t, 2 d) causal, the widest instance with 64-row
-    tiles."""
+    200: the other multiples of 16 up to 128, the padded widths 8, 72,
+    200 and 256, and D 320 and 512 (chunks of 64 columns): fp32 o and
+    lse within 1e-5 (the kernel sums 32- or 64-key tiles with online
+    rescaling, the plain version one product over up to 1024 keys).  bf16
+    o, where both round p to bf16 before ``p v``: at T 64 (one key tile,
+    so the same p rounded) within one rounding of its magnitude plus one
+    step of its largest term ``w_j |v_j|`` (an exp that differs in its
+    last bit puts one p on the other side of a step); at the
+    transformer's shape, where the kernel rounds p at its running max,
+    plus one step of the sum of its terms.  Returns its record and its
+    timing jobs: causal fp32 at the transformer's shape, and, counted 0
+    times, the same shape full and in bf16, and (bh / 2, t, 2 d) causal,
+    the widest instance with 64-row tiles."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     worst = 0.0
     cases = [(bh, t, d, c, torch.float32) for c in (True, False)]
@@ -951,9 +990,10 @@ def check_k7a(ck, dev, bw, flops, bh=LM_BATCH * GPT2_SMALL["num_heads"],
     cases += [(4, tt, dd, c, torch.float32) for tt in (1, 127, 129, 1000)
               for dd in (64, 128) for c in (True, False)]
     cases += [(4, 200, dd, c, torch.float32)
-              for dd in (16, 48, 80, 96, 112, 8, 72, 200, 256)
+              for dd in (16, 48, 80, 96, 112, 8, 72, 200, 256, 320, 512)
               for c in (True, False)]
     cases += [(bh, t, d, True, torch.bfloat16)]
+    cases += [(8, 64, d, c, torch.bfloat16) for c in (True, False)]
     for b_, t_, d_, causal, dt in cases:
         q, k, v = (torch.randn((b_, t_, d_), generator=gen, device=dev)
                    .to(dt) for _ in range(3))
@@ -962,9 +1002,13 @@ def check_k7a(ck, dev, bw, flops, bh=LM_BATCH * GPT2_SMALL["num_heads"],
         torch.cuda.synchronize()
         err = (o.float() - ro.float()).abs().max().item()
         lerr = (lse - rlse).abs().max().item()
+        if dt == torch.float32:
+            close = err <= 1e-5
+        else:
+            close = bf16_attention_close(o, ro, attention_terms(
+                q, k, v, causal, largest=t_ <= 64), 1e-6)
         ok = (o.dtype == dt and bool(torch.isfinite(o).all()) and lerr <= 1e-5
-              and (err <= 1e-5 if dt == torch.float32
-                   else _bf16_close(o, ro, 1e-5)))
+              and close)
         if not ok:
             raise AssertionError("K7a at %s causal=%s %s: max |d| o %g, lse "
                                  "%g" % ((b_, t_, d_), causal, dt, err, lerr))
@@ -1139,36 +1183,52 @@ def flash_bwd_operands(ck, gen, bh, tq, tk, d, causal, dtype, dev):
     return q, k, v, do, lse, (do.float() * o.float()).sum(-1)
 
 
-def flash_bwd_bound(bh, tq, tk, d, causal, n_out, n_products, bw, flops):
+def flash_bwd_bound(bh, tq, tk, d, causal, n_out, n_products, bw, flops,
+                    tf32):
     """Bytes (q, k, v, do read, lse and delta read, ``n_out`` outputs of
     (BH, T, D) written) and fp32 operations (``n_products`` products of
-    2 d per visible (query, key) pair) of one K7b or K7c call."""
+    2 d per visible (query, key) pair) of one K7b or K7c call.  Returns
+    ``(ops, (ms, by) on the fp32 CUDA cores, (ms, by) on the tensor cores
+    in 3xTF32)``: each fp32 product there is three TF32 products, so 3 x
+    ops at the TF32 rate.  The shipped kernels run 3xTF32 and are held to
+    the second."""
     pairs = sum(min(r + 1, tk) for r in range(tq)) if causal else tq * tk
-    return bound_ms((2 * bh * tq * d + 2 * bh * tk * d + n_out * bh * tk * d)
-                    * 4 + 2 * bh * tq * 4, 2 * d * n_products * bh * pairs,
-                    bw, flops)
+    nbytes = ((2 * bh * tq * d + 2 * bh * tk * d + n_out * bh * tk * d) * 4
+              + 2 * bh * tq * 4)
+    ops = 2 * d * n_products * bh * pairs
+    return ops, bound_ms(nbytes, ops, bw, flops), bound_ms(nbytes, 3 * ops,
+                                                           bw, tf32)
 
 
-def check_k7bc(ck, dev, bw, flops, bh=LM_BATCH * GPT2_SMALL["num_heads"],
-               t=LM_T[0], d=GPT2_SMALL["units"] // GPT2_SMALL["num_heads"]):
+def check_k7bc(ck, dev, bw, flops, tf32,
+               bh=LM_BATCH * GPT2_SMALL["num_heads"], t=LM_T[0],
+               d=GPT2_SMALL["units"] // GPT2_SMALL["num_heads"]):
     """K7b and K7c against their plain versions at the training step's
-    shape, causal and full, at ragged T (7, 65, 1020), at Tq != Tk, and
-    across head dims (8, 72, 200, 256): dq, dk and dv within 1e-5 of
-    their largest magnitude in fp32 (the kernels sum over tiles, the
-    plain version in one product), within one rounding in bf16.  Returns
-    their two records and timing jobs, causal fp32; the library call,
-    the backward of ``scaled_dot_product_attention(is_causal=True)``,
-    computes dq, dk and dv together."""
+    shape, causal and full, at ragged T (7, 15, 17, 63, 65, 1020, the
+    edges of the 16-row warp tiles and 64-row block tiles; at T 1 dv must
+    equal do and dq, dk be 0 within 1e-5 of the largest |dv|), at Tq !=
+    Tk, at every instance width (D 32 to 256 by 32) and the padded widths
+    8, 72 and 200, and at D 320 and 512 (chunks of 64 columns): dq, dk
+    and dv within 1e-5 of their largest magnitude in fp32 (the kernels sum
+    3xTF32 products over tiles, the plain version one fp32 product),
+    within one rounding in bf16.  Returns their two records and timing
+    jobs, causal fp32; the library call, the backward of
+    ``scaled_dot_product_attention(is_causal=True)``, computes dq, dk and
+    dv together.  ``bound_ms`` is the 3xTF32 tensor-core bound the
+    kernels are designed to; ``bound_cuda_cores_ms`` the fp32 one."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 8)
     worst = {"dq": 0.0, "dkv": 0.0}
     cases = [(bh, t, t, d, c, torch.float32) for c in (True, False)]
-    cases += [(4, tt, tt, 64, c, torch.float32) for tt in (7, 65, 1020)
-              for c in (True, False)]
-    cases += [(4, 40, 72, 64, False, torch.float32),
-              (4, 72, 40, 64, False, torch.float32)]
-    cases += [(4, 200, 200, dd, c, torch.float32) for dd in (8, 72, 200, 256)
-              for c in (True, False)]
-    cases += [(bh, t, t, d, True, torch.bfloat16)]
+    cases += [(4, tt, tt, 64, c, torch.float32)
+              for tt in (7, 15, 17, 63, 65, 1020) for c in (True, False)]
+    cases += [(4, 40, 72, 64, c, torch.float32) for c in (True, False)]
+    cases += [(4, 72, 40, 64, c, torch.float32) for c in (True, False)]
+    cases += [(4, 200, 200, dd, c, torch.float32)
+              for dd in (8, 32, 72, 96, 128, 160, 192, 200, 224, 256, 320,
+                         512) for c in (True, False)]
+    cases += [(4, 90, 130, 320, False, torch.float32)]
+    cases += [(bh, t, t, d, True, torch.bfloat16),
+              (4, 200, 200, 320, True, torch.bfloat16)]
     for b_, tq, tk, d_, causal, dt in cases:
         args = flash_bwd_operands(ck, gen, b_, tq, tk, d_, causal, dt, dev)
         dq = ck.flash_attention_bwd_dq(*args, causal)
@@ -1191,6 +1251,24 @@ def check_k7bc(ck, dev, bw, flops, bh=LM_BATCH * GPT2_SMALL["num_heads"],
                 worst[name] = max(worst[name],
                                   (got - ref).abs().max().item())
         del args, dq, dk, dv, rdq, rdk, rdv
+    # T 1: the one key takes p = 1, so dv is do, and dq and dk are 0 up to
+    # the rounding of dp - delta (two fp32 dot products of do and v): held
+    # within 1e-5 of the largest |dv|, not relative to their own near-0
+    # largest value
+    for causal in (True, False):
+        args = flash_bwd_operands(ck, gen, 4, 1, 1, 64, causal,
+                                  torch.float32, dev)
+        dq = ck.flash_attention_bwd_dq(*args, causal)
+        dk, dv = ck.flash_attention_bwd_dkv(*args, causal)
+        torch.cuda.synchronize()
+        top = dv.abs().max().item()
+        if not (rel_err(dv, args[3]) <= 1e-5
+                and max(dq.abs().max().item(), dk.abs().max().item())
+                <= 1e-5 * top):
+            raise AssertionError("K7b/K7c at T 1 causal=%s: dv vs do %g, "
+                                 "|dq| %g, |dk| %g, largest |dv| %g" % (
+                                     causal, rel_err(dv, args[3]),
+                                     dq.abs().max(), dk.abs().max(), top))
     args = flash_bwd_operands(ck, gen, bh, t, t, d, True, torch.float32, dev)
     heads = GPT2_SMALL["num_heads"]
     q4, k4, v4 = (a.view(bh // heads, heads, t, d).clone().requires_grad_()
@@ -1206,8 +1284,8 @@ def check_k7bc(ck, dev, bw, flops, bh=LM_BATCH * GPT2_SMALL["num_heads"],
     for name, knum, line, n_out, n_prod in (
             ("flash_attention_bwd_dq", "K7b", 199, 1, 3),
             ("flash_attention_bwd_dkv", "K7c", 234, 2, 4)):
-        bms, by = flash_bwd_bound(bh, t, t, d, True, n_out, n_prod, bw,
-                                  flops)
+        ops, (cms, cby), (bms, by) = flash_bwd_bound(
+            bh, t, t, d, True, n_out, n_prod, bw, flops, tf32)
         kernel = getattr(ck, name)
         plain = getattr(ck, name + "_ref")
         recs.append({
@@ -1218,11 +1296,16 @@ def check_k7bc(ck, dev, bw, flops, bh=LM_BATCH * GPT2_SMALL["num_heads"],
                      "training step at T=%d" % (bh, t, d, t),
             "max_abs_err": worst["dq" if knum == "K7b" else "dkv"],
             "bound_ms": bms, "bound_by": by,
+            "bound_note": "3xTF32 on the tensor cores (3 x %d fp32 "
+                          "operations at the dense TF32 rate), what the "
+                          "kernel runs" % ops,
+            "bound_cuda_cores_ms": cms, "bound_cuda_cores_by": cby,
             "library_note": "the backward of scaled_dot_product_attention"
                             "(is_causal=True), fp32: one call for dq, dk "
                             "and dv, beside K7b + K7c",
         })
         jobs.append([{"count": 1, "shape": (bh, t, d), "bound_ms": bms,
+                      "ops": ops,
                       "fns": {"": lambda f=kernel: f(*args, True),
                               "plain_": lambda f=plain: f(*args, True),
                               "library_": sdpa_backward}}])
@@ -1638,13 +1721,15 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     kind = torch.cuda.get_device_name(0)
-    bw, flops = card_rates(kind)
+    bw, flops, tf32 = card_rates(kind)
     dev = torch.device("cuda", 0)
     print("device: %s | %s | torch %s, CUDA %s | cudnn.allow_tf32=%s "
-          "cuda.matmul.allow_tf32=%s | peak %.3g B/s, %.3g fp32 FLOP/s"
-          % (kind, smi, torch.__version__, torch.version.cuda,
-             torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32, bw, flops), flush=True)
+          "cuda.matmul.allow_tf32=%s | peak %.3g B/s, %.3g fp32 FLOP/s, "
+          "%.3g TF32 FLOP/s" % (kind, smi, torch.__version__,
+                                torch.version.cuda,
+                                torch.backends.cudnn.allow_tf32,
+                                torch.backends.cuda.matmul.allow_tf32, bw,
+                                flops, tf32), flush=True)
 
     # 2. build
     t0 = time.perf_counter()
@@ -1778,8 +1863,9 @@ def main():
     print("kernels checked: K6a within 1e-5 (fp32) and one bf16 rounding at "
           "C 768, 37, 1000; K7a within 1e-5 at (96, 1024, 64) causal and "
           "full, T 8/64/1024 x D 32/64/128, T 1/127/129/1000 x D 64/128 and "
-          "D 8-256 (72 and 200 among them) at T 200, bf16 within one "
-          "rounding; "
+          "D 8-512 (72, 200, 320 and 512 among them) at T 200, bf16 (p "
+          "rounded before p v) within one rounding of o plus one of its "
+          "largest term at T 64 and of the sum of its terms at T 1024; "
           "K5a within 1e-6 (fp32) and one bf16 rounding at (96, 1020, 1020), "
           "causal bias and none", flush=True)
 
@@ -1829,7 +1915,7 @@ def main():
 
     # 11. the backward kernels against their plain versions
     k6b, k6b_jobs = check_k6b(ck, dev, bw, flops)
-    (k7b, k7c), (k7b_jobs, k7c_jobs) = check_k7bc(ck, dev, bw, flops)
+    (k7b, k7c), (k7b_jobs, k7c_jobs) = check_k7bc(ck, dev, bw, flops, tf32)
     k5b, k5b_jobs = check_k5b(ck, dev, bw, flops)
     bwd_recs = ((k6b, k6b_jobs), (k7b, k7b_jobs), (k7c, k7c_jobs),
                 (k5b, k5b_jobs))
@@ -1837,8 +1923,9 @@ def main():
         time_jobs(rec, jobs, "call_ms", time_ms)
     print("kernels checked: K6b within 1e-5 of the largest |dx| (fp32) and "
           "one bf16 rounding at C 768, 37, 1025, 9000; K7b and K7c within "
-          "1e-5 of the largest at (96, 1024, 64) causal and full, T 7/65/1020,"
-          " Tq != Tk and D 8/72/200/256, bf16 within one rounding; K5b within "
+          "1e-5 of the largest at (96, 1024, 64) causal and full, T "
+          "1/7/15/17/63/65/1020, Tq != Tk and D 8-512 (every instance, 320 "
+          "and 512 chunked), bf16 within one rounding; K5b within "
           "1e-5 of the largest at (96, 1020, 1020), causal and unmasked, "
           "bf16 within one rounding, masked columns exactly 0", flush=True)
 
@@ -1919,6 +2006,8 @@ def main():
     for job in k7a_jobs:
         job["tflops"] = job["ops"] / job["ms"] / 1e9
     k7a["tflops"] = k7a_jobs[0]["tflops"]
+    for rec, jobs in ((k7b, k7b_jobs), (k7c, k7c_jobs)):
+        rec["tflops"] = jobs[0]["ops"] / jobs[0]["ms"] / 1e9
     k7a["extra"] = [dict(e, tflops=j["tflops"])
                     for e, j in zip(k7a["extra"], k7a_jobs[1:])]
     for knum, rec in (("K2", k2), ("K7a", k7a)):
@@ -1947,12 +2036,19 @@ def main():
                       ("K6b", k6b), ("K7b", k7b), ("K7c", k7c),
                       ("K5b", k5b)):
         print("%s %s device: kernel %.4f ms, plain %.4f ms, library %.4f ms, "
-              "bound %.4f ms (%s); per call: kernel %.4f ms, plain %.4f ms, "
-              "library %.4f ms"
+              "bound %.4f ms (%s)%s%s; per call: kernel %.4f ms, plain %.4f "
+              "ms, library %.4f ms"
               % (knum, rec["shape"], rec["ms"], rec["plain_ms"],
                  rec["library_ms"], rec["bound_ms"], rec["bound_by"],
+                 ", on the fp32 CUDA cores %.4f ms" % rec[
+                     "bound_cuda_cores_ms"] if "bound_cuda_cores_ms" in rec
+                 else "",
+                 ", %.1f TFLOP/s" % rec["tflops"] if "tflops" in rec else "",
                  rec["call_ms"], rec["plain_call_ms"],
                  rec["library_call_ms"]))
+    print("K7b + K7c device: %.4f ms against %.4f ms for SDPA's fp32 "
+          "backward (%.2fx)" % (k7b["ms"] + k7c["ms"], k7b["library_ms"],
+                                (k7b["ms"] + k7c["ms"]) / k7b["library_ms"]))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
             "launches_per_forward", "call_ms", "plain_call_ms",
@@ -1960,7 +2056,8 @@ def main():
     print(json.dumps({"kernels": [
         {k: rec[k] for k in keys + tuple(
             x for x in ("launches_training", "library_note", "tflops",
-                        "extra") if x in rec)}
+                        "bound_note", "bound_cuda_cores_ms",
+                        "bound_cuda_cores_by", "extra") if x in rec)}
         for rec, _ in recs]}))
     print("serving on %s: ResNet-50 v1 fp32, buckets %s, warmup %.1f s; "
           "%d requests (%d rows) from %d clients in %.3f s: %.2f req/s, "

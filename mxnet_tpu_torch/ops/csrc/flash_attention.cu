@@ -15,32 +15,30 @@
 // through flash_attention -> _flash_fwd / _flash_bwd_rule (parallel/attention.py
 // local_attention when _flash_eligible holds, or impl="flash").
 //
-// Bound on Hopper: fp32 operations.  The forward's two products take
-// 4 T^2 D operations per slice, the backward's five products 10 T^2 D
-// (dq three, dk and dv four, since each kernel recomputes s), half of
-// them under a causal mask, against a few T D elements moved; at (96,
-// 1024, 64) causal the forward's 12.9 GFLOP take 0.19 ms at the 67
-// TFLOP/s fp32 rate.  The reference is fp32 (a TF32 forward misses the
-// transformer's 1e-4 logits bound), so the products run as fp32 FMAs on
-// the CUDA cores, and what limits them is how they are fed: shared-memory
-// reads per FMA, loads that stall the products, and the grid's tail.
+// Bound on Hopper: operations.  The forward's two products take 4 T^2 D
+// operations per slice, K7b's three (s, dp, dq) 6 T^2 D and K7c's four
+// (s, dp, dv, dk) 8 T^2 D, half of them under a causal mask, against a
+// few T D elements moved.  At (96, 1024, 64) causal one product over the
+// visible pairs is 6.45 GFLOP: on the fp32 CUDA cores (67 TFLOP/s) the
+// forward's two take 0.19 ms, K7b's three 0.29 ms, K7c's four 0.39 ms;
+// on the tensor cores in 3xTF32 (three TF32 products of 495 TFLOP/s for
+// each fp32 one) K7b needs 0.117 ms and K7c 0.156 ms.
 //
-// All three kernels keep the TPU kernels' schedule in SIMT form: one block
-// per (slice, tile of query rows) for the forward and dq, per (slice, tile
-// of key rows) for dk and dv; a loop over the other operand's tiles takes
-// the place of the TPU's sequential grid axis, so the running max, sum
-// and the fp32 accumulators (o, dq, or dk and dv) stay in registers from
-// the first tile to the last; the probabilities (forward) or ds and p
-// (backward) go through shared memory to the next product.
+// All three keep the TPU kernels' schedule: one block per (slice, tile of
+// query rows) for the forward and dq, per (slice, tile of key rows) for dk
+// and dv; a loop over the other operand's tiles takes the place of the
+// TPU's sequential grid axis, so the running max and sum and the fp32
+// accumulators (o, dq, or dk and dv) stay in registers from the first
+// tile to the last.
 //
-// K7a (flash_fwd_kernel, its own tiles and loads):
+// K7a (flash_fwd_kernel, SIMT fp32 FMAs on the CUDA cores):
 //   - 128 threads, each holding 8 x 8 scores and 8 x 8 accumulators at D
 //     64 (tiles of 128 query rows and 64 keys; 64 x 32 up to D 128, 32 x
 //     32 beyond); Q and K are staged row-major with a row stride of D + 4
 //     floats, so each thread's operands for four kk come in one 16-byte
 //     read per row without bank conflicts: 16 reads of 16 bytes feed 256
-//     FMAs (4 FMAs per word read, against 2 in the kernels below); P V
-//     reads 16-byte pieces of P rows and V rows the same way;
+//     FMAs (4 FMAs per word read); P V reads 16-byte pieces of P rows and
+//     V rows the same way;
 //   - K and V arrive by cp.async: the next tile's K is copied while this
 //     tile's softmax and P V run, the next V while the next Q K^T runs,
 //     with one buffer each (105 KB of shared memory at D 64, two blocks an
@@ -48,15 +46,57 @@
 //   - under a causal mask the query tiles launch from the last (which
 //     sees every key tile) to the first, so the grid's tail is made of
 //     the shortest blocks;
-//   - instances for D rounded up to 32; p stays fp32 for P V.
-// K7b and K7c (256 threads, 16 x 16): tiles staged as fp32 rows padded by
-// one float against bank conflicts; each thread owns TILE/16 rows and
-// computes a (TILE/16)^2 block of scores (columns tx + 16 j) and a TILE/16
-// x DP/16 block of its accumulators from scalar shared-memory reads (2
-// FMAs per read); tiles load synchronously between two barriers; under
-// bf16 they round p and ds to the input's dtype before the products where
-// the TPU kernels do (pallas_kernels.py :226, :261, :267); instances for D
-// rounded up to 16 (to 32 above 128), TILE 64 up to DP 128 and 32 beyond.
+//   - instances for D rounded up to 32; p is rounded to the input dtype
+//     before P V (a no-op in fp32) and summed into l unrounded, as the TPU
+//     kernel multiplies p.astype(v.dtype) by V (pallas_kernels.py :185-188).
+//
+// K7b (flash_bwd_dq_kernel) and K7c (flash_bwd_dkv_kernel), products on
+// the tensor cores with mma.sync m16n8k8 TF32 and fp32 accumulation:
+//   - fp32 runs in 3xTF32: each operand x is split into hi = x rounded to
+//     TF32 (cvt.rna) and lo = x - hi (which the tensor cores truncate to
+//     TF32), and each product is lo*hi + hi*lo + hi*hi, the small terms
+//     first.  What is dropped (lo*lo, lo's truncation) is ~2^-21 of each
+//     term against fp32's 2^-24 and TF32's 2^-11, so the kernels hold the
+//     1e-5 bound of the fp32 plain version where plain TF32 would not.
+//     The tensor cores also truncate as they add into an accumulator, so
+//     each chain of mma runs into a fresh partial of at most 64 keys or
+//     columns that an fp32 add folds into the sum (one chain over 1024
+//     queries drifted past 1e-5 of the largest dk and dv on the card).
+//     bf16 operands, and p and ds rounded to bf16, are exact in TF32: one
+//     product each, the TPU kernels' own arithmetic (bf16 products summed
+//     in fp32);
+//   - the split is made when a fragment is read from shared memory, not
+//     when a tile is staged: tiles stay fp32 (cp.async cannot convert, and
+//     two TF32 copies would halve the tiles that fit), at 2 ALU
+//     instructions per element against 3 mma per 2 B-fragment words;
+//     p = exp(s - lse) takes the fast __expf (ex2.approx, within a few
+//     fp32 ulps), since the products, not the exps, hold the 1e-5 bound;
+//   - each warp owns 16 rows of the block's tile (query rows in K7b, key
+//     rows in K7c) and, for D above 64, a share of the output columns
+//     (NS warps split D; each recomputes the scores of its rows);
+//     s and dp come out in the accumulator layout (rows g and g + 8,
+//     columns 2t and 2t + 1 of each 8, g = lane / 4, t = lane % 4); p and
+//     ds are formed there in registers with the finite -1e30 mask, and
+//     are the A fragment of the next product as they stand: its k index
+//     is permuted within each 8 (position t is key 2t, t + 4 is 2t + 1),
+//     and the B fragment reads the same permutation, so p and ds never go
+//     through shared memory;
+//   - tiles are staged with a row stride of D + 4 floats (D a multiple of
+//     32): both fragment patterns (row g, column t; row 2t, column g) hit
+//     32 distinct banks;
+//   - the streamed operand (K and V in K7b, Q and dO with lse and delta in
+//     K7c) is double-buffered and copied by cp.async one tile ahead, one
+//     barrier per tile; bf16 or unaligned operands load through registers;
+//   - K7b launches its heaviest causal query tiles first, as K7a; K7c's
+//     first key tiles already see the most query tiles;
+//   - tiles of 64 rows up to D 64 (4 warps, 104 KB, two blocks an SM), of
+//     32 rows beyond (NS = 2 up to D 128, 4 warps; NS = 4 beyond, 8
+//     warps, 200 KB at D 256); instances for D rounded up to 32.  On the
+//     card, 32-row streamed tiles (three blocks an SM) and 128-row own
+//     tiles ran no faster at D 64, so what holds the kernels back is the
+//     mma.sync throughput and the instructions around it, not occupancy
+//     (rounding lo with a cvt of its own, one instruction more per split
+//     element, was slower in proportion).
 //
 // All three: under a causal mask the forward and dq skip the key tiles
 // past the tile's last query row, and dk/dv start at the query tile that
@@ -64,9 +104,14 @@
 // diagonal; keys past Tk get -inf in the forward and p = 0 in the
 // backward, queries past Tq p = 0, so a ragged tile adds exactly 0; masked
 // pairs get the TPU kernel's finite -1e30 with the same shared origin
-// (qpos >= kpos), whose exp(s - lse) is exactly 0; any head dim D up to
-// 256, the tail columns of an instance zero on load (they add 0 to every
-// product) and never stored; any T.
+// (qpos >= kpos), whose exp(s - lse) is exactly 0; the tail columns of an
+// instance zero on load (they add 0 to every product) and never stored;
+// any T.  Any D: above 256 (the widest instance) the output's columns are
+// split over the grid's third axis in chunks of 64; each block reduces s
+// (and dp) over all of D, staging its operands through shared memory 64
+// columns at a time, and writes only its own columns (the forward's
+// online-softmax state comes out the same in every chunk, so chunk 0
+// alone writes lse).
 // o = acc / max(l, 1e-30) and lse = m + log(max(l, 1e-30)), as on the TPU.
 #include <cmath>
 #include <cstdint>
@@ -90,58 +135,56 @@ __device__ __forceinline__ float round_to(float v, const __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-constexpr int kThreads = 256;    // 16 x 16: ty picks rows, tx columns
-constexpr int kMaxD = 256;
 constexpr float kNegInf = -1e30f;
+constexpr int kMaxD = 256;    // the widest instance; wider D is chunked
+constexpr int kWideD = 64;    // the chunk of D above kMaxD
 
-template <int DP>
-__host__ __device__ constexpr int tile() {
-  return DP <= 128 ? 64 : 32;
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool in) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(in ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// wait until at most N of this thread's groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// max and sum over the 16 threads of a row (lanes that differ in tx only)
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off /= 2)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off /= 2)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// rows [r0, r0 + ROWS) of two (t, d) matrices into ROWS x DP fp32 tiles
-// with row strides S1 and S2 (the second may be null); rows past t and
-// columns past d are zero.  At d == DP the source stride is a constant.
-template <typename T, int ROWS, int DP, int S1, int S2 = S1>
-__device__ __forceinline__ void load_tiles(float* dst1, const T* src1,
-                                           float* dst2, const T* src2,
-                                           int r0, int t, int d) {
-  if (d == DP) {
-    for (int idx = threadIdx.x; idx < ROWS * DP; idx += kThreads) {
-      const int r = idx / DP, c = idx % DP;
-      const bool in = r0 + r < t;
-      const int64_t off = (int64_t)(r0 + r) * DP + c;
-      dst1[r * S1 + c] = in ? to_float(src1[off]) : 0.0f;
-      if (src2 != nullptr) dst2[r * S2 + c] = in ? to_float(src2[off]) : 0.0f;
+// rows [r0, r0 + ROWS) and columns [c0, c0 + DP) of a (t, d) matrix into
+// a ROWS x DP fp32 tile of row stride STRIDE, rows past t and columns past
+// d zero: 16-byte cp.async copies that land while the block computes (fp32
+// with d % 4 == 0 and 16-byte aligned operands: ``async``), else loads
+// through registers.
+template <typename T, int ROWS, int DP, int STRIDE, int THREADS>
+__device__ __forceinline__ void stage_tile(float* dst, const T* src, int r0,
+                                           int t, int d, int c0,
+                                           bool async) {
+  if constexpr (std::is_same<T, float>::value) {
+    if (async) {
+      constexpr int C4 = DP / 4;
+      for (int idx = threadIdx.x; idx < ROWS * C4; idx += THREADS) {
+        const int r = idx / C4, c = idx % C4 * 4;
+        const bool in = r0 + r < t && c0 + c < d;
+        cp_async16(dst + r * STRIDE + c,
+                   in ? src + (int64_t)(r0 + r) * d + c0 + c : src, in);
+      }
+      return;
     }
-    return;
   }
-  for (int idx = threadIdx.x; idx < ROWS * DP; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < ROWS * DP; idx += THREADS) {
     const int r = idx / DP, c = idx % DP;
-    const bool in = r0 + r < t && c < d;
-    const int64_t off = (int64_t)(r0 + r) * d + c;
-    dst1[r * S1 + c] = in ? to_float(src1[off]) : 0.0f;
-    if (src2 != nullptr) dst2[r * S2 + c] = in ? to_float(src2[off]) : 0.0f;
+    dst[r * STRIDE + c] = r0 + r < t && c0 + c < d
+                              ? to_float(src[(int64_t)(r0 + r) * d + c0 + c])
+                              : 0.0f;
   }
 }
 
 // ---------------------------------------------------------------------------
-// K7a: its own tiles, layout and loads (K7b and K7c keep tile<DP>() and
-// load_tiles above)
+// K7a
 // ---------------------------------------------------------------------------
 // K7a's tiles for an instance width DP (a multiple of 32): BQ query rows
 // and BK keys a step, 16 x TX threads, Q and K rows strided by QS floats
@@ -160,48 +203,6 @@ struct FwdTile {
   static constexpr size_t smem =
       sizeof(float) * ((BQ + BK) * QS + BK * DP + BQ * PS);
 };
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool in) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(in ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-// wait until at most N of this thread's groups are still in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// rows [r0, r0 + ROWS) of a (t, d) matrix into a ROWS x DP fp32 tile of row
-// stride STRIDE, rows past t and columns past d zero: 16-byte cp.async
-// copies that land while the block computes (fp32 with d % 4 == 0 and
-// 16-byte aligned operands: ``async``), else loads through registers.
-template <typename T, int ROWS, int DP, int STRIDE, int THREADS>
-__device__ __forceinline__ void fwd_tile(float* dst, const T* src, int r0,
-                                         int t, int d, bool async) {
-  if constexpr (std::is_same<T, float>::value) {
-    if (async) {
-      constexpr int C4 = DP / 4;
-      for (int idx = threadIdx.x; idx < ROWS * C4; idx += THREADS) {
-        const int r = idx / C4, c = idx % C4 * 4;
-        const bool in = r0 + r < t && c < d;
-        cp_async16(dst + r * STRIDE + c,
-                   in ? src + (int64_t)(r0 + r) * d + c : src, in);
-      }
-      return;
-    }
-  }
-  for (int idx = threadIdx.x; idx < ROWS * DP; idx += THREADS) {
-    const int r = idx / DP, c = idx % DP;
-    dst[r * STRIDE + c] = r0 + r < t && c < d
-                              ? to_float(src[(int64_t)(r0 + r) * d + c])
-                              : 0.0f;
-  }
-}
 
 // max and sum over the TX threads of a row (lanes that differ in tx only)
 template <int TX>
@@ -223,16 +224,12 @@ __device__ __forceinline__ float lane4(const float4& v, int e) {
   return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
 }
 
-// s[i][c] = Q row (ty + 16 i) . K row (tx + TX c), four kk a 16-byte read
+// s[i][c] += Q row (ty + 16 i) . K row (tx + TX c), four kk a 16-byte read
 // of each row
 template <int RI, int CJ, int TX, int DP, int QS>
 __device__ __forceinline__ void qk_tile(float (&s)[RI][CJ],
                                         const float* Qs, const float* Ks,
                                         int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < RI; ++i)
-#pragma unroll
-    for (int c = 0; c < CJ; ++c) s[i][c] = 0.0f;
 #pragma unroll 2
   for (int kk = 0; kk < DP; kk += 4) {
     float4 a[RI];
@@ -288,14 +285,16 @@ __device__ __forceinline__ void pv_tile(float (&acc)[RI][G][4],
   }
 }
 
-// One block per (slice, query tile); thread (ty, tx) owns query rows ty +
-// 16 i, key columns tx + TX j of s and p, and value columns 4 TX g + 4 tx
-// + e of acc.  Per tile of keys: s = Q K^T from 16-byte reads of Q and K rows
-// (four kk a read, 4 FMAs per word at 128 x 64), the online softmax in
-// registers, p through shared memory, acc += P V from 16-byte reads of P
-// rows and V rows.  K of the next tile is copied in during this tile's
-// softmax and P V, V of the next during its Q K^T.
-template <typename T, int DP>
+// One block per (slice, query tile[, chunk of D when WIDE]); thread (ty,
+// tx) owns query rows ty + 16 i, key columns tx + TX j of s and p, and
+// value columns 4 TX g + 4 tx + e of acc.  Per tile of keys: s = Q K^T from
+// 16-byte reads of Q and K rows (four kk a read, 4 FMAs per word at 128 x
+// 64), the online softmax in registers, p through shared memory, acc += P
+// V from 16-byte reads of P rows and V rows.  K of the next tile is copied
+// in during this tile's softmax and P V, V of the next during its Q K^T.
+// WIDE (D > kMaxD, DP = kWideD): s sums Q K^T over every DP-column chunk
+// of D, each staged in turn, and P V takes the block's own chunk of V.
+template <typename T, int DP, bool WIDE>
 __global__ void __launch_bounds__(FwdTile<DP>::THREADS, 2)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o,
@@ -316,6 +315,8 @@ __global__ void __launch_bounds__(FwdTile<DP>::THREADS, 2)
   // under a causal mask the last query tiles see the most keys: they are
   // launched first, so that the grid's tail is made of short blocks
   const int q0 = (causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * BQ;
+  const int col0 = WIDE ? blockIdx.z * DP : 0;   // the block's o columns
+  const T* qb = q + bh * tq * d;
   const T* kb = k + bh * tk * d;
   const T* vb = v + bh * tk * d;
   // under a causal mask no query row of this tile sees a key past its last
@@ -323,11 +324,13 @@ __global__ void __launch_bounds__(FwdTile<DP>::THREADS, 2)
   const int kend = causal ? min(tk, min(q0 + BQ, tq)) : tk;
   const int nt = (kend + BK - 1) / BK;
 
-  fwd_tile<T, BQ, DP, QS, TH>(Qs, q + bh * tq * d, q0, tq, d, async);
-  fwd_tile<T, BK, DP, QS, TH>(Ks, kb, 0, tk, d, async);
-  cp_async_commit();
-  fwd_tile<T, BK, DP, DP, TH>(Vs, vb, 0, tk, d, async);
-  cp_async_commit();
+  if constexpr (!WIDE) {
+    stage_tile<T, BQ, DP, QS, TH>(Qs, qb, q0, tq, d, 0, async);
+    stage_tile<T, BK, DP, QS, TH>(Ks, kb, 0, tk, d, 0, async);
+    cp_async_commit();
+    stage_tile<T, BK, DP, DP, TH>(Vs, vb, 0, tk, d, 0, async);
+    cp_async_commit();
+  }
 
   float m[RI], l[RI], acc[RI][G][4];
 #pragma unroll
@@ -342,14 +345,30 @@ __global__ void __launch_bounds__(FwdTile<DP>::THREADS, 2)
 
   for (int j = 0; j < nt; ++j) {
     const int k0 = j * BK;
-    cp_async_wait<1>();     // Q and this tile's K (its V may be in flight)
-    __syncthreads();
-
     float s[RI][CJ];
-    qk_tile<RI, CJ, TX, DP, QS>(s, Qs, Ks, ty, tx);
-    __syncthreads();        // every thread is done with Ks
-    if (j + 1 < nt) fwd_tile<T, BK, DP, QS, TH>(Ks, kb, k0 + BK, tk, d, async);
-    cp_async_commit();
+#pragma unroll
+    for (int i = 0; i < RI; ++i)
+#pragma unroll
+      for (int c = 0; c < CJ; ++c) s[i][c] = 0.0f;
+    if constexpr (!WIDE) {
+      cp_async_wait<1>();   // Q and this tile's K (its V may be in flight)
+      __syncthreads();
+      qk_tile<RI, CJ, TX, DP, QS>(s, Qs, Ks, ty, tx);
+      __syncthreads();      // every thread is done with Ks
+      if (j + 1 < nt)
+        stage_tile<T, BK, DP, QS, TH>(Ks, kb, k0 + BK, tk, d, 0, async);
+      cp_async_commit();
+    } else {
+      for (int c0 = 0; c0 < d; c0 += DP) {
+        __syncthreads();    // every thread is done with Qs, Ks (and Ps)
+        stage_tile<T, BQ, DP, QS, TH>(Qs, qb, q0, tq, d, c0, async);
+        stage_tile<T, BK, DP, QS, TH>(Ks, kb, k0, tk, d, c0, async);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+        qk_tile<RI, CJ, TX, DP, QS>(s, Qs, Ks, ty, tx);
+      }
+    }
 
     // a tile that holds keys past tk or a masked (query, key) pair
     const bool edge = k0 + BK > tk || (causal && k0 + BK - 1 > q0);
@@ -376,7 +395,7 @@ __global__ void __launch_bounds__(FwdTile<DP>::THREADS, 2)
 #pragma unroll
       for (int c = 0; c < CJ; ++c) {
         const float p = expf(s[i][c] - m_new);
-        Ps[(ty + 16 * i) * PS + tx + TX * c] = p;
+        Ps[(ty + 16 * i) * PS + tx + TX * c] = round_to(p, (const T*)nullptr);
         sum += p;
       }
       l[i] = l[i] * alpha + row_sum_tx<TX>(sum);
@@ -386,13 +405,22 @@ __global__ void __launch_bounds__(FwdTile<DP>::THREADS, 2)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[i][g][e] *= alpha;
     }
-    cp_async_wait<1>();     // this tile's V (the next K may be in flight)
-    __syncthreads();        // and every row of Ps written
-
-    pv_tile<RI, G, TX, BK, DP, PS>(acc, Ps, Vs, ty, tx);
-    __syncthreads();        // every thread is done with Vs and Ps
-    if (j + 1 < nt) fwd_tile<T, BK, DP, DP, TH>(Vs, vb, k0 + BK, tk, d, async);
-    cp_async_commit();
+    if constexpr (!WIDE) {
+      cp_async_wait<1>();   // this tile's V (the next K may be in flight)
+      __syncthreads();      // and every row of Ps written
+      pv_tile<RI, G, TX, BK, DP, PS>(acc, Ps, Vs, ty, tx);
+      __syncthreads();      // every thread is done with Vs and Ps
+      if (j + 1 < nt)
+        stage_tile<T, BK, DP, DP, TH>(Vs, vb, k0 + BK, tk, d, 0, async);
+      cp_async_commit();
+    } else {
+      __syncthreads();      // Ps written, the last tile's P V done with Vs
+      stage_tile<T, BK, DP, DP, TH>(Vs, vb, k0, tk, d, col0, async);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      pv_tile<RI, G, TX, BK, DP, PS>(acc, Ps, Vs, ty, tx);
+    }
   }
 
   T* ob = o + bh * tq * d;
@@ -403,12 +431,12 @@ __global__ void __launch_bounds__(FwdTile<DP>::THREADS, 2)
       const float lc = fmaxf(l[i], 1e-30f);
 #pragma unroll
       for (int g = 0; g < G; ++g) {
-        const int c = 4 * TX * g + 4 * tx;
+        const int c = col0 + 4 * TX * g + 4 * tx;
         float out[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e) out[e] = acc[i][g][e] / lc;
         if constexpr (std::is_same<T, float>::value) {
-          if (d == DP) {
+          if (d % 4 == 0 && c + 4 <= d) {
             *reinterpret_cast<float4*>(ob + (int64_t)r * d + c) =
                 make_float4(out[0], out[1], out[2], out[3]);
             continue;
@@ -418,264 +446,443 @@ __global__ void __launch_bounds__(FwdTile<DP>::THREADS, 2)
         for (int e = 0; e < 4; ++e)
           if (c + e < d) store(ob + (int64_t)r * d + c + e, out[e]);
       }
-      if (tx == 0) lse[bh * tq + r] = m[i] + logf(lc);
+      if (tx == 0 && blockIdx.z == 0) lse[bh * tq + r] = m[i] + logf(lc);
     }
   }
 }
 
-// K7b: one block per (slice, query tile); dq accumulates over key tiles
-template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads)
+// ---------------------------------------------------------------------------
+// K7b and K7c: tensor-core products (mma.sync m16n8k8 TF32, fp32 sums)
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x as TF32 operands: with SPLIT (fp32 operands) hi = x rounded to TF32
+// and lo = x - hi, whose low 13 bits the tensor cores ignore (lo truncated
+// to TF32, as CUTLASS's 3xTF32 passes its small part); without (values
+// exact in TF32: bf16 inputs, p and ds rounded to bf16) x itself, and lo
+// unused.
+template <bool SPLIT>
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  if constexpr (SPLIT) {
+    hi = tf32_rna(x);
+    lo = __float_as_uint(x - __uint_as_float(hi));
+  } else {
+    hi = __float_as_uint(x);
+    lo = 0u;
+  }
+}
+
+// c += A B for a 16 x 8 A (rows g, g + 8; columns t, t + 4) and an 8 x 8 B
+// (rows t, t + 4; column g)
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// one fp32 product step: 3xTF32 with SPLIT (small terms first), else one
+template <bool SPLIT>
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], uint32_t bh0,
+                                     uint32_t bh1, uint32_t bl0,
+                                     uint32_t bl1) {
+  if constexpr (SPLIT) {
+    mma_tf32(c, al, bh0, bh1);
+    mma_tf32(c, ah, bl0, bl1);
+  }
+  mma_tf32(c, ah, bh0, bh1);
+}
+
+// The tensor cores add each product into the accumulator with truncation,
+// so a long chain of mma into one register drifts toward zero (on the
+// card, past 1e-5 of the largest dk and dv over 1024 queries).  The
+// products below run their chains into a fresh partial of at most 64
+// columns or keys (24 mma a chain in 3xTF32) and add it to the sum with
+// an fp32 add, which rounds to nearest.
+constexpr int kChain = 64;
+
+// c[n] += X Y^T over DP columns: X the warp's 16 rows (row stride S), Y
+// rows 8 n .. 8 n + 7 of a tile (scores s = Q K^T, dp = dO V^T and their
+// transposes); c in the accumulator layout
+template <bool SPLIT, int NB, int DP, int S>
+__device__ __forceinline__ void rows_product(float (&c)[NB][4],
+                                             const float* X, const float* Y,
+                                             int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const float* x0 = X + g * S + t;
+  const float* y0 = Y + g * S + t;
+#pragma unroll 1
+  for (int k0 = 0; k0 < DP; k0 += kChain) {
+    float part[NB][4];
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[n][e] = 0.0f;
+#pragma unroll 2
+    for (int kk = k0; kk < min(k0 + kChain, DP); kk += 8) {
+      uint32_t ah[4], al[4];
+      split<SPLIT>(x0[kk], ah[0], al[0]);
+      split<SPLIT>(x0[8 * S + kk], ah[1], al[1]);
+      split<SPLIT>(x0[kk + 4], ah[2], al[2]);
+      split<SPLIT>(x0[8 * S + kk + 4], ah[3], al[3]);
+#pragma unroll
+      for (int n = 0; n < NB; ++n) {
+        uint32_t bh0, bh1, bl0, bl1;
+        split<SPLIT>(y0[n * 8 * S + kk], bh0, bl0);
+        split<SPLIT>(y0[n * 8 * S + kk + 4], bh1, bl1);
+        mma3<SPLIT>(part[n], ah, al, bh0, bh1, bl0, bl1);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[n][e] += part[n][e];
+  }
+}
+
+// acc[n] += P Y[:, 8 n .. 8 n + 7]: P (16 x 8 KB) the warp's p or ds in
+// the accumulator layout, Y a tile of 8 KB rows (stride S) from its first
+// output column.  A's column t is key 2t of each 8 and column t + 4 key 2t
+// + 1, so P's accumulator registers (g, 2t), (g, 2t + 1), (g + 8, 2t), (g
+// + 8, 2t + 1) are A's a0, a2, a1, a3; B's rows t and t + 4 read Y rows
+// 2t and 2t + 1.
+template <bool SPLIT, int KB, int NN, int S>
+__device__ __forceinline__ void acc_product(float (&acc)[NN][4],
+                                            const float (&p)[KB][4],
+                                            const float* Y, int lane) {
+  static_assert(8 * KB <= kChain, "one partial a tile");
+  const int g = lane >> 2, t = lane & 3;
+  const float* y0 = Y + 2 * t * S + g;
+  float part[NN][4];
+#pragma unroll
+  for (int n = 0; n < NN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) part[n][e] = 0.0f;
+#pragma unroll
+  for (int kb = 0; kb < KB; ++kb) {
+    uint32_t ah[4], al[4];
+    split<SPLIT>(p[kb][0], ah[0], al[0]);
+    split<SPLIT>(p[kb][2], ah[1], al[1]);
+    split<SPLIT>(p[kb][1], ah[2], al[2]);
+    split<SPLIT>(p[kb][3], ah[3], al[3]);
+    const float* yk = y0 + kb * 8 * S;
+#pragma unroll
+    for (int n = 0; n < NN; ++n) {
+      uint32_t bh0, bh1, bl0, bl1;
+      split<SPLIT>(yk[n * 8], bh0, bl0);
+      split<SPLIT>(yk[S + n * 8], bh1, bl1);
+      mma3<SPLIT>(part[n], ah, al, bh0, bh1, bl0, bl1);
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < NN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] += part[n][e];
+}
+
+// K7b's and K7c's tiles for an instance width DP (a multiple of 32): B
+// rows of the block's own tile and of each streamed tile; NS warps share
+// 16 own rows, each with DC output columns; tiles strided by S = DP + 4
+// floats (S % 32 == 4: conflict-free fragment reads).  Shared memory: the
+// two own tiles, the two streamed tiles twice, and (K7c) lse and delta
+// twice.
+template <int DP>
+struct BwdTile {
+  static constexpr int B = DP <= 64 ? 64 : 32;
+  static constexpr int NS = DP <= 64 ? 1 : DP <= 128 ? 2 : 4;
+  static constexpr int THREADS = 32 * (B / 16) * NS;
+  static constexpr int S = DP + 4;
+  static constexpr int DC = DP / NS;
+  static constexpr int NB = B / 8;
+  static constexpr size_t smem = sizeof(float) * (6 * B * S + 4 * B);
+};
+
+// K7b: one block per (slice, query tile[, chunk of D when WIDE]); warp
+// (rw, cw) owns query rows 16 rw .. 16 rw + 15 and dq columns DC cw .. DC
+// cw + DC - 1.  Per key tile: s = Q K^T and dp = dO V^T (3xTF32), p and ds
+// in registers, dq += ds K.  K and V of the next tile are copied in while
+// this one computes.  WIDE: s and dp sum over every DP-column chunk of D,
+// each staged in turn, and ds K takes the block's own chunk of K.
+template <typename T, int DP, bool WIDE>
+__global__ void __launch_bounds__(BwdTile<DP>::THREADS)
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta, T* __restrict__ dq,
-                        int tq, int tk, int d, float scale, int causal) {
-  constexpr int BQ = tile<DP>(), BK = BQ, R = BQ / 16, J = BK / 16;
-  constexpr int DJ = DP / 16, S = DP + 1, PS = BK + 1;
-  extern __shared__ float smem[];
-  float* Qs = smem;             // BQ x S
-  float* Gs = Qs + BQ * S;      // BQ x S: the rows of do
-  float* Ks = Gs + BQ * S;      // BK x S
-  float* Vs = Ks + BK * S;      // BK x S
-  float* Ds = Vs + BK * S;      // BQ x PS: ds
+                        int tq, int tk, int d, float scale, int causal,
+                        bool async) {
+  using F = BwdTile<DP>;
+  constexpr int B = F::B, S = F::S, NB = F::NB, DC = F::DC, TH = F::THREADS;
+  constexpr bool SPLIT = std::is_same<T, float>::value;
+  extern __shared__ float4 bwd_smem[];
+  float* Qs = reinterpret_cast<float*>(bwd_smem);   // B x S
+  float* Gs = Qs + B * S;                           // B x S: the rows of do
+  float* Ks = Gs + B * S;                           // 2 x B x S
+  float* Vs = Ks + 2 * B * S;                       // 2 x B x S
 
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int rw = warp / F::NS, cw = warp % F::NS;
+  const int g = lane >> 2, t = lane & 3;
   const int64_t bh = blockIdx.x;
-  const int q0 = blockIdx.y * BQ;
+  // heaviest causal tiles first, as K7a
+  const int q0 = (causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * B;
+  const int col0 = (WIDE ? blockIdx.z * DP : 0) + cw * DC;
+  const T* qb = q + bh * tq * d;
+  const T* gb = dout + bh * tq * d;
   const T* kb = k + bh * tk * d;
   const T* vb = v + bh * tk * d;
-  load_tiles<T, BQ, DP, S>(Qs, q + bh * tq * d, Gs, dout + bh * tq * d, q0,
-                           tq, d);
+  const int kend = causal ? min(tk, min(q0 + B, tq)) : tk;
+  const int nt = (kend + B - 1) / B;
 
-  float lrow[R], drow[R], acc[R][DJ];
+  float lr[2], dr[2], acc[DC / 8][4];
 #pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int r = q0 + ty * R + i;
-    lrow[i] = r < tq ? lse[bh * tq + r] : 0.0f;
-    drow[i] = r < tq ? delta[bh * tq + r] : 0.0f;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.0f;
+  for (int i = 0; i < 2; ++i) {
+    const int r = q0 + 16 * rw + g + 8 * i;
+    lr[i] = r < tq ? lse[bh * tq + r] : 0.0f;
+    dr[i] = r < tq ? delta[bh * tq + r] : 0.0f;
   }
+#pragma unroll
+  for (int n = 0; n < DC / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
 
-  const int kend = causal ? min(tk, min(q0 + BQ, tq)) : tk;
-  for (int k0 = 0; k0 < kend; k0 += BK) {
-    __syncthreads();
-    load_tiles<T, BK, DP, S>(Ks, kb, Vs, vb, k0, tk, d);
-    __syncthreads();
-
-    float s[R][J], dp[R][J];
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < J; ++j) s[i][j] = dp[i][j] = 0.0f;
-#pragma unroll 8
-    for (int kk = 0; kk < DP; ++kk) {
-      float a[R], g[R], b[J], c[J];
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        a[i] = Qs[(ty * R + i) * S + kk];
-        g[i] = Gs[(ty * R + i) * S + kk];
-      }
-#pragma unroll
-      for (int j = 0; j < J; ++j) {
-        b[j] = Ks[(tx + 16 * j) * S + kk];
-        c[j] = Vs[(tx + 16 * j) * S + kk];
-      }
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < J; ++j) {
-          s[i][j] = fmaf(a[i], b[j], s[i][j]);
-          dp[i][j] = fmaf(g[i], c[j], dp[i][j]);
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int qpos = q0 + ty * R + i;
-#pragma unroll
-      for (int j = 0; j < J; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        float val = s[i][j] * scale;
-        if (causal && qpos < kpos) val = kNegInf;
-        const float p = kpos < tk ? expf(val - lrow[i]) : 0.0f;
-        const float ds = (p * (dp[i][j] - drow[i])) * scale;
-        Ds[(ty * R + i) * PS + tx + 16 * j] = round_to(ds, k);
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 8
-    for (int c = 0; c < BK; ++c) {
-      float ds[R], kv[DJ];
-#pragma unroll
-      for (int i = 0; i < R; ++i) ds[i] = Ds[(ty * R + i) * PS + c];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) kv[j] = Ks[c * S + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(ds[i], kv[j], acc[i][j]);
-    }
+  if constexpr (!WIDE) {
+    stage_tile<T, B, DP, S, TH>(Qs, qb, q0, tq, d, 0, async);
+    stage_tile<T, B, DP, S, TH>(Gs, gb, q0, tq, d, 0, async);
+    stage_tile<T, B, DP, S, TH>(Ks, kb, 0, tk, d, 0, async);
+    stage_tile<T, B, DP, S, TH>(Vs, vb, 0, tk, d, 0, async);
+    cp_async_commit();
   }
+  for (int j = 0; j < nt; ++j) {
+    const int k0 = j * B;
+    const float* Kj = Ks + (WIDE ? 0 : (j & 1) * B * S);
+    const float* Vj = Vs + (WIDE ? 0 : (j & 1) * B * S);
+    float s[NB][4], dp[NB][4];
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.0f;
+    if constexpr (!WIDE) {
+      cp_async_wait<0>();   // tile j (and, at j == 0, Q and dO)
+      __syncthreads();      // ... for all; all done with tile j - 1
+      if (j + 1 < nt) {
+        const int nb = ((j + 1) & 1) * B * S;
+        stage_tile<T, B, DP, S, TH>(Ks + nb, kb, k0 + B, tk, d, 0, async);
+        stage_tile<T, B, DP, S, TH>(Vs + nb, vb, k0 + B, tk, d, 0, async);
+      }
+      cp_async_commit();
+      rows_product<SPLIT, NB, DP, S>(s, Qs + 16 * rw * S, Kj, lane);
+      rows_product<SPLIT, NB, DP, S>(dp, Gs + 16 * rw * S, Vj, lane);
+    } else {
+      for (int c0 = 0; c0 < d; c0 += DP) {
+        __syncthreads();
+        stage_tile<T, B, DP, S, TH>(Qs, qb, q0, tq, d, c0, async);
+        stage_tile<T, B, DP, S, TH>(Gs, gb, q0, tq, d, c0, async);
+        stage_tile<T, B, DP, S, TH>(Ks, kb, k0, tk, d, c0, async);
+        stage_tile<T, B, DP, S, TH>(Vs, vb, k0, tk, d, c0, async);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+        rows_product<SPLIT, NB, DP, S>(s, Qs + 16 * rw * S, Kj, lane);
+        rows_product<SPLIT, NB, DP, S>(dp, Gs + 16 * rw * S, Vj, lane);
+      }
+      __syncthreads();
+      stage_tile<T, B, DP, S, TH>(Ks, kb, k0, tk, d, col0 - cw * DC, async);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+
+    // p and ds where s and dp lie: rows g + 8 i, keys 8 n + 2 t + (e & 1)
+    const bool edge = k0 + B > tk || (causal && k0 + B - 1 > q0);
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        const int qpos = q0 + 16 * rw + g + 8 * i;
+        const int kpos = k0 + 8 * n + 2 * t + (e & 1);
+        float val = s[n][e] * scale;
+        if (edge && causal && qpos < kpos) val = kNegInf;
+        const float p = edge && kpos >= tk ? 0.0f : __expf(val - lr[i]);
+        s[n][e] = round_to((p * (dp[n][e] - dr[i])) * scale, k);   // ds
+      }
+    acc_product<SPLIT, NB, DC / 8, S>(acc, s, Kj + cw * DC, lane);
+  }
+  cp_async_wait<0>();   // nothing left in flight at exit
 
   T* db = dq + bh * tq * d;
 #pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int r = q0 + ty * R + i;
-    if (r < tq) {
+  for (int i = 0; i < 2; ++i) {
+    const int r = q0 + 16 * rw + g + 8 * i;
+    if (r >= tq) continue;
 #pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        const int c = tx + 16 * j;
-        if (c < d) store(db + (int64_t)r * d + c, acc[i][j]);
+    for (int n = 0; n < DC / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = col0 + 8 * n + 2 * t + e;
+        if (c < d) store(db + (int64_t)r * d + c, acc[n][2 * i + e]);
       }
-    }
   }
 }
 
-// K7c: one block per (slice, key tile); dk and dv accumulate over query
-// tiles, from the diagonal on under a causal mask
-template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads)
+// K7c: one block per (slice, key tile[, chunk of D when WIDE]); warp (rw,
+// cw) owns key rows 16 rw .. 16 rw + 15 and dk, dv columns DC cw .. DC cw
+// + DC - 1.  Per query tile, from the diagonal on under a causal mask: s^T
+// = K Q^T and dp^T = V dO^T (3xTF32), p^T and ds^T in registers, dv +=
+// p^T dO, dk += ds^T Q.  Q, dO, lse and delta of the next tile are copied
+// in while this one computes.  WIDE: s^T and dp^T sum over every
+// DP-column chunk of D, and the products take the block's own chunk of
+// dO and Q.
+template <typename T, int DP, bool WIDE>
+__global__ void __launch_bounds__(BwdTile<DP>::THREADS)
     flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ dout,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta, T* __restrict__ dk,
                          T* __restrict__ dv, int tq, int tk, int d,
-                         float scale, int causal) {
-  constexpr int BK = tile<DP>(), BQ = BK, R = BK / 16, J = BQ / 16;
-  constexpr int DJ = DP / 16, S = DP + 1, PS = BQ + 1;
-  extern __shared__ float smem[];
-  float* Ks = smem;             // BK x S
-  float* Vs = Ks + BK * S;      // BK x S
-  float* Qs = Vs + BK * S;      // BQ x S
-  float* Gs = Qs + BQ * S;      // BQ x S: the rows of do
-  float* Pt = Gs + BQ * S;      // BK x PS: p transposed
-  float* Dt = Pt + BK * PS;     // BK x PS: ds transposed
-  float* Ls = Dt + BK * PS;     // BQ: lse
-  float* Es = Ls + BQ;          // BQ: delta
+                         float scale, int causal, bool async) {
+  using F = BwdTile<DP>;
+  constexpr int B = F::B, S = F::S, NB = F::NB, DC = F::DC, TH = F::THREADS;
+  constexpr bool SPLIT = std::is_same<T, float>::value;
+  extern __shared__ float4 bwd_smem[];
+  float* Ks = reinterpret_cast<float*>(bwd_smem);   // B x S
+  float* Vs = Ks + B * S;                           // B x S
+  float* Qs = Vs + B * S;                           // 2 x B x S
+  float* Gs = Qs + 2 * B * S;                       // 2 x B x S: do
+  float* Ls = Gs + 2 * B * S;                       // 2 x B: lse
+  float* Es = Ls + 2 * B;                           // 2 x B: delta
 
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int rw = warp / F::NS, cw = warp % F::NS;
+  const int g = lane >> 2, t = lane & 3;
   const int64_t bh = blockIdx.x;
-  const int k0 = blockIdx.y * BK;
+  const int k0 = blockIdx.y * B;
+  const int col0 = (WIDE ? blockIdx.z * DP : 0) + cw * DC;
   const T* qb = q + bh * tq * d;
   const T* gb = dout + bh * tq * d;
-  load_tiles<T, BK, DP, S>(Ks, k + bh * tk * d, Vs, v + bh * tk * d, k0, tk,
-                           d);
-
-  float dka[R][DJ], dva[R][DJ];
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) dka[i][j] = dva[i][j] = 0.0f;
-
+  const T* kb = k + bh * tk * d;
+  const T* vb = v + bh * tk * d;
+  const float* lb = lse + bh * tq;
+  const float* eb = delta + bh * tq;
   // under a causal mask the query rows before k0 see none of this tile's
   // keys: start at the query tile that holds row k0
-  const int qstart = causal ? (k0 / BQ) * BQ : 0;
-  for (int q0 = qstart; q0 < tq; q0 += BQ) {
-    __syncthreads();    // the last tile's readers are done (and Ks written)
-    load_tiles<T, BQ, DP, S>(Qs, qb, Gs, gb, q0, tq, d);
-    if (tid < BQ) {
-      const bool in = q0 + tid < tq;
-      Ls[tid] = in ? lse[bh * tq + q0 + tid] : 0.0f;
-      Es[tid] = in ? delta[bh * tq + q0 + tid] : 0.0f;
-    }
-    __syncthreads();
+  const int qstart = causal ? k0 : 0;
+  const int nt = qstart < tq ? (tq - qstart + B - 1) / B : 0;
 
-    float s[R][J], dp[R][J];
+  float dka[DC / 8][4], dva[DC / 8][4];
 #pragma unroll
-    for (int i = 0; i < R; ++i)
+  for (int n = 0; n < DC / 8; ++n)
 #pragma unroll
-      for (int j = 0; j < J; ++j) s[i][j] = dp[i][j] = 0.0f;
-#pragma unroll 8
-    for (int kk = 0; kk < DP; ++kk) {
-      float a[R], c[R], b[J], g[J];
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        a[i] = Ks[(ty * R + i) * S + kk];
-        c[i] = Vs[(ty * R + i) * S + kk];
-      }
-#pragma unroll
-      for (int j = 0; j < J; ++j) {
-        b[j] = Qs[(tx + 16 * j) * S + kk];
-        g[j] = Gs[(tx + 16 * j) * S + kk];
-      }
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < J; ++j) {
-          s[i][j] = fmaf(b[j], a[i], s[i][j]);
-          dp[i][j] = fmaf(g[j], c[i], dp[i][j]);
-        }
-    }
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.0f;
 
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int kpos = k0 + ty * R + i;
-#pragma unroll
-      for (int j = 0; j < J; ++j) {
-        const int qc = tx + 16 * j, qpos = q0 + qc;
-        float val = s[i][j] * scale;
-        if (causal && qpos < kpos) val = kNegInf;
-        const float p = qpos < tq ? expf(val - Ls[qc]) : 0.0f;
-        const float ds = (p * (dp[i][j] - Es[qc])) * scale;
-        Pt[(ty * R + i) * PS + qc] = round_to(p, q);
-        Dt[(ty * R + i) * PS + qc] = round_to(ds, q);
-      }
+  // lse and delta of query rows [q0, q0 + B) into Ls, Es + o
+  auto stage_rows = [&](int q0, int o) {
+    for (int r = threadIdx.x; r < B; r += TH) {
+      const bool in = q0 + r < tq;
+      Ls[o + r] = in ? lb[q0 + r] : 0.0f;
+      Es[o + r] = in ? eb[q0 + r] : 0.0f;
     }
-    __syncthreads();
-
-#pragma unroll 8
-    for (int c = 0; c < BQ; ++c) {
-      float p[R], ds[R], gv[DJ], qv[DJ];
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        p[i] = Pt[(ty * R + i) * PS + c];
-        ds[i] = Dt[(ty * R + i) * PS + c];
-      }
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        gv[j] = Gs[c * S + tx + 16 * j];
-        qv[j] = Qs[c * S + tx + 16 * j];
-      }
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) {
-          dva[i][j] = fmaf(p[i], gv[j], dva[i][j]);
-          dka[i][j] = fmaf(ds[i], qv[j], dka[i][j]);
-        }
-    }
+  };
+  if constexpr (!WIDE) {
+    stage_tile<T, B, DP, S, TH>(Ks, kb, k0, tk, d, 0, async);
+    stage_tile<T, B, DP, S, TH>(Vs, vb, k0, tk, d, 0, async);
+    stage_tile<T, B, DP, S, TH>(Qs, qb, qstart, tq, d, 0, async);
+    stage_tile<T, B, DP, S, TH>(Gs, gb, qstart, tq, d, 0, async);
+    stage_rows(qstart, 0);
+    cp_async_commit();
   }
+  for (int j = 0; j < nt; ++j) {
+    const int q0 = qstart + j * B;
+    const int buf = WIDE ? 0 : j & 1;
+    const float* Qj = Qs + buf * B * S;
+    const float* Gj = Gs + buf * B * S;
+    const float* Lj = Ls + buf * B;
+    const float* Ej = Es + buf * B;
+    float st[NB][4], dpt[NB][4];
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.0f;
+    if constexpr (!WIDE) {
+      cp_async_wait<0>();   // tile j (and, at j == 0, K and V)
+      __syncthreads();      // ... for all; all done with tile j - 1
+      if (j + 1 < nt) {
+        const int nb = ((j + 1) & 1) * B * S;
+        stage_tile<T, B, DP, S, TH>(Qs + nb, qb, q0 + B, tq, d, 0, async);
+        stage_tile<T, B, DP, S, TH>(Gs + nb, gb, q0 + B, tq, d, 0, async);
+        stage_rows(q0 + B, ((j + 1) & 1) * B);
+      }
+      cp_async_commit();
+      rows_product<SPLIT, NB, DP, S>(st, Ks + 16 * rw * S, Qj, lane);
+      rows_product<SPLIT, NB, DP, S>(dpt, Vs + 16 * rw * S, Gj, lane);
+    } else {
+      for (int c0 = 0; c0 < d; c0 += DP) {
+        __syncthreads();
+        stage_tile<T, B, DP, S, TH>(Ks, kb, k0, tk, d, c0, async);
+        stage_tile<T, B, DP, S, TH>(Vs, vb, k0, tk, d, c0, async);
+        stage_tile<T, B, DP, S, TH>(Qs, qb, q0, tq, d, c0, async);
+        stage_tile<T, B, DP, S, TH>(Gs, gb, q0, tq, d, c0, async);
+        if (c0 == 0) stage_rows(q0, 0);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+        rows_product<SPLIT, NB, DP, S>(st, Ks + 16 * rw * S, Qj, lane);
+        rows_product<SPLIT, NB, DP, S>(dpt, Vs + 16 * rw * S, Gj, lane);
+      }
+      __syncthreads();
+      stage_tile<T, B, DP, S, TH>(Qs, qb, q0, tq, d, col0 - cw * DC, async);
+      stage_tile<T, B, DP, S, TH>(Gs, gb, q0, tq, d, col0 - cw * DC, async);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+
+    // p^T and ds^T where s^T and dp^T lie: keys g + 8 i, queries 8 n + 2 t
+    // + (e & 1); p rounded to dO's dtype and ds to Q's before their
+    // products, as on the TPU
+    const bool edge = q0 + B > tq || (causal && q0 < k0 + B - 1);
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kpos = k0 + 16 * rw + g + 8 * (e >> 1);
+        const int qc = 8 * n + 2 * t + (e & 1), qpos = q0 + qc;
+        float val = st[n][e] * scale;
+        if (edge && causal && qpos < kpos) val = kNegInf;
+        const float p = edge && qpos >= tq ? 0.0f : __expf(val - Lj[qc]);
+        const float ds = (p * (dpt[n][e] - Ej[qc])) * scale;
+        st[n][e] = round_to(p, q);
+        dpt[n][e] = round_to(ds, q);
+      }
+    acc_product<SPLIT, NB, DC / 8, S>(dva, st, Gj + cw * DC, lane);
+    acc_product<SPLIT, NB, DC / 8, S>(dka, dpt, Qj + cw * DC, lane);
+  }
+  cp_async_wait<0>();   // nothing left in flight at exit (nt may be 0)
 
   T* dkb = dk + bh * tk * d;
   T* dvb = dv + bh * tk * d;
 #pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int r = k0 + ty * R + i;
-    if (r < tk) {
+  for (int i = 0; i < 2; ++i) {
+    const int r = k0 + 16 * rw + g + 8 * i;
+    if (r >= tk) continue;
 #pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        const int c = tx + 16 * j;
+    for (int n = 0; n < DC / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = col0 + 8 * n + 2 * t + e;
         if (c < d) {
-          store(dkb + (int64_t)r * d + c, dka[i][j]);
-          store(dvb + (int64_t)r * d + c, dva[i][j]);
+          store(dkb + (int64_t)r * d + c, dka[n][2 * i + e]);
+          store(dvb + (int64_t)r * d + c, dva[n][2 * i + e]);
         }
       }
-    }
   }
-}
-
-template <int DP>
-constexpr size_t dq_smem() {
-  return sizeof(float) *
-         (4 * tile<DP>() * (DP + 1) + tile<DP>() * (tile<DP>() + 1));
-}
-template <int DP>
-constexpr size_t dkv_smem() {
-  return sizeof(float) * (4 * tile<DP>() * (DP + 1) +
-                          2 * tile<DP>() * (tile<DP>() + 1) + 2 * tile<DP>());
 }
 
 // the pointers and sizes of one call, as the C entry points take them
@@ -691,98 +898,94 @@ struct Args {
   cudaStream_t st;
 };
 
+// the dynamic shared memory of a kernel, and the largest carveout so that
+// two blocks of up to 105 KB share an SM
 template <typename K>
 int set_smem(K kernel, size_t bytes) {
-  return (int)cudaFuncSetAttribute(
+  int rc = (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (rc != 0) return rc;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+      (int)cudaSharedmemCarveoutMaxShared);
+}
+
+// cp.async moves 16-byte pieces of fp32 rows: d % 4 == 0, aligned starts
+template <typename T>
+bool can_async(const Args& a) {
+  return std::is_same<T, float>::value && a.d % 4 == 0 &&
+         ((uintptr_t)a.q | (uintptr_t)a.k | (uintptr_t)a.v |
+          (uintptr_t)a.dout) % 16 == 0;
+}
+
+// the grid's third axis: chunks of D for the WIDE instances
+template <int DP, bool WIDE>
+unsigned chunks(const Args& a) {
+  return WIDE ? (unsigned)((a.d + DP - 1) / DP) : 1u;
 }
 
 // K7a at instance width DP
-template <typename T, int DP>
+template <typename T, int DP, bool WIDE>
 int launch_fwd(const Args& a) {
   using F = FwdTile<DP>;
-  const dim3 grid((unsigned)a.bh, (unsigned)((a.tq + F::BQ - 1) / F::BQ));
-  // cp.async moves 16-byte pieces of fp32 rows: d % 4 == 0, aligned starts
-  const bool async = std::is_same<T, float>::value && a.d % 4 == 0 &&
-                     ((uintptr_t)a.q | (uintptr_t)a.k | (uintptr_t)a.v) %
-                             16 == 0;
+  const dim3 grid((unsigned)a.bh, (unsigned)((a.tq + F::BQ - 1) / F::BQ),
+                  chunks<DP, WIDE>(a));
   int rc;
-  if ((rc = set_smem(flash_fwd_kernel<T, DP>, F::smem)) != 0) return rc;
-  // two blocks of up to 105 KB share an SM only with the largest carveout
-  if ((rc = (int)cudaFuncSetAttribute(
-           flash_fwd_kernel<T, DP>,
-           cudaFuncAttributePreferredSharedMemoryCarveout,
-           (int)cudaSharedmemCarveoutMaxShared)) != 0)
+  if ((rc = set_smem(flash_fwd_kernel<T, DP, WIDE>, F::smem)) != 0)
     return rc;
-  flash_fwd_kernel<T, DP><<<grid, F::THREADS, F::smem, a.st>>>(
+  flash_fwd_kernel<T, DP, WIDE><<<grid, F::THREADS, F::smem, a.st>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<T*>(a.o), a.lse, a.tq, a.tk,
-      a.d, a.scale, a.causal, async);
+      a.d, a.scale, a.causal, can_async<T>(a));
   return 0;
-}
-
-// K7a: D rounded up to the next multiple of 32
-template <typename T>
-int launch_fwd_d(const Args& a) {
-  switch ((a.d + 31) / 32 * 32) {
-#define MXTT_FWD_CASE(DP) \
-    case DP: return launch_fwd<T, DP>(a);
-    MXTT_FWD_CASE(32)
-    MXTT_FWD_CASE(64)
-    MXTT_FWD_CASE(96)
-    MXTT_FWD_CASE(128)
-    MXTT_FWD_CASE(160)
-    MXTT_FWD_CASE(192)
-    MXTT_FWD_CASE(224)
-    MXTT_FWD_CASE(256)
-#undef MXTT_FWD_CASE
-    default: return (int)cudaErrorInvalidValue;
-  }
 }
 
 // which: 1 = dq (K7b), 2 = dk and dv (K7c)
-template <typename T, int DP>
-int launch(int which, const Args& a) {
-  constexpr int TL = tile<DP>();
-  const unsigned rows = (unsigned)(((which == 2 ? a.tk : a.tq) + TL - 1) / TL);
-  const dim3 grid((unsigned)a.bh, rows);
+template <typename T, int DP, bool WIDE>
+int launch_bwd(int which, const Args& a) {
+  using F = BwdTile<DP>;
+  const unsigned rows =
+      (unsigned)(((which == 2 ? a.tk : a.tq) + F::B - 1) / F::B);
+  const dim3 grid((unsigned)a.bh, rows, chunks<DP, WIDE>(a));
   const T* q = static_cast<const T*>(a.q);
   const T* k = static_cast<const T*>(a.k);
   const T* v = static_cast<const T*>(a.v);
+  const T* g = static_cast<const T*>(a.dout);
   int rc;
   if (which == 1) {
-    constexpr size_t smem = dq_smem<DP>();
-    if ((rc = set_smem(flash_bwd_dq_kernel<T, DP>, smem)) != 0) return rc;
-    flash_bwd_dq_kernel<T, DP><<<grid, kThreads, smem, a.st>>>(
-        q, k, v, static_cast<const T*>(a.dout), a.lse, a.delta,
-        static_cast<T*>(a.dq), a.tq, a.tk, a.d, a.scale, a.causal);
+    if ((rc = set_smem(flash_bwd_dq_kernel<T, DP, WIDE>, F::smem)) != 0)
+      return rc;
+    flash_bwd_dq_kernel<T, DP, WIDE><<<grid, F::THREADS, F::smem, a.st>>>(
+        q, k, v, g, a.lse, a.delta, static_cast<T*>(a.dq), a.tq, a.tk, a.d,
+        a.scale, a.causal, can_async<T>(a));
   } else {
-    constexpr size_t smem = dkv_smem<DP>();
-    if ((rc = set_smem(flash_bwd_dkv_kernel<T, DP>, smem)) != 0) return rc;
-    flash_bwd_dkv_kernel<T, DP><<<grid, kThreads, smem, a.st>>>(
-        q, k, v, static_cast<const T*>(a.dout), a.lse, a.delta,
-        static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.tq, a.tk, a.d,
-        a.scale, a.causal);
+    if ((rc = set_smem(flash_bwd_dkv_kernel<T, DP, WIDE>, F::smem)) != 0)
+      return rc;
+    flash_bwd_dkv_kernel<T, DP, WIDE><<<grid, F::THREADS, F::smem, a.st>>>(
+        q, k, v, g, a.lse, a.delta, static_cast<T*>(a.dk),
+        static_cast<T*>(a.dv), a.tq, a.tk, a.d, a.scale, a.causal,
+        can_async<T>(a));
   }
   return 0;
 }
 
-// K7b, K7c: D rounded up to the next instance width, a multiple of 16 up
-// to 128, of 32 beyond
+template <typename T, int DP, bool WIDE>
+int launch(int which, const Args& a) {
+  return which == 0 ? launch_fwd<T, DP, WIDE>(a)
+                    : launch_bwd<T, DP, WIDE>(which, a);
+}
+
+// D rounded up to the next multiple of 32 up to kMaxD; above it the WIDE
+// instances, kWideD columns a chunk
 template <typename T>
 int launch_d(int which, const Args& a) {
-  if (which == 0) return launch_fwd_d<T>(a);
-  const int dp = a.d <= 128 ? (a.d + 15) / 16 * 16 : (a.d + 31) / 32 * 32;
-  switch (dp) {
+  if (a.d > kMaxD) return launch<T, kWideD, true>(which, a);
+  switch ((a.d + 31) / 32 * 32) {
 #define MXTT_FLASH_CASE(DP) \
-    case DP: return launch<T, DP>(which, a);
-    MXTT_FLASH_CASE(16)
+    case DP: return launch<T, DP, false>(which, a);
     MXTT_FLASH_CASE(32)
-    MXTT_FLASH_CASE(48)
     MXTT_FLASH_CASE(64)
-    MXTT_FLASH_CASE(80)
     MXTT_FLASH_CASE(96)
-    MXTT_FLASH_CASE(112)
     MXTT_FLASH_CASE(128)
     MXTT_FLASH_CASE(160)
     MXTT_FLASH_CASE(192)
@@ -794,9 +997,11 @@ int launch_d(int which, const Args& a) {
 }
 
 int dispatch(int which, const Args& a, int dtype) {
-  // the grid's second axis counts tiles of at least 32 rows of Tq (or Tk)
+  // the grid's second axis counts tiles of at least 32 rows of Tq (or Tk),
+  // its third chunks of 64 columns of D
   if (a.bh <= 0 || a.bh >= (int64_t(1) << 31) || a.tq <= 0 || a.tk <= 0 ||
-      a.tq > 65535 * 32 || a.tk > 65535 * 32 || a.d < 1 || a.d > kMaxD)
+      a.tq > 65535 * 32 || a.tk > 65535 * 32 || a.d < 1 ||
+      a.d > 65535 * kWideD)
     return (int)cudaErrorInvalidValue;
   int rc;
   if (dtype == 0)
@@ -813,7 +1018,7 @@ int dispatch(int which, const Args& a, int dtype) {
 
 // All: q, do, o, dq contiguous (bh, tq, d); k, v, dk, dv contiguous (bh,
 // tk, d); dtype 0 = fp32, 1 = bf16; lse and delta fp32 (bh, tq); 1 <= d <=
-// 256; 1 <= bh < 2^31; 1 <= tq, tk <= 65535 * 32.  Each returns
+// 65535 * 64; 1 <= bh < 2^31; 1 <= tq, tk <= 65535 * 32.  Each returns
 // cudaGetLastError() after the launch (or the error of setting the
 // kernel's shared-memory size).
 

@@ -63,8 +63,8 @@ __all__ = ["scale_bias_relu", "scale_bias_relu_ref", "softmax_lastaxis",
            "flash_attention_fwd_ref", "flash_attention_bwd_dq",
            "flash_attention_bwd_dq_ref", "flash_attention_bwd_dkv",
            "flash_attention_bwd_dkv_ref", "bias_softmax", "bias_softmax_ref",
-           "softmax_bwd", "softmax_bwd_ref", "NEG_INF", "FLASH_MAX_HEAD_DIM",
-           "kernel_calls", "reset_kernel_calls", "family_enabled"]
+           "softmax_bwd", "softmax_bwd_ref", "NEG_INF", "kernel_calls",
+           "reset_kernel_calls", "family_enabled"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -464,11 +464,8 @@ def layernorm_bwd(x, do, gamma, mu, rstd):
 # ---------------------------------------------------------------------------
 # K7a, K7b, K7c: flash attention, forward and backward
 # ---------------------------------------------------------------------------
-# the widest instance of csrc/flash_attention.cu (K7a's instances are D
-# rounded up to 32, K7b's and K7c's D rounded up to 16, to 32 above 128);
-# local_attention's "auto" route sends wider heads to the einsum route
-FLASH_MAX_HEAD_DIM = 256
 _FLASH_MAX_T = 65535 * 32   # 32-row tiles on the grid's second axis
+_FLASH_MAX_D = 65535 * 64   # 64-column chunks of D on the grid's third
 
 
 def _flash_check(name, q, k, v, rows=()):
@@ -498,13 +495,13 @@ def _flash_check(name, q, k, v, rows=()):
 
 
 def _flash_cuda_check(name, q, k, tensors):
-    """What the CUDA kernels take: 1 <= D <= FLASH_MAX_HEAD_DIM, 1 <= T
-    <= 65535 * 32, BH < 2**31, contiguous tensors."""
+    """What the CUDA kernels take: 1 <= D <= 65535 * 64, 1 <= T <= 65535
+    * 32, BH < 2**31, contiguous tensors."""
     bh, tq, d = q.shape
     tk = k.shape[1]
-    if not 1 <= d <= FLASH_MAX_HEAD_DIM:
+    if not 1 <= d <= _FLASH_MAX_D:
         raise MXNetError("%s: the CUDA kernel takes head dims 1 to %d, got "
-                         "%d" % (name, FLASH_MAX_HEAD_DIM, d))
+                         "%d" % (name, _FLASH_MAX_D, d))
     if min(bh, tq, tk) < 1 or max(tq, tk) > _FLASH_MAX_T or bh >= 2 ** 31:
         raise MXNetError("%s: the CUDA kernel takes 1 <= Tq, Tk <= %d and 1 "
                          "<= BH < 2**31, got %s and Tk %d"
@@ -517,8 +514,9 @@ def flash_attention_fwd_ref(q, k, v, causal=False, scale=None):
     """Plain version of K7a: one-shot masked softmax attention in fp32
     over (BH, T, D) tensors, with the kernel's mask (``qpos >= kpos`` from
     a shared origin, masked logits at the finite ``NEG_INF``) and its
-    clamp of the row sum.  Returns ``(o, lse)``: o in q's dtype, lse fp32
-    (BH, Tq)."""
+    clamp of the row sum; p is rounded to v's dtype before ``p v`` and
+    summed unrounded, as the TPU kernel does.  Returns ``(o, lse)``: o in
+    q's dtype, lse fp32 (BH, Tq)."""
     d = q.shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     s = torch.matmul(q.float(), k.float().transpose(1, 2)) * scale
@@ -529,16 +527,16 @@ def flash_attention_fwd_ref(q, k, v, causal=False, scale=None):
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     lsum = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    o = (torch.matmul(p, v.float()) / lsum).to(q.dtype)
+    o = (torch.matmul(_rounded(p, v.dtype), v.float()) / lsum).to(q.dtype)
     return o, (m + torch.log(lsum)).squeeze(-1)
 
 
 def flash_attention_fwd(q, k, v, causal=False, scale=None):
     """K7a: attention over float32 or bfloat16 ``(BH, T, D)`` tensors,
     batch and heads folded into the leading dim (q ``(BH, Tq, D)``, k and
-    v ``(BH, Tk, D)``), any ``D`` up to ``FLASH_MAX_HEAD_DIM`` (the
-    kernel's instance is D rounded up to 32, the padding zero), ``scale``
-    default ``1/sqrt(D)``.  A causal mask keeps ``qpos >= kpos`` with both
+    v ``(BH, Tk, D)``), any ``D`` (the kernel's instance is D rounded up
+    to 32, the padding zero; above 256 the output is computed in chunks of
+    64 columns), ``scale`` default ``1/sqrt(D)``.  A causal mask keeps ``qpos >= kpos`` with both
     counted from 0.  Returns ``(o, lse)``: o ``(BH, Tq, D)`` in q's
     dtype, lse the fp32 ``(BH, Tq)`` row logsumexp (what the backward
     reads)."""

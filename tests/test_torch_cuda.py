@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops import cuda_kernels as ck
 
@@ -257,7 +258,8 @@ def _qkv(bh, tq, tk, d, dtype, device, seed=47):
 
 # fp32: the kernel sums the scores and the weighted values in another order
 # than cuBLAS (64-key tiles with online rescaling against one-shot
-# products over up to 1024 keys), so o and lse agree within 1e-5
+# products over up to 1024 keys), so o and lse agree within 1e-5; D 320
+# and 512 take the instances that split D into chunks of 64 columns
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("bh,tq,tk,d", [(3, 8, 8, 32), (2, 64, 64, 64),
                                         (2, 200, 200, 128), (4, 100, 72, 16),
@@ -270,7 +272,9 @@ def _qkv(bh, tq, tk, d, dtype, device, seed=47):
                                         (2, 129, 129, 64), (2, 1000, 1000, 64),
                                         (2, 1, 1, 128), (2, 127, 127, 128),
                                         (2, 129, 129, 128),
-                                        (2, 1000, 1000, 128)])
+                                        (2, 1000, 1000, 128),
+                                        (2, 200, 200, 320), (2, 65, 90, 320),
+                                        (2, 129, 129, 512)])
 def test_k7a_kernel_matches_plain(cuda, bh, tq, tk, d, causal):
     q, k, v = _qkv(bh, tq, tk, d, torch.float32, cuda)
     before = ck.kernel_calls()["flash_attention_fwd"]
@@ -285,13 +289,32 @@ def test_k7a_kernel_matches_plain(cuda, bh, tq, tk, d, causal):
 
 
 def test_k7a_kernel_bf16_and_scale(cuda):
+    """Two key tiles: the kernel rounds p = exp(s - m) at its running max
+    m, the plain version at the row's, so any p may round to the other
+    side of a step: o within one step of the sum of its terms."""
     q, k, v = _qkv(4, 96, 96, 64, torch.bfloat16, cuda)
     o, lse = ck.flash_attention_fwd(q, k, v, True, scale=0.3)
     ro, rlse = ck.flash_attention_fwd_ref(q, k, v, True, scale=0.3)
     torch.cuda.synchronize()
     assert o.dtype == torch.bfloat16
-    assert _bf16_close(o, ro, 1e-5)
+    terms = chip_smoke.attention_terms(q, k, v, True, False, scale=0.3)
+    assert chip_smoke.bf16_attention_close(o, ro, terms, 1e-5)
     assert (lse - rlse).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_k7a_kernel_rounds_p_to_bf16(cuda, causal):
+    """One key tile (T 64): the kernel's running max is the row's, so it
+    and the plain version round the same p, and only an exp that differs
+    in its last bit can put one p on the other side of a step: o within
+    one step of its largest term.  A kernel that kept p in fp32 would
+    miss this by the rounding of every p."""
+    q, k, v = _qkv(8, 64, 64, 64, torch.bfloat16, cuda, seed=49)
+    o, _ = ck.flash_attention_fwd(q, k, v, causal)
+    ro, _ = ck.flash_attention_fwd_ref(q, k, v, causal)
+    torch.cuda.synchronize()
+    terms = chip_smoke.attention_terms(q, k, v, causal, True)
+    assert chip_smoke.bf16_attention_close(o, ro, terms, 1e-6)
 
 
 # fp32: the same arithmetic as the plain version with the sum in another
@@ -334,9 +357,6 @@ def test_transformer_kernels_raise_on_what_they_do_not_take(cuda):
                torch.zeros(8, device=cuda))
     with pytest.raises(MXNetError, match="float32"):
         ck.layernorm_fwd(x, g.double(), b)
-    q = torch.zeros(2, 8, ck.FLASH_MAX_HEAD_DIM + 1, device=cuda)
-    with pytest.raises(MXNetError, match="head dims 1 to 256"):
-        ck.flash_attention_fwd(q, q, q)
     q = torch.zeros(2, 8, 64, device=cuda)
     with pytest.raises(MXNetError, match="contiguous"):
         ck.flash_attention_fwd(q.transpose(0, 1).contiguous()
@@ -346,10 +366,11 @@ def test_transformer_kernels_raise_on_what_they_do_not_take(cuda):
                         torch.zeros(3, 5, device=cuda))
 
 
-def test_local_attention_wide_heads_take_the_einsum_route(cuda):
-    """Under ``impl="auto"`` a head dim above FLASH_MAX_HEAD_DIM takes the
-    einsum route on the card (no flash launch) and matches it, as the JAX
-    package returns a result at any D; ``impl="flash"`` still raises."""
+def test_local_attention_wide_heads_take_the_flash_route(cuda):
+    """Under ``impl="auto"`` a head dim past the widest instance (D 320)
+    takes the flash route on the card, as the JAX package's condition
+    has no D clause, and matches the einsum route; ``impl="flash"`` gives
+    the same result."""
     from mxnet_tpu_torch.parallel import attention
     rng = np.random.RandomState(50)
     q, k, v = (torch.from_numpy(rng.randn(2, 16, 2, 320).astype(np.float32))
@@ -357,13 +378,12 @@ def test_local_attention_wide_heads_take_the_einsum_route(cuda):
     ck.reset_kernel_calls()
     got = attention.local_attention(q, k, v, causal=True)
     torch.cuda.synchronize()
-    calls = ck.kernel_calls()
-    assert calls["flash_attention_fwd"] == 0
+    assert ck.kernel_calls()["flash_attention_fwd"] == 1
     want = attention.local_attention(q, k, v, causal=True, impl="einsum")
     assert got.shape == q.shape
     assert (got - want).abs().max().item() <= 1e-5
-    with pytest.raises(MXNetError, match="head dims 1 to 256"):
-        attention.local_attention(q, k, v, causal=True, impl="flash")
+    forced = attention.local_attention(q, k, v, causal=True, impl="flash")
+    assert torch.equal(forced, got)
 
 
 @pytest.mark.parametrize("c", [768, 1280, 2048])
@@ -444,11 +464,13 @@ def _flash_bwd_case(bh, tq, tk, d, causal, dtype, device, seed=61):
     return q, k, v, do, lse, delta
 
 
-# fp32: the kernels sum over tiles of 64 (32 past D 128) keys or queries,
-# the plain version in one product, so dq, dk and dv agree within 1e-5 of
-# their largest magnitude; (96, 1024, 64) is one attention of the
-# GPT-2-small training step; T 7, 65 and 1020 leave ragged tiles, Tq !=
-# Tk runs both ways, D 8, 72, 200 and 256 take the padded widths
+# fp32: the kernels sum over tiles of 64 (32 past D 64) keys or queries in
+# 3xTF32 on the tensor cores, the plain version in one fp32 product, so
+# dq, dk and dv agree within 1e-5 of their largest magnitude; (96, 1024,
+# 64) is one attention of the GPT-2-small training step; T 1, 7, 15, 17,
+# 63, 65 and 1020 leave ragged tiles, Tq != Tk runs both ways, D 8, 72,
+# 200 and 256 take the padded widths, D 32 to 256 every instance, D 320
+# and 512 the instances that split D into chunks of 64 columns
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("bh,tq,tk,d", [(3, 8, 8, 32), (2, 64, 64, 64),
                                         (2, 7, 7, 16),
@@ -457,7 +479,12 @@ def _flash_bwd_case(bh, tq, tk, d, causal, dtype, device, seed=61):
                                         (1, 1020, 1020, 64), (2, 24, 40, 64),
                                         (2, 100, 72, 16), (2, 72, 72, 72),
                                         (2, 64, 64, 8), (2, 40, 56, 200),
-                                        (2, 65, 65, 256)])
+                                        (2, 65, 65, 256), (2, 15, 15, 64),
+                                        (2, 17, 17, 64), (2, 63, 63, 64),
+                                        (2, 90, 90, 96), (2, 90, 90, 160),
+                                        (2, 90, 90, 192), (2, 90, 90, 224),
+                                        (2, 100, 100, 320),
+                                        (2, 40, 72, 320), (2, 65, 65, 512)])
 def test_k7b_k7c_kernels_match_plain(cuda, bh, tq, tk, d, causal):
     args = _flash_bwd_case(bh, tq, tk, d, causal, torch.float32, cuda)
     before = ck.kernel_calls()
@@ -541,9 +568,6 @@ def test_backward_kernels_raise_on_what_they_do_not_take(cuda):
         ck.flash_attention_bwd_dq(q, q, q, q, lse.double(), lse)
     with pytest.raises(MXNetError, match="do must be"):
         ck.flash_attention_bwd_dkv(q, q, q, q[:, :4], lse, lse)
-    wide = torch.zeros(2, 8, 300, device=cuda)
-    with pytest.raises(MXNetError, match="head dims 1 to 256"):
-        ck.flash_attention_bwd_dq(wide, wide, wide, wide, lse, lse)
     with pytest.raises(MXNetError, match="share shape"):
         ck.softmax_bwd(x, x[:, :4])
     with pytest.raises(MXNetError, match="contiguous"):

@@ -406,3 +406,47 @@ def test_sweep_wrapper_rejects_bad_operands():
         ck.adam_sweep(w, w.clone(), w.clone(), w[:5].clone(), torch.zeros(8))
     with pytest.raises(MXNetError, match="slots"):
         ck._sweep("sgd_mom_sweep", w, w.clone(), (), torch.zeros(4), False)
+
+
+# ---------------------------------------------------------------------------
+# chip_smoke.py's bounds for K7b and K7c (computed from shapes, no card)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("n_out,n_prod,tensor_ms,cuda_core_ms",
+                         [(1, 3, 0.11737, 0.28875), (2, 4, 0.15649, 0.38500)])
+def test_chip_smoke_flash_backward_bounds(n_out, n_prod, tensor_ms,
+                                          cuda_core_ms):
+    """At the training step's (96, 1024, 64) causal shape: ``n_prod``
+    products of 2 D operations over the 524,800 visible pairs of each
+    slice, over the H100's dense TF32 rate three times (3xTF32) and over
+    its fp32 CUDA-core rate; both bound by operations, not bytes."""
+    import chip_smoke
+    bw, fp32, tf32 = chip_smoke.card_rates("NVIDIA H100 80GB HBM3")
+    assert (bw, fp32, tf32) == (3.35e12, 67e12, 494.5e12)
+    ops, (cms, cby), (tms, tby) = chip_smoke.flash_bwd_bound(
+        96, 1024, 1024, 64, True, n_out, n_prod, bw, fp32, tf32)
+    assert ops == 2 * 64 * n_prod * 96 * 524800
+    assert cby == tby == "operations"
+    assert abs(tms - tensor_ms) < 1e-5 and abs(cms - cuda_core_ms) < 1e-5
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_chip_smoke_attention_terms(causal):
+    """The per-element bf16 bound of K7a's check: the terms ``w_j |v_j|``
+    of each output, their largest at most their sum, and the sum equal
+    to the weights times ``|v|``."""
+    import chip_smoke
+    rng = np.random.RandomState(110)
+    q, k, v = (torch.from_numpy(rng.randn(2, 9, 8).astype(np.float32))
+               for _ in range(3))
+    top = chip_smoke.attention_terms(q, k, v, causal, largest=True)
+    total = chip_smoke.attention_terms(q, k, v, causal, largest=False)
+    s = torch.matmul(q, k.transpose(1, 2)) / 8 ** 0.5
+    if causal:
+        s = s.masked_fill(~torch.ones(9, 9, dtype=torch.bool).tril(),
+                          ck.NEG_INF)
+    w = torch.softmax(s, -1)
+    assert top.shape == total.shape == q.shape
+    assert torch.allclose(total, w @ v.abs(), atol=1e-6)
+    assert bool((top <= total + 1e-7).all())
+    if causal:   # the first query sees only the first key
+        assert torch.allclose(top[:, 0], v[:, 0].abs(), atol=1e-6)
