@@ -566,17 +566,25 @@ def serve(mx, ck, ctx, sym, image, n_sites, max_batch=BATCH,
     }
 
 
+# the kernels of softmax.cu by fragments of their names as the profiler
+# prints them ("void (anonymous namespace)::softmax_regs_kernel<float, 32,
+# 4, 1>(...)"): K5b's softmax_bwd_{regs,rows}_kernel, K5a's
+# bias_softmax_{regs,rows}_kernel, K2's softmax_{regs,rows}_kernel; the
+# leading "::" keeps each kind's fragments out of the others' names
+SOFTMAX_KINDS = (("K5b", ("::softmax_bwd_",)), ("K5a", ("::bias_softmax_",)),
+                 ("K2", ("::softmax_regs_", "::softmax_rows_")))
+
 # kinds of kernel in a profile, by fragments of the kernel's name; the
 # first kind that matches wins
-KINDS = (("K3", ("scale_bias_relu",)), ("K2", ("softmax_rows",)),
-         ("K1a/K1b/K4 sweep", ("sweep_kernel",)),
-         ("convolution", ("xmma", "conv", "implicit", "gemm", "cudnn",
-                          "wgrad", "dgrad")),
-         ("copy to device", ("Memcpy HtoD",)),
-         ("copy to host", ("Memcpy DtoH",)),
-         ("reduction", ("reduce_kernel",)),
-         ("elementwise", ("elementwise", "vectorized")),
-         ("pooling", ("pool",)))
+KINDS = (("K3", ("scale_bias_relu",)),) + SOFTMAX_KINDS + (
+    ("K1a/K1b/K4 sweep", ("sweep_kernel",)),
+    ("convolution", ("xmma", "conv", "implicit", "gemm", "cudnn", "wgrad",
+                     "dgrad")),
+    ("copy to device", ("Memcpy HtoD",)),
+    ("copy to host", ("Memcpy DtoH",)),
+    ("reduction", ("reduce_kernel",)),
+    ("elementwise", ("elementwise", "vectorized")),
+    ("pooling", ("pool",)))
 
 
 def by_kind(by_name, kinds=KINDS):
@@ -1053,36 +1061,80 @@ def causal_bias(t, dev):
     return torch.where(keep, 0.0, -1e30).to(torch.float32)
 
 
+# C at the edges of the register instances of softmax.cu (4, 8, 16 or 32
+# values a lane: C <= 128, 256, 512, 1024), with 16-byte loads where C %
+# 4 == 0 (bf16: % 8, or 8-byte loads at % 4) and scalar ones elsewhere,
+# and past them (1025, 4097: the strided loop)
+SOFTMAX_EDGE_C = (1, 31, 32, 33, 99, 100, 128, 129, 255, 256, 511, 512, 513,
+                  999, 1000, 1020, 1024, 1025, 4097)
+
+
+def offset_view(t, k):
+    """A contiguous copy of ``t`` starting ``k`` elements past an aligned
+    allocation: every 16-byte (and 8-byte bf16) load then falls back to
+    scalar ones."""
+    out = torch.empty(t.numel() + k, dtype=t.dtype, device=t.device)[k:]
+    return out.view(t.shape).copy_(t)
+
+
+def softmax_edge_cases(gen, dev):
+    """(x fp32, bias, masked, off, what) at every C of ``SOFTMAX_EDGE_C``
+    below 1024 rows, (2, 3, C), and from there on, (3, 343, C) and (5,
+    205, C): not a multiple of four rows a block; the bias causal with row
+    1 masked entirely (that row comes out uniform), ``masked`` the columns
+    that must come out 0.  Then four C again with ``off`` set: the caller
+    views x one element off its alignment."""
+    cases = [((b, r, c), False) for b, r in ((2, 3), (3, 343), (5, 205))
+             for c in SOFTMAX_EDGE_C]
+    cases += [((3, 343, c), True) for c in (100, 256, 512, 1020)]
+    for shape, off in cases:
+        r, c = shape[1:]
+        keep = torch.ones((r, c), dtype=torch.bool, device=dev).tril()
+        keep[1] = False
+        bias = torch.where(keep, 0.0, -1e30).to(torch.float32)
+        masked = ~keep
+        masked[1] = False
+        x = torch.randn(shape, generator=gen, device=dev) * 3
+        yield x, bias, masked, off, "%s%s" % (shape, " offset" if off else "")
+
+
 def check_k5a(ck, dev, bw, flops, bh=LM_BATCH * GPT2_SMALL["num_heads"],
               t=LM_T[1]):
     """K5a against its plain version at the transformer's shape with the
-    causal bias and with a zero bias (no mask): fp32 within 1e-6 (the sum
-    in another order, as K2); bf16 within one bf16 rounding of the
-    magnitude plus 1e-6, since both compute in fp32 and round once (a
-    flat 1e-2 would be ten times a typical probability of 1/1020); masked
-    columns exactly 0.  Returns its record and its timing job, causal
-    fp32."""
+    causal bias and with a zero bias (no mask), and at every case of
+    ``softmax_edge_cases``: fp32 within 1e-6 (the sum in another order, as
+    K2); bf16 within one bf16 rounding of the magnitude plus 1e-6, since
+    both compute in fp32 and round once (a flat 1e-2 would be ten times a
+    typical probability of 1/1020); masked columns exactly 0.  Returns its
+    record and its timing job, causal fp32."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 6)
     worst = 0.0
+
+    def held(x, bias, masked, what):
+        y = ck.bias_softmax(x, bias)
+        ref = ck.bias_softmax_ref(x, bias)
+        torch.cuda.synchronize()
+        err = (y.float() - ref.float()).abs().max().item()
+        f32 = x.dtype == torch.float32
+        close = err <= 1e-6 if f32 else _bf16_close(y, ref, 1e-6)
+        zero = bool((y[..., masked] == 0).all())
+        if y.dtype != x.dtype or not close or not zero:
+            raise AssertionError("K5a at %s %s: max |d| %g, masked columns "
+                                 "zero: %s" % (what, x.dtype, err, zero))
+        return err if f32 else 0.0
+
     causal = causal_bias(t, dev)
     for bias, dt in ((causal, torch.float32),
                      (torch.zeros_like(causal), torch.float32),
                      (causal, torch.bfloat16)):
         x = (torch.randn((bh, t, t), generator=gen, device=dev) * 3).to(dt)
-        y = ck.bias_softmax(x, bias)
-        ref = ck.bias_softmax_ref(x, bias)
-        torch.cuda.synchronize()
-        err = (y.float() - ref.float()).abs().max().item()
-        close = (err <= 1e-6 if dt == torch.float32
-                 else _bf16_close(y, ref, 1e-6))
-        masked = bool((y[:, bias < 0] == 0).all())
-        del ref
-        if y.dtype != dt or not close or not masked:
-            raise AssertionError("K5a at %s %s: max |d| %g, masked columns "
-                                 "zero: %s" % ((bh, t, t), dt, err, masked))
-        if dt == torch.float32:
-            worst = max(worst, err)
-        del x, y
+        worst = max(worst, held(x, bias, bias < 0, (bh, t, t)))
+        del x
+    for x32, bias, masked, off, what in softmax_edge_cases(gen, dev):
+        for dt in (torch.float32, torch.bfloat16):
+            x = x32.to(dt)
+            worst = max(worst, held(offset_view(x, 1) if off else x, bias,
+                                    masked, what))
     x = torch.randn((bh, t, t), generator=gen, device=dev) * 3
     bms, by = bound_ms(2 * x.numel() * 4 + causal.numel() * 4,
                        5 * x.numel(), bw, flops)
@@ -1315,12 +1367,29 @@ def check_k7bc(ck, dev, bw, flops, tf32,
 def check_k5b(ck, dev, bw, flops, bh=LM_BATCH * GPT2_SMALL["num_heads"],
               t=LM_T[1]):
     """K5b against its plain version at the training step's shape, with
-    the causal probabilities K5a gives and with unmasked ones: fp32
-    within 1e-5 of the largest |dx| (the row dot in another order), bf16
-    within one rounding; a masked probability (exactly 0) gives a dx of
-    exactly 0.  Returns its record and its timing job, causal fp32."""
+    the causal probabilities K5a gives and with unmasked ones, and at
+    every case of ``softmax_edge_cases`` (p and do one element off their
+    alignment where x is): fp32 within 1e-5 of the largest |dx| (the row
+    dot in another order), bf16 within one rounding; a masked probability
+    (exactly 0) gives a dx of exactly 0.  Returns its record and its
+    timing job, causal fp32."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 9)
     worst = 0.0
+
+    def held(p, do, masked, what):
+        dx = ck.softmax_bwd(p, do)
+        ref = ck.softmax_bwd_ref(p, do)
+        torch.cuda.synchronize()
+        err = rel_err(dx, ref)
+        f32 = p.dtype == torch.float32
+        close = err <= 1e-5 if f32 else _bf16_bwd_close(dx, ref)
+        zero = bool((dx[..., masked] == 0).all())
+        if dx.dtype != p.dtype or not close or not zero:
+            raise AssertionError("K5b at %s %s: max |d| %g of the largest, "
+                                 "masked columns zero: %s"
+                                 % (what, p.dtype, err, zero))
+        return (dx - ref).abs().max().item() if f32 else 0.0
+
     causal = causal_bias(t, dev)
     for bias, dt in ((causal, torch.float32),
                      (torch.zeros_like(causal), torch.float32),
@@ -1329,21 +1398,15 @@ def check_k5b(ck, dev, bw, flops, bh=LM_BATCH * GPT2_SMALL["num_heads"],
         p = ck.bias_softmax(x, bias)
         del x
         do = torch.randn((bh, t, t), generator=gen, device=dev).to(dt)
-        dx = ck.softmax_bwd(p, do)
-        ref = ck.softmax_bwd_ref(p, do)
-        torch.cuda.synchronize()
-        err = rel_err(dx, ref)
-        close = (err <= 1e-5 if dt == torch.float32
-                 else _bf16_bwd_close(dx, ref))
-        masked = bool((dx[:, bias < 0] == 0).all())
-        if dt == torch.float32:
-            worst = max(worst, (dx - ref).abs().max().item())
-        del ref, p, do
-        if dx.dtype != dt or not close or not masked:
-            raise AssertionError("K5b at %s %s: max |d| %g of the largest, "
-                                 "masked columns zero: %s"
-                                 % ((bh, t, t), dt, err, masked))
-        del dx
+        worst = max(worst, held(p, do, bias < 0, (bh, t, t)))
+        del p, do
+    for x32, bias, masked, off, what in softmax_edge_cases(gen, dev):
+        do32 = torch.randn(x32.shape, generator=gen, device=dev)
+        for dt in (torch.float32, torch.bfloat16):
+            p, do = ck.bias_softmax(x32.to(dt), bias), do32.to(dt)
+            if off:
+                p, do = offset_view(p, 1), offset_view(do, 1)
+            worst = max(worst, held(p, do, masked, what))
     p = ck.bias_softmax(torch.randn((bh, t, t), generator=gen, device=dev)
                         * 3, causal)
     do = torch.randn((bh, t, t), generator=gen, device=dev)
@@ -1462,14 +1525,13 @@ def lm_forward(ck, lm, tokens, reps=3):
 
 
 # kinds of kernel in a transformer forward's profile; the first match wins
-LM_KINDS = (("K6a", ("layernorm_fwd",)), ("K7a", ("flash_fwd",)),
-            ("K5a", ("bias_softmax",)), ("K2", ("softmax_rows",)),
-            ("GEMM", ("gemm", "xmma", "cutlass", "cublas")),
-            ("embedding", ("indexSelect", "index_select", "embedding",
-                           "gather")),
-            ("copy", ("Memcpy", "copy")),
-            ("reduction", ("reduce_kernel",)),
-            ("elementwise", ("elementwise", "vectorized")))
+LM_KINDS = (("K6a", ("layernorm_fwd",)), ("K7a", ("flash_fwd",))) \
+    + SOFTMAX_KINDS + (
+    ("GEMM", ("gemm", "xmma", "cutlass", "cublas")),
+    ("embedding", ("indexSelect", "index_select", "embedding", "gather")),
+    ("copy", ("Memcpy", "copy")),
+    ("reduction", ("reduce_kernel",)),
+    ("elementwise", ("elementwise", "vectorized")))
 
 
 def profile_lm(lm, tokens, fwd_ms):
@@ -1646,12 +1708,11 @@ def lm_train(mx, ck, lm, x, y, warmup=LM_TRAIN_WARMUP, steps=LM_TRAIN_STEPS):
 
 
 # kinds of kernel in a transformer training step's profile; the first
-# match wins (K5b's name holds K2's fragment, so it comes first)
+# match wins
 LM_TRAIN_KINDS = (
     ("K6a", ("layernorm_fwd",)), ("K6b", ("layernorm_bwd",)),
     ("K7a", ("flash_fwd",)), ("K7b", ("flash_bwd_dq",)),
-    ("K7c", ("flash_bwd_dkv",)), ("K5b", ("softmax_bwd_rows",)),
-    ("K5a", ("bias_softmax",)), ("K2", ("softmax_rows",)),
+    ("K7c", ("flash_bwd_dkv",))) + SOFTMAX_KINDS + (
     ("loss", ("SoftMax", "softmax_warp", "log_softmax", "gather",
               "scatter")),
     ("GEMM", ("gemm", "xmma", "cutlass", "cublas")),
@@ -1867,7 +1928,9 @@ def main():
           "rounded before p v) within one rounding of o plus one of its "
           "largest term at T 64 and of the sum of its terms at T 1024; "
           "K5a within 1e-6 (fp32) and one bf16 rounding at (96, 1020, 1020), "
-          "causal bias and none", flush=True)
+          "causal bias and none, and at C %s at (2, 3, C), (3, 343, C) and "
+          "(5, 205, C) (row 1 masked entirely), C 100/256/512/1020 one "
+          "element off their alignment" % (SOFTMAX_EDGE_C,), flush=True)
 
     # 10. the transformer path: GPT-2-small widths, both attention routes
     lm = transformer_lm(mx, mx.gpu(0))
@@ -1927,7 +1990,8 @@ def main():
           "1/7/15/17/63/65/1020, Tq != Tk and D 8-512 (every instance, 320 "
           "and 512 chunked), bf16 within one rounding; K5b within "
           "1e-5 of the largest at (96, 1020, 1020), causal and unmasked, "
-          "bf16 within one rounding, masked columns exactly 0", flush=True)
+          "and at K5a's edge cases, bf16 within one rounding, masked "
+          "columns exactly 0", flush=True)
 
     # 12. the transformer training path: GPT-2-small widths, both routes
     attn_fwd = {LM_T[0]: ("flash_attention_fwd", "flash_attention_bwd_dq",

@@ -675,7 +675,9 @@ def bias_softmax(x, bias):
     bfloat16 tensor ``x`` of shape ``(..., R, C)``, with a float32 ``(R,
     C)`` bias shared over x's leading dims (the attention-mask form: 0
     where a key is visible, ``NEG_INF`` where it is masked); max and sum
-    in fp32, output in x's dtype."""
+    in fp32, output in x's dtype.  Rows of up to 1024 columns are read
+    once into registers with their bias row, in K2's two layouts; wider
+    rows take the strided three-pass loop."""
     if bias.dim() != 2 or x.dim() < 2 or x.shape[-2] != bias.shape[0] \
             or x.shape[-1] != bias.shape[1]:
         raise MXNetError("bias_softmax: bias rows (%s) must equal x's "
@@ -713,7 +715,9 @@ def softmax_bwd(p, do):
     """K5b: the input gradient of a last-axis softmax from its output
     ``p`` and the output's gradient ``do`` (float32 or bfloat16, one
     shape and dtype, any shape; rows = the product of the leading dims).
-    The row dot runs in fp32; dx comes back in p's dtype."""
+    The row dot runs in fp32; dx comes back in p's dtype.  Rows of up to
+    1024 columns are read once into registers (one warp a row); wider
+    rows take a strided two-pass loop."""
     if p.dim() < 1 or do.shape != p.shape or do.dtype != p.dtype \
             or do.device != p.device:
         raise MXNetError("softmax_bwd: p and do must share shape, dtype and "

@@ -317,35 +317,104 @@ def test_k7a_kernel_rounds_p_to_bf16(cuda, causal):
     assert chip_smoke.bf16_attention_close(o, ro, terms, 1e-6)
 
 
-# fp32: the same arithmetic as the plain version with the sum in another
-# order, as K2 (1e-6); bf16: both compute in fp32 and round once, so
-# within one bf16 rounding of the magnitude (plus 1e-6); a masked column
-# comes out exactly 0
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(6, 40, 40), (2, 3, 17, 1020), (5, 1, 7)])
-@pytest.mark.parametrize("causal", [True, False])
-def test_k5a_kernel_matches_plain(cuda, shape, causal, dtype):
-    rng = np.random.RandomState(48)
+# C across the register instances (4, 8, 16, 32 values a lane: C <= 128,
+# 256, 512, 1024) and past them (1025, the strided loop), below 1024 rows
+# (one row a block of 1-8 warps) and from there on (one warp a row, 1029
+# and 1025 rows: not a multiple of the four a block; 2400 rows of a 4-D
+# x).  Cases: "offset" views x one
+# element past an aligned base (scalar loads), "bias offset" the bias
+# (scalar loads though x is aligned), "masked row" masks bias row 1
+# entirely (the row comes out uniform, 1 / C), "nan row" puts a NaN in
+# row 1 of every batch (the row comes out NaN).
+_SOFTMAX_EDGE_SHAPES = [
+    (2, 3, c) for c in (1, 31, 32, 33, 128, 129, 512, 513, 1000, 1020, 1024,
+                        1025)] + [
+    (3, 343, c) for c in (31, 32, 33, 128, 129, 512, 513, 1000, 1020, 1024,
+                          1025)] + [
+    (5, 205, c) for c in (32, 129, 513, 1020)] + [(2, 3, 400, 100)]
+_SOFTMAX_CASES = [((6, 40, 40), ""), ((2, 3, 17, 1020), ""), ((5, 1, 7), "")] \
+    + [(shape, "") for shape in _SOFTMAX_EDGE_SHAPES] + [
+    ((2, 3, 17, 1020), "offset"), ((3, 343, 1020), "offset"),
+    ((2, 3, 256), "offset"), ((3, 343, 1020), "bias offset"),
+    ((2, 3, 17, 1020), "masked row"), ((3, 343, 1020), "masked row"),
+    ((2, 3, 17, 1020), "nan row"), ((3, 343, 1020), "nan row"),
+    ((3, 343, 1025), "nan row")]
+
+
+def _offset(t, offset):
+    """A contiguous copy of ``t`` whose data start ``offset`` elements past
+    an aligned allocation."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    out = buf[offset:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _softmax_case_inputs(shape, case, causal, dtype, device, seed):
+    """x (``shape``, ``dtype``) and its fp32 (R, C) bias for a K5a case:
+    causal 0 / NEG_INF, or 0.5 randn; see ``_SOFTMAX_CASES``."""
+    rng = np.random.RandomState(seed)
     x = torch.from_numpy((rng.randn(*shape) * 3).astype(np.float32))
     r, c = shape[-2:]
     bias = torch.from_numpy((rng.randn(r, c) * 0.5).astype(np.float32))
     if causal:
         bias = torch.where(torch.ones(r, c, dtype=torch.bool).tril(),
                            0.0, ck.NEG_INF)
-    x, bias = x.to(cuda, dtype), bias.to(cuda)
+    if case == "masked row":
+        bias[min(1, r - 1)] = ck.NEG_INF
+    if case == "nan row":
+        x[..., min(1, r - 1), c // 2] = float("nan")
+    x, bias = x.to(device, dtype), bias.to(device)
+    if case == "offset":
+        x = _offset(x, 1)
+    if case == "bias offset":
+        bias = _offset(bias, 1)
+    return x, bias
+
+
+def _close_with_nan(got, ref, f32_tol):
+    """NaN exactly where the plain version has it; elsewhere fp32 within
+    ``f32_tol`` or bf16 within one rounding of the magnitude."""
+    nan = torch.isnan(ref)
+    if not torch.equal(torch.isnan(got), nan):
+        return False
+    got, ref = got[~nan], ref[~nan]
+    if got.dtype == torch.float32:
+        return (got - ref).abs().max().item() <= f32_tol
+    return _bf16_close(got, ref, f32_tol)
+
+
+# fp32: the same arithmetic as the plain version with the sum in another
+# order, as K2 (1e-6); bf16: both compute in fp32 and round once, so
+# within one bf16 rounding of the magnitude (plus 1e-6); a masked column
+# comes out exactly 0
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,case", _SOFTMAX_CASES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_k5a_kernel_matches_plain(cuda, shape, case, causal, dtype):
+    x, bias = _softmax_case_inputs(shape, case, causal, dtype, cuda, 48)
+    r, c = shape[-2:]
     before = ck.kernel_calls()["bias_softmax"]
     y = ck.bias_softmax(x, bias)
     ref = ck.bias_softmax_ref(x, bias)
     torch.cuda.synchronize()
     assert ck.kernel_calls()["bias_softmax"] == before + 1
     assert y.dtype == dtype and y.shape == x.shape
-    if dtype == torch.float32:
-        assert (y - ref).abs().max().item() <= 1e-6
-    else:
-        assert _bf16_close(y, ref, 1e-6)
+    assert _close_with_nan(y, ref, 1e-6)
+    row = min(1, r - 1)
+    if case == "nan row":
+        assert torch.isnan(y[..., row, :]).all()
+        assert not torch.isnan(y[..., :row, :]).any()
+    if case == "masked row":
+        assert torch.equal(y[..., row, :], ref[..., row, :])
+        assert (y[..., row, :] == y[..., row, :1]).all()
     if causal:
-        assert (y[..., ~torch.ones(r, c, dtype=torch.bool,
-                                   device=cuda).tril()] == 0).all()
+        masked = ~torch.ones(r, c, dtype=torch.bool, device=cuda).tril()
+        if case in ("masked row", "nan row"):
+            masked[row] = False
+        assert (y[..., masked] == 0).all()
+    if c == 1 and case == "":
+        assert (y == 1).all()
 
 
 def test_transformer_kernels_raise_on_what_they_do_not_take(cuda):
@@ -528,31 +597,44 @@ def test_k7b_k7c_kernels_bf16_and_scale(cuda):
 
 # fp32: the row dot runs in another order than torch's sum, so dx agrees
 # within 1e-5 of its largest magnitude; a masked probability (exactly 0)
-# gives a dx of exactly 0
+# gives a dx of exactly 0.  The K5a cases, causal probabilities: "offset"
+# views p and do one element past an aligned base (scalar loads), "nan
+# row" puts a NaN in row 1's do (dx's row 1 comes out NaN).
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(6, 40, 40), (2, 3, 17, 1020), (5, 1, 7),
-                                   (4, 1), (3, 4097), (96, 1020, 1020)])
-def test_k5b_kernel_matches_plain(cuda, shape, dtype):
-    rng = np.random.RandomState(62)
-    x = torch.from_numpy((rng.randn(*shape) * 3).astype(np.float32))
-    do = torch.from_numpy(rng.randn(*shape).astype(np.float32))
+@pytest.mark.parametrize("shape,case", [
+    ((4, 1), ""), ((3, 4097), ""), ((96, 1020, 1020), "")] + [
+    c for c in _SOFTMAX_CASES if c[1] != "bias offset"])
+def test_k5b_kernel_matches_plain(cuda, shape, case, dtype):
+    x, bias = _softmax_case_inputs(shape, "masked row" if case == "masked row"
+                                   else "", True, dtype, cuda, 62)
+    do = torch.from_numpy(np.random.RandomState(63).randn(*shape)
+                          .astype(np.float32))
     r, c = shape[-2:]
-    bias = torch.where(torch.ones(r, c, dtype=torch.bool).tril(), 0.0,
-                       ck.NEG_INF)
-    p = ck.bias_softmax(x.to(cuda, dtype), bias.to(cuda))
+    row = min(1, r - 1)
+    if case == "nan row":
+        do[..., row, c // 2] = float("nan")
+    p = ck.bias_softmax(x, bias)
     do = do.to(cuda, dtype)
+    if case == "offset":
+        p, do = _offset(p, 1), _offset(do, 1)
     before = ck.kernel_calls()["softmax_bwd"]
     dx = ck.softmax_bwd(p, do)
     ref = ck.softmax_bwd_ref(p, do)
     torch.cuda.synchronize()
     assert ck.kernel_calls()["softmax_bwd"] == before + 1
     assert dx.dtype == dtype and dx.shape == p.shape
+    nan = torch.isnan(ref)
+    assert torch.equal(torch.isnan(dx), nan)
+    if case == "nan row":
+        assert nan[..., row, :].all() and not nan[..., :row, :].any()
     if dtype == torch.float32:
-        assert _rel_err(dx, ref) <= 1e-5
+        assert _rel_err(dx[~nan], ref[~nan]) <= 1e-5
     else:
-        assert _bf16_bwd_close(dx, ref)
-    assert (dx[..., ~torch.ones(r, c, dtype=torch.bool,
-                                device=cuda).tril()] == 0).all()
+        assert _bf16_bwd_close(dx[~nan], ref[~nan])
+    masked = ~torch.ones(r, c, dtype=torch.bool, device=cuda).tril()
+    if case in ("masked row", "nan row"):
+        masked[row] = False
+    assert (dx[..., masked] == 0).all()
 
 
 def test_backward_kernels_raise_on_what_they_do_not_take(cuda):

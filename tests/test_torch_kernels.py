@@ -9,6 +9,7 @@ versions on the card by chip_smoke.py.
 import os
 import shutil
 
+import jax
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -155,6 +156,43 @@ def test_k2_plain_bf16_keeps_dtype_and_matches_fp32():
     ref = ck.softmax_lastaxis_ref(torch.from_numpy(x).to(torch.bfloat16)
                                   .float())
     np.testing.assert_allclose(got.float().numpy(), ref.numpy(), atol=1e-2)
+
+
+# ---------------------------------------------------------------------------
+# K5a and K5b at the rows whose meaning the kernels keep (C 128 and 1: no
+# padding of the TPU kernel's 128 lanes changes them)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("case", ["masked row", "nan row", "one column"])
+def test_k5a_k5b_plain_match_jax_at_masked_and_nan_rows(case):
+    """A row the bias masks entirely comes out uniform, a NaN makes its
+    row NaN (p and dx), one column gives exactly 1: the plain versions
+    against ``fused_bias_softmax`` and its ``jax.vjp``, within 1e-6."""
+    rng = np.random.RandomState(15)
+    c = 1 if case == "one column" else 128
+    x = (rng.randn(2, 4, c) * 3).astype(np.float32)
+    do = rng.randn(2, 4, c).astype(np.float32)
+    bias = np.where(np.tril(np.ones((4, c), bool)), 0.0,
+                    pk.NEG_INF).astype(np.float32)
+    if case == "masked row":
+        bias[1] = pk.NEG_INF
+    if case == "nan row":
+        x[:, 1, 5] = np.nan
+    want_p, vjp = jax.vjp(pk.fused_bias_softmax, jnp.asarray(x),
+                          jnp.asarray(bias))
+    want_dx = vjp(jnp.asarray(do))[0]
+    p = ck.bias_softmax(torch.from_numpy(x), torch.from_numpy(bias))
+    dx = ck.softmax_bwd(p, torch.from_numpy(do))
+    np.testing.assert_allclose(p.numpy(), np.asarray(want_p), rtol=0,
+                               atol=1e-6)
+    np.testing.assert_allclose(dx.numpy(), np.asarray(want_dx), rtol=1e-6,
+                               atol=1e-6)
+    if case == "masked row":
+        assert (p[:, 1] == p[:, 1, :1]).all()
+    if case == "nan row":
+        assert torch.isnan(p[:, 1]).all() and torch.isnan(dx[:, 1]).all()
+        assert not torch.isnan(p[:, 0]).any()
+    if case == "one column":
+        assert (p == 1).all()
 
 
 # ---------------------------------------------------------------------------
@@ -450,3 +488,47 @@ def test_chip_smoke_attention_terms(causal):
     assert bool((top <= total + 1e-7).all())
     if causal:   # the first query sees only the first key
         assert torch.allclose(top[:, 0], v[:, 0].abs(), atol=1e-6)
+
+
+# the kernels of softmax.cu as torch.profiler names them, and the kind each
+# must land in
+_SOFTMAX_KERNEL_NAMES = [
+    ("void (anonymous namespace)::softmax_regs_kernel<float, 32, 4, 1>"
+     "(float const*, float*, long, int)", "K2"),
+    ("void (anonymous namespace)::softmax_regs_kernel<__nv_bfloat16, 4, 4, 8>"
+     "(__nv_bfloat16 const*, __nv_bfloat16*, long, int)", "K2"),
+    ("void (anonymous namespace)::softmax_rows_kernel<float>(float const*, "
+     "float*, long, long)", "K2"),
+    ("void (anonymous namespace)::bias_softmax_regs_kernel<float, 32, 4, 1>"
+     "(float const*, float const*, float*, long, long, int)", "K5a"),
+    ("void (anonymous namespace)::bias_softmax_regs_kernel<__nv_bfloat16, 4, "
+     "1, 2>(__nv_bfloat16 const*, float const*, __nv_bfloat16*, long, long, "
+     "int)", "K5a"),
+    ("void (anonymous namespace)::bias_softmax_rows_kernel<float>(float "
+     "const*, float const*, float*, long, long, long)", "K5a"),
+    ("void (anonymous namespace)::softmax_bwd_regs_kernel<float, 32, 4>"
+     "(float const*, float const*, float*, long, int)", "K5b"),
+    ("void (anonymous namespace)::softmax_bwd_rows_kernel<__nv_bfloat16>"
+     "(__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16*, long, "
+     "long)", "K5b"),
+]
+
+
+@pytest.mark.parametrize("table", ["KINDS", "LM_KINDS", "LM_TRAIN_KINDS"])
+@pytest.mark.parametrize("name,kind", _SOFTMAX_KERNEL_NAMES)
+def test_chip_smoke_profile_kinds_tell_the_softmax_kernels_apart(name, kind,
+                                                                 table):
+    """Each kernel of softmax.cu lands in its own kind in every profile
+    table of chip_smoke.py, and never in another or in "other"; torch's
+    own softmax kernels land in none of the three."""
+    import chip_smoke
+    kinds = getattr(chip_smoke, table)
+    us = chip_smoke.by_kind({name: 1.0}, kinds)
+    assert us[kind] == 1.0 and sum(us.values()) == 1.0
+    torch_softmax = {
+        "void softmax_warp_forward<float, float, float, 10, false, false>"
+        "(float*, float const*, int, int, int, bool const*, int, bool)": 1.0,
+        "void (anonymous namespace)::cunn_SoftMaxForward<4, float, float, "
+        "float, Epilogue>(float*, float const*, int)": 1.0}
+    us = chip_smoke.by_kind(torch_softmax, kinds)
+    assert us["K2"] == us["K5a"] == us["K5b"] == 0.0
