@@ -98,13 +98,32 @@ Phases, each of which raises on failure:
    12 K5b (T 1020); then 1 more warmup and 5 timed steps (CUDA events,
    tokens/s), and the loss on the batch must fall from the first step to
    the last;
+13. checkpoints, cuDNN deterministic, in a temporary directory of the
+   checkout removed at the end: ResNet-50 through ``Module.fit`` (batch
+   32, ``kvstore="tpu"``, SGD momentum, 2 epochs of 3 steps) with
+   ``module_checkpoint(save_optimizer_states=True)``, each save timed, the
+   files read back (``nd.load``, ``load_optimizer_states``); the epoch-2
+   files served by ``ModelServer.load_model`` (one bucket-32 batch, 33
+   K3 + 1 K2) and held to the module's forward (bitwise, or within 1e-6
+   of the largest); ``Module.load(prefix, 1, load_optimizer_states=True)``
+   and ``fit(begin_epoch=1)`` held to the uninterrupted run's weights,
+   momentum and moving stats (bitwise, or within 1e-6 of each tensor's
+   largest; K1b launches), and the same resume without the momentum,
+   which must exceed that bound; then phase 12's T 1024 transformer
+   through ``save_parameters`` and ``Trainer.save_states`` (SGD momentum
+   after one step, and Adam) into a fresh model and trainers: logits
+   bitwise, Adam's m and v bitwise as loaded, one SGD step of each model
+   (weights bitwise or within 1e-6; 25 K6a + 25 K6b + 12 K7a/b/c), one
+   Adam step of each (m and v likewise; the resumed update count restarts,
+   as in the JAX package); sizes, save and load ms and MB/s printed;
 then every kernel's device time by the profiler, one profiled serving
 forward, training step, transformer forward and transformer training
 step.
 
-Prints one JSON line ``{"kernels": [...]}`` (all twelve kernels), the
-serving, training and transformer numbers beside the card's name and
-power limit, and as its last line
+Prints one JSON line ``{"checkpoints": {...}}`` with phase 13's numbers,
+one ``{"kernels": [...]}`` (all twelve kernels), the serving, training
+and transformer numbers beside the card's name and power limit, and as
+its last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
 prints no result.
 """
@@ -140,6 +159,13 @@ LM_T = (1024, 1020)         # the flash route, then the K5a route
 LM_TRAIN_WARMUP = 2         # untimed training steps, the first one counted
 LM_TRAIN_STEPS = 5          # timed training steps
 LM_ADAM = {"learning_rate": 1e-4}
+CKPT_STEPS = 3              # steps an epoch of phase 13's ResNet-50 fit
+LM_SGD = {"learning_rate": 1e-4, "momentum": 0.9}
+# Phase 13: a resumed run against the uninterrupted one, and a served
+# checkpoint against the module that wrote it, when not bitwise equal
+# (another cuDNN algorithm), within this much of each tensor's largest
+# magnitude.  Dropping the momentum at the resume must exceed it.
+CKPT_TOL = 1e-6
 # The kernel step's gradients against the plain torch step's with the same
 # ReLU decisions: the same fp32 arithmetic with sums in another order,
 # ~1e-6 to 1e-5 of each parameter's largest gradient.
@@ -740,14 +766,36 @@ def steps_without_sync(mod, batch, n=2):
 def momentum_by_name(exe):
     """``{weight name: first optimizer slot}`` of a fused-step executor,
     whether its slots are bucket-major (the sweep) or per weight."""
-    from mxnet_tpu_torch.parallel.collectives import unflatten_bucket
-    names = [exe.arg_names[i] for i in exe._diff_idx]
-    if exe._sweep is None:
-        return {n: st[0] for n, st in zip(names, exe._fused_state)}
-    out = {}
-    for bi, (b, _idxs) in enumerate(exe._sweep["plan"]):
-        out.update(unflatten_bucket(exe._fused_state[bi][0], b))
-    return out
+    return {n: st[0] for n, st in exe.optimizer_slots().items()}
+
+
+def module_state(mod):
+    """Copies of a fused-step module's ``(weights, momentum, moving
+    stats)``, each ``{name: tensor}``."""
+    exe = mod._exec_group.execs[0]
+    return ({n: exe.arg_dict[n]._data.clone()
+             for n in mod._exec_group.param_names},
+            {n: m.clone() for n, m in momentum_by_name(exe).items()},
+            {n: a._data.clone() for n, a in exe.aux_dict.items()})
+
+
+def compare_states(sa, sb):
+    """Two tuples of ``{name: fp32 tensor}`` (``module_state``s, say): the
+    number of tensors, whether every one is bitwise equal, and the
+    largest difference of any tensor relative to that tensor's largest
+    magnitude in ``sb``."""
+    worst, bitwise, count = 0.0, True, 0
+    for ka, kb in zip(sa, sb):
+        if set(ka) != set(kb):
+            raise AssertionError("the two states hold different tensors")
+        for n in ka:
+            a, b = ka[n].to(kb[n].device), kb[n]
+            bitwise &= torch.equal(a.view(torch.int32), b.view(torch.int32))
+            rel = ((a - b).abs().max()
+                   / b.abs().max().clamp_min(1e-30)).item()
+            worst = max(worst, rel)
+            count += 1
+    return {"tensors": count, "bitwise": bitwise, "max_rel": worst}
 
 
 def parity(mx, ck, ctx, sym, image, batch, arg_params, aux_params,
@@ -768,31 +816,14 @@ def parity(mx, ck, ctx, sym, image, batch, arg_params, aux_params,
                 mod, res = train(mx, ck, ctx, sym, image, batch, 2,
                                  arg_params=arg_params,
                                  aux_params=aux_params, classes=classes)
-            exe = mod._exec_group.execs[0]
             if (res["kernel"] is not None) != (mode != "0"):
                 raise AssertionError("MXNET_PALLAS_FUSED_OPT=%s took the "
                                      "wrong path" % mode)
-            state[mode] = (
-                {n: exe.arg_dict[n]._data.clone() for n in exe.arg_dict
-                 if n in arg_params},
-                {n: m.clone() for n, m in momentum_by_name(exe).items()},
-                {n: a._data.clone() for n, a in exe.aux_dict.items()})
-            del mod, exe
+            state[mode] = module_state(mod)
+            del mod
     finally:
         torch.backends.cudnn.deterministic = saved
-    worst, bitwise, count = 0.0, True, 0
-    for ka, kb in zip(state[on], state["0"]):
-        if set(ka) != set(kb):
-            raise AssertionError("parity: the two paths hold different "
-                                 "tensors")
-        for n in ka:
-            a, b = ka[n], kb[n]
-            bitwise &= torch.equal(a.view(torch.int32), b.view(torch.int32))
-            rel = ((a - b).abs().max()
-                   / b.abs().max().clamp_min(1e-30)).item()
-            worst = max(worst, rel)
-            count += 1
-    return {"tensors": count, "bitwise": bitwise, "max_rel": worst}
+    return compare_states(state[on], state["0"])
 
 
 # ---------------------------------------------------------------------------
@@ -1766,6 +1797,213 @@ def profile_step(mod, batch_input, step_ms):
                          for kv in by_kind(by_name).items()),
                "; ".join("%s %.0f us" % (k[:60], v) for k, v in top)))
 
+# ---------------------------------------------------------------------------
+# phase 13: checkpoints
+# ---------------------------------------------------------------------------
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _mb(*paths):
+    return sum(os.path.getsize(p) for p in paths) / 1e6
+
+
+def _timed(device, fn):
+    """``(result, ms)`` of ``fn()`` by the host clock between two
+    synchronisations: what a save or a load costs the caller."""
+    _sync(device)
+    t = time.perf_counter()
+    out = fn()
+    _sync(device)
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def ckpt_fit(mx, ctx, sym, image, batch, steps, prefix, seed=SEED,
+             classes=CLASSES):
+    """Phase 13 (a): ``Module.fit`` of ``sym`` with ``kvstore="tpu"``, SGD
+    with momentum, 2 epochs of ``steps`` fixed synthetic batches, Xavier
+    weights from ``seed``, checkpointed every epoch by
+    ``module_checkpoint(save_optimizer_states=True)`` (each save timed).
+    Then the epoch-2 files are read back: the parameters by ``nd.load``
+    onto ``ctx``, the states by ``load_optimizer_states`` into the module,
+    which must leave its momentum bitwise as it was.  Returns the module,
+    its state after the 2 epochs (``module_state``) and the numbers."""
+    device = ctx.torch_device
+    it = synthetic_iter(mx, ctx, batch, image, steps, seed, classes)
+    mod = mx.mod.Module(sym, context=ctx)
+    save = mx.callback.module_checkpoint(mod, prefix,
+                                         save_optimizer_states=True)
+    save_ms = []
+
+    def timed_save(epoch, *args):
+        save_ms.append(_timed(device, lambda: save(epoch, *args))[1])
+
+    mx.random.seed(seed)
+    mod.fit(it, num_epoch=2, kvstore="tpu", optimizer="sgd",
+            optimizer_params=SGD_PARAMS,
+            initializer=mx.init.Xavier(rnd_type="gaussian",
+                                       factor_type="in", magnitude=2),
+            eval_metric="acc", epoch_end_callback=timed_save)
+    files = {k: "%s-%s" % (prefix, k) for k in (
+        "symbol.json", "0001.params", "0001.states", "0002.params",
+        "0002.states")}
+    missing = [f for f in files.values() if not os.path.exists(f)]
+    if missing or len(save_ms) != 2:
+        raise AssertionError("checkpoint files missing: %s" % missing)
+    state = module_state(mod)
+    params, states = files["0002.params"], files["0002.states"]
+    loaded, load_ms = _timed(device, lambda: mx.nd.load(params, ctx=ctx))
+    if set(loaded) != {"arg:" + n for n in state[0]} | {
+            "aux:" + n for n in state[2]}:
+        raise AssertionError("%s holds %d arrays, not the module's"
+                             % (params, len(loaded)))
+    del loaded
+    _, load_states_ms = _timed(device,
+                               lambda: mod.load_optimizer_states(states))
+    rt = compare_states(state[1:2], module_state(mod)[1:2])
+    if not rt["bitwise"]:
+        raise AssertionError("momentum after save and load differs by %g"
+                             % rt["max_rel"])
+    pm, sm = _mb(params), _mb(states)
+    return mod, state, {
+        "params_mb": pm, "states_mb": sm, "save_ms": save_ms,
+        "save_mb_per_s": (pm + sm) / (save_ms[-1] / 1e3),
+        "load_params_ms": load_ms, "load_params_mb_per_s": pm / (
+            load_ms / 1e3),
+        "load_states_ms": load_states_ms,
+        "load_states_mb_per_s": sm / (load_states_ms / 1e3),
+        "fused": mod._fused_exec_update,
+        "kernel": mod._exec_group.execs[0]._sweep["kernel"]
+        if mod._exec_group.execs[0]._sweep is not None else None}
+
+
+def ckpt_serve(mx, ck, ctx, mod, prefix, epoch, image, batch, seed=SEED):
+    """Phase 13 (b): ``ModelServer.load_model`` of the epoch's files on
+    ``ctx`` and one request of ``batch`` rows (the largest bucket), with
+    the launch counts set to 0 just before and read just after, held
+    against the in-memory module's inference forward on the same rows.
+    Returns the numbers."""
+    from mxnet_tpu_torch.serving import ModelServer
+    device = ctx.torch_device
+    x = np.random.RandomState(seed + 3).uniform(
+        -1, 1, (batch,) + tuple(image)).astype(np.float32)
+    srv = ModelServer(max_batch=batch, ctx=ctx)
+    _, load_ms = _timed(device, lambda: srv.load_model(
+        "r50", "%s-symbol.json" % prefix, "%s-%04d.params" % (prefix, epoch),
+        {"data": (1,) + tuple(image)}))
+    srv.start()
+    try:
+        ck.reset_kernel_calls()
+        got = srv.infer("r50", {"data": x}, timeout_ms=120000.0)[0]
+        _sync(device)
+        calls = ck.kernel_calls()
+    finally:
+        srv.stop()
+    mod.forward(mx.io.DataBatch(data=[mx.nd.array(x, ctx=ctx)]),
+                is_train=False)
+    ref = mod.get_outputs()[0].asnumpy()
+    if got.shape != ref.shape or not np.isfinite(got).all():
+        raise AssertionError("served %s (finite: %s), module %s" % (
+            got.shape, np.isfinite(got).all(), ref.shape))
+    return {"calls": calls, "load_ms": load_ms, "shape": got.shape,
+            "bitwise": bool(np.array_equal(got.view(np.int32),
+                                           ref.view(np.int32))),
+            "max_rel": float(np.abs(got - ref).max() / np.abs(ref).max())}
+
+
+def ckpt_resume(mx, ck, ctx, prefix, image, batch, steps, states=True,
+                seed=SEED, classes=CLASSES):
+    """Phase 13 (c): ``Module.load(prefix, 1, load_optimizer_states=
+    states, context=ctx)``, then ``fit(begin_epoch=1, num_epoch=2)`` on
+    the same batches, with the launch counts set to 0 just before and
+    read just after.  Returns the module's ``module_state`` and the
+    counts."""
+    it = synthetic_iter(mx, ctx, batch, image, steps, seed, classes)
+    mod = mx.mod.Module.load(prefix, 1, load_optimizer_states=states,
+                             context=ctx)
+    ck.reset_kernel_calls()
+    mod.fit(it, begin_epoch=1, num_epoch=2, kvstore="tpu", optimizer="sgd",
+            optimizer_params=SGD_PARAMS, eval_metric="acc")
+    _sync(ctx.torch_device)
+    return module_state(mod), ck.kernel_calls()
+
+
+def _lm_params(lm):
+    """``({name: weight},)`` of a gluon block, its root prefix stripped."""
+    return ({n[len(lm.prefix):]: p.data()._data
+             for n, p in lm.collect_params().items()},)
+
+
+def _trainer_slots(trainer):
+    """A gluon Trainer's optimizer slots as one ``{index: tensor}`` a
+    slot: ``(momentum,)`` of SGD, ``(m, v)`` of Adam."""
+    from mxnet_tpu_torch.optimizer import state_slots
+    slots = {i: state_slots(st) for i, st in trainer._updater.states.items()}
+    return tuple({i: s[j] for i, s in slots.items()}
+                 for j in range(len(next(iter(slots.values())))))
+
+
+def ckpt_lm(mx, ck, lm, adam, x, y, config, workdir):
+    """Phase 13 (d): after ``lm``'s training with the Adam trainer
+    ``adam``, one step of an SGD-momentum trainer (so a momentum exists),
+    then ``save_parameters`` and both trainers' ``save_states``; a fresh
+    ``TransformerLM`` with ``load_parameters(ctx=...)``, fresh trainers
+    with ``load_states``.  Held: the logits bitwise, Adam's m and v as
+    loaded, one SGD step of each model (the resumed one's with the launch
+    counts set to 0 just before and read just after), then one Adam step
+    of each (its update count restarts in the resumed trainer, as in the
+    JAX package, so only m and v must agree).  Returns the numbers."""
+    from mxnet_tpu_torch.gluon.contrib.transformer import TransformerLM
+    device = x._data.device
+    ctx = mx.gpu(device.index or 0) if device.type == "cuda" else mx.cpu()
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    sgd = mx.gluon.Trainer(lm.collect_params(), "sgd", dict(LM_SGD))
+    lm_loss(mx, lm, loss_fn, x, y)
+    sgd.step(1)
+    f, g_sgd, g_adam = (os.path.join(workdir, n) for n in (
+        "lm.params", "lm-sgd.states", "lm-adam.states"))
+    _, save_params_ms = _timed(device, lambda: lm.save_parameters(f))
+    _, save_states_ms = _timed(device, lambda: (
+        sgd.save_states(g_sgd), adam.save_states(g_adam)))
+    lm2 = TransformerLM(**config)
+    _, load_params_ms = _timed(device,
+                               lambda: lm2.load_parameters(f, ctx=ctx))
+    lm2.hybridize()
+    sgd2 = mx.gluon.Trainer(lm2.collect_params(), "sgd", dict(LM_SGD))
+    adam2 = mx.gluon.Trainer(lm2.collect_params(), "adam", dict(LM_ADAM))
+    _, load_states_ms = _timed(device, lambda: (
+        sgd2.load_states(g_sgd), adam2.load_states(g_adam)))
+    adam_loaded = compare_states(_trainer_slots(adam2), _trainer_slots(adam))
+    logits_bitwise = torch.equal(lm(x)._data, lm2(x)._data)
+    ck.reset_kernel_calls()
+    loss2 = lm_loss(mx, lm2, loss_fn, x, y)
+    sgd2.step(1)
+    _sync(device)
+    calls = ck.kernel_calls()
+    loss1 = lm_loss(mx, lm, loss_fn, x, y)
+    sgd.step(1)
+    step = compare_states(_lm_params(lm2), _lm_params(lm))
+    for model, trainer in ((lm, adam), (lm2, adam2)):
+        lm_loss(mx, model, loss_fn, x, y)
+        trainer.step(1)
+    adam_step = compare_states(_trainer_slots(adam2), _trainer_slots(adam))
+    pm = _mb(f)
+    return {
+        "params_mb": pm, "sgd_states_mb": _mb(g_sgd),
+        "adam_states_mb": _mb(g_adam), "save_params_ms": save_params_ms,
+        "save_params_mb_per_s": pm / (save_params_ms / 1e3),
+        "save_states_ms": save_states_ms, "load_params_ms": load_params_ms,
+        "load_params_mb_per_s": pm / (load_params_ms / 1e3),
+        "load_states_ms": load_states_ms,
+        "adam_loaded_bitwise": adam_loaded["bitwise"],
+        "logits_bitwise": logits_bitwise, "calls": calls,
+        "losses": (float(loss1.asnumpy()), float(loss2.asnumpy())),
+        "sgd_step_bitwise": step["bitwise"],
+        "sgd_step_max_rel": step["max_rel"],
+        "adam_mv_bitwise": adam_step["bitwise"],
+        "adam_mv_max_rel": adam_step["max_rel"]}
+
 
 def main():
     if not torch.cuda.is_available():
@@ -2047,6 +2285,114 @@ def main():
         rec["launches"] = rec["launches_per_forward"] = \
             train_res[t]["calls"][name]
 
+    # 13. checkpoints: ResNet-50 through Module.fit's checkpoint files,
+    # served from them and resumed from them; the transformer through
+    # gluon's parameter and trainer-state files.  cuDNN deterministic for
+    # this phase only, so a resumed run can equal the uninterrupted one.
+    import tempfile
+    t13 = time.perf_counter()
+    saved_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory(
+                prefix=".chip_smoke_ckpt_",
+                dir=os.path.dirname(os.path.abspath(__file__))) as workdir:
+            prefix = os.path.join(workdir, "r50")
+            ck_mod, ck_ref, ck_a = ckpt_fit(mx, mx.gpu(0), sym, IMAGE, BATCH,
+                                            CKPT_STEPS, prefix)
+            ck_b = ckpt_serve(mx, ck, mx.gpu(0), ck_mod, prefix, 2, IMAGE,
+                              BATCH)
+            want = dict.fromkeys(ck_b["calls"], 0)
+            want.update(scale_bias_relu=len(sites), softmax_lastaxis=1)
+            if ck_b["calls"] != want or not (
+                    ck_b["bitwise"] or ck_b["max_rel"] <= CKPT_TOL):
+                raise AssertionError(
+                    "checkpoint served: launches %s (expected %s), %g of "
+                    "the largest from the module's forward (limit %g)"
+                    % (ck_b["calls"], want, ck_b["max_rel"], CKPT_TOL))
+            del ck_mod
+            resumed, ck_calls = ckpt_resume(mx, ck, mx.gpu(0), prefix, IMAGE,
+                                            BATCH, CKPT_STEPS)
+            ck_c = compare_states(resumed, ck_ref)
+            cold, _ = ckpt_resume(mx, ck, mx.gpu(0), prefix, IMAGE, BATCH,
+                                  CKPT_STEPS, states=False)
+            ck_c["cold_max_rel"] = compare_states(cold, ck_ref)["max_rel"]
+            del resumed, cold, ck_ref
+            want = dict.fromkeys(ck_calls, 0)
+            want.update(sgd_mom_sweep=len(tr["buckets"]) * CKPT_STEPS,
+                        softmax_lastaxis=CKPT_STEPS)
+            ck_c["calls"] = ck_calls
+            if ck_calls != want or not (
+                    ck_c["bitwise"] or ck_c["max_rel"] <= CKPT_TOL) \
+                    or not ck_c["cold_max_rel"] > CKPT_TOL:
+                raise AssertionError(
+                    "checkpoint resume: launches %s (expected %s), %g of "
+                    "the largest from the uninterrupted run (limit %g), "
+                    "%g without the momentum (must exceed it)"
+                    % (ck_calls, want, ck_c["max_rel"], CKPT_TOL,
+                       ck_c["cold_max_rel"]))
+            print("checkpoints on %s: ResNet-50 Module.fit 2 epochs of %d "
+                  "steps, module_checkpoint(save_optimizer_states=True): "
+                  ".params %.1f MB, .states %.1f MB, saves %s ms (%.0f "
+                  "MB/s); nd.load of the .params onto the card %.1f ms "
+                  "(%.0f MB/s), load_optimizer_states %.1f ms (%.0f MB/s); "
+                  "ModelServer.load_model %.1f ms, a bucket-%d batch vs the "
+                  "module's forward: bitwise %s, max rel %.3g, launches %s; "
+                  "Module.load + fit(begin_epoch=1) vs the uninterrupted "
+                  "run: %d tensors bitwise %s, max rel %.3g, launches %s; "
+                  "without the momentum: max rel %.3g"
+                  % (smi, CKPT_STEPS, ck_a["params_mb"], ck_a["states_mb"],
+                     ["%.1f" % t for t in ck_a["save_ms"]],
+                     ck_a["save_mb_per_s"], ck_a["load_params_ms"],
+                     ck_a["load_params_mb_per_s"], ck_a["load_states_ms"],
+                     ck_a["load_states_mb_per_s"], ck_b["load_ms"], BATCH,
+                     ck_b["bitwise"], ck_b["max_rel"], ck_b["calls"],
+                     ck_c["tensors"], ck_c["bitwise"], ck_c["max_rel"],
+                     ck_calls, ck_c["cold_max_rel"]), flush=True)
+            tlm, trainer, _, x, y = train_res[LM_T[0]]["run"]
+            ck_d = ckpt_lm(mx, ck, tlm, trainer, x, y, GPT2_SMALL, workdir)
+    finally:
+        torch.backends.cudnn.deterministic = saved_det
+    ck_seconds = time.perf_counter() - t13
+    want = dict.fromkeys(ck_d["calls"], 0)
+    want.update({"layernorm_fwd": 2 * n_layers + 1,
+                 "layernorm_bwd": 2 * n_layers + 1})
+    want.update(dict.fromkeys(attn_fwd[LM_T[0]], n_layers))
+    if ck_d["calls"] != want or not ck_d["logits_bitwise"] \
+            or not ck_d["adam_loaded_bitwise"] or not (
+                ck_d["sgd_step_bitwise"]
+                or ck_d["sgd_step_max_rel"] <= CKPT_TOL) or not (
+                ck_d["adam_mv_bitwise"]
+                or ck_d["adam_mv_max_rel"] <= CKPT_TOL):
+        raise AssertionError("transformer checkpoint: %s" % ck_d)
+    print("checkpoints on %s: TransformerLM GPT-2 small widths after phase "
+          "12 at T=%d: save_parameters %.1f MB in %.1f ms (%.0f MB/s), "
+          "save_states SGD %.1f MB + Adam %.1f MB in %.1f ms; fresh model "
+          "load_parameters %.1f ms (%.0f MB/s), load_states %.1f ms; logits "
+          "bitwise %s; Adam m, v as loaded bitwise %s; one SGD-momentum "
+          "step each: losses %s, weights bitwise %s (max rel %.3g), "
+          "launches %s; one Adam step each: m, v bitwise %s (max rel %.3g); "
+          "phase 13 took %.1f s"
+          % (smi, LM_T[0], ck_d["params_mb"], ck_d["save_params_ms"],
+             ck_d["save_params_mb_per_s"], ck_d["sgd_states_mb"],
+             ck_d["adam_states_mb"], ck_d["save_states_ms"],
+             ck_d["load_params_ms"], ck_d["load_params_mb_per_s"],
+             ck_d["load_states_ms"], ck_d["logits_bitwise"],
+             ck_d["adam_loaded_bitwise"], ck_d["losses"],
+             ck_d["sgd_step_bitwise"], ck_d["sgd_step_max_rel"],
+             ck_d["calls"], ck_d["adam_mv_bitwise"],
+             ck_d["adam_mv_max_rel"], ck_seconds), flush=True)
+    for rec, launches in (
+            (k3, ck_b["calls"]["scale_bias_relu"]),
+            (k2, ck_b["calls"]["softmax_lastaxis"] + ck_calls[
+                "softmax_lastaxis"]),
+            (sweeps["sgd_mom_sweep"], ck_calls["sgd_mom_sweep"])) + tuple(
+            (r, ck_d["calls"][n]) for r, n in (
+                (k6a, "layernorm_fwd"), (k6b, "layernorm_bwd"),
+                (k7a, "flash_attention_fwd"), (k7b, "flash_attention_bwd_dq"),
+                (k7c, "flash_attention_bwd_dkv"))):
+        rec["launches_checkpoints"] = launches
+
     # device time of each kernel (the profiler last: its hooks slow the
     # host for the rest of the process)
     recs = [(k3, k3_jobs), (k2, k2_jobs)] + [
@@ -2113,13 +2459,18 @@ def main():
     print("K7b + K7c device: %.4f ms against %.4f ms for SDPA's fp32 "
           "backward (%.2fx)" % (k7b["ms"] + k7c["ms"], k7b["library_ms"],
                                 (k7b["ms"] + k7c["ms"]) / k7b["library_ms"]))
+    print(json.dumps({"checkpoints": {
+        "card": smi, "seconds": ck_seconds,
+        "resnet50": dict(ck_a, serve=ck_b, resume=ck_c),
+        "transformer": ck_d}}, default=str))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
             "launches_per_forward", "call_ms", "plain_call_ms",
             "library_call_ms")
     print(json.dumps({"kernels": [
         {k: rec[k] for k in keys + tuple(
-            x for x in ("launches_training", "library_note", "tflops",
+            x for x in ("launches_training", "launches_checkpoints",
+                        "library_note", "tflops",
                         "bound_note", "bound_cuda_cores_ms",
                         "bound_cuda_cores_by", "extra") if x in rec)}
         for rec, _ in recs]}))

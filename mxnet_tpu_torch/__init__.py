@@ -14,7 +14,7 @@ TF32 (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32`` are set to False at import),
 because the reference forward is float32.
 
-The port carries four paths so far: inference (symbols and their JSON,
+The port carries five paths so far: inference (symbols and their JSON,
 the ops of a ResNet, ``simple_bind``/``forward``, ``Predictor`` and the
 micro-batching ``ModelServer``), training through ``Module.fit``
 (autograd backward, BatchNorm's batch statistics, SGD/Adam, the
@@ -22,10 +22,17 @@ executor's fused optimizer step, ``NDArrayIter``, metrics,
 initializers and the ``local``/``device``/``tpu`` kvstores), the gluon
 transformer forward (``gluon.contrib.transformer.TransformerLM``:
 Block/HybridBlock, Parameter, the ``nd`` op namespace, LayerNorm and
-attention), and gluon training of that transformer (``autograd.record``
+attention), gluon training of that transformer (``autograd.record``
 / ``backward`` / ``grad`` over imperative ops, ``gluon.loss``,
 ``gluon.Trainer``, and the backward kernels of LayerNorm, flash
-attention and the masked softmax).
+attention and the masked softmax), and checkpoints: ``nd.save``/``load``,
+``sym.save``/``load``, ``model.save_checkpoint``/``load_checkpoint``,
+``Module.load``/``save_checkpoint`` with optimizer states, the
+checkpoint callbacks, gluon's ``save_parameters``/``load_parameters`` and
+``Trainer.save_states``/``load_states``, and ``Predictor`` and
+``ModelServer.load_model`` from files.  ``.params`` and ``-symbol.json``
+files are the JAX package's, byte for byte; ``.states`` files pickle each
+package's own classes.
 """
 import torch
 

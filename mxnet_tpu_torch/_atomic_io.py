@@ -1,0 +1,59 @@
+"""Crash-safe single-file writes: write to a temp file, then ``os.replace``.
+
+Counterpart of ``mxnet_tpu/_atomic_io.py``.  A file written in place is,
+for the whole write, a readable but corrupt file at its final name: a
+trainer killed between two ``write()`` calls would leave a truncated
+``.params`` container that ``nd.load`` opens and fails in halfway.  So
+every persistence path (``nd.save``, ``Symbol.save``, the optimizer-state
+files) writes through here: the bytes land in a hidden sibling temp file,
+are flushed and fsync'd, and only then renamed over the target.  A crash
+at any point leaves the old complete file or the new complete file.
+
+The JAX package's fault-injection site and tracing span at the commit are
+not part of the port (``fault/`` and ``telemetry/`` are not ported).
+"""
+from __future__ import annotations
+
+import contextlib
+import os
+import uuid
+
+__all__ = ["atomic_writer", "atomic_write"]
+
+
+def _temp_name(path):
+    """A hidden sibling of ``path``: the same directory, so ``os.replace``
+    is a same-filesystem rename; unique, so two writers of one target
+    never share a temp file."""
+    head, tail = os.path.split(path)
+    return os.path.join(head, ".%s.tmp-%d-%s"
+                        % (tail, os.getpid(), uuid.uuid4().hex[:8]))
+
+
+@contextlib.contextmanager
+def atomic_writer(path, mode="wb"):
+    """Yield a file object whose contents appear at ``path`` only on a
+    clean exit (flush, fsync, ``os.replace``); on an exception the temp
+    file is removed and ``path`` is left as it was."""
+    tmp = _temp_name(path)
+    f = open(tmp, mode)
+    committed = False
+    try:
+        yield f
+        f.flush()
+        os.fsync(f.fileno())
+        f.close()
+        os.replace(tmp, path)
+        committed = True
+    finally:
+        if not committed:
+            if not f.closed:
+                f.close()
+            with contextlib.suppress(OSError):
+                os.remove(tmp)
+
+
+def atomic_write(path, data, mode="wb"):
+    """Write ``data`` to ``path`` atomically (see :func:`atomic_writer`)."""
+    with atomic_writer(path, mode) as f:
+        f.write(data)

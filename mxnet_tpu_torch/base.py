@@ -1,8 +1,9 @@
 """Base utilities: the framework error type and dtype helpers.
 
-Counterpart of ``mxnet_tpu/base.py``: the ``MXNetError`` contract and the
+Counterpart of ``mxnet_tpu/base.py``: the ``MXNetError`` contract, the
 dtype normalisation that op params and ``NDArray`` constructors share,
-expressed in ``torch.dtype`` terms.
+expressed in ``torch.dtype`` terms, and MXNet's dtype ids, which the
+``nd.save`` container writes.
 """
 from __future__ import annotations
 
@@ -11,7 +12,8 @@ import os
 import numpy as np
 import torch
 
-__all__ = ["MXNetError", "getenv", "dtype_torch", "dtype_name"]
+__all__ = ["MXNetError", "getenv", "dtype_torch", "dtype_name", "dtype_id",
+           "dtype_from_id"]
 
 
 class MXNetError(RuntimeError):
@@ -29,6 +31,15 @@ _NAME_TO_TORCH = {
     "int64": torch.int64,
 }
 _TORCH_TO_NAME = {v: k for k, v in _NAME_TO_TORCH.items()}
+
+# MXNet's dtype ids, kept so saved .params files keep their meaning
+# (reference: python/mxnet/ndarray/ndarray.py _DTYPE_NP_TO_MX; bfloat16 is
+# later MXNet's 12, as in the JAX package)
+_TORCH_TO_ID = {
+    torch.float32: 0, torch.float64: 1, torch.float16: 2, torch.uint8: 3,
+    torch.int32: 4, torch.int8: 5, torch.int64: 6, torch.bfloat16: 12,
+}
+_ID_TO_TORCH = {v: k for k, v in _TORCH_TO_ID.items()}
 
 
 def dtype_torch(dtype):
@@ -49,6 +60,18 @@ def dtype_torch(dtype):
 def dtype_name(dtype):
     """``torch.dtype`` -> the MXNet dtype string (``"float32"``...)."""
     return _TORCH_TO_NAME[dtype_torch(dtype)]
+
+
+def dtype_id(dtype):
+    """A dtype -> its MXNet id (the ``nd.save`` container's dtype field)."""
+    return _TORCH_TO_ID[dtype_torch(dtype)]
+
+
+def dtype_from_id(tid):
+    """An MXNet dtype id -> ``torch.dtype``; MXNetError for an unknown id."""
+    if tid not in _ID_TO_TORCH:
+        raise MXNetError("unknown dtype id %d in an NDArray file" % tid)
+    return _ID_TO_TORCH[tid]
 
 
 _TRUE = ("1", "true", "True", "yes", "on")

@@ -1,17 +1,58 @@
 """Training callbacks.
 
 Counterpart of ``mxnet_tpu/callback.py`` (reference:
-python/mxnet/callback.py): ``Speedometer``.
-The checkpoint callbacks wait for the V2 ``save``/``load`` container.
-Its log line (``Epoch[%d] Batch [%d]\\tSpeed: %.2f samples/sec`` and the
-metric) has the reference's shape, which tools parse.
+python/mxnet/callback.py): the checkpoint callbacks ``module_checkpoint``
+and ``do_checkpoint``, and ``Speedometer``, whose log line
+(``Epoch[%d] Batch [%d]\\tSpeed: %.2f samples/sec`` and the metric) has
+the reference's shape, which tools parse.
 """
 from __future__ import annotations
 
 import logging
 import time
 
-__all__ = ["Speedometer"]
+from .model import _refuse_manager, save_checkpoint
+
+__all__ = ["module_checkpoint", "do_checkpoint", "Speedometer"]
+
+
+def module_checkpoint(mod, prefix=None, period=1, save_optimizer_states=False,
+                      manager=None):
+    """An epoch-end callback that checkpoints ``mod`` under ``prefix``
+    every ``period`` epochs (reference: callback.py:28), the period
+    counted from the last successful save: a save that fails is logged
+    and tried again at the next epoch.  ``manager=`` and
+    ``MXNET_CKPT_DIR`` raise here: the checkpoint manager is not
+    ported."""
+    _refuse_manager(manager)
+    if prefix is None:
+        raise ValueError("module_checkpoint needs a prefix")
+    period = int(max(1, period))
+    last_saved = [0]    # epochs completed at the last successful save
+
+    def _callback(iter_no, sym=None, arg=None, aux=None):
+        done = iter_no + 1
+        if done - last_saved[0] < period:
+            return
+        try:
+            mod.save_checkpoint(prefix, done, save_optimizer_states)
+        except Exception:   # noqa: BLE001 — logged, retried next epoch
+            logging.warning("checkpoint at epoch %d failed; retrying next "
+                            "epoch", done, exc_info=True)
+            return
+        last_saved[0] = done
+    return _callback
+
+
+def do_checkpoint(prefix, period=1):
+    """An epoch-end callback that writes ``save_checkpoint``'s two files
+    every ``period`` epochs (reference: callback.py:56)."""
+    period = int(max(1, period))
+
+    def _callback(iter_no, sym, arg, aux):
+        if (iter_no + 1) % period == 0:
+            save_checkpoint(prefix, iter_no + 1, sym, arg, aux)
+    return _callback
 
 
 class Speedometer:

@@ -23,7 +23,9 @@ live in one small fp32 device tensor, rewritten only when their values
 change, by a copy from pinned memory that does not block the host.  ``MXNET_PALLAS_FUSED_OPT=0`` keeps the per-array path
 (``optimizer.fused_update_kernel``), which launches no kernel and is the
 oracle; a ``set_lr_mult``/``set_wd_mult`` after install demotes to it
-for good, carrying the slots over bit for bit.
+for good, carrying the slots over bit for bit.  ``optimizer_slots`` and
+``load_optimizer_slots`` read and write the slots by weight name on
+either path, which is how ``Module`` saves and resumes them.
 """
 from __future__ import annotations
 
@@ -262,17 +264,51 @@ class Executor:
         share one lr/wd): the bucket-major slots are sliced into
         per-weight views, values unchanged; the weights stay where they
         are until the per-array path replaces them."""
-        from .parallel.collectives import unflatten_bucket
         if self._fused_state is not None:
-            per = [()] * len(self._diff_idx)
-            for bi, (b, idxs) in enumerate(self._sweep["plan"]):
-                views = [unflatten_bucket(s, b)
-                         for s in self._fused_state[bi]]
-                for j, name in zip(idxs, b.names):
-                    per[j] = tuple(v[name] for v in views)
-            self._fused_state = per
+            slots = self.optimizer_slots()
+            self._fused_state = [slots[self.arg_names[i]]
+                                 for i in self._diff_idx]
         self._sweep = None
         self._hyper = None
+
+    def optimizer_slots(self):
+        """``{weight name: tuple of slot tensors}`` of the fused step
+        (views of the bucket-major slots on the sweep; SGD's momentum,
+        Adam's mean and variance), ``{}`` before its first step."""
+        from .parallel.collectives import unflatten_bucket
+        if self._fused_state is None:
+            return {}
+        names = [self.arg_names[i] for i in self._diff_idx]
+        if self._sweep is None:
+            return dict(zip(names, self._fused_state))
+        out = {}
+        for bi, (b, _idxs) in enumerate(self._sweep["plan"]):
+            views = [unflatten_bucket(s, b) for s in self._fused_state[bi]]
+            out.update((n, tuple(v[n] for v in views)) for n in b.names)
+        return out
+
+    def load_optimizer_slots(self, slots):
+        """Set the fused step's slots from ``{weight name: tuple of
+        tensors}`` (any device): on the sweep they are copied into their
+        buckets, on the per-array path they become its slots; a weight
+        without an entry starts from zeros, as before a first step."""
+        _, init_state, _ = self._fused_update
+        names = [self.arg_names[i] for i in self._diff_idx]
+        if self._sweep is not None:
+            self._fused_state = self._sweep_init_state()
+            zeros = self.optimizer_slots()
+        else:
+            zeros = {n: init_state(self.arg_dict[n]._data) for n in names}
+        for n in names:
+            given = slots.get(n)
+            if given is not None and len(given) != len(zeros[n]):
+                raise MXNetError(
+                    "optimizer state of %r has %d slots; this optimizer "
+                    "keeps %d" % (n, len(given), len(zeros[n])))
+            for dst, src in zip(zeros[n], given or ()):
+                dst.copy_(src.reshape(dst.shape))
+        if self._sweep is None:
+            self._fused_state = [zeros[n] for n in names]
 
     def _device_hyper(self, host):
         """The device copy of the hyperparameter table ``host`` (a float32

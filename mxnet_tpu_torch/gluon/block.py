@@ -7,7 +7,10 @@ gives every block and parameter the reference's names
 block registers its children and parameters as attributes are set, and
 ``HybridBlock.forward`` runs ``hybrid_forward(nd, x, **params)``,
 finishing deferred parameter shapes through the block's
-``_shape_hook`` on the first call.
+``_shape_hook`` on the first call.  ``save_parameters``/
+``load_parameters`` write and read the ``nd.save`` container with the
+root prefix stripped, so the JAX package's files load here and the other
+way round.
 
 ``hybridize()`` sets the flag and the forward stays the same eager
 ``hybrid_forward``: PyTorch queues each op on the stream as it is called,
@@ -144,6 +147,22 @@ class Block:
         if name is None:
             name = str(len(self._children))
         self._children[name] = block
+
+    def save_params(self, fname):
+        """Save every parameter under its name less this block's prefix
+        (reference: gluon/block.py:307)."""
+        self.collect_params().save(fname, strip_prefix=self.prefix)
+
+    def load_params(self, fname, ctx=None, allow_missing=False,
+                    ignore_extra=False):
+        """Load what ``save_params`` wrote (reference: gluon/block.py:317);
+        parameters not yet initialized are created on ``ctx`` (default
+        ``gpu(0)``)."""
+        self.collect_params().load(fname, ctx, allow_missing, ignore_extra,
+                                   self.prefix)
+
+    save_parameters = save_params
+    load_parameters = load_params
 
     def initialize(self, init=None, ctx=None, verbose=False,
                    force_reinit=False):

@@ -12,6 +12,10 @@ when its value is set, and its value is marked as an autograd variable
 (``autograd.mark_variables``), also when the deferred initialization
 finishes inside a forward under ``record()``; ``Trainer.step`` marks it
 again after the optimizer rebinds it.
+
+``ParameterDict.save``/``load`` write and read the ``nd.save`` container
+by parameter name, as the JAX package does; a deferred parameter takes
+its shape from the file.
 """
 from __future__ import annotations
 
@@ -22,8 +26,9 @@ import numpy as np
 import torch
 
 from .. import autograd, initializer
+from .. import ndarray
 from ..base import MXNetError, dtype_torch
-from ..context import gpu, resolve
+from ..context import cpu, gpu, resolve
 from ..initializer import InitDesc
 from ..ndarray import NDArray
 
@@ -317,3 +322,57 @@ class ParameterDict:
         """Zero every parameter's grad buffer."""
         for v in self.values():
             v.zero_grad()
+
+    def save(self, filename, strip_prefix=""):
+        """Save every parameter's value under its name less
+        ``strip_prefix`` (reference: parameter.py save:725)."""
+        arg_dict = {}
+        for param in self.values():
+            if not param.name.startswith(strip_prefix):
+                raise ValueError(
+                    "Prefix '%s' is to be striped before saving, but "
+                    "Parameter's name '%s' does not start with '%s'"
+                    % (strip_prefix, param.name, strip_prefix))
+            arg_dict[param.name[len(strip_prefix):]] = param.data()
+        ndarray.save(filename, arg_dict)
+
+    def load(self, filename, ctx=None, allow_missing=False,
+             ignore_extra=False, restore_prefix=""):
+        """Set the parameters from a file ``save`` wrote, each name
+        prefixed with ``restore_prefix`` (reference: parameter.py
+        load:748).  An initialized parameter keeps its device and takes
+        the values; a deferred one is finished on the device it was
+        initialized for, with the file's shape; any other is created on
+        ``ctx`` (default ``gpu(0)``).  A parameter missing from the file
+        (unless ``allow_missing``) or a name in the file that is not a
+        parameter (unless ``ignore_extra``) raises MXNetError."""
+        if restore_prefix:
+            for name in self.keys():
+                if not name.startswith(restore_prefix):
+                    raise MXNetError(
+                        "restore_prefix is '%s' but Parameters name '%s' "
+                        "does not start with '%s'"
+                        % (restore_prefix, name, restore_prefix))
+        lprefix = len(restore_prefix)
+        loaded = ndarray.load(filename, ctx=cpu())
+        arg_dict = {restore_prefix + k.split(":", 1)[-1]: v
+                    for k, v in (loaded.items() if isinstance(loaded, dict)
+                                 else ())}
+        if not allow_missing:
+            for name in self.keys():
+                if name not in arg_dict:
+                    raise MXNetError("Parameter '%s' is missing in file '%s'"
+                                     % (name[lprefix:], filename))
+        for name, value in arg_dict.items():
+            if name not in self._params:
+                if not ignore_extra:
+                    raise MXNetError(
+                        "Parameter '%s' loaded from file '%s' is not present "
+                        "in ParameterDict" % (name[lprefix:], filename))
+                continue
+            param = self[name]
+            if param._data is None and not param._deferred_init:
+                param._load_init(NDArray(value._data.to(
+                    device=resolve(ctx), dtype=dtype_torch(param.dtype))))
+            else:
+                param.set_data(value)

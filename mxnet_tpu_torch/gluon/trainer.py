@@ -11,6 +11,10 @@ The update runs under ``torch.no_grad()`` and rebinds each weight's
 tensor (``optimizer.py``); the Trainer then marks the new tensor as the
 parameter's autograd variable again, so the next ``record()`` tracks
 it.
+
+``save_states``/``load_states`` pickle the updater's states without the
+optimizer, as the JAX package does: a resumed Adam starts its update
+count, and so its bias correction, again.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ import torch
 
 from .. import autograd
 from .. import optimizer as opt
+from .._atomic_io import atomic_write
 from .parameter import Parameter, ParameterDict
 
 __all__ = ["Trainer"]
@@ -102,3 +107,16 @@ class Trainer:
                 self._updater(i, param.grad(), weight)
             autograd.mark_variables([weight], [param.grad()],
                                     param.grad_req)
+
+    def save_states(self, fname):
+        """Write the optimizer's states to ``fname`` (reference:
+        trainer.py save_states)."""
+        atomic_write(fname, self._updater.get_states(dump_optimizer=False))
+
+    def load_states(self, fname):
+        """Read states ``save_states`` wrote (reference: trainer.py
+        load_states); each moves to its parameter's device at the next
+        step."""
+        with open(fname, "rb") as f:
+            self._updater.set_states(f.read())
+        self._optimizer = self._updater.optimizer

@@ -9,10 +9,13 @@ python/mxnet/kvstore.py, src/kvstore/) for one process on one device:
 - ``tpu`` (``KVStoreTPU``): ``push`` only buffers the gradient and the
   next ``pull`` applies every buffered key at once through the
   optimizer's per-array update (``optimizer.fused_update_kernel``), with
-  the same arithmetic as the per-key path.  Under ``Module`` on one
-  device this store is what asks for the executor's fused step, where
-  the update runs inside ``forward(is_train=True)`` and the store is
-  bypassed.
+  the same arithmetic as the per-key path, its slots kept as the
+  ``Updater``'s states.  Under ``Module`` on one device this store is
+  what asks for the executor's fused step, where the update runs inside
+  ``forward(is_train=True)`` and the store is bypassed.
+
+``save_optimizer_states``/``load_optimizer_states`` write and read the
+updater's pickled states, atomically.
 
 The multi-process stores (``dist_*``) come with the multi-GPU slice.
 """
@@ -20,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from ._atomic_io import atomic_write
 from .base import MXNetError
 from .ndarray import NDArray
 from . import optimizer as opt
@@ -116,6 +120,22 @@ class KVStore:
         except (TypeError, ValueError):
             return k
 
+    def save_optimizer_states(self, fname, dump_optimizer=False):
+        """Write the updater's states to ``fname`` (reference:
+        kvstore.py save_optimizer_states)."""
+        if self._updater is None:
+            raise MXNetError("this kvstore runs no optimizer: it has no "
+                             "states to save")
+        atomic_write(fname, self._updater.get_states(dump_optimizer))
+
+    def load_optimizer_states(self, fname):
+        """Read states written by ``save_optimizer_states``."""
+        if self._updater is None:
+            raise MXNetError("this kvstore runs no optimizer: set one "
+                             "before loading its states")
+        with open(fname, "rb") as fin:
+            self._updater.set_states(fin.read())
+
     @property
     def rank(self):
         return 0
@@ -130,18 +150,15 @@ class KVStoreTPU(KVStore):
     the first pull applies every buffered update at once, through the
     optimizer's per-array form, with lr and wd for all keys in one small
     fp32 tensor (reference for the semantics: the server-side update,
-    kvstore_dist_server.h:282)."""
+    kvstore_dist_server.h:282).  The slots are the updater's states, so
+    they are what ``save_optimizer_states`` writes (the JAX package keeps
+    them apart and writes an empty updater)."""
 
     fused_update = True
 
     def __init__(self, kv_type="tpu"):
         super().__init__(kv_type)
         self._pending = {}    # key -> merged gradient tensor
-        self._fstate = {}     # key -> tuple of slot tensors
-
-    def set_optimizer(self, optimizer):
-        super().set_optimizer(optimizer)
-        self._fstate.clear()
 
     def _fused(self):
         o = self._optimizer
@@ -172,14 +189,15 @@ class KVStoreTPU(KVStore):
         hyper = [opt.fused_lr_wd(o, self._key_int(k)) for k in keys]
         device = self._store[keys[0]]._data.device
         hyper = torch.tensor(hyper, dtype=torch.float32, device=device)
+        states = self._updater.states
         for j, k in enumerate(keys):
             w = self._store[k]._data
-            if k not in self._fstate:
-                self._fstate[k] = init_state(w)
-            nw, nst = one(w, self._pending[k], self._fstate[k],
-                          hyper[j, 0], hyper[j, 1])
+            slots = tuple(s.to(w.device) for s in opt.state_slots(
+                states[k])) if k in states else init_state(w)
+            nw, nst = one(w, self._pending[k], slots, hyper[j, 0],
+                          hyper[j, 1])
             self._store[k]._data = nw
-            self._fstate[k] = tuple(nst)
+            states[k] = opt.slots_state(tuple(nst))
         self._pending.clear()
 
 

@@ -1,20 +1,26 @@
-"""Kvstore helpers of the training loop.
+"""Checkpoint files and the kvstore helpers of the training loop.
 
-Counterpart of the parts of ``mxnet_tpu/model.py`` that ``Module`` uses
-(reference: python/mxnet/model.py): ``BatchEndParam``,
-``_create_kvstore`` (which store, and whether the update runs on it),
-``_initialize_kvstore`` and the two update paths.  Checkpoint files wait
-for the V2 ``save``/``load`` container.
+Counterpart of ``mxnet_tpu/model.py`` (reference: python/mxnet/model.py):
+``save_checkpoint``/``load_checkpoint`` (``prefix-symbol.json`` and
+``prefix-NNNN.params`` with ``arg:``/``aux:`` names, the files the JAX
+package writes), ``BatchEndParam``, ``_create_kvstore`` (which store, and
+whether the update runs on it), ``_initialize_kvstore`` and the two
+update paths.  The legacy ``FeedForward`` is not ported.
 """
 from __future__ import annotations
 
+import logging
+import os
 from collections import namedtuple
 
 import numpy as np
 
 from . import kvstore as kvs
+from . import ndarray as nd
+from . import symbol as sym
+from .base import MXNetError
 
-__all__ = ["BatchEndParam"]
+__all__ = ["BatchEndParam", "save_checkpoint", "load_checkpoint"]
 
 BatchEndParam = namedtuple("BatchEndParams",
                            ["epoch", "nbatch", "eval_metric", "locals"])
@@ -88,3 +94,46 @@ def _update_params(param_arrays, grad_arrays, updater, num_device,
             kvstore.pull(name, grad_list, priority=-index)
         for k, (w, g) in enumerate(zip(arg_list, grad_list)):
             updater(index * num_device + k, g, w)
+
+
+def save_checkpoint(prefix, epoch, symbol, arg_params, aux_params):
+    """Write ``prefix-symbol.json`` and ``prefix-%04d.params`` (reference:
+    model.py:365), each atomically."""
+    if symbol is not None:
+        symbol.save("%s-symbol.json" % prefix)
+    save_dict = {("arg:%s" % k): v for k, v in arg_params.items()}
+    save_dict.update({("aux:%s" % k): v for k, v in aux_params.items()})
+    param_name = "%s-%04d.params" % (prefix, epoch)
+    nd.save(param_name, save_dict)
+    logging.info("Saved checkpoint to \"%s\"", param_name)
+
+
+def load_checkpoint(prefix, epoch, ctx=None):
+    """``(symbol, arg_params, aux_params)`` from the files
+    :func:`save_checkpoint` writes (reference: model.py:395), the arrays
+    on ``ctx`` (default ``gpu(0)``)."""
+    symbol = sym.load("%s-symbol.json" % prefix)
+    save_dict = nd.load("%s-%04d.params" % (prefix, epoch), ctx=ctx)
+    arg_params, aux_params = {}, {}
+    for k, v in save_dict.items():
+        tp, name = k.split(":", 1)
+        if tp == "arg":
+            arg_params[name] = v
+        if tp == "aux":
+            aux_params[name] = v
+    return symbol, arg_params, aux_params
+
+
+def _refuse_manager(manager):
+    """The JAX package routes a save through a ``checkpoint``
+    CheckpointManager when given one or when ``MXNET_CKPT_DIR`` is set;
+    that package (``checkpoint/``) is not ported, so either raises here
+    rather than being ignored.  ``manager=False`` suppresses the routing,
+    as there."""
+    if manager is False:
+        return
+    if manager is not None or os.environ.get("MXNET_CKPT_DIR"):
+        raise MXNetError(
+            "checkpoint managers (manager=, MXNET_CKPT_DIR) need the "
+            "checkpoint/ package, which mxnet_tpu_torch does not port yet; "
+            "save with a prefix only and unset MXNET_CKPT_DIR")

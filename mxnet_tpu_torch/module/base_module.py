@@ -4,10 +4,10 @@ Counterpart of ``mxnet_tpu/module/base_module.py`` (reference:
 python/mxnet/module/base_module.py:81): ``forward_backward``, ``score``
 and ``fit`` (bind, init_params, init_optimizer, then per batch
 forward_backward / update / update_metric / batch-end callbacks, and per
-epoch the parameter sync and epoch-end callbacks).  The JAX package's
-checkpoint manager, fault supervisor, telemetry and tracing hooks are
-not part of the port; checkpoint callbacks wait for the V2
-``save``/``load`` container.
+epoch the parameter sync and epoch-end callbacks), and
+``save_params``/``load_params`` (the ``arg:``/``aux:`` container).  The
+JAX package's checkpoint manager, fault supervisor, telemetry and
+tracing hooks are not part of the port.
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ import time
 import warnings
 
 from .. import metric
+from .. import ndarray
 from ..initializer import Uniform
 from ..model import BatchEndParam
 
@@ -171,3 +172,27 @@ class BaseModule:
         self.init_params(initializer=None, arg_params=arg_params,
                          aux_params=aux_params, allow_missing=allow_missing,
                          force_init=force_init, allow_extra=allow_extra)
+
+    def save_params(self, fname):
+        """Write the parameters as one ``arg:``/``aux:`` container
+        (reference: base_module.py save_params)."""
+        arg_params, aux_params = self.get_params()
+        save_dict = {("arg:%s" % k): v for k, v in arg_params.items()}
+        save_dict.update({("aux:%s" % k): v for k, v in aux_params.items()})
+        ndarray.save(fname, save_dict)
+
+    def load_params(self, fname):
+        """Set the parameters from a container ``save_params`` wrote
+        (reference: base_module.py load_params), read onto the module's
+        context."""
+        save_dict = ndarray.load(fname, ctx=self._context[0])
+        arg_params, aux_params = {}, {}
+        for k, value in save_dict.items():
+            arg_type, name = k.split(":", 1)
+            if arg_type == "arg":
+                arg_params[name] = value
+            elif arg_type == "aux":
+                aux_params[name] = value
+            else:
+                raise ValueError("Invalid param file " + fname)
+        self.set_params(arg_params, aux_params)

@@ -3,7 +3,9 @@
 Counterpart of ``mxnet_tpu/module/module.py`` (reference:
 python/mxnet/module/module.py:40): ``bind``, ``init_params``,
 ``init_optimizer``, ``forward``/``backward``/``update``,
-``update_metric``, ``get_outputs``, ``get_params``/``set_params``.
+``update_metric``, ``get_outputs``, ``get_params``/``set_params``, and
+the checkpoint surface: ``Module.load``, ``save_checkpoint``,
+``save_optimizer_states``/``load_optimizer_states``.
 
 ``init_optimizer`` picks the update path as the JAX package does:
 ``kvstore="tpu"`` (update on the kvstore, one executor) installs the
@@ -12,18 +14,28 @@ backward and the optimizer sweep and ``update()`` has nothing left to
 do; ``"local"`` updates each array with the module's own ``Updater``,
 and ``"device"`` through the kvstore's.  The default context is
 ``gpu(0)``; without a GPU the module raises unless given ``cpu()``.
+
+Optimizer states: under the fused step the ``.states`` file holds the
+executor's slots, one state per weight under the index the ``local``
+path's ``Updater`` gives it, so a file written under ``kvstore="tpu"``
+(either ``MXNET_PALLAS_FUSED_OPT``) loads under ``"local"`` and the other
+way round.  (The JAX package writes its kvstore's updater there, which
+the fused step never used: an empty dict.)
 """
 from __future__ import annotations
 
 import logging
+import pickle
 import warnings
 
 from .. import optimizer as opt
+from .._atomic_io import atomic_write
 from ..context import Context, gpu
 from ..initializer import InitDesc, Uniform
 from ..io import DataDesc
-from ..model import (_create_kvstore, _initialize_kvstore, _update_params,
-                     _update_params_on_kvstore)
+from ..model import (_create_kvstore, _initialize_kvstore, _refuse_manager,
+                     _update_params, _update_params_on_kvstore,
+                     load_checkpoint)
 from .base_module import BaseModule, _check_input_names
 from .executor_group import DataParallelExecutorGroup
 
@@ -81,6 +93,73 @@ class Module(BaseModule):
         self._exec_group = None
         self._data_shapes = self._label_shapes = None
         self._fused_exec_update = False
+        self._preload_opt_states = None
+
+    @staticmethod
+    def load(prefix, epoch, load_optimizer_states=False, **kwargs):
+        """A Module from ``prefix-symbol.json`` and ``prefix-%04d.params``
+        (reference: module.py:126), its parameters loaded onto its
+        context; with ``load_optimizer_states`` the ``.states`` file is
+        read when ``init_optimizer`` runs (``fit`` with ``begin_epoch``
+        resumes)."""
+        context = kwargs.get("context")
+        ctx = context[0] if isinstance(context, (list, tuple)) else context
+        sym, args, auxs = load_checkpoint(prefix, epoch, ctx=ctx)
+        mod = Module(symbol=sym, **kwargs)
+        mod._arg_params, mod._aux_params = args, auxs
+        mod.params_initialized = True
+        if load_optimizer_states:
+            mod._preload_opt_states = "%s-%04d.states" % (prefix, epoch)
+        return mod
+
+    def save_checkpoint(self, prefix, epoch, save_optimizer_states=False,
+                        manager=None):
+        """Write ``prefix-symbol.json``, ``prefix-%04d.params`` and, if
+        asked, ``prefix-%04d.states`` (reference: module.py:161), each
+        atomically.  ``manager=`` and ``MXNET_CKPT_DIR`` raise: the
+        checkpoint manager is not ported."""
+        _refuse_manager(manager)
+        self._symbol.save("%s-symbol.json" % prefix)
+        param_name = "%s-%04d.params" % (prefix, epoch)
+        self.save_params(param_name)
+        logging.info("Saved checkpoint to \"%s\"", param_name)
+        if save_optimizer_states:
+            state_name = "%s-%04d.states" % (prefix, epoch)
+            self.save_optimizer_states(state_name)
+            logging.info("Saved optimizer state to \"%s\"", state_name)
+
+    def save_optimizer_states(self, fname):
+        """Write the optimizer's states to ``fname`` (reference:
+        module.py save_optimizer_states)."""
+        if not self.optimizer_initialized:
+            raise RuntimeError("call init_optimizer first")
+        if self._fused_exec_update:
+            names = self._exec_group.param_names
+            slots = self._exec_group.execs[0].optimizer_slots()
+            atomic_write(fname, pickle.dumps(
+                {i: opt.slots_state(slots[n]) for i, n in enumerate(names)
+                 if n in slots}))
+        elif self._update_on_kvstore:
+            self._kvstore.save_optimizer_states(fname)
+        else:
+            atomic_write(fname, self._updater.get_states())
+
+    def load_optimizer_states(self, fname):
+        """Read states written by ``save_optimizer_states`` (reference:
+        module.py load_optimizer_states)."""
+        if not self.optimizer_initialized:
+            raise RuntimeError("call init_optimizer first")
+        if self._fused_exec_update:
+            with open(fname, "rb") as f:
+                states = pickle.load(f)
+            names = self._exec_group.param_names
+            self._exec_group.execs[0].load_optimizer_slots(
+                {names[i]: opt.state_slots(st) for i, st in states.items()})
+        elif self._update_on_kvstore:
+            self._kvstore.load_optimizer_states(fname)
+        else:
+            with open(fname, "rb") as f:
+                self._updater.set_states(f.read())
 
     @property
     def data_names(self):
@@ -231,6 +310,9 @@ class Module(BaseModule):
                 self._exec_group.execs[0].install_fused_update(
                     self._optimizer, param_names=self._exec_group.param_names)
         self.optimizer_initialized = True
+        if self._preload_opt_states is not None:
+            self.load_optimizer_states(self._preload_opt_states)
+            self._preload_opt_states = None
 
     def forward(self, data_batch, is_train=None):
         """Reference: module.py forward."""

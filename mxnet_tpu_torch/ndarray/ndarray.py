@@ -14,21 +14,30 @@ scalars, ``reshape`` with MXNet's 0/-1/-2/-3/-4 codes, ``expand_dims``,
 through its registered op, and ``arange``; and autograd's surface:
 ``attach_grad``, ``grad``, ``backward`` and ``detach``.  Every op on an
 array records exactly while ``autograd.record()`` is on (torch's grad
-mode follows the flag).  The V2 ``save``/``load`` container is still to
-come.
+mode follows the flag).
+
+``save``/``load``/``load_buffer`` read and write MXNet's V2 NDArray
+container byte for byte as the JAX package does, so ``.params`` files
+move between the two packages; ``load`` puts the arrays on ``ctx``
+(default ``gpu(0)``).  An NDArray pickles through host memory, so a
+pickle holds no CUDA storage and loads on a machine without a card.
 """
 from __future__ import annotations
 
+import io
 import numbers
+import struct
 
 import numpy as np
 import torch
 
 from .. import autograd
-from ..base import MXNetError, dtype_name, dtype_torch
+from .._atomic_io import atomic_writer
+from ..base import MXNetError, dtype_from_id, dtype_id, dtype_name, dtype_torch
 from ..context import Context, resolve
 
-__all__ = ["NDArray", "array", "zeros", "ones", "empty", "arange"]
+__all__ = ["NDArray", "array", "zeros", "ones", "empty", "arange", "save",
+           "load", "load_buffer"]
 
 # the 64-bit numpy types nd.array narrows, as the JAX package does
 _NARROW = {torch.float64: torch.float32, torch.int64: torch.int32}
@@ -157,6 +166,15 @@ class NDArray:
         return "<NDArray %s @%s>" % ("x".join(map(str, self.shape)),
                                      self.context)
 
+    def __reduce__(self):
+        """Pickle through a host numpy array (bfloat16, which numpy lacks,
+        as its raw 16-bit words); the copy comes back on the CPU."""
+        t = self._data.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return _rebuild_ndarray, (t.view(torch.int16).numpy(),
+                                      "bfloat16")
+        return _rebuild_ndarray, (t.numpy(),)
+
     # -- ops gluon blocks call as methods (each its registered op) ----------
     def _op(self, name, inputs=(), **attrs):
         from ..imperative import invoke
@@ -260,6 +278,11 @@ class NDArray:
         return self._binop(other, "_power", "_rpower_scalar", reverse=True)
 
 
+def _rebuild_ndarray(a, dtype=None):
+    t = torch.from_numpy(np.require(a, requirements=("C", "W")))
+    return NDArray(t.view(torch.bfloat16) if dtype == "bfloat16" else t)
+
+
 def array(source_array, ctx=None, dtype=None):
     """A new NDArray holding a copy of ``source_array`` on ``ctx``
     (default ``gpu(0)``), with the JAX package's dtype rule: an explicit
@@ -272,7 +295,7 @@ def array(source_array, ctx=None, dtype=None):
         src = source_array._data
         dt = src.dtype
     elif isinstance(source_array, np.ndarray):
-        src = torch.from_numpy(np.ascontiguousarray(source_array))
+        src = torch.from_numpy(np.asarray(source_array, order="C"))
         dt = _NARROW.get(src.dtype, src.dtype)
     elif isinstance(source_array, torch.Tensor):
         src, dt = source_array, torch.float32
@@ -308,3 +331,110 @@ def empty(shape, ctx=None, dtype=None):
     """An uninitialised array (``torch.empty``)."""
     return NDArray(torch.empty(tuple(shape), dtype=dtype_torch(dtype),
                                device=resolve(ctx)))
+
+
+# ---------------------------------------------------------------------------
+# serialization: MXNet's V2 NDArray container (reference:
+# src/ndarray/ndarray.cc:1552; mxnet_tpu/ndarray/ndarray.py), little-endian:
+# the list magic 0x112, a reserved u64 and the array count (u64 each); per
+# array the V2 magic (u64), stype -1 (i32), ndim (u32), each dim (i64), the
+# context (two i32, always cpu(0), as the JAX package writes it), the dtype
+# id (i32) and the raw bytes; then the name count (u64) and each name as a
+# u64 length and its UTF-8 bytes.
+# ---------------------------------------------------------------------------
+_LIST_MAGIC = 0x112
+_NDARRAY_V2_MAGIC = 0xF993FAC9
+
+
+def _write_ndarray(f, arr):
+    t = arr._data.detach().cpu().contiguous()
+    f.write(struct.pack("<Qi", _NDARRAY_V2_MAGIC, -1))
+    f.write(struct.pack("<I", t.dim()))
+    f.write(struct.pack("<%dq" % t.dim(), *t.shape))
+    f.write(struct.pack("<iii", 1, 0, dtype_id(t.dtype)))
+    if t.numel():
+        f.write(t.reshape(-1).view(torch.uint8).numpy())
+
+
+def save(fname, data):
+    """Save an NDArray, a list of them or a ``{name: NDArray}`` dict
+    (reference: mx.nd.save) in the V2 container, atomically: a killed
+    writer leaves the previous file or the new one, never a truncated
+    one."""
+    if isinstance(data, NDArray):
+        data = [data]
+    if isinstance(data, dict):
+        names, arrays = list(data), list(data.values())
+    else:
+        names, arrays = [], list(data)
+    if not all(isinstance(a, NDArray) for a in arrays):
+        raise MXNetError("nd.save takes NDArrays")
+    with atomic_writer(fname) as f:
+        f.write(struct.pack("<QQQ", _LIST_MAGIC, 0, len(arrays)))
+        for a in arrays:
+            _write_ndarray(f, a)
+        f.write(struct.pack("<Q", len(names)))
+        for name in names:
+            b = name.encode()
+            f.write(struct.pack("<Q", len(b)))
+            f.write(b)
+
+
+def _unpack(f, fmt):
+    size = struct.calcsize(fmt)
+    buf = f.read(size)
+    if len(buf) != size:
+        raise MXNetError("truncated NDArray file")
+    return struct.unpack(fmt, buf)
+
+
+# the JAX package reads a blob into nd.array, which narrows the 64-bit
+# types; load gives the same dtypes
+_LOAD_NARROW = {torch.float64: torch.float32, torch.int64: torch.int32}
+
+
+def _read_ndarray(f, device):
+    (magic,) = _unpack(f, "<Q")
+    if magic != _NDARRAY_V2_MAGIC:
+        raise MXNetError("invalid NDArray file format (magic %x)" % magic)
+    _unpack(f, "<i")                                    # stype
+    (ndim,) = _unpack(f, "<I")
+    shape = _unpack(f, "<%dq" % ndim)
+    _unpack(f, "<ii")                                   # context
+    dt = dtype_from_id(_unpack(f, "<i")[0])
+    nbytes = int(np.prod(shape, dtype=np.int64)) * dt.itemsize
+    host = torch.empty(nbytes, dtype=torch.uint8)
+    if nbytes and f.readinto(memoryview(host.numpy())) != nbytes:
+        raise MXNetError("truncated NDArray file")
+    host = host.view(dt).reshape(shape)
+    return NDArray(host.to(device=device, dtype=_LOAD_NARROW.get(dt, dt)))
+
+
+def _load_stream(f, ctx):
+    device = resolve(ctx)
+    (magic,) = _unpack(f, "<Q")
+    if magic != _LIST_MAGIC:
+        raise MXNetError("invalid NDArray container (magic %x)" % magic)
+    _, n = _unpack(f, "<QQ")
+    arrays = [_read_ndarray(f, device) for _ in range(n)]
+    (m,) = _unpack(f, "<Q")
+    names = []
+    for _ in range(m):
+        (ln,) = _unpack(f, "<Q")
+        names.append(f.read(ln).decode())
+    return dict(zip(names, arrays)) if names else arrays
+
+
+def load(fname, ctx=None):
+    """Load a V2 container (reference: mx.nd.load): a ``{name: NDArray}``
+    dict, or a list when the file has no names, on ``ctx`` (default
+    ``gpu(0)``).  Each blob is read once into host memory and copied to
+    the device once."""
+    with open(fname, "rb") as f:
+        return _load_stream(f, ctx)
+
+
+def load_buffer(buf, ctx=None):
+    """Load a V2 container from its bytes (the ``param_bytes`` of
+    c_predict_api's MXPredCreate), as :func:`load`."""
+    return _load_stream(io.BytesIO(buf), ctx)

@@ -4,15 +4,18 @@ Counterpart of ``mxnet_tpu/optimizer.py`` (reference:
 python/mxnet/optimizer.py): the ``Optimizer`` base with its registry,
 lr/wd multipliers (biases and betas get no weight decay), ``idx2name``
 and per-index update counts; ``SGD`` (with momentum) and ``Adam``;
-``Updater``, the per-array wrapper a kvstore or ``Module`` applies; and
-the two helpers of the executor's fused step, ``fused_update_kernel``
-and ``fused_lr_wd``.  Updates go through ``ops/optimizer_ops.py`` and
-replace the weight's and the slots' tensors (``_data``), writing nothing
-in place.
+``Updater``, the per-array wrapper a kvstore or ``Module`` applies, whose
+``get_states``/``set_states`` pickle its states as the JAX package's do
+(the ``.states`` files of ``Module`` and ``gluon.Trainer``); and the
+helpers of the executor's fused step, ``fused_update_kernel``,
+``fused_lr_wd`` and the slot <-> state conversions.  Updates go through
+``ops/optimizer_ops.py`` and replace the weight's and the slots' tensors
+(``_data``), writing nothing in place.
 """
 from __future__ import annotations
 
 import math
+import pickle
 
 import torch
 
@@ -21,7 +24,8 @@ from .ndarray import NDArray
 from .ops import optimizer_ops as oo
 
 __all__ = ["Optimizer", "SGD", "Adam", "Updater", "get_updater", "create",
-           "register", "fused_update_kernel", "fused_lr_wd"]
+           "register", "fused_update_kernel", "fused_lr_wd", "state_slots",
+           "slots_state"]
 
 
 class Optimizer:
@@ -126,6 +130,15 @@ class Optimizer:
     def _get_wd(self, index):
         return self.wd * self._param_mult(index, self.wd_mult, "wd_mult")
 
+    def __getstate__(self):
+        ret = self.__dict__.copy()
+        del ret["sym_info"]
+        return ret
+
+    def __setstate__(self, state):
+        self.__dict__ = state
+        self.sym_info = ()
+
 
 register = Optimizer.register
 
@@ -192,16 +205,70 @@ class Adam(Optimizer):
 
 class Updater:
     """Wraps an optimizer for kvstore use and owns its states
-    (reference: optimizer.py:1453)."""
+    (reference: optimizer.py:1453).  States loaded by ``set_states`` come
+    back on the CPU and move to their weight's device at its next
+    update."""
 
     def __init__(self, optimizer):
         self.optimizer = optimizer
         self.states = {}
+        self.states_synced = {}
 
     def __call__(self, index, grad, weight):
         if index not in self.states:
             self.states[index] = self.optimizer.create_state(index, weight)
+            self.states_synced[index] = True
+        elif not self.states_synced[index]:
+            self.states[index] = _state_to(self.states[index],
+                                           weight._data.device)
+            self.states_synced[index] = True
         self.optimizer.update(index, weight, grad, self.states[index])
+
+    def set_states(self, states):
+        """Take the states (and, if pickled with them, the optimizer) from
+        ``get_states``' bytes (reference: optimizer.py set_states)."""
+        states = pickle.loads(states)
+        if isinstance(states, tuple) and len(states) == 2:
+            self.states, self.optimizer = states
+        else:
+            self.states = states
+        self.states_synced = dict.fromkeys(self.states, False)
+
+    def get_states(self, dump_optimizer=False):
+        """The pickled ``{index: state}``, with the optimizer if asked."""
+        return pickle.dumps((self.states, self.optimizer) if dump_optimizer
+                            else self.states)
+
+
+def _state_to(state, device):
+    """A state with every NDArray in it on ``device`` (reference:
+    optimizer.py sync_state_context)."""
+    if isinstance(state, NDArray):
+        return NDArray(state._data.to(device))
+    if isinstance(state, (tuple, list)):
+        return type(state)(_state_to(s, device) for s in state)
+    return state
+
+
+def state_slots(state):
+    """An ``Updater`` state (None, an NDArray, or a tuple of them) -> the
+    tuple of its tensors: the fused step's slot layout."""
+    if state is None:
+        return ()
+    if isinstance(state, NDArray):
+        return (state._data,)
+    return tuple(s._data for s in state)
+
+
+def slots_state(slots):
+    """The inverse of :func:`state_slots` for SGD and Adam: no slot is
+    None, one is an NDArray (the momentum), two a tuple (Adam's mean and
+    variance)."""
+    if not slots:
+        return None
+    if len(slots) == 1:
+        return NDArray(slots[0])
+    return tuple(NDArray(s) for s in slots)
 
 
 def get_updater(optimizer):

@@ -4,8 +4,9 @@
 A registered version holds the symbol, the parameter NDArrays and the
 per-input SAMPLE shapes (the declared shapes minus the batch axis); the
 batch axis belongs to the serving layer's shape buckets.  The registry
-never binds: the executor cache does.  Checkpoint watching comes with
-the checkpoint slice.
+never binds: the executor cache does.  ``load`` reads a checkpoint's
+files (or their contents) as ``Predictor`` does.  Checkpoint watching
+comes with the ``checkpoint/`` package.
 """
 from __future__ import annotations
 
@@ -54,6 +55,17 @@ class ModelRegistry:
         self._lock = threading.Lock()
         self._models = {}      # guarded-by: _lock — name -> {version: entry}
         self._default = {}     # guarded-by: _lock — name -> version
+
+    def load(self, name, symbol_file, param_file, input_shapes,
+             version=None, ctx=None):
+        """Register a checkpoint from its files or their contents (the
+        ``Predictor`` contract), the parameters on ``ctx`` (default
+        ``gpu(0)``); returns the version."""
+        from ..predictor import _load_params, _load_symbol
+        sym = _load_symbol(symbol_file)
+        arg_params, aux_params = _load_params(param_file, ctx)
+        return self.add(name, sym, arg_params, aux_params, input_shapes,
+                        version=version)
 
     def add(self, name, symbol, arg_params, aux_params, input_shapes,
             version=None):

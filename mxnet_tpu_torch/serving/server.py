@@ -183,6 +183,15 @@ class ModelServer:
                 self._req_counts[outcome] += n
 
     # -- model management ---------------------------------------------------
+    def load_model(self, name, symbol_file, param_file, input_shapes,
+                   version=None):
+        """Register a checkpoint (``prefix-symbol.json`` and
+        ``prefix-NNNN.params``, or their contents), its parameters read
+        onto the server's device."""
+        return self.registry.load(name, symbol_file, param_file,
+                                  input_shapes, version=version,
+                                  ctx=self.device)
+
     def add_model(self, name, symbol, arg_params, aux_params, input_shapes,
                   version=None):
         """Register a model; its parameters must live on the server's

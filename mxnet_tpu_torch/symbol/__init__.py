@@ -5,7 +5,7 @@ from __future__ import annotations
 import sys
 
 from .symbol import (  # noqa: F401
-    Group, Symbol, Variable, _SymNode, _op_input_names, load_json,
+    Group, Symbol, Variable, _SymNode, _op_input_names, load, load_json,
     var,
 )
 from .. import ops  # noqa: F401  (registers every op)

@@ -5,8 +5,9 @@ of op nodes.  Binding lowers it to one function over tensors that runs
 eagerly (there is no jit); shape inference runs the same op functions
 on ``meta`` tensors (the counterpart of ``jax.eval_shape``), helped by
 per-op parameter-shape hooks that reproduce MXNet's weight-shape
-inference.  ``tojson``/``load_json`` write and read the JAX package's
-nnvm JSON schema, so graphs move between the two packages as JSON.
+inference.  ``tojson``/``load_json`` (and ``save``/``load``, their
+file forms) write and read the JAX package's nnvm JSON schema, so graphs
+move between the two packages as JSON.
 """
 from __future__ import annotations
 
@@ -15,10 +16,11 @@ import json
 import numpy as np
 import torch
 
+from .._atomic_io import atomic_write
 from ..base import MXNetError, dtype_torch
 from ..ops.registry import OpDef, coerce_attrs, get_op
 
-__all__ = ["Symbol", "var", "Variable", "Group", "load_json"]
+__all__ = ["Symbol", "var", "Variable", "Group", "load_json", "load"]
 
 
 class _SymNode:
@@ -78,6 +80,17 @@ class Symbol:
     def _flat_outputs(self):
         return list(self._heads)
 
+    def __getitem__(self, index):
+        """The output at ``index`` (an int, a slice, or an output name)."""
+        if isinstance(index, str):
+            names = self.list_outputs()
+            if index not in names:
+                raise MXNetError("no output named %r in %s" % (index, names))
+            index = names.index(index)
+        if isinstance(index, slice):
+            return Symbol(self._heads[index])
+        return Symbol([self._heads[index]])
+
     # -- graph walking ------------------------------------------------------
     def _topo(self):
         seen, order = set(), []
@@ -93,6 +106,12 @@ class Symbol:
         for node, _ in self._heads:
             visit(node)
         return order
+
+    def get_internals(self):
+        """A symbol whose outputs are every node's outputs, in graph order
+        (reference: symbol.py get_internals)."""
+        return Symbol([(node, i) for node in self._topo()
+                       for i in range(node.num_outputs())])
 
     def list_arguments(self):
         """Variables excluding aux states, topo order."""
@@ -231,6 +250,12 @@ class Symbol:
             "nodes": jnodes, "arg_nodes": arg_nodes, "heads": heads,
             "attrs": {"mxnet_version": ["int", 10200]},
         }, indent=2)
+
+    def save(self, fname):
+        """Write ``tojson()`` to ``fname``, atomically: the
+        ``-symbol.json`` half of a checkpoint never exists half
+        written."""
+        atomic_write(fname, self.tojson(), mode="w")
 
 
 # ---------------------------------------------------------------------------
@@ -515,3 +540,9 @@ def load_json(json_str):
             nodes.append(_SymNode(get_op(jn["op"]), jn["name"], inputs,
                                   dict(attrs)))
     return Symbol([(nodes[h[0]], h[1]) for h in g["heads"]])
+
+
+def load(fname):
+    """Read a symbol from a JSON file (reference: mx.sym.load)."""
+    with open(fname) as f:
+        return load_json(f.read())
