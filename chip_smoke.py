@@ -116,12 +116,34 @@ Phases, each of which raises on failure:
    (weights bitwise or within 1e-6; 25 K6a + 25 K6b + 12 K7a/b/c), one
    Adam step of each (m and v likewise; the resumed update count restarts,
    as in the JAX package); sizes, save and load ms and MB/s printed;
+14. the operator library and Inception-BN: (a) every ``OP_CASES`` entry
+   (each op name the library added, over its attribute variants) on the
+   card against the same call on CPU tensors, forward, the inputs after
+   the call and the backward of the differentiable ones, in the table's
+   bands (bitwise for data movement, indexing, comparisons and casts,
+   1e-6 of the largest for fp32 arithmetic, the stated bound of a
+   special function), every output on the card; every sampler's moments
+   over 10^6 draws on the card within 5 standard errors, the same seed
+   giving the same draws twice, each draw under sync debug mode "error"
+   (a draw made on the host and copied would raise); one
+   ``nd.contrib.fused_bn_relu`` call: one K3 launch, bitwise equal to
+   ``scale_bias_relu_ref``.  (b) Inception-BN (``symbols/inception_bn``,
+   1000 classes, 3x224x224, fp32, batch 32) through ``Module.fit``
+   (``kvstore="tpu"``, SGD lr 0.02 momentum 0.9 wd 1e-4, Xavier from
+   the seed): 3 warmup and 10 timed steps on one fixed batch, launches
+   held to K1b once a bucket and K2 once a step, the loss falling; then
+   the trained parameters served by ``ModelServer`` (buckets 1..32), each
+   answer held to the module's forward (bitwise or within 1e-6 of the
+   largest), 69 K3 and 1 K2 a forward; after the profiler timings one
+   profiled step (idle share) and 2 steps under sync debug mode "error";
 then every kernel's device time by the profiler, one profiled serving
 forward, training step, transformer forward and transformer training
 step.
 
 Prints one JSON line ``{"checkpoints": {...}}`` with phase 13's numbers,
-one ``{"kernels": [...]}`` (all twelve kernels), the serving, training
+``{"ops": {...}}`` and ``{"inception_bn": {...}}`` with phase 14's,
+one ``{"kernels": [...]}`` (all twelve kernels; K3, K2 and K1b with
+their ``launches_inception``), the serving, training
 and transformer numbers beside the card's name and power limit, and as
 its last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
@@ -274,6 +296,702 @@ def bound_ms(nbytes, ops, bw, flops):
     t_bytes, t_ops = nbytes / bw, ops / flops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+# ---------------------------------------------------------------------------
+# phase 14 (a): the operator library's case table, shared with the CPU
+# tests (tests/test_torch_ops_*.py), which hold the same cases against the
+# JAX package.  numpy inputs made from SEED; nothing here imports either
+# package.
+# ---------------------------------------------------------------------------
+# bands: "exact" bitwise (data movement, indexing, comparisons, casts,
+# integer-valued results); "f32" within OP_F32 of the largest |reference|
+# (fp32 arithmetic, reductions, transcendental functions: the CPU, the
+# card and XLA each round their own polynomial); a float: that op's own
+# bound, given with its reason in OP_BAND_REASONS.  Gradients (the
+# ``grad`` cases, d sum(out * w) / d input for a fixed random w) are held
+# within OP_GRAD of the largest.
+OP_F32 = 1e-6
+OP_GRAD = 1e-5
+OP_BAND_REASONS = {
+    "special": "special functions (erfinv, gamma, gammaln, cbrt, rcbrt, "
+               "tan, arccosh, arctanh) use other approximations on the CPU, "
+               "on the card and in XLA; gamma, exp(lgamma(x)), compounds "
+               "two of them: a few ulp of the largest value",
+    "linalg": "factorizations and triangular solves (LAPACK, cuSOLVER and "
+              "XLA order their sums differently) on well-conditioned 4x4 "
+              "batches: some ulp more than one product",
+}
+OP_SPECIAL = 2e-6
+OP_LINALG = 5e-6
+# ops whose call on the card may wait on it, so run_case does not hold
+# them to no_host_sync (their outputs must still lie on the card)
+_EIGH = ("torch.linalg.eigh reads its solver's info flag back to the "
+         "host to raise on a failed decomposition, and torch has no eigh "
+         "that skips that check; the decomposition runs on the card")
+OP_HOST_SYNC = {"_linalg_syevd": _EIGH, "linalg_syevd": _EIGH}
+
+
+def _op_cases(seed=SEED):
+    """The case table: a list of dicts with ``name`` (the op's registered
+    name), ``inputs`` (numpy arrays), ``attrs``, ``band`` ("exact",
+    "f32" or a float), ``grad`` (hold the backward too), ``ctx`` (the op
+    takes a ``ctx`` attr: it has no tensor inputs), ``canon`` (outputs
+    unique only up to sign, normalised before comparing) and ``after``
+    (hold the inputs after the call: the optimizer ops write their
+    states back into them)."""
+    rng = np.random.RandomState(seed)
+    f32 = np.float32
+
+    def u(*shape, lo=-1.0, hi=1.0):
+        return rng.uniform(lo, hi, shape).astype(f32)
+
+    def ints(*shape, lo=-3, hi=4):
+        return rng.randint(lo, hi, shape).astype(f32)
+
+    def spd(b, n):
+        m = rng.randn(b, n, n).astype(f32)
+        return (m @ m.transpose(0, 2, 1) + n * np.eye(n, dtype=f32)) \
+            .astype(f32)
+
+    def tri(b, n, lower=True):
+        m = rng.uniform(-1, 1, (b, n, n)).astype(f32)
+        m = np.tril(m) if lower else np.triu(m)
+        return (m + n * np.eye(n, dtype=f32)).astype(f32)
+
+    cases = []
+
+    def add(name, inputs, attrs=None, band="f32", grad=False, ctx=False,
+            canon=None, after=True):
+        cases.append({"name": name, "inputs": list(inputs),
+                      "attrs": dict(attrs or {}), "band": band,
+                      "grad": grad, "ctx": ctx, "canon": canon,
+                      "after": after})
+
+    # -- elemwise: unary ---------------------------------------------------
+    for name in ("abs", "_abs", "sign", "rint", "round", "ceil", "floor",
+                 "trunc", "fix"):
+        x = rng.uniform(-4, 4, (4, 5)).astype(f32)
+        x[0, :4] = [0.5, 1.5, -2.5, -0.5]       # halves: to even
+        add(name, [x], band="exact", grad=name in ("abs", "_abs"))
+    for name in ("sqrt", "rsqrt", "log", "log10", "log2", "log1p"):
+        add(name, [u(4, 5, lo=0.1, hi=4.0)], grad=True)
+    for name in ("exp", "expm1", "sin", "cos", "sinh", "cosh", "tanh",
+                 "arcsin", "arccos", "arctan", "arcsinh", "degrees",
+                 "radians", "sigmoid", "softsign", "reciprocal", "relu",
+                 "softrelu", "erf"):
+        x = u(4, 5, lo=-0.95, hi=0.95) if name in ("arcsin", "arccos") \
+            else u(4, 5, lo=-3, hi=3)
+        if name == "reciprocal":
+            x = np.where(np.abs(x) < 0.1, 0.5, x).astype(f32)
+        add(name, [x], grad=True)
+    add("tan", [u(4, 5, lo=-1.2, hi=1.2)], band=OP_SPECIAL, grad=True)
+    add("arccosh", [u(4, 5, lo=1.1, hi=4)], band=OP_SPECIAL, grad=True)
+    add("arctanh", [u(4, 5, lo=-0.9, hi=0.9)], band=OP_SPECIAL, grad=True)
+    for name in ("cbrt", "rcbrt"):
+        x = u(4, 5, lo=-3, hi=3)
+        if name == "rcbrt":
+            x = np.where(np.abs(x) < 0.1, 0.5, x).astype(f32)
+        add(name, [x], band=OP_SPECIAL, grad=True)
+    add("erfinv", [u(4, 5, lo=-0.9, hi=0.9)], band=OP_SPECIAL, grad=True)
+    add("gamma", [u(4, 5, lo=0.2, hi=4)], band=OP_SPECIAL, grad=True)
+    add("gamma", [u(4, 5, lo=-2.9, hi=-0.1)], band=OP_SPECIAL)
+    add("gammaln", [u(4, 5, lo=0.2, hi=6)], band=OP_SPECIAL, grad=True)
+    add("logical_not", [ints(4, 5, lo=-1, hi=2)], band="exact")
+    add("_copy", [u(3, 4)], band="exact", grad=True)
+    add("identity", [u(3, 4)], band="exact", grad=True)
+    for name in ("BlockGrad", "stop_gradient", "make_loss_grad_blocked"):
+        add(name, [u(3, 4)], band="exact", grad=True)
+    for dt in ("float16", "bfloat16", "int32", "uint8", "int8", "float64",
+               "int64", "bool", "float32"):
+        add("Cast", [u(3, 4, lo=-3, hi=3) if dt not in ("uint8",)
+                     else u(3, 4, lo=0, hi=200)], {"dtype": dt},
+            band="exact")
+    add("cast", [u(3, 4, lo=-3, hi=3)], {"dtype": "int32"}, band="exact")
+    add("clip", [u(4, 5, lo=-2, hi=2)], {"a_min": -0.5, "a_max": 0.7},
+        band="exact", grad=True)
+    add("clip", [u(4, 5, lo=-2, hi=2)], {"a_min": -0.5}, band="exact")
+    add("hard_sigmoid", [u(4, 5, lo=-4, hi=4)], grad=True)
+    add("hard_sigmoid", [u(4, 5, lo=-4, hi=4)], {"alpha": 0.3, "beta": 0.4})
+    add("smooth_l1", [u(4, 5, lo=-2, hi=2)], {"scalar": 1.5}, grad=True)
+    # -- elemwise: binary --------------------------------------------------
+    for name, alias in (("_mod", "broadcast_mod"),):
+        a = rng.uniform(-6, 6, (3, 4)).astype(f32)
+        b = rng.uniform(0.5, 3, (3, 4)).astype(f32) * \
+            rng.choice([-1, 1], (3, 4)).astype(f32)
+        add(name, [a, b])
+        add(alias, [a, b[:1]])
+    for name, alias in (("_maximum", "broadcast_maximum"),
+                        ("_minimum", "broadcast_minimum"),
+                        ("_hypot", "broadcast_hypot")):
+        add(name, [u(3, 4), u(3, 4)], grad=True)
+        add(alias, [u(3, 4), u(1, 4)], grad=True)
+    a, b = ints(3, 4), ints(3, 4)          # integer values: ties happen
+    add("_maximum", [a, b], band="exact", grad=True)
+    add("_grad_add", [u(3, 4), u(3, 4)], grad=True)
+    add("_scatter_elemwise_div", [u(3, 4), u(3, 4, lo=0.5, hi=2)],
+        grad=True)
+    for name in ("_equal", "_not_equal", "_greater", "_greater_equal",
+                 "_lesser", "_lesser_equal", "_logical_and", "_logical_or",
+                 "_logical_xor"):
+        add(name, [ints(3, 4, lo=-1, hi=2), ints(3, 4, lo=-1, hi=2)],
+            band="exact")
+        add("broadcast" + name, [ints(3, 4, lo=-1, hi=2),
+                                 ints(1, 4, lo=-1, hi=2)], band="exact")
+    add("_equal", [ints(3, 4).astype(np.int32), ints(3, 4).astype(np.int32)],
+        band="exact")
+    # -- elemwise: scalar forms ---------------------------------------------
+    for name in ("_mod_scalar", "_rmod_scalar"):
+        add(name, [u(3, 4, lo=-5, hi=5)], {"scalar": -1.7})
+        add(name, [u(3, 4, lo=0.5, hi=5)], {"scalar": 2.5})
+    for name in ("_maximum_scalar", "_MaximumScalar", "_minimum_scalar",
+                 "_MinimumScalar", "_hypot_scalar", "_HypotScalar",
+                 "_scatter_plus_scalar", "_scatter_minus_scalar"):
+        add(name, [u(3, 4)], {"scalar": 0.25}, grad=True)
+    for name in ("_equal_scalar", "_not_equal_scalar", "_greater_scalar",
+                 "_greater_equal_scalar", "_lesser_scalar",
+                 "_lesser_equal_scalar", "_logical_and_scalar",
+                 "_logical_or_scalar", "_logical_xor_scalar"):
+        add(name, [ints(3, 4, lo=-1, hi=2)], {"scalar": 1.0}, band="exact")
+        add(name, [ints(3, 4, lo=-1, hi=2)], {"scalar": 0.0}, band="exact")
+    add("_greater_scalar", [ints(3, 4).astype(np.int32)], {"scalar": 0.5},
+        band="exact")
+    add("_plus_scalar", [u(3, 4).astype(np.float16)], {"scalar": 0.1},
+        band="exact")
+    for name in ("add_n", "ElementWiseSum", "_sum", "elemwise_sum"):
+        add(name, [u(3, 4), u(3, 4), u(3, 4)], grad=True)
+    # -- reductions and ordering ------------------------------------------
+    x = u(3, 4, 5, lo=0.5, hi=1.5)
+    for name in ("max", "min", "max_axis", "min_axis"):
+        add(name, [x], band="exact")
+        add(name, [x], {"axis": 1}, band="exact", grad=True)
+        add(name, [x], {"axis": (0, 2), "keepdims": True}, band="exact")
+        add(name, [x], {"axis": 1, "exclude": True}, band="exact")
+        add(name, [x], {"keepdims": True}, band="exact")
+    for name in ("prod", "nansum", "nanprod"):
+        add(name, [x], grad=name == "prod")
+        add(name, [x], {"axis": (0, 2)}, grad=True)
+        add(name, [x], {"axis": 1, "keepdims": True, "exclude": True})
+    xn = x.copy()
+    xn[0, 1, :3] = np.nan
+    add("nansum", [xn], {"axis": 2})
+    add("nanprod", [xn], {"axis": 2})
+    add("prod", [ints(3, 4, lo=1, hi=4).astype(np.int32)], {"axis": 1},
+        band="exact")
+    for attrs in ({}, {"axis": 1}, {"ord": 1}, {"ord": 1, "axis": (0, 2),
+                                                "keepdims": True}):
+        add("norm", [x - 1.0], attrs, grad=True)
+    t = ints(4, 6, lo=0, hi=3)              # ties
+    for name in ("argmax", "argmin"):
+        add(name, [t], {"axis": 1}, band="exact")
+        add(name, [t], {"axis": 0, "keepdims": True}, band="exact")
+        add(name, [t], band="exact")
+    add("argmax_channel", [t], band="exact")
+    for attrs in ({"k": 3}, {"k": 2, "axis": 0}, {"k": 3, "is_ascend": True},
+                  {"k": 3, "ret_typ": "value"}, {"k": 3, "ret_typ": "both"},
+                  {"k": 2, "ret_typ": "mask"},
+                  {"k": 4, "axis": None, "ret_typ": "both"}):
+        add("topk", [t], attrs, band="exact")
+    add("topk", [u(4, 6)], {"k": 3, "ret_typ": "value"}, band="exact",
+        grad=True)
+    for attrs in ({}, {"axis": 0}, {"is_ascend": False}, {"axis": None}):
+        add("sort", [t], attrs, band="exact")
+        add("argsort", [t], attrs, band="exact")
+    add("sort", [u(4, 6)], {"is_ascend": False}, band="exact", grad=True)
+    add("broadcast_to", [u(1, 4, 1)], {"shape": (3, 4, 2)}, band="exact",
+        grad=True)
+    add("broadcast_to", [u(1, 4, 1)], {"shape": (3, 0, 2)}, band="exact")
+    for name in ("broadcast_axis", "broadcast_axes"):
+        add(name, [u(1, 4, 1)], {"axis": (0, 2), "size": (3, 5)},
+            band="exact", grad=True)
+    add("broadcast_like", [u(1, 4), u(3, 4)], band="exact", grad=True)
+    # -- matrix: products -------------------------------------------------
+    add("dot", [u(3, 4), u(4, 5)], grad=True)
+    add("dot", [u(4, 3), u(4, 5)], {"transpose_a": True}, grad=True)
+    add("dot", [u(3, 4), u(5, 4)], {"transpose_b": True})
+    add("dot", [u(4), u(4)], grad=True)
+    add("dot", [u(2, 3, 4), u(4, 5)])
+    add("batch_dot", [u(2, 3, 4), u(2, 4, 5)], grad=True)
+    add("batch_dot", [u(2, 4, 3), u(2, 5, 4)],
+        {"transpose_a": True, "transpose_b": True}, grad=True)
+    add("khatri_rao", [u(3, 4), u(2, 4), u(5, 4)], grad=True)
+    # -- matrix: shape ------------------------------------------------------
+    x = u(2, 3, 4)
+    add("transpose", [x], band="exact", grad=True)
+    add("transpose", [x], {"axes": (1, 0, 2)}, band="exact", grad=True)
+    add("squeeze", [u(2, 1, 3, 1)], band="exact")
+    add("squeeze", [u(2, 1, 3, 1)], {"axis": 1}, band="exact", grad=True)
+    for name in ("SwapAxis", "swapaxes"):
+        add(name, [x], {"dim1": 0, "dim2": 2}, band="exact", grad=True)
+    add("depth_to_space", [u(2, 8, 3, 2)], {"block_size": 2}, band="exact",
+        grad=True)
+    add("space_to_depth", [u(2, 2, 4, 6)], {"block_size": 2}, band="exact",
+        grad=True)
+    y = u(4, 6, 5)
+    for name in ("slice", "crop"):
+        add(name, [y], {"begin": (1, None, 0), "end": (3, 5, None)},
+            band="exact", grad=True)
+    add("slice", [y], {"begin": (3, 4), "end": (0, 1), "step": (-1, -2)},
+        band="exact", grad=True)
+    add("slice", [y], {"begin": (None, -2), "end": (None, None),
+                       "step": (2, 1)}, band="exact")
+    add("slice_axis", [y], {"axis": 1, "begin": 1, "end": 4}, band="exact",
+        grad=True)
+    add("slice_axis", [y], {"axis": -1, "begin": -3, "end": None},
+        band="exact")
+    for name in ("Concat", "concat"):
+        add(name, [u(2, 3), u(2, 1), u(2, 4)], band="exact", grad=True)
+    add("Concat", [u(2, 3), u(1, 3)], {"dim": 0}, band="exact")
+    add("stack", [u(2, 3), u(2, 3), u(2, 3)], {"axis": 1}, band="exact",
+        grad=True)
+    for name in ("SliceChannel", "split"):
+        add(name, [u(2, 6, 3)], {"num_outputs": 3}, band="exact", grad=True)
+    add("SliceChannel", [u(2, 6, 3)], {"num_outputs": 3, "axis": 2,
+                                       "squeeze_axis": True}, band="exact")
+    add("tile", [u(2, 3)], {"reps": (2, 1, 3)}, band="exact", grad=True)
+    add("repeat", [u(2, 3)], {"repeats": 2, "axis": 1}, band="exact",
+        grad=True)
+    add("repeat", [u(2, 3)], {"repeats": 3}, band="exact")
+    for name in ("reverse", "flip"):
+        add(name, [x], {"axis": (0, 2)}, band="exact", grad=True)
+    z = u(1, 2, 3, 4)
+    for name in ("Pad", "pad"):
+        add(name, [z], {"mode": "constant", "pad_width": (0, 0, 0, 0, 1, 2,
+                                                          2, 1),
+                        "constant_value": 0.5}, band="exact", grad=True)
+    add("Pad", [z], {"mode": "edge", "pad_width": (0, 0, 0, 0, 2, 1, 1, 3)},
+        band="exact", grad=True)
+    add("Pad", [z], {"mode": "reflect",
+                     "pad_width": (0, 0, 0, 0, 2, 2, 3, 1)}, band="exact",
+        grad=True)
+    # -- matrix: indexing ---------------------------------------------------
+    w = u(5, 3)
+    add("take", [w, np.array([[0, 4], [2, -1.5], [7, 3]], f32)],
+        band="exact", grad=True)
+    add("take", [u(3, 5), np.array([0, 6, -2, 4], f32)],
+        {"axis": 1, "mode": "wrap"}, band="exact", grad=True)
+    add("take", [w, np.array([1, 9], f32)], {"mode": "raise"}, band="exact")
+    add("batch_take", [u(4, 3), np.array([0, 2, -1, 1], f32)],
+        band="exact", grad=True)
+    for attrs in ({"depth": 4}, {"depth": 3, "on_value": 2.0,
+                                 "off_value": -1.0, "dtype": "int32"}):
+        add("one_hot", [np.array([0, 3, 1, -1, 2], f32)], attrs,
+            band="exact")
+    gi = np.array([[0, 2, 1], [1, 0, 3]], f32)
+    add("gather_nd", [u(3, 4, 2), gi], band="exact", grad=True)
+    add("scatter_nd", [u(3, 2), gi], {"shape": (3, 4, 2)}, band="exact",
+        grad=True)
+    add("_scatter_set_nd", [u(3, 4, 2), gi, u(3, 2)], {"shape": (3, 4, 2)},
+        band="exact", grad=True)
+    add("where", [ints(3, 4, lo=0, hi=2), u(3, 4), u(3, 4)], band="exact",
+        grad=True)
+    add("where", [ints(4, lo=0, hi=2), u(3, 4), u(3, 4)], band="exact")
+    seq = u(5, 3, 2)
+    lens = np.array([2, 5, 1], f32)
+    add("SequenceMask", [seq, lens], {"use_sequence_length": True,
+                                      "value": -1.0}, band="exact", grad=True)
+    add("SequenceMask", [u(3, 5, 2), lens], {"use_sequence_length": True,
+                                             "axis": 1}, band="exact")
+    add("SequenceMask", [seq], band="exact")
+    add("SequenceLast", [seq, lens], {"use_sequence_length": True},
+        band="exact", grad=True)
+    add("SequenceLast", [u(3, 5, 2)], {"axis": 1}, band="exact")
+    add("SequenceReverse", [seq, lens], {"use_sequence_length": True},
+        band="exact", grad=True)
+    add("SequenceReverse", [seq], band="exact")
+    for mode in ("instance", "channel", "spatial"):
+        add("L2Normalization", [u(2, 3, 4)], {"mode": mode}, grad=True)
+    # -- linalg -------------------------------------------------------------
+    for pre in ("_linalg_", "linalg_"):
+        a, b, c = u(2, 3, 4), u(2, 4, 5), u(2, 3, 5)
+        add(pre + "gemm2", [a, b], {"alpha": 0.5}, band=OP_LINALG, grad=True)
+        add(pre + "gemm", [a, b, c], {"alpha": 0.5, "beta": 2.0},
+            band=OP_LINALG, grad=True)
+        add(pre + "potrf", [spd(2, 4)], band=OP_LINALG, grad=True)
+        add(pre + "trsm", [tri(2, 4), u(2, 4, 3)], {"alpha": 2.0},
+            band=OP_LINALG, grad=True)
+        add(pre + "trmm", [tri(2, 4), u(2, 4, 3)], band=OP_LINALG,
+            grad=True)
+        add(pre + "syrk", [u(2, 3, 4)], {"alpha": 1.5}, band=OP_LINALG,
+            grad=True)
+        add(pre + "sumlogdiag", [spd(2, 4)], band=OP_LINALG, grad=True)
+        add(pre + "potri", [tri(2, 4)], band=OP_LINALG)
+        add(pre + "gelqf", [u(2, 3, 4)], band=OP_LINALG, canon="gelqf")
+        add(pre + "syevd", [spd(2, 4)], band=OP_LINALG, canon="syevd")
+    add("_linalg_potrf", [spd(2, 4)], {"lower": False}, band=OP_LINALG)
+    add("_linalg_trsm", [tri(2, 4, lower=False), u(2, 3, 4)],
+        {"transpose": True, "rightside": True, "lower": False},
+        band=OP_LINALG, grad=True)
+    add("_linalg_trmm", [tri(2, 4), u(2, 3, 4)],
+        {"transpose": True, "rightside": True}, band=OP_LINALG)
+    add("_linalg_potri", [tri(2, 4, lower=False)], {"lower": False},
+        band=OP_LINALG)
+    # -- creation -----------------------------------------------------------
+    for name in ("_zeros", "zeros_like_shape", "_ones"):
+        add(name, [], {"shape": (2, 3)}, band="exact", ctx=True)
+    add("_full", [], {"shape": (2, 3), "value": 1.5}, band="exact", ctx=True)
+    add("_eye", [], {"N": 3, "M": 5, "k": 1}, band="exact", ctx=True)
+    add("_eye", [], {"N": 4, "k": -2, "dtype": "int32"}, band="exact",
+        ctx=True)
+    for name in ("zeros_like", "ones_like", "shape_array", "size_array"):
+        add(name, [u(2, 3, 4)], band="exact")
+    # -- nn -------------------------------------------------------------------
+    img = u(2, 3, 7, 6)
+    for act in ("sigmoid", "tanh", "softrelu", "softsign"):
+        add("Activation", [img], {"act_type": act}, grad=True)
+    for attrs in ({"act_type": "leaky", "slope": 0.1}, {"act_type": "elu"},
+                  {"act_type": "selu"}):
+        add("LeakyReLU", [img], attrs, grad=True)
+    # rrelu's slopes are random under record() (training): forward only
+    add("LeakyReLU", [img], {"act_type": "rrelu"})
+    add("LeakyReLU", [img, u(3)], {"act_type": "prelu"}, grad=True)
+    for attrs in (
+            {"kernel": (3, 3), "pool_type": "sum", "stride": (2, 2)},
+            {"kernel": (3, 3), "pool_type": "max", "stride": (2, 2),
+             "pooling_convention": "full"},
+            {"kernel": (3, 2), "pool_type": "avg", "stride": (2, 2),
+             "pad": (1, 1), "pooling_convention": "full"},
+            {"kernel": (3, 3), "pool_type": "avg", "pad": (1, 1),
+             "count_include_pad": False},
+            {"kernel": (3, 3), "pool_type": "avg", "pad": (1, 1),
+             "stride": (2, 2), "count_include_pad": False,
+             "pooling_convention": "full"},
+            {"kernel": (2, 2), "pool_type": "max",
+             "pooling_convention": "same"},
+            {"kernel": (1, 1), "pool_type": "sum", "global_pool": True}):
+        band = "exact" if attrs["pool_type"] == "max" else "f32"
+        add("Pooling", [img], attrs, band=band, grad=True)
+    add("Pooling", [u(2, 3, 9)], {"kernel": (3,), "pool_type": "avg",
+                                  "stride": (2,)}, grad=True)
+    add("Pooling", [u(1, 2, 5, 4, 6)], {"kernel": (2, 2, 3),
+                                        "pool_type": "max"}, band="exact")
+    add("Deconvolution", [u(2, 4, 5, 5), u(4, 3, 3, 3)],
+        {"kernel": (3, 3), "num_filter": 3}, grad=True)
+    add("Deconvolution", [u(2, 4, 5, 5), u(4, 3, 3, 3), u(6)],
+        {"kernel": (3, 3), "num_filter": 6, "num_group": 2,
+         "stride": (2, 2), "pad": (1, 1), "adj": (1, 1), "no_bias": False},
+        grad=True)
+    add("Deconvolution", [u(2, 2, 7), u(2, 3, 4)],
+        {"kernel": (4,), "num_filter": 3, "stride": (2,), "dilate": (2,)},
+        grad=True)
+    add("InstanceNorm", [img, u(3, lo=0.5, hi=1.5), u(3)], {"eps": 1e-3},
+        grad=True)
+    add("LRN", [img], {"nsize": 3}, grad=True)
+    add("LRN", [u(2, 6, 3, 3)], {"nsize": 5, "alpha": 0.01, "beta": 0.5,
+                                 "knorm": 1.0}, grad=True)
+    add("UpSampling", [u(2, 3, 3, 4)], {"scale": 2}, band="exact",
+        grad=True)
+    add("UpSampling", [u(2, 3, 3, 4), u(2, 2, 3, 4)],
+        {"scale": 2, "num_args": 2}, band="exact")
+    add("UpSampling", [u(2, 3, 3, 4), u(3, 1, 4, 4)],
+        {"scale": 2, "sample_type": "bilinear", "num_filter": 3,
+         "num_args": 2}, grad=True)
+    for mode in ("instance", "channel"):
+        add("SoftmaxActivation", [img], {"mode": mode}, grad=True)
+    add("softmax", [u(3, 7, lo=-3, hi=3)], grad=True)
+    add("softmax", [img], {"axis": 1, "temperature": 2.0}, grad=True)
+    add("softmax_cross_entropy", [u(4, 6, lo=-3, hi=3),
+                                  np.array([0, 5, 2, 3], f32)], grad=True)
+    add("_contrib_AdaptiveAvgPooling2D", [u(2, 3, 8, 6)],
+        {"output_size": (4, 3)}, grad=True)
+    add("_contrib_AdaptiveAvgPooling2D", [u(2, 3, 8, 6)], grad=True)
+    add("_contrib_AdaptiveAvgPooling2D", [u(2, 3, 7, 6)],
+        {"output_size": (3, 4)})
+    add("_contrib_BilinearResize2D", [u(2, 3, 5, 4)],
+        {"height": 9, "width": 7})
+    add("_contrib_BilinearResize2D", [u(2, 3, 8, 6)],
+        {"scale_height": 0.5, "scale_width": 0.5})
+    # -- loss layers ---------------------------------------------------------
+    add("LinearRegressionOutput", [u(4, 3), u(4, 3)], {"grad_scale": 2.0},
+        band="exact", grad=True)
+    add("MAERegressionOutput", [u(4, 3), u(4, 3)], band="exact", grad=True)
+    add("LogisticRegressionOutput", [u(4, 3), u(4, 3, lo=0, hi=1)],
+        grad=True)
+    for name in ("MakeLoss", "make_loss"):
+        add(name, [u(4, 3)], {"grad_scale": 0.5, "normalization": "batch"},
+            band="exact", grad=True)
+    add("SVMOutput", [u(4, 5), np.array([0, 4, 2, 1], f32)], {"margin": 0.5},
+        band="exact", grad=True)
+    add("SVMOutput", [u(4, 5), np.array([3, 4, 0, 1], f32)],
+        {"use_linear": True, "regularization_coefficient": 0.5},
+        band="exact", grad=True)
+    # -- misc ------------------------------------------------------------------
+    add("reshape_like", [u(2, 6), u(3, 4)], band="exact", grad=True)
+    add("_identity_with_attr_like_rhs", [u(2, 3), u(4)], band="exact",
+        grad=True)
+    add("_slice_assign", [u(4, 5), u(2, 2)], {"begin": (1, 0), "end": (3, 4),
+                                             "step": (1, 2)},
+        band="exact", grad=True)
+    add("_slice_assign", [u(4, 5, 2), u(2, 5, 2)],
+        {"begin": (3,), "end": (0,), "step": (-2,)}, band="exact")
+    add("_slice_assign_scalar", [u(4, 5)], {"begin": (0, 1), "end": (2, 5),
+                                            "scalar": 3.0}, band="exact",
+        grad=True)
+    for name in ("_contrib_quadratic", "quadratic"):
+        add(name, [u(3, 4)], {"a": 0.5, "b": -1.0, "c": 2.0}, grad=True)
+    add("Crop", [u(2, 3, 6, 7)], {"h_w": (3, 4), "offset": (1, 2)},
+        band="exact", grad=True)
+    add("Crop", [u(2, 3, 6, 7), u(1, 1, 4, 3)], {"center_crop": True},
+        band="exact")
+    # the JAX package writes the new moving rho into the data input of an
+    # imperative call (moving_rho is a keyword there, not an input slot);
+    # this package does not, so the inputs after the call are not held
+    add("IdentityAttachKLSparseReg", [u(4, 3, lo=0.1, hi=0.9)],
+        {"penalty": 0.01}, grad=True, after=False)
+    # -- contrib ---------------------------------------------------------------
+    add("_contrib_fused_bn_relu", [img, u(3, lo=0.5, hi=1.5), u(3),
+                                   u(3, lo=-0.2, hi=0.2),
+                                   u(3, lo=0.5, hi=2)])
+    add("_contrib_fused_bn_relu", [img, u(3), u(3), u(3),
+                                   u(3, lo=0.5, hi=2)],
+        {"act": False, "eps": 1e-3})
+    add("_contrib_fft", [u(3, 8)])
+    add("_contrib_ifft", [u(3, 16)])
+    add("_contrib_count_sketch", [u(3, 6), np.array([0, 3, 1, 3, 2, 0], f32),
+                                  np.array([1, -1, 1, 1, -1, 1], f32)],
+        {"out_dim": 4}, grad=True)
+    # -- optimizer updates (states written back through mutate_aux) -----------
+    wt, gr = u(3, 4), u(3, 4)
+    pos = u(3, 4, lo=0.1, hi=1.0)
+    hyper = {"lr": 0.1, "wd": 0.01, "rescale_grad": 0.5}
+    add("sgd_update", [wt, gr], dict(hyper, clip_gradient=0.2))
+    add("sgd_mom_update", [wt, gr, u(3, 4)], dict(hyper, momentum=0.9))
+    add("adam_update", [wt, gr, u(3, 4), pos], dict(hyper, beta1=0.8))
+    add("rmsprop_update", [wt, gr, pos], dict(hyper, clip_weights=0.5))
+    add("rmspropalex_update", [wt, gr, pos + 1.0, u(3, 4, lo=-0.1, hi=0.1),
+                               u(3, 4)], dict(hyper))
+    add("ftrl_update", [wt, gr, u(3, 4), pos], dict(hyper, lamda1=0.05))
+    add("ftml_update", [wt, gr, pos, pos, u(3, 4)], dict(hyper, t=3))
+    add("signsgd_update", [wt, gr], dict(hyper))
+    add("signum_update", [wt, gr, u(3, 4)], dict(hyper, momentum=0.9,
+                                                 wd_lh=0.01))
+    w16 = wt.astype(np.float16)
+    add("mp_sgd_update", [w16, gr.astype(np.float16), wt], dict(hyper))
+    add("mp_sgd_mom_update", [w16, gr.astype(np.float16), u(3, 4), wt],
+        dict(hyper, momentum=0.9))
+    # a batch member that is not positive definite: NaN in the factor's
+    # triangle, zeros in the other, as jnp.linalg.cholesky gives
+    not_pd = np.array([[[1, 2], [2, 1]], [[4, 1], [1, 3]]], f32)
+    for lower in (True, False):
+        add("_linalg_potrf", [not_pd], {"lower": lower}, band=OP_LINALG)
+    return cases
+
+
+OP_CASES = _op_cases()
+
+
+def random_moments(kind, p):
+    """(mean, variance) of one draw of sampler ``kind`` with parameters
+    ``p``, in the JAX package's parameterisation."""
+    if kind == "uniform":
+        return (p["low"] + p["high"]) / 2, (p["high"] - p["low"]) ** 2 / 12
+    if kind == "normal":
+        return p["loc"], p["scale"] ** 2
+    if kind == "gamma":
+        return p["alpha"] * p["beta"], p["alpha"] * p["beta"] ** 2
+    if kind == "exponential":
+        return 1 / p["lam"], 1 / p["lam"] ** 2
+    if kind == "poisson":
+        return p["lam"], p["lam"]
+    if kind == "negative_binomial":
+        k, q = p["k"], p["p"]
+        return k * (1 - q) / q, k * (1 - q) / q ** 2
+    if kind == "generalized_negative_binomial":
+        return p["mu"], p["mu"] + p["alpha"] * p["mu"] ** 2
+    if kind == "randint":
+        n = p["high"] - p["low"]
+        return (p["low"] + p["high"] - 1) / 2, (n * n - 1) / 12
+    raise KeyError(kind)
+
+
+# sampler kind -> (scalar-parameter sets, one per row of the _sample_ op's
+# parameter arrays; integer-valued draws)
+RANDOM_CASES = {
+    "uniform": ([{"low": -1.0, "high": 3.0}, {"low": 2.0, "high": 2.5}],
+                False),
+    "normal": ([{"loc": 1.0, "scale": 2.0}, {"loc": -3.0, "scale": 0.5}],
+               False),
+    "gamma": ([{"alpha": 2.0, "beta": 1.5}, {"alpha": 0.5, "beta": 3.0}],
+              False),
+    "exponential": ([{"lam": 2.0}, {"lam": 0.25}], False),
+    "poisson": ([{"lam": 3.0}, {"lam": 12.0}], True),
+    "negative_binomial": ([{"k": 3, "p": 0.4}, {"k": 1, "p": 0.8}], True),
+    "generalized_negative_binomial": ([{"mu": 2.0, "alpha": 0.5},
+                                       {"mu": 5.0, "alpha": 0.1}], True),
+    "randint": ([{"low": -2, "high": 5}], True),
+}
+# the _sample_ op's parameter names, in its input order
+SAMPLE_INPUTS = {"uniform": ("low", "high"), "normal": ("loc", "scale"),
+                 "gamma": ("alpha", "beta"), "exponential": ("lam",),
+                 "poisson": ("lam",), "negative_binomial": ("k", "p"),
+                 "generalized_negative_binomial": ("mu", "alpha")}
+
+
+def _to_host(a):
+    """An NDArray of either package as a numpy array; bfloat16 as
+    float32."""
+    h = np.asarray(a.asnumpy())
+    if h.dtype.name == "bfloat16":
+        h = h.astype(np.float32)
+    return h
+
+
+class no_host_sync:
+    """On a card (``ctx`` a GPU context), torch's sync debug mode "error"
+    for the body, so an op that waits on the card, reads a tensor back,
+    or copies one from the host (what a value made on the host needs)
+    raises; elsewhere nothing."""
+
+    def __init__(self, ctx):
+        self.on_card = ctx.device_type == "gpu"
+
+    def __enter__(self):
+        if self.on_card:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+
+    def __exit__(self, *exc):
+        if self.on_card:
+            torch.cuda.set_sync_debug_mode("default")
+
+
+def _on_ctx(arrays, ctx, what, name):
+    """Raise unless every NDArray of ``arrays`` lies on ``ctx``."""
+    for a in arrays:
+        if a.context != ctx:
+            raise AssertionError("%s: %s on %s, not on %s"
+                                 % (name, what, a.context, ctx))
+
+
+def run_case(mx, case, ctx, grad=True, seed=SEED):
+    """Run one ``OP_CASES`` entry through ``mx`` (either package) on
+    ``ctx``: ``(outputs, inputs after the call, gradients)`` as numpy
+    arrays.  The gradients (None unless ``grad`` and ``case["grad"]``)
+    are d sum(out_k * w_k) / d input for each float input, with fixed
+    random weights w_k.  On a card the op's calls run under
+    ``no_host_sync`` (but those of ``OP_HOST_SYNC``), and every output,
+    input after the call and gradient must lie on ``ctx``."""
+    def fresh():
+        return [mx.nd.array(x, ctx=ctx, dtype=x.dtype)
+                for x in case["inputs"]]
+
+    on_card = ctx.device_type == "gpu"
+    guard = mx.cpu() if case["name"] in OP_HOST_SYNC else ctx
+    attrs = dict(case["attrs"])
+    if case["ctx"]:
+        attrs["ctx"] = ctx
+    fn = getattr(mx.nd, case["name"])
+    ins = fresh()
+    with no_host_sync(guard):
+        out = fn(*ins, **attrs)
+    outs = out if isinstance(out, (list, tuple)) else [out]
+    if on_card:
+        _on_ctx(outs, ctx, "output", case["name"])
+        _on_ctx(ins, ctx, "input after the call", case["name"])
+    host = [_to_host(o) for o in outs]
+    after = [_to_host(x) for x in ins]
+    grads = None
+    if grad and case["grad"]:
+        ins = fresh()
+        diff = [x for x, a in zip(ins, case["inputs"])
+                if a.dtype == np.float32]
+        for x in diff:
+            x.attach_grad()
+        rng = np.random.RandomState(seed + 7)
+        ws = [mx.nd.array(rng.uniform(-1, 1, h.shape).astype(np.float32),
+                          ctx=ctx) for h in host]
+        with mx.autograd.record():
+            with no_host_sync(guard):
+                out = fn(*ins, **attrs)
+            outs = out if isinstance(out, (list, tuple)) else [out]
+            loss = None
+            for o, w in zip(outs, ws):
+                term = (o * w).sum()
+                loss = term if loss is None else loss + term
+        loss.backward()
+        if on_card:
+            _on_ctx([x.grad for x in diff], ctx, "gradient", case["name"])
+        grads = [_to_host(x.grad) for x in diff]
+    return host, after, grads
+
+
+def _canon(kind, outs):
+    """Decompositions unique up to sign, fixed: gelqf's L with a positive
+    diagonal (Q's rows flipped to match), syevd's rows with their largest
+    |component| positive."""
+    if kind == "gelqf":
+        L, Q = outs
+        s = np.sign(np.diagonal(L, axis1=-2, axis2=-1))
+        return [L * s[..., None, :], Q * s[..., :, None]]
+    U, w = outs
+    idx = np.abs(U).argmax(-1)
+    s = np.sign(np.take_along_axis(U, idx[..., None], -1))
+    return [U * s, w]
+
+
+def case_error(got, ref, band):
+    """How far ``got`` is from ``ref`` (lists of numpy arrays) in the
+    case's band: 0.0 when equal, else the largest |difference| over the
+    largest |reference| (inf for a shape, dtype or NaN mismatch, or any
+    difference in the exact band).  The case passes at or below
+    ``band_limit(band)``."""
+    worst = 0.0
+    for a, b in zip(got, ref):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            return float("inf")
+        if np.array_equal(a, b, equal_nan=a.dtype.kind == "f"):
+            continue
+        if band == "exact" or a.dtype.kind not in "fc":
+            return float("inf")
+        if not np.array_equal(np.isnan(a), np.isnan(b)):
+            return float("inf")
+        ok = ~np.isnan(b)
+        scale = float(np.abs(b[ok]).max()) if ok.any() else 0.0
+        d = float(np.abs(a[ok].astype(np.float64)
+                         - b[ok].astype(np.float64)).max())
+        worst = max(worst, d / scale if scale else float("inf"))
+    return worst
+
+
+def band_limit(band):
+    return 0.0 if band == "exact" else OP_F32 if band == "f32" else band
+
+
+def compare_case(case, got, ref):
+    """``[(what, error, limit)]`` of one case: outputs, inputs after the
+    call, gradients (each a triple of ``run_case``)."""
+    g_out, g_after, g_grad = got
+    r_out, r_after, r_grad = ref
+    if case["canon"]:
+        g_out, r_out = _canon(case["canon"], g_out), _canon(case["canon"],
+                                                            r_out)
+    lim = band_limit(case["band"])
+    res = [("out", case_error(g_out, r_out, case["band"]), lim)]
+    if case["after"]:
+        res.append(("after", case_error(g_after, r_after, case["band"]), lim))
+    if g_grad is not None and r_grad is not None:
+        res.append(("grad", case_error(g_grad, r_grad, OP_GRAD), OP_GRAD))
+    return res
+
+
+
+def case_checks(case, mx, ctx, ref_mx, ref_ctx):
+    """``compare_case`` of one case run through ``mx`` on ``ctx`` against
+    the same case through ``ref_mx`` on ``ref_ctx``."""
+    return compare_case(case, run_case(mx, case, ctx),
+                        run_case(ref_mx, case, ref_ctx))
+
+
+def case_indices(modules):
+    """The indices of the ``OP_CASES`` entries whose op this package
+    defines in one of ``modules`` (names under ``mxnet_tpu_torch.ops``)."""
+    from mxnet_tpu_torch.ops.registry import get_op
+    return [i for i, c in enumerate(OP_CASES)
+            if get_op(c["name"]).fn.__module__.rsplit(".", 1)[-1] in modules]
+
+
+def case_id(i):
+    return "%d-%s" % (i, OP_CASES[i]["name"])
 
 
 # ---------------------------------------------------------------------------
@@ -1776,10 +2494,10 @@ def profile_lm_train(mx, lm, trainer, loss_fn, x, y, step_ms):
                "; ".join("%s %.0f us" % (k[:60], v) for k, v in top)))
 
 
-def profile_step(mod, batch_input, step_ms):
-    """Device time of one training step (forward, backward, sweep) by
-    kind of kernel and its top kernels, beside the step's time without
-    the profiler; a printable line."""
+def step_profile(mod, batch_input, step_ms):
+    """One training step under the profiler: ``{"busy_us", "idle_share",
+    "by_kind", "top"}`` beside the step's time ``step_ms`` measured
+    without it (None when the trace holds no device time)."""
     def step():
         mod.forward_backward(batch_input)
         mod.update()
@@ -1787,15 +2505,26 @@ def profile_step(mod, batch_input, step_ms):
     by_name = device_times(step, n=1)
     busy = sum(by_name.values())
     if busy <= 0:
+        return None
+    return {"busy_us": busy,
+            "idle_share": max(0.0, 1 - busy / (step_ms * 1e3)),
+            "by_kind": by_kind(by_name),
+            "top": sorted(by_name.items(), key=lambda kv: -kv[1])[:8]}
+
+
+def profile_step(mod, batch_input, step_ms):
+    """Device time of one training step (forward, backward, sweep) by
+    kind of kernel and its top kernels, beside the step's time without
+    the profiler; a printable line."""
+    prof = step_profile(mod, batch_input, step_ms)
+    if prof is None:
         return "training step profile: not measured (no device time)"
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return ("profile of one training step: step %.0f us (CUDA events, no "
             "profiler), device busy %.0f us (idle share %.3f); by kind: %s; "
             "top kernels: %s"
-            % (step_ms * 1e3, busy, max(0.0, 1 - busy / (step_ms * 1e3)),
-               ", ".join("%s %.0f us" % kv
-                         for kv in by_kind(by_name).items()),
-               "; ".join("%s %.0f us" % (k[:60], v) for k, v in top)))
+            % (step_ms * 1e3, prof["busy_us"], prof["idle_share"],
+               ", ".join("%s %.0f us" % kv for kv in prof["by_kind"].items()),
+               "; ".join("%s %.0f us" % (k[:60], v) for k, v in prof["top"])))
 
 # ---------------------------------------------------------------------------
 # phase 13: checkpoints
@@ -2003,6 +2732,322 @@ def ckpt_lm(mx, ck, lm, adam, x, y, config, workdir):
         "sgd_step_max_rel": step["max_rel"],
         "adam_mv_bitwise": adam_step["bitwise"],
         "adam_mv_max_rel": adam_step["max_rel"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the operator library and Inception-BN
+# ---------------------------------------------------------------------------
+INCEPTION_WARMUP = 3        # untimed Inception-BN steps
+INCEPTION_STEPS = 10        # timed Inception-BN steps
+RANDOM_DRAWS = 10 ** 6      # draws a sampler's moments are taken over
+MOMENT_SE = 5.0             # moments within this many standard errors
+
+
+def op_sweep(mx, ctx, ref_ctx):
+    """Every ``OP_CASES`` entry on ``ctx`` against the same call on
+    ``ref_ctx`` (both through this package): forward, inputs after the
+    call and, for the differentiable cases, the backward; on a card
+    under ``no_host_sync``, every output, input and gradient on ``ctx``
+    (``run_case``).  A case that raises counts as a failed check.
+    Returns ``{"cases", "checks", "bitwise", "within", "failed", "worst",
+    "worst_by_limit", "seconds"}``: ``worst`` holds the five checks
+    farthest from equal relative to their band, ``worst_by_limit`` the
+    largest error under each limit."""
+    t0 = time.perf_counter()
+    checks = []
+    for case in OP_CASES:
+        try:
+            res = case_checks(case, mx, ctx, mx, ref_ctx)
+        except Exception as exc:    # counted as failed; main() raises
+            res = [("raised %r" % exc, float("inf"), 0.0)]
+        for what, err, lim in res:
+            checks.append({"op": case["name"], "attrs": str(case["attrs"]),
+                           "check": what, "err": err, "limit": lim})
+    failed = [c for c in checks if not c["err"] <= c["limit"]]
+    worst = sorted((c for c in checks if c["err"] > 0),
+                   key=lambda c: -c["err"] / max(c["limit"], 1e-30))[:5]
+    by_limit = {}
+    for c in checks:
+        k = "%g" % c["limit"]
+        by_limit[k] = max(by_limit.get(k, 0.0), c["err"])
+    return {"cases": len(OP_CASES), "checks": len(checks),
+            "bitwise": sum(c["err"] == 0 for c in checks),
+            "within": len(checks) - len(failed), "failed": failed,
+            "worst": worst, "worst_by_limit": by_limit,
+            "seconds": time.perf_counter() - t0}
+
+
+def _moments_ok(x, mean, var, k=MOMENT_SE):
+    """Sample mean and variance of the 1-D float64 array ``x`` against
+    the distribution's, each within ``k`` standard errors (the
+    variance's from the sample's fourth central moment)."""
+    n = x.size
+    m = x.mean()
+    d = x - m
+    s2 = (d * d).mean()
+    m4 = (d ** 4).mean()
+    se_m = np.sqrt(var / n)
+    se_v = np.sqrt(max(m4 - s2 * s2, 1e-30) / n)
+    return (abs(m - mean) <= k * se_m and abs(s2 - var) <= k * se_v,
+            {"mean": m, "want_mean": mean, "var": s2, "want_var": var})
+
+
+def _draw(mx, on, name, *args, **attrs):
+    """One call of sampler ``name`` (on the context ``on``); on a card,
+    under torch's sync debug mode "error", so a draw made on the host and
+    copied over would raise."""
+    with no_host_sync(on):
+        return getattr(mx.nd, name)(*args, **attrs)
+
+
+def random_sweep(mx, ctx, n=RANDOM_DRAWS, seed=SEED):
+    """Every sampler on ``ctx``: ``n`` draws of each ``_random_*`` op and
+    of each ``_sample_*`` op (rows of parameters) hold their moments,
+    the same seed gives the same draws twice, each output lies on
+    ``ctx`` with the JAX package's dtype and shape; then every alias of
+    a sampler, the ``_like`` forms, ``_sample_multinomial`` (frequencies,
+    ``get_prob``) and ``_shuffle``.  Returns ``{"checks", "failed"}``."""
+    from mxnet_tpu_torch.ops.registry import _OP_REGISTRY
+    t0 = time.perf_counter()
+    failed, checks = [], 0
+
+    def check(ok, what):
+        nonlocal checks
+        checks += 1
+        if not ok:
+            failed.append(what)
+
+    def host(a):
+        check(a.context == ctx, "device of %s" % (a,))
+        return a.asnumpy().astype(np.float64).reshape(-1)
+
+    for kind, (psets, integer) in RANDOM_CASES.items():
+        name = "_random_" + kind
+        want_dt = "int32" if kind == "randint" else "float32"
+        draws = []
+        for _ in range(2):
+            mx.random.seed(seed)
+            draws.append(_draw(mx, ctx, name, shape=(n,), ctx=ctx,
+                               **psets[0]))
+        a = draws[0]
+        check(a.shape == (n,) and a.dtype == want_dt,
+              "%s shape %s dtype %s" % (name, a.shape, a.dtype))
+        xa = host(a)
+        check(np.array_equal(xa, host(draws[1])), "%s reseeded" % name)
+        if integer:
+            check(np.array_equal(xa, np.round(xa)), "%s integer" % name)
+        ok, got = _moments_ok(xa, *random_moments(kind, psets[0]))
+        check(ok, "%s moments %s" % (name, got))
+        if kind not in SAMPLE_INPUTS:
+            continue
+        name = "_sample_" + kind
+        params = [mx.nd.array(np.array([p[k] for p in psets], np.float32),
+                              ctx=ctx) for k in SAMPLE_INPUTS[kind]]
+        per = n // len(psets)
+        b = _draw(mx, ctx, name, *params, shape=(per,))
+        check(b.shape == (len(psets), per) and b.dtype == "float32",
+              "%s shape %s" % (name, b.shape))
+        xb = host(b).reshape(len(psets), per)
+        for row, p in zip(xb, psets):
+            ok, got = _moments_ok(row, *random_moments(kind, p))
+            check(ok, "%s moments %s" % (name, got))
+    # every other sampler name runs on the card, small
+    small = {"_random_": {"shape": (4, 3), "ctx": ctx}}
+    for nm, op in _OP_REGISTRY.items():
+        if not op.needs_rng or op.name in ("Dropout", "LeakyReLU"):
+            continue
+        if op.sig.required:
+            continue
+        a = _draw(mx, ctx, nm, **small["_random_"])
+        check(a.shape == (4, 3) and a.context == ctx, "%s small" % nm)
+    x = mx.nd.array(np.arange(12, dtype=np.float32).reshape(4, 3), ctx=ctx)
+    for nm in ("_random_uniform_like", "random_uniform_like",
+               "_random_normal_like", "random_normal_like"):
+        a = _draw(mx, ctx, nm, x)
+        check(a.shape == x.shape and a.context == ctx, nm)
+    like = _draw(mx, ctx, "_random_normal_like",
+                 mx.nd.zeros((n,), ctx=ctx), loc=1.0, scale=2.0)
+    ok, got = _moments_ok(host(like), 1.0, 4.0)
+    check(ok, "_random_normal_like moments %s" % got)
+    probs = np.array([[0.1, 0.2, 0.7], [0.5, 0.25, 0.25]], np.float32)
+    for nm in ("_sample_multinomial", "sample_multinomial"):
+        s, lp = _draw(mx, ctx, nm, mx.nd.array(probs, ctx=ctx),
+                      shape=(n // 2,), get_prob=True)
+        check(s.shape == (2, n // 2) and s.dtype == "int32"
+              and lp.dtype == "float32", "%s shapes" % nm)
+        hs = s.asnumpy()
+        for r in range(2):
+            freq = np.bincount(hs[r], minlength=3) / hs.shape[1]
+            se = np.sqrt(probs[r] * (1 - probs[r]) / hs.shape[1])
+            check(np.all(np.abs(freq - probs[r]) <= MOMENT_SE * se),
+                  "%s frequencies %s" % (nm, freq))
+        check(np.allclose(lp.asnumpy(), np.log(probs)[
+            np.arange(2)[:, None], hs], atol=1e-6), "%s get_prob" % nm)
+    for nm in ("_shuffle", "shuffle"):
+        y = _draw(mx, ctx, nm, x)
+        check(y.context == ctx and np.array_equal(
+            np.sort(y.asnumpy()[:, 0]), x.asnumpy()[:, 0]) and
+            np.array_equal(y.asnumpy() % 3, x.asnumpy() % 3),
+            "%s permutes rows" % nm)
+    return {"checks": checks, "failed": failed,
+            "seconds": time.perf_counter() - t0}
+
+
+def fused_bn_relu_once(mx, ck, ctx, shape=(BATCH, 64, 56, 56), seed=SEED):
+    """One ``mx.nd.contrib.fused_bn_relu`` call at a ResNet/Inception site
+    shape: its K3 launches (counted from 0 just before), and whether its
+    output is bitwise equal to ``scale_bias_relu_ref`` on the same
+    scale and bias."""
+    rng = np.random.RandomState(seed)
+    c = shape[1]
+    data = rng.randn(*shape).astype(np.float32)
+    g, b = rng.uniform(0.5, 1.5, c), rng.randn(c)
+    mean, var = rng.randn(c) * 0.1, rng.uniform(0.5, 2.0, c)
+    arrs = [mx.nd.array(a.astype(np.float32), ctx=ctx)
+            for a in (data, g, b, mean, var)]
+    ck.reset_kernel_calls()
+    out = mx.nd.contrib.fused_bn_relu(*arrs, eps=1e-5)
+    launches = ck.kernel_calls()["scale_bias_relu"]
+    gt, bt, mt, vt = (a._data for a in arrs[1:])
+    scale = (gt * torch.rsqrt(vt + 1e-5)).float()
+    bias = (bt - mt * scale).float()
+    ref = ck.scale_bias_relu_ref(arrs[0]._data, scale, bias, relu=True)
+    return {"launches": launches,
+            "bitwise": bool(torch.equal(out._data, ref))}
+
+
+def inception_symbol(classes=CLASSES):
+    from mxnet_tpu_torch.symbols import inception_bn
+    return inception_bn.get_symbol(classes)
+
+
+def inception_serve(mx, ck, ctx, mod, sym, image, batch, n_sites,
+                    n_requests=8, seed=SEED):
+    """The trained module's parameters served through ``ModelServer``
+    (buckets 1..``batch``): a full bucket and ``n_requests`` requests of
+    1-3 rows, each answer held to the module's own forward of a batch
+    holding the same rows (bitwise, or within 1e-6 of the largest).
+    Launches counted from 0 at the server's start: ``n_sites`` K3 and
+    one K2 a forward.  Returns what it measured."""
+    from mxnet_tpu_torch.serving import ModelServer
+    arg, aux = mod.get_params()
+    rng = np.random.RandomState(seed + 3)
+    full = rng.uniform(-1, 1, (batch,) + tuple(image)).astype(np.float32)
+    xs = [full] + [rng.uniform(-1, 1, (rng.randint(1, min(batch, 3) + 1),)
+                               + tuple(image)).astype(np.float32)
+                   for _ in range(n_requests)]
+    ck.reset_kernel_calls()
+    srv = ModelServer(max_batch=batch, ctx=ctx)
+    srv.add_model("inception", sym, arg, aux, {"data": (1,) + tuple(image)})
+    srv.start()
+    try:
+        answers = [srv.infer("inception", {"data": x},
+                             timeout_ms=120000.0)[0] for x in xs]
+    finally:
+        srv.stop()
+    calls = ck.kernel_calls()
+    forwards = srv.stats()["batches"]["count"]
+    worst, bitwise = 0.0, True
+    for x, got in zip(xs, answers):
+        padded = np.zeros((batch,) + tuple(image), np.float32)
+        padded[:x.shape[0]] = x
+        mod.forward(mx.io.DataBatch(data=[mx.nd.array(padded, ctx=ctx)],
+                                    label=None), is_train=False)
+        ref = mod.get_outputs()[0].asnumpy()[:x.shape[0]]
+        if got.shape != ref.shape or not np.isfinite(got).all():
+            raise AssertionError("inception answer of shape %s, expected "
+                                 "%s" % (got.shape, ref.shape))
+        bitwise &= bool(np.array_equal(got, ref))
+        worst = max(worst, float(np.abs(got - ref).max()
+                                 / max(np.abs(ref).max(), 1e-30)))
+    # one bucket-`batch` forward timed by CUDA events, launches counted
+    pred = mx.Predictor.from_parts(sym, arg, aux, {"data": full.shape},
+                                   ctx=ctx)
+    xb = mx.nd.array(full, ctx=ctx)
+
+    def fwd():
+        pred.forward(data=xb)
+        return pred.get_output(0)
+
+    fwd()
+    device = torch.device("cuda", ctx.device_id) \
+        if ctx.device_type == "gpu" else torch.device("cpu")
+    ck.reset_kernel_calls()
+    a = _marker(device)
+    fwd()
+    b = _marker(device)
+    fwd_calls = ck.kernel_calls()
+    times = [_elapsed_ms(a, b)]
+    for _ in range(4):
+        a = _marker(device)
+        fwd()
+        times.append(_elapsed_ms(a, _marker(device)))
+    return {"forwards": forwards, "calls": calls, "fwd_calls": fwd_calls,
+            "n_sites": n_sites, "answers": len(answers), "bitwise": bitwise,
+            "max_rel": worst, "fwd_ms": float(np.median(times))}
+
+
+def inception_phase(mx, ck, ctx, image=IMAGE, batch=BATCH, classes=CLASSES,
+                    warmup=INCEPTION_WARMUP, steps=INCEPTION_STEPS):
+    """Phase 14 (b): Inception-BN ``get_symbol(classes)`` trained by
+    ``Module.fit`` (``kvstore="tpu"``, SGD momentum, Xavier from the
+    seed) on one fixed batch, ``warmup`` untimed and ``steps`` timed
+    steps, then served.  Launches are held to K1b once a bucket a step
+    and K2 once a step in training, and to one K3 at every
+    BatchNorm->ReLU site and one K2 a served forward; the loss must
+    fall.  Returns ``(module, numbers)``; the numbers hold the sweep's
+    bucket sizes and each site's ``(name, shape)``, for the kernels to be
+    held to their plain versions at this path's shapes."""
+    sym = inception_symbol(classes)
+    sites = k3_sites(mx, sym, batch, image)
+    on_card = ctx.device_type == "gpu"
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    mod, tr = train(mx, ck, ctx, sym, image, batch, steps, warmup,
+                    classes=classes)
+    nb, total = len(tr["buckets"]), tr["steps"]
+    want = dict.fromkeys(tr["calls"], 0)
+    want.update(sgd_mom_sweep=nb * total, softmax_lastaxis=total)
+    if on_card and (not tr["fused"] or tr["kernel"] != "sgd_mom_sweep"
+                    or tr["calls"] != want):
+        raise AssertionError("inception training: fused %s (%s), launches "
+                             "%s; expected %s" % (tr["fused"], tr["kernel"],
+                                                  tr["calls"], want))
+    if not tr["ce_last"] < tr["ce_first"]:
+        raise AssertionError("inception training: the cross-entropy went "
+                             "from %.4f to %.4f" % (tr["ce_first"],
+                                                    tr["ce_last"]))
+    # what the fit added at its peak to what the process held before it
+    mem = (torch.cuda.max_memory_allocated() - base) / 1e9 if on_card \
+        else None
+    sv = inception_serve(mx, ck, ctx, mod, sym, image, batch, len(sites))
+    per_fwd = dict.fromkeys(sv["calls"], 0)
+    per_fwd.update(scale_bias_relu=len(sites), softmax_lastaxis=1)
+    want = {k: v * sv["forwards"] for k, v in per_fwd.items()}
+    if on_card and (sv["calls"] != want or sv["fwd_calls"] != per_fwd):
+        raise AssertionError("inception serving: launches %s over %d "
+                             "forwards (expected %s), one timed forward %s"
+                             % (sv["calls"], sv["forwards"], want,
+                                sv["fwd_calls"]))
+    if not (sv["bitwise"] or sv["max_rel"] <= CKPT_TOL):
+        raise AssertionError("inception serving: answers %.3g of the "
+                             "largest from the module's forward (limit %g)"
+                             % (sv["max_rel"], CKPT_TOL))
+    n_params = sum(int(np.prod(v.shape))
+                   for v in mod.get_params()[0].values())
+    return mod, {
+        "sites": len(sites), "params": n_params, "batch": batch,
+        "image": list(image), "classes": classes, "warmup": warmup,
+        "steps": steps, "step_ms": tr["step_ms"],
+        "images_per_s": tr["images_per_s"], "buckets": len(tr["buckets"]),
+        "bucket_sizes": list(tr["buckets"]), "site_shapes": sites,
+        "launches_step": {k: v / total for k, v in tr["calls"].items() if v},
+        "ce_first": tr["ce_first"], "ce_last": tr["ce_last"],
+        "peak_mem_gb": mem, "serve": sv,
+        "launches_forward": {k: v for k, v in sv["fwd_calls"].items() if v},
+    }
 
 
 def main():
@@ -2393,18 +3438,96 @@ def main():
                 (k7c, "flash_attention_bwd_dkv"))):
         rec["launches_checkpoints"] = launches
 
+    # 14. the operator library on the card against the CPU, and
+    # Inception-BN trained and served at full width
+    t14 = time.perf_counter()
+    sweep = op_sweep(mx, mx.gpu(0), mx.cpu())
+    if sweep["failed"]:
+        raise AssertionError("op sweep: %d of %d checks outside their band: "
+                             "%s" % (len(sweep["failed"]), sweep["checks"],
+                                     sweep["failed"][:10]))
+    rnd = random_sweep(mx, mx.gpu(0))
+    if rnd["failed"]:
+        raise AssertionError("samplers on the card: %s" % rnd["failed"])
+    fbr = fused_bn_relu_once(mx, ck, mx.gpu(0))
+    if fbr["launches"] != 1 or not fbr["bitwise"]:
+        raise AssertionError("nd.contrib.fused_bn_relu: %s" % fbr)
+    ops_line = {"ops": {
+        "card": smi, "cases": sweep["cases"], "checks": sweep["checks"],
+        "bitwise": sweep["bitwise"], "within_band": sweep["within"],
+        "worst": sweep["worst"], "worst_by_limit": sweep["worst_by_limit"],
+        "sweep_seconds": sweep["seconds"],
+        "random_checks": rnd["checks"], "random_draws": RANDOM_DRAWS,
+        "random_seconds": rnd["seconds"], "fused_bn_relu": fbr,
+        "seconds": time.perf_counter() - t14}}
+    print("operator library on %s: %d cases, %d checks (forward, inputs "
+          "after, backward) against the CPU: %d bitwise, %d within their "
+          "band; %d sampler checks over %d draws; fused_bn_relu %s; %.1f s"
+          % (smi, sweep["cases"], sweep["checks"], sweep["bitwise"],
+             sweep["within"], rnd["checks"], RANDOM_DRAWS, fbr,
+             ops_line["ops"]["seconds"]), flush=True)
+    t14b = time.perf_counter()
+    inc_mod, inc = inception_phase(mx, ck, mx.gpu(0))
+    inc_batch = synthetic_iter(mx, mx.gpu(0), BATCH, IMAGE, 1).next()
+    print("inception-bn on %s: %d parameters, %d BatchNorm->ReLU sites; "
+          "Module.fit kvstore=tpu batch %d: %d warmup + %d timed steps: "
+          "%.2f ms/step, %.1f images/s (CUDA events); launches a step %s; "
+          "cross-entropy %.4f -> %.4f; peak memory %.2f GB; served %d "
+          "answers over %d forwards, bitwise %s, max rel %.3g; a bucket-%d "
+          "forward %.2f ms, launches %s"
+          % (smi, inc["params"], inc["sites"], BATCH, inc["warmup"],
+             inc["steps"], inc["step_ms"], inc["images_per_s"],
+             inc["launches_step"], inc["ce_first"], inc["ce_last"],
+             inc["peak_mem_gb"], inc["serve"]["answers"],
+             inc["serve"]["forwards"], inc["serve"]["bitwise"],
+             inc["serve"]["max_rel"], BATCH, inc["serve"]["fwd_ms"],
+             inc["launches_forward"]), flush=True)
+    inc["seconds_fit_and_serve"] = time.perf_counter() - t14b
+    # this path's kernels against their plain versions at its own shapes
+    # (K2 runs here at (BATCH, 1000) rows, as phase 3 checked it)
+    inc_sites = inc.pop("site_shapes")
+    check_k3(ck, inc_sites, dev, bw, flops)
+    check_sweeps(ck, dev, bw, flops, inc["bucket_sizes"])
+    print("kernels checked at Inception-BN's shapes: K3 bitwise equal at "
+          "its %d sites (%d shapes) x fp32/bf16 x relu on/off; K1a, K1b, "
+          "K4 bitwise equal at its buckets %s and n 1, 3, 4097, aligned "
+          "and misaligned, clip on and off" % (
+              len(inc_sites), len({shp for _, shp in inc_sites}),
+              inc["bucket_sizes"]), flush=True)
+    k3["launches_inception"] = {
+        "per_forward": inc["launches_forward"]["scale_bias_relu"],
+        "served": inc["serve"]["calls"]["scale_bias_relu"],
+        "fused_bn_relu_op": fbr["launches"]}
+    k2["launches_inception"] = {
+        "per_step": inc["launches_step"]["softmax_lastaxis"],
+        "per_forward": inc["launches_forward"]["softmax_lastaxis"]}
+    sweeps["sgd_mom_sweep"]["launches_inception"] = {
+        "per_step": inc["launches_step"]["sgd_mom_sweep"],
+        "buckets": inc["buckets"]}
+
     # device time of each kernel (the profiler last: its hooks slow the
     # host for the rest of the process)
     recs = [(k3, k3_jobs), (k2, k2_jobs)] + [
         (sweeps[name], sweep_jobs[name]) for name, *_ in SWEEPS] + [
         (k6a, k6a_jobs), (k7a, k7a_jobs), (k5a, k5a_jobs)] + list(bwd_recs)
+    timer = device_ms
     try:
         for rec, jobs in recs:
             time_jobs(rec, jobs, "ms", device_ms)
     except RuntimeError as exc:
         print("device times by CUDA events instead (%s)" % exc)
+        timer = time_ms
         for rec, jobs in recs:
             time_jobs(rec, jobs, "ms", time_ms)
+    # K6b against aten's dx-only LayerNorm backward, three more times each
+    # in turns, at the main path's shape, all by the timer above
+    main6b = next(j for j in k6b_jobs if j["count"])
+    k6b["ms_repeats"], k6b["library_ms_repeats"] = [], []
+    k6b["repeats_timer"] = timer.__name__
+    for _ in range(3):
+        for key, pre in (("ms_repeats", ""), ("library_ms_repeats",
+                                               "library_")):
+            k6b[key].append(timer(main6b["fns"][pre]))
     # after the profiler: with these steps before it, its kernel sessions
     # traced no device time (a bare set and reset of the mode does not do
     # that; the cause is not known)
@@ -2413,6 +3536,14 @@ def main():
         print("%s path: 2 more steps with sync debug mode 'error' did not "
               "wait on the card" % opt_name, flush=True)
     del other_mods
+    inc_prof = step_profile(inc_mod, inc_batch, inc["step_ms"])
+    inc["idle_share"] = inc_prof["idle_share"] if inc_prof else None
+    inc["step_busy_us"] = inc_prof["busy_us"] if inc_prof else None
+    inc["step_by_kind_us"] = inc_prof["by_kind"] if inc_prof else None
+    steps_without_sync(inc_mod, inc_batch)
+    print("inception-bn: 2 more steps with sync debug mode 'error' did not "
+          "wait on the card", flush=True)
+    del inc_mod
     for job in k7a_jobs:
         job["tflops"] = job["ops"] / job["ms"] / 1e9
     k7a["tflops"] = k7a_jobs[0]["tflops"]
@@ -2463,6 +3594,10 @@ def main():
         "card": smi, "seconds": ck_seconds,
         "resnet50": dict(ck_a, serve=ck_b, resume=ck_c),
         "transformer": ck_d}}, default=str))
+    print(json.dumps(ops_line, default=str))
+    inc["serve"] = {k: v for k, v in inc["serve"].items()
+                    if k not in ("calls", "fwd_calls")}
+    print(json.dumps({"inception_bn": dict(inc, card=smi)}, default=str))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
             "launches_per_forward", "call_ms", "plain_call_ms",
@@ -2470,6 +3605,8 @@ def main():
     print(json.dumps({"kernels": [
         {k: rec[k] for k in keys + tuple(
             x for x in ("launches_training", "launches_checkpoints",
+                        "launches_inception", "ms_repeats",
+                        "library_ms_repeats", "repeats_timer",
                         "library_note", "tflops",
                         "bound_note", "bound_cuda_cores_ms",
                         "bound_cuda_cores_by", "extra") if x in rec)}

@@ -32,7 +32,10 @@ checkpoint callbacks, gluon's ``save_parameters``/``load_parameters`` and
 ``Trainer.save_states``/``load_states``, and ``Predictor`` and
 ``ModelServer.load_model`` from files.  ``.params`` and ``-symbol.json``
 files are the JAX package's, byte for byte; ``.states`` files pickle each
-package's own classes.
+package's own classes.  The operator library is the JAX package's but for
+the detection, quantization, sparse, image, RNN, CTC and
+spatial-transformer ops (ROADMAP.md), with NDArray's and Symbol's
+methods.
 """
 import torch
 
@@ -40,6 +43,8 @@ from .base import MXNetError  # noqa: F401
 from . import config  # noqa: F401
 from .context import Context, cpu, gpu, tpu, num_gpus  # noqa: F401
 from . import autograd  # noqa: F401
+from . import attribute  # noqa: F401
+from .attribute import AttrScope  # noqa: F401
 from . import ndarray  # noqa: F401
 from . import ndarray as nd  # noqa: F401
 from . import ops  # noqa: F401

@@ -42,7 +42,9 @@ __all__ = ["is_recording", "is_training", "set_recording", "set_training",
 _STATE = threading.local()
 
 _MARKED_LOCK = threading.Lock()
-_MARKED = weakref.WeakSet()     # guarded-by: _MARKED_LOCK — marked NDArrays
+# guarded-by: _MARKED_LOCK — marked NDArrays by id (a WeakSet would compare
+# them with ==, which is an elementwise op on NDArrays)
+_MARKED = weakref.WeakValueDictionary()
 
 
 def _st():
@@ -149,7 +151,7 @@ def mark_variables(variables, gradients, grad_reqs="write"):
         if req != "null" and not var._data.requires_grad:
             var._data.requires_grad_(True)
         with _MARKED_LOCK:
-            _MARKED.add(var)
+            _MARKED[id(var)] = var
 
 
 def _heads(heads, head_grads):
@@ -196,7 +198,7 @@ def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
     Variables the heads do not reach keep their buffers."""
     outs, seeds = _heads(heads, head_grads)
     with _MARKED_LOCK:
-        marked = [v for v in _MARKED
+        marked = [v for v in list(_MARKED.values())
                   if v._grad_req != "null" and v._data.requires_grad]
     grads = _torch_grad(outs, seeds, [v._data for v in marked],
                         retain_graph, False)

@@ -29,6 +29,7 @@ _NAME_TO_TORCH = {
     "int8": torch.int8,
     "int32": torch.int32,
     "int64": torch.int64,
+    "bool": torch.bool,
 }
 _TORCH_TO_NAME = {v: k for k, v in _NAME_TO_TORCH.items()}
 
@@ -63,8 +64,12 @@ def dtype_name(dtype):
 
 
 def dtype_id(dtype):
-    """A dtype -> its MXNet id (the ``nd.save`` container's dtype field)."""
-    return _TORCH_TO_ID[dtype_torch(dtype)]
+    """A dtype -> its MXNet id (the ``nd.save`` container's dtype field);
+    MXNetError for a dtype the container has no id for (bool)."""
+    dt = dtype_torch(dtype)
+    if dt not in _TORCH_TO_ID:
+        raise MXNetError("dtype %s has no MXNet dtype id" % dtype_name(dt))
+    return _TORCH_TO_ID[dt]
 
 
 def dtype_from_id(tid):

@@ -43,7 +43,11 @@ __all__ = ["Executor"]
 # ops whose backward defines its own head gradient (label-based), so
 # backward() with no out_grads is meaningful — the reference's loss-output
 # contract (SoftmaxOutput ignores head grads)
-_LOSS_OPS = frozenset({"SoftmaxOutput", "Softmax"})
+_LOSS_OPS = frozenset({
+    "SoftmaxOutput", "Softmax", "MakeLoss", "make_loss",
+    "LinearRegressionOutput", "LogisticRegressionOutput",
+    "MAERegressionOutput", "SVMOutput",
+})
 
 
 def _grad_req_dict(grad_req, arg_names):
@@ -125,6 +129,36 @@ class Executor:
                      for n in arg_names if req.get(n, "null") != "null"}
         aux_dict = {n: alloc(n, aux_shapes.get(n), "aux")
                     for n in symbol.list_auxiliary_states()}
+        return Executor(symbol, device, arg_dict, aux_dict, grad_dict,
+                        grad_req)
+
+    @staticmethod
+    def _bind(symbol, ctx, args, args_grad, grad_req, aux_states):
+        """``Symbol.bind``: the given NDArrays (lists in argument order or
+        dicts), used as they are; aux states not given start at zeros of
+        their inferred shapes on ``ctx`` (default ``gpu(0)``)."""
+        device = resolve(ctx)
+        arg_names = symbol.list_arguments()
+        aux_names = symbol.list_auxiliary_states()
+
+        def as_dict(v, names):
+            if v is None:
+                return {}
+            return dict(v) if isinstance(v, dict) else dict(zip(names, v))
+
+        arg_dict = as_dict(args, arg_names)
+        missing = [n for n in arg_names if n not in arg_dict]
+        if missing:
+            raise MXNetError("bind: missing arguments %s" % missing)
+        grad_dict = as_dict(args_grad, arg_names)
+        aux_dict = as_dict(aux_states, aux_names)
+        if any(n not in aux_dict for n in aux_names):
+            _, aux_shapes = _infer_graph(
+                symbol, {m: arg_dict[m].shape for m in arg_names})
+            for a in aux_names:
+                if a not in aux_dict:
+                    aux_dict[a] = NDArray(torch.zeros(aux_shapes[a],
+                                                      device=device))
         return Executor(symbol, device, arg_dict, aux_dict, grad_dict,
                         grad_req)
 

@@ -3,9 +3,11 @@
 Counterpart of ``mxnet_tpu/imperative.py`` (reference:
 src/imperative/imperative.cc Imperative::Invoke:86).  PyTorch runs
 eagerly and queues device work asynchronously on the current stream, so
-what remains here is attr coercion and validation, the train-mode flag
-for ops that declare ``needs_is_train``, recording, the write-back of
-``mutate_aux`` outputs, and ``out=``.
+what remains here is attr coercion and validation, the op's
+``attr_defaults``, the train-mode flag for ops that declare
+``needs_is_train``, the generator of the device the op runs on (its
+first input's, or its ``ctx``) for ops that declare ``needs_rng``,
+recording, the write-back of ``mutate_aux`` outputs, and ``out=``.
 
 Recording is PyTorch's autograd: an op runs with torch's grad mode on
 exactly while ``autograd.record()`` is on, so its output joins the graph
@@ -31,20 +33,30 @@ def invoke(op, nd_inputs, attrs=None, out=None):
 
     if not isinstance(op, OpDef):
         op = get_op(op)
-    kw = op.validate_attrs(coerce_attrs(attrs or {}))
+    kw = dict(op.attr_defaults)
+    kw.update(op.validate_attrs(coerce_attrs(attrs or {})))
     if op.needs_is_train:
         kw["__is_train__"] = autograd.is_training()
     for x in nd_inputs:
         if not isinstance(x, NDArray):
             raise MXNetError("%s: inputs must be NDArrays, got %s"
                              % (op.name, type(x).__name__))
+    if op.needs_rng:
+        from .ops.init_ops import device_of
+        from .random import generator
+        kw["__rng__"] = generator(nd_inputs[0]._data.device if nd_inputs
+                                  else device_of(kw.get("ctx")))
     with autograd.grad_mode():
         outputs = op.fn(*[x._data for x in nd_inputs], **kw)
     outs = list(outputs) if isinstance(outputs, tuple) else [outputs]
     n_aux = len(op.mutate_aux)
     if n_aux:
-        for tgt, new in zip(nd_inputs[-n_aux:], outs[-n_aux:]):
-            tgt._data = new.detach()
+        # the updated states go back into their input slots (an aux that
+        # is a keyword of the op, not an input slot, has none)
+        slots = op.sig.required
+        for name, new in zip(op.mutate_aux, outs[-n_aux:]):
+            if name in slots and slots.index(name) < len(nd_inputs):
+                nd_inputs[slots.index(name)]._data = new.detach()
         outs = outs[:-n_aux]
     if out is not None:
         targets = out if isinstance(out, (list, tuple)) else [out]

@@ -14,7 +14,13 @@ scalars, ``reshape`` with MXNet's 0/-1/-2/-3/-4 codes, ``expand_dims``,
 through its registered op, and ``arange``; and autograd's surface:
 ``attach_grad``, ``grad``, ``backward`` and ``detach``.  Every op on an
 array records exactly while ``autograd.record()`` is on (torch's grad
-mode follows the flag).
+mode follows the flag).  The rest of the JAX package's surface: ``ctx``,
+``ndim``, ``T``, ``as_in_context``, ``asscalar``/``item`` (and
+``float()``, ``int()``, ``bool()``, ``len()``, iteration), ``%`` and the
+comparison operators (0/1 arrays of the left operand's dtype), the
+in-place operators (which rebind the array to the new values), and the
+fluent methods, each its registered op (``register.attach_methods``
+adds the single-tensor ones).
 
 ``save``/``load``/``load_buffer`` read and write MXNet's V2 NDArray
 container byte for byte as the JAX package does, so ``.params`` files
@@ -36,8 +42,9 @@ from .._atomic_io import atomic_writer
 from ..base import MXNetError, dtype_from_id, dtype_id, dtype_name, dtype_torch
 from ..context import Context, resolve
 
-__all__ = ["NDArray", "array", "zeros", "ones", "empty", "arange", "save",
-           "load", "load_buffer"]
+__all__ = ["NDArray", "array", "zeros", "ones", "empty", "full", "arange",
+           "moveaxis", "concat", "concatenate", "onehot_encode", "waitall",
+           "save", "load", "load_buffer"]
 
 # the 64-bit numpy types nd.array narrows, as the JAX package does
 _NARROW = {torch.float64: torch.float32, torch.int64: torch.int32}
@@ -70,9 +77,63 @@ class NDArray:
         return dtype_name(self._data.dtype)
 
     @property
+    def ndim(self):
+        return self._data.dim()
+
+    @property
     def context(self):
         d = self._data.device
         return Context("gpu" if d.type == "cuda" else "cpu", d.index or 0)
+
+    ctx = context
+
+    @property
+    def stype(self):
+        return "default"
+
+    @property
+    def T(self):
+        return self.transpose()
+
+    def as_in_context(self, context):
+        """This array on ``context``: itself when it is there already,
+        else a copy (reference: ndarray.py as_in_context)."""
+        if Context(context) == self.context:
+            return self
+        return self.copyto(context)
+
+    def asscalar(self):
+        """The value of a one-element array, as a numpy scalar."""
+        if self.size != 1:
+            raise MXNetError("The current array is not a scalar")
+        return self.asnumpy().reshape(())[()]
+
+    def item(self):
+        return self.asscalar()
+
+    def __float__(self):
+        return float(self.asscalar())
+
+    def __int__(self):
+        return int(self.asscalar())
+
+    def __bool__(self):
+        if self.size == 1:
+            return bool(self.asscalar())
+        raise MXNetError("ambiguous truth value of multi-element NDArray")
+
+    def __len__(self):
+        if self.ndim == 0:
+            raise TypeError("len() of unsized object")
+        return self.shape[0]
+
+    def __iter__(self):
+        for i in range(self.shape[0]):
+            yield self[i]
+
+    def __array__(self, dtype=None, copy=None):
+        a = self.asnumpy()
+        return a.astype(dtype) if dtype is not None else a
 
     def asnumpy(self):
         """Copy to a host numpy array (the synchronisation point).
@@ -81,6 +142,9 @@ class NDArray:
         if t.dtype == torch.bfloat16:
             t = t.float()
         return t.cpu().numpy()
+
+    def wait_to_write(self):
+        self.wait_to_read()
 
     def wait_to_read(self):
         """Block until every queued write to this array has finished
@@ -216,6 +280,125 @@ class NDArray:
         return self._op("pick", [index], axis=axis, keepdims=keepdims,
                         mode=mode)
 
+    def reshape_like(self, other):
+        return self.reshape(other.shape)
+
+    def broadcast_to(self, shape):
+        return self._op("broadcast_to", shape=tuple(shape))
+
+    def broadcast_like(self, other):
+        return self._op("broadcast_like", [other])
+
+    def transpose(self, *axes):
+        if len(axes) == 1 and isinstance(axes[0], (list, tuple)):
+            axes = tuple(axes[0])
+        return self._op("transpose", **({"axes": axes} if axes else {}))
+
+    def swapaxes(self, dim1, dim2):
+        return self._op("SwapAxis", dim1=dim1, dim2=dim2)
+
+    def flatten(self):
+        return self._op("Flatten")
+
+    def squeeze(self, axis=None):
+        return self._op("squeeze", **({"axis": axis} if axis is not None
+                                      else {}))
+
+    def flip(self, axis):
+        return self._op("reverse", axis=axis)
+
+    def tile(self, reps):
+        return self._op("tile", reps=reps)
+
+    def repeat(self, repeats, axis=None):
+        return self._op("repeat", repeats=repeats, axis=axis)
+
+    def pad(self, mode, pad_width, constant_value=0.0):
+        return self._op("Pad", mode=mode, pad_width=pad_width,
+                        constant_value=constant_value)
+
+    def split(self, num_outputs, axis=1, squeeze_axis=False):
+        return self._op("SliceChannel", num_outputs=num_outputs, axis=axis,
+                        squeeze_axis=squeeze_axis)
+
+    def slice(self, begin, end, step=None):
+        return self._op("slice", begin=begin, end=end, step=step)
+
+    def slice_axis(self, axis, begin, end):
+        return self._op("slice_axis", axis=axis, begin=begin, end=end)
+
+    def take(self, indices, axis=0, mode="clip"):
+        return self._op("take", [indices], axis=axis, mode=mode)
+
+    def one_hot(self, depth, on_value=1.0, off_value=0.0, dtype="float32"):
+        return self._op("one_hot", depth=depth, on_value=on_value,
+                        off_value=off_value, dtype=dtype)
+
+    def clip(self, a_min=None, a_max=None):
+        return self._op("clip", a_min=a_min, a_max=a_max)
+
+    def sign(self):
+        return self._op("sign")
+
+    def sqrt(self):
+        return self._op("sqrt")
+
+    def sigmoid(self):
+        return self._op("sigmoid")
+
+    def tanh(self):
+        return self._op("tanh")
+
+    def relu(self):
+        return self._op("relu")
+
+    def softmax(self, axis=-1):
+        return self._op("softmax", axis=axis)
+
+    def log_softmax(self, axis=-1):
+        return self._op("log_softmax", axis=axis)
+
+    def prod(self, axis=None, keepdims=False):
+        return self._op("prod", axis=axis, keepdims=keepdims)
+
+    def max(self, axis=None, keepdims=False):
+        return self._op("max", axis=axis, keepdims=keepdims)
+
+    def min(self, axis=None, keepdims=False):
+        return self._op("min", axis=axis, keepdims=keepdims)
+
+    def norm(self, ord=2, axis=None, keepdims=False):
+        return self._op("norm", ord=ord, axis=axis, keepdims=keepdims)
+
+    def argmax(self, axis=None, keepdims=False):
+        return self._op("argmax", axis=axis, keepdims=keepdims)
+
+    def argmin(self, axis=None, keepdims=False):
+        return self._op("argmin", axis=axis, keepdims=keepdims)
+
+    def argsort(self, axis=-1, is_ascend=True):
+        return self._op("argsort", axis=axis, is_ascend=is_ascend)
+
+    def sort(self, axis=-1, is_ascend=True):
+        return self._op("sort", axis=axis, is_ascend=is_ascend)
+
+    def topk(self, axis=-1, k=1, ret_typ="indices", is_ascend=False):
+        return self._op("topk", axis=axis, k=k, ret_typ=ret_typ,
+                        is_ascend=is_ascend)
+
+    def dot(self, other, transpose_a=False, transpose_b=False):
+        return self._op("dot", [other], transpose_a=transpose_a,
+                        transpose_b=transpose_b)
+
+    def tostype(self, stype):
+        if stype != "default":
+            raise MXNetError("sparse storage types are not ported yet "
+                             "(ROADMAP.md queue 7)")
+        return self
+
+    def as_nd_ndarray(self):
+        return self
+
     # -- autograd (reference: ndarray.py attach_grad, grad, backward) -------
     @property
     def grad(self):
@@ -237,6 +420,8 @@ class NDArray:
 
     # -- arithmetic (reference: ndarray.py _binop) ---------------------------
     def _binop(self, other, op, scalar_op, reverse=False):
+        if isinstance(other, np.ndarray):
+            other = array(other, ctx=self.context)
         if isinstance(other, NDArray):
             return self._op(op, [other]) if not reverse \
                 else other._op(op, [self])
@@ -276,6 +461,54 @@ class NDArray:
 
     def __rpow__(self, other):
         return self._binop(other, "_power", "_rpower_scalar", reverse=True)
+
+    def __mod__(self, other):
+        return self._binop(other, "_mod", "_mod_scalar")
+
+    def __rmod__(self, other):
+        return self._binop(other, "_mod", "_rmod_scalar", reverse=True)
+
+    def __eq__(self, other):
+        if other is None:
+            return False
+        return self._binop(other, "_equal", "_equal_scalar")
+
+    def __ne__(self, other):
+        if other is None:
+            return True
+        return self._binop(other, "_not_equal", "_not_equal_scalar")
+
+    def __gt__(self, other):
+        return self._binop(other, "_greater", "_greater_scalar")
+
+    def __ge__(self, other):
+        return self._binop(other, "_greater_equal", "_greater_equal_scalar")
+
+    def __lt__(self, other):
+        return self._binop(other, "_lesser", "_lesser_scalar")
+
+    def __le__(self, other):
+        return self._binop(other, "_lesser_equal", "_lesser_equal_scalar")
+
+    __hash__ = object.__hash__
+
+    def _inplace(self, res):
+        if res is NotImplemented:
+            return res
+        self._data = res._data
+        return self
+
+    def __iadd__(self, other):
+        return self._inplace(self.__add__(other))
+
+    def __isub__(self, other):
+        return self._inplace(self.__sub__(other))
+
+    def __imul__(self, other):
+        return self._inplace(self.__mul__(other))
+
+    def __itruediv__(self, other):
+        return self._inplace(self.__truediv__(other))
 
 
 def _rebuild_ndarray(a, dtype=None):
@@ -331,6 +564,43 @@ def empty(shape, ctx=None, dtype=None):
     """An uninitialised array (``torch.empty``)."""
     return NDArray(torch.empty(tuple(shape), dtype=dtype_torch(dtype),
                                device=resolve(ctx)))
+
+
+def full(shape, val, ctx=None, dtype=None):
+    return NDArray(torch.full(tuple(shape), val, dtype=dtype_torch(dtype),
+                              device=resolve(ctx)))
+
+
+def moveaxis(tensor, source, destination):
+    with autograd.grad_mode():
+        return NDArray(torch.movedim(tensor._data, source, destination))
+
+
+def concat(*data, dim=1):
+    from ..imperative import invoke
+    return invoke("Concat", list(data), {"dim": dim})
+
+
+def concatenate(arrays, axis=0, always_copy=True):
+    from ..imperative import invoke
+    return invoke("Concat", list(arrays), {"dim": axis})
+
+
+def onehot_encode(indices, out):
+    """``out`` rebound to the one-hot rows of ``indices`` (its width is
+    out's second dim)."""
+    from ..imperative import invoke
+    out._data = invoke("one_hot", [indices],
+                       {"depth": out.shape[1]})._data.to(out._data.dtype)
+    return out
+
+
+def waitall():
+    """Block until every queued operation on every card has finished
+    (reference: MXNDArrayWaitAll)."""
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,7 @@ import sys
 from ..imperative import invoke
 from ..ops.registry import _OP_REGISTRY
 
-__all__ = ["populate", "make_op_func"]
+__all__ = ["populate", "make_op_func", "attach_methods", "METHOD_OPS"]
 
 
 def _inputs_and_attrs(opdef, args, kwargs):
@@ -22,7 +22,7 @@ def _inputs_and_attrs(opdef, args, kwargs):
     whose value is an NDArray, is an input too."""
     from .ndarray import NDArray
     inputs = [a for a in args if isinstance(a, NDArray)]
-    slots = opdef.sig.required + opdef.sig.optional
+    slots = opdef.sig.array_order() or []
     named, attrs = {}, {}
     for k, v in kwargs.items():
         if isinstance(v, NDArray) or k in slots:
@@ -57,3 +57,42 @@ def populate(module_name, prefix=""):
         short = name[len(prefix):]
         if short.isidentifier() and not hasattr(mod, short):
             setattr(mod, short, make_op_func(short, opdef))
+
+
+# single-tensor ops the reference also exposes as NDArray methods
+# (x.sin(), x.zeros_like()...), the JAX package's list; Symbol takes the
+# same ones
+METHOD_OPS = (
+    "sin cos tan sinh cosh arcsin arccos arctan arcsinh arccosh arctanh "
+    "degrees radians exp expm1 log log10 log2 log1p sqrt rsqrt cbrt rcbrt "
+    "square reciprocal abs sign ceil floor rint round fix trunc relu "
+    "sigmoid softmax log_softmax erf gamma gammaln sum nansum prod nanprod "
+    "mean max min norm argmax argmin argmax_channel topk sort argsort "
+    "clip flatten tile repeat pad swapaxes flip depth_to_space "
+    "space_to_depth slice_axis slice_like one_hot take pick "
+    "expand_dims squeeze split zeros_like ones_like sum_axis max_axis "
+    "min_axis broadcast_axes broadcast_axis").split()
+
+
+def attach_methods(nd_class):
+    """Each op of ``METHOD_OPS`` as a method of ``nd_class`` that the
+    class does not define itself: ``x.op(*args, **kwargs)`` calls the op
+    with x first; positional values that are not arrays take the op's
+    attrs in declaration order (``x.clip(0, 1)``, ``x.tile((2, 2))``), as
+    they bind to the op function's parameters in the JAX package."""
+    from .ndarray import NDArray
+    for opname in METHOD_OPS:
+        opdef = _OP_REGISTRY.get(opname)
+        if opdef is None or hasattr(nd_class, opname):
+            continue
+
+        def method(self, *args, _op=opdef, **kwargs):
+            extras = [a for a in args if not isinstance(a, NDArray)]
+            inputs, attrs = _inputs_and_attrs(_op, (self,) + args, kwargs)
+            for k, v in zip(list(_op.sig.attrs), extras):
+                attrs.setdefault(k, v)
+            return invoke(_op, inputs, attrs)
+
+        method.__name__ = opname
+        method.__doc__ = opdef.gen_doc()
+        setattr(nd_class, opname, method)

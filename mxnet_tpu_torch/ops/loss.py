@@ -105,3 +105,107 @@ def _softmax_output(data, label, grad_scale=1.0, ignore_label=-1.0,
     return _SoftmaxOutputFn.apply(data, label, float(grad_scale),
                                   float(ignore_label), bool(use_ignore),
                                   normalization, bool(multi_output))
+
+
+# -- regression outputs (reference: src/operator/regression_output-inl.h) --
+def _make_regression(name, fwd, grad_fn):
+    """A regression output: forward ``fwd(data)``; backward, whatever the
+    head gradient, ``grad_fn(out, label) * grad_scale / (out.numel() /
+    batch)``, and a zero gradient for the label (the JAX package's
+    ``custom_vjp``)."""
+
+    class _Fn(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, data, label, grad_scale):
+            out = fwd(data)
+            ctx.save_for_backward(out, label)
+            ctx.grad_scale = grad_scale
+            return out
+
+        @staticmethod
+        def backward(ctx, _head_grad):
+            out, label = ctx.saved_tensors
+            num_out = out.numel() / out.shape[0]
+            grad = grad_fn(out, label) * (ctx.grad_scale / num_out)
+            dlabel = torch.zeros_like(label) if ctx.needs_input_grad[1] \
+                else None
+            return grad.to(out.dtype), dlabel, None
+
+    @register(name)
+    def _op(data, label, grad_scale=1.0, **attrs):
+        label = label.reshape(data.shape)
+        if not (torch.is_grad_enabled() and data.requires_grad):
+            return fwd(data)
+        return _Fn.apply(data, label, float(grad_scale))
+    _op.__name__ = name
+    return _op
+
+
+_make_regression("LinearRegressionOutput", lambda d: d, lambda o, l: o - l)
+_make_regression("MAERegressionOutput", lambda d: d,
+                 lambda o, l: torch.sign(o - l))
+_make_regression("LogisticRegressionOutput", torch.sigmoid,
+                 lambda o, l: o - l)
+
+
+class _MakeLossFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, grad_scale, norm_batch):
+        ctx.scale = grad_scale / (data.shape[0] if norm_batch else 1)
+        return data.view_as(data)
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.full_like(g, ctx.scale), None, None
+
+
+@register("MakeLoss", aliases=("make_loss",), params=[
+    P("grad_scale", float, default=1.0),
+    P("valid_thresh", float, default=0.0),
+    P("normalization", ("null", "batch", "valid"), default="null")])
+def _make_loss(data, grad_scale=1.0, valid_thresh=0.0, normalization="null",
+               **attrs):
+    """Reference: src/operator/make_loss-inl.h: the identity forward; the
+    backward is ``grad_scale`` (divided by the batch for ``"batch"``)
+    everywhere, whatever the head gradient."""
+    if not (torch.is_grad_enabled() and data.requires_grad):
+        return data
+    return _MakeLossFn.apply(data, float(grad_scale),
+                             normalization == "batch")
+
+
+class _SVMFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, label, margin, reg, use_linear):
+        ctx.save_for_backward(data, label)
+        ctx.attrs = (margin, reg, use_linear)
+        return data.view_as(data)
+
+    @staticmethod
+    def backward(ctx, _head_grad):
+        data, label = ctx.saved_tensors
+        margin, reg, use_linear = ctx.attrs
+        lbl = label.to(torch.int32)
+        onehot = (lbl[:, None] == torch.arange(
+            data.shape[1], device=data.device)).to(data.dtype)
+        sign = 2 * onehot - 1      # +1 at the true class, -1 elsewhere
+        viol = (margin - sign * data) > 0
+        if use_linear:
+            grad = torch.where(viol, -sign * reg, 0.0)
+        else:
+            grad = torch.where(viol, -2 * (margin - sign * data) * sign * reg,
+                               0.0)
+        dlabel = torch.zeros_like(label) if ctx.needs_input_grad[1] else None
+        return grad.to(data.dtype), dlabel, None, None, None
+
+
+@register("SVMOutput")
+def _svm_output(data, label, margin=1.0, regularization_coefficient=1.0,
+                use_linear=False, **attrs):
+    """Reference: src/operator/svm_output-inl.h: the identity forward;
+    the backward is the hinge (``use_linear``) or squared-hinge gradient
+    against ``label``, whatever the head gradient."""
+    if not (torch.is_grad_enabled() and data.requires_grad):
+        return data
+    return _SVMFn.apply(data, label, float(margin),
+                        float(regularization_coefficient), bool(use_linear))

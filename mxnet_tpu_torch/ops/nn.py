@@ -1,15 +1,16 @@
-"""Neural-network operators of a ResNet (NCHW) and a transformer.
+"""Neural-network operators (counterpart of ``mxnet_tpu/ops/nn.py``).
 
-Counterpart of ``mxnet_tpu/ops/nn.py`` for the ops a ResNet forward and
-backward and a transformer forward and backward run: Convolution
-(``F.conv2d``, OIHW weights as in MXNet), FullyConnected (``F.linear``),
-Activation, Pooling, BatchNorm (eval and training mode), LayerNorm
+Convolution (``F.conv2d``, OIHW weights as in MXNet) and Deconvolution
+(``F.conv_transpose*d``, whose weight layout (in, out/group, k...) is
+MXNet's), FullyConnected (``F.linear``), Activation, LeakyReLU,
+Pooling (max/avg/sum over 1-3 spatial dims, the ``valid``, ``same`` and
+``full`` conventions), BatchNorm (eval and training mode), LayerNorm
 (through the K6a and K6b CUDA kernels over the last axis when
-``MXNET_PALLAS_NORM`` is on), ``log_softmax`` and Dropout, plus
-``fused_bn_relu_eval``, the inference BatchNorm -> ReLU epilogue that the
-executor's peephole routes through the K3 CUDA kernel.  Backward passes
-are PyTorch's autograd of these expressions, and K6b for the kernel
-LayerNorm.
+``MXNET_PALLAS_NORM`` is on), InstanceNorm, LRN, UpSampling, the softmax
+family and Dropout, plus ``fused_bn_relu_eval``, the inference
+BatchNorm -> ReLU epilogue that the executor's peephole routes through
+the K3 CUDA kernel.  Backward passes are PyTorch's autograd of these
+expressions, and K6b for the kernel LayerNorm.
 """
 from __future__ import annotations
 
@@ -38,11 +39,61 @@ def _fully_connected(data, weight, bias=None, num_hidden=None, no_bias=False,
 
 
 # -- Activation -------------------------------------------------------------
-@register("Activation", params=[P("act_type", ("relu",), required=True)])
+@register("Activation", params=[
+    P("act_type", ("relu", "sigmoid", "tanh", "softrelu", "softsign"),
+      required=True)])
 def _activation(data, act_type="relu", **attrs):
-    """Reference: src/operator/nn/activation-inl.h; this slice carries
-    relu."""
-    return torch.relu(data)
+    """Reference: src/operator/nn/activation-inl.h."""
+    if act_type == "relu":
+        return torch.relu(data)
+    if act_type == "sigmoid":
+        return torch.sigmoid(data)
+    if act_type == "tanh":
+        return torch.tanh(data)
+    if act_type == "softrelu":
+        return torch.logaddexp(data, torch.zeros((), dtype=data.dtype,
+                                                 device=data.device))
+    return data / (1 + torch.abs(data))
+
+
+def _rng(device, rng):
+    return rng if rng is not None else _random.generator(device)
+
+
+@register("LeakyReLU", needs_is_train=True, needs_rng=True, params=[
+    P("act_type", ("leaky", "elu", "selu", "prelu", "rrelu", "gelu"),
+      default="leaky"),
+    P("slope", float, default=0.25, low=0.0),
+    P("lower_bound", float, default=0.125, low=0.0),
+    P("upper_bound", float, default=0.334, low=0.0)])
+def _leaky_relu(data, gamma=None, act_type="leaky", slope=0.25,
+                lower_bound=0.125, upper_bound=0.334,
+                __is_train__=False, __rng__=None, **attrs):
+    """Reference: src/operator/leaky_relu-inl.h.  ``rrelu`` in training
+    draws each slope from U(lower, upper) with the device's generator;
+    otherwise it takes their mean.  ``gelu`` is declared but, as in the
+    JAX package, not computed."""
+    if act_type == "leaky":
+        return torch.where(data > 0, data, slope * data)
+    if act_type == "prelu":
+        g = gamma.reshape((1, -1) + (1,) * (data.dim() - 2)) \
+            if data.dim() > 1 else gamma
+        return torch.where(data > 0, data, g * data)
+    if act_type == "elu":
+        return torch.where(data > 0, data, slope * torch.expm1(data))
+    if act_type == "selu":
+        alpha, scale = 1.6732632423543772, 1.0507009873554805
+        return scale * torch.where(data > 0, data,
+                                   alpha * torch.expm1(data))
+    if act_type == "rrelu":
+        if __is_train__ and data.device.type != "meta":
+            u = torch.rand(data.shape, dtype=data.dtype, device=data.device,
+                           generator=_rng(data.device, __rng__))
+            s = lower_bound + u * (upper_bound - lower_bound)
+        else:
+            s = (lower_bound + upper_bound) / 2.0
+        return torch.where(data > 0, data, s * data)
+    raise MXNetError("unknown LeakyReLU act_type %s" % act_type)
 
 
 # -- Convolution ------------------------------------------------------------
@@ -73,44 +124,163 @@ def _convolution(data, weight, bias=None, kernel=None, stride=None,
                     padding=pad, dilation=dilate, groups=num_group)
 
 
+_CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+
+
+@register("Deconvolution", params=[
+    P("kernel", tuple, required=True, low=1),
+    P("num_filter", int, required=True, low=1),
+    P("stride", tuple, default=None, low=1),
+    P("dilate", tuple, default=None, low=1),
+    P("pad", tuple, default=None, low=0),
+    P("adj", tuple, default=None, low=0),
+    P("num_group", int, default=1, low=1),
+    P("no_bias", bool, default=True)])
+def _deconvolution(data, weight, bias=None, kernel=None, stride=None,
+                   dilate=None, pad=None, adj=None, target_shape=None,
+                   num_filter=None, num_group=1, no_bias=True, layout=None,
+                   workspace=None, cudnn_tune=None, cudnn_off=False,
+                   **attrs):
+    """Reference: src/operator/nn/deconvolution-inl.h, the transposed
+    convolution, channels first.  The weight is (in, out/group, k...),
+    the layout ``F.conv_transpose*d`` takes; ``adj`` is the output
+    padding; ``no_bias`` defaults to True.  ``target_shape`` is accepted
+    and, as in the JAX package, not used."""
+    kernel = normalize_tuple(kernel)
+    nd = len(kernel)
+    if data.dim() != nd + 2 or layout not in (None, "NCW", "NCHW", "NCDHW"):
+        raise MXNetError("Deconvolution: this package runs channels-first "
+                         "transposed convolutions; got kernel %s on a %d-D "
+                         "input, layout %s" % (kernel, data.dim(), layout))
+    stride = normalize_tuple(stride, nd) if stride else (1,) * nd
+    dilate = normalize_tuple(dilate, nd) if dilate else (1,) * nd
+    pad = normalize_tuple(pad, nd) if pad else (0,) * nd
+    adj = normalize_tuple(adj, nd) if adj else (0,) * nd
+    return _CONV_T[nd](data, weight, None if no_bias else bias,
+                       stride=stride, padding=pad, output_padding=adj,
+                       groups=num_group, dilation=dilate)
+
+
 # -- Pooling ----------------------------------------------------------------
+_MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
+
+
+def _sum_pool(x, kernel, stride):
+    """Window sums (``avg_pool`` with divisor 1; 1-D through 2-D)."""
+    if len(kernel) == 1:
+        return F.avg_pool2d(x.unsqueeze(2), (1,) + tuple(kernel),
+                            (1,) + tuple(stride),
+                            divisor_override=1).squeeze(2)
+    pool = F.avg_pool2d if len(kernel) == 2 else F.avg_pool3d
+    return pool(x, kernel, stride, divisor_override=1)
+
+
 @register("Pooling", aliases=("Pooling_v1",), params=[
     P("kernel", tuple, default=None, low=1),
-    P("pool_type", ("max", "avg"), default="max"),
+    P("pool_type", ("max", "avg", "sum", "lp"), default="max"),
     P("stride", tuple, default=None, low=1),
     P("pad", tuple, default=None, low=0),
     P("global_pool", bool, default=False),
-    P("pooling_convention", ("valid",), default="valid"),
+    P("pooling_convention", ("valid", "full", "same"), default="valid"),
     P("count_include_pad", bool, default=True)])
 def _pooling(data, kernel=None, pool_type="max", stride=None, pad=None,
              global_pool=False, pooling_convention="valid", cudnn_off=False,
              count_include_pad=True, **attrs):
     """Reference: src/operator/nn/pooling-inl.h, as the JAX package
-    computes it with the ``valid`` convention: the input is padded
-    explicitly (-inf for max, 0 for avg), and ``avg`` divides by the
-    window size (``count_include_pad``) or by the count of real elements
-    under the window.  ``global_pool`` ignores ``kernel``."""
-    if data.dim() != 4:
-        raise MXNetError("Pooling: this package runs 2-D NCHW pooling; got "
-                         "a %d-D input" % data.dim())
+    computes it over 1-3 spatial dims: the input is padded explicitly
+    (-inf for max, 0 for avg and sum), ``full`` adds right padding until
+    ceil((x + 2p - k) / s) + 1 windows fit (``same`` is ``valid``), and
+    ``avg`` divides by the window size (``count_include_pad``) or by the
+    count of real elements under the window.  ``global_pool`` ignores
+    ``kernel``.  ``lp`` is declared but, as in the JAX package, not
+    computed."""
+    nd = data.dim() - 2
+    if nd not in _MAX_POOL:
+        raise MXNetError("Pooling: this package pools 1-3 spatial dims; "
+                         "got a %d-D input" % data.dim())
     if global_pool:
-        kernel, stride, pad = tuple(data.shape[2:]), (1, 1), (0, 0)
+        kernel, stride, pad = tuple(data.shape[2:]), (1,) * nd, (0,) * nd
     else:
-        kernel = normalize_tuple(kernel, 2)
-        stride = normalize_tuple(stride, 2) if stride else (1, 1)
-        pad = normalize_tuple(pad, 2) if pad else (0, 0)
-    widths = (pad[1], pad[1], pad[0], pad[0])   # F.pad order: W then H
+        kernel = normalize_tuple(kernel, nd)
+        stride = normalize_tuple(stride, nd) if stride else (1,) * nd
+        pad = normalize_tuple(pad, nd) if pad else (0,) * nd
+    lohi = [[p, p] for p in pad]
+    if pooling_convention == "full" and not global_pool:
+        for i in range(nd):
+            x, p, k, s = data.shape[2 + i], pad[i], kernel[i], stride[i]
+            out_full = -(-(x + 2 * p - k) // s) + 1
+            lohi[i][1] += max((out_full - 1) * s + k - (x + 2 * p), 0)
+    widths = [w for lo_hi in reversed(lohi) for w in lo_hi]
+    if pool_type not in ("max", "avg", "sum"):
+        raise MXNetError("unknown pool_type %s" % pool_type)
     if pool_type == "max":
         xp = F.pad(data, widths, value=float("-inf")) if any(widths) \
             else data
-        return F.max_pool2d(xp, kernel, stride)
+        return _MAX_POOL[nd](xp, kernel, stride)
     xp = F.pad(data, widths) if any(widths) else data
-    summed = F.avg_pool2d(xp, kernel, stride, divisor_override=1)
+    summed = _sum_pool(xp, kernel, stride)
+    if pool_type == "sum":
+        return summed
     if count_include_pad:
-        return summed / (kernel[0] * kernel[1])
+        n = 1
+        for k in kernel:
+            n *= k
+        return summed / n
     ones = F.pad(torch.ones_like(data[:1, :1]), widths)
-    counts = F.avg_pool2d(ones, kernel, stride, divisor_override=1)
-    return summed / counts
+    return summed / _sum_pool(ones, kernel, stride)
+
+
+@register("_contrib_AdaptiveAvgPooling2D")
+def _adaptive_avg_pool(data, output_size=None, **attrs):
+    """Window means when the output size divides the input's, else the
+    JAX package's ``jax.image.resize(..., "linear")`` (antialiased
+    bilinear)."""
+    out = normalize_tuple(output_size, 2) if output_size else (1, 1)
+    n, c, h, w = data.shape
+    if h % out[0] == 0 and w % out[1] == 0:
+        x = data.reshape(n, c, out[0], h // out[0], out[1], w // out[1])
+        return x.mean(dim=(3, 5))
+    return _resize_linear(data, out)
+
+
+def _resize_linear(data, size):
+    return F.interpolate(data, size=tuple(size), mode="bilinear",
+                         align_corners=False, antialias=True)
+
+
+@register("_contrib_BilinearResize2D")
+def _bilinear_resize(data, height=None, width=None, scale_height=None,
+                     scale_width=None, **attrs):
+    h, w = data.shape[2], data.shape[3]
+    th = height if height else int(h * scale_height)
+    tw = width if width else int(w * scale_width)
+    return _resize_linear(data, (th, tw))
+
+
+@register("UpSampling", params=[
+    P("scale", int, required=True, low=1),
+    P("sample_type", ("nearest", "bilinear"), default="nearest"),
+    P("num_filter", int, default=0, low=0),
+    P("multi_input_mode", ("concat", "sum"), default="concat")])
+def _upsampling(*args, scale=1, sample_type="nearest", num_filter=0,
+                num_args=1, multi_input_mode="concat", workspace=None,
+                **attrs):
+    """Reference: src/operator/upsampling-inl.h, as the JAX package
+    computes it: ``nearest`` repeats every input ``scale`` times along H
+    and W and concatenates them; ``bilinear`` is a grouped
+    Deconvolution of the data with the weight input."""
+    data = args[0]
+    if sample_type == "nearest":
+        outs = [a.repeat_interleave(scale, dim=2).repeat_interleave(
+            scale, dim=3) for a in args]
+        return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+    return _deconvolution(data, args[1], None,
+                          kernel=(2 * scale - scale % 2,) * 2,
+                          stride=(scale, scale),
+                          pad=((scale - scale % 2 + 1) // 2,) * 2,
+                          num_filter=num_filter, num_group=data.shape[1],
+                          no_bias=True)
 
 
 # -- BatchNorm --------------------------------------------------------------
@@ -169,6 +339,33 @@ def _log_softmax(data, axis=-1, temperature=None, **attrs):
     return torch.log_softmax(data, dim=axis)
 
 
+@register("softmax", params=[
+    P("axis", int, default=-1),
+    P("temperature", float, default=1.0)])
+def _softmax(data, axis=-1, temperature=None, **attrs):
+    """Reference: src/operator/nn/softmax-inl.h."""
+    if temperature:
+        data = data / temperature
+    return torch.softmax(data, dim=axis)
+
+
+@register("SoftmaxActivation", params=[
+    P("mode", ("instance", "channel"), default="instance")])
+def _softmax_activation(data, mode="instance", **attrs):
+    if mode == "channel":
+        return torch.softmax(data, dim=1)
+    return torch.softmax(data.reshape(data.shape[0], -1),
+                         dim=-1).reshape(data.shape)
+
+
+@register("softmax_cross_entropy")
+def _softmax_cross_entropy(data, label, **attrs):
+    """The summed cross-entropy of the rows' softmax against ``label``."""
+    logp = torch.log_softmax(data, dim=-1)
+    return -torch.sum(torch.gather(
+        logp, -1, label.to(torch.int64).unsqueeze(-1)))
+
+
 # -- LayerNorm --------------------------------------------------------------
 class _KernelLayerNorm(torch.autograd.Function):
     """LayerNorm over the last axis through the kernels: the forward is
@@ -222,14 +419,42 @@ def _layer_norm(data, gamma, beta, axis=-1, eps=1e-5, output_mean_var=False,
     return out * gamma.reshape(shape) + beta.reshape(shape)
 
 
+@register("InstanceNorm", params=[P("eps", float, default=1e-3, low=0.0)])
+def _instance_norm(data, gamma, beta, eps=1e-3, **attrs):
+    """Reference: src/operator/instance_norm-inl.h."""
+    red = tuple(range(2, data.dim()))
+    mean = data.mean(dim=red, keepdim=True)
+    var = data.var(dim=red, keepdim=True, correction=0)
+    out = (data - mean) * torch.rsqrt(var + eps)
+    shape = (1, -1) + (1,) * (data.dim() - 2)
+    return out * gamma.reshape(shape) + beta.reshape(shape)
+
+
+@register("LRN", params=[
+    P("nsize", int, required=True, low=1),
+    P("alpha", float, default=1e-4, low=0.0),
+    P("beta", float, default=0.75, low=0.0),
+    P("knorm", float, default=2.0)])
+def _lrn(data, alpha=1e-4, beta=0.75, knorm=2.0, nsize=5, **attrs):
+    """Reference: src/operator/nn/lrn-inl.h (across channels), the window
+    summed in the JAX package's order."""
+    sq = torch.square(data)
+    half = nsize // 2
+    padded = F.pad(sq, (0, 0, 0, 0, half, half))
+    c = data.shape[1]
+    window = torch.stack([padded[:, i:i + c] for i in range(nsize)],
+                         0).sum(0)
+    return data / torch.pow(knorm + alpha / nsize * window, beta)
+
+
 # -- Dropout ----------------------------------------------------------------
-@register("Dropout", needs_is_train=True, params=[
+@register("Dropout", needs_is_train=True, needs_rng=True, params=[
     P("p", float, default=0.5, low=0.0, high=1.0,
       doc="fraction of units dropped in train mode"),
     P("mode", ("training", "always"), default="training"),
     P("axes", tuple, default=(), low=0)])
 def _dropout(data, p=0.5, mode="training", axes=(), __is_train__=False,
-             **attrs):
+             __rng__=None, **attrs):
     """Reference: src/operator/nn/dropout-inl.h (inverted dropout), as
     the JAX package computes it: in training mode (or ``mode="always"``)
     each unit is kept with probability ``1 - p`` and scaled by ``1 / (1 -
@@ -245,7 +470,7 @@ def _dropout(data, p=0.5, mode="training", axes=(), __is_train__=False,
         shape[a] = 1
     keep = 1.0 - p
     mask = torch.rand(shape, device=data.device,
-                      generator=_random.generator(data.device)) < keep
+                      generator=_rng(data.device, __rng__)) < keep
     return torch.where(mask, data / keep, 0.0).to(data.dtype)
 
 

@@ -7,7 +7,13 @@ or malformed attributes where the graph is built.  The same function
 serves execution and shape inference (run on ``meta`` tensors).
 
 Context the caller injects through reserved attrs: ``__is_train__`` for
-ops that declare ``needs_is_train``.
+ops that declare ``needs_is_train``, and ``__rng__``, the
+``torch.Generator`` of the device the op runs on (``random.generator``;
+None on ``meta`` tensors), for ops that declare ``needs_rng``.
+``attr_defaults`` supplies attrs an op receives unless the caller sets
+them; ``free_attrs`` exempts an op from unknown-attr rejection;
+``num_outputs`` may be a function of the attrs (``SliceChannel``,
+``topk``).
 """
 from __future__ import annotations
 
@@ -18,13 +24,16 @@ import numbers
 
 from ..base import MXNetError
 
-__all__ = ["OpDef", "Param", "register", "get_op", "coerce_attrs",
-           "normalize_tuple"]
+__all__ = ["OpDef", "Param", "register", "get_op", "has_op", "list_ops",
+           "coerce_attrs", "normalize_tuple"]
 
 _OP_REGISTRY: dict[str, "OpDef"] = {}
 
-# keyword-with-default fn parameters that are tensors, not attrs
-OPTIONAL_ARRAY_INPUTS = frozenset({"bias", "gamma"})
+# keyword-with-default fn parameters that are tensors, not attrs (the
+# JAX package's set, so both packages slot the same inputs)
+OPTIONAL_ARRAY_INPUTS = frozenset({
+    "bias", "gamma", "state_cell", "sequence_length",
+    "data_lengths", "label_lengths", "trans"})
 
 # framework metadata attrs that ride along with any op call
 _PASSTHROUGH_ATTRS = frozenset({"name", "ctx_group"})
@@ -35,13 +44,16 @@ class Param:
 
     ptype: int/float/bool/str/tuple, a tuple of allowed strings (an
     enum), or None ("any value": name-checked only).  ``low``/``high``
-    bound numeric values, element-wise for tuples."""
+    bound numeric values, element-wise for tuples; ``elem`` is a tuple's
+    element type (None: elements pass unconverted).  ``derived`` marks an
+    entry inferred from the op function's signature, which the
+    constraint overlay (``constraints.py``) may type and bound."""
 
     __slots__ = ("name", "ptype", "default", "low", "high", "required",
-                 "doc", "elem")
+                 "doc", "elem", "derived")
 
     def __init__(self, name, ptype, default=None, low=None, high=None,
-                 required=False, doc="", elem=int):
+                 required=False, doc="", elem=int, derived=False):
         self.name = name
         self.ptype = ptype
         self.default = default
@@ -50,6 +62,7 @@ class Param:
         self.required = required
         self.doc = doc
         self.elem = elem
+        self.derived = derived
 
     def check(self, opname, value):
         """Validate and normalise one value; raises MXNetError naming the
@@ -69,7 +82,7 @@ class Param:
                 fail("expected one of %s" % (self.ptype,))
             return value
         if self.ptype is bool:
-            if isinstance(value, (bool, int)):
+            if isinstance(value, (bool, int)) or value in (0, 1):
                 return bool(value)
             fail("expected a boolean")
         if self.ptype is int:
@@ -88,18 +101,23 @@ class Param:
             if not isinstance(value, str):
                 fail("expected a string")
             return value
-        # tuple
+        if self.ptype is not tuple:
+            return value
+        cast = self.elem if self.elem is not None else (lambda v: v)
+        what = ("a tuple of %ss" % self.elem.__name__
+                if self.elem is not None else "a tuple")
         if isinstance(value, (int, float)) and not isinstance(value, bool):
-            value = (value,)
+            value = (cast(value),)
         if not isinstance(value, (tuple, list)):
-            fail("expected a tuple of %ss" % self.elem.__name__)
+            fail("expected %s" % what)
         try:
-            t = tuple(None if v is None else self.elem(v) for v in value)
+            t = tuple(None if v is None else cast(v) for v in value)
         except (TypeError, ValueError):
-            fail("expected a tuple of %ss" % self.elem.__name__)
-        for v in t:
-            if v is not None:
-                self._range(fail, v)
+            fail("expected %s" % what)
+        if self.elem is not None:
+            for v in t:
+                if v is not None:
+                    self._range(fail, v)
         return t
 
     def _range(self, fail, v):
@@ -112,14 +130,15 @@ class Param:
 def _infer_param(name, default):
     """A signature-derived Param, typed from its default value."""
     if name == "dtype" or default is None:
-        return Param(name, None, default=default)
+        return Param(name, None, default=default, derived=True)
     for typ in (bool, int, float, str):
         if isinstance(default, typ):
-            return Param(name, typ, default=default)
+            return Param(name, typ, default=default, derived=True)
     if isinstance(default, (tuple, list)):
         elem = float if any(isinstance(v, float) for v in default) else int
-        return Param(name, tuple, default=tuple(default), elem=elem)
-    return Param(name, None, default=default)
+        return Param(name, tuple, default=tuple(default), elem=elem,
+                     derived=True)
+    return Param(name, None, default=default, derived=True)
 
 
 class SigSplit:
@@ -128,42 +147,66 @@ class SigSplit:
     required: positional tensor inputs (no default), declaration order
     optional: optional tensor inputs (OPTIONAL_ARRAY_INPUTS present)
     attrs:    {name: default} for keyword attrs (``__*__`` excluded)
+    variadic: the fn takes ``*args`` (Concat, add_n): tensors bind by
+              call order
     """
 
-    __slots__ = ("required", "optional", "attrs")
+    __slots__ = ("required", "optional", "attrs", "variadic")
 
     def __init__(self, fn):
         self.required, self.optional, self.attrs = [], [], {}
+        self.variadic = False
         for p in inspect.signature(fn).parameters.values():
-            if p.kind in (inspect.Parameter.VAR_POSITIONAL,
-                          inspect.Parameter.VAR_KEYWORD):
+            if p.kind == inspect.Parameter.VAR_POSITIONAL:
+                self.variadic = True
+                continue
+            if p.kind == inspect.Parameter.VAR_KEYWORD:
                 continue
             if p.default is inspect.Parameter.empty:
-                self.required.append(p.name)
+                if p.kind == inspect.Parameter.KEYWORD_ONLY:
+                    self.attrs[p.name] = None
+                else:
+                    self.required.append(p.name)
             elif p.name in OPTIONAL_ARRAY_INPUTS:
                 self.optional.append(p.name)
             elif not p.name.startswith("__"):
                 self.attrs[p.name] = p.default
+
+    def array_order(self):
+        """Tensor-input names in slot order (None for a variadic op)."""
+        return None if self.variadic else self.required + self.optional
+
+    def array_names(self):
+        return frozenset(self.required) | frozenset(self.optional)
 
 
 class OpDef:
     """Metadata and implementation of one operator."""
 
     def __init__(self, name, fn, *, num_outputs=1, aliases=(),
-                 needs_is_train=False, mutate_aux=(), params=None):
+                 needs_is_train=False, needs_rng=False, mutate_aux=(),
+                 attr_defaults=None, params=None, free_attrs=False):
         self.name = name
         self.fn = fn
-        self.num_outputs = num_outputs
+        self.num_outputs = num_outputs    # int or callable(attrs) -> int
         self.aliases = tuple(aliases)
         self.needs_is_train = needs_is_train
+        self.needs_rng = needs_rng
         # inputs that are auxiliary state, returned updated as trailing
         # outputs (BatchNorm moving_mean/moving_var)
         self.mutate_aux = tuple(mutate_aux)
+        self.attr_defaults = dict(attr_defaults or {})
+        self.free_attrs = free_attrs
         self.sig = SigSplit(fn)
         self.params = {p.name: p for p in (params or ())}
-        for n, default in self.sig.attrs.items():
-            if n not in self.mutate_aux and n not in self.params:
-                self.params[n] = _infer_param(n, default)
+        if not free_attrs:
+            for n, default in self.sig.attrs.items():
+                if n not in self.mutate_aux and n not in self.params:
+                    self.params[n] = _infer_param(
+                        n, self.attr_defaults.get(n, default))
+            for n, v in self.attr_defaults.items():
+                if n not in self.params and not n.startswith("__"):
+                    self.params[n] = _infer_param(n, v)
         self.doc = fn.__doc__ or ""
 
     def validate_attrs(self, attrs):
@@ -174,6 +217,8 @@ class OpDef:
                 continue
             spec = self.params.get(k)
             if spec is None:
+                if self.free_attrs:
+                    continue
                 close = difflib.get_close_matches(k, self.params, n=1)
                 hint = "; did you mean %r?" % close[0] if close else ""
                 raise MXNetError(
@@ -198,6 +243,8 @@ class OpDef:
         for n in self.sig.required:
             lines.append("%s : Symbol (%s)" % (
                 n, "aux state" if n in self.mutate_aux else "input"))
+        if self.sig.variadic:
+            lines.append("*data : Symbol (variadic input)")
         for n in self.sig.optional:
             lines.append("%s : Symbol (optional input)" % n)
         for p in self.params.values():
@@ -210,13 +257,15 @@ class OpDef:
 
 
 def register(name, *, num_outputs=1, aliases=(), needs_is_train=False,
-             mutate_aux=(), params=None):
+             needs_rng=False, mutate_aux=(), attr_defaults=None,
+             params=None, free_attrs=False):
     """Decorator: register a torch function as an operator."""
 
     def _wrap(fn):
         op = OpDef(name, fn, num_outputs=num_outputs, aliases=aliases,
-                   needs_is_train=needs_is_train, mutate_aux=mutate_aux,
-                   params=params)
+                   needs_is_train=needs_is_train, needs_rng=needs_rng,
+                   mutate_aux=mutate_aux, attr_defaults=attr_defaults,
+                   params=params, free_attrs=free_attrs)
         for n in (name,) + tuple(aliases):
             if n in _OP_REGISTRY:
                 raise MXNetError("duplicate op registration: %s" % n)
@@ -232,6 +281,15 @@ def get_op(name):
         raise MXNetError("operator %r is not registered in this package "
                          "(it has not been ported yet)" % name)
     return op
+
+
+def has_op(name):
+    return name in _OP_REGISTRY
+
+
+def list_ops():
+    """Every canonical op name (aliases excluded)."""
+    return sorted({op.name for op in _OP_REGISTRY.values()})
 
 
 # ---------------------------------------------------------------------------

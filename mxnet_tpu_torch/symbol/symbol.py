@@ -7,7 +7,10 @@ on ``meta`` tensors (the counterpart of ``jax.eval_shape``), helped by
 per-op parameter-shape hooks that reproduce MXNet's weight-shape
 inference.  ``tojson``/``load_json`` (and ``save``/``load``, their
 file forms) write and read the JAX package's nnvm JSON schema, so graphs
-move between the two packages as JSON.
+move between the two packages as JSON.  ``infer_type`` propagates numpy
+dtypes as the JAX package does (numpy promotion, ``dtype`` attrs
+override), ``bind``/``eval`` run over the ``Executor``, and a node's
+``ctx`` attr (creation and sampling ops) is the executor's device.
 """
 from __future__ import annotations
 
@@ -45,19 +48,58 @@ class _SymNode:
 
 
 def _op_input_names(op: OpDef, attrs):
-    """Tensor-input names of an op node, in slot order."""
+    """Tensor-input names of an op node, in slot order (a variadic op's
+    tail is ``"*data"``), with the JAX package's rules for the optional
+    inputs."""
+    if op.sig.variadic:
+        return list(op.sig.required) + ["*data"]
     names = list(op.sig.required)
-    if "bias" in op.sig.optional and \
-            not coerce_attrs(attrs).get("no_bias", False):
+    a = coerce_attrs(attrs)
+    if "bias" in op.sig.optional and not a.get("no_bias", False):
         names.append("bias")
+    if "trans" in op.sig.optional and not a.get("no_trans", False):
+        names.append("trans")
+    if op.name == "LeakyReLU" and a.get("act_type") != "prelu" \
+            and "gamma" in names:
+        names.remove("gamma")
+    if op.name in ("SequenceMask", "SequenceLast", "SequenceReverse") \
+            and a.get("use_sequence_length"):
+        names.append("sequence_length")
     return names
 
 
 def _visible_attrs(node):
-    """An op node's attrs as op-function kwargs: coerced from strings,
-    minus the ``__*__`` scope attrs."""
-    return {k: v for k, v in coerce_attrs(node.attrs).items()
-            if not k.startswith("__")}
+    """An op node's attrs as op-function kwargs: the op's
+    ``attr_defaults``, then the node's attrs coerced from strings, minus
+    the ``__*__`` scope attrs."""
+    kw = dict(node.op.attr_defaults)
+    kw.update({k: v for k, v in coerce_attrs(node.attrs).items()
+               if not k.startswith("__")})
+    return kw
+
+
+def _np_dtype(dt):
+    """A dtype as ``numpy.dtype``, or the name ``"bfloat16"``, which
+    numpy lacks."""
+    if isinstance(dt, torch.dtype):
+        dt = str(dt).replace("torch.", "")
+    if isinstance(dt, str) and dt == "bfloat16":
+        return "bfloat16"
+    return np.dtype(dt)
+
+
+def _promote(dts):
+    """numpy's result type of ``dts``, or torch's where bfloat16 is among
+    them."""
+    if any(isinstance(d, str) for d in dts):
+        out = dtype_torch(dts[0])
+        for d in dts[1:]:
+            out = torch.promote_types(out, dtype_torch(d))
+        return _np_dtype(out)
+    return np.result_type(*dts)
+
+
+
 
 
 class Symbol:
@@ -74,8 +116,27 @@ class Symbol:
             return self._heads[0][0].name
         return None
 
+    def attr(self, key):
+        """The head node's attr ``key`` (a string), or None."""
+        return self._heads[0][0].attrs.get(key)
+
+    def list_attr(self):
+        """The head node's string attrs."""
+        return {k: v for k, v in self._heads[0][0].attrs.items()
+                if isinstance(v, str)}
+
+    def _set_attr(self, **kwargs):
+        self._heads[0][0].attrs.update(kwargs)
+
     def __repr__(self):
         return "<Symbol %s>" % (self.name or "group")
+
+    def __iter__(self):
+        for i in range(len(self.list_outputs())):
+            yield self[i]
+
+    def __len__(self):
+        return len(self.list_outputs())
 
     def _flat_outputs(self):
         return list(self._heads)
@@ -112,6 +173,18 @@ class Symbol:
         (reference: symbol.py get_internals)."""
         return Symbol([(node, i) for node in self._topo()
                        for i in range(node.num_outputs())])
+
+    def get_children(self):
+        """The head node's inputs as one symbol, or None for a
+        variable."""
+        node = self._heads[0][0]
+        if not node.inputs:
+            return None
+        return Symbol(list(node.inputs))
+
+    def list_inputs(self):
+        """Every variable, aux states included, in topo order."""
+        return [n.name for n in self._topo() if n.is_variable]
 
     def list_arguments(self):
         """Variables excluding aux states, topo order."""
@@ -159,17 +232,103 @@ class Symbol:
                 if n.is_variable and id(n) in aux]
 
     # -- composition --------------------------------------------------------
-    def __add__(self, other):
-        if not isinstance(other, Symbol):
-            raise MXNetError("Symbol + %s: only Symbol + Symbol "
-                             "(elemwise_add) is ported" % type(other).__name__)
+    def _binop(self, other, op, scalar_op, reverse=False):
         from . import _make_symbol_call
-        return _make_symbol_call("elemwise_add", [self, other], {})
+        if isinstance(other, Symbol):
+            a, b = (other, self) if reverse else (self, other)
+            return _make_symbol_call(op, [a, b], {})
+        return _make_symbol_call(scalar_op, [self], {"scalar": float(other)})
+
+    def __add__(self, other):
+        return self._binop(other, "elemwise_add", "_plus_scalar")
+
+    __radd__ = __add__
+
+    def __sub__(self, other):
+        return self._binop(other, "elemwise_sub", "_minus_scalar")
+
+    def __rsub__(self, other):
+        if isinstance(other, Symbol):
+            return other.__sub__(self)
+        return self._binop(other, None, "_rminus_scalar")
+
+    def __mul__(self, other):
+        return self._binop(other, "elemwise_mul", "_mul_scalar")
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, other):
+        return self._binop(other, "elemwise_div", "_div_scalar")
+
+    def __rtruediv__(self, other):
+        if isinstance(other, Symbol):
+            return other.__truediv__(self)
+        return self._binop(other, None, "_rdiv_scalar")
+
+    def __pow__(self, other):
+        return self._binop(other, "_power", "_power_scalar")
+
+    def __neg__(self):
+        return self._binop(-1.0, None, "_mul_scalar")
+
+    def __eq__(self, other):
+        if isinstance(other, (Symbol, int, float)):
+            return self._binop(other, "_equal", "_equal_scalar")
+        return NotImplemented
+
+    def __ne__(self, other):
+        if isinstance(other, (Symbol, int, float)):
+            return self._binop(other, "_not_equal", "_not_equal_scalar")
+        return NotImplemented
+
+    def __gt__(self, other):
+        return self._binop(other, "_greater", "_greater_scalar")
+
+    def __ge__(self, other):
+        return self._binop(other, "_greater_equal", "_greater_equal_scalar")
+
+    def __lt__(self, other):
+        return self._binop(other, "_lesser", "_lesser_scalar")
+
+    def __le__(self, other):
+        return self._binop(other, "_lesser_equal", "_lesser_equal_scalar")
 
     __hash__ = object.__hash__
 
     def __copy__(self):
         return Symbol(list(self._heads))
+
+    def __deepcopy__(self, memo):
+        return load_json(self.tojson())
+
+    # -- fluent forms of common ops (the rest are attached in __init__) -----
+    def reshape(self, shape, **kw):
+        from . import _make_symbol_call
+        return _make_symbol_call("Reshape", [self], {"shape": shape, **kw})
+
+    def transpose(self, axes=None):
+        from . import _make_symbol_call
+        return _make_symbol_call("transpose", [self],
+                                 {"axes": axes} if axes else {})
+
+    def sum(self, axis=None, keepdims=False):
+        from . import _make_symbol_call
+        return _make_symbol_call("sum", [self], {"axis": axis,
+                                                 "keepdims": keepdims})
+
+    def mean(self, axis=None, keepdims=False):
+        from . import _make_symbol_call
+        return _make_symbol_call("mean", [self], {"axis": axis,
+                                                  "keepdims": keepdims})
+
+    def astype(self, dtype):
+        from . import _make_symbol_call
+        return _make_symbol_call("Cast", [self], {"dtype": dtype})
+
+    def slice_axis(self, axis, begin, end):
+        from . import _make_symbol_call
+        return _make_symbol_call("slice_axis", [self], {
+            "axis": axis, "begin": begin, "end": end})
 
     def __call__(self, *args, **kwargs):
         """Compose: replace variable inputs with the given symbols."""
@@ -212,15 +371,91 @@ class Symbol:
     def infer_shape(self, *args, **kwargs):
         """Reference: symbol.py infer_shape.  Returns (arg_shapes,
         out_shapes, aux_shapes) in list order."""
+        return self._infer_shape_impl(False, *args, **kwargs)
+
+    def infer_shape_partial(self, *args, **kwargs):
+        """``infer_shape`` that leaves what it cannot infer as None
+        instead of raising."""
+        return self._infer_shape_impl(True, *args, **kwargs)
+
+    def _infer_shape_impl(self, partial, *args, **kwargs):
         known = {}
         for name, shp in zip(self.list_arguments(), args):
             if shp is not None:
                 known[name] = tuple(shp)
         known.update({k: tuple(v) for k, v in kwargs.items()})
-        shapes, aux_shapes = _infer_graph(self, known)
+        shapes, aux_shapes = _infer_graph(self, known, partial=partial)
         return ([shapes.get(n) for n in self.list_arguments()],
-                [shapes[("out", id(n), i)] for (n, i) in self._heads],
+                [shapes.get(("out", id(n), i)) for (n, i) in self._heads],
                 [aux_shapes.get(n) for n in self.list_auxiliary_states()])
+
+    def infer_type(self, *args, **kwargs):
+        """Reference: symbol.py infer_type, as the JAX package computes
+        it: dtypes propagate from the given inputs (else a variable's
+        ``__dtype__``, else the first given dtype, else float32) by
+        numpy's promotion, a ``dtype`` attr (Cast, creation ops)
+        overriding; aux states are float32.  Returns (arg_types,
+        out_types, aux_types) of ``numpy.dtype`` (bfloat16 by name)."""
+        known = {}
+        for name, dt in zip(self.list_arguments(), args):
+            if dt is not None:
+                known[name] = _np_dtype(dtype_torch(dt) if not isinstance(
+                    dt, str) else dt)
+        known.update({k: _np_dtype(v if isinstance(v, str)
+                                   else dtype_torch(v))
+                      for k, v in kwargs.items()})
+        default = next(iter(known.values()), np.dtype(np.float32))
+        node_dtype = {}
+        for node in self._topo():
+            if node.is_variable:
+                if node.name in known:
+                    node_dtype[id(node)] = known[node.name]
+                elif "__dtype__" in node.attrs:
+                    node_dtype[id(node)] = _np_dtype(node.attrs["__dtype__"])
+                else:
+                    node_dtype[id(node)] = default
+                continue
+            attrs = coerce_attrs(node.attrs)
+            if attrs.get("dtype"):
+                node_dtype[id(node)] = _np_dtype(attrs["dtype"])
+                continue
+            in_dts = [node_dtype.get(id(src), default)
+                      for (src, _i) in node.inputs]
+            try:
+                node_dtype[id(node)] = _promote(in_dts) if in_dts \
+                    else default
+            except TypeError:
+                node_dtype[id(node)] = default
+        arg_types = []
+        for n in self.list_arguments():
+            node = next(x for x in self._topo()
+                        if x.is_variable and x.name == n)
+            if n in known:
+                arg_types.append(known[n])
+            elif "__dtype__" in node.attrs:
+                arg_types.append(_np_dtype(node.attrs["__dtype__"]))
+            else:
+                arg_types.append(np.dtype(np.float32))
+        out_types = [node_dtype.get(id(node), default)
+                     for node, _ in self._flat_outputs()]
+        aux_types = [np.dtype(np.float32)
+                     for _ in self.list_auxiliary_states()]
+        return arg_types, out_types, aux_types
+
+    def bind(self, ctx, args, args_grad=None, grad_req="write",
+             aux_states=None, group2ctx=None, shared_exec=None):
+        """Bind given arrays (reference: symbol.py:1548): ``args`` (and
+        ``args_grad``, ``aux_states``) a list in argument order or a
+        dict; aux states not given start at zeros.  The executor uses
+        the arrays themselves, not copies."""
+        from ..executor import Executor
+        return Executor._bind(self, ctx, args, args_grad, grad_req,
+                              aux_states)
+
+    def eval(self, ctx=None, **kwargs):
+        """Bind ``kwargs`` as the arguments and run one forward; returns
+        the outputs.  ``ctx`` defaults to ``gpu(0)``."""
+        return self.bind(ctx, kwargs).forward()
 
     def simple_bind(self, ctx=None, grad_req="null", type_dict=None,
                     **kwargs):
@@ -256,6 +491,13 @@ class Symbol:
         ``-symbol.json`` half of a checkpoint never exists half
         written."""
         atomic_write(fname, self.tojson(), mode="w")
+
+    def debug_str(self):
+        """One line per node: its op (or Variable), name and inputs."""
+        return "\n".join(
+            "%s %s <- %s" % ("Variable" if n.is_variable else n.op.name,
+                             n.name, [s.name for (s, _) in n.inputs])
+            for n in self._topo())
 
 
 # ---------------------------------------------------------------------------
@@ -334,6 +576,12 @@ def build_graph_fn(symbol, arg_names, aux_names, device, is_train=False):
                     writeback.setdefault(id(n), []).append(
                         (aux_index[src.name], k - n_aux))
 
+    dev = torch.device(device)
+    rng = None
+    if any(n.op.needs_rng for n in nodes if not n.is_variable):
+        from ..random import generator
+        rng = generator(dev)
+
     def fn(args, aux):
         env = {}
         new_aux = list(aux)
@@ -368,6 +616,10 @@ def build_graph_fn(symbol, arg_names, aux_names, device, is_train=False):
             kw = dict(plans[id(node)])
             if op.needs_is_train:
                 kw["__is_train__"] = is_train
+            if op.needs_rng:
+                kw["__rng__"] = rng
+            if "ctx" in op.sig.attrs:
+                kw["ctx"] = dev
             outs = op.fn(*[env[(id(s), i)] for (s, i) in node.inputs], **kw)
             if not isinstance(outs, tuple):
                 outs = (outs,)
@@ -381,11 +633,12 @@ def build_graph_fn(symbol, arg_names, aux_names, device, is_train=False):
     return fn
 
 
-def _infer_graph(symbol, known_shapes):
+def _infer_graph(symbol, known_shapes, partial=False):
     """Topo-walk shape inference: each op runs on ``meta`` tensors, and
     parameter-shape hooks fill in unknown weight shapes.  Returns
     ``(shapes, aux_shapes)``: variable name -> shape, plus
-    ``("out", node id, index)`` -> shape for every graph head."""
+    ``("out", node id, index)`` -> shape for every graph head (None
+    where ``partial`` let a node go uninferred)."""
     nodes = symbol._topo()
     shapes = dict(known_shapes)
     env = {}   # (node id, out index) -> meta tensor
@@ -430,12 +683,16 @@ def _infer_graph(symbol, known_shapes):
                     if src.name in aux_names:
                         aux_shapes[src.name] = shp
         missing = [s.name for (s, i) in node.inputs if (id(s), i) not in env]
+        if missing and partial:
+            continue
         if missing:
             raise MXNetError("cannot infer shape for inputs %s of node %s "
                              "(%s)" % (missing, node.name, op.name))
         kw = dict(attrs)
         if op.needs_is_train:
             kw["__is_train__"] = False
+        if "ctx" in op.sig.attrs:
+            kw["ctx"] = torch.device("meta")
         try:
             outs = op.fn(*[env[(id(s), i)] for (s, i) in node.inputs], **kw)
         except MXNetError:
@@ -452,7 +709,8 @@ def _infer_graph(symbol, known_shapes):
         for i, o in enumerate(outs[:len(outs) - len(op.mutate_aux)]):
             env[(id(node), i)] = o
     for (n, i) in symbol._flat_outputs():
-        shapes[("out", id(n), i)] = tuple(env[(id(n), i)].shape)
+        t = env.get((id(n), i))
+        shapes[("out", id(n), i)] = tuple(t.shape) if t is not None else None
     return shapes, aux_shapes
 
 
@@ -478,6 +736,47 @@ def _conv_shapes(attrs, known):
     return out
 
 
+def _deconv_shapes(attrs, known):
+    d = known["data"]
+    k = attrs["kernel"]
+    if isinstance(k, int):
+        k = (k,)
+    nf = attrs["num_filter"]
+    out = {"weight": (d[1], nf // attrs.get("num_group", 1)) + tuple(k)}
+    if not attrs.get("no_bias", True):
+        out["bias"] = (nf,)
+    return out
+
+
+def _ln_shapes(attrs, known):
+    c = known["data"][attrs.get("axis", -1)]
+    return {"gamma": (c,), "beta": (c,)}
+
+
+def _in_shapes(attrs, known):
+    c = known["data"][1]
+    return {"gamma": (c,), "beta": (c,)}
+
+
+def _embed_shapes(attrs, known):
+    return {"weight": (attrs["input_dim"], attrs["output_dim"])}
+
+
+def _prelu_shapes(attrs, known):
+    if attrs.get("act_type") == "prelu":
+        d = known["data"]
+        return {"gamma": (d[1] if len(d) > 1 else 1,)}
+    return {}
+
+
+def _regression_label_shapes(attrs, known):
+    return {"label": tuple(known["data"])}
+
+
+def _svm_label_shapes(attrs, known):
+    return {"label": (known["data"][0],)}
+
+
 def _bn_shapes(attrs, known):
     c = known["data"][attrs.get("axis", 1)]
     return {"gamma": (c,), "beta": (c,), "moving_mean": (c,),
@@ -493,26 +792,44 @@ def _softmax_output_shapes(attrs, known):
 
 _PARAM_SHAPE_HOOKS = {
     "SoftmaxOutput": _softmax_output_shapes,
+    "LinearRegressionOutput": _regression_label_shapes,
+    "LogisticRegressionOutput": _regression_label_shapes,
+    "MAERegressionOutput": _regression_label_shapes,
+    "SVMOutput": _svm_label_shapes,
     "FullyConnected": _fc_shapes,
     "Convolution": _conv_shapes,
     "Convolution_v1": _conv_shapes,
+    "Deconvolution": _deconv_shapes,
     "BatchNorm": _bn_shapes,
     "BatchNorm_v1": _bn_shapes,
+    "LayerNorm": _ln_shapes,
+    "InstanceNorm": _in_shapes,
+    "Embedding": _embed_shapes,
+    "LeakyReLU": _prelu_shapes,
 }
 
 
 # ---------------------------------------------------------------------------
 # construction helpers
 # ---------------------------------------------------------------------------
-def var(name, attr=None, shape=None, dtype=None, **kwargs):
-    """Create a variable symbol."""
+def var(name, attr=None, shape=None, lr_mult=None, wd_mult=None, dtype=None,
+        init=None, stype=None, **kwargs):
+    """Create a variable symbol (reference: symbol.py var), with the
+    current ``AttrScope``'s attrs."""
+    from ..attribute import AttrScope
     if not isinstance(name, str):
         raise TypeError("Expect a string for variable name")
-    attrs = dict(attr or {})
+    attrs = dict(AttrScope.current().get(attr or {}))
     if shape is not None:
         attrs["__shape__"] = str(tuple(shape))
     if dtype is not None:
         attrs["__dtype__"] = str(dtype_torch(dtype)).replace("torch.", "")
+    if lr_mult is not None:
+        attrs["__lr_mult__"] = str(lr_mult)
+    if wd_mult is not None:
+        attrs["__wd_mult__"] = str(wd_mult)
+    if init is not None:
+        attrs["__init__"] = init if isinstance(init, str) else init.dumps()
     attrs.update({k: str(v) for k, v in kwargs.items()})
     return Symbol([(_SymNode(None, name, [], attrs), 0)])
 
