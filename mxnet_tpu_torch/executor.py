@@ -26,6 +26,14 @@ oracle; a ``set_lr_mult``/``set_wd_mult`` after install demotes to it
 for good, carrying the slots over bit for bit.  ``optimizer_slots`` and
 ``load_optimizer_slots`` read and write the slots by weight name on
 either path, which is how ``Module`` saves and resumes them.
+
+Mixed precision (``compute_dtype="bfloat16"``, the JAX package's policy,
+``mxnet_tpu/executor.py``): the bound fp32 arguments stay fp32 and are the
+masters; each one not named in ``cast_exclude`` (labels) is cast to the
+compute dtype inside the recorded graph, in the training forward and
+backward and in the eval forward, so ``backward`` hands fp32 gradients to
+the fused step, which sweeps fp32 buckets as before.  Aux states
+(BatchNorm's moving stats) are not cast.
 """
 from __future__ import annotations
 
@@ -70,9 +78,12 @@ class Executor:
     """A bound computation (reference: python/mxnet/executor.py:45)."""
 
     def __init__(self, symbol, device, arg_dict, aux_dict, grad_dict=None,
-                 grad_req="null"):
+                 grad_req="null", compute_dtype=None, cast_exclude=()):
         self._symbol = symbol
         self._device = device
+        self._compute_dtype = (dtype_torch(compute_dtype)
+                               if compute_dtype is not None else None)
+        self._cast_exclude = frozenset(cast_exclude)
         self.arg_names = symbol.list_arguments()
         self.aux_names = symbol.list_auxiliary_states()
         self.output_names = symbol.list_outputs()
@@ -91,6 +102,11 @@ class Executor:
         self._is_loss_graph = bool(symbol._flat_outputs()) and all(
             (not n.is_variable) and n.op.name in _LOSS_OPS
             for (n, _i) in symbol._flat_outputs())
+        # arguments the mixed-precision policy casts at graph entry
+        self._cast_idx = frozenset(
+            i for i, n in enumerate(self.arg_names)
+            if self._compute_dtype is not None
+            and n not in self._cast_exclude)
         self._outputs = None
         self._cached_grads = None
         self._fn = build_graph_fn(symbol, self.arg_names, self.aux_names,
@@ -107,8 +123,19 @@ class Executor:
     def device(self):
         return self._device
 
+    def _cast(self, args):
+        """The graph's view of the arguments: each fp32 one in
+        ``_cast_idx`` cast to the compute dtype (differentiably, so a
+        gradient comes back fp32), the rest as bound."""
+        if self._compute_dtype is None:
+            return args
+        return [a.to(self._compute_dtype)
+                if i in self._cast_idx and a.dtype == torch.float32 else a
+                for i, a in enumerate(args)]
+
     @staticmethod
-    def _simple_bind(symbol, ctx, grad_req, type_dict, shape_kwargs):
+    def _simple_bind(symbol, ctx, grad_req, type_dict, shape_kwargs,
+                     compute_dtype=None, cast_exclude=()):
         device = resolve(ctx)
         known = {k: tuple(v) for k, v in shape_kwargs.items()}
         shapes, aux_shapes = _infer_graph(symbol, known)
@@ -130,10 +157,11 @@ class Executor:
         aux_dict = {n: alloc(n, aux_shapes.get(n), "aux")
                     for n in symbol.list_auxiliary_states()}
         return Executor(symbol, device, arg_dict, aux_dict, grad_dict,
-                        grad_req)
+                        grad_req, compute_dtype, cast_exclude)
 
     @staticmethod
-    def _bind(symbol, ctx, args, args_grad, grad_req, aux_states):
+    def _bind(symbol, ctx, args, args_grad, grad_req, aux_states,
+              compute_dtype=None, cast_exclude=()):
         """``Symbol.bind``: the given NDArrays (lists in argument order or
         dicts), used as they are; aux states not given start at zeros of
         their inferred shapes on ``ctx`` (default ``gpu(0)``)."""
@@ -160,7 +188,7 @@ class Executor:
                     aux_dict[a] = NDArray(torch.zeros(aux_shapes[a],
                                                       device=device))
         return Executor(symbol, device, arg_dict, aux_dict, grad_dict,
-                        grad_req)
+                        grad_req, compute_dtype, cast_exclude)
 
     # -- fused optimizer step ------------------------------------------------
     def install_fused_update(self, optimizer, param_names=None):
@@ -431,7 +459,7 @@ class Executor:
         for j, i in enumerate(self._diff_idx):
             full[i] = leaves[j]
         with torch.enable_grad():
-            outs, new_aux = self._train_fn()(full, aux)
+            outs, new_aux = self._train_fn()(self._cast(full), aux)
             if seeds is None:
                 seeds = [torch.ones_like(o) for o in outs]
             live = [(o, s) for o, s in zip(outs, seeds) if o.requires_grad]
@@ -471,11 +499,11 @@ class Executor:
             self._updates_applied = False
         elif is_train:
             with torch.no_grad():
-                outs, new_aux = self._train_fn()(args, aux)
+                outs, new_aux = self._train_fn()(self._cast(args), aux)
             self._cached_grads = None
         else:
             with torch.inference_mode():
-                outs = self._fn(args, aux)
+                outs = self._fn(self._cast(args), aux)
             self._cached_grads = None
         if new_aux is not None:
             for n, a in zip(self.aux_names, new_aux):

@@ -178,6 +178,15 @@ class Block:
         for cld in self._children.values():
             cld.hybridize(active, **kwargs)
 
+    def cast(self, dtype):
+        """Cast the children's parameters, then this block's own, to
+        ``dtype`` (reference: block.py cast).  A hybridized block has no
+        cached graph to clear: its next forward runs in the new dtype."""
+        for child in self._children.values():
+            child.cast(dtype)
+        for _, param in self.params.items():
+            param.cast(dtype)
+
     def __call__(self, *args):
         return self.forward(*args)
 

@@ -231,6 +231,19 @@ class Parameter:
             raise MXNetError("Parameter '%s' has not been initialized"
                              % self.name)
 
+    def cast(self, dtype):
+        """Cast the value and its grad buffer to ``dtype`` and mark them
+        as the autograd variable again (reference: parameter.py cast); a
+        parameter not yet initialized takes the dtype when it is."""
+        self.dtype = dtype
+        if self._data is None:
+            return
+        with torch.no_grad():
+            self._data = NDArray(self._data._data.to(dtype_torch(dtype)))
+        if self._grad is not None:
+            self._grad = NDArray(self._grad._data.to(dtype_torch(dtype)))
+        autograd.mark_variables([self._data], [self._grad], self._grad_req)
+
     def _load_init(self, data):
         """Take the NDArray ``data`` (in this parameter's dtype, on the
         device it is to live on) as the value, initialized or not; its

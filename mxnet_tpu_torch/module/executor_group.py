@@ -4,8 +4,9 @@ Counterpart of ``mxnet_tpu/module/executor_group.py`` (reference:
 python/mxnet/module/executor_group.py:129) for a single context: it
 derives each argument's ``grad_req`` (parameters write, fixed
 parameters and labels null, data only with ``inputs_need_grad``), binds
-one executor, feeds batches to it, and exposes the parameter, gradient
-and aux arrays.  Splitting a batch over several devices comes with the
+one executor (with the Module's mixed-precision policy,
+``compute_dtype`` and ``cast_exclude``), feeds batches to it, and exposes
+the parameter, gradient and aux arrays.  Splitting a batch over several devices comes with the
 multi-GPU slice.
 """
 from __future__ import annotations
@@ -36,10 +37,13 @@ class DataParallelExecutorGroup:
 
     def __init__(self, symbol, contexts, data_shapes, label_shapes,
                  param_names, for_training, inputs_need_grad,
-                 logger=logging, fixed_param_names=None, grad_req="write"):
+                 logger=logging, fixed_param_names=None, grad_req="write",
+                 compute_dtype=None, cast_exclude=()):
         if len(contexts) != 1:
             raise MXNetError("this package binds a Module on one device; "
                              "got %d contexts" % len(contexts))
+        self.compute_dtype = compute_dtype
+        self.cast_exclude = tuple(cast_exclude)
         self.param_names = param_names
         self.arg_names = symbol.list_arguments()
         self.aux_names = symbol.list_auxiliary_states()
@@ -84,7 +88,10 @@ class DataParallelExecutorGroup:
                      else d.dtype for d in descs}
         exe = self.symbol.simple_bind(ctx=self.contexts[0],
                                       grad_req=self.grad_req,
-                                      type_dict=type_dict, **shapes)
+                                      type_dict=type_dict,
+                                      compute_dtype=self.compute_dtype,
+                                      cast_exclude=self.cast_exclude,
+                                      **shapes)
         self.execs = [exe]
         self.data_shapes = data_shapes
         self.label_shapes = label_shapes

@@ -60,8 +60,11 @@ class Module(BaseModule):
 
     def __init__(self, symbol, data_names=("data",),
                  label_names=("softmax_label",), logger=logging,
-                 context=None, fixed_param_names=None):
+                 context=None, fixed_param_names=None, compute_dtype=None):
         super().__init__(logger=logger)
+        # compute_dtype="bfloat16": the executor's mixed precision, fp32
+        # masters and bf16 compute, the labels kept fp32
+        self._compute_dtype = compute_dtype
         if context is None:
             context = gpu(0)
         if isinstance(context, Context):
@@ -244,7 +247,9 @@ class Module(BaseModule):
             self._symbol, self._context, self._data_shapes,
             self._label_shapes, self._param_names, for_training,
             inputs_need_grad, logger=self.logger,
-            fixed_param_names=self._fixed_param_names, grad_req=grad_req)
+            fixed_param_names=self._fixed_param_names, grad_req=grad_req,
+            compute_dtype=self._compute_dtype,
+            cast_exclude=tuple(self._label_names))
         self.binded = True
         if self._arg_params is None:
             # master copies, apart from the executor's arrays

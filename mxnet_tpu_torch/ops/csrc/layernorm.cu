@@ -17,9 +17,25 @@
 // Bound on Hopper: memory bytes.  Each element is read once and written
 // once (K6b: x and do read, dx written) with ~8-10 fp32 operations
 // between, far below the ~20 operations per byte where the fp32 units
-// would become the limit; at the transformer's shape, (8192, 768) fp32,
-// K6a moves 50 MB and K6b 75 MB.  Any C >= 1 and any row count, with no
-// padding, in three layouts chosen by C (the same for both kernels):
+// would become the limit; at the transformer's shape, (8192, 768), K6a
+// moves 50 MB in fp32, K6b 75.5 MB in fp32 (0.0225 ms at 3.35 TB/s) and
+// 37.7 MB in bf16 (0.0113 ms).
+//
+// K6b, where C <= 1024, C is a multiple of the 16-byte vector (4 fp32 or
+// 8 bf16 values) and x, do, dx and gamma are 16-byte aligned (the
+// transformer's rows are): a persistent grid of 128-thread blocks, as
+// many as fit on the card at once and spread so that every warp takes
+// the same number of rows (give or take one), each warp striding over
+// rows.  A lane loads its slice of gamma (fp32) into registers once for
+// all its rows, reads CH chunks of x and do with 16-byte loads (every
+// load of a row issued before its first multiply; at C 768 six chunks a
+// lane in fp32, three in bf16), reduces the two row means in one shuffle
+// loop and writes dx with 16-byte streaming stores (evicted first:
+// nothing reads them again here).  x and do are read as streaming in
+// fp32 only (kStreamIn).  Other rows take K6a's layouts below.
+//
+// Any C >= 1 and any row count, with no padding, in three layouts chosen
+// by C (K6a, and K6b where the vector layout does not apply):
 //   - C <= 1024: one warp per row, four rows per 128-thread block: no
 //     shared memory and no block barrier, the reductions are warp
 //     shuffles; each lane holds VPT = ceil(C / 32) values (a template
@@ -40,6 +56,7 @@
 // broadcast mu and rstd over 128 lanes; here they are one fp32 per row.
 #include <cmath>
 #include <cstdint>
+#include <cstring>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -247,6 +264,160 @@ __global__ void layernorm_bwd_kernel(const T* __restrict__ x,
   }
 }
 
+// K6b's vector layout (C <= 1024, C % VEC == 0, 16-byte aligned rows):
+// a persistent grid of warps, each striding over rows.  Lane l holds
+// chunks c * 32 + l (c < CH) of VEC columns each, VEC = 16 / sizeof(T),
+// so every load of x and do is 16 bytes; its slice of gamma (fp32) sits
+// in registers for all its rows.  Measured on an H100 and not kept: the
+// next row's loads issued before this row's reductions, in a second
+// register set that takes turns with the first: 159-168 registers a
+// thread against 96-128, three blocks an SM instead of five, no faster in
+// fp32 and slower in bf16; above 24 values a lane the two sets spill.
+constexpr int kBwdWarps = 4;  // warps of a block of the vector layout
+// x and do read as streaming (evicted first) in fp32 only: there the
+// hints take K6b from 81% to 97% of its byte bound (back to back, on an
+// H100), while in bf16 they were no faster, and up to 11% slower with the
+// L2 cache flushed before each launch
+template <typename T>
+constexpr bool kStreamIn = sizeof(T) == 4;
+
+template <typename T> struct Vec16;
+template <> struct Vec16<float> {
+  static constexpr int N = 4;
+};
+template <> struct Vec16<__nv_bfloat16> {
+  static constexpr int N = 8;
+};
+
+// VEC = 16 / sizeof(T) values of T at p (16-byte aligned), as fp32;
+// nothing reads them again in this kernel
+template <typename T>
+__device__ __forceinline__ void load16(const T* p, float* out) {
+  constexpr int VEC = Vec16<T>::N;
+  const uint4* q = reinterpret_cast<const uint4*>(p);
+  uint4 raw;
+  if constexpr (kStreamIn<T>)
+    raw = __ldcs(q);
+  else
+    raw = *q;
+  T t[VEC];
+  memcpy(t, &raw, sizeof(raw));
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) out[e] = to_float(t[e]);
+}
+
+template <typename T>
+__device__ __forceinline__ void store16(T* p, const float* in) {
+  constexpr int VEC = Vec16<T>::N;
+  T t[VEC];
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) store(t + e, in[e]);
+  uint4 raw;
+  memcpy(&raw, t, sizeof(raw));
+  __stcs(reinterpret_cast<uint4*>(p), raw);
+}
+
+// One row's operands in a lane's registers: x and do (columns past C are
+// 0, adding nothing to the sums), and the row's mu and rstd.
+template <typename T, int CH>
+struct BwdRow {
+  float x[CH * Vec16<T>::N], d[CH * Vec16<T>::N];
+  float m, rs;
+
+  __device__ __forceinline__ void load(const T* __restrict__ x_,
+                                       const T* __restrict__ dout,
+                                       const float* __restrict__ mu,
+                                       const float* __restrict__ rstd,
+                                       int64_t row, int cols, int lane) {
+    constexpr int VEC = Vec16<T>::N;
+    const T* xr = x_ + row * cols;
+    const T* dr = dout + row * cols;
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+      const int col = (c * kWarp + lane) * VEC;
+      if (col < cols) {
+        load16(xr + col, x + c * VEC);
+        load16(dr + col, d + c * VEC);
+      } else {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) x[c * VEC + e] = d[c * VEC + e] = 0.0f;
+      }
+    }
+    m = mu[row];
+    rs = rstd[row];
+  }
+
+  // dx of this row from the lane's gamma slice g: both row sums in one
+  // shuffle loop, then one 16-byte streaming store a chunk
+  __device__ __forceinline__ void finish(const float* g, T* __restrict__ dx,
+                                         int64_t row, int cols, int lane) {
+    constexpr int VEC = Vec16<T>::N;
+    constexpr int N = CH * VEC;
+    float s1 = 0.0f, s2 = 0.0f;
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      x[k] = (x[k] - m) * rs;      // xhat (garbage past C, never stored)
+      d[k] *= g[k];                // dxh (0 past C)
+      s1 += d[k];
+      s2 += d[k] * x[k];
+    }
+#pragma unroll
+    for (int off = kWarp / 2; off > 0; off /= 2) {
+      s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+      s2 += __shfl_xor_sync(0xffffffffu, s2, off);
+    }
+    const float c1 = s1 / (float)cols, c2 = s2 / (float)cols;
+    T* dxr = dx + row * cols;
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+      const int col = (c * kWarp + lane) * VEC;
+      if (col < cols) {
+        float o[VEC];
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          const int k = c * VEC + e;
+          o[e] = rs * (d[k] - c1 - x[k] * c2);
+        }
+        store16(dxr + col, o);
+      }
+    }
+  }
+};
+
+template <typename T, int CH>
+__global__ void __launch_bounds__(kBwdWarps * kWarp)
+    layernorm_bwd_regs_kernel(const T* __restrict__ x,
+                              const T* __restrict__ dout,
+                              const float* __restrict__ gamma,
+                              const float* __restrict__ mu,
+                              const float* __restrict__ rstd,
+                              T* __restrict__ dx, int64_t rows, int cols) {
+  constexpr int VEC = Vec16<T>::N;
+  const int lane = threadIdx.x % kWarp;
+  const int64_t stride = (int64_t)gridDim.x * kBwdWarps;
+  int64_t row = (int64_t)blockIdx.x * kBwdWarps + threadIdx.x / kWarp;
+  if (row >= rows) return;
+  float g[CH * VEC];
+#pragma unroll
+  for (int c = 0; c < CH; ++c) {
+    const int col = (c * kWarp + lane) * VEC;
+#pragma unroll
+    for (int e = 0; e < VEC; e += 4) {
+      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (col < cols) v = *reinterpret_cast<const float4*>(gamma + col + e);
+      g[c * VEC + e] = v.x;
+      g[c * VEC + e + 1] = v.y;
+      g[c * VEC + e + 2] = v.z;
+      g[c * VEC + e + 3] = v.w;
+    }
+  }
+  BwdRow<T, CH> a;
+  for (; row < rows; row += stride) {
+    a.load(x, dout, mu, rstd, row, cols, lane);
+    a.finish(g, dx, row, cols, lane);
+  }
+}
+
 // K6b, one block per row, VPT values per thread in registers
 template <typename T, int VPT>
 __global__ void __launch_bounds__(kBlock)
@@ -345,7 +516,53 @@ struct Bwd {
         static_cast<const T*>(x), static_cast<const T*>(dout), gamma, mu,
         rstd, static_cast<T*>(dx), cols);
   }
+  // the vector layout at CH chunks a lane: at most as many blocks as fit
+  // on the card at once, spread so that every warp takes the same number
+  // of rows (give or take one), not a last round of a few warps
+  template <int CH>
+  void vec_rows() const {
+    int dev = 0, sms = 1, per_sm = 1;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, layernorm_bwd_regs_kernel<T, CH>, kBwdWarps * kWarp, 0);
+    const int64_t need = (rows + kBwdWarps - 1) / kBwdWarps;
+    const int64_t fit =
+        (int64_t)(sms > 1 ? sms : 1) * (per_sm > 1 ? per_sm : 1);
+    const int64_t rounds = (need + fit - 1) / fit;
+    const int64_t blocks = (need + rounds - 1) / rounds;
+    layernorm_bwd_regs_kernel<T, CH>
+        <<<(unsigned)blocks, kBwdWarps * kWarp, 0, st>>>(
+            static_cast<const T*>(x), static_cast<const T*>(dout), gamma, mu,
+            rstd, static_cast<T*>(dx), rows, cols);
+  }
+  // whether the vector layout takes these operands: C % VEC == 0 and
+  // every row of x, do, dx and gamma 16-byte aligned
+  bool vec_ok() const {
+    constexpr int VEC = Vec16<T>::N;
+    auto al = [](const void* p) {
+      return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+    };
+    return cols % VEC == 0 && al(x) && al(dout) && al(dx) && al(gamma);
+  }
   void run() const {
+    if (cols <= kWarpMaxCols && vec_ok()) {
+      // CH chunks of 16 bytes a lane: 4 (fp32) or 8 (bf16) values each
+      const int ch = (cols / Vec16<T>::N + kWarp - 1) / kWarp;
+      if (ch <= 1)
+        vec_rows<1>();
+      else if (ch <= 2)
+        vec_rows<2>();
+      else if (ch <= 3)
+        vec_rows<3>();
+      else if (ch <= 4)
+        vec_rows<4>();
+      else if (ch <= 6)
+        vec_rows<6>();
+      else
+        vec_rows<8>();
+      return;
+    }
     if (cols > kBlock * kBlockMaxVpt) {
       layernorm_bwd_wide_kernel<T><<<(unsigned)rows, kBlock, 0, st>>>(
           static_cast<const T*>(x), static_cast<const T*>(dout), gamma, mu,

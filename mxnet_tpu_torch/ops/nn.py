@@ -405,7 +405,11 @@ def _layer_norm(data, gamma, beta, axis=-1, eps=1e-5, output_mean_var=False,
     (``cuda_kernels.layernorm_fwd``: mean, variance of the centred
     values, normalise and affine, stats in fp32) and its backward one K6b
     pass; other axes and the knob at 0 keep the plain reduction chain,
-    differentiated by autograd, as in the JAX package."""
+    differentiated by autograd, as in the JAX package.  A bf16 gamma and
+    beta (a ``cast`` block) reach the kernels upcast to fp32, which is
+    exact, as the Pallas kernel promotes ``x(fp32) * g``; their gradients
+    come back through the cast in bf16, rounded once from the fp32
+    sums."""
     nd = data.dim()
     if (axis % nd == nd - 1 and nd >= 2
             and ck.family_enabled("MXNET_PALLAS_NORM", data.device)):

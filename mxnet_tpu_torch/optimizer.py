@@ -6,7 +6,9 @@ lr/wd multipliers (biases and betas get no weight decay), ``idx2name``
 and per-index update counts; ``SGD`` (with momentum) and ``Adam``;
 ``Updater``, the per-array wrapper a kvstore or ``Module`` applies, whose
 ``get_states``/``set_states`` pickle its states as the JAX package's do
-(the ``.states`` files of ``Module`` and ``gluon.Trainer``); and the
+(the ``.states`` files of ``Module`` and ``gluon.Trainer``; with
+``multi_precision`` an fp16 weight's state is ``(state, fp32 master)``,
+the JAX package's layout); and the
 helpers of the executor's fused step, ``fused_update_kernel``,
 ``fused_lr_wd`` and the slot <-> state conversions.  Updates go through
 ``ops/optimizer_ops.py`` and replace the weight's and the slots' tensors
@@ -44,8 +46,6 @@ class Optimizer:
         self.rescale_grad = rescale_grad
         self.clip_gradient = clip_gradient
         self.wd = wd
-        if multi_precision:
-            raise MXNetError("multi_precision optimizers are not ported yet")
         self.multi_precision = multi_precision
         self.lr_mult = {}
         self.wd_mult = {}
@@ -78,8 +78,28 @@ class Optimizer:
     def create_state(self, index, weight):
         return None
 
+    def create_state_multi_precision(self, index, weight):
+        """With ``multi_precision``, an fp16 weight keeps an fp32 master
+        copy: the state is ``(state of the master, master)`` (reference:
+        optimizer.py:434); any other weight gets ``create_state``."""
+        if self.multi_precision and weight._data.dtype == torch.float16:
+            master = weight.astype("float32")
+            return (self.create_state(index, master), master)
+        return self.create_state(index, weight)
+
     def update(self, index, weight, grad, state):  # pragma: no cover
         raise NotImplementedError()
+
+    def update_multi_precision(self, index, weight, grad, state):
+        """Update an fp16 weight through its fp32 master (the gradient
+        cast to fp32, the weight the master rounded back), any other
+        weight with ``update``."""
+        if self.multi_precision and weight._data.dtype == torch.float16:
+            inner, master = state
+            self.update(index, master, grad.astype("float32"), inner)
+            weight._data = master._data.to(weight._data.dtype)
+        else:
+            self.update(index, weight, grad, state)
 
     def set_lr_mult(self, args_lr_mult):
         self.lr_mult = {}
@@ -216,13 +236,15 @@ class Updater:
 
     def __call__(self, index, grad, weight):
         if index not in self.states:
-            self.states[index] = self.optimizer.create_state(index, weight)
+            self.states[index] = self.optimizer.create_state_multi_precision(
+                index, weight)
             self.states_synced[index] = True
         elif not self.states_synced[index]:
             self.states[index] = _state_to(self.states[index],
                                            weight._data.device)
             self.states_synced[index] = True
-        self.optimizer.update(index, weight, grad, self.states[index])
+        self.optimizer.update_multi_precision(index, weight, grad,
+                                              self.states[index])
 
     def set_states(self, states):
         """Take the states (and, if pickled with them, the optimizer) from

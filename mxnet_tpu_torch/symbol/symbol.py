@@ -458,13 +458,18 @@ class Symbol:
         return self.bind(ctx, kwargs).forward()
 
     def simple_bind(self, ctx=None, grad_req="null", type_dict=None,
-                    **kwargs):
+                    compute_dtype=None, cast_exclude=(), **kwargs):
         """Allocate every argument, aux state and (for a ``grad_req`` of
         write or add: a string, a list in argument order or a dict) the
         gradient buffers from the inferred shapes, and bind (reference:
-        symbol.py:1284).  ``ctx`` defaults to ``gpu(0)``."""
+        symbol.py:1284).  ``ctx`` defaults to ``gpu(0)``.
+
+        ``compute_dtype="bfloat16"`` turns on the executor's
+        mixed-precision policy (fp32 masters, bf16 compute); the names in
+        ``cast_exclude`` (labels) stay fp32."""
         from ..executor import Executor
-        return Executor._simple_bind(self, ctx, grad_req, type_dict, kwargs)
+        return Executor._simple_bind(self, ctx, grad_req, type_dict, kwargs,
+                                     compute_dtype, cast_exclude)
 
     # -- serialization ------------------------------------------------------
     def tojson(self):

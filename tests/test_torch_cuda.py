@@ -496,9 +496,10 @@ def _bf16_bwd_close(got, ref):
 
 # fp32: the kernel's two row means run in another order than torch's, so
 # dx agrees within 1e-5 of its largest magnitude; (8192, 768) is one
-# LayerNorm of the GPT-2-small training step; C 37, 768, 1000 and
-# 1024 take the warp-per-row layout, 1025-8192 the block-per-row one, 9000
-# and 10000 the striding one
+# LayerNorm of the GPT-2-small training step; C 768, 1000 and 1024 take
+# the vector layout (persistent warps, 16-byte loads), C 1 and 37 the
+# scalar warp-per-row one, 1025-8192 the block-per-row one, 9000 and 10000
+# the striding one
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(8192, 768), (3, 5, 37), (17, 1000),
                                    (2, 1), (9, 1024), (5, 1025),
@@ -522,6 +523,22 @@ def test_k6b_kernel_matches_plain(cuda, shape, dtype):
         assert _rel_err(dx, ref) <= 1e-5
     else:
         assert _bf16_bwd_close(dx, ref)
+
+
+@pytest.mark.parametrize("case", range(len(chip_smoke.K6B_EDGE)))
+def test_k6b_kernel_at_its_layout_edges(cuda, case):
+    """K6b at ``chip_smoke.K6B_EDGE``: the vector layout's instances and
+    one chunk past each, the scalar and block layouts, operands off their
+    16-byte alignment and row counts that are no multiple of the
+    persistent grid; fp32 within 1e-5 of the largest |dx|, bf16 within
+    one rounding (``chip_smoke.k6b_close``)."""
+    shape, dtype, off = chip_smoke.K6B_EDGE[case]
+    x, do, g, mu, rstd = chip_smoke.k6b_operands(cuda, shape, dtype, 62, off)
+    dx = ck.layernorm_bwd(x, do, g, mu, rstd)
+    ok, err = chip_smoke.k6b_close(dx, ck.layernorm_bwd_ref(x, do, g, mu,
+                                                            rstd))
+    torch.cuda.synchronize()
+    assert ok, (shape, dtype, off, err)
 
 
 def _flash_bwd_case(bh, tq, tk, d, causal, dtype, device, seed=61):

@@ -458,13 +458,36 @@ def test_chip_smoke_flash_backward_bounds(n_out, n_prod, tensor_ms,
     slice, over the H100's dense TF32 rate three times (3xTF32) and over
     its fp32 CUDA-core rate; both bound by operations, not bytes."""
     import chip_smoke
-    bw, fp32, tf32 = chip_smoke.card_rates("NVIDIA H100 80GB HBM3")
+    bw, fp32, tf32, _ = chip_smoke.card_rates("NVIDIA H100 80GB HBM3")
     assert (bw, fp32, tf32) == (3.35e12, 67e12, 494.5e12)
     ops, (cms, cby), (tms, tby) = chip_smoke.flash_bwd_bound(
         96, 1024, 1024, 64, True, n_out, n_prod, bw, fp32, tf32)
     assert ops == 2 * 64 * n_prod * 96 * 524800
     assert cby == tby == "operations"
     assert abs(tms - tensor_ms) < 1e-5 and abs(cms - cuda_core_ms) < 1e-5
+
+
+@pytest.mark.parametrize("kernel,bound_ms,by", [
+    ("K7a", 0.015142, "bytes"), ("K7b", 0.019552, "operations"),
+    ("K7c", 0.026069, "operations")])
+def test_chip_smoke_flash_bf16_bounds(kernel, bound_ms, by):
+    """The bf16 instances at the training step's (96, 1024, 64) causal
+    shape are bound at the H100's dense bf16 tensor-core rate (989.5
+    TFLOP/s), whatever units the kernels compute on: K7a's 4 D operations
+    a visible pair fall below its 50.7 MB of 2-byte q, k, v, o (and fp32
+    lse) at 3.35 TB/s; K7b's 3 and K7c's 4 products of 2 D a pair stay
+    above their bytes."""
+    import chip_smoke
+    bw, _, _, bf16 = chip_smoke.card_rates("NVIDIA H100 80GB HBM3")
+    assert bf16 == 989.5e12
+    if kernel == "K7a":
+        got = chip_smoke.flash_bound(96, 1024, 1024, 64, True, 2, bw, bf16)
+    else:
+        n_out, n_prod = (1, 3) if kernel == "K7b" else (2, 4)
+        got = chip_smoke.bound_ms(
+            chip_smoke.flash_bwd_bytes(96, 1024, 1024, 64, n_out, 2),
+            2 * 64 * n_prod * 96 * 524800, bw, bf16)
+    assert got[1] == by and abs(got[0] - bound_ms) < 1e-6, got
 
 
 @pytest.mark.parametrize("causal", [True, False])

@@ -1,21 +1,32 @@
 #!/usr/bin/env python3
-"""Time textual variants of ``softmax.cu``'s K5a and K5b against the source
-as it stands, on one NVIDIA GPU::
+"""Time textual variants of a kernel source against the source as it
+stands, on one NVIDIA GPU::
 
-    python3 time_variants.py
+    python3 time_variants.py              # softmax.cu: K5a, K5b (and K2)
+    python3 time_variants.py layernorm    # layernorm.cu: K6b
 
-Each variant is ``mxnet_tpu_torch/ops/csrc/softmax.cu`` with a few lines
+Each variant is ``mxnet_tpu_torch/ops/csrc/<source>.cu`` with a few lines
 replaced, compiled with the flags of ``ops/_build.py`` into
 ``mxnet_tpu_torch/_build/variants/`` (one ``nvcc`` each, all at once) and
 called through ``ctypes`` at the C entry points the wrappers call.  Every
-variant is first held to the plain versions (K5a and K2 on the same x
-within 1e-6, K5b within 1e-5 of the largest |dx|), then timed by CUDA
-events (``chip_smoke.time_ms``: the mean of 20 back-to-back launches,
-median of 5) at the transformer's (96, 1020, 1020) fp32 shape with the
-causal bias, in turns: the source as it stands, each variant, the source
-again, beside ``torch.softmax(x + bias)``, ``torch._softmax_backward_data``
-and ``torch.softmax(x)``.  Prints the compiler's register count of the
-main-path instances and the card's name and power limit.
+variant is first held to the plain versions, then timed by CUDA events
+(``chip_smoke.time_ms``: the mean of 20 back-to-back launches, median of
+5) in turns: the source as it stands, each variant, the source again.
+
+``softmax.cu``: K5a and K2 on the same x within 1e-6, K5b within 1e-5 of
+the largest |dx|, timed at the transformer's (96, 1020, 1020) fp32 shape
+with the causal bias, beside ``torch.softmax(x + bias)``,
+``torch._softmax_backward_data`` and ``torch.softmax(x)``.
+
+``layernorm.cu``: K6b within 1e-5 of the largest |dx| (fp32) and one
+rounding (bf16) at ``chip_smoke.K6B_EDGE`` and at the training step's
+(8192, 768), timed there in fp32 and bf16, each run beside aten's
+dx-only ``native_layer_norm_backward`` on the same operands: back to back
+(the L2 cache keeps what fits of the last launch's operands) and each
+launch after the L2 cache is overwritten (``chip_smoke.time_cold_ms``).
+
+Prints the compiler's register count of the main-path instances and the
+card's name and power limit.
 """
 import ctypes
 import os
@@ -28,7 +39,7 @@ import torch
 import chip_smoke
 
 # name -> [(text of softmax.cu, its replacement)]
-VARIANTS = {
+SOFTMAX_VARIANTS = {
     "K5a: x and y without streaming hints": [
         ("load_row<T, N, VEC, TH, true>(", "load_row<T, N, VEC, TH>("),
         ("softmax_regs_finish<T, N, VEC, W, true>(",
@@ -41,19 +52,40 @@ VARIANTS = {
          "constexpr int kRowsPerBlock = 8;")],
 }
 # the main path's instances, by their mangled names
-MAIN = ("bias_softmax_regs_kernelIfLi32ELi4ELi1E",
-        "softmax_bwd_regs_kernelIfLi32ELi4E")
+SOFTMAX_MAIN = ("bias_softmax_regs_kernelIfLi32ELi4ELi1E",
+                "softmax_bwd_regs_kernelIfLi32ELi4E")
+# name -> [(text of layernorm.cu, its replacement)]
+LAYERNORM_VARIANTS = {
+    "K6b: the grid as wide as fits (a last round of a few warps)": [
+        ("    const int64_t blocks = (need + rounds - 1) / rounds;",
+         "    const int64_t blocks = need < fit ? need : fit;")],
+    "K6b: eight warps a block": [
+        ("constexpr int kBwdWarps = 4;", "constexpr int kBwdWarps = 8;")],
+    "K6b: x and do read as streaming in bf16 too": [
+        ("constexpr bool kStreamIn = sizeof(T) == 4;",
+         "constexpr bool kStreamIn = true;")],
+    "K6b: x and do read without streaming hints in fp32 too": [
+        ("constexpr bool kStreamIn = sizeof(T) == 4;",
+         "constexpr bool kStreamIn = false;")],
+    "K6b: dx written without streaming hints": [
+        ("__stcs(reinterpret_cast<uint4*>(p), raw);",
+         "*reinterpret_cast<uint4*>(p) = raw;")],
+}
+# K6b's main-path instances: fp32 at C 768 (6 chunks), bf16 (3 chunks)
+LAYERNORM_MAIN = ("layernorm_bwd_regs_kernelIfLi6E",
+                  "layernorm_bwd_regs_kernelI13__nv_bfloat16Li3E")
 
 
-def compile_all(texts, out_dir):
-    """Compile each of ``texts`` as ``softmax_v<k>.cu``, one ``nvcc`` each,
-    all started together; returns ``[(loaded library, ptxas register
-    lines of the main-path instances)]``."""
+def compile_all(source, texts, out_dir, main, argtypes):
+    """Compile each of ``texts`` as ``<source>_v<k>.cu``, one ``nvcc``
+    each, all started together; returns ``[(loaded library, ptxas
+    register lines of the instances named in main)]``, with ``argtypes``
+    ({C function: argtypes}) set on each library."""
     from mxnet_tpu_torch.ops import _build
     procs = []
     for k, text in enumerate(texts):
-        src = os.path.join(out_dir, "softmax_v%d.cu" % k)
-        so = os.path.join(out_dir, "libsoftmax_v%d.so" % k)
+        src = os.path.join(out_dir, "%s_v%d.cu" % (source, k))
+        so = os.path.join(out_dir, "lib%s_v%d.so" % (source, k))
         with open(src, "w") as f:
             f.write(text)
         procs.append((so, subprocess.Popen(
@@ -70,18 +102,45 @@ def compile_all(texts, out_dir):
             m = re.search(r"entry function '(\w+)'", line)
             if m:
                 entry = m.group(1)
-            elif "Used" in line and entry and any(k in entry for k in MAIN):
-                regs.append("%s: %s" % (next(k for k in MAIN if k in entry),
+            elif "Used" in line and entry and any(k in entry for k in main):
+                regs.append("%s: %s" % (next(k for k in main if k in entry),
                                         line.split(":", 1)[1].strip()))
         lib = ctypes.CDLL(so)
-        lib.mxtt_bias_softmax.argtypes = [ctypes.c_void_p] * 3 + [
-            ctypes.c_int64] * 3 + [ctypes.c_int, ctypes.c_void_p]
-        lib.mxtt_softmax_bwd.argtypes = [ctypes.c_void_p] * 3 + [
-            ctypes.c_int64] * 2 + [ctypes.c_int, ctypes.c_void_p]
-        lib.mxtt_softmax_lastaxis.argtypes = [ctypes.c_void_p] * 2 + [
-            ctypes.c_int64] * 2 + [ctypes.c_int, ctypes.c_void_p]
+        for fn, types in argtypes.items():
+            getattr(lib, fn).argtypes = types
         out.append((lib, regs))
     return out
+
+
+SOFTMAX_ARGTYPES = {
+    "mxtt_bias_softmax": [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3
+    + [ctypes.c_int, ctypes.c_void_p],
+    "mxtt_softmax_bwd": [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 2
+    + [ctypes.c_int, ctypes.c_void_p],
+    "mxtt_softmax_lastaxis": [ctypes.c_void_p] * 2 + [ctypes.c_int64] * 2
+    + [ctypes.c_int, ctypes.c_void_p]}
+LAYERNORM_ARGTYPES = {
+    "mxtt_layernorm_bwd": [ctypes.c_void_p] * 6 + [
+        ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]}
+
+
+def variant_texts(source, variants):
+    """[(name, text)]: the source as it stands, each variant, and the
+    source again; a variant's text must be found in the source."""
+    from mxnet_tpu_torch.ops import _build
+    with open(os.path.join(_build.CSRC, source + ".cu")) as f:
+        text0 = f.read()
+    runs = [("as it stands", text0)]
+    for name, edits in variants.items():
+        text = text0
+        for old, new in edits:
+            if old not in text:
+                raise AssertionError("variant %r: %r not in %s.cu"
+                                     % (name, old, source))
+            text = text.replace(old, new)
+        runs.append((name, text))
+    runs.append(("as it stands, again", text0))
+    return runs
 
 
 def entry_points(lib, x, bias, p, do):
@@ -117,18 +176,15 @@ def entry_points(lib, x, bias, p, do):
     return k5a, k5b, k2
 
 
-def main():
-    if not torch.cuda.is_available():
-        print("time_variants: needs an NVIDIA GPU", file=sys.stderr)
-        return 1
-    from mxnet_tpu_torch.ops import _build
-    from mxnet_tpu_torch.ops import cuda_kernels as ck
-    smi = subprocess.run(
+def card_name():
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    dev = torch.device("cuda", 0)
-    bw, flops, _ = chip_smoke.card_rates(torch.cuda.get_device_name(0))
+
+
+def softmax_main(smi, dev, bw, flops, out_dir):
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
     bh, t = chip_smoke.LM_BATCH * chip_smoke.GPT2_SMALL["num_heads"], \
         chip_smoke.LM_T[1]
     gen = torch.Generator(device=dev).manual_seed(chip_smoke.SEED)
@@ -138,23 +194,8 @@ def main():
     do = torch.randn((bh, t, t), generator=gen, device=dev)
     ref_y, ref_dx = p, ck.softmax_bwd_ref(p, do)
     ref_k2 = ck.softmax_lastaxis_ref(x)
+    runs = variant_texts("softmax", SOFTMAX_VARIANTS)
 
-    out_dir = os.path.join(_build.BUILD_DIR, "variants")
-    os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(_build.CSRC, "softmax.cu")) as f:
-        source = f.read()
-    runs = [("as it stands", source)]
-    for name, edits in VARIANTS.items():
-        text = source
-        for old, new in edits:
-            if old not in text:
-                raise AssertionError("variant %r: %r not in softmax.cu"
-                                     % (name, old))
-            text = text.replace(old, new)
-        runs.append((name, text))
-    runs.append(("as it stands, again", source))
-
-    print("card: %s" % smi, flush=True)
     bound_a = chip_smoke.bound_ms(2 * x.numel() * 4 + bias.numel() * 4,
                                   5 * x.numel(), bw, flops)[0]
     bound_b = chip_smoke.bound_ms(3 * p.numel() * 4, 4 * p.numel(), bw,
@@ -168,7 +209,8 @@ def main():
               bh, t, t, bound_a, bound_b, lib_a, lib_b,
               chip_smoke.time_ms(lambda: torch.softmax(x, -1))), flush=True)
     # the source as it stands is built once and timed first and last
-    libs = compile_all([text for _, text in runs[:-1]], out_dir)
+    libs = compile_all("softmax", [text for _, text in runs[:-1]], out_dir,
+                       SOFTMAX_MAIN, SOFTMAX_ARGTYPES)
     for (name, _), (lib, regs) in zip(runs, libs + libs[:1]):
         k5a, k5b, k2 = entry_points(lib, x, bias, p, do)
         err_a = (k5a() - ref_y).abs().max().item()
@@ -182,6 +224,84 @@ def main():
               " K2 on x %.4f ms; %s" % (
                   name, ms_a, 100 * bound_a / ms_a, ms_b, 100 * bound_b / ms_b,
                   chip_smoke.time_ms(k2), "; ".join(regs)), flush=True)
+
+
+def layernorm_bwd_call(lib, x, do, g, mu, rstd):
+    """K6b of ``lib`` on these operands as a call on the current stream."""
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+    c = x.shape[-1]
+
+    def k6b():
+        dx = torch.empty_like(x)
+        rc = lib.mxtt_layernorm_bwd(
+            x.data_ptr(), do.data_ptr(), g.data_ptr(), mu.data_ptr(),
+            rstd.data_ptr(), dx.data_ptr(), x.numel() // c, c,
+            ck._DTYPE_CODE[x.dtype], torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError("K6b launch failed: %d" % rc)
+        return dx
+    return k6b
+
+
+def layernorm_main(smi, dev, bw, flops, out_dir):
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+    runs = variant_texts("layernorm", LAYERNORM_VARIANTS)
+    libs = compile_all("layernorm", [text for _, text in runs[:-1]], out_dir,
+                       LAYERNORM_MAIN, LAYERNORM_ARGTYPES)
+    rows, cols = chip_smoke.LM_BATCH * chip_smoke.LM_T[0], \
+        chip_smoke.GPT2_SMALL["units"]
+    main = {}
+    for dt in (torch.float32, torch.bfloat16):
+        ops = chip_smoke.k6b_operands(dev, (rows, cols), dt, chip_smoke.SEED)
+        x, do, g, mu, rstd = ops
+        lib_fn = chip_smoke.aten_layernorm_dx(x, do, g)
+        nbytes = 3 * x.numel() * x.element_size() + cols * 4 + 2 * rows * 4
+        main[dt] = (ops, lib_fn,
+                    chip_smoke.bound_ms(nbytes, 10 * x.numel(), bw, flops)[0])
+        print("(%d, %d) %s: bound (bytes) %.5f ms" % (
+            rows, cols, str(dt)[6:], main[dt][2]), flush=True)
+    for (name, _), (lib, regs) in zip(runs, libs + libs[:1]):
+        for shape, dt, off in chip_smoke.K6B_EDGE:
+            x, do, g, mu, rstd = chip_smoke.k6b_operands(
+                dev, shape, dt, chip_smoke.SEED + 11, off)
+            dx = layernorm_bwd_call(lib, x, do, g, mu, rstd)()
+            ok, err = chip_smoke.k6b_close(dx, ck.layernorm_bwd_ref(
+                x, do, g, mu, rstd))
+            if not ok:
+                raise AssertionError("%s: K6b at %s %s offset %d: %g of the "
+                                     "largest" % (name, shape, dt, off, err))
+        line = []
+        for dt, ((x, do, g, mu, rstd), lib_fn, bms) in main.items():
+            k6b = layernorm_bwd_call(lib, x, do, g, mu, rstd)
+            ms, lib_ms = chip_smoke.time_ms(k6b), chip_smoke.time_ms(lib_fn)
+            cold = chip_smoke.time_cold_ms(k6b, dev)
+            lib_cold = chip_smoke.time_cold_ms(lib_fn, dev)
+            line.append("%s %.5f ms (%.0f%% of its bound), aten %.5f ms; "
+                        "L2 flushed: %.5f ms (%.0f%%), aten %.5f ms" % (
+                            str(dt)[6:], ms, 100 * bms / ms, lib_ms, cold,
+                            100 * bms / cold, lib_cold))
+        print("%-44s K6b %s; %s" % (name, "; ".join(line), "; ".join(regs)),
+              flush=True)
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("time_variants: needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    from mxnet_tpu_torch.ops import _build
+    source = sys.argv[1] if len(sys.argv) > 1 else "softmax"
+    runner = {"softmax": softmax_main, "layernorm": layernorm_main}.get(source)
+    if runner is None:
+        print("time_variants: the source is softmax or layernorm, not %r"
+              % source, file=sys.stderr)
+        return 2
+    smi = card_name()
+    dev = torch.device("cuda", 0)
+    bw, flops, *_ = chip_smoke.card_rates(torch.cuda.get_device_name(0))
+    out_dir = os.path.join(_build.BUILD_DIR, "variants")
+    os.makedirs(out_dir, exist_ok=True)
+    print("card: %s" % smi, flush=True)
+    runner(smi, dev, bw, flops, out_dir)
     print("card: %s" % smi)
     return 0
 
