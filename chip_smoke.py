@@ -11,6 +11,9 @@ Phases, each of which raises on failure:
 1. device: the card's name and power limit, and the TF32 settings;
 2. build: the hand-written CUDA kernels, compiled from
    ``mxnet_tpu_torch/ops/csrc`` (one ``nvcc`` per source, all at once);
+   then ``cuobjdump -sass`` of the flash library counts the bf16
+   tensor-core instructions (``HMMA.16816.F32.BF16``) of the bf16 D-64
+   instances of K7a and K7c, which must not be 0;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes a batch-32 ResNet-50 forward gives it.  K3 (BatchNorm->ReLU
    epilogue) must be bitwise equal at all 33 fused sites, fp32 and bf16,
@@ -55,8 +58,9 @@ Phases, each of which raises on failure:
    GPT-2-small-width ``TransformerLM`` forward at batch 8 gives them: K6a
    (LayerNorm) at (8192, 768) and at C = 37 and 1000, K7a (flash
    attention) at (96, 1024, 64) causal and full, at T 8/64/1024 x D
-   32/64/128, at the edges of its tiles (T 1/127/129/1000 x D 64/128) and
-   at D 8-512 (D 320 and 512 in chunks of 64 columns),
+   32/64/128, at the edges of its tiles (T 1/127/129/1000 x D 64/128),
+   at Tq != Tk and at D 8-512 (D 320 and 512 in chunks of 64 columns),
+   each in fp32 and in bf16,
    K5a (bias softmax) at (96, 1020, 1020) with the causal bias and without
    a mask; fp32 and bf16; each timed beside its plain version, its bound
    and one PyTorch call, K7a also full, in bf16 and at (48, 1024, 128),
@@ -179,7 +183,9 @@ Prints one JSON line ``{"checkpoints": {...}}`` with phase 13's numbers,
 [...]}`` (all twelve kernels; K3, K2 and K1b with their
 ``launches_inception``, K1b, K2, K3, K6a, K6b, K7a, K7b and K7c with
 their ``launches_mixed``, K3, K6a, K7b and K7c with their ``bf16``
-times, K6b's fp32 and bf16 repeats beside aten's), the serving, training
+times, K7a and K7c with the ``HMMA.16816.F32.BF16`` count of their bf16
+D-64 instances (``hmma_bf16_dp64``), K6b's fp32 and bf16 repeats beside
+aten's), the serving, training
 and transformer numbers beside the card's name and power limit, and as
 its last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
@@ -1135,6 +1141,60 @@ def calibrate_fc(mx, sym, args, auxs, ctx, x):
 
 
 # ---------------------------------------------------------------------------
+# phase 2 (b): the bf16 instances of K7a and K7c on the tensor cores
+# ---------------------------------------------------------------------------
+# the bf16 tensor-core instruction of mma.sync m16n8k16 bf16 -> fp32, and
+# the mangled names of the bf16 D-64 instances that must hold it
+HMMA_BF16 = "HMMA.16816.F32.BF16"
+HMMA_KERNELS = (("K7a", "flash_fwd_bf16_kernelILi64E"),
+                ("K7c", "flash_bwd_dkv_bf16_kernelILi64E"))
+
+
+def sass_counts(library, opcode, cuobjdump):
+    """``{mangled function name: lines of its SASS that hold
+    ``opcode``}`` of a built shared library, by ``cuobjdump -sass``."""
+    out = subprocess.run([cuobjdump, "-sass", library], capture_output=True,
+                         text=True, timeout=300, check=True).stdout
+    counts, name = {}, None
+    for line in out.splitlines():
+        head = line.strip()
+        if head.startswith("Function :"):
+            name = head.split(":", 1)[1].strip()
+            counts[name] = 0
+        elif name is not None and opcode in line:
+            counts[name] += 1
+    return counts
+
+
+def hmma_counts(build):
+    """The ``HMMA.16816.F32.BF16`` count of each function in
+    ``HMMA_KERNELS`` in the built flash library (``build`` is the
+    package's ``ops._build``); raises if ``cuobjdump`` is missing, a
+    function is not in the library, or a count is 0."""
+    import shutil
+    nvcc_dir = os.path.dirname(build.nvcc_path())
+    cuobjdump = shutil.which("cuobjdump") or os.path.join(nvcc_dir,
+                                                          "cuobjdump")
+    if not os.path.exists(cuobjdump):
+        raise AssertionError("cuobjdump not found (PATH, %s): the CUDA "
+                             "toolkit's SASS dump shows the tensor cores run"
+                             % nvcc_dir)
+    counts = sass_counts(os.path.join(build.BUILD_DIR,
+                                      "libmxtt_flash_attention.so"),
+                         HMMA_BF16, cuobjdump)
+    out = {}
+    for knum, frag in HMMA_KERNELS:
+        names = [n for n in counts if frag in n]
+        if len(names) != 1 or counts[names[0]] <= 0:
+            raise AssertionError(
+                "%s's bf16 D-64 instance: functions %s, %s counts %s (must "
+                "be one function with a count above 0)" % (
+                    knum, names, HMMA_BF16, [counts[n] for n in names]))
+        out[knum] = {"function": names[0], "count": counts[names[0]]}
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 def _bf16_close(got, ref, atol):
@@ -1403,9 +1463,15 @@ def serve(mx, ck, ctx, sym, image, n_sites, max_batch=BATCH,
 SOFTMAX_KINDS = (("K5b", ("::softmax_bwd_",)), ("K5a", ("::bias_softmax_",)),
                  ("K2", ("::softmax_regs_", "::softmax_rows_")))
 
+# flash_attention.cu's kernels by name: K7a's flash_fwd_kernel and
+# flash_fwd_bf16_kernel, K7b's flash_bwd_dq_kernel, K7c's
+# flash_bwd_dkv_kernel and flash_bwd_dkv_bf16_kernel
+FLASH_KINDS = (("K7a", ("flash_fwd",)), ("K7b", ("flash_bwd_dq",)),
+               ("K7c", ("flash_bwd_dkv",)))
+
 # kinds of kernel in a profile, by fragments of the kernel's name; the
 # first kind that matches wins
-KINDS = (("K3", ("scale_bias_relu",)),) + SOFTMAX_KINDS + (
+KINDS = (("K3", ("scale_bias_relu",)),) + SOFTMAX_KINDS + FLASH_KINDS + (
     ("K1a/K1b/K4 sweep", ("sweep_kernel",)),
     ("convolution", ("xmma", "conv", "implicit", "gemm", "cudnn", "wgrad",
                      "dgrad", "nvjet")),
@@ -1806,41 +1872,50 @@ def bf16_attention_close(o, ro, terms, atol):
     return bool(((o - ro).abs() <= (mag + terms) * 2.0 ** -7 + atol).all())
 
 
+def k7a_key_tile(d):
+    """The keys a step of K7a's instance for head dim ``d`` in bf16 (the
+    kernel's ``FwdBf16Tile``; above 256 the WIDE instance's 64)."""
+    return 32 if 128 < d <= 256 else 64
+
+
 def check_k7a(ck, dev, bw, flops, bf16,
               bh=LM_BATCH * GPT2_SMALL["num_heads"], t=LM_T[0],
               d=GPT2_SMALL["units"] // GPT2_SMALL["num_heads"]):
     """K7a against its plain version at the transformer's shape, causal
     and full, at T 8/64/1024 x D 32/64/128, at the edges of its tiles (T
-    1, 127, 129 and 1000 at D 64 and 128), and at other head dims at T
-    200: the other multiples of 16 up to 128, the padded widths 8, 72,
-    200 and 256, and D 320 and 512 (chunks of 64 columns): fp32 o and
-    lse within 1e-5 (the kernel sums 32- or 64-key tiles with online
-    rescaling, the plain version one product over up to 1024 keys).  bf16
-    o, where both round p to bf16 before ``p v``: at T 64 (one key tile,
-    so the same p rounded) within one rounding of its magnitude plus one
-    step of its largest term ``w_j |v_j|`` (an exp that differs in its
-    last bit puts one p on the other side of a step); at the
-    transformer's shape, where the kernel rounds p at its running max,
-    plus one step of the sum of its terms.  Returns its record and its
+    1, 127, 129 and 1000 at D 64 and 128), at Tq != Tk (40 and 72 both
+    ways at D 64, 90 queries and 130 keys at D 128 and 320), and at other
+    head dims at T 200: the other multiples of 16 up to 128, the padded
+    widths 8, 72, 200 and 256, and D 320 and 512 (chunks of 64 columns),
+    each case in fp32 and in bf16: fp32 o and lse within 1e-5 (the kernel
+    sums 32- or 64-key tiles with online rescaling, the plain version one
+    product over up to 1024 keys); bf16 lse within 1e-5 too, and o, where
+    both round p to bf16 before ``p v``: where the keys fit in one of the
+    instance's key tiles (``k7a_key_tile``; the same p rounded) within
+    one rounding of its magnitude plus one step of its largest term ``w_j
+    |v_j|`` (an exp that differs in its last bit puts one p on the other
+    side of a step); beyond, where the kernel rounds p at its running
+    max, plus one step of the sum of its terms.  Returns its record and its
     timing jobs: causal fp32 at the transformer's shape, and, counted 0
     times, the same shape full and in bf16, and (bh / 2, t, 2 d) causal,
     the widest instance with 64-row tiles; fp32 jobs bound at the fp32
     rate ``flops``, bf16 ones at the bf16 tensor-core rate ``bf16``."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     worst = 0.0
-    cases = [(bh, t, d, c, torch.float32) for c in (True, False)]
-    cases += [(4, tt, dd, c, torch.float32) for tt in (8, 64, 1024)
-              for dd in (32, 64, 128) for c in (True, False)]
-    cases += [(4, tt, dd, c, torch.float32) for tt in (1, 127, 129, 1000)
-              for dd in (64, 128) for c in (True, False)]
-    cases += [(4, 200, dd, c, torch.float32)
-              for dd in (16, 48, 80, 96, 112, 8, 72, 200, 256, 320, 512)
-              for c in (True, False)]
-    cases += [(bh, t, d, True, torch.bfloat16)]
-    cases += [(8, 64, d, c, torch.bfloat16) for c in (True, False)]
-    for b_, t_, d_, causal, dt in cases:
-        q, k, v = (torch.randn((b_, t_, d_), generator=gen, device=dev)
-                   .to(dt) for _ in range(3))
+    shapes = [(bh, t, t, d)]
+    shapes += [(4, tt, tt, dd) for tt in (8, 64, 1024) for dd in (32, 64, 128)]
+    shapes += [(4, tt, tt, dd) for tt in (1, 127, 129, 1000)
+               for dd in (64, 128)]
+    shapes += [(4, 40, 72, 64), (4, 72, 40, 64), (4, 90, 130, 128),
+               (4, 90, 130, 320)]
+    shapes += [(4, 200, 200, dd)
+               for dd in (16, 48, 80, 96, 112, 8, 72, 200, 256, 320, 512)]
+    cases = [shape + (c, dt) for dt in (torch.float32, torch.bfloat16)
+             for shape in shapes for c in (True, False)]
+    for b_, tq, tk, d_, causal, dt in cases:
+        q = torch.randn((b_, tq, d_), generator=gen, device=dev).to(dt)
+        k, v = (torch.randn((b_, tk, d_), generator=gen, device=dev).to(dt)
+                for _ in range(2))
         o, lse = ck.flash_attention_fwd(q, k, v, causal)
         ro, rlse = ck.flash_attention_fwd_ref(q, k, v, causal)
         torch.cuda.synchronize()
@@ -1850,12 +1925,13 @@ def check_k7a(ck, dev, bw, flops, bf16,
             close = err <= 1e-5
         else:
             close = bf16_attention_close(o, ro, attention_terms(
-                q, k, v, causal, largest=t_ <= 64), 1e-6)
+                q, k, v, causal, largest=tk <= k7a_key_tile(d_)), 1e-6)
         ok = (o.dtype == dt and bool(torch.isfinite(o).all()) and lerr <= 1e-5
               and close)
         if not ok:
             raise AssertionError("K7a at %s causal=%s %s: max |d| o %g, lse "
-                                 "%g" % ((b_, t_, d_), causal, dt, err, lerr))
+                                 "%g" % ((b_, tq, tk, d_), causal, dt, err,
+                                         lerr))
         if dt == torch.float32:
             worst = max(worst, err, lerr)
     heads = GPT2_SMALL["num_heads"]
@@ -2157,29 +2233,31 @@ def check_k7bc(ck, dev, bw, flops, tf32,
     """K7b and K7c against their plain versions at the training step's
     shape, causal and full, at ragged T (7, 15, 17, 63, 65, 1020, the
     edges of the 16-row warp tiles and 64-row block tiles; at T 1 dv must
-    equal do and dq, dk be 0 within 1e-5 of the largest |dv|), at Tq !=
-    Tk, at every instance width (D 32 to 256 by 32) and the padded widths
-    8, 72 and 200, and at D 320 and 512 (chunks of 64 columns): dq, dk
-    and dv within 1e-5 of their largest magnitude in fp32 (the kernels sum
-    3xTF32 products over tiles, the plain version one fp32 product),
-    within one rounding in bf16.  Returns their two records and timing
+    equal do and dq, dk be 0 within 1e-5 of the largest |dv|, in fp32),
+    at Tq != Tk, at every instance width (D 32 to 256 by 32) and the
+    padded widths 8, 72, 150 and 200, and at D 320 and 512 (chunks of 64
+    columns), each case in fp32 and in bf16 (K7b's bf16 instance reads
+    the lse of K7a's): dq, dk and dv within 1e-5 of their largest
+    magnitude in fp32 (the kernels sum 3xTF32 products over tiles, the
+    plain version one fp32 product), within one rounding in bf16
+    (``_bf16_bwd_close``).  Returns their two records and timing
     jobs, causal fp32; the library call, the backward of
     ``scaled_dot_product_attention(is_causal=True)``, computes dq, dk and
     dv together.  ``bound_ms`` is the 3xTF32 tensor-core bound the
     kernels are designed to; ``bound_cuda_cores_ms`` the fp32 one."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 8)
     worst = {"dq": 0.0, "dkv": 0.0}
-    cases = [(bh, t, t, d, c, torch.float32) for c in (True, False)]
-    cases += [(4, tt, tt, 64, c, torch.float32)
+    cases = [(bh, t, t, d, c) for c in (True, False)]
+    cases += [(4, tt, tt, 64, c)
               for tt in (7, 15, 17, 63, 65, 1020) for c in (True, False)]
-    cases += [(4, 40, 72, 64, c, torch.float32) for c in (True, False)]
-    cases += [(4, 72, 40, 64, c, torch.float32) for c in (True, False)]
-    cases += [(4, 200, 200, dd, c, torch.float32)
-              for dd in (8, 32, 72, 96, 128, 160, 192, 200, 224, 256, 320,
-                         512) for c in (True, False)]
-    cases += [(4, 90, 130, 320, False, torch.float32)]
-    cases += [(bh, t, t, d, True, torch.bfloat16),
-              (4, 200, 200, 320, True, torch.bfloat16)]
+    cases += [(4, 40, 72, 64, c) for c in (True, False)]
+    cases += [(4, 72, 40, 64, c) for c in (True, False)]
+    cases += [(4, 200, 200, dd, c)
+              for dd in (8, 16, 32, 48, 72, 96, 128, 150, 160, 192, 200, 224,
+                         256, 320, 512) for c in (True, False)]
+    cases += [(4, 90, 130, 128, False), (4, 90, 130, 320, False)]
+    cases = [case + (dt,) for dt in (torch.float32, torch.bfloat16)
+             for case in cases]
     for b_, tq, tk, d_, causal, dt in cases:
         args = flash_bwd_operands(ck, gen, b_, tq, tk, d_, causal, dt, dev)
         dq = ck.flash_attention_bwd_dq(*args, causal)
@@ -2424,8 +2502,8 @@ def lm_forward(ck, lm, tokens, reps=3):
 
 
 # kinds of kernel in a transformer forward's profile; the first match wins
-LM_KINDS = (("K6a", ("layernorm_fwd",)), ("K7a", ("flash_fwd",))) \
-    + SOFTMAX_KINDS + (
+LM_KINDS = (("K6a", ("layernorm_fwd",)),) + FLASH_KINDS + SOFTMAX_KINDS \
+    + (
     ("GEMM", ("gemm", "xmma", "cutlass", "cublas", "nvjet")),
     ("embedding", ("indexSelect", "index_select", "embedding", "gather")),
     ("copy", ("Memcpy", "copy")),
@@ -2609,9 +2687,8 @@ def lm_train(mx, ck, lm, x, y, warmup=LM_TRAIN_WARMUP, steps=LM_TRAIN_STEPS):
 # kinds of kernel in a transformer training step's profile; the first
 # match wins
 LM_TRAIN_KINDS = (
-    ("K6a", ("layernorm_fwd",)), ("K6b", ("layernorm_bwd",)),
-    ("K7a", ("flash_fwd",)), ("K7b", ("flash_bwd_dq",)),
-    ("K7c", ("flash_bwd_dkv",))) + SOFTMAX_KINDS + (
+    ("K6a", ("layernorm_fwd",)), ("K6b", ("layernorm_bwd",))) \
+    + FLASH_KINDS + SOFTMAX_KINDS + (
     ("loss", ("SoftMax", "softmax_warp", "log_softmax", "gather",
               "scatter")),
     ("GEMM", ("gemm", "xmma", "cutlass", "cublas", "nvjet")),
@@ -3484,6 +3561,44 @@ def fp16_multi_precision(mx, ctx, steps=FP16_STEPS, seed=SEED):
             "master": {k: states[i][1].asnumpy() for i, k in enumerate(keys)}}
 
 
+def bf16_grad_check(mx, ck, lm, loss_fn, x, y):
+    """One step's gradients of the bf16 ``lm`` three ways from the same
+    parameters: the kernel path (its ReLU decisions recorded), the
+    knobs-0 path with those decisions, and float64 plain torch.  Returns
+    what phase 15 holds: ``grad_dev_by_band``, the largest over the
+    parameters of the kernel path's distance from the knobs-0 path over
+    that parameter's band, max(``LM_BF16_GRAD_TOL``, twice the knobs-0
+    path's own distance from float64), and ``worst``, that parameter, with
+    the ReLU inputs that flip between the two paths' forwards, the widest
+    band, and the distances from float64."""
+    params = lm.collect_params()
+
+    def grads():
+        return {n: p.grad()._data.clone() for n, p in params.items()}
+
+    with relu_decisions() as rec:
+        lm_loss(mx, lm, loss_fn, x, y)
+    kernel = grads()
+    with plain_path(), relu_decisions(rec.masks) as rep:
+        lm_loss(mx, lm, loss_fn, x, y)
+    plain = grads()
+    del rec
+    ref64 = f64_grads(ck, lm, x, y)
+    bands = {n: max(LM_BF16_GRAD_TOL, 2 * rel_err(plain[n], ref64[n]))
+             for n in kernel}
+    by_band = {n: rel_err(kernel[n], plain[n]) / bands[n] for n in kernel}
+    worst = max(by_band, key=by_band.get)
+    return {
+        "grad_dev_by_band": by_band[worst], "worst": worst,
+        "relu_flips": rep.flips, "relu_inputs": rep.total,
+        "kernel_vs_f64": max(rel_err(kernel[n], ref64[n]) for n in kernel),
+        "plain_vs_f64": max(rel_err(plain[n], ref64[n]) for n in kernel),
+        "widest_band": max(bands.values()),
+        "zero_grads": [n for n, g in kernel.items()
+                       if not bool(g.abs().max() > 0)],
+        "grad_dtypes": sorted({str(g.dtype)[6:] for g in kernel.values()})}
+
+
 def lm_mixed(mx, ck, ctx, config=GPT2_SMALL, batch=LM_BATCH, t=LM_T[0],
              warmup=1, steps=LM_TRAIN_STEPS):
     """Phase 15 (b): the GPT-2-small-width ``TransformerLM`` of phase 10
@@ -3520,33 +3635,7 @@ def lm_mixed(mx, ck, ctx, config=GPT2_SMALL, batch=LM_BATCH, t=LM_T[0],
     trainer = mx.gluon.Trainer(lm.collect_params(), "adam", dict(LM_ADAM))
     loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
     params = lm.collect_params()
-
-    def grads():
-        return {n: p.grad()._data.clone() for n, p in params.items()}
-
-    with relu_decisions() as rec:
-        lm_loss(mx, lm, loss_fn, x, y)
-    kernel = grads()
-    with plain_path(), relu_decisions(rec.masks) as rep:
-        lm_loss(mx, lm, loss_fn, x, y)
-    plain = grads()
-    del rec
-    ref64 = f64_grads(ck, lm, x, y)
-    worst, bands = 0.0, {}
-    for n in kernel:
-        band = max(LM_BF16_GRAD_TOL, 2 * rel_err(plain[n], ref64[n]))
-        bands[n] = band
-        worst = max(worst, rel_err(kernel[n], plain[n]) / band)
-    train = {
-        "grad_dev_by_band": worst, "relu_flips": rep.flips,
-        "relu_inputs": rep.total,
-        "kernel_vs_f64": max(rel_err(kernel[n], ref64[n]) for n in kernel),
-        "plain_vs_f64": max(rel_err(plain[n], ref64[n]) for n in kernel),
-        "widest_band": max(bands.values()),
-        "zero_grads": [n for n, g in kernel.items()
-                       if not bool(g.abs().max() > 0)],
-        "grad_dtypes": sorted({str(g.dtype)[6:] for g in kernel.values()})}
-    del kernel, plain, ref64
+    train = bf16_grad_check(mx, ck, lm, loss_fn, x, y)
 
     device = x._data.device
     ck.reset_kernel_calls()
@@ -3585,9 +3674,9 @@ def bf16_instances(ck, dev, bw, bf16, sites,
     beside the backward of SDPA in bf16 (its bf16 tensor cores).  The
     correctness of each was held in phases 3, 9 and 11.  Returns ``{K:
     jobs}``; each job's bound is the bf16 one: 2-byte operands, the
-    operations at the card's bf16 tensor-core rate ``bf16`` (K7b and K7c
-    compute their products as one TF32 product each, which does not lower
-    the card's bf16 peak)."""
+    operations at the card's bf16 tensor-core rate ``bf16`` (K7b computes
+    its products as one TF32 product each, which does not lower the
+    card's bf16 peak; K7c's bf16 instance runs bf16 mma.sync)."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 15)
     out = {"K3": {}}
     for _, shape in sites:
@@ -3680,7 +3769,11 @@ def main():
         for line in out.splitlines():
             if "Used" in line or "spill" in line:
                 print("  %s: %s" % (name, line.strip()))
-    sys.stdout.flush()
+    hmma = hmma_counts(_build)
+    print("tensor cores: cuobjdump -sass of libmxtt_flash_attention.so: %s "
+          "%s" % (HMMA_BF16, "; ".join(
+              "%s %s: %d" % (k, v["function"], v["count"])
+              for k, v in hmma.items())), flush=True)
 
     # 3. kernels against their plain versions
     sym = resnet_symbol(LAYERS, IMAGE)
@@ -3795,6 +3888,7 @@ def main():
     # 9. the transformer kernels against their plain versions
     k6a, k6a_jobs = check_k6a(ck, dev, bw, flops)
     k7a, k7a_jobs = check_k7a(ck, dev, bw, flops, bf16)
+    k7a["hmma_bf16_dp64"] = hmma["K7a"]["count"]
     k5a, k5a_jobs = check_k5a(ck, dev, bw, flops)
     for rec, jobs in ((k6a, k6a_jobs), (k7a, k7a_jobs), (k5a, k5a_jobs)):
         time_jobs(rec, jobs, "call_ms", time_ms)
@@ -3856,6 +3950,7 @@ def main():
     # 11. the backward kernels against their plain versions
     k6b, k6b_jobs = check_k6b(ck, dev, bw, flops, bf16)
     (k7b, k7c), (k7b_jobs, k7c_jobs) = check_k7bc(ck, dev, bw, flops, tf32)
+    k7c["hmma_bf16_dp64"] = hmma["K7c"]["count"]
     k5b, k5b_jobs = check_k5b(ck, dev, bw, flops)
     bwd_recs = ((k6b, k6b_jobs), (k7b, k7b_jobs), (k7c, k7c_jobs),
                 (k5b, k5b_jobs))
@@ -4318,25 +4413,31 @@ def main():
     recs = [(k3, k3_jobs), (k2, k2_jobs)] + [
         (sweeps[name], sweep_jobs[name]) for name, *_ in SWEEPS] + [
         (k6a, k6a_jobs), (k7a, k7a_jobs), (k5a, k5a_jobs)] + list(bwd_recs)
-    timer, cold = device_ms, device_ms_cold
-    try:
+    def time_all(timer, cold):
         for rec, jobs in recs:
             time_jobs(rec, jobs, "ms", (lambda fn: cold(fn, dev))
                       if rec is k6b else timer)
+        for rec, knum in ((k3, "K3"), (k6a, "K6a"), (k7b, "K7b"),
+                          (k7c, "K7c")):
+            jobs = bf16_jobs[knum]
+            rec["bf16"] = {"shape": jobs[0]["shape"] if len(jobs) == 1 else
+                           "%d sites of a bucket-%d forward" % (
+                               sum(j["count"] for j in jobs), BATCH),
+                           "bound_ms": sum(j["count"] * j["bound_ms"]
+                                           for j in jobs)}
+            time_jobs(rec["bf16"], jobs, "ms", timer)
+
+    # every time by one timer: the profiler's, or, where one of its
+    # sessions records no device time (one did, on the H100, in the bf16
+    # jobs of a run whose earlier sessions had all recorded), CUDA events
+    # for all
+    timer, cold = device_ms, device_ms_cold
+    try:
+        time_all(timer, cold)
     except RuntimeError as exc:
         print("device times by CUDA events instead (%s)" % exc)
         timer, cold = time_ms, time_cold_ms
-        for rec, jobs in recs:
-            time_jobs(rec, jobs, "ms", (lambda fn: cold(fn, dev))
-                      if rec is k6b else timer)
-    for rec, knum in ((k3, "K3"), (k6a, "K6a"), (k7b, "K7b"), (k7c, "K7c")):
-        jobs = bf16_jobs[knum]
-        rec["bf16"] = {"shape": jobs[0]["shape"] if len(jobs) == 1 else
-                       "%d sites of a bucket-%d forward" % (
-                           sum(j["count"] for j in jobs), BATCH),
-                       "bound_ms": sum(j["count"] * j["bound_ms"]
-                                       for j in jobs)}
-        time_jobs(rec["bf16"], jobs, "ms", timer)
+        time_all(timer, cold)
     # K6b against aten's dx-only LayerNorm backward, three more times each
     # in turns, at the main path's shape, fp32 and bf16, all by K6b's
     # timer above (the L2 cache overwritten before each launch)
@@ -4428,6 +4529,20 @@ def main():
     print("K7b + K7c device: %.4f ms against %.4f ms for SDPA's fp32 "
           "backward (%.2fx)" % (k7b["ms"] + k7c["ms"], k7b["library_ms"],
                                 (k7b["ms"] + k7c["ms"]) / k7b["library_ms"]))
+    k7a_bf16 = next(j for j in k7a_jobs if j["dtype"] == "bfloat16")
+    print("bf16 on %s: K7a %s causal %.4f ms against SDPA bf16 %.4f ms "
+          "(%.2fx), bound %.4f ms, %d %s; K7c %.4f ms (%d %s), K7b %.4f ms, "
+          "K7b + K7c %.4f ms against SDPA's bf16 backward %.4f ms (%.2fx), "
+          "bounds %.4f and %.4f ms"
+          % (smi, k7a_bf16["shape"], k7a_bf16["ms"], k7a_bf16["library_ms"],
+             k7a_bf16["ms"] / k7a_bf16["library_ms"], k7a_bf16["bound_ms"],
+             k7a["hmma_bf16_dp64"], HMMA_BF16, k7c["bf16"]["ms"],
+             k7c["hmma_bf16_dp64"], HMMA_BF16, k7b["bf16"]["ms"],
+             k7b["bf16"]["ms"] + k7c["bf16"]["ms"],
+             k7b["bf16"]["library_ms"],
+             (k7b["bf16"]["ms"] + k7c["bf16"]["ms"])
+             / k7b["bf16"]["library_ms"], k7b["bf16"]["bound_ms"],
+             k7c["bf16"]["bound_ms"]))
     print(json.dumps({"checkpoints": {
         "card": smi, "seconds": ck_seconds,
         "resnet50": dict(ck_a, serve=ck_b, resume=ck_c),
@@ -4448,7 +4563,7 @@ def main():
                         "ms_repeats", "library_ms_repeats",
                         "bfloat16_ms_repeats", "bfloat16_library_ms_repeats",
                         "repeats_timer",
-                        "library_note", "tflops",
+                        "library_note", "tflops", "hmma_bf16_dp64",
                         "bound_note", "bound_cuda_cores_ms",
                         "bound_cuda_cores_by", "extra") if x in rec)}
         for rec, _ in recs]}))

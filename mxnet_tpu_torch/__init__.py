@@ -6,8 +6,11 @@ NVIDIA GPU, with the JAX package's Pallas kernels rewritten by hand in
 CUDA (``ops/csrc/``, built by ``ops/_build.py`` at first use).  It
 imports neither ``jax`` nor ``mxnet_tpu``.
 
-Entry points run on ``gpu(0)`` unless given ``ctx=cpu()``; without a GPU
-they raise rather than fall back to the CPU.
+Entry points run on the current context: ``gpu(0)`` unless given
+``ctx=cpu()`` or called inside ``with mx.cpu():``; without a GPU they
+raise rather than fall back to the CPU.  PyTorch is imported as
+``_torch``: ``mx.torch`` is not PyTorch (in the JAX package it names the
+bridge module, which the port does not have yet).
 
 Precision: float32 convolutions and matmuls run in full float32, not
 TF32 (``torch.backends.cudnn.allow_tf32`` and
@@ -37,11 +40,12 @@ the detection, quantization, sparse, image, RNN, CTC and
 spatial-transformer ops (ROADMAP.md), with NDArray's and Symbol's
 methods.
 """
-import torch
+import torch as _torch
 
 from .base import MXNetError  # noqa: F401
 from . import config  # noqa: F401
-from .context import Context, cpu, gpu, tpu, num_gpus  # noqa: F401
+from .context import (Context, cpu, gpu, tpu, current_context,  # noqa: F401
+                      num_gpus)
 from . import autograd  # noqa: F401
 from . import attribute  # noqa: F401
 from .attribute import AttrScope  # noqa: F401
@@ -71,5 +75,5 @@ from . import module as mod  # noqa: F401
 from . import parallel  # noqa: F401
 from . import gluon  # noqa: F401
 
-torch.backends.cudnn.allow_tf32 = False
-torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False
+_torch.backends.cuda.matmul.allow_tf32 = False

@@ -5,17 +5,24 @@ maps to a ``torch.device``.  ``gpu(i)`` is ``cuda:i``; ``tpu(i)`` is an
 alias of ``gpu(i)`` so scripts written for the JAX package run; ``cpu()``
 is the host.
 
-The accelerator is the default: ``resolve(None)`` is ``gpu(0)``, and a
+The default context is thread-local, as in the reference: ``with
+cpu(0): ...`` makes ``cpu(0)`` the default of the block's thread, and the
+block's end restores the one before.  Outside any block the default is
+the accelerator, ``gpu(0)``; ``resolve(None)`` reads the default, and a
 GPU context on a machine without CUDA raises instead of carrying on
-quietly on the CPU.  Callers that want the CPU say ``ctx=cpu()``.
+quietly on the CPU.  Callers that want the CPU say ``ctx=cpu()`` or open
+a ``with cpu():`` block.
 """
 from __future__ import annotations
+
+import threading
 
 import torch
 
 from .base import MXNetError
 
-__all__ = ["Context", "cpu", "gpu", "tpu", "num_gpus", "resolve"]
+__all__ = ["Context", "cpu", "gpu", "tpu", "current_context", "num_gpus",
+           "resolve"]
 
 
 class Context:
@@ -23,6 +30,7 @@ class Context:
 
     devtype2id = {"cpu": 1, "gpu": 2}
     devid2type = {1: "cpu", 2: "gpu"}
+    _default_ctx = threading.local()
 
     def __init__(self, device_type, device_id=0):
         if isinstance(device_type, Context):
@@ -34,6 +42,7 @@ class Context:
             raise MXNetError("unknown device type %s" % device_type)
         self.device_typeid = self.devtype2id[device_type]
         self.device_id = int(device_id)
+        self._old_ctx = None
 
     @property
     def device_type(self):
@@ -68,6 +77,22 @@ class Context:
 
     __repr__ = __str__
 
+    def __enter__(self):
+        self._old_ctx = Context.default_ctx()
+        Context._default_ctx.value = self
+        return self
+
+    def __exit__(self, ptype, value, trace):
+        Context._default_ctx.value = self._old_ctx
+
+    @classmethod
+    def default_ctx(cls):
+        """This thread's default context: the innermost ``with`` block's,
+        else ``gpu(0)``."""
+        if not hasattr(cls._default_ctx, "value"):
+            cls._default_ctx.value = Context("gpu", 0)
+        return cls._default_ctx.value
+
 
 def cpu(device_id=0):
     """Host context."""
@@ -84,14 +109,21 @@ def tpu(device_id=0):
     return gpu(device_id)
 
 
+def current_context():
+    """The default context of this thread (reference:
+    python/mxnet/context.py:216)."""
+    return Context.default_ctx()
+
+
 def num_gpus():
     return torch.cuda.device_count() if torch.cuda.is_available() else 0
 
 
 def resolve(ctx):
     """``ctx`` (a Context, a ``torch.device`` or None) -> ``torch.device``.
-    None means ``gpu(0)``."""
+    None means :func:`current_context`."""
     if isinstance(ctx, torch.device):
         return Context(ctx.type.replace("cuda", "gpu"),
                        ctx.index or 0).torch_device
-    return Context(ctx if ctx is not None else gpu(0)).torch_device
+    return Context(ctx if ctx is not None
+                   else current_context()).torch_device

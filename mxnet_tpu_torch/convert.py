@@ -32,7 +32,7 @@ def _to_nd(name, v, device, dtype):
 def params_from_numpy(arg_params, aux_params, ctx=None, symbol=None,
                       dtype="float32"):
     """``{name: np.ndarray}`` dicts -> the port's ``{name: NDArray}``
-    dicts on ``ctx`` (default ``gpu(0)``), in ``dtype``.
+    dicts on ``ctx`` (default the current context), in ``dtype``.
 
     With ``symbol``, every argument the symbol needs — all but its data
     inputs and its label, those ending in ``data`` or ``label`` — and
@@ -69,7 +69,7 @@ def _root_prefix(names):
 def block_params_from_numpy(block, arrays, ctx=None):
     """Set every parameter of gluon ``block`` from ``arrays``, ``{name:
     np.ndarray}`` as the JAX block's ``collect_params()`` names them, on
-    ``ctx`` (default ``gpu(0)``) in each parameter's dtype.
+    ``ctx`` (default the current context) in each parameter's dtype.
 
     Names match with each side's root prefix stripped (``transformerlm0_``
     here may be ``transformerlm3_`` there: the count is per process), so

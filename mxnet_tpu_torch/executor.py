@@ -164,7 +164,7 @@ class Executor:
               compute_dtype=None, cast_exclude=()):
         """``Symbol.bind``: the given NDArrays (lists in argument order or
         dicts), used as they are; aux states not given start at zeros of
-        their inferred shapes on ``ctx`` (default ``gpu(0)``)."""
+        their inferred shapes on ``ctx`` (default the current context)."""
         device = resolve(ctx)
         arg_names = symbol.list_arguments()
         aux_names = symbol.list_auxiliary_states()

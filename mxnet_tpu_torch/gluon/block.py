@@ -157,7 +157,7 @@ class Block:
                     ignore_extra=False):
         """Load what ``save_params`` wrote (reference: gluon/block.py:317);
         parameters not yet initialized are created on ``ctx`` (default
-        ``gpu(0)``)."""
+        the current context)."""
         self.collect_params().load(fname, ctx, allow_missing, ignore_extra,
                                    self.prefix)
 
@@ -166,9 +166,10 @@ class Block:
 
     def initialize(self, init=None, ctx=None, verbose=False,
                    force_reinit=False):
-        """Initialize every parameter on ``ctx`` (default ``gpu(0)``,
-        which raises without a GPU) with ``init`` as the default
-        initializer (``Uniform()`` when None)."""
+        """Initialize every parameter on ``ctx`` (default the current
+        context, ``gpu(0)`` outside a ``with`` block, which raises without
+        a GPU) with ``init`` as the default initializer (``Uniform()``
+        when None)."""
         self.collect_params().initialize(init, ctx, verbose, force_reinit)
 
     def hybridize(self, active=True, **kwargs):

@@ -4,8 +4,9 @@ Counterpart of ``mxnet_tpu/gluon/parameter.py`` (reference:
 python/mxnet/gluon/parameter.py): a Parameter owns one NDArray on one
 device; its shape may hold 0 for a dim the first forward fills in
 (deferred initialization, finished by the block's ``_shape_hook``).
-``initialize`` resolves its context at once, so without a GPU the
-default ``gpu(0)`` raises there and not at the first forward.
+``initialize`` resolves its context at once (by default the current
+context: ``gpu(0)`` outside a ``with`` block), so without a GPU that
+raises there and not at the first forward.
 
 A parameter whose ``grad_req`` is not ``null`` gets a zero grad buffer
 when its value is set, and its value is marked as an autograd variable
@@ -28,7 +29,7 @@ import torch
 from .. import autograd, initializer
 from .. import ndarray
 from ..base import MXNetError, dtype_torch
-from ..context import cpu, gpu, resolve
+from ..context import cpu, current_context, resolve
 from ..initializer import InitDesc
 from ..ndarray import NDArray
 
@@ -126,7 +127,7 @@ class Parameter:
     def initialize(self, init=None, ctx=None, default_init=None,
                    force_reinit=False):
         """Initialize the value on ``ctx`` (a Context, or a list of which
-        the first is used; default ``gpu(0)``) by ``init``, this
+        the first is used; default the current context) by ``init``, this
         parameter's own initializer, or ``default_init``, in that order
         (reference: parameter.py initialize).  A shape with unknown dims
         defers the work to the first forward."""
@@ -139,7 +140,7 @@ class Parameter:
             return
         self._data = self._grad = None
         if ctx is None:
-            ctx = gpu(0)
+            ctx = current_context()
         if isinstance(ctx, (list, tuple)):
             ctx = ctx[0]
         resolve(ctx)    # a GPU context without a GPU raises here
@@ -325,7 +326,7 @@ class ParameterDict:
     def initialize(self, init=None, ctx=None, verbose=False,
                    force_reinit=False):
         """Initialize every parameter with ``init`` as the default
-        initializer, on ``ctx`` (default ``gpu(0)``)."""
+        initializer, on ``ctx`` (default the current context)."""
         if init is None:
             init = initializer.Uniform()
         for v in self.values():
@@ -356,9 +357,9 @@ class ParameterDict:
         load:748).  An initialized parameter keeps its device and takes
         the values; a deferred one is finished on the device it was
         initialized for, with the file's shape; any other is created on
-        ``ctx`` (default ``gpu(0)``).  A parameter missing from the file
-        (unless ``allow_missing``) or a name in the file that is not a
-        parameter (unless ``ignore_extra``) raises MXNetError."""
+        ``ctx`` (default the current context).  A parameter missing from
+        the file (unless ``allow_missing``) or a name in the file that is
+        not a parameter (unless ``ignore_extra``) raises MXNetError."""
         if restore_prefix:
             for name in self.keys():
                 if not name.startswith(restore_prefix):

@@ -111,7 +111,7 @@ def save_checkpoint(prefix, epoch, symbol, arg_params, aux_params):
 def load_checkpoint(prefix, epoch, ctx=None):
     """``(symbol, arg_params, aux_params)`` from the files
     :func:`save_checkpoint` writes (reference: model.py:395), the arrays
-    on ``ctx`` (default ``gpu(0)``)."""
+    on ``ctx`` (default the current context)."""
     symbol = sym.load("%s-symbol.json" % prefix)
     save_dict = nd.load("%s-%04d.params" % (prefix, epoch), ctx=ctx)
     arg_params, aux_params = {}, {}

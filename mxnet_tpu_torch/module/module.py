@@ -12,8 +12,9 @@ the checkpoint surface: ``Module.load``, ``save_checkpoint``,
 executor's fused step, so each ``forward(is_train=True)`` runs forward,
 backward and the optimizer sweep and ``update()`` has nothing left to
 do; ``"local"`` updates each array with the module's own ``Updater``,
-and ``"device"`` through the kvstore's.  The default context is
-``gpu(0)``; without a GPU the module raises unless given ``cpu()``.
+and ``"device"`` through the kvstore's.  The default context is the
+current one (``gpu(0)`` outside a ``with`` block); without a GPU the
+module raises unless given ``cpu()``.
 
 Optimizer states: under the fused step the ``.states`` file holds the
 executor's slots, one state per weight under the index the ``local``
@@ -30,7 +31,7 @@ import warnings
 
 from .. import optimizer as opt
 from .._atomic_io import atomic_write
-from ..context import Context, gpu
+from ..context import Context, current_context
 from ..initializer import InitDesc, Uniform
 from ..io import DataDesc
 from ..model import (_create_kvstore, _initialize_kvstore, _refuse_manager,
@@ -66,7 +67,7 @@ class Module(BaseModule):
         # masters and bf16 compute, the labels kept fp32
         self._compute_dtype = compute_dtype
         if context is None:
-            context = gpu(0)
+            context = current_context()
         if isinstance(context, Context):
             context = [context]
         self._context = list(context)

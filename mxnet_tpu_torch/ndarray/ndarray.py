@@ -25,8 +25,9 @@ adds the single-tensor ones).
 ``save``/``load``/``load_buffer`` read and write MXNet's V2 NDArray
 container byte for byte as the JAX package does, so ``.params`` files
 move between the two packages; ``load`` puts the arrays on ``ctx``
-(default ``gpu(0)``).  An NDArray pickles through host memory, so a
-pickle holds no CUDA storage and loads on a machine without a card.
+(default the current context).  An NDArray pickles through host memory,
+so a pickle holds no CUDA storage and loads on a machine without a
+card.
 """
 from __future__ import annotations
 
@@ -517,12 +518,12 @@ def _rebuild_ndarray(a, dtype=None):
 
 
 def array(source_array, ctx=None, dtype=None):
-    """A new NDArray holding a copy of ``source_array`` on ``ctx``
-    (default ``gpu(0)``), with the JAX package's dtype rule: an explicit
-    ``dtype`` wins; an NDArray keeps its dtype; a numpy array keeps its
-    dtype, except that float64 becomes float32 (MXNet's default) and
-    int64 int32 (the JAX package runs with 32-bit types); anything else
-    (a list, a scalar, a torch tensor) becomes float32."""
+    """A new NDArray holding a copy of ``source_array`` on ``ctx`` (default the
+    current context), with the JAX package's dtype rule: an explicit ``dtype``
+    wins; an NDArray keeps its dtype; a numpy array keeps its dtype, except
+    that float64 becomes float32 (MXNet's default) and int64 int32 (the JAX
+    package runs with 32-bit types); anything else (a list, a scalar, a torch
+    tensor) becomes float32."""
     device = resolve(ctx)
     if isinstance(source_array, NDArray):
         src = source_array._data
@@ -552,7 +553,7 @@ def ones(shape, ctx=None, dtype=None):
 
 def arange(start, stop=None, step=1.0, repeat=1, ctx=None, dtype=None):
     """``[start, stop)`` by ``step``, each value ``repeat`` times, on
-    ``ctx`` (default ``gpu(0)``), float32 unless ``dtype`` says
+    ``ctx`` (default the current context), float32 unless ``dtype`` says
     otherwise (reference: ndarray.py arange, the ``_arange`` op)."""
     from ..imperative import invoke
     return invoke("_arange", [], {"start": start, "stop": stop,
@@ -698,8 +699,8 @@ def _load_stream(f, ctx):
 def load(fname, ctx=None):
     """Load a V2 container (reference: mx.nd.load): a ``{name: NDArray}``
     dict, or a list when the file has no names, on ``ctx`` (default
-    ``gpu(0)``).  Each blob is read once into host memory and copied to
-    the device once."""
+    the current context).  Each blob is read once into host memory and
+    copied to the device once."""
     with open(fname, "rb") as f:
         return _load_stream(f, ctx)
 

@@ -1,7 +1,7 @@
 """``mx.nd.random`` (counterpart of ``mxnet_tpu/ndarray/random.py``).
 
 Scalar parameters call the ``_random_*`` op on ``ctx`` (default
-``gpu(0)``); NDArray parameters call the ``_sample_*`` op, one
+the current context); NDArray parameters call the ``_sample_*`` op, one
 distribution per element, on their device (a scalar beside them becomes
 a 0-dim array there).  Draws come from that device's generator.
 """

@@ -15,14 +15,18 @@
 // through flash_attention -> _flash_fwd / _flash_bwd_rule (parallel/attention.py
 // local_attention when _flash_eligible holds, or impl="flash").
 //
-// Bound on Hopper: operations.  The forward's two products take 4 T^2 D
-// operations per slice, K7b's three (s, dp, dq) 6 T^2 D and K7c's four
-// (s, dp, dv, dk) 8 T^2 D, half of them under a causal mask, against a
-// few T D elements moved.  At (96, 1024, 64) causal one product over the
-// visible pairs is 6.45 GFLOP: on the fp32 CUDA cores (67 TFLOP/s) the
-// forward's two take 0.19 ms, K7b's three 0.29 ms, K7c's four 0.39 ms;
-// on the tensor cores in 3xTF32 (three TF32 products of 495 TFLOP/s for
-// each fp32 one) K7b needs 0.117 ms and K7c 0.156 ms.
+// Bound on Hopper: operations, but for the bf16 forward.  The forward's
+// two products take 4 T^2 D operations per slice, K7b's three (s, dp, dq)
+// 6 T^2 D and K7c's four (s, dp, dv, dk) 8 T^2 D, half of them under a
+// causal mask, against a few T D elements moved.  At (96, 1024, 64)
+// causal one product over the visible pairs is 6.45 GFLOP: on the fp32
+// CUDA cores (67 TFLOP/s) the forward's two take 0.19 ms, K7b's three
+// 0.29 ms, K7c's four 0.39 ms; on the tensor cores in 3xTF32 (three TF32
+// products of 495 TFLOP/s for each fp32 one) K7b needs 0.117 ms and K7c
+// 0.156 ms.  In bf16 on the dense bf16 tensor cores (989 TFLOP/s) the
+// forward's products take 0.013 ms, under the 0.015 ms its 50.7 MB of
+// bf16 q, k, v, o and fp32 lse take at 3.35 TB/s (so bytes bound it);
+// K7b's 0.0196 ms and K7c's 0.026 ms.
 //
 // All three keep the TPU kernels' schedule: one block per (slice, tile of
 // query rows) for the forward and dq, per (slice, tile of key rows) for dk
@@ -31,7 +35,8 @@
 // accumulators (o, dq, or dk and dv) stay in registers from the first
 // tile to the last.
 //
-// K7a (flash_fwd_kernel, SIMT fp32 FMAs on the CUDA cores):
+// K7a's fp32 instance and its WIDE bf16 ones (flash_fwd_kernel, SIMT
+// fp32 FMAs on the CUDA cores):
 //   - 128 threads, each holding 8 x 8 scores and 8 x 8 accumulators at D
 //     64 (tiles of 128 query rows and 64 keys; 64 x 32 up to D 128, 32 x
 //     32 beyond); Q and K are staged row-major with a row stride of D + 4
@@ -42,7 +47,8 @@
 //   - K and V arrive by cp.async: the next tile's K is copied while this
 //     tile's softmax and P V run, the next V while the next Q K^T runs,
 //     with one buffer each (105 KB of shared memory at D 64, two blocks an
-//     SM); bf16 or unaligned operands load through registers instead;
+//     SM); bf16 (the WIDE chunks) or unaligned operands load through
+//     registers instead;
 //   - under a causal mask the query tiles launch from the last (which
 //     sees every key tile) to the first, so the grid's tail is made of
 //     the shortest blocks;
@@ -50,8 +56,9 @@
 //     before P V (a no-op in fp32) and summed into l unrounded, as the TPU
 //     kernel multiplies p.astype(v.dtype) by V (pallas_kernels.py :185-188).
 //
-// K7b (flash_bwd_dq_kernel) and K7c (flash_bwd_dkv_kernel), products on
-// the tensor cores with mma.sync m16n8k8 TF32 and fp32 accumulation:
+// K7b (flash_bwd_dq_kernel, both dtypes) and K7c's fp32 and WIDE bf16
+// instances (flash_bwd_dkv_kernel), products on the tensor cores with
+// mma.sync m16n8k8 TF32 and fp32 accumulation:
 //   - fp32 runs in 3xTF32: each operand x is split into hi = x rounded to
 //     TF32 (cvt.rna) and lo = x - hi (which the tensor cores truncate to
 //     TF32), and each product is lo*hi + hi*lo + hi*hi, the small terms
@@ -62,9 +69,10 @@
 //     each chain of mma runs into a fresh partial of at most 64 keys or
 //     columns that an fp32 add folds into the sum (one chain over 1024
 //     queries drifted past 1e-5 of the largest dk and dv on the card).
-//     bf16 operands, and p and ds rounded to bf16, are exact in TF32: one
-//     product each, the TPU kernels' own arithmetic (bf16 products summed
-//     in fp32);
+//     bf16 operands (K7b's bf16 instance, the WIDE bf16 ones), and p and
+//     ds rounded to bf16, are exact in TF32: one product each, the TPU
+//     kernels' own arithmetic (bf16 products summed in fp32), at half the
+//     k of a bf16 mma and from fp32 tiles;
 //   - the split is made when a fragment is read from shared memory, not
 //     when a tile is staged: tiles stay fp32 (cp.async cannot convert, and
 //     two TF32 copies would halve the tiles that fit), at 2 ALU
@@ -97,6 +105,48 @@
 //     mma.sync throughput and the instructions around it, not occupancy
 //     (rounding lo with a cvt of its own, one instruction more per split
 //     element, was slower in proportion).
+//
+// K7a's and K7c's bf16 instances up to D 256 (flash_fwd_bf16_kernel,
+// flash_bwd_dkv_bf16_kernel) run every product as mma.sync m16n8k16
+// bf16 x bf16 with fp32 accumulation, the TPU kernels' arithmetic:
+//   - Q, K, V (and in K7c dO) stay bf16 in shared memory, copied by
+//     16-byte cp.async (d % 8 == 0 and 16-byte aligned operands; else
+//     through registers), rows strided by S = DP + 8 elements so that
+//     the eight 16-byte rows of an ldmatrix phase fall in eight distinct
+//     bank groups; fragments are read with ldmatrix.x4 (A: rows 0-7 and
+//     8-15 at k 0-7, then at k 8-15; B from the rows of the n operand
+//     untransposed, or with .trans from the rows of the k operand);
+//   - each warp owns 16 rows (query rows in K7a, key rows in K7c); the
+//     scores (s in K7a; s^T and dp^T in K7c) come out in the accumulator
+//     layout (rows g and g + 8, columns 2t and 2t + 1 of each n8 tile, g
+//     = lane / 4, t = lane % 4), where p (and ds) are formed, rounded to
+//     bf16 and packed into the A fragments of the next product as they
+//     stand (n8 tiles 2kc and 2kc + 1 are k16 step kc), never passing
+//     through shared memory; K7a's row max and sum over a row's four
+//     lanes are two quad shuffles, and its exps the accurate expf, as in
+//     the fp32 instance: o's error against an fp64 attention is the same
+//     with the fast __expf, but over five seeds the bf16 transformer
+//     step's gradients then lay further from the plain step's on four,
+//     once past chip_smoke's band, and with expf as far as with K7a's
+//     plain version in its place (time_variants.py flash_band, PERF.md
+//     §6);
+//   - K7a: 16 x WARPS query rows a block (8 warps up to D 64, 4 beyond),
+//     keys 64 a step (32 past D 128), K and V double-buffered, K of the
+//     next tile copied during this tile's Q K^T and V during its P V;
+//     55 KB of shared memory and 128 registers at D 64 (two blocks an
+//     SM); under a causal mask heaviest tiles first, and each warp skips
+//     the key tiles past its own last row;
+//   - K7c: BwdTile's rows and warps (64 own and streamed rows, 4 warps,
+//     up to D 64; 32 rows with 2 or 4 warps sharing the columns beyond),
+//     Q, dO, lse and delta double-buffered and copied one tile ahead; 56
+//     KB of shared memory and 168 registers at D 64 (three blocks an SM);
+//     each warp's DC = DP / NS columns are n8 tiles read two an x4
+//     ldmatrix, and at DP 160 and 224 (DC 40 and 56) an odd last one by
+//     an x2;
+//   - the score products chain into fresh 64-column partials above D 64,
+//     as the TF32 ones do (K7a's lse is held to 1e-5).
+// K7b's bf16 instance and the WIDE bf16 instances (D > 256) keep the
+// older code above.
 //
 // All three: under a causal mask the forward and dq skip the key tiles
 // past the tile's last query row, and dk/dv start at the query tile that
@@ -139,7 +189,7 @@ constexpr float kNegInf = -1e30f;
 constexpr int kMaxD = 256;    // the widest instance; wider D is chunked
 constexpr int kWideD = 64;    // the chunk of D above kMaxD
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool in) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
@@ -885,6 +935,508 @@ __global__ void __launch_bounds__(BwdTile<DP>::THREADS)
   }
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 instances of K7a and K7c on the bf16 tensor cores (mma.sync
+// m16n8k16, bf16 x bf16 summed in fp32); K7b's bf16 instance and the WIDE
+// ones (D > kMaxD) above keep the TF32 and SIMT paths.
+// ---------------------------------------------------------------------------
+using bf16 = __nv_bfloat16;
+
+// an x4 ldmatrix: lanes 8 i .. 8 i + 7 give the row addresses of the i-th
+// 8 x 8 matrix of bf16 (16 bytes a row), which lands in r[i]; lane (g, t)
+// receives row g, columns 2t and 2t + 1 of each (with .trans, of each
+// matrix's transpose: rows 2t and 2t + 1 of column g)
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+// an x2 ldmatrix with .trans: lanes 0-15 give the row addresses of two
+// matrices (lanes 16-31 are not read)
+__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], const bf16* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(a));
+}
+
+// c += A B for a 16 x 16 bf16 A (a[0]: rows g, columns 2t, 2t + 1; a[1]:
+// rows g + 8; a[2], a[3]: the same at columns 8 + 2t) and a 16 x 8 B (b0:
+// rows 2t, 2t + 1 of column g; b1: rows 8 + 2t, 9 + 2t), fp32 c (rows g,
+// g + 8; columns 2t, 2t + 1)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two fp32 rounded to bf16, lo in the low half (the lower column)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The A fragments over keys 16 kc .. 16 kc + 15 of a warp's 16 rows of p
+// (or ds) held in the accumulator layout of n8 tiles 2 kc and 2 kc + 1,
+// rounded to bf16 where they stand (the TPU's p.astype(v.dtype))
+template <int NB>
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4],
+                                         const float (&p)[NB][4], int kc) {
+  a[0] = pack_bf16(p[2 * kc][0], p[2 * kc][1]);
+  a[1] = pack_bf16(p[2 * kc][2], p[2 * kc][3]);
+  a[2] = pack_bf16(p[2 * kc + 1][0], p[2 * kc + 1][1]);
+  a[3] = pack_bf16(p[2 * kc + 1][2], p[2 * kc + 1][3]);
+}
+
+// rows [r0, r0 + ROWS) and columns [0, DP) of a (t, d) bf16 matrix into a
+// ROWS x S bf16 tile, rows past t and columns past d zero: 16-byte
+// cp.async copies when ``async`` (d % 8 == 0, 16-byte aligned operands),
+// else loads through registers
+template <int ROWS, int DP, int S, int THREADS>
+__device__ __forceinline__ void stage_bf16(bf16* dst, const bf16* src, int r0,
+                                           int t, int d, bool async) {
+  if (async) {
+    constexpr int C8 = DP / 8;
+    for (int idx = threadIdx.x; idx < ROWS * C8; idx += THREADS) {
+      const int r = idx / C8, c = idx % C8 * 8;
+      const bool in = r0 + r < t && c < d;
+      cp_async16(dst + r * S + c, in ? src + (int64_t)(r0 + r) * d + c : src,
+                 in);
+    }
+    return;
+  }
+  for (int idx = threadIdx.x; idx < ROWS * DP; idx += THREADS) {
+    const int r = idx / DP, c = idx % DP;
+    dst[r * S + c] = r0 + r < t && c < d ? src[(int64_t)(r0 + r) * d + c]
+                                         : __float2bfloat16_rn(0.0f);
+  }
+}
+
+// ldmatrix row offsets (in elements, row stride S) of a lane's row
+// address: a_offset for an A tile of 16 rows x 16 columns (x4 matrices:
+// rows 0-7 and 8-15 at columns 0-7, then at 8-15), which is also the
+// pattern of two B tiles of 16 rows (k) x 8 columns (n) read with .trans;
+// bn_offset for two B tiles of 8 rows (n) x 16 columns (k) read without
+// transposing (rows 0-7 at k 0-7 and 8-15, then rows 8-15)
+template <int S>
+__device__ __forceinline__ int a_offset(int lane) {
+  return ((lane & 7) + 8 * ((lane >> 3) & 1)) * S + 8 * (lane >> 4);
+}
+template <int S>
+__device__ __forceinline__ int bn_offset(int lane) {
+  return ((lane & 7) + 8 * (lane >> 4)) * S + 8 * ((lane >> 3) & 1);
+}
+
+// c[n] += X Y^T over columns [k0, k1) for a warp's 16 rows X (A fragments
+// at ``xa``, the lane's a_offset already added) and NB n8 tiles of rows of
+// Y (at ``yb``, bn_offset added)
+template <int NB, int S>
+__device__ __forceinline__ void rows_chain(float (&c)[NB][4], const bf16* xa,
+                                           const bf16* yb, int k0, int k1) {
+  static_assert(NB % 2 == 0, "an x4 ldmatrix reads two n8 tiles");
+#pragma unroll
+  for (int kk = k0; kk < k1; kk += 16) {
+    uint32_t a[4];
+    ldsm_x4(a, xa + kk);
+#pragma unroll
+    for (int n = 0; n < NB; n += 2) {
+      uint32_t b[4];
+      ldsm_x4(b, yb + n * 8 * S + kk);
+      mma_bf16(c[n], a, b[0], b[1]);
+      mma_bf16(c[n + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// c = X Y^T over DP columns (c zero on entry): scores q k^T and dp = do
+// v^T.  Above kChain columns each chain of mma runs into a fresh partial
+// that an fp32 add folds into c, as the TF32 products do: the tensor
+// cores truncate as they add, and K7a's lse is held to 1e-5.
+template <int NB, int DP, int S>
+__device__ __forceinline__ void rows_mma(float (&c)[NB][4], const bf16* xa,
+                                         const bf16* yb) {
+  if constexpr (DP <= kChain) {
+    rows_chain<NB, S>(c, xa, yb, 0, DP);
+  } else {
+#pragma unroll
+    for (int k0 = 0; k0 < DP; k0 += kChain) {
+      float part[NB][4];
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[n][e] = 0.0f;
+      rows_chain<NB, S>(part, xa, yb, k0, min(k0 + kChain, DP));
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[n][e] += part[n][e];
+    }
+  }
+}
+
+// acc[n] += P Y[:, 8 n .. 8 n + 7] for P a warp's 16 rows of p (or ds) over
+// KB keys in the accumulator layout, and Y KB rows of NN x 8 columns (at
+// ``yt``, a_offset added), read with .trans: two n8 tiles an x4 ldmatrix,
+// and an odd last one (K7c's DC 40 and 56, at DP 160 and 224) by an x2
+template <int KB, int NN, int S>
+__device__ __forceinline__ void acc_mma(float (&acc)[NN][4],
+                                        const float (&p)[KB / 8][4],
+                                        const bf16* yt) {
+#pragma unroll
+  for (int kc = 0; kc < KB / 16; ++kc) {
+    uint32_t a[4];
+    acc_to_a<KB / 8>(a, p, kc);
+#pragma unroll
+    for (int n = 0; n + 1 < NN; n += 2) {
+      uint32_t b[4];
+      ldsm_x4_t(b, yt + kc * 16 * S + n * 8);
+      mma_bf16(acc[n], a, b[0], b[1]);
+      mma_bf16(acc[n + 1], a, b[2], b[3]);
+    }
+    if constexpr (NN % 2 == 1) {
+      uint32_t b[2];
+      ldsm_x2_t(b, yt + kc * 16 * S + (NN - 1) * 8);
+      mma_bf16(acc[NN - 1], a, b[0], b[1]);
+    }
+  }
+}
+
+// K7a's bf16 tiles for an instance width DP (a multiple of 32, up to
+// kMaxD): WARPS warps of 16 query rows each, BK keys a step; Q and the
+// double-buffered K and V as bf16 with a row stride of S = DP + 8
+// elements, so that the eight 16-byte rows of an ldmatrix phase fall in
+// eight distinct bank groups.
+template <int DP>
+struct FwdBf16Tile {
+  static constexpr int WARPS = DP <= 64 ? 8 : 4;
+  static constexpr int BQ = 16 * WARPS;
+  static constexpr int BK = DP <= 128 ? 64 : 32;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int MIN_BLOCKS = DP <= 64 ? 2 : 1;
+  static constexpr int S = DP + 8;
+  static constexpr size_t smem = sizeof(bf16) * (BQ + 4 * BK) * S;
+};
+
+// K7a, bf16: one block per (slice, query tile); warp w owns query rows 16
+// w .. 16 w + 15.  Per key tile: s = Q K^T (ldmatrix of Q and K rows), the
+// online softmax in the accumulator layout with quad shuffles, p rounded
+// to bf16 and packed as P V's A fragments where it stands, acc += P V
+// (V read with ldmatrix.trans).  K of the next tile is copied in by
+// cp.async during this tile's Q K^T, V of the next during its P V; under
+// a causal mask a warp skips the key tiles past its own last row.
+template <int DP>
+__global__ void __launch_bounds__(FwdBf16Tile<DP>::THREADS,
+                                  FwdBf16Tile<DP>::MIN_BLOCKS)
+    flash_fwd_bf16_kernel(const bf16* __restrict__ q,
+                          const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, bf16* __restrict__ o,
+                          float* __restrict__ lse, int tq, int tk, int d,
+                          float scale, int causal, bool async) {
+  using F = FwdBf16Tile<DP>;
+  constexpr int BQ = F::BQ, BK = F::BK, S = F::S, TH = F::THREADS;
+  constexpr int NB = BK / 8, ND = DP / 8;
+  extern __shared__ float4 fwd_bf16_smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(fwd_bf16_smem);   // BQ x S
+  bf16* Ks = Qs + BQ * S;                               // 2 x BK x S
+  bf16* Vs = Ks + 2 * BK * S;                           // 2 x BK x S
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int64_t bh = blockIdx.x;
+  // heaviest causal tiles first, as the fp32 instance
+  const int q0 = (causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * BQ;
+  const int qw = q0 + 16 * warp;   // the warp's first query row
+  const bf16* qb = q + bh * tq * d;
+  const bf16* kb = k + bh * tk * d;
+  const bf16* vb = v + bh * tk * d;
+  const int kend = causal ? min(tk, min(q0 + BQ, tq)) : tk;
+  const int nt = (kend + BK - 1) / BK;
+  // the keys this warp's rows can see: under a causal mask none past its
+  // last row, so later tiles would add exactly 0
+  const int wend = causal ? min(kend, qw + 16) : kend;
+
+  stage_bf16<BQ, DP, S, TH>(Qs, qb, q0, tq, d, async);
+  stage_bf16<BK, DP, S, TH>(Ks, kb, 0, tk, d, async);
+  cp_async_commit();
+  stage_bf16<BK, DP, S, TH>(Vs, vb, 0, tk, d, async);
+  cp_async_commit();
+
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f}, acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+  const bf16* qa = Qs + 16 * warp * S + a_offset<S>(lane);
+  const int kbo = bn_offset<S>(lane), vto = a_offset<S>(lane);
+
+  for (int j = 0; j < nt; ++j) {
+    const int k0 = j * BK;
+    const int nb = ((j + 1) & 1) * BK * S;   // the next tile's buffer
+    const bf16* Kj = Ks + (j & 1) * BK * S;
+    const bf16* Vj = Vs + (j & 1) * BK * S;
+    const bool active = k0 < wend;           // warp-uniform
+    cp_async_wait<1>();   // Q and this tile's K (its V may be in flight)
+    __syncthreads();      // ... for all; all done with tile j - 1
+    if (j + 1 < nt) stage_bf16<BK, DP, S, TH>(Ks + nb, kb, k0 + BK, tk, d,
+                                              async);
+    cp_async_commit();
+
+    float s[NB][4];
+    if (active) {
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = 0.0f;
+      rows_mma<NB, DP, S>(s, qa, Kj + kbo);
+      // rows g + 8 i, keys k0 + 8 n + 2 t + (e & 1): masked, the running
+      // max and sum over the quad that shares a row, p in place of s
+      const bool edge = k0 + BK > tk || (causal && k0 + BK - 1 > qw);
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float val = s[n][e] * scale;
+          if (edge) {
+            const int kpos = k0 + 8 * n + 2 * t + (e & 1);
+            if (kpos >= tk)
+              val = -INFINITY;
+            else if (causal && qw + g + 8 * (e >> 1) < kpos)
+              val = kNegInf;
+          }
+          s[n][e] = val;
+          mx[e >> 1] = fmaxf(mx[e >> 1], val);
+        }
+      float alpha[2], sum[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float m_new = fmaxf(m[i], row_max_tx<4>(mx[i]));
+        alpha[i] = expf(m[i] - m_new);
+        m[i] = m_new;
+      }
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = expf(s[n][e] - m[e >> 1]);
+          s[n][e] = p;
+          sum[e >> 1] += p;
+        }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        l[i] = l[i] * alpha[i] + row_sum_tx<4>(sum[i]);
+#pragma unroll
+      for (int n = 0; n < ND; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+    }
+    cp_async_wait<1>();   // this tile's V (the next K may be in flight)
+    __syncthreads();
+    if (j + 1 < nt) stage_bf16<BK, DP, S, TH>(Vs + nb, vb, k0 + BK, tk, d,
+                                              async);
+    cp_async_commit();
+    if (active) acc_mma<BK, ND, S>(acc, s, Vj + vto);
+  }
+  cp_async_wait<0>();   // nothing left in flight at exit
+
+  bf16* ob = o + bh * tq * d;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = qw + g + 8 * i;
+    if (r >= tq) continue;
+    const float lc = fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      const int c = 8 * n + 2 * t;
+      const float o0 = acc[n][2 * i] / lc, o1 = acc[n][2 * i + 1] / lc;
+      bf16* dst = ob + (int64_t)r * d + c;
+      if (d % 2 == 0 && c + 1 < d) {
+        *reinterpret_cast<__nv_bfloat162*>(dst) =
+            __floats2bfloat162_rn(o0, o1);
+      } else {
+        if (c < d) *dst = __float2bfloat16_rn(o0);
+        if (c + 1 < d) dst[1] = __float2bfloat16_rn(o1);
+      }
+    }
+    if (t == 0) lse[bh * tq + r] = m[i] + logf(lc);
+  }
+}
+
+// K7c's bf16 tiles for an instance width DP (a multiple of 32, up to
+// kMaxD): B rows of the block's own key tile and of each streamed query
+// tile; NS warps share 16 own rows, each with DC output columns; bf16
+// tiles with a row stride of S = DP + 8 elements.  Shared memory: K and V
+// once, Q and dO twice, lse and delta twice (fp32).
+template <int DP>
+struct BwdBf16Tile {
+  static constexpr int B = DP <= 64 ? 64 : 32;
+  static constexpr int NS = DP <= 64 ? 1 : DP <= 128 ? 2 : 4;
+  static constexpr int THREADS = 32 * (B / 16) * NS;
+  // registers for three blocks an SM up to D 64 (on the card 6% faster
+  // than the 214 registers two blocks allow, though ptxas keeps 88 bytes
+  // on the stack; PERF.md §6)
+  static constexpr int MIN_BLOCKS = DP <= 64 ? 3 : 1;
+  static constexpr int S = DP + 8;
+  static constexpr int DC = DP / NS;
+  static constexpr int NB = B / 8;
+  static constexpr size_t smem =
+      sizeof(bf16) * 6 * B * S + sizeof(float) * 4 * B;
+};
+
+// K7c, bf16: one block per (slice, key tile); warp (rw, cw) owns key rows
+// 16 rw .. 16 rw + 15 and dk, dv columns DC cw .. DC cw + DC - 1.  Per
+// query tile, from the diagonal on under a causal mask: s^T = K Q^T and
+// dp^T = V dO^T (A fragments of the warp's K and V rows, B fragments of Q
+// and dO rows by ldmatrix), p^T and ds^T in registers, rounded to bf16 and
+// packed as A fragments where they stand, dv += p^T dO and dk += ds^T Q
+// (dO and Q read with ldmatrix.trans).  Q, dO, lse and delta of the next
+// tile are copied in by cp.async while this one computes.
+template <int DP>
+__global__ void __launch_bounds__(BwdBf16Tile<DP>::THREADS,
+                                  BwdBf16Tile<DP>::MIN_BLOCKS)
+    flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
+                              const bf16* __restrict__ k,
+                              const bf16* __restrict__ v,
+                              const bf16* __restrict__ dout,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              bf16* __restrict__ dk, bf16* __restrict__ dv,
+                              int tq, int tk, int d, float scale, int causal,
+                              bool async) {
+  using F = BwdBf16Tile<DP>;
+  constexpr int B = F::B, S = F::S, NB = F::NB, DC = F::DC, TH = F::THREADS;
+  extern __shared__ float4 bwd_bf16_smem[];
+  float* Ls = reinterpret_cast<float*>(bwd_bf16_smem);   // 2 x B: lse
+  float* Es = Ls + 2 * B;                                // 2 x B: delta
+  bf16* Ks = reinterpret_cast<bf16*>(Es + 2 * B);        // B x S
+  bf16* Vs = Ks + B * S;                                 // B x S
+  bf16* Qs = Vs + B * S;                                 // 2 x B x S
+  bf16* Gs = Qs + 2 * B * S;                             // 2 x B x S: do
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int rw = warp / F::NS, cw = warp % F::NS;
+  const int g = lane >> 2, t = lane & 3;
+  const int64_t bh = blockIdx.x;
+  const int k0 = blockIdx.y * B;
+  const int col0 = cw * DC;
+  const bf16* qb = q + bh * tq * d;
+  const bf16* gb = dout + bh * tq * d;
+  const bf16* kb = k + bh * tk * d;
+  const bf16* vb = v + bh * tk * d;
+  const float* lb = lse + bh * tq;
+  const float* eb = delta + bh * tq;
+  // under a causal mask the query rows before k0 see none of this tile's
+  // keys: start at the query tile that holds row k0
+  const int qstart = causal ? k0 : 0;
+  const int nt = qstart < tq ? (tq - qstart + B - 1) / B : 0;
+
+  float dka[DC / 8][4], dva[DC / 8][4];
+#pragma unroll
+  for (int n = 0; n < DC / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.0f;
+
+  // lse and delta of query rows [q0, q0 + B) into Ls, Es + o
+  auto stage_rows = [&](int q0, int o) {
+    for (int r = threadIdx.x; r < B; r += TH) {
+      const bool in = q0 + r < tq;
+      Ls[o + r] = in ? lb[q0 + r] : 0.0f;
+      Es[o + r] = in ? eb[q0 + r] : 0.0f;
+    }
+  };
+  stage_bf16<B, DP, S, TH>(Ks, kb, k0, tk, d, async);
+  stage_bf16<B, DP, S, TH>(Vs, vb, k0, tk, d, async);
+  stage_bf16<B, DP, S, TH>(Qs, qb, qstart, tq, d, async);
+  stage_bf16<B, DP, S, TH>(Gs, gb, qstart, tq, d, async);
+  stage_rows(qstart, 0);
+  cp_async_commit();
+
+  const int ao = 16 * rw * S + a_offset<S>(lane);
+  const int bno = bn_offset<S>(lane), bto = a_offset<S>(lane) + col0;
+  for (int j = 0; j < nt; ++j) {
+    const int q0 = qstart + j * B;
+    const int buf = j & 1;
+    const bf16* Qj = Qs + buf * B * S;
+    const bf16* Gj = Gs + buf * B * S;
+    const float* Lj = Ls + buf * B;
+    const float* Ej = Es + buf * B;
+    cp_async_wait<0>();   // tile j (and, at j == 0, K and V)
+    __syncthreads();      // ... for all; all done with tile j - 1
+    if (j + 1 < nt) {
+      const int nb = (buf ^ 1) * B * S;
+      stage_bf16<B, DP, S, TH>(Qs + nb, qb, q0 + B, tq, d, async);
+      stage_bf16<B, DP, S, TH>(Gs + nb, gb, q0 + B, tq, d, async);
+      stage_rows(q0 + B, (buf ^ 1) * B);
+    }
+    cp_async_commit();
+    float st[NB][4], dpt[NB][4];
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.0f;
+    rows_mma<NB, DP, S>(st, Ks + ao, Qj + bno);
+    rows_mma<NB, DP, S>(dpt, Vs + ao, Gj + bno);
+
+    // p^T and ds^T where s^T and dp^T lie: keys g + 8 i, queries 8 n + 2 t
+    // + (e & 1); rounded to bf16 as they are packed for their products
+    const bool edge = q0 + B > tq || (causal && q0 < k0 + B - 1);
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kpos = k0 + 16 * rw + g + 8 * (e >> 1);
+        const int qc = 8 * n + 2 * t + (e & 1), qpos = q0 + qc;
+        float val = st[n][e] * scale;
+        if (edge && causal && qpos < kpos) val = kNegInf;
+        const float p = edge && qpos >= tq ? 0.0f : __expf(val - Lj[qc]);
+        st[n][e] = p;
+        dpt[n][e] = (p * (dpt[n][e] - Ej[qc])) * scale;
+      }
+    acc_mma<B, DC / 8, S>(dva, st, Gj + bto);
+    acc_mma<B, DC / 8, S>(dka, dpt, Qj + bto);
+  }
+  cp_async_wait<0>();   // nothing left in flight at exit (nt may be 0)
+
+  bf16* dkb = dk + bh * tk * d;
+  bf16* dvb = dv + bh * tk * d;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = k0 + 16 * rw + g + 8 * i;
+    if (r >= tk) continue;
+#pragma unroll
+    for (int n = 0; n < DC / 8; ++n) {
+      const int c = col0 + 8 * n + 2 * t;
+      const int64_t at = (int64_t)r * d + c;
+      if (d % 2 == 0 && c + 1 < d) {
+        *reinterpret_cast<__nv_bfloat162*>(dkb + at) =
+            __floats2bfloat162_rn(dka[n][2 * i], dka[n][2 * i + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(dvb + at) =
+            __floats2bfloat162_rn(dva[n][2 * i], dva[n][2 * i + 1]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (c + e < d) {
+            dkb[at + e] = __float2bfloat16_rn(dka[n][2 * i + e]);
+            dvb[at + e] = __float2bfloat16_rn(dva[n][2 * i + e]);
+          }
+      }
+    }
+  }
+}
+
 // the pointers and sizes of one call, as the C entry points take them
 struct Args {
   const void *q, *k, *v, *dout;
@@ -918,6 +1470,12 @@ bool can_async(const Args& a) {
           (uintptr_t)a.dout) % 16 == 0;
 }
 
+// ... and of the bf16 instances' bf16 rows: d % 8 == 0, aligned starts
+bool can_async_bf16(const Args& a) {
+  return a.d % 8 == 0 && ((uintptr_t)a.q | (uintptr_t)a.k | (uintptr_t)a.v |
+                          (uintptr_t)a.dout) % 16 == 0;
+}
+
 // the grid's third axis: chunks of D for the WIDE instances
 template <int DP, bool WIDE>
 unsigned chunks(const Args& a) {
@@ -927,16 +1485,27 @@ unsigned chunks(const Args& a) {
 // K7a at instance width DP
 template <typename T, int DP, bool WIDE>
 int launch_fwd(const Args& a) {
-  using F = FwdTile<DP>;
-  const dim3 grid((unsigned)a.bh, (unsigned)((a.tq + F::BQ - 1) / F::BQ),
-                  chunks<DP, WIDE>(a));
-  int rc;
-  if ((rc = set_smem(flash_fwd_kernel<T, DP, WIDE>, F::smem)) != 0)
-    return rc;
-  flash_fwd_kernel<T, DP, WIDE><<<grid, F::THREADS, F::smem, a.st>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<T*>(a.o), a.lse, a.tq, a.tk,
-      a.d, a.scale, a.causal, can_async<T>(a));
+  if constexpr (std::is_same<T, bf16>::value && !WIDE) {
+    using F = FwdBf16Tile<DP>;
+    const dim3 grid((unsigned)a.bh, (unsigned)((a.tq + F::BQ - 1) / F::BQ));
+    int rc;
+    if ((rc = set_smem(flash_fwd_bf16_kernel<DP>, F::smem)) != 0) return rc;
+    flash_fwd_bf16_kernel<DP><<<grid, F::THREADS, F::smem, a.st>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+        static_cast<const bf16*>(a.v), static_cast<bf16*>(a.o), a.lse, a.tq,
+        a.tk, a.d, a.scale, a.causal, can_async_bf16(a));
+  } else {
+    using F = FwdTile<DP>;
+    const dim3 grid((unsigned)a.bh, (unsigned)((a.tq + F::BQ - 1) / F::BQ),
+                    chunks<DP, WIDE>(a));
+    int rc;
+    if ((rc = set_smem(flash_fwd_kernel<T, DP, WIDE>, F::smem)) != 0)
+      return rc;
+    flash_fwd_kernel<T, DP, WIDE><<<grid, F::THREADS, F::smem, a.st>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+        static_cast<const T*>(a.v), static_cast<T*>(a.o), a.lse, a.tq, a.tk,
+        a.d, a.scale, a.causal, can_async<T>(a));
+  }
   return 0;
 }
 
@@ -958,6 +1527,15 @@ int launch_bwd(int which, const Args& a) {
     flash_bwd_dq_kernel<T, DP, WIDE><<<grid, F::THREADS, F::smem, a.st>>>(
         q, k, v, g, a.lse, a.delta, static_cast<T*>(a.dq), a.tq, a.tk, a.d,
         a.scale, a.causal, can_async<T>(a));
+  } else if constexpr (std::is_same<T, bf16>::value && !WIDE) {
+    using G = BwdBf16Tile<DP>;
+    const dim3 grid2((unsigned)a.bh, (unsigned)((a.tk + G::B - 1) / G::B));
+    if ((rc = set_smem(flash_bwd_dkv_bf16_kernel<DP>, G::smem)) != 0)
+      return rc;
+    flash_bwd_dkv_bf16_kernel<DP><<<grid2, G::THREADS, G::smem, a.st>>>(
+        q, k, v, g, a.lse, a.delta, static_cast<bf16*>(a.dk),
+        static_cast<bf16*>(a.dv), a.tq, a.tk, a.d, a.scale, a.causal,
+        can_async_bf16(a));
   } else {
     if ((rc = set_smem(flash_bwd_dkv_kernel<T, DP, WIDE>, F::smem)) != 0)
       return rc;

@@ -1,11 +1,10 @@
 """Creation operators (counterpart of ``mxnet_tpu/ops/init_ops.py``;
 reference: src/operator/tensor/init_op.h).
 
-An op without tensor inputs makes its output on ``ctx``: a Context
-(default ``gpu(0)``), or the ``torch.device`` that the executor passes
-for a graph node (``meta`` during shape inference).  ``shape_array`` and
-``size_array`` are int32, as the JAX package's int64 request gives with
-its 32-bit types.
+An op without tensor inputs makes its output on ``ctx``: a Context (default the
+current context), or the ``torch.device`` that the executor passes for a graph
+node (``meta`` during shape inference).  ``shape_array`` and ``size_array`` are
+int32, as the JAX package's int64 request gives with its 32-bit types.
 """
 from __future__ import annotations
 
@@ -18,7 +17,7 @@ from .registry import normalize_tuple, register
 
 def device_of(ctx):
     """``ctx`` (a Context, a ``torch.device`` or None) as a
-    ``torch.device``; None means ``gpu(0)``."""
+    ``torch.device``; None means the current context."""
     if isinstance(ctx, torch.device) and ctx.type == "meta":
         return ctx
     return resolve(ctx)
@@ -50,7 +49,8 @@ def _full(shape=(), value=0.0, dtype="float32", ctx=None, **attrs):
 def _arange(start=0.0, stop=None, step=1.0, repeat=1, infer_range=False,
             dtype="float32", ctx=None, **attrs):
     """``[start, stop)`` by ``step`` (``[0, start)`` without ``stop``),
-    each value repeated ``repeat`` times, on ``ctx`` (default gpu(0))."""
+    each value repeated ``repeat`` times, on ``ctx`` (default the current
+    context)."""
     if stop is None:
         start, stop = 0.0, start
     out = torch.arange(start, stop, step, dtype=dtype_torch(dtype),

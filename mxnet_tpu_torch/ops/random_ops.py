@@ -6,11 +6,11 @@ Every op draws with ``__rng__``, the ``torch.Generator`` of the device
 it runs on (``random.generator``: seeded by ``mx.random.seed``, one per
 device), on that device: a draw for the card is made on the card, never
 on the host and copied.  An op without tensor inputs runs on ``ctx``
-(default ``gpu(0)``).  The parameterisations are the JAX package's:
-``gamma(alpha, beta)`` has beta a scale, ``exponential(lam)`` lam a
-rate, ``negative_binomial(k, p)`` is Poisson(Gamma(k) (1 - p) / p) and
-``generalized_negative_binomial(mu, alpha)`` the same with
-``k = 1 / alpha`` and ``p = k / (k + mu)``.  The JAX package draws from
+(default the current context).  The parameterisations are the JAX package's:
+``gamma(alpha, beta)`` has beta a scale, ``exponential(lam)`` lam a rate,
+``negative_binomial(k, p)`` is Poisson(Gamma(k) (1 - p) / p) and
+``generalized_negative_binomial(mu, alpha)`` the same with ``k = 1 / alpha``
+and ``p = k / (k + mu)``.  The JAX package draws from
 threefry and this package from torch's Philox: the same seed gives other
 numbers, from the same distributions.  The ``_sample_*`` ops take one
 set of parameters per element of their parameter arrays; their output

@@ -38,8 +38,8 @@ class Predictor:
 
     def _bind_aliased(self, symbol, arg_params, aux_params, input_shapes,
                       ctx):
-        """Inference-bind ``symbol`` on ``ctx`` (default ``gpu(0)``) and
-        alias the parameter tensors in (``_data`` assignment: a
+        """Inference-bind ``symbol`` on ``ctx`` (default the current
+        context) and alias the parameter tensors in (``_data`` assignment: a
         reference, never a copy, so every bucket's predictor shares one
         set of weights).  A parameter on another device or of another
         shape is an error, not a silent copy."""

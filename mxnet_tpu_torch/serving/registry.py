@@ -60,7 +60,7 @@ class ModelRegistry:
              version=None, ctx=None):
         """Register a checkpoint from its files or their contents (the
         ``Predictor`` contract), the parameters on ``ctx`` (default
-        ``gpu(0)``); returns the version."""
+        the current context); returns the version."""
         from ..predictor import _load_params, _load_symbol
         sym = _load_symbol(symbol_file)
         arg_params, aux_params = _load_params(param_file, ctx)

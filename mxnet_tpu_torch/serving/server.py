@@ -123,7 +123,7 @@ class _Request:
 
 class ModelServer:
     """The serving front door: a model registry and one batcher thread,
-    serving on ``ctx`` (default ``gpu(0)``; without a GPU pass
+    serving on ``ctx`` (default the current context; without a GPU pass
     ``ctx=cpu()``, or construction raises).
 
     >>> srv = ModelServer(max_batch=32, ctx=gpu(0))

@@ -454,7 +454,7 @@ class Symbol:
 
     def eval(self, ctx=None, **kwargs):
         """Bind ``kwargs`` as the arguments and run one forward; returns
-        the outputs.  ``ctx`` defaults to ``gpu(0)``."""
+        the outputs.  ``ctx`` defaults to the current context."""
         return self.bind(ctx, kwargs).forward()
 
     def simple_bind(self, ctx=None, grad_req="null", type_dict=None,
@@ -462,7 +462,7 @@ class Symbol:
         """Allocate every argument, aux state and (for a ``grad_req`` of
         write or add: a string, a list in argument order or a dict) the
         gradient buffers from the inferred shapes, and bind (reference:
-        symbol.py:1284).  ``ctx`` defaults to ``gpu(0)``.
+        symbol.py:1284).  ``ctx`` defaults to the current context.
 
         ``compute_dtype="bfloat16"`` turns on the executor's
         mixed-precision policy (fp32 masters, bf16 compute); the names in

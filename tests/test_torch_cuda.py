@@ -612,6 +612,74 @@ def test_k7b_k7c_kernels_bf16_and_scale(cuda):
         assert _bf16_bwd_close(got, ref)
 
 
+# bf16: the instances on the bf16 tensor cores (mma.sync m16n8k16, D up to
+# 256 rounded up to 32; D 320 takes the WIDE instances) at ragged T (1,
+# 127, 129, 1000), Tq != Tk both ways, the padded widths and every instance
+# width, and one attention of the GPT-2-small step, held with chip_smoke's
+# bands: o within one rounding plus one step of its largest term where
+# the keys fit in one key tile, of the sum of its terms beyond (the kernel
+# rounds p at its running max); lse within 1e-5; dq, dk and dv within one
+# rounding (``_bf16_bwd_close``)
+_BF16_FLASH_SHAPES = [(3, 8, 8, 32), (2, 64, 64, 64), (2, 127, 127, 64),
+                      (2, 129, 129, 64), (2, 1000, 1000, 64),
+                      (2, 24, 40, 64), (2, 40, 24, 64), (4, 100, 72, 16),
+                      (2, 72, 72, 48), (2, 130, 130, 80), (2, 128, 128, 96),
+                      (2, 64, 96, 112), (2, 200, 200, 128), (2, 50, 70, 150),
+                      (2, 90, 90, 160), (2, 40, 56, 200), (2, 33, 33, 256),
+                      (2, 65, 90, 320),
+                      (96, 1024, 1024, 64)]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("bh,tq,tk,d", _BF16_FLASH_SHAPES + [
+    (2, 1, 1, 64), (2, 1, 1, 128)])
+def test_k7a_bf16_instance_matches_plain(cuda, bh, tq, tk, d, causal):
+    q, k, v = _qkv(bh, tq, tk, d, torch.bfloat16, cuda)
+    before = ck.kernel_calls()["flash_attention_fwd"]
+    o, lse = ck.flash_attention_fwd(q, k, v, causal)
+    ro, rlse = ck.flash_attention_fwd_ref(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert ck.kernel_calls()["flash_attention_fwd"] == before + 1
+    assert o.dtype == torch.bfloat16 and o.shape == q.shape
+    assert torch.isfinite(o).all() and torch.isfinite(lse).all()
+    terms = chip_smoke.attention_terms(
+        q, k, v, causal, tk <= chip_smoke.k7a_key_tile(d))
+    assert chip_smoke.bf16_attention_close(o, ro, terms, 1e-6)
+    assert (lse - rlse).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("bh,tq,tk,d", _BF16_FLASH_SHAPES + [
+    (2, 7, 7, 64), (2, 17, 17, 64), (2, 65, 65, 64), (1, 1020, 1020, 64)])
+def test_k7c_bf16_instance_matches_plain(cuda, bh, tq, tk, d, causal):
+    args = _flash_bwd_case(bh, tq, tk, d, causal, torch.bfloat16, cuda)
+    before = ck.kernel_calls()
+    dq = ck.flash_attention_bwd_dq(*args, causal)
+    dk, dv = ck.flash_attention_bwd_dkv(*args, causal)
+    rdq = ck.flash_attention_bwd_dq_ref(*args, causal)
+    rdk, rdv = ck.flash_attention_bwd_dkv_ref(*args, causal)
+    torch.cuda.synchronize()
+    after = ck.kernel_calls()
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        assert after[name] == before[name] + 1
+    for got, ref in ((dq, rdq), (dk, rdk), (dv, rdv)):
+        assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+        assert torch.isfinite(got).all()
+        assert _bf16_bwd_close(got, ref)
+
+
+def test_k7a_k7c_bf16_instances_run_on_the_tensor_cores(cuda):
+    """The built library's bf16 D-64 instances of K7a and K7c hold bf16
+    tensor-core instructions (``cuobjdump -sass``)."""
+    from mxnet_tpu_torch.ops import _build
+    q, k, v = _qkv(1, 8, 8, 64, torch.bfloat16, cuda)
+    ck.flash_attention_fwd(q, k, v, True)     # builds the library
+    torch.cuda.synchronize()
+    counts = chip_smoke.hmma_counts(_build)
+    assert set(counts) == {"K7a", "K7c"}
+    assert all(c["count"] > 0 for c in counts.values())
+
+
 # fp32: the row dot runs in another order than torch's sum, so dx agrees
 # within 1e-5 of its largest magnitude; a masked probability (exactly 0)
 # gives a dx of exactly 0.  The K5a cases, causal probabilities: "offset"

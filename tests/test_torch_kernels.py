@@ -537,6 +537,53 @@ _SOFTMAX_KERNEL_NAMES = [
 ]
 
 
+# the profiler's names of flash_attention.cu's kernels: the bf16
+# instances of K7a and K7c on the bf16 tensor cores (flash_fwd_bf16_kernel,
+# flash_bwd_dkv_bf16_kernel), the fp32 ones, K7b's and the WIDE ones
+_BF16_FWD_ARGS = ("(__nv_bfloat16 const*, __nv_bfloat16 const*, "
+                  "__nv_bfloat16 const*, __nv_bfloat16*, float*, int, int, "
+                  "int, float, int, bool)")
+_BF16_DKV_ARGS = ("(__nv_bfloat16 const*, __nv_bfloat16 const*, "
+                  "__nv_bfloat16 const*, __nv_bfloat16 const*, float const*, "
+                  "float const*, __nv_bfloat16*, __nv_bfloat16*, int, int, "
+                  "int, float, int, bool)")
+_FLASH_KERNEL_NAMES = [
+    ("void (anonymous namespace)::flash_fwd_bf16_kernel<64>"
+     + _BF16_FWD_ARGS, "K7a"),
+    ("void (anonymous namespace)::flash_fwd_bf16_kernel<256>"
+     + _BF16_FWD_ARGS, "K7a"),
+    ("void (anonymous namespace)::flash_bwd_dkv_bf16_kernel<64>"
+     + _BF16_DKV_ARGS, "K7c"),
+    ("void (anonymous namespace)::flash_bwd_dkv_bf16_kernel<128>"
+     + _BF16_DKV_ARGS, "K7c"),
+    ("void (anonymous namespace)::flash_fwd_kernel<float, 64, false>(float "
+     "const*, float const*, float const*, float*, float*, int, int, int, "
+     "float, int, bool)", "K7a"),
+    ("void (anonymous namespace)::flash_fwd_kernel<__nv_bfloat16, 64, true>"
+     + _BF16_FWD_ARGS, "K7a"),
+    ("void (anonymous namespace)::flash_bwd_dq_kernel<__nv_bfloat16, 64, "
+     "false>(__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 "
+     "const*, __nv_bfloat16 const*, float const*, float const*, "
+     "__nv_bfloat16*, int, int, int, float, int, bool)", "K7b"),
+    ("void (anonymous namespace)::flash_bwd_dkv_kernel<float, 64, false>"
+     "(float const*, float const*, float const*, float const*, float "
+     "const*, float const*, float*, float*, int, int, int, float, int, "
+     "bool)", "K7c"),
+]
+
+
+@pytest.mark.parametrize("table", ["KINDS", "LM_KINDS", "LM_TRAIN_KINDS"])
+@pytest.mark.parametrize("name,kind", _FLASH_KERNEL_NAMES)
+def test_chip_smoke_profile_kinds_tell_the_flash_kernels_apart(name, kind,
+                                                               table):
+    """Each kernel of flash_attention.cu, the bf16 tensor-core instances
+    of K7a and K7c among them, lands in its own kind in every profile
+    table of chip_smoke.py, and never in another or in "other"."""
+    import chip_smoke
+    us = chip_smoke.by_kind({name: 1.0}, getattr(chip_smoke, table))
+    assert us[kind] == 1.0 and sum(us.values()) == 1.0
+
+
 @pytest.mark.parametrize("table", ["KINDS", "LM_KINDS", "LM_TRAIN_KINDS"])
 @pytest.mark.parametrize("name,kind", _SOFTMAX_KERNEL_NAMES)
 def test_chip_smoke_profile_kinds_tell_the_softmax_kernels_apart(name, kind,

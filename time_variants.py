@@ -4,6 +4,8 @@ stands, on one NVIDIA GPU::
 
     python3 time_variants.py              # softmax.cu: K5a, K5b (and K2)
     python3 time_variants.py layernorm    # layernorm.cu: K6b
+    python3 time_variants.py flash        # flash_attention.cu: bf16 K7a, K7c
+    python3 time_variants.py flash_band   # phase 15's band over seeds
 
 Each variant is ``mxnet_tpu_torch/ops/csrc/<source>.cu`` with a few lines
 replaced, compiled with the flags of ``ops/_build.py`` into
@@ -24,6 +26,24 @@ rounding (bf16) at ``chip_smoke.K6B_EDGE`` and at the training step's
 dx-only ``native_layer_norm_backward`` on the same operands: back to back
 (the L2 cache keeps what fits of the last launch's operands) and each
 launch after the L2 cache is overwritten (``chip_smoke.time_cold_ms``).
+
+``flash_attention.cu``: the bf16 instances of K7a and K7c on the bf16
+tensor cores, o within ``chip_smoke.bf16_attention_close`` and lse
+within 1e-5, dk and dv within ``chip_smoke._bf16_bwd_close`` of the
+plain versions at ``FLASH_EDGE`` and at the training step's (96, 1024,
+64) causal, timed there beside SDPA's bf16 forward and backward; at that
+shape each variant's o is also held to an fp64 attention of the same
+bf16 operands (mean |error|, and the share of o's elements that differ
+from the source's), and each runs phase 15's gradient check
+(``chip_smoke.bf16_grad_check``: the bf16 GPT-2-small-width transformer's
+step against the knobs-0 step, in units of its band).
+
+``flash_band``: no timing; phase 15's gradient check at each of
+``BAND_SEEDS`` (the transformer's weights and its batch from the seed)
+with K7a's bf16 instance three ways: the source as it stands (``expf``),
+its fast ``__expf`` variant, and K7a's plain version in its place (K7b,
+K7c and the rest the source's), so that the spread of the band's
+readings over seeds shows which differences it can tell apart.
 
 Prints the compiler's register count of the main-path instances and the
 card's name and power limit.
@@ -74,6 +94,46 @@ LAYERNORM_VARIANTS = {
 # K6b's main-path instances: fp32 at C 768 (6 chunks), bf16 (3 chunks)
 LAYERNORM_MAIN = ("layernorm_bwd_regs_kernelIfLi6E",
                   "layernorm_bwd_regs_kernelI13__nv_bfloat16Li3E")
+# name -> [(text of flash_attention.cu, its replacement)]
+FLASH_VARIANTS = {
+    "K7a bf16: the fast __expf": [
+        ("        alpha[i] = expf(m[i] - m_new);",
+         "        alpha[i] = __expf(m[i] - m_new);"),
+        ("          const float p = expf(s[n][e] - m[e >> 1]);",
+         "          const float p = __expf(s[n][e] - m[e >> 1]);")],
+    "K7a bf16: 4 warps (64 query rows) a block at D 64": [
+        ("  static constexpr int WARPS = DP <= 64 ? 8 : 4;",
+         "  static constexpr int WARPS = 4;")],
+    "K7a bf16: one block's registers an SM at D 64": [
+        ("  static constexpr int MIN_BLOCKS = DP <= 64 ? 2 : 1;",
+         "  static constexpr int MIN_BLOCKS = 1;")],
+    "K7a bf16: 128 keys a step at D 64": [
+        ("  static constexpr int BK = DP <= 128 ? 64 : 32;",
+         "  static constexpr int BK = DP <= 64 ? 128 : DP <= 128 ? 64 : 32;"),
+        ("  static constexpr int MIN_BLOCKS = DP <= 64 ? 2 : 1;",
+         "  static constexpr int MIN_BLOCKS = 1;")],
+    "K7c bf16: registers for two blocks an SM at D 64 (214, no stack)": [
+        ("  static constexpr int MIN_BLOCKS = DP <= 64 ? 3 : 1;",
+         "  static constexpr int MIN_BLOCKS = 1;")],
+    "K7c bf16: 32-row tiles at D 64 (8 warps: 4 a tile's rows, 2 columns)": [
+        ("struct BwdBf16Tile {\n"
+         "  static constexpr int B = DP <= 64 ? 64 : 32;\n"
+         "  static constexpr int NS = DP <= 64 ? 1 : DP <= 128 ? 2 : 4;",
+         "struct BwdBf16Tile {\n"
+         "  static constexpr int B = 32;\n"
+         "  static constexpr int NS = DP <= 32 ? 1 : DP <= 128 ? 2 : 4;")],
+}
+# the seeds of the transformer's weights and batch that flash_band reads
+# phase 15's gradient check at
+BAND_SEEDS = (0, 1, 2, 3, 4)
+# the bf16 D-64 instances of K7a and K7c
+FLASH_MAIN = ("flash_fwd_bf16_kernelILi64E", "flash_bwd_dkv_bf16_kernelILi64E")
+# (BH, Tq, Tk, D, causal) that each variant is held to its plain versions
+# at besides the main shape: ragged tiles, Tq != Tk, the D-128 and D-256
+# instances
+FLASH_EDGE = ((4, 129, 129, 64, True), (4, 1000, 1000, 64, False),
+              (4, 40, 72, 64, True), (4, 72, 40, 64, False),
+              (4, 200, 200, 128, True), (4, 200, 200, 256, False))
 
 
 def compile_all(source, texts, out_dir, main, argtypes):
@@ -122,6 +182,16 @@ SOFTMAX_ARGTYPES = {
 LAYERNORM_ARGTYPES = {
     "mxtt_layernorm_bwd": [ctypes.c_void_p] * 6 + [
         ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]}
+FLASH_ARGTYPES = {
+    "mxtt_flash_attention_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int64]
+    + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                            ctypes.c_void_p],
+    "mxtt_flash_attention_bwd_dq": [ctypes.c_void_p] * 7 + [ctypes.c_int64]
+    + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                            ctypes.c_void_p],
+    "mxtt_flash_attention_bwd_dkv": [ctypes.c_void_p] * 8 + [ctypes.c_int64]
+    + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                            ctypes.c_void_p]}
 
 
 def variant_texts(source, variants):
@@ -284,16 +354,185 @@ def layernorm_main(smi, dev, bw, flops, out_dir):
               flush=True)
 
 
+def flash_calls(lib, q, k, v, do, lse, delta, causal):
+    """K7a and K7c of ``lib`` on bf16 operands as calls on the current
+    stream."""
+    bh, tq, d = q.shape
+    tk, scale = k.shape[1], d ** -0.5
+
+    def k7a():
+        o = torch.empty_like(q)
+        out_lse = torch.empty((bh, tq), dtype=torch.float32, device=q.device)
+        rc = lib.mxtt_flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            out_lse.data_ptr(), bh, tq, tk, d, scale, int(causal), 1,
+            torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError("K7a launch failed: %d" % rc)
+        return o, out_lse
+
+    def k7c():
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        rc = lib.mxtt_flash_attention_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            bh, tq, tk, d, scale, int(causal), 1,
+            torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError("K7c launch failed: %d" % rc)
+        return dk, dv
+    return k7a, k7c
+
+
+def fp64_attention(q, k, v, causal):
+    """Softmax attention of bf16 (BH, T, D) operands in float64, p
+    unrounded: what K7a's o approximates."""
+    s = torch.matmul(q.double(), k.double().transpose(1, 2)) \
+        * q.shape[-1] ** -0.5
+    if causal:
+        keep = torch.ones(s.shape[1:], dtype=torch.bool,
+                          device=s.device).tril()
+        s = s.masked_fill(~keep, float("-inf"))
+    return torch.matmul(torch.softmax(s, -1), v.double())
+
+
+def grad_check_with(lib, seed=chip_smoke.SEED, plain_k7a=False):
+    """Phase 15's gradient check (``chip_smoke.bf16_grad_check``) with
+    the flash wrappers bound to ``lib``'s entry points, the transformer's
+    weights and batch from ``seed``; with ``plain_k7a`` the kernel path
+    runs K7a's plain version in place of K7a."""
+    import gc
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+    for name, types in FLASH_ARGTYPES.items():
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        ck._FNS[name] = fn
+    lm = chip_smoke.transformer_lm(mx, mx.gpu(0), seed=seed)
+    lm.cast("bfloat16")
+    x, y = chip_smoke.lm_batch(mx, mx.gpu(0),
+                               chip_smoke.GPT2_SMALL["vocab_size"],
+                               chip_smoke.LM_BATCH, chip_smoke.LM_T[0],
+                               seed=seed)
+    kernel = ck.flash_attention_fwd
+    if plain_k7a:
+        ck.flash_attention_fwd = ck.flash_attention_fwd_ref
+    try:
+        return chip_smoke.bf16_grad_check(
+            mx, ck, lm, mx.gluon.loss.SoftmaxCrossEntropyLoss(), x, y)
+    finally:
+        ck.flash_attention_fwd = kernel
+        del lm, x, y
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def flash_main(smi, dev, bw, flops, out_dir):
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+    bf16 = chip_smoke.card_rates(torch.cuda.get_device_name(0))[3]
+    gen = torch.Generator(device=dev).manual_seed(chip_smoke.SEED)
+    bh, t = chip_smoke.LM_BATCH * chip_smoke.GPT2_SMALL["num_heads"], \
+        chip_smoke.LM_T[0]
+    d = chip_smoke.GPT2_SMALL["units"] // chip_smoke.GPT2_SMALL["num_heads"]
+    cases = []
+    for b_, tq, tk, d_, causal in ((bh, t, t, d, True),) + FLASH_EDGE:
+        args = chip_smoke.flash_bwd_operands(ck, gen, b_, tq, tk, d_, causal,
+                                             torch.bfloat16, dev)
+        q, k, v = args[:3]
+        cases.append((args, causal, ck.flash_attention_fwd_ref(
+            q, k, v, causal), ck.flash_attention_bwd_dkv_ref(*args, causal),
+            chip_smoke.attention_terms(
+                q, k, v, causal, tk <= chip_smoke.k7a_key_tile(d_))))
+    args = cases[0][0]
+    heads = chip_smoke.GPT2_SMALL["num_heads"]
+    q4, k4, v4 = (a.view(bh // heads, heads, t, d).clone().requires_grad_()
+                  for a in args[:3])
+    o4 = torch.nn.functional.scaled_dot_product_attention(q4, k4, v4,
+                                                          is_causal=True)
+    do4 = args[3].view(bh // heads, heads, t, d)
+    sdpa_fwd = chip_smoke.time_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True))
+    sdpa_bwd = chip_smoke.time_ms(lambda: torch.autograd.grad(
+        o4, (q4, k4, v4), do4, retain_graph=True))
+    bound_a = chip_smoke.flash_bound(bh, t, t, d, True, 2, bw, bf16)[0]
+    pairs = t * (t + 1) // 2
+    bound_c = chip_smoke.bound_ms(
+        chip_smoke.flash_bwd_bytes(bh, t, t, d, 2, 2),
+        2 * d * 4 * bh * pairs, bw, bf16)[0]
+    print("(%d, %d, %d) bf16 causal; bounds: K7a %.4f ms, K7c %.4f ms; SDPA "
+          "bf16 forward %.4f ms, its backward (dq, dk, dv) %.4f ms; the "
+          "plain version's o vs fp64: mean |error| %.4g" % (
+              bh, t, d, bound_a, bound_c, sdpa_fwd, sdpa_bwd,
+              (cases[0][2][0].double() - fp64_attention(*args[:3], True))
+              .abs().mean().item()), flush=True)
+    exact = fp64_attention(*args[:3], True)
+    runs = variant_texts("flash_attention", FLASH_VARIANTS)
+    libs = compile_all("flash_attention", [text for _, text in runs[:-1]],
+                       out_dir, FLASH_MAIN, FLASH_ARGTYPES)
+    first = None
+    for (name, _), (lib, regs) in zip(runs, libs + libs[:1]):
+        for args, causal, (ro, rlse), (rdk, rdv), terms in cases:
+            k7a, k7c = flash_calls(lib, *args, causal)
+            (o, lse), (dk, dv) = k7a(), k7c()
+            if not (chip_smoke.bf16_attention_close(o, ro, terms, 1e-6)
+                    and (lse - rlse).abs().max().item() <= 1e-5
+                    and chip_smoke._bf16_bwd_close(dk, rdk)
+                    and chip_smoke._bf16_bwd_close(dv, rdv)):
+                raise AssertionError("%s: K7a or K7c off their plain "
+                                     "versions at %s causal=%s"
+                                     % (name, tuple(args[0].shape), causal))
+        k7a, k7c = flash_calls(lib, *cases[0][0], True)
+        ms_a, ms_c = chip_smoke.time_ms(k7a), chip_smoke.time_ms(k7c)
+        o = k7a()[0]
+        first = o if first is None else first
+        grads = grad_check_with(lib)
+        print("%-66s K7a %.4f ms (%.0f%% of its bound), K7c %.4f ms (%.0f%%); "
+              "o vs fp64: mean |error| %.4g, %.5f of o's elements differ "
+              "from the source's; phase 15's gradients %.3f of their band "
+              "(%s); %s" % (
+                  name, ms_a, 100 * bound_a / ms_a, ms_c,
+                  100 * bound_c / ms_c,
+                  (o.double() - exact).abs().mean().item(),
+                  (o != first).float().mean().item(),
+                  grads["grad_dev_by_band"], grads["worst"],
+                  "; ".join(regs)), flush=True)
+
+
+def flash_band_main(smi, dev, bw, flops, out_dir):
+    name = "K7a bf16: the fast __expf"
+    runs = variant_texts("flash_attention", {name: FLASH_VARIANTS[name]})
+    libs = compile_all("flash_attention", [text for _, text in runs[:2]],
+                       out_dir, FLASH_MAIN, FLASH_ARGTYPES)
+    ways = [("K7a as it stands (expf)", libs[0][0], False),
+            ("K7a on the fast __expf", libs[1][0], False),
+            ("K7a's plain version", libs[0][0], True)]
+    print("phase 15's gradients in units of their band, seeds %s"
+          % (BAND_SEEDS,), flush=True)
+    for label, lib, plain in ways:
+        reads = []
+        for seed in BAND_SEEDS:
+            grads = grad_check_with(lib, seed, plain)
+            reads.append(grads["grad_dev_by_band"])
+            print("  %-26s seed %d: %.3f (%s)" % (
+                label, seed, grads["grad_dev_by_band"], grads["worst"]),
+                flush=True)
+        print("%-28s min %.3f, mean %.3f, max %.3f over %d seeds" % (
+            label, min(reads), sum(reads) / len(reads), max(reads),
+            len(reads)), flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("time_variants: needs an NVIDIA GPU", file=sys.stderr)
         return 1
     from mxnet_tpu_torch.ops import _build
     source = sys.argv[1] if len(sys.argv) > 1 else "softmax"
-    runner = {"softmax": softmax_main, "layernorm": layernorm_main}.get(source)
+    runner = {"softmax": softmax_main, "layernorm": layernorm_main,
+              "flash": flash_main, "flash_band": flash_band_main}.get(source)
     if runner is None:
-        print("time_variants: the source is softmax or layernorm, not %r"
-              % source, file=sys.stderr)
+        print("time_variants: the source is softmax, layernorm, flash or "
+              "flash_band, not %r" % source, file=sys.stderr)
         return 2
     smi = card_name()
     dev = torch.device("cuda", 0)
