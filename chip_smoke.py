@@ -13,7 +13,7 @@ Phases, each of which raises on failure:
    ``mxnet_tpu_torch/ops/csrc`` (one ``nvcc`` per source, all at once);
    then ``cuobjdump -sass`` of the flash library counts the bf16
    tensor-core instructions (``HMMA.16816.F32.BF16``) of the bf16 D-64
-   instances of K7a and K7c, which must not be 0;
+   instances of K7a, K7b and K7c, which must not be 0;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes a batch-32 ResNet-50 forward gives it.  K3 (BatchNorm->ReLU
    epilogue) must be bitwise equal at all 33 fused sites, fp32 and bf16,
@@ -183,8 +183,8 @@ Prints one JSON line ``{"checkpoints": {...}}`` with phase 13's numbers,
 [...]}`` (all twelve kernels; K3, K2 and K1b with their
 ``launches_inception``, K1b, K2, K3, K6a, K6b, K7a, K7b and K7c with
 their ``launches_mixed``, K3, K6a, K7b and K7c with their ``bf16``
-times, K7a and K7c with the ``HMMA.16816.F32.BF16`` count of their bf16
-D-64 instances (``hmma_bf16_dp64``), K6b's fp32 and bf16 repeats beside
+times, K7a, K7b and K7c with the ``HMMA.16816.F32.BF16`` count of their
+bf16 D-64 instances (``hmma_bf16_dp64``), K6b's fp32 and bf16 repeats beside
 aten's), the serving, training
 and transformer numbers beside the card's name and power limit, and as
 its last line
@@ -1141,12 +1141,13 @@ def calibrate_fc(mx, sym, args, auxs, ctx, x):
 
 
 # ---------------------------------------------------------------------------
-# phase 2 (b): the bf16 instances of K7a and K7c on the tensor cores
+# phase 2 (b): the bf16 instances of K7a, K7b and K7c on the tensor cores
 # ---------------------------------------------------------------------------
 # the bf16 tensor-core instruction of mma.sync m16n8k16 bf16 -> fp32, and
 # the mangled names of the bf16 D-64 instances that must hold it
 HMMA_BF16 = "HMMA.16816.F32.BF16"
 HMMA_KERNELS = (("K7a", "flash_fwd_bf16_kernelILi64E"),
+                ("K7b", "flash_bwd_dq_bf16_kernelILi64E"),
                 ("K7c", "flash_bwd_dkv_bf16_kernelILi64E"))
 
 
@@ -1464,8 +1465,9 @@ SOFTMAX_KINDS = (("K5b", ("::softmax_bwd_",)), ("K5a", ("::bias_softmax_",)),
                  ("K2", ("::softmax_regs_", "::softmax_rows_")))
 
 # flash_attention.cu's kernels by name: K7a's flash_fwd_kernel and
-# flash_fwd_bf16_kernel, K7b's flash_bwd_dq_kernel, K7c's
-# flash_bwd_dkv_kernel and flash_bwd_dkv_bf16_kernel
+# flash_fwd_bf16_kernel, K7b's flash_bwd_dq_kernel and
+# flash_bwd_dq_bf16_kernel, K7c's flash_bwd_dkv_kernel and
+# flash_bwd_dkv_bf16_kernel
 FLASH_KINDS = (("K7a", ("flash_fwd",)), ("K7b", ("flash_bwd_dq",)),
                ("K7c", ("flash_bwd_dkv",)))
 
@@ -3674,9 +3676,8 @@ def bf16_instances(ck, dev, bw, bf16, sites,
     beside the backward of SDPA in bf16 (its bf16 tensor cores).  The
     correctness of each was held in phases 3, 9 and 11.  Returns ``{K:
     jobs}``; each job's bound is the bf16 one: 2-byte operands, the
-    operations at the card's bf16 tensor-core rate ``bf16`` (K7b computes
-    its products as one TF32 product each, which does not lower the
-    card's bf16 peak; K7c's bf16 instance runs bf16 mma.sync)."""
+    operations at the card's bf16 tensor-core rate ``bf16`` (the bf16
+    instances of both run bf16 mma.sync)."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 15)
     out = {"K3": {}}
     for _, shape in sites:
@@ -3950,6 +3951,7 @@ def main():
     # 11. the backward kernels against their plain versions
     k6b, k6b_jobs = check_k6b(ck, dev, bw, flops, bf16)
     (k7b, k7c), (k7b_jobs, k7c_jobs) = check_k7bc(ck, dev, bw, flops, tf32)
+    k7b["hmma_bf16_dp64"] = hmma["K7b"]["count"]
     k7c["hmma_bf16_dp64"] = hmma["K7c"]["count"]
     k5b, k5b_jobs = check_k5b(ck, dev, bw, flops)
     bwd_recs = ((k6b, k6b_jobs), (k7b, k7b_jobs), (k7c, k7c_jobs),
@@ -4531,13 +4533,15 @@ def main():
                                 (k7b["ms"] + k7c["ms"]) / k7b["library_ms"]))
     k7a_bf16 = next(j for j in k7a_jobs if j["dtype"] == "bfloat16")
     print("bf16 on %s: K7a %s causal %.4f ms against SDPA bf16 %.4f ms "
-          "(%.2fx), bound %.4f ms, %d %s; K7c %.4f ms (%d %s), K7b %.4f ms, "
+          "(%.2fx), bound %.4f ms, %d %s; K7c %.4f ms (%d %s), K7b %.4f ms "
+          "(%d %s), "
           "K7b + K7c %.4f ms against SDPA's bf16 backward %.4f ms (%.2fx), "
           "bounds %.4f and %.4f ms"
           % (smi, k7a_bf16["shape"], k7a_bf16["ms"], k7a_bf16["library_ms"],
              k7a_bf16["ms"] / k7a_bf16["library_ms"], k7a_bf16["bound_ms"],
              k7a["hmma_bf16_dp64"], HMMA_BF16, k7c["bf16"]["ms"],
              k7c["hmma_bf16_dp64"], HMMA_BF16, k7b["bf16"]["ms"],
+             k7b["hmma_bf16_dp64"], HMMA_BF16,
              k7b["bf16"]["ms"] + k7c["bf16"]["ms"],
              k7b["bf16"]["library_ms"],
              (k7b["bf16"]["ms"] + k7c["bf16"]["ms"])

@@ -56,9 +56,9 @@
 //     before P V (a no-op in fp32) and summed into l unrounded, as the TPU
 //     kernel multiplies p.astype(v.dtype) by V (pallas_kernels.py :185-188).
 //
-// K7b (flash_bwd_dq_kernel, both dtypes) and K7c's fp32 and WIDE bf16
-// instances (flash_bwd_dkv_kernel), products on the tensor cores with
-// mma.sync m16n8k8 TF32 and fp32 accumulation:
+// K7b's and K7c's fp32 and WIDE bf16 instances (flash_bwd_dq_kernel,
+// flash_bwd_dkv_kernel), products on the tensor cores with mma.sync
+// m16n8k8 TF32 and fp32 accumulation:
 //   - fp32 runs in 3xTF32: each operand x is split into hi = x rounded to
 //     TF32 (cvt.rna) and lo = x - hi (which the tensor cores truncate to
 //     TF32), and each product is lo*hi + hi*lo + hi*hi, the small terms
@@ -69,8 +69,8 @@
 //     each chain of mma runs into a fresh partial of at most 64 keys or
 //     columns that an fp32 add folds into the sum (one chain over 1024
 //     queries drifted past 1e-5 of the largest dk and dv on the card).
-//     bf16 operands (K7b's bf16 instance, the WIDE bf16 ones), and p and
-//     ds rounded to bf16, are exact in TF32: one product each, the TPU
+//     bf16 operands (the WIDE bf16 instances), and p and ds rounded to
+//     bf16, are exact in TF32: one product each, the TPU
 //     kernels' own arithmetic (bf16 products summed in fp32), at half the
 //     k of a bf16 mma and from fp32 tiles;
 //   - the split is made when a fragment is read from shared memory, not
@@ -106,18 +106,20 @@
 //     (rounding lo with a cvt of its own, one instruction more per split
 //     element, was slower in proportion).
 //
-// K7a's and K7c's bf16 instances up to D 256 (flash_fwd_bf16_kernel,
-// flash_bwd_dkv_bf16_kernel) run every product as mma.sync m16n8k16
-// bf16 x bf16 with fp32 accumulation, the TPU kernels' arithmetic:
-//   - Q, K, V (and in K7c dO) stay bf16 in shared memory, copied by
+// The bf16 instances of all three up to D 256 (flash_fwd_bf16_kernel,
+// flash_bwd_dq_bf16_kernel, flash_bwd_dkv_bf16_kernel) run every product
+// as mma.sync m16n8k16 bf16 x bf16 with fp32 accumulation, the TPU
+// kernels' arithmetic:
+//   - Q, K, V (and in K7b and K7c dO) stay bf16 in shared memory, copied by
 //     16-byte cp.async (d % 8 == 0 and 16-byte aligned operands; else
 //     through registers), rows strided by S = DP + 8 elements so that
 //     the eight 16-byte rows of an ldmatrix phase fall in eight distinct
 //     bank groups; fragments are read with ldmatrix.x4 (A: rows 0-7 and
 //     8-15 at k 0-7, then at k 8-15; B from the rows of the n operand
 //     untransposed, or with .trans from the rows of the k operand);
-//   - each warp owns 16 rows (query rows in K7a, key rows in K7c); the
-//     scores (s in K7a; s^T and dp^T in K7c) come out in the accumulator
+//   - each warp owns 16 rows (query rows in K7a and K7b, key rows in
+//     K7c); the scores (s in K7a; s and dp in K7b; s^T and dp^T in K7c)
+//     come out in the accumulator
 //     layout (rows g and g + 8, columns 2t and 2t + 1 of each n8 tile, g
 //     = lane / 4, t = lane % 4), where p (and ds) are formed, rounded to
 //     bf16 and packed into the A fragments of the next product as they
@@ -143,10 +145,19 @@
 //     each warp's DC = DP / NS columns are n8 tiles read two an x4
 //     ldmatrix, and at DP 160 and 224 (DC 40 and 56) an odd last one by
 //     an x2;
+//   - K7b: K7c's tiles with queries and keys swapped (64 own query rows
+//     and streamed key rows, 4 warps, up to D 64; 32 rows beyond), K and V
+//     double-buffered and copied one tile ahead, lse and delta of a warp's
+//     rows in registers, Q and dO A fragments read by ldmatrix each key
+//     tile; shared memory 30, 54, 39, 51, 63, 75, 87 and 99 KB at DP 32
+//     to 256, 128 registers and 8 bytes of stack at D 64 (four blocks an
+//     SM); ds rounded to bf16 as it is packed (the TPU's ds.astype(
+//     k.dtype)), dq += ds K with K read by ldmatrix.trans; under a causal
+//     mask heaviest tiles first, every warp through the whole diagonal
+//     tile;
 //   - the score products chain into fresh 64-column partials above D 64,
 //     as the TF32 ones do (K7a's lse is held to 1e-5).
-// K7b's bf16 instance and the WIDE bf16 instances (D > 256) keep the
-// older code above.
+// The WIDE bf16 instances (D > 256) keep the older code above.
 //
 // All three: under a causal mask the forward and dq skip the key tiles
 // past the tile's last query row, and dk/dv start at the query tile that
@@ -936,9 +947,9 @@ __global__ void __launch_bounds__(BwdTile<DP>::THREADS)
 }
 
 // ---------------------------------------------------------------------------
-// The bf16 instances of K7a and K7c on the bf16 tensor cores (mma.sync
-// m16n8k16, bf16 x bf16 summed in fp32); K7b's bf16 instance and the WIDE
-// ones (D > kMaxD) above keep the TF32 and SIMT paths.
+// The bf16 instances of K7a, K7b and K7c on the bf16 tensor cores
+// (mma.sync m16n8k16, bf16 x bf16 summed in fp32); the WIDE ones (D >
+// kMaxD) above keep the TF32 and SIMT paths.
 // ---------------------------------------------------------------------------
 using bf16 = __nv_bfloat16;
 
@@ -1090,7 +1101,8 @@ __device__ __forceinline__ void rows_mma(float (&c)[NB][4], const bf16* xa,
 // acc[n] += P Y[:, 8 n .. 8 n + 7] for P a warp's 16 rows of p (or ds) over
 // KB keys in the accumulator layout, and Y KB rows of NN x 8 columns (at
 // ``yt``, a_offset added), read with .trans: two n8 tiles an x4 ldmatrix,
-// and an odd last one (K7c's DC 40 and 56, at DP 160 and 224) by an x2
+// and an odd last one (K7b's and K7c's DC 40 and 56, at DP 160 and 224)
+// by an x2
 template <int KB, int NN, int S>
 __device__ __forceinline__ void acc_mma(float (&acc)[NN][4],
                                         const float (&p)[KB / 8][4],
@@ -1275,26 +1287,154 @@ __global__ void __launch_bounds__(FwdBf16Tile<DP>::THREADS,
   }
 }
 
-// K7c's bf16 tiles for an instance width DP (a multiple of 32, up to
-// kMaxD): B rows of the block's own key tile and of each streamed query
-// tile; NS warps share 16 own rows, each with DC output columns; bf16
-// tiles with a row stride of S = DP + 8 elements.  Shared memory: K and V
-// once, Q and dO twice, lse and delta twice (fp32).
+// K7b's and K7c's bf16 tiles for an instance width DP (a multiple of 32,
+// up to kMaxD): B rows of the block's own tile (queries in K7b, keys in
+// K7c) and of each streamed tile; NS warps share 16 own rows, each with
+// DC output columns; bf16 tiles with a row stride of S = DP + 8 elements.
+// Shared memory: the two own tiles once, the two streamed tiles twice,
+// and in K7c lse and delta twice (fp32; K7b keeps its rows' in registers).
 template <int DP>
 struct BwdBf16Tile {
   static constexpr int B = DP <= 64 ? 64 : 32;
   static constexpr int NS = DP <= 64 ? 1 : DP <= 128 ? 2 : 4;
   static constexpr int THREADS = 32 * (B / 16) * NS;
-  // registers for three blocks an SM up to D 64 (on the card 6% faster
-  // than the 214 registers two blocks allow, though ptxas keeps 88 bytes
-  // on the stack; PERF.md §6)
+  // K7c's registers for three blocks an SM up to D 64: on the card 6%
+  // faster than with the 214 registers two blocks allow, though ptxas
+  // keeps 88 bytes on the stack (PERF.md §6)
   static constexpr int MIN_BLOCKS = DP <= 64 ? 3 : 1;
+  // K7b's for four blocks an SM up to D 64 (128, 8 bytes on the stack):
+  // on the card 6% less time than with three blocks' 168 and 24% less
+  // than with one block's 200 (PERF.md §6)
+  static constexpr int MIN_BLOCKS_DQ = DP <= 64 ? 4 : 1;
   static constexpr int S = DP + 8;
   static constexpr int DC = DP / NS;
   static constexpr int NB = B / 8;
-  static constexpr size_t smem =
-      sizeof(bf16) * 6 * B * S + sizeof(float) * 4 * B;
+  static constexpr size_t smem_dq = sizeof(bf16) * 6 * B * S;
+  static constexpr size_t smem = smem_dq + sizeof(float) * 4 * B;
 };
+
+// K7b, bf16: one block per (slice, query tile); warp (rw, cw) owns query
+// rows 16 rw .. 16 rw + 15 and dq columns DC cw .. DC cw + DC - 1.  Per key
+// tile: s = Q K^T and dp = dO V^T (A fragments of the warp's Q and dO
+// rows, B fragments of K and V rows by ldmatrix), p and ds in registers,
+// ds rounded to bf16 and packed as A fragments where it stands, dq += ds K
+// (K read with ldmatrix.trans).  K and V of the next tile are copied in by
+// cp.async while this one computes; under a causal mask the heaviest query
+// tiles launch first.  Every warp runs the whole diagonal tile: skipping
+// the 16-key steps past a warp's last row there, warp-uniform branches
+// around the unrolled mma, was 20% slower on the card (PERF.md §6).
+template <int DP>
+__global__ void __launch_bounds__(BwdBf16Tile<DP>::THREADS,
+                                  BwdBf16Tile<DP>::MIN_BLOCKS_DQ)
+    flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
+                             const bf16* __restrict__ k,
+                             const bf16* __restrict__ v,
+                             const bf16* __restrict__ dout,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             bf16* __restrict__ dq, int tq, int tk, int d,
+                             float scale, int causal, bool async) {
+  using F = BwdBf16Tile<DP>;
+  constexpr int B = F::B, S = F::S, NB = F::NB, DC = F::DC, TH = F::THREADS;
+  extern __shared__ float4 dq_bf16_smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(dq_bf16_smem);   // B x S
+  bf16* Gs = Qs + B * S;                               // B x S: do
+  bf16* Ks = Gs + B * S;                               // 2 x B x S
+  bf16* Vs = Ks + 2 * B * S;                           // 2 x B x S
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int rw = warp / F::NS, cw = warp % F::NS;
+  const int g = lane >> 2, t = lane & 3;
+  const int64_t bh = blockIdx.x;
+  // heaviest causal tiles first, as K7a
+  const int q0 = (causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * B;
+  const int qw = q0 + 16 * rw;   // the warp's first query row
+  const int col0 = cw * DC;
+  const bf16* qb = q + bh * tq * d;
+  const bf16* gb = dout + bh * tq * d;
+  const bf16* kb = k + bh * tk * d;
+  const bf16* vb = v + bh * tk * d;
+  const int kend = causal ? min(tk, min(q0 + B, tq)) : tk;
+  const int nt = (kend + B - 1) / B;
+
+  float lr[2], dr[2], acc[DC / 8][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = qw + g + 8 * i;
+    lr[i] = r < tq ? lse[bh * tq + r] : 0.0f;
+    dr[i] = r < tq ? delta[bh * tq + r] : 0.0f;
+  }
+#pragma unroll
+  for (int n = 0; n < DC / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+
+  stage_bf16<B, DP, S, TH>(Qs, qb, q0, tq, d, async);
+  stage_bf16<B, DP, S, TH>(Gs, gb, q0, tq, d, async);
+  stage_bf16<B, DP, S, TH>(Ks, kb, 0, tk, d, async);
+  stage_bf16<B, DP, S, TH>(Vs, vb, 0, tk, d, async);
+  cp_async_commit();
+
+  const int ao = 16 * rw * S + a_offset<S>(lane);
+  const int bno = bn_offset<S>(lane), bto = a_offset<S>(lane) + col0;
+  for (int j = 0; j < nt; ++j) {
+    const int k0 = j * B;
+    const bf16* Kj = Ks + (j & 1) * B * S;
+    const bf16* Vj = Vs + (j & 1) * B * S;
+    cp_async_wait<0>();   // tile j (and, at j == 0, Q and dO)
+    __syncthreads();      // ... for all; all done with tile j - 1
+    if (j + 1 < nt) {
+      const int nb = ((j + 1) & 1) * B * S;
+      stage_bf16<B, DP, S, TH>(Ks + nb, kb, k0 + B, tk, d, async);
+      stage_bf16<B, DP, S, TH>(Vs + nb, vb, k0 + B, tk, d, async);
+    }
+    cp_async_commit();
+    float s[NB][4], dp[NB][4];
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.0f;
+    rows_mma<NB, DP, S>(s, Qs + ao, Kj + bno);
+    rows_mma<NB, DP, S>(dp, Gs + ao, Vj + bno);
+
+    // p and ds where s and dp lie: rows g + 8 i, keys 8 n + 2 t + (e & 1);
+    // ds is rounded to bf16 as it is packed for its product
+    const bool edge = k0 + B > tk || (causal && k0 + B - 1 > q0);
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        const int qpos = qw + g + 8 * i;
+        const int kpos = k0 + 8 * n + 2 * t + (e & 1);
+        float val = s[n][e] * scale;
+        if (edge && causal && qpos < kpos) val = kNegInf;
+        const float p = edge && kpos >= tk ? 0.0f : __expf(val - lr[i]);
+        s[n][e] = (p * (dp[n][e] - dr[i])) * scale;
+      }
+    acc_mma<B, DC / 8, S>(acc, s, Kj + bto);
+  }
+  cp_async_wait<0>();   // nothing left in flight at exit
+
+  bf16* db = dq + bh * tq * d;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = qw + g + 8 * i;
+    if (r >= tq) continue;
+#pragma unroll
+    for (int n = 0; n < DC / 8; ++n) {
+      const int c = col0 + 8 * n + 2 * t;
+      bf16* dst = db + (int64_t)r * d + c;
+      if (d % 2 == 0 && c + 1 < d) {
+        *reinterpret_cast<__nv_bfloat162*>(dst) =
+            __floats2bfloat162_rn(acc[n][2 * i], acc[n][2 * i + 1]);
+      } else {
+        if (c < d) *dst = __float2bfloat16_rn(acc[n][2 * i]);
+        if (c + 1 < d) dst[1] = __float2bfloat16_rn(acc[n][2 * i + 1]);
+      }
+    }
+  }
+}
 
 // K7c, bf16: one block per (slice, key tile); warp (rw, cw) owns key rows
 // 16 rw .. 16 rw + 15 and dk, dv columns DC cw .. DC cw + DC - 1.  Per
@@ -1522,11 +1662,21 @@ int launch_bwd(int which, const Args& a) {
   const T* g = static_cast<const T*>(a.dout);
   int rc;
   if (which == 1) {
-    if ((rc = set_smem(flash_bwd_dq_kernel<T, DP, WIDE>, F::smem)) != 0)
-      return rc;
-    flash_bwd_dq_kernel<T, DP, WIDE><<<grid, F::THREADS, F::smem, a.st>>>(
-        q, k, v, g, a.lse, a.delta, static_cast<T*>(a.dq), a.tq, a.tk, a.d,
-        a.scale, a.causal, can_async<T>(a));
+    if constexpr (std::is_same<T, bf16>::value && !WIDE) {
+      using G = BwdBf16Tile<DP>;
+      const dim3 grid1((unsigned)a.bh, (unsigned)((a.tq + G::B - 1) / G::B));
+      if ((rc = set_smem(flash_bwd_dq_bf16_kernel<DP>, G::smem_dq)) != 0)
+        return rc;
+      flash_bwd_dq_bf16_kernel<DP><<<grid1, G::THREADS, G::smem_dq, a.st>>>(
+          q, k, v, g, a.lse, a.delta, static_cast<bf16*>(a.dq), a.tq, a.tk,
+          a.d, a.scale, a.causal, can_async_bf16(a));
+    } else {
+      if ((rc = set_smem(flash_bwd_dq_kernel<T, DP, WIDE>, F::smem)) != 0)
+        return rc;
+      flash_bwd_dq_kernel<T, DP, WIDE><<<grid, F::THREADS, F::smem, a.st>>>(
+          q, k, v, g, a.lse, a.delta, static_cast<T*>(a.dq), a.tq, a.tk, a.d,
+          a.scale, a.causal, can_async<T>(a));
+    }
   } else if constexpr (std::is_same<T, bf16>::value && !WIDE) {
     using G = BwdBf16Tile<DP>;
     const dim3 grid2((unsigned)a.bh, (unsigned)((a.tk + G::B - 1) / G::B));

@@ -668,15 +668,34 @@ def test_k7c_bf16_instance_matches_plain(cuda, bh, tq, tk, d, causal):
         assert _bf16_bwd_close(got, ref)
 
 
-def test_k7a_k7c_bf16_instances_run_on_the_tensor_cores(cuda):
-    """The built library's bf16 D-64 instances of K7a and K7c hold bf16
-    tensor-core instructions (``cuobjdump -sass``)."""
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("bh,tq,tk,d", _BF16_FLASH_SHAPES + [
+    (2, 7, 7, 64), (2, 15, 15, 64), (2, 17, 17, 64), (2, 63, 63, 64),
+    (2, 65, 65, 64), (1, 1020, 1020, 64)])
+def test_k7b_bf16_instance_matches_plain(cuda, bh, tq, tk, d, causal):
+    """K7b's bf16 instance on the bf16 tensor cores (the WIDE one at D
+    320) against its plain version: one launch, dq in bf16 within one
+    rounding (``_bf16_bwd_close``)."""
+    args = _flash_bwd_case(bh, tq, tk, d, causal, torch.bfloat16, cuda)
+    before = ck.kernel_calls()["flash_attention_bwd_dq"]
+    dq = ck.flash_attention_bwd_dq(*args, causal)
+    ref = ck.flash_attention_bwd_dq_ref(*args, causal)
+    torch.cuda.synchronize()
+    assert ck.kernel_calls()["flash_attention_bwd_dq"] == before + 1
+    assert dq.dtype == torch.bfloat16 and dq.shape == ref.shape
+    assert torch.isfinite(dq).all()
+    assert _bf16_bwd_close(dq, ref)
+
+
+def test_k7a_k7b_k7c_bf16_instances_run_on_the_tensor_cores(cuda):
+    """The built library's bf16 D-64 instances of K7a, K7b and K7c hold
+    bf16 tensor-core instructions (``cuobjdump -sass``)."""
     from mxnet_tpu_torch.ops import _build
     q, k, v = _qkv(1, 8, 8, 64, torch.bfloat16, cuda)
     ck.flash_attention_fwd(q, k, v, True)     # builds the library
     torch.cuda.synchronize()
     counts = chip_smoke.hmma_counts(_build)
-    assert set(counts) == {"K7a", "K7c"}
+    assert set(counts) == {"K7a", "K7b", "K7c"}
     assert all(c["count"] > 0 for c in counts.values())
 
 

@@ -538,11 +538,16 @@ _SOFTMAX_KERNEL_NAMES = [
 
 
 # the profiler's names of flash_attention.cu's kernels: the bf16
-# instances of K7a and K7c on the bf16 tensor cores (flash_fwd_bf16_kernel,
-# flash_bwd_dkv_bf16_kernel), the fp32 ones, K7b's and the WIDE ones
+# instances of K7a, K7b and K7c on the bf16 tensor cores
+# (flash_fwd_bf16_kernel, flash_bwd_dq_bf16_kernel,
+# flash_bwd_dkv_bf16_kernel), the fp32 ones and the WIDE ones
 _BF16_FWD_ARGS = ("(__nv_bfloat16 const*, __nv_bfloat16 const*, "
                   "__nv_bfloat16 const*, __nv_bfloat16*, float*, int, int, "
                   "int, float, int, bool)")
+_BF16_DQ_ARGS = ("(__nv_bfloat16 const*, __nv_bfloat16 const*, "
+                 "__nv_bfloat16 const*, __nv_bfloat16 const*, float const*, "
+                 "float const*, __nv_bfloat16*, int, int, int, float, int, "
+                 "bool)")
 _BF16_DKV_ARGS = ("(__nv_bfloat16 const*, __nv_bfloat16 const*, "
                   "__nv_bfloat16 const*, __nv_bfloat16 const*, float const*, "
                   "float const*, __nv_bfloat16*, __nv_bfloat16*, int, int, "
@@ -552,6 +557,10 @@ _FLASH_KERNEL_NAMES = [
      + _BF16_FWD_ARGS, "K7a"),
     ("void (anonymous namespace)::flash_fwd_bf16_kernel<256>"
      + _BF16_FWD_ARGS, "K7a"),
+    ("void (anonymous namespace)::flash_bwd_dq_bf16_kernel<64>"
+     + _BF16_DQ_ARGS, "K7b"),
+    ("void (anonymous namespace)::flash_bwd_dq_bf16_kernel<128>"
+     + _BF16_DQ_ARGS, "K7b"),
     ("void (anonymous namespace)::flash_bwd_dkv_bf16_kernel<64>"
      + _BF16_DKV_ARGS, "K7c"),
     ("void (anonymous namespace)::flash_bwd_dkv_bf16_kernel<128>"
@@ -562,9 +571,7 @@ _FLASH_KERNEL_NAMES = [
     ("void (anonymous namespace)::flash_fwd_kernel<__nv_bfloat16, 64, true>"
      + _BF16_FWD_ARGS, "K7a"),
     ("void (anonymous namespace)::flash_bwd_dq_kernel<__nv_bfloat16, 64, "
-     "false>(__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 "
-     "const*, __nv_bfloat16 const*, float const*, float const*, "
-     "__nv_bfloat16*, int, int, int, float, int, bool)", "K7b"),
+     "true>" + _BF16_DQ_ARGS, "K7b"),
     ("void (anonymous namespace)::flash_bwd_dkv_kernel<float, 64, false>"
      "(float const*, float const*, float const*, float const*, float "
      "const*, float const*, float*, float*, int, int, int, float, int, "
@@ -577,7 +584,7 @@ _FLASH_KERNEL_NAMES = [
 def test_chip_smoke_profile_kinds_tell_the_flash_kernels_apart(name, kind,
                                                                table):
     """Each kernel of flash_attention.cu, the bf16 tensor-core instances
-    of K7a and K7c among them, lands in its own kind in every profile
+    of K7a, K7b and K7c among them, lands in its own kind in every profile
     table of chip_smoke.py, and never in another or in "other"."""
     import chip_smoke
     us = chip_smoke.by_kind({name: 1.0}, getattr(chip_smoke, table))
@@ -602,3 +609,36 @@ def test_chip_smoke_profile_kinds_tell_the_softmax_kernels_apart(name, kind,
         "float, Epilogue>(float*, float const*, int)": 1.0}
     us = chip_smoke.by_kind(torch_softmax, kinds)
     assert us["K2"] == us["K5a"] == us["K5b"] == 0.0
+
+
+@pytest.mark.parametrize("source,table", [
+    ("softmax", "SOFTMAX_VARIANTS"), ("layernorm", "LAYERNORM_VARIANTS"),
+    ("flash_attention", "FLASH_VARIANTS")])
+def test_time_variants_edits_are_found_in_their_sources(source, table):
+    """Every variant ``time_variants.py`` times is its source with lines
+    replaced that the source holds (``variant_texts`` raises on a text it
+    does not find), and each differs from the source and the others."""
+    import time_variants
+    variants = getattr(time_variants, table)
+    runs = time_variants.variant_texts(source, variants)
+    names = [name for name, _ in runs]
+    assert names[1:-1] == list(variants) and runs[0][1] == runs[-1][1]
+    texts = [text for _, text in runs[:-1]]
+    assert len(set(texts)) == len(texts)
+
+
+@pytest.mark.parametrize("knum,fragment", [
+    ("K7a", "flash_fwd_bf16_kernelILi64E"),
+    ("K7b", "flash_bwd_dq_bf16_kernelILi64E"),
+    ("K7c", "flash_bwd_dkv_bf16_kernelILi64E")])
+def test_chip_smoke_counts_the_tensor_cores_of_each_bf16_flash_kernel(
+        knum, fragment):
+    """Phase 2's ``hmma_counts`` reads the D-64 instance of each bf16
+    flash kernel, and each is a kernel of flash_attention.cu that
+    ``launch_bwd`` or ``launch_fwd`` launches."""
+    import chip_smoke
+    assert (knum, fragment) in chip_smoke.HMMA_KERNELS
+    kernel = fragment[:-len("ILi64E")]
+    with open(os.path.join(_build.CSRC, "flash_attention.cu")) as f:
+        text = f.read()
+    assert "    %s(" % kernel in text and "%s<DP><<<" % kernel in text

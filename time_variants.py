@@ -4,7 +4,8 @@ stands, on one NVIDIA GPU::
 
     python3 time_variants.py              # softmax.cu: K5a, K5b (and K2)
     python3 time_variants.py layernorm    # layernorm.cu: K6b
-    python3 time_variants.py flash        # flash_attention.cu: bf16 K7a, K7c
+    python3 time_variants.py flash        # flash_attention.cu: bf16 K7a-K7c
+    python3 time_variants.py flash K7b    # ... only the variants named K7b*
     python3 time_variants.py flash_band   # phase 15's band over seeds
 
 Each variant is ``mxnet_tpu_torch/ops/csrc/<source>.cu`` with a few lines
@@ -27,9 +28,9 @@ dx-only ``native_layer_norm_backward`` on the same operands: back to back
 (the L2 cache keeps what fits of the last launch's operands) and each
 launch after the L2 cache is overwritten (``chip_smoke.time_cold_ms``).
 
-``flash_attention.cu``: the bf16 instances of K7a and K7c on the bf16
-tensor cores, o within ``chip_smoke.bf16_attention_close`` and lse
-within 1e-5, dk and dv within ``chip_smoke._bf16_bwd_close`` of the
+``flash_attention.cu``: the bf16 instances of K7a, K7b and K7c on the
+bf16 tensor cores, o within ``chip_smoke.bf16_attention_close`` and lse
+within 1e-5, dq, dk and dv within ``chip_smoke._bf16_bwd_close`` of the
 plain versions at ``FLASH_EDGE`` and at the training step's (96, 1024,
 64) causal, timed there beside SDPA's bf16 forward and backward; at that
 shape each variant's o is also held to an fp64 attention of the same
@@ -40,8 +41,9 @@ step against the knobs-0 step, in units of its band).
 
 ``flash_band``: no timing; phase 15's gradient check at each of
 ``BAND_SEEDS`` (the transformer's weights and its batch from the seed)
-with K7a's bf16 instance three ways: the source as it stands (``expf``),
-its fast ``__expf`` variant, and K7a's plain version in its place (K7b,
+with K7b's bf16 instance three ways: the source as it stands (bf16
+``mma.sync``), the older TF32 code in its place (``flash_bwd_dq_kernel``,
+the variant ``K7B_TF32``), and K7b's plain version in its place (K7a,
 K7c and the rest the source's), so that the spread of the band's
 readings over seeds shows which differences it can tell apart.
 
@@ -94,6 +96,9 @@ LAYERNORM_VARIANTS = {
 # K6b's main-path instances: fp32 at C 768 (6 chunks), bf16 (3 chunks)
 LAYERNORM_MAIN = ("layernorm_bwd_regs_kernelIfLi6E",
                   "layernorm_bwd_regs_kernelI13__nv_bfloat16Li3E")
+# K7b's bf16 instance on the TF32 code that ran it before the bf16
+# tensor-core kernel (flash_bwd_dq_kernel<bf16, DP, false>)
+K7B_TF32 = "K7b bf16: the older TF32 code (flash_bwd_dq_kernel)"
 # name -> [(text of flash_attention.cu, its replacement)]
 FLASH_VARIANTS = {
     "K7a bf16: the fast __expf": [
@@ -112,6 +117,62 @@ FLASH_VARIANTS = {
          "  static constexpr int BK = DP <= 64 ? 128 : DP <= 128 ? 64 : 32;"),
         ("  static constexpr int MIN_BLOCKS = DP <= 64 ? 2 : 1;",
          "  static constexpr int MIN_BLOCKS = 1;")],
+    K7B_TF32: [
+        ("  if (which == 1) {\n"
+         "    if constexpr (std::is_same<T, bf16>::value && !WIDE) {",
+         "  if (which == 1) {\n"
+         "    if constexpr (false) {")],
+    "K7b bf16: one block's registers an SM at D 64": [
+        ("  static constexpr int MIN_BLOCKS_DQ = DP <= 64 ? 4 : 1;",
+         "  static constexpr int MIN_BLOCKS_DQ = 1;")],
+    "K7b bf16: registers for three blocks an SM at D 64": [
+        ("  static constexpr int MIN_BLOCKS_DQ = DP <= 64 ? 4 : 1;",
+         "  static constexpr int MIN_BLOCKS_DQ = DP <= 64 ? 3 : 1;")],
+    "K7b bf16: Q and dO fragments held in registers at D 64": [
+        ("  const int bno = bn_offset<S>(lane), "
+         "bto = a_offset<S>(lane) + col0;\n"
+         "  for (int j = 0; j < nt; ++j) {\n"
+         "    const int k0 = j * B;",
+         "  const int bno = bn_offset<S>(lane), "
+         "bto = a_offset<S>(lane) + col0;\n"
+         "  uint32_t qf[DP <= 64 ? DP / 16 : 1][4], "
+         "gf[DP <= 64 ? DP / 16 : 1][4];\n"
+         "  if constexpr (DP <= 64) {\n"
+         "    cp_async_wait<0>();\n"
+         "    __syncthreads();\n"
+         "#pragma unroll\n"
+         "    for (int kc = 0; kc < DP / 16; ++kc) {\n"
+         "      ldsm_x4(qf[kc], Qs + ao + 16 * kc);\n"
+         "      ldsm_x4(gf[kc], Gs + ao + 16 * kc);\n"
+         "    }\n"
+         "  }\n"
+         "  for (int j = 0; j < nt; ++j) {\n"
+         "    const int k0 = j * B;"),
+        ("    rows_mma<NB, DP, S>(s, Qs + ao, Kj + bno);\n"
+         "    rows_mma<NB, DP, S>(dp, Gs + ao, Vj + bno);",
+         "    if constexpr (DP <= 64) {\n"
+         "#pragma unroll\n"
+         "      for (int kc = 0; kc < DP / 16; ++kc)\n"
+         "#pragma unroll\n"
+         "        for (int n = 0; n < NB; n += 2) {\n"
+         "          uint32_t b[4];\n"
+         "          ldsm_x4(b, Kj + bno + n * 8 * S + 16 * kc);\n"
+         "          mma_bf16(s[n], qf[kc], b[0], b[1]);\n"
+         "          mma_bf16(s[n + 1], qf[kc], b[2], b[3]);\n"
+         "        }\n"
+         "#pragma unroll\n"
+         "      for (int kc = 0; kc < DP / 16; ++kc)\n"
+         "#pragma unroll\n"
+         "        for (int n = 0; n < NB; n += 2) {\n"
+         "          uint32_t b[4];\n"
+         "          ldsm_x4(b, Vj + bno + n * 8 * S + 16 * kc);\n"
+         "          mma_bf16(dp[n], gf[kc], b[0], b[1]);\n"
+         "          mma_bf16(dp[n + 1], gf[kc], b[2], b[3]);\n"
+         "        }\n"
+         "    } else {\n"
+         "      rows_mma<NB, DP, S>(s, Qs + ao, Kj + bno);\n"
+         "      rows_mma<NB, DP, S>(dp, Gs + ao, Vj + bno);\n"
+         "    }")],
     "K7c bf16: registers for two blocks an SM at D 64 (214, no stack)": [
         ("  static constexpr int MIN_BLOCKS = DP <= 64 ? 3 : 1;",
          "  static constexpr int MIN_BLOCKS = 1;")],
@@ -126,8 +187,9 @@ FLASH_VARIANTS = {
 # the seeds of the transformer's weights and batch that flash_band reads
 # phase 15's gradient check at
 BAND_SEEDS = (0, 1, 2, 3, 4)
-# the bf16 D-64 instances of K7a and K7c
-FLASH_MAIN = ("flash_fwd_bf16_kernelILi64E", "flash_bwd_dkv_bf16_kernelILi64E")
+# the bf16 D-64 instances of K7a, K7b and K7c
+FLASH_MAIN = ("flash_fwd_bf16_kernelILi64E", "flash_bwd_dq_bf16_kernelILi64E",
+              "flash_bwd_dkv_bf16_kernelILi64E")
 # (BH, Tq, Tk, D, causal) that each variant is held to its plain versions
 # at besides the main shape: ragged tiles, Tq != Tk, the D-128 and D-256
 # instances
@@ -355,8 +417,8 @@ def layernorm_main(smi, dev, bw, flops, out_dir):
 
 
 def flash_calls(lib, q, k, v, do, lse, delta, causal):
-    """K7a and K7c of ``lib`` on bf16 operands as calls on the current
-    stream."""
+    """K7a, K7b and K7c of ``lib`` on bf16 operands as calls on the
+    current stream."""
     bh, tq, d = q.shape
     tk, scale = k.shape[1], d ** -0.5
 
@@ -371,6 +433,16 @@ def flash_calls(lib, q, k, v, do, lse, delta, causal):
             raise RuntimeError("K7a launch failed: %d" % rc)
         return o, out_lse
 
+    def k7b():
+        dq = torch.empty_like(q)
+        rc = lib.mxtt_flash_attention_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, tq, tk, d,
+            scale, int(causal), 1, torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError("K7b launch failed: %d" % rc)
+        return dq
+
     def k7c():
         dk, dv = torch.empty_like(k), torch.empty_like(v)
         rc = lib.mxtt_flash_attention_bwd_dkv(
@@ -381,7 +453,7 @@ def flash_calls(lib, q, k, v, do, lse, delta, causal):
         if rc:
             raise RuntimeError("K7c launch failed: %d" % rc)
         return dk, dv
-    return k7a, k7c
+    return k7a, k7b, k7c
 
 
 def fp64_attention(q, k, v, causal):
@@ -396,11 +468,12 @@ def fp64_attention(q, k, v, causal):
     return torch.matmul(torch.softmax(s, -1), v.double())
 
 
-def grad_check_with(lib, seed=chip_smoke.SEED, plain_k7a=False):
+def grad_check_with(lib, seed=chip_smoke.SEED, plain=()):
     """Phase 15's gradient check (``chip_smoke.bf16_grad_check``) with
     the flash wrappers bound to ``lib``'s entry points, the transformer's
-    weights and batch from ``seed``; with ``plain_k7a`` the kernel path
-    runs K7a's plain version in place of K7a."""
+    weights and batch from ``seed``; each ``cuda_kernels`` entry point
+    named in ``plain`` (``"flash_attention_bwd_dq"``, ...) is swapped for
+    its plain ``_ref`` version on the kernel path."""
     import gc
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.ops import cuda_kernels as ck
@@ -414,20 +487,21 @@ def grad_check_with(lib, seed=chip_smoke.SEED, plain_k7a=False):
                                chip_smoke.GPT2_SMALL["vocab_size"],
                                chip_smoke.LM_BATCH, chip_smoke.LM_T[0],
                                seed=seed)
-    kernel = ck.flash_attention_fwd
-    if plain_k7a:
-        ck.flash_attention_fwd = ck.flash_attention_fwd_ref
+    kernels = {name: getattr(ck, name) for name in plain}
+    for name in plain:
+        setattr(ck, name, getattr(ck, name + "_ref"))
     try:
         return chip_smoke.bf16_grad_check(
             mx, ck, lm, mx.gluon.loss.SoftmaxCrossEntropyLoss(), x, y)
     finally:
-        ck.flash_attention_fwd = kernel
+        for name, fn in kernels.items():
+            setattr(ck, name, fn)
         del lm, x, y
         gc.collect()
         torch.cuda.empty_cache()
 
 
-def flash_main(smi, dev, bw, flops, out_dir):
+def flash_main(smi, dev, bw, flops, out_dir, only=""):
     from mxnet_tpu_torch.ops import cuda_kernels as ck
     bf16 = chip_smoke.card_rates(torch.cuda.get_device_name(0))[3]
     gen = torch.Generator(device=dev).manual_seed(chip_smoke.SEED)
@@ -440,7 +514,8 @@ def flash_main(smi, dev, bw, flops, out_dir):
                                              torch.bfloat16, dev)
         q, k, v = args[:3]
         cases.append((args, causal, ck.flash_attention_fwd_ref(
-            q, k, v, causal), ck.flash_attention_bwd_dkv_ref(*args, causal),
+            q, k, v, causal), ck.flash_attention_bwd_dq_ref(*args, causal),
+            ck.flash_attention_bwd_dkv_ref(*args, causal),
             chip_smoke.attention_terms(
                 q, k, v, causal, tk <= chip_smoke.k7a_key_tile(d_))))
     args = cases[0][0]
@@ -457,42 +532,47 @@ def flash_main(smi, dev, bw, flops, out_dir):
         o4, (q4, k4, v4), do4, retain_graph=True))
     bound_a = chip_smoke.flash_bound(bh, t, t, d, True, 2, bw, bf16)[0]
     pairs = t * (t + 1) // 2
-    bound_c = chip_smoke.bound_ms(
-        chip_smoke.flash_bwd_bytes(bh, t, t, d, 2, 2),
-        2 * d * 4 * bh * pairs, bw, bf16)[0]
-    print("(%d, %d, %d) bf16 causal; bounds: K7a %.4f ms, K7c %.4f ms; SDPA "
-          "bf16 forward %.4f ms, its backward (dq, dk, dv) %.4f ms; the "
-          "plain version's o vs fp64: mean |error| %.4g" % (
-              bh, t, d, bound_a, bound_c, sdpa_fwd, sdpa_bwd,
+    bound_b, bound_c = (chip_smoke.bound_ms(
+        chip_smoke.flash_bwd_bytes(bh, t, t, d, n_out, 2),
+        2 * d * n_prod * bh * pairs, bw, bf16)[0]
+        for n_out, n_prod in ((1, 3), (2, 4)))
+    print("(%d, %d, %d) bf16 causal; bounds: K7a %.4f ms, K7b %.4f ms, K7c "
+          "%.4f ms; SDPA bf16 forward %.4f ms, its backward (dq, dk, dv) "
+          "%.4f ms; the plain version's o vs fp64: mean |error| %.4g" % (
+              bh, t, d, bound_a, bound_b, bound_c, sdpa_fwd, sdpa_bwd,
               (cases[0][2][0].double() - fp64_attention(*args[:3], True))
               .abs().mean().item()), flush=True)
     exact = fp64_attention(*args[:3], True)
-    runs = variant_texts("flash_attention", FLASH_VARIANTS)
+    runs = variant_texts("flash_attention", {
+        name: edits for name, edits in FLASH_VARIANTS.items()
+        if name.startswith(only)})
     libs = compile_all("flash_attention", [text for _, text in runs[:-1]],
                        out_dir, FLASH_MAIN, FLASH_ARGTYPES)
     first = None
     for (name, _), (lib, regs) in zip(runs, libs + libs[:1]):
-        for args, causal, (ro, rlse), (rdk, rdv), terms in cases:
-            k7a, k7c = flash_calls(lib, *args, causal)
-            (o, lse), (dk, dv) = k7a(), k7c()
+        for args, causal, (ro, rlse), rdq, (rdk, rdv), terms in cases:
+            k7a, k7b, k7c = flash_calls(lib, *args, causal)
+            (o, lse), dq, (dk, dv) = k7a(), k7b(), k7c()
             if not (chip_smoke.bf16_attention_close(o, ro, terms, 1e-6)
                     and (lse - rlse).abs().max().item() <= 1e-5
+                    and chip_smoke._bf16_bwd_close(dq, rdq)
                     and chip_smoke._bf16_bwd_close(dk, rdk)
                     and chip_smoke._bf16_bwd_close(dv, rdv)):
-                raise AssertionError("%s: K7a or K7c off their plain "
+                raise AssertionError("%s: K7a, K7b or K7c off their plain "
                                      "versions at %s causal=%s"
                                      % (name, tuple(args[0].shape), causal))
-        k7a, k7c = flash_calls(lib, *cases[0][0], True)
-        ms_a, ms_c = chip_smoke.time_ms(k7a), chip_smoke.time_ms(k7c)
+        k7a, k7b, k7c = flash_calls(lib, *cases[0][0], True)
+        ms_a, ms_b, ms_c = (chip_smoke.time_ms(f) for f in (k7a, k7b, k7c))
         o = k7a()[0]
         first = o if first is None else first
         grads = grad_check_with(lib)
-        print("%-66s K7a %.4f ms (%.0f%% of its bound), K7c %.4f ms (%.0f%%); "
+        print("%-66s K7a %.4f ms (%.0f%% of its bound), K7b %.4f ms (%.0f%%), "
+              "K7c %.4f ms (%.0f%%); "
               "o vs fp64: mean |error| %.4g, %.5f of o's elements differ "
               "from the source's; phase 15's gradients %.3f of their band "
               "(%s); %s" % (
-                  name, ms_a, 100 * bound_a / ms_a, ms_c,
-                  100 * bound_c / ms_c,
+                  name, ms_a, 100 * bound_a / ms_a, ms_b,
+                  100 * bound_b / ms_b, ms_c, 100 * bound_c / ms_c,
                   (o.double() - exact).abs().mean().item(),
                   (o != first).float().mean().item(),
                   grads["grad_dev_by_band"], grads["worst"],
@@ -500,13 +580,13 @@ def flash_main(smi, dev, bw, flops, out_dir):
 
 
 def flash_band_main(smi, dev, bw, flops, out_dir):
-    name = "K7a bf16: the fast __expf"
-    runs = variant_texts("flash_attention", {name: FLASH_VARIANTS[name]})
+    runs = variant_texts("flash_attention",
+                         {K7B_TF32: FLASH_VARIANTS[K7B_TF32]})
     libs = compile_all("flash_attention", [text for _, text in runs[:2]],
                        out_dir, FLASH_MAIN, FLASH_ARGTYPES)
-    ways = [("K7a as it stands (expf)", libs[0][0], False),
-            ("K7a on the fast __expf", libs[1][0], False),
-            ("K7a's plain version", libs[0][0], True)]
+    ways = [("K7b as it stands (bf16)", libs[0][0], ()),
+            ("K7b on the older TF32 code", libs[1][0], ()),
+            ("K7b's plain version", libs[0][0], ("flash_attention_bwd_dq",))]
     print("phase 15's gradients in units of their band, seeds %s"
           % (BAND_SEEDS,), flush=True)
     for label, lib, plain in ways:
@@ -540,7 +620,7 @@ def main():
     out_dir = os.path.join(_build.BUILD_DIR, "variants")
     os.makedirs(out_dir, exist_ok=True)
     print("card: %s" % smi, flush=True)
-    runner(smi, dev, bw, flops, out_dir)
+    runner(smi, dev, bw, flops, out_dir, *sys.argv[2:])
     print("card: %s" % smi)
     return 0
 
