@@ -140,8 +140,11 @@ Phases, each of which raises on failure:
    the seed): 3 warmup and 10 timed steps on one fixed batch, launches
    held to K1b once a bucket and K2 once a step, the loss falling; then
    the trained parameters served by ``ModelServer`` (buckets 1..32), each
-   answer held to the module's forward (bitwise or within 1e-6 of the
-   largest), 69 K3 and 1 K2 a forward; after the profiler timings one
+   answer held to a ``Predictor`` bound at the answer's own bucket on the
+   same parameters (bitwise or within 1e-6 of the largest; across shapes
+   cuDNN runs other engines for 1, 2 and 4 rows than for 32, so the
+   distance from the module's 32-row forward is printed beside it, not
+   held), 69 K3 and 1 K2 a forward; after the profiler timings one
    profiled step (idle share) and 2 steps under sync debug mode "error";
 15. bf16 mixed precision: (a) ResNet-50 v1 (1000 classes, 3x224x224,
    batch 32) through ``Module(sym, compute_dtype="bfloat16").fit`` with
@@ -170,6 +173,31 @@ Phases, each of which raises on failure:
    steps of ``Trainer("sgd", multi_precision, momentum 0.9)`` on the card
    and on the CPU: fp16 weights, fp32 masters within ``FP16_TOL`` of the
    CPU's, the loss falling;
+16. the training-loop API: (a) ResNet-50 v1 fp32 (1000 classes,
+   3x224x224, batch 32, Xavier from the seed) bound once by a ``Module``
+   with ``kvstore="tpu"``; for each of the fourteen optimizers that update
+   one array at a time (``LOOP_OPTIMIZERS``, each with a
+   ``PolyScheduler``) one step from the same parameters, its new weights
+   and states held within ``LOOP_TOL`` of each array's largest to the same
+   update replayed through the port on CPU tensors from the card's
+   weights, gradients and the updater's pickled optimizer and states
+   (SGLD stepped twice from the same state: with its noise set to zeros,
+   held so; with the card's noise, that noise by its mean and standard
+   deviation), K2 launched once and no sweep kernel, then 2 steps timed by
+   CUDA events; (b) one ``Module.fit`` (2 epochs of 3 batches, ``nag``
+   momentum 0.9 under a ``PolyScheduler``) with a ``CompositeEvalMetric``
+   of ``Perplexity``, ``NegativeLogLikelihood``, ``Loss`` and a
+   ``metric.np`` metric, each held to numpy's formula on the fetched
+   outputs, ``monitor=Monitor(1, pattern=".*(conv0|fc1).*")`` (a finite
+   stat for each matched name each batch), ``Speedometer``,
+   ``log_train_metric``, ``ProgressBar`` and, on one ``eval_data``
+   batch, ``LogValidationMetricsCallback`` (their log lines counted); K2
+   once a step and once an eval forward, K3 at the 33 sites of each eval
+   forward; then 3 steps from one state with every node tapped by
+   ``Monitor(monitor_all=True)`` bitwise equal to 3 without a monitor
+   (cuDNN deterministic), both timed; (c) inside ``engine.naive()`` the
+   stream is idle after each imperative op, and a worker's exception with
+   no receiver raises at the next ``nd.waitall()`` and not again;
 then every kernel's device time by the profiler (K6b's with the L2 cache
 overwritten before each launch; the bf16 instances of K3, K6a, K6b,
 K7a, K7b and K7c that phase 15 launches beside their plain versions,
@@ -179,10 +207,13 @@ step, and phase 15's ResNet-50 step, bf16 transformer forward and step.
 
 Prints one JSON line ``{"checkpoints": {...}}`` with phase 13's numbers,
 ``{"ops": {...}}`` and ``{"inception_bn": {...}}`` with phase 14's,
-``{"mixed_precision": {...}}`` with phase 15's, one ``{"kernels":
+``{"mixed_precision": {...}}`` with phase 15's, ``{"training_loop":
+{...}}`` with phase 16's, one ``{"kernels":
 [...]}`` (all twelve kernels; K3, K2 and K1b with their
 ``launches_inception``, K1b, K2, K3, K6a, K6b, K7a, K7b and K7c with
-their ``launches_mixed``, K3, K6a, K7b and K7c with their ``bf16``
+their ``launches_mixed``, K2 and K3 with their
+``launches_training_loop``, K3,
+K6a, K7b and K7c with their ``bf16``
 times, K7a, K7b and K7c with the ``HMMA.16816.F32.BF16`` count of their
 bf16 D-64 instances (``hmma_bf16_dp64``), K6b's fp32 and bf16 repeats beside
 aten's), the serving, training
@@ -191,7 +222,10 @@ its last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
 prints no result.
 """
+import contextlib
 import json
+import logging
+import math
 import os
 import subprocess
 import sys
@@ -230,6 +264,11 @@ LM_SGD = {"learning_rate": 1e-4, "momentum": 0.9}
 # (another cuDNN algorithm), within this much of each tensor's largest
 # magnitude.  Dropping the momentum at the resume must exceed it.
 CKPT_TOL = 1e-6
+# Phase 14: a served Inception-BN answer at bucket 1, 2 or 4 against the
+# module's 32-row forward of the same rows, which cuDNN computes with other
+# convolution engines: within this much of the largest logit.  Readings on
+# an H100 so far reach 2.61e-6; a wrong kernel or op moves logits by far more.
+CROSS_SHAPE_TOL = 1e-4
 # The kernel step's gradients against the plain torch step's with the same
 # ReLU decisions: the same fp32 arithmetic with sums in another order,
 # ~1e-6 to 1e-5 of each parameter's largest gradient.
@@ -3152,22 +3191,21 @@ def inception_symbol(classes=CLASSES):
     return inception_bn.get_symbol(classes)
 
 
-def inception_serve(mx, ck, ctx, mod, sym, image, batch, n_sites,
-                    n_requests=8, seed=SEED):
-    """The trained module's parameters served through ``ModelServer``
-    (buckets 1..``batch``): a full bucket and ``n_requests`` requests of
-    1-3 rows, each answer held to the module's own forward of a batch
-    holding the same rows (bitwise, or within 1e-6 of the largest).
-    Launches counted from 0 at the server's start: ``n_sites`` K3 and
-    one K2 a forward.  Returns what it measured."""
-    from mxnet_tpu_torch.serving import ModelServer
-    arg, aux = mod.get_params()
-    rng = np.random.RandomState(seed + 3)
+def inception_requests(image, batch, seed, n_requests=8):
+    """A full batch and ``n_requests`` requests of 1-3 rows, from
+    ``seed``."""
+    rng = np.random.RandomState(seed)
     full = rng.uniform(-1, 1, (batch,) + tuple(image)).astype(np.float32)
-    xs = [full] + [rng.uniform(-1, 1, (rng.randint(1, min(batch, 3) + 1),)
-                               + tuple(image)).astype(np.float32)
-                   for _ in range(n_requests)]
-    ck.reset_kernel_calls()
+    return [full] + [rng.uniform(-1, 1, (rng.randint(1, min(batch, 3) + 1),)
+                                 + tuple(image)).astype(np.float32)
+                     for _ in range(n_requests)]
+
+
+def served_answers(mx, ctx, sym, arg, aux, image, batch, xs):
+    """``xs`` answered one at a time by a ``ModelServer`` (buckets
+    1..``batch``) serving ``sym`` with ``arg``/``aux``: ``(answers,
+    forwards)``."""
+    from mxnet_tpu_torch.serving import ModelServer
     srv = ModelServer(max_batch=batch, ctx=ctx)
     srv.add_model("inception", sym, arg, aux, {"data": (1,) + tuple(image)})
     srv.start()
@@ -3176,21 +3214,88 @@ def inception_serve(mx, ck, ctx, mod, sym, image, batch, n_sites,
                              timeout_ms=120000.0)[0] for x in xs]
     finally:
         srv.stop()
-    calls = ck.kernel_calls()
-    forwards = srv.stats()["batches"]["count"]
-    worst, bitwise = 0.0, True
-    for x, got in zip(xs, answers):
+    return answers, srv.stats()["batches"]["count"]
+
+
+def bucket_forwards(mx, ctx, sym, arg, aux, image, batch, xs, bucket=None):
+    """Each of ``xs`` run as the server runs it: padded to its bucket of
+    the ladder 1..``batch`` (or to ``bucket``) by repeating its last row
+    (``io.pad_batch``) and forwarded by a ``Predictor`` bound at that
+    shape on ``arg``/``aux``.  Returns ``(outputs, buckets,
+    predictors)``."""
+    from mxnet_tpu_torch.io import pad_batch
+    from mxnet_tpu_torch.serving.bucketing import pick_bucket, shape_buckets
+    ladder = shape_buckets(batch)
+    preds, outs, buckets = {}, [], []
+    for x in xs:
+        b = bucket or pick_bucket(x.shape[0], ladder)
+        if b not in preds:
+            preds[b] = mx.Predictor.from_parts(
+                sym, arg, aux, {"data": (b,) + tuple(image)}, ctx=ctx)
+        padded, rows = pad_batch([x], b)
+        preds[b].forward(data=mx.nd.array(padded, ctx=ctx))
+        outs.append(preds[b].get_output(0).asnumpy()[:rows])
+        buckets.append(b)
+    return outs, buckets, preds
+
+
+def module_forwards(mx, ctx, mod, image, batch, xs):
+    """Each of ``xs`` zero-padded to ``batch`` rows through the module's
+    eval forward: its rows of the output."""
+    outs = []
+    for x in xs:
         padded = np.zeros((batch,) + tuple(image), np.float32)
         padded[:x.shape[0]] = x
         mod.forward(mx.io.DataBatch(data=[mx.nd.array(padded, ctx=ctx)],
                                     label=None), is_train=False)
-        ref = mod.get_outputs()[0].asnumpy()[:x.shape[0]]
+        outs.append(mod.get_outputs()[0].asnumpy()[:x.shape[0]])
+    return outs
+
+
+def largest_rel(got, ref):
+    """max |got - ref| over ref's largest magnitude, in float64, where
+    both are NaN at the same places (inf where they are not)."""
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    nan = np.isnan(ref)
+    if not np.array_equal(np.isnan(got), nan):
+        return float("inf")
+    if nan.all():
+        return 0.0
+    keep = ~nan
+    return float(np.abs(got[keep] - ref[keep]).max()
+                 / max(np.abs(ref[keep]).max(), 1e-30))
+
+
+def inception_serve(mx, ck, ctx, mod, sym, image, batch, n_sites,
+                    n_requests=8, seed=SEED):
+    """The trained module's parameters served through ``ModelServer``
+    (buckets 1..``batch``): a full bucket and ``n_requests`` requests of
+    1-3 rows.  Each answer is held to a ``Predictor`` bound at the
+    answer's own bucket on the same parameters and fed as the server
+    feeds it (``bucket_forwards``), and, across shapes, to the module's
+    forward of a ``batch``-row batch holding the same rows.  Launches
+    counted from 0 at the server's start: ``n_sites`` K3 and one K2 a
+    forward.  Returns what it measured."""
+    arg, aux = mod.get_params()
+    xs = inception_requests(image, batch, seed + 3, n_requests)
+    ck.reset_kernel_calls()
+    answers, forwards = served_answers(mx, ctx, sym, arg, aux, image, batch,
+                                       xs)
+    calls = ck.kernel_calls()
+    same, buckets, _ = bucket_forwards(mx, ctx, sym, arg, aux, image, batch,
+                                       xs)
+    cross = module_forwards(mx, ctx, mod, image, batch, xs)
+    worst, bitwise = 0.0, True
+    cross_worst, cross_bitwise = 0.0, True
+    for got, ref, ref32 in zip(answers, same, cross):
         if got.shape != ref.shape or not np.isfinite(got).all():
             raise AssertionError("inception answer of shape %s, expected "
                                  "%s" % (got.shape, ref.shape))
         bitwise &= bool(np.array_equal(got, ref))
-        worst = max(worst, float(np.abs(got - ref).max()
-                                 / max(np.abs(ref).max(), 1e-30)))
+        worst = max(worst, largest_rel(got, ref))
+        cross_bitwise &= bool(np.array_equal(got, ref32))
+        cross_worst = max(cross_worst, largest_rel(got, ref32))
+    full = xs[0]
     # one bucket-`batch` forward timed by CUDA events, launches counted
     pred = mx.Predictor.from_parts(sym, arg, aux, {"data": full.shape},
                                    ctx=ctx)
@@ -3214,8 +3319,11 @@ def inception_serve(mx, ck, ctx, mod, sym, image, batch, n_sites,
         fwd()
         times.append(_elapsed_ms(a, _marker(device)))
     return {"forwards": forwards, "calls": calls, "fwd_calls": fwd_calls,
-            "n_sites": n_sites, "answers": len(answers), "bitwise": bitwise,
-            "max_rel": worst, "fwd_ms": float(np.median(times))}
+            "n_sites": n_sites, "answers": len(answers),
+            "buckets": sorted(set(buckets)), "bitwise": bitwise,
+            "max_rel": worst, "cross_shape_bitwise": cross_bitwise,
+            "cross_shape_max_rel": cross_worst,
+            "fwd_ms": float(np.median(times))}
 
 
 def inception_phase(mx, ck, ctx, image=IMAGE, batch=BATCH, classes=CLASSES,
@@ -3264,8 +3372,14 @@ def inception_phase(mx, ck, ctx, image=IMAGE, batch=BATCH, classes=CLASSES,
                                 sv["fwd_calls"]))
     if not (sv["bitwise"] or sv["max_rel"] <= CKPT_TOL):
         raise AssertionError("inception serving: answers %.3g of the "
-                             "largest from the module's forward (limit %g)"
-                             % (sv["max_rel"], CKPT_TOL))
+                             "largest from a Predictor at their own bucket "
+                             "(limit %g)" % (sv["max_rel"], CKPT_TOL))
+    if not (sv["cross_shape_bitwise"]
+            or sv["cross_shape_max_rel"] <= CROSS_SHAPE_TOL):
+        raise AssertionError("inception serving: answers %.3g of the "
+                             "largest from the module's %d-row forward "
+                             "(limit %g)" % (sv["cross_shape_max_rel"],
+                                             batch, CROSS_SHAPE_TOL))
     n_params = sum(int(np.prod(v.shape))
                    for v in mod.get_params()[0].values())
     return mod, {
@@ -3734,6 +3848,454 @@ def bf16_instances(ck, dev, bw, bf16, sites,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the training-loop API
+# ---------------------------------------------------------------------------
+# The fourteen optimizers that update one array at a time (the fused step
+# takes SGD and Adam only, by type name, as in the JAX package), each with
+# a PolyScheduler (max_update LOOP_POLY[0], power LOOP_POLY[1]) over its
+# learning rate
+LOOP_OPTIMIZERS = (
+    ("ccsgd", {"learning_rate": 0.02, "momentum": 0.9, "wd": 1e-4}),
+    ("signum", {"learning_rate": 1e-3, "momentum": 0.9, "wd": 1e-4,
+                "wd_lh": 1e-4}),
+    ("ftml", {"learning_rate": 1e-3, "wd": 1e-4}),
+    ("lbsgd", {"learning_rate": 0.02, "momentum": 0.9, "wd": 1e-4,
+               "warmup_strategy": "linear", "warmup_epochs": 1,
+               "batch_scale": 2, "updates_per_epoch": 4}),
+    ("dcasgd", {"learning_rate": 0.02, "momentum": 0.9, "wd": 1e-4}),
+    ("nag", {"learning_rate": 0.02, "momentum": 0.9, "wd": 1e-4}),
+    ("sgld", {"learning_rate": 1e-4, "wd": 1e-4}),
+    ("test", {}),
+    ("adagrad", {"learning_rate": 0.01, "wd": 1e-4}),
+    ("rmsprop", {"learning_rate": 1e-3, "centered": True, "wd": 1e-4}),
+    ("adadelta", {"wd": 1e-4}),
+    ("ftrl", {"learning_rate": 0.02, "wd": 1e-4}),
+    ("adamax", {"learning_rate": 2e-3, "wd": 1e-4}),
+    ("nadam", {"learning_rate": 1e-3, "wd": 1e-4}),
+)
+LOOP_POLY = (10, 2)
+LOOP_TIMED = 2              # timed steps of each optimizer after its check
+# The card's update against the CPU's replay of the same update on the
+# same weights, gradients and states: the same fp32 expressions, each
+# rounded once on either side (the card divides by a scalar through its
+# reciprocal, one rounding more), within 1e-6 of each array's largest
+# magnitude.
+LOOP_TOL = 1e-6
+# SGLD's noise, N(0, sqrt(lr)) from the card's generator: the card's
+# weights minus the CPU's noise-free update have a mean within this many
+# standard errors of 0 and a standard deviation within this share of
+# sqrt(lr).
+SGLD_MEAN_SE = 5.0
+SGLD_STD_REL = 0.02
+LOOP_FIT_EPOCHS = 2
+LOOP_FIT_BATCHES = 3
+LOOP_MONITOR = ".*(conv0|fc1).*"
+# each metric of the fit against numpy's formula on the fetched outputs
+# (float64 here, float32 sums in the metric): relative
+LOOP_METRIC_TOL = 1e-6
+LOOP_MONITOR_STEPS = 3      # steps of each run of the monitor's check
+
+
+def _host(array):
+    """An NDArray's tensor copied to the host (a copy on the CPU too)."""
+    return array._data.detach().to("cpu", copy=True)
+
+
+def _state_tensors(state):
+    """An Updater state (None, an NDArray or nested tuples of them) as a
+    list of host tensors."""
+    if state is None:
+        return []
+    if isinstance(state, (tuple, list)):
+        return [t for s in state for t in _state_tensors(s)]
+    return [_host(state)]
+
+
+@contextlib.contextmanager
+def _sgld_noise_free(opt_mod, on):
+    """Within the block, when ``on``, SGLD draws zeros for its noise."""
+    noise = opt_mod._sgld_noise
+    if on:
+        opt_mod._sgld_noise = lambda weight, lr: torch.zeros_like(
+            weight._data)
+    try:
+        yield
+    finally:
+        opt_mod._sgld_noise = noise
+
+
+def loop_optimizers(mx, ck, ctx, sym, image, batch=BATCH, classes=CLASSES,
+                    cases=LOOP_OPTIMIZERS, timed=LOOP_TIMED, seed=SEED):
+    """Phase 16 (a): ``sym`` bound once by a ``Module`` with
+    ``kvstore="tpu"``, Xavier from ``seed``; for each optimizer of
+    ``cases`` (with a PolyScheduler): the parameters set back to the
+    initial ones, ``init_optimizer(force_init=True)``, one
+    ``forward_backward``, the weights and gradients copied to the host
+    with the updater's pickled optimizer and states, ``update()``, then
+    the same update replayed through the port on CPU tensors from that
+    copy (so update counts and the scheduler agree), its weights and
+    states held to the card's (SGLD's with its noise set to zeros on
+    both sides; then SGLD steps again on the card from the same weights
+    and update counts with its noise, held by that noise's moments);
+    then ``timed`` more steps timed by CUDA events.  The launch
+    counts are reset just before the checked step and read after it.
+    Returns ``{optimizer name: numbers}``."""
+    from mxnet_tpu_torch import optimizer as opt_mod
+    from mxnet_tpu_torch.ndarray import NDArray
+    it = synthetic_iter(mx, ctx, batch, image, 1, seed, classes)
+    data = it.next()
+    mod = mx.mod.Module(sym, context=ctx)
+    mod.bind(it.provide_data, it.provide_label)
+    mx.random.seed(seed)
+    mod.init_params(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                   magnitude=2))
+    arg0, aux0 = mod.get_params()
+    names = mod._exec_group.param_names
+    exe = mod._exec_group.execs[0]
+    device = exe.device
+    out = {}
+    for name, params in cases:
+        mod.set_params(arg0, aux0)
+        kw = dict(params, lr_scheduler=mx.lr_scheduler.PolyScheduler(
+            LOOP_POLY[0], base_lr=params.get("learning_rate", 0.01),
+            pwr=LOOP_POLY[1]))
+        mod.init_optimizer(kvstore="tpu", optimizer=name,
+                           optimizer_params=kw, force_init=True)
+        if mod._fused_exec_update:
+            raise AssertionError("%s took the fused step" % name)
+        ck.reset_kernel_calls()
+        mod.forward_backward(data)
+        w = {n: _host(exe.arg_dict[n]) for n in names}
+        g = {n: _host(exe.grad_dict[n]) for n in names}
+        upd = mod._kvstore._updater
+        blob = upd.get_states(dump_optimizer=True)
+        opt = upd.optimizer
+        counts = dict(opt._index_update_count), opt.num_update
+        with _sgld_noise_free(opt_mod, name == "sgld"):
+            mod.update()
+        card_w = {n: _host(exe.arg_dict[n]) for n in names}
+        card_st = {n: _state_tensors(upd.states[n]) for n in names}
+        calls = ck.kernel_calls()
+        if name == "sgld":
+            # the same step again from the same weights and update
+            # counts, now with the card's noise
+            for n in names:
+                exe.arg_dict[n]._data.copy_(w[n])
+            opt._index_update_count, opt.num_update = dict(counts[0]), \
+                counts[1]
+            mod.update()
+            noisy_w = {n: _host(exe.arg_dict[n]) for n in names}
+        cpu = opt_mod.get_updater(None)
+        cpu.set_states(blob)
+        cpu_w = {n: NDArray(w[n].clone()) for n in names}
+        with _sgld_noise_free(opt_mod, name == "sgld"):
+            for n in names:
+                cpu(n, NDArray(g[n]), cpu_w[n])
+        rec = {"launches": {k: v for k, v in calls.items() if v},
+               "sweeps": sum(v for k, v in calls.items()
+                             if k.endswith("_sweep")),
+               "moved": any(not torch.equal(card_w[n], w[n]) for n in names),
+               "states": sum(len(s) for s in card_st.values())}
+        if name == "sgld":
+            diff = torch.cat([(noisy_w[n].double()
+                               - cpu_w[n]._data.double()).reshape(-1)
+                              for n in names])
+            sd = math.sqrt(cpu.optimizer._get_lr(names[0]))
+            rec["sgld"] = {
+                "values": int(diff.numel()), "sqrt_lr": sd,
+                "mean_in_se": float(diff.mean()) / (
+                    sd / math.sqrt(diff.numel())),
+                "std_by_sqrt_lr": float(diff.std()) / sd}
+        rec["weights"] = max(largest_rel(card_w[n].numpy(),
+                                         cpu_w[n]._data.numpy())
+                             for n in names)
+        st = []
+        for n in names:
+            cs = _state_tensors(cpu.states[n])
+            if len(cs) != len(card_st[n]):
+                raise AssertionError("%s: %d states of %s on the card, %d "
+                                     "on the CPU" % (name, len(card_st[n]),
+                                                     n, len(cs)))
+            st += [largest_rel(a.numpy(), b.numpy())
+                   for a, b in zip(card_st[n], cs)]
+        rec["states_max_rel"] = max(st) if st else 0.0
+        marks = [_marker(device)]
+        for _ in range(timed):
+            mod.forward_backward(data)
+            mod.update()
+            marks.append(_marker(device))
+        rec["step_ms"] = float(np.median(
+            [_elapsed_ms(a, b) for a, b in zip(marks, marks[1:])])) \
+            if timed else None
+        out[name] = rec
+    return out
+
+
+def loop_failures(res, tol=LOOP_TOL):
+    """What of ``loop_optimizers``' numbers breaks phase 16 (a)'s limits:
+    a list of strings, empty when all hold."""
+    bad = []
+    for name, r in res.items():
+        if r["launches"] != {"softmax_lastaxis": 1} or r["sweeps"]:
+            bad.append("%s launched %s (expected K2 once)"
+                       % (name, r["launches"]))
+        if not r["moved"]:
+            bad.append("%s did not move the weights" % name)
+        if r["states_max_rel"] > tol:
+            bad.append("%s states %.3g from the CPU's (limit %g)"
+                       % (name, r["states_max_rel"], tol))
+        if name == "sgld":
+            s = r["sgld"]
+            if abs(s["mean_in_se"]) > SGLD_MEAN_SE or \
+                    abs(s["std_by_sqrt_lr"] - 1) > SGLD_STD_REL:
+                bad.append("sgld noise: mean %.3g standard errors, std "
+                           "%.4f of sqrt(lr)" % (s["mean_in_se"],
+                                                 s["std_by_sqrt_lr"]))
+        if not r["weights"] <= tol:
+            bad.append("%s weights %.3g from the CPU's (limit %g)"
+                       % (name, r["weights"], tol))
+    return bad
+
+
+def _top_prob(label, pred):
+    """``metric.np``'s function here: the mean largest probability."""
+    return float(pred.max(axis=1).mean())
+
+
+def loop_metric_reference(seen):
+    """numpy's formula for each metric of ``loop_fit``'s composite over
+    the batches of an epoch so far: ``[(perplexity, nll, loss,
+    top_prob)]`` after each batch of ``seen`` (``(epoch, nbatch, probs,
+    labels)`` records)."""
+    out, acc = [], None
+    for epoch, nbatch, p, lab in seen:
+        if nbatch == 0:
+            acc = {"logp": 0.0, "nll": 0.0, "n": 0, "sum": 0.0, "size": 0,
+                   "top": 0.0, "batches": 0}
+        p = p.astype(np.float64)
+        lab = lab.astype(np.int64)
+        picked = p[np.arange(lab.size), lab]
+        acc["logp"] -= np.log(np.maximum(1e-10, picked)).sum()
+        acc["nll"] -= np.log(picked + 1e-12).sum()
+        acc["n"] += lab.size
+        acc["sum"] += p.sum()
+        acc["size"] += p.size
+        acc["top"] += p.max(axis=1).mean()
+        acc["batches"] += 1
+        out.append((math.exp(acc["logp"] / acc["n"]), acc["nll"] / acc["n"],
+                    acc["sum"] / acc["size"], acc["top"] / acc["batches"]))
+    return out
+
+
+class _Lines(logging.Handler):
+    """Collects the messages logged while it is the root logger's only
+    handler (at INFO)."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def loop_fit(mx, ck, ctx, sym, image, batch=BATCH, classes=CLASSES,
+             epochs=LOOP_FIT_EPOCHS, batches=LOOP_FIT_BATCHES, seed=SEED):
+    """Phase 16 (b): one ``Module.fit`` through the new API: ``epochs``
+    epochs of ``batches`` batches with ``optimizer="nag"`` (momentum
+    0.9) under a ``PolyScheduler``, a ``CompositeEvalMetric`` of
+    ``Perplexity``, ``NegativeLogLikelihood``, ``Loss`` and a
+    ``metric.np`` metric, ``monitor=Monitor(1, pattern=LOOP_MONITOR)``,
+    ``Speedometer``, ``log_train_metric`` and ``ProgressBar`` after each
+    batch, and one ``eval_data`` batch with
+    ``LogValidationMetricsCallback``.  Launch counts are reset just
+    before ``fit`` and read after it.  Returns ``(module, numbers)``; the
+    numbers hold each metric's largest distance from numpy's formula on
+    the fetched outputs, the monitor's windows and the callbacks' log
+    lines."""
+    train_it = synthetic_iter(mx, ctx, batch, image, batches, seed, classes)
+    eval_it = synthetic_iter(mx, ctx, batch, image, 1, seed + 1, classes)
+    metric = mx.metric.CompositeEvalMetric([
+        mx.metric.Perplexity(ignore_label=None),
+        mx.metric.NegativeLogLikelihood(), mx.metric.Loss(),
+        mx.metric.np(_top_prob)])
+    mon = mx.Monitor(1, pattern=LOOP_MONITOR)
+    windows = []
+    toc = mon.toc
+
+    def recording_toc():
+        report = toc()
+        windows.append(report)
+        return report
+
+    mon.toc = recording_toc
+    mod = mx.mod.Module(sym, context=ctx)
+    seen, values = [], []
+    label = train_it.next().label[0].asnumpy()
+    train_it.reset()
+
+    def record(param):
+        seen.append((param.epoch, param.nbatch,
+                     mod.get_outputs()[0].asnumpy(), label))
+        values.append([v for _, v in param.eval_metric.get_name_value()])
+
+    lines = _Lines()
+    root = logging.getLogger()
+    level, handlers = root.level, root.handlers[:]
+    root.handlers = [lines]
+    root.setLevel(logging.INFO)
+    mx.random.seed(seed)
+    ck.reset_kernel_calls()
+    t0 = time.perf_counter()
+    try:
+        mod.fit(train_it, eval_data=eval_it, eval_metric=metric,
+                batch_end_callback=[
+                    record, mx.callback.Speedometer(batch, 2,
+                                                    auto_reset=False),
+                    mx.callback.log_train_metric(1),
+                    mx.callback.ProgressBar(batches)],
+                eval_end_callback=mx.callback.LogValidationMetricsCallback(),
+                kvstore="tpu", optimizer="nag",
+                optimizer_params={
+                    "learning_rate": 0.01, "momentum": 0.9, "wd": 1e-4,
+                    "lr_scheduler": mx.lr_scheduler.PolyScheduler(
+                        epochs * batches * 2, base_lr=0.01)},
+                initializer=mx.init.Xavier(rnd_type="gaussian",
+                                           factor_type="in", magnitude=2),
+                num_epoch=epochs, monitor=mon)
+    finally:
+        root.handlers = handlers
+        root.setLevel(level)
+    seconds = time.perf_counter() - t0
+    calls = ck.kernel_calls()
+    ref = loop_metric_reference(seen)
+    metric_rel = [max(abs(v - r) / max(abs(r), 1e-30) for v, r in zip(vs, rs))
+                  for vs, rs in zip(values, ref)]
+    names = [sorted(n for _, n, _ in w) for w in windows]
+    finite = all(np.isfinite(float(s.strip("[]"))) for w in windows
+                 for _, _, s in w)
+    return mod, {
+        "epochs": epochs, "batches": batches, "seconds": seconds,
+        "calls": calls, "metric_names": metric.get()[0],
+        "metric_max_rel": max(metric_rel), "metric_values_last": values[-1],
+        "monitor_windows": len(windows), "monitor_names": names,
+        "monitor_finite": finite,
+        "log_speed": sum("Speed:" in s for s in lines.lines),
+        "log_train": sum("] Train-" in s and "Iter[" in s
+                         for s in lines.lines),
+        "log_progress": sum(s.startswith("[") and "%" in s
+                            for s in lines.lines),
+        "log_validation": sum("Validation-" in s for s in lines.lines),
+        "fused": mod._fused_exec_update,
+    }
+
+
+def loop_monitor_bitwise(mx, mod, ctx, image, batch=BATCH, classes=CLASSES,
+                         steps=LOOP_MONITOR_STEPS, seed=SEED):
+    """From one state of ``mod`` (parameters and the updater's pickled
+    optimizer and states), ``steps`` steps three times under cuDNN
+    deterministic: without a monitor, with ``Monitor(1, ".*",
+    monitor_all=True)`` (every node tapped, ``tic``/``toc`` each step),
+    and without again; the weights after each, and the step times by CUDA
+    events."""
+    exe = mod._exec_group.execs[0]
+    exe.set_monitor_callback(None)
+    data = synthetic_iter(mx, ctx, batch, image, 1, seed, classes).next()
+    arg, aux = mod.get_params()
+    upd = mod._kvstore._updater
+    blob = upd.get_states(dump_optimizer=True)
+    device = exe.device
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    try:
+        for run in ("off", "on", "off_again"):
+            mod.set_params(arg, aux)
+            upd.set_states(blob)
+            mon = None
+            if run == "on":
+                mon = mx.Monitor(1, pattern=".*", monitor_all=True)
+                mod.install_monitor(mon)
+            ts, taps = [], 0
+            for _ in range(steps):
+                a = _marker(device)
+                if mon is not None:
+                    mon.tic()
+                mod.forward_backward(data)
+                mod.update()
+                if mon is not None:
+                    taps = len(mon.toc())
+                ts.append(_elapsed_ms(a, _marker(device)))
+            exe.set_monitor_callback(None)
+            runs[run] = ({n: exe.arg_dict[n]._data.clone()
+                          for n in mod._exec_group.param_names},
+                         float(np.median(ts)), taps)
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+    def same(a, b):
+        return all(torch.equal(a[n].view(torch.int32), b[n].view(torch.int32))
+                   for n in a)
+
+    return {"steps": steps,
+            "bitwise_on_vs_off": same(runs["on"][0], runs["off"][0]),
+            "bitwise_off_vs_off": same(runs["off_again"][0], runs["off"][0]),
+            "step_ms_off": runs["off"][1], "step_ms_on": runs["on"][1],
+            "step_ms_off_again": runs["off_again"][1],
+            "records_a_step_on": runs["on"][2]}
+
+
+def loop_engine(mx, ctx, n=1 << 22, seed=SEED):
+    """Phase 16 (c): inside ``engine.naive()`` each imperative op leaves
+    the current stream idle (``query()``) when it returns; an exception a
+    worker recorded raises at the next ``nd.waitall()`` and not at the one
+    after."""
+    rng = np.random.RandomState(seed)
+    a = mx.nd.array(rng.randn(n).astype(np.float32), ctx=ctx)
+    m = mx.nd.array(rng.randn(2048, 2048).astype(np.float32), ctx=ctx)
+    ops = (("mul", lambda: a * 2.0), ("exp", lambda: mx.nd.exp(a)),
+           ("dot", lambda: mx.nd.dot(m, m)), ("sum", lambda: mx.nd.sum(a)),
+           ("softmax", lambda: mx.nd.softmax(m)))
+    on_card = ctx.device_type == "gpu"
+    idle = {}
+    with mx.engine.naive():
+        for name, op in ops:
+            if on_card:
+                torch.cuda.synchronize()
+            op()
+            idle[name] = torch.cuda.current_stream().query() \
+                if on_card else None
+    busy_outside = None
+    if on_card:
+        torch.cuda.synchronize()
+        mx.nd.dot(m, m)
+        mx.nd.dot(m, m)
+        busy_outside = not torch.cuda.current_stream().query()
+    mx.engine.clear_exception()
+    exc = RuntimeError("phase 16: a worker's exception with no receiver")
+
+    def worker():
+        with mx.engine.worker_scope(lambda e: False):
+            raise exc
+
+    t = threading.Thread(target=worker)
+    t.start()
+    t.join()
+    first = again = None
+    try:
+        mx.nd.waitall()
+    except RuntimeError as e:
+        first = e is exc
+    try:
+        mx.nd.waitall()
+        again = False
+    except Exception:   # noqa: BLE001 — any second raise fails the phase
+        again = True
+    return {"naive_idle": idle, "busy_outside_naive": busy_outside,
+            "raised_at_waitall": first, "raised_again": again}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -4167,14 +4729,19 @@ def main():
           "Module.fit kvstore=tpu batch %d: %d warmup + %d timed steps: "
           "%.2f ms/step, %.1f images/s (CUDA events); launches a step %s; "
           "cross-entropy %.4f -> %.4f; peak memory %.2f GB; served %d "
-          "answers over %d forwards, bitwise %s, max rel %.3g; a bucket-%d "
+          "answers over %d forwards, against a Predictor at their own "
+          "bucket bitwise %s, max rel %.3g (against the module's %d-row "
+          "forward: bitwise %s, max rel %.3g); a bucket-%d "
           "forward %.2f ms, launches %s"
           % (smi, inc["params"], inc["sites"], BATCH, inc["warmup"],
              inc["steps"], inc["step_ms"], inc["images_per_s"],
              inc["launches_step"], inc["ce_first"], inc["ce_last"],
              inc["peak_mem_gb"], inc["serve"]["answers"],
              inc["serve"]["forwards"], inc["serve"]["bitwise"],
-             inc["serve"]["max_rel"], BATCH, inc["serve"]["fwd_ms"],
+             inc["serve"]["max_rel"], BATCH,
+             inc["serve"]["cross_shape_bitwise"],
+             inc["serve"]["cross_shape_max_rel"], BATCH,
+             inc["serve"]["fwd_ms"],
              inc["launches_forward"]), flush=True)
     inc["seconds_fit_and_serve"] = time.perf_counter() - t14b
     # this path's kernels against their plain versions at its own shapes
@@ -4407,6 +4974,92 @@ def main():
     fit15_mod = fit15.pop("module")
     mixed_line["seconds"] = time.perf_counter() - t15
 
+    # 16. the training-loop API: the fourteen per-array optimizers against
+    # the CPU, one Module.fit through the new metrics, monitor and
+    # callbacks, the monitor's taps bitwise, and the engine
+    t16 = time.perf_counter()
+    loop_opt = loop_optimizers(mx, ck, mx.gpu(0), sym, IMAGE)
+    bad = loop_failures(loop_opt)
+    if bad:
+        raise AssertionError("training-loop optimizers: " + "; ".join(bad))
+    t16b = time.perf_counter()
+    loop_mod, loop = loop_fit(mx, ck, mx.gpu(0), sym, IMAGE)
+    n16 = LOOP_FIT_EPOCHS * LOOP_FIT_BATCHES
+    want = dict.fromkeys(loop["calls"], 0)
+    want.update(softmax_lastaxis=n16 + LOOP_FIT_EPOCHS,
+                scale_bias_relu=len(sites) * LOOP_FIT_EPOCHS)
+    n_metrics = len(loop["metric_names"])
+    logs = (loop["log_speed"], loop["log_train"], loop["log_progress"],
+            loop["log_validation"])
+    want_logs = (LOOP_FIT_EPOCHS, n16 * n_metrics, n16,
+                 2 * LOOP_FIT_EPOCHS * n_metrics)
+    watched = ["conv0_weight", "fc1_bias", "fc1_weight"]
+    if loop["calls"] != want or loop["fused"] \
+            or not loop["metric_max_rel"] <= LOOP_METRIC_TOL \
+            or loop["monitor_windows"] != n16 \
+            or any(n != watched for n in loop["monitor_names"]) \
+            or not loop["monitor_finite"] or logs != want_logs:
+        raise AssertionError(
+            "training-loop fit: launches %s (expected %s), fused %s, "
+            "metrics %.3g from numpy's (limit %g), monitor windows %d "
+            "(expected %d) of %s (expected %s each), finite %s, log lines "
+            "(speed, train, progress, validation) %s (expected %s)"
+            % (loop["calls"], want, loop["fused"], loop["metric_max_rel"],
+               LOOP_METRIC_TOL, loop["monitor_windows"], n16,
+               loop["monitor_names"], watched, loop["monitor_finite"], logs,
+               want_logs))
+    loop["seconds_fit_and_check"] = time.perf_counter() - t16b
+    mon16 = loop_monitor_bitwise(mx, loop_mod, mx.gpu(0), IMAGE)
+    del loop_mod
+    if not (mon16["bitwise_on_vs_off"] and mon16["bitwise_off_vs_off"]):
+        raise AssertionError("training-loop monitor: %s steps with every "
+                             "node tapped against none, not bitwise: %s"
+                             % (mon16["steps"], mon16))
+    eng16 = loop_engine(mx, mx.gpu(0))
+    if not all(eng16["naive_idle"].values()) \
+            or eng16["raised_at_waitall"] is not True \
+            or eng16["raised_again"]:
+        raise AssertionError("training-loop engine: %s" % eng16)
+    loop_line = {"card": smi, "optimizers": loop_opt, "fit": loop,
+                 "monitor": mon16, "engine": eng16,
+                 "seconds": time.perf_counter() - t16}
+    # K2 a step: the set of the per-array steps' counts ({1} when each
+    # launched it once); a fit's eval forwards: what the fit launched
+    # past its training steps, per epoch's eval batch
+    per_step = sorted({r["launches"].get("softmax_lastaxis", 0)
+                       for r in loop_opt.values()})
+    k2["launches_training_loop"] = {
+        "per_step": per_step[0] if len(per_step) == 1 else per_step,
+        "per_eval_forward": (loop["calls"]["softmax_lastaxis"] - n16)
+        / LOOP_FIT_EPOCHS}
+    k3["launches_training_loop"] = {
+        "per_eval_forward": loop["calls"]["scale_bias_relu"]
+        / LOOP_FIT_EPOCHS}
+    print("training loop on %s: ResNet-50 v1 fp32 batch %d, kvstore=tpu, "
+          "each of %d optimizers with a PolyScheduler against the CPU's "
+          "replay of the same update: weights within %.3g, states within "
+          "%.3g of the largest (limit %g), SGLD's noise mean %.2f standard "
+          "errors, std %.4f of sqrt(lr); K2 once and no sweep a step; step "
+          "ms (CUDA events) %s; Module.fit nag x %d epochs x %d batches: "
+          "metrics within %.3g of numpy's, monitor %d windows of %s, all "
+          "finite; every node tapped (%d records a step) vs none, %d steps "
+          "from one state: bitwise %s (none vs none %s), step %.2f ms on "
+          "vs %.2f off; naive(): stream idle after each op %s; a worker's "
+          "orphaned exception raised at nd.waitall() %s, again %s; %.1f s"
+          % (smi, BATCH, len(loop_opt),
+             max(r["weights"] for r in loop_opt.values()),
+             max(r["states_max_rel"] for r in loop_opt.values()), LOOP_TOL,
+             loop_opt["sgld"]["sgld"]["mean_in_se"],
+             loop_opt["sgld"]["sgld"]["std_by_sqrt_lr"],
+             {k: round(r["step_ms"], 2) for k, r in loop_opt.items()},
+             LOOP_FIT_EPOCHS, LOOP_FIT_BATCHES, loop["metric_max_rel"],
+             loop["monitor_windows"], watched, mon16["records_a_step_on"],
+             mon16["steps"], mon16["bitwise_on_vs_off"],
+             mon16["bitwise_off_vs_off"], mon16["step_ms_on"],
+             mon16["step_ms_off"], eng16["naive_idle"],
+             eng16["raised_at_waitall"], eng16["raised_again"],
+             loop_line["seconds"]), flush=True)
+
     # device time of each kernel (the profiler last: its hooks slow the
     # host for the rest of the process)
     # K6b's bf16 operands (37.7 MB) fit in the L2 cache, where back-to-back
@@ -4556,6 +5209,7 @@ def main():
     inc["serve"] = {k: v for k, v in inc["serve"].items()
                     if k not in ("calls", "fwd_calls")}
     print(json.dumps({"inception_bn": dict(inc, card=smi)}, default=str))
+    print(json.dumps({"training_loop": loop_line}, default=str))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
             "launches_per_forward", "call_ms", "plain_call_ms",
@@ -4563,7 +5217,8 @@ def main():
     print(json.dumps({"kernels": [
         {k: rec[k] for k in keys + tuple(
             x for x in ("launches_training", "launches_checkpoints",
-                        "launches_inception", "launches_mixed", "bf16",
+                        "launches_inception", "launches_mixed",
+                        "launches_training_loop", "bf16",
                         "ms_repeats", "library_ms_repeats",
                         "bfloat16_ms_repeats", "bfloat16_library_ms_repeats",
                         "repeats_timer",

@@ -38,14 +38,18 @@ files are the JAX package's, byte for byte; ``.states`` files pickle each
 package's own classes.  The operator library is the JAX package's but for
 the detection, quantization, sparse, image, RNN, CTC and
 spatial-transformer ops (ROADMAP.md), with NDArray's and Symbol's
-methods.
+methods.  The training-loop API is the JAX package's: its sixteen
+optimizers, metrics, initializers and schedulers, the callbacks,
+``engine`` (``naive``, ``bulk``, deferred worker exceptions), ``Monitor``
+(the executor's taps), ``viz``, ``registry``, ``misc`` and ``log``.
 """
 import torch as _torch
 
+from .libinfo import __version__  # noqa: F401
 from .base import MXNetError  # noqa: F401
 from . import config  # noqa: F401
 from .context import (Context, cpu, gpu, tpu, current_context,  # noqa: F401
-                      num_gpus)
+                      num_gpus, num_tpus)
 from . import autograd  # noqa: F401
 from . import attribute  # noqa: F401
 from .attribute import AttrScope  # noqa: F401
@@ -54,6 +58,10 @@ from . import ndarray as nd  # noqa: F401
 from . import ops  # noqa: F401
 from . import symbol  # noqa: F401
 from . import symbol as sym  # noqa: F401
+from .symbol import Symbol  # noqa: F401
+from . import name  # noqa: F401
+from .name import NameManager, Prefix  # noqa: F401
+from . import executor  # noqa: F401
 from .executor import Executor  # noqa: F401
 from .predictor import Predictor  # noqa: F401
 from . import io  # noqa: F401
@@ -65,6 +73,7 @@ from . import lr_scheduler  # noqa: F401
 from . import initializer  # noqa: F401
 from . import initializer as init  # noqa: F401
 from . import optimizer  # noqa: F401
+from .optimizer import Optimizer  # noqa: F401
 from . import metric  # noqa: F401
 from . import kvstore  # noqa: F401
 from . import kvstore as kv  # noqa: F401
@@ -74,6 +83,13 @@ from . import module  # noqa: F401
 from . import module as mod  # noqa: F401
 from . import parallel  # noqa: F401
 from . import gluon  # noqa: F401
+from . import registry  # noqa: F401
+from . import misc  # noqa: F401
+from . import monitor  # noqa: F401
+from .monitor import Monitor  # noqa: F401
+from . import visualization  # noqa: F401
+from . import visualization as viz  # noqa: F401
+from . import log  # noqa: F401
 
 _torch.backends.cudnn.allow_tf32 = False
 _torch.backends.cuda.matmul.allow_tf32 = False

@@ -21,7 +21,9 @@ closures; here the tape is PyTorch's autograd graph:
   touches no buffer, with ``create_graph`` for higher orders;
 - as in the reference, a backward frees the recorded graph unless
   ``retain_graph``, and a second backward through it then raises;
-- ``Function`` is a thin layer over ``torch.autograd.Function``.
+- ``Function`` is a thin layer over ``torch.autograd.Function``;
+- ``get_symbol`` raises MXNetError, as in the JAX package: a recorded
+  graph is not exported as a Symbol.
 
 ``Module.fit`` trains through the executor's own autograd and does not
 use this module's backward.
@@ -37,7 +39,7 @@ from .base import MXNetError
 
 __all__ = ["is_recording", "is_training", "set_recording", "set_training",
            "record", "pause", "train_mode", "predict_mode", "mark_variables",
-           "backward", "grad", "Function"]
+           "backward", "grad", "get_symbol", "Function"]
 
 _STATE = threading.local()
 
@@ -240,6 +242,13 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
                          "heads in the recorded graph")
     res = [NDArray(g) for g in grads]
     return res[0] if single else res
+
+
+def get_symbol(x):
+    """Reference: autograd.py get_symbol; the recorded graph has no
+    Symbol form here, as in the JAX package."""
+    raise MXNetError("autograd.get_symbol is not supported; use symbolic "
+                     "API")
 
 
 class Function:

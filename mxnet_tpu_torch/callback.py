@@ -2,9 +2,11 @@
 
 Counterpart of ``mxnet_tpu/callback.py`` (reference:
 python/mxnet/callback.py): the checkpoint callbacks ``module_checkpoint``
-and ``do_checkpoint``, and ``Speedometer``, whose log line
-(``Epoch[%d] Batch [%d]\\tSpeed: %.2f samples/sec`` and the metric) has
-the reference's shape, which tools parse.
+and ``do_checkpoint``, and the logging ones, ``log_train_metric``,
+``Speedometer``, ``ProgressBar`` and ``LogValidationMetricsCallback``,
+whose lines (``Epoch[%d] Batch [%d]\\tSpeed: %.2f samples/sec`` and the
+metric, ``Iter[%d] Batch[%d] Train-<metric>=``, ``Epoch[%d]
+Validation-<metric>=``) have the reference's shapes, which tools parse.
 """
 from __future__ import annotations
 
@@ -13,7 +15,8 @@ import time
 
 from .model import _refuse_manager, save_checkpoint
 
-__all__ = ["module_checkpoint", "do_checkpoint", "Speedometer"]
+__all__ = ["module_checkpoint", "do_checkpoint", "log_train_metric",
+           "Speedometer", "ProgressBar", "LogValidationMetricsCallback"]
 
 
 def module_checkpoint(mod, prefix=None, period=1, save_optimizer_states=False,
@@ -55,6 +58,20 @@ def do_checkpoint(prefix, period=1):
     return _callback
 
 
+def log_train_metric(period, auto_reset=False):
+    """A batch-end callback that logs the metric every ``period`` batches
+    (reference: callback.py:84)."""
+
+    def _callback(param):
+        if param.nbatch % period == 0 and param.eval_metric is not None:
+            for name, value in param.eval_metric.get_name_value():
+                logging.info("Iter[%d] Batch[%d] Train-%s=%f",
+                             param.epoch, param.nbatch, name, value)
+            if auto_reset:
+                param.eval_metric.reset()
+    return _callback
+
+
 class Speedometer:
     """Log samples/sec and the metric every ``frequent`` batches
     (reference: callback.py:115).  Reading the metric waits for the
@@ -90,3 +107,30 @@ class Speedometer:
             ["%s Batch [%d]" % (head, count),
              "Speed: %.2f samples/sec" % speed] + metric_parts))
         self._tick = time.time()
+
+
+class ProgressBar:
+    """Log an ASCII progress bar of ``nbatch`` out of ``total`` batches
+    (reference: callback.py:187)."""
+
+    def __init__(self, total, length=80):
+        self.bar_len = length
+        self.total = total
+
+    def __call__(self, param):
+        frac = param.nbatch / float(self.total)
+        filled = int(round(self.bar_len * frac))
+        bar = "=" * filled + "-" * (self.bar_len - filled)
+        logging.info("[%s] %d%%\r", bar, int(frac * 100 + 0.999))
+
+
+class LogValidationMetricsCallback:
+    """An eval-end callback that logs the validation metrics (reference:
+    callback.py:211)."""
+
+    def __call__(self, param):
+        if not param.eval_metric:
+            return
+        for name, value in param.eval_metric.get_name_value():
+            logging.info("Epoch[%d] Validation-%s=%f",
+                         param.epoch, name, value)

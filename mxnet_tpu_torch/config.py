@@ -4,15 +4,19 @@ Counterpart of ``mxnet_tpu/config.py``: variables are declared with
 ``register_env`` and read with ``get``.  ``tuned`` keeps the JAX
 package's call shape but resolves env -> default only; the tuning
 database arrives with a later slice.  Only the knobs this package reads
-are registered, with the JAX package's defaults.
+are registered, with the JAX package's defaults.  ``list_env`` prints the
+registry as a table and ``check_unknown`` names ``MXNET_*`` variables
+set in the environment that nothing registered (likely typos).
 """
 from __future__ import annotations
 
+import os
 from collections import OrderedDict
 
 from .base import getenv
 
-__all__ = ["register_env", "get", "tuned", "EnvVar"]
+__all__ = ["register_env", "get", "tuned", "EnvVar", "list_env",
+           "check_unknown"]
 
 
 class EnvVar:
@@ -48,6 +52,23 @@ def tuned(name):
     JAX package consults its tuning database in between; that database
     is not ported yet)."""
     return get(name)
+
+
+def list_env():
+    """The registry as a markdown table (reference: docs/faq/env_var.md)."""
+    lines = ["| variable | type | default | description |",
+             "| --- | --- | --- | --- |"]
+    for var in _REGISTRY.values():
+        lines.append("| %s | %s | %r | %s |" % (
+            var.name, var.typ.__name__, var.default, var.description))
+    return "\n".join(lines)
+
+
+def check_unknown(prefix="MXNET_"):
+    """Variables starting with ``prefix`` set in the environment but never
+    registered, sorted."""
+    return sorted(k for k in os.environ
+                  if k.startswith(prefix) and k not in _REGISTRY)
 
 
 register_env("MXNET_PALLAS_BN_RELU", str, "auto",

@@ -22,7 +22,7 @@ import torch
 from .base import MXNetError
 
 __all__ = ["Context", "cpu", "gpu", "tpu", "current_context", "num_gpus",
-           "resolve"]
+           "num_tpus", "resolve"]
 
 
 class Context:
@@ -117,6 +117,11 @@ def current_context():
 
 def num_gpus():
     return torch.cuda.device_count() if torch.cuda.is_available() else 0
+
+
+def num_tpus():
+    """The JAX package's name for the accelerator count: the GPUs here."""
+    return num_gpus()
 
 
 def resolve(ctx):

@@ -34,6 +34,13 @@ compute dtype inside the recorded graph, in the training forward and
 backward and in the eval forward, so ``backward`` hands fp32 gradients to
 the fused step, which sweeps fp32 buckets as before.  Aux states
 (BatchNorm's moving stats) are not cast.
+
+Monitoring (``set_monitor_callback``, what ``Monitor.install`` calls):
+after each forward the callback gets every head output by name, or with
+``monitor_all`` every op node's output, handed over by the eager graph
+as it computes them (``build_graph_fn``'s ``tap``), with no second
+program; the JAX package runs one built from ``get_internals()``.  With
+no callback installed the graph runs as before.
 """
 from __future__ import annotations
 
@@ -109,6 +116,8 @@ class Executor:
             and n not in self._cast_exclude)
         self._outputs = None
         self._cached_grads = None
+        self._monitor_callback = None
+        self._monitor_all = False
         self._fn = build_graph_fn(symbol, self.arg_names, self.aux_names,
                                   device)
         self._fn_train = None
@@ -419,7 +428,7 @@ class Executor:
                  for _b, idxs in sweep["plan"]], np.float32))
         else:
             hyper = self._device_hyper(np.asarray([lrs, wds], np.float32))
-        outs, grads, new_aux = self._fb(args, aux)
+        outs, grads, new_aux = self._fb(args, aux, tap=self._tap())
         if sweep is not None:
             self._sweep_update(grads, hyper)
         else:
@@ -448,18 +457,20 @@ class Executor:
                                             is_train=True)
         return self._fn_train
 
-    def _fb(self, args, aux, seeds=None):
+    def _fb(self, args, aux, seeds=None, tap=None):
         """Training forward and backward: the differentiable arguments as
         fresh autograd leaves, the heads seeded with ``seeds`` (ones by
-        default).  An argument the graph does not use (a ``fix_gamma``
-        gamma) gets an exact zero gradient.  Returns ``(outputs,
+        default), each node's output handed to ``tap`` if given.  An
+        argument the graph does not use (a ``fix_gamma`` gamma) gets an
+        exact zero gradient.  Returns ``(outputs,
         gradients in _diff_idx order, new aux)``."""
         leaves = [args[i].detach().requires_grad_() for i in self._diff_idx]
         full = list(args)
         for j, i in enumerate(self._diff_idx):
             full[i] = leaves[j]
         with torch.enable_grad():
-            outs, new_aux = self._train_fn()(self._cast(full), aux)
+            outs, new_aux = self._train_fn()(self._cast(full), aux,
+                                             tap=tap)
             if seeds is None:
                 seeds = [torch.ones_like(o) for o in outs]
             live = [(o, s) for o, s in zip(outs, seeds) if o.requires_grad]
@@ -495,21 +506,41 @@ class Executor:
         if is_train and self._fused_update is not None:
             outs, new_aux = self._forward_fused(args, aux)
         elif is_train and self._diff_idx and self._is_loss_graph:
-            outs, self._cached_grads, new_aux = self._fb(args, aux)
+            outs, self._cached_grads, new_aux = self._fb(
+                args, aux, tap=self._tap())
             self._updates_applied = False
         elif is_train:
             with torch.no_grad():
-                outs, new_aux = self._train_fn()(self._cast(args), aux)
+                outs, new_aux = self._train_fn()(self._cast(args), aux,
+                                                 tap=self._tap())
             self._cached_grads = None
         else:
             with torch.inference_mode():
-                outs = self._fn(self._cast(args), aux)
+                outs = self._fn(self._cast(args), aux, tap=self._tap())
             self._cached_grads = None
         if new_aux is not None:
             for n, a in zip(self.aux_names, new_aux):
                 self.aux_dict[n]._data = a
         self._outputs = [NDArray(o) for o in outs]
+        if self._monitor_callback is not None and not self._monitor_all:
+            for name, o in zip(self.output_names, self._outputs):
+                self._monitor_callback(name, o)
         return self._outputs
+
+    def set_monitor_callback(self, callback, monitor_all=False):
+        """Hand ``callback(name, NDArray)`` the head outputs after each
+        forward, or with ``monitor_all`` every op node's output as the
+        graph computes it (reference: graph_executor.cc:121,1444).
+        ``None`` removes it."""
+        self._monitor_callback = callback
+        self._monitor_all = bool(monitor_all)
+
+    def _tap(self):
+        """The graph's tap for ``monitor_all``, else None."""
+        cb = self._monitor_callback
+        if cb is None or not self._monitor_all:
+            return None
+        return lambda name, t: cb(name, NDArray(t))
 
     def backward(self, out_grads=None, is_train=True):
         """Reference: executor.py:154.  With no ``out_grads`` the

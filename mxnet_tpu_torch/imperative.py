@@ -8,6 +8,8 @@ what remains here is attr coercion and validation, the op's
 ``needs_is_train``, the generator of the device the op runs on (its
 first input's, or its ``ctx``) for ops that declare ``needs_rng``,
 recording, the write-back of ``mutate_aux`` outputs, and ``out=``.
+Inside ``engine.naive()`` an op on the card waits for its stream before
+returning, as under the reference's NaiveEngine.
 
 Recording is PyTorch's autograd: an op runs with torch's grad mode on
 exactly while ``autograd.record()`` is on, so its output joins the graph
@@ -17,7 +19,9 @@ output (a moving statistic) is written back detached, outside the graph;
 """
 from __future__ import annotations
 
-from . import autograd
+import torch
+
+from . import autograd, engine
 from .base import MXNetError
 from .ops.registry import OpDef, coerce_attrs, get_op
 
@@ -49,6 +53,10 @@ def invoke(op, nd_inputs, attrs=None, out=None):
     with autograd.grad_mode():
         outputs = op.fn(*[x._data for x in nd_inputs], **kw)
     outs = list(outputs) if isinstance(outputs, tuple) else [outputs]
+    if engine.naive_scope_active():
+        for o in outs:
+            if o.is_cuda:
+                torch.cuda.current_stream(o.device).synchronize()
     n_aux = len(op.mutate_aux)
     if n_aux:
         # the updated states go back into their input slots (an aux that

@@ -1,16 +1,17 @@
 """Learning-rate schedulers.
 
 Counterpart of ``mxnet_tpu/lr_scheduler.py`` (reference:
-python/mxnet/lr_scheduler.py): ``FactorScheduler`` and
-``MultiFactorScheduler``.  Each computes lr(num_update) in closed form
-from the original base lr, so it may be called with update counts out
-of order.
+python/mxnet/lr_scheduler.py): ``FactorScheduler``,
+``MultiFactorScheduler`` and ``PolyScheduler``.  Each computes
+lr(num_update) in closed form from the original base lr, so it may be
+called with update counts out of order.
 """
 from __future__ import annotations
 
 import logging
 
-__all__ = ["LRScheduler", "FactorScheduler", "MultiFactorScheduler"]
+__all__ = ["LRScheduler", "FactorScheduler", "MultiFactorScheduler",
+           "PolyScheduler"]
 
 
 class LRScheduler:
@@ -84,3 +85,24 @@ class MultiFactorScheduler(LRScheduler):
             self._logged_decays = decays
             logging.info("update %d: lr decayed to %0.5e", num_update, lr)
         return lr
+
+
+class PolyScheduler(LRScheduler):
+    """lr = base * (1 - n / max_update) ^ pwr, 0 from ``max_update`` on
+    (reference: lr_scheduler.py:139).  The base is the one given here:
+    an optimizer's ``learning_rate`` does not move it, as in the JAX
+    package."""
+
+    def __init__(self, max_update, base_lr=0.01, pwr=2):
+        super().__init__(base_lr)
+        if not isinstance(max_update, int) or max_update < 1:
+            raise ValueError("max_update wants a positive int, got %r"
+                             % (max_update,))
+        self.base_lr_orig = base_lr
+        self.max_update = max_update
+        self.power = pwr
+
+    def __call__(self, num_update):
+        frac = min(float(num_update) / self.max_update, 1.0)
+        self.base_lr = self.base_lr_orig * (1.0 - frac) ** self.power
+        return self.base_lr

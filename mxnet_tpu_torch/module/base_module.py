@@ -5,7 +5,9 @@ python/mxnet/module/base_module.py:81): ``forward_backward``, ``score``
 and ``fit`` (bind, init_params, init_optimizer, then per batch
 forward_backward / update / update_metric / batch-end callbacks, and per
 epoch the parameter sync and epoch-end callbacks), and
-``save_params``/``load_params`` (the ``arg:``/``aux:`` container).  The
+``save_params``/``load_params`` (the ``arg:``/``aux:`` container).
+``fit(monitor=...)`` installs the monitor after binding and brackets each
+step with its ``tic`` and ``toc_print``, as the JAX package does.  The
 JAX package's checkpoint manager, fault supervisor, telemetry and
 tracing hooks are not part of the port.
 """
@@ -98,13 +100,16 @@ class BaseModule:
             eval_end_callback=None, eval_batch_end_callback=None,
             initializer=Uniform(0.01), arg_params=None, aux_params=None,
             allow_missing=False, force_rebind=False, force_init=False,
-            begin_epoch=0, num_epoch=None, validation_metric=None):
+            begin_epoch=0, num_epoch=None, validation_metric=None,
+            monitor=None):
         """The canonical train loop (reference: base_module.py:395)."""
         if num_epoch is None:
             raise ValueError("please specify number of epochs")
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,
                   for_training=True, force_rebind=force_rebind)
+        if monitor is not None:
+            self.install_monitor(monitor)
         self.init_params(initializer=initializer, arg_params=arg_params,
                          aux_params=aux_params, allow_missing=allow_missing,
                          force_init=force_init)
@@ -125,12 +130,16 @@ class BaseModule:
             data_batch = next(batches, None)
             nbatch = 0
             while data_batch is not None:
+                if monitor is not None:
+                    monitor.tic()
                 self.forward_backward(data_batch)
                 self.update()
                 self.update_metric(eval_metric, data_batch.label)
                 # fetch the next batch only after this step is queued: an
                 # iterator may reuse the current batch's buffers
                 upcoming = next(batches, None)
+                if monitor is not None:
+                    monitor.toc_print()
                 if upcoming is None:
                     # the epoch totals, before a callback can reset them
                     epoch_metrics = eval_metric.get_name_value()
@@ -165,6 +174,9 @@ class BaseModule:
                     for callback in _as_list(eval_end_callback):
                         callback(params)
             train_data.reset()
+
+    def install_monitor(self, mon):  # pragma: no cover - abstract
+        raise NotImplementedError()
 
     def set_params(self, arg_params, aux_params, allow_missing=False,
                    force_init=True, allow_extra=False):

@@ -137,6 +137,11 @@ class DataParallelExecutorGroup:
         outs = self.execs[0].outputs
         return outs if merge_multi_context else [[o] for o in outs]
 
+    def install_monitor(self, mon):
+        """Reference: executor_group.py:311."""
+        for exe in self.execs:
+            mon.install(exe)
+
     def update_metric(self, eval_metric, labels, pre_sliced=False):
         """Reference: :583."""
         labels_ = dict(zip(self.label_names, labels or []))

@@ -356,5 +356,13 @@ class Module(BaseModule):
         return self._exec_group.get_outputs(
             merge_multi_context=merge_multi_context)
 
+    def install_monitor(self, mon):
+        """Install ``mon`` on the bound executor (reference:
+        module.py:496)."""
+        if not self.binded:
+            raise RuntimeError("bind the module before installing a "
+                               "monitor")
+        self._exec_group.install_monitor(mon)
+
     def update_metric(self, eval_metric, labels, pre_sliced=False):
         self._exec_group.update_metric(eval_metric, labels, pre_sliced)

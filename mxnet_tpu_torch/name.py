@@ -2,7 +2,8 @@
 an unnamed op node is called ``<hint><n>``, counted per hint by the
 thread's current manager, so graphs built here carry the same node names
 as the JAX package's.  ``with NameManager():`` starts the counts afresh
-for the block."""
+for the block; ``with Prefix("p_"):`` also puts ``p_`` in front of every
+name, given or made."""
 from __future__ import annotations
 
 import threading
@@ -35,3 +36,16 @@ class NameManager:
         if not hasattr(cls._current, "value"):
             cls._current.value = NameManager()
         return cls._current.value
+
+
+class Prefix(NameManager):
+    """Every name the block gives or makes, with ``prefix`` in front
+    (reference: python/mxnet/name.py Prefix)."""
+
+    def __init__(self, prefix):
+        super().__init__()
+        self._prefix = prefix
+
+    def get(self, name, hint):
+        name = super().get(name, hint)
+        return self._prefix + name

@@ -38,7 +38,7 @@ import struct
 import numpy as np
 import torch
 
-from .. import autograd
+from .. import autograd, engine
 from .._atomic_io import atomic_writer
 from ..base import MXNetError, dtype_from_id, dtype_id, dtype_name, dtype_torch
 from ..context import Context, resolve
@@ -137,8 +137,10 @@ class NDArray:
         return a.astype(dtype) if dtype is not None else a
 
     def asnumpy(self):
-        """Copy to a host numpy array (the synchronisation point).
+        """Copy to a host numpy array (the synchronisation point, which
+        first rethrows a deferred worker exception: ``engine``).
         bfloat16, which numpy lacks, comes back as float32."""
+        engine.check_raise()
         t = self._data.detach()
         if t.dtype == torch.bfloat16:
             t = t.float()
@@ -150,7 +152,9 @@ class NDArray:
     def wait_to_read(self):
         """Block until every queued write to this array has finished
         (the device's queue is drained; on the CPU there is nothing to
-        wait for)."""
+        wait for).  A deferred worker exception is rethrown first
+        (``engine``)."""
+        engine.check_raise()
         if self._data.device.type == "cuda":
             torch.cuda.synchronize(self._data.device)
 
@@ -598,10 +602,12 @@ def onehot_encode(indices, out):
 
 def waitall():
     """Block until every queued operation on every card has finished
-    (reference: MXNDArrayWaitAll)."""
+    (reference: MXNDArrayWaitAll), then rethrow a deferred worker
+    exception (``engine``)."""
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         for i in range(torch.cuda.device_count()):
             torch.cuda.synchronize(i)
+    engine.check_raise()
 
 
 # ---------------------------------------------------------------------------

@@ -561,7 +561,13 @@ def build_graph_fn(symbol, arg_names, aux_names, device, is_train=False):
     the peephole is off, and ``fn(arg_list, aux_list) -> (outputs,
     new_aux)``: the aux list with each ``mutate_aux`` input replaced by
     its op's updated value (BatchNorm's new moving stats), for the
-    executor to write back."""
+    executor to write back.
+
+    ``fn(..., tap=callback)`` also hands every op node's visible outputs,
+    as they are computed, to ``callback(name, tensor)`` under the names
+    of ``get_internals().list_outputs()`` (the monitor's taps).  A
+    BatchNorm the peephole folds into its ReLU is computed for the tap
+    alone; nothing the graph computes changes."""
     nodes = symbol._topo()
     aux_index = {name: i for i, name in enumerate(aux_names)}
     arg_index = {name: i for i, name in enumerate(arg_names)}
@@ -587,7 +593,14 @@ def build_graph_fn(symbol, arg_names, aux_names, device, is_train=False):
         from ..random import generator
         rng = generator(dev)
 
-    def fn(args, aux):
+    def emit(tap, node, outs):
+        if node.num_outputs() == 1:
+            tap("%s_output" % node.name, outs[0].detach())
+            return
+        for i in range(node.num_outputs()):
+            tap("%s_output%d" % (node.name, i), outs[i].detach())
+
+    def fn(args, aux, tap=None):
         env = {}
         new_aux = list(aux)
         for node in nodes:
@@ -602,6 +615,10 @@ def build_graph_fn(symbol, arg_names, aux_names, device, is_train=False):
             if id(node) in bn_skip:
                 # deferred into the fused Activation below; in eval the
                 # moving stats are untouched, so nothing is lost
+                if tap is not None:
+                    emit(tap, node, node.op.fn(
+                        *[env[(id(s), i)] for (s, i) in node.inputs],
+                        **plans[id(node)]))
                 continue
             if id(node) in bn_fuse:
                 bn = bn_fuse[id(node)]
@@ -616,6 +633,8 @@ def build_graph_fn(symbol, arg_names, aux_names, device, is_train=False):
                     # non-4D data: run the pair unfused
                     out = torch.relu(bn.op.fn(*ins, **battrs)[0])
                 env[(id(node), 0)] = out
+                if tap is not None:
+                    emit(tap, node, (out,))
                 continue
             op = node.op
             kw = dict(plans[id(node)])
@@ -632,6 +651,8 @@ def build_graph_fn(symbol, arg_names, aux_names, device, is_train=False):
                 new_aux[ai] = outs[oi]
             for i, o in enumerate(outs[:len(outs) - len(op.mutate_aux)]):
                 env[(id(node), i)] = o
+            if tap is not None:
+                emit(tap, node, outs)
         outputs = [env[(id(n), i)] for (n, i) in symbol._flat_outputs()]
         return (outputs, new_aux) if is_train else outputs
 

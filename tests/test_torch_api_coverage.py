@@ -1,0 +1,232 @@
+"""What of the JAX package's public API the port holds, module by module:
+for each module below, the JAX package's public names minus the port's
+equal ``DEFERRED``, the names left for later, keyed by the ROADMAP.md
+queue that owns them (and the JAX package's internals that the port has
+no counterpart of, by design).  Each later slice shrinks DEFERRED.  The
+modules of the training-loop API import neither JAX nor the JAX package.
+
+A module's public names: its names without a leading underscore that it
+defines, lists in ``__all__`` or holds as a submodule (for a package,
+anything defined inside the package); at the top level, every name but
+modules from outside the package.
+"""
+import importlib
+import json
+import os
+import subprocess
+import sys
+import types
+
+import pytest
+
+import mxnet_tpu  # noqa: F401
+import mxnet_tpu_torch  # noqa: F401
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+MODULES = ("", "optimizer", "metric", "initializer", "lr_scheduler",
+           "callback", "engine", "config", "autograd", "random", "name",
+           "io", "model", "kvstore", "module", "gluon", "gluon.nn",
+           "gluon.loss", "serving")
+
+DEFERRED = {
+    # queue 1 item 2: foundation (module/, io, model.FeedForward, the
+    # executor's telemetry)
+    "queue 1 item 2": {
+        "io": {"CSVIter", "ImageDetRecordIter", "ImageRecordIter",
+               "LibSVMIter", "MNISTIter", "MXDataIter", "PrefetchingIter",
+               "ResizeIter"},
+        "model": {"FeedForward"},
+        "module": {"BucketingModule", "DataParallelExecutorGroup",
+                   "PythonLossModule", "PythonModule", "SequentialModule",
+                   "bucketing_module", "python_module",
+                   "sequential_module"},
+        "": {"executor_manager", "recordio", "image", "telemetry",
+             "compile_cache"},
+    },
+    # queue 1 item 3: gluon
+    "queue 1 item 3": {
+        "gluon": {"Constant", "SymbolBlock", "clip_global_norm", "data",
+                  "model_zoo", "rnn", "split_and_load", "split_data",
+                  "utils"},
+        "gluon.nn": {"AvgPool1D", "AvgPool2D", "AvgPool3D", "BatchNorm",
+                     "Conv1D", "Conv1DTranspose", "Conv2D",
+                     "Conv2DTranspose", "Conv3D", "Conv3DTranspose", "ELU",
+                     "Flatten", "GlobalAvgPool1D", "GlobalAvgPool2D",
+                     "GlobalAvgPool3D", "GlobalMaxPool1D", "GlobalMaxPool2D",
+                     "GlobalMaxPool3D", "HybridLambda", "InstanceNorm",
+                     "Lambda", "LeakyReLU", "MaxPool1D", "MaxPool2D",
+                     "MaxPool3D", "PReLU", "ReflectionPad2D", "SELU",
+                     "Swish", "conv_layers"},
+        "gluon.loss": {"CTCLoss", "HingeLoss", "HuberLoss", "KLDivLoss",
+                       "LogisticLoss", "SigmoidBCELoss",
+                       "SigmoidBinaryCrossEntropyLoss", "SquaredHingeLoss",
+                       "TripletLoss"},
+        "": {"rnn"},
+    },
+    # queue 1 item 5: serving
+    "queue 1 item 5": {
+        "serving": {"CanaryState", "CheckpointWatcher", "DecodeScheduler",
+                    "DecodeState", "FleetFrontDoor", "GenerativeModel",
+                    "ReplicaHandle", "TokenStream", "WarmupManifest",
+                    "canary", "decode_error", "encode_error", "fleet",
+                    "generate", "local_replica", "manifest",
+                    "pick_grid_bucket", "prefill_grid", "replica_loop",
+                    "seq_buckets", "spawn_replica"},
+    },
+    # queue 1 item 6: state and resilience
+    "queue 1 item 6": {
+        "": {"checkpoint", "fault", "profiler"},
+    },
+    # queue 1 item 7: multi-GPU
+    "queue 1 item 7": {
+        "kvstore": {"KVStoreDist", "KVStoreDistAsync", "is_scheduler_node",
+                    "is_server_node", "is_worker_node"},
+        "": {"kvstore_server", "gradient_compression"},
+    },
+    # queue 1 item 8: the long tail
+    "queue 1 item 8": {
+        "": {"CustomOp", "CustomOpProp", "operator", "contrib", "rtc",
+             "test_utils", "th", "torch"},
+    },
+    # queue 1 item 9: tuning and analysis
+    "queue 1 item 9": {
+        "config": {"tuned_info"},
+        "": {"analysis"},
+    },
+    # the JAX package's own machinery, with no counterpart by design: its
+    # tape of jax.vjp closures (the port records with torch's autograd)
+    # and its threefry key chain (the port draws from torch generators)
+    "JAX internals": {
+        "autograd": {"record_entry"},
+        "random": {"next_key", "next_key_data", "trace_key_scope"},
+    },
+}
+
+# the names this slice ported, none of which may be deferred
+PORTED = {
+    "optimizer": {"ccSGD", "Signum", "FTML", "LBSGD", "DCASGD", "NAG",
+                  "SGLD", "Test", "AdaGrad", "RMSProp", "AdaDelta", "Ftrl",
+                  "Adamax", "Nadam"},
+    "metric": {"F1", "Perplexity", "MAE", "MSE", "RMSE",
+               "NegativeLogLikelihood", "PearsonCorrelation", "Loss",
+               "Torch", "Caffe", "CustomMetric", "np"},
+    "initializer": {"Constant", "Orthogonal", "MSRAPrelu", "Bilinear",
+                    "LSTMBias", "FusedRNN", "Load", "Mixed"},
+    "lr_scheduler": {"PolyScheduler"},
+    "callback": {"log_train_metric", "ProgressBar",
+                 "LogValidationMetricsCallback"},
+    "engine": {"naive", "naive_scope_active", "bulk", "set_bulk_size",
+               "record_exception", "check_raise", "clear_exception",
+               "consume_exception"},
+    "config": {"list_env", "check_unknown"},
+    "autograd": {"get_symbol"},
+    "random": {"get_state", "set_state"},
+    "name": {"Prefix"},
+    "": {"Symbol", "Optimizer", "NameManager", "Prefix", "num_tpus",
+         "__version__", "Monitor", "monitor", "viz", "visualization",
+         "misc", "registry", "log", "libinfo"},
+}
+
+# the port's modules that this slice added or extended
+NEW_MODULES = ("mxnet_tpu_torch.optimizer", "mxnet_tpu_torch.metric",
+               "mxnet_tpu_torch.initializer", "mxnet_tpu_torch.lr_scheduler",
+               "mxnet_tpu_torch.callback", "mxnet_tpu_torch.engine",
+               "mxnet_tpu_torch.config", "mxnet_tpu_torch.autograd",
+               "mxnet_tpu_torch.random", "mxnet_tpu_torch.name",
+               "mxnet_tpu_torch.monitor", "mxnet_tpu_torch.visualization",
+               "mxnet_tpu_torch.misc", "mxnet_tpu_torch.registry",
+               "mxnet_tpu_torch.log", "mxnet_tpu_torch.libinfo",
+               "mxnet_tpu_torch.executor", "mxnet_tpu_torch.module")
+
+
+def _module(root, sub):
+    return importlib.import_module(root + ("." + sub if sub else ""))
+
+
+def public_names(mod):
+    is_package = hasattr(mod, "__path__")
+    listed = set(getattr(mod, "__all__", ()))
+    out = set()
+    for name in dir(mod):
+        if name.startswith("_"):
+            continue
+        obj = getattr(mod, name)
+        if isinstance(obj, types.ModuleType):
+            if obj.__name__.startswith(mod.__name__ + "."):
+                out.add(name)
+            continue
+        where = getattr(obj, "__module__", None) or ""
+        if (name in listed or where == mod.__name__
+                or mod.__name__ in ("mxnet_tpu", "mxnet_tpu_torch")
+                or (is_package and where.startswith(mod.__name__ + "."))):
+            out.add(name)
+    return out
+
+
+def _deferred(sub):
+    return set().union(*(by_mod.get(sub, set())
+                         for by_mod in DEFERRED.values()))
+
+
+def names_after_import():
+    """``{module: (the JAX package's public names, the port's names)}``
+    right after importing both packages."""
+    return {sub: (sorted(public_names(_module("mxnet_tpu", sub))),
+                  sorted(n for n in dir(_module("mxnet_tpu_torch", sub))
+                         if not n.startswith("_")))
+            for sub in MODULES}
+
+
+@pytest.fixture(scope="module")
+def fresh_names():
+    """``names_after_import`` in a new interpreter: other tests in this
+    process import more submodules, which then show as attributes of
+    their package."""
+    code = ("import json, sys\n"
+            "sys.path[:0] = [%r, %r]\n"
+            "import test_torch_api_coverage as t\n"
+            "print(json.dumps(t.names_after_import()))"
+            % (REPO, os.path.join(REPO, "tests")))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("sub", MODULES, ids=[m or "top" for m in MODULES])
+def test_the_port_holds_every_public_name_but_the_deferred_ones(
+        sub, fresh_names):
+    jax_names, port_names = fresh_names[sub]
+    assert set(jax_names) - set(port_names) == _deferred(sub)
+
+
+@pytest.mark.parametrize("sub", sorted(PORTED), ids=[m or "top" for m in
+                                                     sorted(PORTED)])
+def test_the_slice_names_are_ported_and_not_deferred(sub):
+    port = _module("mxnet_tpu_torch", sub)
+    assert not PORTED[sub] & _deferred(sub)
+    missing = {n for n in PORTED[sub] if not hasattr(port, n)}
+    assert not missing
+
+
+def test_deferred_names_are_each_owned_once():
+    seen = {}
+    for owner, by_mod in DEFERRED.items():
+        for sub, names in by_mod.items():
+            assert sub in MODULES
+            for n in names:
+                assert (sub, n) not in seen, (sub, n, seen.get((sub, n)))
+                seen[(sub, n)] = owner
+
+
+def test_new_modules_import_neither_jax_nor_the_jax_package():
+    code = ("import sys, importlib\n"
+            "sys.path.insert(0, %r)\n"
+            "for m in %r: importlib.import_module(m)\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'mxnet_tpu')))" % (REPO, NEW_MODULES))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"

@@ -200,11 +200,14 @@ def test_chip_smoke_phase_14_rehearses_on_the_cpu(monkeypatch):
     sv = inc["serve"]
     nb = inc["buckets"]
     assert inc["sites"] == SITES and nb >= 1
-    # the served forwards, the module's forwards they are held to, and
-    # the predictor's six (a warmup, one counted, four timed)
-    fwd = sv["forwards"] + sv["answers"] + 6
+    # the served forwards, the same-bucket Predictor's forwards they are
+    # held to, the module's forwards beside them, and the timed
+    # predictor's six (a warmup, one counted, four timed)
+    fwd = sv["forwards"] + 2 * sv["answers"] + 6
     assert seen == {"sgd_mom_sweep": 2 * nb,
                     "softmax_lastaxis": 2 + fwd,
                     "scale_bias_relu": SITES * fwd}
     assert sv["answers"] == 9 and (sv["bitwise"] or sv["max_rel"] <= 1e-6)
+    assert sv["cross_shape_bitwise"] or sv["cross_shape_max_rel"] <= 1e-6
+    assert sv["buckets"] == [1, 2]
     assert np.isfinite(inc["ce_first"]) and inc["step_ms"] > 0

@@ -7,6 +7,7 @@ stands, on one NVIDIA GPU::
     python3 time_variants.py flash        # flash_attention.cu: bf16 K7a-K7c
     python3 time_variants.py flash K7b    # ... only the variants named K7b*
     python3 time_variants.py flash_band   # phase 15's band over seeds
+    python3 time_variants.py inception_serve [fits] [request sets]
 
 Each variant is ``mxnet_tpu_torch/ops/csrc/<source>.cu`` with a few lines
 replaced, compiled with the flags of ``ops/_build.py`` into
@@ -47,6 +48,19 @@ the variant ``K7B_TF32``), and K7b's plain version in its place (K7a,
 K7c and the rest the source's), so that the spread of the band's
 readings over seeds shows which differences it can tell apart.
 
+``inception_serve``: no variant and no timing; phase 14's serving check
+repeated (4 fits of Inception-BN as phase 14 runs them, 6 sets of
+requests each by default): every answer against a ``Predictor`` at its
+own bucket, a 32-row ``Predictor`` and the module's 32-row forward on
+the same parameters, the distribution of each distance; for the answer
+furthest from the module's, every node's output on each side (the
+monitor's taps, ``Monitor(monitor_all=True)``) and the first node that
+differs, the kernels each bucket launches (the profiler), and the engine
+and knobs cuDNN ran for each convolution at each bucket (its debug log,
+``CUDNN_LOGLEVEL_DBG=3``, a child process per bucket; the log's useful
+lines and the report go to ``mxnet_tpu_torch/_build/variants/
+inception_serve/``).
+
 Prints the compiler's register count of the main-path instances and the
 card's name and power limit.
 """
@@ -56,9 +70,12 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import torch
 
 import chip_smoke
+
+REPO = os.path.dirname(os.path.abspath(__file__))
 
 # name -> [(text of softmax.cu, its replacement)]
 SOFTMAX_VARIANTS = {
@@ -602,6 +619,306 @@ def flash_band_main(smi, dev, bw, flops, out_dir):
             len(reads)), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# inception_serve: why phase 14's served answers and the module's forward
+# differ
+# ---------------------------------------------------------------------------
+# a forward of Inception-BN at one shape, run alone in a child process
+# so that cuDNN's debug log holds that shape only (argv: bucket)
+CUDNN_CHILD = """
+import sys
+sys.path.insert(0, %r)
+import numpy as np
+import torch
+import chip_smoke
+import mxnet_tpu_torch as mx
+b = int(sys.argv[1])
+sym = chip_smoke.inception_symbol()
+arg, aux = chip_smoke.initial_params(mx, mx.gpu(0), sym, chip_smoke.IMAGE, b)
+pred = mx.Predictor.from_parts(sym, arg, aux,
+                               {"data": (b,) + chip_smoke.IMAGE}, ctx=mx.gpu(0))
+x = np.random.RandomState(0).uniform(-1, 1, (b,) + chip_smoke.IMAGE)
+pred.forward(data=mx.nd.array(x.astype(np.float32), ctx=mx.gpu(0)))
+pred.get_output(0).asnumpy()
+"""
+# words of cuDNN's debug log worth keeping: the API calls, and whatever
+# names an algorithm, an engine or a knob of the plan it picked
+CUDNN_WORDS = ("function cudnn", "algo", "Algo", "ALGO", "engine", "Engine",
+               "ENGINE", "knob", "KNOB", "GLOBAL_INDEX", "heur", "HEUR",
+               "CONVOLUTION", "Convolution")
+
+
+def node_taps(mx, exe, feed, rows):
+    """Every op node's output (its first ``rows`` rows) of one eval
+    forward of ``exe``, through ``Monitor(monitor_all=True)``'s taps:
+    ``[(name, host array)]`` in graph order."""
+    mon = mx.Monitor(1, stat_func=lambda a: a[:rows].copy(), pattern=".*",
+                     monitor_all=True)
+    mon.install(exe)
+    mon.tic()
+    exe.forward(is_train=False, **feed)
+    recs = [(name, stat.asnumpy()) for _, name, stat in mon.queue]
+    exe.set_monitor_callback(None)
+    return recs
+
+
+def first_differences(a, b, k=6):
+    """The first ``k`` nodes (in graph order) whose outputs differ between
+    two ``node_taps`` runs, with their distance over the larger side's
+    largest magnitude, and the count of differing nodes."""
+    out, n = [], 0
+    for (na, xa), (nb, xb) in zip(a, b):
+        if na != nb:
+            raise AssertionError("tap order differs: %s vs %s" % (na, nb))
+        if not np.array_equal(xa, xb):
+            n += 1
+            if len(out) < k:
+                out.append((na, chip_smoke.largest_rel(xa, xb)))
+    return out, n
+
+
+def conv_kernels(pred, x):
+    """The names of the kernels one forward of ``pred`` launches, in
+    order, that are not K3 or K2 (the convolutions' and the rest's)."""
+    from torch.profiler import ProfilerActivity, profile
+    pred.forward(data=x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pred.forward(data=x)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type.name == "CUDA"]
+    return [n for n in names if "scale_bias_relu" not in n
+            and "softmax" not in n]
+
+
+def cudnn_log(bucket, out_dir):
+    """cuDNN's debug log (``CUDNN_LOGLEVEL_DBG=3``) of one forward at
+    ``bucket`` rows in a child process: the lines worth keeping, written
+    gzipped under ``out_dir``, and a count of the API calls by name."""
+    import gzip
+    path = os.path.join(out_dir, "cudnn_b%d.log" % bucket)
+    env = dict(os.environ, CUDNN_LOGLEVEL_DBG="3", CUDNN_LOGDEST_DBG=path)
+    subprocess.run([sys.executable, "-c", CUDNN_CHILD % REPO, str(bucket)],
+                   env=env, check=True, timeout=600)
+    calls, kept = {}, []
+    with open(path, errors="replace") as f:
+        for line in f:
+            if "function cudnn" in line:
+                fn = line.split("function ", 1)[1].split("(")[0]
+                calls[fn] = calls.get(fn, 0) + 1
+            if any(w in line for w in CUDNN_WORDS):
+                kept.append(line)
+    with gzip.open(path + ".kept.gz", "wt") as f:
+        f.writelines(kept)
+    engines = executed_engines(kept)
+    size = os.path.getsize(path)
+    with open(path, errors="replace") as f, \
+            gzip.open(path + ".head.gz", "wt") as g:
+        for i, line in enumerate(f):
+            if i >= 4000:
+                break
+            g.write(line)
+    os.remove(path)
+    return {"bytes": size, "kept_lines": len(kept), "calls": calls,
+            "engines": engines}
+
+
+def executed_engines(lines):
+    """The engine and knobs of each plan cuDNN executed, in order, from its
+    debug log's lines: ``[(engine id, ((knob, value), ...))]``, one a
+    ``cudnnBackendExecuteInternal`` call (one a convolution here)."""
+    out, cur = [], None
+    for line in lines:
+        if line.startswith("I! "):
+            if cur is not None:
+                out.append((cur[0], tuple(cur[1])))
+            cur = [None, []] if "cudnnBackendExecuteInternal()" in line \
+                else None
+        elif cur is not None:
+            if "engine_id:" in line and cur[0] is None:
+                cur[0] = int(line.rsplit("val=", 1)[1].rstrip(";\n"))
+            elif "CUDNN_KNOB_TYPE_" in line:
+                knob = line.split("CUDNN_KNOB_TYPE_", 1)[1].split(":", 1)[0]
+                cur[1].append((knob, int(line.rsplit("val=", 1)[1]
+                                         .rstrip(";\n"))))
+    if cur is not None:
+        out.append((cur[0], tuple(cur[1])))
+    return out
+
+
+def inception_serve_main(smi, dev, bw, flops, out_dir, trainings="4",
+                         repeats="6"):
+    """Phase 14's serving check, repeated: ``trainings`` fits of
+    Inception-BN as phase 14 runs them (no cuDNN determinism), and for
+    each ``repeats`` sets of requests (the first phase 14's own, the
+    others fresh), every answer held to (a) a Predictor at its own bucket
+    on the same parameters (``chip_smoke.bucket_forwards``), (b) a
+    Predictor at 32 rows on the same parameters and (c) the module's
+    batch-32 forward, whose weights are views of the fused step's
+    buckets.  For the request furthest from (c): every node's output on
+    the three sides (the monitor's taps) and the first node that
+    differs, the kernels each shape launches, and cuDNN's debug log of a
+    forward at each bucket."""
+    import json
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+    ctx = mx.gpu(0)
+    image, batch = chip_smoke.IMAGE, chip_smoke.BATCH
+    sym = chip_smoke.inception_symbol()
+    report = {"card": smi, "runs": []}
+    worst = None
+    for t in range(int(trainings)):
+        mod, _ = chip_smoke.train(mx, ck, ctx, sym, image, batch,
+                                  chip_smoke.INCEPTION_STEPS,
+                                  chip_smoke.INCEPTION_WARMUP)
+        arg, aux = mod.get_params()
+        exe = mod._exec_group.execs[0]
+        misaligned = sum(exe.arg_dict[n]._data.data_ptr() % 16 != 0
+                         for n in mod._exec_group.param_names)
+        for r in range(int(repeats)):
+            seed = chip_smoke.SEED + 3 if r == 0 else 1000 + 100 * t + r
+            xs = chip_smoke.inception_requests(image, batch, seed)
+            answers, _ = chip_smoke.served_answers(mx, ctx, sym, arg, aux,
+                                                   image, batch, xs)
+            same, buckets, _ = chip_smoke.bucket_forwards(
+                mx, ctx, sym, arg, aux, image, batch, xs)
+            p32, _, _ = chip_smoke.bucket_forwards(
+                mx, ctx, sym, arg, aux, image, batch, xs, bucket=batch)
+            mods = chip_smoke.module_forwards(mx, ctx, mod, image, batch, xs)
+            for i, (a, s, p, m) in enumerate(zip(answers, same, p32, mods)):
+                row = {"training": t, "repeat": r, "request": i,
+                       "rows": int(xs[i].shape[0]), "bucket": buckets[i],
+                       "served_vs_same_bucket": chip_smoke.largest_rel(a, s),
+                       "served_bitwise_same_bucket": bool(
+                           np.array_equal(a, s)),
+                       "served_vs_p32": chip_smoke.largest_rel(a, p),
+                       "p32_vs_module": chip_smoke.largest_rel(p, m),
+                       "p32_bitwise_module": bool(np.array_equal(p, m)),
+                       "served_vs_module": chip_smoke.largest_rel(a, m),
+                       "misaligned_weights": int(misaligned)}
+                report["runs"].append(row)
+                if worst is None or row["served_vs_module"] > \
+                        worst[0]["served_vs_module"]:
+                    worst = (row, mod, arg, aux, xs[i])
+            last = report["runs"][-len(xs):]
+            print("training %d requests %d (seed %d): served vs same "
+                  "bucket max %.3g (bitwise %d/%d), vs the module's batch "
+                  "%d forward max %.3g, a 32-row Predictor vs the module "
+                  "max %.3g" % (
+                      t, r, seed, max(x["served_vs_same_bucket"]
+                                      for x in last),
+                      sum(x["served_bitwise_same_bucket"] for x in last),
+                      len(last), batch,
+                      max(x["served_vs_module"] for x in last),
+                      max(x["p32_vs_module"] for x in last)), flush=True)
+        if worst[1] is not mod:
+            del mod
+    runs = report["runs"]
+    for key in ("served_vs_same_bucket", "served_vs_p32", "p32_vs_module",
+                "served_vs_module"):
+        v = np.array([x[key] for x in runs])
+        report[key] = {"min": float(v.min()), "median": float(np.median(v)),
+                       "max": float(v.max()),
+                       "over_1e-6": int((v > 1e-6).sum()), "n": len(v)}
+        print("%s over %d answers: min %.3g, median %.3g, max %.3g, %d past "
+              "1e-6" % (key, len(v), v.min(), np.median(v), v.max(),
+                        int((v > 1e-6).sum())), flush=True)
+    by_bucket = {}
+    for x in runs:
+        by_bucket.setdefault(x["bucket"], []).append(x["served_vs_module"])
+    report["served_vs_module_by_bucket"] = {
+        b: {"max": float(max(v)), "median": float(np.median(v)),
+            "n": len(v)} for b, v in sorted(by_bucket.items())}
+    print("served vs module by bucket: %s"
+          % report["served_vs_module_by_bucket"], flush=True)
+
+    # the furthest answer, node by node
+    row, mod, arg, aux, x = worst
+    rows, b = row["rows"], row["bucket"]
+    from mxnet_tpu_torch.io import pad_batch
+    padded_b, _ = pad_batch([x], b)
+    padded_32, _ = pad_batch([x], batch)
+    zero_32 = np.zeros((batch,) + tuple(image), np.float32)
+    zero_32[:rows] = x
+    pred_b = mx.Predictor.from_parts(sym, arg, aux, {"data": (b,) + image},
+                                     ctx=ctx)
+    pred_32 = mx.Predictor.from_parts(sym, arg, aux,
+                                      {"data": (batch,) + image}, ctx=ctx)
+    taps_b = node_taps(mx, pred_b._exe,
+                       {"data": mx.nd.array(padded_b, ctx=ctx)}, rows)
+    taps_32 = node_taps(mx, pred_32._exe,
+                        {"data": mx.nd.array(padded_32, ctx=ctx)}, rows)
+    taps_32z = node_taps(mx, pred_32._exe,
+                         {"data": mx.nd.array(zero_32, ctx=ctx)}, rows)
+    taps_mod = node_taps(mx, mod._exec_group.execs[0],
+                         {"data": mx.nd.array(zero_32, ctx=ctx)}, rows)
+    report["worst"] = row
+    for label, (a, c) in (("bucket %d vs 32 rows, same params" % b,
+                           (taps_b, taps_32)),
+                          ("32 rows: pad by the last row vs by zeros",
+                           (taps_32, taps_32z)),
+                          ("32 rows: a Predictor vs the module",
+                           (taps_32z, taps_mod))):
+        first, n = first_differences(a, c)
+        report.setdefault("first_differences", {})[label] = {
+            "first": first, "nodes_differing": n, "nodes": len(a)}
+        print("%s: %d of %d node outputs differ; the first: %s"
+              % (label, n, len(a), first), flush=True)
+    # the kernels each shape launches
+    kern = {}
+    for bb in sorted(set(x["bucket"] for x in runs) | {batch}):
+        pred = pred_b if bb == b else (pred_32 if bb == batch else
+                                       mx.Predictor.from_parts(
+                                           sym, arg, aux,
+                                           {"data": (bb,) + image}, ctx=ctx))
+        xx = mx.nd.array(pad_batch([x], bb)[0] if bb >= rows else
+                         x[:bb], ctx=ctx)
+        kern[bb] = conv_kernels(pred, xx)
+    ref = kern[batch]
+    for bb, names in sorted(kern.items()):
+        diff = sum(1 for p, q in zip(names, ref) if p != q)
+        print("bucket %d: %d kernels, %d of them other than at %d rows; "
+              "distinct names %d" % (bb, len(names), diff, batch,
+                                     len(set(names))), flush=True)
+    report["kernels"] = {bb: names for bb, names in kern.items()}
+    # cuDNN's log, a child process per bucket
+    log_dir = os.path.join(out_dir, "inception_serve")
+    os.makedirs(log_dir, exist_ok=True)
+    report["cudnn"] = {}
+    for bb in sorted(kern):
+        try:
+            report["cudnn"][bb] = cudnn_log(bb, log_dir)
+            print("cudnn log bucket %d: %s" % (bb, report["cudnn"][bb]),
+                  flush=True)
+        except Exception as exc:    # noqa: BLE001 — reported, not fatal
+            report["cudnn"][bb] = {"error": repr(exc)}
+            print("cudnn log bucket %d failed: %r" % (bb, exc), flush=True)
+    convs = [n.name for n in sym._topo()
+             if not n.is_variable and n.op.name == "Convolution"]
+    ref = report["cudnn"].get(batch, {}).get("engines")
+    for bb, rec in sorted(report["cudnn"].items()):
+        eng = rec.get("engines")
+        if not eng or not ref or len(eng) != len(convs):
+            print("bucket %d: %s engines for %d convolutions"
+                  % (bb, len(eng or ()), len(convs)))
+            continue
+        other = [i for i, (e, r) in enumerate(zip(eng, ref)) if e != r]
+        rec["convs_other_than_%d_rows" % batch] = [convs[i] for i in other]
+        print("bucket %d: cuDNN ran another engine or knobs than at %d rows "
+              "for %d of %d convolutions; the first %s; %s: engine %s at "
+              "%d rows, %s at %d" % (
+                  bb, batch, len(other), len(convs),
+                  [convs[i] for i in other[:3]],
+                  convs[other[0]] if other else None,
+                  eng[other[0]] if other else None, bb,
+                  ref[other[0]] if other else None, batch), flush=True)
+    with open(os.path.join(log_dir, "report.json"), "w") as f:
+        json.dump(report, f, default=str)
+    print("card: %s; report in %s" % (smi, os.path.join(log_dir,
+                                                     "report.json")))
+
+
 def main():
     if not torch.cuda.is_available():
         print("time_variants: needs an NVIDIA GPU", file=sys.stderr)
@@ -609,10 +926,12 @@ def main():
     from mxnet_tpu_torch.ops import _build
     source = sys.argv[1] if len(sys.argv) > 1 else "softmax"
     runner = {"softmax": softmax_main, "layernorm": layernorm_main,
-              "flash": flash_main, "flash_band": flash_band_main}.get(source)
+              "flash": flash_main, "flash_band": flash_band_main,
+              "inception_serve": inception_serve_main}.get(source)
     if runner is None:
-        print("time_variants: the source is softmax, layernorm, flash or "
-              "flash_band, not %r" % source, file=sys.stderr)
+        print("time_variants: the source is softmax, layernorm, flash, "
+              "flash_band or inception_serve, not %r" % source,
+              file=sys.stderr)
         return 2
     smi = card_name()
     dev = torch.device("cuda", 0)
