@@ -198,6 +198,34 @@ Phases, each of which raises on failure:
    (cuDNN deterministic), both timed; (c) inside ``engine.naive()`` the
    stream is idle after each imperative op, and a worker's exception with
    no receiver raises at the next ``nd.waitall()`` and not again;
+17. the data pipeline and the module family: (a) 640 synthetic JPEGs
+   (short side 256, long side 256-384, quality 95, 10 classes of smooth
+   patterns, from the seed) written into a ``.rec``/``.idx`` by the
+   port's ``recordio.pack_img`` in a temporary directory of the checkout;
+   one epoch of ``ImageRecordIter`` alone (images/s); then ResNet-50 v1
+   fp32 through ``Module.fit`` from the records (batch 32, shuffle,
+   random crop and mirror, train_imagenet.py's means, ``seed_aug``,
+   ``kvstore="tpu"``, SGD lr 0.02 momentum 0.9 wd 1e-4, one epoch of 20
+   batches and an ``eval_data`` of 2 batches from every 10th record):
+   K1b once a bucket a step, K2 once a step and once an eval forward, K3
+   at the 33 sites of each eval forward; every batch the model received
+   bitwise equal to the host's replay of the reader (``_mp_decode`` and
+   the normalisation, record by record, from the same seeds), and so the
+   3 batches of ``PrefetchingIter(ResizeIter(...))`` over a fresh reader;
+   the cross-entropy of the last 4 batches below that of the first 4.
+   (b) example/rnn/lstm_bucketing.py's model (two unrolled ``LSTMCell``
+   layers of 200, embedding 200, vocabulary 10,000, batch 32, buckets
+   10-60) over ``BucketSentenceIter`` on a synthetic corpus from the seed
+   (3 batches a bucket), through ``BucketingModule.fit`` with Adam lr
+   0.01 and ``kvstore="tpu"`` (the kvstore's store, not the executor's
+   step), 2 epochs: each bucket's first-step gradients within
+   ``BUCKET_GRAD_TOL`` of the CPU's, K2 once a step, the cross-entropy
+   falling, a step in bucket 60 read bitwise by bucket 10's executor
+   (the same arrays), and ``FusedRNNCell`` (the ``RNN`` op, cuDNN)
+   against its ``unfuse()``d cells within ``FUSED_TOL`` (an LSTM, a GRU
+   and a bidirectional LSTM, each at the model's widths and T 60).  (c) K2 at (320,
+   10000) and (1920, 10000) against its plain version, timed beside
+   ``torch.softmax`` and its bound;
 then every kernel's device time by the profiler (K6b's with the L2 cache
 overwritten before each launch; the bf16 instances of K3, K6a, K6b,
 K7a, K7b and K7c that phase 15 launches beside their plain versions,
@@ -208,11 +236,13 @@ step, and phase 15's ResNet-50 step, bf16 transformer forward and step.
 Prints one JSON line ``{"checkpoints": {...}}`` with phase 13's numbers,
 ``{"ops": {...}}`` and ``{"inception_bn": {...}}`` with phase 14's,
 ``{"mixed_precision": {...}}`` with phase 15's, ``{"training_loop":
-{...}}`` with phase 16's, one ``{"kernels":
+{...}}`` with phase 16's, ``{"data_pipeline": {...}}`` with phase 17's
+(with the records fit's idle share), one ``{"kernels":
 [...]}`` (all twelve kernels; K3, K2 and K1b with their
 ``launches_inception``, K1b, K2, K3, K6a, K6b, K7a, K7b and K7c with
 their ``launches_mixed``, K2 and K3 with their
-``launches_training_loop``, K3,
+``launches_training_loop``, K1b, K2 and K3 with their
+``launches_data_pipeline``, K2 with its ``lm`` jobs, K3,
 K6a, K7b and K7c with their ``bf16``
 times, K7a, K7b and K7c with the ``HMMA.16816.F32.BF16`` count of their
 bf16 D-64 instances (``hmma_bf16_dp64``), K6b's fp32 and bf16 repeats beside
@@ -227,6 +257,7 @@ import json
 import logging
 import math
 import os
+import random
 import subprocess
 import sys
 import threading
@@ -451,9 +482,15 @@ OP_BAND_REASONS = {
     "linalg": "factorizations and triangular solves (LAPACK, cuSOLVER and "
               "XLA order their sums differently) on well-conditioned 4x4 "
               "batches: some ulp more than one product",
+    "rnn": "the fused RNN on the card is cuDNN's, whose LSTM and GRU cells "
+           "at narrow widths (and tanh RNNs) take sigmoid and tanh from "
+           "approximations: 3.5e-6 to 1.1e-5 of the largest output from a "
+           "float64 run, against at most 9e-7 for fp32 on the CPU "
+           "(time_variants.py rnn_accuracy; NVIDIA H100, cuDNN 9.22)",
 }
 OP_SPECIAL = 2e-6
 OP_LINALG = 5e-6
+OP_RNN = 5e-5
 # ops whose call on the card may wait on it, so run_case does not hold
 # them to no_host_sync (their outputs must still lie on the card)
 _EIGH = ("torch.linalg.eigh reads its solver's info flag back to the "
@@ -904,6 +941,22 @@ def _op_cases(seed=SEED):
     not_pd = np.array([[[1, 2], [2, 1]], [[4, 1], [1, 3]]], f32)
     for lower in (True, False):
         add("_linalg_potrf", [not_pd], {"lower": lower}, band=OP_LINALG)
+    # -- the fused RNN and its zero begin state --------------------------------
+    for mode, layers, bi, outs in (("lstm", 2, True, True),
+                                   ("gru", 1, False, True),
+                                   ("rnn_relu", 2, False, False)):
+        gates = {"lstm": 4, "gru": 3, "rnn_relu": 1}[mode]
+        d = 2 if bi else 1
+        size = sum(d * gates * 6 * ((4 if layer == 0 else 6 * d) + 6)
+                   for layer in range(layers)) + layers * d * 2 * gates * 6
+        ins = [u(5, 3, 4), u(size, lo=-0.4, hi=0.4), u(layers * d, 3, 6)]
+        if mode == "lstm":
+            ins.append(u(layers * d, 3, 6))
+        add("RNN", ins, {"mode": mode, "state_size": 6, "num_layers": layers,
+                         "bidirectional": bi, "state_outputs": outs},
+            band=OP_RNN if mode in ("lstm", "gru") else "f32", grad=True)
+    add("_rnn_state_zeros", [u(5, 3, 4)], {"shape": (2, 0, 6),
+                                           "ref_batch_axis": 1}, band="exact")
     return cases
 
 
@@ -4296,6 +4349,621 @@ def loop_engine(mx, ctx, n=1 << 22, seed=SEED):
             "raised_at_waitall": first, "raised_again": again}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the data pipeline and the module family
+# ---------------------------------------------------------------------------
+# (a) ResNet-50 from a .rec: 640 synthetic JPEGs in the form im2rec
+# --resize 256 writes them (short side 256, long side 256-384, quality 95),
+# 10 classes of smooth patterns; example/image-classification's
+# train_imagenet.py means; 20 batches of 32, and 2 batches of evaluation
+REC_IMAGES = 640
+REC_CLASSES = 10
+REC_SHORT = 256
+REC_LONG = (256, 384)
+REC_QUALITY = 95
+REC_MEAN = (123.68, 116.779, 103.939)
+REC_SEED_AUG = 17
+REC_EVAL_PARTS = 10         # the evaluation reads every 10th record
+REC_WARMUP = 3              # batches before the fit's timed ones
+REC_LOSS_WINDOW = 4         # batches averaged at each end for the loss
+# (b) example/rnn/lstm_bucketing.py's model at its defaults (num_hidden
+# 200, num_embed 200, two LSTM layers, batch 32, buckets 10-60), PTB's
+# 10,000-word vocabulary (id 0 the padding, as the example's
+# invalid_label), Adam lr 0.01; about 3 batches a bucket, 2 epochs
+BUCKET_VOCAB = 10000
+BUCKET_HIDDEN = 200
+BUCKET_EMBED = 200
+BUCKET_LAYERS = 2
+BUCKET_BATCH = 32
+BUCKET_KEYS = (10, 20, 30, 40, 50, 60)
+BUCKET_BATCHES = 3          # batches a bucket an epoch
+BUCKET_EPOCHS = 2           # the first binds every bucket; the second is timed
+BUCKET_ADAM = {"learning_rate": 0.01}
+# a bucket's first-step gradients on the card against the CPU's, from the
+# same parameters, within this much of each parameter's largest
+BUCKET_GRAD_TOL = 1e-4
+# the fused RNN op (cuDNN) against the unrolled cells it unfuses into, at
+# the model's widths, outputs and gradients within this much of their
+# largest magnitude (at hidden 200 cuDNN's LSTM and GRU cells are exact to
+# fp32 rounding: 3.3e-7 to 3.8e-7 of a float64 run, time_variants.py
+# rnn_accuracy; OP_BAND_REASONS["rnn"] has the narrower cells)
+FUSED_TOL = 1e-5
+# (c) K2 at the LM's logits, (32 T, 10000) for T 10 and 60, against its
+# plain version within this much of the largest probability: fp32 sums of
+# 10,000 terms in another order, ~sqrt(n) u = 6e-6 apart, at worst n u =
+# 6e-4 (a wrong kernel is off by the probabilities themselves)
+K2_LM_SHAPES = ((BUCKET_BATCH * 10, BUCKET_VOCAB),
+                (BUCKET_BATCH * 60, BUCKET_VOCAB))
+K2_LM_TOL = 1e-4
+
+
+def rec_image(rng, label, short=REC_SHORT, long_range=REC_LONG,
+              noise=None):
+    """A smooth HWC uint8 image of class ``label``: two sinusoids whose
+    frequencies and colours follow the class, at random phases, plus a
+    window of ``noise`` (an int16 HWC bank at least as large) at a random
+    offset; short side ``short``, long side drawn from ``long_range``."""
+    long_side = int(rng.integers(long_range[0], long_range[1] + 1))
+    h, w = (short, long_side) if rng.random() < 0.5 else (long_side, short)
+    p1, p2 = rng.uniform(0, 2 * np.pi, 2)
+    f1, f2 = 0.02 + 0.01 * label, 0.05 + 0.004 * label
+    wave = (np.sin(f1 * np.arange(w, dtype=np.float32) + p1)[None, :]
+            + 0.5 * np.sin(f2 * np.arange(h, dtype=np.float32) + p2)[:, None])
+    base = np.array([(37 * label) % 256, (91 * label) % 256,
+                     (151 * label) % 256], np.float32)
+    img = base + 60.0 * wave[..., None]
+    if noise is not None:
+        y0 = int(rng.integers(0, noise.shape[0] - h + 1))
+        x0 = int(rng.integers(0, noise.shape[1] - w + 1))
+        img = img + noise[y0:y0 + h, x0:x0 + w]
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def write_rec(mx, prefix, n=REC_IMAGES, classes=REC_CLASSES, short=REC_SHORT,
+              long_range=REC_LONG, quality=REC_QUALITY, seed=SEED):
+    """``prefix.rec`` and ``prefix.idx`` of ``n`` images from ``seed``,
+    written with the port's ``recordio.pack_img``.  Returns ``(rec path,
+    labels, seconds)``."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    side = max(short, long_range[1]) + 16
+    noise = rng.integers(-6, 7, (side, side, 3)).astype(np.int16)
+    rec = mx.recordio.MXIndexedRecordIO(prefix + ".idx", prefix + ".rec",
+                                        "w")
+    labels = []
+    for i in range(n):
+        label = int(rng.integers(0, classes))
+        img = rec_image(rng, label, short, long_range, noise)
+        rec.write_idx(i, mx.recordio.pack_img(
+            mx.recordio.IRHeader(0, float(label), i, 0), img,
+            quality=quality))
+        labels.append(label)
+    rec.close()
+    return prefix + ".rec", labels, time.perf_counter() - t0
+
+
+def rec_args(image, batch, train=True, seed_aug=REC_SEED_AUG,
+             threads=None, mean=REC_MEAN):
+    """The ``ImageRecordIter`` arguments of phase 17 (a): the training
+    reader shuffles, crops at random and mirrors; the evaluation one reads
+    every ``REC_EVAL_PARTS``-th record and crops the centre."""
+    args = dict(data_shape=tuple(image), batch_size=batch,
+                mean_r=mean[0], mean_g=mean[1], mean_b=mean[2],
+                preprocess_threads=threads or min(8, os.cpu_count() or 1),
+                seed_aug=seed_aug)
+    if train:
+        args.update(shuffle=True, rand_crop=True, rand_mirror=True)
+    else:
+        args.update(num_parts=REC_EVAL_PARTS, part_index=0)
+    return args
+
+
+def rec_replay(mx, path, epoch=1, data_shape=None, batch_size=None,
+               shuffle=False, rand_crop=False, rand_mirror=False,
+               mean_r=0.0, mean_g=0.0, mean_b=0.0, std_r=1.0, std_g=1.0,
+               std_b=1.0, scale=1.0, num_parts=1, part_index=0, resize=-1,
+               shuffle_chunk_size=256, seed_aug=None, **_):
+    """What ``ImageRecordIter(path, ...)`` hands out in epoch ``epoch``,
+    replayed on the host with the port's own record functions, one
+    record at a time: ``[(data NCHW float32, label, pad)]`` a batch."""
+    io = mx.io
+    spans = io._scan_record_spans(path)
+    if num_parts > 1:
+        spans = spans[part_index::num_parts]
+    chunks = [spans[i:i + shuffle_chunk_size]
+              for i in range(0, len(spans), shuffle_chunk_size)]
+    order = np.random.default_rng(seed_aug + epoch)
+    ids = np.arange(len(chunks))
+    if shuffle:
+        order.shuffle(ids)
+    raws = []
+    with open(path, "rb") as f:
+        for ci in ids:
+            recs = []
+            for s, e in chunks[ci]:
+                f.seek(s)
+                recs.append(io._split_chunk_records(f.read(e - s))[0])
+            if shuffle:
+                order.shuffle(recs)
+            raws.extend(recs)
+    cfg = dict(data_shape=tuple(data_shape), resize=int(resize),
+               rand_crop=rand_crop, rand_mirror=rand_mirror)
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
+        decoded = list(pool.map(
+            lambda k: io._mp_decode((raws[k], (seed_aug, epoch, k)), cfg),
+            range(len(raws))))
+    c, h, w = data_shape
+    mean = np.array([mean_r, mean_g, mean_b], np.float32).reshape(3, 1, 1)
+    std = np.array([std_r, std_g, std_b], np.float32).reshape(3, 1, 1)
+    out = []
+    for b0 in range(0, len(decoded), batch_size):
+        part = decoded[b0:b0 + batch_size]
+        raw = np.zeros((batch_size, h, w, c), np.uint8)
+        label = np.zeros((batch_size,), np.float32)
+        for i, (img, lab) in enumerate(part):
+            raw[i] = img
+            label[i] = lab
+        out.append((io._normalize_batch(raw, mean, std, scale), label,
+                    batch_size - len(part)))
+    return out
+
+
+def _host_batch(batch):
+    return (batch.data[0].asnumpy(), batch.label[0].asnumpy(),
+            batch.pad or 0)
+
+
+def batches_equal(got, want):
+    """How many of ``got`` equal ``want`` bitwise (data, label, pad), and
+    the largest |difference| of the data."""
+    same, worst = 0, 0.0
+    for (d, lab, pad), (rd, rlab, rpad) in zip(got, want):
+        if d.shape == rd.shape:
+            worst = max(worst, float(np.abs(d - rd).max()))
+        same += int(np.array_equal(d, rd) and np.array_equal(lab, rlab)
+                    and pad == rpad)
+    return same, worst
+
+
+def rec_throughput(mx, ctx, path, image, batch):
+    """One epoch of a fresh training ``ImageRecordIter`` with no
+    training: ``(images/s, batches)``."""
+    with ctx:
+        it = mx.io.ImageRecordIter(path, **rec_args(image, batch))
+    t0 = time.perf_counter()
+    n = 0
+    for b in it:
+        n += batch - (b.pad or 0)
+    if ctx.device_type == "gpu":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    it.close()
+    return n / dt, n
+
+
+def rec_breakdown(mx, ctx, path, image, batch, reps=3):
+    """Where a batch of the reader's time goes, one part at a time on the
+    producer's side: ``_mp_decode`` of one batch's records on one thread
+    and on the reader's pool, the one-pass normalisation, and the copy to
+    ``ctx`` (host clock, the copy synchronised), each the median of
+    ``reps``, in ms."""
+    from concurrent.futures import ThreadPoolExecutor
+    io = mx.io
+    args = rec_args(image, batch)
+    spans = io._scan_record_spans(path)[:batch]
+    raws = []
+    with open(path, "rb") as f:
+        for s, e in spans:
+            f.seek(s)
+            raws.append(io._split_chunk_records(f.read(e - s))[0])
+    cfg = dict(data_shape=tuple(image), resize=-1, rand_crop=True,
+               rand_mirror=True)
+    jobs = [(r, (1, 1, k)) for k, r in enumerate(raws)]
+    c, h, w = image
+    mean = np.array(REC_MEAN, np.float32).reshape(3, 1, 1)
+    std = np.ones((3, 1, 1), np.float32)
+    raw = np.zeros((batch, h, w, c), np.uint8)
+
+    def timed(fn):
+        ts = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(ts))
+
+    with ThreadPoolExecutor(max_workers=args["preprocess_threads"]) as pool:
+        pooled = timed(lambda: list(pool.map(
+            lambda j: io._mp_decode(j, cfg), jobs)))
+    data = io._normalize_batch(raw, mean, std, 1.0)
+
+    def copy():
+        with ctx:
+            mx.nd.array(data).wait_to_read()
+
+    return {"decode_ms_one_thread": timed(
+                lambda: [io._mp_decode(j, cfg) for j in jobs]),
+            "decode_ms_pool": pooled,
+            "threads": args["preprocess_threads"],
+            "normalize_ms": timed(lambda: io._normalize_batch(
+                raw, mean, std, 1.0)),
+            "copy_ms": timed(copy), "batch": batch}
+
+
+def rec_wrappers(mx, ctx, path, image, batch, replay, n=3):
+    """``PrefetchingIter(ResizeIter(ImageRecordIter, n))``: its ``n``
+    batches against the first ``n`` of ``replay``, bitwise."""
+    with ctx:
+        it = mx.io.ImageRecordIter(path, **rec_args(image, batch))
+    wrapped = mx.io.PrefetchingIter(mx.io.ResizeIter(it, n))
+    got = [_host_batch(b) for b in wrapped]
+    it.close()
+    same, worst = batches_equal(got, replay[:n])
+    return {"batches": len(got), "bitwise": same, "max_abs": worst}
+
+
+def rec_fit(mx, ck, ctx, sym, path, image, batch, optimizer_params=SGD_PARAMS,
+            warmup=REC_WARMUP, seed=SEED):
+    """``Module.fit`` of ``sym`` on ``ctx`` from the records: one epoch of
+    the training ``ImageRecordIter`` with ``kvstore="tpu"`` and an
+    ``eval_data`` of the evaluation reader; launch counts reset just
+    before ``fit`` and read just after.  Returns the module, the batches
+    it received (device tensors), a batch for profiling and what it
+    measured."""
+    with ctx:
+        train_it = mx.io.ImageRecordIter(path, **rec_args(image, batch))
+        eval_it = mx.io.ImageRecordIter(path, **rec_args(image, batch,
+                                                         train=False))
+    mod = mx.mod.Module(sym, context=ctx)
+    device = torch.device("cuda", ctx.device_id) \
+        if ctx.device_type == "gpu" else torch.device("cpu")
+    marks, seen, probs = [], [], []
+
+    def on_batch(param):
+        b = param.locals["data_batch"]
+        seen.append((b.data[0]._data, b.label[0]._data, b.pad or 0))
+        probs.append(mod.get_outputs()[0]._data.clone())
+        marks.append(_marker(device))
+
+    mx.random.seed(seed)
+    ck.reset_kernel_calls()
+    mod.fit(train_it, eval_data=eval_it, num_epoch=1, kvstore="tpu",
+            optimizer="sgd", optimizer_params=optimizer_params,
+            initializer=mx.init.Xavier(rnd_type="gaussian",
+                                       factor_type="in", magnitude=2),
+            eval_metric="acc", batch_end_callback=on_batch)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    calls = ck.kernel_calls()
+    train_it.close()
+    eval_it.close()
+    n = len(seen)
+    ces = [cross_entropy(p, lab) for p, (_d, lab, _pad) in zip(probs, seen)]
+    timed = n - warmup
+    step_ms = _elapsed_ms(marks[warmup - 1], marks[-1]) / timed \
+        if 0 < warmup < n else None
+    exe = mod._exec_group.execs[0]
+    k = min(REC_LOSS_WINDOW, max(n // 2, 1))
+    return mod, seen, {
+        "batches": n, "calls": calls, "fused": mod._fused_exec_update,
+        "buckets": [b.n for b, _ in exe._sweep["plan"]]
+        if exe._sweep is not None else [],
+        "step_ms": step_ms,
+        "images_per_s": batch / step_ms * 1e3 if step_ms else None,
+        "timed_batches": timed,
+        "ce_first": float(np.mean(ces[:k])), "ce_last": float(np.mean(ces[-k:])),
+        "ce": ces}
+
+
+def rec_pipeline(mx, ck, ctx, sym, workdir, image=IMAGE, batch=BATCH,
+                 n_images=REC_IMAGES, classes=REC_CLASSES, short=REC_SHORT,
+                 long_range=REC_LONG, seed=SEED):
+    """Phase 17 (a): write the records, time the reader alone, fit from
+    it, and hold the batches the model received, and those of
+    ``PrefetchingIter``/``ResizeIter`` over it, to the host replay."""
+    path, labels, write_s = write_rec(mx, os.path.join(workdir, "train"),
+                                      n_images, classes, short, long_range,
+                                      seed=seed)
+    ips, n_read = rec_throughput(mx, ctx, path, image, batch)
+    mod, seen, fit = rec_fit(mx, ck, ctx, sym, path, image, batch, seed=seed)
+    replay = rec_replay(mx, path, epoch=1, **rec_args(image, batch))
+    got = [(d.cpu().numpy(), lab.cpu().numpy(), pad) for d, lab, pad in seen]
+    same, worst = batches_equal(got, replay)
+    fit.update(
+        records=n_images, write_s=write_s, rec_mb=os.path.getsize(path) / 1e6,
+        reader_images_per_s=ips, reader_images=n_read,
+        cpu_count=os.cpu_count(),
+        preprocess_threads=rec_args(image, batch)["preprocess_threads"],
+        breakdown=rec_breakdown(mx, ctx, path, image, batch),
+        replay_batches=len(replay), bitwise_batches=same,
+        max_abs_vs_replay=worst, data_on=str(seen[0][0].device),
+        wrappers=rec_wrappers(mx, ctx, path, image, batch, replay))
+    profile_batch = mx.io.DataBatch(
+        data=[mx.nd.NDArray(seen[-1][0])], label=[mx.nd.NDArray(seen[-1][1])],
+        pad=0)
+    return mod, profile_batch, fit
+
+
+def lm_sym_gen(mx, vocab=BUCKET_VOCAB, num_hidden=BUCKET_HIDDEN,
+               num_embed=BUCKET_EMBED, num_layers=BUCKET_LAYERS):
+    """example/rnn/lstm_bucketing.py's ``sym_gen`` (:86-100)."""
+    def sym_gen(seq_len):
+        data = mx.sym.Variable("data")
+        label = mx.sym.Variable("softmax_label")
+        embed = mx.sym.Embedding(data=data, input_dim=vocab,
+                                 output_dim=num_embed, name="embed")
+        stack = mx.rnn.SequentialRNNCell()
+        for i in range(num_layers):
+            stack.add(mx.rnn.LSTMCell(num_hidden=num_hidden,
+                                      prefix="lstm_l%d_" % i))
+        stack.reset()
+        outputs, _states = stack.unroll(seq_len, inputs=embed,
+                                        merge_outputs=True)
+        pred = mx.sym.Reshape(outputs, shape=(-1, num_hidden))
+        pred = mx.sym.FullyConnected(data=pred, num_hidden=vocab,
+                                     name="pred")
+        label = mx.sym.Reshape(label, shape=(-1,))
+        pred = mx.sym.SoftmaxOutput(data=pred, label=label, name="softmax")
+        return pred, ("data",), ("softmax_label",)
+    return sym_gen
+
+
+def lm_corpus(vocab=BUCKET_VOCAB, buckets=BUCKET_KEYS, batch=BUCKET_BATCH,
+              per_bucket=BUCKET_BATCHES, seed=SEED):
+    """Synthetic sentences from ``seed``: ``per_bucket * batch`` of them a
+    bucket, their lengths spread over the bucket's range, each a walk
+    over word ids 1..vocab-1 whose next word is mostly a function of the
+    last (0 is the padding)."""
+    rng = np.random.default_rng(seed)
+    sents, low = [], 1
+    for b in buckets:
+        for _ in range(per_bucket * batch):
+            n = int(rng.integers(low, b + 1))
+            w = [int(rng.integers(1, vocab))]
+            for _ in range(n - 1):
+                nxt = (w[-1] * 31 + int(rng.integers(0, 8))) % (vocab - 1)
+                w.append(nxt + 1)
+            sents.append(w)
+        low = b + 1
+    return sents
+
+
+def lm_params(sym_gen, key, batch, seed=SEED):
+    """numpy parameters of the bucketed LM from ``seed``: uniform in
+    +-sqrt(3 / fan_in), biases 0."""
+    sym = sym_gen(key)[0]
+    arg_shapes, _, _ = sym.infer_shape(data=(batch, key),
+                                       softmax_label=(batch, key))
+    rng = np.random.RandomState(seed)
+    out = {}
+    for name, shp in zip(sym.list_arguments(), arg_shapes):
+        if name in ("data", "softmax_label"):
+            continue
+        if name.endswith("_bias"):
+            out[name] = np.zeros(shp, np.float32)
+        else:
+            lim = math.sqrt(3.0 / shp[-1])
+            out[name] = rng.uniform(-lim, lim, shp).astype(np.float32)
+    return out
+
+
+def _bucket_batch(mx, ctx, it, key):
+    """The first batch of bucket ``key`` after a reset of ``it`` (whose
+    bucket arrays are made anew on ``ctx``)."""
+    with ctx:
+        it.reset()
+    for b in it:
+        if b.bucket_key == key:
+            return b
+    raise AssertionError("no batch of bucket %d" % key)
+
+
+def bucket_first_grads(mx, ctx, sym_gen, it, keys, batch, params):
+    """Each bucket's first training step on ``ctx`` and on the CPU from the
+    same numpy parameters: the largest gradient difference over each
+    parameter's largest magnitude, a bucket."""
+    out = {}
+    for key in keys:
+        b = _bucket_batch(mx, ctx, it, key)
+        x, y = b.data[0].asnumpy(), b.label[0].asnumpy()
+        grads = []
+        for c in (ctx, mx.cpu()):
+            sym = sym_gen(key)[0]
+            mod = mx.mod.Module(sym, context=c)
+            mod.bind(data_shapes=[("data", x.shape)],
+                     label_shapes=[("softmax_label", y.shape)])
+            arg, _ = mx.convert.params_from_numpy(params, {}, c, symbol=sym)
+            mod.init_params(arg_params=arg, aux_params={})
+            with c:
+                mod.forward_backward(mx.io.DataBatch(
+                    data=[mx.nd.array(x)], label=[mx.nd.array(y)]))
+            grads.append({n: g[0].asnumpy() for n, g in zip(
+                mod._exec_group.param_names, mod._exec_group.grad_arrays)})
+        out[key] = max(largest_rel(grads[0][n], grads[1][n])
+                       for n in grads[1])
+    return out
+
+
+def bucket_fit(mx, ck, ctx, sym_gen, it, epochs=BUCKET_EPOCHS, seed=SEED):
+    """``BucketingModule.fit`` over ``it`` with ``kvstore="tpu"`` and Adam,
+    the iterator's shuffles (Python's and numpy's generators) seeded: the
+    launch counts reset just before and read just after, the mean
+    cross-entropy of the first and of the last epoch (the same sentences)
+    and, in the last epoch, each batch's time by bucket."""
+    mod = mx.mod.BucketingModule(sym_gen,
+                                 default_bucket_key=it.default_bucket_key,
+                                 context=ctx)
+    device = torch.device("cuda", ctx.device_id) \
+        if ctx.device_type == "gpu" else torch.device("cpu")
+    marks, ces = [], []
+
+    def on_batch(param):
+        b = param.locals["data_batch"]
+        p = mod.get_outputs()[0]._data
+        lab = b.label[0]._data.reshape(-1).long()
+        ces.append(-p.gather(1, lab.view(-1, 1)).clamp_min(1e-12).log()
+                   .mean())
+        marks.append((param.epoch, b.bucket_key,
+                      b.label[0].shape[0] * b.label[0].shape[1],
+                      _marker(device)))
+
+    mx.random.seed(seed)
+    random.seed(seed)
+    np.random.seed(seed)
+    ck.reset_kernel_calls()
+    with ctx:   # the iterator's reset makes its arrays on ctx
+        it.reset()
+        mod.fit(it, num_epoch=epochs, kvstore="tpu", optimizer="adam",
+                optimizer_params=BUCKET_ADAM,
+                eval_metric=mx.metric.Perplexity(0),
+                initializer=mx.init.Xavier(factor_type="in",
+                                           magnitude=2.34),
+                batch_end_callback=on_batch)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    calls = ck.kernel_calls()
+    ces = [float(c) for c in ces]
+    by_bucket, tokens, total_ms = {}, 0, 0.0
+    for prev, cur in zip(marks, marks[1:]):
+        if cur[0] != epochs - 1 or prev[0] != epochs - 1:
+            continue
+        ms = _elapsed_ms(prev[3], cur[3])
+        by_bucket.setdefault(cur[1], []).append(ms)
+        tokens += cur[2]
+        total_ms += ms
+    per = len(ces) // epochs
+    return mod, {
+        "batches": len(ces), "calls": calls,
+        "fused_exec": any(m._fused_exec_update
+                          for m in mod._buckets.values()),
+        "step_ms_by_bucket": {key: float(np.mean(v))
+                              for key, v in sorted(by_bucket.items())},
+        "tokens_per_s": tokens / total_ms * 1e3 if total_ms else None,
+        "ce_first": float(np.mean(ces[:per])),
+        "ce_last": float(np.mean(ces[-per:])),
+        "buckets_bound": sorted(mod._buckets)}
+
+
+def bucket_shared(mx, ctx, mod, it, big, small):
+    """One step in bucket ``big``: bucket ``small``'s executor must hold
+    the same NDArrays as ``big``'s and read the new weights bitwise."""
+    exe_b = mod._buckets[big]._exec_group.execs[0]
+    exe_s = mod._buckets[small]._exec_group.execs[0]
+    names = mod._buckets[big]._exec_group.param_names
+    before = {n: exe_s.arg_dict[n]._data.clone() for n in names}
+    b = _bucket_batch(mx, ctx, it, big)
+    mod.forward_backward(b)
+    mod.update()
+    return {"same_arrays": all(exe_s.arg_dict[n] is exe_b.arg_dict[n]
+                               for n in names),
+            "bitwise": all(torch.equal(exe_s.arg_dict[n]._data,
+                                       exe_b.arg_dict[n]._data)
+                           for n in names),
+            "moved": sum(not torch.equal(before[n], exe_s.arg_dict[n]._data)
+                         for n in names),
+            "params": len(names)}
+
+
+def pack_unrolled(params, mode, layers, bidirectional, prefix):
+    """The ``FusedRNNCell`` parameter vector, in the ``RNN`` op's layout
+    (all weights, layer-major with the direction inside, i2h then h2h;
+    then all biases in the same order), from the parameters of the cells
+    ``unfuse()`` gives (``<prefix>l<i>_`` forward, ``<prefix>r<i>_``
+    backward)."""
+    dirs = ("l", "r") if bidirectional else ("l",)
+    cells = ["%s%s%d_" % (prefix, d, i) for i in range(layers) for d in dirs]
+    ws = [params[c + k].reshape(-1) for c in cells
+          for k in ("i2h_weight", "h2h_weight")]
+    bs = [params[c + k].reshape(-1) for c in cells
+          for k in ("i2h_bias", "h2h_bias")]
+    lib = torch if isinstance(ws[0], torch.Tensor) else np
+    return lib.concatenate(ws + bs) if lib is np else torch.cat(ws + bs)
+
+
+def fused_vs_unrolled(mx, ctx, mode, bidirectional, layers, hidden, embed,
+                      batch, t, seed=SEED):
+    """A ``FusedRNNCell`` (the ``RNN`` op) against the unrolled cells of
+    its ``unfuse()``, at the same weights packed into its vector: the
+    forward outputs and, for random output gradients, the input and
+    weight gradients, each as its largest difference over the largest
+    magnitude."""
+    prefix = "%s_" % mode
+    cell = mx.rnn.FusedRNNCell(hidden, num_layers=layers, mode=mode,
+                               bidirectional=bidirectional, prefix=prefix)
+    data = mx.sym.var("data")
+    fused, _ = cell.unroll(t, data, layout="NTC", merge_outputs=True)
+    unrolled, _ = cell.unfuse().unroll(t, data, layout="NTC",
+                                       merge_outputs=True)
+    rng = np.random.RandomState(seed)
+    shape = (batch, t, embed)
+    ue = unrolled.simple_bind(ctx=ctx, grad_req="write", data=shape)
+    fe = fused.simple_bind(ctx=ctx, grad_req="write", data=shape)
+    uparams = {}
+    for name, arr in ue.arg_dict.items():
+        if name == "data":
+            continue
+        # torch's default RNN initialisation, U(-1/sqrt(H), 1/sqrt(H))
+        lim = 1.0 / math.sqrt(hidden)
+        uparams[name] = rng.uniform(-lim, lim, arr.shape).astype(np.float32)
+        arr._data.copy_(torch.from_numpy(uparams[name]))
+    x = rng.uniform(-1, 1, shape).astype(np.float32)
+    ue.arg_dict["data"]._data.copy_(torch.from_numpy(x))
+    fe.arg_dict["data"]._data.copy_(torch.from_numpy(x))
+    fe.arg_dict[prefix + "parameters"]._data.copy_(torch.from_numpy(
+        pack_unrolled(uparams, mode, layers, bidirectional, prefix)))
+    outs = [e.forward(is_train=True)[0].asnumpy() for e in (fe, ue)]
+    g = rng.uniform(-1, 1, outs[1].shape).astype(np.float32)
+    for e in (fe, ue):
+        e.backward(out_grads=[mx.nd.array(g, ctx=ctx)])
+    ugrads = {n: a.asnumpy() for n, a in ue.grad_dict.items()}
+    return {"mode": mode, "bidirectional": bidirectional, "layers": layers,
+            "hidden": hidden, "t": t,
+            "output": largest_rel(outs[0], outs[1]),
+            "data_grad": largest_rel(fe.grad_dict["data"].asnumpy(),
+                                     ugrads["data"]),
+            "param_grad": largest_rel(
+                fe.grad_dict[prefix + "parameters"].asnumpy(),
+                pack_unrolled(ugrads, mode, layers, bidirectional, prefix))}
+
+
+def check_k2_lm(ck, dev, bw, flops, shapes=K2_LM_SHAPES):
+    """K2 at the LM's logits against its plain version (fp32, within
+    ``K2_LM_TOL`` of the largest probability, rows summing to 1 within
+    it) on logits from a seed: ``(worst, jobs)``, each job with its
+    |difference|, its bound (bytes: read once, written once) and the
+    three functions to time."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    worst, jobs = 0.0, []
+    for shape in shapes:
+        x = torch.randn(shape, generator=gen, device=dev) * 3
+        y = ck.softmax_lastaxis(x)
+        ref = ck.softmax_lastaxis_ref(x)
+        err = (y - ref).abs().max().item()
+        rel = err / ref.abs().max().item()
+        total = (y.sum(-1) - 1).abs().max().item()
+        if not (rel <= K2_LM_TOL and total <= K2_LM_TOL
+                and bool(torch.isfinite(y).all())):
+            raise AssertionError("K2 at %s: max |d| %g (%g of the largest; "
+                                 "limit %g), row sums off by %g"
+                                 % (shape, err, rel, K2_LM_TOL, total))
+        worst = max(worst, err)
+        b = bound_ms(2 * x.numel() * 4, 5 * x.numel(), bw, flops)
+        jobs.append({"shape": shape, "max_abs_err": err, "max_rel": rel,
+                     "row_sum_err": total, "bound_ms": b[0],
+                     "bound_by": b[1], "fns": {
+                         "": lambda x=x: ck.softmax_lastaxis(x),
+                         "plain_": lambda x=x: ck.softmax_lastaxis_ref(x),
+                         "library_": lambda x=x: torch.softmax(x, -1)}})
+    return worst, jobs
+
+
+def time_k2_lm(jobs, key, timer):
+    for job in jobs:
+        for pre in ("", "plain_", "library_"):
+            job[pre + key] = timer(job["fns"][pre])
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -5060,6 +5728,138 @@ def main():
              eng16["raised_at_waitall"], eng16["raised_again"],
              loop_line["seconds"]), flush=True)
 
+    # 17. the data pipeline and the module family: (a) ResNet-50 from a
+    # .rec through ImageRecordIter into Module.fit; (b) the bucketed LSTM
+    # LM through BucketingModule; (c) K2 at the LM's logits
+    import tempfile
+    t17 = time.perf_counter()
+    with tempfile.TemporaryDirectory(
+            prefix=".chip_smoke_rec_",
+            dir=os.path.dirname(os.path.abspath(__file__))) as workdir:
+        rec_mod, rec_batch, rec17 = rec_pipeline(mx, ck, mx.gpu(0), sym,
+                                               workdir)
+    nb17 = len(rec17["buckets"])
+    want = dict.fromkeys(rec17["calls"], 0)
+    want.update(sgd_mom_sweep=nb17 * rec17["batches"],
+                softmax_lastaxis=rec17["batches"] + REC_IMAGES
+                // REC_EVAL_PARTS // BATCH,
+                scale_bias_relu=len(sites) * (REC_IMAGES // REC_EVAL_PARTS
+                                              // BATCH))
+    if rec17["calls"] != want or not rec17["fused"] \
+            or rec17["batches"] != REC_IMAGES // BATCH \
+            or rec17["bitwise_batches"] != rec17["batches"] \
+            or rec17["replay_batches"] != rec17["batches"] \
+            or rec17["wrappers"]["bitwise"] != rec17["wrappers"]["batches"] \
+            or rec17["wrappers"]["batches"] != 3 \
+            or not rec17["ce_last"] < rec17["ce_first"] \
+            or not rec17["data_on"].startswith("cuda"):
+        raise AssertionError(
+            "records: launches %s (expected %s), fused %s, %d batches, "
+            "bitwise equal to the host replay %d of %d, wrappers %s, "
+            "cross-entropy %.4f -> %.4f, batches on %s"
+            % (rec17["calls"], want, rec17["fused"], rec17["batches"],
+               rec17["bitwise_batches"], rec17["replay_batches"],
+               rec17["wrappers"], rec17["ce_first"], rec17["ce_last"],
+               rec17["data_on"]))
+    rec17["seconds"] = time.perf_counter() - t17
+    print("records on %s: %d JPEGs (%.1f MB, written in %.2f s); the reader "
+          "alone %.1f images/s (%d threads, %d cores); ResNet-50 v1 fp32 "
+          "Module.fit from the .rec, kvstore=tpu, %d batches: %.2f ms/step, "
+          "%.1f images/s over the last %d (CUDA events; the fixed batch of "
+          "phase 5: %.2f ms/step); launches %s; batches bitwise equal to the "
+          "host replay: %d of %d; PrefetchingIter(ResizeIter) %s; "
+          "cross-entropy %.4f -> %.4f; %.1f s"
+          % (smi, rec17["records"], rec17["rec_mb"], rec17["write_s"],
+             rec17["reader_images_per_s"], rec17["preprocess_threads"],
+             rec17["cpu_count"], rec17["batches"], rec17["step_ms"],
+             rec17["images_per_s"], rec17["timed_batches"], tr["step_ms"],
+             rec17["calls"], rec17["bitwise_batches"], rec17["replay_batches"],
+             rec17["wrappers"], rec17["ce_first"], rec17["ce_last"],
+             rec17["seconds"]), flush=True)
+    t17b = time.perf_counter()
+    sym_gen = lm_sym_gen(mx)
+    with mx.gpu(0):
+        bucket_it = mx.rnn.BucketSentenceIter(
+            lm_corpus(), BUCKET_BATCH, buckets=list(BUCKET_KEYS),
+            invalid_label=0)
+    grads17 = bucket_first_grads(
+        mx, mx.gpu(0), sym_gen, bucket_it, BUCKET_KEYS, BUCKET_BATCH,
+        lm_params(sym_gen, max(BUCKET_KEYS), BUCKET_BATCH))
+    bucket_mod, lm17 = bucket_fit(mx, ck, mx.gpu(0), sym_gen, bucket_it)
+    want = dict.fromkeys(lm17["calls"], 0)
+    want.update(softmax_lastaxis=lm17["batches"])
+    shared17 = bucket_shared(mx, mx.gpu(0), bucket_mod, bucket_it,
+                             max(BUCKET_KEYS),
+                             min(BUCKET_KEYS))
+    fused17 = [fused_vs_unrolled(mx, mx.gpu(0), "lstm", False, BUCKET_LAYERS,
+                                 BUCKET_HIDDEN, BUCKET_EMBED, BUCKET_BATCH,
+                                 max(BUCKET_KEYS)),
+               fused_vs_unrolled(mx, mx.gpu(0), "gru", False, BUCKET_LAYERS,
+                                 BUCKET_HIDDEN, BUCKET_EMBED, BUCKET_BATCH,
+                                 max(BUCKET_KEYS)),
+               fused_vs_unrolled(mx, mx.gpu(0), "lstm", True, BUCKET_LAYERS,
+                                 BUCKET_HIDDEN, BUCKET_EMBED, BUCKET_BATCH,
+                                 max(BUCKET_KEYS))]
+    fused_worst = max(max(f["output"], f["data_grad"], f["param_grad"])
+                      for f in fused17)
+    if lm17["calls"] != want or lm17["fused_exec"] \
+            or lm17["batches"] != BUCKET_EPOCHS * BUCKET_BATCHES \
+            * len(BUCKET_KEYS) \
+            or lm17["buckets_bound"] != list(BUCKET_KEYS) \
+            or not max(grads17.values()) <= BUCKET_GRAD_TOL \
+            or not lm17["ce_last"] < lm17["ce_first"] \
+            or not (shared17["same_arrays"] and shared17["bitwise"]
+                    and shared17["moved"] == shared17["params"]) \
+            or not fused_worst <= FUSED_TOL:
+        raise AssertionError(
+            "bucketed LM: launches %s (expected %s), executor fusion %s, "
+            "%d batches, buckets %s, first-step gradients %s (limit %g), "
+            "cross-entropy %.4f -> %.4f, shared weights %s, fused RNN vs "
+            "unrolled %s (limit %g)"
+            % (lm17["calls"], want, lm17["fused_exec"], lm17["batches"],
+               lm17["buckets_bound"], grads17, BUCKET_GRAD_TOL,
+               lm17["ce_first"], lm17["ce_last"], shared17, fused17,
+               FUSED_TOL))
+    lm17.update(first_step_grad_max_rel=grads17, shared=shared17,
+                fused_vs_unrolled=fused17,
+                seconds=time.perf_counter() - t17b)
+    print("bucketed LSTM LM on %s: vocab %d, 2 x LSTM %d, embed %d, batch "
+          "%d, buckets %s, Adam lr %g, kvstore=tpu, %d epochs of %d "
+          "batches: step ms by bucket %s, %.0f tokens/s (last epoch, CUDA "
+          "events); K2 %d launches (one a step); first-step gradients "
+          "against the CPU %s (limit %g); cross-entropy %.4f -> %.4f; after "
+          "a step in bucket %d bucket %d's executor holds the same arrays "
+          "%s, bitwise %s, %d of %d moved; the RNN op (cuDNN) against its "
+          "unrolled cells %s; %.1f s"
+          % (smi, BUCKET_VOCAB, BUCKET_HIDDEN, BUCKET_EMBED, BUCKET_BATCH,
+             list(BUCKET_KEYS), BUCKET_ADAM["learning_rate"], BUCKET_EPOCHS,
+             lm17["batches"] // BUCKET_EPOCHS,
+             {k: round(v, 2) for k, v in lm17["step_ms_by_bucket"].items()},
+             lm17["tokens_per_s"], lm17["calls"]["softmax_lastaxis"],
+             {k: "%.2g" % v for k, v in grads17.items()}, BUCKET_GRAD_TOL,
+             lm17["ce_first"], lm17["ce_last"], max(BUCKET_KEYS),
+             min(BUCKET_KEYS), shared17["same_arrays"], shared17["bitwise"],
+             shared17["moved"], shared17["params"],
+             ["%s%s %.2g" % (f["mode"], " bi" if f["bidirectional"] else "",
+                             max(f["output"], f["data_grad"],
+                                 f["param_grad"])) for f in fused17],
+             lm17["seconds"]), flush=True)
+    lm17_batch = _bucket_batch(mx, mx.gpu(0), bucket_it, max(BUCKET_KEYS))
+    k2_lm_err, k2_lm_jobs = check_k2_lm(ck, dev, bw, flops)
+    time_k2_lm(k2_lm_jobs, "call_ms", time_ms)
+    k2["launches_data_pipeline"] = {
+        "records_fit": rec17["calls"]["softmax_lastaxis"],
+        "bucketed_lm": lm17["calls"]["softmax_lastaxis"],
+        "bucketed_lm_per_step": lm17["calls"]["softmax_lastaxis"]
+        / lm17["batches"]}
+    k1b = sweeps["sgd_mom_sweep"]
+    k1b["launches_data_pipeline"] = rec17["calls"]["sgd_mom_sweep"]
+    k3["launches_data_pipeline"] = rec17["calls"]["scale_bias_relu"]
+    data_line = {"card": smi, "records": {k: v for k, v in rec17.items()
+                                          if k != "ce"},
+                 "bucketed_lm": lm17, "seconds": time.perf_counter() - t17}
+    print("phase 17: %.1f s" % data_line["seconds"], flush=True)
+
     # device time of each kernel (the profiler last: its hooks slow the
     # host for the rest of the process)
     # K6b's bf16 operands (37.7 MB) fit in the L2 cache, where back-to-back
@@ -5081,6 +5881,7 @@ def main():
                            "bound_ms": sum(j["count"] * j["bound_ms"]
                                            for j in jobs)}
             time_jobs(rec["bf16"], jobs, "ms", timer)
+        time_k2_lm(k2_lm_jobs, "ms", timer)
 
     # every time by one timer: the profiler's, or, where one of its
     # sessions records no device time (one did, on the H100, in the bf16
@@ -5120,6 +5921,23 @@ def main():
         step_busy_us=mixed_prof["busy_us"] if mixed_prof else None,
         step_by_kind_us=mixed_prof["by_kind"] if mixed_prof else None)
     del fit15_mod
+    rec_prof = step_profile(rec_mod, rec_batch, rec17["step_ms"])
+    data_line["records"].update(
+        idle_share=rec_prof["idle_share"] if rec_prof else None,
+        step_busy_us=rec_prof["busy_us"] if rec_prof else None,
+        step_by_kind_us=rec_prof["by_kind"] if rec_prof else None)
+    del rec_mod
+    lm_prof = step_profile(bucket_mod, lm17_batch,
+                           lm17["step_ms_by_bucket"][max(BUCKET_KEYS)])
+    data_line["bucketed_lm"].update(
+        idle_share_largest_bucket=lm_prof["idle_share"] if lm_prof
+        else None,
+        step_busy_us_largest_bucket=lm_prof["busy_us"] if lm_prof else None,
+        step_by_kind_us_largest_bucket=lm_prof["by_kind"] if lm_prof
+        else None)
+    del bucket_mod
+    k2["lm"] = [{k: v for k, v in j.items() if k != "fns"}
+                for j in k2_lm_jobs]
     inc_prof = step_profile(inc_mod, inc_batch, inc["step_ms"])
     inc["idle_share"] = inc_prof["idle_share"] if inc_prof else None
     inc["step_busy_us"] = inc_prof["busy_us"] if inc_prof else None
@@ -5145,6 +5963,16 @@ def main():
                       job["bound_ms"], job["bound_by"],
                       ", %.1f TFLOP/s" % job["tflops"] if "tflops" in job
                       else ""))
+    for job in k2_lm_jobs:
+        print("K2 %s (the bucketed LM's logits, %.1f launches a step) "
+              "device: kernel %.4f ms, plain %.4f ms, torch.softmax %.4f ms, "
+              "bound %.4f ms (%s); per call: kernel %.4f ms, plain %.4f ms, "
+              "torch.softmax %.4f ms" % (
+                  job["shape"], k2["launches_data_pipeline"][
+                      "bucketed_lm_per_step"], job["ms"], job["plain_ms"],
+                  job["library_ms"], job["bound_ms"], job["bound_by"],
+                  job["call_ms"], job["plain_call_ms"],
+                  job["library_call_ms"]))
     for job in k3_jobs:
         print("K3 %-20s x%-2d device: kernel %.4f ms, plain %.4f ms, bound "
               "%.4f ms; per call: kernel %.4f ms, plain %.4f ms"
@@ -5210,6 +6038,7 @@ def main():
                     if k not in ("calls", "fwd_calls")}
     print(json.dumps({"inception_bn": dict(inc, card=smi)}, default=str))
     print(json.dumps({"training_loop": loop_line}, default=str))
+    print(json.dumps({"data_pipeline": data_line}, default=str))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
             "launches_per_forward", "call_ms", "plain_call_ms",
@@ -5218,7 +6047,8 @@ def main():
         {k: rec[k] for k in keys + tuple(
             x for x in ("launches_training", "launches_checkpoints",
                         "launches_inception", "launches_mixed",
-                        "launches_training_loop", "bf16",
+                        "launches_training_loop",
+                        "launches_data_pipeline", "lm", "bf16",
                         "ms_repeats", "library_ms_repeats",
                         "bfloat16_ms_repeats", "bfloat16_library_ms_repeats",
                         "repeats_timer",
@@ -5244,6 +6074,11 @@ def main():
     print(profile_step(mod, train_batch, tr["step_ms"]))
     print("bf16 (phase 15): " + profile_step(None, None, fit15["step_ms"],
                                              mixed_prof))
+    print("from records (phase 17): " + profile_step(
+        None, None, rec17["step_ms"], rec_prof))
+    print("bucketed LM at T %d (phase 17): " % max(BUCKET_KEYS)
+          + profile_step(None, None, lm17["step_ms_by_bucket"][
+              max(BUCKET_KEYS)], lm_prof))
     for r in lm_res.values():
         print(profile_lm(lm, r["tokens"], r["fwd_ms"]))
     for r in train_res.values():

@@ -65,6 +65,7 @@ from . import executor  # noqa: F401
 from .executor import Executor  # noqa: F401
 from .predictor import Predictor  # noqa: F401
 from . import io  # noqa: F401
+from . import recordio  # noqa: F401
 from . import engine  # noqa: F401
 from . import convert  # noqa: F401
 from . import serving  # noqa: F401
@@ -81,6 +82,9 @@ from . import callback  # noqa: F401
 from . import model  # noqa: F401
 from . import module  # noqa: F401
 from . import module as mod  # noqa: F401
+from . import executor_manager  # noqa: F401
+from . import image  # noqa: F401
+from . import rnn  # noqa: F401
 from . import parallel  # noqa: F401
 from . import gluon  # noqa: F401
 from . import registry  # noqa: F401

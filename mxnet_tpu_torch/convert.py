@@ -2,8 +2,9 @@
 
 Both packages use the same names and layouts — OIHW convolution
 weights, ``(num_hidden, in)`` FullyConnected and Dense weights,
-per-channel BatchNorm and LayerNorm vectors — so moving a model is a
-matter of dtype and device placement: ``params_from_numpy`` for a
+per-channel BatchNorm and LayerNorm vectors, a ``FusedRNNCell``'s packed
+``RNN`` parameter vector (all weights, then all biases) — so moving a
+model is a matter of dtype and device placement: ``params_from_numpy`` for a
 symbol's arg and aux dicts, ``block_params_from_numpy`` for a gluon
 block.  The caller hands numpy arrays (``{k: v.asnumpy()}`` on the JAX
 side); this module never sees a JAX object.

@@ -144,26 +144,32 @@ class Executor:
 
     @staticmethod
     def _simple_bind(symbol, ctx, grad_req, type_dict, shape_kwargs,
-                     compute_dtype=None, cast_exclude=()):
+                     compute_dtype=None, cast_exclude=(), shared_exec=None):
         device = resolve(ctx)
         known = {k: tuple(v) for k, v in shape_kwargs.items()}
         shapes, aux_shapes = _infer_graph(symbol, known)
         type_dict = type_dict or {}
 
-        def alloc(name, shp, what, dtype=None):
+        def alloc(name, shp, what, shared, dtype=None):
             if shp is None:
                 raise MXNetError("simple_bind could not infer the %s shape "
                                  "of %r" % (what, name))
+            if shared is not None and name in shared \
+                    and shared[name].shape == tuple(shp):
+                return shared[name]
             return NDArray(torch.zeros(
                 shp, dtype=dtype_torch(dtype), device=device))
 
+        shared_args = None if shared_exec is None else shared_exec.arg_dict
+        shared_aux = None if shared_exec is None else shared_exec.aux_dict
         arg_names = symbol.list_arguments()
-        arg_dict = {n: alloc(n, shapes.get(n), "argument", type_dict.get(n))
+        arg_dict = {n: alloc(n, shapes.get(n), "argument", shared_args,
+                             type_dict.get(n))
                     for n in arg_names}
         req = _grad_req_dict(grad_req, arg_names)
         grad_dict = {n: NDArray(torch.zeros_like(arg_dict[n]._data))
                      for n in arg_names if req.get(n, "null") != "null"}
-        aux_dict = {n: alloc(n, aux_shapes.get(n), "aux")
+        aux_dict = {n: alloc(n, aux_shapes.get(n), "aux", shared_aux)
                     for n in symbol.list_auxiliary_states()}
         return Executor(symbol, device, arg_dict, aux_dict, grad_dict,
                         grad_req, compute_dtype, cast_exclude)

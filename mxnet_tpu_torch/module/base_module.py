@@ -1,10 +1,12 @@
 """BaseModule — the canonical training loop.
 
 Counterpart of ``mxnet_tpu/module/base_module.py`` (reference:
-python/mxnet/module/base_module.py:81): ``forward_backward``, ``score``
-and ``fit`` (bind, init_params, init_optimizer, then per batch
-forward_backward / update / update_metric / batch-end callbacks, and per
-epoch the parameter sync and epoch-end callbacks), and
+python/mxnet/module/base_module.py:81): ``forward_backward``, ``score``,
+``iter_predict``/``predict`` and ``fit`` (bind, init_params,
+init_optimizer, then per batch forward_backward / update / update_metric,
+``prepare`` of the next batch (where a ``BucketingModule`` binds its
+bucket) and the batch-end callbacks, and per epoch the parameter sync
+and epoch-end callbacks), and
 ``save_params``/``load_params`` (the ``arg:``/``aux:`` container).
 ``fit(monitor=...)`` installs the monitor after binding and brackets each
 step with its ``tic`` and ``toc_print``, as the JAX package does.  The
@@ -19,6 +21,7 @@ import warnings
 
 from .. import metric
 from .. import ndarray
+from ..base import MXNetError
 from ..initializer import Uniform
 from ..model import BatchEndParam
 
@@ -70,7 +73,8 @@ class BaseModule:
         self.backward()
 
     def score(self, eval_data, eval_metric, num_batch=None,
-              batch_end_callback=None, reset=True, epoch=0):
+              batch_end_callback=None, score_end_callback=None, reset=True,
+              epoch=0, sparse_row_id_fn=None):
         """Evaluate on ``eval_data`` (reference: base_module.py:208)."""
         if not (self.binded and self.params_initialized):
             raise RuntimeError("bind and initialise the module first")
@@ -80,6 +84,7 @@ class BaseModule:
         eval_metric.reset()
         if reset:
             eval_data.reset()
+        actual_num_batch = 0
         for nbatch, eval_batch in enumerate(eval_data):
             if nbatch == num_batch:
                 break
@@ -91,7 +96,61 @@ class BaseModule:
                                        locals=locals())
                 for callback in _as_list(batch_end_callback):
                     callback(params)
+            actual_num_batch += 1
+        if score_end_callback:
+            params = BatchEndParam(epoch=epoch, nbatch=actual_num_batch,
+                                   eval_metric=eval_metric, locals=locals())
+            for callback in _as_list(score_end_callback):
+                callback(params)
         return eval_metric.get_name_value()
+
+    def iter_predict(self, eval_data, num_batch=None, reset=True):
+        """Yield ``(outputs, nbatch, batch)`` a batch, the pad rows cut
+        off (reference: base_module.py:266)."""
+        if not (self.binded and self.params_initialized):
+            raise RuntimeError("bind and initialise the module first")
+        if reset:
+            eval_data.reset()
+        for nbatch, eval_batch in enumerate(eval_data):
+            if num_batch is not None and nbatch == num_batch:
+                break
+            self.forward(eval_batch, is_train=False)
+            pad = eval_batch.pad or 0
+            outputs = [out[0:out.shape[0] - pad]
+                       for out in self.get_outputs()]
+            yield (outputs, nbatch, eval_batch)
+
+    def predict(self, eval_data, num_batch=None, merge_batches=True,
+                reset=True, always_output_list=False, sparse_row_id_fn=None):
+        """The outputs over ``eval_data``, the pad rows cut off, joined
+        along the batch axis unless ``merge_batches`` is False
+        (reference: base_module.py:310)."""
+        if not (self.binded and self.params_initialized):
+            raise RuntimeError("bind and initialise the module first")
+        if reset:
+            eval_data.reset()
+        output_list = []
+        for nbatch, eval_batch in enumerate(eval_data):
+            if num_batch is not None and nbatch == num_batch:
+                break
+            self.forward(eval_batch, is_train=False)
+            pad = eval_batch.pad or 0
+            output_list.append([out[0:out.shape[0] - pad].copy()
+                                for out in self.get_outputs()])
+        if not output_list:
+            return output_list
+        if not merge_batches:
+            return output_list
+        num_outputs = len(output_list[0])
+        if any(len(out) != num_outputs for out in output_list):
+            raise ValueError("Cannot merge batches, as num of outputs is "
+                             "not the same in mini-batches. Maybe bucketing "
+                             "is used?")
+        merged = [ndarray.concatenate([out[i] for out in output_list])
+                  for i in range(num_outputs)]
+        if num_outputs == 1 and not always_output_list:
+            return merged[0]
+        return merged
 
     def fit(self, train_data, eval_data=None, eval_metric="acc",
             epoch_end_callback=None, batch_end_callback=None,
@@ -101,7 +160,7 @@ class BaseModule:
             initializer=Uniform(0.01), arg_params=None, aux_params=None,
             allow_missing=False, force_rebind=False, force_init=False,
             begin_epoch=0, num_epoch=None, validation_metric=None,
-            monitor=None):
+            monitor=None, sparse_row_id_fn=None):
         """The canonical train loop (reference: base_module.py:395)."""
         if num_epoch is None:
             raise ValueError("please specify number of epochs")
@@ -138,6 +197,8 @@ class BaseModule:
                 # fetch the next batch only after this step is queued: an
                 # iterator may reuse the current batch's buffers
                 upcoming = next(batches, None)
+                if upcoming is not None:
+                    self.prepare(upcoming, sparse_row_id_fn=sparse_row_id_fn)
                 if monitor is not None:
                     monitor.toc_print()
                 if upcoming is None:
@@ -177,6 +238,27 @@ class BaseModule:
 
     def install_monitor(self, mon):  # pragma: no cover - abstract
         raise NotImplementedError()
+
+    def prepare(self, data_batch, sparse_row_id_fn=None):
+        """Get ready for ``data_batch`` (reference: base_module.py
+        prepare); a ``BucketingModule`` binds the batch's bucket here."""
+
+    def get_states(self, merge_multi_context=True):
+        """No states: a module's state inputs come with stateful
+        executors, which no module here has (reference: base_module.py
+        get_states)."""
+        if not (self.binded and self.params_initialized):
+            raise RuntimeError("bind and initialise the module first")
+        if merge_multi_context:
+            raise MXNetError("merge_multi_context=True is not supported "
+                             "for get_states")
+        return []
+
+    def set_states(self, states=None, value=None):
+        if not (self.binded and self.params_initialized):
+            raise RuntimeError("bind and initialise the module first")
+        if states or value:
+            raise MXNetError("this module has no states to set")
 
     def set_params(self, arg_params, aux_params, allow_missing=False,
                    force_init=True, allow_extra=False):

@@ -3,11 +3,15 @@
 Counterpart of ``mxnet_tpu/module/executor_group.py`` (reference:
 python/mxnet/module/executor_group.py:129) for a single context: it
 derives each argument's ``grad_req`` (parameters write, fixed
-parameters and labels null, data only with ``inputs_need_grad``), binds
-one executor (with the Module's mixed-precision policy,
-``compute_dtype`` and ``cast_exclude``), feeds batches to it, and exposes
-the parameter, gradient and aux arrays.  Splitting a batch over several devices comes with the
-multi-GPU slice.
+parameters, states and labels null, data only with
+``inputs_need_grad``), binds one executor (with the Module's
+mixed-precision policy, ``compute_dtype`` and ``cast_exclude``; with a
+``shared_group`` the parameter and aux arrays of the same shape are the
+shared group's own NDArrays), feeds batches to it, rebinds it for new
+input shapes (``reshape``), and exposes the parameter, gradient, input
+gradient and aux arrays.  Splitting a batch over several devices comes
+with the multi-GPU slice; ``_split_input_slice`` and ``_load_general``
+are the helpers ``executor_manager`` re-exports.
 """
 from __future__ import annotations
 
@@ -22,13 +26,43 @@ from ..io import DataDesc
 __all__ = ["DataParallelExecutorGroup"]
 
 
+def _split_input_slice(batch_size, work_load_list):
+    """A batch split in proportion to the work loads (reference:
+    executor_manager.py:31)."""
+    total = sum(work_load_list)
+    nums = [round(w * batch_size / total) for w in work_load_list]
+    if sum(nums) < batch_size:
+        nums[-1] += batch_size - sum(nums)
+    slices = []
+    end = 0
+    for num in nums:
+        begin = int(min(end, batch_size))
+        end = int(min(begin + num, batch_size))
+        if begin >= end:
+            raise ValueError("Too many slices. Some splits are empty.")
+        slices.append(slice(begin, end))
+    return slices
+
+
 def _feed(src, dst):
     """Point the bound input ``dst`` at batch array ``src``, on dst's
     device and in its dtype (no copy when src is already there)."""
-    if src.shape != dst.shape:
+    if tuple(src.shape) != tuple(dst.shape):
         raise MXNetError("batch array of shape %s for an input bound as %s"
-                         % (src.shape, dst.shape))
+                         % (tuple(src.shape), tuple(dst.shape)))
     dst._data = src._data.to(device=dst._data.device, dtype=dst._data.dtype)
+
+
+def _load_general(data, targets):
+    """Feed each batch array to its targets: one bound array, or a list
+    of ``(slice, array)`` pairs, one a device (reference:
+    executor_manager.py:65)."""
+    for d_src, d_targets in zip(data, targets):
+        if not isinstance(d_targets, (list, tuple)):
+            _feed(d_src, d_targets)
+            continue
+        for slice_idx, d_dst in d_targets:
+            _feed(d_src[slice_idx], d_dst)
 
 
 class DataParallelExecutorGroup:
@@ -37,8 +71,9 @@ class DataParallelExecutorGroup:
 
     def __init__(self, symbol, contexts, data_shapes, label_shapes,
                  param_names, for_training, inputs_need_grad,
-                 logger=logging, fixed_param_names=None, grad_req="write",
-                 compute_dtype=None, cast_exclude=()):
+                 shared_group=None, logger=logging, fixed_param_names=None,
+                 grad_req="write", state_names=None, compute_dtype=None,
+                 cast_exclude=()):
         if len(contexts) != 1:
             raise MXNetError("this package binds a Module on one device; "
                              "got %d contexts" % len(contexts))
@@ -52,6 +87,7 @@ class DataParallelExecutorGroup:
         self.for_training = for_training
         self.inputs_need_grad = inputs_need_grad
         self.fixed_param_names = fixed_param_names or []
+        self.state_names = state_names or []
         self.logger = logger
         data_names = [x[0] for x in data_shapes]
         if isinstance(grad_req, str):
@@ -75,32 +111,52 @@ class DataParallelExecutorGroup:
         if not for_training:
             self.grad_req = {k: "null" for k in self.arg_names}
         self.output_names = symbol.list_outputs()
-        self.bind_exec(data_shapes, label_shapes)
+        self.execs = []
+        self.bind_exec(data_shapes, label_shapes, shared_group)
 
-    def bind_exec(self, data_shapes, label_shapes):
+    def bind_exec(self, data_shapes, label_shapes, shared_group=None):
         """Bind the executor for these input shapes (reference: :330)."""
         descs = list(data_shapes) + list(label_shapes or [])
         self.batch_size = descs[0].shape[DataDesc.get_batch_axis(
             getattr(descs[0], "layout", "NCHW"))]
+        self.slices = _split_input_slice(self.batch_size, [1])
         shapes = {d.name: tuple(d.shape) for d in descs}
         # float64 host data trains in float32, MXNet's default dtype
         type_dict = {d.name: np.float32 if np.dtype(d.dtype) == np.float64
                      else d.dtype for d in descs}
+        shared_exec = None if shared_group is None else shared_group.execs[0]
         exe = self.symbol.simple_bind(ctx=self.contexts[0],
                                       grad_req=self.grad_req,
                                       type_dict=type_dict,
                                       compute_dtype=self.compute_dtype,
                                       cast_exclude=self.cast_exclude,
-                                      **shapes)
+                                      shared_exec=shared_exec, **shapes)
         self.execs = [exe]
         self.data_shapes = data_shapes
         self.label_shapes = label_shapes
         self.data_names = [d.name for d in data_shapes]
         self.label_names = [d.name for d in label_shapes or []]
+        self.data_arrays = [[(self.slices[0], exe.arg_dict[n])]
+                            for n in self.data_names]
+        self.label_arrays = [[(self.slices[0], exe.arg_dict[n])]
+                             for n in self.label_names] \
+            if label_shapes else None
         self.param_arrays = [[exe.arg_dict[n]] for n in self.param_names]
         self.grad_arrays = [[exe.grad_dict.get(n)] for n in self.param_names] \
             if self.for_training else None
+        self.input_grad_arrays = [[exe.grad_dict.get(n)]
+                                  for n in self.data_names] \
+            if self.inputs_need_grad else None
         self.aux_arrays = [[exe.aux_dict[n]] for n in self.aux_names]
+        self.state_arrays = [[exe.arg_dict[n]] for n in self.state_names]
+
+    def reshape(self, data_shapes, label_shapes):
+        """Rebind for new shapes, sharing the parameters (reference:
+        :398)."""
+        if data_shapes == self.data_shapes \
+                and label_shapes == self.label_shapes:
+            return
+        self.bind_exec(data_shapes, label_shapes, shared_group=self)
 
     def set_params(self, arg_params, aux_params, allow_extra=False):
         """Copy parameters into the executor (reference: :441)."""
@@ -117,14 +173,11 @@ class DataParallelExecutorGroup:
 
     def forward(self, data_batch, is_train=None):
         """Feed the batch and run forward (reference: :422)."""
-        exe = self.execs[0]
-        for name, arr in zip(self.data_names, data_batch.data):
-            _feed(arr, exe.arg_dict[name])
-        if self.label_names and data_batch.label:
-            for name, arr in zip(self.label_names, data_batch.label):
-                _feed(arr, exe.arg_dict[name])
-        exe.forward(is_train=self.for_training if is_train is None
-                    else is_train)
+        _load_general(data_batch.data, self.data_arrays)
+        if self.label_arrays is not None and data_batch.label:
+            _load_general(data_batch.label, self.label_arrays)
+        self.execs[0].forward(is_train=self.for_training if is_train is None
+                              else is_train)
 
     def backward(self, out_grads=None):
         """Reference: :554."""
@@ -136,6 +189,24 @@ class DataParallelExecutorGroup:
     def get_outputs(self, merge_multi_context=True):
         outs = self.execs[0].outputs
         return outs if merge_multi_context else [[o] for o in outs]
+
+    def get_input_grads(self, merge_multi_context=True):
+        """The data inputs' gradients (reference: :530)."""
+        if not self.inputs_need_grad:
+            raise MXNetError("bind with inputs_need_grad=True")
+        if merge_multi_context:
+            return [g[0] for g in self.input_grad_arrays]
+        return self.input_grad_arrays
+
+    def get_states(self, merge_multi_context=True):
+        if merge_multi_context:
+            raise MXNetError("merge_multi_context=True is not supported "
+                             "for get_states")
+        return [[] for _ in self.execs]
+
+    def set_states(self, states=None, value=None):
+        raise NotImplementedError("stateful modules are not supported by "
+                                  "the executor group")
 
     def install_monitor(self, mon):
         """Reference: executor_group.py:311."""

@@ -7,12 +7,24 @@ python/mxnet/module/module.py:40): ``bind``, ``init_params``,
 the checkpoint surface: ``Module.load``, ``save_checkpoint``,
 ``save_optimizer_states``/``load_optimizer_states``.
 
+``bind(shared_module=...)`` shares the shared module's parameter and
+aux arrays (the same NDArray objects, so a kvstore pull into one is seen
+by all) and its master copies, as ``BucketingModule`` binds a bucket;
+``borrow_optimizer`` takes another module's optimizer, kvstore and
+updater.  Unlike the JAX package, a module bound to a shared module does
+not copy the shared module's master copies into the shared arrays: they
+go stale while the arrays train, and the copy would undo every step
+taken before the new bucket was bound (the reference's ``bind`` skips
+it under ``shared_module`` too).
+
 ``init_optimizer`` picks the update path as the JAX package does:
 ``kvstore="tpu"`` (update on the kvstore, one executor) installs the
 executor's fused step, so each ``forward(is_train=True)`` runs forward,
 backward and the optimizer sweep and ``update()`` has nothing left to
 do; ``"local"`` updates each array with the module's own ``Updater``,
-and ``"device"`` through the kvstore's.  The default context is the
+and ``"device"`` through the kvstore's.  ``_allow_exec_fusion = False``
+(what ``BucketingModule`` sets, since its buckets share the weights)
+keeps ``"tpu"`` on the kvstore's fused store.  The default context is the
 current one (``gpu(0)`` outside a ``with`` block); without a GPU the
 module raises unless given ``cpu()``.
 
@@ -31,6 +43,7 @@ import warnings
 
 from .. import optimizer as opt
 from .._atomic_io import atomic_write
+from ..base import MXNetError
 from ..context import Context, current_context
 from ..initializer import InitDesc, Uniform
 from ..io import DataDesc
@@ -61,7 +74,9 @@ class Module(BaseModule):
 
     def __init__(self, symbol, data_names=("data",),
                  label_names=("softmax_label",), logger=logging,
-                 context=None, fixed_param_names=None, compute_dtype=None):
+                 context=None, work_load_list=None, fixed_param_names=None,
+                 state_names=None, group2ctxs=None, compression_params=None,
+                 compute_dtype=None):
         super().__init__(logger=logger)
         # compute_dtype="bfloat16": the executor's mixed precision, fp32
         # masters and bf16 compute, the labels kept fp32
@@ -73,9 +88,16 @@ class Module(BaseModule):
         self._context = list(context)
         for c in self._context:
             Context(c).torch_device     # raises for a GPU without CUDA
+        if work_load_list is None:
+            work_load_list = [1] * len(self._context)
+        if len(work_load_list) != len(self._context):
+            raise ValueError("work_load_list needs one entry a context")
+        self._work_load_list = work_load_list
+        self._compression_params = compression_params
         self._symbol = symbol
         groups = {}
         for typename, names in (("data", data_names), ("label", label_names),
+                                ("state", state_names),
                                 ("fixed_param", fixed_param_names)):
             names = list(names) if names is not None else []
             _check_input_names(symbol, names, typename,
@@ -83,8 +105,10 @@ class Module(BaseModule):
             groups[typename] = names
         self._data_names = groups["data"]
         self._label_names = groups["label"]
+        self._state_names = groups["state"]
         self._fixed_param_names = groups["fixed_param"]
-        non_params = set(self._data_names + self._label_names)
+        non_params = set(self._data_names + self._label_names
+                         + self._state_names)
         self._param_names = [a for a in symbol.list_arguments()
                              if a not in non_params]
         self._aux_names = symbol.list_auxiliary_states()
@@ -185,6 +209,23 @@ class Module(BaseModule):
     def label_shapes(self):
         return self._label_shapes
 
+    @property
+    def output_shapes(self):
+        """``[(name, shape)]`` of the outputs at the bound shapes."""
+        if not self.binded:
+            raise RuntimeError("bind the module first")
+        known = {d.name: d.shape for d in self._data_shapes}
+        if self._label_shapes:
+            known.update({d.name: d.shape for d in self._label_shapes})
+        _, out_shapes, _ = self._symbol.infer_shape(**known)
+        return list(zip(self._output_names, out_shapes))
+
+    def _reset_bind(self):
+        self.binded = False
+        self._exec_group = None
+        self._data_shapes = None
+        self._label_shapes = None
+
     def get_params(self):
         """``(arg_params, aux_params)``: copies of the bound values
         (reference: module.py get_params)."""
@@ -232,26 +273,43 @@ class Module(BaseModule):
                                     allow_extra=allow_extra)
 
     def bind(self, data_shapes, label_shapes=None, for_training=True,
-             inputs_need_grad=False, force_rebind=False, grad_req="write"):
-        """Bind the executor (reference: module.py:364)."""
+             inputs_need_grad=False, force_rebind=False, shared_module=None,
+             grad_req="write"):
+        """Bind the executor (reference: module.py:364); with
+        ``shared_module`` (a bound, initialised Module) its parameter and
+        aux arrays and its master copies are shared."""
         if force_rebind:
-            self.binded = False
-            self._exec_group = None
+            self._reset_bind()
         if self.binded:
             self.logger.warning("Already binded, ignoring bind()")
             return
         self.for_training = for_training
         self.inputs_need_grad = inputs_need_grad
+        if not for_training and inputs_need_grad:
+            raise ValueError("inputs_need_grad needs for_training")
         self._data_shapes, self._label_shapes = _parse_data_desc(
             self._data_names, self._label_names, data_shapes, label_shapes)
+        shared_group = None
+        if shared_module is not None:
+            if not (isinstance(shared_module, Module) and shared_module.binded
+                    and shared_module.params_initialized):
+                raise AssertionError(
+                    "shared_module must be a bound, initialized Module")
+            shared_group = shared_module._exec_group
         self._exec_group = DataParallelExecutorGroup(
             self._symbol, self._context, self._data_shapes,
             self._label_shapes, self._param_names, for_training,
-            inputs_need_grad, logger=self.logger,
+            inputs_need_grad, shared_group=shared_group, logger=self.logger,
             fixed_param_names=self._fixed_param_names, grad_req=grad_req,
+            state_names=self._state_names,
             compute_dtype=self._compute_dtype,
             cast_exclude=tuple(self._label_names))
         self.binded = True
+        if shared_module is not None:
+            self._arg_params = shared_module._arg_params
+            self._aux_params = shared_module._aux_params
+            self.params_initialized = True
+            return
         if self._arg_params is None:
             # master copies, apart from the executor's arrays
             self._arg_params = {n: a[0].copy() for n, a in zip(
@@ -260,6 +318,19 @@ class Module(BaseModule):
                 self._aux_names, self._exec_group.aux_arrays)}
         if self.params_initialized:
             self._exec_group.set_params(self._arg_params, self._aux_params)
+
+    def reshape(self, data_shapes, label_shapes=None):
+        """Rebind for new input shapes, sharing the parameters
+        (reference: module.py reshape)."""
+        if not self.binded:
+            raise RuntimeError("bind the module first")
+        if self._fused_exec_update:
+            raise MXNetError("a module whose executor runs the fused "
+                             "optimizer step keeps its bound shapes; "
+                             "pad the batch instead")
+        self._data_shapes, self._label_shapes = _parse_data_desc(
+            self._data_names, self._label_names, data_shapes, label_shapes)
+        self._exec_group.reshape(self._data_shapes, self._label_shapes)
 
     def init_optimizer(self, kvstore="local", optimizer="sgd",
                        optimizer_params=(("learning_rate", 0.01),),
@@ -311,7 +382,8 @@ class Module(BaseModule):
         # executor's training forward (the fused step)
         self._fused_exec_update = False
         if kvstore is not None and kvstore.type == "tpu" \
-                and update_on_kvstore:
+                and update_on_kvstore \
+                and getattr(self, "_allow_exec_fusion", True):
             self._fused_exec_update = \
                 self._exec_group.execs[0].install_fused_update(
                     self._optimizer, param_names=self._exec_group.param_names)
@@ -320,15 +392,46 @@ class Module(BaseModule):
             self.load_optimizer_states(self._preload_opt_states)
             self._preload_opt_states = None
 
+    def borrow_optimizer(self, shared_module):
+        """Use ``shared_module``'s optimizer, kvstore and updater
+        (reference: module.py borrow_optimizer; BucketingModule)."""
+        if not shared_module.optimizer_initialized:
+            raise RuntimeError("the shared module has no optimizer yet")
+        for attr in ("_optimizer", "_kvstore", "_update_on_kvstore",
+                     "_updater"):
+            setattr(self, attr, getattr(shared_module, attr))
+        self.optimizer_initialized = True
+
     def forward(self, data_batch, is_train=None):
-        """Reference: module.py forward."""
+        """Reference: module.py forward.  A batch of other input shapes
+        (a bucket, a last partial batch) rebinds the executor first,
+        from the batch's ``provide_data``/``provide_label`` where it has
+        them."""
         if not (self.binded and self.params_initialized):
             raise RuntimeError("bind and initialise the module first")
+        curr = tuple(d.shape for d in self._data_shapes)
+        new = tuple(tuple(d.shape) for d in data_batch.data)
+        if curr != new:
+            new_dshape = getattr(data_batch, "provide_data", None) or \
+                [(d.name, shp) for d, shp in zip(self._data_shapes, new)]
+            new_lshape = getattr(data_batch, "provide_label", None)
+            if not new_lshape and getattr(data_batch, "label", None):
+                new_lshape = [(d.name, lab.shape) for d, lab in
+                              zip(self._label_shapes, data_batch.label)]
+            self.reshape(new_dshape, new_lshape or None)
         self._exec_group.forward(data_batch, is_train)
 
     def backward(self, out_grads=None):
         """Reference: module.py backward."""
         self._exec_group.backward(out_grads=out_grads)
+
+    def get_input_grads(self, merge_multi_context=True):
+        """The gradients of the data inputs (``inputs_need_grad``)."""
+        if not (self.binded and self.params_initialized
+                and self.inputs_need_grad):
+            raise RuntimeError("bind with inputs_need_grad=True first")
+        return self._exec_group.get_input_grads(
+            merge_multi_context=merge_multi_context)
 
     def update(self):
         """Apply the optimizer to the gradients (reference: module.py:631);

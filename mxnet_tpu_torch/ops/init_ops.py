@@ -92,3 +92,16 @@ def _shape_array(x, **attrs):
 @register("size_array")
 def _size_array(x, **attrs):
     return torch.full((1,), x.numel(), dtype=torch.int32, device=x.device)
+
+
+@register("_rnn_state_zeros")
+def _rnn_state_zeros(ref, shape=None, ref_batch_axis=0, **attrs):
+    """A zero initial RNN state whose dims equal to 0 in ``shape`` take
+    the batch dim of ``ref`` (axis ``ref_batch_axis``), so a symbolic
+    ``begin_state`` is shape-inferable from the data (the JAX package's
+    op, ``mxnet_tpu/ops/init_ops.py:59``)."""
+    b = ref.shape[int(ref_batch_axis)]
+    out_shape = tuple(b if int(d) == 0 else int(d)
+                      for d in normalize_tuple(shape))
+    return torch.zeros(out_shape, dtype=ref.dtype, device=ref.device)
+

@@ -478,6 +478,137 @@ def _dropout(data, p=0.5, mode="training", axes=(), __is_train__=False,
     return torch.where(mask, data / keep, 0.0).to(data.dtype)
 
 
+
+# -- RNN (fused multi-layer recurrent net) ----------------------------------
+_RNN_GATES = {"rnn_relu": 1, "rnn_tanh": 1, "lstm": 4, "gru": 3}
+
+
+def rnn_param_size(mode, num_layers, input_size, state_size, directions):
+    """Length of the packed parameter vector (reference: rnn-inl.h
+    GetRnnParamSize)."""
+    G, H, D = _RNN_GATES[mode], state_size, directions
+    size = 0
+    for layer in range(num_layers):
+        in_sz = input_size if layer == 0 else H * D
+        size += D * (G * H * in_sz + G * H * H)
+    return size + num_layers * D * 2 * G * H
+
+
+def rnn_unpack_params(params, mode, num_layers, input_size, state_size,
+                      directions):
+    """Views of the packed vector as torch's per-layer, per-direction
+    ``[w_ih, w_hh, b_ih, b_hh]`` list.  MXNet packs all weights first,
+    layer-major with the direction inside (W_i2h then W_h2h), then all
+    biases in the same order (``mxnet_tpu/ops/nn.py:557-577``); the
+    views keep the gradient flowing into the one packed tensor."""
+    G, H, D = _RNN_GATES[mode], state_size, directions
+    ws, off = [], 0
+    for layer in range(num_layers):
+        in_sz = input_size if layer == 0 else H * D
+        for _d in range(D):
+            wi = params[off:off + G * H * in_sz].view(G * H, in_sz)
+            off += G * H * in_sz
+            wh = params[off:off + G * H * H].view(G * H, H)
+            off += G * H * H
+            ws.append((wi, wh))
+    out = []
+    for wi, wh in ws:
+        bi = params[off:off + G * H]
+        off += G * H
+        bh = params[off:off + G * H]
+        off += G * H
+        out.extend([wi, wh, bi, bh])
+    return out
+
+
+def _rnn_nout(attrs):
+    if attrs.get("state_outputs", False):
+        return 3 if attrs.get("mode") == "lstm" else 2
+    return 1
+
+
+def _rnn_layers(mode, x, hx, weights, num_layers, bidirectional):
+    """torch's fused recurrent op over ``num_layers`` layers (cuDNN on
+    the card, torch's native kernels on the host); returns ``(y, h_n,
+    c_n or None)``."""
+    import warnings
+    fn = {"lstm": torch._VF.lstm, "gru": torch._VF.gru,
+          "rnn_tanh": torch._VF.rnn_tanh,
+          "rnn_relu": torch._VF.rnn_relu}[mode]
+    with warnings.catch_warnings():
+        # views of the packed vector are not cuDNN's flat buffer, so it
+        # compacts them at each call
+        warnings.filterwarnings("ignore", message=".*contiguous chunk.*")
+        # cuDNN keeps what its backward needs only in training mode
+        out = fn(x, hx if mode == "lstm" else hx[0], weights, True,
+                 num_layers, 0.0, torch.is_grad_enabled(), bidirectional,
+                 False)
+    if mode == "lstm":
+        return out[0], out[1], out[2]
+    return out[0], out[1], None
+
+
+@register("RNN", needs_is_train=True, needs_rng=True, num_outputs=_rnn_nout,
+          params=[
+    P("state_size", int, required=True, low=1),
+    P("num_layers", int, required=True, low=1),
+    P("mode", ("rnn_relu", "rnn_tanh", "lstm", "gru"), required=True),
+    P("bidirectional", bool, default=False),
+    P("p", float, default=0.0, low=0.0, high=1.0,
+      doc="dropout between stacked layers"),
+    P("state_outputs", bool, default=False)])
+def _rnn(data, params, state, state_cell=None, mode="lstm", state_size=None,
+         num_layers=1, bidirectional=False, p=0.0, state_outputs=False,
+         __is_train__=False, __rng__=None, **attrs):
+    """Fused multi-layer (bi)RNN (reference: src/operator/rnn-inl.h), as
+    ``mxnet_tpu/ops/nn.py:552-651`` computes it: ``data`` is (T, N, I),
+    time-major; the gates are LSTM's i, f, g, o and GRU's r, z, n with
+    ``r * (W_hn h + b_hn)``, torch's own forms, so the packed weights
+    go to torch's RNN (cuDNN on the card) as views.  Dropout ``p`` acts
+    between layers in training, its mask drawn from the device's
+    generator."""
+    T, N, I = data.shape
+    H = state_size
+    D = 2 if bidirectional else 1
+    if mode == "lstm" and state_cell is None:
+        state_cell = torch.zeros_like(state)
+    if data.device.type == "meta":
+        x = torch.empty((T, N, D * H), dtype=data.dtype, device="meta")
+        hs = torch.empty((num_layers * D, N, H), dtype=data.dtype,
+                         device="meta")
+        cs = hs
+    else:
+        weights = rnn_unpack_params(params, mode, num_layers, I, H, D)
+        per = 4 * D
+        drop = p > 0 and __is_train__ and num_layers > 1
+        if not drop:
+            hx = (state, state_cell) if mode == "lstm" else (state,)
+            x, hs, cs = _rnn_layers(mode, data, hx, weights, num_layers,
+                                    bidirectional)
+        else:
+            x, h_list, c_list = data, [], []
+            for layer in range(num_layers):
+                sl = slice(layer * D, (layer + 1) * D)
+                hx = (state[sl], state_cell[sl]) if mode == "lstm" \
+                    else (state[sl],)
+                x, h, c = _rnn_layers(mode, x, hx,
+                                      weights[layer * per:(layer + 1) * per],
+                                      1, bidirectional)
+                h_list.append(h)
+                c_list.append(c)
+                if layer < num_layers - 1:
+                    keep = 1.0 - p
+                    mask = torch.rand(x.shape, device=x.device,
+                                      generator=_rng(x.device, __rng__)) \
+                        < keep
+                    x = torch.where(mask, x / keep, 0.0).to(x.dtype)
+            hs = torch.cat(h_list, 0)
+            cs = torch.cat(c_list, 0) if mode == "lstm" else None
+    if state_outputs:
+        return (x, hs, cs) if mode == "lstm" else (x, hs)
+    return x
+
+
 def fused_bn_relu_eval(data, gamma, beta, moving_mean, moving_var,
                        eps=1e-3, fix_gamma=True, relu=True):
     """Inference BatchNorm(+ReLU) as one K3 pass over NCHW data: the

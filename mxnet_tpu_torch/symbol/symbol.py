@@ -59,6 +59,8 @@ def _op_input_names(op: OpDef, attrs):
         names.append("bias")
     if "trans" in op.sig.optional and not a.get("no_trans", False):
         names.append("trans")
+    if op.name == "RNN" and a.get("mode") == "lstm":
+        names.append("state_cell")
     if op.name == "LeakyReLU" and a.get("act_type") != "prelu" \
             and "gamma" in names:
         names.remove("gamma")
@@ -458,7 +460,8 @@ class Symbol:
         return self.bind(ctx, kwargs).forward()
 
     def simple_bind(self, ctx=None, grad_req="null", type_dict=None,
-                    compute_dtype=None, cast_exclude=(), **kwargs):
+                    compute_dtype=None, cast_exclude=(), shared_exec=None,
+                    **kwargs):
         """Allocate every argument, aux state and (for a ``grad_req`` of
         write or add: a string, a list in argument order or a dict) the
         gradient buffers from the inferred shapes, and bind (reference:
@@ -466,10 +469,13 @@ class Symbol:
 
         ``compute_dtype="bfloat16"`` turns on the executor's
         mixed-precision policy (fp32 masters, bf16 compute); the names in
-        ``cast_exclude`` (labels) stay fp32."""
+        ``cast_exclude`` (labels) stay fp32.  With ``shared_exec`` each
+        argument and aux state that it holds at the same shape is its
+        NDArray, shared."""
         from ..executor import Executor
         return Executor._simple_bind(self, ctx, grad_req, type_dict, kwargs,
-                                     compute_dtype, cast_exclude)
+                                     compute_dtype, cast_exclude,
+                                     shared_exec)
 
     # -- serialization ------------------------------------------------------
     def tojson(self):
@@ -809,6 +815,19 @@ def _bn_shapes(attrs, known):
             "moving_var": (c,)}
 
 
+def _rnn_shapes(attrs, known):
+    from ..ops.nn import rnn_param_size
+    d = known["data"]
+    L, H = attrs["num_layers"], attrs["state_size"]
+    D = 2 if attrs.get("bidirectional", False) else 1
+    mode = attrs.get("mode", "lstm")
+    out = {"params": (rnn_param_size(mode, L, d[2], H, D),),
+           "state": (L * D, d[1], H)}
+    if mode == "lstm":
+        out["state_cell"] = (L * D, d[1], H)
+    return out
+
+
 def _softmax_output_shapes(attrs, known):
     d = known["data"]
     if attrs.get("multi_output", False):
@@ -832,6 +851,7 @@ _PARAM_SHAPE_HOOKS = {
     "InstanceNorm": _in_shapes,
     "Embedding": _embed_shapes,
     "LeakyReLU": _prelu_shapes,
+    "RNN": _rnn_shapes,
 }
 
 

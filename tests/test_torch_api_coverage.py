@@ -30,19 +30,10 @@ MODULES = ("", "optimizer", "metric", "initializer", "lr_scheduler",
            "gluon.loss", "serving")
 
 DEFERRED = {
-    # queue 1 item 2: foundation (module/, io, model.FeedForward, the
-    # executor's telemetry)
+    # queue 1 item 2: foundation (the executor's telemetry and the
+    # compile cache)
     "queue 1 item 2": {
-        "io": {"CSVIter", "ImageDetRecordIter", "ImageRecordIter",
-               "LibSVMIter", "MNISTIter", "MXDataIter", "PrefetchingIter",
-               "ResizeIter"},
-        "model": {"FeedForward"},
-        "module": {"BucketingModule", "DataParallelExecutorGroup",
-                   "PythonLossModule", "PythonModule", "SequentialModule",
-                   "bucketing_module", "python_module",
-                   "sequential_module"},
-        "": {"executor_manager", "recordio", "image", "telemetry",
-             "compile_cache"},
+        "": {"telemetry", "compile_cache"},
     },
     # queue 1 item 3: gluon
     "queue 1 item 3": {
@@ -62,7 +53,6 @@ DEFERRED = {
                        "LogisticLoss", "SigmoidBCELoss",
                        "SigmoidBinaryCrossEntropyLoss", "SquaredHingeLoss",
                        "TripletLoss"},
-        "": {"rnn"},
     },
     # queue 1 item 5: serving
     "queue 1 item 5": {
@@ -84,8 +74,10 @@ DEFERRED = {
                     "is_server_node", "is_worker_node"},
         "": {"kvstore_server", "gradient_compression"},
     },
-    # queue 1 item 8: the long tail
+    # queue 1 item 8: the long tail (LibSVMIter yields a CSRNDArray,
+    # which comes with ndarray/sparse.py)
     "queue 1 item 8": {
+        "io": {"LibSVMIter"},
         "": {"CustomOp", "CustomOpProp", "operator", "contrib", "rtc",
              "test_utils", "th", "torch"},
     },
@@ -103,8 +95,15 @@ DEFERRED = {
     },
 }
 
-# the names this slice ported, none of which may be deferred
+# the names the last two slices ported, none of which may be deferred:
+# the training-loop API, then the data pipeline and the module family
 PORTED = {
+    "io": {"ResizeIter", "PrefetchingIter", "MNISTIter", "CSVIter",
+           "ImageRecordIter", "ImageDetRecordIter", "MXDataIter"},
+    "model": {"FeedForward"},
+    "module": {"BucketingModule", "SequentialModule", "PythonModule",
+               "PythonLossModule", "DataParallelExecutorGroup",
+               "bucketing_module", "sequential_module", "python_module"},
     "optimizer": {"ccSGD", "Signum", "FTML", "LBSGD", "DCASGD", "NAG",
                   "SGLD", "Test", "AdaGrad", "RMSProp", "AdaDelta", "Ftrl",
                   "Adamax", "Nadam"},
@@ -125,10 +124,11 @@ PORTED = {
     "name": {"Prefix"},
     "": {"Symbol", "Optimizer", "NameManager", "Prefix", "num_tpus",
          "__version__", "Monitor", "monitor", "viz", "visualization",
-         "misc", "registry", "log", "libinfo"},
+         "misc", "registry", "log", "libinfo", "recordio", "image", "rnn",
+         "executor_manager"},
 }
 
-# the port's modules that this slice added or extended
+# the port's modules that the last two slices added or extended
 NEW_MODULES = ("mxnet_tpu_torch.optimizer", "mxnet_tpu_torch.metric",
                "mxnet_tpu_torch.initializer", "mxnet_tpu_torch.lr_scheduler",
                "mxnet_tpu_torch.callback", "mxnet_tpu_torch.engine",
@@ -137,7 +137,13 @@ NEW_MODULES = ("mxnet_tpu_torch.optimizer", "mxnet_tpu_torch.metric",
                "mxnet_tpu_torch.monitor", "mxnet_tpu_torch.visualization",
                "mxnet_tpu_torch.misc", "mxnet_tpu_torch.registry",
                "mxnet_tpu_torch.log", "mxnet_tpu_torch.libinfo",
-               "mxnet_tpu_torch.executor", "mxnet_tpu_torch.module")
+               "mxnet_tpu_torch.executor", "mxnet_tpu_torch.module",
+               "mxnet_tpu_torch.io", "mxnet_tpu_torch.recordio",
+               "mxnet_tpu_torch.image", "mxnet_tpu_torch.rnn",
+               "mxnet_tpu_torch.model", "mxnet_tpu_torch.executor_manager",
+               "mxnet_tpu_torch.module.bucketing_module",
+               "mxnet_tpu_torch.module.sequential_module",
+               "mxnet_tpu_torch.module.python_module")
 
 
 def _module(root, sub):

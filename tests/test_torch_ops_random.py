@@ -29,9 +29,11 @@ import chip_smoke  # noqa: E402
 
 CPU = tmx.cpu()
 RANDOM_DRAWS = 200000
+# Dropout, LeakyReLU (rrelu) and RNN (between its layers) draw masks;
+# they are not samplers
 SAMPLERS = sorted(n for n, op in _OP_REGISTRY.items()
                   if op.needs_rng and op.name not in ("Dropout",
-                                                      "LeakyReLU"))
+                                                      "LeakyReLU", "RNN"))
 
 
 def test_the_sweep_holds_every_samplers_moments():

@@ -8,6 +8,7 @@ stands, on one NVIDIA GPU::
     python3 time_variants.py flash K7b    # ... only the variants named K7b*
     python3 time_variants.py flash_band   # phase 15's band over seeds
     python3 time_variants.py inception_serve [fits] [request sets]
+    python3 time_variants.py rnn_accuracy # the RNN op: cuDNN vs float64
 
 Each variant is ``mxnet_tpu_torch/ops/csrc/<source>.cu`` with a few lines
 replaced, compiled with the flags of ``ops/_build.py`` into
@@ -60,6 +61,14 @@ and knobs cuDNN ran for each convolution at each bucket (its debug log,
 ``CUDNN_LOGLEVEL_DBG=3``, a child process per bucket; the log's useful
 lines and the report go to ``mxnet_tpu_torch/_build/variants/
 inception_serve/``).
+
+``rnn_accuracy``: no variant and no timing; the ``RNN`` op's torch
+paths (``ops/nn.py`` ``_rnn_layers``) in fp32 against a float64 run on
+the CPU of the same weights, inputs and states (``RNN_ACCURACY``: the
+op table's small cases, the widths of phase 17's fused check, hidden 64
+and 128): cuDNN on the card (TF32 off), torch's own CUDA kernels on the
+card with cuDNN disabled, and the CPU; each as its largest |difference|
+over the largest output.
 
 Prints the compiler's register count of the main-path instances and the
 card's name and power limit.
@@ -919,6 +928,59 @@ def inception_serve_main(smi, dev, bw, flops, out_dir, trainings="4",
                                                      "report.json")))
 
 
+# (mode, layers, bidirectional, T, N, input, hidden): chip_smoke's RNN
+# op cases, phase 17's fused check at the LM's widths, and narrower cells
+RNN_ACCURACY = (("lstm", 2, True, 5, 3, 4, 6), ("gru", 1, False, 5, 3, 4, 6),
+                ("rnn_relu", 2, False, 5, 3, 4, 6),
+                ("lstm", 2, False, 60, 32, 200, 200),
+                ("gru", 2, False, 60, 32, 200, 200),
+                ("lstm", 2, True, 60, 32, 200, 200),
+                ("rnn_tanh", 2, True, 60, 32, 200, 200),
+                ("lstm", 2, False, 20, 16, 48, 64),
+                ("lstm", 2, False, 60, 32, 200, 128),
+                ("gru", 2, False, 20, 16, 48, 64))
+
+
+def rnn_accuracy_main(smi, dev, bw, flops, out_dir):
+    from mxnet_tpu_torch.ops.nn import (_rnn_layers, rnn_param_size,
+                                        rnn_unpack_params)
+    gen = torch.Generator().manual_seed(chip_smoke.SEED)
+    print("cuDNN %s, cudnn.allow_tf32 %s" % (
+        torch.backends.cudnn.version(), torch.backends.cudnn.allow_tf32))
+    for mode, layers, bi, t, n, i, h in RNN_ACCURACY:
+        d = 2 if bi else 1
+        lim = 1.0 / h ** 0.5        # torch's default RNN initialisation
+
+        def u(*shape, scale=1.0):
+            return (torch.rand(shape, generator=gen, dtype=torch.float64)
+                    * 2 - 1) * scale
+
+        p = u(rnn_param_size(mode, layers, i, h, d), scale=lim)
+        x, h0, c0 = u(t, n, i), u(layers * d, n, h, scale=0.5), \
+            u(layers * d, n, h, scale=0.5)
+        hx = (h0, c0) if mode == "lstm" else (h0,)
+
+        def run(device, dtype):
+            pp = p.to(device, dtype)
+            return _rnn_layers(mode, x.to(device, dtype),
+                               tuple(s.to(device, dtype) for s in hx),
+                               rnn_unpack_params(pp, mode, layers, i, h, d),
+                               layers, bi)[0].double().cpu()
+
+        ref = run("cpu", torch.float64)
+        errs = {}
+        for name, device, cudnn in (("cpu_fp32", "cpu", True),
+                                    ("cudnn_fp32", dev, True),
+                                    ("native_cuda_fp32", dev, False)):
+            with torch.backends.cudnn.flags(enabled=cudnn,
+                                            allow_tf32=False):
+                y = run(device, torch.float32)
+            errs[name] = float((y - ref).abs().max() / ref.abs().max())
+        print("RNN %s layers %d bidirectional %s (T %d, N %d, input %d, "
+              "hidden %d): %s" % (mode, layers, bi, t, n, i, h, ", ".join(
+                  "%s %.3g" % kv for kv in errs.items())), flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("time_variants: needs an NVIDIA GPU", file=sys.stderr)
@@ -927,10 +989,12 @@ def main():
     source = sys.argv[1] if len(sys.argv) > 1 else "softmax"
     runner = {"softmax": softmax_main, "layernorm": layernorm_main,
               "flash": flash_main, "flash_band": flash_band_main,
-              "inception_serve": inception_serve_main}.get(source)
+              "inception_serve": inception_serve_main,
+              "rnn_accuracy": rnn_accuracy_main}.get(source)
     if runner is None:
         print("time_variants: the source is softmax, layernorm, flash, "
-              "flash_band or inception_serve, not %r" % source,
+              "flash_band, inception_serve or rnn_accuracy, not %r"
+              % source,
               file=sys.stderr)
         return 2
     smi = card_name()
