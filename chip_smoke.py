@@ -13,17 +13,24 @@ Phases, each of which raises on failure:
    ``mxnet_tpu_torch/ops/csrc`` (one ``nvcc`` per source, all at once);
    then ``cuobjdump -sass`` of the flash library counts the bf16
    tensor-core instructions (``HMMA.16816.F32.BF16``) of the bf16 D-64
-   instances of K7a, K7b and K7c, which must not be 0;
+   instances of K7a, K7b and K7c, and that of the softmax library the
+   128-bit global loads (``LDG.E.128``) and the cluster's instructions
+   (``STAS``, ``SYNCS.PHASECHK``, ``UCGABAR``) of K2's wide-row instances
+   at C 10000 (fp32 and bf16), none of which may be 0;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes a batch-32 ResNet-50 forward gives it.  K3 (BatchNorm->ReLU
    epilogue) must be bitwise equal at all 33 fused sites, fp32 and bf16,
    relu on and off; K2 (softmax) within 1e-6 in fp32 and 1e-2 in bf16,
    rows summing to 1, at the serving buckets of 32, 8 and 1 rows and at
-   the edges of its layouts (C 1, 999, 1024, 1025, 4097).  Each is timed
+   the edges of its layouts (C 1, 999, 1024, 1025, 4097; past 1024
+   columns ``K2_WIDE_CASES``: one CTA a row, a cluster a row, scalar
+   loads, the streaming form), and a NaN in one row reaching that whole
+   row and no other (``K2_NAN_CASES``).  Each is timed
    beside its plain version, the one PyTorch call that computes the same
    function where there is one, and the least time the card could take
    (bytes over HBM rate, operations over the fp32 rate); K2 also at
-   (96 x 1024, 1024), where bytes and not the launch bound it;
+   (96 x 1024, 1024), where bytes and not the launch bound it, and at
+   the wide rows of ``K2_WIDE_TIMED``;
 4. serving (the main path): full-width ResNet-50 v1 with random weights
    from a seed (the classifier scaled so the logits are O(1), see
    ``calibrate_fc``), served by ``ModelServer`` (buckets 1..32): warmup of
@@ -223,9 +230,11 @@ Phases, each of which raises on failure:
    falling, a step in bucket 60 read bitwise by bucket 10's executor
    (the same arrays), and ``FusedRNNCell`` (the ``RNN`` op, cuDNN)
    against its ``unfuse()``d cells within ``FUSED_TOL`` (an LSTM, a GRU
-   and a bidirectional LSTM, each at the model's widths and T 60).  (c) K2 at (320,
-   10000) and (1920, 10000) against its plain version, timed beside
-   ``torch.softmax`` and its bound;
+   and a bidirectional LSTM, each at the model's widths and T 60).  (c)
+   K2 at (320, 10000) and (1920, 10000) against its plain version, timed
+   beside ``torch.softmax``, its bound and K2 as the parent commit had it
+   past 1024 columns (the strided form, built by ``time_variants.py`` as
+   a variant of ``softmax.cu``);
 then every kernel's device time by the profiler (K6b's with the L2 cache
 overwritten before each launch; the bf16 instances of K3, K6a, K6b,
 K7a, K7b and K7c that phase 15 launches beside their plain versions,
@@ -242,7 +251,9 @@ Prints one JSON line ``{"checkpoints": {...}}`` with phase 13's numbers,
 ``launches_inception``, K1b, K2, K3, K6a, K6b, K7a, K7b and K7c with
 their ``launches_mixed``, K2 and K3 with their
 ``launches_training_loop``, K1b, K2 and K3 with their
-``launches_data_pipeline``, K2 with its ``lm`` jobs, K3,
+``launches_data_pipeline``, K2 with its ``lm`` jobs (the parent's
+strided form's times beside them) and its wide rows' SASS counts
+(``sass_wide``), K3,
 K6a, K7b and K7c with their ``bf16``
 times, K7a, K7b and K7c with the ``HMMA.16816.F32.BF16`` count of their
 bf16 D-64 instances (``hmma_bf16_dp64``), K6b's fp32 and bf16 repeats beside
@@ -1243,6 +1254,20 @@ HMMA_KERNELS = (("K7a", "flash_fwd_bf16_kernelILi64E"),
                 ("K7c", "flash_bwd_dkv_bf16_kernelILi64E"))
 
 
+# K2's wide-row instances at C 10000 (fp32: 16 values a thread in four
+# 16-byte chunks; bf16: two chunks of eight), and the SASS they must hold:
+# 128-bit global loads; the cluster's st.async of the partial max and sum
+# into the other CTAs' shared memory (STAS), the mbarrier waits that
+# count them in (SYNCS.PHASECHK) and the cluster barrier (barrier.cluster
+# arrive and wait) that finds every CTA's mbarriers ready first
+K2_WIDE_KERNELS = (("fp32", "softmax_rows_onchip_kernelIfLi16ELi4EE"),
+                   ("bf16",
+                    "softmax_rows_onchip_kernelI13__nv_bfloat16Li16ELi8EE"))
+K2_WIDE_SASS = (("ldg_e128", "LDG.E.128"), ("st_async", "STAS"),
+                ("mbarrier_wait", "SYNCS.PHASECHK"),
+                ("cluster_barrier", "UCGABAR"))
+
+
 def sass_counts(library, opcode, cuobjdump):
     """``{mangled function name: lines of its SASS that hold
     ``opcode``}`` of a built shared library, by ``cuobjdump -sass``."""
@@ -1259,22 +1284,27 @@ def sass_counts(library, opcode, cuobjdump):
     return counts
 
 
-def hmma_counts(build):
-    """The ``HMMA.16816.F32.BF16`` count of each function in
-    ``HMMA_KERNELS`` in the built flash library (``build`` is the
-    package's ``ops._build``); raises if ``cuobjdump`` is missing, a
-    function is not in the library, or a count is 0."""
+def _cuobjdump(build):
+    """The CUDA toolkit's ``cuobjdump`` (PATH, or beside ``nvcc``)."""
     import shutil
     nvcc_dir = os.path.dirname(build.nvcc_path())
     cuobjdump = shutil.which("cuobjdump") or os.path.join(nvcc_dir,
                                                           "cuobjdump")
     if not os.path.exists(cuobjdump):
         raise AssertionError("cuobjdump not found (PATH, %s): the CUDA "
-                             "toolkit's SASS dump shows the tensor cores run"
-                             % nvcc_dir)
+                             "toolkit's SASS dump shows what the kernels "
+                             "run" % nvcc_dir)
+    return cuobjdump
+
+
+def hmma_counts(build):
+    """The ``HMMA.16816.F32.BF16`` count of each function in
+    ``HMMA_KERNELS`` in the built flash library (``build`` is the
+    package's ``ops._build``); raises if ``cuobjdump`` is missing, a
+    function is not in the library, or a count is 0."""
     counts = sass_counts(os.path.join(build.BUILD_DIR,
                                       "libmxtt_flash_attention.so"),
-                         HMMA_BF16, cuobjdump)
+                         HMMA_BF16, _cuobjdump(build))
     out = {}
     for knum, frag in HMMA_KERNELS:
         names = [n for n in counts if frag in n]
@@ -1284,6 +1314,28 @@ def hmma_counts(build):
                 "be one function with a count above 0)" % (
                     knum, names, HMMA_BF16, [counts[n] for n in names]))
         out[knum] = {"function": names[0], "count": counts[names[0]]}
+    return out
+
+
+def k2_wide_counts(build):
+    """``{dtype: {"function": name, <key>: count for each key of
+    K2_WIDE_SASS}}`` for each of ``K2_WIDE_KERNELS`` in the built softmax
+    library; raises if a function is missing or a count is 0."""
+    library = os.path.join(build.BUILD_DIR, "libmxtt_softmax.so")
+    counts = {key: sass_counts(library, opcode, _cuobjdump(build))
+              for key, opcode in K2_WIDE_SASS}
+    out = {}
+    for dtype, frag in K2_WIDE_KERNELS:
+        names = [n for n in counts["ldg_e128"] if frag in n]
+        if len(names) != 1 or not all(counts[key][names[0]] > 0
+                                       for key, _ in K2_WIDE_SASS):
+            raise AssertionError(
+                "K2's %s wide-row instance: functions %s, counts %s (must "
+                "be one function, each count above 0)" % (
+                    dtype, names, {key: [counts[key][n] for n in names]
+                                   for key, _ in K2_WIDE_SASS}))
+        out[dtype] = dict({key: counts[key][names[0]]
+                           for key, _ in K2_WIDE_SASS}, function=names[0])
     return out
 
 
@@ -1349,6 +1401,21 @@ def check_k3(ck, sites, dev, bw, flops):
     }, list(jobs.values())
 
 
+# K2 past 1024 columns, checked in both dtypes (rows, C), scale: the
+# bucketed LM's logits (one CTA a row), a 32-row batch (clusters of 4), one
+# row (a cluster of 8), C 10001 (scalar loads), (2, 50257) (scalar, a
+# cluster of 8), (2, 300000) (past what eight CTAs hold: the streaming
+# form), logits x1e4
+K2_WIDE_CASES = (((320, 10000), 3.0), ((1920, 10000), 3.0),
+                 ((32, 10000), 3.0), ((1, 10000), 3.0), ((7, 10001), 1.0),
+                 ((2, 50257), 1.0), ((2, 300000), 1.0), ((32, 10000), 1e4))
+# a NaN in row 1 of these, on each form
+K2_NAN_CASES = ((4, 1000), (320, 10000), (32, 10000), (2, 300000))
+# wide rows timed beside the LM's (counted 0 times): a 32-row batch and
+# one row (clusters), GPT-2's vocabulary (2 rows), the streaming form
+K2_WIDE_TIMED = ((32, 10000), (1, 10000), (2, 50257), (2, 300000))
+
+
 def check_k2(ck, dev, bw, flops, rows):
     """K2 against its plain version at the serving shape and at the edges
     of its layouts, fp32 within 1e-6 and bf16 within one rounding: below
@@ -1356,11 +1423,14 @@ def check_k2(ck, dev, bw, flops, rows):
     8 rows, C 1, 100, 256, 500, 999, 1000 and 1024); from 1024 rows one
     warp a row with 4, 8, 16 or 32 values a lane, each with vector loads
     (C 100, 256, 500 and 512, 1000, 1024) and scalar ones (C 99, 255, 511,
-    999); past 1024 columns the strided loop (1025, 4097); logits x1e4.
-    Returns its record and its timing jobs: ``(rows, 1000)`` fp32, the one
-    a forward runs, and, counted 0 times, unmasked attention probabilities
-    (96 x 1024, 1024) fp32, a shape bound by bytes rather than by the
-    launch, held to its plain version before it is timed."""
+    999); past 1024 columns the row on chip (``K2_WIDE_CASES``: one CTA a
+    row, a cluster a row, scalar loads, the streaming form past what eight
+    CTAs hold); logits x1e4; a NaN in one row (that row NaN, the others
+    held).  Returns its record and its timing jobs: ``(rows, 1000)`` fp32,
+    the one a forward runs, and, counted 0 times, unmasked attention
+    probabilities (96 x 1024, 1024) fp32, a shape bound by bytes rather
+    than by the launch, and the wide rows of ``K2_WIDE_TIMED``, each held
+    to its plain version before it is timed."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     worst = 0.0
 
@@ -1386,13 +1456,33 @@ def check_k2(ck, dev, bw, flops, rows):
              ((1024, 100), 1.0), ((1024, 99), 1.0), ((1024, 256), 1.0),
              ((1024, 255), 1.0), ((1500, 500), 1.0), ((1500, 512), 1.0),
              ((1024, 511), 1.0), ((2048, 1000), 1.0), ((1024, 999), 1.0),
-             ((1024, 1024), 1.0))
+             ((1024, 1024), 1.0)) + K2_WIDE_CASES
     for shape, scale in cases:
         x32 = torch.randn(shape, generator=gen, device=dev) * scale
         for dt in (torch.float32, torch.bfloat16):
             worst = max(worst, held(x32.to(dt), "%s x%g" % (shape, scale)))
+    for shape in K2_NAN_CASES:
+        x32 = torch.randn(shape, generator=gen, device=dev)
+        x32[1, shape[1] * 2 // 3] = float("nan")
+        keep = torch.arange(shape[0], device=dev) != 1
+        for dt in (torch.float32, torch.bfloat16):
+            x = x32.to(dt)
+            y = ck.softmax_lastaxis(x).float()
+            ref = ck.softmax_lastaxis_ref(x).float()
+            torch.cuda.synchronize()
+            nan = int(torch.isnan(y[1]).sum())
+            y, ref = y[keep], ref[keep]
+            err = (y - ref).abs().max().item()
+            if not (nan == shape[1] and bool(torch.isfinite(y).all()) and (
+                    err <= 1e-6 if dt == torch.float32
+                    else _bf16_close(y, ref, 1e-6))):
+                raise AssertionError(
+                    "K2 at %s %s with a NaN in row 1: %d of its %d values "
+                    "NaN; the other rows max |d| %g" % (
+                        shape, dt, nan, shape[1], err))
     jobs = []
-    for shape, count in (((rows, 1000), 1), ((96 * 1024, 1024), 0)):
+    for shape, count in (((rows, 1000), 1), ((96 * 1024, 1024), 0)) + tuple(
+            (shape, 0) for shape in K2_WIDE_TIMED):
         x = torch.randn(shape, generator=gen, device=dev)
         worst = max(worst, held(x, "%s (timed)" % (shape,)))
         b = bound_ms(2 * x.numel() * 4, 5 * x.numel(), bw, flops)
@@ -1551,8 +1641,10 @@ def serve(mx, ck, ctx, sym, image, n_sites, max_batch=BATCH,
 # the kernels of softmax.cu by fragments of their names as the profiler
 # prints them ("void (anonymous namespace)::softmax_regs_kernel<float, 32,
 # 4, 1>(...)"): K5b's softmax_bwd_{regs,rows}_kernel, K5a's
-# bias_softmax_{regs,rows}_kernel, K2's softmax_{regs,rows}_kernel; the
-# leading "::" keeps each kind's fragments out of the others' names
+# bias_softmax_{regs,rows}_kernel, K2's softmax_regs_kernel and
+# softmax_rows_{onchip,stream}_kernel (and the parent commit's strided
+# softmax_rows_kernel); the leading "::" keeps each kind's fragments out
+# of the others' names
 SOFTMAX_KINDS = (("K5b", ("::softmax_bwd_",)), ("K5a", ("::bias_softmax_",)),
                  ("K2", ("::softmax_regs_", "::softmax_rows_")))
 
@@ -4927,40 +5019,50 @@ def fused_vs_unrolled(mx, ctx, mode, bidirectional, layers, hidden, embed,
                 pack_unrolled(ugrads, mode, layers, bidirectional, prefix))}
 
 
-def check_k2_lm(ck, dev, bw, flops, shapes=K2_LM_SHAPES):
+def k2_lm_deviation(what, shape, y, ref):
+    """``y``'s |difference| from ``ref`` (absolute, and over the largest
+    probability) and its rows' distance from summing to 1; raises past
+    ``K2_LM_TOL`` or on a value that is not finite."""
+    err = (y - ref).abs().max().item()
+    rel = err / ref.abs().max().item()
+    total = (y.sum(-1) - 1).abs().max().item()
+    if not (rel <= K2_LM_TOL and total <= K2_LM_TOL
+            and bool(torch.isfinite(y).all())):
+        raise AssertionError("%s at %s: max |d| %g (%g of the largest; "
+                             "limit %g), row sums off by %g"
+                             % (what, shape, err, rel, K2_LM_TOL, total))
+    return {"max_abs_err": err, "max_rel": rel, "row_sum_err": total}
+
+
+def check_k2_lm(ck, dev, bw, flops, parent, shapes=K2_LM_SHAPES):
     """K2 at the LM's logits against its plain version (fp32, within
     ``K2_LM_TOL`` of the largest probability, rows summing to 1 within
     it) on logits from a seed: ``(worst, jobs)``, each job with its
     |difference|, its bound (bytes: read once, written once) and the
-    three functions to time."""
+    four functions to time: the kernel, its plain version, torch.softmax
+    and ``parent(x)``, K2 as the parent commit had it past 1024 columns
+    (a call from ``time_variants.k2_call``, held to the same band)."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 17)
     worst, jobs = 0.0, []
     for shape in shapes:
         x = torch.randn(shape, generator=gen, device=dev) * 3
-        y = ck.softmax_lastaxis(x)
         ref = ck.softmax_lastaxis_ref(x)
-        err = (y - ref).abs().max().item()
-        rel = err / ref.abs().max().item()
-        total = (y.sum(-1) - 1).abs().max().item()
-        if not (rel <= K2_LM_TOL and total <= K2_LM_TOL
-                and bool(torch.isfinite(y).all())):
-            raise AssertionError("K2 at %s: max |d| %g (%g of the largest; "
-                                 "limit %g), row sums off by %g"
-                                 % (shape, err, rel, K2_LM_TOL, total))
-        worst = max(worst, err)
+        job = k2_lm_deviation("K2", shape, ck.softmax_lastaxis(x), ref)
+        k2_lm_deviation("the parent's K2", shape, parent(x)(), ref)
+        worst = max(worst, job["max_abs_err"])
         b = bound_ms(2 * x.numel() * 4, 5 * x.numel(), bw, flops)
-        jobs.append({"shape": shape, "max_abs_err": err, "max_rel": rel,
-                     "row_sum_err": total, "bound_ms": b[0],
-                     "bound_by": b[1], "fns": {
-                         "": lambda x=x: ck.softmax_lastaxis(x),
-                         "plain_": lambda x=x: ck.softmax_lastaxis_ref(x),
-                         "library_": lambda x=x: torch.softmax(x, -1)}})
+        jobs.append(dict(job, shape=shape, bound_ms=b[0], bound_by=b[1],
+                         fns={"": lambda x=x: ck.softmax_lastaxis(x),
+                              "plain_": lambda x=x: ck.softmax_lastaxis_ref(
+                                  x),
+                              "library_": lambda x=x: torch.softmax(x, -1),
+                              "parent_": parent(x)}))
     return worst, jobs
 
 
 def time_k2_lm(jobs, key, timer):
     for job in jobs:
-        for pre in ("", "plain_", "library_"):
+        for pre in ("", "plain_", "library_", "parent_"):
             job[pre + key] = timer(job["fns"][pre])
 
 
@@ -5005,6 +5107,11 @@ def main():
           "%s" % (HMMA_BF16, "; ".join(
               "%s %s: %d" % (k, v["function"], v["count"])
               for k, v in hmma.items())), flush=True)
+    sass_wide = k2_wide_counts(_build)
+    print("K2 past 1024 columns: cuobjdump -sass of libmxtt_softmax.so: %s"
+          % "; ".join("%s %s: %s" % (dtype, v["function"], ", ".join(
+              "%s %d" % (op, v[key]) for key, op in K2_WIDE_SASS))
+              for dtype, v in sass_wide.items()), flush=True)
 
     # 3. kernels against their plain versions
     sym = resnet_symbol(LAYERS, IMAGE)
@@ -5014,14 +5121,20 @@ def main():
                              "in ResNet-50 v1; expected 33" % len(sites))
     k3, k3_jobs = check_k3(ck, sites, dev, bw, flops)
     k2, k2_jobs = check_k2(ck, dev, bw, flops, BATCH)
+    k2["sass_wide"] = sass_wide
     for rec, jobs in ((k3, k3_jobs), (k2, k2_jobs)):
         time_jobs(rec, jobs, "call_ms", time_ms)
     print("kernels checked: K3 bitwise equal at %d sites x fp32/bf16 x "
           "relu on/off; K2 within 1e-6 (fp32) and one bf16 rounding at "
           "(%d, 1000), (1, 1000), (8, 1000), (7, 1), C 100/256/500 at 6 rows, "
           "(3, 1024), (3, 1025), (5, 999), (5, 4097), logits x1e4, "
-          "C 99/100/255/256/511/512/999/1000/1024 at 1024-2048 rows and "
-          "the timed (98304, 1024)" % (len(sites), BATCH), flush=True)
+          "C 99/100/255/256/511/512/999/1000/1024 at 1024-2048 rows, "
+          "past 1024 columns %s, a NaN in one row of %s, and the timed "
+          "(98304, 1024) and %s" % (
+              len(sites), BATCH, ", ".join("%s x%g" % c
+                                          for c in K2_WIDE_CASES),
+              ", ".join(map(str, K2_NAN_CASES)),
+              ", ".join(map(str, K2_WIDE_TIMED))), flush=True)
 
     # 4. the serving path
     res = serve(mx, ck, mx.gpu(0), sym, IMAGE, len(sites))
@@ -5845,7 +5958,12 @@ def main():
                                  f["param_grad"])) for f in fused17],
              lm17["seconds"]), flush=True)
     lm17_batch = _bucket_batch(mx, mx.gpu(0), bucket_it, max(BUCKET_KEYS))
-    k2_lm_err, k2_lm_jobs = check_k2_lm(ck, dev, bw, flops)
+    import time_variants
+    parent_k2 = time_variants.k2_parent_library(
+        os.path.join(_build.BUILD_DIR, "variants"))
+    k2_lm_err, k2_lm_jobs = check_k2_lm(
+        ck, dev, bw, flops,
+        lambda x: time_variants.k2_call(parent_k2, x))
     time_k2_lm(k2_lm_jobs, "call_ms", time_ms)
     k2["launches_data_pipeline"] = {
         "records_fit": rec17["calls"]["softmax_lastaxis"],
@@ -5965,14 +6083,15 @@ def main():
                       else ""))
     for job in k2_lm_jobs:
         print("K2 %s (the bucketed LM's logits, %.1f launches a step) "
-              "device: kernel %.4f ms, plain %.4f ms, torch.softmax %.4f ms, "
-              "bound %.4f ms (%s); per call: kernel %.4f ms, plain %.4f ms, "
-              "torch.softmax %.4f ms" % (
+              "device: kernel %.4f ms, the parent's strided form %.4f ms, "
+              "plain %.4f ms, torch.softmax %.4f ms, bound %.4f ms (%s); "
+              "per call: kernel %.4f ms, the parent's %.4f ms, plain %.4f "
+              "ms, torch.softmax %.4f ms" % (
                   job["shape"], k2["launches_data_pipeline"][
-                      "bucketed_lm_per_step"], job["ms"], job["plain_ms"],
-                  job["library_ms"], job["bound_ms"], job["bound_by"],
-                  job["call_ms"], job["plain_call_ms"],
-                  job["library_call_ms"]))
+                      "bucketed_lm_per_step"], job["ms"], job["parent_ms"],
+                  job["plain_ms"], job["library_ms"], job["bound_ms"],
+                  job["bound_by"], job["call_ms"], job["parent_call_ms"],
+                  job["plain_call_ms"], job["library_call_ms"]))
     for job in k3_jobs:
         print("K3 %-20s x%-2d device: kernel %.4f ms, plain %.4f ms, bound "
               "%.4f ms; per call: kernel %.4f ms, plain %.4f ms"
@@ -6054,7 +6173,8 @@ def main():
                         "repeats_timer",
                         "library_note", "tflops", "hmma_bf16_dp64",
                         "bound_note", "bound_cuda_cores_ms",
-                        "bound_cuda_cores_by", "extra") if x in rec)}
+                        "bound_cuda_cores_by", "sass_wide", "extra")
+            if x in rec)}
         for rec, _ in recs]}))
     print("serving on %s: ResNet-50 v1 fp32, buckets %s, warmup %.1f s; "
           "%d requests (%d rows) from %d clients in %.3f s: %.2f req/s, "

@@ -208,7 +208,10 @@ def softmax_lastaxis(x):
     any shape (rows = the product of the leading dims), output in x's
     dtype.  Rows of up to 1024 columns are read once into registers (one
     row a block of up to 8 warps below 1024 rows, one warp a row from
-    there on); wider rows take a strided three-pass loop."""
+    there on); wider rows are read once into the registers of one CTA a
+    row, or of a cluster of 2-8 CTAs where the rows are too few to fill
+    the card or a row does not fit in one CTA; rows past what eight CTAs
+    hold (262,144 columns) take a streaming form that reads x twice."""
     if x.dim() < 1:
         raise MXNetError("softmax_lastaxis: x needs at least one dim")
     if x.device.type != "cuda":

@@ -71,10 +71,15 @@ def _bf16_close(got, ref, atol):
 
 # Below 1024 rows one row a block of 1, 2, 4 or 8 warps: (1, 1000) and
 # (8, 1000) are serving buckets, 1024 the widest row held in registers,
-# 1025 the first of the strided loop, 999 and 33 take scalar loads.  From
-# 1024 rows one warp a row with 4, 8, 16 or 32 values a lane, each with
-# vector loads (C 100, 256, 500 and 512, 1000, 1024; bf16 C 500 scalar)
-# and with scalar ones (C 99, 255, 511, 999).
+# 999 and 33 take scalar loads.  From 1024 rows one warp a row with 4, 8,
+# 16 or 32 values a lane, each with vector loads (C 100, 256, 500 and
+# 512, 1000, 1024; bf16 C 500 scalar) and with scalar ones (C 99, 255,
+# 511, 999).  Past 1024 columns the row on chip: 1025 (scalar) and 4097
+# (scalar, a cluster of 4 for 5 rows), the bucketed LM's (320, 10000)
+# and (1920, 10000) (one CTA a row), (32, 10000) (clusters of 4), (1,
+# 10000) (a cluster of 8), (7, 10001) (scalar loads), (2, 50257) (scalar,
+# a cluster of 8 CTAs of 800 threads), logits x1e4; (2, 300000) is past
+# what eight CTAs hold and takes the streaming form.
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,scale", [((32, 1000), 1.0), ((7, 1), 1.0),
                                          ((5, 4097), 1.0), ((3, 2, 33), 1.0),
@@ -91,7 +96,15 @@ def _bf16_close(got, ref, atol):
                                          ((1024, 511), 1.0),
                                          ((2048, 1000), 1.0),
                                          ((1024, 999), 1.0),
-                                         ((1024, 1024), 1.0)])
+                                         ((1024, 1024), 1.0),
+                                         ((320, 10000), 3.0),
+                                         ((1920, 10000), 3.0),
+                                         ((32, 10000), 3.0),
+                                         ((1, 10000), 3.0),
+                                         ((7, 10001), 1.0),
+                                         ((2, 50257), 1.0),
+                                         ((2, 300000), 1.0),
+                                         ((32, 10000), 1e4)])
 def test_k2_kernel_matches_plain(cuda, shape, scale, dtype):
     """fp32 within 1e-6, bf16 within one rounding of the magnitude."""
     x = torch.from_numpy((np.random.RandomState(41).randn(*shape) * scale)
@@ -107,6 +120,28 @@ def test_k2_kernel_matches_plain(cuda, shape, scale, dtype):
         assert _bf16_close(y, ref, 1e-6)
     assert (y.float().sum(-1) - 1).abs().max().item() <= \
         (1e-5 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4, 1000), (320, 10000), (32, 10000),
+                                   (2, 50257), (2, 300000)])
+def test_k2_kernel_spreads_a_nan_over_its_row_only(cuda, shape, dtype):
+    """A NaN anywhere in a row makes that whole row NaN, as the plain
+    version's does, on every form (one CTA a row, a cluster a row, the
+    streaming form); the other rows stay as the plain version has them."""
+    x = torch.from_numpy(np.random.RandomState(43).randn(*shape)
+                         .astype(np.float32)).to(cuda, dtype)
+    x[1, shape[1] * 2 // 3] = float("nan")
+    y = ck.softmax_lastaxis(x)
+    ref = ck.softmax_lastaxis_ref(x)
+    torch.cuda.synchronize()
+    assert torch.isnan(y[1]).all() and torch.isnan(ref[1]).all()
+    keep = torch.arange(shape[0], device=cuda) != 1
+    assert torch.isfinite(y[keep]).all()
+    if dtype == torch.float32:
+        assert (y[keep] - ref[keep]).abs().max().item() <= 1e-6
+    else:
+        assert _bf16_close(y[keep], ref[keep], 1e-6)
 
 
 def test_kernels_raise_on_what_they_do_not_take(cuda):
@@ -697,6 +732,19 @@ def test_k7a_k7b_k7c_bf16_instances_run_on_the_tensor_cores(cuda):
     counts = chip_smoke.hmma_counts(_build)
     assert set(counts) == {"K7a", "K7b", "K7c"}
     assert all(c["count"] > 0 for c in counts.values())
+
+
+def test_k2_wide_instances_load_128_bits_and_use_the_cluster(cuda):
+    """The built library's wide-row K2 instances at C 10000 (fp32 and
+    bf16) hold 128-bit global loads and the cluster's st.async, mbarrier
+    waits and barrier (``cuobjdump -sass``)."""
+    from mxnet_tpu_torch.ops import _build
+    ck.softmax_lastaxis(torch.zeros(2, 10000, device=cuda))  # builds it
+    torch.cuda.synchronize()
+    counts = chip_smoke.k2_wide_counts(_build)
+    assert set(counts) == {"fp32", "bf16"}
+    assert all(c[key] > 0 for c in counts.values()
+               for key, _ in chip_smoke.K2_WIDE_SASS)
 
 
 # fp32: the row dot runs in another order than torch's sum, so dx agrees

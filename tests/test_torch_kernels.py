@@ -137,7 +137,11 @@ def test_k3_wrapper_rejects_bad_scale():
 # K2: last-axis softmax
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("shape,scale", [((4, 1000), 1.0), ((3, 7), 1.0),
-                                         ((4, 1000), 1e4), ((7, 1), 1.0)])
+                                         ((4, 1000), 1e4), ((7, 1), 1.0),
+                                         ((3, 1025), 1.0), ((4, 10000), 3.0),
+                                         ((4, 10000), 1e4),
+                                         ((3, 10001), 1.0),
+                                         ((1, 65537), 1.0)])
 def test_k2_plain_matches_jax_fused_bias_softmax(shape, scale):
     rng = np.random.RandomState(12)
     x = (rng.randn(*shape) * scale).astype(np.float32)
@@ -522,6 +526,12 @@ _SOFTMAX_KERNEL_NAMES = [
      "(__nv_bfloat16 const*, __nv_bfloat16*, long, int)", "K2"),
     ("void (anonymous namespace)::softmax_rows_kernel<float>(float const*, "
      "float*, long, long)", "K2"),
+    ("void (anonymous namespace)::softmax_rows_onchip_kernel<float, 16, 4>"
+     "(float const*, float*, long, int, int)", "K2"),
+    ("void (anonymous namespace)::softmax_rows_onchip_kernel<__nv_bfloat16, "
+     "32, 1>(__nv_bfloat16 const*, __nv_bfloat16*, long, int, int)", "K2"),
+    ("void (anonymous namespace)::softmax_rows_stream_kernel<float, 4>"
+     "(float const*, float*, long)", "K2"),
     ("void (anonymous namespace)::bias_softmax_regs_kernel<float, 32, 4, 1>"
      "(float const*, float const*, float*, long, long, int)", "K5a"),
     ("void (anonymous namespace)::bias_softmax_regs_kernel<__nv_bfloat16, 4, "
@@ -612,8 +622,8 @@ def test_chip_smoke_profile_kinds_tell_the_softmax_kernels_apart(name, kind,
 
 
 @pytest.mark.parametrize("source,table", [
-    ("softmax", "SOFTMAX_VARIANTS"), ("layernorm", "LAYERNORM_VARIANTS"),
-    ("flash_attention", "FLASH_VARIANTS")])
+    ("softmax", "SOFTMAX_VARIANTS"), ("softmax", "K2_WIDE_VARIANTS"),
+    ("layernorm", "LAYERNORM_VARIANTS"), ("flash_attention", "FLASH_VARIANTS")])
 def test_time_variants_edits_are_found_in_their_sources(source, table):
     """Every variant ``time_variants.py`` times is its source with lines
     replaced that the source holds (``variant_texts`` raises on a text it
@@ -625,6 +635,26 @@ def test_time_variants_edits_are_found_in_their_sources(source, table):
     assert names[1:-1] == list(variants) and runs[0][1] == runs[-1][1]
     texts = [text for _, text in runs[:-1]]
     assert len(set(texts)) == len(texts)
+
+
+@pytest.mark.parametrize("dtype,fragment", [
+    ("fp32", "softmax_rows_onchip_kernelIfLi16ELi4EE"),
+    ("bf16", "softmax_rows_onchip_kernelI13__nv_bfloat16Li16ELi8EE")])
+def test_chip_smoke_counts_the_sass_of_each_wide_k2_instance(dtype,
+                                                             fragment):
+    """Phase 2's ``k2_wide_counts`` reads K2's wide-row instance of 16
+    values a thread in 16-byte chunks, a kernel of softmax.cu that
+    ``launch_wide`` launches, and ``time_variants.py`` reports its
+    registers."""
+    import chip_smoke
+    import time_variants
+    assert (dtype, fragment) in chip_smoke.K2_WIDE_KERNELS
+    assert fragment in time_variants.K2_WIDE_MAIN
+    kernel = fragment[:fragment.index("I")]
+    with open(os.path.join(_build.CSRC, "softmax.cu")) as f:
+        text = f.read()
+    assert "    %s(" % kernel in text and "%s<T, N, VEC>" % kernel in text
+    assert "go(std::integral_constant<int, 16>{});" in text
 
 
 @pytest.mark.parametrize("knum,fragment", [

@@ -3,6 +3,7 @@
 stands, on one NVIDIA GPU::
 
     python3 time_variants.py              # softmax.cu: K5a, K5b (and K2)
+    python3 time_variants.py k2_wide      # softmax.cu: K2 past 1024 columns
     python3 time_variants.py layernorm    # layernorm.cu: K6b
     python3 time_variants.py flash        # flash_attention.cu: bf16 K7a-K7c
     python3 time_variants.py flash K7b    # ... only the variants named K7b*
@@ -22,6 +23,19 @@ variant is first held to the plain versions, then timed by CUDA events
 the largest |dx|, timed at the transformer's (96, 1020, 1020) fp32 shape
 with the causal bias, beside ``torch.softmax(x + bias)``,
 ``torch._softmax_backward_data`` and ``torch.softmax(x)``.
+
+``k2_wide``: K2 past 1024 columns, the source as it stands against the
+parent commit's strided form and the designs it was chosen over
+(``K2_WIDE_VARIANTS``: one CTA a row at every row count, a cluster of
+two or more at every row count, the slice loaded by a TMA bulk copy,
+the cluster's partials read through distributed shared memory between
+two ``cluster.sync()`` instead of sent by ``st.async``, 32 values a
+thread), each within 1e-6 (fp32; the parent's form within
+``chip_smoke.K2_LM_TOL`` of the largest probability) or one rounding
+(bf16) of the plain version, timed by the profiler at
+``K2_WIDE_SHAPES`` in fp32 and at (1920, 10000) in bf16, beside
+``torch.softmax``.  ``chip_smoke.py`` builds the parent's form the same
+way (``k2_parent_library``) to time it beside the kernel.
 
 ``layernorm.cu``: K6b within 1e-5 of the largest |dx| (fp32) and one
 rounding (bf16) at ``chip_smoke.K6B_EDGE`` and at the training step's
@@ -99,6 +113,127 @@ SOFTMAX_VARIANTS = {
         ("constexpr int kRowsPerBlock = 4;",
          "constexpr int kRowsPerBlock = 8;")],
 }
+# K2 past 1024 columns: the parent commit's strided form, and the designs
+# the on-chip form was chosen over.  name -> [(text of softmax.cu, its
+# replacement)]
+K2_PARENT = "K2 as the parent commit had it: the strided three-pass form"
+K2_STRIDED_KERNEL = """// K2 for cols > 1024 (the strided three-pass form)
+template <typename T>
+__global__ void softmax_rows_kernel(const T* __restrict__ x,
+                                    T* __restrict__ y, int64_t rows,
+                                    int64_t cols) {
+  const int64_t row =
+      (int64_t)blockIdx.x * kRowsPerBlock + threadIdx.x / kWarp;
+  if (row >= rows) return;
+  softmax_row(x + row * cols, static_cast<const float*>(nullptr),
+              y + row * cols, cols, threadIdx.x % kWarp);
+}
+
+"""
+K2_TMA_LOAD = r"""  extern __shared__ __align__(128) unsigned char tma_row[];
+  __shared__ __align__(8) uint64_t tma_bar;
+  if constexpr (VEC * sizeof(T) == 16) {
+    const uint32_t bar = (uint32_t)__cvta_generic_to_shared(&tma_bar);
+    const uint32_t dst = (uint32_t)__cvta_generic_to_shared(tma_row);
+    const uint32_t bytes = (uint32_t)(w > 0 ? w : 0) * sizeof(T);
+    if (i == 0) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar));
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      asm volatile(
+          "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+              bar), "r"(bytes) : "memory");
+      if (bytes)
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::"
+            "bytes [%0], [%1], %2, [%3];\n" ::"r"(dst), "l"(xr), "r"(bytes),
+            "r"(bar) : "memory");
+    }
+    __syncthreads();
+    asm volatile(
+        "{\n.reg .pred P1;\nLAB_WAIT:\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], 0;\n"
+        "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(bar) : "memory");
+    load_slice<T, N, VEC>(reinterpret_cast<const T*>(tma_row), v, w, i, TH);
+  } else {
+    load_slice<T, N, VEC>(xr, v, w, i, TH);
+  }
+"""
+# the body of cluster_exchange, and the one that replaces it
+K2_ST_ASYNC_BODY = r"""  if ((int)threadIdx.x < K) {
+    const uint32_t q = threadIdx.x, me = cg::this_cluster().block_rank();
+    uint32_t dst, rbar;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+                 : "=r"(dst)
+                 : "r"(smem_addr(slots + me)), "r"(q));
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+                 : "=r"(rbar)
+                 : "r"(smem_addr(bar)), "r"(q));
+    asm volatile(
+        "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], "
+        "%1, [%2];\n" ::"r"(dst), "r"(__float_as_uint(v)), "r"(rbar)
+        : "memory");
+  }
+  asm volatile(
+      "{\n.reg .pred P1;\nWAIT:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 P1, [%0], "
+      "0;\n@!P1 bra WAIT;\n}\n" ::"r"(smem_addr(bar))
+      : "memory");
+  float r = slots[0];
+  for (int q = 1; q < K; ++q) r = MAX ? fmaxf(r, slots[q]) : r + slots[q];
+  return r;
+}
+"""
+K2_CLUSTER_SYNC_EXCHANGE = r"""  cg::cluster_group cl = cg::this_cluster();
+  if (threadIdx.x == 0) slots[0] = v;
+  cl.sync();
+  float r = *cl.map_shared_rank(slots, 0);
+  for (int q = 1; q < K; ++q) {
+    const float u = *cl.map_shared_rank(slots, q);
+    r = MAX ? fmaxf(r, u) : r + u;
+  }
+  cl.sync();  // no CTA leaves while its slot is read
+  return r;
+}
+"""
+K2_WIDE_VARIANTS = {
+    K2_PARENT: [
+        ("// K5a for cols > 1024: rows = B * bias_rows; row r adds bias row",
+         K2_STRIDED_KERNEL
+         + "// K5a for cols > 1024: rows = B * bias_rows; row r adds bias row"),
+        ("""  const void* ptrs[] = {x, y};
+  with_vec<T, 16 / (int)sizeof(T)>(cols, ptrs, 2, nullptr, [&](auto vec) {
+    launch_wide<T, decltype(vec)::value>(xt, yt, rows, cols, stream);
+  });""",
+         """  softmax_rows_kernel<T><<<(unsigned)((rows + kRowsPerBlock - 1) /
+                                      kRowsPerBlock),
+                           kRowsPerBlock * kWarp, 0, stream>>>(xt, yt, rows,
+                                                               cols);""")],
+    "K2: one CTA a row at every row count (no cluster for few rows)": [
+        ("  while (K < kWideMaxCluster && rows * K * 2 <= sms &&",
+         "  while (false && rows * K * 2 <= sms &&")],
+    "K2: the slice loaded by a TMA bulk copy into shared memory": [
+        ("  load_slice<T, N, VEC>(xr, v, w, i, TH);\n", K2_TMA_LOAD),
+        ("    cfg.dynamicSmemBytes = 0;",
+         "    cfg.dynamicSmemBytes = (size_t)slice * VEC * sizeof(T);\n"
+         "    cudaFuncSetAttribute(softmax_rows_onchip_kernel<T, N, VEC>,\n"
+         "                         cudaFuncAttributeMaxDynamicSharedMemorySize,"
+         "\n                         (int)cfg.dynamicSmemBytes);")],
+    "K2: a cluster of two CTAs or more a row at every row count": [
+        ("  int K = 1;\n  while (K < kWideMaxCluster",
+         "  int K = 2;\n  while (K < kWideMaxCluster")],
+    "K2: the partials read from the other CTAs' shared memory between "
+    "two cluster.sync()": [(K2_ST_ASYNC_BODY, K2_CLUSTER_SYNC_EXCHANGE)],
+    "K2: 32 values a thread (fewer threads a CTA)": [
+        ("  if (fits(8))\n    go(std::integral_constant<int, 8>{});\n"
+         "  else if (fits(16))",
+         "  if (false)\n    go(std::integral_constant<int, 8>{});\n"
+         "  else if (false)")],
+}
+# the wide form's fp32 instance at C 10000 and its bf16 one
+K2_WIDE_MAIN = tuple(frag for _, frag in chip_smoke.K2_WIDE_KERNELS)
+# (rows, C) of the wide form's timing: one row, a 32-row batch, the
+# bucketed LM's logits at T 10 and T 60
+K2_WIDE_SHAPES = ((1, 10000), (32, 10000), (320, 10000), (1920, 10000))
 # the main path's instances, by their mangled names
 SOFTMAX_MAIN = ("bias_softmax_regs_kernelIfLi32ELi4ELi1E",
                 "softmax_bwd_regs_kernelIfLi32ELi4E")
@@ -230,6 +365,7 @@ def compile_all(source, texts, out_dir, main, argtypes):
     register lines of the instances named in main)]``, with ``argtypes``
     ({C function: argtypes}) set on each library."""
     from mxnet_tpu_torch.ops import _build
+    os.makedirs(out_dir, exist_ok=True)
     procs = []
     for k, text in enumerate(texts):
         src = os.path.join(out_dir, "%s_v%d.cu" % (source, k))
@@ -324,14 +460,77 @@ def entry_points(lib, x, bias, p, do):
             raise RuntimeError("K5b launch failed: %d" % rc)
         return dx
 
+    return k5a, k5b, k2_call(lib, x)
+
+
+def k2_call(lib, x):
+    """K2 of ``lib`` on x (softmax over its last axis) as a call on the
+    current stream."""
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+    c = x.shape[-1]
+
     def k2():
         y = torch.empty_like(x)
-        rc = lib.mxtt_softmax_lastaxis(x.data_ptr(), y.data_ptr(), rows, c, 0,
+        rc = lib.mxtt_softmax_lastaxis(x.data_ptr(), y.data_ptr(),
+                                       x.numel() // c, c,
+                                       ck._DTYPE_CODE[x.dtype],
                                        torch.cuda.current_stream().cuda_stream)
         if rc:
             raise RuntimeError("K2 launch failed: %d" % rc)
         return y
-    return k5a, k5b, k2
+    return k2
+
+
+def k2_parent_library(out_dir):
+    """``softmax.cu`` with K2 past 1024 columns as the parent commit had
+    it (the variant ``K2_PARENT``), built into ``out_dir`` and loaded."""
+    text = dict(variant_texts("softmax", {
+        K2_PARENT: K2_WIDE_VARIANTS[K2_PARENT]}))[K2_PARENT]
+    return compile_all("softmax_parent", [text], out_dir, (),
+                       SOFTMAX_ARGTYPES)[0][0]
+
+
+def k2_wide_main(smi, dev, bw, flops, out_dir):
+    """K2 past 1024 columns: the source as it stands, the parent's
+    strided form and the other designs of ``K2_WIDE_VARIANTS``, each held
+    to the plain version (in fp32 the parent's form to
+    ``chip_smoke.K2_LM_TOL`` of the largest probability, its band at the
+    LM's shapes, the others to 1e-6) and timed by the profiler (device
+    time, 20 launches) at ``K2_WIDE_SHAPES`` fp32 and at (1920, 10000)
+    bf16, beside ``torch.softmax`` and the byte bound."""
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+    gen = torch.Generator(device=dev).manual_seed(chip_smoke.SEED)
+    xs = [torch.randn(shape, generator=gen, device=dev) * 3
+          for shape in K2_WIDE_SHAPES]
+    xs.append(xs[-1].to(torch.bfloat16))
+    refs = [ck.softmax_lastaxis_ref(x) for x in xs]
+    desc = ["%s %s" % (tuple(x.shape), str(x.dtype)[6:]) for x in xs]
+    for d, x in zip(desc, xs):
+        b = chip_smoke.bound_ms(2 * x.numel() * x.element_size(),
+                                5 * x.numel(), bw, flops)[0]
+        print("%-22s bound %.5f ms (bytes), torch.softmax %.5f ms" % (
+            d, b, chip_smoke.device_ms(lambda x=x: torch.softmax(x, -1))),
+            flush=True)
+    runs = variant_texts("softmax", K2_WIDE_VARIANTS)
+    libs = compile_all("softmax", [text for _, text in runs[:-1]], out_dir,
+                       K2_WIDE_MAIN, SOFTMAX_ARGTYPES)
+    for (name, _), (lib, regs) in zip(runs, libs + libs[:1]):
+        times = []
+        for d, x, ref in zip(desc, xs, refs):
+            k2 = k2_call(lib, x)
+            y = k2()
+            err = (y.float() - ref.float()).abs().max().item()
+            if x.dtype != torch.float32:
+                ok = chip_smoke._bf16_close(y, ref, 1e-6)
+            elif name == K2_PARENT:   # its band at the LM's shapes
+                ok = err <= chip_smoke.K2_LM_TOL * ref.max().item()
+            else:
+                ok = err <= 1e-6
+            if not ok:
+                raise AssertionError("%s at %s: max |d| %g" % (name, d, err))
+            times.append("%s %.5f" % (d, chip_smoke.device_ms(k2)))
+        print("%-66s ms: %s; %s" % (name, ", ".join(times), "; ".join(regs)),
+              flush=True)
 
 
 def card_name():
@@ -987,13 +1186,14 @@ def main():
         return 1
     from mxnet_tpu_torch.ops import _build
     source = sys.argv[1] if len(sys.argv) > 1 else "softmax"
-    runner = {"softmax": softmax_main, "layernorm": layernorm_main,
+    runner = {"softmax": softmax_main, "k2_wide": k2_wide_main,
+              "layernorm": layernorm_main,
               "flash": flash_main, "flash_band": flash_band_main,
               "inception_serve": inception_serve_main,
               "rnn_accuracy": rnn_accuracy_main}.get(source)
     if runner is None:
-        print("time_variants: the source is softmax, layernorm, flash, "
-              "flash_band, inception_serve or rnn_accuracy, not %r"
+        print("time_variants: the source is softmax, k2_wide, layernorm, "
+              "flash, flash_band, inception_serve or rnn_accuracy, not %r"
               % source,
               file=sys.stderr)
         return 2
