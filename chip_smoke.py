@@ -235,6 +235,27 @@ Phases, each of which raises on failure:
    beside ``torch.softmax``, its bound and K2 as the parent commit had it
    past 1024 columns (the strided form, built by ``time_variants.py`` as
    a variant of ``softmax.cu``);
+18. gluon's image path: (a) example/gluon/image_classification.py's loop
+   on the port: model-zoo ResNet-50 v1 (1000 classes, 25.6 M values in
+   299 arrays, 193 of them updated a step), ``initialize(Xavier())``,
+   ``hybridize()``, ``gluon.Trainer`` SGD lr 0.05 momentum 0.9,
+   ``SoftmaxCrossEntropyLoss`` under ``autograd.record()``, batch 32
+   from a ``DataLoader`` (4 threads, shuffled, the short last batch
+   discarded) over ``ImageRecordDataset`` of phase 17's records through
+   ``RandomResizedCrop(224)``, ``RandomFlipLeftRight``, ``ToTensor`` and
+   ImageNet's ``Normalize``; 3 warmup and 10 timed steps (CUDA events,
+   the loader's wait included).  (b) The first step held to the CPU as
+   phase 16 holds its updates: the Trainer's SGD replayed on the CPU from
+   the card's weights and gradients, each BatchNorm's moving statistics
+   replayed by the op on the CPU from the input the card's op had, all
+   within ``LOOP_TOL``.  (c) An eval forward of the next batch held to
+   the same network on the CPU within ``CROSS_SHAPE_TOL``; then, as the
+   example trains, 10 steps on the first batch alone, the median of the
+   last 3 losses below that of the first 3.  (d)
+   ``symbols/resnet.py``'s ResNet-50 written by ``model.save_checkpoint``
+   and served through ``SymbolBlock.imports``: 4 batches bitwise equal to
+   a ``Predictor``'s at batch 32 from the same files, with K3 at 33
+   sites and K2 once a forward;
 then every kernel's device time by the profiler (K6b's with the L2 cache
 overwritten before each launch; the bf16 instances of K3, K6a, K6b,
 K7a, K7b and K7c that phase 15 launches beside their plain versions,
@@ -246,12 +267,15 @@ Prints one JSON line ``{"checkpoints": {...}}`` with phase 13's numbers,
 ``{"ops": {...}}`` and ``{"inception_bn": {...}}`` with phase 14's,
 ``{"mixed_precision": {...}}`` with phase 15's, ``{"training_loop":
 {...}}`` with phase 16's, ``{"data_pipeline": {...}}`` with phase 17's
-(with the records fit's idle share), one ``{"kernels":
+(with the records fit's idle share), ``{"gluon": {...}}`` with phase
+18's (with its step's idle share and per-array SGD's device time), one
+``{"kernels":
 [...]}`` (all twelve kernels; K3, K2 and K1b with their
 ``launches_inception``, K1b, K2, K3, K6a, K6b, K7a, K7b and K7c with
 their ``launches_mixed``, K2 and K3 with their
 ``launches_training_loop``, K1b, K2 and K3 with their
-``launches_data_pipeline``, K2 with its ``lm`` jobs (the parent's
+``launches_data_pipeline``, K2 and K3 with their ``launches_gluon``
+(a SymbolBlock forward's), K2 with its ``lm`` jobs (the parent's
 strided form's times beside them) and its wide rows' SASS counts
 (``sass_wide``), K3,
 K6a, K7b and K7c with their ``bf16``
@@ -968,6 +992,14 @@ def _op_cases(seed=SEED):
             band=OP_RNN if mode in ("lstm", "gru") else "f32", grad=True)
     add("_rnn_state_zeros", [u(5, 3, 4)], {"shape": (2, 0, 6),
                                            "ref_batch_axis": 1}, band="exact")
+    # -- image: gluon.data.vision's ops (HWC uint8 in [0, 255] as float32)
+    for name in ("_image_to_tensor", "to_tensor"):
+        add(name, [rng.randint(0, 256, (5, 6, 3)).astype(f32)])
+        add(name, [rng.randint(0, 256, (2, 5, 6, 3)).astype(f32)])
+    for name in ("_image_normalize", "image_normalize"):
+        norm = {"mean": (0.485, 0.456, 0.406), "std": (0.229, 0.224, 0.225)}
+        add(name, [u(3, 5, 6, lo=0.0, hi=1.0)], norm, grad=True)
+        add(name, [u(2, 3, 5, 6, lo=0.0, hi=1.0)], norm, grad=True)
     return cases
 
 
@@ -5066,6 +5098,277 @@ def time_k2_lm(jobs, key, timer):
             job[pre + key] = timer(job["fns"][pre])
 
 
+# ---------------------------------------------------------------------------
+# phase 18: gluon's image path
+# ---------------------------------------------------------------------------
+# example/gluon/image_classification.py's loop on the port: model-zoo
+# ResNet-50 v1, Xavier, hybridize(), per-array SGD with momentum through
+# gluon.Trainer, SoftmaxCrossEntropyLoss under autograd.record(), batches
+# from a DataLoader over phase 17's .rec with ImageNet's augmentation
+GLUON_SGD = {"learning_rate": 0.05, "momentum": 0.9}
+GLUON_MEAN = (0.485, 0.456, 0.406)
+GLUON_STD = (0.229, 0.224, 0.225)
+GLUON_WARMUP = 3            # untimed steps, the first one held to the CPU
+GLUON_STEPS = 10            # timed steps
+GLUON_WORKERS = 4           # the DataLoader's threads
+GLUON_SERVE = 4             # SymbolBlock forwards counted and compared
+# The falling loss is the example's own: it trains on one fixed batch.
+# On the DataLoader's batches at lr 0.05 and momentum 0.9 the loss on a
+# fixed batch spikes (to 213 from ~9 in traced runs) and in 5 of 12 traced
+# runs its median over the last 3 of the 10 timed steps lay above that
+# over the first 3; 10 steps on the fixed batch itself after the timed
+# ones fell in 8 of 8.  Its median over the first GLUON_LOSS_WINDOW of
+# those steps is held above that over the last.
+GLUON_LOSS_WINDOW = 3
+
+
+def gluon_loader(mx, path, image, batch, workers=GLUON_WORKERS):
+    """The DataLoader of phase 18: ``ImageRecordDataset`` of ``path``
+    through ``transform_first(Compose([RandomResizedCrop, RandomFlip,
+    ToTensor, Normalize]))``, shuffled, the short last batch discarded."""
+    t = mx.gluon.data.vision.transforms
+    aug = t.Compose([t.RandomResizedCrop(image[1]), t.RandomFlipLeftRight(),
+                     t.ToTensor(), t.Normalize(GLUON_MEAN, GLUON_STD)])
+    ds = mx.gluon.data.vision.ImageRecordDataset(path).transform_first(aug)
+    return mx.gluon.data.DataLoader(ds, batch_size=batch, shuffle=True,
+                                    last_batch="discard", num_workers=workers)
+
+
+def gluon_resnet(mx, ctx, layers=LAYERS, classes=CLASSES, seed=SEED):
+    """Model-zoo ResNet v1 of ``layers`` layers, Xavier on ``ctx`` (drawn
+    at the first forward: the shapes are deferred), hybridized."""
+    mx.random.seed(seed)
+    with mx.name.NameManager():
+        net = mx.gluon.model_zoo.vision.get_resnet(1, layers, classes=classes)
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    net.hybridize()
+    return net
+
+
+def _batchnorms(block):
+    found = [block] if type(block).__name__ == "BatchNorm" else []
+    for child in block._children.values():
+        found += _batchnorms(child)
+    return found
+
+
+@contextlib.contextmanager
+def bn_inputs(net, seen):
+    """Within the block each BatchNorm of ``net`` appends ``(block, its
+    input, running mean, running var)`` to ``seen`` as it runs, copied on
+    their device before the op moves the statistics."""
+    bns = _batchnorms(net)
+    for bn in bns:
+        def hybrid_forward(F, x, gamma, beta, running_mean, running_var,
+                           bn=bn, orig=bn.hybrid_forward):
+            seen.append((bn, x._data.detach().clone(),
+                         running_mean._data.clone(),
+                         running_var._data.clone()))
+            return orig(F, x, gamma, beta, running_mean, running_var)
+        bn.hybrid_forward = hybrid_forward
+    try:
+        yield bns
+    finally:
+        for bn in bns:
+            del bn.hybrid_forward
+
+
+def gluon_first_step(mx, net, trainer, loss_fn, x, y, batch):
+    """The first training step, held to the CPU as phase 16 holds its
+    updates: the Trainer's SGD replayed on CPU tensors from the card's
+    weights and gradients (the updater's pickled optimizer, ``rescale_grad``
+    as the step set it), and each BatchNorm's moving-statistics update
+    replayed by the ``BatchNorm`` op on the CPU from the same input and
+    statistics the card's op had.  Returns the largest distances from
+    the card's, relative to each array's largest magnitude."""
+    from mxnet_tpu_torch import optimizer as opt_mod
+    from mxnet_tpu_torch.ndarray import NDArray
+    seen = []
+    with bn_inputs(net, seen):
+        with mx.autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+    params = trainer._params
+    live = [i for i, p in enumerate(params) if p.grad_req != "null"]
+    w = {i: _host(params[i].data()) for i in live}
+    g = {i: _host(params[i].grad()) for i in live}
+    blob = trainer._updater.get_states(dump_optimizer=True)
+    trainer.step(batch)
+    cpu = opt_mod.get_updater(None)
+    cpu.set_states(blob)
+    cpu.optimizer.rescale_grad = trainer._optimizer.rescale_grad
+    weights, states = [], []
+    for i in live:
+        cw = NDArray(w[i].clone())
+        cpu(i, NDArray(g[i]), cw)
+        weights.append(largest_rel(_host(params[i].data()).numpy(),
+                                   cw._data.numpy()))
+        for a, b in zip(_state_tensors(trainer._updater.states[i]),
+                        _state_tensors(cpu.states[i])):
+            states.append(largest_rel(a.numpy(), b.numpy()))
+    stats = []
+    for bn, xin, mean, var in seen:
+        m, v = NDArray(mean.cpu()), NDArray(var.cpu())
+        c = xin.shape[bn._axis]
+        with mx.autograd.train_mode():
+            mx.nd.BatchNorm(NDArray(xin.cpu()), mx.nd.ones((c,), ctx=mx.cpu()),
+                            mx.nd.zeros((c,), ctx=mx.cpu()), m, v,
+                            **bn._kwargs)
+        stats.append(max(
+            largest_rel(_host(bn.running_mean.data()).numpy(),
+                        m._data.numpy()),
+            largest_rel(_host(bn.running_var.data()).numpy(),
+                        v._data.numpy())))
+    return {"loss": float(loss.mean().asscalar()),
+            "weights": len(weights), "weights_max_rel": max(weights),
+            "momentum_max_rel": max(states) if states else 0.0,
+            "batchnorms": len(stats), "running_stats_max_rel": max(stats)}
+
+
+def gluon_train(mx, ck, ctx, path, image, batch, layers=LAYERS,
+                classes=CLASSES, warmup=GLUON_WARMUP, steps=GLUON_STEPS,
+                workers=GLUON_WORKERS, seed=SEED):
+    """Phase 18 (a)-(c): ``warmup`` steps (the first held to the CPU by
+    ``gluon_first_step``), then ``steps`` timed by CUDA events from one
+    batch fetch to the next (the loader's wait included; the host's wait
+    for the loader is reported beside), an eval forward of the next batch
+    held to the same network's forward on the CPU, and then, as
+    example/gluon/image_classification.py trains, ``steps`` more on the
+    first batch alone, untimed, whose losses must fall.  Returns
+    ``(net, trainer, loss_fn, (x, y), record)``."""
+    np.random.seed(seed)        # the sampler's shuffle, the crops and flips
+    net = gluon_resnet(mx, ctx, layers, classes, seed)
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd", dict(GLUON_SGD))
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    loader = gluon_loader(mx, path, image, batch, workers)
+    with mx.cpu():
+        batches = iter(loader)
+    waits = []
+
+    def fetch():
+        t0 = time.perf_counter()
+        data, label = next(batches)
+        waits.append(time.perf_counter() - t0)
+        return data.as_in_context(ctx), label.as_in_context(ctx)
+
+    def step(x, y):
+        with mx.autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        trainer.step(batch)
+
+    x0, y0 = fetch()
+    first = gluon_first_step(mx, net, trainer, loss_fn, x0, y0, batch)
+    for _ in range(warmup - 1):
+        step(*fetch())
+    device = x0._data.device
+    _sync(device)
+    waits.clear()
+    marks = [_marker(device)]
+    for _ in range(steps):
+        step(*fetch())
+        marks.append(_marker(device))
+    _sync(device)
+    ms = [_elapsed_ms(a, b) for a, b in zip(marks, marks[1:])]
+    xe, ye = fetch()
+    logits = _host(net(xe)).numpy()
+    cpu_net = gluon_resnet(mx, mx.cpu(), layers, classes, seed)
+    mx.convert.block_params_from_numpy(
+        cpu_net, {k: _host(p.data()).numpy()
+                  for k, p in net.collect_params().items()}, ctx=mx.cpu())
+    cpu_logits = cpu_net(mx.nd.NDArray(_host(xe))).asnumpy()
+    ces = []
+    for _ in range(steps):
+        with mx.autograd.record():
+            loss = loss_fn(net(x0), y0)
+        loss.backward()
+        trainer.step(batch)
+        ces.append(loss.mean()._data)
+    ces = [float(c) for c in ces]
+    k = GLUON_LOSS_WINDOW
+    params = net.collect_params().values()
+    rec = {"layers": layers, "batch": batch, "image": list(image),
+           "parameters": int(sum(int(np.prod(p.shape)) for p in params)),
+           "parameter_arrays_updated": sum(p.grad_req != "null"
+                                           for p in params),
+           "first_step": first, "warmup": warmup, "steps": steps,
+           "step_ms": float(np.median(ms)) if ms else None,
+           "step_ms_all": ms, "images_per_s": batch * steps / sum(ms) * 1e3,
+           "loader_wait_ms": float(np.median(waits)) * 1e3,
+           "ce_first": float(np.median(ces[:k])),
+           "ce_last": float(np.median(ces[-k:])), "ce": ces,
+           "eval_logits_max_rel": largest_rel(logits, cpu_logits),
+           "eval_shape": list(logits.shape), "workers": workers,
+           "data_on": str(x0._data.device)}
+    return net, trainer, loss_fn, (x0, y0), rec
+
+
+def gluon_symbol_block(mx, ck, ctx, sym, image, batch, workdir,
+                       n=GLUON_SERVE, seed=SEED):
+    """Phase 18 (d): ``sym`` with ``he_params`` written by
+    ``model.save_checkpoint``, served through ``SymbolBlock.imports``
+    (inputs ``data`` and ``softmax_label``) and through a ``Predictor``
+    bound at the same batch from the same files: ``n`` batches, each
+    answer compared bitwise, the kernels' launches counted over the
+    block's forwards alone."""
+    arg, aux = he_params(sym, image, seed)
+    prefix = os.path.join(workdir, "symbolblock")
+    mx.model.save_checkpoint(
+        prefix, 0, sym, {k: mx.nd.array(v, ctx=ctx) for k, v in arg.items()},
+        {k: mx.nd.array(v, ctx=ctx) for k, v in aux.items()})
+    with ctx:
+        block = mx.gluon.SymbolBlock.imports(
+            prefix + "-symbol.json", ["data", "softmax_label"],
+            prefix + "-0000.params", ctx=ctx)
+        pred = mx.Predictor(prefix + "-symbol.json", prefix + "-0000.params",
+                            {"data": (batch,) + tuple(image)},
+                            dev_type=ctx.device_type, dev_id=ctx.device_id)
+        rng = np.random.RandomState(seed + 18)
+        xs = [mx.nd.array(rng.rand(batch, *image).astype(np.float32))
+              for _ in range(n)]
+        label = mx.nd.zeros((batch,))
+        block(xs[0], label)                 # binds the executor
+        ck.reset_kernel_calls()
+        got = [_host(block(x, label)) for x in xs]
+        calls = ck.kernel_calls()
+        want = [_host(pred.forward(data=x).get_output(0)) for x in xs]
+    return {"forwards": n, "batch": batch,
+            "bitwise": sum(bool(torch.equal(a, b))
+                           for a, b in zip(got, want)),
+            "max_abs_diff": max(float((a - b).abs().max())
+                                for a, b in zip(got, want)),
+            "launches": {k: v for k, v in calls.items() if v},
+            "launches_per_forward": {k: v / n for k, v in calls.items()
+                                     if v}}
+
+
+def gluon_profile(mx, net, trainer, loss_fn, batch_xy, batch, step_ms):
+    """One training step under the profiler: the forward and backward by
+    kind, ``Trainer.step`` (per-array SGD) as the optimizer's share, the
+    idle share beside ``step_ms`` measured without the profiler; None
+    when the trace holds no device time."""
+    x, y = batch_xy
+
+    def fb():
+        with mx.autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+
+    fwd_bwd = device_times(fb, n=1)
+    opt = device_times(lambda: trainer.step(batch), n=1)
+    busy = sum(fwd_bwd.values()) + sum(opt.values())
+    if busy <= 0:
+        return None
+    kinds = by_kind(fwd_bwd)
+    kinds["optimizer (Trainer.step, per-array SGD)"] = sum(opt.values())
+    return {"busy_us": busy, "idle_share": max(0.0, 1 - busy
+                                               / (step_ms * 1e3)),
+            "optimizer_us": sum(opt.values()),
+            "optimizer_share_of_busy": sum(opt.values()) / busy,
+            "by_kind": kinds,
+            "top": sorted(fwd_bwd.items(), key=lambda kv: -kv[1])[:8]}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -5846,11 +6149,12 @@ def main():
     # LM through BucketingModule; (c) K2 at the LM's logits
     import tempfile
     t17 = time.perf_counter()
-    with tempfile.TemporaryDirectory(
-            prefix=".chip_smoke_rec_",
-            dir=os.path.dirname(os.path.abspath(__file__))) as workdir:
-        rec_mod, rec_batch, rec17 = rec_pipeline(mx, ck, mx.gpu(0), sym,
-                                               workdir)
+    # the records stay for phase 18, which removes them
+    rec_dir = tempfile.TemporaryDirectory(
+        prefix=".chip_smoke_rec_",
+        dir=os.path.dirname(os.path.abspath(__file__)))
+    rec_mod, rec_batch, rec17 = rec_pipeline(mx, ck, mx.gpu(0), sym,
+                                           rec_dir.name)
     nb17 = len(rec17["buckets"])
     want = dict.fromkeys(rec17["calls"], 0)
     want.update(sgd_mom_sweep=nb17 * rec17["batches"],
@@ -5978,6 +6282,75 @@ def main():
                  "bucketed_lm": lm17, "seconds": time.perf_counter() - t17}
     print("phase 17: %.1f s" % data_line["seconds"], flush=True)
 
+    # 18. gluon's image path: (a) model-zoo ResNet-50 v1 trained by
+    # gluon.Trainer from a DataLoader over phase 17's records, (b) its
+    # first step held to the CPU, (c) an eval forward held to the CPU and
+    # the loss on a fixed batch, (d) symbols/resnet.py's ResNet-50 served
+    # through SymbolBlock.imports against a Predictor
+    t18 = time.perf_counter()
+    gnet, gtrainer, gloss, gbatch, g18 = gluon_train(
+        mx, ck, mx.gpu(0), os.path.join(rec_dir.name, "train.rec"), IMAGE,
+        BATCH)
+    g18["symbol_block"] = gluon_symbol_block(mx, ck, mx.gpu(0), sym, IMAGE,
+                                             BATCH, rec_dir.name)
+    rec_dir.cleanup()
+    first, sb = g18["first_step"], g18["symbol_block"]
+    want_sb = {"scale_bias_relu": len(sites) * GLUON_SERVE,
+               "softmax_lastaxis": GLUON_SERVE}
+    if g18["parameters"] != 25629032 \
+            or g18["parameter_arrays_updated"] != 193 \
+            or not first["weights_max_rel"] <= LOOP_TOL \
+            or not first["momentum_max_rel"] <= LOOP_TOL \
+            or not first["running_stats_max_rel"] <= LOOP_TOL \
+            or first["batchnorms"] != 53 \
+            or not g18["eval_logits_max_rel"] <= CROSS_SHAPE_TOL \
+            or not g18["ce_last"] < g18["ce_first"] \
+            or not g18["data_on"].startswith("cuda") \
+            or sb["bitwise"] != sb["forwards"] or sb["launches"] != want_sb:
+        raise AssertionError(
+            "gluon: %d parameters, %d arrays updated (expected 25629032 "
+            "and 193), first step against the CPU: weights %.3g, momentum "
+            "%.3g, running stats %.3g at %d BatchNorms (limit %g); eval "
+            "logits %.3g (limit %g); cross-entropy on the fixed batch %.4f "
+            "-> %.4f; batches on %s; SymbolBlock bitwise %d of %d, "
+            "launches %s (expected %s)"
+            % (g18["parameters"], g18["parameter_arrays_updated"],
+               first["weights_max_rel"], first["momentum_max_rel"],
+               first["running_stats_max_rel"], first["batchnorms"],
+               LOOP_TOL, g18["eval_logits_max_rel"], CROSS_SHAPE_TOL,
+               g18["ce_first"], g18["ce_last"], g18["data_on"],
+               sb["bitwise"], sb["forwards"], sb["launches"], want_sb))
+    k3["launches_gluon"] = sb["launches_per_forward"]["scale_bias_relu"]
+    k2["launches_gluon"] = sb["launches_per_forward"]["softmax_lastaxis"]
+    g18.update(card=smi, seconds=time.perf_counter() - t18,
+               cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
+               matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32)
+    print("gluon on %s: model-zoo ResNet-50 v1 (%d parameters, %d arrays "
+          "updated a step), Xavier, hybridize(), gluon.Trainer SGD lr %g "
+          "momentum %g, batch %d from a DataLoader over the .rec (%d "
+          "threads, RandomResizedCrop, flip, ToTensor, Normalize); %d "
+          "warmup + %d timed steps: %.2f ms/step (CUDA events, the loader's "
+          "wait included: %.2f ms a batch on the host), %.1f images/s; "
+          "first step against the CPU's replay: weights %.3g, momentum "
+          "%.3g, running stats of %d BatchNorms %.3g (limit %g); eval "
+          "logits against the CPU %.3g (limit %g); then %d steps on the "
+          "first batch alone: cross-entropy, median of the first and last "
+          "%d, %.4f -> %.4f (%s); SymbolBlock of symbols/resnet.py "
+          "ResNet-50 against a Predictor at batch %d: bitwise %d of %d, "
+          "launches a forward %s; TF32 cudnn %s matmul %s; %.1f s"
+          % (smi, g18["parameters"], g18["parameter_arrays_updated"],
+             GLUON_SGD["learning_rate"], GLUON_SGD["momentum"], BATCH,
+             g18["workers"], g18["warmup"], g18["steps"], g18["step_ms"],
+             g18["loader_wait_ms"], g18["images_per_s"],
+             first["weights_max_rel"], first["momentum_max_rel"],
+             first["batchnorms"], first["running_stats_max_rel"], LOOP_TOL,
+             g18["eval_logits_max_rel"], CROSS_SHAPE_TOL, len(g18["ce"]),
+             GLUON_LOSS_WINDOW, g18["ce_first"], g18["ce_last"],
+             ", ".join("%.3f" % c for c in g18["ce"]), BATCH,
+             sb["bitwise"], sb["forwards"],
+             sb["launches_per_forward"], g18["cudnn_allow_tf32"],
+             g18["matmul_allow_tf32"], g18["seconds"]), flush=True)
+
     # device time of each kernel (the profiler last: its hooks slow the
     # host for the rest of the process)
     # K6b's bf16 operands (37.7 MB) fit in the L2 cache, where back-to-back
@@ -6045,6 +6418,16 @@ def main():
         step_busy_us=rec_prof["busy_us"] if rec_prof else None,
         step_by_kind_us=rec_prof["by_kind"] if rec_prof else None)
     del rec_mod
+    gluon_prof = gluon_profile(mx, gnet, gtrainer, gloss, gbatch, BATCH,
+                               g18["step_ms"])
+    g18.update(
+        idle_share=gluon_prof["idle_share"] if gluon_prof else None,
+        step_busy_us=gluon_prof["busy_us"] if gluon_prof else None,
+        optimizer_us=gluon_prof["optimizer_us"] if gluon_prof else None,
+        optimizer_share_of_busy=gluon_prof["optimizer_share_of_busy"]
+        if gluon_prof else None,
+        step_by_kind_us=gluon_prof["by_kind"] if gluon_prof else None)
+    del gnet, gtrainer
     lm_prof = step_profile(bucket_mod, lm17_batch,
                            lm17["step_ms_by_bucket"][max(BUCKET_KEYS)])
     data_line["bucketed_lm"].update(
@@ -6158,6 +6541,7 @@ def main():
     print(json.dumps({"inception_bn": dict(inc, card=smi)}, default=str))
     print(json.dumps({"training_loop": loop_line}, default=str))
     print(json.dumps({"data_pipeline": data_line}, default=str))
+    print(json.dumps({"gluon": g18}, default=str))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
             "launches_per_forward", "call_ms", "plain_call_ms",
@@ -6167,7 +6551,8 @@ def main():
             x for x in ("launches_training", "launches_checkpoints",
                         "launches_inception", "launches_mixed",
                         "launches_training_loop",
-                        "launches_data_pipeline", "lm", "bf16",
+                        "launches_data_pipeline", "launches_gluon",
+                        "lm", "bf16",
                         "ms_repeats", "library_ms_repeats",
                         "bfloat16_ms_repeats", "bfloat16_library_ms_repeats",
                         "repeats_timer",
@@ -6196,6 +6581,8 @@ def main():
                                              mixed_prof))
     print("from records (phase 17): " + profile_step(
         None, None, rec17["step_ms"], rec_prof))
+    print("gluon (phase 18): " + profile_step(
+        None, None, g18["step_ms"], gluon_prof))
     print("bucketed LM at T %d (phase 17): " % max(BUCKET_KEYS)
           + profile_step(None, None, lm17["step_ms_by_bucket"][
               max(BUCKET_KEYS)], lm_prof))

@@ -19,13 +19,16 @@ counterpart of the JAX package's jit cache, for a later change.
 """
 from __future__ import annotations
 
+import re
 import threading
+import warnings
 
-from .. import ndarray
+from .. import autograd, ndarray
+from ..context import current_context
 from ..name import NameManager
 from .parameter import DeferredInitializationError, Parameter, ParameterDict
 
-__all__ = ["Block", "HybridBlock"]
+__all__ = ["Block", "HybridBlock", "SymbolBlock"]
 
 
 class _BlockScope:
@@ -134,19 +137,52 @@ class Block:
         """This block's own ParameterDict."""
         return self._params
 
-    def collect_params(self):
+    def collect_params(self, select=None):
         """The parameters of this block and its children, in creation
-        order."""
+        order; with ``select``, only those whose name a regular
+        expression matches (``re.match``; reference: block.py:186)."""
+        self._check_container_with_block()
         ret = ParameterDict(self._params.prefix)
-        ret.update(self.params)
+        if not select:
+            ret.update(self.params)
+        else:
+            pattern = re.compile(select)
+            ret.update({name: value for name, value in self.params.items()
+                        if pattern.match(name)})
         for cld in self._children.values():
-            ret.update(cld.collect_params())
+            ret.update(cld.collect_params(select=select))
         return ret
+
+    def _check_container_with_block(self):
+        """Warn of Blocks held in a public list, tuple or dict attribute
+        and not registered as children: their parameters are not
+        collected."""
+        children = set(self._children.values())
+        for k, v in self.__dict__.items():
+            if isinstance(v, (list, tuple, dict)) and not k.startswith("_"):
+                for i in (v.values() if isinstance(v, dict) else v):
+                    if isinstance(i, Block) and i not in children:
+                        warnings.warn(
+                            '"%s.%s" is an unregistered container with '
+                            "Blocks. Note that Blocks inside the list, "
+                            "tuple or dict will not be registered "
+                            "automatically. Make sure to register them "
+                            "using register_child() or switching to "
+                            "nn.Sequential/nn.HybridSequential instead."
+                            % (type(self).__name__, k), stacklevel=3)
 
     def register_child(self, block, name=None):
         if name is None:
             name = str(len(self._children))
         self._children[name] = block
+
+    def apply(self, fn):
+        """Call ``fn`` on every child, depth first, then on this block
+        (reference: block.py apply)."""
+        for cld in self._children.values():
+            cld.apply(fn)
+        fn(self)
+        return self
 
     def save_params(self, fname):
         """Save every parameter under its name less this block's prefix
@@ -228,4 +264,91 @@ class HybridBlock(Block):
             "in_units/in_channels." % self.name)
 
     def hybrid_forward(self, F, x, *args, **kwargs):  # pragma: no cover
+        raise NotImplementedError
+
+    def export(self, path, epoch=0):
+        """Write every parameter as ``arg:<name>`` to
+        ``<path>-<epoch:04d>.params``, as the JAX package's export does
+        (reference: block.py export); there is no traced graph to write
+        beside it, so ``SymbolBlock.imports`` takes the symbol from a
+        file of its own."""
+        params = {"arg:%s" % name: param.data()
+                  for name, param in self.collect_params().items()}
+        ndarray.save("%s-%04d.params" % (path, epoch), params)
+
+
+class SymbolBlock(HybridBlock):
+    """A Symbol as a Block (reference: block.py:652): its arguments but
+    the inputs, and its aux states (``grad_req="null"``), are this
+    block's parameters under their own names.  The first forward, and
+    one at a new input shape, finishes their deferred shapes from
+    ``infer_shape_partial``, binds the symbol with
+    ``simple_bind(grad_req="null")`` on the current context and puts the
+    parameters' arrays in the executor's place; the forward runs through
+    that executor, as the JAX package's does."""
+
+    def __init__(self, outputs, inputs, params=None):
+        super().__init__(prefix="", params=params)
+        from .. import symbol as sym_mod
+        if isinstance(inputs, sym_mod.Symbol):
+            inputs = [inputs]
+        if isinstance(outputs, (list, tuple)) and len(outputs) == 1:
+            outputs = outputs[0]
+        if isinstance(outputs, (list, tuple)):
+            outputs = sym_mod.Group(outputs)
+        self._symbol = outputs
+        self._input_names = [i.name for i in inputs]
+        for name in outputs.list_arguments():
+            if name not in self._input_names:
+                self.params.get(name, allow_deferred_init=True)
+        for name in outputs.list_auxiliary_states():
+            self.params.get(name, grad_req="null", allow_deferred_init=True)
+        self._exec = None
+
+    @staticmethod
+    def imports(symbol_file, input_names, param_file=None, ctx=None):
+        """A SymbolBlock of the symbol in ``symbol_file`` with inputs
+        ``input_names``, its parameters loaded from ``param_file``
+        (``arg:`` and ``aux:`` keys, names beyond the symbol's ignored)
+        onto ``ctx`` (reference: block.py SymbolBlock.imports)."""
+        from .. import symbol as sym_mod
+        sym = sym_mod.load(symbol_file)
+        if isinstance(input_names, str):
+            input_names = [input_names]
+        ret = SymbolBlock(sym, [sym_mod.var(i) for i in input_names])
+        if param_file is not None:
+            ret.load_params(param_file, ctx=ctx, allow_missing=False,
+                            ignore_extra=True)
+        return ret
+
+    def _bind(self, shapes):
+        arg_shapes, _, aux_shapes = self._symbol.infer_shape_partial(
+            **shapes)
+        known = dict(zip(self._symbol.list_arguments(), arg_shapes))
+        known.update(zip(self._symbol.list_auxiliary_states(), aux_shapes))
+        for name, param in self.params.items():
+            if param.shape is None and known.get(name):
+                param.shape = tuple(known[name])
+            param._finish_deferred_init()
+        self._exec = self._symbol.simple_bind(
+            ctx=current_context(), grad_req="null", **shapes)
+        for name, param in self.params.items():
+            for slots in (self._exec.arg_dict, self._exec.aux_dict):
+                if name in slots:
+                    slots[name] = param.data()
+
+    def forward(self, x, *args):
+        shapes = {self._input_names[0]: x.shape}
+        shapes.update((n, a.shape) for n, a in
+                      zip(self._input_names[1:], args))
+        if self._exec is None or any(
+                self._exec.arg_dict[n].shape != tuple(s)
+                for n, s in shapes.items()):
+            self._bind(shapes)
+        feed = {self._input_names[0]: x}
+        feed.update(zip(self._input_names[1:], args))
+        outs = self._exec.forward(is_train=autograd.is_training(), **feed)
+        return outs[0] if len(outs) == 1 else list(outs)
+
+    def hybrid_forward(self, F, x, *args, **kwargs):
         raise NotImplementedError

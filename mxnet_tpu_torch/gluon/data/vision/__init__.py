@@ -1,0 +1,3 @@
+"""Gluon vision data (reference: python/mxnet/gluon/data/vision/)."""
+from .datasets import *  # noqa: F401,F403
+from . import transforms  # noqa: F401

@@ -33,12 +33,25 @@ from ..context import cpu, current_context, resolve
 from ..initializer import InitDesc
 from ..ndarray import NDArray
 
-__all__ = ["DeferredInitializationError", "Parameter", "ParameterDict"]
+__all__ = ["DeferredInitializationError", "Parameter", "Constant",
+           "ParameterDict", "tensor_types"]
+
+tensor_types = (NDArray,)
 
 
 class DeferredInitializationError(MXNetError):
     """Error for unfinished deferred initialization (reference:
     parameter.py:35)."""
+
+
+def _check_stype(name, what, stype):
+    """Only the dense storage type: a sparse one needs sparse arrays,
+    which this package does not have yet."""
+    if stype != "default":
+        raise MXNetError(
+            "Parameter '%s': %s %r needs sparse arrays (ndarray/sparse.py), "
+            "which this package does not have yet; use 'default'"
+            % (name, what, stype))
 
 
 def _merge_shapes(declared, stored):
@@ -57,11 +70,15 @@ def _merge_shapes(declared, stored):
 
 
 class Parameter:
-    """A parameter of Blocks (reference: parameter.py:42)."""
+    """A parameter of Blocks (reference: parameter.py:42).  ``stype`` and
+    ``grad_stype`` take the dense ``default`` only."""
 
     def __init__(self, name, grad_req="write", shape=None, dtype="float32",
                  lr_mult=1.0, wd_mult=1.0, init=None,
-                 allow_deferred_init=False, differentiable=True):
+                 allow_deferred_init=False, differentiable=True,
+                 stype="default", grad_stype="default"):
+        _check_stype(name, "stype", stype)
+        _check_stype(name, "grad_stype", grad_stype)
         if isinstance(shape, int):
             shape = (shape,)
         self.name = name
@@ -254,6 +271,32 @@ class Parameter:
         self._set(data)
 
 
+class Constant(Parameter):
+    """A parameter that holds ``value`` and takes no gradient
+    (``grad_req="null"``; reference: parameter.py Constant).  Its
+    initializer copies ``value``; it is an instance of a class registered
+    under a name of its own, so that ``initialize`` finds it again by
+    that name (the JAX package registers the class but hands over an
+    instance of its unregistered base, whose name ``initialize`` does not
+    find)."""
+
+    def __init__(self, name, value):
+        if not isinstance(value, NDArray):
+            value = ndarray.array(value)
+        self.value = value
+
+        class Init(initializer.Initializer):
+            def _init_weight(self, _, arr):
+                value.copyto(arr)
+
+            _init_default = _init_weight
+
+        init_name = "Constant_{}_{}".format(name, id(self))
+        klass = initializer.register(type(init_name, (Init,), {}))
+        super().__init__(name, grad_req="null", shape=value.shape,
+                         dtype=value.dtype, init=klass())
+
+
 class ParameterDict:
     """Parameters by name, sharing a prefix (reference: parameter.py:560).
     Iteration order is creation order."""
@@ -312,6 +355,23 @@ class ParameterDict:
                     "'%s' vs stored '%s'." % (name, k, v, existing))
             elif existing is None:
                 setattr(param, k, v)
+        return param
+
+    def get_constant(self, name, value=None):
+        """The Constant ``prefix + name``, created from ``value`` if it does
+        not exist (reference: parameter.py get_constant)."""
+        name = self._prefix + name
+        param = self._get_impl(name)
+        if param is None:
+            if value is None:
+                raise KeyError("No constant named '%s'. Please specify "
+                               "value if you want to create a new constant."
+                               % name)
+            param = Constant(name, value)
+            self._params[name] = param
+        elif value is not None and not isinstance(param, Constant):
+            raise MXNetError("Parameter '%s' already exists but it is not a "
+                             "constant." % name)
         return param
 
     def update(self, other):

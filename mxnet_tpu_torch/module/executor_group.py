@@ -69,8 +69,8 @@ class DataParallelExecutorGroup:
     """The executor of a Module on one context (reference:
     executor_group.py:129)."""
 
-    def __init__(self, symbol, contexts, data_shapes, label_shapes,
-                 param_names, for_training, inputs_need_grad,
+    def __init__(self, symbol, contexts, workload, data_shapes,
+                 label_shapes, param_names, for_training, inputs_need_grad,
                  shared_group=None, logger=logging, fixed_param_names=None,
                  grad_req="write", state_names=None, compute_dtype=None,
                  cast_exclude=()):
@@ -84,6 +84,11 @@ class DataParallelExecutorGroup:
         self.aux_names = symbol.list_auxiliary_states()
         self.symbol = symbol
         self.contexts = [Context(c) for c in contexts]
+        self.workload = list(workload) if workload \
+            else [1] * len(self.contexts)
+        if len(self.workload) != len(self.contexts):
+            raise MXNetError("workload needs one entry a context: %s for %d"
+                             % (self.workload, len(self.contexts)))
         self.for_training = for_training
         self.inputs_need_grad = inputs_need_grad
         self.fixed_param_names = fixed_param_names or []
@@ -114,12 +119,15 @@ class DataParallelExecutorGroup:
         self.execs = []
         self.bind_exec(data_shapes, label_shapes, shared_group)
 
-    def bind_exec(self, data_shapes, label_shapes, shared_group=None):
-        """Bind the executor for these input shapes (reference: :330)."""
+    def bind_exec(self, data_shapes, label_shapes, shared_group=None,
+                  reshape=False):
+        """Bind the executor for these input shapes (reference: :330);
+        ``reshape`` is accepted and, as in the JAX package, changes
+        nothing: a rebind shares ``shared_group``'s arrays either way."""
         descs = list(data_shapes) + list(label_shapes or [])
         self.batch_size = descs[0].shape[DataDesc.get_batch_axis(
             getattr(descs[0], "layout", "NCHW"))]
-        self.slices = _split_input_slice(self.batch_size, [1])
+        self.slices = _split_input_slice(self.batch_size, self.workload)
         shapes = {d.name: tuple(d.shape) for d in descs}
         # float64 host data trains in float32, MXNet's default dtype
         type_dict = {d.name: np.float32 if np.dtype(d.dtype) == np.float64
@@ -156,7 +164,8 @@ class DataParallelExecutorGroup:
         if data_shapes == self.data_shapes \
                 and label_shapes == self.label_shapes:
             return
-        self.bind_exec(data_shapes, label_shapes, shared_group=self)
+        self.bind_exec(data_shapes, label_shapes, shared_group=self,
+                       reshape=True)
 
     def set_params(self, arg_params, aux_params, allow_extra=False):
         """Copy parameters into the executor (reference: :441)."""

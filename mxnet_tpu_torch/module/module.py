@@ -297,9 +297,9 @@ class Module(BaseModule):
                     "shared_module must be a bound, initialized Module")
             shared_group = shared_module._exec_group
         self._exec_group = DataParallelExecutorGroup(
-            self._symbol, self._context, self._data_shapes,
-            self._label_shapes, self._param_names, for_training,
-            inputs_need_grad, shared_group=shared_group, logger=self.logger,
+            self._symbol, self._context, self._work_load_list,
+            self._data_shapes, self._label_shapes, self._param_names,
+            for_training, inputs_need_grad, shared_group=shared_group, logger=self.logger,
             fixed_param_names=self._fixed_param_names, grad_req=grad_req,
             state_names=self._state_names,
             compute_dtype=self._compute_dtype,

@@ -1,16 +1,17 @@
 """Long-tail operators (counterpart of ``mxnet_tpu/ops/misc.py``;
 reference: src/operator/crop.cc, tensor/matrix_op.cc,
-contrib/quadratic_op.cc, identity_attach_KL_sparse_reg.cc).
+contrib/quadratic_op.cc, identity_attach_KL_sparse_reg.cc,
+image/image_random.cc).
 
-The image, PSROI, sparse-retain, cast-storage, Correlation and sparse
-embedding ops of that module are not ported yet (ROADMAP.md queues 2
-and 7).
+The PSROI, sparse-retain, cast-storage, Correlation and sparse embedding
+ops of that module are not ported yet (ROADMAP.md queue 1 item 8).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from .registry import normalize_tuple, register
+from .registry import _coerce, normalize_tuple, register
 
 
 @register("reshape_like")
@@ -116,3 +117,27 @@ def _identity_kl_sparse_reg(data, moving_rho=None, sparseness_target=0.1,
         return data, new_rho
     return (_KLSparseRegFn.apply(data, new_rho, float(sparseness_target),
                                  float(penalty)), new_rho)
+
+
+# -- image ops (reference: src/operator/image/image_random.cc) -------------
+@register("_image_to_tensor", aliases=("to_tensor",))
+def _image_to_tensor(data, **attrs):
+    """HWC in [0, 255] to CHW float32 in [0, 1] (reference:
+    image_random-inl.h ToTensor); NHWC becomes NCHW."""
+    x = data.to(torch.float32) / 255.0
+    if x.dim() == 3:
+        return x.permute(2, 0, 1)
+    return x.permute(0, 3, 1, 2)
+
+
+@register("_image_normalize", aliases=("image_normalize",))
+def _image_normalize(data, mean=(0.0,), std=(1.0,), **attrs):
+    """``(x - mean) / std`` by channel of a CHW or NCHW tensor (reference:
+    image_random-inl.h Normalize), one channel at a time with the float32
+    constants as scalars, so that no host array is copied to the card."""
+    axis = data.dim() - 3
+    n = data.shape[axis]
+    mean, std = (np.broadcast_to(np.atleast_1d(np.asarray(
+        _coerce(v), np.float32)), (n,)) for v in (mean, std))
+    return torch.stack([(x - float(m)) / float(s) for x, m, s in
+                        zip(data.unbind(axis), mean, std)], dim=axis)

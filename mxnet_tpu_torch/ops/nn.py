@@ -97,6 +97,9 @@ def _leaky_relu(data, gamma=None, act_type="leaky", slope=0.25,
 
 
 # -- Convolution ------------------------------------------------------------
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+
+
 @register("Convolution", aliases=("Convolution_v1",), params=[
     P("kernel", tuple, required=True, low=1, doc="conv window (h, w)"),
     P("num_filter", int, required=True, low=1, high=100000),
@@ -105,23 +108,32 @@ def _leaky_relu(data, gamma=None, act_type="leaky", slope=0.25,
     P("pad", tuple, default=None, low=0),
     P("num_group", int, default=1, low=1),
     P("no_bias", bool, default=False),
-    P("layout", ("NCHW", None), default=None)])
+    P("layout", ("NCHW", "NHWC", "NCW", "NCDHW", None), default=None)])
 def _convolution(data, weight, bias=None, kernel=None, stride=None,
                  dilate=None, pad=None, num_filter=None, num_group=1,
                  no_bias=False, layout=None, cudnn_tune=None, cudnn_off=False,
                  workspace=None, **attrs):
-    """Reference: src/operator/nn/convolution-inl.h.  2-D NCHW with OIHW
-    weights; num_group maps to ``groups``."""
+    """Reference: src/operator/nn/convolution-inl.h, over 1-3 spatial
+    dims as the JAX package computes it: channels first (NCW, NCHW,
+    NCDHW) with (O, I/group, k...) weights, or NHWC with (O, H, W, I)
+    weights, run channels first between two permutes; num_group maps to
+    ``groups`` (depthwise is num_group == channels)."""
     kernel = normalize_tuple(kernel)
-    if len(kernel) != 2 or data.dim() != 4:
-        raise MXNetError("Convolution: this package runs 2-D NCHW "
-                         "convolutions; got kernel %s on a %d-D input"
+    nd = len(kernel)
+    if nd not in _CONV or data.dim() != nd + 2:
+        raise MXNetError("Convolution: kernel %s on a %d-D input; this "
+                         "package convolves 1-3 spatial dims"
                          % (kernel, data.dim()))
-    stride = normalize_tuple(stride, 2) if stride else (1, 1)
-    dilate = normalize_tuple(dilate, 2) if dilate else (1, 1)
-    pad = normalize_tuple(pad, 2) if pad else (0, 0)
-    return F.conv2d(data, weight, None if no_bias else bias, stride=stride,
+    stride = normalize_tuple(stride, nd) if stride else (1,) * nd
+    dilate = normalize_tuple(dilate, nd) if dilate else (1,) * nd
+    pad = normalize_tuple(pad, nd) if pad else (0,) * nd
+    last = layout == "NHWC"
+    if last:
+        data = data.permute(0, 3, 1, 2)
+        weight = weight.permute(0, 3, 1, 2)
+    out = _CONV[nd](data, weight, None if no_bias else bias, stride=stride,
                     padding=pad, dilation=dilate, groups=num_group)
+    return out.permute(0, 2, 3, 1) if last else out
 
 
 _CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d,

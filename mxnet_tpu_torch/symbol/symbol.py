@@ -459,13 +459,21 @@ class Symbol:
         the outputs.  ``ctx`` defaults to the current context."""
         return self.bind(ctx, kwargs).forward()
 
-    def simple_bind(self, ctx=None, grad_req="null", type_dict=None,
-                    compute_dtype=None, cast_exclude=(), shared_exec=None,
-                    **kwargs):
+    def simple_bind(self, ctx=None, grad_req="write", type_dict=None,
+                    stype_dict=None, group2ctx=None, shared_arg_names=None,
+                    shared_exec=None, shared_buffer=None, *,
+                    compute_dtype=None, cast_exclude=(), **kwargs):
         """Allocate every argument, aux state and (for a ``grad_req`` of
         write or add: a string, a list in argument order or a dict) the
         gradient buffers from the inferred shapes, and bind (reference:
-        symbol.py:1284).  ``ctx`` defaults to the current context.
+        symbol.py:1284).  ``ctx`` defaults to the current context;
+        ``grad_req`` defaults to ``write``, as in MXNet.
+
+        ``stype_dict`` takes only the dense storage type and
+        ``group2ctx`` only the one device the executor runs on: sparse
+        arrays and model parallelism are not in this package yet.
+        ``shared_arg_names`` and ``shared_buffer`` are accepted and, as in
+        the JAX package, not used.
 
         ``compute_dtype="bfloat16"`` turns on the executor's
         mixed-precision policy (fp32 masters, bf16 compute); the names in
@@ -473,6 +481,23 @@ class Symbol:
         argument and aux state that it holds at the same shape is its
         NDArray, shared."""
         from ..executor import Executor
+        from ..context import Context, current_context
+        sparse = {k: v for k, v in (stype_dict or {}).items()
+                  if v not in (None, "default")}
+        if sparse:
+            raise MXNetError(
+                "simple_bind: storage types %s need sparse arrays "
+                "(ndarray/sparse.py), which this package does not have yet"
+                % sparse)
+        if group2ctx:
+            devices = {Context(c) for c in group2ctx.values()}
+            devices.add(Context(ctx if ctx is not None
+                                else current_context()))
+            if len(devices) > 1:
+                raise MXNetError(
+                    "simple_bind: group2ctx places the graph on %d devices "
+                    "(%s); this package binds an executor on one device"
+                    % (len(devices), sorted(map(str, devices))))
         return Executor._simple_bind(self, ctx, grad_req, type_dict, kwargs,
                                      compute_dtype, cast_exclude,
                                      shared_exec)

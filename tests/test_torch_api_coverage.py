@@ -27,7 +27,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = ("", "optimizer", "metric", "initializer", "lr_scheduler",
            "callback", "engine", "config", "autograd", "random", "name",
            "io", "model", "kvstore", "module", "gluon", "gluon.nn",
-           "gluon.loss", "serving")
+           "gluon.loss", "gluon.utils", "gluon.data", "gluon.data.vision",
+           "gluon.data.vision.transforms", "gluon.model_zoo",
+           "gluon.model_zoo.vision", "gluon.model_zoo.model_store",
+           "serving")
 
 DEFERRED = {
     # queue 1 item 2: foundation (the executor's telemetry and the
@@ -35,24 +38,9 @@ DEFERRED = {
     "queue 1 item 2": {
         "": {"telemetry", "compile_cache"},
     },
-    # queue 1 item 3: gluon
+    # queue 1 item 3: gluon (gluon/rnn and gluon/contrib/rnn)
     "queue 1 item 3": {
-        "gluon": {"Constant", "SymbolBlock", "clip_global_norm", "data",
-                  "model_zoo", "rnn", "split_and_load", "split_data",
-                  "utils"},
-        "gluon.nn": {"AvgPool1D", "AvgPool2D", "AvgPool3D", "BatchNorm",
-                     "Conv1D", "Conv1DTranspose", "Conv2D",
-                     "Conv2DTranspose", "Conv3D", "Conv3DTranspose", "ELU",
-                     "Flatten", "GlobalAvgPool1D", "GlobalAvgPool2D",
-                     "GlobalAvgPool3D", "GlobalMaxPool1D", "GlobalMaxPool2D",
-                     "GlobalMaxPool3D", "HybridLambda", "InstanceNorm",
-                     "Lambda", "LeakyReLU", "MaxPool1D", "MaxPool2D",
-                     "MaxPool3D", "PReLU", "ReflectionPad2D", "SELU",
-                     "Swish", "conv_layers"},
-        "gluon.loss": {"CTCLoss", "HingeLoss", "HuberLoss", "KLDivLoss",
-                       "LogisticLoss", "SigmoidBCELoss",
-                       "SigmoidBinaryCrossEntropyLoss", "SquaredHingeLoss",
-                       "TripletLoss"},
+        "gluon": {"rnn"},
     },
     # queue 1 item 5: serving
     "queue 1 item 5": {
@@ -78,6 +66,7 @@ DEFERRED = {
     # which comes with ndarray/sparse.py)
     "queue 1 item 8": {
         "io": {"LibSVMIter"},
+        "gluon.loss": {"CTCLoss"},
         "": {"CustomOp", "CustomOpProp", "operator", "contrib", "rtc",
              "test_utils", "th", "torch"},
     },
@@ -95,9 +84,28 @@ DEFERRED = {
     },
 }
 
-# the names the last two slices ported, none of which may be deferred:
-# the training-loop API, then the data pipeline and the module family
+# the names the last three slices ported, none of which may be deferred:
+# the training-loop API, the data pipeline and the module family, then
+# gluon's image path
 PORTED = {
+    "gluon": {"Constant", "SymbolBlock", "clip_global_norm", "data",
+              "model_zoo", "split_and_load", "split_data", "utils"},
+    "gluon.nn": {"AvgPool1D", "AvgPool2D", "AvgPool3D", "BatchNorm",
+                 "Conv1D", "Conv1DTranspose", "Conv2D", "Conv2DTranspose",
+                 "Conv3D", "Conv3DTranspose", "ELU", "Flatten",
+                 "GlobalAvgPool1D", "GlobalAvgPool2D", "GlobalAvgPool3D",
+                 "GlobalMaxPool1D", "GlobalMaxPool2D", "GlobalMaxPool3D",
+                 "HybridLambda", "InstanceNorm", "Lambda", "LeakyReLU",
+                 "MaxPool1D", "MaxPool2D", "MaxPool3D", "PReLU",
+                 "ReflectionPad2D", "SELU", "Swish", "conv_layers"},
+    "gluon.loss": {"HingeLoss", "HuberLoss", "KLDivLoss", "LogisticLoss",
+                   "SigmoidBCELoss", "SigmoidBinaryCrossEntropyLoss",
+                   "SquaredHingeLoss", "TripletLoss"},
+    "gluon.data": {"Dataset", "SimpleDataset", "ArrayDataset",
+                   "RecordFileDataset", "Sampler", "SequentialSampler",
+                   "RandomSampler", "BatchSampler", "DataLoader", "vision"},
+    "gluon.model_zoo.vision": {"get_model", "resnet50_v1", "ResNetV1",
+                               "mobilenet_v2_0_25", "inception_v3"},
     "io": {"ResizeIter", "PrefetchingIter", "MNISTIter", "CSVIter",
            "ImageRecordIter", "ImageDetRecordIter", "MXDataIter"},
     "model": {"FeedForward"},
@@ -128,7 +136,7 @@ PORTED = {
          "executor_manager"},
 }
 
-# the port's modules that the last two slices added or extended
+# the port's modules that the last three slices added or extended
 NEW_MODULES = ("mxnet_tpu_torch.optimizer", "mxnet_tpu_torch.metric",
                "mxnet_tpu_torch.initializer", "mxnet_tpu_torch.lr_scheduler",
                "mxnet_tpu_torch.callback", "mxnet_tpu_torch.engine",
@@ -143,7 +151,19 @@ NEW_MODULES = ("mxnet_tpu_torch.optimizer", "mxnet_tpu_torch.metric",
                "mxnet_tpu_torch.model", "mxnet_tpu_torch.executor_manager",
                "mxnet_tpu_torch.module.bucketing_module",
                "mxnet_tpu_torch.module.sequential_module",
-               "mxnet_tpu_torch.module.python_module")
+               "mxnet_tpu_torch.module.python_module",
+               "mxnet_tpu_torch.gluon", "mxnet_tpu_torch.gluon.block",
+               "mxnet_tpu_torch.gluon.parameter", "mxnet_tpu_torch.gluon.loss",
+               "mxnet_tpu_torch.gluon.utils", "mxnet_tpu_torch.gluon.nn",
+               "mxnet_tpu_torch.gluon.nn.conv_layers",
+               "mxnet_tpu_torch.gluon.data",
+               "mxnet_tpu_torch.gluon.data.dataloader",
+               "mxnet_tpu_torch.gluon.data.vision.datasets",
+               "mxnet_tpu_torch.gluon.data.vision.transforms",
+               "mxnet_tpu_torch.gluon.model_zoo",
+               "mxnet_tpu_torch.gluon.model_zoo.model_store",
+               "mxnet_tpu_torch.gluon.model_zoo.vision",
+               "mxnet_tpu_torch.symbol", "mxnet_tpu_torch.ops.misc")
 
 
 def _module(root, sub):

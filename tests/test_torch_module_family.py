@@ -424,3 +424,45 @@ def test_executor_manager_helpers():
         tmx.executor_manager._load_label(batch, [[(slice(0, 6), label_t)]])
     assert np.array_equal(data_t.asnumpy(), x)
     assert np.array_equal(label_t.asnumpy(), y)
+
+
+def test_executor_group_takes_the_reference_positional_arguments():
+    """Queue 3 item 3: ``DataParallelExecutorGroup(symbol, contexts,
+    workload, data_shapes, label_shapes, param_names, for_training,
+    inputs_need_grad)`` as the JAX package takes it, and ``bind_exec``
+    with ``reshape``; both packages' groups give the same outputs and
+    parameter gradients from the same parameters."""
+    x, y = _blobs(n=6)
+    out = {}
+    for mx in (jmx, tmx):
+        with tmx.cpu():
+            data = mx.sym.var("data")
+            fc = mx.sym.FullyConnected(data, name="fc", num_hidden=4)
+            sym = mx.sym.SoftmaxOutput(fc, name="softmax")
+            args, _ = _numpy_params(sym, data=(6, 8))
+            group = mx.module.DataParallelExecutorGroup(
+                sym, [mx.cpu()], [1], [mx.io.DataDesc("data", (6, 8))],
+                [mx.io.DataDesc("softmax_label", (6,))],
+                ["fc_weight", "fc_bias"], True, False)
+            assert group.workload == [1]
+            group.set_params(_nd(mx, args), {})
+            batch = mx.io.DataBatch([mx.nd.array(x)], [mx.nd.array(y)])
+            group.forward(batch, is_train=True)
+            group.backward()
+            outs = [group.get_outputs()[0].asnumpy()] + \
+                [g[0].asnumpy() for g in group.grad_arrays]
+            group.bind_exec([mx.io.DataDesc("data", (3, 8))],
+                            [mx.io.DataDesc("softmax_label", (3,))],
+                            shared_group=group, reshape=True)
+            group.forward(mx.io.DataBatch([mx.nd.array(x[:3])],
+                                          [mx.nd.array(y[:3])]),
+                          is_train=False)
+            out[mx] = outs + [group.get_outputs()[0].asnumpy()]
+    for got, want in zip(out[tmx], out[jmx]):
+        assert _rel(got, want) <= TOL
+    assert out[tmx][-1].shape == (3, 4)
+    with pytest.raises(tmx.base.MXNetError, match="workload"):
+        with tmx.cpu():
+            tmx.module.DataParallelExecutorGroup(
+                sym, [tmx.cpu()], [1, 1], [tmx.io.DataDesc("data", (6, 8))],
+                None, ["fc_weight", "fc_bias"], False, False)

@@ -19,7 +19,7 @@ sys.path.insert(0, REPO)
 import chip_smoke  # noqa: E402
 
 DEFERRED = {
-    # detection and ROI (ROADMAP queue 7)
+    # detection and ROI (ROADMAP queue 1 item 8)
     "MultiBoxDetection", "MultiBoxPrior", "MultiBoxTarget", "Proposal",
     "ROIPooling", "_contrib_MultiBoxDetection", "_contrib_MultiBoxPrior",
     "_contrib_MultiBoxTarget", "_contrib_MultiProposal", "_contrib_Proposal",
@@ -27,19 +27,17 @@ DEFERRED = {
     "_contrib_DeformableConvolution", "_contrib_DeformablePSROIPooling",
     "_contrib_bipartite_matching", "_contrib_box_iou", "_contrib_box_nms",
     "_contrib_box_non_maximum_suppression",
-    # quantization (queue 7)
+    # quantization (queue 1 item 8)
     "_contrib_quantize", "_contrib_quantize_v2", "_contrib_dequantize",
     "_contrib_requantize", "_contrib_quantized_conv",
     "_contrib_quantized_flatten", "_contrib_quantized_fully_connected",
     "_contrib_quantized_pooling",
-    # sparse, with ndarray/sparse.py (queue 7)
+    # sparse, with ndarray/sparse.py (queue 1 item 8)
     "_sparse_adagrad_update", "cast_storage", "_sparse_retain",
     "sparse_retain", "_square_sum", "square_sum", "_contrib_SparseEmbedding",
-    # image, with gluon.data.vision (queue 2)
-    "_image_normalize", "_image_to_tensor", "image_normalize", "to_tensor",
-    # CTC (queue 7)
+    # CTC (queue 1 item 8)
     "CTCLoss", "_contrib_CTCLoss", "_contrib_ctc_loss", "ctc_loss",
-    # the spatial-transformer family (queue 7)
+    # the spatial-transformer family (queue 1 item 8)
     "BilinearSampler", "GridGenerator", "SpatialTransformer", "Correlation",
 }
 
@@ -64,15 +62,15 @@ EARLIER = {
 
 
 def test_the_port_holds_every_jax_op_but_the_deferred_ones():
-    assert len(DEFERRED) == 46
+    assert len(DEFERRED) == 42
     assert set(JAX_OPS) - set(PORT_OPS) == DEFERRED
     assert set(PORT_OPS) - set(JAX_OPS) == set()
-    assert len(PORT_OPS) == len(JAX_OPS) - 46
+    assert len(PORT_OPS) == len(JAX_OPS) - 42
 
 
 def test_every_name_of_the_slice_is_exercised():
     new = set(PORT_OPS) - EARLIER
-    assert len(new) == 267
+    assert len(new) == 271
     cased = {c["name"] for c in chip_smoke.OP_CASES}
     # LeakyReLU (rrelu), Dropout and RNN (between its layers) draw a
     # mask; they are not samplers

@@ -305,17 +305,31 @@ def test_params_from_numpy_names_what_is_missing():
 
 
 def test_simple_bind_is_inference_only():
-    """By default (grad_req null) simple_bind binds for inference only: no
-    gradient buffers, a training forward runs BatchNorm on the batch's
-    stats without a backward, and backward() does nothing; write
-    allocates a gradient per argument; other values raise."""
+    """``grad_req="null"`` binds for inference only: no gradient buffers,
+    a training forward runs BatchNorm on the batch's stats without a
+    backward, and backward() does nothing.  The default is the reference's
+    ``write``, as in the JAX package: a gradient per argument, which a
+    training forward and backward fill; other values raise."""
     ps = port_resnet.get_symbol(10, 8, "3,32,32")
     with pytest.raises(MXNetError, match="grad_req"):
         ps.simple_bind(ctx=tmx.cpu(), grad_req="sum", data=(1, 3, 32, 32))
     wexe = ps.simple_bind(ctx=tmx.cpu(), grad_req="write",
                           data=(1, 3, 32, 32))
     assert set(wexe.grad_dict) == set(ps.list_arguments())
-    exe = ps.simple_bind(ctx=tmx.cpu(), data=(2, 3, 32, 32))
+    dexe = ps.simple_bind(ctx=tmx.cpu(), data=(2, 3, 32, 32))
+    jexe = jax_resnet.get_symbol(10, 8, "3,32,32").simple_bind(
+        ctx=jmx.cpu(), data=(2, 3, 32, 32))
+    assert sorted(dexe.grad_dict) == sorted(jexe.grad_dict) \
+        == sorted(ps.list_arguments())
+    rng = np.random.RandomState(27)
+    for n, a in dexe.arg_dict.items():
+        a[:] = rng.randn(*a.shape).astype(np.float32)
+    dexe.arg_dict["softmax_label"][:] = np.array([1, 2], np.float32)
+    dexe.forward(is_train=True)
+    dexe.backward()
+    g = dexe.grad_dict["fc1_weight"].asnumpy()
+    assert np.isfinite(g).all() and np.abs(g).max() > 0
+    exe = ps.simple_bind(ctx=tmx.cpu(), grad_req="null", data=(2, 3, 32, 32))
     assert exe.grad_dict == {}
     for n, a in exe.aux_dict.items():
         a[:] = 1.0 if n.endswith("_var") else 0.0
@@ -326,3 +340,39 @@ def test_simple_bind_is_inference_only():
     exe.backward()                  # no gradients to compute: a no-op
     with pytest.raises(MXNetError, match="unknown forward argument"):
         exe.forward(images=np.zeros((1, 3, 32, 32), np.float32))
+
+
+def test_simple_bind_takes_the_reference_keywords():
+    """Queue 3 item 1: ``stype_dict``, ``group2ctx``, ``shared_arg_names``
+    and ``shared_buffer`` in the reference's positional order, as the JAX
+    package takes them; a sparse storage type or a second device raises
+    MXNetError naming what is missing, the port's own ``compute_dtype``
+    and ``cast_exclude`` are keywords only."""
+    import inspect
+    want = ["ctx", "grad_req", "type_dict", "stype_dict", "group2ctx",
+            "shared_arg_names", "shared_exec", "shared_buffer"]
+    for mx in (jmx, tmx):
+        params = list(inspect.signature(mx.sym.Symbol.simple_bind)
+                      .parameters)
+        assert params[1:len(want) + 1] == want
+    kinds = inspect.signature(tmx.sym.Symbol.simple_bind).parameters
+    assert kinds["compute_dtype"].kind is inspect.Parameter.KEYWORD_ONLY
+    assert kinds["cast_exclude"].kind is inspect.Parameter.KEYWORD_ONLY
+    ps = port_resnet.get_symbol(10, 8, "3,32,32")
+    js = jax_resnet.get_symbol(10, 8, "3,32,32")
+    for sym, ctx in ((ps, tmx.cpu()), (js, jmx.cpu())):
+        exe = sym.simple_bind(ctx, "null", None, {"data": "default"},
+                              {"dev1": ctx}, ["fc1_weight"], None, {},
+                              data=(1, 3, 32, 32))
+        assert exe.grad_dict == {}
+        assert exe.arg_dict["data"].shape == (1, 3, 32, 32)
+    with pytest.raises(MXNetError, match="ndarray/sparse.py"):
+        ps.simple_bind(tmx.cpu(), stype_dict={"fc1_weight": "row_sparse"},
+                       data=(1, 3, 32, 32))
+    with pytest.raises(MXNetError, match="one device"):
+        ps.simple_bind(tmx.cpu(), group2ctx={"a": tmx.cpu(0),
+                                             "b": tmx.gpu(0)},
+                       data=(1, 3, 32, 32))
+    with pytest.raises(TypeError):
+        ps.simple_bind(tmx.cpu(), "null", None, None, None, None, None,
+                       None, "bfloat16", data=(1, 3, 32, 32))
