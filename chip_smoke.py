@@ -4,7 +4,8 @@
 Run from the repository root on a machine with an NVIDIA GPU and the CUDA
 toolkit (``nvcc`` on PATH or under ``$CUDA_HOME``)::
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # every phase
+    python3 chip_smoke.py observability    # phases 1-2, then 19 alone
 
 Phases, each of which raises on failure:
 
@@ -256,6 +257,26 @@ Phases, each of which raises on failure:
    and served through ``SymbolBlock.imports``: 4 batches bitwise equal to
    a ``Predictor``'s at batch 32 from the same files, with K3 at 33
    sites and K2 once a forward;
+19. (after the timing below) telemetry, tracing and the profiler: (a)
+   phase 5's ResNet-50 fit, 3 + 10 steps cuDNN deterministic, with
+   ``MXNET_TELEMETRY``, the step log, tracing and the profiler's device
+   trace (``set_config(jax_trace_dir=...)``, torch.profiler) on, then on
+   without the profiler and all off in turns (``OBS_RUNS``): weights on
+   and off bitwise equal, one step line a batch, no compile past the
+   first step, the kernel counter ``mxnet_pallas_kernel_calls_total``
+   at 2 K1b and 1 K2 a step and equal to the device trace's launches,
+   the exposition valid, the dump holding the ``fit.step`` spans, the
+   ``'C'`` events and the kernels; the step's cost of telemetry; (b)
+   phase 4's load through ``ModelServer`` with all of it on: ``stats()``
+   equal to the ``mxnet_serving_*`` families, cache misses equal to
+   compiles, K3 33 and K2 1 a forward on the counter and in the trace,
+   one ``serving:batch`` span a forward; (c) gluon.rnn's medium LSTM LM
+   (``LSTM_LM``: Zaremba et al. 2014) trained by ``gluon.Trainer`` with
+   ``clip_global_norm``: its first step (dropout 0) against the CPU
+   within ``LSTM_LM_TOL``, the LSTM layer against its unrolled
+   ``LSTMCell``s within ``FUSED_TOL``, 3 + 10 timed steps, 10 steps on
+   the first batch alone with the loss falling, the step's device busy
+   time and its parts' alone;
 then every kernel's device time by the profiler (K6b's with the L2 cache
 overwritten before each launch; the bf16 instances of K3, K6a, K6b,
 K7a, K7b and K7c that phase 15 launches beside their plain versions,
@@ -268,14 +289,16 @@ Prints one JSON line ``{"checkpoints": {...}}`` with phase 13's numbers,
 ``{"mixed_precision": {...}}`` with phase 15's, ``{"training_loop":
 {...}}`` with phase 16's, ``{"data_pipeline": {...}}`` with phase 17's
 (with the records fit's idle share), ``{"gluon": {...}}`` with phase
-18's (with its step's idle share and per-array SGD's device time), one
+18's (with its step's idle share and per-array SGD's device time),
+``{"observability": {...}}`` with phase 19's, one
 ``{"kernels":
 [...]}`` (all twelve kernels; K3, K2 and K1b with their
 ``launches_inception``, K1b, K2, K3, K6a, K6b, K7a, K7b and K7c with
 their ``launches_mixed``, K2 and K3 with their
 ``launches_training_loop``, K1b, K2 and K3 with their
 ``launches_data_pipeline``, K2 and K3 with their ``launches_gluon``
-(a SymbolBlock forward's), K2 with its ``lm`` jobs (the parent's
+(a SymbolBlock forward's), K1b, K2 and K3 with their
+``launches_observability`` (phase 19's counter and device trace), K2 with its ``lm`` jobs (the parent's
 strided form's times beside them) and its wide rows' SASS counts
 (``sass_wide``), K3,
 K6a, K7b and K7c with their ``bf16``
@@ -5369,6 +5392,662 @@ def gluon_profile(mx, net, trainer, loss_fn, batch_xy, batch, step_ms):
             "top": sorted(fwd_bwd.items(), key=lambda kv: -kv[1])[:8]}
 
 
+# ---------------------------------------------------------------------------
+# phase 19: telemetry, tracing and the profiler on the two main paths, and
+# gluon.rnn's LSTM language model
+# ---------------------------------------------------------------------------
+OBS_WARMUP = 3              # untimed steps of each telemetry fit
+OBS_STEPS = 10              # timed steps
+# the fits of phase 19 (a), in this order: telemetry, the step log and
+# tracing on and all off, in turns, then all of them and the profiler's
+# device trace (last: a profiler session slows the host after it)
+OBS_RUNS = ("on", "off", "off", "on", "profiled")
+# kernel counter labels (the JAX package's) -> fragments of the names of
+# the kernels the device trace must hold as many of
+OBS_KERNELS = {"fused_sgd_momentum": ("sweep_kernel",),
+               "fused_softmax_fwd": dict(SOFTMAX_KINDS)["K2"],
+               "fused_scale_bias_relu": ("scale_bias_relu",)}
+# Zaremba, Sutskever & Vinyals 2014, "Recurrent Neural Network
+# Regularization" §4.1, the medium model: two LSTM layers of 650 units over
+# 650-wide embeddings, 35 unrolled steps, batch 20, dropout 0.5 on the
+# non-recurrent connections, PTB's 10,000 words, weights U(-0.05, 0.05),
+# SGD lr 1 on the loss summed over steps and averaged over the batch, its
+# gradient clipped to norm 5.  Layout of example/gluon/word_language_model
+LSTM_LM = {"vocab": 10000, "hidden": 650, "layers": 2, "steps": 35,
+           "batch": 20, "dropout": 0.5, "lr": 1.0, "clip": 5.0,
+           "init": 0.05}
+LSTM_LM_WARMUP = 3          # untimed steps from the stream
+LSTM_LM_TIMED = 10          # timed steps
+LSTM_LM_FIXED = 10          # steps on the first batch alone
+LSTM_LM_WINDOW = 3          # losses averaged at each end of those
+# The first step (dropout 0, the same parameters) on the card against the
+# port's CPU replay: loss and every parameter's gradient within this much
+# of its largest magnitude.  Both are fp32 with sums in other orders (the
+# decoder's input gradient sums 10,000 terms, the weight gradients 700
+# tokens, the LSTM's 35 steps feed back): ~sqrt(n) u = 1e-5 at worst, and
+# cuDNN's LSTM is exact to fp32 rounding (FUSED_TOL's 3.3e-7 to 3.8e-7 at
+# hidden 200).  A wrong gate order, a dropout left on or a lost state is
+# off by the values themselves.
+LSTM_LM_TOL = 1e-4
+
+
+def _families(snap, name, key):
+    """``{label value: value}`` of family ``name`` in a telemetry
+    snapshot, by label ``key``."""
+    fam = snap.get(name, {"values": []})
+    return {v["labels"].get(key): v["value"] for v in fam["values"]}
+
+
+def _total(snap, name, **labels):
+    """The sum of a counter family's series whose labels hold
+    ``labels``."""
+    fam = snap.get(name, {"values": []})
+    return sum(v["value"] for v in fam["values"]
+               if all(v["labels"].get(k) == x for k, x in labels.items()))
+
+
+def dump_counts(dump, kernels=OBS_KERNELS):
+    """What a profiler dump holds: its ``fit.step`` and
+    ``serving:batch`` spans, ``'C'`` counter events, device events, and
+    the device kernels of each ``kernels`` label."""
+    evs = dump["traceEvents"]
+    device = [e for e in evs if e.get("pid") == "device"]
+    out = {"fit.step": sum(1 for e in evs if e["name"] == "fit.step"),
+           "serving:batch": sum(1 for e in evs
+                                if e["name"] == "serving:batch"),
+           "serving.request": sum(1 for e in evs
+                                  if e["name"] == "serving.request"),
+           "counters": sum(1 for e in evs if e["ph"] == "C"),
+           "device_events": len(device)}
+    out["launches"] = {label: sum(1 for e in device
+                                  if e.get("cat") == "kernel"
+                                  and any(f in e["name"] for f in frags))
+                       for label, frags in kernels.items()}
+    return out
+
+
+class observed:
+    """Telemetry (the registry reset; with ``counters``, the hot paths'
+    recording on; the step log at ``log`` where given), tracing (with
+    ``spans``, every trace kept) and, with ``trace_dir``, the profiler
+    with its device trace, on for a block; all off after it."""
+
+    def __init__(self, mx, log=None, trace_dir=None, counters=True,
+                 spans=True):
+        self.mx, self.log, self.trace_dir = mx, log, trace_dir
+        self.counters, self.spans = counters, spans
+        self.dump = None
+
+    def __enter__(self):
+        from mxnet_tpu_torch.telemetry import tracing
+        mx = self.mx
+        mx.telemetry.reset()
+        tracing.reset()
+        if self.counters:
+            mx.telemetry.enable()
+        if self.spans:
+            tracing.enable(sample=1.0, seed=SEED)
+        if self.log is not None:
+            if os.path.exists(self.log):
+                os.remove(self.log)
+            os.environ["MXNET_TELEMETRY_STEP_LOG"] = self.log
+        if self.trace_dir is not None:
+            mx.profiler.set_config(
+                jax_trace_dir=self.trace_dir,
+                filename=os.path.join(self.trace_dir, "profile.json"))
+            mx.profiler.set_state("run")
+        return self
+
+    def __exit__(self, *exc):
+        from mxnet_tpu_torch.telemetry import tracing
+        mx = self.mx
+        if self.trace_dir is not None:
+            mx.profiler.set_state("stop")
+            self.dump = json.loads(mx.profiler.dumps(reset=True))
+        os.environ.pop("MXNET_TELEMETRY_STEP_LOG", None)
+        mx.telemetry.disable()
+        tracing.disable()
+        tracing.reset()
+
+
+def telemetry_fit(mx, ck, ctx, sym, image, batch=BATCH, warmup=OBS_WARMUP,
+                  steps=OBS_STEPS, classes=CLASSES, workdir="."):
+    """Phase 19 (a): ``train``'s fit from one initialisation, the runs of
+    ``OBS_RUNS`` in turns, cuDNN deterministic.  The profiled run's step
+    log, registry, exposition and dump are read; its weights are held to
+    the first run with everything off, bitwise."""
+    from mxnet_tpu_torch import telemetry
+    arg, aux = initial_params(mx, ctx, sym, image, batch)
+    log = os.path.join(workdir, "steps.jsonl")
+    trace_dir = os.path.join(workdir, "trace")
+    step_ms = {"profiled": [], "on": [], "off": []}
+    params, out = {}, {}
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for mode in OBS_RUNS:
+            scope = (observed(mx, log, trace_dir) if mode == "profiled"
+                     else observed(mx, log) if mode == "on"
+                     else contextlib.nullcontext())
+            with scope as obs:
+                mod, res = train(mx, ck, ctx, sym, image, batch, steps,
+                                 warmup, arg_params=arg, aux_params=aux,
+                                 classes=classes)
+                snap = telemetry.snapshot()
+                text = telemetry.prometheus_text()
+            step_ms[mode].append(res["step_ms"])
+            if mode not in params:
+                a, x = mod.get_params()
+                params[mode] = {k: v.asnumpy() for k, v in
+                                list(a.items()) + list(x.items())}
+            if mode != "profiled":
+                continue
+            with open(log) as f:
+                lines = [json.loads(l) for l in f]
+            try:
+                telemetry.validate_exposition(text)
+                valid = True
+            except ValueError:
+                valid = False
+            out.update(
+                step_lines=len(lines),
+                step_keys=sorted(lines[0]) if lines else [],
+                compiles_first=lines[0].get("mxnet_xla_compiles_delta")
+                if lines else None,
+                compiles_after_first=sum(
+                    l.get("mxnet_xla_compiles_delta", 0) for l in lines[1:]),
+                counter=_families(snap, "mxnet_pallas_kernel_calls_total",
+                                  "kernel"),
+                launches=res["calls"], exposition_valid=valid,
+                exposition_bytes=len(text), dump=dump_counts(obs.dump),
+                device_trace_mb=os.path.getsize(os.path.join(
+                    trace_dir, "device-trace-%d.json" % os.getpid())) / 1e6)
+            prof_mod = mod
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    out["weights_bitwise"] = all(
+        np.array_equal(params["profiled"][k], params["off"][k])
+        for k in params["off"]) and params["on"].keys() == \
+        params["off"].keys() and all(
+        np.array_equal(params["on"][k], params["off"][k])
+        for k in params["off"])
+    on, off = np.mean(step_ms["on"]), np.mean(step_ms["off"])
+    out.update(step_ms=step_ms, step_ms_on=float(on), step_ms_off=float(off),
+               cost=float(on / off - 1), steps=warmup + steps)
+    if ctx.device_type == "gpu":
+        prof = step_profile(prof_mod, synthetic_iter(
+            mx, ctx, batch, image, 1, classes=classes).next(), on)
+        out["idle_share"] = prof["idle_share"] if prof else None
+        out["step_busy_us"] = prof["busy_us"] if prof else None
+    return out
+
+
+def telemetry_serve(mx, ck, ctx, sym, image, n_sites, max_batch=BATCH,
+                    n_requests=REQUESTS, n_clients=CLIENTS, seed=SEED,
+                    classes=CLASSES, workdir="."):
+    """Phase 19 (b): phase 4's load through ``ModelServer`` with
+    telemetry, tracing and the profiler on: ``stats()`` against the
+    registry's ``mxnet_serving_*`` families, the cache's misses against
+    the executor's compiles, the kernel counter against the device
+    trace."""
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.serving import ModelServer
+    arg, aux = he_params(sym, image, seed)
+    args, auxs = mx.convert.params_from_numpy(arg, aux, ctx, symbol=sym)
+    del arg, aux
+    rng = np.random.RandomState(seed + 1)
+    xs = [rng.randn(rng.randint(1, 4), *image).astype(np.float32)
+          for _ in range(n_requests)]
+    answers, errors = [None] * n_requests, []
+
+    def client(k):
+        try:
+            for i in range(k, n_requests, n_clients):
+                answers[i] = srv.infer("resnet", {"data": xs[i]},
+                                       timeout_ms=120000.0)[0]
+        except Exception as exc:    # noqa: BLE001 — re-raised below
+            errors.append(exc)
+
+    with observed(mx, trace_dir=os.path.join(workdir, "serve")) as obs:
+        ck.reset_kernel_calls()
+        srv = ModelServer(max_batch=max_batch, ctx=ctx)
+        srv.add_model("resnet", sym, args, auxs,
+                      {"data": (1,) + tuple(image)})
+        srv.start()
+        try:
+            warmed = srv.warmup("resnet")
+            threads = [threading.Thread(target=client, args=(k,))
+                       for k in range(n_clients)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+        finally:
+            srv.stop()
+        snap = telemetry.snapshot()
+        text = telemetry.prometheus_text()
+    if errors:
+        raise errors[0]
+    telemetry.validate_exposition(text)
+    st = srv.stats()
+    req, cache = st["requests"], st["executor_cache"]
+    agree = {
+        "submitted": (req["submitted"],
+                      _total(snap, "mxnet_serving_requests_total",
+                             outcome="submitted")),
+        "served": (req["served"], _total(
+            snap, "mxnet_serving_requests_total", outcome="served")),
+        "batches": (st["batches"]["count"],
+                    _total(snap, "mxnet_serving_batches_total")),
+        "rows": (st["batches"]["rows"],
+                 _total(snap, "mxnet_serving_batch_rows_total")),
+        "hits": (cache["hits"], _total(
+            snap, "mxnet_serving_cache_events_total", outcome="hit")),
+        "misses": (cache["misses"], _total(
+            snap, "mxnet_serving_cache_events_total", outcome="miss")),
+        "latency_count": (len([a for a in answers if a is not None])
+                          + len(warmed),
+                          snap["mxnet_serving_latency_ms"]["values"][0]
+                          ["count"])}
+    forwards = st["batches"]["count"]
+    counter = _families(snap, "mxnet_pallas_kernel_calls_total", "kernel")
+    finite = all(a is not None and a.shape == (x.shape[0], classes)
+                 and np.isfinite(a).all() for a, x in zip(answers, xs))
+    return {"requests": n_requests, "warmup": len(warmed),
+            "batches": forwards,
+            "stats_agree": all(a == b for a, b in agree.values()),
+            "agree": agree, "misses": cache["misses"],
+            "compiles": _total(snap, "mxnet_xla_compiles_total"),
+            "counter": counter, "launches": ck.kernel_calls(),
+            "counter_per_forward": {k: v / forwards
+                                    for k, v in counter.items()},
+            "dump": dump_counts(obs.dump), "finite": finite,
+            "exposition_bytes": len(text)}
+
+
+def lstm_vs_cells(mx, ctx, hidden=LSTM_LM["hidden"], embed=LSTM_LM["hidden"],
+                  batch=LSTM_LM["batch"], steps=LSTM_LM["steps"], seed=SEED):
+    """``gluon.rnn.LSTM(hidden, num_layers=2)`` against an unrolled
+    ``SequentialRNNCell`` of two ``LSTMCell``s with the same weights, on
+    ``ctx`` in predict mode: the outputs and final states, each as its
+    largest difference over its largest magnitude."""
+    rng = np.random.RandomState(seed)
+    with mx.Context(ctx):
+        with mx.name.NameManager():
+            lstm = mx.gluon.rnn.LSTM(hidden, num_layers=2, layout="TNC",
+                                     input_size=embed, prefix="lstm_")
+            cells = mx.gluon.rnn.SequentialRNNCell(prefix="cells_")
+            with cells.name_scope():
+                for i in range(2):
+                    cells.add(mx.gluon.rnn.LSTMCell(
+                        hidden, input_size=embed if i == 0 else hidden,
+                        prefix="l%d_" % i))
+        lim = 1.0 / math.sqrt(hidden)
+        lstm_arrays = {
+            n: rng.uniform(-lim, lim, p.shape).astype(np.float32)
+            for n, p in lstm.collect_params().items()}
+        mx.convert.block_params_from_numpy(lstm, lstm_arrays, ctx=ctx)
+        mx.convert.block_params_from_numpy(cells, {
+            "cells_l%d_%s" % (i, kind): lstm_arrays["lstm_l%d_%s" % (i, kind)]
+            for i in range(2) for kind in ("i2h_weight", "h2h_weight",
+                                           "i2h_bias", "h2h_bias")}, ctx=ctx)
+        x = mx.nd.array(rng.uniform(-1, 1, (steps, batch, embed))
+                        .astype(np.float32))
+        begin = [mx.nd.array(rng.uniform(-1, 1, (2, batch, hidden))
+                             .astype(np.float32)) for _ in range(2)]
+        out, (h, c) = lstm(x, begin)
+        cell_begin = [begin[k][i:i + 1].reshape((batch, hidden))
+                      for i in range(2) for k in range(2)]
+        outs, states = cells.unroll(steps, x, begin_state=cell_begin,
+                                    layout="TNC", merge_outputs=True)
+    fused_states = np.concatenate([h.asnumpy(), c.asnumpy()], 0)
+    cell_states = np.stack([states[k].asnumpy() for k in (0, 2, 1, 3)])
+    return {"output": largest_rel(out.asnumpy(), outs.asnumpy()),
+            "states": largest_rel(fused_states, cell_states)}
+
+
+def lstm_lm_model(mx, vocab, hidden, layers, dropout):
+    """The LM of example/gluon/word_language_model (RNNModel, tied
+    weights off): Embedding, dropout, LSTM (TNC), dropout, Dense over the
+    vocabulary; ``net(tokens, state) -> (logits, state)``."""
+    class LSTMLM(mx.gluon.Block):
+        def __init__(self):
+            super().__init__(prefix="lstmlm_")
+            with self.name_scope():
+                self.embedding = mx.gluon.nn.Embedding(vocab, hidden)
+                self.drop = mx.gluon.nn.Dropout(dropout)
+                self.rnn = mx.gluon.rnn.LSTM(hidden, num_layers=layers,
+                                             dropout=dropout, layout="TNC",
+                                             input_size=hidden)
+                self.decoder = mx.gluon.nn.Dense(vocab, flatten=False,
+                                                 in_units=hidden)
+
+        def forward(self, x, state):
+            out, state = self.rnn(self.drop(self.embedding(x)), state)
+            return self.decoder(self.drop(out)), state
+
+    return LSTMLM()
+
+
+def lm_stream(vocab, steps, batch, n_batches, seed=SEED):
+    """``n_batches`` (x, y) pairs of (steps, batch) token ids cut from one
+    synthetic corpus as the example's batchify does: word ids drawn from
+    Zipf's law over the vocabulary (PTB's rank-frequency shape), from
+    ``seed``."""
+    rng = np.random.RandomState(seed)
+    p = 1.0 / np.arange(1, vocab + 1)
+    n = steps * n_batches + 1
+    corpus = rng.choice(vocab, size=n * batch, p=p / p.sum())
+    cols = corpus.reshape(batch, n).T.astype(np.float32)
+    return [(cols[i * steps:(i + 1) * steps],
+             cols[i * steps + 1:(i + 1) * steps + 1])
+            for i in range(n_batches)]
+
+
+def lm_train_step(mx, net, trainer, loss_fn, params, x, y, state, clip,
+                  vocab, batch):
+    """One step as the example's train loop: the state detached, the loss
+    summed over the steps' tokens (averaged over the batch by
+    ``trainer.step(batch)``), the gradients clipped to ``clip`` of that
+    average.  Returns the per-token losses and the new state."""
+    state = [s.detach() for s in state]
+    with mx.autograd.record():
+        out, state = net(x, state)
+        loss = loss_fn(out.reshape((-1, vocab)), y.reshape((-1,)))
+    loss.backward()
+    mx.gluon.utils.clip_global_norm([p.grad() for p in params],
+                                    clip * batch)
+    trainer.step(batch)
+    return loss, state
+
+
+def lstm_lm_first_step(mx, ctx, cfg, x, y, seed=SEED):
+    """The first step's loss and gradients, dropout 0, on ``ctx`` against
+    a replay on the CPU from the same parameters: the largest distance of
+    each over its largest magnitude."""
+    res = {}
+    for where in (ctx, mx.cpu()):
+        with mx.Context(where):
+            with mx.name.NameManager():
+                net = lstm_lm_model(mx, cfg["vocab"], cfg["hidden"],
+                                    cfg["layers"], 0.0)
+            mx.random.seed(seed)
+            net.initialize(mx.init.Uniform(cfg["init"]))
+            if res:
+                mx.convert.block_params_from_numpy(
+                    net, res["params"], ctx=where)
+            state = net.rnn.begin_state(x.shape[1])
+            with mx.autograd.record():
+                out, _ = net(mx.nd.array(x), state)
+                loss = mx.gluon.loss.SoftmaxCrossEntropyLoss()(
+                    out.reshape((-1, cfg["vocab"])),
+                    mx.nd.array(y).reshape((-1,)))
+            loss.backward()
+            got = {"loss": loss.asnumpy(), "grads": {
+                k: p.grad().asnumpy() for k, p in
+                net.collect_params().items()}}
+        if not res:
+            res = dict(got, params={k: p.data().asnumpy() for k, p in
+                                    net.collect_params().items()})
+        else:
+            res["replay"] = got
+    grad_rel = {k: largest_rel(res["grads"][k], res["replay"]["grads"][k])
+                for k in res["grads"]}
+    return {"loss": float(res["loss"].mean()),
+            "loss_rel": largest_rel(res["loss"], res["replay"]["loss"]),
+            "grad_max_rel": max(grad_rel.values()),
+            "worst_param": max(grad_rel, key=grad_rel.get)}
+
+
+def lstm_lm_kinds(mx, net, trainer, loss_fn, params, x, y, state, cfg,
+                  n=5):
+    """Device time of the LM step's parts, each alone by the profiler
+    (cuDNN's LSTM runs its products as cuBLAS GEMMs, so kernel names do
+    not tell the LSTM's from the decoder's): the LSTM's training
+    forward, its forward and backward, the decoder's forward and
+    backward, the loss's, the clipping and per-array SGD
+    (``Trainer.step``), in us."""
+    emb = net.embedding(x).detach()
+    hid = mx.nd.array(np.random.RandomState(SEED).randn(
+        x.shape[0], x.shape[1], cfg["hidden"]).astype(np.float32),
+        ctx=x.context)
+    logits = net.decoder(hid).reshape((-1, cfg["vocab"])).detach()
+    yf = y.reshape((-1,))
+
+    def rnn_fwd():
+        with mx.autograd.record():
+            net.rnn(emb, state)
+
+    def rnn_fwd_bwd():
+        with mx.autograd.record():
+            out, _ = net.rnn(emb, state)
+            s = out.sum()
+        s.backward()
+
+    def decoder():
+        with mx.autograd.record():
+            s = net.decoder(hid).sum()
+        s.backward()
+
+    def loss():
+        logits.attach_grad()
+        with mx.autograd.record():
+            v = loss_fn(logits, yf)
+        v.backward()
+
+    def clip():
+        mx.gluon.utils.clip_global_norm([p.grad() for p in params],
+                                        cfg["clip"] * cfg["batch"])
+
+    def sgd():
+        trainer.step(cfg["batch"])
+
+    us = {}
+    for name, fn in (("LSTM forward (cuDNN)", rnn_fwd),
+                     ("LSTM forward+backward (cuDNN)", rnn_fwd_bwd),
+                     ("decoder forward+backward (GEMM)", decoder),
+                     ("loss forward+backward", loss),
+                     ("clip_global_norm", clip),
+                     ("Trainer.step (per-array SGD)", sgd)):
+        us[name] = sum(device_times(fn, n=n).values())
+    us["LSTM backward (cuDNN)"] = (us["LSTM forward+backward (cuDNN)"]
+                                   - us["LSTM forward (cuDNN)"])
+    return us
+
+
+def lstm_lm(mx, ck, ctx, vocab=LSTM_LM["vocab"], hidden=LSTM_LM["hidden"],
+            batch=LSTM_LM["batch"], steps=LSTM_LM["steps"],
+            warmup=LSTM_LM_WARMUP, timed=LSTM_LM_TIMED,
+            fixed=LSTM_LM_FIXED, seed=SEED):
+    """Phase 19 (c): the medium LSTM LM trained by ``gluon.Trainer`` on
+    ``ctx``: its first step held to the CPU (dropout 0), ``warmup`` +
+    ``timed`` steps over the stream with the state carried and detached,
+    then ``fixed`` steps on the first batch alone, whose loss must fall;
+    on the card, the step's device busy time and its parts'."""
+    cfg = dict(LSTM_LM, vocab=vocab, hidden=hidden, batch=batch,
+               steps=steps)
+    data = lm_stream(vocab, steps, batch, warmup + timed, seed)
+    first = lstm_lm_first_step(mx, ctx, cfg, *data[0], seed=seed)
+    device = torch.device("cuda", ctx.device_id) \
+        if ctx.device_type == "gpu" else torch.device("cpu")
+    ck.reset_kernel_calls()
+    with mx.Context(ctx):
+        with mx.name.NameManager():
+            net = lstm_lm_model(mx, vocab, hidden, cfg["layers"],
+                                cfg["dropout"])
+        mx.random.seed(seed)
+        net.initialize(mx.init.Uniform(cfg["init"]))
+        params = [p for p in net.collect_params().values()
+                  if p.grad_req != "null"]
+        trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                                   {"learning_rate": cfg["lr"]})
+        loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+        batches = [(mx.nd.array(x), mx.nd.array(y)) for x, y in data]
+        state = net.rnn.begin_state(batch)
+        losses, marks = [], []
+        for i, (x, y) in enumerate(batches):
+            if i == warmup:
+                marks.append(_marker(device))
+            loss, state = lm_train_step(mx, net, trainer, loss_fn, params,
+                                        x, y, state, cfg["clip"], vocab,
+                                        batch)
+            losses.append(loss)
+        marks.append(_marker(device))
+        step_ms = _elapsed_ms(marks[0], marks[1]) / timed
+        losses = [float(v.mean().asscalar()) for v in losses]
+        x0, y0 = batches[0]
+        fixed_losses = []
+        for _ in range(fixed):
+            loss, _ = lm_train_step(mx, net, trainer, loss_fn, params, x0,
+                                    y0, net.rnn.begin_state(batch),
+                                    cfg["clip"], vocab, batch)
+            fixed_losses.append(float(loss.mean().asscalar()))
+        out = {"first_step": first, "losses": losses,
+               "fixed_losses": fixed_losses,
+               "fixed_first": float(np.median(fixed_losses[:LSTM_LM_WINDOW])),
+               "fixed_last": float(np.median(fixed_losses[-LSTM_LM_WINDOW:])),
+               "step_ms": step_ms, "tokens_per_s": steps * batch / step_ms
+               * 1e3, "launches": ck.kernel_calls(),
+               "parameters": sum(int(np.prod(p.shape)) for p in params),
+               "vs_cells": lstm_vs_cells(mx, ctx, hidden, hidden, batch,
+                                         steps, seed)}
+        if device.type == "cuda":
+            x, y = batches[-1]
+
+            def step():
+                lm_train_step(mx, net, trainer, loss_fn, params, x, y,
+                              state, cfg["clip"], vocab, batch)
+
+            by_name = device_times(step, n=1)
+            busy = sum(by_name.values())
+            out.update(
+                step_busy_us=busy,
+                idle_share=max(0.0, 1 - busy / (step_ms * 1e3))
+                if busy else None,
+                top=sorted(by_name.items(), key=lambda kv: -kv[1])[:8],
+                parts_us=lstm_lm_kinds(mx, net, trainer, loss_fn, params,
+                                       x, y, state, cfg))
+    return out
+
+
+def observability_phase(mx, ck, ctx, sym, n_sites, n_buckets, smi):
+    """Phase 19 on ``ctx``: (a) ``telemetry_fit``, (b) ``telemetry_serve``,
+    (c) ``lstm_lm``, each held to its limits (raises otherwise) and
+    printed.  Returns the phase's JSON record."""
+    import tempfile
+    t19 = time.perf_counter()
+    obs_dir = tempfile.TemporaryDirectory(
+        prefix=".chip_smoke_obs_",
+        dir=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        fit19 = telemetry_fit(mx, ck, ctx, sym, IMAGE,
+                              workdir=obs_dir.name)
+        srv19 = telemetry_serve(mx, ck, ctx, sym, IMAGE, n_sites,
+                                workdir=obs_dir.name)
+    finally:
+        obs_dir.cleanup()
+    total19 = fit19["steps"]
+    want_fit = {"fused_sgd_momentum": n_buckets * total19,
+                "fused_softmax_fwd": total19}
+    fit_traced = {k: fit19["dump"]["launches"][k] for k in want_fit}
+    if not fit19["weights_bitwise"] or fit19["step_lines"] != total19 \
+            or fit19["compiles_first"] != 1 \
+            or fit19["compiles_after_first"] != 0 \
+            or fit19["counter"] != want_fit or fit_traced != want_fit \
+            or not fit19["exposition_valid"] \
+            or fit19["dump"]["fit.step"] != total19 \
+            or not fit19["dump"]["counters"]:
+        raise AssertionError(
+            "telemetry on fit: weights on and off bitwise %s, %d step lines "
+            "(expected %d), compiles %s then %s, kernel counter %s and "
+            "device trace %s (expected %s), exposition valid %s, dump %s"
+            % (fit19["weights_bitwise"], fit19["step_lines"], total19,
+               fit19["compiles_first"], fit19["compiles_after_first"],
+               fit19["counter"], fit_traced, want_fit,
+               fit19["exposition_valid"], fit19["dump"]))
+    fwd19 = srv19["batches"]
+    want_srv = {"fused_scale_bias_relu": n_sites * fwd19,
+                "fused_softmax_fwd": fwd19}
+    srv_traced = {k: srv19["dump"]["launches"][k] for k in want_srv}
+    if not srv19["stats_agree"] or srv19["misses"] != srv19["compiles"] \
+            or srv19["counter"] != want_srv or srv_traced != want_srv \
+            or srv19["dump"]["serving:batch"] != fwd19 \
+            or srv19["dump"]["serving.request"] != srv19["requests"] \
+            + srv19["warmup"] or not srv19["finite"]:
+        raise AssertionError(
+            "telemetry on serving: stats against the registry %s, cache "
+            "misses %d against compiles %d, kernel counter %s and device "
+            "trace %s (expected %s over %d forwards), dump %s, answers "
+            "finite %s" % (srv19["agree"], srv19["misses"],
+                           srv19["compiles"], srv19["counter"], srv_traced,
+                           want_srv, fwd19, srv19["dump"], srv19["finite"]))
+    lm19 = lstm_lm(mx, ck, ctx)
+    first19 = lm19["first_step"]
+    if not first19["loss_rel"] <= LSTM_LM_TOL \
+            or not first19["grad_max_rel"] <= LSTM_LM_TOL \
+            or not lm19["vs_cells"]["output"] <= FUSED_TOL \
+            or not lm19["vs_cells"]["states"] <= FUSED_TOL \
+            or not np.isfinite(lm19["losses"]).all() \
+            or not lm19["fixed_last"] < lm19["fixed_first"]:
+        raise AssertionError(
+            "LSTM LM: first step against the CPU %s (limit %g), the LSTM "
+            "layer against its unrolled cells %s (limit %g), losses %s, on "
+            "the fixed batch %s" % (first19, LSTM_LM_TOL, lm19["vs_cells"],
+                                    FUSED_TOL, lm19["losses"],
+                                    lm19["fixed_losses"]))
+    obs_line = {"card": smi, "fit": fit19, "serving": srv19,
+                "lstm_lm": lm19, "fit_traced": fit_traced,
+                "serving_traced": srv_traced,
+                "seconds": time.perf_counter() - t19}
+    print("telemetry on %s: ResNet-50 v1 Module.fit kvstore=tpu batch %d, "
+          "%d warmup + %d timed steps, cuDNN deterministic: step ms with "
+          "telemetry, the step log and tracing on %s, all off %s (runs %s); "
+          "cost %.2f%%; with the profiler's device trace too %s; idle share "
+          "%s; weights on and off bitwise %s; %d step lines, compiles %s then "
+          "0; kernel counter %s = the device trace's launches; exposition "
+          "%d bytes, valid; dump: %s" % (
+              smi, BATCH, OBS_WARMUP, OBS_STEPS,
+              ["%.2f" % t for t in fit19["step_ms"]["on"]],
+              ["%.2f" % t for t in fit19["step_ms"]["off"]],
+              list(OBS_RUNS), 100 * fit19["cost"],
+              ["%.2f" % t for t in fit19["step_ms"]["profiled"]],
+              fit19.get("idle_share"), fit19["weights_bitwise"],
+              fit19["step_lines"], fit19["compiles_first"],
+              fit19["counter"], fit19["exposition_bytes"],
+              {k: v for k, v in fit19["dump"].items() if k != "launches"}),
+          flush=True)
+    print("serving telemetry on %s: %d requests from %d clients, %d "
+          "forwards: stats() against the mxnet_serving_* families %s; cache "
+          "misses %d = compiles %d; kernel counter a forward %s = the device "
+          "trace's %s; dump %s" % (
+              smi, srv19["requests"], CLIENTS, fwd19, srv19["agree"],
+              srv19["misses"], srv19["compiles"],
+              srv19["counter_per_forward"], srv_traced,
+              {k: v for k, v in srv19["dump"].items() if k != "launches"}),
+          flush=True)
+    print("gluon LSTM LM on %s: Zaremba et al.'s medium model (vocab %d, 2 "
+          "x LSTM %d, 35 steps, batch %d, dropout %g, %d parameters), "
+          "gluon.Trainer SGD lr %g, clip_global_norm %g; %d warmup + %d "
+          "timed steps: %.2f ms/step, %.0f tokens/s (CUDA events); device "
+          "busy %s us, idle share %s; the parts alone (us) %s; first "
+          "step (dropout 0) against the CPU: loss %.3g, gradients %.3g (%s; "
+          "limit %g); LSTM against its unrolled cells %s; losses %s; on the "
+          "first batch alone %s; launches %s; phase 19 %.1f s" % (
+              smi, LSTM_LM["vocab"], LSTM_LM["hidden"], LSTM_LM["batch"],
+              LSTM_LM["dropout"], lm19["parameters"], LSTM_LM["lr"],
+              LSTM_LM["clip"], LSTM_LM_WARMUP, LSTM_LM_TIMED, lm19["step_ms"],
+              lm19["tokens_per_s"], lm19.get("step_busy_us"),
+              lm19.get("idle_share"),
+              {k: round(v) for k, v in lm19.get("parts_us", {}).items()},
+              first19["loss_rel"], first19["grad_max_rel"],
+              first19["worst_param"], LSTM_LM_TOL, lm19["vs_cells"],
+              ["%.3f" % v for v in lm19["losses"]],
+              ["%.3f" % v for v in lm19["fixed_losses"]], lm19["launches"],
+              obs_line["seconds"]), flush=True)
+
+    return obs_line
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -5422,6 +6101,13 @@ def main():
     if len(sites) != 33:
         raise AssertionError("the peephole found %d BatchNorm->ReLU sites "
                              "in ResNet-50 v1; expected 33" % len(sites))
+    if sys.argv[1:] == ["observability"]:
+        # phase 19 alone, in a process with no earlier profiler session
+        # (ResNet-50's fused step has two buckets, as phase 5 finds)
+        obs_line = observability_phase(mx, ck, mx.gpu(0), sym, len(sites),
+                                       2, smi)
+        print(json.dumps({"observability": obs_line}, default=str))
+        return 0
     k3, k3_jobs = check_k3(ck, sites, dev, bw, flops)
     k2, k2_jobs = check_k2(ck, dev, bw, flops, BATCH)
     k2["sass_wide"] = sass_wide
@@ -6447,6 +7133,29 @@ def main():
     print("inception-bn: 2 more steps with sync debug mode 'error' did not "
           "wait on the card", flush=True)
     del inc_mod
+    # 19. telemetry, tracing and the profiler on the two main paths, and
+    # gluon.rnn's medium LSTM LM (after the timing phases, as the
+    # sync-debug steps: the profiler's sessions slow the host for the rest
+    # of the process)
+    obs_line = observability_phase(mx, ck, mx.gpu(0), sym, len(sites),
+                                   len(tr["buckets"]), smi)
+    fit19, srv19 = obs_line["fit"], obs_line["serving"]
+    fit_traced = obs_line["fit_traced"]
+    srv_traced = obs_line["serving_traced"]
+    total19 = fit19["steps"]
+    sweeps["sgd_mom_sweep"]["launches_observability"] = {
+        "per_fit_step": fit19["counter"]["fused_sgd_momentum"] / total19,
+        "device_trace": fit_traced["fused_sgd_momentum"]}
+    k2["launches_observability"] = {
+        "per_fit_step": fit19["counter"]["fused_softmax_fwd"] / total19,
+        "per_served_forward": srv19["counter_per_forward"][
+            "fused_softmax_fwd"],
+        "device_trace": fit_traced["fused_softmax_fwd"]
+        + srv_traced["fused_softmax_fwd"]}
+    k3["launches_observability"] = {
+        "per_served_forward": srv19["counter_per_forward"][
+            "fused_scale_bias_relu"],
+        "device_trace": srv_traced["fused_scale_bias_relu"]}
     for job in k7a_jobs:
         job["tflops"] = job["ops"] / job["ms"] / 1e9
     k7a["tflops"] = k7a_jobs[0]["tflops"]
@@ -6542,6 +7251,7 @@ def main():
     print(json.dumps({"training_loop": loop_line}, default=str))
     print(json.dumps({"data_pipeline": data_line}, default=str))
     print(json.dumps({"gluon": g18}, default=str))
+    print(json.dumps({"observability": obs_line}, default=str))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
             "launches_per_forward", "call_ms", "plain_call_ms",
@@ -6552,6 +7262,7 @@ def main():
                         "launches_inception", "launches_mixed",
                         "launches_training_loop",
                         "launches_data_pipeline", "launches_gluon",
+                        "launches_observability",
                         "lm", "bf16",
                         "ms_repeats", "library_ms_repeats",
                         "bfloat16_ms_repeats", "bfloat16_library_ms_repeats",

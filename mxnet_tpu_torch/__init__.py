@@ -42,12 +42,17 @@ methods.  The training-loop API is the JAX package's: its sixteen
 optimizers, metrics, initializers and schedulers, the callbacks,
 ``engine`` (``naive``, ``bulk``, deferred worker exceptions), ``Monitor``
 (the executor's taps), ``viz``, ``registry``, ``misc`` and ``log``.
+``telemetry`` (the metrics registry, the step log, tracing, the flight
+recorder) and ``profiler`` record at the JAX package's sites under its
+family names; ``gluon.rnn`` holds the recurrent layers and cells.
 """
 import torch as _torch
 
 from .libinfo import __version__  # noqa: F401
 from .base import MXNetError  # noqa: F401
 from . import config  # noqa: F401
+from . import telemetry  # noqa: F401
+from . import profiler  # noqa: F401
 from .context import (Context, cpu, gpu, tpu, current_context,  # noqa: F401
                       num_gpus, num_tpus)
 from . import autograd  # noqa: F401

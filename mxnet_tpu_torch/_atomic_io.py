@@ -9,16 +9,28 @@ files) writes through here: the bytes land in a hidden sibling temp file,
 are flushed and fsync'd, and only then renamed over the target.  A crash
 at any point leaves the old complete file or the new complete file.
 
-The JAX package's fault-injection site and tracing span at the commit are
-not part of the port (``fault/`` and ``telemetry/`` are not ported).
+While tracing is on, each commit (flush, fsync, rename) is an
+``atomic_io.commit`` span.  The JAX package's fault-injection site at
+the commit comes with the slice that ports ``fault/``.
 """
 from __future__ import annotations
 
 import contextlib
 import os
+import sys
 import uuid
 
 __all__ = ["atomic_writer", "atomic_write"]
+
+
+def _span(name, **tags):
+    """A tracing span without importing telemetry: this module stays a
+    leaf, and tracing can only be on after someone imported it, so an
+    absent module means a no-op."""
+    tracing = sys.modules.get(__package__ + ".telemetry.tracing")
+    if tracing is None or not tracing.ACTIVE[0]:
+        return contextlib.nullcontext()
+    return tracing.span(name, **tags)
 
 
 def _temp_name(path):
@@ -40,10 +52,11 @@ def atomic_writer(path, mode="wb"):
     committed = False
     try:
         yield f
-        f.flush()
-        os.fsync(f.fileno())
-        f.close()
-        os.replace(tmp, path)
+        with _span("atomic_io.commit", path=path):
+            f.flush()
+            os.fsync(f.fileno())
+            f.close()
+            os.replace(tmp, path)
         committed = True
     finally:
         if not committed:

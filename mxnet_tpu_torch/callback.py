@@ -7,12 +7,15 @@ and ``do_checkpoint``, and the logging ones, ``log_train_metric``,
 whose lines (``Epoch[%d] Batch [%d]\\tSpeed: %.2f samples/sec`` and the
 metric, ``Iter[%d] Batch[%d] Train-<metric>=``, ``Epoch[%d]
 Validation-<metric>=``) have the reference's shapes, which tools parse.
+While telemetry is on, ``Speedometer`` also sets the
+``mxnet_speed_samples_per_sec`` gauge at each report.
 """
 from __future__ import annotations
 
 import logging
 import time
 
+from . import telemetry
 from .model import _refuse_manager, save_checkpoint
 
 __all__ = ["module_checkpoint", "do_checkpoint", "log_train_metric",
@@ -101,6 +104,10 @@ class Speedometer:
             if self.auto_reset:
                 param.eval_metric.reset()
         speed = self.frequent * self.batch_size / (time.time() - self._tick)
+        if telemetry.enabled():
+            telemetry.gauge(
+                "mxnet_speed_samples_per_sec",
+                "Speedometer window throughput").set(round(speed, 3))
         head = ("Epoch[%d]" % param.epoch) if metric_parts \
             else ("Iter[%d]" % param.epoch)
         logging.info("\t".join(

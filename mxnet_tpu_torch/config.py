@@ -108,3 +108,56 @@ register_env("MXNET_SERVING_DEFAULT_TIMEOUT_MS", float, 5000.0,
 register_env("MXNET_SERVING_EXECUTOR_CACHE", int, 16,
              "LRU capacity of the serving executor cache, in bound "
              "(model, version, bucket) predictors")
+register_env("MXNET_PROFILER_AUTOSTART", bool, False,
+             "start the profiler at import (reference: src/profiler)")
+register_env("MXNET_PROFILER_MODE", int, 0,
+             "profiler instrumentation mode bitmask")
+register_env("MXNET_TELEMETRY", bool, False,
+             "master switch for hot-path metrics instrumentation (an "
+             "executor's first dispatch per program and shapes, "
+             "device->host copies, io fetch latency, kvstore traffic, "
+             "CUDA kernel launches); the registry itself is always live")
+register_env("MXNET_TELEMETRY_STEP_LOG", str, None,
+             "path for per-step JSONL emitted during fit() — one JSON "
+             "object per step with samples/sec and counter deltas")
+register_env("MXNET_TELEMETRY_STEP_INTERVAL", int, 1,
+             "emit a step-JSONL record every N batches")
+register_env("MXNET_TELEMETRY_PROM_FILE", str, None,
+             "write the registry's Prometheus text exposition to this "
+             "path at process exit (telemetry.write_prometheus)")
+register_env("MXNET_TELEMETRY_LABEL_CAP", int, 256,
+             "label-cardinality cap per metric family: past this many "
+             "distinct label sets, new ones collapse into the "
+             "__overflow__ child and "
+             "mxnet_telemetry_label_overflow_total{metric=...} counts "
+             "the spill (0 = uncapped)")
+register_env("MXNET_TRACE", bool, False,
+             "master switch for request tracing and the flight recorder "
+             "(telemetry/tracing.py): off, every span call site costs "
+             "one boolean check; on, spans land in the per-process ring")
+register_env("MXNET_TRACE_SAMPLE", float, 0.01,
+             "tail-sampling keep rate for HEALTHY traces at export; "
+             "anomalous traces (failed, deadline-exceeded, "
+             "p99-exceeding, marked) are always retained regardless")
+register_env("MXNET_TRACE_SEED", int, 0,
+             "seed of the per-trace sampling hash — the keep decision "
+             "is pure in (seed, trace_id), so runs and processes agree "
+             "on which healthy traces survive")
+register_env("MXNET_TRACE_RING", int, 4096,
+             "finished-span ring capacity per process; spans of traces "
+             "whose root has not finished stay ringed until flush, "
+             "oldest spill first")
+register_env("MXNET_TRACE_DIR", str, None,
+             "directory for JSONL trace shards (trace-<pid>.jsonl, "
+             "appended by flush()/atexit) and flight-recorder incident "
+             "dumps; unset disables export but not in-ring tracing")
+register_env("MXNET_TRACE_P99_FACTOR", float, 3.0,
+             "a finished root span slower than this multiple of its "
+             "name's running p99 estimate marks the trace anomalous "
+             "(p99_exceeded) for tail retention")
+register_env("MXNET_TRACE_FLIGHT_RING", int, 512,
+             "flight-recorder ring capacity: last N control-plane "
+             "events kept for incident dumps")
+register_env("MXNET_TRACE_FLIGHT_DUMPS", int, 8,
+             "max flight-recorder incident dumps per process — a "
+             "crash-looping trigger cannot fill the disk")

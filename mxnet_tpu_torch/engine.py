@@ -13,7 +13,10 @@ it is issued, so there is no dependency engine to configure:
 - Deferred exceptions: work off the main thread (the serving batcher,
   any caller of ``record_exception``) stores its error here, and every
   sync point (``nd.waitall()``, ``NDArray.wait_to_read()``,
-  ``.asnumpy()``) rethrows it once and clears it.
+  ``.asnumpy()``) rethrows it once and clears it.  An exception that
+  reaches no receiver also dumps the flight recorder
+  (``telemetry.flight.incident("worker_exception")``) while tracing is
+  on.
 """
 from __future__ import annotations
 
@@ -121,4 +124,9 @@ def worker_scope(deliver=None):
         if not delivered:
             logging.error("worker exception with no receiver; it is "
                           "raised at the next sync point", exc_info=exc)
+            # an orphaned worker failure is an incident: nothing owns it
+            # until the next sync point, so dump the flight ring now
+            from .telemetry import flight as _flight
+            _flight.incident("worker_exception",
+                             error="%s: %s" % (type(exc).__name__, exc))
             record_exception(exc)

@@ -41,12 +41,24 @@ after each forward the callback gets every head output by name, or with
 as it computes them (``build_graph_fn``'s ``tap``), with no second
 program; the JAX package runs one built from ``get_internals()``.  With
 no callback installed the graph runs as before.
+
+Telemetry (``MXNET_TELEMETRY``): each bind counts in
+``mxnet_executor_binds_total``, and each forward or backward passes
+through ``_dispatch``, which counts the first dispatch of each (program,
+argument shapes) pair in ``mxnet_xla_compiles_total`` and its wall time
+in ``mxnet_xla_compile_seconds``: the JAX executor's signature-set
+fallback, since there is no jit cache here.  A new pair is where cuDNN
+picks its algorithms and the kernels are built and loaded.  Disabled,
+the path costs one boolean check.
 """
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
 
+from . import telemetry
 from .base import MXNetError, dtype_torch
 from .context import resolve
 from .ndarray import NDArray
@@ -127,6 +139,13 @@ class Executor:
         self._sweep = None          # bucket plan, or None (per-array)
         self._hyper = None          # (host values, device tensor)
         self._updates_applied = False
+        # (program tag, argument shapes) pairs dispatched so far
+        self._compile_seen = set()
+        if telemetry.enabled():
+            telemetry.counter(
+                "mxnet_executor_binds_total",
+                "executor binds (each bind's first dispatch per shape "
+                "picks its cuDNN algorithms)").inc()
 
     @property
     def device(self):
@@ -450,6 +469,30 @@ class Executor:
         return outs, new_aux
 
     # -- execution ----------------------------------------------------------
+    def _dispatch(self, tag, args, run):
+        """``run()``, counting the first dispatch of ``(tag, shapes of
+        args)`` as a compile while telemetry is on."""
+        if not telemetry.enabled():
+            return run()
+        sig = (tag, tuple(tuple(a.shape) for a in args))
+        first = sig not in self._compile_seen
+        t0 = time.perf_counter()
+        out = run()
+        if first:
+            self._compile_seen.add(sig)
+            telemetry.counter(
+                "mxnet_xla_compiles_total",
+                "first dispatches of an executor's (program, argument "
+                "shapes) pair (the port has no jit: where the JAX "
+                "package compiles, cuDNN picks algorithms and kernels "
+                "load)").inc()
+            telemetry.histogram(
+                "mxnet_xla_compile_seconds",
+                "host wall time of those first dispatches",
+                buckets=telemetry.exponential_buckets(0.001, 4.0, 12)
+            ).observe(time.perf_counter() - t0)
+        return out
+
     @property
     def outputs(self):
         if self._outputs is None:
@@ -510,19 +553,24 @@ class Executor:
         aux = [self.aux_dict[n]._data for n in self.aux_names]
         new_aux = None
         if is_train and self._fused_update is not None:
-            outs, new_aux = self._forward_fused(args, aux)
+            outs, new_aux = self._dispatch(
+                "fbu", args, lambda: self._forward_fused(args, aux))
         elif is_train and self._diff_idx and self._is_loss_graph:
-            outs, self._cached_grads, new_aux = self._fb(
-                args, aux, tap=self._tap())
+            outs, self._cached_grads, new_aux = self._dispatch(
+                "fb", args, lambda: self._fb(args, aux, tap=self._tap()))
             self._updates_applied = False
         elif is_train:
-            with torch.no_grad():
-                outs, new_aux = self._train_fn()(self._cast(args), aux,
-                                                 tap=self._tap())
+            def fwd_train():
+                with torch.no_grad():
+                    return self._train_fn()(self._cast(args), aux,
+                                            tap=self._tap())
+            outs, new_aux = self._dispatch("fwd_train", args, fwd_train)
             self._cached_grads = None
         else:
-            with torch.inference_mode():
-                outs = self._fn(self._cast(args), aux, tap=self._tap())
+            def fwd_eval():
+                with torch.inference_mode():
+                    return self._fn(self._cast(args), aux, tap=self._tap())
+            outs = self._dispatch("fwd_eval", args, fwd_eval)
             self._cached_grads = None
         if new_aux is not None:
             for n, a in zip(self.aux_names, new_aux):
@@ -564,7 +612,8 @@ class Executor:
             seeds = [_as_tensor(g).to(self._device) for g in out_grads]
             args = [self.arg_dict[n]._data for n in self.arg_names]
             aux = [self.aux_dict[n]._data for n in self.aux_names]
-            _, grads, _ = self._fb(args, aux, seeds)
+            _, grads, _ = self._dispatch(
+                "fb", args, lambda: self._fb(args, aux, seeds))
         else:
             if self._cached_grads is None:
                 raise MXNetError(

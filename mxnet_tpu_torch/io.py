@@ -24,8 +24,14 @@ to the card is a blocking one from pageable memory on the producer
 thread, so it has landed before the consumer sees the batch.  A decode
 or IO error on the producer is rethrown at ``next()`` and recorded with
 ``engine.record_exception`` for the next sync point.  The JAX package's
-native libjpeg path, its ``io.prefetch`` tracing span and fault site and
-its batch-fetch metrics are not part of the port.
+native libjpeg path and its fault site are not part of the port.
+
+Telemetry as in the JAX package: ``DataIter.__next__`` (what ``fit``
+and a for-loop call) times each fetch into
+``mxnet_io_batch_fetch_seconds`` and counts it in
+``mxnet_io_batches_total`` while telemetry is on; the prefetching
+iterators set ``mxnet_io_prefetch_depth{pipeline=...}`` and their
+producer threads record ``io.prefetch`` spans while tracing is on.
 """
 from __future__ import annotations
 
@@ -34,19 +40,50 @@ import os
 import queue
 import struct
 import threading
+import time
 from collections import namedtuple
 
 import numpy as np
 import torch
 
+from . import telemetry
 from .base import MXNetError
 from .context import Context, cpu, current_context
 from .ndarray import NDArray, array
+from .telemetry import tracing as _tracing
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "ResizeIter",
            "PrefetchingIter", "NDArrayIter", "MNISTIter", "CSVIter",
            "ImageRecordIter", "ImageDetRecordIter", "MXDataIter",
            "pad_batch"]
+
+
+# batch-fetch metric handles, cached per registry generation (a registry
+# lookup per batch adds up on fast in-memory iterators)
+_IO_METRICS = None
+
+
+def _io_metrics():
+    global _IO_METRICS
+    reg = telemetry.get_registry()
+    gen = reg.generation
+    if _IO_METRICS is None or _IO_METRICS[0] != gen:
+        _IO_METRICS = (
+            gen,
+            reg.histogram(
+                "mxnet_io_batch_fetch_seconds",
+                "wall time the training loop waited for the next batch "
+                "(a stall here is an input-pipeline bottleneck)").labels(),
+            reg.counter("mxnet_io_batches_total",
+                        "batches handed to the consumer").labels())
+    return _IO_METRICS
+
+
+def _prefetch_depth(pipeline, depth):
+    telemetry.gauge(
+        "mxnet_io_prefetch_depth",
+        "batches parked ahead of the consumer").labels(
+        pipeline=pipeline).set(depth)
 
 
 class DataDesc(namedtuple("DataDesc", ["name", "shape"])):
@@ -119,7 +156,17 @@ class DataIter:
         raise StopIteration
 
     def __next__(self):
-        return self.next()
+        # every iterator funnels through here when consumed by a for-loop
+        # or next() (fit's hot path), so fetch latency, a prefetcher's
+        # stall included, is measured in one place
+        if not telemetry.enabled():
+            return self.next()
+        t0 = time.perf_counter()
+        batch = self.next()      # StopIteration propagates unmeasured
+        _gen, fetch_hist, batches = _io_metrics()
+        fetch_hist.observe(time.perf_counter() - t0)
+        batches.inc()
+        return batch
 
     def iter_next(self):  # pragma: no cover - abstract
         pass
@@ -211,7 +258,8 @@ class _Prefetcher:
             if not self._live:
                 return
             try:
-                fetched = self.it.next()
+                with _tracing.span("io.prefetch"):
+                    fetched = self.it.next()
             except StopIteration:
                 fetched = None
             except Exception as exc:    # rethrown at the next sync point
@@ -286,6 +334,10 @@ class PrefetchingIter(DataIter):
             w.restart()
 
     def iter_next(self):
+        if telemetry.enabled():
+            # depth-1 handshake per worker: ready == one batch parked
+            _prefetch_depth("prefetching", sum(
+                1 for w in self._workers if w._ready.is_set()))
         parked = [w.peek() for w in self._workers]
         if parked[0] is None:
             from . import engine
@@ -806,10 +858,11 @@ class ImageRecordIter(DataIter):
                 for ci in chunk_ids:
                     if stop.is_set():
                         return
-                    chunk = self._chunks[ci]
-                    start, end = chunk[0][0], chunk[-1][1]
-                    f.seek(start)
-                    buf = f.read(end - start)
+                    with _tracing.span("io.prefetch", chunk=int(ci)):
+                        chunk = self._chunks[ci]
+                        start, end = chunk[0][0], chunk[-1][1]
+                        f.seek(start)
+                        buf = f.read(end - start)
                     # this shard's spans only: with num_parts > 1 the
                     # range also holds other shards' records
                     raws = [_split_chunk_records(buf[s - start:e - start])[0]
@@ -847,6 +900,10 @@ class ImageRecordIter(DataIter):
         if self._next_batch is not None:
             b, self._next_batch = self._next_batch, None
             return b
+        if telemetry.enabled():
+            # queue depth BEFORE the (possibly blocking) get: 0 here while
+            # the card waits means the decode pipeline is behind
+            _prefetch_depth("image_record", self._queue.qsize())
         item = self._queue.get()
         if item is None:
             self._queue.put(None)       # later calls see the end too

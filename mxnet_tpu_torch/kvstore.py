@@ -18,17 +18,75 @@ python/mxnet/kvstore.py, src/kvstore/) for one process on one device:
 updater's pickled states, atomically.
 
 The multi-process stores (``dist_*``) come with the multi-GPU slice.
+
+Telemetry as in the JAX package: a completed user-visible ``push`` or
+``pull`` counts in ``mxnet_kvstore_ops_total{op}``, its payload bytes in
+``mxnet_kvstore_bytes_total{op}`` and its wall time in
+``mxnet_kvstore_op_seconds{op}``, while telemetry is on.
 """
 from __future__ import annotations
 
+import functools
+import threading
+import time
+
 import torch
 
+from . import telemetry
 from ._atomic_io import atomic_write
 from .base import MXNetError
 from .ndarray import NDArray
 from . import optimizer as opt
 
 __all__ = ["KVStore", "KVStoreTPU", "create"]
+
+
+# a thread-local reentrancy flag keeps super() chains (KVStoreTPU.pull ->
+# KVStore.pull) from counting one user-visible call twice
+_TELEM_TL = threading.local()
+
+
+def _payload_nbytes(v):
+    """Byte count of a push value / pull out tree."""
+    if isinstance(v, NDArray):
+        return v._data.numel() * v._data.element_size()
+    if isinstance(v, (list, tuple)):
+        return sum(_payload_nbytes(x) for x in v)
+    if isinstance(v, dict):
+        return sum(_payload_nbytes(x) for x in v.values())
+    return 0
+
+
+def _instrumented(op):
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(self, key, *args, **kwargs):
+            if not telemetry.enabled() or getattr(_TELEM_TL, "busy", False):
+                return fn(self, key, *args, **kwargs)
+            _TELEM_TL.busy = True
+            t0 = time.perf_counter()
+            try:
+                result = fn(self, key, *args, **kwargs)
+            finally:
+                _TELEM_TL.busy = False
+            # success path only: a raising call moved no traffic
+            dt = time.perf_counter() - t0
+            payload = (args[0] if args else
+                       kwargs.get("value") or kwargs.get("out"))
+            telemetry.counter(
+                "mxnet_kvstore_ops_total",
+                "completed kvstore data-plane calls").labels(op=op).inc()
+            telemetry.counter(
+                "mxnet_kvstore_bytes_total",
+                "payload bytes moved through kvstore push/pull"
+            ).labels(op=op).inc(_payload_nbytes(payload))
+            telemetry.histogram(
+                "mxnet_kvstore_op_seconds",
+                "wall time of completed kvstore push/pull calls").labels(
+                op=op).observe(dt)
+            return result
+        return wrapper
+    return deco
 
 
 def _key_values(keys, vals):
@@ -75,6 +133,7 @@ class KVStore:
             merged = merged + v._data.to(merged.device)
         return NDArray(merged)
 
+    @_instrumented("push")
     def push(self, key, value, priority=0):
         """Aggregate values into the store, applying the updater if set
         (reference: kvstore.py:158)."""
@@ -88,6 +147,7 @@ class KVStore:
             else:
                 self._store[k]._data = self._store[k]._data + merged._data
 
+    @_instrumented("pull")
     def pull(self, key, out=None, priority=0, ignore_sparse=True):
         """Point each out array at the stored value (reference:
         kvstore.py:238)."""
@@ -164,6 +224,7 @@ class KVStoreTPU(KVStore):
         o = self._optimizer
         return None if o is None else opt.fused_update_kernel(o)
 
+    @_instrumented("push")
     def push(self, key, value, priority=0):
         if self._updater is None or self._fused() is None:
             return super().push(key, value, priority)
@@ -176,6 +237,7 @@ class KVStoreTPU(KVStore):
                 self._flush()
             self._pending[k] = self._reduce(vlist)._data
 
+    @_instrumented("pull")
     def pull(self, key, out=None, priority=0, ignore_sparse=True):
         if self._pending:
             self._flush()

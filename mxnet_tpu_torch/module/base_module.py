@@ -9,9 +9,13 @@ bucket) and the batch-end callbacks, and per epoch the parameter sync
 and epoch-end callbacks), and
 ``save_params``/``load_params`` (the ``arg:``/``aux:`` container).
 ``fit(monitor=...)`` installs the monitor after binding and brackets each
-step with its ``tic`` and ``toc_print``, as the JAX package does.  The
-JAX package's checkpoint manager, fault supervisor, telemetry and
-tracing hooks are not part of the port.
+step with its ``tic`` and ``toc_print``, as the JAX package does.
+``MXNET_TELEMETRY_STEP_LOG`` adds a ``telemetry.StepLogger`` to the
+batch-end callbacks (closed when ``fit`` returns or raises), and each
+step's forward, backward and update is one ``fit.step`` span while
+tracing is on.  The JAX package's checkpoint manager and fault
+supervisor (``fit``'s ``checkpoint_manager`` and ``elastic``) come with
+the slice that ports ``checkpoint/`` and ``fault/``.
 """
 from __future__ import annotations
 
@@ -19,8 +23,11 @@ import logging
 import time
 import warnings
 
+from .. import config as _config
 from .. import metric
 from .. import ndarray
+from .. import telemetry
+from ..telemetry import tracing as _tracing
 from ..base import MXNetError
 from ..initializer import Uniform
 from ..model import BatchEndParam
@@ -180,7 +187,31 @@ class BaseModule:
             eval_metric = metric.create(eval_metric)
         batch_end_cbs = list(_as_list(batch_end_callback)) \
             if batch_end_callback is not None else []
+        # MXNET_TELEMETRY_STEP_LOG: per-step JSONL of throughput and
+        # counter deltas, as one more batch-end callback
+        step_logger = None
+        step_log_path = _config.get("MXNET_TELEMETRY_STEP_LOG")
+        if step_log_path:
+            step_logger = telemetry.StepLogger(
+                step_log_path,
+                batch_size=getattr(train_data, "batch_size", None),
+                interval=_config.get("MXNET_TELEMETRY_STEP_INTERVAL"))
+            batch_end_cbs.append(step_logger)
+        try:
+            self._fit_epochs(train_data, eval_data, eval_metric,
+                             validation_metric, batch_end_cbs,
+                             epoch_end_callback, eval_end_callback,
+                             eval_batch_end_callback, monitor,
+                             sparse_row_id_fn, begin_epoch, num_epoch)
+        finally:
+            if step_logger is not None:
+                step_logger.close()
 
+    def _fit_epochs(self, train_data, eval_data, eval_metric,
+                    validation_metric, batch_end_cbs, epoch_end_callback,
+                    eval_end_callback, eval_batch_end_callback, monitor,
+                    sparse_row_id_fn, begin_epoch, num_epoch):
+        global_batch = 0
         for epoch in range(begin_epoch, num_epoch):
             tic = time.time()
             eval_metric.reset()
@@ -189,10 +220,13 @@ class BaseModule:
             data_batch = next(batches, None)
             nbatch = 0
             while data_batch is not None:
-                if monitor is not None:
-                    monitor.tic()
-                self.forward_backward(data_batch)
-                self.update()
+                with _tracing.span("fit.step", epoch=epoch,
+                                   batch=global_batch):
+                    global_batch += 1
+                    if monitor is not None:
+                        monitor.tic()
+                    self.forward_backward(data_batch)
+                    self.update()
                 self.update_metric(eval_metric, data_batch.label)
                 # fetch the next batch only after this step is queued: an
                 # iterator may reuse the current batch's buffers

@@ -38,7 +38,7 @@ import struct
 import numpy as np
 import torch
 
-from .. import autograd, engine
+from .. import autograd, engine, telemetry
 from .._atomic_io import atomic_writer
 from ..base import MXNetError, dtype_from_id, dtype_id, dtype_name, dtype_torch
 from ..context import Context, resolve
@@ -51,15 +51,46 @@ __all__ = ["NDArray", "array", "zeros", "ones", "empty", "full", "arange",
 _NARROW = {torch.float64: torch.float32, torch.int64: torch.int32}
 
 
+# sync-point metric handles, cached per registry generation (they run per
+# output per request under the serving batcher: skip the registry lock)
+_SYNC_METRICS = None
+
+
+def _sync_metrics():
+    global _SYNC_METRICS
+    reg = telemetry.get_registry()
+    gen = reg.generation
+    if _SYNC_METRICS is None or _SYNC_METRICS[0] != gen:
+        _SYNC_METRICS = (
+            gen,
+            reg.counter("mxnet_sync_waits_total",
+                        "host blocks on device work "
+                        "(wait_to_read/waitall)").labels(),
+            reg.counter("mxnet_transfer_d2h_total",
+                        "device->host copies (asnumpy sync points)"
+                        ).labels(),
+            reg.counter("mxnet_transfer_d2h_bytes_total",
+                        "bytes copied device->host at asnumpy sync "
+                        "points").labels())
+    return _SYNC_METRICS
+
+
 class NDArray:
     """A device tensor handle (reference: python/mxnet/ndarray/ndarray.py)."""
 
     __slots__ = ("_data", "_grad", "_grad_req", "__weakref__")
 
-    def __init__(self, data):
-        if not isinstance(data, torch.Tensor):
-            raise MXNetError("NDArray wraps a torch.Tensor, got %s"
-                             % type(data).__name__)
+    def __init__(self, data, ctx=None):
+        """Wrap ``data`` (a tensor, an NDArray's tensor, or a host array,
+        narrowed to 32 bits as ``array`` does), moved to ``ctx`` when one
+        is given."""
+        if isinstance(data, NDArray):
+            data = data._data
+        elif not isinstance(data, torch.Tensor):
+            data = torch.as_tensor(np.asarray(data))
+            data = data.to(_NARROW.get(data.dtype, data.dtype))
+        if ctx is not None:
+            data = data.to(resolve(ctx))
         self._data = data
         self._grad = None           # the grad buffer of a marked variable
         self._grad_req = "null"
@@ -142,6 +173,10 @@ class NDArray:
         bfloat16, which numpy lacks, comes back as float32."""
         engine.check_raise()
         t = self._data.detach()
+        if telemetry.enabled():
+            _gen, _sync, d2h, d2h_bytes = _sync_metrics()
+            d2h.inc()
+            d2h_bytes.inc(t.numel() * t.element_size())
         if t.dtype == torch.bfloat16:
             t = t.float()
         return t.cpu().numpy()
@@ -155,6 +190,8 @@ class NDArray:
         wait for).  A deferred worker exception is rethrown first
         (``engine``)."""
         engine.check_raise()
+        if telemetry.enabled():
+            _sync_metrics()[1].inc()
         if self._data.device.type == "cuda":
             torch.cuda.synchronize(self._data.device)
 
@@ -604,6 +641,8 @@ def waitall():
     """Block until every queued operation on every card has finished
     (reference: MXNDArrayWaitAll), then rethrow a deferred worker
     exception (``engine``)."""
+    if telemetry.enabled():
+        _sync_metrics()[1].inc()
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         for i in range(torch.cuda.device_count()):
             torch.cuda.synchronize(i)

@@ -12,7 +12,12 @@ and has here:
 - the plain PyTorch version, which repeats the kernel's arithmetic: the
   CPU path, and the kernel's reference on the card;
 - a launch count (:func:`kernel_calls`), advanced only where the wrapper
-  launches the kernel.
+  launches the kernel, and, while telemetry is on, the registry's
+  ``mxnet_pallas_kernel_calls_total{kernel=...}`` under the JAX
+  package's label for the Pallas kernel it replaces (``_TELEMETRY_LABEL``;
+  the two backward kernels of flash attention share
+  ``flash_attention_bwd``).  The JAX package counts once per traced
+  program; the port counts each launch.
 
 Ported so far (the K numbers of the kernel table in PERF.md):
 
@@ -53,6 +58,7 @@ import threading
 import torch
 
 from .. import config as _config
+from .. import telemetry
 from ..base import MXNetError
 
 __all__ = ["scale_bias_relu", "scale_bias_relu_ref", "softmax_lastaxis",
@@ -92,9 +98,34 @@ def reset_kernel_calls():
             _CALLS[k] = 0
 
 
+# each wrapper's label in mxnet_pallas_kernel_calls_total: the JAX
+# package's name of the Pallas kernel it replaces (ops/pallas_kernels.py)
+_TELEMETRY_LABEL = {
+    "scale_bias_relu": "fused_scale_bias_relu",
+    "softmax_lastaxis": "fused_softmax_fwd",
+    "bias_softmax": "fused_softmax_fwd",
+    "softmax_bwd": "fused_softmax_bwd",
+    "sgd_sweep": "fused_sgd",
+    "sgd_mom_sweep": "fused_sgd_momentum",
+    "adam_sweep": "fused_adam",
+    "layernorm_fwd": "fused_layernorm_fwd",
+    "layernorm_bwd": "fused_layernorm_bwd",
+    "flash_attention_fwd": "flash_attention_fwd",
+    "flash_attention_bwd_dq": "flash_attention_bwd",
+    "flash_attention_bwd_dkv": "flash_attention_bwd",
+}
+
+
 def _count(name):
     with _COUNT_LOCK:
         _CALLS[name] += 1
+    if telemetry.enabled():
+        telemetry.counter(
+            "mxnet_pallas_kernel_calls_total",
+            "launches of the hand-written CUDA kernels, by the JAX "
+            "package's name of the Pallas kernel each replaces (one per "
+            "launch: the graph is eager; flash attention's backward is "
+            "two kernels)").labels(kernel=_TELEMETRY_LABEL[name]).inc()
 
 
 def family_enabled(knob, device):

@@ -18,9 +18,18 @@ Kept from the JAX package, each with its typed error and stats counter:
 - ``stats()``: request outcomes, latency p50/p99, the batch histogram
   and executor-cache counts.
 
-Left for later slices: canary promotion, brownout and shedding, per-model
-quotas, generative serving, the warmup manifest, tracing, profiler
-spans, fault hooks, sanitizers, telemetry and the tuning database.
+Observability, as in the JAX package: the per-instance counts back
+``stats()`` and the telemetry registry mirrors them under
+``mxnet_serving_*`` (requests by outcome and model, batches and rows by
+bucket, queue depth, latency with the request's trace id as exemplar);
+each executed batch is one ``serving:batch`` profiler span, and with
+tracing on a request is a ``serving.request`` trace with
+``serving.dispatch``, ``serving.batch``, ``serving.cache.get``,
+``serving.queue`` and ``serving.execute`` spans under it.
+
+Left for later slices: canary promotion, brownout and shedding (and
+their metric families), per-model quotas, generative serving, the
+warmup manifest, fault hooks, sanitizers and the tuning database.
 
 Threading: ONE batcher thread issues all device work, on the server's
 device and its current stream; ``asnumpy()`` of the outputs is the
@@ -36,12 +45,15 @@ import torch
 
 from .. import config
 from .. import engine
+from .. import profiler
+from .. import telemetry
 from ..context import resolve
 from ..io import pad_batch
 from .bucketing import pick_bucket, shape_buckets
 from .cache import ExecutorCache
 from .errors import BadRequest, DeadlineExceeded, QueueFull, ServerClosed
 from .registry import ModelRegistry
+from ..telemetry import tracing as _trace
 
 __all__ = ["InferenceFuture", "ModelServer"]
 
@@ -56,7 +68,7 @@ class InferenceFuture:
     request (the batcher skips it) and raises ``DeadlineExceeded``."""
 
     __slots__ = ("_ev", "_lock", "_result", "_exc", "_cancelled",
-                 "_deadline")
+                 "_deadline", "_span")
 
     def __init__(self, deadline_ms):
         self._ev = threading.Event()
@@ -65,6 +77,9 @@ class InferenceFuture:
         self._exc = None
         self._cancelled = False
         self._deadline = deadline_ms
+        # the request's trace root: owned here from submit, closed by
+        # every terminal path (deliver, fail, expiry)
+        self._span = None
 
     def cancelled(self):
         return self._cancelled
@@ -76,6 +91,8 @@ class InferenceFuture:
                 return False
             self._result = value
             self._ev.set()
+        if self._span is not None:
+            self._span.finish()
         return True
 
     def _set_exception(self, exc):
@@ -84,6 +101,10 @@ class InferenceFuture:
                 return False
             self._exc = exc
             self._ev.set()
+        if self._span is not None:
+            # a failed or expired request is an anomalous trace: the
+            # non-ok status keeps it through tail sampling
+            self._span.finish(status=type(exc).__name__)
         return True
 
     def _expired(self, now_ms):
@@ -96,6 +117,8 @@ class InferenceFuture:
             if expired:
                 self._cancelled = True
         if expired:
+            if self._span is not None:
+                self._span.finish(status="deadline")
             raise DeadlineExceeded(
                 "deadline passed before a result was delivered")
         if self._exc is not None:
@@ -105,9 +128,10 @@ class InferenceFuture:
 
 class _Request:
     __slots__ = ("entry", "inputs", "rows", "future", "gkey", "t_submit",
-                 "solo")
+                 "solo", "trace")
 
     def __init__(self, entry, inputs, rows, future, t_submit, solo=False):
+        self.trace = None       # the request's trace context, or None
         self.entry = entry
         self.inputs = inputs
         self.rows = rows
@@ -176,11 +200,43 @@ class ModelServer:
         self._lat_cap = 4096
         self._batch_hist = {}           # guarded-by: _mlock — bucket -> [n, rows]
         self._queue_peak = 0            # guarded-by: _mlock
+        # the registry's mirrors of the counts above (process-wide: the
+        # totals of every live server)
+        self._t_requests = telemetry.counter(
+            "mxnet_serving_requests_total",
+            "serving requests by outcome (submitted/served/failed/"
+            "rejected_queue_full/expired)")
+        self._t_batches = telemetry.counter(
+            "mxnet_serving_batches_total",
+            "executed micro-batches per shape bucket")
+        self._t_batch_rows = telemetry.counter(
+            "mxnet_serving_batch_rows_total",
+            "rows dispatched per shape bucket (fill = rows / "
+            "(batches * bucket))")
+        self._t_queue_depth = telemetry.gauge(
+            "mxnet_serving_queue_depth",
+            "requests currently queued for the batcher")
+        self._t_latency = telemetry.histogram(
+            "mxnet_serving_latency_ms",
+            "submit-to-result latency of served requests",
+            buckets=telemetry.exponential_buckets(0.5, 2.0, 14))
+        self._domain = profiler.Domain("serving")
+        self._q_counter = self._domain.new_counter("serving_queue_depth")
 
-    def _req_inc(self, outcome, n=1):
-        if n:
-            with self._mlock:
-                self._req_counts[outcome] += n
+    def _req_inc(self, outcome, n=1, model=None):
+        if not n:
+            return
+        with self._mlock:
+            self._req_counts[outcome] += n
+        if model is not None:
+            self._t_requests.labels(outcome=outcome, model=model).inc(n)
+        else:
+            self._t_requests.labels(outcome=outcome).inc(n)
+
+    def _note_depth_locked(self):
+        """Mirror the queue depth (profiler counter and gauge)."""
+        self._q_counter.set_value(len(self._queue))
+        self._t_queue_depth.set(len(self._queue))
 
     # -- model management ---------------------------------------------------
     def load_model(self, name, symbol_file, param_file, input_shapes,
@@ -225,11 +281,12 @@ class ModelServer:
         with self._cv:
             leftovers = list(self._queue)
             del self._queue[:]
+            self._note_depth_locked()
         for r in leftovers:
             if r.future._set_exception(ServerClosed("server stopped")):
-                self._req_inc("failed")
+                self._req_inc("failed", model=r.entry.name)
             else:
-                self._req_inc("expired")
+                self._req_inc("expired", model=r.entry.name)
 
     # -- request path -------------------------------------------------------
     def infer(self, name, inputs, version=None, timeout_ms=None):
@@ -283,20 +340,34 @@ class ModelServer:
         now = _now_ms()
         fut = InferenceFuture(now + timeout)
         req = _Request(entry, arrs, rows, fut, now, solo=_solo)
+        if _trace.ACTIVE[0]:
+            # the request's trace root: joins the caller's context where
+            # there is one, else a fresh trace; the future owns the span
+            # and the batcher parents its spans on req.trace
+            ctx = _trace.current() or _trace.mint(model=name)
+            root = _trace.start_span(
+                "serving.request", ctx=ctx, model=name,
+                version=entry.version, rows=rows, deadline_ms=timeout)
+            fut._span = root
+            req.trace = root.ctx
         with self._cv:
-            if self._stopping:
-                raise ServerClosed("server is stopping")
+            stopping = self._stopping
             full = len(self._queue) >= self._queue_depth
-            if not full:
+            if not (stopping or full):
                 self._queue.append(req)
                 depth = len(self._queue)
+                self._note_depth_locked()
                 self._cv.notify_all()
-        if full:
-            self._req_inc("rejected_queue_full")
-            raise QueueFull("serving queue at capacity (%d requests); retry "
-                            "later" % self._queue_depth,
-                            retry_after_s=self._batch_wait_ms / 1000.0)
-        self._req_inc("submitted")
+        if stopping or full:
+            err = (ServerClosed("server is stopping") if stopping else
+                   QueueFull("serving queue at capacity (%d requests); "
+                             "retry later" % self._queue_depth,
+                             retry_after_s=self._batch_wait_ms / 1000.0))
+            fut._set_exception(err)     # closes the trace root
+            if not stopping:
+                self._req_inc("rejected_queue_full", model=name)
+            raise err
+        self._req_inc("submitted", model=name)
         with self._mlock:
             self._queue_peak = max(self._queue_peak, depth)
         return fut
@@ -348,13 +419,21 @@ class ModelServer:
                 return
             reqs, entry, bucket = batch
 
-            def deliver(exc, _reqs=reqs):
+            def deliver(exc, _reqs=reqs, _name=entry.name):
                 got = sum(1 for r in _reqs if r.future._set_exception(exc))
-                self._req_inc("failed", got)
-                self._req_inc("expired", len(_reqs) - got)
+                self._req_inc("failed", got, model=_name)
+                self._req_inc("expired", len(_reqs) - got, model=_name)
                 return got > 0
 
-            with engine.worker_scope(deliver):
+            # the dispatch span parents under the first traced request
+            # of the batch, so the cache lookup and the execute nest in
+            # that request's trace
+            lead = next((r.trace for r in reqs if r.trace is not None),
+                        None)
+            with _trace.use(lead), \
+                    _trace.span("serving.dispatch", model=entry.name,
+                                bucket=bucket, reqs=len(reqs)), \
+                    engine.worker_scope(deliver):
                 self._execute(reqs, entry, bucket)
 
     def _collect_batch(self):
@@ -384,15 +463,16 @@ class ModelServer:
         keep = []
         for r in self._queue:
             if r.future.cancelled():
-                self._req_inc("expired")
+                self._req_inc("expired", model=r.entry.name)
             elif r.future._expired(now):
                 r.future._set_exception(
                     DeadlineExceeded("deadline passed while queued"))
-                self._req_inc("expired")
+                self._req_inc("expired", model=r.entry.name)
             else:
                 keep.append(r)
         if len(keep) != len(self._queue):
             self._queue[:] = keep
+            self._note_depth_locked()
 
     def _rows_queued_locked(self, gkey):
         return sum(r.rows for r in self._queue if r.gkey == gkey)
@@ -400,6 +480,7 @@ class ModelServer:
     def _pop_batch_locked(self, head):
         if head.solo:            # exactly this request, exactly its bucket
             self._queue.remove(head)
+            self._note_depth_locked()
             return [head], head.entry, pick_bucket(head.rows, self._buckets)
         taken, rows = [], 0
         for r in self._queue:
@@ -409,30 +490,56 @@ class ModelServer:
                 rows += r.rows
         gone = {id(r) for r in taken}
         self._queue[:] = [r for r in self._queue if id(r) not in gone]
+        self._note_depth_locked()
         return taken, head.entry, pick_bucket(rows, self._buckets)
 
     def _execute(self, reqs, entry, bucket):
         rows_total = sum(r.rows for r in reqs)
-        pred = self.cache.get(entry, bucket)
-        feed = {k: pad_batch([r.inputs[k] for r in reqs], bucket)[0]
-                for k in entry.input_names}
-        pred.forward(**feed)
-        outs = [pred.get_output(i).asnumpy() for i in range(entry.num_outputs)]
+        name = entry.name
+        t_exec0 = _now_ms()
+        with _trace.span("serving.batch", model=name, bucket=bucket,
+                         rows=rows_total), \
+                profiler.scope("serving:batch", cat="serving",
+                               args={"model": name,
+                                     "version": entry.version,
+                                     "bucket": bucket, "rows": rows_total}):
+            pred = self.cache.get(entry, bucket)
+            feed = {k: pad_batch([r.inputs[k] for r in reqs], bucket)[0]
+                    for k in entry.input_names}
+            pred.forward(**feed)
+            outs = [pred.get_output(i).asnumpy()
+                    for i in range(entry.num_outputs)]
         t_done = _now_ms()
         off = 0
         lats = []
         for r in reqs:
+            if _trace.ACTIVE[0] and r.trace is not None:
+                # queue wait and execute, recorded after the fact as
+                # children of each request's own root
+                wall = time.time()
+                _trace.add_span("serving.queue", r.trace,
+                                wall - (t_done - r.t_submit) / 1e3,
+                                t_exec0 - r.t_submit)
+                _trace.add_span("serving.execute", r.trace,
+                                wall - (t_done - t_exec0) / 1e3,
+                                t_done - t_exec0, bucket=bucket)
             if r.future._set_result([o[off:off + r.rows] for o in outs]):
-                lats.append(t_done - r.t_submit)
+                lat = t_done - r.t_submit
+                lats.append(lat)
+                self._t_latency.observe(
+                    lat, exemplar=r.trace.trace_id
+                    if r.trace is not None else None)
             off += r.rows
+        self._req_inc("served", len(lats), model=name)
+        self._req_inc("expired", len(reqs) - len(lats), model=name)
         with self._mlock:
-            self._req_counts["served"] += len(lats)
-            self._req_counts["expired"] += len(reqs) - len(lats)
             self._latencies.extend(lats)
             del self._latencies[:-self._lat_cap]
             h = self._batch_hist.setdefault(bucket, [0, 0])
             h[0] += 1
             h[1] += rows_total
+        self._t_batches.labels(bucket=bucket).inc()
+        self._t_batch_rows.labels(bucket=bucket).inc(rows_total)
 
     # -- observability ------------------------------------------------------
     def stats(self):

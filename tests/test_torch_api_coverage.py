@@ -4,6 +4,9 @@ equal ``DEFERRED``, the names left for later, keyed by the ROADMAP.md
 queue that owns them (and the JAX package's internals that the port has
 no counterpart of, by design).  Each later slice shrinks DEFERRED.  The
 modules of the training-loop API import neither JAX nor the JAX package.
+The port's public callables (functions, classes' constructors and
+methods) take the JAX package's parameter names, but for the gaps of
+``DEFERRED_PARAMS``, keyed by the queue that owns them.
 
 A module's public names: its names without a leading underscore that it
 defines, lists in ``__all__`` or holds as a submodule (for a package,
@@ -11,6 +14,7 @@ anything defined inside the package); at the top level, every name but
 modules from outside the package.
 """
 import importlib
+import inspect
 import json
 import os
 import subprocess
@@ -30,20 +34,14 @@ MODULES = ("", "optimizer", "metric", "initializer", "lr_scheduler",
            "gluon.loss", "gluon.utils", "gluon.data", "gluon.data.vision",
            "gluon.data.vision.transforms", "gluon.model_zoo",
            "gluon.model_zoo.vision", "gluon.model_zoo.model_store",
-           "serving")
+           "serving", "telemetry", "telemetry.tracing", "profiler",
+           "gluon.rnn", "gluon.contrib", "gluon.contrib.rnn")
 
 DEFERRED = {
-    # queue 1 item 2: foundation (the executor's telemetry and the
-    # compile cache)
-    "queue 1 item 2": {
-        "": {"telemetry", "compile_cache"},
-    },
-    # queue 1 item 3: gluon (gluon/rnn and gluon/contrib/rnn)
-    "queue 1 item 3": {
-        "gluon": {"rnn"},
-    },
-    # queue 1 item 5: serving
+    # queue 1 item 5: serving (with the warmup manifest, the compile
+    # cache that warms it)
     "queue 1 item 5": {
+        "": {"compile_cache"},
         "serving": {"CanaryState", "CheckpointWatcher", "DecodeScheduler",
                     "DecodeState", "FleetFrontDoor", "GenerativeModel",
                     "ReplicaHandle", "TokenStream", "WarmupManifest",
@@ -54,7 +52,7 @@ DEFERRED = {
     },
     # queue 1 item 6: state and resilience
     "queue 1 item 6": {
-        "": {"checkpoint", "fault", "profiler"},
+        "": {"checkpoint", "fault"},
     },
     # queue 1 item 7: multi-GPU
     "queue 1 item 7": {
@@ -84,12 +82,32 @@ DEFERRED = {
     },
 }
 
-# the names the last three slices ported, none of which may be deferred:
-# the training-loop API, the data pipeline and the module family, then
-# gluon's image path
+# the names the last four slices ported, none of which may be deferred:
+# the training-loop API, the data pipeline and the module family,
+# gluon's image path, then telemetry, the profiler and gluon's recurrent
+# layers
 PORTED = {
     "gluon": {"Constant", "SymbolBlock", "clip_global_norm", "data",
-              "model_zoo", "split_and_load", "split_data", "utils"},
+              "model_zoo", "split_and_load", "split_data", "utils", "rnn",
+              "contrib"},
+    "gluon.rnn": {"RNN", "LSTM", "GRU", "RecurrentCell",
+                  "HybridRecurrentCell", "RNNCell", "LSTMCell", "GRUCell",
+                  "SequentialRNNCell", "DropoutCell", "ModifierCell",
+                  "ZoneoutCell", "ResidualCell", "BidirectionalCell"},
+    "gluon.contrib": {"rnn", "transformer"},
+    "gluon.contrib.rnn": {"VariationalDropoutCell", "Conv2DLSTMCell"},
+    "telemetry": {"Counter", "Gauge", "Histogram", "MetricFamily",
+                  "MetricsRegistry", "StepLogger", "snapshot",
+                  "prometheus_text", "write_prometheus",
+                  "validate_exposition", "enabled", "enable", "disable",
+                  "publish_to_profiler", "chrome_counter_events",
+                  "tracing", "flight"},
+    "telemetry.tracing": {"TraceContext", "Span", "span", "start_span",
+                          "inject", "extract", "keep", "export_jsonl",
+                          "chrome_events", "mark", "enable"},
+    "profiler": {"set_config", "set_state", "pause", "resume", "dump",
+                 "dumps", "Domain", "Task", "Frame", "Event", "Counter",
+                 "Marker", "scope"},
     "gluon.nn": {"AvgPool1D", "AvgPool2D", "AvgPool3D", "BatchNorm",
                  "Conv1D", "Conv1DTranspose", "Conv2D", "Conv2DTranspose",
                  "Conv3D", "Conv3DTranspose", "ELU", "Flatten",
@@ -133,10 +151,47 @@ PORTED = {
     "": {"Symbol", "Optimizer", "NameManager", "Prefix", "num_tpus",
          "__version__", "Monitor", "monitor", "viz", "visualization",
          "misc", "registry", "log", "libinfo", "recordio", "image", "rnn",
-         "executor_manager"},
+         "executor_manager", "telemetry", "profiler"},
 }
 
-# the port's modules that the last three slices added or extended
+# parameters of the JAX package's public callables that the port's lack,
+# by the queue that owns them: {queue: {(module, callable): missing
+# names}}; "order" marks parameters both take in another order
+DEFERRED_PARAMS = {
+    # queue 1 item 5: serving's warmup manifest, canaries, retries and
+    # priorities
+    "queue 1 item 5": {
+        ("serving", "ModelServer.__init__"): {"manifest_path",
+                                              "canary_fraction"},
+        ("serving", "ModelServer.infer"): {"retries", "priority"},
+        ("serving", "ModelServer.infer_async"): {"retries", "priority"},
+        ("serving", "ExecutorCache.__init__"): {"on_miss"},
+        ("serving", "ExecutorCache.get"): {"binder"},
+        ("serving", "InferenceFuture.__init__"): {"hint"},
+    },
+    # queue 1 item 6: the checkpoint manager and the fault supervisor
+    "queue 1 item 6": {
+        ("module", "BaseModule.fit"): {"checkpoint_manager", "elastic"},
+    },
+    # queue 1 item 7: gradient compression
+    "queue 1 item 7": {
+        ("", "Executor.install_fused_update"): {"compression_params"},
+    },
+    # queue 1 item 9: the tuning database
+    "queue 1 item 9": {
+        ("config", "register_env"): {"tunable"},
+        ("config", "EnvVar.__init__"): {"tunable"},
+        ("config", "tuned"): {"program", "mesh_shape", "backend"},
+    },
+    # an Executor is built only by bind and simple_bind, in both packages:
+    # its constructor takes a device where the JAX one takes ctx, and its
+    # dicts in another order
+    "built only by bind": {
+        ("", "Executor.__init__"): {"ctx", "order"},
+    },
+}
+
+# the port's modules that the last four slices added or extended
 NEW_MODULES = ("mxnet_tpu_torch.optimizer", "mxnet_tpu_torch.metric",
                "mxnet_tpu_torch.initializer", "mxnet_tpu_torch.lr_scheduler",
                "mxnet_tpu_torch.callback", "mxnet_tpu_torch.engine",
@@ -163,7 +218,18 @@ NEW_MODULES = ("mxnet_tpu_torch.optimizer", "mxnet_tpu_torch.metric",
                "mxnet_tpu_torch.gluon.model_zoo",
                "mxnet_tpu_torch.gluon.model_zoo.model_store",
                "mxnet_tpu_torch.gluon.model_zoo.vision",
-               "mxnet_tpu_torch.symbol", "mxnet_tpu_torch.ops.misc")
+               "mxnet_tpu_torch.symbol", "mxnet_tpu_torch.ops.misc",
+               "mxnet_tpu_torch.telemetry",
+               "mxnet_tpu_torch.telemetry.registry",
+               "mxnet_tpu_torch.telemetry.step_logger",
+               "mxnet_tpu_torch.telemetry.tracing",
+               "mxnet_tpu_torch.telemetry.flight", "mxnet_tpu_torch.profiler",
+               "mxnet_tpu_torch.gluon.rnn", "mxnet_tpu_torch.gluon.rnn.rnn_cell",
+               "mxnet_tpu_torch.gluon.rnn.rnn_layer",
+               "mxnet_tpu_torch.gluon.contrib",
+               "mxnet_tpu_torch.gluon.contrib.rnn",
+               "mxnet_tpu_torch.serving.server", "mxnet_tpu_torch.kvstore",
+               "mxnet_tpu_torch.ops.cuda_kernels", "mxnet_tpu_torch._atomic_io")
 
 
 def _module(root, sub):
@@ -256,3 +322,67 @@ def test_new_modules_import_neither_jax_nor_the_jax_package():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def _params(fn):
+    try:
+        return [n for n, p in inspect.signature(fn).parameters.items()
+                if p.kind not in (p.VAR_POSITIONAL, p.VAR_KEYWORD)]
+    except (TypeError, ValueError):
+        return None
+
+
+def callables_of(sub):
+    """``{"name" or "Class.method": (JAX callable, port callable)}`` of a
+    module's public callables that both packages hold."""
+    jm, pm = _module("mxnet_tpu", sub), _module("mxnet_tpu_torch", sub)
+    out = {}
+    for name in sorted(public_names(jm)):
+        jo, po = getattr(jm, name), getattr(pm, name, None)
+        if isinstance(jo, types.ModuleType) or not callable(jo) \
+                or not callable(po):
+            continue
+        if not (inspect.isclass(jo) and inspect.isclass(po)):
+            out[name] = (jo, po)
+            continue
+        out[name + ".__init__"] = (jo.__init__, po.__init__)
+        for m, v in vars(jo).items():
+            if not m.startswith("_") and callable(v) \
+                    and callable(getattr(po, m, None)):
+                out[name + "." + m] = (getattr(jo, m), getattr(po, m))
+    return out
+
+
+def param_gaps(jfn, pfn):
+    """The JAX callable's parameter names the port's lacks, plus "order"
+    when the names both take come in another order."""
+    jp, pp = _params(jfn), _params(pfn)
+    if jp is None or pp is None:
+        return set()
+    gaps = set(jp) - set(pp)
+    if [n for n in jp if n in pp] != [n for n in pp if n in jp]:
+        gaps.add("order")
+    return gaps
+
+
+@pytest.mark.parametrize("sub", MODULES, ids=[m or "top" for m in MODULES])
+def test_public_callables_take_the_jax_packages_parameter_names(sub):
+    deferred = {}
+    for by_callable in DEFERRED_PARAMS.values():
+        for (mod, name), gaps in by_callable.items():
+            if mod == sub:
+                deferred[name] = gaps
+    found = {}
+    for name, (jfn, pfn) in callables_of(sub).items():
+        gaps = param_gaps(jfn, pfn)
+        if gaps:
+            found[name] = gaps
+    assert found == deferred
+
+
+def test_deferred_params_are_each_owned_once():
+    seen = set()
+    for by_callable in DEFERRED_PARAMS.values():
+        for key in by_callable:
+            assert key[0] in MODULES and key not in seen, key
+            seen.add(key)

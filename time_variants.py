@@ -10,6 +10,7 @@ stands, on one NVIDIA GPU::
     python3 time_variants.py flash_band   # phase 15's band over seeds
     python3 time_variants.py inception_serve [fits] [request sets]
     python3 time_variants.py rnn_accuracy # the RNN op: cuDNN vs float64
+    python3 time_variants.py telemetry_cost [rounds]  # phase 19's parts
 
 Each variant is ``mxnet_tpu_torch/ops/csrc/<source>.cu`` with a few lines
 replaced, compiled with the flags of ``ops/_build.py`` into
@@ -54,6 +55,12 @@ bf16 operands (mean |error|, and the share of o's elements that differ
 from the source's), and each runs phase 15's gradient check
 (``chip_smoke.bf16_grad_check``: the bf16 GPT-2-small-width transformer's
 step against the knobs-0 step, in units of its band).
+
+``telemetry_cost``: no variant; phase 19 (a)'s ResNet-50 fit
+(``chip_smoke.train``, 3 + 10 steps, cuDNN deterministic) with each part
+of the instrumentation alone (``TELEMETRY_PARTS``: the hot-path
+counters, the step log, tracing) and all of it, in turns, in a process
+that ran no profiler session, each step's ms by CUDA events.
 
 ``flash_band``: no timing; phase 15's gradient check at each of
 ``BAND_SEEDS`` (the transformer's weights and its batch from the seed)
@@ -1180,6 +1187,55 @@ def rnn_accuracy_main(smi, dev, bw, flops, out_dir):
                   "%s %.3g" % kv for kv in errs.items())), flush=True)
 
 
+# telemetry_cost's configurations: (name, observed(...)'s arguments)
+TELEMETRY_PARTS = (
+    ("off", None),
+    ("counters", {"counters": True, "spans": False}),
+    ("step_log", {"counters": False, "spans": False, "log": True}),
+    ("tracing", {"counters": False, "spans": True}),
+    ("all", {"counters": True, "spans": True, "log": True}))
+
+
+def telemetry_cost_main(smi, dev, bw, flops, out_dir, rounds="2"):
+    """Phase 19 (a)'s ResNet-50 fit (``chip_smoke.train``, 3 + 10 steps,
+    cuDNN deterministic, one initialisation) under each part of the
+    instrumentation alone and all of it, in turns (each round forwards
+    then backwards through ``TELEMETRY_PARTS``), in a process that has
+    run no profiler session; the step ms by CUDA events of each."""
+    import contextlib
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+    sym = chip_smoke.resnet_symbol(chip_smoke.LAYERS, chip_smoke.IMAGE)
+    ctx = mx.gpu(0)
+    arg, aux = chip_smoke.initial_params(mx, ctx, sym, chip_smoke.IMAGE,
+                                         chip_smoke.BATCH)
+    log = os.path.join(out_dir, "telemetry_cost_steps.jsonl")
+    order = list(TELEMETRY_PARTS) + list(reversed(TELEMETRY_PARTS))
+    times = {name: [] for name, _ in TELEMETRY_PARTS}
+    torch.backends.cudnn.deterministic = True
+    for _ in range(int(rounds)):
+        for name, kw in order:
+            if kw is None:
+                scope = contextlib.nullcontext()
+            else:
+                kw = dict(kw)
+                scope = chip_smoke.observed(
+                    mx, log=log if kw.pop("log", False) else None, **kw)
+            with scope:
+                _mod, res = chip_smoke.train(
+                    mx, ck, ctx, sym, chip_smoke.IMAGE, chip_smoke.BATCH,
+                    chip_smoke.OBS_STEPS, chip_smoke.OBS_WARMUP,
+                    arg_params=arg, aux_params=aux)
+            del _mod
+            times[name].append(res["step_ms"])
+            print("%-9s %.2f ms/step" % (name, res["step_ms"]), flush=True)
+    off = float(np.mean(times["off"]))
+    for name, ts in times.items():
+        print("telemetry_cost on %s: %-9s %s ms/step, mean %.2f, %+.2f%% "
+              "against off" % (smi, name, ["%.2f" % t for t in ts],
+                               np.mean(ts), 100 * (np.mean(ts) / off - 1)))
+
+
 def main():
     if not torch.cuda.is_available():
         print("time_variants: needs an NVIDIA GPU", file=sys.stderr)
@@ -1190,11 +1246,12 @@ def main():
               "layernorm": layernorm_main,
               "flash": flash_main, "flash_band": flash_band_main,
               "inception_serve": inception_serve_main,
-              "rnn_accuracy": rnn_accuracy_main}.get(source)
+              "rnn_accuracy": rnn_accuracy_main,
+              "telemetry_cost": telemetry_cost_main}.get(source)
     if runner is None:
         print("time_variants: the source is softmax, k2_wide, layernorm, "
-              "flash, flash_band, inception_serve or rnn_accuracy, not %r"
-              % source,
+              "flash, flash_band, inception_serve, rnn_accuracy or "
+              "telemetry_cost, not %r" % source,
               file=sys.stderr)
         return 2
     smi = card_name()
