@@ -6,6 +6,7 @@ toolkit (``nvcc`` on PATH or under ``$CUDA_HOME``)::
 
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py observability    # phases 1-2, then 19 alone
+    python3 chip_smoke.py train_serve      # phases 1-2, then 20 alone
 
 Phases, each of which raises on failure:
 
@@ -277,6 +278,41 @@ Phases, each of which raises on failure:
    ``LSTMCell``s within ``FUSED_TOL``, 3 + 10 timed steps, 10 steps on
    the first batch alone with the loss falling, the step's device busy
    time and its parts' alone;
+20. (after 19) the train-to-serve loop, cuDNN deterministic, in a
+   temporary directory of the checkout removed at the end, on full-width
+   ResNet-50 v1 fp32: (a) ``Module.fit`` (batch 32, ``kvstore="tpu"``,
+   SGD lr 0.02 momentum 0.9 wd 1e-4, Xavier from the seed, a seeded
+   synthetic ``NDArrayIter`` with ``shuffle=True``) checkpointed by a
+   ``CheckpointManager`` (a save every 3 steps, async, ``keep_last=2``):
+   its step ms with and without the manager in turns, each save's
+   staging ms, the writer's MB/s, every save the writer took committed;
+   then 3 epochs of 3 steps with (b) a ``ModelServer`` beside it
+   (buckets 1..32, the warmup manifest, ``canary_fraction=0.25``)
+   watching the directory, 4 client threads sending 1-3 rows at
+   priorities 0-2: at each save the fit waits for the commit and the
+   verdict; every version warmed at every bucket before promotion, each
+   after the first through the canary gate, no warmup failure logged,
+   retention keeping the newest two; serial requests after the last
+   promotion bitwise equal to a ``Predictor`` over that checkpoint at
+   the answer's bucket; a version with a NaN in its FC weight committed
+   into the store rolled back and unloaded by the non-finite sentinel on
+   its first canary batch, the last good version answering after;
+   (c) a burst at max(6x the sustained rate, 2000/s) over three priority
+   classes with 400 ms deadlines: brownout entered and left, class 0
+   served, every shed and rejection counted by class and reason in
+   ``stats()``, on the client and in the registry, the ledger balanced;
+   (f) one ``serving.worker`` fault failing its batch only; (g) the
+   launches of (a)-(c) held through ``mxnet_pallas_kernel_calls_total``:
+   K1b once a bucket and K2 once a fit step, K3 at the 33 sites and K2
+   once a served forward; (d) the server restarted in a new process on
+   the manifest (``python3 chip_smoke.py _ts_restart ...``): the
+   manifest's buckets bound before the first live request, no miss
+   after, the compile cache's hits and no ``nvcc``; the first live
+   requests' p50 and p99 with the manifest warmup and cold; (e) the
+   newest checkpoint restored by ``CheckpointManager.restore_latest``
+   into a fresh ``Module``, two steps bitwise (or within ``CKPT_TOL``)
+   the uninterrupted run's; (f) one ``checkpoint.store.commit`` fault
+   failing its save only;
 then every kernel's device time by the profiler (K6b's with the L2 cache
 overwritten before each launch; the bf16 instances of K3, K6a, K6b,
 K7a, K7b and K7c that phase 15 launches beside their plain versions,
@@ -290,7 +326,8 @@ Prints one JSON line ``{"checkpoints": {...}}`` with phase 13's numbers,
 {...}}`` with phase 16's, ``{"data_pipeline": {...}}`` with phase 17's
 (with the records fit's idle share), ``{"gluon": {...}}`` with phase
 18's (with its step's idle share and per-array SGD's device time),
-``{"observability": {...}}`` with phase 19's, one
+``{"observability": {...}}`` with phase 19's, ``{"train_serve":
+{...}}`` with phase 20's, one
 ``{"kernels":
 [...]}`` (all twelve kernels; K3, K2 and K1b with their
 ``launches_inception``, K1b, K2, K3, K6a, K6b, K7a, K7b and K7c with
@@ -298,7 +335,8 @@ their ``launches_mixed``, K2 and K3 with their
 ``launches_training_loop``, K1b, K2 and K3 with their
 ``launches_data_pipeline``, K2 and K3 with their ``launches_gluon``
 (a SymbolBlock forward's), K1b, K2 and K3 with their
-``launches_observability`` (phase 19's counter and device trace), K2 with its ``lm`` jobs (the parent's
+``launches_observability`` (phase 19's counter and device trace) and
+``launches_train_serve`` (phase 20's), K2 with its ``lm`` jobs (the parent's
 strided form's times beside them) and its wide rows' SASS counts
 (``sass_wide``), K3,
 K6a, K7b and K7c with their ``bf16``
@@ -6048,11 +6086,876 @@ def observability_phase(mx, ck, ctx, sym, n_sites, n_buckets, smi):
     return obs_line
 
 
+
+# ---------------------------------------------------------------------------
+# phase 20: the train-to-serve loop
+# ---------------------------------------------------------------------------
+TS_EPOCHS = 3               # epochs of the checkpointed fit
+TS_STEPS = 3                # steps an epoch, one periodic save each
+TS_KEEP = 2                 # the manager's keep_last
+TS_TIMED = (3, 9, 2)        # timing fits: warmup, timed steps, turns
+TS_CLIENTS = 4
+TS_CANARY = 0.25            # canary_fraction
+# canary completions before the gate decides, and its p99 bound against
+# the baseline (the JAX package's defaults are 20 and 3.0: fewer
+# completions keep the phase short, and the wider bound keeps one slow
+# batch of a healthy version from rolling it back)
+TS_CANARY_KNOBS = {"MXNET_SERVING_CANARY_MIN_REQUESTS": "8",
+                   "MXNET_SERVING_CANARY_P99_FACTOR": "5",
+                   "MXNET_SERVING_CANARY_TIMEOUT_S": "60",
+                   "MXNET_SERVING_BROWNOUT_MAX_BATCH": "8"}
+TS_QUEUE = 64               # queue depth: brownout at 48, out at 16
+TS_BURST_FACTOR = 6         # the burst's rate over (b)'s sustained one
+TS_BURST_MIN_RATE = 2000.0  # requests/s, above what ResNet-50 serves
+TS_BURST_S = 1.5
+TS_BURST_DEADLINE_MS = 400.0
+TS_CHECK = 12               # serial requests held bitwise after a verdict
+TS_LIVE = 16                # first live requests timed after a restart
+TS_WAIT_S = 120.0           # bound on any wait of the phase
+TS_MODEL = "resnet50"
+
+
+def ts_iter(mx, ctx, batch, image, steps, seed=SEED, classes=CLASSES):
+    """A seeded synthetic ``NDArrayIter`` of ``batch * steps`` samples,
+    ``shuffle=True``, its arrays on ``ctx`` (it shuffles from the port's
+    CPU generator at each reset)."""
+    rng = np.random.RandomState(seed + 20)
+    x = rng.uniform(-1, 1, (batch * steps,) + tuple(image)).astype(
+        np.float32)
+    y = rng.randint(0, classes, (batch * steps,)).astype(np.float32)
+    with ctx:
+        return mx.io.NDArrayIter(x, y, batch_size=batch, shuffle=True)
+
+
+def ts_manager(mx, directory, period_steps):
+    """A ``CheckpointManager`` (async, ``keep_last=TS_KEEP``, a save every
+    ``period_steps`` batches and none at epoch ends) whose ``save_module``
+    records its staging ms on the host clock (the capture: queueing the
+    copies to the host, which the caller does not wait for) and whether
+    the writer took the save."""
+    class StagingTimed(mx.checkpoint.CheckpointManager):
+        def __init__(self):
+            super().__init__(directory, keep_last=TS_KEEP, async_save=True,
+                             period_steps=period_steps, period_epochs=0)
+            self.staging_ms, self.accepted, self.refused = [], 0, 0
+
+        def save_module(self, module, **kw):
+            t = time.perf_counter()
+            ok = super().save_module(module, **kw)
+            self.staging_ms.append((time.perf_counter() - t) * 1e3)
+            self.accepted += bool(ok)
+            self.refused += not ok
+            return ok
+
+    return StagingTimed()
+
+
+def ts_fit(mx, ctx, sym, image, batch, epochs, steps, mgr=None, on_save=None,
+           warmup=0, seed=SEED, classes=CLASSES):
+    """``Module.fit`` of ``sym`` (``kvstore="tpu"``, ``SGD_PARAMS``, Xavier
+    from ``seed``) over ``ts_iter``, checkpointed by ``mgr``.  Each step
+    is timed between markers on the device's timeline; ``on_save(mod)``
+    runs where a periodic save was just handed off, outside the timed
+    spans.  Returns the module, the iterator and the step ms past
+    ``warmup``."""
+    device = ctx.torch_device
+    it = ts_iter(mx, ctx, batch, image, steps, seed, classes)
+    mod = mx.mod.Module(sym, context=ctx)
+    starts, ends = [], []
+
+    def on_batch(param):
+        ends.append(_marker(device))
+        if on_save is not None and (param.nbatch + 1) % steps == 0:
+            on_save(mod)
+        starts.append(_marker(device))
+
+    mx.random.seed(seed)
+    first = _marker(device)
+    mod.fit(it, num_epoch=epochs, kvstore="tpu", optimizer="sgd",
+            optimizer_params=SGD_PARAMS,
+            initializer=mx.init.Xavier(rnd_type="gaussian",
+                                       factor_type="in", magnitude=2),
+            eval_metric="acc", batch_end_callback=on_batch,
+            checkpoint_manager=mgr)
+    _sync(device)
+    step_ms = [_elapsed_ms(a, b)
+               for a, b in zip([first] + starts[:-1], ends)][warmup:]
+    return mod, it, step_ms
+
+
+def _ts_commits(mx):
+    """Saves committed so far in this process
+    (``mxnet_checkpoint_saves_total``, recorded whether telemetry is on
+    or off)."""
+    return mx.telemetry.counter("mxnet_checkpoint_saves_total").labels() \
+        .value
+
+
+def ts_timing(mx, ctx, sym, image, batch, workdir, timed=TS_TIMED,
+              seed=SEED, classes=CLASSES):
+    """Phase 20 (a), the cost: ``ts_fit`` of one epoch with a manager
+    saving every ``TS_STEPS`` batches and without one, in turns.  Every
+    save the writer took must commit."""
+    warmup, steps, turns = timed
+    commits0 = _ts_commits(mx)
+    out = {"with": [], "without": [], "staging_ms": [], "accepted": 0,
+           "refused": 0, "committed": 0}
+    for turn in range(turns):
+        for mode in ("with", "without"):
+            mgr = ts_manager(mx, os.path.join(workdir, "timing-%d" % turn),
+                             TS_STEPS) if mode == "with" else None
+            mod, _it, ms = ts_fit(mx, ctx, sym, image, batch, 1,
+                                  warmup + steps, mgr=mgr, warmup=warmup,
+                                  seed=seed, classes=classes)
+            out[mode].append(float(np.mean(ms)))
+            if mgr is not None:
+                if mgr.last_error() is not None:
+                    raise AssertionError("a timing fit's save failed: %r"
+                                         % mgr.last_error())
+                out["staging_ms"] += mgr.staging_ms
+                out["accepted"] += mgr.accepted
+                out["refused"] += mgr.refused
+            del mod
+    out["committed"] = _ts_commits(mx) - commits0
+    if out["committed"] != out["accepted"]:
+        raise AssertionError("the writer took %d saves and committed %d"
+                             % (out["accepted"], out["committed"]))
+    out["step_ms_with"] = float(np.mean(out["with"]))
+    out["step_ms_without"] = float(np.mean(out["without"]))
+    out["cost"] = out["step_ms_with"] / out["step_ms_without"] - 1
+    return out
+
+
+class _LogTap(logging.Handler):
+    """Keeps the messages of the records it sees."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def _ts_wait(cond, what, timeout_s=TS_WAIT_S):
+    deadline = time.perf_counter() + timeout_s
+    while not cond():
+        if time.perf_counter() > deadline:
+            raise AssertionError("phase 20 waited %.0f s for %s"
+                                 % (timeout_s, what))
+        time.sleep(0.01)
+
+
+def _ts_version_params(mx, ctx, store, step):
+    """``(symbol, arg_params, aux_params, sample shape, meta)`` of a
+    committed checkpoint, the arrays on ``ctx``."""
+    manifest, arrays, blobs = store.read(step)
+    state = mx.checkpoint.TrainState.from_payload(arrays, blobs,
+                                                  manifest["meta"])
+    to = ctx.torch_device
+    args = {k: mx.nd.NDArray(torch.from_numpy(np.array(v)).to(to))
+            for k, v in state.arg_params.items()}
+    auxs = {k: mx.nd.NDArray(torch.from_numpy(np.array(v)).to(to))
+            for k, v in state.aux_params.items()}
+    shape = tuple(state.meta["input_shapes"]["data"][1:])
+    return mx.sym.load_json(state.symbol_json), args, auxs, shape, state
+
+
+def _ts_requests(image, n, seed):
+    """``n`` seeded requests of 1-3 rows."""
+    rng = np.random.RandomState(seed)
+    return [rng.uniform(-1, 1, (int(rng.randint(1, 4)),) + tuple(image))
+            .astype(np.float32) for _ in range(n)]
+
+
+def ts_loop(mx, ctx, sym, image, batch, workdir, epochs=TS_EPOCHS,
+            steps=TS_STEPS, clients=TS_CLIENTS, seed=SEED, classes=CLASSES):
+    """Phase 20 (a) and (b): the checkpointed fit with a ``ModelServer``
+    beside it.  The server (buckets 1..``batch``, the warmup manifest,
+    ``canary_fraction=TS_CANARY``) watches the manager's directory; at
+    each periodic save the fit waits for the commit and for the watcher's
+    verdict on that version (warmed at every bucket, then promoted
+    directly or through the canary gate) while ``clients`` threads send
+    requests of 1-3 rows at priorities 0-2.  Returns the module, its
+    iterator, the running server and watcher, and the numbers."""
+    from mxnet_tpu_torch.serving import ModelNotFound, ModelServer
+    from mxnet_tpu_torch.serving.bucketing import shape_buckets
+    ckdir = os.path.join(workdir, "ckpt")
+    manifest = os.path.join(workdir, "warmup.json")
+    mgr = ts_manager(mx, ckdir, steps)
+    srv = ModelServer(buckets=shape_buckets(batch), queue_depth=TS_QUEUE,
+                      cache_size=32, manifest_path=manifest,
+                      canary_fraction=TS_CANARY, ctx=ctx,
+                      default_timeout_ms=TS_WAIT_S * 1e3)
+    srv.start()
+    watcher = srv.watch_checkpoints(ckdir, TS_MODEL, poll_interval=0.05)
+    stop, answered, errors, threads = threading.Event(), [], [], []
+    verdicts, window = [], {}
+
+    def client(k):
+        rng = np.random.RandomState(seed + 100 + k)
+        while not stop.is_set():
+            x = rng.uniform(-1, 1, (int(rng.randint(1, 4)),)
+                            + tuple(image)).astype(np.float32)
+            try:
+                out = srv.infer(TS_MODEL, {"data": x},
+                                priority=int(rng.randint(0, 3)))[0]
+                answered.append(out.shape == (x.shape[0], classes)
+                                and bool(np.isfinite(out).all()))
+            except Exception as exc:    # noqa: BLE001 — re-raised below
+                errors.append(exc)
+                return
+
+    def on_save(mod):
+        if not mgr.wait(TS_WAIT_S) or mgr.last_error() is not None:
+            raise AssertionError("the save did not commit: %r"
+                                 % mgr.last_error())
+        step = mgr.latest_step()
+        t0 = time.perf_counter()
+
+        def decided():
+            if errors:
+                raise errors[0]
+            desc = srv.registry.describe().get(TS_MODEL, {})
+            return desc.get("default") == step and \
+                srv.canary_status(TS_MODEL)["live"] is None
+
+        _ts_wait(decided, "version %d to be promoted" % step)
+        hist = srv.canary_status(TS_MODEL)["history"]
+        verdicts.append({"step": step, "wait_s": time.perf_counter() - t0,
+                         "canary": hist[-1] if hist and hist[-1][
+                             "canary_version"] == step else None})
+        if not threads:
+            window["t0"], window["n0"] = time.perf_counter(), len(answered)
+            threads.extend(threading.Thread(target=client, args=(k,),
+                                            daemon=True)
+                           for k in range(clients))
+            for t in threads:
+                t.start()
+
+    tap = _LogTap()
+    logging.getLogger().addHandler(tap)
+    try:
+        mod, it, step_ms = ts_fit(mx, ctx, sym, image, batch, epochs, steps,
+                                  mgr=mgr, on_save=on_save, seed=seed,
+                                  classes=classes)
+        # sustained: the clients' answers over the fit with them beside it
+        sustained = (len(answered) - window["n0"]) / (
+            time.perf_counter() - window["t0"])
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(TS_WAIT_S)
+        logging.getLogger().removeHandler(tap)
+    if errors:
+        raise errors[0]
+    failed_warmups = [m for m in tap.messages if "warmup of version" in m]
+    steps_kept = mgr.steps()
+    latest = mgr.latest_step()
+    out = {"versions": [v["step"] for v in verdicts], "verdicts": verdicts,
+           "step_ms": step_ms, "staging_ms": list(mgr.staging_ms),
+           "saves_accepted": mgr.accepted, "saves_refused": mgr.refused,
+           "retained": steps_kept, "answers": len(answered),
+           "answers_ok": all(answered), "sustained_req_per_s": sustained,
+           "failed_warmups": failed_warmups,
+           "cache": srv.cache.stats()["per_model"].get(TS_MODEL),
+           "manifest_buckets": srv.manifest.buckets_for(
+               TS_MODEL, srv.registry.get(TS_MODEL).symbol_sha,
+               backend=srv._backend)}
+    canaries = [v["canary"] for v in verdicts[1:]]
+    if out["versions"] != list(range(1, epochs + 1)) \
+            or mgr.refused or steps_kept != list(
+                range(latest - TS_KEEP + 1, latest + 1)) \
+            or failed_warmups or not out["answers_ok"] or any(
+                c is None or c["decision"] != "promoted" for c in canaries):
+        raise AssertionError(
+            "train-to-serve loop: versions %s, saves refused %d, retained "
+            "%s, warmup failures %s, answers ok %s, canaries %s"
+            % (out["versions"], mgr.refused, steps_kept, failed_warmups,
+               out["answers_ok"], canaries))
+    try:
+        srv.registry.get(TS_MODEL, latest)
+    except ModelNotFound:
+        raise AssertionError("the newest version is not registered")
+    return mod, it, mgr, srv, watcher, out
+
+
+def ts_answers(srv, image, n=TS_CHECK, seed=SEED):
+    """``n`` serial requests of 1-3 rows: ``(requests, answers)``."""
+    xs = _ts_requests(image, n, seed)
+    return xs, [srv.infer(TS_MODEL, {"data": x})[0] for x in xs]
+
+
+def ts_bitwise(mx, ctx, store, step, image, batch, xs, answers):
+    """Each answer against a ``Predictor`` over checkpoint ``step``'s
+    weights at the answer's own bucket (``bucket_forwards``): every one
+    bitwise equal: cuDNN may pick other engines at other batch sizes, so
+    an answer is held to a forward at its own bucket."""
+    sym, args, auxs, _shape, _ = _ts_version_params(mx, ctx, store, step)
+    refs, buckets, _ = bucket_forwards(mx, ctx, sym, args, auxs, image,
+                                       batch, xs)
+    return {"requests": len(xs), "buckets": sorted(set(buckets)),
+            "bitwise": all(np.array_equal(a.view(np.int32),
+                                          r.view(np.int32))
+                           for a, r in zip(answers, refs)),
+            "finite": all(np.isfinite(a).all() for a in answers)}
+
+
+def ts_poison(mx, ctx, mgr, srv, image, seed=SEED):
+    """Phase 20 (b), the rollback: the newest checkpoint committed again
+    with a NaN in its FC weight.  Serial requests until the gate decides;
+    the verdict must be the non-finite sentinel on the first canary batch
+    (the only non-finite answer), the version unloaded and the default
+    left on the last good version, which answers every request after the
+    verdict.  Returns the NaN version's step, the last good one, the
+    requests and answers after the verdict and the numbers."""
+    from mxnet_tpu_torch.serving import ModelNotFound
+    good = mgr.latest_step()
+    manifest, arrays, blobs = mgr.store.read(good)
+    state = mx.checkpoint.TrainState.from_payload(arrays, blobs,
+                                                  manifest["meta"])
+    fc = next(k for k in state.arg_params if k.endswith("_weight")
+              and k.startswith("fc"))
+    w = np.array(state.arg_params[fc])
+    w[0, 0] = np.nan
+    state.arg_params[fc] = w
+    t0 = time.perf_counter()
+    mgr.save_state(state, block=True)
+    bad = mgr.latest_step()
+    t_commit = time.perf_counter()
+    _ts_wait(lambda: srv.canary_status(TS_MODEL)["live"] is not None
+             and srv.canary_status(TS_MODEL)["live"]["canary_version"]
+             == bad, "the NaN version's canary")
+    t_live = time.perf_counter()
+    xs = _ts_requests(image, 400, seed + 40)
+    nonfinite, sent = 0, 0
+    for x in xs:
+        if srv.canary_status(TS_MODEL)["live"] is None:
+            break
+        out = srv.infer(TS_MODEL, {"data": x})[0]
+        nonfinite += not np.isfinite(out).all()
+        sent += 1
+    t_verdict = time.perf_counter()
+    hist = srv.canary_status(TS_MODEL)["history"][-1]
+    unloaded = False
+    try:
+        srv.registry.get(TS_MODEL, bad)
+    except ModelNotFound:
+        unloaded = True
+    res = {"nan_step": bad, "good_step": good, "verdict": hist,
+           "save_s": t_commit - t0, "to_canary_s": t_live - t_commit,
+           "to_verdict_s": t_verdict - t_live,
+           "requests_to_verdict": sent, "nonfinite_answers": nonfinite,
+           "unloaded": unloaded,
+           "default": srv.registry.get(TS_MODEL).version}
+    if hist["canary_version"] != bad or hist["decision"] != "rolled_back" \
+            or hist["reason"] != "nonfinite_outputs" \
+            or hist["nonfinite_batches"] != 1 or hist["served"] != 0 \
+            or nonfinite != 1 or not unloaded or res["default"] != good:
+        raise AssertionError("the NaN version's canary: %s" % res)
+    return res
+
+
+def ts_burst(mx, srv, image, sustained, seed=SEED):
+    """Phase 20 (c): requests of 1-3 rows at priorities 0, 1, 2 in turn,
+    each with a ``TS_BURST_DEADLINE_MS`` deadline, submitted at
+    ``max(TS_BURST_FACTOR * sustained, TS_BURST_MIN_RATE)`` a second for
+    ``TS_BURST_S``; then the queue drains.  Every outcome is tallied by
+    class on the client's side and held to ``stats()`` (the per-model
+    sheds by class and reason, the rejections, the ledger) and ``stats()``
+    to the registry's ``mxnet_serving_*`` families.  Returns the
+    numbers."""
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.serving import DeadlineExceeded, QueueFull
+    pool = _ts_requests(image, 8, seed + 50)
+    rate = max(TS_BURST_FACTOR * sustained, TS_BURST_MIN_RATE)
+    n = int(rate * TS_BURST_S)
+    before = srv.stats()
+    snap0 = telemetry.snapshot()
+    tally, futures, entered = {}, [], False
+
+    def count(cls, what):
+        tally[(cls, what)] = tally.get((cls, what), 0) + 1
+
+    t0 = time.perf_counter()
+    for i in range(n):
+        delay = t0 + i / rate - time.perf_counter()
+        if delay > 0:
+            time.sleep(delay)
+        cls = i % 3
+        try:
+            futures.append((cls, srv.infer_async(
+                TS_MODEL, {"data": pool[i % len(pool)]},
+                timeout_ms=TS_BURST_DEADLINE_MS, priority=cls)))
+        except QueueFull as exc:
+            count(cls, "rejected_brownout" if "brownout" in str(exc)
+                  else "rejected")
+        entered |= srv._brownout
+    submit_s = time.perf_counter() - t0
+    for cls, fut in futures:
+        try:
+            fut.result()
+            count(cls, "served")
+        except DeadlineExceeded as exc:
+            msg = str(exc)
+            count(cls, "doomed" if msg.startswith("shed:") else
+                  "brownout_queue" if msg.startswith("brownout") else
+                  "expired")
+    _ts_wait(lambda: not srv.stats()["brownout"]["active"],
+             "the brownout to end")
+    after = srv.stats()
+    snap1 = telemetry.snapshot()
+    req0 = before["per_model"][TS_MODEL]["requests"]
+    req1 = after["per_model"][TS_MODEL]["requests"]
+    req = {k: req1[k] - req0[k] for k in req1}
+    sheds = {}
+    for rows, sign in ((after, 1), (before, -1)):
+        for s in rows["per_model"][TS_MODEL]["sheds"]:
+            key = (s["class"], s["reason"])
+            sheds[key] = sheds.get(key, 0) + sign * s["count"]
+    sheds = {k: v for k, v in sheds.items() if v}
+
+    def registry_total(snap, name, **labels):
+        return _total(snap, name, model=TS_MODEL, **labels)
+
+    registry = {o: registry_total(snap1, "mxnet_serving_requests_total",
+                                  outcome=o)
+                - registry_total(snap0, "mxnet_serving_requests_total",
+                                 outcome=o) for o in req}
+    shed_registry = {}
+    for (cls, reason) in set(sheds) | {(c, r) for c in range(3) for r in (
+            "doomed", "brownout_reject", "brownout_queue")}:
+        v = registry_total(snap1, "mxnet_serving_sheds_total",
+                           cls=str(cls), reason=reason) \
+            - registry_total(snap0, "mxnet_serving_sheds_total",
+                             cls=str(cls), reason=reason)
+        if v:
+            shed_registry[(cls, reason)] = v
+    client = {k: sum(v for (c, w), v in tally.items() if w == k)
+              for k in ("served", "rejected", "rejected_brownout", "doomed",
+                        "brownout_queue", "expired")}
+    res = {
+        "rate": rate, "submitted": n, "submit_s": submit_s,
+        "submit_rate": n / submit_s, "sustained_req_per_s": sustained,
+        "factor": n / submit_s / sustained if sustained else None,
+        "entered": after["brownout"]["entered"]
+        - before["brownout"]["entered"], "seen_active": entered,
+        "left": not after["brownout"]["active"],
+        "by_class": {"%d %s" % k: v for k, v in sorted(tally.items())},
+        "client": client, "requests": req, "registry": registry,
+        "sheds": {"%d %s" % k: v for k, v in sorted(sheds.items())},
+        "occupancy": after["batches"]["occupancy"]}
+    rejected_brownout = {c: tally.get((c, "rejected_brownout"), 0)
+                         for c in range(3)}
+    ok = (res["factor"] is not None and res["factor"] >= 4
+          and res["entered"] >= 1 and res["left"]
+          and tally.get((0, "served"), 0) > 0
+          and req == registry
+          and {k: v for k, v in sheds.items()} == shed_registry
+          and req["rejected_queue_full"] == client["rejected"]
+          + client["rejected_brownout"]
+          and all(sheds.get((c, "brownout_reject"), 0)
+                  == rejected_brownout[c] for c in range(3))
+          and req["served"] == client["served"]
+          and req["shed"] + req["expired"] == client["doomed"]
+          + client["brownout_queue"] + client["expired"]
+          and req["shed"] == sum(v for (c, r), v in sheds.items()
+                                 if r != "brownout_reject")
+          and req["submitted"] == req["served"] + req["failed"]
+          + req["expired"] + req["shed"])
+    if not ok:
+        raise AssertionError("shedding and brownout: %s" % res)
+    return res
+
+
+def ts_worker_fault(mx, srv, image, seed=SEED):
+    """Phase 20 (f), serving: one injected ``serving.worker`` fault fails
+    only its batch's request; the next request is served."""
+    from mxnet_tpu_torch import fault
+    from mxnet_tpu_torch.fault import FaultInjected
+    x = _ts_requests(image, 1, seed + 60)[0]
+    before = srv.stats()["per_model"][TS_MODEL]["requests"]
+    failed = False
+    with fault.active_plan({"rules": [{"site": "serving.worker",
+                                       "kind": "raise", "times": 1}]}) as p:
+        try:
+            srv.infer(TS_MODEL, {"data": x})
+        except FaultInjected:
+            failed = True
+        out = srv.infer(TS_MODEL, {"data": x})[0]
+    after = srv.stats()["per_model"][TS_MODEL]["requests"]
+    res = {"failed_batch": failed, "injected": p.injected_count(),
+           "next_served": bool(np.isfinite(out).all()),
+           "failed": after["failed"] - before["failed"],
+           "served": after["served"] - before["served"]}
+    if res != {"failed_batch": True, "injected": 1, "next_served": True,
+               "failed": 1, "served": 1}:
+        raise AssertionError("serving.worker fault: %s" % res)
+    return res
+
+
+def ts_restart_child(args):
+    """One restarted server (a process of its own on the card): checkpoint
+    ``step`` served on ``args["ctx"]`` with the warmup manifest, warmed
+    from it when ``args["mode"] == "manifest"``, then ``TS_LIVE`` live
+    requests timed one at a time.  Returns the numbers."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import compile_cache
+    from mxnet_tpu_torch.serving import ModelServer
+    from mxnet_tpu_torch.serving.bucketing import shape_buckets
+    ctx = mx.gpu(0) if args["ctx"] == "gpu" else mx.cpu()
+    device = ctx.torch_device
+    torch.backends.cudnn.deterministic = True
+    store = mx.checkpoint.CheckpointStore(args["ckdir"])
+    sym, arg, aux, shape, _ = _ts_version_params(mx, ctx, store,
+                                                 args["step"])
+    srv = ModelServer(buckets=shape_buckets(args["batch"]),
+                      manifest_path=args["manifest"], ctx=ctx,
+                      default_timeout_ms=TS_WAIT_S * 1e3)
+    srv.add_model(TS_MODEL, sym, arg, aux, {"data": (1,) + shape})
+    # started first, as a replica comes up: the warmup goes through the
+    # batcher thread, which then serves the live requests (each thread
+    # makes its own cuDNN and cuBLAS handles at its first call)
+    srv.start()
+    t0 = time.perf_counter()
+    warmed = srv.warmup_from_manifest() if args["mode"] == "manifest" \
+        else []
+    _sync(device)
+    warm_s = time.perf_counter() - t0
+    misses_warm = srv.cache.stats()["misses"]
+    lat, finite = [], True
+    try:
+        for x in _ts_requests(shape, args["live"], SEED + 70):
+            t = time.perf_counter()
+            out = srv.infer(TS_MODEL, {"data": x})[0]
+            lat.append((time.perf_counter() - t) * 1e3)
+            finite &= bool(np.isfinite(out).all())
+    finally:
+        srv.stop()
+    return {"mode": args["mode"], "warmed": [b for _n, _v, b in warmed],
+            "warmup_s": warm_s, "misses_after_warmup": misses_warm,
+            "misses_after_live": srv.cache.stats()["misses"],
+            "latency_ms": lat, "p50_ms": float(np.percentile(lat, 50)),
+            "p99_ms": float(np.percentile(lat, 99)), "finite": finite,
+            "compile_cache": compile_cache.stats(refresh=False)}
+
+
+def ts_restart(mx, ctx, ckdir, step, manifest, batch, live=TS_LIVE,
+               spawn=True):
+    """Phase 20 (d): the server restarted on the same manifest, in a new
+    process (``spawn``; in this one for a CPU rehearsal), once warmed from
+    the manifest and once cold.  With the manifest: every recorded bucket
+    bound before the first live request and no miss after, and in a new
+    process on the card the compile cache loaded every kernel library it
+    had (hits) and ran no ``nvcc``.  Returns both runs."""
+    runs = {}
+    for mode in ("manifest", "cold"):
+        args = {"ckdir": ckdir, "step": step, "manifest": manifest,
+                "batch": batch, "mode": mode, "live": live,
+                "ctx": "gpu" if ctx.device_type == "gpu" else "cpu"}
+        if not spawn:
+            runs[mode] = ts_restart_child(args)
+            continue
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "_ts_restart",
+             json.dumps(args)], capture_output=True, text=True,
+            timeout=600, cwd=os.path.dirname(os.path.abspath(__file__)))
+        if proc.returncode != 0:
+            raise AssertionError("the restarted server (%s) exited %d:\n%s"
+                                 % (mode, proc.returncode,
+                                    proc.stderr[-4000:]))
+        runs[mode] = json.loads(proc.stdout.strip().splitlines()[-1])
+    with open(manifest) as f:
+        recorded = sorted({e["bucket"] for e in json.load(f)["entries"]})
+    m = runs["manifest"]
+    cc = m["compile_cache"]
+    ok = (m["warmed"] == recorded and m["misses_after_warmup"]
+          == len(recorded) and m["misses_after_live"] == len(recorded)
+          and m["finite"] and runs["cold"]["finite"]
+          and runs["cold"]["misses_after_warmup"] == 0)
+    if spawn and ctx.device_type == "gpu":
+        ok &= cc["misses"] == 0 and cc["hits"] > 0 and cc["errors"] == 0
+    if not ok:
+        raise AssertionError("warm restart (manifest buckets %s): %s"
+                             % (recorded, runs))
+    return dict(runs, recorded=recorded)
+
+
+def ts_resume(mx, ctx, mod, it, mgr, sym, image, batch, steps=TS_STEPS,
+              seed=SEED, classes=CLASSES):
+    """Phase 20 (e): the newest checkpoint restored by
+    ``CheckpointManager.restore_latest`` into a fresh ``Module`` (another
+    initialisation, the same optimizer) and two steps taken by it and by
+    the module that wrote it, on the iterator each restores: weights,
+    momentum and moving statistics bitwise or within ``CKPT_TOL`` of each
+    tensor's largest."""
+    device = ctx.torch_device
+
+    def two_steps(m, source):
+        for _ in range(2):
+            m.forward_backward(source.next())
+            m.update()
+        _sync(device)
+        return module_state(m)
+
+    # the original: fit reset its iterator at the last epoch's end
+    ref = two_steps(mod, it)
+    it2 = ts_iter(mx, ctx, batch, image, steps, seed, classes)
+    fresh = mx.mod.Module(sym, context=ctx)
+    fresh.bind(it2.provide_data, it2.provide_label)
+    mx.random.seed(seed + 1)
+    fresh.init_params(mx.init.Xavier())
+    fresh.init_optimizer(kvstore="tpu", optimizer="sgd",
+                         optimizer_params=SGD_PARAMS)
+    state, ms = _timed(device, lambda: mgr.restore_latest(
+        fresh, train_data=it2))
+    it2.reset()     # as fit resets it, from the restored generator
+    got = two_steps(fresh, it2)
+    res = dict(compare_states(got, ref), restore_ms=ms,
+               step=mgr.latest_step(), epoch=state.epoch,
+               nbatch=state.nbatch, fused=fresh._fused_exec_update)
+    if not (res["bitwise"] or res["max_rel"] <= CKPT_TOL) \
+            or not res["fused"]:
+        raise AssertionError("resume against the uninterrupted run: %s"
+                             % res)
+    return res
+
+
+def ts_commit_fault(mx, mod, mgr):
+    """Phase 20 (f), checkpoints: one injected ``checkpoint.store.commit``
+    failure fails that save only (counted, the writer's error, nothing
+    committed) and the next save commits."""
+    from mxnet_tpu_torch import fault
+    before = mgr.steps()
+    with fault.active_plan({"rules": [{"site": "checkpoint.store.commit",
+                                       "kind": "io_error",
+                                       "times": 1}]}) as p:
+        mgr.save_module(mod, epoch=98)
+        mgr.wait(TS_WAIT_S)
+        err = mgr.last_error()
+        mid = mgr.steps()
+        mgr._async.clear_error()
+        mgr.save_module(mod, epoch=99)
+        mgr.wait(TS_WAIT_S)
+    res = {"injected": p.injected_count(), "first_error":
+           type(err).__name__ if err is not None else None,
+           "after_first": mid == before,
+           "second_committed": mgr.last_error() is None
+           and mgr.latest_step() not in before}
+    if res != {"injected": 1, "first_error": "OSError", "after_first": True,
+               "second_committed": True}:
+        raise AssertionError("checkpoint.store.commit fault: %s" % res)
+    return res
+
+
+def train_serve(mx, ctx, sym, image, batch, workdir, epochs=TS_EPOCHS,
+                steps=TS_STEPS, timed=TS_TIMED, clients=TS_CLIENTS,
+                live=TS_LIVE, spawn=True, seed=SEED, classes=CLASSES,
+                counts=None, knob_values=None):
+    """Phase 20 on ``ctx``: (a) the manager's cost on the fit
+    (``ts_timing``) and the checkpointed fit with (b) the server beside
+    it (``ts_loop``), the answers after the last promotion held bitwise
+    (``ts_bitwise``), the NaN version rolled back (``ts_poison``); (c)
+    the burst (``ts_burst``); (f) a ``serving.worker`` fault; (d) the
+    warm restart (``ts_restart``); (e) the resume (``ts_resume``); (f) a
+    ``checkpoint.store.commit`` fault.  ``counts()`` (the launch counts)
+    is read over (a)'s loop, (b), (c) and (f)'s serving fault, with the
+    telemetry registry reset and on.  ``knob_values`` overrides entries
+    of ``TS_CANARY_KNOBS``.  Each part raises on failure.  Returns the
+    numbers."""
+    from mxnet_tpu_torch import telemetry
+    t_start = time.perf_counter()
+    with knobs(None, tuple(TS_CANARY_KNOBS)):
+        os.environ.update(TS_CANARY_KNOBS, **(knob_values or {}))
+        timing = ts_timing(mx, ctx, sym, image, batch, workdir, timed,
+                           seed, classes)
+        telemetry.reset()
+        telemetry.enable()
+        try:
+            if counts is not None:
+                counts(reset=True)
+            mod, it, mgr, srv, watcher, loop = ts_loop(
+                mx, ctx, sym, image, batch, workdir, epochs, steps, clients,
+                seed, classes)
+            try:
+                good = mgr.latest_step()
+                xs, promoted = ts_answers(srv, image, seed=seed + 30)
+                poison = ts_poison(mx, ctx, mgr, srv, image, seed)
+                ys, after = ts_answers(srv, image, seed=seed + 31)
+                burst = ts_burst(mx, srv, image,
+                                 loop["sustained_req_per_s"], seed)
+                worker = ts_worker_fault(mx, srv, image, seed)
+                _sync(ctx.torch_device)
+                launches = counts() if counts is not None else None
+                snap = telemetry.snapshot()
+                forwards = srv.stats()["batches"]["count"]
+            finally:
+                watcher.stop()
+                srv.stop()
+        finally:
+            telemetry.disable()
+    sweep = mod._exec_group.execs[0]._sweep
+    loop.update(
+        fit_steps=epochs * steps, forwards=forwards, launches=launches,
+        counter=_families(snap, "mxnet_pallas_kernel_calls_total", "kernel"),
+        buckets=len(sweep["plan"]) if sweep is not None else 0,
+        fused=mod._fused_exec_update,
+        writer_mb_per_s=_ts_writer_rate(snap),
+        warmup_seconds=_ts_warmups(snap))
+    promoted = ts_bitwise(mx, ctx, mgr.store, good, image, batch, xs,
+                          promoted)
+    after = ts_bitwise(mx, ctx, mgr.store, good, image, batch, ys, after)
+    if not (promoted["bitwise"] and after["bitwise"] and after["finite"]):
+        raise AssertionError("served answers against a Predictor over the "
+                             "checkpoint: after the last promotion %s, "
+                             "after the rollback %s" % (promoted, after))
+    mgr.store.delete(poison["nan_step"])
+    restart = ts_restart(mx, ctx, mgr.store.root, good, srv.manifest.path,
+                         batch, live, spawn)
+    resume = ts_resume(mx, ctx, mod, it, mgr, sym, image, batch, steps,
+                       seed, classes)
+    commit = ts_commit_fault(mx, mod, mgr)
+    return {"timing": timing, "loop": loop, "promoted": promoted,
+            "poison": poison, "after_rollback": after, "burst": burst,
+            "restart": restart, "resume": resume,
+            "faults": {"serving.worker": worker,
+                       "checkpoint.store.commit": commit},
+            "seconds": time.perf_counter() - t_start}
+
+
+def _ts_writer_rate(snap):
+    """MB/s of the checkpoint writer (serialize, hash, write, fsync,
+    commit) over the window: ``mxnet_checkpoint_bytes`` over the summed
+    ``mxnet_checkpoint_save_seconds``."""
+    hist = snap.get("mxnet_checkpoint_save_seconds", {"values": []})
+    secs = sum(v["sum"] for v in hist["values"])
+    return _total(snap, "mxnet_checkpoint_bytes") / 1e6 / secs \
+        if secs else None
+
+
+def _ts_warmups(snap):
+    """``{mode: [count, seconds]}`` of ``mxnet_serving_warmup_seconds``."""
+    hist = snap.get("mxnet_serving_warmup_seconds", {"values": []})
+    return {v["labels"].get("mode"): [v["count"], v["sum"]]
+            for v in hist["values"]}
+
+
+def train_serve_phase(mx, ck, ctx, sym, n_sites, smi, workdir_parent=None):
+    """Phase 20 on the card, cuDNN deterministic, in a temporary directory
+    of the checkout removed at the end: ``train_serve`` on full-width
+    ResNet-50 v1, its launches held through the kernel counter
+    (``mxnet_pallas_kernel_calls_total``, equal to the wrappers' counts):
+    K1b once a bucket and K2 once a step of the fit, K3 at ``n_sites``
+    and K2 once a served forward.  Prints the phase's lines and returns
+    its JSON record."""
+    import tempfile
+    workdir = tempfile.TemporaryDirectory(
+        prefix=".chip_smoke_ts_", dir=workdir_parent or os.path.dirname(
+            os.path.abspath(__file__)))
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        res = train_serve(
+            mx, ctx, sym, IMAGE, BATCH, workdir.name,
+            counts=lambda reset=False: ck.reset_kernel_calls() if reset
+            else ck.kernel_calls())
+    finally:
+        torch.backends.cudnn.deterministic = saved
+        workdir.cleanup()
+    loop = res["loop"]
+    steps, fwd, buckets = loop["fit_steps"], loop["forwards"], loop["buckets"]
+    want = {"sgd_mom_sweep": buckets * steps,
+            "softmax_lastaxis": steps + fwd,
+            "scale_bias_relu": n_sites * fwd}
+    labels = {"sgd_mom_sweep": "fused_sgd_momentum",
+              "softmax_lastaxis": "fused_softmax_fwd",
+              "scale_bias_relu": "fused_scale_bias_relu"}
+    got = {k: loop["launches"].get(k, 0) for k in want}
+    counter = {k: loop["counter"].get(labels[k], 0) for k in want}
+    others = {k: v for k, v in loop["launches"].items()
+              if k not in want and v}
+    if got != want or counter != want or others or not loop["fused"] \
+            or buckets < 1:
+        raise AssertionError(
+            "phase 20 launches over %d fit steps and %d served forwards: "
+            "wrappers %s, kernel counter %s, expected %s (others %s)"
+            % (steps, fwd, got, counter, want, others))
+    res["card"] = smi
+    t, b, r = res["timing"], res["burst"], res["restart"]
+    print("train-to-serve on %s: ResNet-50 v1 Module.fit kvstore=tpu batch "
+          "%d, %d epochs of %d steps, CheckpointManager(period_steps=%d, "
+          "async, keep_last=%d), cuDNN deterministic: step ms with the "
+          "manager %s, without %s (in turns; cost %.2f%%); staging ms "
+          "(host clock) %s; "
+          "writer %.0f MB/s; saves taken %d, refused %d, committed %d; "
+          "versions %s promoted (waits %s s), retained %s; canaries %s"
+          % (smi, BATCH, TS_EPOCHS, TS_STEPS, TS_STEPS, TS_KEEP,
+             ["%.2f" % v for v in t["with"]],
+             ["%.2f" % v for v in t["without"]], 100 * t["cost"],
+             ["%.1f" % v for v in t["staging_ms"] + loop["staging_ms"]],
+             loop["writer_mb_per_s"] or 0.0, t["accepted"], t["refused"],
+             t["committed"], loop["versions"],
+             ["%.2f" % v["wait_s"] for v in loop["verdicts"]],
+             loop["retained"],
+             [(v["canary"]["decision"], v["canary"]["routed"],
+               v["canary"]["decision_latency_s"])
+              for v in loop["verdicts"][1:]]), flush=True)
+    print("hot swap on %s: %d client answers beside the fit (%.1f req/s "
+          "sustained), warmups %s, cache %s; after the last promotion %s; "
+          "NaN version %d rolled back after %d requests (%s, %d non-finite "
+          "answer, decided %s s after the canary began; the save %.2f s, "
+          "the watcher's read, warmup and staging %.2f s, the requests "
+          "%.3f s), then %s" % (
+              smi, loop["answers"], loop["sustained_req_per_s"],
+              loop["warmup_seconds"], loop["cache"], res["promoted"],
+              res["poison"]["nan_step"], res["poison"]["requests_to_verdict"],
+              res["poison"]["verdict"]["reason"],
+              res["poison"]["nonfinite_answers"],
+              res["poison"]["verdict"]["decision_latency_s"],
+              res["poison"]["save_s"], res["poison"]["to_canary_s"],
+              res["poison"]["to_verdict_s"], res["after_rollback"]),
+          flush=True)
+    print("burst on %s: %d requests at %.0f/s (%.1fx the sustained rate), "
+          "deadline %.0f ms: brownout entered %d, left; by class %s; sheds "
+          "%s; stats = registry %s" % (
+              smi, b["submitted"], b["submit_rate"], b["factor"],
+              TS_BURST_DEADLINE_MS, b["entered"], b["by_class"], b["sheds"],
+              b["requests"]), flush=True)
+    print("warm restart on %s: manifest buckets %s; first %d live requests "
+          "p50 %.2f ms, p99 %.2f ms with the manifest warmup (%.2f s, "
+          "misses %d then %d; compile cache %s) and p50 %.2f ms, p99 %.2f "
+          "ms cold; resume %s; faults %s; launches %s = counter; phase 20 "
+          "%.1f s" % (
+              smi, r["recorded"], TS_LIVE, r["manifest"]["p50_ms"],
+              r["manifest"]["p99_ms"], r["manifest"]["warmup_s"],
+              r["manifest"]["misses_after_warmup"],
+              r["manifest"]["misses_after_live"],
+              {k: r["manifest"]["compile_cache"][k]
+               for k in ("hits", "misses", "errors")},
+              r["cold"]["p50_ms"], r["cold"]["p99_ms"], res["resume"],
+              res["faults"], got, res["seconds"]), flush=True)
+    res["launches_train_serve"] = {
+        "fit_steps": steps, "served_forwards": fwd,
+        "sgd_mom_sweep": {"launches": got["sgd_mom_sweep"],
+                          "per_fit_step": got["sgd_mom_sweep"] / steps},
+        "softmax_lastaxis": {"launches": got["softmax_lastaxis"],
+                             "per_fit_step": 1, "per_served_forward": 1},
+        "scale_bias_relu": {"launches": got["scale_bias_relu"],
+                            "per_served_forward": got["scale_bias_relu"]
+                            / fwd}}
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["_ts_restart"]:
+        # phase 20 (d)'s restarted server, in a process of its own
+        print(json.dumps(ts_restart_child(json.loads(sys.argv[2])),
+                         default=str))
+        return 0
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.ops import _build
     from mxnet_tpu_torch.ops import cuda_kernels as ck
@@ -6107,6 +7010,15 @@ def main():
         obs_line = observability_phase(mx, ck, mx.gpu(0), sym, len(sites),
                                        2, smi)
         print(json.dumps({"observability": obs_line}, default=str))
+        return 0
+    if sys.argv[1:] == ["train_serve"]:
+        # phase 20 alone
+        ts_line = train_serve_phase(mx, ck, mx.gpu(0), sym, len(sites), smi)
+        print(json.dumps({"train_serve": ts_line}, default=str))
+        print("nvidia-smi: %s" % smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
         return 0
     k3, k3_jobs = check_k3(ck, sites, dev, bw, flops)
     k2, k2_jobs = check_k2(ck, dev, bw, flops, BATCH)
@@ -7156,6 +8068,14 @@ def main():
         "per_served_forward": srv19["counter_per_forward"][
             "fused_scale_bias_relu"],
         "device_trace": srv_traced["fused_scale_bias_relu"]}
+    # 20. the train-to-serve loop
+    ts_line = train_serve_phase(mx, ck, mx.gpu(0), sym, len(sites), smi)
+    ts_launches = ts_line["launches_train_serve"]
+    for rec, name in ((sweeps["sgd_mom_sweep"], "sgd_mom_sweep"),
+                      (k2, "softmax_lastaxis"), (k3, "scale_bias_relu")):
+        rec["launches_train_serve"] = dict(
+            ts_launches[name], fit_steps=ts_launches["fit_steps"],
+            served_forwards=ts_launches["served_forwards"])
     for job in k7a_jobs:
         job["tflops"] = job["ops"] / job["ms"] / 1e9
     k7a["tflops"] = k7a_jobs[0]["tflops"]
@@ -7252,6 +8172,7 @@ def main():
     print(json.dumps({"data_pipeline": data_line}, default=str))
     print(json.dumps({"gluon": g18}, default=str))
     print(json.dumps({"observability": obs_line}, default=str))
+    print(json.dumps({"train_serve": ts_line}, default=str))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
             "launches_per_forward", "call_ms", "plain_call_ms",
@@ -7262,7 +8183,7 @@ def main():
                         "launches_inception", "launches_mixed",
                         "launches_training_loop",
                         "launches_data_pipeline", "launches_gluon",
-                        "launches_observability",
+                        "launches_observability", "launches_train_serve",
                         "lm", "bf16",
                         "ms_repeats", "library_ms_repeats",
                         "bfloat16_ms_repeats", "bfloat16_library_ms_repeats",

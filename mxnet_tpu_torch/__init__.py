@@ -44,7 +44,13 @@ optimizers, metrics, initializers and schedulers, the callbacks,
 (the executor's taps), ``viz``, ``registry``, ``misc`` and ``log``.
 ``telemetry`` (the metrics registry, the step log, tracing, the flight
 recorder) and ``profiler`` record at the JAX package's sites under its
-family names; ``gluon.rnn`` holds the recurrent layers and cells.
+family names; ``gluon.rnn`` holds the recurrent layers and cells.  The
+train-to-serve loop is the JAX package's: ``checkpoint`` (sharded,
+sha256-checked, atomically committed training state, saved by ``fit``
+through a ``CheckpointManager``), ``fault`` (the fault-plan runtime and
+its sites), ``compile_cache`` (the built CUDA kernel libraries) and
+serving's quotas, priorities, shedding, brownout, canaries, warmup
+manifest and ``CheckpointWatcher``.
 """
 import torch as _torch
 
@@ -99,6 +105,15 @@ from .monitor import Monitor  # noqa: F401
 from . import visualization  # noqa: F401
 from . import visualization as viz  # noqa: F401
 from . import log  # noqa: F401
+from . import compile_cache  # noqa: F401
+from . import checkpoint  # noqa: F401
+from . import fault  # noqa: F401
 
 _torch.backends.cudnn.allow_tf32 = False
 _torch.backends.cuda.matmul.allow_tf32 = False
+
+# arm the fault-injection plan at import when MXNET_FAULT_PLAN is set, so
+# a drilled child process is configured through its environment alone;
+# unset, every instrumented site costs one boolean
+if config.get("MXNET_FAULT_PLAN"):
+    fault.install()

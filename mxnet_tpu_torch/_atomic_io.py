@@ -10,8 +10,9 @@ are flushed and fsync'd, and only then renamed over the target.  A crash
 at any point leaves the old complete file or the new complete file.
 
 While tracing is on, each commit (flush, fsync, rename) is an
-``atomic_io.commit`` span.  The JAX package's fault-injection site at
-the commit comes with the slice that ports ``fault/``.
+``atomic_io.commit`` span; under an armed fault plan the commit is the
+``atomic_io.commit`` site, where a torn write truncates the temp file
+and fails the save with the target untouched.
 """
 from __future__ import annotations
 
@@ -19,6 +20,8 @@ import contextlib
 import os
 import sys
 import uuid
+
+from .fault import hooks as _fault
 
 __all__ = ["atomic_writer", "atomic_write"]
 
@@ -53,6 +56,8 @@ def atomic_writer(path, mode="wb"):
     try:
         yield f
         with _span("atomic_io.commit", path=path):
+            if _fault.ACTIVE[0]:
+                _fault.fire("atomic_io.commit", file=f, path=path)
             f.flush()
             os.fsync(f.fileno())
             f.close()

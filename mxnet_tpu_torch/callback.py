@@ -16,7 +16,7 @@ import logging
 import time
 
 from . import telemetry
-from .model import _refuse_manager, save_checkpoint
+from .model import save_checkpoint
 
 __all__ = ["module_checkpoint", "do_checkpoint", "log_train_metric",
            "Speedometer", "ProgressBar", "LogValidationMetricsCallback"]
@@ -26,13 +26,14 @@ def module_checkpoint(mod, prefix=None, period=1, save_optimizer_states=False,
                       manager=None):
     """An epoch-end callback that checkpoints ``mod`` under ``prefix``
     every ``period`` epochs (reference: callback.py:28), the period
-    counted from the last successful save: a save that fails is logged
-    and tried again at the next epoch.  ``manager=`` and
-    ``MXNET_CKPT_DIR`` raise here: the checkpoint manager is not
-    ported."""
-    _refuse_manager(manager)
-    if prefix is None:
-        raise ValueError("module_checkpoint needs a prefix")
+    counted from the last successful save: a save that fails (or that a
+    busy async writer refuses) is logged and tried again at the next
+    epoch.  ``manager``: route saves through a
+    ``checkpoint.CheckpointManager`` instead of — when ``prefix`` is
+    None — or in addition to the prefix files."""
+    if prefix is None and manager is None:
+        raise ValueError("module_checkpoint needs a prefix, a manager, "
+                         "or both")
     period = int(max(1, period))
     last_saved = [0]    # epochs completed at the last successful save
 
@@ -41,7 +42,16 @@ def module_checkpoint(mod, prefix=None, period=1, save_optimizer_states=False,
         if done - last_saved[0] < period:
             return
         try:
-            mod.save_checkpoint(prefix, done, save_optimizer_states)
+            if manager is not None:
+                if not manager.save_module(mod, epoch=done):
+                    return   # writer busy — retry next epoch
+                if prefix is not None:
+                    # manager=False: the managed save just happened, so
+                    # MXNET_CKPT_DIR must not route a second one
+                    mod.save_checkpoint(prefix, done, save_optimizer_states,
+                                        manager=False)
+            else:
+                mod.save_checkpoint(prefix, done, save_optimizer_states)
         except Exception:   # noqa: BLE001 — logged, retried next epoch
             logging.warning("checkpoint at epoch %d failed; retrying next "
                             "epoch", done, exc_info=True)

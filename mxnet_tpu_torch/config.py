@@ -161,3 +161,126 @@ register_env("MXNET_TRACE_FLIGHT_RING", int, 512,
 register_env("MXNET_TRACE_FLIGHT_DUMPS", int, 8,
              "max flight-recorder incident dumps per process — a "
              "crash-looping trigger cannot fill the disk")
+register_env("MXNET_CKPT_DIR", str, None,
+             "checkpoint directory; when set, fit() checkpoints into it "
+             "via a CheckpointManager and Module.save_checkpoint mirrors "
+             "saves there (the checkpoint package)")
+register_env("MXNET_CKPT_PERIOD_STEPS", int, 0,
+             "save a checkpoint every N training batches during fit() "
+             "(0 disables step-periodic saves)")
+register_env("MXNET_CKPT_PERIOD_EPOCHS", int, 1,
+             "save a checkpoint every N epochs at epoch end during "
+             "fit() (0 disables epoch-periodic saves)")
+register_env("MXNET_CKPT_KEEP_LAST", int, 5,
+             "retention: keep this many most-recent complete "
+             "checkpoints (<= 0 keeps everything)")
+register_env("MXNET_CKPT_KEEP_EVERY", int, 0,
+             "retention: additionally pin every checkpoint whose step "
+             "id divides by K, forever (0 disables)")
+register_env("MXNET_CKPT_ASYNC", bool, True,
+             "serialize checkpoints on a background worker (at most one "
+             "in flight); 0 saves synchronously on the training thread")
+register_env("MXNET_CKPT_ON_SIGTERM", bool, True,
+             "during fit(), SIGTERM triggers one final synchronous "
+             "checkpoint before exiting (preemption grace-window save)")
+register_env("MXNET_CKPT_WATCH_INTERVAL_S", float, 10.0,
+             "poll period of serving ModelRegistry.watch_checkpoints "
+             "for newly committed checkpoint versions")
+register_env("MXNET_COMPILE_CACHE_DIR", str, None,
+             "directory of the built CUDA kernel libraries "
+             "(libmxtt_<name>.so and its .hash, one nvcc a source); "
+             "unset, the package's own _build/; a restarted process "
+             "whose hashes match loads them instead of running nvcc")
+register_env("MXNET_COMPILE_CACHE_MIN_COMPILE_SECS", float, 0.0,
+             "kept for the JAX package's call shape: every nvcc build is "
+             "persisted, whatever it took")
+register_env("MXNET_COMPILE_CACHE_MIN_ENTRY_BYTES", int, 0,
+             "kept for the JAX package's call shape: every built "
+             "library is persisted, whatever its size")
+register_env("MXNET_COMPILE_CACHE_MAX_BYTES", int, 1073741824,
+             "compile-cache size cap; hygiene sweeps LRU-evict built "
+             "libraries by recency until the cache fits (<= 0 disables "
+             "the cap)")
+register_env("MXNET_COMPILE_CACHE_MANIFEST", str, None,
+             "path of the serving warmup manifest: ModelServer records "
+             "its (model, bucket) executor key set there and a "
+             "restarted replica replays it, running each bucket's first "
+             "forward before live traffic")
+register_env("MXNET_FAULT_PLAN", str, None,
+             "deterministic fault-injection schedule: inline JSON or "
+             "@/path/to/plan.json; armed at import, every instrumented "
+             "site then consults it (fault/plan.py has the rule "
+             "vocabulary); unset = one boolean per site")
+register_env("MXNET_FAULT_RETRIES", int, 3,
+             "default retry budget of the shared BackoffPolicy "
+             "(fault/backoff.py): elastic training restarts, watcher "
+             "transient reads, kvstore weight reads, serving submit "
+             "retries; per-call-site overrides win")
+register_env("MXNET_FAULT_BACKOFF_BASE_S", float, 0.5,
+             "first-retry delay of the shared BackoffPolicy; "
+             "subsequent delays multiply by 2 up to "
+             "MXNET_FAULT_BACKOFF_MAX_S")
+register_env("MXNET_FAULT_BACKOFF_MAX_S", float, 30.0,
+             "cap on any single BackoffPolicy delay")
+register_env("MXNET_FAULT_BACKOFF_JITTER", float, 0.25,
+             "jitter fraction of BackoffPolicy delays (each delay is "
+             "scaled by a seeded uniform draw from [1-j, 1+j]) so a "
+             "preempted fleet does not retry in lockstep")
+register_env("MXNET_SERVING_SUBMIT_RETRIES", int, 0,
+             "opt-in client-side retry budget for serving submissions "
+             "rejected with QueueFull: infer()/infer_async() re-submit "
+             "up to this many times, sleeping the error's retry_after_s "
+             "hint with BackoffPolicy jitter; 0 (default) surfaces "
+             "QueueFull to the caller unchanged")
+register_env("MXNET_SERVING_MODEL_QUEUE_DEPTH", int, 0,
+             "default per-model queue quota: at most this many requests "
+             "of one model queued at once, rejected with that model's "
+             "own QueueFull/retry_after_s beyond it (0 = no per-model "
+             "cap; the global MXNET_SERVING_QUEUE_DEPTH always applies); "
+             "ModelServer.set_quota overrides per model")
+register_env("MXNET_SERVING_MODEL_INFLIGHT", int, 0,
+             "default per-model cap on accepted-but-unresolved requests "
+             "(queued + executing); 0 = no cap; set_quota overrides")
+register_env("MXNET_SERVING_PRIORITY_CLASSES", int, 3,
+             "number of serving priority classes (0 = most important, "
+             "N-1 = first shed under brownout)")
+register_env("MXNET_SERVING_DEFAULT_PRIORITY", int, 1,
+             "priority class assigned to requests that pass none")
+register_env("MXNET_SERVING_BROWNOUT_HIGH", float, 0.75,
+             "queue-fill fraction (of MXNET_SERVING_QUEUE_DEPTH) at "
+             "which the server enters declared brownout: hold-open "
+             "window skipped, dispatch shrunk to "
+             "MXNET_SERVING_BROWNOUT_MAX_BATCH, priority classes >= "
+             "MXNET_SERVING_BROWNOUT_REJECT_CLASS shed")
+register_env("MXNET_SERVING_BROWNOUT_LOW", float, 0.25,
+             "queue-fill fraction at which brownout exits (hysteresis: "
+             "must be below MXNET_SERVING_BROWNOUT_HIGH)")
+register_env("MXNET_SERVING_BROWNOUT_MAX_BATCH", int, 0,
+             "dispatch-size cap while in brownout (smaller programs "
+             "turn the queue over faster); 0 keeps the ladder max")
+register_env("MXNET_SERVING_BROWNOUT_REJECT_CLASS", int, 2,
+             "lowest priority class still ADMITTED during brownout: "
+             "classes >= this are rejected at submit and shed from the "
+             "queue, counted per model+class in "
+             "mxnet_serving_sheds_total")
+register_env("MXNET_SERVING_CANARY_FRACTION", float, 0.0,
+             "staged-promotion traffic fraction: watcher-promoted "
+             "checkpoint versions serve only this fraction of the "
+             "model's unversioned traffic until the health gate "
+             "decides promotion vs rollback; 0 (default) promotes "
+             "directly")
+register_env("MXNET_SERVING_CANARY_MIN_REQUESTS", int, 20,
+             "canary completions required before the health gate "
+             "decides (the evidence budget; the non-finite sentinel "
+             "rolls back immediately regardless)")
+register_env("MXNET_SERVING_CANARY_MAX_ERROR_RATE", float, 0.05,
+             "canary failed/completed ratio above which the gate rolls "
+             "back")
+register_env("MXNET_SERVING_CANARY_P99_FACTOR", float, 3.0,
+             "rollback when canary p99 latency exceeds this multiple "
+             "of the baseline version's p99 over the same window")
+register_env("MXNET_SERVING_CANARY_TIMEOUT_S", float, 600.0,
+             "canary decision budget: a canary that cannot gather "
+             "min_requests within this window is decided on whatever "
+             "evidence exists (healthy -> promote, zero traffic -> "
+             "rollback)")

@@ -23,8 +23,9 @@ outside a ``with`` block, the host inside ``with mx.cpu():``.  The copy
 to the card is a blocking one from pageable memory on the producer
 thread, so it has landed before the consumer sees the batch.  A decode
 or IO error on the producer is rethrown at ``next()`` and recorded with
-``engine.record_exception`` for the next sync point.  The JAX package's
-native libjpeg path and its fault site are not part of the port.
+``engine.record_exception`` for the next sync point, as is a fault
+injected at the ``io.prefetch`` site.  The JAX package's native libjpeg
+path is not part of the port.
 
 Telemetry as in the JAX package: ``DataIter.__next__`` (what ``fit``
 and a for-loop call) times each fetch into
@@ -49,6 +50,7 @@ import torch
 from . import telemetry
 from .base import MXNetError
 from .context import Context, cpu, current_context
+from .fault import hooks as _fault
 from .ndarray import NDArray, array
 from .telemetry import tracing as _tracing
 
@@ -258,7 +260,11 @@ class _Prefetcher:
             if not self._live:
                 return
             try:
+                # a prefetch-thread fault defers to the next sync point
+                # like a real decode or IO error
                 with _tracing.span("io.prefetch"):
+                    if _fault.ACTIVE[0]:
+                        _fault.fire("io.prefetch")
                     fetched = self.it.next()
             except StopIteration:
                 fetched = None
@@ -859,6 +865,8 @@ class ImageRecordIter(DataIter):
                     if stop.is_set():
                         return
                     with _tracing.span("io.prefetch", chunk=int(ci)):
+                        if _fault.ACTIVE[0]:
+                            _fault.fire("io.prefetch")
                         chunk = self._chunks[ci]
                         start, end = chunk[0][0], chunk[-1][1]
                         f.seek(start)

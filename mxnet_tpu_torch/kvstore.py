@@ -22,7 +22,9 @@ The multi-process stores (``dist_*``) come with the multi-GPU slice.
 Telemetry as in the JAX package: a completed user-visible ``push`` or
 ``pull`` counts in ``mxnet_kvstore_ops_total{op}``, its payload bytes in
 ``mxnet_kvstore_bytes_total{op}`` and its wall time in
-``mxnet_kvstore_op_seconds{op}``, while telemetry is on.
+``mxnet_kvstore_op_seconds{op}``, while telemetry is on.  Under an armed
+fault plan each user-visible call is the ``kvstore.push`` or
+``kvstore.pull`` site, inside a span of the same name.
 """
 from __future__ import annotations
 
@@ -35,8 +37,10 @@ import torch
 from . import telemetry
 from ._atomic_io import atomic_write
 from .base import MXNetError
+from .fault import hooks as _fault
 from .ndarray import NDArray
 from . import optimizer as opt
+from .telemetry import tracing as _tracing
 
 __all__ = ["KVStore", "KVStoreTPU", "create"]
 
@@ -61,6 +65,18 @@ def _instrumented(op):
     def deco(fn):
         @functools.wraps(fn)
         def wrapper(self, key, *args, **kwargs):
+            # one "kvstore.push"/"kvstore.pull" site hit (and span) per
+            # user-visible call under an armed fault plan: the inner
+            # call re-enters with the flag set and runs the body
+            if _fault.ACTIVE[0] and not getattr(_TELEM_TL, "fault_busy",
+                                                False):
+                _TELEM_TL.fault_busy = True
+                try:
+                    with _tracing.span("kvstore." + op):
+                        _fault.fire("kvstore." + op)
+                        return wrapper(self, key, *args, **kwargs)
+                finally:
+                    _TELEM_TL.fault_busy = False
             if not telemetry.enabled() or getattr(_TELEM_TL, "busy", False):
                 return fn(self, key, *args, **kwargs)
             _TELEM_TL.busy = True

@@ -12,7 +12,6 @@ FeedForward), a thin shim over ``Module``: ``fit``, ``predict``,
 from __future__ import annotations
 
 import logging
-import os
 from collections import namedtuple
 
 import numpy as np
@@ -21,7 +20,6 @@ from . import io
 from . import kvstore as kvs
 from . import ndarray as nd
 from . import symbol as sym
-from .base import MXNetError
 from .context import current_context
 
 __all__ = ["BatchEndParam", "save_checkpoint", "load_checkpoint",
@@ -127,21 +125,6 @@ def load_checkpoint(prefix, epoch, ctx=None):
         if tp == "aux":
             aux_params[name] = v
     return symbol, arg_params, aux_params
-
-
-def _refuse_manager(manager):
-    """The JAX package routes a save through a ``checkpoint``
-    CheckpointManager when given one or when ``MXNET_CKPT_DIR`` is set;
-    that package (``checkpoint/``) is not ported, so either raises here
-    rather than being ignored.  ``manager=False`` suppresses the routing,
-    as there."""
-    if manager is False:
-        return
-    if manager is not None or os.environ.get("MXNET_CKPT_DIR"):
-        raise MXNetError(
-            "checkpoint managers (manager=, MXNET_CKPT_DIR) need the "
-            "checkpoint/ package, which mxnet_tpu_torch does not port yet; "
-            "save with a prefix only and unset MXNET_CKPT_DIR")
 
 
 class FeedForward:

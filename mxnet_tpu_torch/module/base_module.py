@@ -13,12 +13,21 @@ step with its ``tic`` and ``toc_print``, as the JAX package does.
 ``MXNET_TELEMETRY_STEP_LOG`` adds a ``telemetry.StepLogger`` to the
 batch-end callbacks (closed when ``fit`` returns or raises), and each
 step's forward, backward and update is one ``fit.step`` span while
-tracing is on.  The JAX package's checkpoint manager and fault
-supervisor (``fit``'s ``checkpoint_manager`` and ``elastic``) come with
-the slice that ports ``checkpoint/`` and ``fault/``.
+tracing is on; under an armed fault plan each step is the ``fit.step``
+site, with the global batch published as the plan's step.
+
+``fit(checkpoint_manager=...)`` (or, without one, the process-default
+manager when ``MXNET_CKPT_DIR`` is set) saves as the JAX package does:
+every ``period_steps`` batches (captured before the next batch is
+fetched, so the cursor points past the trained batch), every
+``period_epochs`` epochs (the final one blocking), and, with
+``MXNET_CKPT_ON_SIGTERM``, one synchronous save at the first safe point
+after a SIGTERM, then exit 143.  The JAX package's supervised runtime
+(``elastic=True``, ``fault/elastic.py``) is not ported yet and raises.
 """
 from __future__ import annotations
 
+import contextlib
 import logging
 import time
 import warnings
@@ -27,6 +36,7 @@ from .. import config as _config
 from .. import metric
 from .. import ndarray
 from .. import telemetry
+from ..fault import hooks as _fault
 from ..telemetry import tracing as _tracing
 from ..base import MXNetError
 from ..initializer import Uniform
@@ -167,10 +177,20 @@ class BaseModule:
             initializer=Uniform(0.01), arg_params=None, aux_params=None,
             allow_missing=False, force_rebind=False, force_init=False,
             begin_epoch=0, num_epoch=None, validation_metric=None,
-            monitor=None, sparse_row_id_fn=None):
-        """The canonical train loop (reference: base_module.py:395)."""
+            monitor=None, sparse_row_id_fn=None, checkpoint_manager=None,
+            elastic=False):
+        """The canonical train loop (reference: base_module.py:395).
+
+        ``checkpoint_manager``: a ``checkpoint.CheckpointManager`` for
+        preemption-safe periodic saves (see the module docstring); None
+        with ``MXNET_CKPT_DIR`` set uses the process-default manager."""
         if num_epoch is None:
             raise ValueError("please specify number of epochs")
+        if elastic:
+            raise MXNetError(
+                "fit(elastic=True) needs the supervised training runtime "
+                "(fault/elastic.py), which mxnet_tpu_torch does not port "
+                "yet")
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,
                   for_training=True, force_rebind=force_rebind)
@@ -197,20 +217,84 @@ class BaseModule:
                 batch_size=getattr(train_data, "batch_size", None),
                 interval=_config.get("MXNET_TELEMETRY_STEP_INTERVAL"))
             batch_end_cbs.append(step_logger)
+        # an explicit manager wins; else MXNET_CKPT_DIR selects the
+        # process-default one
+        ckpt_mgr = checkpoint_manager
+        if ckpt_mgr is None and _config.get("MXNET_CKPT_DIR"):
+            from .. import checkpoint as _checkpoint
+            ckpt_mgr = _checkpoint.default_manager()
         try:
             self._fit_epochs(train_data, eval_data, eval_metric,
                              validation_metric, batch_end_cbs,
                              epoch_end_callback, eval_end_callback,
                              eval_batch_end_callback, monitor,
-                             sparse_row_id_fn, begin_epoch, num_epoch)
+                             sparse_row_id_fn, begin_epoch, num_epoch,
+                             ckpt_mgr)
         finally:
             if step_logger is not None:
                 step_logger.close()
+            if ckpt_mgr is not None:
+                # drain the last async save: a job that exits right
+                # after fit() keeps its newest snapshot
+                ckpt_mgr.wait()
 
     def _fit_epochs(self, train_data, eval_data, eval_metric,
                     validation_metric, batch_end_cbs, epoch_end_callback,
                     eval_end_callback, eval_batch_end_callback, monitor,
-                    sparse_row_id_fn, begin_epoch, num_epoch):
+                    sparse_row_id_fn, begin_epoch, num_epoch, ckpt_mgr=None):
+        # preemption: SIGTERM only sets a flag (a save inside the handler
+        # could re-take locks the interrupted thread holds); the batch
+        # loop polls it at safe points and saves there
+        progress = {"epoch": begin_epoch, "nbatch": 0}
+        scope = contextlib.nullcontext(None)
+        if ckpt_mgr is not None and _config.get("MXNET_CKPT_ON_SIGTERM"):
+            from .. import checkpoint as _checkpoint
+            scope = _checkpoint.sigterm_flag_scope()
+        with scope as sigterm:
+            self._fit_epochs_inner(
+                train_data, eval_data, eval_metric, validation_metric,
+                batch_end_cbs, epoch_end_callback, eval_end_callback,
+                eval_batch_end_callback, monitor, sparse_row_id_fn,
+                begin_epoch, num_epoch, ckpt_mgr, progress, sigterm)
+            # a signal that landed after the last in-loop poll (during
+            # final evaluation, say) still gets its grace-window save
+            if sigterm is not None and sigterm["signaled"]:
+                self._preemption_save(ckpt_mgr, progress, train_data)
+
+    def _preemption_save(self, ckpt_mgr, progress, train_data):
+        """One guaranteed synchronous save of the current loop position,
+        then exit 143 (the preemption convention), at a safe point on
+        the training thread — never inside the signal handler."""
+        # the loop prefetches one batch ahead; when that batch is fetched
+        # but not yet trained ("pending"), the cursor overstates progress
+        # by one batch — rewind it for the capture so resume re-trains
+        # (never skips) that batch
+        rewound = False
+        if progress.get("pending") and \
+                isinstance(getattr(train_data, "cursor", None), int) \
+                and getattr(train_data, "batch_size", 0):
+            train_data.cursor -= train_data.batch_size
+            rewound = True
+        try:
+            ckpt_mgr.save_module(self, epoch=progress["epoch"],
+                                 nbatch=progress["nbatch"],
+                                 train_data=train_data, block=True)
+        except Exception:   # noqa: BLE001 — logged; the exit stands
+            self.logger.exception("checkpoint: SIGTERM save failed")
+        finally:
+            if rewound:
+                train_data.cursor += train_data.batch_size
+        self.logger.info("SIGTERM: checkpoint saved; exiting 143")
+        raise SystemExit(143)
+
+    def _fit_epochs_inner(self, train_data, eval_data, eval_metric,
+                          validation_metric, batch_end_cbs,
+                          epoch_end_callback, eval_end_callback,
+                          eval_batch_end_callback, monitor,
+                          sparse_row_id_fn, begin_epoch, num_epoch,
+                          ckpt_mgr=None, progress=None, sigterm=None):
+        # the fault plan's step address: a global batch counter across
+        # epochs, so a plan can name an exact batch
         global_batch = 0
         for epoch in range(begin_epoch, num_epoch):
             tic = time.time()
@@ -219,20 +303,46 @@ class BaseModule:
             batches = iter(train_data)
             data_batch = next(batches, None)
             nbatch = 0
+            if progress is not None:
+                progress.update(epoch=epoch, nbatch=0,
+                                pending=data_batch is not None)
             while data_batch is not None:
                 with _tracing.span("fit.step", epoch=epoch,
                                    batch=global_batch):
+                    if _fault.ACTIVE[0]:
+                        _fault.set_step(global_batch)
+                        _fault.fire("fit.step", epoch=epoch)
                     global_batch += 1
                     if monitor is not None:
                         monitor.tic()
                     self.forward_backward(data_batch)
                     self.update()
                 self.update_metric(eval_metric, data_batch.label)
+                if progress is not None:
+                    # batch (epoch, nbatch) is applied and the iterator
+                    # has advanced past exactly nbatch+1 batches
+                    progress.update(epoch=epoch, nbatch=nbatch + 1,
+                                    pending=False)
+                if ckpt_mgr is not None and ckpt_mgr.period_steps > 0 \
+                        and (nbatch + 1) % ckpt_mgr.period_steps == 0:
+                    # save BEFORE the prefetch advances the iterator, so
+                    # the captured cursor points past the trained batch;
+                    # the capture stages to the host before the next
+                    # step is launched, the write overlaps the next steps
+                    # (a refusal, one save already in flight, retries at
+                    # the next period)
+                    ckpt_mgr.save_module(self, epoch=epoch,
+                                         nbatch=nbatch + 1,
+                                         train_data=train_data)
                 # fetch the next batch only after this step is queued: an
                 # iterator may reuse the current batch's buffers
                 upcoming = next(batches, None)
                 if upcoming is not None:
                     self.prepare(upcoming, sparse_row_id_fn=sparse_row_id_fn)
+                    if progress is not None:
+                        # fetched but untrained: a SIGTERM save rewinds
+                        # the cursor over this batch
+                        progress["pending"] = True
                 if monitor is not None:
                     monitor.toc_print()
                 if upcoming is None:
@@ -242,6 +352,9 @@ class BaseModule:
                     callback(BatchEndParam(epoch=epoch, nbatch=nbatch,
                                            eval_metric=eval_metric,
                                            locals=locals()))
+                if sigterm is not None and sigterm["signaled"]:
+                    # preemption: save at this safe point and exit
+                    self._preemption_save(ckpt_mgr, progress, train_data)
                 nbatch += 1
                 data_batch = upcoming
             for name, val in epoch_metrics:
@@ -255,6 +368,14 @@ class BaseModule:
             if epoch_end_callback is not None:
                 for callback in _as_list(epoch_end_callback):
                     callback(epoch, self.symbol, arg_params_, aux_params_)
+            if ckpt_mgr is not None and ckpt_mgr.period_epochs > 0 \
+                    and (epoch + 1) % ckpt_mgr.period_epochs == 0:
+                # an epoch-boundary snapshot means "start of epoch+1": no
+                # iterator position (it resets below); the final epoch's
+                # save blocks, so the end state cannot lose a skip race
+                # against an in-flight periodic save
+                ckpt_mgr.save_module(self, epoch=epoch + 1, nbatch=0,
+                                     block=(epoch + 1 == num_epoch))
             if eval_data is not None:
                 res = self.score(eval_data, validation_metric,
                                  batch_end_callback=eval_batch_end_callback,
@@ -269,6 +390,13 @@ class BaseModule:
                     for callback in _as_list(eval_end_callback):
                         callback(params)
             train_data.reset()
+            if progress is not None:
+                # epoch boundary: "start of epoch+1", nothing prefetched
+                progress.update(epoch=epoch + 1, nbatch=0, pending=False)
+            if sigterm is not None and sigterm["signaled"]:
+                # a SIGTERM during epoch-end work: save before another
+                # epoch starts
+                self._preemption_save(ckpt_mgr, progress, train_data)
 
     def install_monitor(self, mon):  # pragma: no cover - abstract
         raise NotImplementedError()
@@ -308,6 +436,22 @@ class BaseModule:
         save_dict = {("arg:%s" % k): v for k, v in arg_params.items()}
         save_dict.update({("aux:%s" % k): v for k, v in aux_params.items()})
         ndarray.save(fname, save_dict)
+
+    def export_serving(self, name, registry, version=None,
+                       input_shapes=None):
+        """Register this module's symbol and CURRENT params into a
+        serving registry (a ``ModelRegistry``, or a ``ModelServer``,
+        whose registry is used) without a checkpoint round trip;
+        ``input_shapes`` defaults to the bound ``data_shapes``.  Returns
+        the registered version (reference: the JAX package's
+        ``export_serving``)."""
+        if hasattr(registry, "registry"):    # a ModelServer
+            registry = registry.registry
+        arg_params, aux_params = self.get_params()
+        if input_shapes is None:
+            input_shapes = {d[0]: tuple(d[1]) for d in self.data_shapes}
+        return registry.add(name, self.symbol, arg_params, aux_params,
+                            input_shapes, version=version)
 
     def load_params(self, fname):
         """Set the parameters from a container ``save_params`` wrote

@@ -4,8 +4,10 @@ Counterpart of ``mxnet_tpu/module/module.py`` (reference:
 python/mxnet/module/module.py:40): ``bind``, ``init_params``,
 ``init_optimizer``, ``forward``/``backward``/``update``,
 ``update_metric``, ``get_outputs``, ``get_params``/``set_params``, and
-the checkpoint surface: ``Module.load``, ``save_checkpoint``,
-``save_optimizer_states``/``load_optimizer_states``.
+the checkpoint surface: ``Module.load``, ``save_checkpoint`` (routed
+through a ``checkpoint.CheckpointManager`` too when one is given or
+``MXNET_CKPT_DIR`` is set), ``save_optimizer_states``/
+``load_optimizer_states``.
 
 ``bind(shared_module=...)`` shares the shared module's parameter and
 aux arrays (the same NDArray objects, so a kvstore pull into one is seen
@@ -47,9 +49,8 @@ from ..base import MXNetError
 from ..context import Context, current_context
 from ..initializer import InitDesc, Uniform
 from ..io import DataDesc
-from ..model import (_create_kvstore, _initialize_kvstore, _refuse_manager,
-                     _update_params, _update_params_on_kvstore,
-                     load_checkpoint)
+from ..model import (_create_kvstore, _initialize_kvstore, _update_params,
+                     _update_params_on_kvstore, load_checkpoint)
 from .base_module import BaseModule, _check_input_names
 from .executor_group import DataParallelExecutorGroup
 
@@ -144,9 +145,11 @@ class Module(BaseModule):
                         manager=None):
         """Write ``prefix-symbol.json``, ``prefix-%04d.params`` and, if
         asked, ``prefix-%04d.states`` (reference: module.py:161), each
-        atomically.  ``manager=`` and ``MXNET_CKPT_DIR`` raise: the
-        checkpoint manager is not ported."""
-        _refuse_manager(manager)
+        atomically.  With a ``checkpoint.CheckpointManager`` — given, or
+        the process-default one when ``MXNET_CKPT_DIR`` is set — the
+        save is ALSO routed through it (one sharded, integrity-checked
+        checkpoint with the full resume state); ``manager=False``
+        suppresses the routing."""
         self._symbol.save("%s-symbol.json" % prefix)
         param_name = "%s-%04d.params" % (prefix, epoch)
         self.save_params(param_name)
@@ -155,6 +158,13 @@ class Module(BaseModule):
             state_name = "%s-%04d.states" % (prefix, epoch)
             self.save_optimizer_states(state_name)
             logging.info("Saved optimizer state to \"%s\"", state_name)
+        if manager is None:
+            from .. import config as _config
+            if _config.get("MXNET_CKPT_DIR"):
+                from .. import checkpoint as _checkpoint
+                manager = _checkpoint.default_manager()
+        if manager:   # False suppresses, None means "not configured"
+            manager.save_module(self, epoch=epoch)
 
     def save_optimizer_states(self, fname):
         """Write the optimizer's states to ``fname`` (reference:

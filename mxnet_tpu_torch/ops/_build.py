@@ -1,10 +1,17 @@
 """Build and load the package's hand-written CUDA kernels.
 
 Each ``csrc/<name>.cu`` exposes a plain C function and is compiled by
-its own ``nvcc`` call into ``_build/libmxtt_<name>.so``; all the
-sources compile in parallel at first use.  A library is rebuilt only
-when the hash of its source and flags changes (kept beside it in
-``libmxtt_<name>.so.hash``), and each is loaded with ``ctypes``.
+its own ``nvcc`` call into ``libmxtt_<name>.so`` in the build directory;
+all the stale sources compile in parallel at first use.  A library is
+rebuilt only when the hash of its source and flags changes (kept beside
+it in ``libmxtt_<name>.so.hash``), and each is loaded with ``ctypes``.
+
+The build directory is the compile cache's (``compile_cache.cache_dir``:
+``MXNET_COMPILE_CACHE_DIR``, else ``_build/`` beside the package,
+``BUILD_DIR``).  Each source's first lookup in a process counts as a
+cache hit (its library was fresh) or a miss (nvcc ran); a library that
+fails to load counts as an error and is rebuilt from its source once,
+and a failed rebuild raises.
 
 The build runs on the machine with the card, never at import: this
 module only computes paths until :func:`library` is called.
@@ -13,6 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import logging
 import os
 import shutil
 import subprocess
@@ -20,7 +28,7 @@ import threading
 
 from ..base import MXNetError
 
-__all__ = ["SOURCES", "library", "build_all", "nvcc_path"]
+__all__ = ["SOURCES", "library", "build_all", "build_dir", "nvcc_path"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -32,6 +40,13 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
 
 _LOCK = threading.Lock()
 _LIBS = {}      # guarded-by: _LOCK — name -> ctypes.CDLL
+_COUNTED = set()    # sources whose first lookup was counted
+
+
+def build_dir():
+    """Where the libraries are built and loaded from."""
+    from .. import compile_cache
+    return compile_cache.cache_dir()
 
 
 def nvcc_path():
@@ -46,7 +61,7 @@ def nvcc_path():
 
 def _paths(name):
     src = os.path.join(CSRC, name + ".cu")
-    so = os.path.join(BUILD_DIR, "libmxtt_%s.so" % name)
+    so = os.path.join(build_dir(), "libmxtt_%s.so" % name)
     with open(src, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(FLAGS).encode())
     return src, so, digest.hexdigest()
@@ -60,17 +75,26 @@ def _fresh(so, digest):
         return False
 
 
-def build_all(verbose=False):
-    """Compile every stale source, one ``nvcc`` each, all started
-    together.  Returns ``{name: compiler output}`` for the sources built
-    (with ``verbose`` the ptxas register and spill report is included).
-    Raises MXNetError naming the source on a failed compile."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
+def _count(name, outcome):
+    from .. import compile_cache
+    if name not in _COUNTED:
+        _COUNTED.add(name)
+        compile_cache.record(outcome)
+
+
+def build_all(verbose=False, force=()):
+    """Compile every stale source (and those named in ``force``), one
+    ``nvcc`` each, all started together.  Returns ``{name: compiler
+    output}`` for the sources built (with ``verbose`` the ptxas register
+    and spill report is included).  Raises MXNetError naming the source
+    on a failed compile."""
+    os.makedirs(build_dir(), exist_ok=True)
     nvcc = None
     procs = {}
     for name in SOURCES:
         src, so, digest = _paths(name)
-        if _fresh(so, digest):
+        if name not in force and _fresh(so, digest):
+            _count(name, "hit")
             continue
         nvcc = nvcc or nvcc_path()
         tmp = "%s.%d.tmp" % (so, os.getpid())
@@ -88,17 +112,30 @@ def build_all(verbose=False):
         os.replace(tmp, so)
         with open(so + ".hash", "w") as f:
             f.write(digest)
+        _count(name, "miss")
         report[name] = out
     return report
 
 
 def library(name):
     """The loaded ``libmxtt_<name>.so``, building the sources first if
-    any is stale."""
+    any is stale.  A library that fails to load (a corrupt or truncated
+    file) is counted as a compile-cache error and rebuilt once."""
+    from .. import compile_cache
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
             build_all()
-            lib = ctypes.CDLL(_paths(name)[1])
+            path = _paths(name)[1]
+            try:
+                lib = ctypes.CDLL(path)
+            except OSError as exc:
+                compile_cache.record_error()
+                logging.warning("kernel library %s failed to load (%s); "
+                                "rebuilding it from its source", path, exc)
+                _COUNTED.discard(name)
+                build_all(force=(name,))
+                lib = ctypes.CDLL(path)
+            compile_cache.touch(path)
             _LIBS[name] = lib
         return lib

@@ -92,6 +92,13 @@ def _start_device_trace():
     _STATE["device_session"] = session
 
 
+# how long the card sits idle before a device trace stops: stopped right
+# after the last kernels, the trace lost some of their records in 2 of 6
+# runs of phase 19's profiled fit, and in none of 6 after this wait
+# (``time_variants.py trace_drop``, NVIDIA H100)
+_DEVICE_TRACE_SETTLE_S = 0.5
+
+
 def _stop_device_trace():
     """Stop the session, write its chrome trace into the trace dir and
     keep its device events for ``dumps``."""
@@ -99,6 +106,7 @@ def _stop_device_trace():
     session, _STATE["device_session"] = _STATE["device_session"], None
     if torch.cuda.is_available():
         torch.cuda.synchronize()
+        time.sleep(_DEVICE_TRACE_SETTLE_S)
     session.stop()
     d = _STATE["jax_trace_dir"]
     os.makedirs(d, exist_ok=True)

@@ -35,30 +35,26 @@ MODULES = ("", "optimizer", "metric", "initializer", "lr_scheduler",
            "gluon.data.vision.transforms", "gluon.model_zoo",
            "gluon.model_zoo.vision", "gluon.model_zoo.model_store",
            "serving", "telemetry", "telemetry.tracing", "profiler",
-           "gluon.rnn", "gluon.contrib", "gluon.contrib.rnn")
+           "gluon.rnn", "gluon.contrib", "gluon.contrib.rnn",
+           "checkpoint", "fault", "compile_cache")
 
 DEFERRED = {
-    # queue 1 item 5: serving (with the warmup manifest, the compile
-    # cache that warms it)
+    # queue 1 item 5: generative serving and the multi-replica front door
     "queue 1 item 5": {
-        "": {"compile_cache"},
-        "serving": {"CanaryState", "CheckpointWatcher", "DecodeScheduler",
-                    "DecodeState", "FleetFrontDoor", "GenerativeModel",
-                    "ReplicaHandle", "TokenStream", "WarmupManifest",
-                    "canary", "decode_error", "encode_error", "fleet",
-                    "generate", "local_replica", "manifest",
-                    "pick_grid_bucket", "prefill_grid", "replica_loop",
-                    "seq_buckets", "spawn_replica"},
+        "serving": {"DecodeScheduler", "DecodeState", "FleetFrontDoor",
+                    "GenerativeModel", "ReplicaHandle", "TokenStream",
+                    "decode_error", "encode_error", "fleet", "generate",
+                    "local_replica", "pick_grid_bucket", "prefill_grid",
+                    "replica_loop", "seq_buckets", "spawn_replica"},
     },
-    # queue 1 item 6: state and resilience
-    "queue 1 item 6": {
-        "": {"checkpoint", "fault"},
-    },
-    # queue 1 item 7: multi-GPU
+    # queue 1 item 7: multi-GPU (with the trainer's checkpoint snapshot
+    # and the reshard check on restore)
     "queue 1 item 7": {
         "kvstore": {"KVStoreDist", "KVStoreDistAsync", "is_scheduler_node",
                     "is_server_node", "is_worker_node"},
         "": {"kvstore_server", "gradient_compression"},
+        "checkpoint": {"ParallelTrainerState", "check_restore_compat",
+                       "compat", "state_plan_spec"},
     },
     # queue 1 item 8: the long tail (LibSVMIter yields a CSRNDArray,
     # which comes with ndarray/sparse.py)
@@ -82,11 +78,22 @@ DEFERRED = {
     },
 }
 
-# the names the last four slices ported, none of which may be deferred:
+# the names the last five slices ported, none of which may be deferred:
 # the training-loop API, the data pipeline and the module family,
-# gluon's image path, then telemetry, the profiler and gluon's recurrent
-# layers
+# gluon's image path, telemetry, the profiler and gluon's recurrent
+# layers, then the train-to-serve loop
 PORTED = {
+    "checkpoint": {"AsyncCheckpointer", "CheckpointError",
+                   "CheckpointManager", "CheckpointStore", "IntegrityError",
+                   "RetentionPolicy", "TrainState", "capture_iter_state",
+                   "default_manager", "restore_iter_state",
+                   "sigterm_flag_scope", "write_checkpoint"},
+    "fault": {"BackoffPolicy", "FaultPlan", "FaultInjected", "Reorder",
+              "install", "uninstall", "installed", "active_plan", "hooks"},
+    "compile_cache": {"ensure_initialized", "configure", "enabled",
+                      "cache_dir", "stats", "sweep", "reset"},
+    "serving": {"CanaryState", "CheckpointWatcher", "WarmupManifest",
+                "canary", "manifest"},
     "gluon": {"Constant", "SymbolBlock", "clip_global_norm", "data",
               "model_zoo", "split_and_load", "split_data", "utils", "rnn",
               "contrib"},
@@ -151,28 +158,14 @@ PORTED = {
     "": {"Symbol", "Optimizer", "NameManager", "Prefix", "num_tpus",
          "__version__", "Monitor", "monitor", "viz", "visualization",
          "misc", "registry", "log", "libinfo", "recordio", "image", "rnn",
-         "executor_manager", "telemetry", "profiler"},
+         "executor_manager", "telemetry", "profiler", "checkpoint",
+         "fault", "compile_cache"},
 }
 
 # parameters of the JAX package's public callables that the port's lack,
 # by the queue that owns them: {queue: {(module, callable): missing
 # names}}; "order" marks parameters both take in another order
 DEFERRED_PARAMS = {
-    # queue 1 item 5: serving's warmup manifest, canaries, retries and
-    # priorities
-    "queue 1 item 5": {
-        ("serving", "ModelServer.__init__"): {"manifest_path",
-                                              "canary_fraction"},
-        ("serving", "ModelServer.infer"): {"retries", "priority"},
-        ("serving", "ModelServer.infer_async"): {"retries", "priority"},
-        ("serving", "ExecutorCache.__init__"): {"on_miss"},
-        ("serving", "ExecutorCache.get"): {"binder"},
-        ("serving", "InferenceFuture.__init__"): {"hint"},
-    },
-    # queue 1 item 6: the checkpoint manager and the fault supervisor
-    "queue 1 item 6": {
-        ("module", "BaseModule.fit"): {"checkpoint_manager", "elastic"},
-    },
     # queue 1 item 7: gradient compression
     "queue 1 item 7": {
         ("", "Executor.install_fused_update"): {"compression_params"},
@@ -191,7 +184,7 @@ DEFERRED_PARAMS = {
     },
 }
 
-# the port's modules that the last four slices added or extended
+# the port's modules that the last five slices added or extended
 NEW_MODULES = ("mxnet_tpu_torch.optimizer", "mxnet_tpu_torch.metric",
                "mxnet_tpu_torch.initializer", "mxnet_tpu_torch.lr_scheduler",
                "mxnet_tpu_torch.callback", "mxnet_tpu_torch.engine",
@@ -229,7 +222,13 @@ NEW_MODULES = ("mxnet_tpu_torch.optimizer", "mxnet_tpu_torch.metric",
                "mxnet_tpu_torch.gluon.contrib",
                "mxnet_tpu_torch.gluon.contrib.rnn",
                "mxnet_tpu_torch.serving.server", "mxnet_tpu_torch.kvstore",
-               "mxnet_tpu_torch.ops.cuda_kernels", "mxnet_tpu_torch._atomic_io")
+               "mxnet_tpu_torch.ops.cuda_kernels", "mxnet_tpu_torch._atomic_io",
+               "mxnet_tpu_torch.checkpoint", "mxnet_tpu_torch.fault",
+               "mxnet_tpu_torch.compile_cache",
+               "mxnet_tpu_torch.serving.canary",
+               "mxnet_tpu_torch.serving.manifest",
+               "mxnet_tpu_torch.serving.registry",
+               "mxnet_tpu_torch.serving.cache", "mxnet_tpu_torch.ops._build")
 
 
 def _module(root, sub):

@@ -31,7 +31,8 @@ from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.gluon.contrib import transformer as ttr
 from mxnet_tpu_torch.ops import cuda_kernels as ck
 from mxnet_tpu_torch.symbols import resnet as tresnet
-from test_torch_train import BATCH as FIT_BATCH, small  # noqa: F401
+from test_torch_train import (BATCH as FIT_BATCH, SHAPE as FIT_SHAPE,  # noqa: F401
+                              small)
 
 torch.set_num_threads(1)
 
@@ -711,24 +712,48 @@ def test_trainer_states_resume(jax_lm, optimizer, params, tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# what is not ported raises
+# the checkpoint manager's routes, read back by the JAX package
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("how", ["manager-save", "manager-callback",
                                  "env-save", "env-callback"])
-def test_checkpoint_manager_raises_naming_the_package(small, how, tmp_path,
-                                                      monkeypatch):
-    mod = tmx.mod.Module(small[1], context=CPU)
+def test_checkpoint_manager_routes_write_what_the_jax_package_reads(
+        small, how, tmp_path, monkeypatch):
+    """``Module.save_checkpoint(manager=)``, ``module_checkpoint(manager=)``
+    and the same two under ``MXNET_CKPT_DIR`` each commit one managed
+    checkpoint beside the prefix files; the JAX package's store reads its
+    arrays back equal to the module's parameters."""
+    jsym, tsym, arg, aux, _x, _y = small
+    mod = tmx.mod.Module(tsym, context=CPU)
+    mod.bind(data_shapes=[("data", (FIT_BATCH,) + FIT_SHAPE)],
+             label_shapes=[("softmax_label", (FIT_BATCH,))])
+    args, auxs = tmx.convert.params_from_numpy(arg, aux, CPU, symbol=tsym)
+    mod.init_params(arg_params=args, aux_params=auxs)
+    ckdir = str(tmp_path / "managed")
     kw = {}
     if how.startswith("manager"):
-        kw["manager"] = object()
+        kw["manager"] = tmx.checkpoint.CheckpointManager(ckdir,
+                                                         async_save=False)
     else:
-        monkeypatch.setenv("MXNET_CKPT_DIR", str(tmp_path))
-    with pytest.raises(MXNetError, match="checkpoint/"):
-        if how.endswith("save"):
-            mod.save_checkpoint(str(tmp_path / "m"), 1, **kw)
-        else:
-            tmx.callback.module_checkpoint(mod, str(tmp_path / "m"), **kw)
-    assert os.listdir(str(tmp_path)) == []
+        monkeypatch.setenv("MXNET_CKPT_DIR", ckdir)
+        monkeypatch.setenv("MXNET_CKPT_ASYNC", "0")
+    prefix = str(tmp_path / "m")
+    if how.endswith("save"):
+        mod.save_checkpoint(prefix, 1, **kw)
+        assert os.path.exists(prefix + "-0001.params")
+    else:
+        tmx.callback.module_checkpoint(mod, prefix, **kw)(0)
+        assert os.path.exists(prefix + "-0001.params")
+    store = jmx.checkpoint.CheckpointStore(ckdir)
+    assert store.steps() == [1]
+    manifest, arrays, blobs = store.read(1)
+    assert manifest["meta"]["epoch"] == 1
+    assert jmx.sym.load_json(blobs["symbol"].decode()).tojson() == \
+        jsym.tojson()
+    want = dict(("arg/" + k, v) for k, v in arg.items())
+    want.update(("aux/" + k, v) for k, v in aux.items())
+    assert sorted(arrays) == sorted(want)
+    for k, v in want.items():
+        assert np.array_equal(arrays[k], v), k
 
 
 def test_do_checkpoint_writes_every_period(resnet18, tmp_path):
@@ -752,7 +777,6 @@ def test_chip_smoke_checkpoint_phase_rehearses_on_the_cpu(small, tmp_path,
     resumed; knobs at 1, the counting wrappers patched over the kernel
     wrappers see each path's kernels, and no kernel launches."""
     import chip_smoke
-    from test_torch_train import SHAPE as FIT_SHAPE
     for knob in ("MXNET_PALLAS_FUSED_OPT", "MXNET_PALLAS_SOFTMAX",
                  "MXNET_PALLAS_BN_RELU", "MXNET_PALLAS_NORM"):
         monkeypatch.setenv(knob, "1")

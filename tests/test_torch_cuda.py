@@ -859,3 +859,51 @@ def test_transformer_training_step_launches_the_backward_kernels(cuda,
         for n in got:
             assert got[n].abs().max() > 0, n
             assert _rel_err(got[n], plain[n]) <= 1e-4, n
+
+
+def test_checkpoint_staging_is_ordered_before_the_next_step(cuda,
+                                                            monkeypatch):
+    """``TrainState.capture`` queues its copies to the host without
+    waiting; a fused step launched right after it (whose sweep updates
+    the weights and momentum in place) must not reach the snapshot: the
+    staged values equal the weights and momentum read after a full
+    synchronisation before that step."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.checkpoint import TrainState
+    monkeypatch.delenv("MXNET_PALLAS_FUSED_OPT", raising=False)
+    ctx = mx.gpu(0)
+    net = mx.sym.SoftmaxOutput(mx.sym.FullyConnected(
+        mx.sym.Variable("data"), num_hidden=1000, name="fc"), name="softmax")
+    rng = np.random.RandomState(0)
+    x = rng.randn(64, 4096).astype(np.float32)
+    y = rng.randint(0, 1000, 64).astype(np.float32)
+    with ctx:
+        it = mx.io.NDArrayIter(x, y, batch_size=32)
+    mod = mx.mod.Module(net, context=ctx)
+    mod.bind(it.provide_data, it.provide_label)
+    mod.init_params(mx.init.Xavier())
+    mod.init_optimizer(kvstore="tpu", optimizer="sgd",
+                       optimizer_params={"learning_rate": 0.1,
+                                         "momentum": 0.9})
+    assert mod._fused_exec_update
+    batch = it.next()
+    mod.forward_backward(batch)
+    mod.update()
+    torch.cuda.synchronize()
+    exe = mod._exec_group.execs[0]
+    want_w = exe.arg_dict["fc_weight"]._data.cpu().clone()
+    want_m = exe.optimizer_slots()["fc_weight"][0].cpu().clone()
+    state = TrainState.capture(mod)
+    for _ in range(3):          # queued behind the copies, not waited for
+        mod.forward_backward(batch)
+        mod.update()
+    state.wait()
+    import pickle
+    states, _opt = pickle.loads(bytes(state.optimizer_state))
+    names = mod._exec_group.param_names
+    got_m = states[names.index("fc_weight")]
+    assert np.array_equal(state.arg_params["fc_weight"], want_w.numpy())
+    assert np.array_equal(got_m, want_m.numpy())
+    torch.cuda.synchronize()
+    assert not torch.equal(exe.arg_dict["fc_weight"]._data.cpu(), want_w)
+

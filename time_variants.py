@@ -11,6 +11,7 @@ stands, on one NVIDIA GPU::
     python3 time_variants.py inception_serve [fits] [request sets]
     python3 time_variants.py rnn_accuracy # the RNN op: cuDNN vs float64
     python3 time_variants.py telemetry_cost [rounds]  # phase 19's parts
+    python3 time_variants.py trace_drop [rounds]  # phase 19's device trace
 
 Each variant is ``mxnet_tpu_torch/ops/csrc/<source>.cu`` with a few lines
 replaced, compiled with the flags of ``ops/_build.py`` into
@@ -61,6 +62,12 @@ step against the knobs-0 step, in units of its band).
 of the instrumentation alone (``TELEMETRY_PARTS``: the hot-path
 counters, the step log, tracing) and all of it, in turns, in a process
 that ran no profiler session, each step's ms by CUDA events.
+
+``trace_drop``: no variant; phase 19 (a)'s profiled fit, its device
+trace stopped right after the last kernels and, in turns, after the
+profiler's settle: each run's kernel counter beside the trace's
+launches, its device events and the largest gap between two K1b
+launches.
 
 ``flash_band``: no timing; phase 15's gradient check at each of
 ``BAND_SEEDS`` (the transformer's weights and its batch from the seed)
@@ -1236,6 +1243,56 @@ def telemetry_cost_main(smi, dev, bw, flops, out_dir, rounds="2"):
                                np.mean(ts), 100 * (np.mean(ts) / off - 1)))
 
 
+def trace_drop_main(smi, dev, bw, flops, out_dir, rounds="6"):
+    """Phase 19 (a)'s profiled fit (``chip_smoke.train`` under
+    ``chip_smoke.observed`` with the device trace, 3 + 10 steps, cuDNN
+    deterministic) ``rounds`` times with the trace stopped right after
+    the last kernels and as many times after the profiler's settle
+    (``profiler._DEVICE_TRACE_SETTLE_S``), in turns: each run's kernel
+    counter against the trace's launches, its device events, and the
+    largest gap between two K1b launches in the trace (a missing step in
+    the middle shows as about twice a step)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import profiler
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+    sym = chip_smoke.resnet_symbol(chip_smoke.LAYERS, chip_smoke.IMAGE)
+    ctx = mx.gpu(0)
+    arg, aux = chip_smoke.initial_params(mx, ctx, sym, chip_smoke.IMAGE,
+                                         chip_smoke.BATCH)
+    settle = profiler._DEVICE_TRACE_SETTLE_S
+    torch.backends.cudnn.deterministic = True
+    for rnd in range(int(rounds)):
+        for mode in ("no_wait", "settled"):
+            profiler._DEVICE_TRACE_SETTLE_S = settle \
+                if mode == "settled" else 0.0
+            trace_dir = os.path.join(out_dir, "trace_drop")
+            try:
+                with chip_smoke.observed(mx, trace_dir=trace_dir) as obs:
+                    _mod, res = chip_smoke.train(
+                        mx, ck, ctx, sym, chip_smoke.IMAGE,
+                        chip_smoke.BATCH, chip_smoke.OBS_STEPS,
+                        chip_smoke.OBS_WARMUP, arg_params=arg,
+                        aux_params=aux)
+                    snap = mx.telemetry.snapshot()
+            finally:
+                profiler._DEVICE_TRACE_SETTLE_S = settle
+            del _mod
+            counts = chip_smoke.dump_counts(obs.dump)
+            counter = chip_smoke._families(
+                snap, "mxnet_pallas_kernel_calls_total", "kernel")
+            k1b = sorted(e["ts"] for e in obs.dump["traceEvents"]
+                         if e.get("pid") == "device"
+                         and e.get("cat") == "kernel"
+                         and "sweep_kernel" in e["name"])
+            gaps = np.diff(k1b) / 1e3 if len(k1b) > 1 else np.zeros(1)
+            print("trace_drop on %s: round %d %-7s counter %s trace %s, "
+                  "device events %d, the largest K1b gap %.1f ms (step "
+                  "%.1f ms)" % (
+                      smi, rnd, mode, counter, counts["launches"],
+                      counts["device_events"], float(gaps.max()),
+                      res["step_ms"]), flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("time_variants: needs an NVIDIA GPU", file=sys.stderr)
@@ -1247,11 +1304,12 @@ def main():
               "flash": flash_main, "flash_band": flash_band_main,
               "inception_serve": inception_serve_main,
               "rnn_accuracy": rnn_accuracy_main,
-              "telemetry_cost": telemetry_cost_main}.get(source)
+              "telemetry_cost": telemetry_cost_main,
+              "trace_drop": trace_drop_main}.get(source)
     if runner is None:
         print("time_variants: the source is softmax, k2_wide, layernorm, "
-              "flash, flash_band, inception_serve, rnn_accuracy or "
-              "telemetry_cost, not %r" % source,
+              "flash, flash_band, inception_serve, rnn_accuracy, "
+              "telemetry_cost or trace_drop, not %r" % source,
               file=sys.stderr)
         return 2
     smi = card_name()
