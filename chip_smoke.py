@@ -7,6 +7,7 @@ toolkit (``nvcc`` on PATH or under ``$CUDA_HOME``)::
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py observability    # phases 1-2, then 19 alone
     python3 chip_smoke.py train_serve      # phases 1-2, then 20 alone
+    python3 chip_smoke.py generate         # phases 1-2, then 21 alone
 
 Phases, each of which raises on failure:
 
@@ -313,6 +314,36 @@ Phases, each of which raises on failure:
    into a fresh ``Module``, two steps bitwise (or within ``CKPT_TOL``)
    the uninterrupted run's; (f) one ``checkpoint.store.commit`` fault
    failing its save only;
+21. (after 20) generative serving and the elastic fit: (a) the
+   GPT-2-small-width ``TransformerLM`` (phase 10's widths, Xavier from
+   the seed, fp32) through ``ModelServer.add_generative_model("lm", blk,
+   slots=8, max_len=1024, prefill_batch=4)`` and ``warmup_generative()``
+   (3 batch rungs x 11 length rungs = 33 grid cells bound and run), then
+   ``infer_stream`` traffic as bench_serving.py's generative leg at this
+   width (``GEN_SOLO``: 8 waves of 4 class-0 requests, 12-token prompts,
+   16 new tokens; the same waves beside one class-1 generation of a
+   32-token prompt and 512 new tokens; then rounds of a full pool of
+   24-token prompts with 256 new tokens until 1000 decode steps have
+   run): warmup seconds, TTFT p50/p99 solo and mixed (mixed p99 at most
+   ``GEN_CONVOY`` x solo p99: no convoy), steady tokens/s with no
+   executor-cache miss and ``compile_stats()`` unchanged across those
+   steps, every tenant's ledger balanced; the decode step of 8 live slots
+   by CUDA events and one decode step's and one (4, 32) prefill's device
+   busy time and idle share by the profiler; KV and weight bytes.  (b)
+   prompts of 5, 64, 200 and 512 tokens served for 32 greedy tokens each,
+   held to the block's own forward (K6a, and K7a or K5a by the length,
+   counted as ``launches_generative``) by ``GEN_NEAR_TIE``'s rule; one
+   prefill and 8 decode steps against the same model on the CPU (tokens
+   equal, K/V within ``GEN_CPU_TOL``); a ``serving.decode.step`` fault for
+   one tenant failing that stream alone, the others' tokens those served
+   without the plan.  (c) phase 20's ResNet-50 fit (2 epochs of 8 steps,
+   cuDNN deterministic, a ``CheckpointManager`` save every 2 steps) under
+   ``fit(elastic=True)`` with a SIGTERM at the first attempt's step 5 and
+   an error at the second's step 8: weights, momentum and moving stats
+   bitwise the uninterrupted fit's, 2 faults injected and retried, one
+   run recovered, K1b once a bucket and K2 once for every step run
+   (replays included, ``launches_elastic``), each fault's time to
+   recover;
 then every kernel's device time by the profiler (K6b's with the L2 cache
 overwritten before each launch; the bf16 instances of K3, K6a, K6b,
 K7a, K7b and K7c that phase 15 launches beside their plain versions,
@@ -327,7 +358,8 @@ Prints one JSON line ``{"checkpoints": {...}}`` with phase 13's numbers,
 (with the records fit's idle share), ``{"gluon": {...}}`` with phase
 18's (with its step's idle share and per-array SGD's device time),
 ``{"observability": {...}}`` with phase 19's, ``{"train_serve":
-{...}}`` with phase 20's, one
+{...}}`` with phase 20's, ``{"generative": {...}}`` and ``{"elastic":
+{...}}`` with phase 21's, one
 ``{"kernels":
 [...]}`` (all twelve kernels; K3, K2 and K1b with their
 ``launches_inception``, K1b, K2, K3, K6a, K6b, K7a, K7b and K7c with
@@ -336,7 +368,10 @@ their ``launches_mixed``, K2 and K3 with their
 ``launches_data_pipeline``, K2 and K3 with their ``launches_gluon``
 (a SymbolBlock forward's), K1b, K2 and K3 with their
 ``launches_observability`` (phase 19's counter and device trace) and
-``launches_train_serve`` (phase 20's), K2 with its ``lm`` jobs (the parent's
+``launches_train_serve`` (phase 20's), K6a, K7a and K5a with their
+``launches_generative`` (phase 21's oracle forwards), K1b and K2 with
+their ``launches_elastic`` (phase 21's elastic fit), K2 with its ``lm``
+jobs (the parent's
 strided form's times beside them) and its wide rows' SASS counts
 (``sass_wide``), K3,
 K6a, K7b and K7c with their ``bf16``
@@ -6946,6 +6981,616 @@ def train_serve_phase(mx, ck, ctx, sym, n_sites, smi, workdir_parent=None):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 21: generative serving and the elastic fit
+# ---------------------------------------------------------------------------
+GEN_SLOTS = 8
+GEN_MAX_LEN = 1024
+GEN_PREFILL_BATCH = 4       # batch rungs 1, 2, 4: 3 x 11 grid cells
+# bench_serving.py's generative leg at this width: a solo phase of waves of
+# short class-0 requests, a mixed phase of the same waves beside one long
+# class-1 generation, then steady state
+GEN_SOLO = {"waves": 8, "requests": 4, "prompt": 12, "new": 16}
+GEN_LONG = {"prompt": 32, "new": 512}
+GEN_STEADY = {"prompt": 24, "new": 256, "steps": 1000}
+GEN_CONVOY = 3.0            # mixed TTFT p99 over solo p99, at most
+GEN_TIMED = 20              # decode steps timed by CUDA events
+# (b): prompts held to the block's own greedy forward, 32 tokens each;
+# where a served token first differs from the oracle's, the oracle's top
+# two logits there must lie within this much of its largest |logit| (a
+# near-tie, decided by fp32 rounding), and that prompt's comparison ends
+GEN_CHECK = {"prompts": (5, 64, 200, 512), "new": 32}
+GEN_NEAR_TIE = 1e-4
+# one prefill and 8 decode steps on the card and on the CPU from the same
+# weights and state: the same fp32 math in other summation orders, ~1e-6
+# of each tensor's largest magnitude; TF32 (off at import) would give
+# ~1e-3.  Tokens must be equal.
+GEN_CPU = {"prompts": (5, 64), "steps": 8, "slots": 2}
+GEN_CPU_TOL = 1e-4
+GEN_WAIT_S = 300.0          # bound on any wait of the phase
+# (c): phase 20's fit under fit(elastic=True): 2 epochs of 8 steps, a save
+# every 2 steps, a SIGTERM at the first attempt's step 5, an error at the
+# second attempt's step 8 (the plan's step is the attempt's own batch
+# count, as fit publishes it)
+ELASTIC = {"epochs": 2, "steps": 8, "period": 2, "sigterm": 5, "raise": 8}
+
+
+def gen_prompt(n, vocab, seed):
+    return np.random.RandomState(seed).randint(1, vocab, n).astype(np.int32)
+
+
+def gen_server(mx, ctx, config=GPT2_SMALL, slots=GEN_SLOTS,
+               max_len=GEN_MAX_LEN, prefill_batch=GEN_PREFILL_BATCH,
+               seed=SEED):
+    """The GPT-2-small-width ``TransformerLM`` (Xavier from ``seed``,
+    fp32, as ``transformer_lm`` builds it) behind ``ModelServer.
+    add_generative_model``, every grid cell warmed by
+    ``warmup_generative``.  Returns ``(server, block, scheduler, warmup
+    seconds, cells warmed)``."""
+    lm = transformer_lm(mx, ctx, config, seed)
+    srv = mx.serving.ModelServer(cache_size=64, ctx=ctx)
+    sched = srv.add_generative_model("lm", lm, slots=slots, max_len=max_len,
+                                     prefill_batch=prefill_batch)
+    _sync(sched.model.device)
+    t = time.perf_counter()
+    cells = srv.warmup_generative()["lm"]
+    _sync(sched.model.device)
+    return srv, lm, sched, time.perf_counter() - t, cells
+
+
+def _gen_results(streams, timeout=GEN_WAIT_S):
+    return [s.result(timeout=timeout) for s in streams]
+
+
+def gen_traffic(srv, sched, vocab, solo=GEN_SOLO, long=GEN_LONG,
+                steady=GEN_STEADY, seed=SEED):
+    """Phase 21 (a)'s traffic: ``solo["waves"]`` waves of
+    ``solo["requests"]`` short class-0 requests; the same waves while one
+    long class-1 generation runs; then rounds of a full pool of steady
+    requests until ``steady["steps"]`` decode steps have run, with the
+    executor cache's misses and ``compile_stats()`` read before and after
+    them.  Returns the numbers."""
+    def wave(k):
+        return [srv.infer_stream(
+            "lm", gen_prompt(solo["prompt"], vocab, seed + 1000 * k + i),
+            max_new_tokens=solo["new"], priority=0, tenant="short")
+            for i in range(solo["requests"])]
+
+    solo_ttft = []
+    for k in range(solo["waves"]):
+        streams = wave(k)
+        _gen_results(streams)
+        solo_ttft += [s.ttft_s for s in streams]
+    long_st = srv.infer_stream("lm", gen_prompt(long["prompt"], vocab, seed),
+                               max_new_tokens=long["new"], priority=1,
+                               tenant="long")
+    mixed_ttft, waves = [], 0
+    while not long_st.done():
+        streams = wave(solo["waves"] + waves)
+        _gen_results(streams)
+        waves += 1
+        mixed_ttft += [s.ttft_s for s in streams]
+    long_tokens = len(long_st.result(timeout=GEN_WAIT_S))
+    stats0 = sched.stats()
+    miss0, compiles0 = srv.cache.misses, sched.model.compile_stats()
+    t = time.perf_counter()
+    tokens, rounds = 0, 0
+    while sched.stats()["steps"] - stats0["steps"] < steady["steps"]:
+        streams = [srv.infer_stream(
+            "lm", gen_prompt(steady["prompt"], vocab, seed + 7 * rounds + i),
+            max_new_tokens=steady["new"], priority=0, tenant="steady")
+            for i in range(sched.slots)]
+        tokens += sum(len(r) for r in _gen_results(streams))
+        rounds += 1
+    wall = time.perf_counter() - t
+    stats1 = sched.stats()
+    solo_ms = [v * 1e3 for v in solo_ttft]
+    mixed_ms = [v * 1e3 for v in mixed_ttft]
+    return {"solo_ttft_ms": solo_ms, "mixed_ttft_ms": mixed_ms,
+            "solo_ttft_p50_ms": float(np.percentile(solo_ms, 50)),
+            "solo_ttft_p99_ms": float(np.percentile(solo_ms, 99)),
+            "mixed_ttft_p50_ms": float(np.percentile(mixed_ms, 50)),
+            "mixed_ttft_p99_ms": float(np.percentile(mixed_ms, 99)),
+            "mixed_waves": waves, "long_tokens": long_tokens,
+            "steady_steps": stats1["steps"] - stats0["steps"],
+            "steady_rounds": rounds, "steady_tokens": tokens,
+            "steady_s": wall, "tokens_per_s": tokens / wall,
+            "steady_misses": srv.cache.misses - miss0,
+            "compile_stats": [compiles0, sched.model.compile_stats()],
+            "per_token_median_ms": stats1["per_token_median_s"] * 1e3,
+            "ledgers": sched.ledgers()}
+
+
+def gen_state(gm, slots, vocab, seed=SEED):
+    """A scratch ``DecodeState`` with every slot live at spread positions,
+    for timing the decode step apart from the scheduler."""
+    st = gm.make_state(slots)
+    rng = np.random.RandomState(seed)
+    for s in range(slots):
+        st.occupy(s, 1 + (s * gm.max_len) // (slots + 1),
+                  int(rng.randint(1, vocab)))
+    return st
+
+
+def gen_timing(gm, cache, vocab, slots=GEN_SLOTS, timed=GEN_TIMED,
+               cell=(4, 32), seed=SEED):
+    """The decode step of ``slots`` live slots: ms by CUDA events (the
+    host clock on the CPU; the step ends by reading its tokens, so either
+    spans its whole cost) and, on the card, its device busy time and idle
+    share by the profiler; the same for one prefill at ``cell``."""
+    device = gm.device
+    st = gen_state(gm, slots, vocab, seed)
+    gm.decode_step(st)
+    times = []
+    for _ in range(timed):
+        a = _marker(device)
+        gm.decode_step(st)
+        times.append(_elapsed_ms(a, _marker(device)))
+    toks = np.stack([gen_prompt(cell[1], vocab, seed + r)
+                     for r in range(cell[0])])
+    lens = np.full(cell[0], cell[1], np.int32)
+
+    def prefill():
+        out = gm.prefill(cache, cell, toks, lens)
+        return out[0].cpu()
+
+    prefill()
+    pre = []
+    for _ in range(max(3, timed // 4)):
+        a = _marker(device)
+        prefill()
+        pre.append(_elapsed_ms(a, _marker(device)))
+    out = {"decode_ms": float(np.median(times)),
+           "decode_ms_all": times, "prefill_cell": list(cell),
+           "prefill_ms": float(np.median(pre)), "slots": slots}
+    if device.type == "cuda":
+        for key, fn, ms in (("decode", lambda: gm.decode_step(st),
+                             out["decode_ms"]),
+                            ("prefill", prefill, out["prefill_ms"])):
+            by_name = device_times(fn, n=1)
+            busy = sum(by_name.values())
+            out[key + "_busy_us"] = busy if busy > 0 else None
+            out[key + "_idle_share"] = (max(0.0, 1 - busy / (ms * 1e3))
+                                        if busy > 0 else None)
+            out[key + "_by_kind"] = by_kind(by_name, LM_KINDS)
+            out[key + "_kernels"] = len(by_name)
+    return out
+
+
+def gen_tokens_check(mx, ck, srv, lm, vocab, prompts=GEN_CHECK["prompts"],
+                     new=GEN_CHECK["new"], near_tie=GEN_NEAR_TIE,
+                     seed=SEED):
+    """Phase 21 (b): each prompt served for ``new`` greedy tokens through
+    ``infer_stream``, held to the block's own forward over the prompt and
+    the served tokens (one forward a prompt: while the tokens agree, its
+    argmax at each position IS the greedy oracle's next token).  At the
+    first disagreement the oracle's top-two gap there must be under
+    ``near_tie`` of its largest |logit|, and that prompt's comparison
+    ends.  The oracle's kernel launches (K6a, and K7a or K5a by the
+    length's route) are counted.  Raises on a real mismatch."""
+    ctx = lm.embed.weight.data().context
+    ps = [gen_prompt(n, vocab, seed + 31 * i) for i, n in enumerate(prompts)]
+    streams = [srv.infer_stream("lm", p, max_new_tokens=new, tenant="check")
+               for p in ps]
+    served = _gen_results(streams)
+    matched, ties, lengths = [], [], []
+    ck.reset_kernel_calls()
+    for p, got in zip(ps, served):
+        seq = np.concatenate([p, np.asarray(got, np.int32)])
+        lengths.append(len(seq))
+        logits = lm(mx.nd.array(seq[None].astype(np.float32), ctx=ctx))
+        logits = logits._data[0, len(p) - 1:len(p) - 1 + new]
+        want = logits.argmax(dim=-1).cpu().numpy()
+        n = 0
+        while n < new and int(want[n]) == int(got[n]):
+            n += 1
+        matched.append(n)
+        if n < new:
+            row = logits[n]
+            top2 = row.topk(2).values
+            gap = float(top2[0] - top2[1])
+            scale = float(row.abs().max())
+            tie = {"prompt": len(p), "step": n, "gap": gap,
+                   "largest": scale, "served": int(got[n]),
+                   "oracle": int(want[n]),
+                   "served_logit": float(row[int(got[n])])}
+            ties.append(tie)
+            if not gap < near_tie * scale or \
+                    float(top2[0] - row[int(got[n])]) > near_tie * scale:
+                raise AssertionError(
+                    "generative tokens: prompt of %d tokens differs from "
+                    "the block's greedy forward at step %d (%s), not a "
+                    "near-tie" % (len(p), n, tie))
+    return {"prompts": list(prompts), "new": new, "matched": matched,
+            "near_ties": ties, "oracle_lengths": lengths,
+            "oracle_launches": ck.kernel_calls()}
+
+
+def _gen_host_spec(gm):
+    def host(tree):
+        if isinstance(tree, dict):
+            return {k: host(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [host(v) for v in tree]
+        return tree.detach().cpu()
+    return {"config": dict(gm.config), "params": host(gm.params)}
+
+
+def _rel(a, b):
+    """max |a - b| over b's largest magnitude (b on the CPU)."""
+    a = a.detach().cpu().double()
+    b = b.detach().double()
+    return float((a - b).abs().max() / max(float(b.abs().max()), 1e-30))
+
+
+def gen_cpu_check(mx, gm, vocab, prompts=GEN_CPU["prompts"],
+                  steps=GEN_CPU["steps"], slots=GEN_CPU["slots"],
+                  tol=GEN_CPU_TOL, seed=SEED):
+    """Phase 21 (b): one prefill of ``prompts`` (one grid cell) and
+    ``steps`` decode steps on the model's device and on the CPU from the
+    same weights and the same state: first and decoded tokens equal,
+    K/V histories and the cache within ``tol`` of each tensor's largest
+    magnitude.  Raises otherwise."""
+    cpu = mx.serving.GenerativeModel("lm-cpu", _gen_host_spec(gm),
+                                     max_len=gm.max_len,
+                                     prefill_batch=len(prompts),
+                                     ctx=mx.cpu())
+    cell = gm.pick_cell(len(prompts), max(prompts))
+    toks = np.zeros(cell, np.int32)
+    lens = np.ones(cell[0], np.int32)
+    for r, n in enumerate(prompts):
+        toks[r, :n] = gen_prompt(n, vocab, seed + 97 * r)
+        lens[r] = n
+    caches = [mx.serving.ExecutorCache(capacity=2, ctx=m.device)
+              for m in (gm, cpu)]
+    outs = [m.prefill(c, cell, toks, lens) for m, c in zip((gm, cpu), caches)]
+    firsts = [o[0].cpu().numpy() for o in outs]
+    res = {"cell": list(cell), "first_equal": bool(
+        np.array_equal(firsts[0], firsts[1])),
+        "k_hist": _rel(outs[0][1], outs[1][1]),
+        "v_hist": _rel(outs[0][2], outs[1][2])}
+    states = [m.make_state(slots) for m in (gm, cpu)]
+    for m, st, (first, kh, vh) in zip((gm, cpu), states, outs):
+        for r, n in enumerate(prompts):
+            m.admit(st, r, kh[:, r], vh[:, r])
+            st.occupy(r, n, int(firsts[0][r]))
+    res["tokens_equal"], res["cache"] = [], []
+    for _ in range(steps):
+        nxt = [m.decode_step(st) for m, st in zip((gm, cpu), states)]
+        live = list(range(len(prompts)))
+        res["tokens_equal"].append(bool(np.array_equal(nxt[0][live],
+                                                       nxt[1][live])))
+        for st in states:
+            for r in live:
+                st.advance(r, int(nxt[0][r]))
+        res["cache"].append(max(_rel(states[0].k, states[1].k),
+                                _rel(states[0].v, states[1].v)))
+    res["worst"] = max([res["k_hist"], res["v_hist"]] + res["cache"])
+    if not (res["first_equal"] and all(res["tokens_equal"])
+            and res["worst"] <= tol):
+        raise AssertionError("generative prefill/decode on %s vs the CPU: "
+                             "%s (limit %g)" % (gm.device, res, tol))
+    return res
+
+
+def gen_fault_check(mx, srv, sched, vocab, n=3, new=16, prompt=12,
+                    seed=SEED):
+    """Phase 21 (b): a plan at ``serving.decode.step`` for one tenant
+    fails that stream alone; the other streams' tokens equal those of
+    the same requests served without the plan.  Each run submits its
+    requests inside the scheduler's lock, so both prefill them in one
+    batch in the same rows."""
+    prompts = [gen_prompt(prompt, vocab, seed + 500 + i) for i in range(n + 1)]
+
+    def run(plan):
+        with sched._cv:
+            streams = [srv.infer_stream("lm", p, max_new_tokens=new,
+                                        tenant="t%d" % i if i else "victim")
+                       for i, p in enumerate(prompts)]
+        if plan is None:
+            return _gen_results(streams)
+        with mx.fault.active_plan(plan) as armed:
+            out = []
+            for s in streams:
+                try:
+                    out.append(s.result(timeout=GEN_WAIT_S))
+                except mx.fault.FaultInjected as exc:
+                    out.append(exc)
+            return out, armed.injected_count()
+
+    base = run(None)
+    got, injected = run({"rules": [{"site": "serving.decode.step",
+                                    "kind": "raise", "times": 1,
+                                    "where": {"tenant": "victim"}}]})
+    res = {"injected": injected,
+           "victim_failed": isinstance(got[0], mx.fault.FaultInjected),
+           "others_equal": [g == b for g, b in zip(got[1:], base[1:])]}
+    if injected != 1 or not res["victim_failed"] \
+            or not all(res["others_equal"]):
+        raise AssertionError("generative fault isolation: %s" % res)
+    return res
+
+
+def generative_phase(mx, ck, ctx, config=GPT2_SMALL, slots=GEN_SLOTS,
+                     max_len=GEN_MAX_LEN, prefill_batch=GEN_PREFILL_BATCH,
+                     solo=GEN_SOLO, long=GEN_LONG, steady=GEN_STEADY,
+                     check=GEN_CHECK, cpu=GEN_CPU, timed=GEN_TIMED,
+                     cell=(4, 32), seed=SEED):
+    """Phase 21 (a) and (b): serving, its numbers and its checks.
+    Returns the record."""
+    t0 = time.perf_counter()
+    vocab = config["vocab_size"]
+    srv, lm, sched, warm_s, cells = gen_server(
+        mx, ctx, config, slots, max_len, prefill_batch, seed)
+    try:
+        gm = sched.model
+        grid = len(gm.grid())
+        misses_warm = srv.cache.misses
+        traffic = gen_traffic(srv, sched, vocab, solo, long, steady, seed)
+        tokens = gen_tokens_check(mx, ck, srv, lm, vocab, check["prompts"],
+                                  check["new"], seed=seed)
+        faults = gen_fault_check(mx, srv, sched, vocab, seed=seed)
+        led = sched.ledgers()
+        stats = srv.stats()["generative"]["lm"]
+    finally:
+        srv.stop(drain=False)
+    timing = gen_timing(gm, srv.cache, vocab, slots, timed, cell, seed)
+    cpu_res = gen_cpu_check(mx, gm, vocab, cpu["prompts"], cpu["steps"],
+                            cpu["slots"], seed=seed)
+    res = {"config": dict(config), "slots": slots, "max_len": max_len,
+           "prefill_batch": prefill_batch, "grid_cells": grid,
+           "cells_warmed": cells, "warmup_s": warm_s,
+           "misses_after_warmup": misses_warm,
+           "kv_bytes": gm.kv_bytes_per_slot() * slots,
+           "kv_bytes_per_slot": gm.kv_bytes_per_slot(),
+           "weight_bytes": gm.param_bytes(), "traffic": traffic,
+           "timing": timing, "tokens": tokens, "cpu": cpu_res,
+           "faults": faults, "ledgers": led,
+           "steps": stats["steps"], "seconds": None}
+    bad = []
+    if cells != grid or misses_warm != grid:
+        bad.append("warmup bound %d cells (%d misses) of %d"
+                   % (cells, misses_warm, grid))
+    if traffic["mixed_ttft_p99_ms"] > GEN_CONVOY * traffic["solo_ttft_p99_ms"]:
+        bad.append("convoy: mixed TTFT p99 %.2f ms over %g x solo p99 %.2f ms"
+                   % (traffic["mixed_ttft_p99_ms"], GEN_CONVOY,
+                      traffic["solo_ttft_p99_ms"]))
+    if traffic["steady_misses"] or \
+            traffic["compile_stats"][0] != traffic["compile_stats"][1]:
+        bad.append("steady state bound %d cells, compile_stats %s"
+                   % (traffic["steady_misses"], traffic["compile_stats"]))
+    if traffic["steady_steps"] < steady["steps"] or traffic["long_tokens"] \
+            != long["new"] or not traffic["mixed_waves"]:
+        bad.append("traffic %s" % {k: traffic[k] for k in (
+            "steady_steps", "long_tokens", "mixed_waves")})
+    for tenant, c in led.items():
+        if c["submitted"] != c["served"] + c["failed"] + c["expired"] \
+                + c["shed"]:
+            bad.append("ledger of %s unbalanced: %s" % (tenant, c))
+    want_failed = {"victim": 1}
+    for tenant, c in led.items():
+        if c["failed"] != want_failed.get(tenant, 0) or c["expired"] \
+                or c["shed"]:
+            bad.append("tenant %s: %s" % (tenant, c))
+    if bad:
+        raise AssertionError("phase 21 generative serving: " + "; ".join(bad))
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def elastic_phase(mx, ck, ctx, sym, image, batch, workdir, epochs=None,
+                  steps=None, period=None, sigterm=None, fail=None,
+                  counts=None, seed=SEED, classes=CLASSES):
+    """Phase 21 (c): phase 20's fit (``kvstore="tpu"``, ``SGD_PARAMS``,
+    Xavier from ``seed``, a shuffled ``ts_iter``), cuDNN deterministic
+    where the caller set it, run uninterrupted and then under
+    ``fit(elastic=True)`` with a ``CheckpointManager`` saving every
+    ``period`` steps and a plan that sends a SIGTERM at the first
+    attempt's step ``sigterm`` and raises at the second's step ``fail``.
+    The final weights, momentum and moving stats must be bitwise the
+    uninterrupted run's; the plan must inject 2 faults, the supervisor
+    retry twice and recover once; the sweep kernel must launch once a
+    bucket for every step that ran, replays included.  Returns the
+    numbers, with each fault's time to recover: from the last update
+    before the fault to the first after the restore.  ``counts(reset=
+    False)`` reads (or zeroes) the launch counts: the kernel wrappers'
+    by default."""
+    epochs = ELASTIC["epochs"] if epochs is None else epochs
+    steps = ELASTIC["steps"] if steps is None else steps
+    period = ELASTIC["period"] if period is None else period
+    sigterm = ELASTIC["sigterm"] if sigterm is None else sigterm
+    fail = ELASTIC["raise"] if fail is None else fail
+    device = ctx.torch_device
+    fit_kw = dict(num_epoch=epochs, kvstore="tpu", optimizer="sgd",
+                  optimizer_params=SGD_PARAMS,
+                  initializer=mx.init.Xavier(rnd_type="gaussian",
+                                             factor_type="in", magnitude=2),
+                  eval_metric="acc")
+
+    def module(log):
+        mod = mx.mod.Module(sym, context=ctx)
+        update = mod.update
+
+        def counted():
+            update()
+            log.append(time.perf_counter())
+        mod.update = counted
+        return mod
+
+    if counts is None:
+        def counts(reset=False):
+            return ck.reset_kernel_calls() if reset else ck.kernel_calls()
+
+    def calls():
+        c = counts()
+        return c.get("sgd_mom_sweep", 0), c.get("softmax_lastaxis", 0)
+
+    t0 = time.perf_counter()
+    oracle_log = []
+    counts(reset=True)
+    mx.random.seed(seed)
+    oracle = module(oracle_log)
+    oracle.fit(ts_iter(mx, ctx, batch, image, steps, seed, classes),
+               **fit_kw)
+    _sync(device)
+    o_sweep, o_softmax = calls()
+    want = module_state(oracle)
+    del oracle
+
+    failures = []
+
+    class Catch(logging.Handler):
+        def emit(self, record):
+            if "recoverable failure" in record.getMessage():
+                failures.append(time.perf_counter())
+
+    catch = Catch()
+    flog = logging.getLogger("mxnet_tpu_torch.fault")
+    flog.addHandler(catch)
+    before = {k: _total(mx.telemetry.snapshot(), k) for k in (
+        "mxnet_fault_injected_total", "mxnet_fault_retries_total",
+        "mxnet_fault_recoveries_total")}
+    plan = {"rules": [
+        {"site": "fit.step", "kind": "sigterm", "step": sigterm,
+         "times": 1},
+        {"site": "fit.step", "kind": "raise", "exc": "RuntimeError",
+         "step": fail, "times": 1}]}
+    saved_env = {k: os.environ.get(k) for k in (
+        "MXNET_FAULT_BACKOFF_BASE_S", "MXNET_FAULT_BACKOFF_MAX_S")}
+    os.environ["MXNET_FAULT_BACKOFF_BASE_S"] = "0.05"
+    os.environ["MXNET_FAULT_BACKOFF_MAX_S"] = "0.1"
+    log = []
+    try:
+        mgr = mx.checkpoint.CheckpointManager(
+            workdir, keep_last=2, async_save=True, period_steps=period,
+            period_epochs=0)
+        counts(reset=True)
+        mx.random.seed(seed)
+        mod = module(log)
+        with mx.fault.active_plan(plan) as armed:
+            mod.fit(ts_iter(mx, ctx, batch, image, steps, seed, classes),
+                    elastic=True, checkpoint_manager=mgr, **fit_kw)
+        _sync(device)
+        injected = armed.injected_count()
+    finally:
+        flog.removeHandler(catch)
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    sweep, softmax = calls()
+    after = {k: _total(mx.telemetry.snapshot(), k) - before[k]
+             for k in before}
+    cmp = compare_states(module_state(mod), want)
+    buckets = o_sweep // max(1, len(oracle_log))
+    recover = []
+    for t in failures:
+        last = max([x for x in log if x < t], default=None)
+        nxt = min([x for x in log if x > t], default=None)
+        recover.append(None if last is None or nxt is None else nxt - last)
+    res = {"epochs": epochs, "steps_per_epoch": steps, "period": period,
+           "plan": plan["rules"], "uninterrupted_steps": len(oracle_log),
+           "steps_run": len(log), "replayed": len(log) - len(oracle_log),
+           "buckets": buckets, "launches": {"sgd_mom_sweep": sweep,
+                                            "softmax_lastaxis": softmax},
+           "oracle_launches": {"sgd_mom_sweep": o_sweep,
+                               "softmax_lastaxis": o_softmax},
+           "injected": injected, "counters": after,
+           "recover_s": recover, "tensors": cmp["tensors"],
+           "bitwise": cmp["bitwise"], "max_rel": cmp["max_rel"],
+           "seconds": time.perf_counter() - t0}
+    bad = []
+    if not cmp["bitwise"]:
+        bad.append("state not bitwise the uninterrupted fit's (%g)"
+                   % cmp["max_rel"])
+    if injected != 2 or after["mxnet_fault_injected_total"] != 2 \
+            or after["mxnet_fault_retries_total"] != 2 \
+            or after["mxnet_fault_recoveries_total"] != 1 \
+            or len(failures) != 2:
+        bad.append("faults: injected %d, counters %s, %d retries logged"
+                   % (injected, after, len(failures)))
+    if len(oracle_log) != epochs * steps or o_softmax != len(oracle_log) \
+            or sweep != buckets * len(log) or softmax != len(log) \
+            or (device.type == "cuda" and buckets < 1):
+        bad.append("launches %s over %d steps run (%d buckets; the "
+                   "uninterrupted fit %s over %d)"
+                   % (res["launches"], len(log), buckets,
+                      res["oracle_launches"], len(oracle_log)))
+    if bad:
+        raise AssertionError("phase 21 elastic fit: " + "; ".join(bad))
+    return res
+
+
+def generate_phase(mx, ck, ctx, sym, smi, workdir_parent=None):
+    """Phase 21 on the card: generative serving (a, b), then the elastic
+    fit (c) cuDNN deterministic in a temporary directory of the checkout
+    removed at the end.  Prints the phase's lines and returns
+    ``(generative record, elastic record)``."""
+    import tempfile
+    gen = generative_phase(mx, ck, ctx)
+    gen["card"] = smi
+    tr, ti = gen["traffic"], gen["timing"]
+    print("generative serving on %s: TransformerLM %s fp32 through "
+          "add_generative_model(slots=%d, max_len=%d, prefill_batch=%d): "
+          "%d grid cells warmed in %.2f s; solo TTFT p50 %.2f ms, p99 %.2f "
+          "ms; mixed (beside a %d-token generation, %d waves) p50 %.2f ms, "
+          "p99 %.2f ms; steady %d steps, %d tokens in %.2f s: %.1f tokens/s; "
+          "misses %d and compile_stats %s across them; decode step %.3f ms "
+          "(CUDA events, %d slots), device busy %s us (idle share %s); "
+          "prefill %s %.3f ms, busy %s us (idle %s); KV %.1f MB, weights "
+          "%.1f MB" % (
+              smi, json.dumps(gen["config"]), gen["slots"], gen["max_len"],
+              gen["prefill_batch"], gen["cells_warmed"], gen["warmup_s"],
+              tr["solo_ttft_p50_ms"], tr["solo_ttft_p99_ms"],
+              tr["long_tokens"], tr["mixed_waves"], tr["mixed_ttft_p50_ms"],
+              tr["mixed_ttft_p99_ms"], tr["steady_steps"],
+              tr["steady_tokens"], tr["steady_s"], tr["tokens_per_s"],
+              tr["steady_misses"], tr["compile_stats"][1], ti["decode_ms"],
+              ti["slots"], ti.get("decode_busy_us"),
+              ti.get("decode_idle_share"), tuple(ti["prefill_cell"]),
+              ti["prefill_ms"], ti.get("prefill_busy_us"),
+              ti.get("prefill_idle_share"), gen["kv_bytes"] / 1e6,
+              gen["weight_bytes"] / 1e6), flush=True)
+    tk, cpu = gen["tokens"], gen["cpu"]
+    print("generative correctness on %s: prompts %s x %d greedy tokens "
+          "matched the block's own forward for %s steps, near-ties %s; "
+          "oracle launches %s; prefill %s and %d decode steps against the "
+          "CPU: tokens equal, worst %.3g of the largest (limit %g); "
+          "fault at serving.decode.step: %s; phase 21 (a, b) %.1f s" % (
+              smi, tk["prompts"], tk["new"], tk["matched"],
+              tk["near_ties"], {k: v for k, v in tk["oracle_launches"].items()
+                                if v}, tuple(cpu["cell"]),
+              len(cpu["cache"]), cpu["worst"], GEN_CPU_TOL, gen["faults"],
+              gen["seconds"]), flush=True)
+    workdir = tempfile.TemporaryDirectory(
+        prefix=".chip_smoke_el_", dir=workdir_parent or os.path.dirname(
+            os.path.abspath(__file__)))
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        el = elastic_phase(mx, ck, ctx, sym, IMAGE, BATCH, workdir.name)
+    finally:
+        torch.backends.cudnn.deterministic = saved
+        workdir.cleanup()
+    el["card"] = smi
+    print("elastic fit on %s: ResNet-50 v1 Module.fit(elastic=True) "
+          "kvstore=tpu batch %d, %d epochs of %d steps, a save every %d, "
+          "SIGTERM at step %d and an error at step %d: %d steps run for %d "
+          "(%d replayed), injected %d, counters %s; %d tensors bitwise the "
+          "uninterrupted fit's: %s; time to recover %s s; launches %s "
+          "(%d buckets); %.1f s" % (
+              smi, BATCH, el["epochs"], el["steps_per_epoch"], el["period"],
+              ELASTIC["sigterm"], ELASTIC["raise"], el["steps_run"],
+              el["uninterrupted_steps"], el["replayed"], el["injected"],
+              el["counters"], el["tensors"], el["bitwise"],
+              ["%.3f" % v if v is not None else None
+               for v in el["recover_s"]], el["launches"], el["buckets"],
+              el["seconds"]), flush=True)
+    return gen, el
+
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -7010,6 +7655,16 @@ def main():
         obs_line = observability_phase(mx, ck, mx.gpu(0), sym, len(sites),
                                        2, smi)
         print(json.dumps({"observability": obs_line}, default=str))
+        return 0
+    if sys.argv[1:] == ["generate"]:
+        # phase 21 alone
+        gen_line, el_line = generate_phase(mx, ck, mx.gpu(0), sym, smi)
+        print(json.dumps({"generative": gen_line}, default=str))
+        print(json.dumps({"elastic": el_line}, default=str))
+        print("nvidia-smi: %s" % smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
         return 0
     if sys.argv[1:] == ["train_serve"]:
         # phase 20 alone
@@ -8076,6 +8731,22 @@ def main():
         rec["launches_train_serve"] = dict(
             ts_launches[name], fit_steps=ts_launches["fit_steps"],
             served_forwards=ts_launches["served_forwards"])
+    # 21. generative serving and the elastic fit
+    gen_line, el_line = generate_phase(mx, ck, mx.gpu(0), sym, smi)
+    oracle = gen_line["tokens"]["oracle_launches"]
+    n_oracle = len(gen_line["tokens"]["oracle_lengths"])
+    for rec, name in ((k6a, "layernorm_fwd"), (k7a, "flash_attention_fwd"),
+                      (k5a, "bias_softmax")):
+        rec["launches_generative"] = {
+            "oracle_forwards": n_oracle, "oracle_lengths":
+            gen_line["tokens"]["oracle_lengths"],
+            "launches": oracle.get(name, 0)}
+    for rec, name in ((sweeps["sgd_mom_sweep"], "sgd_mom_sweep"),
+                      (k2, "softmax_lastaxis")):
+        rec["launches_elastic"] = {
+            "steps_run": el_line["steps_run"],
+            "uninterrupted_steps": el_line["uninterrupted_steps"],
+            "launches": el_line["launches"][name]}
     for job in k7a_jobs:
         job["tflops"] = job["ops"] / job["ms"] / 1e9
     k7a["tflops"] = k7a_jobs[0]["tflops"]
@@ -8173,6 +8844,8 @@ def main():
     print(json.dumps({"gluon": g18}, default=str))
     print(json.dumps({"observability": obs_line}, default=str))
     print(json.dumps({"train_serve": ts_line}, default=str))
+    print(json.dumps({"generative": gen_line}, default=str))
+    print(json.dumps({"elastic": el_line}, default=str))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
             "launches_per_forward", "call_ms", "plain_call_ms",
@@ -8184,6 +8857,7 @@ def main():
                         "launches_training_loop",
                         "launches_data_pipeline", "launches_gluon",
                         "launches_observability", "launches_train_serve",
+                        "launches_generative", "launches_elastic",
                         "lm", "bf16",
                         "ms_repeats", "library_ms_repeats",
                         "bfloat16_ms_repeats", "bfloat16_library_ms_repeats",

@@ -279,6 +279,37 @@ register_env("MXNET_SERVING_CANARY_MAX_ERROR_RATE", float, 0.05,
 register_env("MXNET_SERVING_CANARY_P99_FACTOR", float, 3.0,
              "rollback when canary p99 latency exceeds this multiple "
              "of the baseline version's p99 over the same window")
+register_env("MXNET_SERVING_GEN_SLOTS", int, 8,
+             "decode slots per generative model: the fixed lane count "
+             "of the continuous-batching pool (KV-cache is "
+             "preallocated for all slots at add_generative_model)")
+register_env("MXNET_SERVING_GEN_MAX_LEN", int, 0,
+             "KV-cache window per decode slot in tokens; prompts "
+             "longer than the window are rejected and generations "
+             "past it attend to the most recent window (ring "
+             "wrap-around); 0 uses the model's positional-table size")
+register_env("MXNET_SERVING_GEN_MAX_NEW_TOKENS", int, 64,
+             "default generation budget when infer_stream passes no "
+             "max_new_tokens; a slot always frees at EOS or budget")
+register_env("MXNET_SERVING_GEN_PREFILL_BATCH", int, 4,
+             "max prompts coalesced into one prefill program; sets "
+             "the batch axis of the prefill (batch, length) grid, so "
+             "raising it multiplies warmup binds by one more rung")
+register_env("MXNET_SERVING_GEN_QUEUE_DEPTH", int, 128,
+             "pending generative requests per model beyond which "
+             "submits are rejected with QueueFull/retry_after_s")
+register_env("MXNET_SERVING_GEN_SLOT_QUOTA", int, 0,
+             "default per-tenant cap on concurrently held decode "
+             "slots (0 = no cap); DecodeScheduler.set_slot_quota "
+             "overrides per tenant — a tenant at its cap queues even "
+             "when slots are free")
+register_env("MXNET_SERVING_GEN_BROWNOUT_MS", float, 0.0,
+             "generative brownout budget: when (remaining in-flight "
+             "tokens + queued token demand) x the live per-token "
+             "median predicts a drain time above this, queued "
+             "requests of class >= MXNET_SERVING_BROWNOUT_REJECT_CLASS "
+             "are shed (hysteresis exits at half the budget); 0 "
+             "disables token-priced brownout")
 register_env("MXNET_SERVING_CANARY_TIMEOUT_S", float, 600.0,
              "canary decision budget: a canary that cannot gather "
              "min_requests within this window is decided on whatever "

@@ -6,7 +6,8 @@ per-channel BatchNorm and LayerNorm vectors, a ``FusedRNNCell``'s packed
 ``RNN`` parameter vector (all weights, then all biases) — so moving a
 model is a matter of dtype and device placement: ``params_from_numpy`` for a
 symbol's arg and aux dicts, ``block_params_from_numpy`` for a gluon
-block.  The caller hands numpy arrays (``{k: v.asnumpy()}`` on the JAX
+block, ``spec_from_numpy`` for a ``TransformerLM.generative_spec()``
+export (generative serving's weight feed).  The caller hands numpy arrays (``{k: v.asnumpy()}`` on the JAX
 side); this module never sees a JAX object.
 """
 from __future__ import annotations
@@ -18,7 +19,8 @@ from .base import MXNetError, dtype_torch
 from .context import resolve
 from .ndarray import NDArray
 
-__all__ = ["params_from_numpy", "block_params_from_numpy"]
+__all__ = ["params_from_numpy", "block_params_from_numpy",
+           "spec_from_numpy"]
 
 
 def _to_nd(name, v, device, dtype):
@@ -98,3 +100,21 @@ def block_params_from_numpy(block, arrays, ctx=None):
                              "block, %s in the arrays"
                              % (name, known, a.shape))
         p._load_init(_to_nd(name, a, device, dtype_torch(p.dtype)))
+
+
+def spec_from_numpy(spec, ctx=None, dtype="float32"):
+    """A ``generative_spec()`` export whose leaves are host arrays (the
+    JAX package's, ``np.asarray`` of each leaf) -> the port's spec: the
+    same ``config`` and the same nested ``params`` layout, every leaf a
+    tensor on ``ctx`` (default the current context) in ``dtype``."""
+    device, dt = resolve(ctx), dtype_torch(dtype)
+
+    def carry(tree, path):
+        if isinstance(tree, dict):
+            return {k: carry(v, path + (str(k),)) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [carry(v, path + (str(i),)) for i, v in enumerate(tree)]
+        return _to_nd("/".join(path), tree, device, dt)._data
+
+    return {"config": dict(spec["config"]),
+            "params": carry(spec["params"], ())}

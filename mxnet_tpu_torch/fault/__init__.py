@@ -1,6 +1,5 @@
-"""Deterministic fault injection (counterpart of ``mxnet_tpu/fault``).
-
-Three layers, two of them ported:
+"""Deterministic fault injection and elastic training (counterpart of
+``mxnet_tpu/fault``).
 
 - :mod:`.hooks` — the dependency-free leaf instrumented sites import;
   one boolean per site while no plan is armed;
@@ -8,14 +7,18 @@ Three layers, two of them ported:
   schedules (raise / transient-IO / torn-write / delay / SIGTERM /
   SIGKILL / hard-exit / NaN), armed process-wide via
   ``MXNET_FAULT_PLAN`` or :func:`install`;
-- :mod:`.backoff` — :class:`BackoffPolicy`, the shared retry policy.
+- :mod:`.backoff` — :class:`BackoffPolicy`, the shared retry policy;
+- :mod:`.elastic` — the supervised training runtime the injection core
+  exists to drill: ``fit(elastic=True)``'s restore-and-retry under a
+  budgeted backoff (:class:`ElasticSupervisor`), and
+  :class:`ProcessSupervisor` for whole worker processes.
 
-The JAX package's supervised training runtime (``fault/elastic.py``,
-``fit(elastic=True)``) and its chaos drills (``fault/drill.py``) are not
-ported yet; ``fit(elastic=True)`` raises naming them.
+The JAX package's ``run_elastic`` (the multi-device trainer's elastic loop)
+comes with multi-GPU, and its chaos drills (``fault/drill.py``) after.
 
-The package stays importable from ``_atomic_io`` (which loads before
-everything): nothing here imports torch.
+``elastic`` imports the checkpoint stack, so it loads lazily: the
+package itself stays importable from ``_atomic_io`` (which loads before
+everything), and nothing it imports eagerly imports torch.
 """
 from __future__ import annotations
 
@@ -25,4 +28,23 @@ from .plan import (FaultInjected, FaultPlan, Reorder,  # noqa: F401
                    active_plan, install, installed, uninstall)
 
 __all__ = ["hooks", "BackoffPolicy", "FaultPlan", "FaultInjected",
-           "Reorder", "install", "uninstall", "installed", "active_plan"]
+           "Reorder", "install", "uninstall", "installed", "active_plan",
+           "elastic", "ElasticError", "ElasticSupervisor",
+           "ProcessSupervisor"]
+
+_LAZY = ("elastic", "ElasticError", "ElasticSupervisor",
+         "ProcessSupervisor")
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        # import_module, NOT ``from . import elastic``: the from-import
+        # probes this package's attribute first, which re-enters this
+        # __getattr__ before the submodule binds
+        import importlib
+        elastic = importlib.import_module(__name__ + ".elastic")
+        if name == "elastic":
+            return elastic
+        return getattr(elastic, name)
+    raise AttributeError("module %r has no attribute %r"
+                         % (__name__, name))

@@ -10,9 +10,19 @@ which takes the flash kernel (K7a) where ``local_attention`` finds it
 eligible and the masked softmax (K5a) otherwise.
 
 ``causal_attention`` is the plain-torch einsum form of the causal
-attention, the reference forward the kernels are held against.  The
-generative-serving seams of the JAX module (``cached_attention_step``,
-``TransformerLM.generative_spec``) come with generative serving.
+attention, the reference forward the kernels are held against.
+
+Generative serving (``mxnet_tpu_torch.serving.generate``) consumes this
+file through two seams, as in the JAX package:
+
+- :func:`cached_attention_step` / :func:`causal_attention` — the plain
+  attention math of the KV-cache decode and of the prefill: one query
+  token a slot attends against a preallocated fixed-shape cache with a
+  validity mask, so every decode step has the same shapes whatever the
+  sequence position;
+- :meth:`TransformerLM.generative_spec` — the block's weights as raw
+  tensors on its device plus the architecture config, the feed
+  ``serving/generate/model.py`` runs its prefill and decode from.
 """
 from __future__ import annotations
 
@@ -20,9 +30,10 @@ import torch
 
 from ..block import HybridBlock
 from ..nn import Dense, Dropout, Embedding, HybridSequential, LayerNorm
+from ..parameter import DeferredInitializationError
 
 __all__ = ["MultiHeadAttention", "TransformerEncoderCell", "TransformerLM",
-           "causal_attention"]
+           "causal_attention", "cached_attention_step"]
 
 
 def causal_attention(q, k, v):
@@ -43,6 +54,32 @@ def causal_attention(q, k, v):
     p = p / p.sum(dim=-1, keepdim=True)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p, v)
     return out.reshape(b, t, h, d)
+
+
+def cached_attention_step(q, k_cache, v_cache, n_valid):
+    """One DECODE step against a preallocated KV-cache, in plain torch.
+
+    ``q``: ``[S, H, D]`` (one query token per decode slot);
+    ``k_cache``/``v_cache``: ``[S, Hkv, M, D]`` (``M`` = cache capacity);
+    ``n_valid``: ``[S]`` ints (a tensor or a host array) — how many cache
+    positions hold real history per slot (the ring's fill level).
+    Positions ``>= n_valid`` are masked at -1e30, so the same shapes serve
+    every slot at every sequence position; causality is structural (the
+    cache only ever holds past tokens plus the current one).  Returns
+    ``[S, H, D]``."""
+    s, h, d = q.shape
+    hkv, m = k_cache.shape[1], k_cache.shape[2]
+    g = h // hkv
+    qg = q.reshape(s, hkv, g, d) * (d ** -0.5)
+    scores = torch.einsum("shgd,shmd->shgm", qg, k_cache)
+    n_valid = torch.as_tensor(n_valid, device=q.device)
+    valid = torch.arange(m, device=q.device)[None, None, None, :] \
+        < n_valid[:, None, None, None]
+    scores = scores.masked_fill(~valid, -1e30)
+    p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    p = p / p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("shgm,shmd->shgd", p, v_cache)
+    return out.reshape(s, h, d)
 
 
 class MultiHeadAttention(HybridBlock):
@@ -153,3 +190,58 @@ class TransformerLM(HybridBlock):
         x = x + pos_e
         x = self.blocks(x)
         return self.head(self.ln_f(x))
+
+    def generative_spec(self):
+        """The decode-path export for ``mxnet_tpu_torch.serving.generate``:
+        ``{"config": {...}, "params": {...}}`` with every weight the
+        block's raw tensor on its device (the gluon wrapper stripped, no
+        copy), in the JAX package's nested layout; Dense keeps ``(units,
+        in_units)`` (``y = x @ W.T + b``).
+
+        Deferred parameters are materialised by one dummy forward on the
+        block's device, so an initialized-only block exports cleanly."""
+        from ... import ndarray as _nd
+
+        def _raw(param):
+            try:
+                return param.data()._data
+            except DeferredInitializationError:
+                ctx = self.embed.weight.data().context
+                with torch.no_grad():
+                    self(_nd.zeros((1, 2), ctx=ctx))
+                return param.data()._data
+
+        layers = []
+        for cell in self.blocks._children.values():
+            ffn = list(cell.ffn._children.values())
+            layers.append({
+                "ln1_g": _raw(cell.ln1.gamma),
+                "ln1_b": _raw(cell.ln1.beta),
+                "wq": _raw(cell.attn.q_proj.weight),
+                "wk": _raw(cell.attn.k_proj.weight),
+                "wv": _raw(cell.attn.v_proj.weight),
+                "wo": _raw(cell.attn.out_proj.weight),
+                "ln2_g": _raw(cell.ln2.gamma),
+                "ln2_b": _raw(cell.ln2.beta),
+                "w1": _raw(ffn[0].weight), "b1": _raw(ffn[0].bias),
+                "w2": _raw(ffn[1].weight), "b2": _raw(ffn[1].bias),
+            })
+        params = {
+            "embed": _raw(self.embed.weight),
+            "pos_embed": _raw(self.pos_embed.weight),
+            "layers": layers,
+            "ln_f_g": _raw(self.ln_f.gamma),
+            "ln_f_b": _raw(self.ln_f.beta),
+            "head_w": _raw(self.head.weight),
+            "head_b": _raw(self.head.bias),
+        }
+        config = {
+            "vocab_size": self._vocab_size,
+            "units": self._units,
+            "hidden_size": self._hidden_size,
+            "num_layers": self._num_layers,
+            "num_heads": self._num_heads,
+            "num_kv_heads": self._num_kv_heads,
+            "max_len": self._max_len,
+        }
+        return {"config": config, "params": params}

@@ -22,8 +22,10 @@ every ``period_steps`` batches (captured before the next batch is
 fetched, so the cursor points past the trained batch), every
 ``period_epochs`` epochs (the final one blocking), and, with
 ``MXNET_CKPT_ON_SIGTERM``, one synchronous save at the first safe point
-after a SIGTERM, then exit 143.  The JAX package's supervised runtime
-(``elastic=True``, ``fault/elastic.py``) is not ported yet and raises.
+after a SIGTERM, then exit 143.  ``fit(elastic=True)`` runs the loop
+under ``fault.elastic``'s supervisor: a recoverable failure (an
+infrastructure error, an injected fault, the SIGTERM exit 143) restores
+the newest checkpoint and re-enters, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -183,14 +185,33 @@ class BaseModule:
 
         ``checkpoint_manager``: a ``checkpoint.CheckpointManager`` for
         preemption-safe periodic saves (see the module docstring); None
-        with ``MXNET_CKPT_DIR`` set uses the process-default manager."""
+        with ``MXNET_CKPT_DIR`` set uses the process-default manager.
+
+        ``elastic=True`` runs the loop under
+        :class:`~mxnet_tpu_torch.fault.ElasticSupervisor`: recoverable
+        failures (infrastructure errors, injected faults, the SIGTERM
+        exit-143 preemption path) restore the newest checkpoint —
+        params, optimizer, RNG, iterator cursor — and re-enter with
+        exponential backoff, up to ``MXNET_FAULT_RETRIES`` times; a
+        checkpoint manager is then required."""
         if num_epoch is None:
             raise ValueError("please specify number of epochs")
         if elastic:
-            raise MXNetError(
-                "fit(elastic=True) needs the supervised training runtime "
-                "(fault/elastic.py), which mxnet_tpu_torch does not port "
-                "yet")
+            from ..fault.elastic import elastic_fit
+            return elastic_fit(
+                self, train_data, checkpoint_manager=checkpoint_manager,
+                eval_data=eval_data, eval_metric=eval_metric,
+                epoch_end_callback=epoch_end_callback,
+                batch_end_callback=batch_end_callback, kvstore=kvstore,
+                optimizer=optimizer, optimizer_params=optimizer_params,
+                eval_end_callback=eval_end_callback,
+                eval_batch_end_callback=eval_batch_end_callback,
+                initializer=initializer, arg_params=arg_params,
+                aux_params=aux_params, allow_missing=allow_missing,
+                force_rebind=force_rebind, force_init=force_init,
+                begin_epoch=begin_epoch, num_epoch=num_epoch,
+                validation_metric=validation_metric, monitor=monitor,
+                sparse_row_id_fn=sparse_row_id_fn)
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,
                   for_training=True, force_rebind=force_rebind)

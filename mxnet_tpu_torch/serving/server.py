@@ -50,13 +50,23 @@ Multi-tenant hardening, as in the JAX package:
   and run its first forward, where cuDNN picks its engines, before live
   traffic; each plan is timed in ``mxnet_serving_warmup_seconds``.
 
-Generative serving (``add_generative_model``, ``infer_stream``,
-``set_slot_quota``, ``warmup_generative``), the sanitizer hooks and the
-tuning database's ``stats()`` block come with later slices.
+- **generative serving** — ``add_generative_model`` registers a
+  ``TransformerLM`` (or its ``generative_spec()``) with a decode slot
+  pool on the server's device; ``infer_stream`` returns a
+  ``TokenStream`` fed by the model's continuous-batching
+  ``DecodeScheduler`` (``serving/generate/``), with ``set_slot_quota``
+  and ``warmup_generative``; its prefill grid cells share this server's
+  executor cache and warmup manifest, its loops stop with the batcher,
+  and ``stats()["generative"]`` holds each scheduler's snapshot.
 
-Threading: ONE batcher thread issues all device work, on the server's
-device and its current stream; ``asnumpy()`` of the outputs is the
-synchronisation point.  Client threads only enqueue and wait.
+The sanitizer hooks and the tuning database's ``stats()`` block (with
+``plan_spec``, the analysis feed) come with later slices.
+
+Threading: ONE batcher thread issues all one-shot device work, on the
+server's device and its current stream; ``asnumpy()`` of the outputs is
+the synchronisation point.  Each generative model's decode thread issues
+its own, on the same device and stream.  Client threads only enqueue
+and wait.
 """
 from __future__ import annotations
 
@@ -266,6 +276,8 @@ class ModelServer:
         self._stopping = False
         self._drain = True
         self._thread = None
+        # -- generative serving (serving/generate/) ------------------------
+        self._generative = {}           # guarded-by: _cv — name -> sched
         # -- admission control / shedding policy ---------------------------
         self._model_quotas = {}         # guarded-by: _cv — name -> dict
         self._default_model_queue = int(
@@ -709,6 +721,12 @@ class ModelServer:
             self._drain = bool(drain)
             self._cv.notify_all()
             t = self._thread
+            gens = list(self._generative.values())
+        # the generative decode loops stop alongside the batcher; their
+        # pending and running streams settle terminally (failed), so the
+        # per-tenant ledgers balance across a stop
+        for sched in gens:
+            sched.stop(drain=drain)
         if t is not None:
             t.join(timeout=60.0)
         with self._cv:
@@ -1031,6 +1049,106 @@ class ModelServer:
             if recorded:
                 bucket_list = recorded
         return self._warm([(entry, bucket_list)], timeout_ms)
+
+    # -- generative serving (serving/generate/) -----------------------------
+
+    def add_generative_model(self, name, spec, slots=None, max_len=None,
+                             prefill_batch=None, eos_id=None,
+                             queue_depth=None, brownout_ms=None,
+                             version=1):
+        """Register a generative deployment: ``spec`` is a
+        ``TransformerLM`` block (or its ``generative_spec()`` export),
+        run on this server's device.  Allocates the slot pool's KV-cache
+        up front and wires the model's prefill grid through THIS server's
+        executor cache and warmup manifest — generative and one-shot
+        tenants share one LRU, one quota policy, one miss counter, one
+        restart working set.  Returns the model's ``DecodeScheduler``.
+
+        Call :meth:`warmup_generative` (or let the first requests pay
+        the binds) before latency-sensitive traffic."""
+        from .generate import DecodeScheduler, GenerativeModel
+        if max_len is None:
+            knob = int(config.get("MXNET_SERVING_GEN_MAX_LEN"))
+            max_len = knob if knob > 0 else None
+        gm = GenerativeModel(name, spec, max_len=max_len,
+                             prefill_batch=prefill_batch, eos_id=eos_id,
+                             version=version, ctx=self.device)
+        sched = DecodeScheduler(gm, self.cache, slots=slots,
+                                queue_depth=queue_depth,
+                                brownout_ms=brownout_ms)
+        with self._cv:
+            if name in self._generative:
+                raise ValueError(
+                    "generative model %r already registered; stop it "
+                    "first (one scheduler owns one slot pool)" % name)
+            if self._stopping:
+                raise ServerClosed("server is stopping")
+            self._generative[name] = sched
+        return sched
+
+    def _gen_sched(self, name):
+        with self._cv:
+            sched = self._generative.get(name)
+        if sched is None:
+            raise ModelNotFound(
+                "no generative model %r (add_generative_model first; "
+                "one-shot models use infer/infer_async)" % name)
+        return sched
+
+    def infer_stream(self, name, prompt, max_new_tokens=None,
+                     priority=None, tenant="default", timeout_ms=None):
+        """Submit one generation; returns a ``TokenStream`` yielding
+        token ids as decode steps commit them (``for tok in stream``)
+        or collecting the sequence with ``stream.result()``.
+
+        ``priority`` uses the server's classes (0 = most important;
+        higher classes shed first under brownout), ``tenant`` scopes the
+        exactly-once ledger and any decode-slot quota, and
+        ``timeout_ms`` is an end-to-end deadline — a generation that
+        overruns it mid-decode frees its slot and its stream ends
+        ``expired`` with ``DeadlineExceeded``."""
+        return self._gen_sched(name).submit(
+            prompt, max_new_tokens=max_new_tokens, priority=priority,
+            tenant=tenant, timeout_ms=timeout_ms)
+
+    def set_slot_quota(self, name, tenant, slots):
+        """Cap ``tenant``'s concurrently held decode slots on generative
+        model ``name`` — the slot-pool member of the quota family
+        (queue/inflight/cache quotas: :meth:`set_quota`)."""
+        self._gen_sched(name).set_slot_quota(tenant, slots)
+
+    def warmup_generative(self, name=None, from_manifest=False):
+        """Bind and run every generative program before traffic: the
+        prefill (batch, length) grid — through the executor cache, so
+        cells land in the warmup manifest — plus one admit per length
+        rung and the decode step, on a scratch state (live slots are
+        left alone).  ``from_manifest=True`` narrows prefill to the grid
+        cells a previous run recorded (``WarmupManifest.grid_for``), the
+        generative analogue of :meth:`warmup_from_manifest`.  Returns
+        ``{name: cells warmed}``."""
+        with self._cv:
+            items = {n: s for n, s in sorted(self._generative.items())
+                     if name is None or n == name}
+        if name is not None and not items:
+            raise ModelNotFound("no generative model %r" % name)
+        warmed = {}
+        for n, sched in items.items():
+            grid = None
+            if from_manifest and self.manifest is not None:
+                recorded = self.manifest.grid_for(
+                    n, sched.model.symbol_sha, backend=self._backend)
+                on_grid = [c for c in recorded
+                           if c in set(sched.model.grid())]
+                dropped = sorted(set(recorded) - set(on_grid))
+                if dropped:
+                    import logging
+                    logging.warning(
+                        "manifest grid cells %s for generative model "
+                        "%r are off the current grid (ladder drift); "
+                        "skipping them", dropped, n)
+                grid = on_grid or None
+            warmed[n] = sched.warmup(grid=grid)
+        return warmed
 
     def _warm(self, plan, timeout_ms):
         """Execute a warmup plan of (entry, buckets) pairs: bind each
@@ -1521,4 +1639,9 @@ class ModelServer:
             "entries": len(self.manifest),
         } if self.manifest is not None else None
         snap["models"] = self.registry.describe()
+        with self._cv:
+            gens = dict(self._generative)
+        if gens:
+            snap["generative"] = {n: s.stats()
+                                  for n, s in sorted(gens.items())}
         return snap

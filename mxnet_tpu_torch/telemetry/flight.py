@@ -1,9 +1,9 @@
 """Incident flight recorder — the serving stack's black box.
 
 Counterpart of ``mxnet_tpu/telemetry/flight.py``, taken over whole; the
-port records into it where its engine orphans a worker's exception
-(the control-plane events of brownout, canaries, quotas, faults and
-elastic retries come with the slices that port those features).
+port records into it at the same control-plane sites: the engine's
+orphaned worker exceptions, brownout, canaries, quotas, faults and
+elastic retries.
 
 Counters say *how often* the control plane acted; the flight recorder
 says *in what order, with what inputs*.  A bounded ring holds the last

@@ -11,7 +11,10 @@ methods) take the JAX package's parameter names, but for the gaps of
 A module's public names: its names without a leading underscore that it
 defines, lists in ``__all__`` or holds as a submodule (for a package,
 anything defined inside the package); at the top level, every name but
-modules from outside the package.
+modules from outside the package.  A name that a module lists in
+``__all__`` and resolves only through its module ``__getattr__`` (a
+lazy export, such as ``fault``'s elastic runtime) counts too, in both
+packages.
 """
 import importlib
 import inspect
@@ -36,20 +39,18 @@ MODULES = ("", "optimizer", "metric", "initializer", "lr_scheduler",
            "gluon.model_zoo.vision", "gluon.model_zoo.model_store",
            "serving", "telemetry", "telemetry.tracing", "profiler",
            "gluon.rnn", "gluon.contrib", "gluon.contrib.rnn",
-           "checkpoint", "fault", "compile_cache")
+           "checkpoint", "fault", "compile_cache", "serving.generate",
+           "gluon.contrib.transformer")
 
 DEFERRED = {
-    # queue 1 item 5: generative serving and the multi-replica front door
-    "queue 1 item 5": {
-        "serving": {"DecodeScheduler", "DecodeState", "FleetFrontDoor",
-                    "GenerativeModel", "ReplicaHandle", "TokenStream",
-                    "decode_error", "encode_error", "fleet", "generate",
-                    "local_replica", "pick_grid_bucket", "prefill_grid",
-                    "replica_loop", "seq_buckets", "spawn_replica"},
-    },
     # queue 1 item 7: multi-GPU (with the trainer's checkpoint snapshot
-    # and the reshard check on restore)
+    # and the reshard check on restore, the multi-replica front door and
+    # the elastic loop of the multi-device trainer)
     "queue 1 item 7": {
+        "serving": {"FleetFrontDoor", "ReplicaHandle", "decode_error",
+                    "encode_error", "fleet", "local_replica",
+                    "replica_loop", "spawn_replica"},
+        "fault": {"run_elastic"},
         "kvstore": {"KVStoreDist", "KVStoreDistAsync", "is_scheduler_node",
                     "is_server_node", "is_worker_node"},
         "": {"kvstore_server", "gradient_compression"},
@@ -78,22 +79,34 @@ DEFERRED = {
     },
 }
 
-# the names the last five slices ported, none of which may be deferred:
+# the names the last six slices ported, none of which may be deferred:
 # the training-loop API, the data pipeline and the module family,
 # gluon's image path, telemetry, the profiler and gluon's recurrent
-# layers, then the train-to-serve loop
+# layers, the train-to-serve loop, then generative serving and the
+# elastic fit
 PORTED = {
+    "serving.generate": {"DecodeScheduler", "DecodeState",
+                         "GenerativeModel", "TokenStream", "kv_cache",
+                         "model", "scheduler", "stream"},
+    "gluon.contrib.transformer": {"cached_attention_step",
+                                  "causal_attention", "TransformerLM",
+                                  "MultiHeadAttention",
+                                  "TransformerEncoderCell"},
     "checkpoint": {"AsyncCheckpointer", "CheckpointError",
                    "CheckpointManager", "CheckpointStore", "IntegrityError",
                    "RetentionPolicy", "TrainState", "capture_iter_state",
                    "default_manager", "restore_iter_state",
                    "sigterm_flag_scope", "write_checkpoint"},
     "fault": {"BackoffPolicy", "FaultPlan", "FaultInjected", "Reorder",
-              "install", "uninstall", "installed", "active_plan", "hooks"},
+              "install", "uninstall", "installed", "active_plan", "hooks",
+              "elastic", "ElasticError", "ElasticSupervisor",
+              "ProcessSupervisor"},
     "compile_cache": {"ensure_initialized", "configure", "enabled",
                       "cache_dir", "stats", "sweep", "reset"},
     "serving": {"CanaryState", "CheckpointWatcher", "WarmupManifest",
-                "canary", "manifest"},
+                "canary", "manifest", "DecodeScheduler", "DecodeState",
+                "GenerativeModel", "TokenStream", "generate",
+                "seq_buckets", "prefill_grid", "pick_grid_bucket"},
     "gluon": {"Constant", "SymbolBlock", "clip_global_norm", "data",
               "model_zoo", "split_and_load", "split_data", "utils", "rnn",
               "contrib"},
@@ -184,7 +197,7 @@ DEFERRED_PARAMS = {
     },
 }
 
-# the port's modules that the last five slices added or extended
+# the port's modules that the last six slices added or extended
 NEW_MODULES = ("mxnet_tpu_torch.optimizer", "mxnet_tpu_torch.metric",
                "mxnet_tpu_torch.initializer", "mxnet_tpu_torch.lr_scheduler",
                "mxnet_tpu_torch.callback", "mxnet_tpu_torch.engine",
@@ -228,18 +241,41 @@ NEW_MODULES = ("mxnet_tpu_torch.optimizer", "mxnet_tpu_torch.metric",
                "mxnet_tpu_torch.serving.canary",
                "mxnet_tpu_torch.serving.manifest",
                "mxnet_tpu_torch.serving.registry",
-               "mxnet_tpu_torch.serving.cache", "mxnet_tpu_torch.ops._build")
+               "mxnet_tpu_torch.serving.cache", "mxnet_tpu_torch.ops._build",
+               "mxnet_tpu_torch.serving.bucketing",
+               "mxnet_tpu_torch.serving.generate",
+               "mxnet_tpu_torch.serving.generate.kv_cache",
+               "mxnet_tpu_torch.serving.generate.model",
+               "mxnet_tpu_torch.serving.generate.scheduler",
+               "mxnet_tpu_torch.serving.generate.stream",
+               "mxnet_tpu_torch.gluon.contrib.transformer",
+               "mxnet_tpu_torch.convert", "mxnet_tpu_torch.fault.elastic")
 
 
 def _module(root, sub):
     return importlib.import_module(root + ("." + sub if sub else ""))
 
 
+def lazy_names(mod):
+    """The names of ``__all__`` that ``mod`` resolves only through its
+    module ``__getattr__``: absent from ``dir(mod)`` until asked for."""
+    listed = [n for n in getattr(mod, "__all__", ())
+              if not n.startswith("_") and n not in dir(mod)]
+    out = set()
+    for name in listed:
+        try:
+            getattr(mod, name)
+        except AttributeError:
+            continue
+        out.add(name)
+    return out
+
+
 def public_names(mod):
     is_package = hasattr(mod, "__path__")
     listed = set(getattr(mod, "__all__", ()))
     out = set()
-    for name in dir(mod):
+    for name in sorted(set(dir(mod)) | lazy_names(mod)):
         if name.startswith("_"):
             continue
         obj = getattr(mod, name)
@@ -263,10 +299,13 @@ def _deferred(sub):
 def names_after_import():
     """``{module: (the JAX package's public names, the port's names)}``
     right after importing both packages."""
-    return {sub: (sorted(public_names(_module("mxnet_tpu", sub))),
-                  sorted(n for n in dir(_module("mxnet_tpu_torch", sub))
-                         if not n.startswith("_")))
-            for sub in MODULES}
+    out = {}
+    for sub in MODULES:
+        port = _module("mxnet_tpu_torch", sub)
+        out[sub] = (sorted(public_names(_module("mxnet_tpu", sub))),
+                    sorted((set(dir(port)) | lazy_names(port))
+                           - {n for n in dir(port) if n.startswith("_")}))
+    return out
 
 
 @pytest.fixture(scope="module")

@@ -756,13 +756,6 @@ def test_fit_env_knob_builds_default_manager(tmp_path, monkeypatch):
     assert checkpoint.default_manager() is mgr
 
 
-def test_fit_elastic_raises_naming_the_runtime():
-    X, y = _blob_data()
-    with pytest.raises(tmx.MXNetError, match="fault/elastic"):
-        _fit(tmx.mod.Module(_net(tmx), context=CPU), _iter(X, y),
-             num_epoch=1, elastic=True)
-
-
 def test_sigterm_triggers_final_save(tmp_path):
     X, y = _blob_data()
     mgr = CheckpointManager(directory=str(tmp_path), async_save=False,

@@ -8,8 +8,8 @@ the same plan-armed seed chain, and driving the same scenario through
 both packages (kvstore push/pull, ``nd.save``, the checkpoint store, the
 async writer, ``Module.fit``'s steps, a prefetching iterator) hits the
 same sites in the same order.  Then the JAX package's own cases
-(``tests/test_fault.py``, without the elastic runtime, which the port
-does not have yet) on the port: the one-boolean fast path, torn writes
+(``tests/test_fault.py``; the elastic runtime's are
+``tests/test_torch_elastic.py``) on the port: the one-boolean fast path, torn writes
 and ENOSPC over ``atomic_write``, the checkpoint store's fault sites,
 the shared backoff's consumers (the checkpoint watcher, serving's
 retry hints and submit retries), the kvstore and prefetch sites, and a
