@@ -7591,6 +7591,1063 @@ def generate_phase(mx, ck, ctx, sym, smi, workdir_parent=None):
 
 
 
+# ---------------------------------------------------------------------------
+# phase 22: data-parallel training across GPUs
+# ---------------------------------------------------------------------------
+# rank processes: each joins a FileStore world, runs one function and
+# pickles its return value; the parent gives the whole world this long
+PAR_RANK_TIMEOUT_S = 600
+
+
+def run_ranks(target, world, args=(), workdir=None, ctx="cpu",
+              timeout=PAR_RANK_TIMEOUT_S, threads=None, env=None):
+    """Run ``target`` (``"module:function"``, importable from the checkout
+    or the tests) in ``world`` new processes, rank r calling
+    ``function(rank, world, init_method, ctx, *args)`` with a
+    ``file://`` store under ``workdir``; returns their return values in
+    rank order.  Raises, naming the rank and the end of its output, if
+    one exits non-zero or the world outlives ``timeout``; every process
+    is gone when it returns or raises."""
+    import pickle
+    import tempfile
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.TemporaryDirectory(prefix=".chip_smoke_ranks_",
+                                      dir=workdir or here)
+    init_method = "file://" + os.path.join(tmp.name, "store")
+    with open(os.path.join(tmp.name, "args.pkl"), "wb") as f:
+        pickle.dump(tuple(args), f)
+    mod, fn = target.split(":")
+    boot = ("import sys, pickle, importlib, faulthandler\n"
+            "faulthandler.enable()\n"
+            "sys.path[:0] = %r\n"
+            "d = %r\n"
+            "args = pickle.load(open(d + '/args.pkl', 'rb'))\n"
+            "out = getattr(importlib.import_module(%r), %r)(\n"
+            "    int(sys.argv[1]), %d, %r, %r, *args)\n"
+            "with open(d + '/out%%s.pkl' %% sys.argv[1], 'wb') as f:\n"
+            "    pickle.dump(out, f)\n"
+            % ([here, os.path.join(here, "tests")], tmp.name, mod, fn,
+               world, init_method, ctx))
+    penv = dict(os.environ, **(env or {}))
+    if threads:
+        penv["OMP_NUM_THREADS"] = str(threads)
+    procs, logs = [], []
+    try:
+        for r in range(world):
+            log = open(os.path.join(tmp.name, "rank%d.log" % r), "w+")
+            logs.append(log)
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", boot, str(r)], stdout=log,
+                stderr=subprocess.STDOUT, env=penv, cwd=here))
+        deadline = time.monotonic() + timeout
+        live = list(range(world))
+        failed = None
+        while live and failed is None:
+            for r in list(live):
+                rc = procs[r].poll()
+                if rc is None:
+                    continue
+                live.remove(r)
+                if rc != 0:
+                    failed = (r, "exited %d" % rc)
+            if time.monotonic() > deadline and live:
+                failed = (live[0], "outlived %d s" % timeout)
+            time.sleep(0.05)
+        if failed is not None:
+            r, why = failed
+            logs[r].seek(0)
+            raise AssertionError("rank %d of %d (%s) %s:\n%s" % (
+                r, world, target, why, logs[r].read()[-6000:]))
+        out = []
+        for r in range(world):
+            with open(os.path.join(tmp.name, "out%d.pkl" % r), "rb") as f:
+                out.append(pickle.load(f))
+        return out
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for log in logs:
+            log.close()
+        tmp.cleanup()
+
+
+def par_join(rank, world, init_method, ctx):
+    """Join the world of :func:`run_ranks` as ``rank``: gloo on the CPU,
+    NCCL on ``cuda:rank`` on the card.  Returns the package and the
+    rank's context."""
+    import mxnet_tpu_torch as mx
+    on = mx.cpu() if ctx == "cpu" else mx.gpu(rank)
+    with on:
+        mx.parallel.init_distributed(init_method=init_method,
+                                     num_processes=world, process_id=rank,
+                                     ctx=on, timeout=120)
+    return mx, on
+
+
+def par_net(mx, kind="mlp", seed=42, ctx=None):
+    """A small deterministic gluon net built the same way by either
+    package (``mx`` is ``mxnet_tpu`` or ``mxnet_tpu_torch``): ``mlp`` is
+    Dense(16, relu) -> Dense(8) on 12 features, ``bn`` puts a BatchNorm
+    between them; values from ``seed``, running variances positive."""
+    nn = mx.gluon.nn
+    with ctx or mx.cpu():
+        with mx.name.NameManager():
+            net = nn.HybridSequential()
+            if kind == "mlp":
+                net.add(nn.Dense(16, in_units=12, activation="relu"),
+                        nn.Dense(8, in_units=16))
+            else:
+                net.add(nn.Dense(16, in_units=12),
+                        nn.BatchNorm(in_channels=16),
+                        nn.Activation("relu"), nn.Dense(8, in_units=16))
+        net.initialize(mx.init.Zero())
+        r = np.random.RandomState(seed)
+        for name, p in sorted(net.collect_params().items()):
+            v = (r.randn(*p.shape) * 0.2).astype(np.float32)
+            if name.endswith("running_var"):
+                v = np.abs(v) + np.float32(1)
+            p.set_data(mx.nd.array(v))
+    return net
+
+
+def par_data(batch=16, classes=8, seed=0):
+    rng = np.random.RandomState(seed)
+    return (rng.rand(batch, 12).astype(np.float32),
+            rng.randint(0, classes, batch).astype(np.float32))
+
+
+def par_case_trainer(mx, case, ctx=None, devices=None):
+    """The ``ParallelTrainer`` of one case dict (net, optimizer and its
+    params, zero, width, compression, dtype, bucket caps) on ``devices``:
+    by default the first ``width`` ranks (the tests give the JAX package
+    its first ``width`` devices)."""
+    net = par_net(mx, case.get("net", "mlp"), ctx=ctx)
+    mesh = mx.parallel.make_mesh(devices=list(range(case["width"]))
+                                 if devices is None else devices)
+    return mx.parallel.ParallelTrainer(
+        net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), case["opt"],
+        dict(case["opt_params"]), mesh=mesh, zero=case["zero"],
+        compression=case.get("compression"),
+        compression_params=case.get("compression_params"),
+        dtype=case.get("dtype"),
+        bucket_bytes=case.get("bucket_bytes", 256),
+        first_bucket_bytes=case.get("first_bucket_bytes", 128))
+
+
+def par_case_run(mx, trainer, case):
+    """Step ``trainer`` ``case["steps"]`` times on :func:`par_data`'s
+    global batch; returns the losses, parameters, optimizer-state bytes,
+    wire model and plan (None where this rank is outside the mesh)."""
+    x, y = par_data(case.get("batch", 16))
+    losses = []
+    for _ in range(case.get("steps", 3)):
+        loss = trainer.step(mx.nd.array(x), mx.nd.array(y))
+        if loss is None:
+            return None
+        losses.append(float(loss.asnumpy()))
+    return {"losses": losses,
+            "params": {k: np.array(v.detach().cpu().numpy()
+                                   if isinstance(v, torch.Tensor) else v)
+                       for k, v in trainer.params.items()},
+            "bytes": trainer.optimizer_state_bytes(),
+            "comm": trainer.comm_stats(), "plan": trainer.plan_spec()}
+
+
+def drill_trainer(mx, width, zero=2, ctx=None):
+    """The JAX package's drill trainer (``mxnet_tpu/fault/drill.py``
+    ``_build_trainer``) in the port: three Dense layers under the prefix
+    ``net_``, values from seed 42, SGD with momentum, on the first
+    ``width`` ranks."""
+    nn = mx.gluon.nn
+    with ctx or mx.cpu():
+        mx.random.seed(0)
+        net = nn.HybridSequential(prefix="net_")
+        with net.name_scope():
+            net.add(nn.Dense(32, in_units=16, activation="relu"),
+                    nn.Dense(16, in_units=32, activation="relu"),
+                    nn.Dense(4, in_units=16))
+        net.initialize(mx.init.Zero())
+        r = np.random.RandomState(42)
+        for _, p in sorted(net.collect_params().items()):
+            p.set_data(mx.nd.array((r.randn(*p.shape) * 0.2).astype(
+                np.float32)))
+        mesh = mx.parallel.make_mesh(dp=width, devices=list(range(width)))
+        return mx.parallel.ParallelTrainer(
+            net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "sgd",
+            {"learning_rate": 0.1, "momentum": 0.9}, mesh=mesh, zero=zero,
+            bucket_bytes=2048)
+
+
+def drill_data(mx, ctx=None, batch=16):
+    """The drill's batches, a pure function of the step (the JAX
+    package's ``_drill_data_fn``)."""
+    rng = np.random.RandomState(7)
+    x = rng.randn(256, 16).astype(np.float32)
+    y = rng.randint(0, 4, 256).astype(np.float32)
+
+    def data_fn(step):
+        i = (step * batch) % 256
+        with ctx or mx.cpu():
+            return mx.nd.array(x[i:i + batch]), mx.nd.array(y[i:i + batch])
+
+    return data_fn
+
+
+def elastic_width_rank(rank, world, init_method, ctx, directory, widths,
+                       fault_step, steps):
+    """``run_elastic`` over the drill trainer on ``widths[restart]`` of the
+    world's ranks (sub-meshes of one world), an error injected at
+    ``elastic.step`` ``fault_step``; returns the curve and each restore's
+    ``(step, verdict)``."""
+    mx, on = par_join(rank, world, init_method, ctx)
+    from mxnet_tpu_torch import fault
+    from mxnet_tpu_torch.fault.backoff import BackoffPolicy
+    from mxnet_tpu_torch.fault.elastic import ElasticSupervisor, run_elastic
+    try:
+        restores = []
+        plan = {"rules": [{"site": "elastic.step", "kind": "raise",
+                           "exc": "RuntimeError", "step": fault_step,
+                           "times": 1}]}
+        with on, fault.active_plan(plan):
+            curve = run_elastic(
+                lambda r: drill_trainer(mx, widths[min(r, len(widths) - 1)],
+                                        ctx=on),
+                drill_data(mx, on), steps, directory,
+                supervisor=ElasticSupervisor(retries=2, backoff=BackoffPolicy(
+                    retries=2, base_s=0.001, max_s=0.002, jitter=0.0)),
+                on_restore=lambda s, v: restores.append((s, v)))
+        return {"curve": curve, "restores": restores}
+    finally:
+        mx.parallel.distributed.shutdown()
+
+
+def reshard_rank(rank, world, init_method, ctx, steps, more):
+    """Resume across mesh width and ZeRO stage in one world: the drill
+    net with Adam trained ``steps`` at width 4 zero=2, its state loaded
+    at width 2 zero=1 (bitwise), then ``more`` steps of each; the
+    restore verdicts of that state against other trainers.  Rank 0's
+    record."""
+    mx, on = par_join(rank, world, init_method, ctx)
+    from mxnet_tpu_torch.checkpoint import (ParallelTrainerState,
+                                            check_restore_compat)
+    try:
+        with on:
+            x, y = par_data()
+            a = par_case_trainer(mx, {"opt": "adam", "opt_params": {
+                "learning_rate": 0.05}, "zero": 2, "width": 4}, ctx=on)
+            for _ in range(steps):
+                a.step(mx.nd.array(x), mx.nd.array(y))
+            sd = a.state_dict()
+            b = par_case_trainer(mx, {"opt": "adam", "opt_params": {
+                "learning_rate": 0.05}, "zero": 1, "width": 2}, ctx=on)
+            b.load_state_dict(sd)
+            back = b.state_dict() if b.mesh.is_member else None
+            la = [a.step(mx.nd.array(x), mx.nd.array(y))
+                  for _ in range(more)]
+            lb = [b.step(mx.nd.array(x), mx.nd.array(y))
+                  for _ in range(more)]
+            state = ParallelTrainerState.capture(a)
+            verdicts = {}
+            for key, case in (
+                    ("w2-z1-adam", {"opt": "adam", "opt_params": {},
+                                    "zero": 1, "width": 2}),
+                    ("w4-z0-sgd", {"opt": "sgd", "opt_params": {
+                        "momentum": 0.9}, "zero": 0, "width": 4}),
+                    ("w2-z2-adam-bn", {"net": "bn", "opt": "adam",
+                                       "opt_params": {}, "zero": 2,
+                                       "width": 2})):
+                verdicts[key] = check_restore_compat(
+                    state, par_case_trainer(mx, case, ctx=on))
+        if rank != 0:
+            return None
+        return {"state": sd, "back": back, "verdicts": verdicts,
+                "losses_a": [float(v.asnumpy()) for v in la],
+                "losses_b": [float(v.asnumpy()) for v in lb]}
+    finally:
+        mx.parallel.distributed.shutdown()
+
+
+def dist_kv_rank(rank, world, init_method, ctx, hb_dir):
+    """The JAX package's two-worker ``dist_sync`` assertions
+    (``tests/test_dist_kvstore.py``'s worker) on one rank: rank 0's value
+    broadcast at ``init``, pushes summed over the ranks, a per-device list
+    merged first, an updater on the summed gradient, ``barrier``, and no
+    dead node while every worker heartbeats.  Returns what it saw."""
+    os.environ["MXNET_KVSTORE_HEARTBEAT_DIR"] = hb_dir
+    mx, on = par_join(rank, world, init_method, ctx)
+    try:
+        with on:
+            nd = mx.nd
+            kv = mx.kv.create("dist_sync")
+            seen = {"rank": kv.rank, "num_workers": kv.num_workers,
+                    "type": type(kv).__name__}
+            kv.init("w", nd.array(np.full((4, 3), float(rank + 1),
+                                          np.float32)))
+            out = nd.zeros((4, 3))
+            kv.pull("w", out=out)
+            seen["init"] = out.asnumpy()
+            kv.push("w", nd.array(np.full((4, 3), float(rank + 1),
+                                          np.float32)))
+            kv.pull("w", out=out)
+            seen["push"] = out.asnumpy()
+            kv.push("w", [nd.ones((4, 3)), nd.ones((4, 3))])
+            kv.pull("w", out=out)
+            seen["list_push"] = out.asnumpy()
+            kv._set_updater(lambda key, grad, weight:
+                            weight.__isub__(0.1 * grad))
+            kv.init("u", nd.zeros((2, 2)))
+            kv.push("u", nd.ones((2, 2)) * (rank + 1))
+            o2 = nd.zeros((2, 2))
+            kv.pull("u", out=o2)
+            seen["updater"] = o2.asnumpy()
+            kv.barrier()
+            seen["dead"] = kv.get_num_dead_node(timeout_sec=300)
+            return seen
+    finally:
+        mx.parallel.distributed.shutdown()
+
+
+def dist_fit_rank(rank, world, init_method, ctx, batch, steps, compression):
+    """``Module.fit`` of an MLP under ``kvstore="dist_sync"`` on this
+    rank's rows of each global batch; rank 0 also fits the whole global
+    batches with ``kvstore="device"``.  Returns rank 0's weights of both,
+    the optimizer's ``rescale_grad`` and every rank's digest."""
+    mx, on = par_join(rank, world, init_method, ctx)
+    import hashlib
+    try:
+        def fit(kvstore, r, w):
+            rng = np.random.RandomState(5)
+            x = rng.randn(batch * steps, 10).astype(np.float32)
+            y = rng.randint(0, 4, batch * steps).astype(np.float32)
+            local = batch // w
+            idx = np.concatenate([np.arange(s * batch + r * local,
+                                            s * batch + (r + 1) * local)
+                                  for s in range(steps)])
+            data = mx.sym.Variable("data")
+            net = mx.sym.FullyConnected(data, num_hidden=16, name="fc1")
+            net = mx.sym.Activation(net, act_type="tanh", name="act")
+            net = mx.sym.FullyConnected(net, num_hidden=4, name="fc2")
+            net = mx.sym.SoftmaxOutput(net, name="softmax")
+            with on:
+                it = mx.io.NDArrayIter(x[idx], y[idx], batch_size=local)
+                mod = mx.mod.Module(net, context=on,
+                                    compression_params=compression)
+                mx.random.seed(3)
+                mod.fit(it, num_epoch=1, kvstore=kvstore, optimizer="sgd",
+                        optimizer_params={"learning_rate": 0.5,
+                                          "momentum": 0.9},
+                        initializer=mx.init.Xavier())
+                arg, _ = mod.get_params()
+            return ({k: v.asnumpy() for k, v in arg.items()},
+                    mod._optimizer.rescale_grad)
+
+        dist, rescale = fit("dist_sync", rank, world)
+        digest = hashlib.sha256(b"".join(
+            dist[k].tobytes() for k in sorted(dist))).hexdigest()
+        out = {"digest": digest, "rescale": rescale, "dist": dist}
+        if rank == 0:
+            out["device"], out["device_rescale"] = fit("device", 0, 1)
+        return out
+    finally:
+        mx.parallel.distributed.shutdown()
+
+
+def par_cases_rank(rank, world, init_method, ctx, cases):
+    """A rank's side of the CPU tests: every case of ``cases`` in turn
+    (each on the first ``width`` ranks of the world), the collective
+    calls of each counted; returns rank 0's results (None on the others)
+    and every rank's calls."""
+    mx, on = par_join(rank, world, init_method, ctx)
+    from mxnet_tpu_torch.parallel import collectives
+    try:
+        out = []
+        for case in cases:
+            collectives.reset_collective_calls()
+            with on:
+                tr = par_case_trainer(mx, case, ctx=on)
+                res = par_case_run(mx, tr, case)
+            if res is not None:
+                res["calls"] = collectives.collective_calls()
+                if case.get("state_dict"):
+                    res["state_dict"] = tr.state_dict()
+            out.append(res)
+        return out if rank == 0 else None
+    finally:
+        mx.parallel.distributed.shutdown()
+
+
+
+# (a): the sweep kernels on every 1/n shard of the LM's buckets
+PAR_SHARDS = (2, 4, 8)
+# (b): GPT-2 small through ParallelTrainer, Adam, zero=2, on a fixed batch
+PAR_ADAM = {"learning_rate": 1e-4}
+PAR_SGD = {"learning_rate": 1e-4}
+PAR_LM = {"warmup": 3, "timed": 10, "other": 2, "bf16": 3}
+# the same step from one state by another ZeRO stage, by the plain sweep or
+# by another world: the same fp32 arithmetic but for the order of the sums
+# that the collectives take (each within 1e-6 of the largest weight)
+PAR_TOL = 1e-6
+# bf16's first loss from the fp32 state against fp32's: bf16 keeps 8 bits
+# of each logit (2^-9 relative rounding), so the mean cross-entropy over
+# 8192 tokens moves by a few 2^-9 of its value; 2^-6 is the band
+PAR_BF16_TOL = 2 ** -6
+# (c): ResNet-50 Module.fit, dist_sync against device, fixed batches
+PAR_FIT = {"layers": LAYERS, "image": IMAGE, "batch": BATCH, "steps": 3}
+# (d): run_elastic of a small net, an error injected at one step
+PAR_ELASTIC = {"steps": 6, "fault": 3, "batch": 16,
+               "opt": {"learning_rate": 0.1, "momentum": 0.9}}
+PAR_KERNELS = ("sgd_sweep", "sgd_mom_sweep", "adam_sweep", "layernorm_fwd",
+               "layernorm_bwd", "flash_attention_fwd",
+               "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+               "softmax_lastaxis")
+
+
+def lm_initialized(mx, ctx, config=GPT2_SMALL):
+    """:func:`transformer_lm` after one forward of one token, which gives
+    its deferred parameters their shapes (a trainer takes them as they
+    are)."""
+    lm = transformer_lm(mx, ctx, config)
+    lm(mx.nd.array(np.zeros((1, 1), np.float32), ctx=ctx))
+    return lm
+
+
+def lm_names_shapes(mx, ctx, config=GPT2_SMALL):
+    """``(names, shapes)`` of the LM's trainable parameters in
+    registration order: what ``ParallelTrainer`` buckets."""
+    lm = lm_initialized(mx, ctx, config)
+    items = [(n, tuple(p.shape)) for n, p in lm.collect_params().items()
+             if p.grad_req != "null"]
+    return [n for n, _s in items], [s for _n, s in items]
+
+
+def shard_sweeps(ck, dev, bw, flops, names, shapes, widths=PAR_SHARDS):
+    """Phase 22 (a): for each n of ``widths``, the LM's padded fp32
+    buckets as ``ParallelTrainer`` plans them (its default caps,
+    ``pad_multiple=n``), each swept by K1a, K1b and K4 on its n shards one
+    after another, bitwise against one launch over the whole bucket and
+    against the plain mirror, the padded tails staying zero.  Each shard
+    size is timed (CUDA events) beside its bound.  Returns ``{kernel:
+    record}``."""
+    from mxnet_tpu_torch import config
+    from mxnet_tpu_torch.parallel.collectives import build_bucket_plan
+    cap = config.get("MXNET_PARALLEL_BUCKET_BYTES")
+    first = config.get("MXNET_PARALLEL_BUCKET_FIRST_BYTES")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    out = {}
+    for name, knum, n_slots, _line, ops in SWEEPS:
+        fn, ref = getattr(ck, name), getattr(ck, name + "_ref")
+        h = torch.tensor(sweep_hyper(name, False), dtype=torch.float32,
+                         device=dev)
+        rec = {"buckets": {}, "timed": [], "launches": 0}
+        for n in widths:
+            plan = build_bucket_plan(names, shapes, cap, first,
+                                     pad_multiple=n)
+            bad = torch.zeros((), dtype=torch.int64, device=dev)
+            for b in plan:
+                bufs = [torch.randn(b.padded_n, generator=gen, device=dev)
+                        for _ in range(2 + n_slots)]
+                if n_slots == 2:
+                    bufs[3].abs_().mul_(0.01)
+                for t in bufs:
+                    t[b.n:] = 0
+                whole = [t.clone() for t in bufs]
+                parts = [t.clone() for t in bufs]
+                plain = [t.clone() for t in bufs]
+                fn(whole[0], whole[1], *whole[2:], h)
+                ref(plain[0], plain[1], *plain[2:], h)
+                s = b.padded_n // n
+                for r in range(n):
+                    fn(*[t[r * s:(r + 1) * s] for t in parts], h)
+                    rec["launches"] += 1
+                for a, w, q in zip(parts, whole, plain):
+                    bad += (a.view(torch.int32) != w.view(torch.int32)).sum()
+                    bad += (a.view(torch.int32) != q.view(torch.int32)).sum()
+                    bad += (a[b.n:] != 0).sum()
+            if int(bad.item()):
+                raise AssertionError(
+                    "phase 22 (a): %s %s on the %d-way shards of the LM's "
+                    "%d buckets: %d words differ from the whole-bucket "
+                    "launch or the plain mirror, or a padded tail moved"
+                    % (knum, name, n, len(plan), int(bad.item())))
+            rec["buckets"][n] = len(plan)
+            sizes = sorted({b.padded_n for b in plan})
+            for padded in (sizes[0], sizes[len(sizes) // 2], sizes[-1]):
+                s = padded // n
+                bufs = [torch.randn(s, generator=gen, device=dev)
+                        for _ in range(2 + n_slots)]
+                if n_slots == 2:
+                    bufs[3].abs_().mul_(0.01)
+                moved = 4 * s * (2 + 2 * n_slots + 1)
+                bms, by = bound_ms(moved, ops * s, bw, flops)
+                rec["timed"].append({
+                    "n": n, "bucket": padded, "shard": s,
+                    "ms": time_ms(lambda b=bufs: fn(b[0], b[1], *b[2:], h)),
+                    "plain_ms": time_ms(
+                        lambda b=bufs: ref(b[0], b[1], *b[2:], h)),
+                    "bound_ms": bms, "bound_by": by})
+        out[name] = dict(rec, knum=knum)
+    return out
+
+
+class LMTokenLoss:
+    """The LM's cross-entropy per token (a ``ParallelTrainer`` loss): the
+    (B, T, V) logits and (B, T) labels flattened."""
+
+    def __init__(self, mx, vocab):
+        self.ce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+        self.vocab = vocab
+
+    def __call__(self, out, y):
+        return self.ce(out.reshape((-1, self.vocab)), y.reshape((-1,)))
+
+
+def _par_snapshot(trainer):
+    return {k: v.detach().clone() for k, v in trainer.params.items()}
+
+
+def _par_dev(got, ref):
+    """``(bitwise, max |got - ref| over the largest |ref|)`` of two
+    ``{name: tensor}`` dicts."""
+    same = all(torch.equal(got[k], ref[k]) for k in ref)
+    big = max(float(v.abs().max()) for v in ref.values())
+    worst = max(float((got[k] - ref[k]).abs().max()) for k in ref)
+    return same, worst / max(big, 1e-30)
+
+
+def _par_launches(ck, mx):
+    """This process's launches by kernel since the last reset, and the
+    same through ``mxnet_pallas_kernel_calls_total`` by label."""
+    snap = mx.telemetry.snapshot()
+    return ck.kernel_calls(), _families(
+        snap, "mxnet_pallas_kernel_calls_total", "kernel")
+
+
+def _par_reset(ck, mx, collectives):
+    ck.reset_kernel_calls()
+    collectives.reset_collective_calls()
+    mx.telemetry.reset()
+    mx.telemetry.enable()
+
+
+# the device events of a collective: NCCL's kernels (``ncclDevKernel_
+# ReduceScatter_...``) and the process group's ``nccl:<op>`` records; a
+# one-rank communicator launches no kernel (it copies) and records nothing
+# for an in-place all-reduce
+NCCL_KINDS = {"AllReduce": "all_reduce", "all_reduce": "all_reduce",
+              "ReduceScatter": "reduce_scatter",
+              "reduce_scatter": "reduce_scatter",
+              "AllGather": "all_gather", "all_gather": "all_gather",
+              "Broadcast": "broadcast", "broadcast": "broadcast"}
+
+
+def _nccl_kinds(prof):
+    """``({kind: NCCL kernels}, {kind: nccl:<op> records}, NCCL kernels'
+    device us, {name: count})`` of the device events in a profile whose
+    name holds "nccl"."""
+    kernels = dict.fromkeys(set(NCCL_KINDS.values()), 0)
+    records = dict(kernels)
+    us, names = 0.0, {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA \
+                or "nccl" not in e.name.lower():
+            continue
+        names[e.name[:80]] = names.get(e.name[:80], 0) + 1
+        record = e.name.startswith("nccl:")
+        if not record:
+            us += _device_us(e)
+        kind = next((k for frag, k in NCCL_KINDS.items()
+                     if frag in e.name), None)
+        if kind is not None:
+            (records if record else kernels)[kind] += 1
+    return kernels, records, us, names
+
+
+def _par_profile(trainer, x, y, dev):
+    """One step under the profiler: the collectives it issued, the NCCL
+    kernels the trace holds by kind and by name, their device time and
+    the compute kernels' busy time."""
+    from torch.profiler import ProfilerActivity, profile
+    from mxnet_tpu_torch.parallel import collectives
+    collectives.reset_collective_calls()
+    _sync(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.step(x, y)
+        _sync(dev)
+    nccl, records, nccl_us, names = _nccl_kinds(prof)
+    # NCCL kernels run beside the compute on their own stream (and spin
+    # while they wait for the peers): the compute's busy time leaves them
+    # out
+    busy = sum(_device_us(e) for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "nccl" not in e.name.lower())
+    return {"calls": collectives.collective_calls(), "nccl_kernels": nccl,
+            "nccl_records": records, "nccl_us": nccl_us,
+            "nccl_names": names, "busy_us": busy}
+
+
+def par_fit(mx, on, sym, image, batch, steps, kvstore, rank=0, world=1,
+            seed=SEED, classes=CLASSES):
+    """``Module.fit`` of ``sym`` (SGD_PARAMS, Xavier from ``seed``, no
+    shuffle) for ``steps`` global batches of ``batch`` rows, this rank
+    taking its contiguous ``batch / world`` rows of each."""
+    rng = np.random.RandomState(seed + 22)
+    x = rng.uniform(-1, 1, (batch * steps,) + tuple(image)).astype(
+        np.float32)
+    y = rng.randint(0, classes, (batch * steps,)).astype(np.float32)
+    local = batch // world
+    idx = np.concatenate([np.arange(s * batch + rank * local,
+                                    s * batch + (rank + 1) * local)
+                          for s in range(steps)])
+    with on:
+        it = mx.io.NDArrayIter(x[idx], y[idx], batch_size=local)
+    mod = mx.mod.Module(sym, context=on)
+    mx.random.seed(seed)
+    mod.fit(it, num_epoch=1, kvstore=kvstore, optimizer="sgd",
+            optimizer_params=SGD_PARAMS,
+            initializer=mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                       magnitude=2))
+    arg, _aux = mod.get_params()
+    return {k: v._data.detach().clone() for k, v in arg.items()}
+
+
+def par_elastic(mx, on, workdir, cfg=PAR_ELASTIC):
+    """Phase 22 (d): ``run_elastic`` of :func:`par_net` (SGD with
+    momentum, zero=2, small buckets) over a pool of batches that is a
+    function of the step, uninterrupted and with an error injected at
+    ``elastic.step`` ``cfg["fault"]``; returns both curves and the
+    restores seen."""
+    from mxnet_tpu_torch import fault
+    from mxnet_tpu_torch.fault.backoff import BackoffPolicy
+    from mxnet_tpu_torch.fault.elastic import ElasticSupervisor, run_elastic
+    pool_x, pool_y = par_data(batch=256, seed=7)
+    b = cfg["batch"]
+
+    def data_fn(step):
+        i = (step * b) % 256
+        return (mx.nd.array(pool_x[i:i + b], ctx=on),
+                mx.nd.array(pool_y[i:i + b], ctx=on))
+
+    buckets = []
+
+    def factory(restart):
+        del restart
+        tr = mx.parallel.ParallelTrainer(
+            par_net(mx, "mlp", ctx=on),
+            mx.gluon.loss.SoftmaxCrossEntropyLoss(), "sgd", dict(cfg["opt"]),
+            zero=2, bucket_bytes=256, first_bucket_bytes=128)
+        buckets.append(len(tr.bucket_plan))
+        return tr
+
+    def supervisor(retries):
+        return ElasticSupervisor(retries=retries, backoff=BackoffPolicy(
+            retries=retries, base_s=0.01, max_s=0.05, jitter=0.0))
+
+    oracle = run_elastic(factory, data_fn, cfg["steps"],
+                         os.path.join(workdir, "el_oracle"),
+                         supervisor=supervisor(0))
+    restores = []
+    plan = {"rules": [{"site": "elastic.step", "kind": "raise",
+                       "exc": "RuntimeError", "step": cfg["fault"],
+                       "times": 1}]}
+    with fault.active_plan(plan):
+        got = run_elastic(factory, data_fn, cfg["steps"],
+                          os.path.join(workdir, "el_fault"),
+                          supervisor=supervisor(2),
+                          on_restore=lambda s, v: restores.append(s))
+    return {"oracle": oracle, "curve": got, "restores": restores,
+            "exact": got == oracle, "buckets": buckets[0]}
+
+
+def par_lm_rank(rank, world, init_method, ctx, cfg):
+    """A rank of phase 22 (b)-(d): see :func:`par_lm`."""
+    mx, on = par_join(rank, world, init_method, ctx)
+    try:
+        with on:
+            return par_lm(mx, on, rank, world, cfg)
+    finally:
+        mx.parallel.distributed.shutdown()
+
+
+def par_lm(mx, on, rank, world, cfg):
+    """Phase 22 on one rank of a ``world``.  Every mode takes the first
+    step from the seeded state, which a world of one saves into
+    ``cfg["step1"]`` and a wider world holds to it; mode "step1" stops
+    there, mode "full" goes on:
+
+    (b) the LM (``cfg["config"]``, the global batch ``cfg["batch"]`` x
+    ``cfg["t"]``) through ``ParallelTrainer`` with Adam at zero=2: warmup
+    and timed steps (CUDA events), the loss falling, the launches and
+    collectives of those steps, one profiled step; from the state after
+    them, the kernel step against the plain sweep's, two steps of zero=0
+    and zero=1 against zero=2's, SGD steps (K1a), bf16 steps;
+    (c) ``cfg["fit"]``'s ResNet ``Module.fit`` under dist_sync against
+    device; (d) the zero=2 state saved through a ``CheckpointManager`` and
+    restored at zero=0, and :func:`par_elastic`.  Returns this rank's
+    record (rank 0's is the phase's)."""
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+    from mxnet_tpu_torch.parallel import collectives
+    dev = on.torch_device
+    cuda = dev.type == "cuda"
+    config = cfg["config"]
+    out = {"rank": rank, "world": world}
+    lm = lm_initialized(mx, on, config)
+    x, y = lm_batch(mx, on, config["vocab_size"], cfg["batch"], cfg["t"])
+    loss_fn = LMTokenLoss(mx, config["vocab_size"])
+    Trainer = mx.parallel.ParallelTrainer
+    tr = Trainer(lm, loss_fn, "adam", PAR_ADAM, zero=2)
+    nb = len(tr.bucket_plan)
+    out["buckets"] = nb
+    out["comm"] = tr.comm_stats()
+    out["opt_bytes"] = tr.optimizer_state_bytes()
+    _par_reset(ck, mx, collectives)
+    losses = [tr.step(x, y)]
+    if cfg.get("step1") and rank == 0:
+        got = _par_snapshot(tr)
+        if world == 1:
+            torch.save({k: v.cpu() for k, v in got.items()}, cfg["step1"])
+        else:
+            ref = {k: v.to(dev) for k, v in
+                   torch.load(cfg["step1"]).items()}
+            out["world_vs_1"] = _par_dev(got, ref)
+        del got
+    if cfg["mode"] == "step1":
+        out["loss1"] = float(losses[0].asnumpy())
+        if cuda:
+            out["profiled"] = _par_profile(tr, x, y, dev)
+        return out
+    steps = cfg["warmup"] + cfg["timed"]
+    for _ in range(cfg["warmup"] - 1):
+        losses.append(tr.step(x, y))
+    _sync(dev)
+    t0 = _marker(dev)
+    for _ in range(cfg["timed"]):
+        losses.append(tr.step(x, y))
+    t1 = _marker(dev)
+    out["step_ms"] = _elapsed_ms(t0, t1) / cfg["timed"]
+    out["losses"] = [float(v.asnumpy()) for v in losses]
+    out["tokens_per_s"] = cfg["batch"] * cfg["t"] / out["step_ms"] * 1e3
+    calls, counter = _par_launches(ck, mx)
+    snap = mx.telemetry.snapshot()
+    out["collective_counter"] = {
+        kind: _total(snap, "mxnet_collective_ops_total", kind=kind)
+        for kind in ("all_reduce", "reduce_scatter", "all_gather")}
+    out["collective_calls"] = collectives.collective_calls()
+    out["launches"] = {"lm_adam": {"steps": steps, "calls": calls,
+                                   "counter": counter}}
+    if cuda:
+        out["profiled"] = _par_profile(tr, x, y, dev)
+    state = tr.state_dict()
+    # the kernel step against the plain sweep's, from one state
+    tr.load_state_dict(state)
+    first = tr.step(x, y)
+    kernel = _par_snapshot(tr)
+    tr.load_state_dict(state)
+    with knobs("0", FUSED_OPT):
+        tr.step(x, y)
+    out["kernel_vs_plain"] = _par_dev(_par_snapshot(tr), kernel)
+    out["fp32_first_loss"] = float(first.asnumpy())
+    # two steps of each ZeRO stage from that state.  The first step's
+    # gradients differ between the stages only by the order of the
+    # reduction's sums (ulps on more than one rank); its updates move a
+    # few ReLU inputs across zero, and the second step's gradients then
+    # differ by whole terms there (PR 20: 6.1e-6 of the largest weight on
+    # four cards).  The other stages replay zero=2's ReLU decisions, as
+    # phase 12 does, so what is held is the stage's arithmetic
+    tr.load_state_dict(state)
+    with relu_decisions() as rec:
+        for _ in range(cfg["other"]):
+            tr.step(x, y)
+    z2 = _par_snapshot(tr)
+    workdir = cfg["workdir"]
+    mgr = mx.checkpoint.CheckpointManager(os.path.join(workdir, "ckpt"),
+                                          async_save=False)
+    t = time.perf_counter()
+    out["ckpt_saved"] = tr.save_checkpoint(mgr, step=1)
+    out["ckpt_save_s"] = time.perf_counter() - t
+    saved = tr.state_dict()
+    del tr
+    out["zero_vs_2"] = {}
+    for zero in (0, 1):
+        tz = Trainer(lm, loss_fn, "adam", PAR_ADAM, zero=zero)
+        if zero == 0:
+            t = time.perf_counter()
+            out["ckpt_restored"] = tz.restore_checkpoint(mgr)
+            out["ckpt_restore_s"] = time.perf_counter() - t
+            back = tz.state_dict()
+            out["ckpt_bitwise"] = all(
+                np.array_equal(back[k][n], saved[k][n])
+                for k in ("params", "residuals") for n in saved[k]) and all(
+                np.array_equal(back["slots"][s][n], saved["slots"][s][n])
+                for s in saved["slots"] for n in saved["slots"][s]) and all(
+                np.array_equal(back["scalars"][s], saved["scalars"][s])
+                for s in saved["scalars"])
+            del back
+        tz.load_state_dict(state)
+        with relu_decisions(rec.masks) as replay:
+            for _ in range(cfg["other"]):
+                tz.step(x, y)
+        out["zero_vs_2"][zero] = _par_dev(_par_snapshot(tz), z2)
+        out.setdefault("relu_flips", {})[zero] = [replay.flips,
+                                                  replay.total]
+        del tz
+    del saved, z2, kernel, rec
+    # SGD (K1a) and bf16
+    _par_reset(ck, mx, collectives)
+    ts = Trainer(lm, loss_fn, "sgd", PAR_SGD, zero=2)
+    sgd = [float(ts.step(x, y).asnumpy()) for _ in range(cfg["other"])]
+    out["launches"]["lm_sgd"] = {"steps": cfg["other"], "losses": sgd,
+                                 "calls": _par_launches(ck, mx)[0]}
+    del ts
+    _par_reset(ck, mx, collectives)
+    tb = Trainer(lm, loss_fn, "adam", PAR_ADAM, zero=2, dtype="bfloat16")
+    tb.load_state_dict(state)
+    bf = [float(tb.step(x, y).asnumpy()) for _ in range(cfg["bf16"])]
+    out["launches"]["lm_bf16"] = {"steps": cfg["bf16"],
+                                  "calls": _par_launches(ck, mx)[0]}
+    out["bf16_losses"] = bf
+    del tb, state, lm
+    if cuda:
+        torch.cuda.empty_cache()
+    # (c) dist_sync against device
+    fit = cfg["fit"]
+    sym = resnet_symbol(fit["layers"], fit["image"])
+    saved_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _par_reset(ck, mx, collectives)
+        dist = par_fit(mx, on, sym, fit["image"], fit["batch"],
+                       fit["steps"], "dist_sync", rank, world)
+        out["launches"]["fit"] = {"steps": fit["steps"],
+                                  "calls": _par_launches(ck, mx)[0]}
+        import hashlib
+        digest = hashlib.sha256()
+        for k in sorted(dist):
+            digest.update(dist[k].cpu().numpy().tobytes())
+        out["fit_digest"] = digest.hexdigest()
+        if rank == 0:
+            ref = par_fit(mx, on, sym, fit["image"], fit["batch"],
+                          fit["steps"], "device")
+            out["fit_vs_device"] = _par_dev(dist, ref)
+    finally:
+        torch.backends.cudnn.deterministic = saved_det
+    # (d) the elastic loop
+    _par_reset(ck, mx, collectives)
+    out["elastic"] = par_elastic(mx, on, workdir)
+    # the uninterrupted run's steps, then the faulted run's (the error
+    # fires before its step runs, and the restore replays from there)
+    out["launches"]["elastic"] = {"steps": 2 * PAR_ELASTIC["steps"],
+                                  "calls": _par_launches(ck, mx)[0]}
+    return out
+
+
+def par_checks(rec, nb_lm, ranks, on_card=True):
+    """Phase 22 (b)-(d)'s checks on rank 0's record ``rec`` (``ranks``:
+    every rank's); returns the failures (empty: the phase holds).  The
+    launch counts hold only where the kernels launch (on the card)."""
+    bad = []
+    comm = rec["comm"]["kinds"]
+    steps = rec["launches"]["lm_adam"]["steps"]
+    loss = rec["losses"]
+    if not (np.isfinite(loss).all() and loss[-1] < loss[0]):
+        bad.append("the LM's loss on the fixed batch went %s" % loss)
+    for what, (same, dev) in [("the kernel step against the plain "
+                               "sweep's", rec["kernel_vs_plain"])] + [
+            ("zero=%d's two steps against zero=2's" % z, v)
+            for z, v in sorted(rec["zero_vs_2"].items())] + (
+            [("world %d's first step against world 1's" % rec["world"],
+              rec["world_vs_1"])] if "world_vs_1" in rec else []):
+        if not (same or dev <= PAR_TOL):
+            bad.append("%s: %.3g of the largest weight" % (what, dev))
+    for kind in ("all_reduce", "reduce_scatter", "all_gather"):
+        want = comm[kind]["ops"] * steps
+        if rec["collective_counter"][kind] != want:
+            bad.append("mxnet_collective_ops_total{kind=%s} %s over %d "
+                       "steps; the wire model says %d" % (
+                           kind, rec["collective_counter"][kind], steps,
+                           want))
+        issued = rec["collective_calls"][kind]
+        extra = steps if kind == "all_reduce" else 0  # the global loss
+        if issued != want + extra:
+            bad.append("%d %s calls over %d steps; expected %d" % (
+                issued, kind, steps, want + extra))
+    prof = rec.get("profiled")
+    if prof is not None:
+        # the counters a step against the trace: NCCL's kernels on more
+        # than one rank (the global loss's all-reduce besides the wire
+        # model's), the nccl:<op> records of a one-rank communicator
+        many = rec["world"] > 1
+        trace = prof["nccl_kernels" if many else "nccl_records"]
+        want = {k: comm[k]["ops"] + int(many and k == "all_reduce")
+                for k in ("all_reduce", "reduce_scatter", "all_gather")}
+        if any(trace[k] != n for k, n in want.items()):
+            bad.append("the profiled step's %s %s against the collective "
+                       "counters' %s a step" % (
+                           "NCCL kernels" if many else "nccl records",
+                           trace, want))
+    bf, f1 = rec["bf16_losses"], rec["fp32_first_loss"]
+    if not (np.isfinite(bf).all()
+            and abs(bf[0] - f1) <= PAR_BF16_TOL * abs(f1)):
+        bad.append("bf16's first loss %.6f against fp32's %.6f (band "
+                   "%.3g relative)" % (bf[0], f1, PAR_BF16_TOL))
+    if not (rec["ckpt_saved"] and rec["ckpt_restored"] == 1
+            and rec["ckpt_bitwise"]):
+        bad.append("the zero=2 checkpoint restored at zero=0: saved %s, "
+                   "restored %s, bitwise %s" % (
+                       rec["ckpt_saved"], rec["ckpt_restored"],
+                       rec["ckpt_bitwise"]))
+    if len({r["fit_digest"] for r in ranks}) != 1:
+        bad.append("the dist_sync replicas differ after the fit")
+    if rec["world"] == 1 and not (rec["fit_vs_device"][0]
+                                  or rec["fit_vs_device"][1] <= PAR_TOL):
+        bad.append("dist_sync against device: %.3g of the largest weight"
+                   % rec["fit_vs_device"][1])
+    el = rec["elastic"]
+    if not (el["exact"] and el["restores"] == [PAR_ELASTIC["fault"]]):
+        bad.append("run_elastic: curve %s against %s, restores %s" % (
+            el["curve"], el["oracle"], el["restores"]))
+    if on_card:
+        runs = rec["launches"]
+        per_step = {"layernorm_fwd": 25, "layernorm_bwd": 25,
+                    "flash_attention_fwd": 12, "flash_attention_bwd_dq": 12,
+                    "flash_attention_bwd_dkv": 12}
+        want = [("lm_adam", "adam_sweep", nb_lm * steps)] + [
+            ("lm_adam", k, v * steps) for k, v in per_step.items()] + [
+            ("lm_sgd", "sgd_sweep", nb_lm * runs["lm_sgd"]["steps"]),
+            ("fit", "softmax_lastaxis", runs["fit"]["steps"]),
+            ("elastic", "sgd_mom_sweep",
+             el["buckets"] * runs["elastic"]["steps"])]
+        for run, kernel, n in want:
+            if runs[run]["calls"][kernel] != n:
+                bad.append("%s: %d %s launches, expected %d" % (
+                    run, runs[run]["calls"][kernel], kernel, n))
+        calls, counter = runs["lm_adam"]["calls"], runs["lm_adam"]["counter"]
+        from mxnet_tpu_torch.ops.cuda_kernels import _TELEMETRY_LABEL
+        by_label = {}
+        for k, v in calls.items():
+            if v:
+                by_label[_TELEMETRY_LABEL[k]] = \
+                    by_label.get(_TELEMETRY_LABEL[k], 0) + v
+        if by_label != {k: v for k, v in counter.items() if v}:
+            bad.append("mxnet_pallas_kernel_calls_total %s against the "
+                       "wrappers' counts %s" % (counter, by_label))
+    return bad
+
+
+def par_launches(rec):
+    """``{kernel: {run: launches, ..., "total": n}}`` over phase 22's main
+    path runs."""
+    out = {}
+    for run, r in rec["launches"].items():
+        for k in PAR_KERNELS:
+            n = r["calls"].get(k, 0)
+            if n:
+                d = out.setdefault(k, {"total": 0})
+                d[run] = n
+                d["total"] += n
+    return out
+
+
+def parallel_phase(mx, ck, dev, bw, flops, smi, workdir_parent=None):
+    """Phase 22 on the card: (a) :func:`shard_sweeps` here; (b)-(d) in a
+    world of ``torch.cuda.device_count()`` ranks over NCCL (worlds of 1
+    and 2 first where there are more cards, for the first step's
+    comparison).  Prints the phase's lines; returns its record."""
+    import tempfile
+    t0 = time.perf_counter()
+    names, shapes = lm_names_shapes(mx, mx.gpu(0))
+    torch.cuda.empty_cache()
+    shards = shard_sweeps(ck, dev, bw, flops, names, shapes)
+    t_a = time.perf_counter() - t0
+    for name, r in shards.items():
+        print("phase 22 (a) %s %s on every 1/n shard of the LM's padded "
+              "buckets (%s) bitwise the whole-bucket launch and the plain "
+              "mirror, tails zero, %d shard launches; %s" % (
+                  r["knum"], name, ", ".join(
+                      "n=%d: %d buckets" % kv for kv in r["buckets"].items()),
+                  r["launches"], "; ".join(
+                      "n=%d shard of %d: %.4f ms (plain %.4f), bound %.4f"
+                      % (j["n"], j["bucket"], j["ms"], j["plain_ms"],
+                         j["bound_ms"]) for j in r["timed"])), flush=True)
+    world = torch.cuda.device_count()
+    if world == 1:
+        print("phase 22: one card, so (b)-(d) run a world of one rank over "
+              "NCCL; the multi-rank run is held to the JAX package's 2- "
+              "and 4-device meshes on the CPU over gloo "
+              "(tests/test_torch_parallel.py)", flush=True)
+    here = os.path.dirname(os.path.abspath(__file__))
+    workdir = tempfile.TemporaryDirectory(prefix=".chip_smoke_par_",
+                                          dir=workdir_parent or here)
+    cfg = dict(PAR_LM, mode="full", config=GPT2_SMALL, batch=LM_BATCH,
+               t=LM_T[0], fit=PAR_FIT, workdir=workdir.name)
+    target = "chip_smoke:par_lm_rank"
+    try:
+        steps1 = {}
+        if world >= 2:
+            cfg["step1"] = os.path.join(workdir.name, "step1.pt")
+            steps1[1] = run_ranks(target, 1, (dict(cfg, mode="step1"),),
+                                  ctx="gpu", workdir=workdir.name)[0]
+            if world >= 4:
+                steps1[2] = run_ranks(target, 2, (dict(cfg, mode="step1"),),
+                                      ctx="gpu", workdir=workdir.name)[0]
+        t = time.perf_counter()
+        ranks = run_ranks(target, world, (cfg,), ctx="gpu",
+                          workdir=workdir.name)
+        t_b = time.perf_counter() - t
+    finally:
+        workdir.cleanup()
+    rec = ranks[0]
+    bad = par_checks(rec, rec["buckets"], ranks)
+    if 2 in steps1 and not (steps1[2]["world_vs_1"][0]
+                            or steps1[2]["world_vs_1"][1] <= PAR_TOL):
+        bad.append("world 2's first step against world 1's: %.3g"
+                   % steps1[2]["world_vs_1"][1])
+    prof = rec["profiled"]
+    print("phase 22 (b) on %s, NCCL %s: GPT-2-small-width TransformerLM "
+          "fp32 through "
+          "ParallelTrainer(adam, zero=2) on %d rank(s), global batch %d x "
+          "%d, %d buckets: %.2f ms/step (CUDA events, %d timed after %d), "
+          "%.0f tokens/s; loss %.4f -> %.4f; collectives a step %s "
+          "(calls %s); the profiled step: compute busy %.0f us, NCCL %.0f us "
+          "in kernels %s; kernel step vs plain sweep %s; zero=0/1 vs zero=2 "
+          "%s (ReLU inputs flipped against zero=2's decisions %s); SGD (K1a) "
+          "losses %s; bf16 first loss %.5f vs fp32 %.5f" % (
+              smi, torch.cuda.nccl.version(),
+              rec["world"], LM_BATCH, LM_T[0], rec["buckets"],
+              rec["step_ms"], PAR_LM["timed"], PAR_LM["warmup"],
+              rec["tokens_per_s"], rec["losses"][0], rec["losses"][-1],
+              {k: v["ops"] for k, v in rec["comm"]["kinds"].items()},
+              rec["collective_calls"], prof["busy_us"], prof["nccl_us"],
+              prof["nccl_kernels"], rec["kernel_vs_plain"],
+              rec["zero_vs_2"], rec["relu_flips"],
+              rec["launches"]["lm_sgd"]["losses"],
+              rec["bf16_losses"][0], rec["fp32_first_loss"]), flush=True)
+    el = rec["elastic"]
+    print("phase 22 (c, d) on %s: ResNet-%d Module.fit dist_sync batch %d, "
+          "%d steps against device: %s%s, replicas %s; checkpoint zero=2 -> "
+          "zero=0 bitwise %s (save %.2f s, restore %.2f s); run_elastic "
+          "with an error at step %d: curve exact %s, restored at %s; "
+          "(a) %.1f s, (b)-(d) %.1f s" % (
+              smi, PAR_FIT["layers"], PAR_FIT["batch"], PAR_FIT["steps"],
+              rec.get("fit_vs_device"), "" if rec["world"] == 1 else
+              " (held at one rank only: on more, each rank's BatchNorm "
+              "takes its own rows' moments, as the reference's dist_sync "
+              "does)", "equal" if len(
+                  {r["fit_digest"] for r in ranks}) == 1 else "differ",
+              rec["ckpt_bitwise"], rec["ckpt_save_s"],
+              rec["ckpt_restore_s"], PAR_ELASTIC["fault"], el["exact"],
+              el["restores"], t_a, t_b), flush=True)
+    if bad:
+        raise AssertionError("phase 22: " + "; ".join(bad))
+    return {"card": smi, "world": rec["world"],
+            "shard_sweeps": shards, "lm": rec,
+            "first_step_worlds": steps1,
+            "launches_parallel": par_launches(rec),
+            "seconds": time.perf_counter() - t0}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -7661,6 +8718,15 @@ def main():
         gen_line, el_line = generate_phase(mx, ck, mx.gpu(0), sym, smi)
         print(json.dumps({"generative": gen_line}, default=str))
         print(json.dumps({"elastic": el_line}, default=str))
+        print("nvidia-smi: %s" % smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
+        return 0
+    if sys.argv[1:] == ["parallel"]:
+        # phase 22 alone
+        par_line = parallel_phase(mx, ck, dev, bw, flops, smi)
+        print(json.dumps({"parallel": par_line}, default=str))
         print("nvidia-smi: %s" % smi)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind,
@@ -8747,6 +9813,17 @@ def main():
             "steps_run": el_line["steps_run"],
             "uninterrupted_steps": el_line["uninterrupted_steps"],
             "launches": el_line["launches"][name]}
+    # 22. data-parallel training across GPUs
+    par_line = parallel_phase(mx, ck, dev, bw, flops, smi)
+    for rec, name in ((sweeps["sgd_sweep"], "sgd_sweep"),
+                      (sweeps["sgd_mom_sweep"], "sgd_mom_sweep"),
+                      (sweeps["adam_sweep"], "adam_sweep"),
+                      (k6a, "layernorm_fwd"), (k6b, "layernorm_bwd"),
+                      (k7a, "flash_attention_fwd"),
+                      (k7b, "flash_attention_bwd_dq"),
+                      (k7c, "flash_attention_bwd_dkv"),
+                      (k2, "softmax_lastaxis")):
+        rec["launches_parallel"] = par_line["launches_parallel"][name]
     for job in k7a_jobs:
         job["tflops"] = job["ops"] / job["ms"] / 1e9
     k7a["tflops"] = k7a_jobs[0]["tflops"]
@@ -8846,6 +9923,7 @@ def main():
     print(json.dumps({"train_serve": ts_line}, default=str))
     print(json.dumps({"generative": gen_line}, default=str))
     print(json.dumps({"elastic": el_line}, default=str))
+    print(json.dumps({"parallel": par_line}, default=str))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
             "launches_per_forward", "call_ms", "plain_call_ms",
@@ -8858,6 +9936,7 @@ def main():
                         "launches_data_pipeline", "launches_gluon",
                         "launches_observability", "launches_train_serve",
                         "launches_generative", "launches_elastic",
+                        "launches_parallel",
                         "lm", "bf16",
                         "ms_repeats", "library_ms_repeats",
                         "bfloat16_ms_repeats", "bfloat16_library_ms_repeats",

@@ -87,6 +87,7 @@ from . import initializer as init  # noqa: F401
 from . import optimizer  # noqa: F401
 from .optimizer import Optimizer  # noqa: F401
 from . import metric  # noqa: F401
+from . import gradient_compression  # noqa: F401
 from . import kvstore  # noqa: F401
 from . import kvstore as kv  # noqa: F401
 from . import callback  # noqa: F401

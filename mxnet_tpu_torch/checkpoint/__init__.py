@@ -21,21 +21,25 @@ Three guarantees, as in the JAX package:
 retention, restore fallback, SIGTERM hook); ``BaseModule.fit`` builds
 one from the ``MXNET_CKPT_*`` knobs when ``MXNET_CKPT_DIR`` is set, and
 ``serving.ModelRegistry.watch_checkpoints`` hot-swaps committed
-checkpoints into the serving layer.  The multi-GPU trainer's snapshot
-(``ParallelTrainerState``) and the reshard check (``compat``) come with
-the multi-GPU slice.
+checkpoints into the serving layer.  :class:`ParallelTrainerState` is
+the data-parallel trainer's mesh-independent snapshot, and
+:func:`check_restore_compat` (``compat``) vets a (checkpoint, new
+topology) pair before a restore.
 """
 from __future__ import annotations
 
 from .async_ckpt import AsyncCheckpointer, write_checkpoint  # noqa: F401
+from .compat import check_restore_compat, state_plan_spec  # noqa: F401
 from .manager import (CheckpointManager, default_manager,  # noqa: F401
                       sigterm_flag_scope)
-from .state import (TrainState, capture_iter_state,  # noqa: F401
-                    restore_iter_state)
+from .state import (ParallelTrainerState, TrainState,  # noqa: F401
+                    capture_iter_state, restore_iter_state)
 from .store import (CheckpointError, CheckpointStore,  # noqa: F401
                     IntegrityError, RetentionPolicy)
 
 __all__ = ["AsyncCheckpointer", "CheckpointError", "CheckpointManager",
+           "ParallelTrainerState",
            "CheckpointStore", "IntegrityError", "RetentionPolicy",
-           "TrainState", "capture_iter_state", "default_manager",
-           "restore_iter_state", "sigterm_flag_scope", "write_checkpoint"]
+           "TrainState", "capture_iter_state", "check_restore_compat",
+           "default_manager", "restore_iter_state", "sigterm_flag_scope",
+           "state_plan_spec", "write_checkpoint"]

@@ -48,7 +48,8 @@ import torch
 from .. import optimizer as _opt
 from .. import random as _random
 
-__all__ = ["TrainState", "capture_iter_state", "restore_iter_state"]
+__all__ = ["TrainState", "ParallelTrainerState", "capture_iter_state",
+           "restore_iter_state"]
 
 _ARG_PREFIX = "arg/"
 _AUX_PREFIX = "aux/"
@@ -461,3 +462,124 @@ class TrainState:
                 % (self.epoch, self.nbatch, len(self.arg_params),
                    len(self.aux_params),
                    "yes" if self.optimizer_state is not None else "no"))
+
+
+# ---------------------------------------------------------------------------
+# ParallelTrainer snapshots — mesh-independent logical state
+# ---------------------------------------------------------------------------
+
+_P_PARAM_PREFIX = "param/"
+_P_SLOT_PREFIX = "slot/"
+_P_SCALAR_PREFIX = "scalar/"
+_P_RESID_PREFIX = "resid/"
+
+
+class ParallelTrainerState:
+    """One resumable :class:`~mxnet_tpu_torch.parallel.ParallelTrainer`
+    snapshot in MESH-INDEPENDENT form (counterpart of
+    ``mxnet_tpu/checkpoint/state.py:263``).
+
+    ``ParallelTrainer.state_dict()`` gathers the ZeRO shards of every rank
+    and hands back full logical host arrays with the optimizer slots PER
+    PARAMETER; this class maps that dict onto the store's ``(arrays,
+    blobs, meta)`` vocabulary under the JAX package's keys
+    (``param/<name>``, ``slot/<slot>/<name>``, ``scalar/<slot>``,
+    ``resid/<name>``), so the checkpoint is the JAX package's byte for
+    byte and each package restores the other's.  Nothing in the payload
+    encodes a mesh, a ZeRO stage or a bucket plan: a restore may land on
+    a trainer with any of them changed, bit for bit."""
+
+    kind = "parallel_trainer"
+
+    def __init__(self, params, slots, scalars, residuals, meta):
+        self.params = dict(params)       # name -> numpy array
+        self.slots = {s: dict(v) for s, v in slots.items()}
+        self.scalars = dict(scalars)     # slot scalar (e.g. Adam t)
+        self.residuals = dict(residuals)  # name -> numpy array
+        self.meta = dict(meta)
+
+    # -- capture -------------------------------------------------------------
+    @classmethod
+    def capture(cls, trainer):
+        """Host-stage ``trainer``'s state (collective over its mesh: every
+        rank calls it)."""
+        sd = trainer.state_dict()
+        meta = dict(sd["meta"])
+        meta["kind"] = cls.kind
+        return cls(sd["params"], sd["slots"], sd["scalars"],
+                   sd["residuals"], meta)
+
+    def wait(self):
+        """The arrays are host copies already (the manager's contract)."""
+
+    # -- store payload -------------------------------------------------------
+    def to_payload(self):
+        """``(arrays, blobs, meta)`` in the store's manifest vocabulary."""
+        arrays = {_P_PARAM_PREFIX + n: v for n, v in self.params.items()}
+        for slot, per_param in self.slots.items():
+            for n, v in per_param.items():
+                arrays["%s%s/%s" % (_P_SLOT_PREFIX, slot, n)] = v
+        for slot, v in self.scalars.items():
+            arrays[_P_SCALAR_PREFIX + slot] = np.asarray(v)
+        for n, v in self.residuals.items():
+            arrays[_P_RESID_PREFIX + n] = v
+        return arrays, {}, self.meta
+
+    @classmethod
+    def from_payload(cls, arrays, blobs, meta):
+        del blobs  # none in this payload kind
+        params, slots, scalars, residuals = {}, {}, {}, {}
+        for key, v in arrays.items():
+            if key.startswith(_P_PARAM_PREFIX):
+                params[key[len(_P_PARAM_PREFIX):]] = v
+            elif key.startswith(_P_SLOT_PREFIX):
+                slot, name = key[len(_P_SLOT_PREFIX):].split("/", 1)
+                slots.setdefault(slot, {})[name] = v
+            elif key.startswith(_P_SCALAR_PREFIX):
+                scalars[key[len(_P_SCALAR_PREFIX):]] = v
+            elif key.startswith(_P_RESID_PREFIX):
+                residuals[key[len(_P_RESID_PREFIX):]] = v
+        return cls(params, slots, scalars, residuals, meta)
+
+    # -- restore -------------------------------------------------------------
+    def as_state_dict(self):
+        return {"params": self.params, "slots": self.slots,
+                "scalars": self.scalars, "residuals": self.residuals,
+                "meta": self.meta}
+
+    def restore_into(self, trainer):
+        trainer.load_state_dict(self.as_state_dict())
+        return self
+
+    @classmethod
+    def restore_latest(cls, store, trainer, step=None):
+        """Restore the newest (or ``step``-specific) trainer snapshot in
+        ``store`` that verifies, walking backwards past bit-rot and
+        payloads of another kind; returns the restored step id or None.
+        The trainer's mesh, ZeRO stage and bucket plan may differ from
+        the captured ones: :meth:`restore_into` reshards."""
+        from .store import IntegrityError
+        steps = [step] if step is not None else \
+            list(reversed(store.steps()))
+        for s in steps:
+            try:
+                manifest, arrays, blobs = store.read(s, verify=True)
+            except (IntegrityError, OSError, ValueError) as exc:
+                logging.warning(
+                    "checkpoint: step %d unreadable (%s); trying older",
+                    s, exc)
+                continue
+            meta = manifest.get("meta", {})
+            if meta.get("kind") != cls.kind:
+                logging.warning(
+                    "checkpoint: step %d is %r, not a ParallelTrainer "
+                    "snapshot; skipping", s, meta.get("kind"))
+                continue
+            cls.from_payload(arrays, blobs, meta).restore_into(trainer)
+            logging.info("checkpoint: restored ParallelTrainer step %d", s)
+            return int(s)
+        return None
+
+    def __repr__(self):
+        return ("ParallelTrainerState(params=%d, slots=%s, residuals=%d)"
+                % (len(self.params), sorted(self.slots), len(self.residuals)))

@@ -93,6 +93,32 @@ register_env("MXNET_PALLAS_FUSED_OPT", str, "auto",
              "auto = on for weights on the GPU, 1 = force (the plain "
              "versions on CPU tensors), 0 = off (the per-array path, "
              "which launches no kernel)")
+register_env("MXNET_PARALLEL_BUCKET_BYTES", int, 4194304,
+             "gradient-collective bucket size cap for ParallelTrainer: "
+             "replicated params are fused into flat buckets of at most "
+             "this many bytes so each bucket's reduce can overlap the "
+             "remaining backward; <= 0 puts everything in one bucket")
+register_env("MXNET_PARALLEL_BUCKET_FIRST_BYTES", int, 1048576,
+             "size cap of the FIRST bucket (the output-side params whose "
+             "gradients finish earliest in backward); smaller than "
+             "MXNET_PARALLEL_BUCKET_BYTES so the first collective "
+             "launches as early as possible")
+register_env("MXNET_PARALLEL_ZERO", int, 0,
+             "default ZeRO stage for ParallelTrainer: 0 replicates "
+             "optimizer state (all-reduce per bucket), 1 shards optimizer "
+             "slots 1/mesh (full-gradient all-reduce), 2 also "
+             "reduce-scatters gradients into the shards")
+register_env("MXNET_PARALLEL_COMPRESSION", str, None,
+             "default gradient-compression codec for ParallelTrainer "
+             "bucket reductions: 2bit (reference kvstore quantizer), "
+             "bf16, or fp8 — all with error-feedback residuals carried "
+             "in trainer state; unset sends fp32")
+register_env("MXNET_PARALLEL_COMPRESSION_THRESHOLD", float, 0.5,
+             "quantization threshold of the 2bit codec (reference "
+             "gradient_compression.cc pos/neg threshold)")
+register_env("MXNET_KVSTORE_HEARTBEAT_DIR", str, None,
+             "shared directory for dist-kvstore worker heartbeats "
+             "(enables get_num_dead_node)")
 register_env("MXNET_SERVING_MAX_BATCH", int, 8,
              "largest serving shape bucket; the micro-batcher coalesces "
              "concurrent requests up to this many rows per dispatch")

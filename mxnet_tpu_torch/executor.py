@@ -135,6 +135,8 @@ class Executor:
         self._fn_train = None
         # fused optimizer step (install_fused_update)
         self._fused_update = None   # (optimizer, init_state, one)
+        self._fused_codec = None    # gradient-compression codec, or None
+        self._fused_resids = None   # its error-feedback residuals
         self._fused_state = None    # slots: per bucket, or per diff arg
         self._sweep = None          # bucket plan, or None (per-array)
         self._hyper = None          # (host values, device tensor)
@@ -225,15 +227,22 @@ class Executor:
                         grad_req, compute_dtype, cast_exclude)
 
     # -- fused optimizer step ------------------------------------------------
-    def install_fused_update(self, optimizer, param_names=None):
+    def install_fused_update(self, optimizer, param_names=None,
+                             compression_params=None):
         """Fold ``optimizer`` into ``forward(is_train=True)`` (see the
         module docstring).  ``backward()`` then commits nothing and
         ``grad_dict`` is not filled; ``updates_applied`` tells
         ``Module.update`` to skip the kvstore.  Returns False, installing
         nothing, for an optimizer without a fused form, a graph that is
         not a loss graph, or when some differentiable argument is not in
-        ``param_names`` (data inputs are never updated)."""
+        ``param_names`` (data inputs are never updated).
+
+        ``compression_params`` (``Module(compression_params=...)``, the
+        kvstore's ``set_gradient_compression`` dict) runs the shared codec
+        on each gradient inside the step, with an error-feedback residual
+        per weight, as the kvstore push path does."""
         from . import optimizer as opt_mod
+        from .gradient_compression import make_codec
         kernel = opt_mod.fused_update_kernel(optimizer)
         if kernel is None or not self._diff_idx or not self._is_loss_graph:
             return False
@@ -242,6 +251,9 @@ class Executor:
             if any(self.arg_names[i] not in allowed for i in self._diff_idx):
                 return False
         self._fused_update = (optimizer, kernel[0], kernel[1])
+        self._fused_codec = make_codec(**dict(compression_params)) \
+            if compression_params else None
+        self._fused_resids = None
         self._fused_state = None
         self._hyper = None
         self._updates_applied = False
@@ -454,6 +466,18 @@ class Executor:
         else:
             hyper = self._device_hyper(np.asarray([lrs, wds], np.float32))
         outs, grads, new_aux = self._fb(args, aux, tap=self._tap())
+        codec = self._fused_codec
+        if codec is not None:
+            if self._fused_resids is None:
+                self._fused_resids = [torch.zeros(
+                    g.shape, dtype=torch.float32, device=g.device)
+                    for g in grads]
+            decoded = []
+            for g, res in zip(grads, self._fused_resids):
+                d, nr = codec.roundtrip(g.to(torch.float32), res)
+                res.copy_(nr)
+                decoded.append(d.to(g.dtype))
+            grads = decoded
         if sweep is not None:
             self._sweep_update(grads, hyper)
         else:

@@ -10,11 +10,12 @@
 - :mod:`.backoff` — :class:`BackoffPolicy`, the shared retry policy;
 - :mod:`.elastic` — the supervised training runtime the injection core
   exists to drill: ``fit(elastic=True)``'s restore-and-retry under a
-  budgeted backoff (:class:`ElasticSupervisor`), and
-  :class:`ProcessSupervisor` for whole worker processes.
+  budgeted backoff (:class:`ElasticSupervisor`),
+  :class:`ProcessSupervisor` for whole worker processes, and
+  :func:`run_elastic`, the data-parallel trainer's loop that resumes on
+  another mesh width.
 
-The JAX package's ``run_elastic`` (the multi-device trainer's elastic loop)
-comes with multi-GPU, and its chaos drills (``fault/drill.py``) after.
+The JAX package's chaos drills (``fault/drill.py``) come later.
 
 ``elastic`` imports the checkpoint stack, so it loads lazily: the
 package itself stays importable from ``_atomic_io`` (which loads before
@@ -30,10 +31,10 @@ from .plan import (FaultInjected, FaultPlan, Reorder,  # noqa: F401
 __all__ = ["hooks", "BackoffPolicy", "FaultPlan", "FaultInjected",
            "Reorder", "install", "uninstall", "installed", "active_plan",
            "elastic", "ElasticError", "ElasticSupervisor",
-           "ProcessSupervisor"]
+           "ProcessSupervisor", "run_elastic"]
 
 _LAZY = ("elastic", "ElasticError", "ElasticSupervisor",
-         "ProcessSupervisor")
+         "ProcessSupervisor", "run_elastic")
 
 
 def __getattr__(name):

@@ -21,9 +21,13 @@ checkpoint and re-enter the loop without skipping or doubling a batch.
 - :func:`elastic_fit` — the ``Module.fit(elastic=True)`` body: each
   re-entry restores the latest checkpoint, so the resumed epoch
   continues from the exact batch the snapshot captured.
-
-The JAX package's ``run_elastic`` (the ``ParallelTrainer`` loop, which
-re-shards a restore onto a new mesh) comes with multi-GPU.
+- :func:`run_elastic` — the ``ParallelTrainer`` driver: the factory may
+  hand back a trainer on a DIFFERENT mesh each attempt (a sub-mesh of the
+  world's ranks, wider or narrower); ``checkpoint.check_restore_compat``
+  vets the (checkpoint, new topology) pair before anything binds, and the
+  restore reshards.  Every rank of the world runs the loop (the mesh and
+  its groups are built collectively); a rank outside the attempt's mesh
+  steps nothing and records no loss.
 """
 from __future__ import annotations
 
@@ -31,11 +35,13 @@ import logging
 
 from ..base import MXNetError
 from ..telemetry import flight as _flight
+from ..telemetry import tracing as _trace
+from . import hooks
 from .backoff import BackoffPolicy
 from .plan import FaultInjected
 
 __all__ = ["ElasticError", "ElasticSupervisor", "ProcessSupervisor",
-           "elastic_fit", "RECOVERABLE", "PREEMPTION_EXIT"]
+           "elastic_fit", "run_elastic", "RECOVERABLE", "PREEMPTION_EXIT"]
 
 # failure classes worth a restore-and-retry: infrastructure errors,
 # framework errors (a poisoned collective surfaces as MXNetError), and
@@ -246,5 +252,111 @@ def elastic_fit(module, train_data, checkpoint_manager=None, retries=None,
         return module.fit(train_data, begin_epoch=begin["epoch"],
                           checkpoint_manager=checkpoint_manager,
                           **fit_kwargs)
+
+    return supervisor.run(attempt)
+
+
+# ---------------------------------------------------------------------------
+# ParallelTrainer elastic driver
+# ---------------------------------------------------------------------------
+
+def _latest_trainer_state(store):
+    """Newest readable ``ParallelTrainerState`` in ``store`` ->
+    ``(step, state)`` or ``(None, None)``; walks back past bit rot and
+    foreign payload kinds like the manager's restore does."""
+    from ..checkpoint.state import ParallelTrainerState
+    from ..checkpoint.store import IntegrityError
+    for s in reversed(store.steps()):
+        try:
+            manifest, arrays, blobs = store.read(s, verify=True)
+        except (IntegrityError, OSError, ValueError) as exc:
+            logging.warning(
+                "elastic: checkpoint step %d unreadable (%s); trying "
+                "older", s, exc)
+            continue
+        meta = manifest.get("meta", {})
+        if meta.get("kind") != ParallelTrainerState.kind:
+            continue
+        return int(s), ParallelTrainerState.from_payload(arrays, blobs,
+                                                         meta)
+    return None, None
+
+
+def run_elastic(trainer_factory, data_fn, num_steps, manager,
+                save_every=1, supervisor=None, retries=None, backoff=None,
+                on_restore=None, loss_log=None):
+    """Elastic step loop over a :class:`~..parallel.ParallelTrainer`.
+
+    - ``trainer_factory(restart)`` builds the trainer for attempt
+      ``restart``, on another mesh if the fleet shrank or grew; the
+      checkpoint payload is mesh-independent and the restore reshards.
+    - ``data_fn(step) -> (data, label)`` must be a pure function of the
+      global step (the global batch): a replayed step consumes exactly
+      the batch the lost step would have.
+    - checkpoints commit synchronously every ``save_every`` steps under
+      step id ``step + 1`` (= completed steps), so the resume point is
+      always a step boundary.
+
+    Returns the per-step loss list (floats, length ``num_steps``; None
+    for a step this rank did not run).  ``loss_log`` (a path) appends one
+    ``{"step": s, "loss": x}`` JSON line per step as it completes.
+    Raises :class:`ElasticError` on budget exhaustion or when
+    ``check_restore_compat`` rejects the (checkpoint, new topology) pair
+    — loudly, never a silent re-init."""
+    from ..checkpoint import CheckpointManager
+    from ..checkpoint.compat import check_restore_compat
+    if isinstance(manager, str):
+        manager = CheckpointManager(directory=manager)
+    supervisor = supervisor or ElasticSupervisor(retries=retries,
+                                                 backoff=backoff)
+    losses = {}   # step -> float, shared across attempts
+
+    def attempt(restart):
+        trainer = trainer_factory(restart)
+        start = 0
+        step_id, state = _latest_trainer_state(manager.store)
+        if state is not None:
+            verdict = check_restore_compat(state, trainer)
+            if not verdict["compatible"]:
+                _flight.incident("elastic_error", step=step_id,
+                                 problems=verdict["problems"])
+                raise ElasticError(
+                    "checkpoint step %s cannot restore onto the new "
+                    "topology: %s" % (step_id, verdict["problems"]))
+            if on_restore is not None:
+                on_restore(step_id, verdict)
+            state.restore_into(trainer)
+            start = step_id
+            logging.info(
+                "elastic: resumed ParallelTrainer at step %d on mesh %s"
+                " (notes: %s)", start,
+                dict(zip(trainer.mesh.axis_names,
+                         trainer.mesh.devices.shape)),
+                verdict.get("notes", []))
+        for step in range(start, int(num_steps)):
+            hooks.set_step(step)
+            with _trace.span("elastic.step", step=step):
+                if hooks.ACTIVE[0]:
+                    # plans address this site by step to die at an exact
+                    # batch
+                    hooks.fire("elastic.step", step=step)
+                x, y = data_fn(step)
+                loss = trainer.step(x, y)
+            if loss is None:
+                continue
+            # the loss curve is the product (compared against an
+            # uninterrupted run), and the read bounds how far the loop
+            # runs ahead of the synchronous save below
+            losses[step] = float(loss.asnumpy())
+            if loss_log:
+                import json
+                with open(loss_log, "a") as f:
+                    f.write(json.dumps({"step": step,
+                                        "loss": losses[step]}) + "\n")
+                    f.flush()
+            if (step + 1) % max(1, int(save_every)) == 0 \
+                    or step + 1 == int(num_steps):
+                trainer.save_checkpoint(manager, step=step + 1, block=True)
+        return [losses.get(s) for s in range(int(num_steps))]
 
     return supervisor.run(attempt)

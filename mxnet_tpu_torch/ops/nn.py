@@ -14,6 +14,9 @@ expressions, and K6b for the kernel LayerNorm.
 """
 from __future__ import annotations
 
+import math
+import threading
+
 import torch
 import torch.nn.functional as F
 
@@ -296,6 +299,27 @@ def _upsampling(*args, scale=1, sample_type="nearest", num_filter=0,
 
 
 # -- BatchNorm --------------------------------------------------------------
+# .reduce, while set (parallel.collectives.global_batch_stats): (a
+# differentiable SUM over the data-parallel ranks, their count), so that
+# training-mode BatchNorm takes the whole global batch's moments
+_BATCH_STATS = threading.local()
+
+
+def _batch_moments(x, red, shape):
+    """(biased variance, mean) of ``x`` over the dims ``red``: this
+    tensor's, or under ``global_batch_stats`` the global batch's, by two
+    passes as ``jnp.mean``/``jnp.var`` (sum, then squared deviations)."""
+    sync = getattr(_BATCH_STATS, "reduce", None)
+    if sync is None:
+        return torch.var_mean(x, dim=red, correction=0)
+    reduce, ranks = sync
+    count = ranks * math.prod(x.shape[i] for i in red)
+    mean = reduce(x.sum(dim=red)) / count
+    xc = x - mean.reshape(shape)
+    var = reduce((xc * xc).sum(dim=red)) / count
+    return var, mean
+
+
 @register("BatchNorm", aliases=("BatchNorm_v1",), needs_is_train=True,
           params=[
               P("eps", float, default=1e-3, low=0.0),
@@ -328,7 +352,7 @@ def _batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
     g = torch.ones_like(gamma) if fix_gamma else gamma
     if __is_train__ and not use_global_stats:
         red = tuple(i for i in range(data.dim()) if i != ax)
-        var, mean = torch.var_mean(data.float(), dim=red, correction=0)
+        var, mean = _batch_moments(data.float(), red, shape)
         new_mean = momentum * moving_mean \
             + (1 - momentum) * mean.detach().to(moving_mean.dtype)
         new_var = momentum * moving_var \

@@ -40,22 +40,22 @@ MODULES = ("", "optimizer", "metric", "initializer", "lr_scheduler",
            "serving", "telemetry", "telemetry.tracing", "profiler",
            "gluon.rnn", "gluon.contrib", "gluon.contrib.rnn",
            "checkpoint", "fault", "compile_cache", "serving.generate",
-           "gluon.contrib.transformer")
+           "gluon.contrib.transformer", "parallel")
 
 DEFERRED = {
-    # queue 1 item 7: multi-GPU (with the trainer's checkpoint snapshot
-    # and the reshard check on restore, the multi-replica front door and
-    # the elastic loop of the multi-device trainer)
-    "queue 1 item 7": {
+    # queue 1 item 7, the next multi-GPU slice: model-axis sharding (ring
+    # and Ulysses attention, pipelines, experts), the asynchronous
+    # parameter server and its transport, and the multi-replica front door
+    "the next multi-GPU slice": {
         "serving": {"FleetFrontDoor", "ReplicaHandle", "decode_error",
                     "encode_error", "fleet", "local_replica",
                     "replica_loop", "spawn_replica"},
-        "fault": {"run_elastic"},
-        "kvstore": {"KVStoreDist", "KVStoreDistAsync", "is_scheduler_node",
-                    "is_server_node", "is_worker_node"},
-        "": {"kvstore_server", "gradient_compression"},
-        "checkpoint": {"ParallelTrainerState", "check_restore_compat",
-                       "compat", "state_plan_spec"},
+        "kvstore": {"KVStoreDistAsync"},
+        "": {"kvstore_server"},
+        "parallel": {"ring_attention", "ulysses_attention", "pipeline_apply",
+                     "stack_stages", "switch_moe", "stack_experts",
+                     "InboxFull", "Message", "SpoolTransport", "pipeline",
+                     "moe", "transport"},
     },
     # queue 1 item 8: the long tail (LibSVMIter yields a CSRNDArray,
     # which comes with ndarray/sparse.py)
@@ -79,12 +79,21 @@ DEFERRED = {
     },
 }
 
-# the names the last six slices ported, none of which may be deferred:
+# the names the last seven slices ported, none of which may be deferred:
 # the training-loop API, the data pipeline and the module family,
 # gluon's image path, telemetry, the profiler and gluon's recurrent
-# layers, the train-to-serve loop, then generative serving and the
-# elastic fit
+# layers, the train-to-serve loop, generative serving and the elastic
+# fit, then data-parallel training across GPUs
 PORTED = {
+    "parallel": {"ParallelTrainer", "PureSGD", "PureAdam", "make_optimizer",
+                 "pure_block_apply", "make_mesh", "current_mesh",
+                 "mesh_scope", "replicated", "batch_sharded",
+                 "init_distributed", "rank", "num_workers",
+                 "is_initialized", "local_attention", "collectives",
+                 "distributed", "mesh", "optimizer", "trainer",
+                 "attention"},
+    "kvstore": {"KVStoreDist", "is_worker_node", "is_server_node",
+                "is_scheduler_node"},
     "serving.generate": {"DecodeScheduler", "DecodeState",
                          "GenerativeModel", "TokenStream", "kv_cache",
                          "model", "scheduler", "stream"},
@@ -96,11 +105,13 @@ PORTED = {
                    "CheckpointManager", "CheckpointStore", "IntegrityError",
                    "RetentionPolicy", "TrainState", "capture_iter_state",
                    "default_manager", "restore_iter_state",
-                   "sigterm_flag_scope", "write_checkpoint"},
+                   "sigterm_flag_scope", "write_checkpoint",
+                   "ParallelTrainerState", "check_restore_compat",
+                   "compat", "state_plan_spec"},
     "fault": {"BackoffPolicy", "FaultPlan", "FaultInjected", "Reorder",
               "install", "uninstall", "installed", "active_plan", "hooks",
               "elastic", "ElasticError", "ElasticSupervisor",
-              "ProcessSupervisor"},
+              "ProcessSupervisor", "run_elastic"},
     "compile_cache": {"ensure_initialized", "configure", "enabled",
                       "cache_dir", "stats", "sweep", "reset"},
     "serving": {"CanaryState", "CheckpointWatcher", "WarmupManifest",
@@ -172,16 +183,16 @@ PORTED = {
          "__version__", "Monitor", "monitor", "viz", "visualization",
          "misc", "registry", "log", "libinfo", "recordio", "image", "rnn",
          "executor_manager", "telemetry", "profiler", "checkpoint",
-         "fault", "compile_cache"},
+         "fault", "compile_cache", "gradient_compression"},
 }
 
 # parameters of the JAX package's public callables that the port's lack,
 # by the queue that owns them: {queue: {(module, callable): missing
 # names}}; "order" marks parameters both take in another order
 DEFERRED_PARAMS = {
-    # queue 1 item 7: gradient compression
-    "queue 1 item 7": {
-        ("", "Executor.install_fused_update"): {"compression_params"},
+    # the next multi-GPU slice: attention over a padded key length
+    "the next multi-GPU slice": {
+        ("parallel", "local_attention"): {"kv_len"},
     },
     # queue 1 item 9: the tuning database
     "queue 1 item 9": {
@@ -197,7 +208,7 @@ DEFERRED_PARAMS = {
     },
 }
 
-# the port's modules that the last six slices added or extended
+# the port's modules that the last seven slices added or extended
 NEW_MODULES = ("mxnet_tpu_torch.optimizer", "mxnet_tpu_torch.metric",
                "mxnet_tpu_torch.initializer", "mxnet_tpu_torch.lr_scheduler",
                "mxnet_tpu_torch.callback", "mxnet_tpu_torch.engine",
@@ -249,7 +260,15 @@ NEW_MODULES = ("mxnet_tpu_torch.optimizer", "mxnet_tpu_torch.metric",
                "mxnet_tpu_torch.serving.generate.scheduler",
                "mxnet_tpu_torch.serving.generate.stream",
                "mxnet_tpu_torch.gluon.contrib.transformer",
-               "mxnet_tpu_torch.convert", "mxnet_tpu_torch.fault.elastic")
+               "mxnet_tpu_torch.convert", "mxnet_tpu_torch.fault.elastic",
+               "mxnet_tpu_torch.parallel",
+               "mxnet_tpu_torch.parallel.distributed",
+               "mxnet_tpu_torch.parallel.mesh",
+               "mxnet_tpu_torch.parallel.collectives",
+               "mxnet_tpu_torch.parallel.optimizer",
+               "mxnet_tpu_torch.parallel.trainer",
+               "mxnet_tpu_torch.gradient_compression",
+               "mxnet_tpu_torch.checkpoint.compat")
 
 
 def _module(root, sub):

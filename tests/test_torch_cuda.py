@@ -907,3 +907,75 @@ def test_checkpoint_staging_is_ordered_before_the_next_step(cuda,
     torch.cuda.synchronize()
     assert not torch.equal(exe.arg_dict["fc_weight"]._data.cpu(), want_w)
 
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+@pytest.mark.parametrize("name", ["sgd_sweep", "sgd_mom_sweep", "adam_sweep"])
+def test_sweep_on_each_shard_equals_the_whole_bucket(cuda, name, n):
+    """ParallelTrainer's ZeRO update: each rank sweeps its contiguous 1/n
+    of a padded bucket.  The n shard launches, one after another, give
+    the whole-bucket launch bit for bit, and the padded tail stays zero
+    (phase 22 (a) at the LM's buckets)."""
+    from mxnet_tpu_torch.parallel.collectives import build_bucket_plan
+    plan = build_bucket_plan(["a", "b", "c"], [(1000, 3), (7,), (4097,)],
+                             0, pad_multiple=n)
+    (b,) = plan
+    n_slots = {"sgd_sweep": 0, "sgd_mom_sweep": 1, "adam_sweep": 2}[name]
+    gen = torch.Generator(device=cuda).manual_seed(22)
+    bufs = [torch.randn(b.padded_n, generator=gen, device=cuda)
+            for _ in range(2 + n_slots)]
+    if n_slots == 2:
+        bufs[3].abs_().mul_(0.01)
+    for t in bufs:
+        t[b.n:] = 0
+    hyper = torch.tensor(chip_smoke.sweep_hyper(name, False),
+                         dtype=torch.float32, device=cuda)
+    whole = [t.clone() for t in bufs]
+    parts = [t.clone() for t in bufs]
+    getattr(ck, name)(whole[0], whole[1], *whole[2:], hyper)
+    before = ck.kernel_calls()[name]
+    s = b.padded_n // n
+    for r in range(n):
+        getattr(ck, name)(*[t[r * s:(r + 1) * s] for t in parts], hyper)
+    torch.cuda.synchronize()
+    assert ck.kernel_calls()[name] == before + n
+    for got, want in zip(parts, whole):
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        assert not got[b.n:].any()
+
+
+@pytest.mark.parametrize("opt, params", [
+    ("adam", {"learning_rate": 0.05}),
+    ("sgd", {"learning_rate": 0.05, "momentum": 0.9})])
+def test_parallel_trainer_sweeps_its_buckets_on_the_card(cuda, opt, params):
+    """A one-rank ParallelTrainer (no process group) at zero=2 on the
+    card: one sweep launch per bucket a step, bitwise the plain sweep's
+    step from the same state."""
+    import os
+    import mxnet_tpu_torch as mx
+    case = {"net": "mlp", "opt": opt, "opt_params": params, "zero": 2,
+            "width": 1, "steps": 1}
+    kernel = "adam_sweep" if opt == "adam" else "sgd_mom_sweep"
+    with mx.gpu(0):
+        tr = chip_smoke.par_case_trainer(mx, case, ctx=mx.gpu(0))
+        x, y = chip_smoke.par_data()
+        x, y = mx.nd.array(x), mx.nd.array(y)
+        state = tr.state_dict()
+        before = ck.kernel_calls()[kernel]
+        tr.step(x, y)
+        torch.cuda.synchronize()
+        assert ck.kernel_calls()[kernel] == before + len(tr.bucket_plan)
+        got = {k: v.clone() for k, v in tr.params.items()}
+        tr.load_state_dict(state)
+        old = os.environ.get("MXNET_PALLAS_FUSED_OPT")
+        os.environ["MXNET_PALLAS_FUSED_OPT"] = "0"
+        try:
+            tr.step(x, y)
+        finally:
+            if old is None:
+                os.environ.pop("MXNET_PALLAS_FUSED_OPT")
+            else:
+                os.environ["MXNET_PALLAS_FUSED_OPT"] = old
+        torch.cuda.synchronize()
+        for k, v in tr.params.items():
+            assert torch.equal(v, got[k]), k
