@@ -8,6 +8,8 @@ toolkit (``nvcc`` on PATH or under ``$CUDA_HOME``)::
     python3 chip_smoke.py observability    # phases 1-2, then 19 alone
     python3 chip_smoke.py train_serve      # phases 1-2, then 20 alone
     python3 chip_smoke.py generate         # phases 1-2, then 21 alone
+    python3 chip_smoke.py parallel         # phases 1-2, then 22 alone
+    python3 chip_smoke.py model_parallel   # phases 1-2, then 23 alone
 
 Phases, each of which raises on failure:
 
@@ -344,6 +346,28 @@ Phases, each of which raises on failure:
    run recovered, K1b once a bucket and K2 once for every step run
    (replays included, ``launches_elastic``), each fault's time to
    recover;
+22. data-parallel training across the cards (``parallel_phase``);
+23. model-axis sharding (``model_parallel_phase``): K7a, K7b and K7c at
+   the per-rank shape of four ranks' Ulysses step of GPT-2 small, (24,
+   1024, 64) causal, against the plain route; then, in a world of one
+   rank per card over NCCL (``run_ranks``): (a) GPT-2 small through
+   ``ParallelTrainer`` (Adam, zero=2) on dp=2 x tp=2, dp=1 x fsdp=4 and
+   dp=2 x sp=2 (on one card, the one-rank mesh), each mesh's first SGD
+   update from the seeded state within ``MP_TOL`` of the dp-only
+   trainer's, 2 warmup and 5 timed steps (CUDA events), their losses
+   within ``MP_LOSS_TOL`` of the dp-only trainer's, one profiled
+   step's NCCL kernels by kind; (b) the LM at T 8192 under an sp mesh of every card
+   (its attention through the ring) against its dense forward,
+   ``ulysses_attention`` at (8, 4096, 12, 64) and ``ring_attention`` at
+   T 4093 (padded), causal, forward and backward, against
+   ``local_attention``; (c) ``pipeline_apply`` of one
+   ``TransformerEncoderCell`` a card at (8, 1024, 768), 8 microbatches,
+   against the sequential apply; (d) ``switch_moe`` with 8 FFN experts
+   768 -> 3072 -> 768 over 8192 tokens, with and without dropped tokens,
+   against the routing token by token on one rank (``moe_reference``);
+   each within ``MP_ATTN_TOL``; ``launches_model_parallel`` by kernel and
+   main-path call, and on four cards K7a, K7b, K7c, K6a, K6b and K4 each
+   launched;
 then every kernel's device time by the profiler (K6b's with the L2 cache
 overwritten before each launch; the bf16 instances of K3, K6a, K6b,
 K7a, K7b and K7c that phase 15 launches beside their plain versions,
@@ -359,7 +383,8 @@ Prints one JSON line ``{"checkpoints": {...}}`` with phase 13's numbers,
 18's (with its step's idle share and per-array SGD's device time),
 ``{"observability": {...}}`` with phase 19's, ``{"train_serve":
 {...}}`` with phase 20's, ``{"generative": {...}}`` and ``{"elastic":
-{...}}`` with phase 21's, one
+{...}}`` with phase 21's, ``{"parallel": {...}}`` with phase 22's,
+``{"model_parallel": {...}}`` with phase 23's, one
 ``{"kernels":
 [...]}`` (all twelve kernels; K3, K2 and K1b with their
 ``launches_inception``, K1b, K2, K3, K6a, K6b, K7a, K7b and K7c with
@@ -370,7 +395,9 @@ their ``launches_mixed``, K2 and K3 with their
 ``launches_observability`` (phase 19's counter and device trace) and
 ``launches_train_serve`` (phase 20's), K6a, K7a and K5a with their
 ``launches_generative`` (phase 21's oracle forwards), K1b and K2 with
-their ``launches_elastic`` (phase 21's elastic fit), K2 with its ``lm``
+their ``launches_elastic`` (phase 21's elastic fit), the kernels
+phases 22 and 23 launch with their ``launches_parallel`` and
+``launches_model_parallel``, K2 with its ``lm``
 jobs (the parent's
 strided form's times beside them) and its wide rows' SASS counts
 (``sass_wide``), K3,
@@ -7217,9 +7244,10 @@ def _gen_host_spec(gm):
 
 
 def _rel(a, b):
-    """max |a - b| over b's largest magnitude (b on the CPU)."""
-    a = a.detach().cpu().double()
+    """max |a - b| over b's largest magnitude, in float64 on b's
+    device."""
     b = b.detach().double()
+    a = a.detach().to(b.device, torch.float64)
     return float((a - b).abs().max() / max(float(b.abs().max()), 1e-30))
 
 
@@ -7689,8 +7717,9 @@ def par_join(rank, world, init_method, ctx):
 def par_net(mx, kind="mlp", seed=42, ctx=None):
     """A small deterministic gluon net built the same way by either
     package (``mx`` is ``mxnet_tpu`` or ``mxnet_tpu_torch``): ``mlp`` is
-    Dense(16, relu) -> Dense(8) on 12 features, ``bn`` puts a BatchNorm
-    between them; values from ``seed``, running variances positive."""
+    Dense(16, relu) -> Dense(8) on 12 features, ``drop`` puts a
+    Dropout(0.5) between them, ``bn`` a BatchNorm; values from ``seed``,
+    running variances positive."""
     nn = mx.gluon.nn
     with ctx or mx.cpu():
         with mx.name.NameManager():
@@ -7698,6 +7727,9 @@ def par_net(mx, kind="mlp", seed=42, ctx=None):
             if kind == "mlp":
                 net.add(nn.Dense(16, in_units=12, activation="relu"),
                         nn.Dense(8, in_units=16))
+            elif kind == "drop":
+                net.add(nn.Dense(16, in_units=12, activation="relu"),
+                        nn.Dropout(0.5), nn.Dense(8, in_units=16))
             else:
                 net.add(nn.Dense(16, in_units=12),
                         nn.BatchNorm(in_channels=16),
@@ -7974,6 +8006,311 @@ def par_cases_rank(rank, world, init_method, ctx, cases):
                     res["state_dict"] = tr.state_dict()
             out.append(res)
         return out if rank == 0 else None
+    finally:
+        mx.parallel.distributed.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# phase 23: model-axis sharding (tp, fsdp, sp, pp, ep)
+# ---------------------------------------------------------------------------
+# the small shapes of the CPU tests, which hold each piece against the JAX
+# package's on its virtual 8-device mesh (the inputs come from
+# :func:`mp_inputs`, numpy from a seed, in both)
+MP_SMALL_LM = {"vocab_size": 32, "units": 16, "hidden_size": 32,
+               "num_layers": 1, "num_heads": 2, "max_len": 16}
+
+
+def mp_inputs(case):
+    """The numpy inputs of one attention, pipeline or experts case
+    (``case["kind"]``), from ``case["seed"]``: the operands and the
+    weights ``w`` of the loss ``sum(out * w)`` whose gradients are held."""
+    r = np.random.RandomState(case.get("seed", 0))
+
+    def rn(*shape, s=1.0):
+        return (r.randn(*shape) * s).astype(np.float32)
+
+    kind = case["kind"]
+    if kind == "attn":
+        b, t, h, d = case["b"], case["t"], case["h"], case["d"]
+        hkv = case.get("hkv", h)
+        return {"q": rn(b, t, h, d), "k": rn(b, t, hkv, d),
+                "v": rn(b, t, hkv, d), "w": rn(b, t, h, d)}
+    if kind == "pipe":
+        s, d = case["pp"], case["d"]
+        return {"w": rn(s, d, d, s=0.5), "b": rn(s, d, s=0.1),
+                "x": rn(case["b"], d), "g": rn(case["b"], d)}
+    if kind == "moe":
+        e, d, f = case["e"], case["d"], case["f"]
+        return {"x": rn(case["t"], d), "gate": rn(d, e),
+                "w1": rn(e, d, f, s=0.3), "w2": rn(e, f, d, s=0.3),
+                "g": rn(case["t"], d)}
+    raise ValueError(kind)
+
+
+def mp_stage(F):
+    """One pipeline stage in the array namespace ``F`` (``torch`` or
+    ``jax.numpy``): ``tanh(act @ w + b)``."""
+    return lambda p, a: F.tanh(a @ p["w"] + p["b"])
+
+
+def mp_expert(F):
+    """One expert in ``F``: ``relu(tokens @ w1) @ w2``."""
+    relu = torch.relu if F is torch else (lambda a: F.maximum(a, 0.0))
+    return lambda p, x: relu(x @ p["w1"]) @ p["w2"]
+
+
+def mp_net(mx, kind, seed=42, ctx=None):
+    """:func:`par_net` (``"mlp"``, ``"bn"``), or ``"lm"``: a
+    ``TransformerLM`` of ``MP_SMALL_LM``'s widths, causal, its values
+    from ``seed`` (the same in either package: the names come from a
+    fresh ``NameManager``, the values in sorted-name order)."""
+    if kind != "lm":
+        return par_net(mx, kind, seed=seed, ctx=ctx)
+    from importlib import import_module
+    tr = import_module(mx.__name__ + ".gluon.contrib.transformer")
+    with ctx or mx.cpu():
+        with mx.name.NameManager():
+            lm = tr.TransformerLM(**MP_SMALL_LM)
+        lm.initialize(mx.init.Zero())
+        lm(mx.nd.array(np.zeros((1, 1), np.float32)))
+        r = np.random.RandomState(seed)
+        for name, p in sorted(lm.collect_params().items()):
+            v = (r.randn(*p.shape) * 0.2).astype(np.float32)
+            if name.endswith("gamma"):
+                v += np.float32(1)
+            p.set_data(mx.nd.array(v))
+    return lm
+
+
+def mp_data(kind, batch=8, seed=0):
+    """The global batch of a trainer case: :func:`par_data`'s rows, or
+    token ids and their next tokens for the LM."""
+    if kind != "lm":
+        return par_data(batch, seed=seed)
+    ids = np.random.RandomState(seed).randint(
+        0, MP_SMALL_LM["vocab_size"], (batch, 9)).astype(np.float32)
+    return ids[:, :-1], ids[:, 1:]
+
+
+def mp_trainer(mx, case, mesh, ctx=None):
+    """The ``ParallelTrainer`` of a trainer case on ``mesh``."""
+    net = mp_net(mx, case["net"], ctx=ctx)
+    loss = LMTokenLoss(mx, MP_SMALL_LM["vocab_size"]) \
+        if case["net"] == "lm" else mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    return mx.parallel.ParallelTrainer(
+        net, loss, case["opt"], dict(case["opt_params"]), mesh=mesh,
+        zero=case["zero"], bucket_bytes=case.get("bucket_bytes", 256),
+        first_bucket_bytes=case.get("first_bucket_bytes", 128))
+
+
+def mp_trainer_run(mx, trainer, case, calls=None):
+    """Step a trainer case's trainer ``case["steps"]`` times on its fixed
+    global batch; its losses, whole parameters, state bytes, wire model
+    and plan (and ``calls()`` read right after the steps)."""
+    x, y = mp_data(case["net"], case.get("batch", 8))
+    losses = []
+    for _ in range(case.get("steps", 3)):
+        loss = trainer.step(mx.nd.array(x), mx.nd.array(y))
+        losses.append(float(loss.asnumpy()))
+    return {"losses": losses,
+            "calls": calls() if calls is not None else None,
+            "params": {k: np.array(v.detach().cpu().numpy()
+                                   if isinstance(v, torch.Tensor) else v)
+                       for k, v in trainer.params.items()},
+            "bytes": trainer.optimizer_state_bytes(),
+            "comm": trainer.comm_stats(), "plan": trainer.plan_spec()}
+
+
+def _world_sum(ts):
+    """Each tensor summed over every rank of the world (a rank's
+    gradients are its share of the global ones)."""
+    import torch.distributed as dist
+    out = []
+    for t in ts:
+        t = t.detach().clone()
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            dist.all_reduce(t)
+        out.append(t)
+    return out
+
+
+def mp_attention(mx, case, dev, world):
+    """``ring_attention`` or ``ulysses_attention`` of an attention case
+    over ``make_mesh(sp=case["sp"])``: the global output, and the
+    gradients of ``sum(out * w)`` (each rank's loss divided by the
+    world, summed over it)."""
+    a = mp_inputs(case)
+    mesh = mx.parallel.make_mesh(sp=case["sp"])
+    fn = getattr(mx.parallel, case["fn"] + "_attention")
+    q, k, v = (torch.tensor(a[n], device=dev, requires_grad=True)
+               for n in ("q", "k", "v"))
+    out = fn(q, k, v, mesh=mesh, causal=case["causal"])
+    loss = (out * torch.tensor(a["w"], device=dev)).sum() / world
+    loss.backward()
+    grads = [g.cpu().numpy() for g in _world_sum([q.grad, k.grad, v.grad])]
+    return {"out": out.detach().cpu().numpy(), "dq": grads[0],
+            "dk": grads[1], "dv": grads[2]}
+
+
+def mp_pipeline(mx, case, dev, world):
+    """``pipeline_apply`` of a pipeline case over ``make_mesh(pp=...)``:
+    the output and the gradients of the stacked parameters and of x."""
+    a = mp_inputs(case)
+    mesh = mx.parallel.make_mesh(pp=case["pp"])
+    stages = [{"w": torch.tensor(a["w"][s], device=dev),
+               "b": torch.tensor(a["b"][s], device=dev)}
+              for s in range(case["pp"])]
+    stacked = mx.parallel.stack_stages(stages)
+    stacked = {k: v.detach().requires_grad_() for k, v in stacked.items()}
+    x = torch.tensor(a["x"], device=dev, requires_grad=True)
+    out = mx.parallel.pipeline_apply(mp_stage(torch), stacked, x, mesh,
+                                     num_microbatches=case["m"])
+    ((out * torch.tensor(a["g"], device=dev)).sum() / world).backward()
+    gw, gb, gx = (g.cpu().numpy() for g in _world_sum(
+        [stacked["w"].grad, stacked["b"].grad, x.grad]))
+    return {"out": out.detach().cpu().numpy(), "dw": gw, "db": gb, "dx": gx}
+
+
+def mp_moe(mx, case, dev, world):
+    """``switch_moe`` of an experts case over ``make_mesh(ep=...)``: the
+    output, the gradients of x, the gate and the experts, and how many
+    tokens this rank dropped."""
+    a = mp_inputs(case)
+    mesh = mx.parallel.make_mesh(ep=case["ep"])
+    t = {n: torch.tensor(a[n], device=dev, requires_grad=True)
+         for n in ("x", "gate", "w1", "w2")}
+    out = mx.parallel.switch_moe(
+        t["x"], t["gate"], {"w1": t["w1"], "w2": t["w2"]}, mp_expert(torch),
+        mesh, capacity_factor=case["cf"])
+    ((out * torch.tensor(a["g"], device=dev)).sum() / world).backward()
+    grads = [g.cpu().numpy() for g in _world_sum(
+        [t[n].grad for n in ("x", "gate", "w1", "w2")])]
+    res = {"out": out.detach().cpu().numpy()}
+    res.update(zip(("dx", "dgate", "dw1", "dw2"), grads))
+    res["dropped"] = int((np.abs(res["out"]).sum(-1) == 0).sum())
+    return res
+
+
+def mp_mesh(mx, case):
+    """The mesh of ``case["mesh"]`` as this rank sees it: its shape, this
+    rank's coordinates and the size of each axis's group (or the error
+    ``make_mesh`` raised)."""
+    import torch.distributed as dist
+    try:
+        mesh = mx.parallel.make_mesh(**case["mesh"])
+    except mx.MXNetError as e:
+        return {"error": str(e)}
+    groups = {}
+    for a in mesh.axis_names + (("dp", "fsdp"), None):
+        g = mesh.group(a)
+        groups[str(a)] = 1 if g is None else dist.get_world_size(g)
+    return {"shape": dict(mesh.shape), "coords": mesh.coords,
+            "devices": mesh.devices.tolist(), "groups": groups}
+
+
+def mp_resume(mx, case, on):
+    """The checkpoint case: a trainer on ``case["save"]`` (mesh, zero)
+    takes ``case["steps"]`` steps and gives its state; each of
+    ``case["loads"]`` restores it (and the JAX package's state
+    ``case["jax_state"]``) and hands its state back, then steps on."""
+    out = {}
+    tr = mp_trainer(mx, dict(case, zero=case["save"][1]),
+                    mx.parallel.make_mesh(**case["save"][0]), ctx=on)
+    res = mp_trainer_run(mx, tr, case)
+    out["saved"] = tr.state_dict()
+    out["saved_losses"] = res["losses"]
+    x, y = mp_data(case["net"])
+    out["continued"] = [float(tr.step(mx.nd.array(x), mx.nd.array(y))
+                              .asnumpy()) for _ in range(2)]
+    del tr
+    for i, (kw, zero) in enumerate(case["loads"]):
+        for src in ("port", "jax"):
+            state = out["saved"] if src == "port" else case["jax_state"]
+            tz = mp_trainer(mx, dict(case, zero=zero),
+                            mx.parallel.make_mesh(**kw), ctx=on)
+            compat = mx.checkpoint.check_restore_compat(
+                mx.checkpoint.ParallelTrainerState(
+                    state["params"], state["slots"], state["scalars"],
+                    state["residuals"], state["meta"]), tz)
+            tz.load_state_dict(state)
+            back = tz.state_dict()
+            steps = [float(tz.step(mx.nd.array(x), mx.nd.array(y))
+                           .asnumpy()) for _ in range(2)]
+            out["load%d_%s" % (i, src)] = {"state": back, "losses": steps,
+                                          "compat": compat}
+            del tz
+    return out
+
+
+def mp_dropout(mx, case, on, rank):
+    """A trainer of the ``drop`` net on ``case["mesh"]``, this rank's
+    generator seeded with its rank: the units its Dropout dropped in each
+    of ``case["steps"]`` steps, and whether the generator's state came
+    back after each step."""
+    from mxnet_tpu_torch.ops.registry import get_op
+    mx.random.seed(rank)
+    tr = mx.parallel.ParallelTrainer(
+        mp_net(mx, "drop", ctx=on), mx.gluon.loss.SoftmaxCrossEntropyLoss(),
+        "sgd", {"learning_rate": 0.1},
+        mesh=mx.parallel.make_mesh(**case["mesh"]))
+    gen = mx.random.generator(on.torch_device)
+    x, y = (mx.nd.array(a) for a in par_data(8))
+    op = get_op("Dropout")
+    real, out = op.fn, {"masks": [], "restored": []}
+
+    def record(data, **attrs):
+        res = real(data, **attrs)
+        out["masks"].append(((res == 0) & (data != 0)).cpu().numpy())
+        return res
+    op.fn = record
+    try:
+        for _ in range(case["steps"]):
+            before = gen.get_state()
+            tr.step(x, y)
+            out["restored"].append(torch.equal(before, gen.get_state()))
+    finally:
+        op.fn = real
+    return out
+
+
+def mp_cases_rank(rank, world, init_method, ctx, cases):
+    """A rank's side of the model-axis CPU tests: every case of
+    ``cases`` in turn (``kind``: mesh, attn, pipe, moe, trainer,
+    resume, dropout, and chip: phase 23's :func:`mp_chip` at ``case["cfg"]``), the
+    collective calls of each trainer case counted; returns this rank's
+    results."""
+    mx, on = par_join(rank, world, init_method, ctx)
+    from mxnet_tpu_torch.parallel import collectives
+    dev = on.torch_device
+    try:
+        out = []
+        with on:
+            for case in cases:
+                kind = case["kind"]
+                if kind == "mesh":
+                    out.append(mp_mesh(mx, case))
+                elif kind == "attn":
+                    out.append(mp_attention(mx, case, dev, world))
+                elif kind == "pipe":
+                    out.append(mp_pipeline(mx, case, dev, world))
+                elif kind == "moe":
+                    out.append(mp_moe(mx, case, dev, world))
+                elif kind == "trainer":
+                    collectives.reset_collective_calls()
+                    tr = mp_trainer(mx, case, mx.parallel.make_mesh(
+                        **case["mesh"]), ctx=on)
+                    out.append(mp_trainer_run(
+                        mx, tr, case, collectives.collective_calls))
+                    del tr
+                elif kind == "resume":
+                    out.append(mp_resume(mx, case, on))
+                elif kind == "dropout":
+                    out.append(mp_dropout(mx, case, on, rank))
+                elif kind == "chip":
+                    out.append(mp_chip(mx, on, rank, world, case["cfg"]))
+                else:
+                    raise ValueError(kind)
+        return out
     finally:
         mx.parallel.distributed.shutdown()
 
@@ -8648,6 +8985,543 @@ def parallel_phase(mx, ck, dev, bw, flops, smi, workdir_parent=None):
             "seconds": time.perf_counter() - t0}
 
 
+# -- phase 23 on the card -----------------------------------------------------
+# (a): GPT-2 small through ParallelTrainer (Adam, zero=2) on these meshes of
+# four cards (on another count of cards, the one mesh of them all over dp)
+MP_MESHES = ({"dp": 2, "tp": 2}, {"dp": 1, "fsdp": 4}, {"dp": 2, "sp": 2})
+MP_WARMUP = 2
+MP_TIMED = 5
+# a mesh's first SGD update from the seeded state against the dp-only
+# trainer's: the same fp32 sums in other orders, held to 1e-5 of the
+# largest update.  The probe's learning rate makes the update (lr x the
+# gradient, up to ~20) dwarf the weights, so the parameters' change is
+# the gradient to its own rounding: at PAR_SGD's 1e-4 the change is
+# ~2e-7, and a one-ulp difference in a weight's rounding is 1.7% of it
+MP_TOL = 1e-5
+MP_PROBE_SGD = {"learning_rate": 1e4}
+# each timed Adam run's losses against the dp-only trainer's, step for
+# step, relative to the loss: the same sums in other orders (the meshes
+# agreed within 6e-7 of each other over 7 steps on four H100s); a wrong
+# block of a gradient moves the loss by far more after a step
+MP_LOSS_TOL = 1e-5
+# (b) the LM's forward under sp over every card at this length (batch 1),
+# Ulysses at (B, T, H, D) and the ring at a length that pads; (c) the
+# pipeline of TransformerEncoderCells at (B, T, units), M microbatches;
+# (d) the experts: E FFNs D -> F -> D over T tokens, at a capacity factor
+# that keeps every token and one that drops some
+MP_CFG = {"warmup": MP_WARMUP, "timed": MP_TIMED, "batch": LM_BATCH,
+          "t": LM_T[0], "sp_t": 8192, "ulysses": (8, 4096, 12, 64),
+          "ring_t": 4093, "pipe": {"batch": 8, "t": 1024, "m": 8},
+          "moe": {"e": 8, "tokens": 8192, "f": 3072, "cf": (4.0, 0.5)}}
+# the pieces against their one-rank forms (local_attention, the sequential
+# apply, the same routing on one rank): the same fp32 arithmetic in other
+# orders and shapes, of the largest value held
+MP_ATTN_TOL = 1e-5
+MP_KERNELS = ("adam_sweep", "layernorm_fwd", "layernorm_bwd",
+              "flash_attention_fwd", "flash_attention_bwd_dq",
+              "flash_attention_bwd_dkv", "bias_softmax", "softmax_bwd",
+              "softmax_lastaxis")
+# the kernels that four cards must launch on the phase's main path
+MP_MUST_LAUNCH = ("flash_attention_fwd", "flash_attention_bwd_dq",
+                  "flash_attention_bwd_dkv", "layernorm_fwd",
+                  "layernorm_bwd", "adam_sweep")
+
+
+def moe_reference(x, gate_w, params, expert_fn, ep, capacity_factor):
+    """``switch_moe``'s semantics on one rank, routed token by token in
+    plain Python: the tokens in order, each of the ``ep`` source blocks
+    with its own capacity; a token goes to the first expert of its
+    largest gate probability and takes the next slot of that expert's
+    queue from its block, or is dropped (zero) once the queue holds the
+    capacity; each kept token's output is its expert's scaled by its
+    gate probability (differentiable).  Each expert runs over the queues
+    of every source at once, zero rows in the empty slots, as the rank
+    that holds it does: the same GEMM shapes, so no ReLU input within
+    rounding of zero flips between the two."""
+    T, D = x.shape
+    E = gate_w.shape[1]
+    t_local = T // ep
+    C = max(int(capacity_factor * t_local / E), 1)
+    # each source block's gate as its rank computes it (the same GEMM)
+    probs = torch.cat([torch.softmax(x[s * t_local:(s + 1) * t_local]
+                                     @ gate_w, dim=-1) for s in range(ep)])
+    zero = T                       # the index of a zero row
+    queues = [[zero] * (ep * C) for _ in range(E)]
+    filled = [[0] * E for _ in range(ep)]
+    expert, row_of = [], []
+    for t, p in enumerate(probs.detach().cpu().tolist()):
+        src, e = t // t_local, 0
+        for i in range(1, E):
+            if p[i] > p[e]:
+                e = i
+        n = filled[src][e]
+        filled[src][e] = n + 1
+        expert.append(e)
+        if n < C:
+            queues[e][src * C + n] = t
+            row_of.append(e * ep * C + src * C + n)
+        else:
+            row_of.append(E * ep * C)
+    xz = torch.cat([x, x.new_zeros((1, D))])
+    ys = [expert_fn({k: v[e] for k, v in params.items()},
+                    xz[torch.tensor(queues[e], device=x.device)])
+          for e in range(E)]
+    ys = torch.cat(ys + [x.new_zeros((1, D))])
+    dev = x.device
+    gate = probs[torch.arange(T, device=dev),
+                 torch.tensor(expert, device=dev)]
+    return ys[torch.tensor(row_of, device=dev)] * gate[:, None]
+
+
+def _seeded(dev, shapes, seed=SEED, scale=1.0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(s, generator=g, device=dev) * scale for s in shapes]
+
+
+def mp_sp_attention(mx, fn, mesh, dev, b, t, h, d, world, rank,
+                    window=contextlib.nullcontext()):
+    """``fn`` (ring or Ulysses) at (b, t, h, d) causal over ``mesh``,
+    forward and backward (inside ``window``), against ``local_attention``
+    on one rank: the errors of the output and of dq, dk, dv (rank 0's;
+    None elsewhere)."""
+    q, k, v, w = _seeded(dev, [(b, t, h, d)] * 4)
+    leaves = [a.clone().requires_grad_() for a in (q, k, v)]
+    with window:
+        out = fn(*leaves, mesh=mesh, causal=True)
+        ((out * w).sum() / world).backward()
+    grads = _world_sum([a.grad for a in leaves])
+    if rank != 0:
+        return None
+    ref = [a.clone().requires_grad_() for a in (q, k, v)]
+    want = mx.parallel.local_attention(*ref, causal=True)
+    (want * w).sum().backward()
+    errs = {n: _rel(g, r.grad)
+            for n, g, r in zip(("dq", "dk", "dv"), grads, ref)}
+    return dict(errs, out=_rel(out, want))
+
+
+def mp_pipeline_chip(mx, on, dev, cfg, world, rank, config=GPT2_SMALL,
+                     window=contextlib.nullcontext()):
+    """``pipeline_apply`` of ``world`` stages, each one
+    ``TransformerEncoderCell`` of ``config``'s widths (causal), at
+    ``cfg``'s shape and microbatches, forward and backward (inside
+    ``window``), against the sequential apply of each microbatch: the
+    errors of the output and of the gradients of the stacked parameters
+    and of x (rank 0's)."""
+    from mxnet_tpu_torch.gluon.contrib.transformer import \
+        TransformerEncoderCell
+    units, hidden, heads = (config[k] for k in ("units", "hidden_size",
+                                                 "num_heads"))
+    cells = []
+    for s in range(world):
+        mx.random.seed(SEED + s)
+        cell = TransformerEncoderCell(units, hidden, heads, causal=True)
+        cell.initialize(mx.init.Xavier(), ctx=on)
+        cell(mx.nd.array(np.zeros((1, 8, units), np.float32), ctx=on))
+        cells.append(cell)
+    names = [n[len(cells[0].prefix):] for n in cells[0].collect_params()]
+    stacked = {n: torch.stack([c.collect_params()[c.prefix + n].data()._data
+                               for c in cells]).detach() for n in names}
+    full = [cells[0].prefix + n for n in names]
+    apply_fn = mx.parallel.pure_block_apply(cells[0], full, True)
+
+    def stage(p, act):
+        return apply_fn({f: p[n] for f, n in zip(full, names)}, None, act)
+
+    b, t = cfg["batch"], cfg["t"]
+    x, g = _seeded(dev, [(b, t, units)] * 2, seed=SEED + 23)
+    leaves = {n: v.clone().requires_grad_() for n, v in stacked.items()}
+    xr = x.clone().requires_grad_()
+    mesh = mx.parallel.make_mesh(pp=world)
+    with window:
+        out = mx.parallel.pipeline_apply(stage, leaves, xr, mesh,
+                                         num_microbatches=cfg["m"])
+        ((out * g).sum() / world).backward()
+    grads = _world_sum([leaves[n].grad for n in names] + [xr.grad])
+    if rank != 0:
+        return None
+    # the sequential apply, microbatch by microbatch: the pipeline's GEMM
+    # shapes, so no ReLU input within rounding of zero flips between the
+    # two (a flip moves a weight's gradient by percents; phase 12)
+    ref = {n: v.clone().requires_grad_() for n, v in stacked.items()}
+    xs = x.clone().requires_grad_()
+    acts = []
+    for act in xs.chunk(cfg["m"]):
+        for s in range(world):
+            act = stage({n: v[s] for n, v in ref.items()}, act)
+        acts.append(act)
+    act = torch.cat(acts)
+    (act * g).sum().backward()
+    return {"out": _rel(out, act), "dx": _rel(grads[-1], xs.grad),
+            "dparams": max(_rel(gp, ref[n].grad)
+                           for n, gp in zip(names, grads))}
+
+
+def mp_moe_chip(mx, dev, cfg, world, rank, units=GPT2_SMALL["units"],
+                counted=lambda cf: contextlib.nullcontext()):
+    """``switch_moe`` with ep over every card, E FFN experts, at each
+    capacity factor of ``cfg``, forward and backward (inside
+    ``counted(cf)``), against :func:`moe_reference`: per factor the
+    errors of the output and the gradients, and the tokens dropped."""
+    E, T, F, D = cfg["e"], cfg["tokens"], cfg["f"], units
+    x, gate, w1, w2, g = _seeded(dev, [(T, D), (D, E), (E, D, F), (E, F, D),
+                                       (T, D)], seed=SEED + 24, scale=0.05)
+    x, gate, g = x * 20, gate * 20, g * 20
+
+    def expert(p, tok):
+        return torch.relu(tok @ p["w1"]) @ p["w2"]
+
+    mesh = mx.parallel.make_mesh(ep=world)
+    res = {}
+    for cf in cfg["cf"]:
+        t = [a.clone().requires_grad_() for a in (x, gate, w1, w2)]
+        with counted(cf):
+            out = mx.parallel.switch_moe(t[0], t[1],
+                                         {"w1": t[2], "w2": t[3]}, expert,
+                                         mesh, capacity_factor=cf)
+            ((out * g).sum() / world).backward()
+        grads = _world_sum([a.grad for a in t])
+        if rank != 0:
+            continue
+        r = [a.clone().requires_grad_() for a in (x, gate, w1, w2)]
+        want = moe_reference(r[0], r[1], {"w1": r[2], "w2": r[3]}, expert,
+                             world, cf)
+        (want * g).sum().backward()
+        res[cf] = {"out": _rel(out, want),
+                   "grads": max(_rel(a, b.grad)
+                                for a, b in zip(grads, r)),
+                   "dropped": int((want.detach().abs().sum(-1) == 0).sum())}
+    return res
+
+
+def _mp_gather_rows(t, mesh):
+    """The boolean ``t`` of every rank of ``mesh``'s batch axes, joined
+    along dim 0 in rank order (a collective)."""
+    from mxnet_tpu_torch.parallel.collectives import _gather_dim
+    group = mesh.group(("dp", "fsdp"))
+    if group is None:
+        return t
+    return _gather_dim(t.to(torch.uint8).contiguous(), 0, group).bool()
+
+
+def _mp_update(trainer, init):
+    """``{name: value - init}``: what the trainer's steps moved each
+    parameter by (a collective: every rank reads the whole values)."""
+    return {k: v.detach() - init[k] for k, v in trainer.params.items()}
+
+
+def mp_chip_rank(rank, world, init_method, ctx, cfg):
+    """A rank of phase 23: see :func:`mp_chip`."""
+    mx, on = par_join(rank, world, init_method, ctx)
+    try:
+        with on:
+            return mp_chip(mx, on, rank, world, cfg)
+    finally:
+        mx.parallel.distributed.shutdown()
+
+
+@contextlib.contextmanager
+def _mp_counted(ck, out, run):
+    """The launches of the main-path call run inside: the counts set to 0
+    on entry and read into ``out["launches"][run]`` on exit."""
+    ck.reset_kernel_calls()
+    yield
+    out["launches"][run] = ck.kernel_calls()
+
+
+def mp_chip(mx, on, rank, world, cfg):
+    """Phase 23 on one rank of a ``world``, the kernel launches of each
+    main-path call counted from zero just before it and read just after
+    (set-up forwards and references run outside those windows):
+
+    (a) the LM (``cfg["config"]``, the global batch ``cfg["batch"]`` x
+    ``cfg["t"]``) through ``ParallelTrainer`` with Adam at zero=2 on each
+    mesh of ``cfg["meshes"]``: warmup and timed steps (CUDA events), one
+    profiled step; on more than one rank first the update of one SGD step
+    (``MP_PROBE_SGD``) from the seeded state against the dp-only
+    trainer's, with the dp-only step's ReLU decisions replayed on each
+    rank's rows, as phase 22 does (SGD's update is the gradient; Adam's
+    first step moves a weight whose gradient is rounding noise by +-lr
+    whatever the noise's size, so it would hold the sums' order, not the
+    mesh's arithmetic), and the Adam run's losses against the dp-only
+    trainer's, step for step;
+    (b) the LM at ``cfg["sp_t"]`` (batch 1) under ``mesh_scope`` of an sp
+    mesh over the world (its attention through the ring) against its
+    dense forward; Ulysses at ``cfg["ulysses"]`` and the ring at
+    ``cfg["ring_t"]``, causal, forward and backward, against
+    ``local_attention``;
+    (c) :func:`mp_pipeline_chip`; (d) :func:`mp_moe_chip`.
+    Returns this rank's record (rank 0's holds the comparisons)."""
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+    from mxnet_tpu_torch.parallel import collectives
+    dev = on.torch_device
+    cuda = dev.type == "cuda"
+    config = cfg["config"]
+    out = {"rank": rank, "world": world, "launches": {}, "trainers": {}}
+    lm = lm_initialized(mx, on, config)
+    x, y = lm_batch(mx, on, config["vocab_size"], cfg["batch"], cfg["t"])
+    loss_fn = LMTokenLoss(mx, config["vocab_size"])
+    Trainer = mx.parallel.ParallelTrainer
+    # (a)
+    ref = init = masks = adam = None
+    steps = cfg["warmup"] + cfg["timed"]
+    if world > 1:
+        init = {k: p.data()._data.detach().clone()
+                for k, p in lm.collect_params().items()}
+        tr = Trainer(lm, loss_fn, "sgd", MP_PROBE_SGD, zero=2)
+        with relu_decisions() as dec:
+            tr.step(x, y)
+        ref = _mp_update(tr, init)
+        # every rank's ReLU decisions, whole batch (rank order is row
+        # order), for the meshes to replay on their own rows
+        masks = [_mp_gather_rows(m, tr.mesh) for m in dec.masks]
+        del tr, dec
+        # the dp-only trainer's Adam losses, for the meshes' timed runs
+        tr = Trainer(lm, loss_fn, "adam", PAR_ADAM, zero=2)
+        adam = [float(tr.step(x, y).asnumpy()) for _ in range(steps)]
+        del tr
+    for kw in cfg["meshes"]:
+        name = "x".join("%s%d" % kv for kv in kw.items()) or "dp%d" % world
+        mesh = mx.parallel.make_mesh(**kw)
+        rec = {"mesh": kw}
+        if ref is not None:
+            tr = Trainer(lm, loss_fn, "sgd", MP_PROBE_SGD, zero=2,
+                         mesh=mesh)
+            rows = mx.parallel.batch_sharded(mesh, axes=("dp", "fsdp"))
+            with relu_decisions([rows.local(m) for m in masks]) as replay:
+                tr.step(x, y)
+            rec["vs_dp"] = _par_dev(_mp_update(tr, init), ref)
+            rec["relu_flips"] = [replay.flips, replay.total]
+            del tr
+        tr = Trainer(lm, loss_fn, "adam", PAR_ADAM, zero=2, mesh=mesh)
+        rec.update(comm=tr.comm_stats(),
+                   opt_bytes=tr.optimizer_state_bytes(),
+                   sharded=sum(1 for p in tr.plan_spec()["params"]
+                               if any(p["spec"])))
+        _par_reset(ck, mx, collectives)
+        with _mp_counted(ck, out, "trainer_" + name):
+            losses = [tr.step(x, y) for _ in range(cfg["warmup"])]
+            _sync(dev)
+            t0 = _marker(dev)
+            for _ in range(cfg["timed"]):
+                losses.append(tr.step(x, y))
+            t1 = _marker(dev)
+        rec["step_ms"] = _elapsed_ms(t0, t1) / cfg["timed"]
+        rec["tokens_per_s"] = cfg["batch"] * cfg["t"] / rec["step_ms"] * 1e3
+        rec["losses"] = [float(v.asnumpy()) for v in losses]
+        if adam is not None:
+            rec["losses_vs_dp"] = max(abs(a - b) / abs(b) for a, b in
+                                      zip(rec["losses"], adam))
+        rec["collective_calls"] = collectives.collective_calls()
+        rec["steps"] = len(losses)
+        if cuda:
+            rec["profiled"] = _par_profile(tr, x, y, dev)
+        out["trainers"][name] = rec
+        del tr
+        if cuda:
+            torch.cuda.empty_cache()
+    del ref, init, masks, lm
+    # (b)
+    mesh = mx.parallel.make_mesh(sp=world)
+    lm8 = lm_initialized(mx, on, dict(config, max_len=cfg["sp_t"]))
+    ids = lm_tokens(mx, on, config["vocab_size"], 1, cfg["sp_t"])
+    with torch.no_grad():
+        with _mp_counted(ck, out, "lm_sp_forward"), \
+                mx.parallel.mesh_scope(mesh):
+            ring = lm8(ids)._data
+        if rank == 0:
+            dense = lm8(ids)._data
+            out["lm_sp"] = {"err": _rel(ring, dense),
+                            "finite": bool(torch.isfinite(ring).all())}
+            del dense
+    del lm8, ring
+    b, t, h, d = cfg["ulysses"]
+    out["ulysses"] = mp_sp_attention(
+        mx, mx.parallel.ulysses_attention, mesh, dev, b, t, h, d, world,
+        rank, _mp_counted(ck, out, "ulysses"))
+    out["ring"] = mp_sp_attention(
+        mx, mx.parallel.ring_attention, mesh, dev, b, cfg["ring_t"], h, d,
+        world, rank, _mp_counted(ck, out, "ring"))
+    if cuda:
+        torch.cuda.empty_cache()
+    # (c), (d)
+    out["pipeline"] = mp_pipeline_chip(mx, on, dev, cfg["pipe"], world,
+                                       rank, config,
+                                       _mp_counted(ck, out, "pipeline"))
+    out["moe"] = mp_moe_chip(
+        mx, dev, cfg["moe"], world, rank, config["units"],
+        lambda cf: _mp_counted(ck, out, "moe_cf%g" % cf))
+    ck.reset_kernel_calls()
+    return out
+
+
+def mp_launches(rec):
+    """``{kernel: {run: launches, ..., "total": n}}`` over phase 23's main
+    path runs (rank 0's counts)."""
+    out = {}
+    for run, calls in rec["launches"].items():
+        for k in MP_KERNELS:
+            n = calls.get(k, 0)
+            if n:
+                d = out.setdefault(k, {"total": 0})
+                d[run] = n
+                d["total"] += n
+    return out
+
+
+def mp_checks(rec, on_card=True):
+    """Phase 23's checks on rank 0's record; returns the failures (empty:
+    the phase holds).  The launches hold only on the card, and the
+    kernels every one of them must launch only on four cards (on fewer,
+    the one-rank meshes run the same kernels, counted all the same)."""
+    bad = []
+    for name, r in rec["trainers"].items():
+        loss = r["losses"]
+        if not (np.isfinite(loss).all() and loss[-1] < loss[0]):
+            bad.append("(a) %s: the loss on the fixed batch went %s"
+                       % (name, loss))
+        if "vs_dp" in r and not (r["vs_dp"][0] or r["vs_dp"][1] <= MP_TOL):
+            bad.append("(a) %s: the first SGD update against dp=%d's: %.3g "
+                       "of the largest" % (name, rec["world"],
+                                           r["vs_dp"][1]))
+        if "losses_vs_dp" in r and not r["losses_vs_dp"] <= MP_LOSS_TOL:
+            bad.append("(a) %s: the Adam losses against dp=%d's: %.3g of "
+                       "the loss" % (name, rec["world"], r["losses_vs_dp"]))
+    lm = rec["lm_sp"]
+    if not (lm["finite"] and lm["err"] <= MP_ATTN_TOL):
+        bad.append("(b) the LM under sp against its dense forward: %s" % lm)
+    for what in ("ulysses", "ring"):
+        for k, v in rec[what].items():
+            if not v <= MP_ATTN_TOL:
+                bad.append("(b) %s %s: %.3g" % (what, k, v))
+    for k, v in rec["pipeline"].items():
+        if not v <= MP_ATTN_TOL:
+            bad.append("(c) pipeline %s against the sequential apply: %.3g"
+                       % (k, v))
+    for cf, r in rec["moe"].items():
+        if not (r["out"] <= MP_ATTN_TOL and r["grads"] <= MP_ATTN_TOL):
+            bad.append("(d) switch_moe at capacity factor %g: %s" % (cf, r))
+        if (r["dropped"] > 0) != (cf < 1):
+            bad.append("(d) capacity factor %g dropped %d tokens"
+                       % (cf, r["dropped"]))
+    if on_card:
+        launched = mp_launches(rec)
+        must = MP_MUST_LAUNCH if rec["world"] >= 4 else ()
+        for k in must:
+            if not launched.get(k, {}).get("total"):
+                bad.append("kernel %s was not launched on phase 23's main "
+                           "path" % k)
+    return bad
+
+
+def mp_kernel_shapes(mx, ck, dev):
+    """K7a, K7b and K7c at the per-rank shape four ranks' Ulysses step of
+    GPT-2 small sees, (8 x 12/4, 1024, 64) causal (``local_attention``
+    with 3 heads), against the plain route (``impl="einsum"``): the
+    errors of o, dq, dk, dv over the largest value, and the launches of
+    the kernel route."""
+    b, t, h, d = 8, 1024, GPT2_SMALL["num_heads"] // 4, 64
+    q, k, v, w = _seeded(dev, [(b, t, h, d)] * 4, seed=SEED + 25)
+    res = {}
+    ck.reset_kernel_calls()
+    routes = {}
+    for impl in ("flash", "einsum"):
+        leaves = [a.clone().requires_grad_() for a in (q, k, v)]
+        o = mx.parallel.local_attention(*leaves, causal=True, impl=impl)
+        (o * w).sum().backward()
+        routes[impl] = [o] + [a.grad for a in leaves]
+        if impl == "flash":
+            res["launches"] = ck.kernel_calls()
+    for n, a, bb in zip(("o", "dq", "dk", "dv"), routes["flash"],
+                        routes["einsum"]):
+        res[n] = _rel(a, bb)
+    res["shape"] = (b * h, t, d)
+    ck.reset_kernel_calls()
+    return res
+
+
+def model_parallel_phase(mx, ck, dev, smi, workdir_parent=None):
+    """Phase 23 on the card: K7a/K7b/K7c at Ulysses's per-rank shape here,
+    then :func:`mp_chip` in a world of ``torch.cuda.device_count()`` ranks
+    over NCCL.  Prints the phase's lines; returns its record."""
+    import tempfile
+    t0 = time.perf_counter()
+    kern = mp_kernel_shapes(mx, ck, dev)
+    bad = ["K7a/K7b/K7c at %s: %s %.3g" % (kern["shape"], n, kern[n])
+           for n in ("o", "dq", "dk", "dv") if not kern[n] <= MP_ATTN_TOL]
+    print("phase 23 K7a/K7b/K7c at Ulysses's per-rank shape %s causal fp32 "
+          "(GPT-2 small, sp=4) against the plain route: o %.3g, dq %.3g, "
+          "dk %.3g, dv %.3g of the largest value; launches %s" % (
+              kern["shape"], kern["o"], kern["dq"], kern["dk"], kern["dv"],
+              {k: v for k, v in kern["launches"].items() if v}), flush=True)
+    world = torch.cuda.device_count()
+    if world == 1:
+        print("phase 23: one card, so every entry point runs at a mesh of "
+              "one rank (held to local_attention, the sequential apply and "
+              "the one-rank routing); the multi-rank runs are held to the "
+              "JAX package on the CPU over gloo "
+              "(tests/test_torch_model_parallel.py) and by this phase on a "
+              "machine with four cards", flush=True)
+    here = os.path.dirname(os.path.abspath(__file__))
+    workdir = tempfile.TemporaryDirectory(prefix=".chip_smoke_mp_",
+                                          dir=workdir_parent or here)
+    cfg = dict(MP_CFG, config=GPT2_SMALL,
+               meshes=MP_MESHES if world == 4 else ({},))
+    try:
+        t = time.perf_counter()
+        ranks = run_ranks("chip_smoke:mp_chip_rank", world, (cfg,),
+                          ctx="gpu", workdir=workdir.name)
+        t_run = time.perf_counter() - t
+    finally:
+        workdir.cleanup()
+    rec = ranks[0]
+    bad += mp_checks(rec)
+    for name, r in rec["trainers"].items():
+        prof = r["profiled"]
+        print("phase 23 (a) on %s, NCCL %s: GPT-2-small-width TransformerLM "
+              "fp32 through ParallelTrainer(adam, zero=2) on %s (%d sharded "
+              "parameters), global batch %d x %d: %.2f ms/step (CUDA events, "
+              "%d timed after %d), %.0f tokens/s; loss %.4f -> %.4f; first "
+              "SGD update against dp=%d's %s; Adam losses against dp=%d's "
+              "%s of the loss; wire model a step %s; calls "
+              "a step %s; the profiled step: compute busy %.0f us, NCCL "
+              "%.0f us in kernels %s" % (
+                  smi, torch.cuda.nccl.version(), name, r["sharded"],
+                  cfg["batch"], cfg["t"], r["step_ms"], cfg["timed"],
+                  cfg["warmup"], r["tokens_per_s"], r["losses"][0],
+                  r["losses"][-1], world, "%s (ReLU inputs flipped "
+                  "against dp=%d's decisions %s)" % (
+                      r["vs_dp"], world, r["relu_flips"])
+                  if "vs_dp" in r else "(one rank)", world,
+                  "%.3g" % r["losses_vs_dp"] if "losses_vs_dp" in r
+                  else "(one rank)",
+                  {k: v["ops"] for k, v in r["comm"]["kinds"].items()},
+                  {k: v // r["steps"] for k, v in
+                   r["collective_calls"].items()}, prof["busy_us"],
+                  prof["nccl_us"], prof["nccl_kernels"]), flush=True)
+    print("phase 23 (b-d) on %s over %d rank(s): the LM at T %d under sp=%d "
+          "against its dense forward %s; Ulysses at %s causal %s; the ring "
+          "at T %d causal %s; the pipeline of %d TransformerEncoderCells at "
+          "%s, M %d, against the sequential apply %s; switch_moe ep=%d E=%d "
+          "over %d tokens against the one-rank routing %s; %.1f s" % (
+              smi, world, cfg["sp_t"], world, rec["lm_sp"],
+              cfg["ulysses"], rec["ulysses"], cfg["ring_t"], rec["ring"],
+              world, (cfg["pipe"]["batch"], cfg["pipe"]["t"],
+                      GPT2_SMALL["units"]), cfg["pipe"]["m"],
+              rec["pipeline"], world, cfg["moe"]["e"], cfg["moe"]["tokens"],
+              rec["moe"], t_run), flush=True)
+    launches = mp_launches(rec)
+    print("launches_model_parallel: %s" % json.dumps(launches), flush=True)
+    if bad:
+        raise AssertionError("phase 23: " + "; ".join(bad))
+    return {"card": smi, "world": world, "kernel_shapes": kern,
+            "trainers": rec["trainers"], "lm_sp": rec["lm_sp"],
+            "ulysses": rec["ulysses"], "ring": rec["ring"],
+            "pipeline": rec["pipeline"], "moe": rec["moe"],
+            "launches_model_parallel": launches,
+            "seconds": time.perf_counter() - t0}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -8727,6 +9601,15 @@ def main():
         # phase 22 alone
         par_line = parallel_phase(mx, ck, dev, bw, flops, smi)
         print(json.dumps({"parallel": par_line}, default=str))
+        print("nvidia-smi: %s" % smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
+        return 0
+    if sys.argv[1:] == ["model_parallel"]:
+        # phase 23 alone
+        mp_line = model_parallel_phase(mx, ck, dev, smi)
+        print(json.dumps({"model_parallel": mp_line}, default=str))
         print("nvidia-smi: %s" % smi)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind,
@@ -9824,6 +10707,17 @@ def main():
                       (k7c, "flash_attention_bwd_dkv"),
                       (k2, "softmax_lastaxis")):
         rec["launches_parallel"] = par_line["launches_parallel"][name]
+    # 23. model-axis sharding
+    mp_line = model_parallel_phase(mx, ck, dev, smi)
+    for rec, name in ((sweeps["adam_sweep"], "adam_sweep"),
+                      (k6a, "layernorm_fwd"), (k6b, "layernorm_bwd"),
+                      (k7a, "flash_attention_fwd"),
+                      (k7b, "flash_attention_bwd_dq"),
+                      (k7c, "flash_attention_bwd_dkv"),
+                      (k5a, "bias_softmax"), (k5b, "softmax_bwd"),
+                      (k2, "softmax_lastaxis")):
+        rec["launches_model_parallel"] = mp_line[
+            "launches_model_parallel"].get(name, {"total": 0})
     for job in k7a_jobs:
         job["tflops"] = job["ops"] / job["ms"] / 1e9
     k7a["tflops"] = k7a_jobs[0]["tflops"]
@@ -9924,6 +10818,7 @@ def main():
     print(json.dumps({"generative": gen_line}, default=str))
     print(json.dumps({"elastic": el_line}, default=str))
     print(json.dumps({"parallel": par_line}, default=str))
+    print(json.dumps({"model_parallel": mp_line}, default=str))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
             "launches_per_forward", "call_ms", "plain_call_ms",
@@ -9936,7 +10831,7 @@ def main():
                         "launches_data_pipeline", "launches_gluon",
                         "launches_observability", "launches_train_serve",
                         "launches_generative", "launches_elastic",
-                        "launches_parallel",
+                        "launches_parallel", "launches_model_parallel",
                         "lm", "bf16",
                         "ms_repeats", "library_ms_repeats",
                         "bfloat16_ms_repeats", "bfloat16_library_ms_repeats",

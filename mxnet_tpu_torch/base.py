@@ -12,8 +12,12 @@ import os
 import numpy as np
 import torch
 
-__all__ = ["MXNetError", "getenv", "dtype_torch", "dtype_name", "dtype_id",
-           "dtype_from_id"]
+__all__ = ["MXNetError", "getenv", "string_types", "numeric_types",
+           "dtype_np", "dtype_torch", "dtype_name", "dtype_id",
+           "dtype_from_id", "classproperty"]
+
+string_types = (str,)
+numeric_types = (float, int, np.generic)
 
 
 class MXNetError(RuntimeError):
@@ -58,6 +62,23 @@ def dtype_torch(dtype):
     return _NAME_TO_TORCH[name]
 
 
+def dtype_np(dtype):
+    """Normalise a user dtype (str, numpy dtype or type, torch.dtype) to a
+    ``numpy.dtype``; None means float32.  ``"bfloat16"`` is
+    ``ml_dtypes``' bfloat16 where that package is installed."""
+    if dtype is None:
+        return np.dtype(np.float32)
+    if isinstance(dtype, torch.dtype):
+        dtype = dtype_name(dtype)
+    if isinstance(dtype, str) and dtype == "bfloat16":
+        try:
+            import ml_dtypes
+        except ImportError:
+            raise MXNetError("numpy has no bfloat16 without ml_dtypes")
+        return np.dtype(ml_dtypes.bfloat16)
+    return np.dtype(dtype)
+
+
 def dtype_name(dtype):
     """``torch.dtype`` -> the MXNet dtype string (``"float32"``...)."""
     return _TORCH_TO_NAME[dtype_torch(dtype)]
@@ -77,6 +98,16 @@ def dtype_from_id(tid):
     if tid not in _ID_TO_TORCH:
         raise MXNetError("unknown dtype id %d in an NDArray file" % tid)
     return _ID_TO_TORCH[tid]
+
+
+class classproperty:  # noqa: N801
+    """A read-only property of the class (``owner.name`` runs ``f(owner)``)."""
+
+    def __init__(self, f):
+        self.f = f
+
+    def __get__(self, obj, owner):
+        return self.f(owner)
 
 
 _TRUE = ("1", "true", "True", "yes", "on")

@@ -683,3 +683,50 @@ class Executor:
                                      "executor %s" % (what, k, v.shape,
                                                       slots[k].shape))
                 slots[k]._data.copy_(_as_tensor(v))
+
+    def reshape(self, partial_shaping=False, allow_up_sizing=False, **kwargs):
+        """Rebind with new data shapes, sharing the parameter arrays
+        (reference: MXExecutorReshape, for bucketing and variable batch).
+
+        Growing a PROVIDED argument needs ``allow_up_sizing=True``; a
+        shape change inferred onto an argument not named in ``kwargs``
+        (typically a parameter, whose trained values would be replaced
+        by zeros) needs ``partial_shaping=True``.  Arguments whose shape
+        holds, and every aux state, are the same NDArrays as this
+        executor's."""
+        new_shapes = {k: tuple(v) for k, v in kwargs.items()}
+        shapes, _ = _infer_graph(self._symbol, dict(new_shapes))
+        for n in self.arg_names:
+            cur = self.arg_dict[n].shape
+            new = shapes.get(n)
+            if n in new_shapes:
+                if new is not None and not allow_up_sizing and \
+                        np.prod(new, dtype=np.int64) > \
+                        np.prod(cur, dtype=np.int64):
+                    raise MXNetError(
+                        "reshape: arg %r grows %s -> %s; set "
+                        "allow_up_sizing=True to permit reallocation"
+                        % (n, cur, new))
+            elif new is not None and new != cur and not partial_shaping:
+                raise MXNetError(
+                    "reshape: unspecified arg %r would change shape "
+                    "%s -> %s (its contents would be re-initialized); "
+                    "set partial_shaping=True to permit this"
+                    % (n, cur, new))
+        arg_dict, grad_dict = {}, {}
+        for n in self.arg_names:
+            old = self.arg_dict[n]
+            if n in new_shapes or shapes.get(n) != old.shape:
+                arg_dict[n] = NDArray(torch.zeros(
+                    shapes[n], dtype=old._data.dtype, device=self._device))
+            else:
+                arg_dict[n] = old
+            if self._grad_req[n] != "null":
+                grad_dict[n] = NDArray(torch.zeros_like(arg_dict[n]._data))
+        return Executor(self._symbol, self._device, arg_dict,
+                        dict(self.aux_dict), grad_dict, dict(self._grad_req),
+                        self._compute_dtype, self._cast_exclude)
+
+    def debug_str(self):
+        """The bound symbol's ``debug_str``."""
+        return self._symbol.debug_str()

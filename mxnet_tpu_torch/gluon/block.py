@@ -23,6 +23,8 @@ import re
 import threading
 import warnings
 
+import torch
+
 from .. import autograd, ndarray
 from ..context import current_context
 from ..name import NameManager
@@ -255,6 +257,16 @@ class HybridBlock(Block):
                 v._finish_deferred_init()
             params = {k: v.data() for k, v in self._reg_params.items()}
         return self.hybrid_forward(ndarray, x, *args, **params)
+
+    def infer_shape(self, *args):
+        """Give every parameter its shape from the inputs ``args``
+        (reference: block.py infer_shape): one forward on them, recorded
+        by nothing and in predict mode, whose deferred initializations
+        finish as the first forward's would (the same initializers in the
+        same order).  The JAX package's ``infer_shape`` does nothing and
+        leaves the shapes to the first forward."""
+        with autograd.pause(train_mode=False), torch.no_grad():
+            self(*args)
 
     def _shape_hook(self, inputs):
         """Subclasses set their parameters' unknown dims from the input

@@ -93,6 +93,8 @@ class Parameter:
         self._grad = None
         self._grad_req = None
         self._deferred_init = ()
+        self._ctx_list = None
+        self._var = None
         self.grad_req = grad_req
 
     def __repr__(self):
@@ -158,8 +160,9 @@ class Parameter:
         self._data = self._grad = None
         if ctx is None:
             ctx = current_context()
-        if isinstance(ctx, (list, tuple)):
-            ctx = ctx[0]
+        self._ctx_list = list(ctx) if isinstance(ctx, (list, tuple)) \
+            else [ctx]
+        ctx = self._ctx_list[0]
         resolve(ctx)    # a GPU context without a GPU raises here
         if init is None:
             init = default_init if self.init is None else self.init
@@ -224,6 +227,50 @@ class Parameter:
                              "because grad_req='null'" % self.name)
         self._check_and_get()
         return self._grad
+
+    def list_data(self):
+        """The value, as the one-element list of its devices' copies."""
+        return [self._check_and_get()]
+
+    def list_grad(self):
+        """The grad buffer, as a one-element list."""
+        return [self.grad()]
+
+    def list_ctx(self):
+        """The contexts given to ``initialize`` or ``reset_ctx`` (the
+        value lives on the first)."""
+        if self._data is None and not self._deferred_init:
+            raise MXNetError("Parameter '%s' has not been initialized"
+                             % self.name)
+        return list(self._ctx_list or [self._data.context])
+
+    def reset_ctx(self, ctx):
+        """Move the value and its grad buffer to ``ctx`` (a Context or a
+        list, of which the first is used), marked as the autograd variable
+        again; a deferred parameter initializes there."""
+        ctx = [ctx] if not isinstance(ctx, (list, tuple)) else list(ctx)
+        device = resolve(ctx[0])
+        self._ctx_list = ctx
+        if self._data is not None:
+            with torch.no_grad():
+                self._data = NDArray(self._data._data.to(device))
+            if self._grad is not None:
+                self._grad = NDArray(self._grad._data.to(device))
+            autograd.mark_variables([self._data], [self._grad],
+                                    self._grad_req)
+        elif self._deferred_init:
+            init, _, default_init = self._deferred_init
+            self._deferred_init = (init, ctx[0], default_init)
+
+    def var(self):
+        """This parameter as a variable Symbol (reference: parameter.py
+        var), made once."""
+        from .. import symbol
+        if self._var is None:
+            self._var = symbol.var(self.name, shape=self.shape,
+                                   dtype=self.dtype, lr_mult=self.lr_mult,
+                                   wd_mult=self.wd_mult, init=self.init)
+        return self._var
 
     def zero_grad(self):
         """Set the grad buffer to zeros (reference: parameter.py
@@ -396,6 +443,17 @@ class ParameterDict:
         """Zero every parameter's grad buffer."""
         for v in self.values():
             v.zero_grad()
+
+    def reset_ctx(self, ctx):
+        """``reset_ctx`` every parameter."""
+        for v in self.values():
+            v.reset_ctx(ctx)
+
+    def setattr(self, name, value):
+        """Set attribute ``name`` of every parameter to ``value`` (e.g.
+        ``grad_req``, ``lr_mult``)."""
+        for v in self.values():
+            setattr(v, name, value)
 
     def save(self, filename, strip_prefix=""):
         """Save every parameter's value under its name less

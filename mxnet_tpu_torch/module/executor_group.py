@@ -119,6 +119,31 @@ class DataParallelExecutorGroup:
         self.execs = []
         self.bind_exec(data_shapes, label_shapes, shared_group)
 
+    def decide_slices(self, data_shapes):
+        """The batch axis of each of ``data_shapes`` (-1 where its layout
+        has none), checking that they agree on the batch size, and the
+        per-context ``slices`` of that batch (reference:
+        executor_group.py:289)."""
+        if not data_shapes:
+            raise MXNetError("decide_slices needs at least one input")
+        major_axis = [DataDesc.get_batch_axis(getattr(x, "layout", "NCHW"))
+                      for x in data_shapes]
+        for (name, shape), axis in zip(data_shapes, major_axis):
+            if axis == -1:
+                continue
+            batch_size = shape[axis]
+            if self.batch_size is not None:
+                if batch_size != self.batch_size:
+                    raise MXNetError(
+                        "all data must have the same batch size: "
+                        "batch_size = %d, but %s has shape %s"
+                        % (self.batch_size, name, shape))
+            else:
+                self.batch_size = batch_size
+                self.slices = _split_input_slice(self.batch_size,
+                                                 self.workload)
+        return major_axis
+
     def bind_exec(self, data_shapes, label_shapes, shared_group=None,
                   reshape=False):
         """Bind the executor for these input shapes (reference: :330);

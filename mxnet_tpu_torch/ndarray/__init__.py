@@ -5,7 +5,7 @@ registered op (``mx.nd.contrib.<op>`` for the ``_contrib_`` ones), the
 arithmetic functions, which take an NDArray or a scalar on either
 side."""
 from .ndarray import (  # noqa: F401
-    NDArray, arange, array, concat, concatenate, empty, full, load,
+    NDArray, arange, array, concat, concatenate, empty, full, imdecode, load,
     load_buffer, moveaxis, onehot_encode, ones, save, waitall, zeros,
 )
 from . import ndarray  # noqa: F401

@@ -45,7 +45,7 @@ from ..context import Context, resolve
 
 __all__ = ["NDArray", "array", "zeros", "ones", "empty", "full", "arange",
            "moveaxis", "concat", "concatenate", "onehot_encode", "waitall",
-           "save", "load", "load_buffer"]
+           "save", "load", "load_buffer", "imdecode"]
 
 # the 64-bit numpy types nd.array narrows, as the JAX package does
 _NARROW = {torch.float64: torch.float32, torch.int64: torch.int32}
@@ -111,6 +111,12 @@ class NDArray:
     @property
     def ndim(self):
         return self._data.dim()
+
+    @property
+    def handle(self):
+        """The reference exposes the C handle; here the torch tensor that
+        holds the data is the handle."""
+        return self._data
 
     @property
     def context(self):
@@ -635,6 +641,15 @@ def onehot_encode(indices, out):
     out._data = invoke("one_hot", [indices],
                        {"depth": out.shape[1]})._data.to(out._data.dtype)
     return out
+
+
+def imdecode(buf, **kwargs):
+    """Decode image bytes into an (H, W, 3) uint8 RGB NDArray (reference:
+    the ``_cvimdecode`` op behind ``nd.imdecode``), through the PIL
+    decoder of ``image.imdecode``; extra arguments are ignored."""
+    del kwargs
+    from ..image.image import imdecode as _decode
+    return _decode(buf, flag=1, to_rgb=True)
 
 
 def waitall():

@@ -15,15 +15,21 @@ from .registry import register
 @register("_contrib_flash_attention")
 def _flash_attention_op(q, k, v, causal=False, scale=None, **attrs):
     """Softmax attention over (B, T, H, D) tensors; K/V may carry fewer
-    heads (GQA).  Runs ``parallel.attention.local_attention`` on one
-    device: the K7a flash kernel where it is eligible, else the einsum
-    logits with the K5a/K2 softmax or plain torch; differentiable through
-    each route's backward (K7b and K7c, K5b, or torch's autograd).  The JAX package
-    shards T over an ``sp`` mesh axis when one is active; this package
-    has no mesh yet (ROADMAP.md queue 1, multi-GPU)."""
-    from ..parallel.attention import local_attention
+    heads (GQA).  Runs ``parallel.attention.local_attention``: the K7a
+    flash kernel where it is eligible, else the einsum logits with the
+    K5a/K2 softmax or plain torch; differentiable through each route's
+    backward (K7b and K7c, K5b, or torch's autograd).  Under an active
+    mesh with ``sp > 1`` (``parallel.mesh_scope``) it is
+    ``parallel.ring_attention`` over that axis instead, as in the JAX
+    package: the same model becomes sequence-parallel."""
+    from ..parallel.attention import local_attention, ring_attention
+    from ..parallel.mesh import current_mesh
     if scale is not None:
         scale = float(scale)
+    mesh = current_mesh()
+    if mesh is not None and mesh.shape.get("sp", 1) > 1:
+        return ring_attention(q, k, v, mesh=mesh, causal=bool(causal),
+                              scale=scale)
     return local_attention(q, k, v, causal=bool(causal), scale=scale)
 
 

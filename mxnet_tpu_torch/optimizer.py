@@ -28,6 +28,7 @@ import pickle
 import torch
 
 from .base import MXNetError
+from .context import resolve
 from .ndarray import NDArray
 from .ops import optimizer_ops as oo
 
@@ -693,11 +694,16 @@ class Updater:
                 index, weight)
             self.states_synced[index] = True
         elif not self.states_synced[index]:
-            self.states[index] = _state_to(self.states[index],
-                                           weight._data.device)
+            self.states[index] = self.sync_state_context(
+                self.states[index], weight.context)
             self.states_synced[index] = True
         self.optimizer.update_multi_precision(index, weight, grad,
                                               self.states[index])
+
+    def sync_state_context(self, state, context):
+        """``state`` with every NDArray in it on ``context``'s device
+        (reference: optimizer.py sync_state_context)."""
+        return _state_to(state, resolve(context))
 
     def set_states(self, states):
         """Take the states (and, if pickled with them, the optimizer) from

@@ -1,13 +1,17 @@
 """The scale-out layer (counterpart of ``mxnet_tpu/parallel``): the
-process group (``distributed``), the mesh of ranks (``mesh``), the
-bucketed gradient collectives (``collectives``), the ZeRO optimizers
-(``optimizer``) and ``ParallelTrainer`` (``trainer``) for data-parallel
-training across GPUs, and single-device ``attention``.  Model-axis
-sharding, ring and Ulysses attention, pipelines and experts come with the
-next multi-GPU slice."""
+process group (``distributed``), the mesh of ranks over the axes dp,
+fsdp, tp, pp, sp and ep (``mesh``), the bucketed gradient collectives and
+the differentiable exchanges of a sharded region (``collectives``), the
+ZeRO optimizers (``optimizer``), ``ParallelTrainer`` (``trainer``) for
+training with the batch and the parameters sharded across GPUs, ring and
+Ulysses attention (``attention``), pipelines (``pipeline``) and experts
+(``moe``).  The parameter server's transport (``transport``) comes with
+the next multi-GPU slice."""
 from . import collectives  # noqa: F401
 from . import attention  # noqa: F401
-from .attention import local_attention  # noqa: F401
+from .attention import (  # noqa: F401
+    ring_attention, ulysses_attention, local_attention,
+)
 from .distributed import (  # noqa: F401
     init_distributed, rank, num_workers, is_initialized,
 )
@@ -16,3 +20,5 @@ from .mesh import (  # noqa: F401
 )
 from .optimizer import PureSGD, PureAdam, make_optimizer  # noqa: F401
 from .trainer import ParallelTrainer, pure_block_apply  # noqa: F401
+from .pipeline import pipeline_apply, stack_stages  # noqa: F401
+from .moe import switch_moe, stack_experts  # noqa: F401

@@ -20,7 +20,19 @@ finishes instead of one barrier all-reduce at the end):
 - :func:`global_batch_stats` — makes training-mode BatchNorm take its
   moments over the whole data-parallel batch (a differentiable SUM
   all-reduce of the per-rank sums), which is what the JAX package's
-  step, traced on the global array, computes.
+  step, traced on the global array, computes;
+- the differentiable edges and exchanges of a sharded region, each an
+  autograd ``Function`` whose backward is the exact transpose of its
+  forward, as JAX differentiates a ``shard_map``: :func:`take_block`
+  (this rank's block of a dim; backward zero-pads), :func:`gather_blocks`
+  (the blocks of every rank; backward reduce-scatters, a SUM),
+  :func:`sum_over` (a SUM all-reduce; backward the same),
+  :func:`all_to_all` (``lax.all_to_all(tiled=True)``; backward the
+  inverse exchange) and :func:`shift` (``lax.ppermute`` by a fixed
+  offset; backward the reverse shift).  Because each is the exact
+  transpose, a rank's gradients are its share of the global one, and
+  summing every gradient over the ranks that hold a copy or a part of
+  it gives the JAX package's gradient (``ParallelTrainer``'s rule).
 """
 from __future__ import annotations
 
@@ -30,11 +42,14 @@ from contextlib import contextmanager
 import numpy as np
 import torch
 
+from ..base import MXNetError
+
 __all__ = ["Bucket", "build_bucket_plan", "flatten_bucket",
            "unflatten_bucket", "comm_stats", "ring_all_reduce_bytes",
            "ring_shard_bytes", "all_reduce", "reduce_scatter", "all_gather",
            "broadcast", "collective_calls", "reset_collective_calls",
-           "record_comm", "global_batch_stats"]
+           "record_comm", "global_batch_stats", "take_block",
+           "gather_blocks", "sum_over", "all_to_all", "shift"]
 
 
 class Bucket:
@@ -315,3 +330,190 @@ def global_batch_stats(group, size):
         yield
     finally:
         _nn._BATCH_STATS.reduce = prev
+
+
+# -- the differentiable exchanges of a sharded region -------------------------
+def _group_size(group):
+    import torch.distributed as dist
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def _gather_dim(x, dim, group):
+    """Every rank's ``x`` of ``group`` concatenated along ``dim``, in group
+    order (which is coordinate order: see ``mesh``)."""
+    n = _group_size(group)
+    if n == 1:
+        return x
+    xt = x.movedim(dim, 0).contiguous()
+    out = xt.new_empty((n * xt.shape[0],) + tuple(xt.shape[1:]))
+    all_gather(out, xt, group)
+    return out.movedim(0, dim)
+
+
+def _scatter_sum_dim(g, dim, group):
+    """This rank's block along ``dim`` of the SUM of ``g`` over
+    ``group``."""
+    n = _group_size(group)
+    if n == 1:
+        return g
+    gt = g.movedim(dim, 0).contiguous()
+    out = gt.new_empty((gt.shape[0] // n,) + tuple(gt.shape[1:]))
+    reduce_scatter(out, gt, group)
+    return out.movedim(0, dim)
+
+
+class _TakeBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, idx, n):
+        ctx.dim, ctx.idx, ctx.size = dim, idx, x.shape[dim]
+        rows = x.shape[dim] // n
+        return x.narrow(dim, idx * rows, rows).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        shape = list(g.shape)
+        shape[ctx.dim] = ctx.size
+        out = g.new_zeros(shape)
+        rows = g.shape[ctx.dim]
+        out.narrow(ctx.dim, ctx.idx * rows, rows).copy_(g)
+        return out, None, None, None
+
+
+def take_block(x, dim, mesh, axes):
+    """This rank's block of ``x`` along ``dim`` split over mesh ``axes``
+    (the JAX package's ``device_put`` scatter onto a sharded layout);
+    its backward puts the gradient in place among zeros."""
+    n = mesh.axis_size(axes)
+    if n == 1:
+        return x
+    if x.shape[dim] % n:
+        raise MXNetError("dim %d of %s does not divide mesh axes %s (=%d)"
+                         % (dim, tuple(x.shape), axes, n))
+    return _TakeBlock.apply(x, dim, mesh.axis_index(axes), n)
+
+
+class _GatherBlocks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter_sum_dim(g, ctx.dim, ctx.group), None, None
+
+
+def gather_blocks(x, dim, mesh, axes):
+    """The blocks of every rank of mesh ``axes`` joined along ``dim``
+    into the global array (the JAX package's gather of a sharded result);
+    its backward is the reduce-scatter of the gradient."""
+    group = mesh.group(axes)
+    if mesh.axis_size(axes) == 1:
+        return x
+    return _GatherBlocks.apply(x, dim, group)
+
+
+class _SumOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.clone()
+        all_reduce(out, group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        all_reduce(g, ctx.group)
+        return g, None
+
+
+def sum_over(x, mesh, axes):
+    """``lax.psum`` over mesh ``axes``: the SUM over their ranks, whose
+    backward is the same SUM of the gradient."""
+    if mesh.axis_size(axes) == 1:
+        return x
+    return _SumOver.apply(x, mesh.group(axes))
+
+
+def _all_to_all(x, split_dim, concat_dim, group, n):
+    import torch.distributed as dist
+    y = x.movedim(split_dim, 0)
+    rows = y.shape[0] // n
+    send = y.reshape((n, rows) + tuple(y.shape[1:])).contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    c = concat_dim + 1 if concat_dim < split_dim else concat_dim
+    out = torch.cat(list(recv.unbind(0)), dim=c)
+    return out.movedim(0, split_dim)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split_dim, concat_dim, group, n):
+        ctx.args = (split_dim, concat_dim, group, n)
+        return _all_to_all(x, split_dim, concat_dim, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, concat_dim, group, n = ctx.args
+        return (_all_to_all(g.contiguous(), concat_dim, split_dim, group, n),
+                None, None, None, None)
+
+
+def all_to_all(x, split_dim, concat_dim, mesh, axis):
+    """``lax.all_to_all(x, axis, split_dim, concat_dim, tiled=True)``:
+    ``x`` cut into n blocks along ``split_dim``, block j to the j-th
+    rank of ``axis``, the blocks received joined along ``concat_dim`` in
+    source order; its backward is the inverse exchange."""
+    n = mesh.axis_size(axis)
+    if n == 1:
+        return x
+    return _AllToAll.apply(x, split_dim, concat_dim, mesh.group(axis), n)
+
+
+def _shift(x, offset, group, wrap):
+    """Send ``x`` to the rank ``offset`` places on in ``group`` and take
+    the one from ``offset`` places back (zeros where, without ``wrap``,
+    there is none): every send paired with its receive in one
+    ``batch_isend_irecv``."""
+    import torch.distributed as dist
+    members = dist.get_process_group_ranks(group)
+    n = len(members)
+    i = members.index(dist.get_rank())
+    x = x.contiguous()
+    out = torch.zeros_like(x)
+    ops = []
+    dst, src = i + offset, i - offset
+    if wrap:
+        dst, src = dst % n, src % n
+    if 0 <= dst < n:
+        ops.append(dist.P2POp(dist.isend, x, members[dst], group))
+    if 0 <= src < n:
+        ops.append(dist.P2POp(dist.irecv, out, members[src], group))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return out
+
+
+class _Shift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, offset, group, wrap):
+        ctx.args = (offset, group, wrap)
+        return _shift(x, offset, group, wrap)
+
+    @staticmethod
+    def backward(ctx, g):
+        offset, group, wrap = ctx.args
+        return _shift(g, -offset, group, wrap), None, None, None
+
+
+def shift(x, mesh, axis, offset=1, wrap=True):
+    """``lax.ppermute`` along mesh ``axis``: every rank's ``x`` moves
+    ``offset`` places on (around the ring with ``wrap``; else off the
+    end, the first ranks receiving zeros); its backward moves the
+    gradient back the other way."""
+    if mesh.axis_size(axis) == 1:
+        return x if wrap or offset == 0 else torch.zeros_like(x)
+    return _Shift.apply(x, offset, mesh.group(axis), wrap)

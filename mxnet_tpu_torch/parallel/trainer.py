@@ -1,40 +1,60 @@
-"""ParallelTrainer — data-parallel training over the ranks of a mesh, with
-bucketed gradient collectives and ZeRO-sharded optimizer state.
+"""ParallelTrainer — training over the ranks of a mesh: the batch sharded
+over ``dp`` and ``fsdp``, the parameters over ``tp`` and ``fsdp``, bucketed
+gradient collectives and ZeRO-sharded optimizer state.
 
 Counterpart of ``mxnet_tpu/parallel/trainer.py``.  The JAX package runs
 each step as ONE compiled program over a device mesh, its collectives
 inserted by GSPMD; here every rank of the mesh runs the step eagerly on
 its own card and the collectives are explicit ``torch.distributed``
-calls on the mesh's ``dp`` group (NCCL on the card, gloo on the CPU).
-The numbers are the JAX package's:
+calls on the mesh's groups (NCCL on the card, gloo on the CPU).  The
+numbers are the JAX package's:
 
 - **the global batch** — ``step(data, label)`` takes the GLOBAL batch on
-  every rank, and rank r computes on its contiguous 1/n of the rows (the
-  JAX package's batch sharding).  Its local mean loss is divided by n
-  before the backward, so the SUM of the ranks' gradients is the
-  gradient of the global mean, and training-mode BatchNorm takes its
-  moments over the whole global batch (``global_batch_stats``), as the
-  JAX step, traced on the global array, does.  ``step`` returns the
-  global mean loss.
+  every rank, and rank r computes on its contiguous block of the rows
+  over ``("dp", "fsdp")`` (the JAX package's batch sharding); the ranks
+  that differ only on the model axes hold the same rows.  Training-mode
+  BatchNorm takes its moments over the ranks that hold different rows
+  (``global_batch_stats`` on the ``("dp", "fsdp")`` group), as the JAX
+  step, traced on the global array, does.  ``step`` returns the global
+  mean loss.
+- **one rule for every gradient** — each rank's local mean loss is
+  divided by the mesh size before the backward, and every gradient is
+  summed over every rank that holds a copy or a part of it.  The sharded
+  regions of the forward (ring and Ulysses attention under ``sp``,
+  pipelines, experts) differentiate as exact transposes (see
+  ``collectives``), so that sum is the gradient of the global mean
+  whatever the axes.
+- **the parameters' layout** — ``_param_pspec`` is the JAX package's rule
+  for rule: ``tp`` splits dim 0 of a 2-D weight that it divides, ``fsdp``
+  the largest remaining dim that it divides.  A rank keeps only its
+  block of a sharded parameter and of its optimizer slots between steps.
+  In the step each sharded parameter is gathered on use: an autograd
+  ``Function`` all-gathers the blocks over the parameter's axes in the
+  forward and reduce-scatters its gradient in the backward (the JAX
+  package leaves the compute split to GSPMD; column-parallel compute is
+  speed work for later), then the block's gradient is all-reduced over
+  the remaining axes, which hold copies of it.  Sharded and non-fp32
+  trainables are updated per parameter on those blocks.
 - **one gradient per bucket** — the replicated fp32 trainables live in
   flat buckets (``build_bucket_plan``, reverse registration order,
   padded to the mesh size); each bucket is ONE autograd leaf and the
   parameters are views of it in the forward, so its gradient is one
   tensor.  A ``register_post_accumulate_grad_hook`` on the leaf issues
-  the bucket's asynchronous collective the moment the backward finishes
-  accumulating it (the JAX package's backward tap, ``_make_bucket_tap``);
-  the step waits on every handle before the update.  At construction
-  the replicas take the mesh's first rank's values (a broadcast).
+  the bucket's asynchronous collective over the whole mesh the moment
+  the backward finishes accumulating it (the JAX package's backward tap,
+  ``_make_bucket_tap``); the step waits on every handle before the
+  update.  At construction the replicas take the mesh's first rank's
+  values (a broadcast).
 - **ZeRO** (``zero=``): 0 all-reduces each bucket and updates the whole
   replicated state per parameter (the JAX package's per-array
   ``tree_map`` path, the sweep mirrors' arithmetic); 1 all-reduces, then
-  updates only this rank's contiguous 1/n shard of each bucket with its
-  1/n of the optimizer slots; 2 reduce-scatters each bucket straight
-  into that shard.  Stages 1 and 2 then all-gather the updated shards
-  back into every rank's parameters.  The shard update is one launch of
-  the sweep kernel (K1a/K1b/K4) per bucket under
+  updates only this rank's contiguous 1/mesh shard of each bucket with
+  its 1/mesh of the optimizer slots; 2 reduce-scatters each bucket
+  straight into that shard.  Stages 1 and 2 then all-gather the updated
+  shards back into every rank's parameters.  The shard update is one
+  launch of the sweep kernel (K1a/K1b/K4) per bucket under
   ``MXNET_PALLAS_FUSED_OPT``, as in the JAX package's ``shard_map``-ped
-  sweep.
+  sweep; the shards run over every axis of the mesh (``_zero_spec``).
 - **compression** (``compression=``): the JAX package encodes the
   GLOBALLY reduced gradient (its program must complete the sum before
   the codec's nonlinear add of the residual), with error-feedback
@@ -46,9 +66,16 @@ The numbers are the JAX package's:
   sees bf16 copies of the fp32 parameters and of the data, the loss is
   taken in fp32 and the gradients reach the buckets in fp32.
 
-The trainer keeps the BatchNorm moving statistics moving: the JAX
-package's step discards them (ROADMAP queue 3), this one writes back the
-global batch's.  A rank outside the mesh (an elastic job's smaller
+``step`` and ``forward`` run under ``mesh_scope(mesh)``, so a block's
+``_contrib_flash_attention`` becomes ring attention under ``sp``.  On a
+mesh with model axes the ranks of a replica group (the same rows, other
+model-axis coordinates) draw the same dropout masks whatever each rank
+seeded: each step draws from the device's generator reseeded from a seed
+the mesh's first rank drew at construction (a broadcast), the step count
+and the rank's batch coordinate, and the generator's own state comes
+back after the step.  The trainer keeps the BatchNorm moving statistics moving: the
+JAX package's step discards them (ROADMAP queue 3), this one writes back
+the global batch's.  A rank outside the mesh (an elastic job's smaller
 width) holds the plan and does nothing in ``step``.
 
 Knobs resolve as argument, then environment, then registered default
@@ -66,13 +93,15 @@ import torch
 
 from .. import autograd
 from .. import config as _config
+from .. import random as _random
 from ..base import MXNetError
 from ..context import Context
 from ..gradient_compression import make_codec
 from ..ndarray import NDArray
 from . import collectives as coll
 from .collectives import build_bucket_plan, flatten_bucket, unflatten_bucket
-from .mesh import batch_sharded, make_mesh
+from .collectives import _gather_dim, gather_blocks
+from .mesh import AXES, Sharding, batch_sharded, make_mesh, mesh_scope
 from .optimizer import _fused_sweep_on, make_optimizer
 
 __all__ = ["ParallelTrainer", "pure_block_apply"]
@@ -122,6 +151,60 @@ def _apply_with_params(block, params, *inputs):
             p._data = old
 
 
+BATCH_AXES = ("dp", "fsdp")
+
+
+def _param_pspec(name, shape, mesh):
+    """The partition spec of one parameter, the JAX package's rule for
+    rule (``mxnet_tpu/parallel/trainer.py`` ``_param_pspec``): ``tp`` on
+    dim 0 of a 2-D weight that it divides (the output features of an
+    mxnet ``(out, in)`` weight), ``fsdp`` on the largest remaining dim
+    that it divides (the first of equal ones).  A tuple with an axis name
+    or None per dim."""
+    del name
+    fsdp = mesh.shape.get("fsdp", 1)
+    tp = mesh.shape.get("tp", 1)
+    spec = [None] * len(shape)
+    if tp > 1 and len(shape) == 2 and shape[0] % tp == 0:
+        spec[0] = "tp"
+    if fsdp > 1:
+        order = sorted(range(len(shape)), key=lambda i: -shape[i])
+        for i in order:
+            if spec[i] is None and shape[i] % fsdp == 0:
+                spec[i] = "fsdp"
+                break
+    return tuple(spec)
+
+
+def _is_replicated(spec):
+    return all(s is None for s in spec)
+
+
+def _spec_axes(spec):
+    return tuple(a for a in AXES if a in spec)
+
+
+def _spec_shard_factor(spec, mesh):
+    """How many ways ``spec`` splits an array over ``mesh``."""
+    factor = 1
+    for entry in spec:
+        if entry is None:
+            continue
+        for a in (entry if isinstance(entry, tuple) else (entry,)):
+            factor *= mesh.shape[a]
+    return factor
+
+
+def _gather_param(t, spec, mesh):
+    """The whole parameter from this rank's block ``t``: the blocks of
+    each split dim all-gathered over its axis (differentiably: the
+    backward reduce-scatters)."""
+    for dim, entry in enumerate(spec):
+        if entry is not None:
+            t = gather_blocks(t, dim, mesh, entry)
+    return t
+
+
 class _BucketViews(torch.autograd.Function):
     """A bucket's parameters as views of its flat leaf.  The backward
     writes every parameter's gradient into ONE new flat tensor (zeros in
@@ -158,14 +241,6 @@ def _as_tensor(x):
 
 def _host(t):
     return t.detach().to("cpu").numpy().copy()
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, torch.Tensor):
-        yield tree
 
 
 class ParallelTrainer:
@@ -226,7 +301,9 @@ class ParallelTrainer:
         # this rank's shard of every bucket (rank 0's on a rank outside
         # the mesh, which never steps)
         self._r = mesh.rank if mesh.is_member else 0
-        self._group = mesh.group
+        self._group = mesh.group()
+        self._batch_group = mesh.group(BATCH_AXES)
+        self._batch_n = mesh.axis_size(BATCH_AXES)
         self._device = mesh.device
         params = block.collect_params()
         self._param_names = list(params.keys())
@@ -237,8 +314,14 @@ class ParallelTrainer:
         # the trainer owns its copies, on this rank's device
         values = {n: p.data()._data.detach().to(self._device, copy=True)
                   for n, p in zip(self._param_names, self._param_objs)}
+        self._pspecs = {n: _param_pspec(n, tuple(v.shape), mesh)
+                        for n, v in values.items()}
+        self._shapes = {n: tuple(v.shape) for n, v in values.items()}
+        # fused buckets hold the REPLICATED fp32 trainables; sharded
+        # (tp/fsdp) or non-fp32 ones take the per-parameter path
         self._fused_names = [n for n in self._param_names
                              if self._trainable[n]
+                             and _is_replicated(self._pspecs[n])
                              and values[n].dtype == torch.float32]
         fused = set(self._fused_names)
         self._perparam_names = [n for n in self._param_names
@@ -253,21 +336,34 @@ class ParallelTrainer:
             flat.requires_grad_(True)
             flat.register_post_accumulate_grad_hook(self._bucket_hook(b))
             self._flats.append(flat)
+        if self._group is not None:
+            # replicas start from the first rank's values, whatever each
+            # rank's block held
+            with torch.no_grad():
+                for t in self._flats + [values[n] for n in self._param_names
+                                        if n not in fused]:
+                    coll.broadcast(t.detach(), mesh.ranks[0], self._group)
+        # the rest: this rank's block of each (the whole of a replicated
+        # one; a rank outside the mesh keeps the whole)
         self._others = {}
         for n in self._param_names:
             if n in fused:
                 continue
             t = values[n]
+            if mesh.is_member and not _is_replicated(self._pspecs[n]):
+                t = Sharding(mesh, self._pspecs[n]).local(t).contiguous() \
+                    .clone()
             if self._trainable[n]:
                 t.requires_grad_(True)
                 t.register_post_accumulate_grad_hook(self._perparam_hook(n))
             self._others[n] = t
-        if self._group is not None:
-            # replicas start from the first rank's values, whatever each
-            # rank's block held
-            with torch.no_grad():
-                for t in self._flats + list(self._others.values()):
-                    coll.broadcast(t.detach(), mesh.ranks[0], self._group)
+        self._mask_seed = None
+        self._steps = 0
+        if mesh.is_member and self._n > self._batch_n:
+            seed = torch.randint(2 ** 62, (1,), device=self._device,
+                                 generator=_random.generator(self._device))
+            coll.broadcast(seed, mesh.ranks[0], self._group)
+            self._mask_seed = int(seed)
         self._handles = {}
         self._gshards = [None] * len(self._plan)
         self._opt_state = self._init_opt_state()
@@ -285,8 +381,9 @@ class ParallelTrainer:
 
     def _init_opt_state(self):
         if self._zero == 0:
-            # slots follow the parameters they shadow, one per parameter
-            train = {n: v for n, v in self._param_values().items()
+            # slots follow the parameters they shadow (this rank's block
+            # of a sharded one)
+            train = {n: v for n, v in self._local_values().items()
                      if self._trainable[n]}
             return self._opt.init({n: v.detach() for n, v in train.items()})
         fused = {"b%d" % b.index: torch.zeros(self._shard_len(b),
@@ -307,8 +404,12 @@ class ParallelTrainer:
                      for b in self._plan)
 
     def _comm_model(self):
-        sharded = [(self._others[n].numel() * self._others[n].element_size(),
-                    self._n) for n in self._perparam_names]
+        sharded = []
+        for n in self._perparam_names:
+            t = self._others[n]
+            factor = _spec_shard_factor(self._pspecs[n], self._mesh)
+            nbytes = int(np.prod(self._shapes[n])) * t.element_size()
+            sharded.append((nbytes // factor, self._n // factor))
         return coll.comm_stats(self._plan, self._n, self._zero,
                                codec=self._codec, sharded_bytes=sharded)
 
@@ -325,15 +426,15 @@ class ParallelTrainer:
         slot spec, the bucket plan and the codec."""
         from ..checkpoint._plan import normalize_pspec
         fused = set(self._fused_names)
-        values = self._param_values()
+        values = self._local_values()
         params = []
         for name in self._param_names:
-            v = values[name]
+            v, shape = values[name], self._shapes[name]
             params.append({
-                "name": name, "shape": [int(s) for s in v.shape],
+                "name": name, "shape": [int(s) for s in shape],
                 "dtype_size": int(v.element_size()),
                 "trainable": bool(self._trainable[name]),
-                "spec": normalize_pspec((None,) * v.dim(), v.dim()),
+                "spec": normalize_pspec(self._pspecs[name], len(shape)),
                 "fused": name in fused})
         opt_spec = self._opt.slot_spec()
         # the sweep runs on the ZeRO shards only (zero=0 updates per
@@ -358,19 +459,35 @@ class ParallelTrainer:
     def optimizer_state_bytes(self):
         """``{"total": logical bytes, "per_device": bytes resident on this
         rank}`` over every optimizer-state leaf and compression residual:
-        the ZeRO memory claim, read off the tensors this rank holds."""
+        the ZeRO memory claim, read off the tensors this rank holds (a
+        ZeRO shard is 1/mesh of its logical array, a sharded parameter's
+        slot 1/its spec's factor)."""
         total = per_device = 0
-        sharded = []
+
+        def walk(tree, factor_of):
+            nonlocal total, per_device
+            for key, leaf in tree.items():
+                if isinstance(leaf, dict):
+                    walk(leaf, factor_of)
+                    continue
+                local = leaf.numel() * leaf.element_size()
+                per_device += local
+                total += local * factor_of(key)
+
+        def by_param(key):
+            spec = self._pspecs.get(key)
+            return 1 if spec is None else _spec_shard_factor(spec,
+                                                              self._mesh)
+
         if self._zero:
-            sharded = list(_leaves({k: v for k, v in
-                                    self._opt_state["fused"].items()
-                                    if isinstance(v, dict)}))
-            sharded += list(self._resids)
-        ids = {id(t) for t in sharded}
-        for leaf in list(_leaves(self._opt_state)) + list(self._resids):
-            local = leaf.numel() * leaf.element_size()
-            per_device += local
-            total += local * (self._n if id(leaf) in ids else 1)
+            # bucket shards are keyed "b<index>", scalar slots by name
+            walk(self._opt_state["fused"],
+                 lambda key: self._n if key.startswith("b") else 1)
+            walk(self._opt_state["perparam"], by_param)
+        else:
+            walk(self._opt_state, by_param)
+        walk({str(i): r for i, r in enumerate(self._resids)},
+             lambda key: self._n if self._zero else 1)
         return {"total": int(total), "per_device": int(per_device)}
 
     def _export_state_gauges(self):
@@ -402,9 +519,14 @@ class ParallelTrainer:
         return hook
 
     def _perparam_hook(self, name):
+        # the ranks that hold copies of this block: every axis its spec
+        # does not split (the gather's backward summed over those it does)
+        group = self._mesh.group(tuple(
+            a for a in AXES if a not in _spec_axes(self._pspecs[name])))
+
         def hook(t):
-            if self._group is not None:
-                self._handles[name] = coll.all_reduce(t.grad, self._group,
+            if group is not None:
+                self._handles[name] = coll.all_reduce(t.grad, group,
                                                       async_op=True)
         return hook
 
@@ -423,12 +545,23 @@ class ParallelTrainer:
             h = coll.all_reduce(grad, self._group, async_op=True)
         self._handles[b.index] = h
 
-    def _param_values(self):
-        """``{name: tensor}`` of every parameter's current value (views of
-        the buckets for the fused ones)."""
+    def _local_values(self):
+        """``{name: tensor}``: the value this rank holds of every parameter
+        (views of the buckets for the fused ones, the block of a sharded
+        one)."""
         out = dict(self._others)
         for b, flat in zip(self._plan, self._flats):
             out.update(unflatten_bucket(flat.detach(), b))
+        return out
+
+    def _param_values(self):
+        """``{name: tensor}`` of every parameter's whole value (a sharded
+        one gathered from the ranks' blocks: a collective)."""
+        out = self._local_values()
+        with torch.no_grad():
+            for n in self._others:
+                out[n] = _gather_param(out[n].detach(), self._pspecs[n],
+                                       self._mesh)
         return out
 
     def _ctx(self):
@@ -445,7 +578,23 @@ class ParallelTrainer:
 
     def _local(self, data):
         t = _as_tensor(data)
-        return batch_sharded(self._mesh).local(t).to(self._device)
+        return batch_sharded(self._mesh, axes=BATCH_AXES).local(t).to(
+            self._device)
+
+    def _replica_masks(self):
+        """Reseed the device's generator for this step's draws, alike on
+        the ranks of a replica group (see the module docstring); returns
+        the generator and the state to restore after the step, or None
+        on a mesh without model axes."""
+        if self._mask_seed is None:
+            return None
+        gen = _random.generator(self._device)
+        state = gen.get_state()
+        seed = self._mask_seed + self._steps * self._batch_n \
+            + self._mesh.axis_index(BATCH_AXES)
+        gen.manual_seed(seed % 2 ** 63)
+        self._steps += 1
+        return gen, state
 
     def step(self, data, label):
         """One training step on the global batch ``(data, label)``;
@@ -460,10 +609,13 @@ class ParallelTrainer:
             self._others[n].grad = None
         self._handles = {}
         self._gshards = [None] * len(self._plan)
-        params = dict(self._others)
+        params = {n: _gather_param(t, self._pspecs[n], self._mesh)
+                  for n, t in self._others.items()}
         for b, flat in zip(self._plan, self._flats):
             params.update(zip(b.names, _BucketViews.apply(flat, b)))
-        with self._ctx(), coll.global_batch_stats(self._group, self._n):
+        gen = self._replica_masks()
+        with self._ctx(), mesh_scope(self._mesh), \
+                coll.global_batch_stats(self._batch_group, self._batch_n):
             xin, pin = self._forward_inputs(x, params)
             nds = {n: NDArray(v) for n, v in pin.items()}
             with autograd.record(train_mode=True):
@@ -473,14 +625,20 @@ class ParallelTrainer:
                 out = NDArray(out._data.to(torch.float32))
                 loss = self._loss(out, NDArray(y))._data.mean()
             gloss = loss.detach().clone()
-            gl = None if self._group is None else coll.all_reduce(
-                gloss, self._group, async_op=True)
+            gl = None if self._batch_group is None else coll.all_reduce(
+                gloss, self._batch_group, async_op=True)
             (loss / self._n).backward()
-        # the moving statistics BatchNorm wrote back
+        if gen is not None:
+            gen[0].set_state(gen[1])
+        # the moving statistics BatchNorm wrote back (this rank's block of
+        # a sharded one)
         for n in self._param_names:
             if not self._trainable[n] and nds[n]._data is not pin[n]:
+                new = nds[n]._data
+                if not _is_replicated(self._pspecs[n]):
+                    new = Sharding(self._mesh, self._pspecs[n]).local(new)
                 with torch.no_grad():
-                    self._others[n].copy_(nds[n]._data)
+                    self._others[n].copy_(new)
         for b, flat in zip(self._plan, self._flats):
             if flat.grad is None:
                 # a bucket the loss never reached still reduces (zeros)
@@ -496,7 +654,7 @@ class ParallelTrainer:
         self._update()
         if gl is not None:
             gl.wait()
-            gloss /= self._n
+            gloss /= self._batch_n
         coll.record_comm(self._comm)
         return NDArray(gloss)
 
@@ -559,7 +717,7 @@ class ParallelTrainer:
         if not self._mesh.is_member:
             return None
         x = self._local(data)
-        with self._ctx(), torch.no_grad():
+        with self._ctx(), torch.no_grad(), mesh_scope(self._mesh):
             xin, pin = self._forward_inputs(x, self._param_values())
             with autograd.pause(train_mode=False):
                 out = _apply_with_params(
@@ -567,11 +725,8 @@ class ParallelTrainer:
                     NDArray(xin))
             out = out[0] if isinstance(out, (list, tuple)) else out
             out = out._data.to(torch.float32).contiguous()
-            if self._group is not None:
-                full = out.new_empty((out.shape[0] * self._n,)
-                                     + tuple(out.shape[1:]))
-                coll.all_gather(full, out, self._group)
-                out = full
+            if self._batch_group is not None:
+                out = _gather_dim(out, 0, self._batch_group)
         return NDArray(out)
 
     def sync_to_block(self):
@@ -582,7 +737,9 @@ class ParallelTrainer:
 
     @property
     def params(self):
-        """``{name: tensor}``: this rank's copy of every parameter."""
+        """``{name: tensor}``: every parameter's whole value (gathered from
+        the ranks' blocks where it is sharded: then a collective, which
+        every rank of the mesh reads)."""
         return self._param_values()
 
     @property
@@ -624,7 +781,9 @@ class ParallelTrainer:
                 dst = slots.setdefault(slot, {})
                 if plan is None:
                     for name, t in leaf.items():
-                        dst[name] = _host(t)
+                        with torch.no_grad():
+                            dst[name] = _host(_gather_param(
+                                t, self._pspecs[name], self._mesh))
                     continue
                 for b in plan:
                     full = self._gather(leaf["b%d" % b.index], b)
@@ -654,12 +813,12 @@ class ParallelTrainer:
         into this plan's buckets and this rank's shards.  Values are the
         snapshot's bit for bit."""
         params, slots = state["params"], state.get("slots", {})
-        values = self._param_values()
+        values = self._local_values()
         for n in self._param_names:
             if n not in params:
                 raise MXNetError("checkpoint is missing param %r" % n)
             have = tuple(params[n].shape)
-            want = tuple(values[n].shape)
+            want = self._shapes[n]
             if have != want:
                 raise MXNetError(
                     "checkpoint param %r has shape %s, trainer expects %s"
@@ -686,9 +845,16 @@ class ParallelTrainer:
                 a = torch.from_numpy(np.array(a))
             return a.to(device=like.device, dtype=like.dtype)
 
+        def _block(a, name, like):
+            """This rank's block of the whole array ``a`` of ``name``."""
+            a = _t(a, like).reshape(self._shapes[name])
+            if self._mesh.is_member and name in self._others:
+                a = Sharding(self._mesh, self._pspecs[name]).local(a)
+            return a.reshape(like.shape)
+
         with torch.no_grad():
             for n, v in values.items():
-                v.copy_(_t(params[n], v).reshape(v.shape))
+                v.copy_(_block(params[n], n, v))
 
         def _flat(per_param, b):
             flat = np.zeros((b.padded_n,), np.float32)
@@ -713,7 +879,7 @@ class ParallelTrainer:
                     continue
                 for key, t in leaf.items():
                     if plan is None:
-                        src = _t(slots[slot][key], t).reshape(t.shape)
+                        src = _block(slots[slot][key], key, t)
                     else:
                         src = _local_flat(slots[slot],
                                           plan[int(key[1:])], t)

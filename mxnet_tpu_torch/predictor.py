@@ -110,6 +110,33 @@ class Predictor:
     def num_outputs(self):
         return len(self._sym.list_outputs())
 
+    def get_output_shape(self, index=0):
+        """The shape of output ``index`` (reference: c_predict_api.h:120,
+        MXPredGetOutputShape): the last forward's, or before any forward
+        the symbol's inference from the bound input shapes, without
+        running the graph."""
+        if self._outputs is not None:
+            return tuple(self._outputs[index].shape)
+        known = {n: self._exe.arg_dict[n].shape for n in self._input_names}
+        _, out_shapes, _ = self._sym.infer_shape(**known)
+        return tuple(out_shapes[index])
+
+    def reshape(self, input_shapes):
+        """A new predictor bound for ``input_shapes`` that shares this
+        one's parameter tensors (reference: MXPredReshape)."""
+        new = Predictor.__new__(Predictor)
+        params = {k: v for k, v in self._exe.arg_dict.items()
+                  if k not in input_shapes}
+        new._bind_aliased(self._sym, params, dict(self._exe.aux_dict),
+                          input_shapes, self._exe.device)
+        return new
+
+    def free(self):
+        """Release the executor and its buffers (reference: MXPredFree)."""
+        self._exe = None
+        self._outputs = None
+        self._inputs = {}
+
 
 def _load_symbol(symbol_file, output_names=None):
     """A Symbol from a path or from the JSON text itself (c_predict_api

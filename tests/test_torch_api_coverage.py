@@ -4,9 +4,12 @@ equal ``DEFERRED``, the names left for later, keyed by the ROADMAP.md
 queue that owns them (and the JAX package's internals that the port has
 no counterpart of, by design).  Each later slice shrinks DEFERRED.  The
 modules of the training-loop API import neither JAX nor the JAX package.
-The port's public callables (functions, classes' constructors and
-methods) take the JAX package's parameter names, but for the gaps of
-``DEFERRED_PARAMS``, keyed by the queue that owns them.
+For every class both packages export from a module below, the JAX
+class's public members (``dir()``) minus the port's equal
+``DEFERRED_MEMBERS``, keyed the same way.  The port's public callables
+(functions, classes' constructors and methods) take the JAX package's
+parameter names, but for the gaps of ``DEFERRED_PARAMS``, keyed by the
+queue that owns them.
 
 A module's public names: its names without a leading underscore that it
 defines, lists in ``__all__`` or holds as a submodule (for a package,
@@ -40,11 +43,11 @@ MODULES = ("", "optimizer", "metric", "initializer", "lr_scheduler",
            "serving", "telemetry", "telemetry.tracing", "profiler",
            "gluon.rnn", "gluon.contrib", "gluon.contrib.rnn",
            "checkpoint", "fault", "compile_cache", "serving.generate",
-           "gluon.contrib.transformer", "parallel")
+           "gluon.contrib.transformer", "parallel", "base", "ndarray",
+           "symbol", "executor", "predictor", "image", "recordio", "rnn")
 
 DEFERRED = {
-    # queue 1 item 7, the next multi-GPU slice: model-axis sharding (ring
-    # and Ulysses attention, pipelines, experts), the asynchronous
+    # queue 1 item 7b, the next multi-GPU slice: the asynchronous
     # parameter server and its transport, and the multi-replica front door
     "the next multi-GPU slice": {
         "serving": {"FleetFrontDoor", "ReplicaHandle", "decode_error",
@@ -52,18 +55,27 @@ DEFERRED = {
                     "replica_loop", "spawn_replica"},
         "kvstore": {"KVStoreDistAsync"},
         "": {"kvstore_server"},
-        "parallel": {"ring_attention", "ulysses_attention", "pipeline_apply",
-                     "stack_stages", "switch_moe", "stack_experts",
-                     "InboxFull", "Message", "SpoolTransport", "pipeline",
-                     "moe", "transport"},
+        "parallel": {"InboxFull", "Message", "SpoolTransport", "transport"},
     },
     # queue 1 item 8: the long tail (LibSVMIter yields a CSRNDArray,
-    # which comes with ndarray/sparse.py)
+    # which comes with ndarray/sparse.py; the sparse storage types and
+    # their ops; the detection, sampling and CTC ops)
     "queue 1 item 8": {
         "io": {"LibSVMIter"},
         "gluon.loss": {"CTCLoss"},
         "": {"CustomOp", "CustomOpProp", "operator", "contrib", "rtc",
              "test_utils", "th", "torch"},
+        "ndarray": {"CSRNDArray", "RowSparseNDArray", "sparse",
+                    "sparse_array", "cast_storage", "sparse_retain",
+                    "square_sum", "Custom", "BilinearSampler", "CTCLoss",
+                    "ctc_loss", "Correlation", "GridGenerator",
+                    "MultiBoxDetection", "MultiBoxPrior", "MultiBoxTarget",
+                    "Proposal", "ROIPooling", "SpatialTransformer"},
+        "symbol": {"cast_storage", "sparse_retain", "square_sum",
+                   "BilinearSampler", "CTCLoss", "ctc_loss", "Correlation",
+                   "GridGenerator", "MultiBoxDetection", "MultiBoxPrior",
+                   "MultiBoxTarget", "Proposal", "ROIPooling",
+                   "SpatialTransformer"},
     },
     # queue 1 item 9: tuning and analysis
     "queue 1 item 9": {
@@ -79,13 +91,40 @@ DEFERRED = {
     },
 }
 
+# the public members of the classes both packages export that the port's
+# class lacks, by the queue that owns them: {owner: {module: {class:
+# members}}}.  A member is any public name of ``dir()`` (methods,
+# properties, attributes of the class, inherited ones too)
+DEFERRED_MEMBERS = {
+    # queue 1 item 8: row-sparse storage
+    "queue 1 item 8": {
+        "kvstore": {"KVStore": {"row_sparse_pull"},
+                    "KVStoreDist": {"row_sparse_pull"},
+                    "KVStoreTPU": {"row_sparse_pull"}},
+    },
+    # queue 1 item 9: tuning and the analysis of compiled programs
+    "queue 1 item 9": {
+        "config": {"EnvVar": {"tunable"}},
+        "serving": {"ModelServer": {"plan_spec"}},
+        "": {"Executor": {"program_plan", "step_callable"}},
+        "executor": {"Executor": {"program_plan", "step_callable"}},
+        "parallel": {"ParallelTrainer": {"step_callable"}},
+    },
+    # the JAX package's own machinery
+    "JAX internals": {
+        "": {"Context": {"jax_device"}},
+    },
+}
+
 # the names the last seven slices ported, none of which may be deferred:
 # the training-loop API, the data pipeline and the module family,
 # gluon's image path, telemetry, the profiler and gluon's recurrent
 # layers, the train-to-serve loop, generative serving and the elastic
 # fit, then data-parallel training across GPUs
 PORTED = {
-    "parallel": {"ParallelTrainer", "PureSGD", "PureAdam", "make_optimizer",
+    "parallel": {"ring_attention", "ulysses_attention", "pipeline_apply",
+                 "stack_stages", "switch_moe", "stack_experts", "pipeline",
+                 "moe", "ParallelTrainer", "PureSGD", "PureAdam", "make_optimizer",
                  "pure_block_apply", "make_mesh", "current_mesh",
                  "mesh_scope", "replicated", "batch_sharded",
                  "init_distributed", "rank", "num_workers",
@@ -190,10 +229,6 @@ PORTED = {
 # by the queue that owns them: {queue: {(module, callable): missing
 # names}}; "order" marks parameters both take in another order
 DEFERRED_PARAMS = {
-    # the next multi-GPU slice: attention over a padded key length
-    "the next multi-GPU slice": {
-        ("parallel", "local_attention"): {"kv_len"},
-    },
     # queue 1 item 9: the tuning database
     "queue 1 item 9": {
         ("config", "register_env"): {"tunable"},
@@ -205,6 +240,13 @@ DEFERRED_PARAMS = {
     # dicts in another order
     "built only by bind": {
         ("", "Executor.__init__"): {"ctx", "order"},
+        ("executor", "Executor.__init__"): {"ctx", "order"},
+    },
+    # queue 1 item 8: the JAX package's ``nd.dot`` is the sparse-aware
+    # wrapper (CSR operands), which comes with ndarray/sparse.py; the
+    # port's is the registered dense op
+    "queue 1 item 8": {
+        ("ndarray", "dot"): {"lhs", "rhs", "transpose_a", "transpose_b"},
     },
 }
 
@@ -267,6 +309,9 @@ NEW_MODULES = ("mxnet_tpu_torch.optimizer", "mxnet_tpu_torch.metric",
                "mxnet_tpu_torch.parallel.collectives",
                "mxnet_tpu_torch.parallel.optimizer",
                "mxnet_tpu_torch.parallel.trainer",
+               "mxnet_tpu_torch.parallel.attention",
+               "mxnet_tpu_torch.parallel.pipeline",
+               "mxnet_tpu_torch.parallel.moe",
                "mxnet_tpu_torch.gradient_compression",
                "mxnet_tpu_torch.checkpoint.compat")
 
@@ -435,6 +480,54 @@ def test_public_callables_take_the_jax_packages_parameter_names(sub):
         if gaps:
             found[name] = gaps
     assert found == deferred
+
+
+def _public_members(cls):
+    return {m for m in dir(cls) if not m.startswith("_")}
+
+
+def members_after_import():
+    """``{module: {class: the JAX class's public members the port's class
+    lacks}}`` over every class both packages export from a module of
+    ``MODULES`` (only the classes with a gap)."""
+    out = {}
+    for sub in MODULES:
+        jm, pm = _module("mxnet_tpu", sub), _module("mxnet_tpu_torch", sub)
+        for name in sorted(public_names(jm)):
+            jo, po = getattr(jm, name), getattr(pm, name, None)
+            if not (inspect.isclass(jo) and inspect.isclass(po)):
+                continue
+            gap = _public_members(jo) - _public_members(po)
+            if gap:
+                out.setdefault(sub, {})[name] = gap
+    return out
+
+
+def _deferred_members():
+    out = {}
+    for by_mod in DEFERRED_MEMBERS.values():
+        for sub, by_cls in by_mod.items():
+            for cls, members in by_cls.items():
+                out.setdefault(sub, {}).setdefault(cls, set()).update(
+                    members)
+    return out
+
+
+def test_every_class_holds_the_jax_classes_members_but_the_deferred():
+    """A class of the port lacks none of the public members of the JAX
+    package's class of its name, but those ``DEFERRED_MEMBERS`` owns."""
+    assert members_after_import() == _deferred_members()
+
+
+def test_deferred_members_are_each_owned_once():
+    seen = set()
+    for by_mod in DEFERRED_MEMBERS.values():
+        for sub, by_cls in by_mod.items():
+            assert sub in MODULES
+            for cls, members in by_cls.items():
+                for m in members:
+                    assert (sub, cls, m) not in seen, (sub, cls, m)
+                    seen.add((sub, cls, m))
 
 
 def test_deferred_params_are_each_owned_once():

@@ -235,12 +235,6 @@ def test_trainer_rejects_what_it_does_not_take():
             tmx.parallel.ParallelTrainer(net, loss, "rmsprop")
 
 
-@pytest.mark.parametrize("axis", ["tp", "pp", "sp", "ep", "fsdp"])
-def test_model_axes_wait_for_the_next_slice(axis):
-    with pytest.raises(tmx.MXNetError, match="next multi-GPU slice"):
-        tmx.parallel.make_mesh(**{axis: 2})
-
-
 def test_lone_process_mesh_and_distributed_state():
     d = tmx.parallel.distributed
     assert d.rank() == 0 and d.num_workers() == 1
@@ -250,7 +244,7 @@ def test_lone_process_mesh_and_distributed_state():
     assert mesh.axis_names == tuple(jmesh.axis_names)
     assert mesh.shape == dict(jmesh.shape)
     assert mesh.devices.shape == jmesh.devices.shape
-    assert mesh.is_member and mesh.group is None and mesh.size == 1
+    assert mesh.is_member and mesh.group() is None and mesh.size == 1
     with tmx.parallel.mesh_scope(mesh):
         assert tmx.parallel.current_mesh() is mesh
     assert tmx.parallel.current_mesh() is None
