@@ -1575,7 +1575,8 @@ def check_k2(ck, dev, bw, flops, rows):
     """K2 against its plain version at the serving shape and at the edges
     of its layouts, fp32 within 1e-6 and bf16 within one rounding: below
     1024 rows one row a block of 1, 2, 4 or 8 warps (the buckets of 1 and
-    8 rows, C 1, 100, 256, 500, 999, 1000 and 1024); from 1024 rows one
+    8 rows, and of 2, 4 and 16 for phase 24, C 1, 100, 256, 500, 999,
+    1000 and 1024); from 1024 rows one
     warp a row with 4, 8, 16 or 32 values a lane, each with vector loads
     (C 100, 256, 500 and 512, 1000, 1024) and scalar ones (C 99, 255, 511,
     999); past 1024 columns the row on chip (``K2_WIDE_CASES``: one CTA a
@@ -1605,6 +1606,9 @@ def check_k2(ck, dev, bw, flops, rows):
         return err if f32 else 0.0
 
     cases = (((rows, 1000), 1.0), ((1, 1000), 1.0), ((8, 1000), 1.0),
+             # phase 24: the fleet's smaller buckets and each context's
+             # 16 rows of the multi-context fit
+             ((2, 1000), 1.0), ((4, 1000), 1.0), ((16, 1000), 1.0),
              ((7, 1), 1.0), ((6, 100), 1.0), ((6, 256), 1.0),
              ((6, 500), 1.0), ((3, 1024), 1.0), ((3, 1025), 1.0),
              ((5, 999), 1.0), ((5, 4097), 1.0), ((rows, 1000), 1e4),
@@ -9522,7 +9526,838 @@ def model_parallel_phase(mx, ck, dev, smi, workdir_parent=None):
             "seconds": time.perf_counter() - t0}
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the asynchronous and multi-process rest of multi-GPU: the fleet
+# front door over ResNet-50 replicas, Module.fit on dist_async, Module on a
+# list of contexts, and the fault drills on the card
+# ---------------------------------------------------------------------------
+FLEET = {"layers": LAYERS, "image": IMAGE, "max_batch": BATCH,
+         "replicas": 3,        # replica processes on one card
+         "requests": 256,      # a wave
+         "clients": 8,
+         "async_workers": 2,   # dist_async worker processes on one card
+         "async_batch": 32, "async_warmup": 2, "async_timed": 6,
+         "mc_batch": 32, "mc_warmup": 2, "mc_timed": 10,
+         "soak_s": 10.0, "soak_min_faults": 80, "timeout": 600}
+# the front door's weather in the second wave: the transport rules of the
+# fleet soak's main plan (partition on requests, slow links, lost acks,
+# receive-side reordering)
+FLEET_WAVE2_PLAN = {
+    "seed": 24,
+    "rules": [
+        {"site": "transport.send", "kind": "partition", "p": 0.03,
+         "times": 0, "where": {"kind": "infer"}},
+        {"site": "transport.send", "kind": "slow_link", "delay_s": 0.002,
+         "p": 0.12, "times": 0},
+        {"site": "transport.send.ack", "kind": "lost_ack", "p": 0.06,
+         "times": 0},
+        {"site": "transport.recv", "kind": "reorder", "p": 0.06,
+         "times": 0},
+    ],
+}
+# dist_async's SGD: phase 5's without momentum (each worker's rate is
+# this over the workers).  The server applies each worker's push as one
+# update, and a worker's gradient is a few pushes stale; staleness acts
+# as added momentum (Mitliagkas et al. 2016, arXiv:1605.09774), and with
+# 0.9 on top the workers' losses rose on the card
+# (tests/test_torch_dist_async.py shows the same in both packages' stores)
+ASYNC_SGD = {"learning_rate": 0.02, "momentum": 0.0, "wd": 1e-4}
+# each dist_async worker's weather: lost acks on its push link
+ASYNC_PLAN = {"rules": [{"site": "transport.send.ack", "kind": "lost_ack",
+                         "p": 0.02, "times": 0}]}
+
+
+def fleet_weights(mx, sym, cfg, ctx):
+    """Phase 4's He weights from the seed with the classifier calibrated
+    on a fixed batch (:func:`he_params`, :func:`calibrate_fc`)."""
+    arg, aux = he_params(sym, cfg["image"], SEED)
+    args, auxs = mx.convert.params_from_numpy(arg, aux, ctx, symbol=sym)
+    x = np.random.RandomState(SEED + 24).randn(
+        2, *cfg["image"]).astype(np.float32)
+    calibrate_fc(mx, sym, args, auxs, ctx, x)
+    return args, auxs
+
+
+def _wait_json(path, deadline, what, procs=()):
+    """The record a process writes at ``path``, once it is there; raises
+    when one of ``procs`` exits non-zero first or ``deadline`` passes."""
+    from mxnet_tpu_torch.fault.drill import _read_json
+    while True:
+        rec = _read_json(path)
+        if rec:
+            return rec
+        for p in procs:
+            if p.poll() not in (None, 0):
+                raise AssertionError("%s: a process exited %s before %s "
+                                     "appeared" % (what, p.returncode, path))
+        if time.monotonic() > deadline:
+            raise AssertionError("%s: %s never appeared" % (what, path))
+        time.sleep(0.05)
+
+
+def fleet_replica_main(cfg):
+    """``python3 chip_smoke.py _fleet_replica <json>``: one fleet replica,
+    the port's ``replica_loop`` around a ``ModelServer`` (buckets 1 to
+    ``max_batch``) over ResNet with the weights the phase wrote.  Writes
+    a ready file once warm and, when told to stop, the kernels it
+    launched and the forwards it ran after warmup."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.fault.drill import _write_json
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+    from mxnet_tpu_torch.parallel.transport import SpoolTransport
+    from mxnet_tpu_torch.serving import ModelServer
+    from mxnet_tpu_torch.serving.fleet import replica_loop
+    torch.backends.cudnn.deterministic = True
+    ctx = mx.Context(cfg["ctx"], cfg["device"])
+    sym = resnet_symbol(cfg["layers"], cfg["image"])
+    saved = mx.nd.load(cfg["weights"], ctx=ctx)
+    args = {k[4:]: v for k, v in saved.items() if k.startswith("arg:")}
+    auxs = {k[4:]: v for k, v in saved.items() if k.startswith("aux:")}
+    srv = ModelServer(max_batch=cfg["max_batch"], batch_wait_ms=2.0,
+                      queue_depth=256, default_timeout_ms=120000.0, ctx=ctx)
+    srv.add_model("resnet", sym, args, auxs,
+                  {"data": (1,) + tuple(cfg["image"])})
+    srv.start()
+    srv.warmup("resnet")
+    before = srv.stats()["batches"]["count"]
+    ck.reset_kernel_calls()
+    transport = SpoolTransport(cfg["root"], cfg["rank"], cfg["world"])
+    _write_json(cfg["ready"], {"rank": cfg["rank"], "pid": os.getpid()})
+    try:
+        replica_loop(srv, transport)
+    finally:
+        srv.stop()
+        st = srv.stats()
+        _write_json(cfg["report"], {
+            "calls": ck.kernel_calls(),
+            "forwards": st["batches"]["count"] - before,
+            "occupancy": st["batches"]["occupancy"]})
+    return 0
+
+
+def _spawn_replica(cfg, rid, device, workdir, world, weights):
+    """Start one replica process of :func:`fleet_replica_main` under the
+    drill's replica weather; returns ``(handle, ready path, report
+    path)``."""
+    from mxnet_tpu_torch.fault.drill import _replica_plan
+    from mxnet_tpu_torch.serving.fleet import ReplicaHandle
+    here = os.path.dirname(os.path.abspath(__file__))
+    child = dict(cfg, rank=rid, world=world, device=device,
+                 root=os.path.join(workdir, "fleet"), weights=weights,
+                 ready=os.path.join(workdir, "ready%d.json" % rid),
+                 report=os.path.join(workdir, "report%d.json" % rid))
+    env = dict(os.environ, MXNET_FAULT_PLAN=json.dumps(_replica_plan(rid)),
+               PYTHONPATH=os.pathsep.join([here] + [
+                   p for p in os.environ.get("PYTHONPATH", "").split(
+                       os.pathsep) if p]))
+    log = open(os.path.join(workdir, "replica%d.log" % rid), "w")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(here, "chip_smoke.py"),
+         "_fleet_replica", json.dumps(child)], env=env, cwd=here,
+        stdout=log, stderr=subprocess.STDOUT)
+    log.close()
+    return ReplicaHandle(rid, proc=proc), child["ready"], child["report"]
+
+
+def _clients(infer, xs, n_clients, on_done=None):
+    """Send ``xs`` from ``n_clients`` threads through ``infer``; returns
+    the answers (or the exception of each failed request), the latencies
+    in ms and the wall time."""
+    n = len(xs)
+    answers, lats = [None] * n, [0.0] * n
+
+    def client(k):
+        for i in range(k, n, n_clients):
+            t = time.perf_counter()
+            try:
+                answers[i] = infer(xs[i])
+            except Exception as exc:    # noqa: BLE001 — counted, raised below
+                answers[i] = exc
+            lats[i] = (time.perf_counter() - t) * 1e3
+            if on_done is not None:
+                on_done()
+
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(n_clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return answers, lats, time.perf_counter() - t0
+
+
+def _pcts(lats):
+    return float(np.percentile(lats, 50)), float(np.percentile(lats, 99))
+
+
+def fleet_front_door(mx, ck, sym, cfg, n_sites, workdir):
+    """Phase 24 (a): the front door over ResNet replica processes: a wave
+    of requests with one replica SIGKILLed a third in, a second wave under
+    network weather; the ledger, the answers against a Predictor at each
+    request's bucket, and each surviving replica's launches."""
+    from mxnet_tpu_torch import fault
+    from mxnet_tpu_torch.io import pad_batch
+    from mxnet_tpu_torch.serving import ModelServer
+    from mxnet_tpu_torch.serving.bucketing import pick_bucket, shape_buckets
+    from mxnet_tpu_torch.serving.fleet import FleetFrontDoor
+    on_card = cfg["ctx"] == "gpu"
+    ncard = torch.cuda.device_count() if on_card else 1
+    devices = list(range(ncard)) if ncard >= 4 else [0] * cfg["replicas"]
+    world = len(devices) + 1
+    ctx = mx.Context(cfg["ctx"], 0)
+    torch.backends.cudnn.deterministic = True
+    args, auxs = fleet_weights(mx, sym, cfg, ctx)
+    weights = os.path.join(workdir, "weights.params")
+    mx.nd.save(weights, dict([("arg:" + k, v) for k, v in args.items()]
+                             + [("aux:" + k, v) for k, v in auxs.items()]))
+    rng = np.random.RandomState(SEED + 240)
+    waves = [[rng.randn(rng.randint(1, 4), *cfg["image"]).astype(np.float32)
+              for _ in range(cfg["requests"])] for _ in range(2)]
+    t0 = time.monotonic()
+    spawned = [_spawn_replica(cfg, rid, dev, workdir, world, weights)
+               for rid, dev in enumerate(devices, start=1)]
+    handles = [s[0] for s in spawned]
+    fd = FleetFrontDoor(os.path.join(workdir, "fleet"), world,
+                        request_timeout_s=120.0, health_interval_s=0.2)
+    try:
+        for h, ready, _ in spawned:
+            _wait_json(ready, t0 + cfg["timeout"], "fleet replica %d" % h.rid,
+                       [h.proc])
+            fd.add_replica(h)
+        start_s = time.monotonic() - t0
+
+        def infer(x):
+            return fd.infer("resnet", {"data": x})[0]
+
+        # wave 1: SIGKILL the last replica once a third is answered
+        done, kill = [0], {}
+        lock = threading.Lock()
+
+        def on_done():
+            with lock:
+                done[0] += 1
+                if done[0] == cfg["requests"] // 3 and not kill:
+                    kill["t"] = time.monotonic()
+                    kill["resub0"] = fd.stats()["resubmitted"]
+                    handles[-1].proc.kill()
+                elif kill and "first_resubmitted_s" not in kill \
+                        and fd.stats()["resubmitted"] > kill["resub0"]:
+                    kill["first_resubmitted_s"] = time.monotonic() - kill["t"]
+
+        a1, l1, w1 = _clients(infer, waves[0], cfg["clients"], on_done)
+        st1 = fd.stats()
+        # wave 2 under the front door's network weather (the replicas
+        # carry theirs from their start)
+        plan = fault.FaultPlan(FLEET_WAVE2_PLAN)
+        with fault.active_plan(plan):
+            a2, l2, w2 = _clients(infer, waves[1], cfg["clients"])
+        injected = plan.stats()["injected"]
+        st = fd.stats()
+        balanced = fd.ledger_balanced()
+        # each live replica stops on its message and writes its report
+        for h, _, report in spawned:
+            if h.alive():
+                fd._transport.send(h.rid, "stop", meta={"id": "stop"})
+        for h, _, report in spawned[:-1]:
+            _wait_json(report, time.monotonic() + 60, "replica report")
+    finally:
+        fd.close()
+        for h in handles:
+            if h.proc.poll() is None:
+                try:
+                    h.proc.wait(timeout=60)
+                except subprocess.TimeoutExpired:
+                    h.proc.kill()
+                    h.proc.wait()
+    failed = [a for a in a1 + a2 if isinstance(a, Exception)]
+    if failed or not balanced or st["submitted"] != 2 * cfg["requests"] \
+            or st["served"] != st["submitted"]:
+        raise AssertionError("phase 24 (a): %d of %d requests failed (%s), "
+                             "ledger %s balanced %s" % (
+                                 len(failed), 2 * cfg["requests"],
+                                 failed[:1], {k: st[k] for k in (
+                                     "submitted", "served", "failed",
+                                     "expired")}, balanced))
+    if "first_resubmitted_s" not in kill:
+        raise AssertionError("phase 24 (a): no request was resubmitted after "
+                             "the SIGKILL: %s" % st)
+    # each surviving replica: 33 K3 and 1 K2 a forward, nothing else (on
+    # the CPU the wrappers run their plain versions and count nothing)
+    launches, forwards = {}, 0
+    for h, _, report in spawned[:-1]:
+        rec = _wait_json(report, time.monotonic() + 60, "replica report")
+        want = dict.fromkeys(rec["calls"], 0)
+        if on_card:
+            want.update(scale_bias_relu=n_sites * rec["forwards"],
+                        softmax_lastaxis=rec["forwards"])
+        if rec["calls"] != want:
+            raise AssertionError("phase 24 (a): replica %d launched %s over "
+                                 "%d forwards; expected %s" % (
+                                     h.rid, rec["calls"], rec["forwards"],
+                                     want))
+        forwards += rec["forwards"]
+        for k, v in rec["calls"].items():
+            launches[k] = launches.get(k, 0) + v
+    # every answer against a Predictor of the same rows at its bucket
+    buckets = shape_buckets(cfg["max_batch"])
+    preds, bitwise, worst = {}, 0, 0.0
+    for x, got in zip(waves[0] + waves[1], a1 + a2):
+        b = pick_bucket(x.shape[0], buckets)
+        if b not in preds:
+            preds[b] = mx.Predictor.from_parts(
+                sym, args, auxs, {"data": (b,) + x.shape[1:]}, ctx=ctx)
+        ref = preds[b].forward(data=pad_batch([x], b)[0]).get_output(
+            0).asnumpy()[:x.shape[0]]
+        if got.shape != ref.shape or not np.isfinite(got).all():
+            raise AssertionError("phase 24 (a): an answer of shape %s "
+                                 "(finite %s) for %s" % (
+                                     got.shape, np.isfinite(got).all(),
+                                     ref.shape))
+        err = float(np.abs(got - ref).max())
+        bitwise += int(err == 0.0)
+        worst = max(worst, err)
+    if worst > CROSS_SHAPE_TOL:
+        raise AssertionError("phase 24 (a): an answer %g from the Predictor "
+                             "(limit %g)" % (worst, CROSS_SHAPE_TOL))
+    # the same traffic straight into one in-process ModelServer
+    srv = ModelServer(max_batch=cfg["max_batch"], batch_wait_ms=2.0,
+                      queue_depth=256, default_timeout_ms=120000.0, ctx=ctx)
+    srv.add_model("resnet", sym, args, auxs,
+                  {"data": (1,) + tuple(cfg["image"])})
+    srv.start()
+    try:
+        srv.warmup("resnet")
+        d1, dl, dw = _clients(
+            lambda x: srv.infer("resnet", {"data": x})[0], waves[0],
+            cfg["clients"])
+    finally:
+        srv.stop()
+    if any(isinstance(a, Exception) for a in d1):
+        raise AssertionError("phase 24 (a): the in-process server failed")
+    p50, p99 = _pcts(l1 + l2)
+    dp50, dp99 = _pcts(dl)
+    return {
+        "replicas": len(devices), "devices": devices,
+        "replica_start_s": start_s,
+        "requests": 2 * cfg["requests"], "clients": cfg["clients"],
+        "wave1": {"req_per_s": cfg["requests"] / w1,
+                  "p50_ms": _pcts(l1)[0], "p99_ms": _pcts(l1)[1]},
+        "wave2": {"req_per_s": cfg["requests"] / w2,
+                  "p50_ms": _pcts(l2)[0], "p99_ms": _pcts(l2)[1],
+                  "faults_injected": len(injected)},
+        "req_per_s": 2 * cfg["requests"] / (w1 + w2),
+        "p50_ms": p50, "p99_ms": p99,
+        "direct": {"req_per_s": cfg["requests"] / dw, "p50_ms": dp50,
+                   "p99_ms": dp99},
+        "kill_to_first_resubmitted_s": kill["first_resubmitted_s"],
+        "ledger": {k: st[k] for k in (
+            "submitted", "served", "failed", "expired", "resubmitted",
+            "retried", "duplicates_dropped", "ejections", "readmissions")},
+        "ledger_wave1": {k: st1[k] for k in ("resubmitted", "ejections")},
+        "replica_status": {str(r): list(v)
+                           for r, v in st["replicas"].items()},
+        "transport": st["transport"],
+        "answers_bitwise": bitwise, "answers_max_abs_err": worst,
+        "forwards": forwards, "launches": launches,
+    }
+
+
+def _launch_env(world, rank):
+    """``tools/launch.py``'s environment for worker ``rank`` of ``world``
+    (its ``worker_env``, with no servers)."""
+    import argparse
+    import importlib.util
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        "_launch", os.path.join(here, "tools", "launch.py"))
+    launch = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(launch)
+    return launch.worker_env(argparse.Namespace(
+        root_uri="127.0.0.1", root_port=9091, num_workers=world,
+        num_servers=0, env_worker=[], env=[]), rank)
+
+
+def async_worker_rank(rank, world, init_method, ctx, cfg, spool):
+    """Phase 24 (b)'s worker ``rank`` (a rank of :func:`run_ranks`): one
+    worker of ``Module.fit(kvstore="dist_async")`` under
+    ``tools/launch.py``'s ``DMLC_*`` environment, with a lost-ack rule on
+    its push link.  Rank 0 is the coordinator: once every worker has
+    fitted it drains the spool, stops the server thread and holds the
+    server's weights to a plain per-array SGD replay of the pushes the
+    server applied, in arrival order, from the initial weights; the other
+    ranks then pull every weight and return its digest.  The ranks meet
+    through a ``FileStore`` on ``init_method``'s file (no process group)."""
+    import hashlib
+    from datetime import timedelta
+    # the environment first: the port reads its fault plan at import
+    os.environ.update(_launch_env(world, rank))
+    os.environ.update(MXNET_KVSTORE_ASYNC_DIR=spool,
+                      MXNET_FAULT_PLAN=json.dumps(dict(ASYNC_PLAN,
+                                                       seed=240 + rank)))
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+    meet = torch.distributed.FileStore(init_method[len("file://"):], world)
+    meet.set_timeout(timedelta(seconds=cfg["timeout"]))
+    telemetry.enable()
+    on = mx.Context(ctx, cfg["devices"][rank])
+    dev = on.torch_device
+    sym = resnet_symbol(cfg["layers"], cfg["image"])
+    total = cfg["async_warmup"] + cfg["async_timed"]
+    # every worker's batch is the same fixed one, so each push lowers the
+    # one loss that each worker reads
+    it = synthetic_iter(mx, on, cfg["async_batch"], cfg["image"], total)
+    label = it.next().label[0]._data
+    it.reset()
+    mod = mx.mod.Module(sym, context=on)
+    kv = mx.kv.create("dist_async")
+    # the reference rescales dist_async by one worker's batch, so each of
+    # the world's pushes a step is a whole step: the rate is split
+    lr, wd = ASYNC_SGD["learning_rate"] / world, ASYNC_SGD["wd"]
+    rescale = 1.0 / cfg["async_batch"]
+    replay = {}
+    if rank == 0:
+        kv_init, kv_set_optimizer = kv.init, kv.set_optimizer
+
+        def init(key, value):
+            kv_init(key, value)
+            with kv._lock:
+                replay.update({k: v._data.clone()
+                               for k, v in kv._store.items()})
+
+        def set_optimizer(optimizer):
+            kv_set_optimizer(optimizer)
+            update = kv._updater
+
+            def apply(key, grad, weight):
+                # the server thread, under the store's lock
+                w = replay[key]
+                decay = wd if str(key).endswith(("_weight", "_gamma")) \
+                    else 0.0
+                replay[key] = w - lr * (grad._data * rescale + decay * w)
+                update(key, grad, weight)
+
+            kv._updater = apply
+
+        kv.init, kv.set_optimizer = init, set_optimizer
+    marks, probs = [], {}
+
+    def on_batch(param):
+        if param.nbatch in (0, total - 1):
+            probs[param.nbatch] = mod.get_outputs()[0]._data.clone()
+        marks.append(_marker(dev))
+
+    def digest(arrays):
+        h = hashlib.sha256()
+        for k in sorted(arrays):
+            h.update(arrays[k].tobytes())
+        return h.hexdigest()
+
+    mx.random.seed(SEED)
+    ck.reset_kernel_calls()
+    mod.fit(it, num_epoch=1, kvstore=kv, optimizer="sgd",
+            optimizer_params=dict(ASYNC_SGD, learning_rate=lr),
+            initializer=mx.init.Xavier(rnd_type="gaussian",
+                                       factor_type="in", magnitude=2),
+            batch_end_callback=on_batch)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    calls = ck.kernel_calls()
+    snap = telemetry.snapshot()
+
+    def fam(name, op, field):
+        for v in snap.get(name, {"values": []})["values"]:
+            if dict(v["labels"]).get("op") == op:
+                return v[field] if field else v["value"]
+        return 0
+
+    names = mod._exec_group.param_names
+    rec = {"rank": rank, "calls": calls, "keys": len(names),
+           "steps": total, "rescale_grad": mod._optimizer.rescale_grad,
+           "step_ms": _elapsed_ms(marks[cfg["async_warmup"] - 1], marks[-1])
+           / cfg["async_timed"],
+           "ce_first": cross_entropy(probs[0], label),
+           "ce_last": cross_entropy(probs[total - 1], label),
+           "push_s": fam("mxnet_kvstore_op_seconds", "push", "sum"),
+           "pushes": fam("mxnet_kvstore_op_seconds", "push", "count"),
+           "pull_s": fam("mxnet_kvstore_op_seconds", "pull", "sum"),
+           "pulls": fam("mxnet_kvstore_op_seconds", "pull", "count"),
+           "push_bytes": fam("mxnet_kvstore_bytes_total", "push", None),
+           "transport": kv._transport.stats()}
+    if rank == 0:
+        meet.wait(["fit%d" % r for r in range(1, world)])
+        expected = world * total * len(names)
+        drained = kv.wait_to_drain(timeout=cfg["timeout"])
+        deadline = time.monotonic() + cfg["timeout"]
+        while kv._transport.stats()["received"] < expected \
+                and time.monotonic() < deadline:
+            time.sleep(0.02)
+        # the server thread ends after the batch it is applying
+        kv._stop.set()
+        kv._server.join(timeout=60)
+        with kv._lock:
+            window = [i for _, i in kv._applied_log]
+            server = {k: kv._store[k]._data for k in names}
+            errs = [float((server[k] - replay[k]).abs().max())
+                    for k in names]
+            bitwise = sum(bool(torch.equal(server[k], replay[k]))
+                          for k in names)
+            scale = max(float(v.abs().max()) for v in server.values())
+            server = {k: v.cpu().numpy() for k, v in server.items()}
+        rec["server"] = {
+            "drained": drained, "expected": expected,
+            "transport": kv._transport.stats(),
+            "window": len(window), "window_unique": len(set(window)),
+            "digest": digest(server),
+            "replay": {"arrays": len(names), "bitwise": bitwise,
+                       "max_abs_err": max(errs), "largest": scale}}
+        meet.set("server", "1")
+        meet.wait(["pulled%d" % r for r in range(1, world)])
+    else:
+        meet.set("fit%d" % rank, "1")
+        meet.wait(["server"])
+        outs = {k: mx.nd.zeros(kv._store[k].shape, ctx=on) for k in names}
+        for k in names:
+            kv.pull(k, out=outs[k])
+        rec["digest"] = digest({k: v.asnumpy() for k, v in outs.items()})
+        meet.set("pulled%d" % rank, "1")
+    kv.close()
+    return rec
+
+
+def async_fit(cfg, workdir):
+    """Phase 24 (b): ``Module.fit(kvstore="dist_async")`` on ResNet in
+    :func:`async_worker_rank` processes (2 workers on one card, one a
+    card on four), ``ASYNC_SGD`` with the rate split over the workers."""
+    ncard = torch.cuda.device_count() if cfg["ctx"] == "gpu" else 1
+    n = ncard if ncard >= 4 else cfg["async_workers"]
+    devices = list(range(n)) if ncard >= 4 else [0] * n
+    t0 = time.monotonic()
+    workers = run_ranks("chip_smoke:async_worker_rank", n,
+                        (dict(cfg, devices=devices),
+                         os.path.join(workdir, "async_spool")),
+                        workdir=workdir, ctx=cfg["ctx"],
+                        timeout=cfg["timeout"])
+    wall = time.monotonic() - t0
+    server = workers[0]["server"]
+    total = workers[0]["steps"]
+    bad = []
+    tr = server["transport"]
+    if not server["drained"] or tr["received"] != server["expected"]:
+        bad.append("the server applied %d pushes of %d (drained %s)" % (
+            tr["received"], server["expected"], server["drained"]))
+    if server["window_unique"] != server["window"]:
+        bad.append("a push applied twice in the log's window")
+    rp = server["replay"]
+    if rp["bitwise"] != rp["arrays"] \
+            and rp["max_abs_err"] > 1e-6 * rp["largest"]:
+        bad.append("the server's weights are off the SGD replay of its "
+                   "pushes: %s" % rp)
+    for w in workers[1:]:
+        if w["digest"] != server["digest"]:
+            bad.append("worker %d's pulled weights differ from the "
+                       "server's" % w["rank"])
+    for w in workers:
+        if w["rescale_grad"] != 1.0 / cfg["async_batch"]:
+            bad.append("worker %d's fit rescaled by %r, not one worker's "
+                       "batch" % (w["rank"], w["rescale_grad"]))
+        want = dict.fromkeys(w["calls"], 0)
+        if cfg["ctx"] == "gpu":
+            want["softmax_lastaxis"] = total
+        if w["calls"] != want:
+            bad.append("worker %d launched %s; expected %s" % (
+                w["rank"], w["calls"], want))
+        if not w["ce_last"] < w["ce_first"]:
+            bad.append("worker %d's cross-entropy went %.4f -> %.4f (all: "
+                       "%s)" % (w["rank"], w["ce_first"], w["ce_last"],
+                                [(v["ce_first"], v["ce_last"])
+                                 for v in workers]))
+    if bad:
+        raise AssertionError("phase 24 (b): " + "; ".join(bad))
+    push_s = sum(w["push_s"] for w in workers)
+    return {
+        "workers": n, "devices": devices, "wall_s": wall,
+        "steps": total, "keys": workers[0]["keys"],
+        "applied": tr["received"], "expected": server["expected"],
+        "duplicates_dropped": tr["duplicates_dropped"],
+        "resent": sum(w["transport"]["resent"] for w in workers),
+        "replay": rp,
+        "step_ms": [w["step_ms"] for w in workers],
+        "images_per_s": sum(cfg["async_batch"] / w["step_ms"] * 1e3
+                            for w in workers),
+        "push_s": [w["push_s"] for w in workers],
+        "pull_s": [w["pull_s"] for w in workers],
+        "pushes": [w["pushes"] for w in workers],
+        "pulls": [w["pulls"] for w in workers],
+        "spool_mb_per_s": sum(w["push_bytes"] for w in workers) / 1e6
+        / push_s if push_s else None,
+        "ce": [(w["ce_first"], w["ce_last"]) for w in workers],
+        "launches": {"softmax_lastaxis": sum(
+            w["calls"].get("softmax_lastaxis", 0) for w in workers)},
+        "launches_per_worker_step": 1,
+    }
+
+
+def multi_context_fit(mx, ck, sym, cfg, ctxs):
+    """Phase 24 (c): ``Module(context=ctxs)`` with ``kvstore="device"``.
+    The first step against an oracle (one single-context executor a
+    slice, forward and backward on its rows, the gradients summed in the
+    store's order, the same per-array SGD); then timed steps."""
+    batch = cfg["mc_batch"]
+    total = cfg["mc_warmup"] + cfg["mc_timed"]
+    devs = [c.torch_device for c in ctxs]
+    torch.backends.cudnn.deterministic = True
+    it = synthetic_iter(mx, ctxs[0], batch, cfg["image"], total + 1)
+    mod = mx.mod.Module(sym, context=ctxs)
+    mod.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
+    mx.random.seed(SEED)
+    mod.init_params(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                   magnitude=2))
+    mod.init_optimizer(kvstore="device", optimizer="sgd",
+                       optimizer_params=SGD_PARAMS)
+    group = mod._exec_group
+    names, slices = group.param_names, group.slices
+    arg0, aux0 = mod.get_params()
+    arg0 = {k: v.asnumpy() for k, v in arg0.items()}
+    aux0 = {k: v.asnumpy() for k, v in aux0.items()}
+    first = it.next()
+    # the oracle: one executor a slice, on that slice's context
+    oracle = []
+    for c, s in zip(ctxs, slices):
+        rows = s.stop - s.start
+        exe = sym.simple_bind(ctx=c, grad_req={n: "write" for n in names},
+                              data=(rows,) + tuple(cfg["image"]),
+                              softmax_label=(rows,))
+        exe.copy_params_from({k: mx.nd.array(v, ctx=c)
+                              for k, v in arg0.items()},
+                             {k: mx.nd.array(v, ctx=c)
+                              for k, v in aux0.items()})
+        exe.forward(is_train=True, data=first.data[0][s].as_in_context(c),
+                    softmax_label=first.label[0][s].as_in_context(c))
+        exe.backward()
+        oracle.append(exe)
+    opt = mx.optimizer.create("sgd", sym=sym,
+                              param_idx2name=dict(enumerate(names)),
+                              rescale_grad=1.0 / batch, **SGD_PARAMS)
+    updater = mx.optimizer.get_updater(opt)
+    want_w = {}
+    for n in names:
+        g = oracle[0].grad_dict[n]._data
+        for exe in oracle[1:]:
+            g = g + exe.grad_dict[n]._data.to(g.device)
+        w = mx.nd.array(arg0[n], ctx=ctxs[0])
+        updater(n, mx.nd.NDArray(g), w)
+        want_w[n] = w
+    ck.reset_kernel_calls()
+    mod.forward_backward(first)
+    mod.update()
+    for d in set(devs):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+    first_calls = ck.kernel_calls()
+    pairs = [(group.param_arrays[j][i], want_w[n])
+             for j, n in enumerate(names) for i in range(len(ctxs))]
+    states = mod._kvstore._updater.states
+    pairs += [(states[n], updater.states[n]) for n in names]
+    pairs += [(group.aux_arrays[j][i], oracle[i].aux_dict[a])
+              for j, a in enumerate(group.aux_names)
+              for i in range(len(ctxs))]
+    bitwise, worst = 0, 0.0
+    for got, ref in pairs:
+        g = got._data.detach().float().cpu()
+        r = ref._data.detach().float().cpu()
+        if torch.equal(g, r):
+            bitwise += 1
+            continue
+        worst = max(worst, float(((g - r).abs() / r.abs().clamp_min(
+            1e-30)).max()))
+    if worst > 1e-6:
+        raise AssertionError("phase 24 (c): the first step is %g relative "
+                             "from the oracle (%d of %d tensors bitwise)"
+                             % (worst, bitwise, len(pairs)))
+    on_card = devs[0].type == "cuda"
+    want = dict.fromkeys(first_calls, 0)
+    if on_card:
+        want["softmax_lastaxis"] = len(ctxs)
+    if first_calls != want:
+        raise AssertionError("phase 24 (c): the first step launched %s; "
+                             "expected %s" % (first_calls, want))
+    torch.backends.cudnn.deterministic = False
+    label = first.label[0]._data
+    marks, ce = [], []
+    ck.reset_kernel_calls()
+    for step in range(total):
+        mod.forward_backward(it.next())
+        mod.update()
+        if step in (0, total - 1):
+            ce.append(cross_entropy(mod.get_outputs()[0]._data, label))
+        marks.append(_marker(devs[0]))
+    for d in set(devs):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+    calls = ck.kernel_calls()
+    want = dict.fromkeys(calls, 0)
+    if on_card:
+        want["softmax_lastaxis"] = len(ctxs) * total
+    if calls != want:
+        raise AssertionError("phase 24 (c): %d steps launched %s; expected "
+                             "%s" % (total, calls, want))
+    step_ms = _elapsed_ms(marks[cfg["mc_warmup"] - 1], marks[-1]) \
+        / cfg["mc_timed"]
+    return {"contexts": [str(c) for c in ctxs], "batch": batch,
+            "slices": [[s.start, s.stop] for s in slices],
+            "first_step": {"tensors": len(pairs), "bitwise": bitwise,
+                           "max_rel": worst},
+            "step_ms": step_ms, "images_per_s": batch / step_ms * 1e3,
+            "ce": ce, "launches": calls,
+            "launches_per_step": {"softmax_lastaxis": len(ctxs)}}
+
+
+def fleet_drills(cfg, workdir):
+    """Phase 24 (d): the fleet network soak of the linear model, and the
+    fused-sweep parity drill in a world of one rank a card."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.fault import drill
+    ctx = mx.Context(cfg["ctx"], 0)
+    t = time.monotonic()
+    soak = drill.fleet_network_soak(
+        duration_s=cfg["soak_s"], clients=4, replicas=3,
+        min_faults=cfg["soak_min_faults"],
+        tmpdir=os.path.join(workdir, "soak"), ctx=ctx)
+    soak_s = time.monotonic() - t
+    world = torch.cuda.device_count() if cfg["ctx"] == "gpu" else 2
+    t = time.monotonic()
+    par = drill.fused_sweep_parity_drill(
+        tmpdir=os.path.join(workdir, "parity"), world=world, ctx=ctx,
+        timeout=cfg["timeout"])
+    par_s = time.monotonic() - t
+    return {"soak": {k: soak[k] for k in (
+                "duration_s", "serving", "training", "checkpoints",
+                "faults_injected")}, "soak_wall_s": soak_s,
+            "parity": par, "parity_wall_s": par_s}
+
+
+def fleet_phase(mx, ck, sym, n_sites, smi, cfg=FLEET, workdir_parent=None):
+    """Phase 24: (a)-(d) above, each raising on failure.  Prints its lines
+    and returns its record (``launches_fleet`` for K3 and K2,
+    ``launches_async`` and ``launches_multi_context`` for K2,
+    ``launches_drill`` for K1a, K1b and K4)."""
+    import tempfile
+    cfg = dict(cfg)
+    cfg.setdefault("ctx", "gpu")
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    workdir = tempfile.TemporaryDirectory(prefix=".chip_smoke_fleet_",
+                                          dir=workdir_parent or here)
+    try:
+        fl = fleet_front_door(mx, ck, sym, cfg, n_sites, workdir.name)
+        t_a = time.perf_counter() - t0
+        print("phase 24 (a) on %s: FleetFrontDoor over %d ResNet-%d replica "
+              "processes on %s, buckets 1-%d: %d requests of 1-3 rows from %d "
+              "clients, %.2f req/s, p50 %.2f ms, p99 %.2f ms (wave 1 %.2f "
+              "req/s, wave 2 under network weather %.2f req/s, %d faults); "
+              "the same wave into one in-process ModelServer %.2f req/s, p50 "
+              "%.2f ms, p99 %.2f ms; SIGKILL to the first resubmitted answer "
+              "%.3f s; ledger %s; answers bitwise %d/%d, max |dp| %g; "
+              "survivors' launches %s over %d forwards; replicas up in %.1f s"
+              % (smi, fl["replicas"], cfg["layers"], fl["devices"],
+                 cfg["max_batch"], fl["requests"], fl["clients"],
+                 fl["req_per_s"], fl["p50_ms"], fl["p99_ms"],
+                 fl["wave1"]["req_per_s"], fl["wave2"]["req_per_s"],
+                 fl["wave2"]["faults_injected"], fl["direct"]["req_per_s"],
+                 fl["direct"]["p50_ms"], fl["direct"]["p99_ms"],
+                 fl["kill_to_first_resubmitted_s"], fl["ledger"],
+                 fl["answers_bitwise"], fl["requests"],
+                 fl["answers_max_abs_err"], fl["launches"], fl["forwards"],
+                 fl["replica_start_s"]), flush=True)
+        t = time.perf_counter()
+        af = async_fit(cfg, workdir.name)
+        t_b = time.perf_counter() - t
+        print("phase 24 (b) on %s: Module.fit(kvstore=dist_async) ResNet-%d "
+              "fp32, %d workers on %s, batch %d a worker, SGD %s (the rate over "
+              "the workers), %d warmup "
+              "+ %d timed steps: step ms %s (CUDA events), %.1f images/s in "
+              "all; "
+              "push s %s, pull s %s; spool %.1f MB/s; %d/%d pushes applied "
+              "once each (%d resends absorbed); the server's weights against "
+              "the SGD replay of its pushes: %d/%d arrays bitwise, max |dw| "
+              "%g; cross-entropy %s; %.1f s"
+              % (smi, cfg["layers"], af["workers"], af["devices"],
+                 cfg["async_batch"], ASYNC_SGD, cfg["async_warmup"],
+                 cfg["async_timed"],
+                 ["%.1f" % v for v in af["step_ms"]], af["images_per_s"],
+                 ["%.2f" % v for v in af["push_s"]],
+                 ["%.2f" % v for v in af["pull_s"]],
+                 af["spool_mb_per_s"] or 0.0, af["applied"], af["expected"],
+                 af["duplicates_dropped"], af["replay"]["bitwise"],
+                 af["replay"]["arrays"], af["replay"]["max_abs_err"],
+                 [("%.3f" % a, "%.3f" % b) for a, b in af["ce"]], t_b),
+              flush=True)
+        ncard = torch.cuda.device_count() if cfg["ctx"] == "gpu" else 1
+        if cfg["ctx"] == "cpu":
+            ctxs = [mx.cpu(0), mx.cpu(0)]
+        else:
+            ctxs = [mx.gpu(i) for i in range(ncard)] if ncard >= 4 \
+                else [mx.gpu(0), mx.gpu(0)]
+        t = time.perf_counter()
+        mc = multi_context_fit(mx, ck, sym, cfg, ctxs)
+        t_c = time.perf_counter() - t
+        print("phase 24 (c) on %s: Module(context=%s) ResNet-%d fp32, "
+              "kvstore=device, global batch %d split %s: first step vs one "
+              "executor a slice, gradients summed, the same SGD: %d/%d tensors "
+              "bitwise (weights, momentum, each context's moving stats), max "
+              "relative %g; %.2f ms/step, %.1f images/s (CUDA events, %d "
+              "timed after %d); launches %s; cross-entropy %s; %.1f s"
+              % (smi, mc["contexts"], cfg["layers"], mc["batch"],
+                 mc["slices"], mc["first_step"]["bitwise"],
+                 mc["first_step"]["tensors"], mc["first_step"]["max_rel"],
+                 mc["step_ms"], mc["images_per_s"], cfg["mc_timed"],
+                 cfg["mc_warmup"], mc["launches"], mc["ce"], t_c), flush=True)
+        t = time.perf_counter()
+        dr = fleet_drills(cfg, workdir.name)
+        t_d = time.perf_counter() - t
+    finally:
+        workdir.cleanup()
+    soak = dr["soak"]
+    print("phase 24 (d) on %s: fleet_network_soak %.1f s, 3 linear replicas: "
+          "%s requests, ledger %s, %s faults by kind %s, gradients %d acked, "
+          "%d applied; fused_sweep_parity_drill over %s: bitwise %s, "
+          "launches %s; (a) %.1f s, (b) %.1f s, (c) %.1f s, (d) %.1f s"
+          % (smi, soak["duration_s"], soak["serving"]["requests"],
+             soak["serving"]["fleet_ledger"], soak["faults_injected"]["total"],
+             soak["faults_injected"]["by_kind"], soak["training"]["acked"],
+             soak["training"]["applied"], dr["parity"]["mesh"],
+             dr["parity"]["bitwise_equal_vs_per_array"],
+             dr["parity"]["launches"], t_a, t_b, t_c, t_d), flush=True)
+    drill_calls = dr["parity"]["launches"]
+    return {
+        "card": smi, "seconds": time.perf_counter() - t0,
+        "front_door": fl, "dist_async": af, "multi_context": mc,
+        "drills": dr,
+        "launches_fleet": {
+            "scale_bias_relu": {"total": fl["launches"].get(
+                "scale_bias_relu", 0), "forwards": fl["forwards"],
+                "per_forward": n_sites},
+            "softmax_lastaxis": {"total": fl["launches"].get(
+                "softmax_lastaxis", 0), "forwards": fl["forwards"],
+                "per_forward": 1}},
+        "launches_async": {"total": af["launches"]["softmax_lastaxis"],
+                           "per_worker_step": 1, "workers": af["workers"],
+                           "steps": af["steps"]},
+        "launches_multi_context": {
+            "total": mc["launches"].get("softmax_lastaxis", 0),
+            "per_step": len(ctxs), "steps": cfg["mc_warmup"]
+            + cfg["mc_timed"]},
+        "launches_drill": {k: drill_calls.get(k, 0) for k in (
+            "sgd_sweep", "sgd_mom_sweep", "adam_sweep")},
+    }
+
+
 def main():
+    if sys.argv[1:2] == ["_fleet_replica"]:
+        # phase 24 (a)'s replica, in a process of its own
+        return fleet_replica_main(json.loads(sys.argv[2]))
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -9610,6 +10445,15 @@ def main():
         # phase 23 alone
         mp_line = model_parallel_phase(mx, ck, dev, smi)
         print(json.dumps({"model_parallel": mp_line}, default=str))
+        print("nvidia-smi: %s" % smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
+        return 0
+    if sys.argv[1:] == ["fleet"]:
+        # phase 24 alone
+        fleet_line = fleet_phase(mx, ck, sym, len(sites), smi)
+        print(json.dumps({"fleet": fleet_line}, default=str))
         print("nvidia-smi: %s" % smi)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind,
@@ -10718,6 +11562,14 @@ def main():
                       (k2, "softmax_lastaxis")):
         rec["launches_model_parallel"] = mp_line[
             "launches_model_parallel"].get(name, {"total": 0})
+    # 24. the asynchronous and multi-process rest of multi-GPU
+    fleet_line = fleet_phase(mx, ck, sym, len(sites), smi)
+    for rec, name in ((k3, "scale_bias_relu"), (k2, "softmax_lastaxis")):
+        rec["launches_fleet"] = fleet_line["launches_fleet"][name]
+    k2["launches_async"] = fleet_line["launches_async"]
+    k2["launches_multi_context"] = fleet_line["launches_multi_context"]
+    for name in ("sgd_sweep", "sgd_mom_sweep", "adam_sweep"):
+        sweeps[name]["launches_drill"] = fleet_line["launches_drill"][name]
     for job in k7a_jobs:
         job["tflops"] = job["ops"] / job["ms"] / 1e9
     k7a["tflops"] = k7a_jobs[0]["tflops"]
@@ -10819,6 +11671,7 @@ def main():
     print(json.dumps({"elastic": el_line}, default=str))
     print(json.dumps({"parallel": par_line}, default=str))
     print(json.dumps({"model_parallel": mp_line}, default=str))
+    print(json.dumps({"fleet": fleet_line}, default=str))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
             "launches_per_forward", "call_ms", "plain_call_ms",
@@ -10832,6 +11685,8 @@ def main():
                         "launches_observability", "launches_train_serve",
                         "launches_generative", "launches_elastic",
                         "launches_parallel", "launches_model_parallel",
+                        "launches_fleet", "launches_async",
+                        "launches_multi_context", "launches_drill",
                         "lm", "bf16",
                         "ms_repeats", "library_ms_repeats",
                         "bfloat16_ms_repeats", "bfloat16_library_ms_repeats",

@@ -50,7 +50,12 @@ sha256-checked, atomically committed training state, saved by ``fit``
 through a ``CheckpointManager``), ``fault`` (the fault-plan runtime and
 its sites), ``compile_cache`` (the built CUDA kernel libraries) and
 serving's quotas, priorities, shedding, brownout, canaries, warmup
-manifest and ``CheckpointWatcher``.
+manifest and ``CheckpointWatcher``.  Across processes and GPUs:
+``parallel`` (data- and model-parallel training, the message spool
+``parallel.transport``), the ``dist_sync`` and ``dist_async`` kvstores
+(``kvstore_server`` for launchers' server roles), ``Module`` on a list of
+contexts, the replica front door ``serving.FleetFrontDoor`` and the fault
+drills (``fault.drill``).
 """
 import torch as _torch
 
@@ -90,6 +95,7 @@ from . import metric  # noqa: F401
 from . import gradient_compression  # noqa: F401
 from . import kvstore  # noqa: F401
 from . import kvstore as kv  # noqa: F401
+from . import kvstore_server  # noqa: F401
 from . import callback  # noqa: F401
 from . import model  # noqa: F401
 from . import module  # noqa: F401

@@ -119,6 +119,38 @@ register_env("MXNET_PARALLEL_COMPRESSION_THRESHOLD", float, 0.5,
 register_env("MXNET_KVSTORE_HEARTBEAT_DIR", str, None,
              "shared directory for dist-kvstore worker heartbeats "
              "(enables get_num_dead_node)")
+register_env("MXNET_KVSTORE_ASYNC_DIR", str, None,
+             "shared spool directory for the dist_async parameter "
+             "server (coordinator applies pushes on arrival)")
+register_env("MXNET_KVSTORE_ASYNC_MAX_PENDING", int, 64,
+             "dist_async spool capacity: push blocks while this many "
+             "spooled gradients await the server (bounds staleness and "
+             "spool growth; 0 disables backpressure)")
+register_env("MXNET_KVSTORE_ASYNC_BACKPRESSURE_TIMEOUT", float, 120.0,
+             "seconds a dist_async push may block on a full spool "
+             "before raising (a dead server thread, not staleness)")
+register_env("MXNET_TRANSPORT_SEND_RETRIES", int, 4,
+             "at-least-once resend budget of "
+             "SpoolTransport.send_reliable (parallel/transport.py): "
+             "link faults (partition, lost ack) are retried this many "
+             "times on the shared BackoffPolicy, reusing one message "
+             "id so the receiver's dedup keeps delivery exactly-once")
+register_env("MXNET_TRANSPORT_POLL_S", float, 0.005,
+             "SpoolTransport receive poll interval: how often "
+             "recv_wait re-scans the inbox while empty")
+register_env("MXNET_FLEET_HEALTH_INTERVAL_S", float, 0.2,
+             "replica health-beat period of the fleet front door "
+             "(serving/fleet.py): each tick judges every healthy "
+             "replica's window and probes the ejected ones")
+register_env("MXNET_FLEET_PROBE_RETRIES", int, 5,
+             "re-admission probe budget for an ejected fleet replica: "
+             "the front door probes it on BackoffPolicy delays this "
+             "many times before declaring it dead for good")
+register_env("MXNET_FLEET_SUBMIT_RETRIES", int, 3,
+             "front-door resubmit budget per request: a remote "
+             "QueueFull re-routes the SAME request id up to this many "
+             "times (honoring the remote retry_after_s hint); the "
+             "ledger dedups, so a client never sees a duplicate")
 register_env("MXNET_SERVING_MAX_BATCH", int, 8,
              "largest serving shape bucket; the micro-batcher coalesces "
              "concurrent requests up to this many rows per dispatch")

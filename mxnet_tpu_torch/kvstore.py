@@ -31,7 +31,15 @@ error feedback) on every push, as the JAX package does.
   the same update to its copy.  ``barrier``, the heartbeat directory
   (``MXNET_KVSTORE_HEARTBEAT_DIR``, ``get_num_dead_node``) and the
   ``transport.collective`` fault site are the JAX package's.
-  ``dist_async`` comes with the next multi-GPU slice.
+- ``dist_async`` (``KVStoreDistAsync``, counterpart of
+  ``mxnet_tpu/kvstore.py:614-838``): update on arrival.  The coordinator
+  (``DMLC_WORKER_ID`` 0) runs a server thread that applies each pushed
+  gradient through the updater, on the store's device, in arrival order,
+  and publishes every weight atomically into the shared spool
+  (``MXNET_KVSTORE_ASYNC_DIR``); gradients cross on
+  ``parallel.transport.SpoolTransport``, so the ``transport.*`` fault
+  sites reach them.  ``push`` returns without waiting; ``pull`` reads the
+  current, possibly stale, weights: that is the async contract.
 
 Telemetry as in the JAX package: a completed user-visible ``push`` or
 ``pull`` counts in ``mxnet_kvstore_ops_total{op}``, its payload bytes in
@@ -58,7 +66,8 @@ from .ndarray import NDArray
 from . import optimizer as opt
 from .telemetry import tracing as _tracing
 
-__all__ = ["KVStore", "KVStoreTPU", "KVStoreDist", "create",
+__all__ = ["KVStore", "KVStoreTPU", "KVStoreDist", "KVStoreDistAsync",
+           "create",
            "is_worker_node", "is_server_node", "is_scheduler_node"]
 
 
@@ -178,8 +187,8 @@ class KVStore:
 
     @_instrumented("push")
     def push(self, key, value, priority=0):
-        """Aggregate values into the store, applying the updater if set
-        (reference: kvstore.py:158)."""
+        """Merge each key's values and apply the updater to them if one
+        is set, else store the merged value (reference: kvstore.py:158)."""
         keys, vals = _key_values(key, value)
         for k, vlist in zip(keys, vals):
             if k not in self._store:
@@ -188,7 +197,13 @@ class KVStore:
             if self._updater is not None:
                 self._updater(self._key_int(k), merged, self._store[k])
             else:
-                self._store[k]._data = self._store[k]._data + merged._data
+                # the merged value replaces the stored one (reference:
+                # kvstore_local.h PushImpl ``local = merged``; the JAX
+                # package adds it, ROADMAP queue 3), as a copy on the
+                # stored value's device
+                w = self._store[k]._data
+                self._store[k]._data = merged._data.to(
+                    device=w.device, dtype=w.dtype, copy=True)
 
     @_instrumented("pull")
     def pull(self, key, out=None, priority=0, ignore_sparse=True):
@@ -441,6 +456,218 @@ class KVStoreDist(KVStoreTPU):
             dist.barrier()
 
 
+class KVStoreDistAsync(KVStore):
+    """dist_async: update-on-arrival semantics (reference: the async
+    branch of the ps-lite server, kvstore_dist_server.h:282 ApplyUpdates,
+    kvstore.cc:55-58): no per-step aggregation barrier, and workers pull
+    whatever weights the server holds (bounded staleness).
+
+    The coordinator (worker 0) runs a server THREAD that applies updates
+    in arrival order; gradients ride the fault-addressable
+    :class:`~.parallel.transport.SpoolTransport` over a shared
+    directory (``MXNET_KVSTORE_ASYNC_DIR``; a temporary one when unset
+    and there is one worker).  An armed fault plan can partition, slow,
+    lose the ack of or reorder the gradient link; pushes retry under one
+    message id and the server's dedup absorbs resends."""
+
+    def __init__(self, kv_type="dist_async"):
+        super().__init__(kv_type)
+        import tempfile
+        from .parallel.transport import SpoolTransport
+        self._rank = int(os.environ.get("DMLC_WORKER_ID", "0"))
+        self._world = int(os.environ.get("DMLC_NUM_WORKER", "1"))
+        root = _config.get("MXNET_KVSTORE_ASYNC_DIR")
+        if not root:
+            if self._world > 1:
+                raise MXNetError(
+                    "dist_async with %d workers needs a shared "
+                    "MXNET_KVSTORE_ASYNC_DIR" % self._world)
+            root = tempfile.mkdtemp(prefix="mxkv_async_")
+        self._root = root
+        self._push_dir = os.path.join(root, "push")
+        self._w_dir = os.path.join(root, "weights")
+        os.makedirs(self._push_dir, exist_ok=True)
+        os.makedirs(self._w_dir, exist_ok=True)
+        # every worker sends to the coordinator, whose inbox is push/;
+        # the cap is the transport's exact flock admission
+        cap = _config.get("MXNET_KVSTORE_ASYNC_MAX_PENDING")
+        self._transport = SpoolTransport(
+            root, self._rank, self._world,
+            cap=cap if cap and cap > 0 else None,
+            inbox=lambda r: "push")
+        self._key_by_name = {}   # str(key) -> store key (keys cross the
+                                 # spool as strings)
+        self._lock = threading.Lock()
+        self._applied_log = []   # server: (key, message id), arrivals
+        self._stop = threading.Event()
+        self._server = None
+        if self._rank == 0:
+            self._server = threading.Thread(target=self._serve,
+                                            name="mxnet-kv-async",
+                                            daemon=True)
+            self._server.start()
+
+    # -- server (coordinator thread, worker 0) --------------------------
+    def _serve(self):
+        while not self._stop.is_set():
+            if not self._apply_arrivals():
+                time.sleep(0.01)
+
+    def _spool_files(self):
+        """Completed spool files in arrival order (the coordinator
+        inbox's scan)."""
+        return self._transport._spool_files(0)
+
+    def _apply_arrivals(self):
+        """Apply every delivered push in arrival order; True if any.  The
+        transport's recv drops duplicate message ids, so a resend never
+        applies a gradient twice."""
+        msgs = self._transport.recv()
+        for msg in msgs:
+            k = str(msg.meta.get("key"))
+            grad = msg.arrays.get("grad")
+            if grad is None:
+                continue
+            with self._lock:
+                k = self._key_by_name.get(k, k)
+                if k in self._store:
+                    w = self._store[k]
+                    g = NDArray(torch.from_numpy(grad).to(w._data.device))
+                    if self._updater is not None:
+                        # one optimizer step a push, from any worker
+                        self._updater(self._key_int(k), g, w)
+                    else:
+                        w._data = w._data + g._data
+                    if len(self._applied_log) >= 1000:
+                        del self._applied_log[:500]  # a ring buffer
+                    self._applied_log.append(
+                        (k, "%d:%d:%d" % (msg.sender, msg.epoch,
+                                          msg.seq)))
+                    self._publish(k)
+        return bool(msgs)
+
+    def _publish(self, k):
+        """Atomically expose the current weight for workers to pull."""
+        import numpy as np
+        tmp = os.path.join(self._w_dir, ".%s.tmp" % _san(k))
+        np.save(tmp, self._store[k].asnumpy())
+        os.replace(tmp + ".npy", os.path.join(self._w_dir,
+                                              "%s.npy" % _san(k)))
+
+    # -- worker surface ---------------------------------------------------
+    def init(self, key, value):
+        keys, vals = _key_values(key, value)
+        for k in keys:
+            self._key_by_name[str(k)] = k
+        if self._rank == 0:
+            super().init(key, value)
+            with self._lock:
+                for k in keys:
+                    self._publish(k)
+            return
+        # workers adopt the server's initial weights (reference: only
+        # one worker's init lands on the server)
+        for k, vlist in zip(keys, vals):
+            path = os.path.join(self._w_dir, "%s.npy" % _san(k))
+            deadline = time.time() + 60
+            while not os.path.exists(path):
+                if time.time() > deadline:
+                    raise MXNetError(
+                        "dist_async init: server never published %r"
+                        % (k,))
+                time.sleep(0.01)
+            self._store[k] = NDArray(torch.from_numpy(
+                self._load_weight(k)).to(vlist[0]._data.device))
+
+    def _load_weight(self, k):
+        import numpy as np
+        from .fault.backoff import BackoffPolicy
+        path = os.path.join(self._w_dir, "%s.npy" % _san(k))
+        # a read racing a replace retries on the shared backoff policy
+        # (millisecond delays, jittered by rank; ~1 s in all)
+        policy = BackoffPolicy(retries=40, base_s=0.005, max_s=0.025,
+                               seed=self._rank)
+        try:
+            return policy.call(lambda: np.load(path),
+                               retry_on=(OSError, ValueError))
+        except (OSError, ValueError):
+            raise MXNetError("dist_async: cannot read weight %r" % (k,))
+
+    @_instrumented("push")
+    def push(self, key, value, priority=0):
+        """Send the merged gradient across the transport and RETURN; the
+        server applies it on arrival.  A full coordinator inbox blocks,
+        then raises past the backpressure timeout (the server thread is
+        dead, not behind).  Injected link faults are retried under one
+        message id."""
+        keys, vals = _key_values(key, value)
+        for k, vlist in zip(keys, vals):
+            if k not in self._store:
+                raise MXNetError("key %r has not been initialized" % (k,))
+            merged = self._reduce(k, vlist)
+            try:
+                self._transport.send_reliable(
+                    0, "grad", meta={"key": str(k)},
+                    arrays={"grad": merged._data})
+            except ConnectionError as exc:
+                raise MXNetError("dist_async push: %s" % (exc,))
+
+    @_instrumented("pull")
+    def pull(self, key, out=None, priority=0, ignore_sparse=True):
+        """Read the server's CURRENT weights, which may miss pushes still
+        in flight (the async contract)."""
+        if out is None:
+            raise MXNetError("pull needs out arrays")
+        keys, outs = _key_values(key, out)
+        for k, olist in zip(keys, outs):
+            if k not in self._store:
+                raise MXNetError("key %r has not been initialized" % (k,))
+            if self._rank == 0:
+                with self._lock:
+                    src = self._store[k]._data
+            else:
+                dev = self._store[k]._data.device
+                src = torch.from_numpy(self._load_weight(k)).to(dev)
+                self._store[k] = NDArray(src)
+            for o in olist:
+                o._data = src if (src.dtype == o._data.dtype
+                                  and src.device == o._data.device) \
+                    else src.to(device=o._data.device, dtype=o._data.dtype)
+
+    def wait_to_drain(self, timeout=30):
+        """Block until the push spool is empty (tests, clean shutdown)."""
+        deadline = time.time() + timeout
+        while time.time() < deadline:
+            if not self._spool_files():
+                return True
+            time.sleep(0.01)
+        return False
+
+    def close(self):
+        self._stop.set()
+        if self._server is not None:
+            self._server.join(timeout=5)
+        self._transport.close()
+
+    @property
+    def rank(self):
+        return self._rank
+
+    @property
+    def num_workers(self):
+        return self._world
+
+
+def _san(k):
+    """Filesystem-safe, collision-free key encoding: a readable prefix
+    and the crc of the real key ('a/b' and 'a_b' must not share a
+    file)."""
+    import zlib
+    s = str(k)
+    safe = "".join(c if c.isalnum() or c in "._-" else "_" for c in s)
+    return "%s-%08x" % (safe, zlib.crc32(s.encode()))
+
+
 def is_worker_node():
     """Reference: kvstore.h IsWorkerNode (DMLC_ROLE)."""
     return os.environ.get("DMLC_ROLE", "worker") == "worker"
@@ -463,7 +690,8 @@ def is_scheduler_node():
 def create(name="local"):
     """A kvstore by type name (reference: kvstore.py create):
     ``local``/``device``, ``tpu`` (``nccl`` is an alias), or the
-    multi-process ``dist_sync``/``dist_device_sync``/``dist``."""
+    multi-process ``dist_sync``/``dist_device_sync``/``dist`` and
+    ``dist_async``."""
     if not isinstance(name, str):
         raise TypeError("name must be a string")
     if name in ("local", "device", "local_allreduce_cpu",
@@ -474,6 +702,5 @@ def create(name="local"):
     if name in ("dist_sync", "dist_device_sync", "dist"):
         return KVStoreDist(name)
     if name == "dist_async":
-        raise MXNetError("kvstore type 'dist_async' comes with the next "
-                         "multi-GPU slice (dist_sync is ported)")
+        return KVStoreDistAsync(name)
     raise MXNetError("unknown KVStore type %r" % name)

@@ -29,6 +29,12 @@ BatchEndParam = namedtuple("BatchEndParams",
                            ["epoch", "nbatch", "eval_metric", "locals"])
 
 
+# ``local`` updates on the workers past this many values in one
+# parameter (reference: model.py _create_kvstore); the store then only
+# sums the gradients
+LOCAL_UPDATE_ON_KVSTORE_MAX = 1024 * 1024 * 16
+
+
 def _create_kvstore(kvstore, num_device, arg_params):
     """``(kvstore or None, update_on_kvstore)`` (reference: model.py:55).
     On one device ``local`` needs no store (the module updates with its
@@ -47,7 +53,7 @@ def _create_kvstore(kvstore, num_device, arg_params):
             if kvstore == "local":
                 max_size = max(np.prod(param.shape)
                                for param in arg_params.values())
-                if max_size > 1024 * 1024 * 16:
+                if max_size > LOCAL_UPDATE_ON_KVSTORE_MAX:
                     update_on_kvstore = False
     else:
         raise TypeError("kvstore must be KVStore, str or None")

@@ -1,4 +1,4 @@
-"""Module — symbolic training on one device.
+"""Module — symbolic training on one device or several.
 
 Counterpart of ``mxnet_tpu/module/module.py`` (reference:
 python/mxnet/module/module.py:40): ``bind``, ``init_params``,
@@ -26,7 +26,13 @@ backward and the optimizer sweep and ``update()`` has nothing left to
 do; ``"local"`` updates each array with the module's own ``Updater``,
 and ``"device"`` through the kvstore's.  ``_allow_exec_fusion = False``
 (what ``BucketingModule`` sets, since its buckets share the weights)
-keeps ``"tpu"`` on the kvstore's fused store.  The default context is the
+keeps ``"tpu"`` on the kvstore's fused store.  ``context`` may be a list
+(MXNet 1.2's ``Module(context=[gpu(0), gpu(1), ...])``): the batch is
+split over the contexts by ``work_load_list``, one executor a context,
+the kvstore is made for ``len(context)`` devices and the update runs per
+array, through the store (``"local"``, ``"device"``, ``"tpu"``) or, with
+no store, through the module's updater on each context's own gradient;
+the fused step stays for one executor.  The default context is the
 current one (``gpu(0)`` outside a ``with`` block); without a GPU the
 module raises unless given ``cpu()``.
 
@@ -306,6 +312,10 @@ class Module(BaseModule):
                 raise AssertionError(
                     "shared_module must be a bound, initialized Module")
             shared_group = shared_module._exec_group
+            if len(shared_group.execs) < len(self._context):
+                raise AssertionError(
+                    "shared_module was bound on fewer devices than this "
+                    "module needs")
         self._exec_group = DataParallelExecutorGroup(
             self._symbol, self._context, self._work_load_list,
             self._data_shapes, self._label_shapes, self._param_names,
@@ -364,8 +374,12 @@ class Module(BaseModule):
             # tests "_async" here, ROADMAP queue 3)
             batch_size *= kvstore.num_workers
         rescale_grad = 1.0 / batch_size
+        # optimizer index -> name; an update on the workers keeps one
+        # slot a (parameter, context) pair, the updater's index pattern
         names = self._exec_group.param_names
-        idx2name = dict(enumerate(names))
+        ndev = 1 if update_on_kvstore else len(self._context)
+        idx2name = {i * ndev + k: n
+                    for i, n in enumerate(names) for k in range(ndev)}
         if isinstance(optimizer, str):
             optimizer_params = dict(optimizer_params)
             optimizer_params.setdefault("rescale_grad", rescale_grad)
@@ -398,10 +412,12 @@ class Module(BaseModule):
         else:
             self._updater = opt.get_updater(optimizer)
         # kvstore=tpu on one device: the optimizer runs inside the
-        # executor's training forward (the fused step)
+        # executor's training forward (the fused step); on several, the
+        # update goes through the store, per array
         self._fused_exec_update = False
         if kvstore is not None and kvstore.type == "tpu" \
                 and update_on_kvstore \
+                and len(self._exec_group.execs) == 1 \
                 and getattr(self, "_allow_exec_fusion", True):
             # compression follows the module wherever its update runs:
             # the kvstore's codec runs inside the fused step too

@@ -5,8 +5,8 @@ the differentiable exchanges of a sharded region (``collectives``), the
 ZeRO optimizers (``optimizer``), ``ParallelTrainer`` (``trainer``) for
 training with the batch and the parameters sharded across GPUs, ring and
 Ulysses attention (``attention``), pipelines (``pipeline``) and experts
-(``moe``).  The parameter server's transport (``transport``) comes with
-the next multi-GPU slice."""
+(``moe``), and the fault-addressable message spool that the dist_async
+store and the serving fleet ride (``transport``)."""
 from . import collectives  # noqa: F401
 from . import attention  # noqa: F401
 from .attention import (  # noqa: F401
@@ -22,3 +22,4 @@ from .optimizer import PureSGD, PureAdam, make_optimizer  # noqa: F401
 from .trainer import ParallelTrainer, pure_block_apply  # noqa: F401
 from .pipeline import pipeline_apply, stack_stages  # noqa: F401
 from .moe import switch_moe, stack_experts  # noqa: F401
+from .transport import InboxFull, Message, SpoolTransport  # noqa: F401

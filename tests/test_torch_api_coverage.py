@@ -47,16 +47,6 @@ MODULES = ("", "optimizer", "metric", "initializer", "lr_scheduler",
            "symbol", "executor", "predictor", "image", "recordio", "rnn")
 
 DEFERRED = {
-    # queue 1 item 7b, the next multi-GPU slice: the asynchronous
-    # parameter server and its transport, and the multi-replica front door
-    "the next multi-GPU slice": {
-        "serving": {"FleetFrontDoor", "ReplicaHandle", "decode_error",
-                    "encode_error", "fleet", "local_replica",
-                    "replica_loop", "spawn_replica"},
-        "kvstore": {"KVStoreDistAsync"},
-        "": {"kvstore_server"},
-        "parallel": {"InboxFull", "Message", "SpoolTransport", "transport"},
-    },
     # queue 1 item 8: the long tail (LibSVMIter yields a CSRNDArray,
     # which comes with ndarray/sparse.py; the sparse storage types and
     # their ops; the detection, sampling and CTC ops)
@@ -100,6 +90,7 @@ DEFERRED_MEMBERS = {
     "queue 1 item 8": {
         "kvstore": {"KVStore": {"row_sparse_pull"},
                     "KVStoreDist": {"row_sparse_pull"},
+                    "KVStoreDistAsync": {"row_sparse_pull"},
                     "KVStoreTPU": {"row_sparse_pull"}},
     },
     # queue 1 item 9: tuning and the analysis of compiled programs
@@ -116,13 +107,15 @@ DEFERRED_MEMBERS = {
     },
 }
 
-# the names the last seven slices ported, none of which may be deferred:
+# the names the last eight slices ported, none of which may be deferred:
 # the training-loop API, the data pipeline and the module family,
 # gluon's image path, telemetry, the profiler and gluon's recurrent
 # layers, the train-to-serve loop, generative serving and the elastic
-# fit, then data-parallel training across GPUs
+# fit, then data-parallel training across GPUs, then its asynchronous and
+# multi-process rest
 PORTED = {
-    "parallel": {"ring_attention", "ulysses_attention", "pipeline_apply",
+    "parallel": {"InboxFull", "Message", "SpoolTransport", "transport",
+                 "ring_attention", "ulysses_attention", "pipeline_apply",
                  "stack_stages", "switch_moe", "stack_experts", "pipeline",
                  "moe", "ParallelTrainer", "PureSGD", "PureAdam", "make_optimizer",
                  "pure_block_apply", "make_mesh", "current_mesh",
@@ -131,8 +124,8 @@ PORTED = {
                  "is_initialized", "local_attention", "collectives",
                  "distributed", "mesh", "optimizer", "trainer",
                  "attention"},
-    "kvstore": {"KVStoreDist", "is_worker_node", "is_server_node",
-                "is_scheduler_node"},
+    "kvstore": {"KVStoreDist", "KVStoreDistAsync", "is_worker_node",
+                "is_server_node", "is_scheduler_node"},
     "serving.generate": {"DecodeScheduler", "DecodeState",
                          "GenerativeModel", "TokenStream", "kv_cache",
                          "model", "scheduler", "stream"},
@@ -153,7 +146,10 @@ PORTED = {
               "ProcessSupervisor", "run_elastic"},
     "compile_cache": {"ensure_initialized", "configure", "enabled",
                       "cache_dir", "stats", "sweep", "reset"},
-    "serving": {"CanaryState", "CheckpointWatcher", "WarmupManifest",
+    "serving": {"FleetFrontDoor", "ReplicaHandle", "decode_error",
+                "encode_error", "fleet", "local_replica", "replica_loop",
+                "spawn_replica",
+                "CanaryState", "CheckpointWatcher", "WarmupManifest",
                 "canary", "manifest", "DecodeScheduler", "DecodeState",
                 "GenerativeModel", "TokenStream", "generate",
                 "seq_buckets", "prefill_grid", "pick_grid_bucket"},
@@ -218,7 +214,8 @@ PORTED = {
     "autograd": {"get_symbol"},
     "random": {"get_state", "set_state"},
     "name": {"Prefix"},
-    "": {"Symbol", "Optimizer", "NameManager", "Prefix", "num_tpus",
+    "": {"kvstore_server",
+         "Symbol", "Optimizer", "NameManager", "Prefix", "num_tpus",
          "__version__", "Monitor", "monitor", "viz", "visualization",
          "misc", "registry", "log", "libinfo", "recordio", "image", "rnn",
          "executor_manager", "telemetry", "profiler", "checkpoint",
@@ -250,7 +247,7 @@ DEFERRED_PARAMS = {
     },
 }
 
-# the port's modules that the last seven slices added or extended
+# the port's modules that the last eight slices added or extended
 NEW_MODULES = ("mxnet_tpu_torch.optimizer", "mxnet_tpu_torch.metric",
                "mxnet_tpu_torch.initializer", "mxnet_tpu_torch.lr_scheduler",
                "mxnet_tpu_torch.callback", "mxnet_tpu_torch.engine",
@@ -313,7 +310,11 @@ NEW_MODULES = ("mxnet_tpu_torch.optimizer", "mxnet_tpu_torch.metric",
                "mxnet_tpu_torch.parallel.pipeline",
                "mxnet_tpu_torch.parallel.moe",
                "mxnet_tpu_torch.gradient_compression",
-               "mxnet_tpu_torch.checkpoint.compat")
+               "mxnet_tpu_torch.checkpoint.compat",
+               "mxnet_tpu_torch.parallel.transport",
+               "mxnet_tpu_torch.kvstore_server",
+               "mxnet_tpu_torch.serving.fleet",
+               "mxnet_tpu_torch.fault.drill")
 
 
 def _module(root, sub):

@@ -546,11 +546,12 @@ def test_kvstore_paths_update_like_the_optimizer():
         upd("a_weight", tmx.nd.array(g, ctx=tmx.cpu()), w)
     for f in finals:
         np.testing.assert_array_equal(f, w.asnumpy())
-    # dist_sync is ported (a world of one in a lone process); dist_async
-    # comes with the next multi-GPU slice
+    # dist_sync is ported (a world of one in a lone process), and so is
+    # dist_async (its server a thread of this process)
     assert type(tmx.kv.create("dist_sync")).__name__ == "KVStoreDist"
-    with pytest.raises(MXNetError, match="next multi-GPU slice"):
-        tmx.kv.create("dist_async")
+    kv = tmx.kv.create("dist_async")
+    assert type(kv).__name__ == "KVStoreDistAsync"
+    kv.close()
 
 
 # ---------------------------------------------------------------------------
