@@ -10,6 +10,8 @@ toolkit (``nvcc`` on PATH or under ``$CUDA_HOME``)::
     python3 chip_smoke.py generate         # phases 1-2, then 21 alone
     python3 chip_smoke.py parallel         # phases 1-2, then 22 alone
     python3 chip_smoke.py model_parallel   # phases 1-2, then 23 alone
+    python3 chip_smoke.py fleet            # phases 1-2, then 24 alone
+    python3 chip_smoke.py sparse           # phases 1-2, then 25 alone
 
 Phases, each of which raises on failure:
 
@@ -368,6 +370,22 @@ Phases, each of which raises on failure:
    each within ``MP_ATTN_TOL``; ``launches_model_parallel`` by kernel and
    main-path call, and on four cards K7a, K7b, K7c, K6a, K6b and K4 each
    launched;
+24. the asynchronous and multi-process rest of multi-GPU
+   (``fleet_phase``);
+25. sparse storage (``sparse_phase``), on data written from the seed:
+   (a) ``example/sparse/linear_classification.py``'s flow at 1,000,001
+   features (LIBSVM avazu-app's width), batch 8192, 15 stored values a
+   row, 16 batches for 2 epochs (``LibSVMIter``, ``row_sparse_pull``,
+   the CSR ``dot`` both ways, a row-sparse push and the lazy SGD on a
+   ``local`` store), each batch's CSR exact to a numpy parse, the first
+   two steps within ``SPARSE_TWIN_TOL`` of the port on the CPU, the rows
+   no batch named bitwise, accuracy above 0.8 and under 1 GiB of device
+   memory; (b) ``example/recommenders/matrix_fact.py``'s ``MFBlock`` at
+   MovieLens-10M's id ranges, factor 128, batch 4096, one pass over 10 M
+   ratings under ``gluon.Trainer("adam")``, the first two steps within
+   ``SPARSE_TWIN_TOL`` of the CPU, the rows no batch looked up bitwise in
+   the weights and both Adam states, the validation RMSE falling, and no
+   K1a, K1b or K4 launch in ``mxnet_pallas_kernel_calls_total``;
 then every kernel's device time by the profiler (K6b's with the L2 cache
 overwritten before each launch; the bf16 instances of K3, K6a, K6b,
 K7a, K7b and K7c that phase 15 launches beside their plain versions,
@@ -384,7 +402,8 @@ Prints one JSON line ``{"checkpoints": {...}}`` with phase 13's numbers,
 ``{"observability": {...}}`` with phase 19's, ``{"train_serve":
 {...}}`` with phase 20's, ``{"generative": {...}}`` and ``{"elastic":
 {...}}`` with phase 21's, ``{"parallel": {...}}`` with phase 22's,
-``{"model_parallel": {...}}`` with phase 23's, one
+``{"model_parallel": {...}}`` with phase 23's, ``{"fleet": {...}}``
+with phase 24's, ``{"sparse": {...}}`` with phase 25's, one
 ``{"kernels":
 [...]}`` (all twelve kernels; K3, K2 and K1b with their
 ``launches_inception``, K1b, K2, K3, K6a, K6b, K7a, K7b and K7c with
@@ -654,7 +673,12 @@ OP_RNN = 5e-5
 _EIGH = ("torch.linalg.eigh reads its solver's info flag back to the "
          "host to raise on a failed decomposition, and torch has no eigh "
          "that skips that check; the decomposition runs on the card")
-OP_HOST_SYNC = {"_linalg_syevd": _EIGH, "linalg_syevd": _EIGH}
+_NNZ = ("nd.cast_storage to a sparse storage type compacts the dense "
+        "value on the card, and torch.nonzero reads the count of what is "
+        "stored back to size the payload: the one host scalar of the JAX "
+        "package's compaction")
+OP_HOST_SYNC = {"_linalg_syevd": _EIGH, "linalg_syevd": _EIGH,
+                "cast_storage": _NNZ}
 
 
 def _op_cases(seed=SEED):
@@ -1123,6 +1147,26 @@ def _op_cases(seed=SEED):
         norm = {"mean": (0.485, 0.456, 0.406), "std": (0.229, 0.224, 0.225)}
         add(name, [u(3, 5, 6, lo=0.0, hi=1.0)], norm, grad=True)
         add(name, [u(2, 3, 5, 6, lo=0.0, hi=1.0)], norm, grad=True)
+    # -- sparse storage: the ops on dense values (nd.cast_storage and
+    # nd.sparse_retain of a row-sparse array make sparse arrays, read back
+    # dense here)
+    rows = u(6, 3)
+    rows[[1, 4]] = 0.0
+    for stype in ("default", "row_sparse", "csr"):
+        add("cast_storage", [rows], {"stype": stype}, band="exact")
+    for name in ("_sparse_retain", "sparse_retain"):
+        add(name, [rows, np.array([0, 3, 4, 3], f32)], band="exact",
+            grad=True)
+    for name in ("_square_sum", "square_sum"):
+        add(name, [u(4, 5)], {"axis": 1}, grad=True)
+        add(name, [u(3, 4, 2)], {"axis": (0, 2), "keepdims": True},
+            grad=True)
+        add(name, [u(4, 5)], grad=True)
+    add("_contrib_SparseEmbedding", [np.array([[0, 4, 2], [4, 4, 1]], f32),
+                                     u(5, 3)],
+        {"input_dim": 5, "output_dim": 3}, band="exact", grad=True)
+    add("_sparse_adagrad_update", [wt, gr, pos],
+        dict(hyper, clip_gradient=0.3, epsilon=1e-6))
     return cases
 
 
@@ -10354,6 +10398,516 @@ def fleet_phase(mx, ck, sym, n_sites, smi, cfg=FLEET, workdir_parent=None):
     }
 
 
+# ---------------------------------------------------------------------------
+# phase 25: sparse storage at Avazu's and MovieLens-10M's widths
+# ---------------------------------------------------------------------------
+SPARSE = {
+    # (a) example/sparse/linear_classification.py's flow at the
+    # num_features that MXNet's example/sparse/linear_classification gives
+    # LIBSVM's avazu-app; 15 stored values a row (one a hashed field)
+    "features": 1_000_001, "fields": 15, "head": 500, "head_frac": 0.8,
+    "batch": 8192, "batches": 16, "epochs": 2, "lr": 30.0, "bias_lr": 0.5,
+    "init_scale": 0.01,
+    # (b) example/recommenders/matrix_fact.py's MFBlock at MovieLens-10M's
+    # id ranges (71,567 users and a largest movie id of 65,133, plus row 0)
+    # and its count of ratings (10,000,054), one pass in whole batches;
+    # ratings fall on as many ids as MovieLens-10M rates (69,878 users,
+    # 10,681 movies), drawn from the seed
+    "users": 71_568, "items": 65_134, "rated_users": 69_878,
+    "rated_items": 10_681, "dim": 128, "mf_batch": 4096,
+    "mf_ratings": 10_000_000, "mf_val": 65_536, "mf_lr": 0.002,
+    "mf_init": 0.05, "mf_evals": 4,
+    # the steps held to the port on the CPU, and the untimed first steps
+    "twin_steps": 2, "warmup": 2,
+}
+SPARSE_TWIN_TOL = 1e-6     # of the largest value: index_add_ sums in
+                           # another order on the card
+SPARSE_MEM_LIMIT = 1 << 30  # (a)'s device memory; a dense batch is 32.8 GB
+SPARSE_ACC = 0.8           # the example's own bar
+
+
+def avazu_like(cfg, seed=SEED):
+    """Phase 25 (a)'s synthetic data: ``batches * batch`` rows of one
+    stored 1.0 a field, each of the ``fields`` fields a range of its own
+    of the features (a head of ``head`` frequent features drawn with
+    probability ``head_frac``, else any feature of the field), labelled 1
+    where the planted weights of the head features sum above 0.  Returns
+    ``(columns (rows, fields) int64, labels float32)``."""
+    rng = np.random.RandomState(seed + 25)
+    n, fields, head = cfg["batch"] * cfg["batches"], cfg["fields"], \
+        cfg["head"]
+    width = cfg["features"] // fields
+    pick = np.where(rng.rand(n, fields) < cfg["head_frac"],
+                    rng.randint(0, head, (n, fields)),
+                    rng.randint(0, width, (n, fields)))
+    cols = (pick + np.arange(fields) * width).astype(np.int64)
+    planted = np.zeros(cfg["features"], np.float32)
+    for f in range(fields):
+        planted[f * width:f * width + head] = rng.randn(head)
+    return cols, (planted[cols].sum(axis=1) > 0).astype(np.float32)
+
+
+def write_libsvm(path, cols, labels):
+    """A libsvm file: ``label idx:1 ...`` a row."""
+    with open(path, "w") as f:
+        for c, y in zip(cols.tolist(), labels.tolist()):
+            f.write("%d %s\n" % (y, " ".join("%d:1" % i for i in c)))
+
+
+def parse_libsvm_np(path, fields):
+    """``(indptr, indices, values, labels)`` of a libsvm file of
+    ``fields`` stored values a line, by numpy alone (apart from
+    ``io.LibSVMIter``)."""
+    with open(path) as f:
+        tok = np.array(f.read().replace(":", " ").split(), dtype=np.float64)
+    tok = tok.reshape(-1, 1 + 2 * fields)
+    return (np.arange(tok.shape[0] + 1, dtype=np.int64) * fields,
+            tok[:, 1::2].astype(np.int64).reshape(-1),
+            tok[:, 2::2].astype(np.float32).reshape(-1),
+            tok[:, 0].astype(np.float32))
+
+
+def sparse_linear(mx, ctx, cfg, path, steps=None, record=0, parsed=None):
+    """Phase 25 (a) on ``ctx``: ``io.LibSVMIter`` -> a CSR batch ->
+    ``row_sparse_pull`` of the batch's unique columns from a ``local``
+    store -> ``nd.sparse.dot(csr, weight)`` -> the logistic error ->
+    ``nd.sparse.dot(csr, err, transpose_a=True).tostype("row_sparse")``
+    pushed into the store, whose SGD takes the lazy row update; the
+    bias by its own rate on the card.  ``steps`` cuts the run; the first
+    ``record`` steps' pulled rows, scores and store come back; with
+    ``parsed`` (``parse_libsvm_np``), each batch of the first epoch is
+    held to it exactly.  Returns a record."""
+    nd = mx.nd
+    F, B = cfg["features"], cfg["batch"]
+    init = (np.random.RandomState(SEED + 26).randn(F, 1)
+            * cfg["init_scale"]).astype(np.float32)
+    total = steps if steps is not None else cfg["epochs"] * cfg["batches"]
+    with ctx:
+        it = mx.io.LibSVMIter(data_libsvm=path, data_shape=(F,),
+                              batch_size=B)
+        kv = mx.kv.create("local")
+        kv.init("weight", nd.array(init))
+        kv.set_optimizer(mx.optimizer.SGD(learning_rate=cfg["lr"]))
+        weight = nd.sparse.zeros("row_sparse", (F, 1))
+        bias = nd.zeros((1, 1))
+    recs, step_s, acc, exact = [], [], [], 0
+    step = 0
+    for epoch in range(cfg["epochs"]):
+        it.reset()
+        with ctx:
+            correct = nd.zeros((1,))
+        seen = 0
+        for batch in it:
+            if step == total:
+                break
+            _sync(ctx.torch_device)
+            t = time.perf_counter()
+            csr, label = batch.data[0], batch.label[0].reshape((-1, 1))
+            row_ids = nd.NDArray(torch.unique(csr.indices._data))
+            kv.row_sparse_pull("weight", out=weight, row_ids=row_ids)
+            score = nd.broadcast_add(nd.sparse.dot(csr, weight), bias)
+            prob = nd.sigmoid(score)
+            diff = prob - label
+            grad = nd.sparse.dot(csr, diff / B, transpose_a=True) \
+                .tostype("row_sparse")
+            kv.push("weight", grad)
+            bias = nd.broadcast_sub(
+                bias, (diff.mean() * cfg["bias_lr"]).reshape((1, 1)))
+            correct = correct + ((prob > 0.5) == label).sum()
+            _sync(ctx.torch_device)
+            step_s.append(time.perf_counter() - t)
+            seen += B - batch.pad
+            if step < record:
+                with ctx:
+                    store = nd.zeros((F, 1))
+                kv.pull("weight", out=store)
+                recs.append({"pulled_ids": weight.indices.asnumpy(),
+                             "pulled": weight.data.asnumpy(),
+                             "score": score.asnumpy(),
+                             "store": store.asnumpy()})
+            if parsed is not None and epoch == 0:
+                ip, ix, vals, labels = parsed
+                lo, n = step * B, B - batch.pad
+                got = (csr.indptr.asnumpy(), csr.indices.asnumpy(),
+                       csr.data.asnumpy(), batch.label[0].asnumpy()[:n])
+                want = (ip[lo:lo + n + 1] - ip[lo],
+                        ix[ip[lo]:ip[lo + n]], vals[ip[lo]:ip[lo + n]],
+                        labels[lo:lo + n])
+                if not all(g.dtype == w.dtype and np.array_equal(
+                        g[:len(w)] if k == 0 else g, w)
+                        for k, (g, w) in enumerate(zip(got, want))):
+                    raise AssertionError(
+                        "phase 25 (a): batch %d's CSR differs from the "
+                        "numpy parse of the file" % step)
+                exact += 1
+            step += 1
+        acc.append(float(correct.asscalar()) / max(seen, 1))
+    with ctx:
+        store = nd.zeros((F, 1))
+    kv.pull("weight", out=store)
+    return {"steps": step, "step_s": step_s, "accuracy_by_epoch": acc,
+            "records": recs, "store": store.asnumpy(), "init": init,
+            "batches_exact": exact}
+
+
+def mf_ratings(cfg, n, seed):
+    """``n`` ratings from matrix_fact.py's planted model
+    (``synthetic_ratings``: rank 8, noise 0.1) on ``rated_users`` of the
+    ``users`` ids and ``rated_items`` of the ``items`` ids, each drawn
+    from the seed; ids as float32, as the example feeds them."""
+    rng = np.random.RandomState(seed)
+    U = rng.randn(cfg["users"], 8) / math.sqrt(8)
+    V = rng.randn(cfg["items"], 8) / math.sqrt(8)
+    rated_u = rng.choice(cfg["users"], cfg["rated_users"], replace=False)
+    rated_i = rng.choice(cfg["items"], cfg["rated_items"], replace=False)
+    users = rated_u[rng.randint(0, cfg["rated_users"], n)]
+    items = rated_i[rng.randint(0, cfg["rated_items"], n)]
+    ratings = (U[users] * V[items]).sum(1) + 0.1 * rng.randn(n)
+    return (users.astype(np.float32), items.astype(np.float32),
+            ratings.astype(np.float32))
+
+
+def mf_block(mx, cfg):
+    """matrix_fact.py's ``MFBlock``: score(u, i) = <U_u, V_i> + b_u + c_i
+    over four ``Embedding(sparse_grad=True)`` tables."""
+    nn = mx.gluon.nn
+
+    class MFBlock(mx.gluon.HybridBlock):
+        def __init__(self, **kwargs):
+            super().__init__(**kwargs)
+            with self.name_scope():
+                self.user = nn.Embedding(cfg["users"], cfg["dim"],
+                                         sparse_grad=True)
+                self.item = nn.Embedding(cfg["items"], cfg["dim"],
+                                         sparse_grad=True)
+                self.user_bias = nn.Embedding(cfg["users"], 1,
+                                              sparse_grad=True)
+                self.item_bias = nn.Embedding(cfg["items"], 1,
+                                              sparse_grad=True)
+
+        def hybrid_forward(self, F, users, items):
+            score = (self.user(users) * self.item(items)).sum(axis=1)
+            return score + self.user_bias(users).reshape((-1,)) \
+                + self.item_bias(items).reshape((-1,))
+
+    with mx.name.NameManager():
+        return MFBlock()
+
+
+def sparse_mf(mx, ctx, cfg, steps=None, record=0, evals=None):
+    """Phase 25 (b) on ``ctx``: ``MFBlock`` (weights Normal(0, mf_init)
+    from the seed) under ``gluon.Trainer("adam")`` with ``L2Loss``, one
+    pass over ``mf_ratings`` ratings in batches of ``mf_batch``; the
+    validation RMSE on ``mf_val`` held-out ratings ``evals`` times along
+    the way.  The first ``record`` steps' weights come back.  Returns a
+    record, with the rows no batch looked up held bitwise in the weights
+    and both Adam states."""
+    nd = mx.nd
+    n_train = cfg["mf_ratings"]
+    users, items, ratings = mf_ratings(cfg, n_train + cfg["mf_val"],
+                                       SEED + 27)
+    B = cfg["mf_batch"]
+    total = n_train // B if steps is None else steps
+    evals = cfg["mf_evals"] if evals is None else evals
+    net = mf_block(mx, cfg)
+    rng = np.random.RandomState(SEED + 28)
+    names = ("user", "item", "user_bias", "item_bias")
+    blocks = [getattr(net, k) for k in names]
+    init = [rng.normal(0, cfg["mf_init"], b.weight.shape).astype(np.float32)
+            for b in blocks]
+    with ctx:
+        net.initialize(mx.init.Zero())
+        for b, w in zip(blocks, init):
+            b.weight.set_data(nd.array(w))
+        net.hybridize()
+        trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                                   {"learning_rate": cfg["mf_lr"]})
+        loss_fn = mx.gluon.loss.L2Loss()
+        du, di, dr = (nd.array(a) for a in (users, items, ratings))
+    order = [list(net.collect_params().values()).index(b.weight)
+             for b in blocks]
+
+    def rmse():
+        se = 0.0
+        for s in range(n_train, n_train + cfg["mf_val"], 65536):
+            e = min(s + 65536, n_train + cfg["mf_val"])
+            d = net(du[s:e], di[s:e]) - dr[s:e]
+            se += float((d * d).sum().asscalar())
+        return math.sqrt(se / cfg["mf_val"])
+
+    at = sorted({int(round(k * total / (evals - 1)))
+                 for k in range(evals)}) if evals > 1 else []
+    curve, recs, step_s = [], [], []
+    for step in range(total):
+        if step in at:
+            curve.append((step, rmse()))
+        _sync(ctx.torch_device)
+        t = time.perf_counter()
+        s = step * B
+        with mx.autograd.record():
+            loss = loss_fn(net(du[s:s + B], di[s:s + B]),
+                           dr[s:s + B]).mean()
+        loss.backward()
+        trainer.step(1)
+        _sync(ctx.torch_device)
+        step_s.append(time.perf_counter() - t)
+        if step < record:
+            recs.append([b.weight.data().asnumpy() for b in blocks])
+    if total in at:
+        curve.append((total, rmse()))
+    seen_u = np.unique(users[:total * B].astype(np.int64))
+    seen_i = np.unique(items[:total * B].astype(np.int64))
+    held = {}
+    for k, (b, w, seen) in enumerate(zip(blocks, init, (seen_u, seen_i,
+                                                         seen_u, seen_i))):
+        untouched = np.setdiff1d(np.arange(w.shape[0]), seen)
+        mean, var = trainer._updater.states[order[k]]
+        now = b.weight.data().asnumpy()
+        held[names[k]] = {
+            "untouched_rows": int(untouched.size),
+            "weight_bitwise": bool(np.array_equal(now[untouched],
+                                                  w[untouched])),
+            "states_zero": bool(
+                not mean.asnumpy()[untouched].any()
+                and not var.asnumpy()[untouched].any()),
+            "touched_moved": bool(not np.array_equal(now[seen], w[seen]))}
+    return {"steps": total, "step_s": step_s, "rmse": curve,
+            "records": recs, "held": held}
+
+
+def _step_stats(step_s, warmup):
+    timed = step_s[warmup:] or step_s
+    return 1e3 * float(np.mean(timed)), 1e3 * float(np.median(timed))
+
+
+def sparse_phase(mx, ck, smi, cfg=SPARSE, ctx=None, twin_ctx=None,
+                 workdir_parent=None):
+    """Phase 25: (a) sparse linear classification at Avazu's width and (b)
+    matrix factorization at MovieLens-10M's id ranges on ``ctx`` (the
+    card), each with its first ``twin_steps`` steps held to the port on
+    ``twin_ctx`` (the CPU).  Raises on failure; prints its lines and
+    returns its record."""
+    import tempfile
+    ctx = ctx or mx.gpu(0)
+    twin_ctx = twin_ctx or mx.cpu()
+    on_card = ctx.device_type == "gpu"
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    twin = cfg["twin_steps"]
+    workdir = tempfile.TemporaryDirectory(prefix=".chip_smoke_sparse_",
+                                          dir=workdir_parent or here)
+    try:
+        path = os.path.join(workdir.name, "avazu_like.libsvm")
+        cols, labels = avazu_like(cfg)
+        write_libsvm(path, cols, labels)
+        parsed = parse_libsvm_np(path, cfg["fields"])
+        t_data = time.perf_counter() - t0
+        ck.reset_kernel_calls()
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(ctx.torch_device)
+            base = torch.cuda.memory_allocated(ctx.torch_device)
+        t = time.perf_counter()
+        lin = sparse_linear(mx, ctx, cfg, path, record=twin, parsed=parsed)
+        t_a = time.perf_counter() - t
+        calls_a = {k: v for k, v in ck.kernel_calls().items() if v}
+        peak = (torch.cuda.max_memory_allocated(ctx.torch_device) - base) \
+            if on_card else None
+        ref = sparse_linear(mx, twin_ctx, cfg, path, steps=twin,
+                            record=twin)
+    finally:
+        workdir.cleanup()
+    ids_equal = all(np.array_equal(c["pulled_ids"], r["pulled_ids"])
+                    for c, r in zip(lin["records"], ref["records"]))
+    if not ids_equal:
+        raise AssertionError("phase 25 (a): the card pulled other rows "
+                             "than the CPU in the first %d steps" % twin)
+    errs = {k: max(_rel(torch.from_numpy(c[k]), torch.from_numpy(r[k]))
+                   for c, r in zip(lin["records"], ref["records"]))
+            for k in ("pulled", "score", "store")}
+    named = np.unique(parsed[1])
+    untouched = np.setdiff1d(np.arange(cfg["features"]), named)
+    bitwise = bool(np.array_equal(lin["store"][untouched],
+                                  lin["init"][untouched]))
+    ms, ms_med = _step_stats(lin["step_s"], cfg["warmup"])
+    a = {"features": cfg["features"], "batch": cfg["batch"],
+         "stored_per_row": cfg["fields"], "batches": cfg["batches"],
+         "epochs": cfg["epochs"], "steps": lin["steps"],
+         "batches_exact": lin["batches_exact"],
+         "twin_steps": twin, "twin_ids_equal": ids_equal,
+         "twin_max_rel": errs, "untouched_rows": int(untouched.size),
+         "untouched_bitwise": bitwise,
+         "accuracy_by_epoch": lin["accuracy_by_epoch"],
+         "device_peak_bytes": peak, "launches": calls_a,
+         "step_ms": ms, "step_ms_median": ms_med,
+         "rows_per_s": cfg["batch"] / (ms / 1e3), "seconds": t_a,
+         "data_seconds": t_data}
+    print("phase 25 (a) on %s: sparse linear classification, LibSVMIter at "
+          "%d features, batch %d, %d stored a row, %d batches x %d epochs: "
+          "%d/%d batches' CSR exact to the numpy parse; first %d steps vs "
+          "the port on the CPU: pulled ids equal %s, max rel pulled %.3g, "
+          "scores %.3g, store %.3g; %d rows no batch named, bitwise %s; "
+          "accuracy by epoch %s; device memory peak %s MB; %.3f ms/step "
+          "(median %.3f), %.0f rows/s; launches %s; %.1f s (data %.1f s)"
+          % (smi, cfg["features"], cfg["batch"], cfg["fields"],
+             cfg["batches"], cfg["epochs"], lin["batches_exact"],
+             cfg["batches"], twin, ids_equal, errs["pulled"], errs["score"],
+             errs["store"], untouched.size, bitwise,
+             ["%.4f" % v for v in lin["accuracy_by_epoch"]],
+             "%.1f" % (peak / 2**20) if peak is not None else "n/a", ms,
+             ms_med, a["rows_per_s"], calls_a, t_a, t_data), flush=True)
+    if not all(v <= SPARSE_TWIN_TOL for v in errs.values()):
+        raise AssertionError("phase 25 (a): the card's first %d steps lie "
+                             "%s from the CPU's" % (twin, errs))
+    if lin["batches_exact"] != cfg["batches"]:
+        raise AssertionError("phase 25 (a): %d of %d batches held to the "
+                             "parse" % (lin["batches_exact"], cfg["batches"]))
+    if not bitwise:
+        raise AssertionError("phase 25 (a): a row no batch named moved")
+    if not lin["accuracy_by_epoch"][-1] > SPARSE_ACC:
+        raise AssertionError("phase 25 (a): accuracy %.4f, not above %g"
+                             % (lin["accuracy_by_epoch"][-1], SPARSE_ACC))
+    if peak is not None and not peak < SPARSE_MEM_LIMIT:
+        raise AssertionError("phase 25 (a): %d bytes of device memory"
+                             % peak)
+    if calls_a:
+        raise AssertionError("phase 25 (a): kernels launched %s" % calls_a)
+
+    # (b): the kernel counter read through telemetry
+    was = mx.telemetry.enabled()
+    mx.telemetry.reset()
+    mx.telemetry.enable()
+    ck.reset_kernel_calls()
+    t = time.perf_counter()
+    try:
+        mf = sparse_mf(mx, ctx, cfg, record=twin)
+        snap = mx.telemetry.snapshot()
+    finally:
+        mx.telemetry.enable(was)
+    t_b = time.perf_counter() - t
+    calls_b = {k: v for k, v in ck.kernel_calls().items() if v}
+    counter = _families(snap, "mxnet_pallas_kernel_calls_total", "kernel")
+    sweeps = {k: counter.get(k, 0) for k in ("fused_sgd",
+                                              "fused_sgd_momentum",
+                                              "fused_adam")}
+    mref = sparse_mf(mx, twin_ctx, cfg, steps=twin, record=twin, evals=0)
+    merr = max(_rel(torch.from_numpy(c), torch.from_numpy(r))
+               for cs, rs in zip(mf["records"], mref["records"])
+               for c, r in zip(cs, rs))
+    ms_b, ms_b_med = _step_stats(mf["step_s"], cfg["warmup"])
+    curve = mf["rmse"]
+    b = {"users": cfg["users"], "items": cfg["items"], "dim": cfg["dim"],
+         "batch": cfg["mf_batch"], "steps": mf["steps"],
+         "optimizer": "adam", "lr": cfg["mf_lr"], "twin_steps": twin,
+         "twin_max_rel": merr, "held": mf["held"], "rmse": curve,
+         "counter_sweeps": sweeps, "launches": calls_b,
+         "step_ms": ms_b, "step_ms_median": ms_b_med,
+         "ratings_per_s": cfg["mf_batch"] / (ms_b / 1e3), "seconds": t_b}
+    print("phase 25 (b) on %s: MFBlock (4 x Embedding(sparse_grad=True)) "
+          "%d x %d and %d x %d, gluon.Trainer adam lr %g, batch %d, %d "
+          "steps: first %d steps vs the port on the CPU max rel %.3g; rows "
+          "no batch looked up %s; validation RMSE %s; "
+          "mxnet_pallas_kernel_calls_total sweeps %s, launches %s; %.3f "
+          "ms/step (median %.3f), %.0f ratings/s; %.1f s"
+          % (smi, cfg["users"], cfg["dim"], cfg["items"], cfg["dim"],
+             cfg["mf_lr"], cfg["mf_batch"], mf["steps"], twin, merr,
+             {k: (v["untouched_rows"], v["weight_bitwise"],
+                  v["states_zero"]) for k, v in mf["held"].items()},
+             ["%d: %.4f" % c for c in curve], sweeps, calls_b, ms_b,
+             ms_b_med, b["ratings_per_s"], t_b), flush=True)
+    if not merr <= SPARSE_TWIN_TOL:
+        raise AssertionError("phase 25 (b): the card's first %d steps lie "
+                             "%g from the CPU's" % (twin, merr))
+    for k, v in mf["held"].items():
+        if not (v["weight_bitwise"] and v["states_zero"]
+                and v["touched_moved"]):
+            raise AssertionError("phase 25 (b): %s: %s" % (k, v))
+    if len(curve) < 2 or not all(b2 < a2 for (_, a2), (_, b2) in
+                                 zip(curve, curve[1:])):
+        raise AssertionError("phase 25 (b): the validation RMSE did not "
+                             "fall: %s" % curve)
+    if any(sweeps.values()) or calls_b:
+        raise AssertionError("phase 25 (b): kernel launches %s, counter %s"
+                             % (calls_b, sweeps))
+    return {"card": smi, "seconds": time.perf_counter() - t0,
+            "linear_classification": a, "matrix_factorization": b}
+
+
+SPARSE_PULL_W0 = np.arange(24, dtype=np.float32).reshape(6, 4)
+
+
+def sparse_pull_rank(rank, world, init_method, ctx):
+    """``row_sparse_pull`` on ``dist_sync``, rank ``rank`` of a world of
+    :func:`run_ranks`: every rank inits (rank 0's value wins), pushes
+    ``rank + 1`` everywhere under SGD lr 0.5, then pulls the rows
+    ``[rank, 4, rank]`` into a row-sparse and a dense out.  Returns the
+    row-sparse out's ids and rows and the dense out."""
+    mx, on = par_join(rank, world, init_method, ctx)
+    try:
+        with on:
+            nd = mx.nd
+            kv = mx.kv.create("dist_sync")
+            kv.init("w", nd.array(SPARSE_PULL_W0 * (rank + 1)))
+            kv.set_optimizer(mx.optimizer.SGD(learning_rate=0.5))
+            kv.push("w", nd.array(np.full((6, 4), rank + 1, np.float32)))
+            ids = nd.array([rank, 4, rank])
+            rs = nd.sparse.zeros("row_sparse", (6, 4))
+            dense = nd.zeros((6, 4))
+            kv.row_sparse_pull("w", out=[rs, dense], row_ids=ids)
+            return (rs.indices.asnumpy(), rs.data.asnumpy(),
+                    dense.asnumpy())
+    finally:
+        mx.parallel.distributed.shutdown()
+
+
+def sparse_async_rank(rank, world, init_method, ctx, spool):
+    """``row_sparse_pull`` on ``dist_async``, worker ``rank`` under
+    ``tools/launch.py``'s environment: the coordinator (rank 0) sets SGD
+    lr 0.5 on its server, every other worker pushes ``rank + 1``
+    everywhere; once the server has applied them, each worker pulls the
+    rows ``[rank, 4]`` (the others' read from the spool).  Returns the
+    ids and rows.  The ranks meet through a ``FileStore`` on
+    ``init_method``'s file."""
+    from datetime import timedelta
+    os.environ.update(_launch_env(world, rank))
+    os.environ["MXNET_KVSTORE_ASYNC_DIR"] = spool
+    import mxnet_tpu_torch as mx
+    meet = torch.distributed.FileStore(init_method[len("file://"):], world)
+    meet.set_timeout(timedelta(seconds=60))
+    with mx.cpu():
+        nd = mx.nd
+        kv = mx.kv.create("dist_async")
+        try:
+            kv.init("w", nd.array(SPARSE_PULL_W0))
+            if rank == 0:
+                kv.set_optimizer(mx.optimizer.SGD(learning_rate=0.5))
+                meet.set("updater", "1")
+                deadline = time.time() + 60
+                while len(kv._applied_log) < world - 1:
+                    if time.time() > deadline:
+                        raise AssertionError("the server applied %d of %d "
+                                             "pushes" % (len(
+                                                 kv._applied_log),
+                                                 world - 1))
+                    time.sleep(0.01)
+                meet.set("applied", "1")
+            else:
+                meet.get("updater")
+                kv.push("w", nd.array(np.full((6, 4), rank + 1,
+                                              np.float32)))
+                meet.get("applied")
+            rs = nd.sparse.zeros("row_sparse", (6, 4))
+            kv.row_sparse_pull("w", out=rs, row_ids=nd.array([rank, 4]))
+            out = (rs.indices.asnumpy(), rs.data.asnumpy())
+            meet.set("pulled%d" % rank, "1")
+            if rank == 0:
+                for r in range(world):
+                    meet.get("pulled%d" % r)
+            return out
+        finally:
+            kv.close()
+
+
 def main():
     if sys.argv[1:2] == ["_fleet_replica"]:
         # phase 24 (a)'s replica, in a process of its own
@@ -10454,6 +11008,15 @@ def main():
         # phase 24 alone
         fleet_line = fleet_phase(mx, ck, sym, len(sites), smi)
         print(json.dumps({"fleet": fleet_line}, default=str))
+        print("nvidia-smi: %s" % smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
+        return 0
+    if sys.argv[1:] == ["sparse"]:
+        # phase 25 alone
+        sparse_line = sparse_phase(mx, ck, smi)
+        print(json.dumps({"sparse": sparse_line}, default=str))
         print("nvidia-smi: %s" % smi)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind,
@@ -11570,6 +12133,8 @@ def main():
     k2["launches_multi_context"] = fleet_line["launches_multi_context"]
     for name in ("sgd_sweep", "sgd_mom_sweep", "adam_sweep"):
         sweeps[name]["launches_drill"] = fleet_line["launches_drill"][name]
+    # 25. sparse storage at Avazu's and MovieLens-10M's widths
+    sparse_line = sparse_phase(mx, ck, smi)
     for job in k7a_jobs:
         job["tflops"] = job["ops"] / job["ms"] / 1e9
     k7a["tflops"] = k7a_jobs[0]["tflops"]
@@ -11672,6 +12237,7 @@ def main():
     print(json.dumps({"parallel": par_line}, default=str))
     print(json.dumps({"model_parallel": mp_line}, default=str))
     print(json.dumps({"fleet": fleet_line}, default=str))
+    print(json.dumps({"sparse": sparse_line}, default=str))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
             "launches_per_forward", "call_ms", "plain_call_ms",

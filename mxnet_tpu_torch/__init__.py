@@ -36,12 +36,12 @@ checkpoint callbacks, gluon's ``save_parameters``/``load_parameters`` and
 ``ModelServer.load_model`` from files.  ``.params`` and ``-symbol.json``
 files are the JAX package's, byte for byte; ``.states`` files pickle each
 package's own classes.  The operator library is the JAX package's but for
-the detection, quantization, sparse, image, RNN, CTC and
-spatial-transformer ops (ROADMAP.md), with NDArray's and Symbol's
-methods.  The training-loop API is the JAX package's: its sixteen
-optimizers, metrics, initializers and schedulers, the callbacks,
-``engine`` (``naive``, ``bulk``, deferred worker exceptions), ``Monitor``
-(the executor's taps), ``viz``, ``registry``, ``misc`` and ``log``.
+the detection, quantization, CTC and spatial-transformer ops
+(ROADMAP.md), with NDArray's and Symbol's methods.  The training-loop API
+is the JAX package's: its sixteen optimizers, metrics, initializers and
+schedulers, the callbacks, ``engine`` (``naive``, ``bulk``, deferred
+worker exceptions), ``Monitor`` (the executor's taps), ``viz``,
+``registry``, ``misc`` and ``log``.
 ``telemetry`` (the metrics registry, the step log, tracing, the flight
 recorder) and ``profiler`` record at the JAX package's sites under its
 family names; ``gluon.rnn`` holds the recurrent layers and cells.  The
@@ -55,7 +55,10 @@ manifest and ``CheckpointWatcher``.  Across processes and GPUs:
 ``parallel.transport``), the ``dist_sync`` and ``dist_async`` kvstores
 (``kvstore_server`` for launchers' server roles), ``Module`` on a list of
 contexts, the replica front door ``serving.FleetFrontDoor`` and the fault
-drills (``fault.drill``).
+drills (``fault.drill``).  Sparse storage: ``nd.sparse`` (``CSRNDArray``,
+``RowSparseNDArray``, the CSR ``dot``, ``retain``), the lazy row updates
+of SGD and Adam, ``KVStore.row_sparse_pull``, ``io.LibSVMIter`` and
+gluon's ``Embedding(sparse_grad=True)``.
 """
 import torch as _torch
 

@@ -15,7 +15,6 @@ import numpy as np
 
 from ... import initializer
 from ... import ndarray
-from ...base import MXNetError
 from ..block import Block, HybridBlock
 from .activations import Activation
 
@@ -209,15 +208,12 @@ class BatchNorm(HybridBlock):
 
 class Embedding(HybridBlock):
     """Embedding lookup (reference: basic_layers.py:397); ids may arrive
-    as float32.  ``sparse_grad`` takes False only: a row-sparse gradient
-    needs sparse arrays, which this package does not have yet."""
+    as float32.  With ``sparse_grad`` the weight's gradient is row-sparse
+    (``grad_stype="row_sparse"``), so the Trainer's lazy update moves only
+    the rows a batch looked up."""
 
     def __init__(self, input_dim, output_dim, dtype="float32",
                  weight_initializer=None, sparse_grad=False, **kwargs):
-        if sparse_grad:
-            raise MXNetError(
-                "Embedding(sparse_grad=True) needs a row_sparse gradient "
-                "(ndarray/sparse.py), which this package does not have yet")
         super().__init__(**kwargs)
         self._kwargs = {"input_dim": input_dim, "output_dim": output_dim,
                         "dtype": dtype}
@@ -225,7 +221,8 @@ class Embedding(HybridBlock):
             self.weight = self.params.get(
                 "weight", shape=(input_dim, output_dim),
                 init=weight_initializer, dtype=dtype,
-                allow_deferred_init=True)
+                allow_deferred_init=True,
+                grad_stype="row_sparse" if sparse_grad else "default")
 
     def _shape_hook(self, inputs):
         pass

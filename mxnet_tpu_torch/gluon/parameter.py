@@ -44,16 +44,6 @@ class DeferredInitializationError(MXNetError):
     parameter.py:35)."""
 
 
-def _check_stype(name, what, stype):
-    """Only the dense storage type: a sparse one needs sparse arrays,
-    which this package does not have yet."""
-    if stype != "default":
-        raise MXNetError(
-            "Parameter '%s': %s %r needs sparse arrays (ndarray/sparse.py), "
-            "which this package does not have yet; use 'default'"
-            % (name, what, stype))
-
-
 def _merge_shapes(declared, stored):
     """Unify a newly declared shape with a stored one, 0 meaning an
     unknown dim.  Returns the merged tuple, or None on a conflict."""
@@ -70,15 +60,16 @@ def _merge_shapes(declared, stored):
 
 
 class Parameter:
-    """A parameter of Blocks (reference: parameter.py:42).  ``stype`` and
-    ``grad_stype`` take the dense ``default`` only."""
+    """A parameter of Blocks (reference: parameter.py:42).  ``stype``
+    (``default``, ``row_sparse`` or ``csr``) is kept and, as in the JAX
+    package, the data stays dense; ``grad_stype="row_sparse"`` makes
+    ``Trainer.step`` hand the optimizer the gradient's nonzero rows as a
+    row-sparse array, for the lazy row update."""
 
     def __init__(self, name, grad_req="write", shape=None, dtype="float32",
                  lr_mult=1.0, wd_mult=1.0, init=None,
                  allow_deferred_init=False, differentiable=True,
                  stype="default", grad_stype="default"):
-        _check_stype(name, "stype", stype)
-        _check_stype(name, "grad_stype", grad_stype)
         if isinstance(shape, int):
             shape = (shape,)
         self.name = name
@@ -87,6 +78,8 @@ class Parameter:
         self.lr_mult = lr_mult
         self.wd_mult = wd_mult
         self.init = init
+        self._stype = stype
+        self._grad_stype = grad_stype
         self._differentiable = differentiable
         self._allow_deferred_init = allow_deferred_init
         self._data = None

@@ -10,7 +10,9 @@ and there is no kvstore.
 The update runs under ``torch.no_grad()`` and rebinds each weight's
 tensor (``optimizer.py``); the Trainer then marks the new tensor as the
 parameter's autograd variable again, so the next ``record()`` tracks
-it.
+it.  A parameter with ``grad_stype="row_sparse"`` (``Embedding(
+sparse_grad=True)``) hands the optimizer its gradient's nonzero rows as
+a ``RowSparseNDArray``, so SGD and Adam take their lazy row update.
 
 ``save_states``/``load_states`` pickle the updater's states without the
 optimizer, as the JAX package does: a resumed Adam starts its update
@@ -23,6 +25,7 @@ import torch
 from .. import autograd
 from .. import optimizer as opt
 from .._atomic_io import atomic_write
+from ..ndarray import sparse
 from .parameter import Parameter, ParameterDict
 
 __all__ = ["Trainer"]
@@ -103,8 +106,15 @@ class Trainer:
                         % (param.name, "device"))
                 continue
             weight = param.data()
+            grad = param.grad()
+            if param._grad_stype == "row_sparse":
+                # the tape's gradient is dense; the rows no lookup reached
+                # are exact zeros, so its nonzero rows are the touched set
+                # (a looked-up row whose gradient sums to zero drops out,
+                # as in the JAX package)
+                grad = sparse.RowSparseNDArray(grad._data)
             with torch.no_grad():
-                self._updater(i, param.grad(), weight)
+                self._updater(i, grad, weight)
             autograd.mark_variables([weight], [param.grad()],
                                     param.grad_req)
 

@@ -5,7 +5,8 @@ C++ iterators of src/io/): the ``DataDesc``/``DataBatch`` protocol, the
 ``DataIter`` base, the in-memory ``NDArrayIter`` (pad, discard or roll
 over the last batch, optional shuffle), ``ResizeIter``,
 ``PrefetchingIter`` (a thread a source, one batch ahead), ``MNISTIter``
-(idx files, gz or not), ``CSVIter``, the streaming ``ImageRecordIter``
+(idx files, gz or not), ``CSVIter``, ``LibSVMIter`` (CSR batches
+parsed straight from a libsvm file), the streaming ``ImageRecordIter``
 and ``ImageDetRecordIter`` over a ``.rec`` file, the ``MXDataIter``
 shell, and ``pad_batch``, which the serving micro-batcher uses.
 
@@ -56,7 +57,7 @@ from .telemetry import tracing as _tracing
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "ResizeIter",
            "PrefetchingIter", "NDArrayIter", "MNISTIter", "CSVIter",
-           "ImageRecordIter", "ImageDetRecordIter", "MXDataIter",
+           "LibSVMIter", "ImageRecordIter", "ImageDetRecordIter", "MXDataIter",
            "pad_batch"]
 
 
@@ -597,6 +598,105 @@ class CSVIter(_Delegating):
         self._inner = NDArrayIter(
             {"data": data}, {"softmax_label": label}, batch_size=batch_size,
             last_batch_handle="pad" if round_batch else "discard")
+
+
+def _parse_libsvm(path, width):
+    """``(indptr, indices, values, labels)`` of a libsvm file, one CSR
+    row a non-empty line (``label idx:val ...``, indices 0-based): each
+    row's indices sorted, a repeated index keeping its last value and a
+    zero value dropped, as a dense row per line would give them, though
+    no dense row is built."""
+    counts, idx, vals, labels = [], [], [], []
+    with open(path) as f:
+        for line in f:
+            parts = line.split()
+            if not parts:
+                continue
+            labels.append(float(parts[0]))
+            counts.append(len(parts) - 1)
+            for tok in parts[1:]:
+                i, v = tok.split(":")
+                idx.append(int(i))
+                vals.append(float(v))
+    idx = np.asarray(idx, dtype=np.int64)
+    vals = np.asarray(vals, dtype=np.float32)
+    if idx.size and (idx.min() < 0 or idx.max() >= width):
+        raise MXNetError("%s: a feature index lies outside [0, %d)"
+                         % (path, width))
+    rows = np.repeat(np.arange(len(counts), dtype=np.int64), counts)
+    key = rows * width + idx
+    order = np.argsort(key, kind="stable")
+    key, rows, idx, vals = key[order], rows[order], idx[order], vals[order]
+    keep = np.ones(key.size, dtype=bool)
+    keep[:-1] = key[1:] != key[:-1]          # the last of a repeated index
+    keep &= vals != 0
+    rows, idx, vals = rows[keep], idx[keep], vals[keep]
+    indptr = np.zeros(len(counts) + 1, dtype=np.int64)
+    np.cumsum(np.bincount(rows, minlength=len(counts)), out=indptr[1:])
+    return indptr, idx, vals, np.asarray(labels, dtype=np.float32)
+
+
+class LibSVMIter(DataIter):
+    """A libsvm file's rows as CSR batches (reference:
+    src/io/iter_libsvm.cc): ``data`` a ``CSRNDArray`` of ``(batch_size,
+    prod(data_shape))``, ``softmax_label`` dense, or from
+    ``label_libsvm``'s rows when given.  The file is parsed straight into
+    one CSR matrix (the JAX package builds a dense row a line); each
+    batch is a slice of it, built on the context current where the
+    iterator was made.  The last batch is padded with empty rows and
+    zero labels (``pad``)."""
+
+    def __init__(self, data_libsvm, data_shape, label_libsvm=None,
+                 label_shape=(1,), batch_size=1, round_batch=True,
+                 **kwargs):
+        super().__init__(batch_size)
+        self.data_shape = tuple(data_shape)
+        self._width = int(np.prod(self.data_shape))
+        self._indptr, self._indices, self._values, labels = _parse_libsvm(
+            data_libsvm, self._width)
+        if label_libsvm is not None:
+            lw = int(np.prod(tuple(label_shape)))
+            ip, ix, vals, _ = _parse_libsvm(label_libsvm, lw)
+            dense = np.zeros((len(ip) - 1, lw), dtype=np.float32)
+            dense[np.repeat(np.arange(len(ip) - 1), np.diff(ip)), ix] = vals
+            labels = dense.reshape(-1) if lw == 1 else dense
+        self._labels = labels
+        self.num = len(self._indptr) - 1
+        self.round_batch = round_batch
+        self.cursor = 0
+        self._ctx = current_context()
+
+    @property
+    def provide_data(self):
+        return [DataDesc("data", (self.batch_size,) + self.data_shape)]
+
+    @property
+    def provide_label(self):
+        return [DataDesc("softmax_label", (self.batch_size,))]
+
+    def reset(self):
+        self.cursor = 0
+
+    def iter_next(self):
+        return self.cursor < self.num
+
+    def next(self):
+        from .ndarray.sparse import CSRNDArray
+        if self.cursor >= self.num:
+            raise StopIteration
+        c, b = self.cursor, self.batch_size
+        n = min(b, self.num - c)
+        lo, hi = int(self._indptr[c]), int(self._indptr[c + n])
+        indptr = np.full(b + 1, hi - lo, dtype=np.int64)
+        indptr[:n + 1] = self._indptr[c:c + n + 1] - lo
+        lab = np.zeros((b,), dtype=np.float32)
+        lab[:n] = self._labels[c:c + n]
+        self.cursor += n
+        data = CSRNDArray(self._values[lo:hi], indptr=indptr,
+                          indices=self._indices[lo:hi],
+                          shape=(b, self._width), ctx=self._ctx)
+        return DataBatch(data=[data], label=[array(lab, ctx=self._ctx)],
+                         pad=b - n)
 
 
 _kREC_MAGIC = 0xced7230a

@@ -14,6 +14,12 @@ python/mxnet/kvstore.py, src/kvstore/) for one process on one device:
   what asks for the executor's fused step, where the update runs inside
   ``forward(is_train=True)`` and the store is bypassed.
 
+``row_sparse_pull`` (every store) hands out only the rows a batch
+names: a row-sparse out gets them as its payload.  A push of row-sparse
+values merges them into a row-sparse sum, so an updater with
+``lazy_update`` moves only those rows; the ``tpu`` and ``dist_*`` stores
+reduce a row-sparse push densely, as the JAX package does.
+
 ``save_optimizer_states``/``load_optimizer_states`` write and read the
 updater's pickled states, atomically.  ``set_gradient_compression`` runs
 the shared codecs of ``gradient_compression`` (2bit, bf16, fp8, with
@@ -79,7 +85,10 @@ _TELEM_TL = threading.local()
 def _payload_nbytes(v):
     """Byte count of a push value / pull out tree."""
     if isinstance(v, NDArray):
-        return v._data.numel() * v._data.element_size()
+        # a sparse value counts its dense size, as in the JAX package,
+        # without materialising it
+        t = v._data if v.stype == "default" else v._values
+        return v.size * t.element_size()
     if isinstance(v, (list, tuple)):
         return sum(_payload_nbytes(x) for x in v)
     if isinstance(v, dict):
@@ -172,7 +181,15 @@ class KVStore:
 
     def _merge(self, k, vlist):
         """The sum of one key's pushed values (one per device), through
-        the compression codec when one is set."""
+        the compression codec when one is set.  Row-sparse values (and no
+        codec) merge into a row-sparse sum over the union of their rows,
+        as the reference's CommCPU ReduceRowSparse does (src/kvstore/
+        comm.h); the JAX package merges them into a dense array
+        (ROADMAP queue 3)."""
+        if self._gc is None and all(
+                getattr(v, "stype", "default") == "row_sparse"
+                for v in vlist):
+            return _sum_row_sparse(vlist)
         merged = vlist[0]._data
         for v in vlist[1:]:
             merged = merged + v._data.to(merged.device)
@@ -215,11 +232,52 @@ class KVStore:
         for k, olist in zip(keys, outs):
             if k not in self._store:
                 raise MXNetError("key %r has not been initialized" % (k,))
-            src = self._store[k]._data
+            src = self._current(k)
             for o in olist:
                 o._data = src if (src.dtype == o._data.dtype
                                   and src.device == o._data.device) \
                     else src.to(device=o._data.device, dtype=o._data.dtype)
+
+    def _current(self, k):
+        """The stored tensor of key ``k`` as a pull hands it out."""
+        if k not in self._store:
+            raise MXNetError("key %r has not been initialized" % (k,))
+        return self._store[k]._data
+
+    def row_sparse_pull(self, key, out=None, priority=0, row_ids=None):
+        """Pull only the rows named in ``row_ids`` (one array for every
+        key, or one a key; reference: kvstore.py row_sparse_pull,
+        KVStore::PullRowSparse, kvstore.h:144).  A row-sparse out gets
+        the gathered rows as its payload, the ids sorted and unique; a
+        dense out gets them scattered into zeros (one scatter shared by
+        the dense outs of a key)."""
+        if out is None or row_ids is None:
+            raise MXNetError("row_sparse_pull needs out arrays and row_ids")
+        keys, outs = _key_values(key, out)
+        if isinstance(row_ids, NDArray):
+            row_ids = [row_ids] * len(keys)
+        if len(row_ids) != len(keys):
+            raise MXNetError("row_sparse_pull: one row_ids array per key "
+                             "is required")
+        for k, olist, rid in zip(keys, outs, row_ids):
+            src = self._current(k)
+            ids = torch.unique(rid._data.to(device=src.device,
+                                            dtype=torch.int64))
+            rows = src.index_select(0, ids)
+            dense = None
+            for o in olist:
+                if getattr(o, "stype", "default") == "row_sparse":
+                    dev = o._values.device
+                    o._set_payload(
+                        rows.to(device=dev, dtype=o._values.dtype),
+                        ids.to(dev), None, src.shape)
+                    continue
+                if dense is None:
+                    dense = torch.zeros_like(src).index_copy_(0, ids, rows)
+                o._data = dense if (dense.dtype == o._data.dtype
+                                    and dense.device == o._data.device) \
+                    else dense.to(device=o._data.device,
+                                  dtype=o._data.dtype)
 
     def set_gradient_compression(self, compression_params):
         """Compress every gradient pushed from now on with error feedback
@@ -325,6 +383,11 @@ class KVStoreTPU(KVStore):
             self._flush()
         return super().pull(key, out=out, priority=priority,
                             ignore_sparse=ignore_sparse)
+
+    def _current(self, k):
+        if self._pending:
+            self._flush()
+        return super()._current(k)
 
     def _flush(self):
         o = self._optimizer
@@ -620,19 +683,24 @@ class KVStoreDistAsync(KVStore):
             raise MXNetError("pull needs out arrays")
         keys, outs = _key_values(key, out)
         for k, olist in zip(keys, outs):
-            if k not in self._store:
-                raise MXNetError("key %r has not been initialized" % (k,))
-            if self._rank == 0:
-                with self._lock:
-                    src = self._store[k]._data
-            else:
-                dev = self._store[k]._data.device
-                src = torch.from_numpy(self._load_weight(k)).to(dev)
-                self._store[k] = NDArray(src)
+            src = self._current(k)
             for o in olist:
                 o._data = src if (src.dtype == o._data.dtype
                                   and src.device == o._data.device) \
                     else src.to(device=o._data.device, dtype=o._data.dtype)
+
+    def _current(self, k):
+        """The server's current weight: the coordinator's own, any other
+        worker's read from the spool (and kept as its copy)."""
+        if k not in self._store:
+            raise MXNetError("key %r has not been initialized" % (k,))
+        if self._rank == 0:
+            with self._lock:
+                return self._store[k]._data
+        dev = self._store[k]._data.device
+        src = torch.from_numpy(self._load_weight(k)).to(dev)
+        self._store[k] = NDArray(src)
+        return src
 
     def wait_to_drain(self, timeout=30):
         """Block until the push spool is empty (tests, clean shutdown)."""
@@ -656,6 +724,23 @@ class KVStoreDistAsync(KVStore):
     @property
     def num_workers(self):
         return self._world
+
+
+def _sum_row_sparse(vlist):
+    """The row-sparse sum of row-sparse values: the union of their rows
+    (sorted), each the sum of its values, added in push order."""
+    from .ndarray.sparse import RowSparseNDArray
+    if len(vlist) == 1:
+        return vlist[0]
+    parts = [v._fresh() for v in vlist]
+    dev = parts[0]._values.device
+    idx = torch.cat([p._indices.to(dev) for p in parts])
+    vals = torch.cat([p._values.to(dev) for p in parts])
+    rows, where = torch.unique(idx, return_inverse=True)
+    summed = torch.zeros((rows.numel(),) + tuple(vals.shape[1:]),
+                         dtype=vals.dtype, device=dev).index_add_(
+        0, where, vals)
+    return RowSparseNDArray(summed, indices=rows, shape=parts[0].shape)
 
 
 def _san(k):

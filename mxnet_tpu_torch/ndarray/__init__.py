@@ -1,9 +1,11 @@
 """NDArray package (reference: python/mxnet/ndarray/__init__.py): the
 ``NDArray`` type, its constructors, one ``mx.nd.<op>`` function per
 registered op (``mx.nd.contrib.<op>`` for the ``_contrib_`` ones), the
-``random``, ``linalg`` and ``utils`` namespaces, and the module-level
-arithmetic functions, which take an NDArray or a scalar on either
-side."""
+``random``, ``linalg``, ``utils`` and ``sparse`` namespaces, the
+module-level arithmetic functions, which take an NDArray or a scalar on
+either side, and the sparse-aware ``dot``, ``cast_storage``,
+``sparse_retain`` and stored-rows ``_scatter_*`` functions in place of
+the registered ops of those names."""
 from .ndarray import (  # noqa: F401
     NDArray, arange, array, concat, concatenate, empty, full, imdecode, load,
     load_buffer, moveaxis, onehot_encode, ones, save, waitall, zeros,
@@ -19,6 +21,57 @@ from . import contrib  # noqa: E402,F401  (needs the registry)
 from . import linalg  # noqa: E402,F401
 from . import random  # noqa: E402,F401
 from . import utils  # noqa: E402,F401
+from . import sparse  # noqa: E402,F401
+from .sparse import (  # noqa: E402,F401
+    CSRNDArray, RowSparseNDArray, sparse_array,
+)
+
+_dense_dot = dot  # noqa: F821  (made by populate above)
+_registry_sparse_retain = sparse_retain  # noqa: F821
+
+
+def dot(lhs, rhs, transpose_a=False, transpose_b=False, **kwargs):  # noqa: F811
+    """A CSR operand takes ``sparse.dot`` (reference: dot-inl.h's
+    FComputeEx dispatch); dense operands the registered op."""
+    if isinstance(lhs, CSRNDArray) or isinstance(rhs, CSRNDArray):
+        return sparse.dot(lhs, rhs, transpose_a=transpose_a,
+                          transpose_b=transpose_b)
+    return _dense_dot(lhs, rhs, transpose_a=transpose_a,
+                      transpose_b=transpose_b, **kwargs)
+
+
+def cast_storage(data, stype="default", **kwargs):  # noqa: F811
+    """``data`` as an array of the storage type ``stype`` (reference:
+    tensor/cast_storage-inl.h); the registered op of this name, the
+    identity on values, serves graphs."""
+    return sparse.cast_storage(data, stype)
+
+
+def sparse_retain(data, indices, **kwargs):  # noqa: F811
+    """The rows of ``data`` named in ``indices``: row-sparse for a
+    row-sparse input, else the registered op's dense rows (reference:
+    tensor/sparse_retain-inl.h)."""
+    if isinstance(data, RowSparseNDArray):
+        return sparse.retain(data, indices)
+    return _registry_sparse_retain(data, indices, **kwargs)
+
+
+def _scatter_stored_rows(op):
+    """``op`` applied to a row-sparse input's stored rows only: the
+    others stay zero (reference: the scatter forms of
+    elemwise_binary_scalar_op.h)."""
+    def wrapped(data, *args, **kwargs):
+        out = op(data, *args, **kwargs)
+        if isinstance(data, RowSparseNDArray):
+            return sparse.retain(out, data.indices)
+        return out
+    wrapped.__name__ = op.__name__
+    return wrapped
+
+
+_scatter_plus_scalar = _scatter_stored_rows(_scatter_plus_scalar)  # noqa: F821,F811
+_scatter_minus_scalar = _scatter_stored_rows(_scatter_minus_scalar)  # noqa: F821,F811
+_scatter_elemwise_div = _scatter_stored_rows(_scatter_elemwise_div)  # noqa: F821,F811
 
 
 def _module_binop(array_op, scalar_op, rscalar_op=None):

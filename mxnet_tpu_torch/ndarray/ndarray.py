@@ -439,10 +439,12 @@ class NDArray:
                         transpose_b=transpose_b)
 
     def tostype(self, stype):
-        if stype != "default":
-            raise MXNetError("sparse storage types are not ported yet "
-                             "(ROADMAP.md queue 7)")
-        return self
+        """This array in the storage type ``stype``: itself for
+        ``default``, else a sparse array (``sparse.cast_storage``)."""
+        if stype == "default":
+            return self
+        from . import sparse
+        return sparse.cast_storage(self, stype)
 
     def as_nd_ndarray(self):
         return self
@@ -455,7 +457,8 @@ class NDArray:
 
     def attach_grad(self, grad_req="write", stype=None):
         """Mark this array as a variable to take gradients for, with a
-        zero buffer of its shape (``autograd.mark_variables``)."""
+        zero buffer of its shape (``autograd.mark_variables``).  The
+        buffer is dense whatever ``stype`` says, as in the JAX package."""
         buf = NDArray(torch.zeros_like(self._data,
                                        memory_format=torch.contiguous_format))
         autograd.mark_variables([self], [buf], grad_req)
@@ -691,7 +694,8 @@ def save(fname, data):
     """Save an NDArray, a list of them or a ``{name: NDArray}`` dict
     (reference: mx.nd.save) in the V2 container, atomically: a killed
     writer leaves the previous file or the new one, never a truncated
-    one."""
+    one.  A sparse array is written as its dense value (stype -1), as the
+    JAX package writes it."""
     if isinstance(data, NDArray):
         data = [data]
     if isinstance(data, dict):

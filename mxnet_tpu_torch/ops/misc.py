@@ -3,15 +3,20 @@ reference: src/operator/crop.cc, tensor/matrix_op.cc,
 contrib/quadratic_op.cc, identity_attach_KL_sparse_reg.cc,
 image/image_random.cc).
 
-The PSROI, sparse-retain, cast-storage, Correlation and sparse embedding
-ops of that module are not ported yet (ROADMAP.md queue 1 item 8).
+The storage ops work on dense values, as in the JAX package:
+``_sparse_retain`` zeroes the rows not named, ``cast_storage`` is the
+identity (the NDArray-level ``nd.cast_storage`` makes the sparse array)
+and ``_contrib_SparseEmbedding`` is the Embedding lookup, whose
+row-sparse gradient gluon's ``Embedding(sparse_grad=True)`` and the
+lazy updates of ``optimizer.py`` handle.  The PSROI and Correlation ops
+of that module are not ported yet (ROADMAP.md queue 1 item 8).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .registry import _coerce, normalize_tuple, register
+from .registry import Param as P, _coerce, normalize_tuple, register
 
 
 @register("reshape_like")
@@ -117,6 +122,30 @@ def _identity_kl_sparse_reg(data, moving_rho=None, sparseness_target=0.1,
         return data, new_rho
     return (_KLSparseRegFn.apply(data, new_rho, float(sparseness_target),
                                  float(penalty)), new_rho)
+
+
+# -- storage ops (reference: src/operator/tensor/sparse_retain-inl.h,
+# cast_storage-inl.h, indexing_op.cc SparseEmbedding) ------------------------
+@register("_sparse_retain", aliases=("sparse_retain",))
+def _sparse_retain_op(data, indices, **attrs):
+    """``data`` with every row not named in ``indices`` zeroed (the row
+    mask by ``index_fill_``, which reads nothing back to the host)."""
+    mask = torch.zeros(data.shape[0], dtype=torch.bool,
+                       device=data.device).index_fill_(
+        0, indices.to(torch.int64), True)
+    return torch.where(mask.reshape((-1,) + (1,) * (data.dim() - 1)), data,
+                       torch.zeros((), dtype=data.dtype, device=data.device))
+
+
+@register("cast_storage", params=[
+    P("stype", ("default", "row_sparse", "csr"), default="default")])
+def _cast_storage_op(data, stype="default", **attrs):
+    return data
+
+
+@register("_contrib_SparseEmbedding")
+def _sparse_embedding(data, weight, input_dim=0, output_dim=0, **attrs):
+    return torch.nn.functional.embedding(data.to(torch.int64), weight)
 
 
 # -- image ops (reference: src/operator/image/image_random.cc) -------------

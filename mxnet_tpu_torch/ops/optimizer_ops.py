@@ -16,8 +16,17 @@ their states back through ``mutate_aux``: the caller's momentum, mean,
 variance or master-weight arrays hold the new values after the call.
 The ``mp_`` forms take a float16 or bfloat16 weight with a float32
 master copy (``weight32``), update the master in fp32 and return it
-rounded to the weight's dtype.  The row-sparse forms are not ported
-(ROADMAP.md queue 7).
+rounded to the weight's dtype.
+
+The lazy row updates ``sgd_rowsparse``, ``sgd_mom_rowsparse`` and
+``adam_rowsparse`` (reference: SGDUpdateRspRspImpl,
+SGDMomUpdateRspRspImpl and AdamUpdateRspRspImpl) take a row-sparse
+gradient as its stored rows ``vals`` and their indices ``idx``: each
+gathers those rows of the weight and states, updates them, and copies
+them back into new tensors (``index_copy``), so a row the gradient does
+not name keeps its weight, momentum, mean and variance bit for bit.
+``_sparse_adagrad_update`` is the registered AdaGrad update of the
+reference's row-sparse op, on dense values as in the JAX package.
 """
 from __future__ import annotations
 
@@ -25,7 +34,8 @@ import torch
 
 from .registry import register
 
-__all__ = ["sgd_update", "sgd_mom_update", "adam_update"]
+__all__ = ["sgd_update", "sgd_mom_update", "adam_update", "sgd_rowsparse",
+           "sgd_mom_rowsparse", "adam_rowsparse"]
 
 
 def _prep_grad(grad, rescale_grad, clip_gradient, wd=0.0, weight=None):
@@ -103,6 +113,56 @@ def _adam_update_op(weight, grad, mean, var, lr=0.001, beta1=0.9,
                     clip_gradient=-1.0, lazy_update=True, **attrs):
     return adam_update(weight, grad, mean, var, lr, beta1, beta2, epsilon,
                        wd, rescale_grad, clip_gradient)
+
+
+@register("_sparse_adagrad_update", num_outputs=2, mutate_aux=("history",))
+def _sparse_adagrad_update(weight, grad, history, lr=0.01, epsilon=1e-7,
+                           wd=0.0, rescale_grad=1.0, clip_gradient=-1.0,
+                           **attrs):
+    """Reference: src/operator/contrib/optimizer_op.cc AdagradUpdate
+    (row_sparse); on the dense values every row is stored, so the dense
+    arithmetic is the row update."""
+    g = _prep_grad(grad, rescale_grad, clip_gradient, wd, weight)
+    new_hist = history + torch.square(g)
+    return weight - lr * g / (torch.sqrt(new_hist) + epsilon), new_hist
+
+
+# -- the lazy row updates -----------------------------------------------------
+def _rs_prep(vals, w_rows, rescale, clip, wd):
+    g = vals * rescale
+    if clip >= 0:
+        g = torch.clamp(g, -clip, clip)
+    return g + wd * w_rows
+
+
+def sgd_rowsparse(weight, vals, idx, lr, wd, rescale, clip):
+    """Returns the new weight."""
+    w_rows = weight.index_select(0, idx)
+    g = _rs_prep(vals, w_rows, rescale, clip, wd)
+    return weight.index_copy(0, idx, w_rows - lr * g)
+
+
+def sgd_mom_rowsparse(weight, mom, vals, idx, lr, momentum, wd, rescale,
+                      clip):
+    """Returns ``(new_weight, new_mom)``."""
+    w_rows = weight.index_select(0, idx)
+    g = _rs_prep(vals, w_rows, rescale, clip, wd)
+    new_mom_rows = momentum * mom.index_select(0, idx) - lr * g
+    return (weight.index_copy(0, idx, w_rows + new_mom_rows),
+            mom.index_copy(0, idx, new_mom_rows))
+
+
+def adam_rowsparse(weight, mean, var, vals, idx, lr, beta1, beta2, epsilon,
+                   wd, rescale, clip):
+    """Returns ``(new_weight, new_mean, new_var)``; ``lr`` is the
+    effective rate."""
+    w_rows = weight.index_select(0, idx)
+    g = _rs_prep(vals, w_rows, rescale, clip, wd)
+    m_rows = beta1 * mean.index_select(0, idx) + (1.0 - beta1) * g
+    v_rows = beta2 * var.index_select(0, idx) + (1.0 - beta2) * g * g
+    w_new = w_rows - lr * m_rows / (torch.sqrt(v_rows) + epsilon)
+    return (weight.index_copy(0, idx, w_new), mean.index_copy(0, idx, m_rows),
+            var.index_copy(0, idx, v_rows))
 
 
 def _clip_weights(w, clip_weights):

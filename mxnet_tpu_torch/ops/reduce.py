@@ -83,6 +83,20 @@ _reduce("max", torch.amax, aliases=("max_axis",))
 _reduce("min", torch.amin, aliases=("min_axis",))
 
 
+@register("_square_sum", aliases=("square_sum",))
+def _square_sum(x, axis=None, keepdims=False, exclude=False, **attrs):
+    """The sum of squares over ``axis`` (reference: tensor/
+    square_sum-inl.h)."""
+    ax = _norm_axis(axis, x.dim(), exclude)
+    s = torch.square(x)
+    if ax is None:
+        out = _keep_int(torch.sum)(s)
+        return out.reshape((1,) * x.dim()) if keepdims else out
+    if not ax:
+        return s
+    return _keep_int(torch.sum)(s, dim=ax, keepdim=bool(keepdims))
+
+
 @register("norm")
 def _norm(x, ord=2, axis=None, keepdims=False, **attrs):
     """The L1 norm (``ord=1``) or the L2 norm over ``axis``."""

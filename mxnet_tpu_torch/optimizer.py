@@ -18,7 +18,10 @@ array at a time, as in the JAX package).  Where the JAX class calls a
 registered update op, the update goes through ``ops/optimizer_ops.py``;
 where it writes the arithmetic out, the same expressions run here on
 tensors in the same order.  Either way the weight's and the states'
-tensors are replaced (``_data``), nothing is written in place.
+tensors are replaced (``_data``), nothing is written in place.  With
+``lazy_update`` (the default), SGD and Adam take a row-sparse gradient
+through the lazy row updates of ``ops/optimizer_ops.py``: only the rows
+it names move.
 """
 from __future__ import annotations
 
@@ -37,6 +40,22 @@ __all__ = ["Optimizer", "SGD", "Signum", "FTML", "LBSGD", "DCASGD", "NAG",
            "Adamax", "Nadam", "Test", "ccSGD", "Updater", "get_updater",
            "create", "register", "fused_update_kernel", "fused_lr_wd",
            "state_slots", "slots_state"]
+
+
+def _is_row_sparse(grad):
+    return getattr(grad, "stype", "default") == "row_sparse"
+
+
+def _rs_parts(grad):
+    """(the stored rows' values, their indices) of a row-sparse gradient:
+    its compact payload, never its dense value."""
+    grad._fresh()
+    return grad._values, grad._indices
+
+
+def _clip_arg(optimizer):
+    return -1.0 if optimizer.clip_gradient is None \
+        else optimizer.clip_gradient
 
 
 class Optimizer:
@@ -218,8 +237,22 @@ class SGD(Optimizer):
 
     def update(self, index, weight, grad, state):
         self._update_count(index)
-        kw = dict(lr=self._get_lr(index), wd=self._get_wd(index),
-                  rescale_grad=self.rescale_grad)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        if self.lazy_update and _is_row_sparse(grad):
+            # lazy: the rows the gradient does not name keep their weight
+            # and momentum (reference SGDMomUpdateRspRspImpl)
+            vals, idx = _rs_parts(grad)
+            kw = dict(lr=lr, wd=wd, rescale=self.rescale_grad,
+                      clip=_clip_arg(self))
+            if state is not None:
+                weight._data, state._data = oo.sgd_mom_rowsparse(
+                    weight._data, state._data, vals, idx,
+                    momentum=self.momentum, **kw)
+            else:
+                weight._data = oo.sgd_rowsparse(weight._data, vals, idx,
+                                                **kw)
+            return
+        kw = dict(lr=lr, wd=wd, rescale_grad=self.rescale_grad)
         if self.clip_gradient is not None:
             kw["clip_gradient"] = self.clip_gradient
         if state is not None:
@@ -255,6 +288,15 @@ class Adam(Optimizer):
         if self.clip_gradient is not None:
             kw["clip_gradient"] = self.clip_gradient
         mean, var = state
+        if self.lazy_update and _is_row_sparse(grad):
+            # lazy: the mean and variance of the rows the gradient does
+            # not name do not decay (reference AdamUpdateRspRspImpl)
+            vals, idx = _rs_parts(grad)
+            weight._data, mean._data, var._data = oo.adam_rowsparse(
+                weight._data, mean._data, var._data, vals, idx, lr=lr,
+                beta1=self.beta1, beta2=self.beta2, epsilon=self.epsilon,
+                wd=wd, rescale=self.rescale_grad, clip=_clip_arg(self))
+            return
         weight._data, mean._data, var._data = oo.adam_update(
             weight._data, grad._data, mean._data, var._data, **kw)
 

@@ -469,11 +469,10 @@ class Symbol:
         symbol.py:1284).  ``ctx`` defaults to the current context;
         ``grad_req`` defaults to ``write``, as in MXNet.
 
-        ``stype_dict`` takes only the dense storage type and
-        ``group2ctx`` only the one device the executor runs on: sparse
-        arrays and model parallelism are not in this package yet.
-        ``shared_arg_names`` and ``shared_buffer`` are accepted and, as in
-        the JAX package, not used.
+        ``stype_dict`` is taken and, as in the JAX package, every array
+        is bound dense; ``group2ctx`` takes only the one device the
+        executor runs on.  ``shared_arg_names`` and ``shared_buffer`` are
+        accepted and, as in the JAX package, not used.
 
         ``compute_dtype="bfloat16"`` turns on the executor's
         mixed-precision policy (fp32 masters, bf16 compute); the names in
@@ -482,13 +481,6 @@ class Symbol:
         NDArray, shared."""
         from ..executor import Executor
         from ..context import Context, current_context
-        sparse = {k: v for k, v in (stype_dict or {}).items()
-                  if v not in (None, "default")}
-        if sparse:
-            raise MXNetError(
-                "simple_bind: storage types %s need sparse arrays "
-                "(ndarray/sparse.py), which this package does not have yet"
-                % sparse)
         if group2ctx:
             devices = {Context(c) for c in group2ctx.values()}
             devices.add(Context(ctx if ctx is not None
@@ -886,7 +878,8 @@ _PARAM_SHAPE_HOOKS = {
 def var(name, attr=None, shape=None, lr_mult=None, wd_mult=None, dtype=None,
         init=None, stype=None, **kwargs):
     """Create a variable symbol (reference: symbol.py var), with the
-    current ``AttrScope``'s attrs."""
+    current ``AttrScope``'s attrs.  ``stype`` is taken and, as in the JAX
+    package, the variable binds dense."""
     from ..attribute import AttrScope
     if not isinstance(name, str):
         raise TypeError("Expect a string for variable name")

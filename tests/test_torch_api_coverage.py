@@ -44,25 +44,20 @@ MODULES = ("", "optimizer", "metric", "initializer", "lr_scheduler",
            "gluon.rnn", "gluon.contrib", "gluon.contrib.rnn",
            "checkpoint", "fault", "compile_cache", "serving.generate",
            "gluon.contrib.transformer", "parallel", "base", "ndarray",
-           "symbol", "executor", "predictor", "image", "recordio", "rnn")
+           "symbol", "executor", "predictor", "image", "recordio", "rnn",
+           "ndarray.sparse")
 
 DEFERRED = {
-    # queue 1 item 8: the long tail (LibSVMIter yields a CSRNDArray,
-    # which comes with ndarray/sparse.py; the sparse storage types and
-    # their ops; the detection, sampling and CTC ops)
+    # queue 1 item 8: the long tail (the detection, sampling and CTC ops)
     "queue 1 item 8": {
-        "io": {"LibSVMIter"},
         "gluon.loss": {"CTCLoss"},
         "": {"CustomOp", "CustomOpProp", "operator", "contrib", "rtc",
              "test_utils", "th", "torch"},
-        "ndarray": {"CSRNDArray", "RowSparseNDArray", "sparse",
-                    "sparse_array", "cast_storage", "sparse_retain",
-                    "square_sum", "Custom", "BilinearSampler", "CTCLoss",
+        "ndarray": {"Custom", "BilinearSampler", "CTCLoss",
                     "ctc_loss", "Correlation", "GridGenerator",
                     "MultiBoxDetection", "MultiBoxPrior", "MultiBoxTarget",
                     "Proposal", "ROIPooling", "SpatialTransformer"},
-        "symbol": {"cast_storage", "sparse_retain", "square_sum",
-                   "BilinearSampler", "CTCLoss", "ctc_loss", "Correlation",
+        "symbol": {"BilinearSampler", "CTCLoss", "ctc_loss", "Correlation",
                    "GridGenerator", "MultiBoxDetection", "MultiBoxPrior",
                    "MultiBoxTarget", "Proposal", "ROIPooling",
                    "SpatialTransformer"},
@@ -86,13 +81,6 @@ DEFERRED = {
 # members}}}.  A member is any public name of ``dir()`` (methods,
 # properties, attributes of the class, inherited ones too)
 DEFERRED_MEMBERS = {
-    # queue 1 item 8: row-sparse storage
-    "queue 1 item 8": {
-        "kvstore": {"KVStore": {"row_sparse_pull"},
-                    "KVStoreDist": {"row_sparse_pull"},
-                    "KVStoreDistAsync": {"row_sparse_pull"},
-                    "KVStoreTPU": {"row_sparse_pull"}},
-    },
     # queue 1 item 9: tuning and the analysis of compiled programs
     "queue 1 item 9": {
         "config": {"EnvVar": {"tunable"}},
@@ -107,13 +95,20 @@ DEFERRED_MEMBERS = {
     },
 }
 
-# the names the last eight slices ported, none of which may be deferred:
+# the names the last nine slices ported, none of which may be deferred:
 # the training-loop API, the data pipeline and the module family,
 # gluon's image path, telemetry, the profiler and gluon's recurrent
 # layers, the train-to-serve loop, generative serving and the elastic
 # fit, then data-parallel training across GPUs, then its asynchronous and
-# multi-process rest
+# multi-process rest, then sparse storage
 PORTED = {
+    "ndarray": {"CSRNDArray", "RowSparseNDArray", "sparse", "sparse_array",
+                "cast_storage", "sparse_retain", "square_sum", "dot"},
+    "ndarray.sparse": {"BaseSparseNDArray", "RowSparseNDArray",
+                       "CSRNDArray", "cast_storage", "retain", "zeros",
+                       "empty", "array", "sparse_array", "csr_matrix",
+                       "row_sparse_array", "dot"},
+    "symbol": {"cast_storage", "sparse_retain", "square_sum"},
     "parallel": {"InboxFull", "Message", "SpoolTransport", "transport",
                  "ring_attention", "ulysses_attention", "pipeline_apply",
                  "stack_stages", "switch_moe", "stack_experts", "pipeline",
@@ -190,7 +185,8 @@ PORTED = {
                    "RandomSampler", "BatchSampler", "DataLoader", "vision"},
     "gluon.model_zoo.vision": {"get_model", "resnet50_v1", "ResNetV1",
                                "mobilenet_v2_0_25", "inception_v3"},
-    "io": {"ResizeIter", "PrefetchingIter", "MNISTIter", "CSVIter",
+    "io": {"LibSVMIter", "ResizeIter", "PrefetchingIter", "MNISTIter",
+           "CSVIter",
            "ImageRecordIter", "ImageDetRecordIter", "MXDataIter"},
     "model": {"FeedForward"},
     "module": {"BucketingModule", "SequentialModule", "PythonModule",
@@ -239,15 +235,9 @@ DEFERRED_PARAMS = {
         ("", "Executor.__init__"): {"ctx", "order"},
         ("executor", "Executor.__init__"): {"ctx", "order"},
     },
-    # queue 1 item 8: the JAX package's ``nd.dot`` is the sparse-aware
-    # wrapper (CSR operands), which comes with ndarray/sparse.py; the
-    # port's is the registered dense op
-    "queue 1 item 8": {
-        ("ndarray", "dot"): {"lhs", "rhs", "transpose_a", "transpose_b"},
-    },
 }
 
-# the port's modules that the last eight slices added or extended
+# the port's modules that the last nine slices added or extended
 NEW_MODULES = ("mxnet_tpu_torch.optimizer", "mxnet_tpu_torch.metric",
                "mxnet_tpu_torch.initializer", "mxnet_tpu_torch.lr_scheduler",
                "mxnet_tpu_torch.callback", "mxnet_tpu_torch.engine",
@@ -314,7 +304,14 @@ NEW_MODULES = ("mxnet_tpu_torch.optimizer", "mxnet_tpu_torch.metric",
                "mxnet_tpu_torch.parallel.transport",
                "mxnet_tpu_torch.kvstore_server",
                "mxnet_tpu_torch.serving.fleet",
-               "mxnet_tpu_torch.fault.drill")
+               "mxnet_tpu_torch.fault.drill",
+               "mxnet_tpu_torch.ndarray", "mxnet_tpu_torch.ndarray.sparse",
+               "mxnet_tpu_torch.ndarray.ndarray",
+               "mxnet_tpu_torch.ops.reduce",
+               "mxnet_tpu_torch.ops.optimizer_ops",
+               "mxnet_tpu_torch.gluon.trainer",
+               "mxnet_tpu_torch.gluon.nn.basic_layers",
+               "mxnet_tpu_torch.symbol.symbol")
 
 
 def _module(root, sub):

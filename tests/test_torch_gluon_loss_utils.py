@@ -261,23 +261,33 @@ def test_get_constant_refuses_a_parameter_of_that_name():
 
 
 def test_dense_storage_defaults_are_accepted_and_sparse_ones_refused():
-    """Queue 3 item 4: ``Parameter(stype=, grad_stype=)`` and
-    ``Embedding(sparse_grad=)`` take the reference's dense defaults, as
-    the JAX package does; the sparse values raise MXNetError naming
-    ``ndarray/sparse.py`` (the JAX package takes them)."""
+    """Queue 3 item 4, then sparse storage: ``Parameter(stype=,
+    grad_stype=)`` and ``Embedding(sparse_grad=)`` take the dense
+    defaults and the sparse values as the JAX package does (nothing is
+    refused now): the storage types are kept, the data stays dense, and
+    ``sparse_grad=True`` makes the weight's gradient row-sparse; the
+    lookups agree."""
+    outs = []
     for mx in (jmx, tmx):
         with tmx.cpu():
             p = mx.gluon.Parameter("w", shape=(2,), stype="default",
                                    grad_stype="default")
             assert p.name == "w"
-            emb = build(mx, lambda m: m.gluon.nn.Embedding(
-                5, 3, sparse_grad=False, prefix="e_"))
-            init(mx, emb)
-            assert emb(nd(mx, [[1, 4]])).shape == (1, 2, 3)
-    jmx.gluon.nn.Embedding(5, 3, sparse_grad=True)
-    for kw in ({"stype": "row_sparse"}, {"grad_stype": "row_sparse"},
-               {"stype": "csr"}):
-        with pytest.raises(MXNetError, match="ndarray/sparse.py"):
-            tmx.gluon.Parameter("w", shape=(2,), **kw)
-    with pytest.raises(MXNetError, match="ndarray/sparse.py"):
-        tmx.gluon.nn.Embedding(5, 3, sparse_grad=True)
+            for kw in ({"stype": "row_sparse"}, {"grad_stype": "row_sparse"},
+                       {"stype": "csr"}):
+                q = mx.gluon.Parameter("w", shape=(2,), **kw)
+                assert (q._stype, q._grad_stype) == (
+                    kw.get("stype", "default"),
+                    kw.get("grad_stype", "default"))
+            for sparse_grad in (False, True):
+                emb = build(mx, lambda m: m.gluon.nn.Embedding(
+                    5, 3, sparse_grad=sparse_grad, prefix="e_"))
+                init(mx, emb)
+                emb.weight.set_data(nd(mx, np.arange(15).reshape(5, 3)))
+                assert emb.weight._grad_stype == (
+                    "row_sparse" if sparse_grad else "default")
+                assert emb.weight.data().stype == "default"
+                outs.append(emb(nd(mx, [[1, 4]])).asnumpy())
+    assert outs[0].shape == (1, 2, 3)
+    for j, t in zip(outs[:2], outs[2:]):
+        np.testing.assert_array_equal(t, j)

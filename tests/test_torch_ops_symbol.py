@@ -30,7 +30,7 @@ CASES = list(range(len(chip_smoke.OP_CASES)))
 DEFERRED_CONTRIB = {
     "CTCLoss", "DeformableConvolution", "DeformablePSROIPooling",
     "MultiBoxDetection", "MultiBoxPrior", "MultiBoxTarget", "MultiProposal",
-    "PSROIPooling", "Proposal", "ROIAlign", "ROIPooling", "SparseEmbedding",
+    "PSROIPooling", "Proposal", "ROIAlign", "ROIPooling",
     "bipartite_matching", "box_iou", "box_nms", "box_non_maximum_suppression",
     "ctc_loss", "dequantize", "quantize", "quantize_v2", "quantized_conv",
     "quantized_flatten", "quantized_fully_connected", "quantized_pooling",

@@ -345,9 +345,10 @@ def test_simple_bind_is_inference_only():
 def test_simple_bind_takes_the_reference_keywords():
     """Queue 3 item 1: ``stype_dict``, ``group2ctx``, ``shared_arg_names``
     and ``shared_buffer`` in the reference's positional order, as the JAX
-    package takes them; a sparse storage type or a second device raises
-    MXNetError naming what is missing, the port's own ``compute_dtype``
-    and ``cast_exclude`` are keywords only."""
+    package takes them; a sparse storage type binds dense, as in the JAX
+    package; a second device raises MXNetError naming what is missing,
+    the port's own ``compute_dtype`` and ``cast_exclude`` are keywords
+    only."""
     import inspect
     want = ["ctx", "grad_req", "type_dict", "stype_dict", "group2ctx",
             "shared_arg_names", "shared_exec", "shared_buffer"]
@@ -366,9 +367,12 @@ def test_simple_bind_takes_the_reference_keywords():
                               data=(1, 3, 32, 32))
         assert exe.grad_dict == {}
         assert exe.arg_dict["data"].shape == (1, 3, 32, 32)
-    with pytest.raises(MXNetError, match="ndarray/sparse.py"):
-        ps.simple_bind(tmx.cpu(), stype_dict={"fc1_weight": "row_sparse"},
-                       data=(1, 3, 32, 32))
+    # a sparse storage type binds dense in both packages
+    for sym, ctx in ((ps, tmx.cpu()), (js, jmx.cpu())):
+        exe = sym.simple_bind(ctx, stype_dict={"fc1_weight": "row_sparse"},
+                              data=(1, 3, 32, 32))
+        assert exe.arg_dict["fc1_weight"].stype == "default"
+        assert exe.arg_dict["fc1_weight"].shape == (10, 64)
     with pytest.raises(MXNetError, match="one device"):
         ps.simple_bind(tmx.cpu(), group2ctx={"a": tmx.cpu(0),
                                              "b": tmx.gpu(0)},
