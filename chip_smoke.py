@@ -12,6 +12,7 @@ toolkit (``nvcc`` on PATH or under ``$CUDA_HOME``)::
     python3 chip_smoke.py model_parallel   # phases 1-2, then 23 alone
     python3 chip_smoke.py fleet            # phases 1-2, then 24 alone
     python3 chip_smoke.py sparse           # phases 1-2, then 25 alone
+    python3 chip_smoke.py detection        # phases 1-2, then 26 alone
 
 Phases, each of which raises on failure:
 
@@ -386,6 +387,20 @@ Phases, each of which raises on failure:
    ``SPARSE_TWIN_TOL`` of the CPU, the rows no batch looked up bitwise in
    the weights and both Adam states, the validation RMSE falling, and no
    K1a, K1b or K4 launch in ``mxnet_pallas_kernel_calls_total``;
+26. the detection and ROI ops (``detection_phase``), fp32 without TF32,
+   random weights and synthetic images from the seed: (a)
+   ``example/ssd/train.py``'s flow at SSD300's widths (VGG16-reduced,
+   8,732 anchors, 21 classes, batch 32): 3 + 10 ``gluon.Trainer`` SGD
+   steps on one batch (the loss falling), the host syncs of a step and
+   its idle share, ``MultiBoxTarget`` held to the port on the CPU (mining
+   flips within fp32 rounding counted), the decode at ``nms_topk`` 400
+   and -1 held to a numpy sequential NMS (``detection_oracle``) on 4
+   images; (b) ``example/rcnn``'s ``detect`` flow at VGG16 end to end's
+   widths (4 images of 600 x 1000, 21,546 anchors an image):
+   ``MultiProposal``, ``ROIPooling`` and ``ROIAlign`` on 1,200 ROIs with
+   their backward, per-class ``box_nms``, 8 ROIs' gradient held to the
+   CPU; (c) the deformable pair at Deformable R-FCN's res5 width, held to
+   the CPU; no kernel launch expected;
 then every kernel's device time by the profiler (K6b's with the L2 cache
 overwritten before each launch; the bf16 instances of K3, K6a, K6b,
 K7a, K7b and K7c that phase 15 launches beside their plain versions,
@@ -403,7 +418,8 @@ Prints one JSON line ``{"checkpoints": {...}}`` with phase 13's numbers,
 {...}}`` with phase 20's, ``{"generative": {...}}`` and ``{"elastic":
 {...}}`` with phase 21's, ``{"parallel": {...}}`` with phase 22's,
 ``{"model_parallel": {...}}`` with phase 23's, ``{"fleet": {...}}``
-with phase 24's, ``{"sparse": {...}}`` with phase 25's, one
+with phase 24's, ``{"sparse": {...}}`` with phase 25's,
+``{"detection": {...}}`` with phase 26's, one
 ``{"kernels":
 [...]}`` (all twelve kernels; K3, K2 and K1b with their
 ``launches_inception``, K1b, K2, K3, K6a, K6b, K7a, K7b and K7c with
@@ -677,8 +693,20 @@ _NNZ = ("nd.cast_storage to a sparse storage type compacts the dense "
         "value on the card, and torch.nonzero reads the count of what is "
         "stored back to size the payload: the one host scalar of the JAX "
         "package's compaction")
+_NMS = ("greedy NMS runs as a fixed point of one matrix-vector step and "
+        "reads a convergence flag back after each round of steps (1, 2, 4, "
+        "...): exact greedy suppression is sequential in the depth of its "
+        "chains, which only the data knows")
+_ROI = ("ROIPooling gathers each bin's window at the size of the call's "
+        "largest bin, whose extent it reads back once (a bin may cover the "
+        "whole map); the pooling runs on the card")
 OP_HOST_SYNC = {"_linalg_syevd": _EIGH, "linalg_syevd": _EIGH,
-                "cast_storage": _NNZ}
+                "cast_storage": _NNZ, "_contrib_box_nms": _NMS,
+                "_contrib_box_non_maximum_suppression": _NMS,
+                "MultiBoxDetection": _NMS, "_contrib_MultiBoxDetection": _NMS,
+                "Proposal": _NMS, "_contrib_Proposal": _NMS,
+                "_contrib_MultiProposal": _NMS, "ROIPooling": _ROI,
+                "_contrib_ROIPooling": _ROI}
 
 
 def _op_cases(seed=SEED):
@@ -1167,6 +1195,125 @@ def _op_cases(seed=SEED):
         {"input_dim": 5, "output_dim": 3}, band="exact", grad=True)
     add("_sparse_adagrad_update", [wt, gr, pos],
         dict(hyper, clip_gradient=0.3, epsilon=1e-6))
+    # -- detection and ROI (ops/contrib.py, ops/misc.py) ------------------
+    def corners(*shape, lo=0.0, hi=1.0):
+        a, b = u(*shape, 2, lo=lo, hi=hi), u(*shape, 2, lo=lo, hi=hi)
+        return np.concatenate([np.minimum(a, b), np.maximum(a, b)], -1)
+
+    fmap = u(2, 3, 5, 7)
+    for name, attrs in (
+            ("MultiBoxPrior", {"sizes": (0.2, 0.272), "ratios": (1, 2, 0.5),
+                               "steps": (0.125, 0.125), "clip": True}),
+            ("_contrib_MultiBoxPrior", {"sizes": (0.3, 0.6),
+                                        "ratios": (1.0, 2.0, 3.0),
+                                        "offsets": (0.25, 0.75)}),
+            ("MultiBoxPrior", {})):
+        add(name, [fmap], attrs, band="exact")
+    anchors = corners(1, 48)
+    labels = np.concatenate([ints(3, 4, 1, lo=0, hi=3), corners(3, 4)], -1)
+    labels[1, 2:] = -1.0                                 # padded label rows
+    logits = u(3, 4, 48, lo=-2, hi=2)
+    for name, attrs in (
+            ("MultiBoxTarget", {"overlap_threshold": 0.3,
+                                "negative_mining_ratio": 3.0}),
+            ("_contrib_MultiBoxTarget", {"overlap_threshold": 0.4}),
+            ("MultiBoxTarget", {"overlap_threshold": 0.2,
+                                "negative_mining_ratio": 2.0,
+                                "negative_mining_thresh": 0.3,
+                                "minimum_negative_samples": 5,
+                                "variances": (0.1, 0.1, 0.25, 0.25)})):
+        add(name, [anchors, labels, logits], attrs)
+    add("_contrib_box_iou", [corners(5), corners(2, 3)], grad=True)
+    add("_contrib_box_iou", [u(4, 4, lo=0.2, hi=0.8), u(3, 4, lo=0.2, hi=0.8)],
+        {"format": "center"}, grad=True)
+    dets = np.concatenate([ints(2, 30, 1, lo=0, hi=3), u(2, 30, 1, lo=0, hi=1),
+                           corners(2, 30)], -1)
+    dets[0, 5:9, 1] = dets[0, 4, 1]                      # score ties
+    for name, attrs in (
+            ("_contrib_box_nms", {"overlap_thresh": 0.3}),
+            ("_contrib_box_nms", {"overlap_thresh": 0.4, "id_index": 0,
+                                  "topk": 12, "valid_thresh": 0.1}),
+            ("_contrib_box_non_maximum_suppression",
+             {"overlap_thresh": 0.3, "id_index": 0, "force_suppress": True,
+              "out_format": "center"}),
+            ("_contrib_box_nms", {"overlap_thresh": 0.5, "in_format": "center",
+                                  "out_format": "corner"})):
+        add(name, [dets], attrs, band="exact", grad=True)
+    scores = u(2, 6, 4, lo=0, hi=1)
+    for attrs in ({"threshold": 0.3}, {"threshold": 0.7, "is_ascend": True},
+                  {"threshold": 0.1, "topk": 2}):
+        add("_contrib_bipartite_matching", [scores], attrs, band="exact")
+    prob = np.exp(logits) / np.exp(logits).sum(1, keepdims=True)
+    loc = u(3, 48 * 4, lo=-1, hi=1)
+    for name, attrs in (("MultiBoxDetection", {"nms_threshold": 0.3}),
+                        ("_contrib_MultiBoxDetection",
+                         {"nms_threshold": 0.45, "nms_topk": 10,
+                          "threshold": 0.2}),
+                        ("MultiBoxDetection",
+                         {"nms_threshold": 0.3, "force_suppress": True,
+                          "clip": False, "background_id": 1})):
+        add(name, [prob.astype(f32), loc, anchors], attrs)
+    # integer-valued maps (tied maxima) and ROIs that reach past the map
+    # (empty bins) for ROIPooling's backward
+    rois = np.array([[0, 2, 3, 40, 50], [1, 0, 0, 60, 60], [0, 10, 10, 11, 12],
+                     [1, -20, 5, 30, 90], [1, 70, 70, 90, 95]], f32)
+    for name in ("ROIPooling", "_contrib_ROIPooling"):
+        add(name, [ints(2, 4, 8, 9), rois], {"pooled_size": (3, 2),
+                                             "spatial_scale": 0.125},
+            band="exact", grad=True)
+    add("ROIPooling", [u(2, 4, 8, 9), rois], {"pooled_size": (2, 2),
+                                              "spatial_scale": 0.25},
+        band="exact", grad=True)
+    for attrs in ({"pooled_size": (3, 2), "spatial_scale": 0.125},
+                  {"pooled_size": (2, 3), "spatial_scale": 0.125,
+                   "sample_ratio": -1}):
+        add("_contrib_ROIAlign", [u(2, 4, 8, 9), rois[:4]], attrs, grad=True)
+    add("_contrib_PSROIPooling", [u(2, 18, 8, 9), rois],
+        {"spatial_scale": 0.125, "output_dim": 2, "pooled_size": 3},
+        grad=True)
+    add("_contrib_PSROIPooling", [u(2, 8, 8, 9), rois],
+        {"spatial_scale": 0.125, "output_dim": 2, "pooled_size": 3,
+         "group_size": 2}, grad=True)
+    cls_prob = u(2, 6, 4, 5, lo=0, hi=1)
+    info = np.array([[64, 80, 1.0], [60, 70, 1.0]], f32)
+    for name, attrs in (
+            ("_contrib_Proposal", {"rpn_pre_nms_top_n": 30,
+                                   "rpn_post_nms_top_n": 10, "threshold": 0.5,
+                                   "rpn_min_size": 4, "scales": (2, 4, 8),
+                                   "ratios": (1.0,), "feature_stride": 16}),
+            ("Proposal", {"rpn_pre_nms_top_n": 40, "rpn_post_nms_top_n": 30,
+                          "threshold": 0.3, "rpn_min_size": 8,
+                          "scales": (2, 4, 8), "ratios": (1.0,),
+                          "feature_stride": 16, "output_score": True}),
+            ("_contrib_MultiProposal", {"rpn_pre_nms_top_n": 20,
+                                        "rpn_post_nms_top_n": 8,
+                                        "threshold": 0.7, "rpn_min_size": 4,
+                                        "scales": (4,),
+                                        "ratios": (0.5, 1, 2),
+                                        "feature_stride": 16,
+                                        "output_score": True})):
+        add(name, [cls_prob, u(2, 12, 4, 5, lo=-0.5, hi=0.5), info], attrs)
+    x = u(2, 4, 6, 7)
+    add("_contrib_DeformableConvolution",
+        [x, u(2, 18, 6, 7, lo=-1.5, hi=1.5), u(5, 4, 3, 3), u(5)],
+        {"kernel": (3, 3), "pad": (1, 1), "num_filter": 5}, grad=True)
+    add("_contrib_DeformableConvolution",
+        [x, u(2, 2 * 2 * 4, 3, 4, lo=-2, hi=2), u(4, 2, 2, 2)],
+        {"kernel": (2, 2), "stride": (2, 2), "dilate": (2, 2), "pad": (1, 1),
+         "num_filter": 4, "num_group": 2, "num_deformable_group": 2,
+         "no_bias": True}, grad=True)
+    add("_contrib_DeformablePSROIPooling",
+        [u(2, 18, 8, 9), rois, u(5, 2, 3, 3)],
+        {"spatial_scale": 0.125, "output_dim": 2, "pooled_size": 3,
+         "group_size": 3, "trans_std": 0.1}, grad=True)
+    add("_contrib_DeformablePSROIPooling",
+        [u(2, 8, 8, 9), rois, u(5, 4, 2, 2)],
+        {"spatial_scale": 0.125, "output_dim": 2, "pooled_size": 3,
+         "group_size": 2, "part_size": 2, "sample_per_part": 2,
+         "trans_std": 0.2}, grad=True)
+    add("_contrib_DeformablePSROIPooling", [u(2, 18, 8, 9), rois],
+        {"spatial_scale": 0.125, "output_dim": 2, "pooled_size": 3,
+         "group_size": 3, "no_trans": True}, grad=True)
     return cases
 
 
@@ -10908,6 +11055,881 @@ def sparse_async_rank(rank, world, init_method, ctx, spool):
             kv.close()
 
 
+# ---------------------------------------------------------------------------
+# phase 26: the detection and ROI operators at SSD300's and VGG16 Faster
+# R-CNN's widths, and the deformable pair at Deformable R-FCN's res5 width
+# ---------------------------------------------------------------------------
+VGG16 = ((64, 64), (128, 128), (256, 256, 256), (512, 512, 512),
+         (512, 512, 512))
+SSD300 = {
+    # MXNet 1.2 example/ssd symbol_factory.get_config("vgg16_reduced", 300)
+    # (Liu et al. 2016): VGG16-reduced body, heads on relu4_3 (L2
+    # normalised, scale 20), relu7 and four extra blocks (mid, out, stride,
+    # pad), 8,732 anchors
+    "image": 300, "batch": 32, "classes": 21, "vgg": VGG16, "fc": 1024,
+    "extras": ((256, 512, 2, 1), (128, 256, 2, 1), (128, 256, 1, 0),
+               (128, 256, 1, 0)),
+    "sizes": ((0.1, 0.141), (0.2, 0.272), (0.37, 0.447), (0.54, 0.619),
+              (0.71, 0.79), (0.88, 0.961)),
+    "ratios": ((1, 2, 0.5),) + ((1, 2, 0.5, 3, 1 / 3),) * 3
+    + ((1, 2, 0.5),) * 2,
+    "steps": (8 / 300, 16 / 300, 32 / 300, 64 / 300, 100 / 300, 1.0),
+    "anchors": 8732, "boxes": (1, 8), "label_rows": 16,
+    "warmup": 3, "timed": 10,
+    "sgd": {"learning_rate": 1e-3, "momentum": 0.9, "wd": 5e-4},
+    "target": {"overlap_threshold": 0.5, "negative_mining_ratio": 3.0,
+               "variances": (0.1, 0.1, 0.2, 0.2)},
+    "nms": 0.45, "topk": 400, "oracle_images": 4, "decode_reps": 3,
+}
+FRCNN = {
+    # MXNet 1.2 example/rcnn, VGG16 end to end, the test config (Ren et al.
+    # 2015): conv5_3 at stride 16 (38 x 63 at 600 x 1000), RPN 3x3 512 and
+    # 2A/4A 1x1 heads, A 9, MultiProposal 6000 -> 300 at 0.7, ROIPooling 7x7
+    # at 1/16, fc6/fc7 4096, 21 + 84 outputs, per-class NMS at 0.3
+    "images": 4, "height": 600, "width": 1000, "classes": 21, "vgg": VGG16,
+    "rpn": 512, "scales": (8, 16, 32), "ratios": (0.5, 1, 2), "stride": 16,
+    "pre": 6000, "post": 300, "rpn_nms": 0.7, "min_size": 16, "pooled": 7,
+    "fc": 4096, "nms": 0.3, "sample_ratio": 2, "check_rois": 8, "reps": 3,
+}
+DEFORM = {
+    # Deformable R-FCN's res5 (Dai et al. 2017): a 3x3 512 -> 512
+    # deformable convolution, dilate 2, on a 38 x 63 map; position-sensitive
+    # pooling of 300 ROIs, 21 classes, 7 x 7 groups and bins, trans_std 0.1
+    "height": 38, "width": 63, "channels": 512, "dilate": 2, "rois": 300,
+    "classes": 21, "group": 7, "pooled": 7, "trans_std": 0.1,
+    "image": (600, 1000), "stride": 16, "reps": 3,
+}
+DET_TOL = 1e-5      # of the largest value: the card against the port on the
+                    # CPU (fp32 sums in another order: cuBLAS, atomics)
+DET_BOX_TOL = 1e-6  # |box coordinate| (in [0, 1]) against the numpy oracle:
+                    # numpy's expf and the card's differ by an ulp
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """fp32 convolutions and matmuls without TF32 for the body."""
+    was = (torch.backends.cudnn.allow_tf32,
+           torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = was
+
+
+def vgg_stages(mx, widths, ceil=True):
+    """VGG16's conv1_1 ... conv5_3 (3x3, ReLU) as one ``nn.Sequential`` a
+    block, each but the first led by a 2x2 max pool (``ceil_mode``)."""
+    nn = mx.gluon.nn
+    stages = []
+    for i, block in enumerate(widths):
+        seq = nn.Sequential()
+        if i:
+            seq.add(nn.MaxPool2D(2, 2, ceil_mode=ceil))
+        for w in block:
+            seq.add(nn.Conv2D(w, 3, padding=1, activation="relu"))
+        stages.append(seq)
+    return stages
+
+
+def ssd_net(mx, cfg):
+    """SSD in the pattern of example/ssd/train.py's ``SSDNet`` (a forward
+    returning anchors, (B, classes, N) class scores and (B, N*4) offsets)
+    with MXNet 1.2 example/ssd's VGG16-reduced body: conv1_1-conv4_3,
+    then pool4, conv5_*, pool5 3x3 s1 p1, fc6 3x3 dilation 6 and fc7 1x1,
+    then ``cfg["extras"]``; heads (3x3 convs) on relu4_3 (L2 normalised
+    by channel, times a learned scale set to 20), relu7 and each extra
+    block, anchors from ``MultiBoxPrior`` with each map's sizes, ratios
+    and steps."""
+    nn = mx.gluon.nn
+    classes = cfg["classes"]
+    anchors_per_cell = [len(s) + len(r) - 1
+                        for s, r in zip(cfg["sizes"], cfg["ratios"])]
+
+    class SSD(mx.gluon.Block):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                vgg = vgg_stages(mx, cfg["vgg"])
+                self.stages = nn.Sequential()
+                first = nn.Sequential()
+                for seq in vgg[:4]:
+                    first.add(seq)
+                self.stages.add(first)
+                second = nn.Sequential()
+                second.add(vgg[4], nn.MaxPool2D(3, 1, padding=1),
+                           nn.Conv2D(cfg["fc"], 3, padding=6, dilation=6,
+                                     activation="relu"),
+                           nn.Conv2D(cfg["fc"], 1, activation="relu"))
+                self.stages.add(second)
+                for mid, out, stride, pad in cfg["extras"]:
+                    seq = nn.Sequential()
+                    seq.add(nn.Conv2D(mid, 1, activation="relu"),
+                            nn.Conv2D(out, 3, strides=stride, padding=pad,
+                                      activation="relu"))
+                    self.stages.add(seq)
+                self.norm_scale = self.params.get(
+                    "norm_scale", shape=(1, cfg["vgg"][3][-1], 1, 1),
+                    init=mx.init.Constant(20.0))
+                self.cls_heads = nn.Sequential()
+                self.loc_heads = nn.Sequential()
+                for a in anchors_per_cell:
+                    self.cls_heads.add(nn.Conv2D(a * classes, 3, padding=1))
+                    self.loc_heads.add(nn.Conv2D(a * 4, 3, padding=1))
+
+        def forward(self, x):
+            B = x.shape[0]
+            anchors, cls, loc = [], [], []
+            feat = x
+            for i in range(len(self.stages)):
+                feat = self.stages[i](feat)
+                head_in = feat
+                if i == 0:
+                    head_in = mx.nd.L2Normalization(feat, mode="channel") \
+                        * self.norm_scale.data(feat.context)
+                step = cfg["steps"][i]
+                anchors.append(mx.nd.contrib.MultiBoxPrior(
+                    feat, sizes=cfg["sizes"][i], ratios=cfg["ratios"][i],
+                    steps=(step, step)))
+                cls.append(self.cls_heads[i](head_in).transpose(
+                    (0, 2, 3, 1)).reshape((B, -1, classes)))
+                loc.append(self.loc_heads[i](head_in).transpose(
+                    (0, 2, 3, 1)).reshape((B, -1)))
+            return (mx.nd.concat(*anchors, dim=1),
+                    mx.nd.concat(*cls, dim=1).transpose((0, 2, 1)),
+                    mx.nd.concat(*loc, dim=1))
+
+    return SSD()
+
+
+def ssd_example_net(mx, num_classes=2, num_anchors=3):
+    """example/ssd/train.py's own ``SSDNet``: a 32x32 input, two conv +
+    pool stages to an 8x8 map, one class and one offset head, anchors
+    sizes (0.3, 0.6) x ratios (1, 2), clipped."""
+    nn = mx.gluon.nn
+
+    class SSDNet(mx.gluon.Block):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.body = nn.Sequential()
+                self.body.add(nn.Conv2D(16, 3, padding=1, activation="relu"),
+                              nn.MaxPool2D(2),
+                              nn.Conv2D(32, 3, padding=1, activation="relu"),
+                              nn.MaxPool2D(2))
+                self.cls_head = nn.Conv2D(num_anchors * num_classes, 3,
+                                          padding=1)
+                self.loc_head = nn.Conv2D(num_anchors * 4, 3, padding=1)
+
+        def forward(self, x):
+            feat = self.body(x)
+            anchors = mx.nd.contrib.MultiBoxPrior(
+                feat, sizes=(0.3, 0.6), ratios=(1.0, 2.0), clip=True)
+            B = x.shape[0]
+            cls_pred = self.cls_head(feat).transpose((0, 2, 3, 1)).reshape(
+                (B, -1, num_classes)).transpose((0, 2, 1))
+            loc_pred = self.loc_head(feat).transpose((0, 2, 3, 1)).reshape(
+                (B, -1))
+            return anchors, cls_pred, loc_pred
+
+    return SSDNet()
+
+
+def ssd_example_batch(rng, batch, img=32):
+    """example/ssd/train.py's ``make_batch``: one bright rectangle an
+    image; labels (B, 1, 5) [cls, x1, y1, x2, y2] in [0, 1]."""
+    x = rng.rand(batch, 1, img, img).astype(np.float32) * 0.1
+    labels = np.zeros((batch, 1, 5), np.float32)
+    for i in range(batch):
+        w, h = rng.randint(8, 20), rng.randint(8, 20)
+        x0, y0 = rng.randint(0, img - w), rng.randint(0, img - h)
+        x[i, 0, y0:y0 + h, x0:x0 + w] += 1.0
+        labels[i, 0] = [0, x0 / img, y0 / img, (x0 + w) / img,
+                        (y0 + h) / img]
+    return x, labels
+
+
+def ssd_batch(cfg, seed=SEED):
+    """Synthetic detection data at ``cfg``'s widths: ``batch`` images of
+    ``image`` x ``image``, each holding ``boxes`` (lo, hi) rectangles of
+    the ``classes - 1`` foreground classes (a colour a class) on noise;
+    labels (B, label_rows, 5) [cls, x1, y1, x2, y2] in [0, 1], padded with
+    rows of -1."""
+    rng = np.random.RandomState(seed + 26)
+    n, s = cfg["batch"], cfg["image"]
+    fg = cfg["classes"] - 1
+    colors = rng.uniform(-1, 1, (fg, 3)).astype(np.float32)
+    x = (rng.rand(n, 3, s, s) * 0.2).astype(np.float32)
+    labels = np.full((n, cfg["label_rows"], 5), -1.0, np.float32)
+    for i in range(n):
+        for j in range(rng.randint(cfg["boxes"][0], cfg["boxes"][1] + 1)):
+            w, h = rng.randint(s // 10, s // 2, 2)
+            x0, y0 = rng.randint(0, s - w), rng.randint(0, s - h)
+            c = rng.randint(fg)
+            x[i, :, y0:y0 + h, x0:x0 + w] += colors[c][:, None, None]
+            labels[i, j] = [c, x0 / s, y0 / s, (x0 + w) / s, (y0 + h) / s]
+    return x, labels
+
+
+def ssd_loss(mx, net, x, label, target):
+    """example/ssd/train.py's loss: ``MultiBoxTarget`` with ``target``,
+    softmax cross-entropy over the anchors mining keeps (rescaled to their
+    mean) plus smooth L1 over the positives' offsets (over their count).
+    Returns (loss, (loc_target, loc_mask, cls_target), cls_pred)."""
+    ctx = x.context
+    anchors, cls_pred, loc_pred = net(x)
+    loc_t, loc_mask, cls_t = mx.nd.contrib.MultiBoxTarget(
+        anchors, label, cls_pred, **target)
+    keep = cls_t >= 0
+    sample_weight = keep.astype("float32").expand_dims(axis=-1)
+    n_kept = mx.nd.maximum(keep.astype("float32").sum(),
+                           mx.nd.ones((1,), ctx=ctx))
+    n_anchors = float(cls_t.shape[1])
+    l_cls = mx.gluon.loss.SoftmaxCrossEntropyLoss()(
+        cls_pred.transpose((0, 2, 1)),
+        mx.nd.maximum(cls_t, mx.nd.zeros_like(cls_t)),
+        sample_weight).sum() * n_anchors / n_kept
+    n_pos = mx.nd.maximum(loc_mask.sum() / 4.0, mx.nd.ones((1,), ctx=ctx))
+    l_loc = mx.nd.smooth_l1((loc_pred - loc_t) * loc_mask,
+                            scalar=1.0).sum() / n_pos
+    return l_cls + l_loc, (loc_t, loc_mask, cls_t), cls_pred
+
+
+def ssd_step(mx, net, trainer, x, label, target):
+    """One training step of example/ssd/train.py: the loss recorded, its
+    backward, ``trainer.step(1)``; returns the loss (not read)."""
+    with mx.autograd.record():
+        loss, _, _ = ssd_loss(mx, net, x, label, target)
+    loss.backward()
+    trainer.step(1)
+    return loss
+
+
+def ssd_decode(mx, net, x, **attrs):
+    """example/ssd/train.py's decode: softmax over the class axis, then
+    ``MultiBoxDetection`` with ``attrs``."""
+    anchors, cls_pred, loc_pred = net(x)
+    return mx.nd.contrib.MultiBoxDetection(
+        mx.nd.softmax(cls_pred, axis=1), loc_pred, anchors, **attrs)
+
+
+def detection_oracle(cls_prob, loc_pred, anchors, nms_threshold=0.5,
+                     nms_topk=-1, threshold=0.01, background_id=0,
+                     clip=True, force_suppress=False,
+                     variances=(0.1, 0.1, 0.2, 0.2)):
+    """``MultiBoxDetection`` of one image in numpy float32, from the JAX
+    package's contract (mxnet_tpu/ops/contrib.py:358-413) with the
+    sequential greedy loop: cls_prob (classes, N), loc_pred (N*4), anchors
+    (N, 4) -> (N, 6) rows, the kept first by descending score (stable),
+    the rest -1."""
+    f32 = np.float32
+    C, N = cls_prob.shape
+    p = np.where((np.arange(C) == background_id)[:, None], -np.inf,
+                 cls_prob)
+    cls_id = p.argmax(0)
+    score = p.max(0).astype(f32)
+    loc = loc_pred.reshape(N, 4)
+    ax1, ay1, ax2, ay2 = anchors.T
+    acx, acy = (ax1 + ax2) * f32(0.5), (ay1 + ay2) * f32(0.5)
+    aw, ah = ax2 - ax1, ay2 - ay1
+    vx, vy, vw, vh = (f32(v) for v in variances)
+    cx = loc[:, 0] * vx * aw + acx
+    cy = loc[:, 1] * vy * ah + acy
+    w = np.exp(loc[:, 2] * vw) * aw
+    h = np.exp(loc[:, 3] * vh) * ah
+    hw, hh = w * f32(0.5), h * f32(0.5)
+    boxes = np.stack([cx - hw, cy - hh, cx + hw, cy + hh], -1).astype(f32)
+    if clip:
+        boxes = np.clip(boxes, f32(0), f32(1))
+    valid = score > f32(threshold)
+    order = np.argsort(-np.where(valid, score, -np.inf), kind="stable")
+    keep = valid[order].copy()
+    if nms_topk > 0:
+        keep[nms_topk:] = False
+    b, ids = boxes[order], cls_id[order]
+    area = (np.maximum(b[:, 2] - b[:, 0], f32(0))
+            * np.maximum(b[:, 3] - b[:, 1], f32(0)))
+    for i in range(N):
+        if not keep[i]:
+            continue
+        o = b[i + 1:]
+        iw = np.maximum(np.minimum(b[i, 2], o[:, 2])
+                        - np.maximum(b[i, 0], o[:, 0]), f32(0))
+        ih = np.maximum(np.minimum(b[i, 3], o[:, 3])
+                        - np.maximum(b[i, 1], o[:, 1]), f32(0))
+        inter = iw * ih
+        union = area[i] + area[i + 1:] - inter
+        with np.errstate(divide="ignore", invalid="ignore"):
+            iou = np.where(union > 0, inter / union, f32(0))
+        sup = iou > f32(nms_threshold)
+        if not force_suppress:
+            sup &= ids[i + 1:] == ids[i]
+        keep[i + 1:] &= ~sup
+    kept = order[keep]
+    out = np.full((N, 6), -1.0, f32)
+    cid = cls_id[kept]
+    out[:len(kept), 0] = np.where(cid > background_id, cid - 1, cid)
+    out[:len(kept), 1] = score[kept]
+    out[:len(kept), 2:] = boxes[kept]
+    return out
+
+
+def detections_match(got, want, tol=DET_BOX_TOL):
+    """(equal, largest box difference) of two (N, 6) detection arrays:
+    the same rows kept, ids and scores bitwise, boxes within ``tol``."""
+    same = np.array_equal(got[:, :2], want[:, :2])
+    diff = float(np.abs(got[:, 2:].astype(np.float64) - want[:, 2:]).max()) \
+        if got.size else 0.0
+    return same and diff <= tol, diff
+
+
+def mining_flips(cls_a, cls_b, prob_a, prob_b, ignore=-1.0, ulps=4):
+    """Compare two ``MultiBoxTarget`` cls_targets (B, N) whose
+    hard-negative mining ranked background probabilities ``prob_a`` and
+    ``prob_b`` (B, N), computed by two softmax implementations.  Every
+    difference must be a mining flip: an anchor negative (0) on one side
+    and ignored on the other, each swapped against one of the other side,
+    with the two anchors' probabilities within ``ulps`` float32 spacings
+    of each other on both sides and each anchor's probability within as
+    much between the sides.  Returns (flips, bad): the flips counted, the
+    differences that are no such flip."""
+    flips, bad = 0, 0
+    for a, b, pa, pb in zip(cls_a, cls_b, prob_a, prob_b):
+        diff = np.flatnonzero(a != b)
+        if not diff.size:
+            continue
+        only_a = diff[(a[diff] == 0) & (b[diff] == ignore)]
+        only_b = diff[(b[diff] == 0) & (a[diff] == ignore)]
+        bad += diff.size - only_a.size - only_b.size
+        if only_a.size != only_b.size:
+            bad += abs(only_a.size - only_b.size)
+            continue
+        tol_a = ulps * np.spacing(np.float32(np.abs(pa).max()))
+        tol_b = ulps * np.spacing(np.float32(np.abs(pb).max()))
+        for i, j in zip(np.sort(only_a), np.sort(only_b)):
+            near = (abs(float(pa[i]) - float(pa[j])) <= tol_a
+                    and abs(float(pb[i]) - float(pb[j])) <= tol_b
+                    and abs(float(pa[i]) - float(pb[i])) <= max(tol_a, tol_b)
+                    and abs(float(pa[j]) - float(pb[j])) <= max(tol_a, tol_b))
+            flips += 2 if near else 0
+            bad += 0 if near else 2
+    return flips, bad
+
+
+def _count_syncs(fn):
+    """``fn()`` under torch's sync debug mode "warn": the number of times
+    it made the host wait for the card."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def _peak_reset(ctx):
+    if ctx.device_type == "gpu":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(ctx.torch_device)
+        return torch.cuda.memory_allocated(ctx.torch_device)
+    return None
+
+
+def _peak(ctx, base):
+    if ctx.device_type != "gpu":
+        return None
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated(ctx.torch_device) - base
+
+
+def _timed_ms(device, fn, reps):
+    """Each of ``reps`` calls of ``fn`` timed by CUDA events (the host
+    clock on the CPU), after one untimed call; (median ms, all, last
+    result)."""
+    out = fn()
+    times = []
+    for _ in range(reps):
+        a = _marker(device)
+        out = fn()
+        times.append(_elapsed_ms(a, _marker(device)))
+    return float(np.median(times)), times, out
+
+
+def ssd_detection(mx, ctx, cfg=SSD300, cpu=None, seed=SEED, profile=True):
+    """Phase 26 (a): example/ssd/train.py's flow at ``cfg``'s widths on
+    ``ctx``: ``warmup`` + ``timed`` training steps on one fixed batch
+    (gluon ``Trainer`` SGD), its host syncs and device profile, the
+    targets held to the port on ``cpu``, then the decode at ``nms_topk``
+    ``topk`` and -1, ``oracle_images`` images held to ``detection_oracle``.
+    Returns the record (``failures`` lists what failed)."""
+    from mxnet_tpu_torch.ops import contrib as tcontrib
+    cpu = cpu or mx.cpu()
+    device = ctx.torch_device
+    on_card = device.type == "cuda"
+    failures = []
+    t0 = time.perf_counter()
+    torch.manual_seed(seed)
+    x_np, lab_np = ssd_batch(cfg, seed)
+    net = ssd_net(mx, cfg)
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    x = mx.nd.array(x_np, ctx=ctx)
+    label = mx.nd.array(lab_np, ctx=ctx)
+    anchors, cls_pred, loc_pred = net(x)
+    n_anchors = anchors.shape[1]
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd", dict(cfg["sgd"]))
+    base = _peak_reset(ctx)
+    losses, marks = [], []
+    for _ in range(cfg["warmup"] + cfg["timed"]):
+        a = _marker(device)
+        losses.append(ssd_step(mx, net, trainer, x, label, cfg["target"]))
+        marks.append((a, _marker(device)))
+    step_ms = [_elapsed_ms(a, b) for a, b in marks[cfg["warmup"]:]]
+    peak = _peak(ctx, base)
+    losses = [float(v.asnumpy().sum()) for v in losses]
+    ms = float(np.median(step_ms))
+    rec = {"anchors": n_anchors, "batch": cfg["batch"],
+           "image": cfg["image"], "classes": cfg["classes"],
+           "step_ms": ms, "step_ms_all": step_ms,
+           "images_per_s": cfg["batch"] / (ms / 1e3),
+           "loss_first": losses[0], "loss_last": losses[-1],
+           "losses": losses, "device_peak_bytes": peak}
+    if not losses[-1] < losses[0]:
+        failures.append("the loss on the fixed batch did not fall: %s"
+                        % losses)
+    if on_card:
+        rec["host_syncs_per_step"] = _count_syncs(
+            lambda: ssd_step(mx, net, trainer, x, label, cfg["target"]))
+        if profile:
+            by_name = device_times(
+                lambda: ssd_step(mx, net, trainer, x, label, cfg["target"]),
+                n=1)
+            busy = sum(by_name.values())
+            rec["busy_us"] = busy if busy > 0 else None
+            rec["idle_share"] = (max(0.0, 1 - busy / (ms * 1e3))
+                                 if busy > 0 else None)
+            rec["top_kernels"] = sorted(
+                by_name.items(), key=lambda kv: -kv[1])[:6]
+    # the targets on ctx against the port on the CPU, same inputs
+    with mx.autograd.pause():
+        anchors, cls_pred, _ = net(x)
+    target = dict(cfg["target"])
+    got = mx.nd.contrib.MultiBoxTarget(anchors, label, cls_pred, **target)
+    ref = mx.nd.contrib.MultiBoxTarget(
+        mx.nd.array(anchors.asnumpy(), ctx=cpu),
+        mx.nd.array(lab_np, ctx=cpu),
+        mx.nd.array(cls_pred.asnumpy(), ctx=cpu), **target)
+    mask_equal = np.array_equal(got[1].asnumpy(), ref[1].asnumpy())
+    prob_bg = torch.softmax(cls_pred._data, dim=1)[:, 0].cpu().numpy()
+    prob_ref = torch.softmax(torch.from_numpy(cls_pred.asnumpy()),
+                             dim=1)[:, 0].numpy()
+    flips, bad = mining_flips(got[2].asnumpy(), ref[2].asnumpy(), prob_bg,
+                              prob_ref)
+    loc_err = _rel(got[0]._data.cpu(), ref[0]._data)
+    rec.update(target_loc_mask_equal=mask_equal, target_mining_flips=flips,
+               target_cls_other=bad, target_loc_rel=loc_err,
+               positives=int(got[1].asnumpy().sum() / 4),
+               negatives=int((got[2].asnumpy() == 0).sum()))
+    if not mask_equal or bad or not loc_err <= DET_TOL:
+        failures.append("MultiBoxTarget on %s against the CPU: loc_mask "
+                        "equal %s, %d cls differences no mining flip, loc "
+                        "%.3g" % (ctx, mask_equal, bad, loc_err))
+    # the decode, timed, and held to the numpy oracle
+    for key, topk in (("topk", cfg["topk"]), ("all", -1)):
+        attrs = {"nms_threshold": cfg["nms"], "nms_topk": topk}
+        with mx.autograd.pause():
+            anchors, cls_pred, loc_pred = net(x)
+            cls_prob = mx.nd.softmax(cls_pred, axis=1)
+        for k in tcontrib.NMS_COUNTS:
+            tcontrib.NMS_COUNTS[k] = 0
+        dms, dall, dets = _timed_ms(device, lambda: mx.nd.contrib
+                                    .MultiBoxDetection(cls_prob, loc_pred,
+                                                       anchors, **attrs),
+                                    cfg["decode_reps"])
+        counts = {k: v / (cfg["decode_reps"] + 1)
+                  for k, v in tcontrib.NMS_COUNTS.items()}
+        dets = dets.asnumpy()
+        cp, lp, an = (cls_prob.asnumpy(), loc_pred.asnumpy(),
+                      anchors.asnumpy()[0])
+        worst, equal = 0.0, True
+        for i in range(min(cfg["oracle_images"], cfg["batch"])):
+            ok, d = detections_match(dets[i], detection_oracle(
+                cp[i], lp[i], an, nms_threshold=cfg["nms"], nms_topk=topk))
+            equal &= ok
+            worst = max(worst, d)
+        rec["decode_%s" % key] = {
+            "nms_topk": topk, "ms": dms, "ms_all": dall,
+            "kept_per_image": float((dets[:, :, 0] >= 0).sum(1).mean()),
+            "nms_steps_per_call": counts["steps"],
+            "host_reads_per_call": counts["host_reads"],
+            "oracle_equal": equal, "oracle_box_diff": worst}
+        if not equal:
+            failures.append("MultiBoxDetection (nms_topk %d) differs from "
+                            "the numpy oracle (boxes %.3g)" % (topk, worst))
+    rec["seconds"] = time.perf_counter() - t0
+    rec["failures"] = failures
+    return rec
+
+
+def frcnn_net(mx, cfg):
+    """Faster R-CNN's VGG16 network (MXNet 1.2 example/rcnn, end to end):
+    ``features`` is conv1_1-conv5_3 (pools in ceil mode, stride 16) and
+    the RPN (3x3 ``rpn`` conv, ReLU, 2A scores and 4A offsets, 1x1);
+    ``head`` is fc6 and fc7 (ReLU) then the class scores and the
+    class-specific offsets."""
+    nn = mx.gluon.nn
+    A = len(cfg["scales"]) * len(cfg["ratios"])
+
+    class FasterRCNN(mx.gluon.Block):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.body = nn.Sequential()
+                for seq in vgg_stages(mx, cfg["vgg"]):
+                    self.body.add(seq)
+                self.rpn_conv = nn.Conv2D(cfg["rpn"], 3, padding=1,
+                                          activation="relu")
+                self.rpn_cls = nn.Conv2D(2 * A, 1)
+                self.rpn_box = nn.Conv2D(4 * A, 1)
+                self.fc6 = nn.Dense(cfg["fc"], activation="relu")
+                self.fc7 = nn.Dense(cfg["fc"], activation="relu")
+                self.cls_score = nn.Dense(cfg["classes"])
+                self.bbox_pred = nn.Dense(4 * cfg["classes"])
+
+        def features(self, x):
+            f = self.body(x)
+            r = self.rpn_conv(f)
+            return f, self.rpn_cls(r), self.rpn_box(r)
+
+        def head(self, pooled):
+            h = self.fc7(self.fc6(pooled))
+            return self.cls_score(h), self.bbox_pred(h)
+
+    return FasterRCNN()
+
+
+def rpn_probs(mx, rpn_cls):
+    """The RPN's two-way softmax over (B, 2A, H, W) scores laid out class
+    major ([bg x A, fg x A]), as MultiProposal takes them."""
+    B, A2, H, W = rpn_cls.shape
+    return mx.nd.softmax(rpn_cls.reshape((B, 2, (A2 // 2) * H, W)),
+                         axis=1).reshape((B, A2, H, W))
+
+
+def frcnn_decode(mx, rois, cls_score, bbox_pred, classes, images, post):
+    """Per-class detections (images * (classes - 1), post, 6) rows [class,
+    score, x1, y1, x2, y2]: each ROI's offsets for a class applied to the
+    ROI (``exp`` clipped at +-4, as example/rcnn/train_end2end.py)."""
+    prob = mx.nd.softmax(cls_score, axis=-1)              # (R, classes)
+    box = rois.slice_axis(axis=1, begin=1, end=5)
+    rw = box.slice_axis(axis=1, begin=2, end=3) - \
+        box.slice_axis(axis=1, begin=0, end=1)
+    rh = box.slice_axis(axis=1, begin=3, end=4) - \
+        box.slice_axis(axis=1, begin=1, end=2)
+    rcx = box.slice_axis(axis=1, begin=0, end=1) + rw / 2
+    rcy = box.slice_axis(axis=1, begin=1, end=2) + rh / 2
+    d = bbox_pred.reshape((-1, classes, 4))
+    cx = rcx + d.slice_axis(axis=2, begin=0, end=1).reshape((-1, classes)) \
+        * rw
+    cy = rcy + d.slice_axis(axis=2, begin=1, end=2).reshape((-1, classes)) \
+        * rh
+    w = mx.nd.exp(mx.nd.clip(d.slice_axis(axis=2, begin=2, end=3).reshape(
+        (-1, classes)), -4, 4)) * rw
+    h = mx.nd.exp(mx.nd.clip(d.slice_axis(axis=2, begin=3, end=4).reshape(
+        (-1, classes)), -4, 4)) * rh
+    cid = mx.nd.broadcast_to(mx.nd.arange(classes, ctx=rois.context)
+                             .reshape((1, classes)), shape=prob.shape)
+    rows = mx.nd.stack(cid, prob, cx - w / 2, cy - h / 2, cx + w / 2,
+                       cy + h / 2, axis=-1)               # (R, classes, 6)
+    rows = rows.reshape((images, post, classes, 6)).transpose((0, 2, 1, 3))
+    return rows.slice_axis(axis=1, begin=1, end=classes).reshape(
+        (-1, post, 6))
+
+
+def frcnn_detection(mx, ctx, cfg=FRCNN, cpu=None, seed=SEED):
+    """Phase 26 (b): example/rcnn's ``detect`` flow at VGG16 end to end's
+    widths on ``ctx``: features and RPN, ``_contrib_MultiProposal``,
+    ``ROIPooling`` and the head, per-class ``box_nms``; ``ROIAlign`` on the
+    same ROIs; one backward of a scalar loss through the ROI head to
+    conv5_3 for each; the gradient of ``check_rois`` ROIs held to the port
+    on ``cpu``.  Returns the record (``failures`` lists what failed)."""
+    cpu = cpu or mx.cpu()
+    device = ctx.torch_device
+    failures = []
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(seed + 27)
+    B, S = cfg["images"], cfg["stride"]
+    x_np = rng.uniform(-1, 1, (B, 3, cfg["height"], cfg["width"])) \
+        .astype(np.float32)
+    torch.manual_seed(seed)
+    net = frcnn_net(mx, cfg)
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    x = mx.nd.array(x_np, ctx=ctx)
+    info = mx.nd.array(np.tile(np.array(
+        [[cfg["height"], cfg["width"], 1.0]], np.float32), (B, 1)), ctx=ctx)
+    prop_attrs = dict(rpn_pre_nms_top_n=cfg["pre"],
+                      rpn_post_nms_top_n=cfg["post"], threshold=cfg["rpn_nms"],
+                      rpn_min_size=cfg["min_size"], scales=cfg["scales"],
+                      ratios=cfg["ratios"], feature_stride=S)
+    pool_attrs = dict(pooled_size=(cfg["pooled"], cfg["pooled"]),
+                      spatial_scale=1.0 / S)
+    base = _peak_reset(ctx)
+    with mx.autograd.pause():
+        feat, rpn_cls, rpn_box = net.features(x)
+        probs = rpn_probs(mx, rpn_cls)
+        prop_ms, prop_all, rois = _timed_ms(
+            device, lambda: mx.nd.contrib.MultiProposal(
+                probs, rpn_box, info, **prop_attrs), cfg["reps"])
+        pooled = mx.nd.ROIPooling(feat, rois, **pool_attrs)
+        cls_score, bbox_pred = net.head(pooled)
+        dets = frcnn_decode(mx, rois, cls_score, bbox_pred, cfg["classes"],
+                            B, cfg["post"])
+        nms_ms, _, kept = _timed_ms(device, lambda: mx.nd.contrib.box_nms(
+            dets, overlap_thresh=cfg["nms"]), cfg["reps"])
+    kept = kept.asnumpy()
+    rec = {"images": B, "map": list(feat.shape), "anchors":
+           int(rpn_cls.shape[1] // 2 * rpn_cls.shape[2] * rpn_cls.shape[3]),
+           "rois": int(rois.shape[0]), "proposal_ms": prop_ms,
+           "proposal_ms_all": prop_all, "class_nms_ms": nms_ms,
+           "detections_kept": int((kept[:, :, 0] >= 0).sum())}
+    r_np = rois.asnumpy()
+    if not (np.isfinite(r_np).all() and np.isfinite(kept).all()):
+        failures.append("non-finite proposals or detections")
+    if not np.array_equal(r_np[:, 0], np.repeat(np.arange(B), cfg["post"])):
+        failures.append("the ROIs' batch indices are not 0..%d in order"
+                        % (B - 1))
+    rng_w = np.random.RandomState(seed + 28)
+    wc = mx.nd.array(rng_w.uniform(-1, 1, (rois.shape[0], cfg["classes"]))
+                     .astype(np.float32), ctx=ctx)
+    wb = mx.nd.array(rng_w.uniform(-1, 1, (rois.shape[0], 4 * cfg["classes"]))
+                     .astype(np.float32), ctx=ctx)
+    fd = mx.nd.array(feat.asnumpy(), ctx=ctx)
+    twin = frcnn_net(mx, cfg)
+    twin.initialize(mx.init.Zero(), ctx=cpu)
+    twin.features(mx.nd.zeros((1, 3, 2 * S, 2 * S), ctx=cpu))
+    twin.head(mx.nd.zeros((1, cfg["vgg"][-1][-1], cfg["pooled"],
+                           cfg["pooled"]), ctx=cpu))
+    mx.convert.block_params_from_numpy(
+        twin, {k: v.data().asnumpy()
+               for k, v in net.collect_params().items()}, ctx=cpu)
+    for key, op, attrs in (
+            ("roi_pooling", mx.nd.ROIPooling, pool_attrs),
+            ("roi_align", mx.nd.contrib.ROIAlign,
+             dict(pool_attrs, sample_ratio=cfg["sample_ratio"]))):
+        fwd_ms, _, out = _timed_ms(device, lambda: op(fd, rois, **attrs),
+                                   cfg["reps"])
+        fd.attach_grad()
+        g = mx.nd.array(np.random.RandomState(seed + 29).uniform(
+            -1, 1, out.shape).astype(np.float32), ctx=ctx)
+
+        def roi_backward():
+            with mx.autograd.record():
+                o = op(fd, rois, **attrs)
+            o.backward(g)
+            return fd.grad
+
+        bwd_all = []
+        roi_backward()
+        for _ in range(cfg["reps"]):
+            with mx.autograd.record():
+                o = op(fd, rois, **attrs)
+            a = _marker(device)
+            o.backward(g)
+            bwd_all.append(_elapsed_ms(a, _marker(device)))
+
+        def head_loss(net_, f, r, wc_, wb_):
+            with mx.autograd.record():
+                c, b = net_.head(op(f, r, **attrs))
+                loss = (c * wc_).sum() + (b * wb_).sum()
+            loss.backward()
+            return f.grad
+
+        a = _marker(device)
+        head_loss(net, fd, rois, wc, wb)
+        head_ms = _elapsed_ms(a, _marker(device))
+        # check_rois ROIs on ctx and through the port on the CPU
+        n = cfg["check_rois"]
+        got = head_loss(net, fd, rois[:n], wc[:n], wb[:n]).asnumpy()
+        fc = mx.nd.array(fd.asnumpy(), ctx=cpu)
+        fc.attach_grad()
+        want = head_loss(twin, fc, mx.nd.array(r_np[:n], ctx=cpu),
+                         mx.nd.array(wc.asnumpy()[:n], ctx=cpu),
+                         mx.nd.array(wb.asnumpy()[:n], ctx=cpu)).asnumpy()
+        err = _rel(torch.from_numpy(got), torch.from_numpy(want))
+        rec[key] = {"forward_ms": fwd_ms, "backward_ms":
+                    float(np.median(bwd_all)), "backward_ms_all": bwd_all,
+                    "head_step_ms": head_ms, "check_rois": n,
+                    "grad_rel_cpu": err, "shape": list(out.shape)}
+        if not err <= DET_TOL:
+            failures.append("%s: the gradient of %d ROIs lies %.3g from the "
+                            "CPU's" % (key, n, err))
+        fd = mx.nd.array(feat.asnumpy(), ctx=ctx)
+    rec["device_peak_bytes"] = _peak(ctx, base)
+    rec["seconds"] = time.perf_counter() - t0
+    rec["failures"] = failures
+    return rec
+
+
+def deform_detection(mx, ctx, cfg=DEFORM, cpu=None, seed=SEED):
+    """Phase 26 (c): the deformable pair at ``cfg``'s widths, batch 1, on
+    ``ctx``: each forward and backward (d sum(out * w) by data, offsets or
+    trans, and weight) timed and held to the port on ``cpu``.  Returns the
+    record (``failures`` lists what failed)."""
+    cpu = cpu or mx.cpu()
+    device = ctx.torch_device
+    failures = []
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(seed + 30)
+    H, W, C = cfg["height"], cfg["width"], cfg["channels"]
+    u = lambda *s, a=1.0: rng.uniform(-a, a, s).astype(np.float32)  # noqa
+    ih, iw = cfg["image"]
+    lo = rng.uniform(0, 1, (cfg["rois"], 2)) * [iw * 0.8, ih * 0.8]
+    size = rng.uniform(32, 400, (cfg["rois"], 2))
+    rois = np.concatenate([np.zeros((cfg["rois"], 1)), lo,
+                           np.minimum(lo + size, [iw - 1, ih - 1])], 1) \
+        .astype(np.float32)
+    od, grp, pooled = cfg["classes"], cfg["group"], cfg["pooled"]
+    d = cfg["dilate"]
+    cases = (
+        ("deformable_convolution", mx.nd.contrib.DeformableConvolution,
+         [u(1, C, H, W), u(1, 18, H, W, a=2.0),
+          u(C, C, 3, 3, a=float(np.sqrt(3.0 / (9 * C)))), u(C)],
+         dict(kernel=(3, 3), dilate=(d, d), pad=(d, d), num_filter=C)),
+        ("deformable_psroi_pooling",
+         mx.nd.contrib.DeformablePSROIPooling,
+         [u(1, od * grp * grp, H, W), rois, u(cfg["rois"], 2, grp, grp)],
+         dict(spatial_scale=1.0 / cfg["stride"], output_dim=od,
+              group_size=grp, pooled_size=pooled,
+              trans_std=cfg["trans_std"])))
+    rec = {}
+    for key, op, ins, attrs in cases:
+        diff = [i for i, a in enumerate(ins) if a is not rois]
+
+        def run(on, times=None):
+            arrs = [mx.nd.array(a, ctx=on) for a in ins]
+            for i in diff:
+                arrs[i].attach_grad()
+            wt = mx.nd.array(np.random.RandomState(seed + 31).uniform(
+                -1, 1, op(*arrs, **attrs).shape).astype(np.float32), ctx=on)
+            a = _marker(on.torch_device)
+            with mx.autograd.record():
+                out = op(*arrs, **attrs)
+            b = _marker(on.torch_device)
+            out.backward(wt)
+            c = _marker(on.torch_device)
+            if times is not None:
+                times.append((_elapsed_ms(a, b), _elapsed_ms(b, c)))
+            return [out.asnumpy()] + [arrs[i].grad.asnumpy() for i in diff]
+
+        times = []
+        for _ in range(cfg["reps"] + 1):
+            got = run(ctx, times)
+        want = run(cpu)
+        errs = [_rel(torch.from_numpy(g), torch.from_numpy(w))
+                for g, w in zip(got, want)]
+        rec[key] = {"forward_ms": float(np.median([t[0] for t in times[1:]])),
+                    "backward_ms": float(np.median([t[1]
+                                                    for t in times[1:]])),
+                    "output": list(got[0].shape), "rel_cpu": errs}
+        if not (all(e <= DET_TOL for e in errs)
+                and all(np.isfinite(g).all() for g in got)):
+            failures.append("%s: output and gradients lie %s from the "
+                            "CPU's" % (key, errs))
+    rec["seconds"] = time.perf_counter() - t0
+    rec["failures"] = failures
+    return rec
+
+
+def detection_phase(mx, ck, smi, ssd=SSD300, frcnn=FRCNN, deform=DEFORM,
+                    ctx=None, cpu=None):
+    """Phase 26: (a) SSD300, (b) Faster R-CNN VGG16, (c) the deformable
+    pair, fp32 without TF32, on ``ctx`` (the card), each held to the port
+    on ``cpu``; the kernel counter over all three.  Raises on failure;
+    prints its lines and returns its record."""
+    ctx = ctx or mx.gpu(0)
+    cpu = cpu or mx.cpu()
+    t0 = time.perf_counter()
+    ck.reset_kernel_calls()
+    with no_tf32():
+        a = ssd_detection(mx, ctx, ssd, cpu)
+        b = frcnn_detection(mx, ctx, frcnn, cpu)
+        c = deform_detection(mx, ctx, deform, cpu)
+    calls = {k: v for k, v in ck.kernel_calls().items() if v}
+    print("phase 26 (a) on %s: SSD300 (VGG16-reduced, %d anchors, %d "
+          "classes) batch %d at %d px, gluon.Trainer SGD: %.3f ms/step "
+          "(median of %d, CUDA events), %.1f images/s, loss %.4f -> %.4f on "
+          "one batch; host syncs a step %s; device busy %s us, idle share "
+          "%s; peak %s MB; MultiBoxTarget against the CPU: loc_mask equal "
+          "%s, mining flips %d, other cls differences %d, loc %.3g "
+          "(%d positives, %d negatives); decode nms_topk %d: %.3f ms (%.1f "
+          "NMS steps, %.1f host reads a call, %.1f kept an image), "
+          "nms_topk -1: %.3f ms (%.1f steps, %.1f reads, %.1f kept); the "
+          "numpy oracle on %d images: equal %s / %s (boxes %.2g / %.2g)"
+          % (smi, a["anchors"], ssd["classes"], a["batch"], a["image"],
+             a["step_ms"], ssd["timed"], a["images_per_s"], a["loss_first"],
+             a["loss_last"], a.get("host_syncs_per_step"), a.get("busy_us"),
+             a.get("idle_share"), _mb_or_na(a["device_peak_bytes"]),
+             a["target_loc_mask_equal"], a["target_mining_flips"],
+             a["target_cls_other"], a["target_loc_rel"], a["positives"],
+             a["negatives"], ssd["topk"], a["decode_topk"]["ms"],
+             a["decode_topk"]["nms_steps_per_call"],
+             a["decode_topk"]["host_reads_per_call"],
+             a["decode_topk"]["kept_per_image"], a["decode_all"]["ms"],
+             a["decode_all"]["nms_steps_per_call"],
+             a["decode_all"]["host_reads_per_call"],
+             a["decode_all"]["kept_per_image"], ssd["oracle_images"],
+             a["decode_topk"]["oracle_equal"], a["decode_all"]["oracle_equal"],
+             a["decode_topk"]["oracle_box_diff"],
+             a["decode_all"]["oracle_box_diff"]), flush=True)
+    print("phase 26 (b) on %s: Faster R-CNN VGG16, %d images of %dx%d, map "
+          "%s, %d anchors an image: MultiProposal %d -> %d at %.1f: %.3f ms; "
+          "%d ROIs; per-class box_nms %.3f ms (%d kept); ROIPooling forward "
+          "%.3f ms, backward %.3f ms, through the head %.3f ms, %d ROIs' "
+          "gradient vs the CPU %.3g; ROIAlign forward %.3f ms, backward "
+          "%.3f ms, through the head %.3f ms, vs the CPU %.3g; peak %s MB"
+          % (smi, b["images"], frcnn["height"], frcnn["width"], b["map"],
+             b["anchors"], frcnn["pre"], frcnn["post"], frcnn["rpn_nms"],
+             b["proposal_ms"], b["rois"], b["class_nms_ms"],
+             b["detections_kept"], b["roi_pooling"]["forward_ms"],
+             b["roi_pooling"]["backward_ms"],
+             b["roi_pooling"]["head_step_ms"], frcnn["check_rois"],
+             b["roi_pooling"]["grad_rel_cpu"], b["roi_align"]["forward_ms"],
+             b["roi_align"]["backward_ms"], b["roi_align"]["head_step_ms"],
+             b["roi_align"]["grad_rel_cpu"],
+             _mb_or_na(b["device_peak_bytes"])), flush=True)
+    print("phase 26 (c) on %s: DeformableConvolution %d -> %d 3x3 dilate %d "
+          "on %dx%d: forward %.3f ms, backward %.3f ms, vs the CPU %s; "
+          "DeformablePSROIPooling %d ROIs, %d classes, %dx%d: forward %.3f "
+          "ms, backward %.3f ms, vs the CPU %s; kernel launches %s; phase 26 "
+          "%.1f s" % (
+              smi, deform["channels"], deform["channels"], deform["dilate"],
+              deform["height"], deform["width"],
+              c["deformable_convolution"]["forward_ms"],
+              c["deformable_convolution"]["backward_ms"],
+              ["%.2g" % e for e in c["deformable_convolution"]["rel_cpu"]],
+              deform["rois"], deform["classes"], deform["pooled"],
+              deform["pooled"], c["deformable_psroi_pooling"]["forward_ms"],
+              c["deformable_psroi_pooling"]["backward_ms"],
+              ["%.2g" % e for e in c["deformable_psroi_pooling"]["rel_cpu"]],
+              calls, time.perf_counter() - t0), flush=True)
+    bad = a["failures"] + b["failures"] + c["failures"]
+    if bad:
+        raise AssertionError("phase 26: " + "; ".join(bad))
+    return {"card": smi, "seconds": time.perf_counter() - t0,
+            "launches": calls, "ssd300": a, "faster_rcnn": b,
+            "deformable": c}
+
+
+def _mb_or_na(nbytes):
+    return "%.1f" % (nbytes / 2**20) if nbytes is not None else "n/a"
+
+
+
 def main():
     if sys.argv[1:2] == ["_fleet_replica"]:
         # phase 24 (a)'s replica, in a process of its own
@@ -11017,6 +12039,15 @@ def main():
         # phase 25 alone
         sparse_line = sparse_phase(mx, ck, smi)
         print(json.dumps({"sparse": sparse_line}, default=str))
+        print("nvidia-smi: %s" % smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
+        return 0
+    if sys.argv[1:] == ["detection"]:
+        # phase 26 alone
+        det_line = detection_phase(mx, ck, smi)
+        print(json.dumps({"detection": det_line}, default=str))
         print("nvidia-smi: %s" % smi)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind,
@@ -12135,6 +13166,8 @@ def main():
         sweeps[name]["launches_drill"] = fleet_line["launches_drill"][name]
     # 25. sparse storage at Avazu's and MovieLens-10M's widths
     sparse_line = sparse_phase(mx, ck, smi)
+    # 26. the detection and ROI ops at SSD300's and Faster R-CNN's widths
+    det_line = detection_phase(mx, ck, smi)
     for job in k7a_jobs:
         job["tflops"] = job["ops"] / job["ms"] / 1e9
     k7a["tflops"] = k7a_jobs[0]["tflops"]
@@ -12238,6 +13271,7 @@ def main():
     print(json.dumps({"model_parallel": mp_line}, default=str))
     print(json.dumps({"fleet": fleet_line}, default=str))
     print(json.dumps({"sparse": sparse_line}, default=str))
+    print(json.dumps({"detection": det_line}, default=str))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
             "launches_per_forward", "call_ms", "plain_call_ms",

@@ -5,9 +5,10 @@ The bounds the reference declares with ``DMLC_DECLARE_FIELD(...)
 op -> param, overlaid on the registry's parameter tables once every op
 module has registered (``install()``, called from ``ops/__init__.py``).
 An out-of-range value then raises the same ``MXNetError`` here as in the
-JAX package.  The table is the JAX package's, without the entries of ops
-this package has not ported yet (ROIPooling, the PSROI and deformable
-ops, Correlation: ROADMAP.md queue 7).
+JAX package.  The table is the JAX package's (the window, pooling and
+group bounds of ROIPooling, PSROIPooling and the deformable pair
+included), without the entry of Correlation, which this package has not
+ported yet (ROADMAP.md queue 1 item 8).
 
 Application rules (``apply()``), as in the JAX package:
 
@@ -36,6 +37,26 @@ CONSTRAINTS = {
                    "workspace": dict(type=int, low=0, high=8192)},
     # src/operator/nn/concat-inl.h:53
     "Concat": {"num_args": dict(low=1)},
+    # src/operator/roi_pooling-inl.h:57 (spatial_scale in (0, 1])
+    "ROIPooling": {"spatial_scale": dict(low=0.0, high=1.0),
+                   "pooled_size": dict(low=1)},
+    # src/operator/contrib/psroi_pooling-inl.h:40
+    "_contrib_PSROIPooling": {"spatial_scale": dict(low=0.0, high=1.0),
+                              "output_dim": dict(low=1),
+                              "pooled_size": dict(low=1),
+                              "group_size": dict(low=0)},
+    # src/operator/contrib/deformable_psroi_pooling-inl.h:62,70
+    "_contrib_DeformablePSROIPooling": {
+        "spatial_scale": dict(low=0.0, high=1.0),
+        "trans_std": dict(low=0.0, high=1.0),
+        "output_dim": dict(low=1), "group_size": dict(low=1),
+        "pooled_size": dict(low=1), "sample_per_part": dict(low=1)},
+    # src/operator/contrib/deformable_convolution-inl.h:78 + conv fields
+    "_contrib_DeformableConvolution": {
+        "num_filter": dict(low=1, high=100000),
+        "num_group": dict(low=1), "num_deformable_group": dict(low=1),
+        "kernel": dict(low=1), "stride": dict(low=1),
+        "dilate": dict(low=1), "pad": dict(low=0)},
     # src/operator/contrib/bilinear_resize-inl.h:54,56
     "_contrib_BilinearResize2D": {"height": dict(type=int, low=1, high=1000),
                                   "width": dict(type=int, low=1, high=1000)},

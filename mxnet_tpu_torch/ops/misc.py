@@ -8,8 +8,10 @@ The storage ops work on dense values, as in the JAX package:
 identity (the NDArray-level ``nd.cast_storage`` makes the sparse array)
 and ``_contrib_SparseEmbedding`` is the Embedding lookup, whose
 row-sparse gradient gluon's ``Embedding(sparse_grad=True)`` and the
-lazy updates of ``optimizer.py`` handle.  The PSROI and Correlation ops
-of that module are not ported yet (ROADMAP.md queue 1 item 8).
+lazy updates of ``optimizer.py`` handle.  ``_contrib_PSROIPooling``
+averages each bin from a float64 summed-area table of the map, so it
+needs no mask of the whole map.  ``Correlation`` is not ported yet
+(ROADMAP.md queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -170,3 +172,56 @@ def _image_normalize(data, mean=(0.0,), std=(1.0,), **attrs):
         _coerce(v), np.float32)), (n,)) for v in (mean, std))
     return torch.stack([(x - float(m)) / float(s) for x, m, s in
                         zip(data.unbind(axis), mean, std)], dim=axis)
+
+
+@register("_contrib_PSROIPooling")
+def _psroi_pooling(data, rois, spatial_scale=1.0, output_dim=1,
+                   pooled_size=7, group_size=0, **attrs):
+    """Position-sensitive ROI pooling (reference: psroi_pooling.cc): bin
+    (od, ph, pw) of a ROI averages every map cell inside it of channel
+    (od * gs + gh) * gs + gw.  The bin bounds are the JAX package's
+    (floor/ceil of the scaled, rounded corners); each bin's sum is four
+    reads of a float64 summed-area table of the map, so memory is O(map +
+    R * output_dim * P^2), and the mean is rounded to the map's dtype once.
+    Differentiable in data."""
+    P_ = int(pooled_size)
+    GS = int(group_size) or P_
+    OD = int(output_dim)
+    B, C, H, W = data.shape
+    scale = float(spatial_scale)
+    dev, dt = data.device, data.dtype
+    grid = torch.arange(P_, device=dev)
+    grp = (grid * GS // P_).clamp(max=GS - 1)
+    chan = (torch.arange(OD, device=dev)[:, None, None] * GS
+            + grp[:, None]) * GS + grp                      # (OD, P, P)
+    with torch.no_grad():
+        r = rois.detach()
+        bidx = r[:, 0].to(torch.int64)
+        x1 = torch.round(r[:, 1]) * scale
+        y1 = torch.round(r[:, 2]) * scale
+        x2 = (torch.round(r[:, 3]) + 1.0) * scale
+        y2 = (torch.round(r[:, 4]) + 1.0) * scale
+        bh = (y2 - y1).clamp_min(0.1)
+        bw = (x2 - x1).clamp_min(0.1)
+        # by a device scalar: CUDA divides by a host scalar through its
+        # reciprocal, which can move a floor/ceil bin bound by a cell
+        bh, bw = bh / bh.new_full((), P_), bw / bw.new_full((), P_)
+        ph = grid.to(dt)
+
+        def bounds(lo, step, n):
+            start = torch.floor(lo[:, None] + ph * step[:, None])
+            end = torch.ceil(lo[:, None] + (ph + 1) * step[:, None])
+            return (start.clamp(0, n).to(torch.int64),
+                    end.clamp(0, n).to(torch.int64))
+
+        hs, he = bounds(y1, bh, H)                            # (R, P)
+        ws, we = bounds(x1, bw, W)
+        den = ((he - hs)[:, :, None] * (we - ws)[:, None, :]).clamp_min(1)
+    table = torch.nn.functional.pad(
+        data.double().cumsum(2).cumsum(3), (1, 0, 1, 0))   # (B, C, H+1, W+1)
+    b = bidx[:, None, None, None]
+    c = chan[None]
+    at = lambda ys, xs: table[b, c, ys[:, None, :, None],  # noqa: E731
+                              xs[:, None, None, :]]
+    num = at(he, we) - at(hs, we) - at(he, ws) + at(hs, ws)  # (R, OD, P, P)
+    return (num / den[:, None]).to(dt)

@@ -48,19 +48,16 @@ MODULES = ("", "optimizer", "metric", "initializer", "lr_scheduler",
            "ndarray.sparse")
 
 DEFERRED = {
-    # queue 1 item 8: the long tail (the detection, sampling and CTC ops)
+    # queue 1 item 8: the long tail (the spatial-transformer and CTC ops)
     "queue 1 item 8": {
         "gluon.loss": {"CTCLoss"},
         "": {"CustomOp", "CustomOpProp", "operator", "contrib", "rtc",
              "test_utils", "th", "torch"},
         "ndarray": {"Custom", "BilinearSampler", "CTCLoss",
                     "ctc_loss", "Correlation", "GridGenerator",
-                    "MultiBoxDetection", "MultiBoxPrior", "MultiBoxTarget",
-                    "Proposal", "ROIPooling", "SpatialTransformer"},
+                    "SpatialTransformer"},
         "symbol": {"BilinearSampler", "CTCLoss", "ctc_loss", "Correlation",
-                   "GridGenerator", "MultiBoxDetection", "MultiBoxPrior",
-                   "MultiBoxTarget", "Proposal", "ROIPooling",
-                   "SpatialTransformer"},
+                   "GridGenerator", "SpatialTransformer"},
     },
     # queue 1 item 9: tuning and analysis
     "queue 1 item 9": {
@@ -95,20 +92,24 @@ DEFERRED_MEMBERS = {
     },
 }
 
-# the names the last nine slices ported, none of which may be deferred:
+# the names the last ten slices ported, none of which may be deferred:
 # the training-loop API, the data pipeline and the module family,
 # gluon's image path, telemetry, the profiler and gluon's recurrent
 # layers, the train-to-serve loop, generative serving and the elastic
 # fit, then data-parallel training across GPUs, then its asynchronous and
-# multi-process rest, then sparse storage
+# multi-process rest, then sparse storage, then the detection and ROI ops
 PORTED = {
     "ndarray": {"CSRNDArray", "RowSparseNDArray", "sparse", "sparse_array",
-                "cast_storage", "sparse_retain", "square_sum", "dot"},
+                "cast_storage", "sparse_retain", "square_sum", "dot",
+                "MultiBoxDetection", "MultiBoxPrior", "MultiBoxTarget",
+                "Proposal", "ROIPooling"},
     "ndarray.sparse": {"BaseSparseNDArray", "RowSparseNDArray",
                        "CSRNDArray", "cast_storage", "retain", "zeros",
                        "empty", "array", "sparse_array", "csr_matrix",
                        "row_sparse_array", "dot"},
-    "symbol": {"cast_storage", "sparse_retain", "square_sum"},
+    "symbol": {"cast_storage", "sparse_retain", "square_sum",
+               "MultiBoxDetection", "MultiBoxPrior", "MultiBoxTarget",
+               "Proposal", "ROIPooling"},
     "parallel": {"InboxFull", "Message", "SpoolTransport", "transport",
                  "ring_attention", "ulysses_attention", "pipeline_apply",
                  "stack_stages", "switch_moe", "stack_experts", "pipeline",

@@ -26,15 +26,11 @@ sys.path.insert(0, REPO)
 import chip_smoke  # noqa: E402
 
 CASES = list(range(len(chip_smoke.OP_CASES)))
-# the contrib ops not ported yet (ROADMAP.md queue 7), by short name
+# the contrib ops not ported yet (ROADMAP.md queue 1 item 8), by short name
 DEFERRED_CONTRIB = {
-    "CTCLoss", "DeformableConvolution", "DeformablePSROIPooling",
-    "MultiBoxDetection", "MultiBoxPrior", "MultiBoxTarget", "MultiProposal",
-    "PSROIPooling", "Proposal", "ROIAlign", "ROIPooling",
-    "bipartite_matching", "box_iou", "box_nms", "box_non_maximum_suppression",
-    "ctc_loss", "dequantize", "quantize", "quantize_v2", "quantized_conv",
-    "quantized_flatten", "quantized_fully_connected", "quantized_pooling",
-    "requantize"}
+    "CTCLoss", "ctc_loss", "dequantize", "quantize", "quantize_v2",
+    "quantized_conv", "quantized_flatten", "quantized_fully_connected",
+    "quantized_pooling", "requantize"}
 
 
 def _ids(i):
